@@ -1,0 +1,62 @@
+"""Model facade: the uniform init/apply/cache/decode/prefill handles over
+the model zoo (``repro/models/registry.py``), and ``ParamModule``, the
+``nn.Module`` that holds a parameter tree so ``.to(device)`` and
+``state_dict()`` work on it."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    init: Callable        # (generator, cfg, dtype=..., num_layers=None, device=...) -> params
+    apply: Callable       # (params, cfg, tokens) -> (logits, aux)
+    init_cache: Callable  # (params, cfg, batch_size, max_len, dtype, device) -> cache
+    # (params, cfg, tokens(B,1), cache, index(B,)) -> (logits, cache); the
+    # cache is written in place.
+    decode_step: Callable
+    # (params, cfg, tokens, cache) -> (logits (B,S,V), cache ready for
+    # decode at per-row cursor = prompt length).
+    prefill: Optional[Callable] = None
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    if cfg.is_encoder_decoder or cfg.family != "dense":
+        raise NotImplementedError(
+            f"ROADMAP queue A item 12 (remaining architectures): {cfg.name} "
+            f"(family {cfg.family!r}) is not ported yet; the port serves "
+            "dense decoders")
+    return ModelApi(init=transformer.lm_init, apply=transformer.lm_apply,
+                    init_cache=transformer.lm_init_cache,
+                    decode_step=transformer.lm_decode_step,
+                    prefill=transformer.lm_prefill)
+
+
+class ParamModule(nn.Module):
+    """Holds a nested dict of tensors as frozen parameters of nested
+    modules, so ``state_dict()`` keys follow the tree ('blocks.layer0.
+    attn.wq') and ``.to()`` moves every leaf.  ``tree()`` returns the dict
+    the model functions take, sharing storage with the module."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        for key, val in params.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamModule(val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(torch.as_tensor(val),
+                                      requires_grad=False))
+
+    def tree(self) -> dict:
+        out = {name: p for name, p in self.named_parameters(recurse=False)}
+        for name, child in self.named_children():
+            out[name] = child.tree()
+        return out

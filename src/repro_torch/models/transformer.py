@@ -1,0 +1,240 @@
+"""Stacked decoder-only LM (``repro/models/transformer.py``, dense
+attention blocks).
+
+Layers are grouped into super-blocks of ``cfg.pattern_period`` layers; every
+leaf of ``params["blocks"]`` carries a leading ``n_super`` axis, as in the
+reference, so progressive depth expansion stays a concat on dim 0.  Where
+the reference scans that axis with ``jax.lax.scan`` the port loops over it
+in Python; each step indexes views, so nothing is copied.  The block-free
+model (``n_super == 0``, the paper's zero-layer source) is embedding, final
+norm and head.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (apply_norm, dense_init, embed_init,
+                                       normal, norm_init, softcap)
+
+_KIND = ("ROADMAP queue A item 12 (remaining architectures): {what} is not "
+         "ported yet")
+
+
+def _check_dense(cfg: ModelConfig, i: int):
+    if cfg.layer_kind(i) != "attn":
+        raise NotImplementedError(
+            _KIND.format(what=f"block kind {cfg.layer_kind(i)!r}"))
+    if cfg.layer_is_moe(i):
+        raise NotImplementedError(_KIND.format(what="the MoE feed-forward"))
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _tree_index(tree, s: int):
+    """Super-block ``s`` of a stacked tree (views, no copies)."""
+    return _tree_map(lambda x: x[s], tree)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _layer_init(generator, cfg: ModelConfig, layer_in_period: int, dtype,
+                device):
+    _check_dense(cfg, layer_in_period)
+    return {"ln1": norm_init(cfg.d_model, cfg.norm, device),
+            "attn": attn.attn_init(generator, cfg, dtype, device),
+            "ln2": norm_init(cfg.d_model, cfg.norm, device),
+            "mlp": mlp_mod.mlp_init(generator, cfg, dtype, device=device)}
+
+
+def superblock_init(generator, cfg: ModelConfig, dtype=torch.float32,
+                    device="cuda"):
+    return {f"layer{i}": _layer_init(generator, cfg, i, dtype, device)
+            for i in range(cfg.pattern_period)}
+
+
+def lm_init(generator, cfg: ModelConfig, dtype=torch.float32, num_layers=None,
+            device="cuda"):
+    """Initialize the full LM at depth ``num_layers`` (default
+    cfg.num_layers).  Draws come from ``generator`` (a seeded
+    ``torch.Generator``) in a fixed order, so a seed fixes the weights on
+    every device; the values differ from the reference's threefry draws."""
+    L = cfg.num_layers if num_layers is None else num_layers
+    period = cfg.pattern_period
+    if L % period:
+        raise ValueError(f"depth {L} not a multiple of period {period}")
+    n_super = L // period
+    params = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                  dtype, device),
+              "final_norm": norm_init(cfg.d_model, cfg.norm, device)}
+    if cfg.position == "absolute":
+        params["pos_embed"] = normal(generator, (cfg.max_seq_len, cfg.d_model),
+                                     0.01, dtype, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size,
+                                       dtype, device=device)
+    if n_super > 0:
+        blocks = [superblock_init(generator, cfg, dtype, device)
+                  for _ in range(n_super)]
+        params["blocks"] = _tree_map(lambda *xs: torch.stack(xs), *blocks)
+    return params
+
+
+def num_superblocks(params) -> int:
+    if "blocks" not in params:
+        return 0
+    leaf = params["blocks"]
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _mlp_residual(lp, cfg: ModelConfig, x):
+    h = apply_norm(lp["ln2"], x, cfg.norm)
+    return x + mlp_mod.mlp_apply(lp["mlp"], cfg, h)
+
+
+def _apply_layer(lp, cfg: ModelConfig, i: int, x, positions):
+    """One layer, full-sequence.  Returns (x, aux_loss)."""
+    h = apply_norm(lp["ln1"], x, cfg.norm)
+    x = x + attn.attn_apply(lp["attn"], cfg, h, positions,
+                            window=cfg.layer_window(i))
+    return _mlp_residual(lp, cfg, x), torch.zeros((), device=x.device)
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens, offset: int = 0):
+    """Token embedding (+ learned absolute positions offset..offset+S-1).
+    tokens: (B, S)."""
+    x = params["embed"][tokens]
+    if cfg.position == "absolute":
+        S = tokens.shape[1]
+        if offset + S > params["pos_embed"].shape[0]:
+            raise ValueError(f"positions {offset}..{offset + S - 1} exceed "
+                             f"max_seq_len {params['pos_embed'].shape[0]}")
+        x = x + params["pos_embed"][offset:offset + S]
+    return x
+
+
+def _positions_for(cfg: ModelConfig, B: int, S: int, device):
+    return torch.arange(S, device=device)[None, :].expand(B, S)
+
+
+def _head(params, cfg: ModelConfig, x):
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return softcap(x @ head, cfg.final_logit_softcap)
+
+
+def lm_apply(params, cfg: ModelConfig, tokens,
+             positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V), aux_loss scalar)."""
+    x = embed_tokens(params, cfg, tokens)
+    B, S = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = _positions_for(cfg, B, S, x.device)
+    aux = torch.zeros((), device=x.device)
+    for s in range(num_superblocks(params)):
+        sb = _tree_index(params["blocks"], s)
+        for i in range(cfg.pattern_period):
+            x, a = _apply_layer(sb[f"layer{i}"], cfg, i, x, positions)
+            aux = aux + a
+    return _head(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill fills the cache, decode takes one token per row
+# ---------------------------------------------------------------------------
+
+
+def lm_init_cache(params, cfg: ModelConfig, batch_size: int, max_len: int,
+                  dtype=torch.bfloat16, device="cuda"):
+    """Cache tree mirroring the super-block stack (leading n_super axis)."""
+    n_super = num_superblocks(params)
+    if n_super == 0:
+        return {}
+    out = {}
+    for i in range(cfg.pattern_period):
+        _check_dense(cfg, i)
+        one = attn.init_kv_cache(cfg, batch_size, max_len, dtype,
+                                 window=cfg.layer_window(i), device="meta")
+        out[f"layer{i}"] = {k: torch.zeros((n_super,) + tuple(t.shape),
+                                           dtype=dtype, device=device)
+                            for k, t in one.items()}
+    return out
+
+
+def _prefill_layer(lp, cache_l, cfg: ModelConfig, i: int, x, positions):
+    """One layer over the full prompt, filling its decode cache in place."""
+    h = apply_norm(lp["ln1"], x, cfg.norm)
+    y, cache_l = attn.attn_prefill(lp["attn"], cfg, h, cache_l, positions,
+                                   window=cfg.layer_window(i))
+    return _mlp_residual(lp, cfg, x + y), cache_l
+
+
+def lm_prefill(params, cfg: ModelConfig, tokens, cache,
+               positions=None) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence prefill: one forward through the train-path math that
+    also fills the decode cache.  Returns (logits (B, S, V), cache ready for
+    decode at per-row cursor S)."""
+    x = embed_tokens(params, cfg, tokens)
+    B, S = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = _positions_for(cfg, B, S, x.device)
+    for s in range(num_superblocks(params)):
+        sb = _tree_index(params["blocks"], s)
+        cache_sb = _tree_index(cache, s)      # views into the stacked cache
+        for i in range(cfg.pattern_period):
+            x, _ = _prefill_layer(sb[f"layer{i}"], cache_sb[f"layer{i}"], cfg,
+                                  i, x, positions)
+    return _head(params, cfg, x), cache
+
+
+def _decode_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions):
+    h = apply_norm(lp["ln1"], x, cfg.norm)
+    y, cache_l = attn.attn_decode(lp["attn"], cfg, h, cache_l, index,
+                                  positions, window=cfg.layer_window(i))
+    return _mlp_residual(lp, cfg, x + y), cache_l
+
+
+def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,
+                   positions=None):
+    """tokens: (B, 1) -> (logits (B, 1, V), cache).  ``index`` (B,) is the
+    number of tokens already in each row's cache (the absolute position of
+    that row's new token); a scalar broadcasts.  The cache is updated in
+    place."""
+    B = tokens.shape[0]
+    index = torch.as_tensor(index, device=tokens.device).long()
+    if index.ndim == 0:
+        index = index.expand(B)
+    x = params["embed"][tokens]
+    if cfg.position == "absolute":
+        # The reference clamps an index past max_seq_len; torch indexing
+        # fails instead (on the card as a device-side assert).  Checking
+        # here would sync with the card every token, so callers keep
+        # index < max_seq_len (ServeEngine checks it per request).
+        x = x + params["pos_embed"][index][:, None, :]
+    if positions is None:
+        positions = index[:, None]
+    for s in range(num_superblocks(params)):
+        sb = _tree_index(params["blocks"], s)
+        cache_sb = _tree_index(cache, s)
+        for i in range(cfg.pattern_period):
+            x, _ = _decode_layer(sb[f"layer{i}"], cache_sb[f"layer{i}"], cfg,
+                                 i, x, index, positions)
+    return _head(params, cfg, x), cache

@@ -24,3 +24,4 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device parity tests (several train/serve "
         "runs each); deselect with -m 'not slow'")
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one (python -m pytest -m gpu tests/test_torch_gpu.py)")
