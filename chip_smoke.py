@@ -7,20 +7,32 @@ Phases, each fatal on failure (the script exits nonzero and prints no
 result):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and device names;
-2. the build: every CUDA kernel of the serving path, compiled from the
-   sources in this checkout, with ``-Xptxas -v`` register/shared-memory use;
+2. the build: every CUDA kernel of the serving paths (flash attention,
+   paged-attention decode), compiled from the sources in this checkout at
+   once, with ``-Xptxas -v`` register/shared-memory use;
 3. kernel parity: the flash-attention kernel against its plain PyTorch
    version on the card over dtype x causal x window x softcap x MHA/GQA x
    head dim x ragged lengths, plus the serving prefill's exact shape;
-4. the main path: ``repro_torch.launch.serve.main`` serves ``gpt2-12l`` at
-   full width (batch 8, prompt 512, 64 tokens, random weights from seed 0)
-   with the launch counters set to 0 just before and read just after;
-5. card against CPU: the same weights, a greedy B=1 P=128 8-token
-   generation on the card against the port's plain CPU path fed the same
-   tokens;
-6. times, with CUDA events: the kernel, its plain version and
-   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only;
-   the port never calls it) at the serving prefill shape, beside the bound.
+4. paged parity: the paged-attention decode kernel against its plain
+   version over (q, pages) dtypes x head dim x MHA/GQA x block size x
+   softcap x cursors (zero, ragged, bs-1, bs, last slot), with permuted
+   pages, garbage past every cursor and an all-trash row, plus the timing
+   shape;
+5. the contiguous main path: ``repro_torch.launch.serve.main`` serves
+   ``gpt2-12l`` at full width (batch 8, prompt 512, 64 tokens, random
+   weights from seed 0) with the launch counters set to 0 just before and
+   read just after;
+6. the continuous paged main path: ``serve.main`` with ``--continuous
+   --paged``, 32 requests (prompts 128-512, budgets 16-64) into 8 slots,
+   counters from 0: every request ends at its budget, the pool gets every
+   page back, the paged kernel ran 12 times per masked decode step and
+   flash attention never;
+7. card against CPU: the same weights, a greedy B=1 P=128 8-token
+   contiguous generation, and three requests through the paged scheduler,
+   on the card against the port's plain CPU path fed the same tokens;
+8. times, with CUDA events: each kernel, its plain version and a PyTorch
+   yardstick the port never calls (``scaled_dot_product_attention``), at
+   the main paths' shapes, beside the bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +65,9 @@ PEAK_HBM_BYTES = 3.35e12
 
 MAIN_ARGV = ["--arch", "gpt2-12l", "--batch", "8", "--prompt-len", "512",
              "--gen", "64", "--seed", "0"]
+PAGED_ARGV = ["--arch", "gpt2-12l", "--continuous", "--paged", "--max-batch",
+              "8", "--requests", "32", "--prompt-len", "512", "--gen", "64",
+              "--block-size", "16", "--rate", "1000", "--seed", "0"]
 MAIN_SHAPE = (8, 512, 12, 64)       # (B, S, H, hd) of the main path's prefill
 
 
@@ -107,6 +122,86 @@ def parity(fa_ops) -> float:
         _fail(f"{bad} of {len(cases)} flash-attention parity cases")
     print(f"parity: {len(cases)} cases within tolerance")
     return err                                   # the last case: MAIN_SHAPE
+
+
+# The paged decode's timing shape: the continuous main path's batch and
+# widths at its longest context (prompt 512 + 64 generated = 576 tokens).
+PAGED_SHAPE = dict(B=8, H=12, KV=12, hd=64, bs=16, NB=37, cursor=575)
+GARBAGE = 1e3            # scale of the finite garbage past every cursor
+
+
+def paged_case(B, H, KV, hd, bs, NB, q_dtype, kv_dtype, cursors, seed,
+               trash_row=True):
+    """A pool with permuted physical pages, spare pages and every slot past
+    a row's cursor filled with large finite garbage; with ``trash_row`` the
+    last row's table is all trash (the pool's last page, garbage too).
+    Returns (q, k_pages, v_pages, table int32, index int32)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    NP = B * NB + 3 + 1                         # rows' pages, spares, trash
+    trash = NP - 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    q = randn(B, 1, H, hd).to(q_dtype)
+    kp, vp = (GARBAGE * randn(NP, bs, KV, hd) for _ in range(2))
+    perm = torch.randperm(NP - 1, generator=g, device="cuda")[:B * NB]
+    table = perm.reshape(B, NB).to(torch.int32)
+    if trash_row:
+        table[-1] = trash
+    index = torch.as_tensor(cursors, dtype=torch.int32, device="cuda")
+    slot = torch.arange(NB * bs, device="cuda")
+    for b in range(B - 1 if trash_row else B):  # live slots get N(0, 1)
+        live = slot[slot <= int(index[b])]
+        pages, offs = table[b, live // bs].long(), live % bs
+        kp[pages, offs] = randn(len(live), KV, hd)
+        vp[pages, offs] = randn(len(live), KV, hd)
+    return q, kp.to(kv_dtype), vp.to(kv_dtype), table, index
+
+
+def paged_parity(pa_ops) -> float:
+    """Paged kernel against its plain version over the grid; returns the
+    max abs error at the timing shape.  The all-trash row must be finite;
+    every other row must agree within the tolerance."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for q_dt, kv_dt in ((f32, f32), (bf16, bf16), (f32, bf16)):
+        for hd in (64, 128):
+            for H, KV in ((12, 12), (8, 2)):
+                for bs in (16, 64):
+                    for cap in (0.0, 30.0):
+                        for mode in ("zero", "ragged", "bs-1", "bs", "last"):
+                            cases.append((4, H, KV, hd, bs, 256 // bs, q_dt,
+                                          kv_dt, cap, mode))
+    s = PAGED_SHAPE
+    cases.append((s["B"], s["H"], s["KV"], s["hd"], s["bs"], s["NB"], f32,
+                  f32, 0.0, "timing"))
+    bad, err = 0, 0.0
+    for n, (B, H, KV, hd, bs, NB, q_dt, kv_dt, cap, mode) in enumerate(cases):
+        top = NB * bs - 1
+        cursors = {"zero": [0] * B, "bs-1": [bs - 1] * B, "bs": [bs] * B,
+                   "last": [top] * B, "timing": [s["cursor"]] * B,
+                   "ragged": np.random.default_rng(n).integers(
+                       0, top + 1, B).tolist()}[mode]
+        q, kp, vp, tbl, idx = paged_case(B, H, KV, hd, bs, NB, q_dt, kv_dt,
+                                         cursors, seed=1000 + n,
+                                         trash_row=mode != "timing")
+        got = pa_ops.paged_attention(q, kp, vp, tbl, idx, logit_softcap=cap,
+                                     force="kernel")
+        want = pa_ops.paged_attention(q, kp, vp, tbl, idx,
+                                      logit_softcap=cap, force="ref")
+        torch.cuda.synchronize()
+        tol = TOL[bf16] if bf16 in (q_dt, kv_dt) else TOL[f32]
+        live = slice(None) if mode == "timing" else slice(0, B - 1)
+        err = (got[live].float() - want[live].float()).abs().max().item()
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        bad += not ok
+        print(f"  pa q {str(q_dt)[6:]:8s} kv {str(kv_dt)[6:]:8s} B{B} "
+              f"H{H}/{KV} hd{hd} bs{bs} NB{NB} cap{cap:<4g} {mode:6s} "
+              f"err={err:.2e} tol={tol:.0e} {'ok' if ok else 'FAIL'}")
+    if bad:
+        _fail(f"{bad} of {len(cases)} paged-attention parity cases")
+    print(f"paged parity: {len(cases)} cases within tolerance")
+    return err                                   # the last case: timing
 
 
 def card_vs_cpu(cfglib, registry, ServeEngine, fa_ops):
@@ -185,6 +280,185 @@ def times(fa_ops):
                 bound_by="operations" if op_ms >= byte_ms else "bytes")
 
 
+def paged_main_path(cfg, serve, fa_ops, pa_ops):
+    """``serve.main(PAGED_ARGV)`` with every launch counter at 0 just
+    before.  Returns the paged kernel's launches."""
+    from repro_torch.train import serve_scheduler
+    from repro_torch.train.serve_engine import ServeEngine
+    calls = [0]
+    scheds = []
+    decode, run = ServeEngine.decode_masked, serve_scheduler.ContinuousScheduler.run
+
+    def counted_decode(self, *a, **kw):
+        calls[0] += 1
+        return decode(self, *a, **kw)
+
+    def kept_run(self, *a, **kw):
+        scheds.append(self)
+        return run(self, *a, **kw)
+    ServeEngine.decode_masked = counted_decode
+    serve_scheduler.ContinuousScheduler.run = kept_run
+    fa_ops.KERNEL_LAUNCHES = pa_ops.KERNEL_LAUNCHES = 0
+    try:
+        results = serve.main(PAGED_ARGV)
+    finally:
+        ServeEngine.decode_masked = decode
+        serve_scheduler.ContinuousScheduler.run = run
+    launches, flash = pa_ops.KERNEL_LAUNCHES, fa_ops.KERNEL_LAUNCHES
+    # The requests serve.main drew: the reference's rng order (an empty
+    # shared prefix, then lengths, then budgets).
+    arg = {k: int(v) for k, v in zip(PAGED_ARGV, PAGED_ARGV[1:])
+           if k in ("--prompt-len", "--gen", "--requests", "--seed")}
+    P, G, n = arg["--prompt-len"], arg["--gen"], arg["--requests"]
+    rng = np.random.default_rng(arg["--seed"])
+    rng.integers(0, cfg.vocab_size, (0,))
+    lens = rng.integers(max(2, P // 4), P + 1, n)
+    gens = rng.integers(max(2, G // 4), max(G, 2) + 1, n)
+    if len(results) != n:
+        _fail(f"paged main path returned {len(results)} results")
+    for r, p, g in zip(results, lens, gens):
+        if r.finish_reason != "limit" or len(r.new_tokens) != g \
+                or len(r.prompt) != p:
+            _fail(f"request {r.uid}: {r.finish_reason} with "
+                  f"{len(r.new_tokens)} of {g} tokens (prompt {len(r.prompt)} "
+                  f"of {p})")
+        if r.new_tokens.min() < 0 or r.new_tokens.max() >= cfg.vocab_size:
+            _fail(f"request {r.uid} produced tokens outside the vocabulary")
+    pool = scheds[-1].last_state.pool
+    pool.check_invariants()
+    if pool.free_blocks != pool.num_blocks or pool.committed_blocks:
+        _fail(f"pool not returned: {pool.free_blocks} of {pool.num_blocks} "
+              f"pages free, {pool.committed_blocks} committed")
+    if launches != calls[0] * cfg.num_layers or launches == 0:
+        _fail(f"paged kernel launched {launches} times for {calls[0]} masked "
+              f"decode steps x {cfg.num_layers} layers")
+    if flash != 0:
+        _fail(f"the paged path launched flash attention {flash} times")
+    print(f"paged main path: {n} requests at their budgets, pool "
+          f"{pool.free_blocks}/{pool.num_blocks} pages free, {launches} "
+          f"paged-kernel launches = {calls[0]} decode steps x "
+          f"{cfg.num_layers} layers, 0 flash-attention launches")
+    return launches
+
+
+def paged_card_vs_cpu(cfglib, registry):
+    """Three requests (prompts 100, 37, 128; 8 tokens each; 2 slots; pages
+    of 16) through the paged scheduler on the card, each stream held
+    against the port's plain CPU forward fed the same tokens (teacher
+    forcing): tokens equal wherever the CPU top-2 margin exceeds
+    ``LOGIT_TOL``."""
+    from repro_torch.train.serve_engine import ServeEngine
+    from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
+    cfg = cfglib.get_config("gpt2-12l")
+    api = registry.get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(2)
+    G = 8
+    prompts = [rng.integers(0, cfg.vocab_size, (P,)).astype(np.int32)
+               for P in (100, 37, 128)]
+    eng = ServeEngine(cfg, params, device="cuda", max_len=128 + G + 1,
+                      paged=True, block_size=16)
+    results = ContinuousScheduler(eng, max_batch=2).run(
+        [Request(prompt=p, max_new_tokens=G) for p in prompts])
+    worst = np.inf
+    for res, prompt in zip(results, prompts):
+        P = len(prompt)
+        with torch.inference_mode():
+            logits, _ = api.apply(params, cfg, torch.from_numpy(
+                res.tokens[None, :-1]).long())
+        want = logits[0, P - 1:].numpy()                       # (G, V)
+        for t in range(G):
+            top2 = np.sort(want[t])[-2:]
+            margin = float(top2[1] - top2[0])
+            tok, cpu_tok = int(res.new_tokens[t]), int(np.argmax(want[t]))
+            if tok != cpu_tok and margin > LOGIT_TOL:
+                _fail(f"paged request {res.uid} step {t}: card {tok} cpu "
+                      f"{cpu_tok}, top-2 margin {margin:.4f}")
+            worst = min(worst, margin)
+        print(f"  paged request {res.uid}: P={P} tokens "
+              f"{res.new_tokens.tolist()} equal the CPU argmax")
+    print(f"paged card vs cpu: 3 requests x {G} tokens equal where the "
+          f"margin allows (smallest top-2 margin {worst:.4f})")
+
+
+def _time_device_ms(fn, reps: int, flush=None) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches, each bracketed by
+    its own CUDA events.  Before each launch the stream spins ~0.5 ms in a
+    kernel that touches no memory (``torch.cuda._sleep``), so the host has
+    queued ``fn``'s launches before the start event fires and the Python
+    wrapper's host time stays out of the reading.  ``flush``, when given,
+    first evicts the 50 MB L2 (the decode finds its pages cold: the other
+    layers' pages pass through L2 in between); without it each launch finds
+    the L2 as the previous launch left it."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def paged_times(pa_ops):
+    """The paged kernel, its plain version and the SDPA yardstick at the
+    timing shape, device time with the L2 flushed before each launch.  The yardstick is
+    ``scaled_dot_product_attention`` over the already gathered contiguous
+    (B, H, 576, hd) context: at uniform cursors the same function, but it
+    reads no block table."""
+    s = PAGED_SHAPE
+    B, H, KV, hd, bs, NB = (s[k] for k in ("B", "H", "KV", "hd", "bs", "NB"))
+    q, kp, vp, tbl, idx = paged_case(B, H, KV, hd, bs, NB, torch.float32,
+                                     torch.float32, [s["cursor"]] * B,
+                                     seed=4242, trash_row=False)
+    junk = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def flush():
+        junk.zero_()
+    kernel_ms = _time_device_ms(lambda: pa_ops.paged_attention(
+        q, kp, vp, tbl, idx, force="kernel"), 50, flush)
+    plain_ms = _time_device_ms(lambda: pa_ops.paged_attention(
+        q, kp, vp, tbl, idx, force="ref"), 20, flush)
+    from repro_torch.kernels.paged_attention import ref
+    S = s["cursor"] + 1
+    kt, vt = (ref.gather_pages(t, tbl)[:, :S].transpose(1, 2).contiguous()
+              for t in (kp, vp))
+    qt = q.transpose(1, 2).contiguous()
+    library_ms = _time_device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+        50, flush)
+    live = int((idx.long() + 1).sum())
+    pages = int(((idx.long() + 1 + bs - 1) // bs).sum())
+    nbytes = (2 * live * KV * hd * kp.element_size()        # K and V
+              + 2 * q.numel() * q.element_size()            # q in, out
+              + 4 * pages + 4 * B)                          # table, cursor
+    flops = 4 * live * H * hd
+    op_ms = flops / PEAK_F32_FLOPS * 1e3
+    byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    print(f"paged times at B={B} H={H} KV={KV} hd={hd} bs={bs} cursors "
+          f"{s['cursor']} f32, L2 flushed: kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa on the gathered context "
+          f"{library_ms:.4f} ms; bound {max(op_ms, byte_ms):.4f} ms "
+          f"({flops / 1e6:.1f} MFLOP -> {op_ms:.4f} ms, {nbytes / 1e6:.1f} MB "
+          f"-> {byte_ms:.4f} ms)")
+    warm_ms = _time_device_ms(lambda: pa_ops.paged_attention(
+        q, kp, vp, tbl, idx, force="kernel"), 50)
+    back_ms = _time_ms(lambda: pa_ops.paged_attention(
+        q, kp, vp, tbl, idx, force="kernel"), 50)
+    print(f"paged kernel with a warm L2: {warm_ms:.4f} ms; back to back, "
+          f"host wrapper included: {back_ms:.4f} ms per call")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(op_ms, byte_ms),
+                bound_by="operations" if op_ms >= byte_ms else "bytes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -194,6 +468,7 @@ def main() -> int:
     from repro_torch import configs as cfglib
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.launch import serve
     from repro_torch.models import registry
     from repro_torch.train.serve_engine import ServeEngine
@@ -204,7 +479,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # 2. the build
+    # 2. the build: one nvcc per kernel, all started together
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {list(_build.KERNELS)}")
@@ -213,19 +488,21 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # 3. kernel parity on the card
+    # 3-4. kernel parity on the card
     main_err = parity(fa_ops)
+    paged_err = paged_parity(pa_ops)
 
-    # 4. the main path, counters from 0
+    # 5. the contiguous main path, counters from 0
     cfg = cfglib.get_config("gpt2-12l")
-    fa_ops.KERNEL_LAUNCHES = 0
+    fa_ops.KERNEL_LAUNCHES = pa_ops.KERNEL_LAUNCHES = 0
     res = serve.main(MAIN_ARGV)
     launches = fa_ops.KERNEL_LAUNCHES
     # serve.main runs two generations (warm-up and timed): two prefills of
-    # one launch per layer, and decode attention is plain torch.
-    if launches != 2 * cfg.num_layers:
+    # one launch per layer, and contiguous decode attention is plain torch.
+    if launches != 2 * cfg.num_layers or pa_ops.KERNEL_LAUNCHES:
         _fail(f"main path launched flash attention {launches} times, "
-              f"expected {2 * cfg.num_layers}")
+              f"expected {2 * cfg.num_layers}, and the paged kernel "
+              f"{pa_ops.KERNEL_LAUNCHES} times, expected 0")
     if res.tokens.shape != (8, 512 + 64):
         _fail(f"main path returned tokens {res.tokens.shape}")
     if res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
@@ -233,17 +510,27 @@ def main() -> int:
     print(f"main path: {launches} flash-attention launches "
           f"(2 prefills x {cfg.num_layers} layers, 0 in decode)")
 
-    # 5. card against CPU
-    card_vs_cpu(cfglib, registry, ServeEngine, fa_ops)
+    # 6. the continuous paged main path, counters from 0
+    paged_launches = paged_main_path(cfg, serve, fa_ops, pa_ops)
 
-    # 6. times
+    # 7. card against CPU
+    card_vs_cpu(cfglib, registry, ServeEngine, fa_ops)
+    paged_card_vs_cpu(cfglib, registry)
+
+    # 8. times
     t = times(fa_ops)
-    record = {"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-        "launches": launches, "max_abs_err": main_err, **t}]}
+    tp = paged_times(pa_ops)
+    record = {"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+         "launches": launches, "max_abs_err": main_err, **t},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                   "paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention/kernel.py:97",
+         "launches": paged_launches, "max_abs_err": paged_err, **tp}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

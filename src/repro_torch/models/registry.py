@@ -22,9 +22,17 @@ class ModelApi:
     # (params, cfg, tokens(B,1), cache, index(B,)) -> (logits, cache); the
     # cache is written in place.
     decode_step: Callable
-    # (params, cfg, tokens, cache) -> (logits (B,S,V), cache ready for
-    # decode at per-row cursor = prompt length).
+    # (params, cfg, tokens, cache, last_only=False) -> (logits (B,S,V) or
+    # (B,1,V), cache ready for decode at per-row cursor = prompt length).
     prefill: Optional[Callable] = None
+    # (params, cfg, batch_size, num_blocks, block_size, max_len, dtype,
+    #  kv_dtype, device) -> paged serve cache (pool + trash page).
+    init_paged_cache: Optional[Callable] = None
+    # (params, cfg, max_len, dtype, device) -> B=1 chunked-prefill carry.
+    init_prefill_carry: Optional[Callable] = None
+    # (params, cfg, tokens(B,C), cache, carry, block_table, ctx_len) ->
+    # (last logits (B,1,V), cache, carry); the pool is written in place.
+    prefill_chunk: Optional[Callable] = None
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
@@ -36,7 +44,10 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     return ModelApi(init=transformer.lm_init, apply=transformer.lm_apply,
                     init_cache=transformer.lm_init_cache,
                     decode_step=transformer.lm_decode_step,
-                    prefill=transformer.lm_prefill)
+                    prefill=transformer.lm_prefill,
+                    init_paged_cache=transformer.lm_init_paged_cache,
+                    init_prefill_carry=transformer.lm_init_prefill_carry,
+                    prefill_chunk=transformer.lm_prefill_chunk)
 
 
 class ParamModule(nn.Module):

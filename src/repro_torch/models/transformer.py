@@ -179,6 +179,48 @@ def lm_init_cache(params, cfg: ModelConfig, batch_size: int, max_len: int,
     return out
 
 
+def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
+                        num_blocks: int, block_size: int, max_len: int,
+                        dtype=torch.bfloat16, kv_dtype=None, device="cuda"):
+    """Paged serve cache (leading n_super axis, like ``lm_init_cache``).
+
+    Global-attention layers hold one pool of ``num_blocks`` pages (+1 trash
+    page) addressed per row through the engine's block table; their leaves
+    carry no batch dim.  ``kv_dtype`` overrides the pool's storage dtype
+    (float only).  ``batch_size`` and ``max_len`` size the per-row state of
+    window and recurrent layers, which come with ROADMAP queue A item 12."""
+    del batch_size, max_len
+    n_super = num_superblocks(params)
+    if n_super == 0:
+        return {}
+    pool_dtype = dtype if kv_dtype is None else kv_dtype
+    out = {}
+    for i in range(cfg.pattern_period):
+        _check_dense(cfg, i)
+        if cfg.layer_window(i) > 0:
+            raise NotImplementedError(
+                _KIND.format(what="a sliding-window ring beside the pool"))
+        one = attn.init_paged_kv_cache(cfg, num_blocks, block_size,
+                                       pool_dtype, device="meta")
+        out[f"layer{i}"] = {k: torch.zeros((n_super,) + tuple(t.shape),
+                                           dtype=pool_dtype, device=device)
+                            for k, t in one.items()}
+    return out
+
+
+def lm_init_prefill_carry(params, cfg: ModelConfig, max_len: int,
+                          dtype=torch.bfloat16, device="cuda"):
+    """B=1 chunked-prefill carry: the per-row state a prefilling request
+    threads between chunks.  Paged global-attention layers carry nothing
+    ({}): their K/V goes straight into the shared pool."""
+    del max_len, dtype, device
+    if num_superblocks(params) == 0:
+        return {}
+    for i in range(cfg.pattern_period):
+        _check_dense(cfg, i)
+    return {f"layer{i}": {} for i in range(cfg.pattern_period)}
+
+
 def _prefill_layer(lp, cache_l, cfg: ModelConfig, i: int, x, positions):
     """One layer over the full prompt, filling its decode cache in place."""
     h = apply_norm(lp["ln1"], x, cfg.norm)
@@ -187,11 +229,13 @@ def _prefill_layer(lp, cache_l, cfg: ModelConfig, i: int, x, positions):
     return _mlp_residual(lp, cfg, x + y), cache_l
 
 
-def lm_prefill(params, cfg: ModelConfig, tokens, cache,
-               positions=None) -> Tuple[torch.Tensor, dict]:
+def lm_prefill(params, cfg: ModelConfig, tokens, cache, positions=None,
+               last_only: bool = False) -> Tuple[torch.Tensor, dict]:
     """Full-sequence prefill: one forward through the train-path math that
     also fills the decode cache.  Returns (logits (B, S, V), cache ready for
-    decode at per-row cursor S)."""
+    decode at per-row cursor S).  ``last_only`` normalises and projects the
+    last position alone and returns (B, 1, V) logits: the serving step
+    samples from nothing else, and the full head is S times its work."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
@@ -202,26 +246,67 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache,
         for i in range(cfg.pattern_period):
             x, _ = _prefill_layer(sb[f"layer{i}"], cache_sb[f"layer{i}"], cfg,
                                   i, x, positions)
-    return _head(params, cfg, x), cache
+    return _head(params, cfg, x[:, -1:] if last_only else x), cache
 
 
-def _decode_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions):
+def lm_prefill_chunk(params, cfg: ModelConfig, tokens, cache, carry,
+                     block_table, ctx_len: int):
+    """One chunked-prefill step: tokens (B, C) at absolute positions
+    ``ctx_len .. ctx_len + C - 1``.  K/V lands in the shared pool of
+    ``cache`` through ``block_table`` (B, NB), in place; ``carry`` (the
+    B=1 per-row state of window and recurrent layers) is empty for the
+    global-attention layers served here and returned as is.  Returns
+    (last-position logits (B, 1, V), cache, carry): only the final
+    chunk's logits are sampled, so the head runs on one position."""
+    B, C = tokens.shape
+    x = embed_tokens(params, cfg, tokens, offset=ctx_len)
+    positions = (ctx_len + torch.arange(C, device=x.device))[None, :].expand(
+        B, C)
+    for s in range(num_superblocks(params)):
+        sb = _tree_index(params["blocks"], s)
+        cache_sb = _tree_index(cache, s)
+        for i in range(cfg.pattern_period):
+            lp = sb[f"layer{i}"]
+            h = apply_norm(lp["ln1"], x, cfg.norm)
+            y, _ = attn.attn_prefill_chunk(
+                lp["attn"], cfg, h, cache_sb[f"layer{i}"], ctx_len,
+                positions, window=cfg.layer_window(i),
+                block_table=block_table)
+            x = _mlp_residual(lp, cfg, x + y)
+    return _head(params, cfg, x[:, -1:]), cache, carry
+
+
+def _decode_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions,
+                  block_table=None, write_mask=None):
     h = apply_norm(lp["ln1"], x, cfg.norm)
-    y, cache_l = attn.attn_decode(lp["attn"], cfg, h, cache_l, index,
-                                  positions, window=cfg.layer_window(i))
+    if "k_pages" in cache_l:
+        y, cache_l = attn.attn_decode_paged(lp["attn"], cfg, h, cache_l,
+                                            block_table, index, positions,
+                                            write_mask=write_mask)
+    else:
+        y, cache_l = attn.attn_decode(lp["attn"], cfg, h, cache_l, index,
+                                      positions, window=cfg.layer_window(i),
+                                      write_mask=write_mask)
     return _mlp_residual(lp, cfg, x + y), cache_l
 
 
 def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,
-                   positions=None):
+                   positions=None, block_table=None, write_mask=None):
     """tokens: (B, 1) -> (logits (B, 1, V), cache).  ``index`` (B,) is the
     number of tokens already in each row's cache (the absolute position of
     that row's new token); a scalar broadcasts.  The cache is updated in
-    place."""
+    place.
+
+    With a paged cache (``lm_init_paged_cache``) attention reads and writes
+    the shared pool through ``block_table`` (B, NB); the cursor is cast to
+    int32 once here for every layer's kernel.  Rows with
+    ``write_mask == False`` leave the cache as it was: contiguous rows
+    write their slot's old value back, pool writes go to the trash page."""
     B = tokens.shape[0]
     index = torch.as_tensor(index, device=tokens.device).long()
     if index.ndim == 0:
         index = index.expand(B)
+    attn_index = index if block_table is None else index.to(torch.int32)
     x = params["embed"][tokens]
     if cfg.position == "absolute":
         # The reference clamps an index past max_seq_len; torch indexing
@@ -236,5 +321,7 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,
         cache_sb = _tree_index(cache, s)
         for i in range(cfg.pattern_period):
             x, _ = _decode_layer(sb[f"layer{i}"], cache_sb[f"layer{i}"], cfg,
-                                 i, x, index, positions)
+                                 i, x, attn_index, positions,
+                                 block_table=block_table,
+                                 write_mask=write_mask)
     return _head(params, cfg, x), cache

@@ -153,7 +153,8 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--continuous"], "item 8"), (["--paged"], "item 8"),
+    (["--continuous", "--faults", "storm:0.1"], "item 11"),
+    (["--paged"], "requires --continuous"),
     (["--spec-depth", "1"], "item 9"), (["--prefix-cache"], "item 10"),
     (["--mesh", "host"], "item 13")])
 def test_unported_cli_paths_name_their_roadmap_item(flag, item):
