@@ -7,9 +7,11 @@ Phases, each fatal on failure (the script exits nonzero and prints no
 result):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and device names;
-2. the build: every CUDA kernel of the serving paths (flash attention,
-   paged-attention decode), compiled from the sources in this checkout at
-   once, with ``-Xptxas -v`` register/shared-memory use;
+2. the build: every CUDA kernel of the serving and training paths (flash
+   attention forward and backward, paged-attention decode, the
+   Newton–Schulz chain and matmul), compiled from the sources in this
+   checkout at once, one ``nvcc`` per kernel package, with ``-Xptxas -v``
+   register/shared-memory use;
 3. kernel parity: the flash-attention kernel against its plain PyTorch
    version on the card over dtype x causal x window x softcap x MHA/GQA x
    head dim x ragged lengths, plus the serving prefill's exact shape;
@@ -32,7 +34,26 @@ result):
    on the card against the port's plain CPU path fed the same tokens;
 8. times, with CUDA events: each kernel, its plain version and a PyTorch
    yardstick the port never calls (``scaled_dot_product_attention``), at
-   the main paths' shapes, beside the bound.
+   the main paths' shapes, beside the bound;
+9. training parity: the Newton–Schulz chain (``ns_fused``) and ``matmul``
+   against their plain versions over stack sizes, aspects, ragged dims,
+   dtypes and the exact ``gpt2-12l`` shapes (the tied embedding's too),
+   plus the orthogonality check; the flash-attention backward's dq, dk,
+   dv against autograd of the plain version over the forward's grid and
+   at the training shape;
+10. the training main path: ``repro_torch.launch.train.main`` trains
+   ``gpt2-12l`` at full width from a one-layer source (batch 16, 256
+   tokens), expands to 12 layers mid-run and checkpoints, with every
+   counter at 0 just before: the expansion step, finite losses, the
+   boundary and final checkpoints, and each kernel's launches against
+   the count the run implies;
+11. serving that checkpoint: ``serve.main --checkpoint`` at 12 layers;
+12. card against CPU: one train step at full width (depth 1, batch 2, 128
+   tokens) from the same params and batch, loss and updated params;
+13. training times: the Newton–Schulz chain, matmul and the flash
+   backward against their plain versions and a PyTorch yardstick, beside
+   the bound, and the Newton–Schulz share of a training step at 1 and 12
+   layers.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -43,6 +64,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -69,6 +91,29 @@ PAGED_ARGV = ["--arch", "gpt2-12l", "--continuous", "--paged", "--max-batch",
               "8", "--requests", "32", "--prompt-len", "512", "--gen", "64",
               "--block-size", "16", "--rate", "1000", "--seed", "0"]
 MAIN_SHAPE = (8, 512, 12, 64)       # (B, S, H, hd) of the main path's prefill
+
+# The training main path: the launcher's defaults (batch 16 of 256 tokens,
+# a one-layer source, Muon-NSGD under WSD) with τ at half of 12 steps.
+TRAIN_STEPS, TRAIN_TAU = 12, 0.5
+TRAIN_ARGV = ["--arch", "gpt2-12l", "--source-layers", "1", "--tau",
+              str(TRAIN_TAU), "--steps", str(TRAIN_STEPS), "--batch", "16",
+              "--seq-len", "256", "--init", "random", "--seed", "0"]
+TRAIN_SHAPE = (16, 256, 12, 64)     # (B, S, H, hd) of its attention
+# Newton–Schulz against its plain version, relative to the largest output
+# entry: f32 sums in another order (cuBLAS or CPU against the kernel's
+# k-order), which five quintic steps amplify along small singular
+# directions (~1e-5 seen at the gpt2 shapes); with bf16 input and output
+# the result is rounded to bf16 (a relative step of 2^-8) on both sides.
+NS_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The backward against autograd of the plain version, relative to
+# max(1, the largest gradient entry): f32 sums in another order; bf16
+# gradients are rounded to bf16 once on each side (2^-8 relative).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# One train step, card against CPU: the loss (about 11 at random init) to
+# 1e-4, every updated param to 1e-5 absolute (the update is lr = 0.01
+# times an orthogonalized or normalized direction of O(0.1) entries, so a
+# 1e-3 relative difference of that direction moves a weight by ~1e-6).
+TRAIN_LOSS_TOL, TRAIN_PARAM_TOL = 1e-4, 1e-5
 
 
 def _fail(msg: str):
@@ -459,6 +504,366 @@ def paged_times(pa_ops):
                 bound_by="operations" if op_ms >= byte_ms else "bytes")
 
 
+# ---------------------------------------------------------------------------
+# Training: Newton–Schulz, matmul and the flash-attention backward
+# ---------------------------------------------------------------------------
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def ns_parity(ns_ops) -> float:
+    """The Newton–Schulz route (``ns_fused`` for the per-layer stacks,
+    ``matmul`` for the embedding) against ``newton_schulz_ref`` per matrix,
+    plus the orthogonality check.  Returns the max abs error at the main
+    path's largest stack (12 x 768 x 3072, f32)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for dtype in (f32, bf16):
+        for L in (1, 3, 12):
+            for n, m in ((64, 192), (128, 128), (192, 64), (100, 300),
+                         (300, 100)):
+                cases.append((L, n, m, dtype))
+    cases += [(12, 768, 768, f32), (12, 3072, 768, f32), (1, 50304, 768, f32),
+              (12, 768, 3072, f32)]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bad, err = 0, 0.0
+    for L, n, m, dtype in cases:
+        x = (torch.randn((L, n, m), generator=g, device="cuda") * 0.02).to(
+            dtype)
+        got = ns_ops.newton_schulz(x, force="kernel")
+        want = ns_ops.newton_schulz(x, force="ref")
+        torch.cuda.synchronize()
+        rel = _rel_err(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = rel <= NS_TOL[dtype] and bool(torch.isfinite(got).all()) \
+            and got.shape == x.shape and got.dtype == x.dtype
+        bad += not ok
+        print(f"  ns {str(dtype)[6:]:8s} L{L:<2d} {n}x{m} route "
+              f"{ns_ops.route(n, m)} rel={rel:.2e} abs={err:.2e} "
+              f"tol={NS_TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+    y = ns_ops.newton_schulz(torch.randn((64, 128), generator=g,
+                                         device="cuda"), force="kernel")
+    s = torch.linalg.svdvals(y)
+    orth = float(s.max()) < 1.35 and float(s.min()) > 0.3
+    print(f"  ns orthogonality: singular values in [{float(s.min()):.3f}, "
+          f"{float(s.max()):.3f}] {'ok' if orth else 'FAIL'}")
+    if bad or not orth:
+        _fail(f"{bad} of {len(cases)} Newton-Schulz parity cases, "
+              f"orthogonality {'ok' if orth else 'FAILED'}")
+    print(f"ns parity: {len(cases)} cases within tolerance")
+    return err                                   # the last case
+
+
+# The embedding's three products per iteration, and ragged and bf16 cases.
+MATMUL_CASES = [(100, 300, 77, False, torch.float32),
+                (100, 300, 77, True, torch.float32),
+                (37, 200, 45, False, torch.bfloat16),
+                (768, 768, 768, False, torch.float32),
+                (768, 768, 50304, False, torch.float32),
+                (768, 50304, 768, True, torch.float32)]
+
+
+def matmul_parity(ns_ops) -> float:
+    """``matmul`` against the plain product; returns the max abs error at
+    the embedding's Gram (768 x 50304 @ its transpose)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    bad, err = 0, 0.0
+    for M, K, N, trans_b, dtype in MATMUL_CASES:
+        x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+        y = torch.randn((N, K) if trans_b else (K, N), generator=g,
+                        device="cuda").to(dtype)
+        got = ns_ops.matmul(x, y, trans_b=trans_b, force="kernel")
+        want = ns_ops.matmul(x, y, trans_b=trans_b, force="ref")
+        torch.cuda.synchronize()
+        rel = _rel_err(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = rel <= NS_TOL[dtype] and got.dtype == dtype
+        bad += not ok
+        print(f"  matmul {str(dtype)[6:]:8s} ({M},{K})@"
+              f"{'T' if trans_b else ''}({K},{N}) rel={rel:.2e} "
+              f"abs={err:.2e} tol={NS_TOL[dtype]:.0e} "
+              f"{'ok' if ok else 'FAIL'}")
+    if bad:
+        _fail(f"{bad} of {len(MATMUL_CASES)} matmul parity cases")
+    print(f"matmul parity: {len(MATMUL_CASES)} cases within tolerance")
+    return err
+
+
+def _bwd_pair(fa_ops, q, k, v, do, kw, force):
+    """(dq, dk, dv) of attention on ``force``'s path for upstream ``do``."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, force=force, **kw)
+    return torch.autograd.grad(out, leaves, do)
+
+
+def bwd_parity(fa_ops) -> float:
+    """The CUDA backward (through ``FlashAttentionFn``) against autograd of
+    the plain version over the forward's grid and the training shape;
+    returns the max abs error over dq, dk, dv at the training shape."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (64, 128):
+            for H, KV in ((12, 12), (8, 2)):
+                for S in (77, 512, 1000):
+                    for causal in (True, False):
+                        for window in (0, 64):
+                            for cap in (0.0, 30.0):
+                                cases.append((2, S, H, KV, hd, dtype, causal,
+                                              window, cap))
+    B, S, H, hd = TRAIN_SHAPE
+    cases.append((B, S, H, H, hd, torch.float32, True, 0, 0.0))
+    bad, err = 0, 0.0
+    for n, (B, S, H, KV, hd, dtype, causal, window, cap) in enumerate(cases):
+        q, k, v = _inputs(B, S, H, KV, hd, dtype, 5000 + n)
+        do = _inputs(B, S, H, H, hd, dtype, 9000 + n)[0]
+        kw = dict(causal=causal, window=window, logit_softcap=cap)
+        before = fa_ops.BWD_LAUNCHES
+        got = _bwd_pair(fa_ops, q, k, v, do, kw, "kernel")
+        want = _bwd_pair(fa_ops, q, k, v, do, kw, "ref")
+        torch.cuda.synchronize()
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, want)]
+        scale = max(1.0, max(b.float().abs().max().item() for b in want))
+        err = max(errs)
+        ok = (err <= BWD_TOL[dtype] * scale
+              and fa_ops.BWD_LAUNCHES == before + 1
+              and all(bool(torch.isfinite(a).all()) for a in got))
+        bad += not ok
+        print(f"  fa-bwd {str(dtype)[6:]:8s} B{B} S{S:<4d} H{H}/{KV} hd{hd} "
+              f"c{int(causal)} w{window:<2d} cap{cap:<4g} dq/dk/dv err="
+              f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} scale={scale:.2f} "
+              f"{'ok' if ok else 'FAIL'}")
+    if bad:
+        _fail(f"{bad} of {len(cases)} flash-attention backward parity cases")
+    print(f"backward parity: {len(cases)} cases within tolerance")
+    return err                                   # the last case: training
+
+
+def _stacked_matrix_leaves(cfg, layers) -> int:
+    """Muon leaves with the layer-stack axis: one ns_fused call each."""
+    from repro_torch.models import registry
+    from repro_torch.optim import muon
+    from repro_torch.tree import leaves_with_path
+    params = registry.get_model(cfg.with_depth(layers)).init(
+        None, cfg.with_depth(layers), device="meta")
+    return sum(muon._is_matrix(p, x) and muon._stacked(p)
+               for p, x in leaves_with_path(params))
+
+
+def train_main_path(cfg, train, fa_ops, pa_ops, ns_ops, ckpt_dir):
+    """``train.main(TRAIN_ARGV)`` with every launch counter at 0 just
+    before; checks the expansion, the losses, the checkpoints and each
+    kernel's launches.  Returns (result, {kernel: launches})."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    fa_ops.KERNEL_LAUNCHES = fa_ops.BWD_LAUNCHES = pa_ops.KERNEL_LAUNCHES = 0
+    ns_ops.NS_FUSED_LAUNCHES = ns_ops.MATMUL_LAUNCHES = 0
+    res = train.main(TRAIN_ARGV + ["--ckpt-dir", ckpt_dir])
+    counts = {"flash_attention": fa_ops.KERNEL_LAUNCHES,
+              "flash_attention_bwd": fa_ops.BWD_LAUNCHES,
+              "paged_attention": pa_ops.KERNEL_LAUNCHES,
+              "ns_fused": ns_ops.NS_FUSED_LAUNCHES,
+              "matmul": ns_ops.MATMUL_LAUNCHES}
+    tau = int(TRAIN_TAU * TRAIN_STEPS)
+    layers = [1] * tau + [cfg.num_layers] * (TRAIN_STEPS - tau)
+    h = res.history
+    if h["expansion_steps"] != [tau] or res.final_layers != cfg.num_layers:
+        _fail(f"expansion at {h['expansion_steps']} to {res.final_layers} "
+              f"layers, expected [{tau}] to {cfg.num_layers}")
+    if h["layers"][-1] != cfg.num_layers or \
+            not all(np.isfinite(h["loss"])) or not h["loss"]:
+        _fail(f"training losses {h['loss']} at layers {h['layers']}")
+    from repro_torch.configs.base import TrainConfig
+    tc = TrainConfig()                 # the launcher's eval cadence
+    evals = [s for s in range(1, TRAIN_STEPS) if s % tc.eval_every == 0]
+    want = {"flash_attention": sum(layers)
+            + tc.eval_batches * sum(layers[s] for s in evals),
+            "flash_attention_bwd": sum(layers),
+            "paged_attention": 0,
+            "ns_fused": sum(_stacked_matrix_leaves(cfg, L) for L in layers),
+            "matmul": 3 * 5 * TRAIN_STEPS}
+    if counts != want:
+        _fail(f"training launches {counts}, expected {want}")
+    saved = ckpt.all_steps(ckpt_dir)
+    if saved != [tau, TRAIN_STEPS]:
+        _fail(f"checkpoints {saved}, expected [{tau}, {TRAIN_STEPS}]")
+    if ckpt.load_metadata(ckpt_dir, tau)["num_layers"] != 1 or \
+            ckpt.load_metadata(ckpt_dir, TRAIN_STEPS)["num_layers"] != \
+            cfg.num_layers:
+        _fail("checkpoint depths do not follow the expansion")
+    print(f"training main path: {TRAIN_STEPS} steps, expansion at step "
+          f"{tau} to {cfg.num_layers} layers, losses {h['loss'][0]:.4f} -> "
+          f"{h['loss'][-1]:.4f}, checkpoints {saved}; launches {counts}")
+    return res, counts
+
+
+def serve_trained(serve, fa_ops, pa_ops, ckpt_dir, layers):
+    """``serve.main --checkpoint`` on the grown checkpoint: one prefill per
+    generation through flash attention, at the checkpoint's depth."""
+    fa_ops.KERNEL_LAUNCHES = pa_ops.KERNEL_LAUNCHES = 0
+    res = serve.main(["--arch", "gpt2-12l", "--checkpoint", ckpt_dir,
+                      "--batch", "4", "--prompt-len", "128", "--gen", "16"])
+    if fa_ops.KERNEL_LAUNCHES != 2 * layers or pa_ops.KERNEL_LAUNCHES:
+        _fail(f"serving the checkpoint launched flash attention "
+              f"{fa_ops.KERNEL_LAUNCHES} times, expected {2 * layers}")
+    if res.tokens.shape != (4, 128 + 16) or res.tokens.min() < 0 \
+            or res.tokens.max() >= 50304:
+        _fail(f"serving the checkpoint returned tokens {res.tokens.shape}")
+    print(f"served the trained checkpoint at {layers} layers: "
+          f"{fa_ops.KERNEL_LAUNCHES} flash-attention launches")
+
+
+def train_card_vs_cpu(cfglib, registry):
+    """One train step at full width (depth 1, batch 2, 128 tokens) from the
+    same params and batch on the card and on the CPU."""
+    from repro_torch import bridge
+    from repro_torch.configs.base import OptimizerConfig, ScheduleConfig
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.optim.base import make_optimizer
+    from repro_torch.train import steps
+    cfg = cfglib.get_config("gpt2-12l").with_depth(1)
+    opt = make_optimizer(OptimizerConfig())
+    step = steps.make_train_step(cfg, opt, make_schedule(
+        ScheduleConfig(), 0.01, 100))
+    host = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                  global_batch=2, seed=0)).batch(0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = registry.get_model(cfg).init(
+            torch.Generator().manual_seed(0), cfg, device=dev)
+        batch = {k: torch.from_numpy(v).long().to(dev)
+                 for k, v in host.items()}
+        t0 = time.perf_counter()
+        params, _, m = step(params, opt.init(params), batch, 0)
+        out[dev] = (float(m["loss"]), bridge.flatten(
+            bridge.params_to_numpy(params)), time.perf_counter() - t0)
+    loss_diff = abs(out["cuda"][0] - out["cpu"][0])
+    worst, worst_key = 0.0, ""
+    for key, want in out["cpu"][1].items():
+        d = float(np.abs(out["cuda"][1][key] - want).max())
+        if d > worst:
+            worst, worst_key = d, key
+    print(f"train card vs cpu: loss {out['cuda'][0]:.6f} vs "
+          f"{out['cpu'][0]:.6f} (diff {loss_diff:.2e}, tol "
+          f"{TRAIN_LOSS_TOL:.0e}); worst param diff {worst:.2e} at "
+          f"{worst_key} (tol {TRAIN_PARAM_TOL:.0e}); CPU step "
+          f"{out['cpu'][2]:.1f} s")
+    if loss_diff > TRAIN_LOSS_TOL or worst > TRAIN_PARAM_TOL:
+        _fail("one train step differs between the card and the CPU")
+
+
+def _library_ns(x, steps=5, eps=1e-7):
+    """The same Newton–Schulz chain as batched PyTorch calls (bmm and
+    baddbmm over the stack): the yardstick, never called by the port."""
+    from repro_torch.kernels.newton_schulz.ref import NS_COEFFS
+    a, b, c = NS_COEFFS
+    x = x / (torch.linalg.norm(x.flatten(1), dim=1)[:, None, None] + eps)
+    for _ in range(steps):
+        g = torch.bmm(x, x.transpose(1, 2))
+        p = torch.baddbmm(g, g, g, beta=b, alpha=c)
+        x = torch.baddbmm(x, p, x, beta=a, alpha=1.0)
+    return x
+
+
+def _bound(flops, nbytes):
+    op_ms = flops / PEAK_F32_FLOPS * 1e3
+    byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(bound_ms=max(op_ms, byte_ms),
+                bound_by="operations" if op_ms >= byte_ms else "bytes")
+
+
+def train_times(ns_ops, fa_ops, res, cfg):
+    """ns_fused at the main path's largest stack, matmul at the
+    embedding's Gram, the flash backward at the training shape, each
+    against its plain version and a PyTorch yardstick, beside its bound;
+    then the Newton–Schulz share of a training step per depth."""
+    L, n, m = 12, 768, 3072
+    x = torch.randn((L, n, m), device="cuda") * 0.02
+    ns = dict(ms=_time_ms(lambda: ns_ops.ns_fused(x, force="kernel"), 10),
+              plain_ms=_time_ms(lambda: ns_ops.ns_fused(x, force="ref"), 5),
+              library_ms=_time_ms(lambda: _library_ns(x), 10),
+              **_bound(L * 5 * (4 * n * n * m + 2 * n ** 3), 2 * 4 * L * n * m))
+    print(f"ns_fused at L={L} {n}x{m} f32, 5 steps: kernel {ns['ms']:.4f} ms, "
+          f"plain {ns['plain_ms']:.4f} ms, batched torch "
+          f"{ns['library_ms']:.4f} ms; bound {ns['bound_ms']:.4f} ms "
+          f"({ns['bound_by']})")
+    for shape in ((12, 768, 768), (12, 3072, 768)):
+        y = torch.randn(shape, device="cuda") * 0.02
+        print(f"  newton_schulz at {shape}: kernel route "
+              f"{_time_ms(lambda: ns_ops.newton_schulz(y), 10):.4f} ms")
+
+    M, K = 768, 50304
+    a = torch.randn((M, K), device="cuda")
+    mm = dict(ms=_time_ms(lambda: ns_ops.matmul(a, a, trans_b=True,
+                                                force="kernel"), 10),
+              plain_ms=_time_ms(lambda: ns_ops.matmul(a, a, trans_b=True,
+                                                      force="ref"), 10),
+              library_ms=_time_ms(lambda: torch.matmul(a, a.T), 10),
+              **_bound(2 * M * M * K, 4 * (2 * M * K + M * M)))
+    p = torch.randn((M, M), device="cuda")
+    mm_x = _time_ms(lambda: ns_ops.matmul(p, a, force="kernel"), 10)
+    print(f"matmul at ({M},{K})@T: kernel {mm['ms']:.4f} ms, plain "
+          f"{mm['plain_ms']:.4f} ms, torch.matmul {mm['library_ms']:.4f} ms; "
+          f"bound {mm['bound_ms']:.4f} ms ({mm['bound_by']}); ({M},{M})@"
+          f"({M},{K}): kernel {mm_x:.4f} ms")
+
+    B, S, H, hd = TRAIN_SHAPE
+    q, k, v = _inputs(B, S, H, H, hd, torch.float32, 777)
+    do = _inputs(B, S, H, H, hd, torch.float32, 778)[0]
+    out, lse = fa_ops.flash_attention_cuda(q, k, v, with_lse=True)
+    bwd_ms = _time_device_ms(lambda: fa_ops.flash_attention_bwd_cuda(
+        q, k, v, out, lse, do), 50)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref_out = fa_ops.flash_attention(*leaves, force="ref")
+    plain_ms = _time_device_ms(lambda: torch.autograd.grad(
+        ref_out, leaves, do, retain_graph=True), 10)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_ms = _time_device_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qt, kt, vt), dot, retain_graph=True), 50)
+    fwd_ms = _time_device_ms(lambda: fa_ops.flash_attention_cuda(
+        q, k, v, with_lse=True), 50)
+    pairs = B * H * S * (S + 1) // 2
+    bwd = dict(ms=bwd_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               **_bound(10 * hd * pairs,
+                        4 * (8 * B * S * H * hd + B * H * S)))
+    print(f"flash backward at B={B} S={S} H={H} hd={hd} causal f32: kernel "
+          f"{bwd_ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, sdpa "
+          f"backward {lib_ms:.4f} ms; bound {bwd['bound_ms']:.4f} ms "
+          f"({bwd['bound_by']}); forward with lse {fwd_ms:.4f} ms")
+
+    # Newton–Schulz per training step at each depth: every Muon leaf,
+    # through the port's route, against the measured step time.
+    from repro_torch.models import registry
+    from repro_torch.optim import muon
+    from repro_torch.tree import leaves_with_path
+    for layers in (1, cfg.num_layers):
+        dcfg = cfg.with_depth(layers)
+        mats = [torch.randn(x.shape, device="cuda") * 0.02
+                for p, x in leaves_with_path(registry.get_model(dcfg).init(
+                    None, dcfg, device="meta")) if muon._is_matrix(p, x)]
+
+        def all_ns():
+            for mat in mats:
+                muon.orthogonalize(mat)
+        ns_step = _time_ms(all_ns, 3)
+        dts = [dt for Ld, dt in res.step_times if Ld == layers][1:]
+        step_ms = 1e3 * sum(dts) / len(dts)
+        tok_s = TRAIN_SHAPE[0] * TRAIN_SHAPE[1] / (step_ms / 1e3)
+        print(f"training at {layers} layers: {tok_s:.1f} tokens/s "
+              f"({step_ms:.2f} ms per step over {len(dts)} steps); "
+              f"Newton-Schulz {ns_step:.2f} ms per step = "
+              f"{100 * ns_step / step_ms:.1f}% of the step")
+    return ns, mm, bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -468,8 +873,9 @@ def main() -> int:
     from repro_torch import configs as cfglib
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.newton_schulz import ops as ns_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import registry
     from repro_torch.train.serve_engine import ServeEngine
 
@@ -520,6 +926,26 @@ def main() -> int:
     # 8. times
     t = times(fa_ops)
     tp = paged_times(pa_ops)
+
+    # 9. training parity on the card
+    ns_err = ns_parity(ns_ops)
+    mm_err = matmul_parity(ns_ops)
+    bwd_err = bwd_parity(fa_ops)
+
+    # 10-11. the training main path, counters from 0, then serve its
+    # checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "run")
+        res, train_counts = train_main_path(cfg, train, fa_ops, pa_ops,
+                                            ns_ops, ckpt_dir)
+        serve_trained(serve, fa_ops, pa_ops, ckpt_dir, cfg.num_layers)
+
+    # 12. card against CPU, one train step
+    train_card_vs_cpu(cfglib, registry)
+
+    # 13. training times
+    t_ns, t_mm, t_bwd = train_times(ns_ops, fa_ops, res, cfg)
+
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -530,7 +956,25 @@ def main() -> int:
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
                    "paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:97",
-         "launches": paged_launches, "max_abs_err": paged_err, **tp}]}
+         "launches": paged_launches, "max_abs_err": paged_err, **tp},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_bwd.cu",
+         "replaces": "none (no TPU kernel: JAX differentiates its attention "
+                     "itself)",
+         "launches": train_counts["flash_attention_bwd"],
+         "max_abs_err": bwd_err, **t_bwd},
+        {"name": "ns_fused", "route": "cuda",
+         "source": "src/repro_torch/kernels/newton_schulz/csrc/"
+                   "newton_schulz.cu",
+         "replaces": "src/repro/kernels/newton_schulz/kernel.py:48",
+         "launches": train_counts["ns_fused"], "max_abs_err": ns_err,
+         **t_ns},
+        {"name": "matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/newton_schulz/csrc/"
+                   "newton_schulz.cu",
+         "replaces": "src/repro/kernels/newton_schulz/kernel.py:79",
+         "launches": train_counts["matmul"], "max_abs_err": mm_err, **t_mm}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,7 +62,8 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def _to_numpy(t) -> np.ndarray:
+def to_numpy(t) -> np.ndarray:
+    """A host copy of a tensor (or array) as numpy, bits unchanged."""
     t = torch.as_tensor(t).detach().cpu()
     if t.dtype == torch.bfloat16:
         raise TypeError("bfloat16 has no numpy dtype; cast before export")
@@ -82,4 +83,4 @@ def params_from_jax(tree_or_flat) -> dict:
 def params_to_numpy(params) -> dict:
     """The port's params as a nested dict of numpy arrays (the reference's
     pytree, host side)."""
-    return unflatten({k: _to_numpy(v) for k, v in flatten(params).items()})
+    return unflatten({k: to_numpy(v) for k, v in flatten(params).items()})

@@ -1,10 +1,11 @@
-"""Model configuration dataclasses (the port's own copy of
-``repro/configs/base.py``, model part only).
+"""Model and training configuration dataclasses (the port's own copy of
+``repro/configs/base.py``: the model, optimizer, schedule, expansion and
+training configs).
 
 Every field keeps the reference's name and default so a config built here
-describes the same model as the reference's.  Training, shape and mesh
-configs and the TPU roofline constants are not copied: the serving slice
-does not read them.
+describes the same model and run as the reference's.  Shape and mesh
+configs and the TPU roofline constants are not copied: no ported path reads
+them.
 """
 from __future__ import annotations
 
@@ -118,3 +119,66 @@ class ModelConfig:
                 f"{self.name}: depth {num_layers} not a multiple of the "
                 f"layer-pattern period {self.pattern_period}")
         return dataclasses.replace(self, num_layers=num_layers)
+
+
+# ---------------------------------------------------------------------------
+# Training / progressive-plan configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "muon_nsgd"          # 'muon_nsgd' | 'adamw' | 'nsgd' | 'sgd'
+    learning_rate: float = 0.01
+    weight_decay: float = 0.01
+    momentum: float = 0.95
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    ns_steps: int = 5
+    mup: bool = True                 # muP-scale per-tensor LRs
+    grad_clip: float = 0.0           # 0 disables (paper: no clipping)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleConfig:
+    name: str = "wsd"                # 'wsd' | 'cosine' | 'constant'
+    warmup_frac: float = 0.02
+    decay_frac: float = 0.2          # WSD decay tail (paper default 20%)
+    min_lr_frac: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpansionConfig:
+    """One expansion event in a progressive plan."""
+    at_frac: float                   # τ/T
+    target_layers: int
+    init: str = "random"             # 'random' | 'copying_stack' | 'copying_inter'
+                                     # | 'copying_last' | 'zero' | 'copying_zeroL'
+                                     # | 'copying_zeroN'
+    insert_at: str = "bottom"        # 'bottom' | 'top'  (paper A.3: bottom best)
+    opt_state_policy: str = "inherit"  # 'inherit' | 'copy' | 'reset'
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    total_steps: int = 1000
+    seq_len: int = 1024
+    global_batch: int = 512
+    grad_accum: int = 1              # microbatches per step: global_batch is
+                                     # split into grad_accum microbatches and
+                                     # gradients averaged
+    source_layers: int = 1           # zero/one-layer source model
+    expansions: Tuple[ExpansionConfig, ...] = ()
+    optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+    schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3
+    eval_every: int = 50
+    eval_batches: int = 4
+    seed: int = 0
+    dtype: str = "float32"           # compute dtype
+    # Activation checkpointing: only False (off) is ported (ROADMAP queue A
+    # item 15); the reference also takes True / 'nothing' / 'dots'.
+    remat: "bool | str" = False
+    log_every: int = 10

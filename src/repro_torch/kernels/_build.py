@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
-Each kernel package keeps its sources under ``csrc/``.  ``load(name)``
+Each kernel package keeps its sources (``*.cu``, and headers ``*.cuh``
+that they include) under ``csrc/``.  ``load(name)``
 compiles them at first use with ``nvcc`` into a shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds), caches it under
 ``build/repro_torch/`` at the repository root keyed by a hash of the sources
@@ -24,7 +25,7 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_KERNELS_DIR)))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "repro_torch")
 
 # Kernel packages with CUDA sources, in the order the main path meets them.
-KERNELS = ("flash_attention", "paged_attention")
+KERNELS = ("flash_attention", "paged_attention", "newton_schulz")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
@@ -40,6 +41,10 @@ def _sources(name: str) -> List[str]:
     return srcs
 
 
+def _headers(name: str) -> List[str]:
+    return sorted(glob.glob(os.path.join(_KERNELS_DIR, name, "csrc", "*.cuh")))
+
+
 def _nvcc() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                               "bin", "nvcc"), shutil.which("nvcc")):
@@ -52,7 +57,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(name):
+    for src in _sources(name) + _headers(name):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")

@@ -7,7 +7,11 @@
 // (qi - ki < window) masks with NEG_INF = -1e30, online softmax with the
 // running max m, sum l and accumulator in f32, l clamped to 1e-30 at the
 // end.  GQA: q head h reads kv head h / (H/KV); K/V are never repeated.
-// Key tiles that the masks cover entirely are never visited.
+// Key tiles that the masks cover entirely are never visited.  Training
+// passes an lse pointer and gets each row's logsumexp m + log(l) as
+// (B, H, S) f32, which the backward (flash_attention_bwd.cu) recomputes
+// the probabilities from; the serving paths pass null and run the same
+// arithmetic.
 //
 // Precision: inputs f32 or bf16, converted to f32 on load; every product,
 // sum and exp is f32 (no tensor cores, no TF32); the output is rounded once
@@ -36,61 +40,15 @@
 // double-buffered K/V ring (here each tile load is waited for with the SMs
 // idle), warp specialisation, and a persistent schedule across tiles.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;          // query rows per CTA
-constexpr int BK = 64;          // keys per tile
-constexpr int NTHREADS = 256;   // 16 x 16 thread grid
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  float2 a = __bfloat1622float2(p2[0]);
-  float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
-  p2[0] = __floats2bfloat162_rn(v.x, v.y);
-  p2[1] = __floats2bfloat162_rn(v.z, v.w);
-}
-
-// Copy rows [row0, row0 + 64) of one head of a (B, S, NH, HD) tensor into a
-// shared f32 tile with row stride STR, multiplied by `scale`; rows >= S are
-// zero.  Each thread moves 4 consecutive dims at a time.
-template <int HD, int STR, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* base, int row0,
-                                          int S, int row_stride, float scale) {
-  constexpr int VEC_PER_ROW = HD / 4;
-  for (int idx = threadIdx.x; idx < 64 * VEC_PER_ROW; idx += NTHREADS) {
-    const int r = idx / VEC_PER_ROW;
-    const int d = (idx % VEC_PER_ROW) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) {
-      val = load4(base + (size_t)(row0 + r) * row_stride + d);
-      val.x *= scale; val.y *= scale; val.z *= scale; val.w *= scale;
-    }
-    store4(dst + r * STR + d, val);
-  }
-}
 
 template <int HD, typename T>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse,
                  int S, int H, int KV, int causal, int window, float softcap,
                  float scale) {
   constexpr int QSTR = HD + 4;   // float4 rows, conflict-free column reads
@@ -252,6 +210,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                      acc[i][4 * g + 2] * inv, acc[i][4 * g + 3] * inv);
       store4(obase + (size_t)qi * q_stride + 64 * g + 4 * tx, out);
     }
+    // The 16 lanes of a row hold the same m and l after the reductions.
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + qi] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
@@ -262,8 +223,8 @@ constexpr size_t smem_bytes() {
 
 template <int HD, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, int causal, int window,
-                   float softcap, cudaStream_t stream) {
+                   float* lse, int B, int S, int H, int KV, int causal,
+                   int window, float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   // Above 48 KB a kernel must opt in to dynamic shared memory; the call is
   // cheap, and a per-process flag would have to be thread-safe.
@@ -275,28 +236,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.0f / sqrtf((float)HD);
   flash_fwd_kernel<HD, T><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, causal, window,
-      softcap, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KV, causal,
+      window, softcap, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  lse (B, H, S) f32 receives each row's
+// logsumexp of its (scaled, softcapped, masked) scores for the backward, or
+// is null (the serving paths).  Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int S, int H, int KV, int hd,
-                                   int dtype, int causal, int window,
-                                   float softcap, void* stream) {
+                                   void* o, float* lse, int B, int S, int H,
+                                   int KV, int hd, int dtype, int causal,
+                                   int window, float softcap, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64 && dtype == 0)
-    return (int)launch<64, float>(q, k, v, o, B, S, H, KV, causal, window, softcap, st);
+    return (int)launch<64, float>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
   if (hd == 64 && dtype == 1)
-    return (int)launch<64, __nv_bfloat16>(q, k, v, o, B, S, H, KV, causal, window, softcap, st);
+    return (int)launch<64, __nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
   if (hd == 128 && dtype == 0)
-    return (int)launch<128, float>(q, k, v, o, B, S, H, KV, causal, window, softcap, st);
+    return (int)launch<128, float>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
   if (hd == 128 && dtype == 1)
-    return (int)launch<128, __nv_bfloat16>(q, k, v, o, B, S, H, KV, causal, window, softcap, st);
+    return (int)launch<128, __nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

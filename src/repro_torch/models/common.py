@@ -1,5 +1,6 @@
 """Shared model building blocks: device resolution, initializers, norms,
-activations and softcap (``repro/models/common.py``).
+activations, softcap and the cross-entropy loss (``repro/models/
+common.py``).
 
 Models are ``init(generator, cfg, device=...) -> params`` /
 ``apply(params, ...)`` function pairs over nested dicts of tensors keyed as
@@ -89,3 +90,24 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0.0:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  final_softcap: float = 0.0) -> torch.Tensor:
+    """Mean next-token cross entropy. logits (B,S,V), labels (B,S).  The
+    logsumexp is taken in float32 after the final softcap, as the
+    reference takes it."""
+    logits = softcap(logits.float(), final_softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

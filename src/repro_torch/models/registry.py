@@ -17,6 +17,9 @@ from repro_torch.models import transformer
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     init: Callable        # (generator, cfg, dtype=..., num_layers=None, device=...) -> params
+    # (params, cfg, batch) -> (loss, {"ce", "aux"}); batch holds tokens,
+    # labels and optionally mask.
+    loss: Callable
     apply: Callable       # (params, cfg, tokens) -> (logits, aux)
     init_cache: Callable  # (params, cfg, batch_size, max_len, dtype, device) -> cache
     # (params, cfg, tokens(B,1), cache, index(B,)) -> (logits, cache); the
@@ -35,13 +38,19 @@ class ModelApi:
     prefill_chunk: Optional[Callable] = None
 
 
+def _lm_loss(params, cfg, batch):
+    return transformer.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                               mask=batch.get("mask"))
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.is_encoder_decoder or cfg.family != "dense":
         raise NotImplementedError(
             f"ROADMAP queue A item 12 (remaining architectures): {cfg.name} "
             f"(family {cfg.family!r}) is not ported yet; the port serves "
             "dense decoders")
-    return ModelApi(init=transformer.lm_init, apply=transformer.lm_apply,
+    return ModelApi(init=transformer.lm_init, loss=_lm_loss,
+                    apply=transformer.lm_apply,
                     init_cache=transformer.lm_init_cache,
                     decode_step=transformer.lm_decode_step,
                     prefill=transformer.lm_prefill,

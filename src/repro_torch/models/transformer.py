@@ -18,8 +18,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import (apply_norm, dense_init, embed_init,
-                                       normal, norm_init, softcap)
+from repro_torch.models.common import (apply_norm, cross_entropy,
+                                       dense_init, embed_init, normal,
+                                       norm_init, softcap)
+from repro_torch.tree import tree_map
 
 _KIND = ("ROADMAP queue A item 12 (remaining architectures): {what} is not "
          "ported yet")
@@ -33,15 +35,9 @@ def _check_dense(cfg: ModelConfig, i: int):
         raise NotImplementedError(_KIND.format(what="the MoE feed-forward"))
 
 
-def _tree_map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
 def _tree_index(tree, s: int):
     """Super-block ``s`` of a stacked tree (views, no copies)."""
-    return _tree_map(lambda x: x[s], tree)
+    return tree_map(lambda x: x[s], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +83,7 @@ def lm_init(generator, cfg: ModelConfig, dtype=torch.float32, num_layers=None,
     if n_super > 0:
         blocks = [superblock_init(generator, cfg, dtype, device)
                   for _ in range(n_super)]
-        params["blocks"] = _tree_map(lambda *xs: torch.stack(xs), *blocks)
+        params["blocks"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
     return params
 
 
@@ -155,6 +151,15 @@ def lm_apply(params, cfg: ModelConfig, tokens,
             x, a = _apply_layer(sb[f"layer{i}"], cfg, i, x, positions)
             aux = aux + a
     return _head(params, cfg, x), aux
+
+
+def lm_loss(params, cfg: ModelConfig, tokens, labels, mask=None):
+    """Returns (loss + aux, {"ce": loss, "aux": aux}).  The reference's
+    ``embeds`` (frontend) and ``remat`` arguments come with ROADMAP queue
+    A items 12 and 15."""
+    logits, aux = lm_apply(params, cfg, tokens)
+    loss = cross_entropy(logits, labels, mask)
+    return loss + aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,7 @@ from repro_torch.models import registry
 from repro_torch.models.common import resolve_device
 from repro_torch.train import steps as steps_lib
 from repro_torch.train.kv_pool import KVBlockPool
+from repro_torch.tree import leaves_with_path
 
 _KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 _QUANT = ("ROADMAP queue A item 10 (prefix sharing + quantized pages): "
@@ -299,7 +300,7 @@ class ServeEngine:
             self.params, self.cfg, 1, 1, self.block_size, self.max_len,
             self.cache_dtype, kv, device="meta")
         total = 0.0
-        for path, leaf in steps_lib._leaves(tree):
+        for path, leaf in leaves_with_path(tree):
             if steps_lib._is_paged_leaf(path):
                 # num_blocks=1 pools hold 2 pages (1 + trash): halve.
                 total += leaf.numel() * leaf.element_size() / 2

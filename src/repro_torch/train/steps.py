@@ -1,10 +1,13 @@
-"""Serving steps (``repro/train/steps.py``: ``_sample``,
-``make_prefill_step``, ``make_serve_decode_step`` with its masked and paged
-continuous-batching forms, and the admit and chunked-prefill steps).
+"""Train, eval and serving steps (``repro/train/steps.py``:
+``make_train_step``, ``make_eval_step``, ``_sample``, ``make_prefill_step``,
+``make_serve_decode_step`` with its masked and paged continuous-batching
+forms, and the admit and chunked-prefill steps).
 
-The reference jits each step and donates the cache; here each step is a
-plain callable run under ``torch.inference_mode()`` that writes the cache
-in place.  The sampled token, the cursor and the generator stay on the
+The train step takes gradients with autograd and lets the optimizer write
+params and moments in place, where the reference jits the step and donates
+them.  The reference jits each serving step and donates the cache; here
+each serving step is a plain callable run under ``torch.inference_mode()``
+that writes the cache in place.  The sampled token, the cursor and the generator stay on the
 step's device, so the decode loop never waits for the host.  The small
 per-row state a step hands back (tokens, active) is always a new tensor:
 the continuous scheduler still holds the previous step's pair when it
@@ -17,8 +20,102 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import bridge
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry
+from repro_torch.optim.base import Optimizer
+from repro_torch.tree import leaves_with_path
+
+_SENTINELS = ("ROADMAP queue A item 11 (fault tolerance): the train step's "
+              "sentinels and NaN injection are not ported yet")
+_REMAT = ("ROADMAP queue A item 15 (activation checkpointing): remat={remat!r} "
+          "is not ported yet; the port trains with remat off")
+
+
+def _microbatch(batch, grad_accum: int):
+    """(B, ...) -> grad_accum microbatches of B/grad_accum rows, in order
+    (the reference's reshape to (grad_accum, B/grad_accum, ...))."""
+    out = []
+    for i in range(grad_accum):
+        mb = {}
+        for k, x in batch.items():
+            b = x.shape[0]
+            if b % grad_accum:
+                raise ValueError(f"batch {b} not divisible by grad_accum "
+                                 f"{grad_accum}")
+            n = b // grad_accum
+            mb[k] = x[i * n:(i + 1) * n]
+        out.append(mb)
+    return out
+
+
+def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
+                    remat=False, grad_accum: int = 1,
+                    sentinels: bool = False, inject=None) -> Callable:
+    """(params, opt_state, batch, step) -> (params, opt_state, metrics).
+
+    The schedule is evaluated inside the step from the global step counter
+    (float32), so the same schedule spans the expansion boundary.  With
+    ``grad_accum > 1`` the batch is split into ``grad_accum`` microbatches
+    whose gradients, losses and metrics are summed in order and scaled by
+    1/grad_accum, as the reference's scan does.  Gradients are taken with
+    respect to the stacked param leaves themselves (detached aliases that
+    share their storage), and the optimizer updates those leaves in place.
+    Metrics: loss, lr, ce, aux (0-d tensors on the params' device)."""
+    if remat not in (False, None, "off"):
+        raise NotImplementedError(_REMAT.format(remat=remat))
+    if sentinels or inject:
+        raise NotImplementedError(_SENTINELS)
+    api = registry.get_model(cfg)
+
+    def loss_and_grads(flat, batch):
+        leaves = {k: v.detach().requires_grad_() for k, v in flat.items()}
+        with torch.enable_grad():
+            loss, metrics = api.loss(bridge.unflatten(leaves), cfg, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves.values())]
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                grads)
+
+    def step_fn(params, opt_state, batch, step):
+        flat = bridge.flatten(params)
+        dev = next(iter(flat.values())).device
+        lr = schedule(step).to(dev)
+        if grad_accum <= 1:
+            loss, metrics, grads = loss_and_grads(flat, batch)
+        else:
+            grads = [torch.zeros_like(p) for p in flat.values()]
+            loss = torch.zeros((), device=dev)
+            metrics = None
+            for mb in _microbatch(batch, grad_accum):
+                l, m, g = loss_and_grads(flat, mb)
+                grads = [a + b for a, b in zip(grads, g)]
+                loss = loss + l
+                metrics = m if metrics is None else {
+                    k: metrics[k] + m[k] for k in metrics}
+            inv = 1.0 / grad_accum
+            grads = [g * inv for g in grads]
+            loss = loss * inv
+            metrics = {k: v * inv for k, v in metrics.items()}
+        grad_tree = bridge.unflatten(dict(zip(flat, grads)))
+        params, opt_state = opt.update(grad_tree, opt_state, params, lr)
+        return params, opt_state, {"loss": loss, "lr": lr, **metrics}
+
+    return step_fn
+
+
+def make_eval_step(cfg: ModelConfig) -> Callable:
+    """(params, batch) -> mean cross entropy (0-d tensor), no autograd."""
+    api = registry.get_model(cfg)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = api.loss(params, cfg, batch)
+        return metrics["ce"]
+
+    return eval_step
 
 
 def _sample(logits, temp: Optional[float], generator: Optional[torch.Generator],
@@ -61,15 +158,6 @@ def _is_paged_leaf(path) -> bool:
     skips them (their per-row no-op is the trash-page write redirect
     inside ``attn_decode_paged``).  ``path`` is a tuple of dict keys."""
     return any(k in ("k_pages", "v_pages") for k in path)
-
-
-def _leaves(tree, path=()):
-    """(path, tensor) pairs of a nested dict, in insertion order."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, path + (k,))
-    else:
-        yield path, tree
 
 
 def make_serve_decode_step(cfg: ModelConfig, sample: bool = False,
@@ -153,8 +241,8 @@ def make_admit_step() -> Callable:
     @torch.inference_mode()
     def admit(cache, tokens, index, active, limit, row_cache, row_tok,
               row_len: int, row_limit: int, row: int):
-        rows = dict(_leaves(row_cache))
-        for path, big in _leaves(cache):
+        rows = dict(leaves_with_path(row_cache))
+        for path, big in leaves_with_path(cache):
             big[:, row] = rows[path][:, 0].to(big.dtype)
         return (cache,) + _set_row(tokens, index, active, limit, row,
                                    row_tok, row_len, row_limit)
@@ -205,8 +293,8 @@ def make_paged_admit_step() -> Callable:
     @torch.inference_mode()
     def admit(cache, tokens, index, active, limit, carry, row_tok,
               row_len: int, row_limit: int, row: int):
-        rows = dict(_leaves(carry))
-        for path, big in _leaves(cache):
+        rows = dict(leaves_with_path(carry))
+        for path, big in leaves_with_path(cache):
             if _is_paged_leaf(path):
                 continue
             big[:, row] = 0

@@ -1,19 +1,23 @@
-"""The CUDA kernels (flash attention, paged-attention decode) against their
-plain PyTorch versions, on the card.
+"""The CUDA kernels (flash attention forward and backward, paged-attention
+decode, the Newton–Schulz chain and matmul) against their plain PyTorch
+versions, on the card.
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch.  Without a card every test skips (decided in a
 fixture when the test runs, so that test workers all collect the same
-tests).  Tolerances: 1e-4 in f32 (both sides sum in f32, in other orders);
-2e-2 in bf16, where both sides round the output to bf16 once.
+tests).  Tolerances of the attention kernels: 1e-4 in f32 (both sides sum
+in f32, in other orders); 2e-2 in bf16, where both sides round the output
+to bf16 once.  The training kernels' tolerances are stated above their
+tests.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.newton_schulz import ops as ns_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 
 
@@ -120,3 +124,117 @@ def test_paged_kernel_refuses_an_unsupported_head_dim(cuda_device):
     with pytest.raises(ValueError, match="head dim 16"):
         pa_ops.paged_attention(q, kp, vp, tbl, idx)
     assert pa_ops.KERNEL_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: the flash-attention backward, ns_fused and matmul.
+# Tolerances (relative to the largest entry of the plain result): 1e-4 in
+# f32, where both sides sum in f32 in other orders and Newton–Schulz's five
+# quintic steps amplify that along small singular directions; 1e-2 (NS,
+# matmul) or 2e-2 (gradients, relative to max(1, largest)) in bf16, where
+# both sides round the result to bf16 once.
+# ---------------------------------------------------------------------------
+
+
+def _rel(got, want, floor=0.0):
+    want = want.float()
+    scale = max(floor, want.abs().max().item())
+    return (got.float() - want).abs().max().item() / scale
+
+
+def _grads(q, k, v, do, kw, force):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, force=force, **kw)
+    return torch.autograd.grad(out, leaves, do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("B,S,H,KV,causal,window,softcap", [
+    (2, 77, 12, 12, True, 0, 0.0), (2, 300, 8, 2, True, 64, 30.0),
+    (2, 200, 8, 2, False, 0, 30.0), (16, 256, 12, 12, True, 0, 0.0)])
+def test_flash_backward_matches_autograd_of_plain_version(
+        cuda_device, dtype, hd, B, S, H, KV, causal, window, softcap):
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(cuda_device, td)
+               for x in _qkv(10, B, S, H, KV, hd))
+    do = torch.from_numpy(_qkv(11, B, S, H, KV, hd)[0]).to(cuda_device, td)
+    kw = dict(causal=causal, window=window, logit_softcap=softcap)
+    before = ops.BWD_LAUNCHES
+    got = _grads(q, k, v, do, kw, "auto")
+    want = _grads(q, k, v, do, kw, "ref")
+    torch.cuda.synchronize()
+    assert ops.BWD_LAUNCHES == before + 1
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    for g, w in zip(got, want):
+        assert g.dtype == td and g.shape == w.shape
+        assert _rel(g, w, floor=1.0) <= tol
+
+
+@pytest.mark.gpu
+def test_serving_forward_is_unchanged_by_the_lse_output(cuda_device):
+    """The training forward (with the logsumexp) writes the same output
+    bits as the serving forward, and serving never runs the backward."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device)
+               for x in _qkv(12, 2, 100, 8, 2, 64))
+    with torch.no_grad():
+        served = ops.flash_attention(q, k, v)
+    out, lse = ops.flash_attention_cuda(q, k, v, with_lse=True)
+    assert torch.equal(out, served)
+    want = torch.logsumexp(torch.einsum(
+        "bqhd,bkhd->bhqk", q, k.repeat_interleave(4, dim=2)) / 8.0
+        + torch.triu(torch.full((100, 100), -1e30, device=cuda_device), 1),
+        dim=-1)
+    assert (lse - want).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,n,m", [(1, 100, 300), (3, 64, 64), (3, 192, 64),
+                                   (12, 768, 3072)])
+def test_ns_fused_matches_plain_version(cuda_device, dtype, L, n, m):
+    td = getattr(torch, dtype)
+    x = (0.02 * torch.from_numpy(np.random.default_rng(L * n).standard_normal(
+        (L, n, m)).astype(np.float32))).to(cuda_device, td)
+    before = ns_ops.NS_FUSED_LAUNCHES
+    got = ns_ops.newton_schulz(x)
+    want = ns_ops.newton_schulz(x, force="ref")
+    torch.cuda.synchronize()
+    assert ns_ops.NS_FUSED_LAUNCHES == before + 1
+    assert got.dtype == td and got.shape == x.shape
+    assert _rel(got, want) <= (1e-2 if dtype == "bfloat16" else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,trans_b,dtype", [
+    (100, 300, 77, False, "float32"), (100, 300, 77, True, "float32"),
+    (37, 200, 45, False, "bfloat16"), (768, 50304, 768, True, "float32")])
+def test_matmul_matches_plain_product(cuda_device, M, K, N, trans_b, dtype):
+    td = getattr(torch, dtype)
+    rng = np.random.default_rng(M + N)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(
+        np.float32)).to(cuda_device, td)
+    y = torch.from_numpy(rng.standard_normal(
+        (N, K) if trans_b else (K, N)).astype(np.float32)).to(cuda_device, td)
+    before = ns_ops.MATMUL_LAUNCHES
+    got = ns_ops.matmul(x, y, trans_b=trans_b)
+    want = ns_ops.matmul(x, y, trans_b=trans_b, force="ref")
+    torch.cuda.synchronize()
+    assert ns_ops.MATMUL_LAUNCHES == before + 1 and got.dtype == td
+    assert _rel(got, want) <= (1e-2 if dtype == "bfloat16" else 1e-4)
+
+
+@pytest.mark.gpu
+def test_newton_schulz_kernels_refuse_what_they_do_not_take(cuda_device):
+    """Non-contiguous, float16 or n > m inputs raise on the card with no
+    launch counted; nothing falls back to the plain versions."""
+    x = torch.randn(2, 64, 32, device=cuda_device)
+    before = (ns_ops.NS_FUSED_LAUNCHES, ns_ops.MATMUL_LAUNCHES)
+    with pytest.raises(ValueError, match="n <= m"):
+        ns_ops.ns_fused(x)
+    with pytest.raises(ValueError, match="dtype"):
+        ns_ops.ns_fused(x.transpose(1, 2).contiguous().half())
+    with pytest.raises(ValueError, match="contiguous"):
+        ns_ops.matmul(x[0].T, x[0])
+    assert (ns_ops.NS_FUSED_LAUNCHES, ns_ops.MATMUL_LAUNCHES) == before
