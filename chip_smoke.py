@@ -9,9 +9,9 @@ result):
 1. the card: ``nvidia-smi`` name and power limit, torch and device names;
 2. the build: every CUDA kernel of the serving and training paths (flash
    attention forward and backward, paged-attention decode, the
-   Newton–Schulz chain and matmul), compiled from the sources in this
-   checkout at once, one ``nvcc`` per kernel package, with ``-Xptxas -v``
-   register/shared-memory use;
+   Newton–Schulz chain and matmul, the RWKV6 WKV recurrence), compiled from
+   the sources in this checkout at once, one ``nvcc`` per kernel package,
+   with ``-Xptxas -v`` register/shared-memory use;
 3. kernel parity: the flash-attention kernel against its plain PyTorch
    version on the card over dtype x causal x window x softcap x MHA/GQA x
    head dim x ragged lengths, plus the serving prefill's exact shape;
@@ -53,7 +53,24 @@ result):
 13. training times: the Newton–Schulz chain, matmul and the flash
    backward against their plain versions and a PyTorch yardstick, beside
    the bound, and the Newton–Schulz share of a training step at 1 and 12
-   layers.
+   layers;
+14. WKV parity: the RWKV6 WKV kernel against both plain forms (per-step and
+   chunked) over head dim x sequence length x batch·heads x zero/random
+   initial state x dtype x decays near 0.69 and near 0.9975, y and the
+   final state;
+15. the RWKV6 main path: ``serve.main`` serves ``rwkv6-7b`` at full width
+   and depth (batch 4, prompt 1024, 32 tokens, random weights from seed 0),
+   every counter at 0 just before: one WKV launch per layer per prefill and
+   no other kernel;
+16. card against CPU: ``rwkv6-7b`` at full width and depth 2, a greedy
+   B=2 P=80 8-token generation on the card against the CPU's prefill
+   (chunked WKV form) and decode fed the same tokens;
+17. WKV times at the main path's prefill shape: the kernel and both plain
+   forms beside the bound, and the kernel's share of the prefill.
+
+Every main path (5, 6, 10, 11, 15) starts with every kernel's launch
+counter at 0 and checks every counter after it, the kernels it must not
+launch included.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -114,6 +131,46 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # times an orthogonalized or normalized direction of O(0.1) entries, so a
 # 1e-3 relative difference of that direction moves a weight by ~1e-6).
 TRAIN_LOSS_TOL, TRAIN_PARAM_TOL = 1e-4, 1e-5
+
+# RWKV6 serving at full width and depth: 4 prompts of 1024 tokens, 32
+# greedy tokens each.  serve.main runs a warm-up and a timed generation,
+# so the prefill runs twice.
+RWKV_ARGV = ["--arch", "rwkv6-7b", "--batch", "4", "--prompt-len", "1024",
+             "--gen", "32", "--seed", "0"]
+RWKV_SHAPE = (4, 1024, 64, 64)      # (B, S, H, hd) of its WKV launches
+# The WKV kernel against its plain forms, relative to max(1, max|y|) and
+# max(1, max|state|): f32 sums in other orders, to the reference's own bar
+# for its chunked kernel against its per-step form; with bf16 r/k/v both
+# sides round y to bf16 once (2^-8 relative), the state stays f32.
+WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+# Each kernel wrapper's launch counter: (ops module key, attribute).
+COUNTERS = {"flash_attention": ("fa", "KERNEL_LAUNCHES"),
+            "flash_attention_bwd": ("fa", "BWD_LAUNCHES"),
+            "paged_attention": ("pa", "KERNEL_LAUNCHES"),
+            "ns_fused": ("ns", "NS_FUSED_LAUNCHES"),
+            "matmul": ("ns", "MATMUL_LAUNCHES"),
+            "wkv": ("wkv", "KERNEL_LAUNCHES")}
+OPS = {}                            # ops module key -> module, set in main
+
+
+def zero_counts():
+    for mod, attr in COUNTERS.values():
+        setattr(OPS[mod], attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(OPS[mod], attr)
+            for name, (mod, attr) in COUNTERS.items()}
+
+
+def expect_counts(phase: str, **want):
+    """Every counter equals ``want``, 0 where not named."""
+    got = read_counts()
+    full = {name: want.get(name, 0) for name in COUNTERS}
+    if got != full:
+        _fail(f"{phase}: launches {got}, expected {full}")
+    return got
 
 
 def _fail(msg: str):
@@ -343,13 +400,15 @@ def paged_main_path(cfg, serve, fa_ops, pa_ops):
         return run(self, *a, **kw)
     ServeEngine.decode_masked = counted_decode
     serve_scheduler.ContinuousScheduler.run = kept_run
-    fa_ops.KERNEL_LAUNCHES = pa_ops.KERNEL_LAUNCHES = 0
+    zero_counts()
     try:
         results = serve.main(PAGED_ARGV)
     finally:
         ServeEngine.decode_masked = decode
         serve_scheduler.ContinuousScheduler.run = run
     launches, flash = pa_ops.KERNEL_LAUNCHES, fa_ops.KERNEL_LAUNCHES
+    expect_counts("paged main path", paged_attention=launches,
+                  flash_attention=flash)
     # The requests serve.main drew: the reference's rng order (an empty
     # shared prefix, then lengths, then budgets).
     arg = {k: int(v) for k, v in zip(PAGED_ARGV, PAGED_ARGV[1:])
@@ -654,19 +713,14 @@ def _stacked_matrix_leaves(cfg, layers) -> int:
                for p, x in leaves_with_path(params))
 
 
-def train_main_path(cfg, train, fa_ops, pa_ops, ns_ops, ckpt_dir):
+def train_main_path(cfg, train, ckpt_dir):
     """``train.main(TRAIN_ARGV)`` with every launch counter at 0 just
     before; checks the expansion, the losses, the checkpoints and each
     kernel's launches.  Returns (result, {kernel: launches})."""
     from repro_torch.checkpoint import checkpointer as ckpt
-    fa_ops.KERNEL_LAUNCHES = fa_ops.BWD_LAUNCHES = pa_ops.KERNEL_LAUNCHES = 0
-    ns_ops.NS_FUSED_LAUNCHES = ns_ops.MATMUL_LAUNCHES = 0
+    zero_counts()
     res = train.main(TRAIN_ARGV + ["--ckpt-dir", ckpt_dir])
-    counts = {"flash_attention": fa_ops.KERNEL_LAUNCHES,
-              "flash_attention_bwd": fa_ops.BWD_LAUNCHES,
-              "paged_attention": pa_ops.KERNEL_LAUNCHES,
-              "ns_fused": ns_ops.NS_FUSED_LAUNCHES,
-              "matmul": ns_ops.MATMUL_LAUNCHES}
+    counts = read_counts()
     tau = int(TRAIN_TAU * TRAIN_STEPS)
     layers = [1] * tau + [cfg.num_layers] * (TRAIN_STEPS - tau)
     h = res.history
@@ -684,7 +738,7 @@ def train_main_path(cfg, train, fa_ops, pa_ops, ns_ops, ckpt_dir):
             "flash_attention_bwd": sum(layers),
             "paged_attention": 0,
             "ns_fused": sum(_stacked_matrix_leaves(cfg, L) for L in layers),
-            "matmul": 3 * 5 * TRAIN_STEPS}
+            "matmul": 3 * 5 * TRAIN_STEPS, "wkv": 0}
     if counts != want:
         _fail(f"training launches {counts}, expected {want}")
     saved = ckpt.all_steps(ckpt_dir)
@@ -700,20 +754,18 @@ def train_main_path(cfg, train, fa_ops, pa_ops, ns_ops, ckpt_dir):
     return res, counts
 
 
-def serve_trained(serve, fa_ops, pa_ops, ckpt_dir, layers):
+def serve_trained(serve, ckpt_dir, layers):
     """``serve.main --checkpoint`` on the grown checkpoint: one prefill per
     generation through flash attention, at the checkpoint's depth."""
-    fa_ops.KERNEL_LAUNCHES = pa_ops.KERNEL_LAUNCHES = 0
+    zero_counts()
     res = serve.main(["--arch", "gpt2-12l", "--checkpoint", ckpt_dir,
                       "--batch", "4", "--prompt-len", "128", "--gen", "16"])
-    if fa_ops.KERNEL_LAUNCHES != 2 * layers or pa_ops.KERNEL_LAUNCHES:
-        _fail(f"serving the checkpoint launched flash attention "
-              f"{fa_ops.KERNEL_LAUNCHES} times, expected {2 * layers}")
+    expect_counts("serving the checkpoint", flash_attention=2 * layers)
     if res.tokens.shape != (4, 128 + 16) or res.tokens.min() < 0 \
             or res.tokens.max() >= 50304:
         _fail(f"serving the checkpoint returned tokens {res.tokens.shape}")
     print(f"served the trained checkpoint at {layers} layers: "
-          f"{fa_ops.KERNEL_LAUNCHES} flash-attention launches")
+          f"{2 * layers} flash-attention launches")
 
 
 def train_card_vs_cpu(cfglib, registry):
@@ -864,6 +916,190 @@ def train_times(ns_ops, fa_ops, res, cfg):
     return ns, mm, bwd
 
 
+# ---------------------------------------------------------------------------
+# RWKV6 serving: the WKV recurrence
+# ---------------------------------------------------------------------------
+
+
+def wkv_case(B, S, H, hd, dtype, state, decay, seed):
+    """r, k, v ~ N(0, 1) in ``dtype``; w float32 uniform in ``decay``;
+    u ~ 0.1 N(0, 1); a zero or N(0, 1) initial state."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    r, k, v = (randn(B, S, H, hd).to(dtype) for _ in range(3))
+    lo, hi = decay
+    w = lo + (hi - lo) * torch.rand((B, S, H, hd), generator=g,
+                                    device="cuda")
+    u = 0.1 * randn(H, hd)
+    s0 = randn(B, H, hd, hd) if state else torch.zeros(
+        (B, H, hd, hd), device="cuda")
+    return r, k, v, w, u, s0
+
+
+def _rel_floor(got, want) -> float:
+    want = want.float()
+    scale = max(1.0, want.abs().max().item())
+    return (got.float() - want).abs().max().item() / scale
+
+
+# Decays at rwkv_init: w = exp(-exp(w_base)) with w_base in [-6, -1] spans
+# about [0.69, 0.9975]; the grid takes each end.
+WKV_DECAYS = {"near 0.69": (0.69, 0.72), "near 0.9975": (0.995, 0.9975)}
+
+
+def wkv_parity(wkv_ops) -> float:
+    """The WKV kernel against its per-step and chunked plain forms over
+    the grid; y and the final state.  Returns the max abs error of y at the
+    main path's prefill shape (f32, zero state) against the chunked form,
+    the one the CPU takes there."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for dtype in (f32, bf16):
+        for hd in (16, 32, 64, 128):
+            for S in (1, 7, 63, 64, 100, 1024):
+                for B, H in ((1, 2), (4, 64)):
+                    for state in (False, True):
+                        for decay in WKV_DECAYS:
+                            cases.append((B, S, H, hd, dtype, state, decay))
+    B, S, H, hd = RWKV_SHAPE
+    cases.append((B, S, H, hd, f32, False, "near 0.69"))
+    bad, err = 0, 0.0
+    worst = {}
+    for n, (B, S, H, hd, dtype, state, decay) in enumerate(cases):
+        args = wkv_case(B, S, H, hd, dtype, state, WKV_DECAYS[decay],
+                        seed=3000 + n)
+        y, s = wkv_ops.wkv(*args, force="kernel")
+        errs = []
+        for form in ("ref", "chunked"):
+            want_y, want_s = wkv_ops.wkv(*args, force=form)
+            errs.append((_rel_floor(y, want_y), _rel_floor(s, want_s)))
+        torch.cuda.synchronize()
+        err = (y.float() - want_y.float()).abs().max().item()
+        ey = max(e[0] for e in errs)
+        es = max(e[1] for e in errs)
+        ok = (ey <= WKV_TOL[dtype] and es <= WKV_TOL[f32]
+              and y.dtype == dtype and s.dtype == f32
+              and bool(torch.isfinite(y).all() and torch.isfinite(s).all()))
+        bad += not ok
+        label = (f"{str(dtype)[6:]:8s} B{B} S{S:<4d} H{H:<2d} hd{hd:<3d} "
+                 f"state {'rand' if state else 'zero'} decay {decay}")
+        if dtype not in worst or ey > worst[dtype][0]:
+            worst[dtype] = (ey, es, label)
+        if not ok:
+            print(f"  wkv {label} y rel={ey:.2e} state rel={es:.2e} FAIL")
+    for dtype, (ey, es, label) in worst.items():
+        print(f"  wkv worst {str(dtype)[6:]}: y rel={ey:.2e} (tol "
+              f"{WKV_TOL[dtype]:.0e}), state rel={es:.2e} at {label}")
+    if bad:
+        _fail(f"{bad} of {len(cases)} WKV parity cases")
+    print(f"wkv parity: {len(cases)} cases within tolerance against both "
+          "plain forms")
+    return err                                   # the last case: main shape
+
+
+def rwkv_main_path(cfglib, serve):
+    """``serve.main(RWKV_ARGV)`` with every counter at 0 just before:
+    exactly one WKV launch per layer per prefill (warm-up and timed), no
+    other kernel.  Returns (result, WKV launches, peak device bytes)."""
+    cfg = cfglib.get_config("rwkv6-7b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    zero_counts()
+    res = serve.main(RWKV_ARGV)
+    launches = expect_counts("rwkv6 main path", wkv=2 * cfg.num_layers)["wkv"]
+    peak = torch.cuda.max_memory_allocated()
+    arg = {k: int(v) for k, v in zip(RWKV_ARGV, RWKV_ARGV[1:])
+           if k in ("--batch", "--prompt-len", "--gen")}
+    shape = (arg["--batch"], arg["--prompt-len"] + arg["--gen"])
+    if res.tokens.shape != shape:
+        _fail(f"rwkv6 main path returned tokens {res.tokens.shape}, "
+              f"expected {shape}")
+    if res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
+        _fail("rwkv6 main path produced tokens outside the vocabulary")
+    print(f"rwkv6 main path: {launches} WKV launches (2 prefills x "
+          f"{cfg.num_layers} layers, 0 in decode), no other kernel; peak "
+          f"device memory {peak / 2 ** 30:.2f} GiB; prefill "
+          f"{res.prefill_s * 1e3:.1f} ms, decode {res.decode_s * 1e3:.1f} ms;"
+          f" phase {time.perf_counter() - t0:.1f} s")
+    return res, launches, peak
+
+
+def rwkv_card_vs_cpu(cfglib, registry):
+    """``rwkv6-7b`` at full width and depth 2: greedy B=2, P=80, 8 tokens
+    on the card, against the CPU's prefill (P=80: the chunked WKV form,
+    chunks of 16) and plain decode fed the card's tokens.  Logits agree per
+    step to ``LOGIT_TOL``; tokens are equal wherever the CPU's top-2 margin
+    exceeds it."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.serve_engine import ServeEngine
+    cfg = cfglib.get_config("rwkv6-7b").with_depth(2)
+    api = registry.get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    B, P, G = 2, 80, 8
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    card = ServeEngine(cfg, params, device="cuda", max_len=P + G).generate(
+        prompts, G, return_logits=True)
+    toks = torch.from_numpy(card.tokens).long()
+    want = []
+    with torch.inference_mode():
+        cache = tr.lm_init_cache(params, cfg, B, P + G, torch.float32,
+                                 device="cpu")
+        logits, cache = tr.lm_prefill(params, cfg, toks[:, :P], cache,
+                                      last_only=True)
+        want.append(logits[:, 0])
+        for t in range(1, G):
+            logits, cache = tr.lm_decode_step(
+                params, cfg, toks[:, P + t - 1:P + t], cache, P + t - 1)
+            want.append(logits[:, 0])
+    want = torch.stack(want, dim=1).numpy()               # (B, G, V)
+    worst = 0.0
+    for t in range(G):
+        diff = float(np.abs(card.logits[:, t] - want[:, t]).max())
+        worst = max(worst, diff)
+        top2 = np.sort(want[:, t], axis=-1)[:, -2:]
+        margins = top2[:, 1] - top2[:, 0]
+        tok, cpu_tok = card.tokens[:, P + t], want[:, t].argmax(-1)
+        print(f"  rwkv step {t}: max|logit diff|={diff:.2e} top-2 margins="
+              f"{np.round(margins, 4).tolist()} tokens card={tok.tolist()} "
+              f"cpu={cpu_tok.tolist()}")
+        if diff > LOGIT_TOL:
+            _fail(f"rwkv step {t} logits differ by {diff:.2e}")
+        if np.any((tok != cpu_tok) & (margins > LOGIT_TOL)):
+            _fail(f"rwkv step {t} tokens differ beyond the margin")
+    print(f"rwkv card vs cpu: logits within {LOGIT_TOL:.0e} over {G} steps "
+          f"(worst {worst:.2e}), tokens equal where the margin allows")
+
+
+def wkv_times(wkv_ops, res, layers):
+    """The kernel and both plain forms at the main path's prefill shape
+    (CUDA events), beside the bound; then the WKV launches' share of the
+    timed prefill."""
+    B, S, H, hd = RWKV_SHAPE
+    args = wkv_case(B, S, H, hd, torch.float32, False, (0.69, 0.9975), 99)
+    kernel_ms = _time_device_ms(lambda: wkv_ops.wkv(*args, force="kernel"),
+                                20)
+    chunked_ms = _time_ms(lambda: wkv_ops.wkv(*args, force="chunked"), 3)
+    step_ms = _time_ms(lambda: wkv_ops.wkv(*args, force="ref"), 3)
+    r, k, v, w, u, s0 = args
+    nbytes = (sum(t.numel() * t.element_size() for t in (r, k, v, w, u))
+              + r.numel() * r.element_size()              # y out
+              + 2 * s0.numel() * s0.element_size())       # state in, out
+    bound = _bound(4 * hd * hd * B * S * H, nbytes)
+    share = layers * kernel_ms / (res.prefill_s * 1e3)
+    print(f"wkv times at B={B} S={S} H={H} hd={hd} f32: kernel "
+          f"{kernel_ms:.4f} ms, plain chunked {chunked_ms:.4f} ms, plain "
+          f"per-step {step_ms:.4f} ms, library none; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+          f"{nbytes / 1e6:.1f} MB, {4 * hd * hd * B * S * H / 1e9:.2f} GFLOP)")
+    print(f"rwkv6 prefill {res.prefill_s * 1e3:.1f} ms of which {layers} "
+          f"WKV launches ~{layers * kernel_ms:.1f} ms ({100 * share:.1f}%)")
+    return dict(ms=kernel_ms, plain_ms=chunked_ms, library_ms=None, **bound)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -875,9 +1111,11 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.newton_schulz import ops as ns_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.launch import serve, train
     from repro_torch.models import registry
     from repro_torch.train.serve_engine import ServeEngine
+    OPS.update(fa=fa_ops, pa=pa_ops, ns=ns_ops, wkv=wkv_ops)
 
     # 1. the card
     card = card_line()
@@ -900,15 +1138,12 @@ def main() -> int:
 
     # 5. the contiguous main path, counters from 0
     cfg = cfglib.get_config("gpt2-12l")
-    fa_ops.KERNEL_LAUNCHES = pa_ops.KERNEL_LAUNCHES = 0
+    zero_counts()
     res = serve.main(MAIN_ARGV)
-    launches = fa_ops.KERNEL_LAUNCHES
     # serve.main runs two generations (warm-up and timed): two prefills of
     # one launch per layer, and contiguous decode attention is plain torch.
-    if launches != 2 * cfg.num_layers or pa_ops.KERNEL_LAUNCHES:
-        _fail(f"main path launched flash attention {launches} times, "
-              f"expected {2 * cfg.num_layers}, and the paged kernel "
-              f"{pa_ops.KERNEL_LAUNCHES} times, expected 0")
+    launches = expect_counts("main path", flash_attention=2 * cfg.num_layers)[
+        "flash_attention"]
     if res.tokens.shape != (8, 512 + 64):
         _fail(f"main path returned tokens {res.tokens.shape}")
     if res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
@@ -936,15 +1171,31 @@ def main() -> int:
     # checkpoint
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = os.path.join(tmp, "run")
-        res, train_counts = train_main_path(cfg, train, fa_ops, pa_ops,
-                                            ns_ops, ckpt_dir)
-        serve_trained(serve, fa_ops, pa_ops, ckpt_dir, cfg.num_layers)
+        res, train_counts = train_main_path(cfg, train, ckpt_dir)
+        serve_trained(serve, ckpt_dir, cfg.num_layers)
 
     # 12. card against CPU, one train step
     train_card_vs_cpu(cfglib, registry)
 
     # 13. training times
     t_ns, t_mm, t_bwd = train_times(ns_ops, fa_ops, res, cfg)
+
+    # 14. WKV parity on the card
+    t0 = time.perf_counter()
+    wkv_err = wkv_parity(wkv_ops)
+    print(f"wkv parity phase {time.perf_counter() - t0:.1f} s")
+
+    # 15. the RWKV6 main path, counters from 0
+    rwkv_cfg = cfglib.get_config("rwkv6-7b")
+    rwkv_res, wkv_launches, _ = rwkv_main_path(cfglib, serve)
+
+    # 16. card against CPU
+    t0 = time.perf_counter()
+    rwkv_card_vs_cpu(cfglib, registry)
+    print(f"rwkv card vs cpu phase {time.perf_counter() - t0:.1f} s")
+
+    # 17. WKV times
+    t_wkv = wkv_times(wkv_ops, rwkv_res, rwkv_cfg.num_layers)
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -974,7 +1225,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/newton_schulz/csrc/"
                    "newton_schulz.cu",
          "replaces": "src/repro/kernels/newton_schulz/kernel.py:79",
-         "launches": train_counts["matmul"], "max_abs_err": mm_err, **t_mm}]}
+         "launches": train_counts["matmul"], "max_abs_err": mm_err, **t_mm},
+        {"name": "wkv", "route": "cuda",
+         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
+         "replaces": "src/repro/kernels/rwkv6/kernel.py:71",
+         "launches": wkv_launches, "max_abs_err": wkv_err, **t_wkv}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

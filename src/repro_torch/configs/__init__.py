@@ -1,9 +1,10 @@
-"""Config registry of the port: the paper's GPT2 family.
+"""Config registry of the port: the paper's GPT2 family and ``rwkv6-7b``.
 
 ``get_config(name)`` returns the full-scale config; ``get_smoke_config``
 the reduced same-family config the CPU tests run (the reference's
-``repro.configs`` reduction rules, applied to GPT2).  The other registry
-architectures come with their ROADMAP slices and raise until then.
+``repro.configs`` reduction rules).  The other architectures of the
+reference registry come with their ROADMAP slices and raise until then,
+each naming what it waits for.
 """
 from __future__ import annotations
 
@@ -11,9 +12,31 @@ import dataclasses
 
 from repro_torch.configs.base import ModelConfig
 
-# Where each architecture of the reference registry gets ported.
-_NOT_YET = ("ROADMAP queue A item 12 (remaining architectures): {name} is "
-            "not ported yet; the port serves the GPT2 family")
+# What each architecture of the reference registry still waits for.
+_WAITS_FOR = {
+    "gemma2-9b": "RoPE (queue A items 2-3), sliding-window and softcapped "
+                 "attention (item 12)",
+    "gemma3-12b": "RoPE and qk-norm (queue A items 2-3), sliding-window "
+                  "layers (item 12)",
+    "yi-34b": "RoPE (queue A items 2-3)",
+    "starcoder2-3b": "RoPE (queue A items 2-3)",
+    "jamba-v0.1-52b": "Mamba layers (queue A item 12) with the selective-scan "
+                      "kernel (queue B item 5), and the MoE feed-forward "
+                      "(item 12)",
+    "whisper-base": "the encoder-decoder model and its audio frontend "
+                    "(queue A item 12)",
+    "qwen2-vl-2b": "M-RoPE and frontend embeds (queue A item 12)",
+    "moonshot-v1-16b-a3b": "the MoE feed-forward (queue A item 12) and RoPE "
+                           "(items 2-3)",
+    "deepseek-moe-16b": "the MoE feed-forward (queue A item 12) and RoPE "
+                        "(items 2-3)",
+    "llama3-0.3b": "RoPE (queue A items 2-3)",
+    "qwen3-0.3b": "RoPE and qk-norm (queue A items 2-3)",
+    "mixtral-0.3b": "the MoE feed-forward (queue A item 12) and RoPE "
+                    "(items 2-3)",
+    "deepseekv3-0.3b": "MLA and the MoE feed-forward (queue A item 12) and "
+                       "RoPE (items 2-3)",
+}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -21,13 +44,23 @@ def get_config(name: str) -> ModelConfig:
         from repro_torch.configs.gpt2 import gpt2
         layers = int(name.split("-")[1][:-1]) if "-" in name else 12
         return gpt2(layers)
-    raise NotImplementedError(_NOT_YET.format(name=name))
+    if name == "rwkv6-7b":
+        from repro_torch.configs.rwkv6_7b import CONFIG
+        return CONFIG
+    raise NotImplementedError(
+        f"ROADMAP: {name} is not ported yet; it waits for "
+        f"{_WAITS_FOR.get(name, 'its queue A item')}")
 
 
 def get_smoke_config(name: str) -> ModelConfig:
-    """Reduced same-family config: 2 layers, d_model 64, vocab 256 —
-    runs a forward on the CPU in milliseconds."""
+    """Reduced same-family config: 2 layers, d_model 64, vocab 256 (RWKV6
+    heads of 16) — runs a forward on the CPU in milliseconds."""
     cfg = get_config(name)
+    ssm = cfg.ssm
+    if ssm is not None:
+        ssm = dataclasses.replace(
+            ssm, d_state=4,
+            head_dim=16 if ssm.kind == "rwkv6" else ssm.head_dim)
     heads = min(cfg.num_heads, 4)
     kv = min(cfg.num_kv_heads, heads)
     while heads % kv:
@@ -39,6 +72,6 @@ def get_smoke_config(name: str) -> ModelConfig:
         name=cfg.name + "-smoke",
         num_layers=2 * period if period <= 4 else period,
         d_model=64, num_heads=heads, num_kv_heads=kv, head_dim=16,
-        d_ff=128, vocab_size=256, window_pattern=window,
+        d_ff=128, vocab_size=256, ssm=ssm, window_pattern=window,
         max_seq_len=128,
     )

@@ -1,0 +1,13 @@
+"""rwkv6-7b (Finch) [ssm] — attention-free, data-dependent decay linear
+attention.  [arXiv:2404.05892; hf]"""
+from repro_torch.configs.base import ModelConfig, SSMConfig
+
+CONFIG = ModelConfig(
+    name="rwkv6-7b", family="ssm",
+    num_layers=32, d_model=4096, num_heads=64, num_kv_heads=64,
+    head_dim=64, d_ff=14336, vocab_size=65536,
+    attention="none", activation="gelu", norm="layernorm", position="none",
+    block_pattern=("rwkv",),
+    ssm=SSMConfig(kind="rwkv6", head_dim=64),
+    max_seq_len=524288,
+)

@@ -6,10 +6,15 @@ per-token decode, or continuous batching over a paged KV pool.
         --batch 8 --prompt-len 512 --gen 64            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-12l \
         --smoke --device cpu                           # plain path, CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --batch 4 --prompt-len 1024 --gen 32           # RWKV6, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-12l \
         --continuous --paged --max-batch 8 --requests 32 --prompt-len 512 \
         --gen 64 --rate 1000                           # paged, on the card
 
+``--arch`` takes ``gpt2-*`` and ``rwkv6-7b`` (``--smoke`` for the reduced
+config); RWKV6 serves batch to completion, its prefill through the WKV
+kernel on the card and its decode stepping the recurrent state.
 ``--checkpoint DIR`` serves a checkpoint the JAX ``ProgressiveTrainer``
 wrote: the params subtree is restored at the depth its manifest records.
 Without it the weights are random, drawn from ``--seed``.  Prompts are drawn
@@ -39,10 +44,11 @@ import torch
 from repro_torch import bridge
 from repro_torch import configs as cfglib
 from repro_torch.checkpoint import checkpointer as ckpt
-from repro_torch.models import registry
+from repro_torch.models import registry, transformer
 from repro_torch.train.serve_engine import ServeEngine
 from repro_torch.train.serve_scheduler import (ContinuousScheduler, Request,
                                                summarize)
+from repro_torch.tree import tree_leaves
 
 # Flags of the reference CLI whose paths come with later slices.
 _LATER = {
@@ -150,11 +156,17 @@ def main(argv=None):
 
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
+    if args.continuous and transformer.has_recurrent_layers(cfg):
+        raise SystemExit(f"--continuous with {cfg.name}: "
+                         f"{transformer.CARRY_NOT_PORTED}")
     if args.checkpoint:
         params, cfg = load_params(args.checkpoint, cfg, step=args.step)
     else:
+        t0 = time.perf_counter()
         gen = torch.Generator().manual_seed(args.seed)
         params = registry.get_model(cfg).init(gen, cfg, device="cpu")
+        print(f"init: {time.perf_counter() - t0:.1f} s for "
+              f"{sum(t.numel() for t in tree_leaves(params))} params")
     rng = np.random.default_rng(args.seed)
     engine = ServeEngine(cfg, params, device=args.device,
                          max_len=args.prompt_len + max(args.gen, 1) + 1,

@@ -38,7 +38,7 @@ def normal(generator: Optional[torch.Generator], shape, std: float,
         return torch.empty(shape, dtype=dtype, device=dev)
     gen_dev = generator.device if generator is not None else "cpu"
     x = torch.randn(shape, generator=generator, device=gen_dev,
-                    dtype=torch.float32) * std
+                    dtype=torch.float32).mul_(std)
     return x.to(device=resolve_device(dev), dtype=dtype)
 
 

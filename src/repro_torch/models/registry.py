@@ -43,12 +43,34 @@ def _lm_loss(params, cfg, batch):
                                mask=batch.get("mask"))
 
 
+# What each model family of the reference registry still waits for.
+_FAMILY_WAITS_FOR = {
+    "moe": "the MoE feed-forward (queue A item 12)",
+    "hybrid": "Mamba layers (queue A item 12) with the selective-scan kernel "
+              "(queue B item 5), and the MoE feed-forward (item 12)",
+    "audio": "the encoder-decoder model (queue A item 12)",
+    "vlm": "M-RoPE and frontend embeds (queue A item 12)",
+    "ssm": "Mamba layers (queue A item 12) with the selective-scan kernel "
+           "(queue B item 5)",
+}
+
+
+def _ported(cfg: ModelConfig) -> bool:
+    """Dense decoders, and all-RWKV6 stacks."""
+    if cfg.is_encoder_decoder:
+        return False
+    return cfg.family == "dense" or (
+        cfg.family == "ssm" and all(b == "rwkv" for b in cfg.block_pattern))
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.is_encoder_decoder or cfg.family != "dense":
+    if not _ported(cfg):
+        waits = _FAMILY_WAITS_FOR.get(
+            "audio" if cfg.is_encoder_decoder else cfg.family,
+            "its ROADMAP queue A item")
         raise NotImplementedError(
-            f"ROADMAP queue A item 12 (remaining architectures): {cfg.name} "
-            f"(family {cfg.family!r}) is not ported yet; the port serves "
-            "dense decoders")
+            f"ROADMAP: {cfg.name} (family {cfg.family!r}) is not ported yet; "
+            f"it waits for {waits}")
     return ModelApi(init=transformer.lm_init, loss=_lm_loss,
                     apply=transformer.lm_apply,
                     init_cache=transformer.lm_init_cache,

@@ -1,5 +1,5 @@
-"""Stacked decoder-only LM (``repro/models/transformer.py``, dense
-attention blocks).
+"""Stacked decoder-only LM (``repro/models/transformer.py``: dense attention
+blocks and RWKV6 blocks).
 
 Layers are grouped into super-blocks of ``cfg.pattern_period`` layers; every
 leaf of ``params["blocks"]`` carries a leading ``n_super`` axis, as in the
@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_norm, cross_entropy,
                                        dense_init, embed_init, normal,
                                        norm_init, softcap)
@@ -25,14 +26,34 @@ from repro_torch.tree import tree_map
 
 _KIND = ("ROADMAP queue A item 12 (remaining architectures): {what} is not "
          "ported yet")
+_MAMBA = ("Mamba layers (queue A item 12, with the selective-scan kernel of "
+          "queue B item 5)")
+CARRY_NOT_PORTED = ("ROADMAP queue A item 17 (recurrent carries in "
+                    "continuous batching, the rest of item 12's RWKV6 "
+                    "part): RWKV6 layers serve batch to completion only")
 
 
-def _check_dense(cfg: ModelConfig, i: int):
-    if cfg.layer_kind(i) != "attn":
-        raise NotImplementedError(
-            _KIND.format(what=f"block kind {cfg.layer_kind(i)!r}"))
+def _check_layer(cfg: ModelConfig, i: int):
+    """Admit the ported layer kinds: dense attention and RWKV6."""
+    kind = cfg.layer_kind(i)
+    if kind == "mamba":
+        raise NotImplementedError(_KIND.format(what=_MAMBA))
+    if kind not in ("attn", "rwkv"):
+        raise NotImplementedError(_KIND.format(what=f"block kind {kind!r}"))
     if cfg.layer_is_moe(i):
         raise NotImplementedError(_KIND.format(what="the MoE feed-forward"))
+
+
+def has_recurrent_layers(cfg: ModelConfig) -> bool:
+    """Whether any layer keeps per-row recurrent state instead of K/V."""
+    return any(cfg.layer_kind(i) != "attn" for i in range(cfg.pattern_period))
+
+
+def _check_attention(cfg: ModelConfig, i: int):
+    """Admit the layers whose per-row state lives in the paged pool."""
+    _check_layer(cfg, i)
+    if cfg.layer_kind(i) == "rwkv":
+        raise NotImplementedError(CARRY_NOT_PORTED)
 
 
 def _tree_index(tree, s: int):
@@ -47,7 +68,11 @@ def _tree_index(tree, s: int):
 
 def _layer_init(generator, cfg: ModelConfig, layer_in_period: int, dtype,
                 device):
-    _check_dense(cfg, layer_in_period)
+    _check_layer(cfg, layer_in_period)
+    if cfg.layer_kind(layer_in_period) == "rwkv":
+        return {"ln1": norm_init(cfg.d_model, cfg.norm, device),
+                "rwkv_tm": ssm_mod.rwkv_init(generator, cfg, dtype, device),
+                "ln2": norm_init(cfg.d_model, cfg.norm, device)}
     return {"ln1": norm_init(cfg.d_model, cfg.norm, device),
             "attn": attn.attn_init(generator, cfg, dtype, device),
             "ln2": norm_init(cfg.d_model, cfg.norm, device),
@@ -109,6 +134,11 @@ def _mlp_residual(lp, cfg: ModelConfig, x):
 def _apply_layer(lp, cfg: ModelConfig, i: int, x, positions):
     """One layer, full-sequence.  Returns (x, aux_loss)."""
     h = apply_norm(lp["ln1"], x, cfg.norm)
+    if cfg.layer_kind(i) == "rwkv":
+        x = x + ssm_mod.rwkv_time_mix(lp["rwkv_tm"], cfg, h)
+        h = apply_norm(lp["ln2"], x, cfg.norm)
+        x = x + ssm_mod.rwkv_channel_mix(lp["rwkv_tm"], cfg, h)
+        return x, torch.zeros((), device=x.device)
     x = x + attn.attn_apply(lp["attn"], cfg, h, positions,
                             window=cfg.layer_window(i))
     return _mlp_residual(lp, cfg, x), torch.zeros((), device=x.device)
@@ -169,17 +199,24 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, mask=None):
 
 def lm_init_cache(params, cfg: ModelConfig, batch_size: int, max_len: int,
                   dtype=torch.bfloat16, device="cuda"):
-    """Cache tree mirroring the super-block stack (leading n_super axis)."""
+    """Cache tree mirroring the super-block stack (leading n_super axis).
+    Attention layers hold K/V in ``dtype``; RWKV6 layers hold their
+    recurrent state (tm_x, cm_x, wkv) in float32 whatever ``dtype`` is, as
+    the reference keeps it."""
     n_super = num_superblocks(params)
     if n_super == 0:
         return {}
     out = {}
     for i in range(cfg.pattern_period):
-        _check_dense(cfg, i)
-        one = attn.init_kv_cache(cfg, batch_size, max_len, dtype,
-                                 window=cfg.layer_window(i), device="meta")
+        _check_layer(cfg, i)
+        if cfg.layer_kind(i) == "rwkv":
+            one = ssm_mod.rwkv_init_state(cfg, batch_size, device="meta")
+        else:
+            one = attn.init_kv_cache(cfg, batch_size, max_len, dtype,
+                                     window=cfg.layer_window(i),
+                                     device="meta")
         out[f"layer{i}"] = {k: torch.zeros((n_super,) + tuple(t.shape),
-                                           dtype=dtype, device=device)
+                                           dtype=t.dtype, device=device)
                             for k, t in one.items()}
     return out
 
@@ -193,7 +230,8 @@ def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
     page) addressed per row through the engine's block table; their leaves
     carry no batch dim.  ``kv_dtype`` overrides the pool's storage dtype
     (float only).  ``batch_size`` and ``max_len`` size the per-row state of
-    window and recurrent layers, which come with ROADMAP queue A item 12."""
+    window and recurrent layers, which come with ROADMAP queue A items 12
+    (window rings) and 17 (recurrent carries)."""
     del batch_size, max_len
     n_super = num_superblocks(params)
     if n_super == 0:
@@ -201,7 +239,7 @@ def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
     pool_dtype = dtype if kv_dtype is None else kv_dtype
     out = {}
     for i in range(cfg.pattern_period):
-        _check_dense(cfg, i)
+        _check_attention(cfg, i)
         if cfg.layer_window(i) > 0:
             raise NotImplementedError(
                 _KIND.format(what="a sliding-window ring beside the pool"))
@@ -222,13 +260,28 @@ def lm_init_prefill_carry(params, cfg: ModelConfig, max_len: int,
     if num_superblocks(params) == 0:
         return {}
     for i in range(cfg.pattern_period):
-        _check_dense(cfg, i)
+        _check_attention(cfg, i)
     return {f"layer{i}": {} for i in range(cfg.pattern_period)}
+
+
+def _write(cache_l: dict, new: dict):
+    """Write a layer's new recurrent state into its cache views."""
+    for key, t in new.items():
+        cache_l[key].copy_(t)
 
 
 def _prefill_layer(lp, cache_l, cfg: ModelConfig, i: int, x, positions):
     """One layer over the full prompt, filling its decode cache in place."""
     h = apply_norm(lp["ln1"], x, cfg.norm)
+    if cfg.layer_kind(i) == "rwkv":
+        y, state = ssm_mod.rwkv_time_mix_prefill(lp["rwkv_tm"], cfg, h,
+                                                 cache_l)
+        x = x + y
+        h = apply_norm(lp["ln2"], x, cfg.norm)
+        y, state = ssm_mod.rwkv_channel_mix_prefill(lp["rwkv_tm"], cfg, h,
+                                                    state)
+        _write(cache_l, state)
+        return x + y, cache_l
     y, cache_l = attn.attn_prefill(lp["attn"], cfg, h, cache_l, positions,
                                    window=cfg.layer_window(i))
     return _mlp_residual(lp, cfg, x + y), cache_l
@@ -284,6 +337,16 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens, cache, carry,
 def _decode_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions,
                   block_table=None, write_mask=None):
     h = apply_norm(lp["ln1"], x, cfg.norm)
+    if cfg.layer_kind(i) == "rwkv":
+        if write_mask is not None or block_table is not None:
+            raise NotImplementedError(CARRY_NOT_PORTED)
+        y, state = ssm_mod.rwkv_decode(lp["rwkv_tm"], cfg, h, cache_l)
+        x = x + y
+        h = apply_norm(lp["ln2"], x, cfg.norm)
+        y, state = ssm_mod.rwkv_channel_mix_decode(lp["rwkv_tm"], cfg, h,
+                                                   state)
+        _write(cache_l, state)
+        return x + y, cache_l
     if "k_pages" in cache_l:
         y, cache_l = attn.attn_decode_paged(lp["attn"], cfg, h, cache_l,
                                             block_table, index, positions,

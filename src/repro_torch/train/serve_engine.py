@@ -4,7 +4,9 @@ the continuous-batching primitives (``repro/train/serve_engine.py``:
 and ``ServeEngine``).
 
 Prefill is one full-sequence forward through the train-path math that also
-fills the cache; its attention runs the flash-attention kernel on the card.
+fills the cache; on the card its attention runs the flash-attention kernel
+and its RWKV6 layers the WKV kernel, and a cache of RWKV6 layers holds
+their float32 recurrent state instead of K/V.
 Sampling runs inside both steps, so the decode loop is one step per token
 with the sampled token, the cursor and the generator kept on the device;
 nothing crosses to the host until the caller asks for the token matrix.
@@ -22,9 +24,11 @@ prompts are prefilled in power-of-two chunks straight into the pool
 (``begin_prefill`` / ``prefill_chunk`` / ``admit_paged``), decode attends
 through the block table with the paged-attention kernel on the card, and a
 finished row's pages return to the pool at once (``free_slot``).  Greedy
-tokens stay byte-identical to contiguous solo generation.  Speculative
-decoding, prefix sharing and quantized pages come with ROADMAP queue A
-items 9-10, fault injection with item 11, mesh sharding with item 13.
+tokens stay byte-identical to contiguous solo generation.  Continuous
+batching serves attention layers only; recurrent carries come with ROADMAP
+queue A item 17.  Speculative decoding, prefix sharing and quantized pages
+come with items 9-10, fault injection with item 11, mesh sharding with
+item 13.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry
+from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
 from repro_torch.train import steps as steps_lib
 from repro_torch.train.kv_pool import KVBlockPool
@@ -313,6 +318,8 @@ class ServeEngine:
         the host page allocator (``num_blocks`` overrides the engine
         default), the pool and the device block table."""
         del temperature               # steps are built per call
+        if transformer.has_recurrent_layers(self.cfg):
+            raise NotImplementedError(transformer.CARRY_NOT_PORTED)
         dev = self.device
         pool = table = None
         if self.paged:

@@ -1,6 +1,6 @@
 """The CUDA kernels (flash attention forward and backward, paged-attention
-decode, the Newton–Schulz chain and matmul) against their plain PyTorch
-versions, on the card.
+decode, the Newton–Schulz chain and matmul, the RWKV6 WKV recurrence)
+against their plain PyTorch versions, on the card.
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.newton_schulz import ops as ns_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
 
 
 @pytest.fixture
@@ -238,3 +239,63 @@ def test_newton_schulz_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ns_ops.matmul(x[0].T, x[0])
     assert (ns_ops.NS_FUSED_LAUNCHES, ns_ops.MATMUL_LAUNCHES) == before
+
+
+def _wkv_inputs(seed, B, S, H, hd, dtype, device, decay):
+    """r, k, v ~ N(0, 1) in ``dtype``; w float32 uniform in ``decay``;
+    u ~ 0.1 N(0, 1); a N(0, 1) initial state."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.standard_normal(
+        (B, S, H, hd), dtype=np.float32)).to(device, dtype) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(*decay, (B, S, H, hd)).astype(
+        np.float32)).to(device)
+    u = torch.from_numpy((0.1 * rng.standard_normal((H, hd))).astype(
+        np.float32)).to(device)
+    s0 = torch.from_numpy(rng.standard_normal(
+        (B, H, hd, hd), dtype=np.float32)).to(device)
+    return r, k, v, w, u, s0
+
+
+# The WKV kernel against both plain forms, relative to max(1, max|y|) (and
+# max(1, max|state|)): f32 sums in other orders, to the reference's own
+# 1e-4 bar for its chunked form; with bf16 r/k/v both sides round y to
+# bf16 once (2^-8 relative), the state stays f32.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("S,decay", [(1, (0.69, 0.75)), (63, (0.69, 0.75)),
+                                     (100, (0.995, 0.9975))])
+def test_wkv_kernel_matches_plain_forms(cuda_device, dtype, hd, S, decay):
+    td = getattr(torch, dtype)
+    args = _wkv_inputs(hd + S, 2, S, 3, hd, td, cuda_device, decay)
+    before = wkv_ops.KERNEL_LAUNCHES
+    y, s = wkv_ops.wkv(*args)
+    torch.cuda.synchronize()
+    assert wkv_ops.KERNEL_LAUNCHES == before + 1
+    assert y.dtype == td and s.dtype == torch.float32
+    tol = 1e-2 if dtype == "bfloat16" else 1e-4
+    for force in ("ref", "chunked"):
+        want_y, want_s = wkv_ops.wkv(*args, force=force)
+        assert _rel(y, want_y, floor=1.0) <= tol
+        assert _rel(s, want_s, floor=1.0) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_refuses_grads_and_what_it_does_not_take(cuda_device):
+    """An input that requires grad raises naming the ROADMAP item of the
+    backward; a float16 stream or an odd head dim raises; no launch is
+    counted and nothing falls back to the plain versions."""
+    args = _wkv_inputs(1, 1, 8, 2, 64, torch.float32, cuda_device,
+                       (0.7, 0.9))
+    before = wkv_ops.KERNEL_LAUNCHES
+    with pytest.raises(NotImplementedError, match="item 16"):
+        wkv_ops.wkv(args[0].clone().requires_grad_(), *args[1:])
+    with pytest.raises(ValueError, match="dtypes"):
+        wkv_ops.wkv(*(a.half() for a in args[:3]), *args[3:])
+    odd = _wkv_inputs(2, 1, 8, 2, 48, torch.float32, cuda_device, (0.7, 0.9))
+    with pytest.raises(ValueError, match="head dim 48"):
+        wkv_ops.wkv(*odd)
+    assert wkv_ops.KERNEL_LAUNCHES == before
+    with torch.no_grad():
+        wkv_ops.wkv(args[0].clone().requires_grad_(), *args[1:])
+    assert wkv_ops.KERNEL_LAUNCHES == before + 1
