@@ -9,12 +9,14 @@ result):
 1. the card: ``nvidia-smi`` name and power limit, torch and device names;
 2. the build: every CUDA kernel of the serving and training paths (flash
    attention forward and backward, paged-attention decode, the
-   Newton–Schulz chain and matmul, the RWKV6 WKV recurrence), compiled from
+   Newton–Schulz chain and matmul, the RWKV6 WKV recurrence, the Mamba
+   selective scan), compiled from
    the sources in this checkout at once, one ``nvcc`` per kernel package,
    with ``-Xptxas -v`` register/shared-memory use;
 3. kernel parity: the flash-attention kernel against its plain PyTorch
    version on the card over dtype x causal x window x softcap x MHA/GQA x
-   head dim x ragged lengths, plus the serving prefill's exact shape;
+   head dim x ragged lengths, plus jamba's attention shape and the serving
+   prefill's exact shape;
 4. paged parity: the paged-attention decode kernel against its plain
    version over (q, pages) dtypes x head dim x MHA/GQA x block size x
    softcap x cursors (zero, ragged, bs-1, bs, last slot), with permuted
@@ -66,9 +68,26 @@ result):
    B=2 P=80 8-token generation on the card against the CPU's prefill
    (chunked WKV form) and decode fed the same tokens;
 17. WKV times at the main path's prefill shape: the kernel and both plain
-   forms beside the bound, and the kernel's share of the prefill.
+   forms beside the bound, and the kernel's share of the prefill;
+18. scan parity: the Mamba selective-scan kernel against both plain forms
+   (per-step and chunked) over channels (16, 256, 1000, 8192) x state
+   dim (4, 16) x sequence length (1, 63, 64, 1000, 1024) x batch (1, 4) x
+   zero/random initial state x f32/bf16 x decays near 1 and large
+   dt * A, each with and without the final state, y and the final state,
+   plus the main path's exact shape;
+19. the jamba main path: ``jamba-v0.1-52b`` at full width and depth 8 (one
+   period; random weights drawn on the card from seed 0),
+   ``ServeEngine.generate`` at batch 4, prompt 1024, 32 greedy tokens (a
+   warm-up and a timed run, as ``serve.main`` runs them), then one
+   ``ModelApi.loss`` forward at batch 4 x 1024, every counter at 0 just
+   before: 21 scan and 3 flash launches, no other kernel;
+20. card against CPU: the same weights copied to the host, a greedy B=1
+   P=128 8-token generation and one B=1 x 128 loss forward;
+21. scan times at the main path's prefill shape: the kernel and both
+   plain forms beside the bound, and the kernel's share of the prefill;
+   the flash-attention forward at jamba's attention shape.
 
-Every main path (5, 6, 10, 11, 15) starts with every kernel's launch
+Every main path (5, 6, 10, 11, 15, 19) starts with every kernel's launch
 counter at 0 and checks every counter after it, the kernels it must not
 launch included.
 
@@ -77,6 +96,7 @@ The line before the last is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -144,13 +164,30 @@ RWKV_SHAPE = (4, 1024, 64, 64)      # (B, S, H, hd) of its WKV launches
 # sides round y to bf16 once (2^-8 relative), the state stays f32.
 WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
+# jamba at full width and depth 8 (one period of the layer pattern; full
+# depth does not fit one card): 4 prompts of 1024 tokens, 32 greedy tokens
+# each, then one loss forward at 4 x 1024.
+JAMBA_DEPTH, JAMBA_B, JAMBA_P, JAMBA_G = 8, 4, 1024, 32
+JAMBA_SCAN_SHAPE = (4, 1024, 8192, 16)   # (B, S, d_inner, N) of its scans
+# The scan kernel against its plain forms, relative to max(1, max|y|) and
+# max(1, max|h|): f32 sums and decay products in other orders, the
+# kernel's exp on the SFU (2 ulp), to the reference's own 1e-4 bar for its
+# kernel; with bf16 inputs both sides round y to bf16 once (2^-8
+# relative), the state stays f32.
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# jamba card against CPU: logits relative to max(1, max|logit|), the loss
+# relative to itself (f32 through 8 layers; the CPU takes the chunked
+# scan, the card its kernel).
+JAMBA_LOGIT_TOL, JAMBA_LOSS_TOL = 1e-4, 1e-5
+
 # Each kernel wrapper's launch counter: (ops module key, attribute).
 COUNTERS = {"flash_attention": ("fa", "KERNEL_LAUNCHES"),
             "flash_attention_bwd": ("fa", "BWD_LAUNCHES"),
             "paged_attention": ("pa", "KERNEL_LAUNCHES"),
             "ns_fused": ("ns", "NS_FUSED_LAUNCHES"),
             "matmul": ("ns", "MATMUL_LAUNCHES"),
-            "wkv": ("wkv", "KERNEL_LAUNCHES")}
+            "wkv": ("wkv", "KERNEL_LAUNCHES"),
+            "selective_scan": ("scan", "KERNEL_LAUNCHES")}
 OPS = {}                            # ops module key -> module, set in main
 
 
@@ -204,6 +241,8 @@ def parity(fa_ops) -> float:
                             for cap in (0.0, 30.0):
                                 cases.append((2, S, H, KV, hd, dtype, causal,
                                               window, cap))
+    # jamba's attention layer: GQA 32/8 at head dim 128, its prefill batch.
+    cases.append((JAMBA_B, JAMBA_P, 32, 8, 128, torch.float32, True, 0, 0.0))
     cases.append(MAIN_SHAPE[:3] + (MAIN_SHAPE[2], MAIN_SHAPE[3],
                                    torch.float32, True, 0, 0.0))
     bad = 0
@@ -733,12 +772,12 @@ def train_main_path(cfg, train, ckpt_dir):
     from repro_torch.configs.base import TrainConfig
     tc = TrainConfig()                 # the launcher's eval cadence
     evals = [s for s in range(1, TRAIN_STEPS) if s % tc.eval_every == 0]
-    want = {"flash_attention": sum(layers)
-            + tc.eval_batches * sum(layers[s] for s in evals),
-            "flash_attention_bwd": sum(layers),
-            "paged_attention": 0,
-            "ns_fused": sum(_stacked_matrix_leaves(cfg, L) for L in layers),
-            "matmul": 3 * 5 * TRAIN_STEPS, "wkv": 0}
+    want = {name: 0 for name in COUNTERS}      # the kernels it never runs
+    want.update(flash_attention=sum(layers)
+                + tc.eval_batches * sum(layers[s] for s in evals),
+                flash_attention_bwd=sum(layers),
+                ns_fused=sum(_stacked_matrix_leaves(cfg, L) for L in layers),
+                matmul=3 * 5 * TRAIN_STEPS)
     if counts != want:
         _fail(f"training launches {counts}, expected {want}")
     saved = ckpt.all_steps(ckpt_dir)
@@ -1100,6 +1139,277 @@ def wkv_times(wkv_ops, res, layers):
     return dict(ms=kernel_ms, plain_ms=chunked_ms, library_ms=None, **bound)
 
 
+# ---------------------------------------------------------------------------
+# jamba: the Mamba selective scan, the MoE feed-forward, the hybrid stack
+# ---------------------------------------------------------------------------
+
+# dt and -A ranges of the scan grid: decays near 1 (dt * A in [-1e-3,
+# -1e-5], the state grows over long S) and large dt * A (down to -80: it
+# forgets within a step, and exp underflows to 0).
+SCAN_REGIMES = {"near 1": ((0.01, 0.1), (1e-3, 1e-2)),
+                "large": ((1.0, 5.0), (1.0, 16.0))}
+
+
+def scan_case(B, S, d, N, dtype, h0, regime, seed):
+    """u, Bm, Cm ~ N(0, 1) and dt in ``dtype``, A float32 by ``regime``
+    (``"model"``: dt = softplus(N(0, 1)) and A = -(1..N), as mamba_init
+    makes them); D ~ 1 + 0.1 N(0, 1); h0 zero or N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def rand(lo_hi, *shape):
+        lo, hi = lo_hi
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device="cuda")
+    u, Bm, Cm = randn(B, S, d), randn(B, S, N), randn(B, S, N)
+    if regime == "model":
+        dt = torch.nn.functional.softplus(randn(B, S, d))
+        A = -torch.arange(1, N + 1, device="cuda",
+                          dtype=torch.float32).repeat(d, 1)
+    else:
+        dts, As = SCAN_REGIMES[regime]
+        dt, A = rand(dts, B, S, d), -rand(As, d, N)
+    Dp = 1.0 + 0.1 * randn(d)
+    state = randn(B, d, N) if h0 else torch.zeros((B, d, N), device="cuda")
+    return ([t.to(dtype) for t in (u, dt)] + [A]
+            + [t.to(dtype) for t in (Bm, Cm)] + [Dp, state])
+
+
+def scan_parity(scan_ops) -> float:
+    """The scan kernel against its per-step and chunked plain forms over
+    the grid, with and without the final state (y and h_final).  Returns
+    the max abs error of y at the main path's prefill shape (f32, zero
+    state) against the chunked form, the one the CPU takes there."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(B, S, d, N, dtype, h0, regime)
+             for dtype in (f32, bf16) for d in (16, 256, 1000, 8192)
+             for N in (4, 16) for S in (1, 63, 64, 1000, 1024)
+             for B in (1, 4) for h0 in (False, True)
+             for regime in SCAN_REGIMES]
+    B, S, d, N = JAMBA_SCAN_SHAPE
+    cases.append((B, S, d, N, f32, False, "model"))
+    bad, err, worst = 0, 0.0, {}
+    for n, (B, S, d, N, dtype, h0, regime) in enumerate(cases):
+        *args, state = scan_case(B, S, d, N, dtype, h0, regime, 5000 + n)
+        y, h = scan_ops.selective_scan_with_state(*args, h0=state,
+                                                  force="kernel")
+        y_only = scan_ops.selective_scan(*args, force="kernel") \
+            if not h0 else None
+        errs = []
+        for form in ("ref", "chunked"):
+            want_y, want_h = scan_ops.selective_scan_with_state(
+                *args, h0=state, force=form)
+            e = [_rel_floor(y, want_y), _rel_floor(h, want_h)]
+            if y_only is not None:
+                e[0] = max(e[0], _rel_floor(y_only, want_y))
+            errs.append(e)
+        torch.cuda.synchronize()
+        err = (y.float() - want_y.float()).abs().max().item()
+        ey = max(e[0] for e in errs)
+        eh = max(e[1] for e in errs)
+        ok = (ey <= SCAN_TOL[dtype] and eh <= SCAN_TOL[f32]
+              and y.dtype == dtype and h.dtype == f32
+              and bool(torch.isfinite(y).all() and torch.isfinite(h).all()))
+        bad += not ok
+        label = (f"{str(dtype)[6:]:8s} B{B} S{S:<4d} d{d:<4d} N{N:<2d} "
+                 f"h0 {'rand' if h0 else 'zero'} dtA {regime}")
+        if dtype not in worst or ey > worst[dtype][0]:
+            worst[dtype] = (ey, eh, label)
+        if not ok:
+            print(f"  scan {label} y rel={ey:.2e} h rel={eh:.2e} FAIL")
+    for dtype, (ey, eh, label) in worst.items():
+        print(f"  scan worst {str(dtype)[6:]}: y rel={ey:.2e} (tol "
+              f"{SCAN_TOL[dtype]:.0e}), h rel={eh:.2e} at {label}")
+    if bad:
+        _fail(f"{bad} of {len(cases)} selective-scan parity cases")
+    n_zero = sum(not c[5] for c in cases)
+    print(f"scan parity: {len(cases)} input sets ({len(cases) + n_zero} "
+          "kernel calls, with and without the final state) within "
+          "tolerance against both plain forms")
+    return err                                   # the last case: main shape
+
+
+def jamba_main_path(cfglib, registry, ServeEngine):
+    """jamba at full width and depth 8: weights drawn on the card from
+    seed 0, ``generate`` (warm-up and timed, as ``serve.main``) and one
+    ``ModelApi.loss`` forward, with every counter at 0 just before.
+    Returns (cfg, engine, timed result, launch counts, peak device
+    bytes)."""
+    from repro_torch.tree import tree_leaves
+    cfg = cfglib.get_config("jamba-v0.1-52b").with_depth(JAMBA_DEPTH)
+    api = registry.get_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"jamba init on the card: {time.perf_counter() - t0:.1f} s for "
+          f"{n_params} params ({n_params * 4 / 1e9:.2f} GB f32)")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (JAMBA_B, JAMBA_P)).astype(np.int32)
+    engine = ServeEngine(cfg, params, device="cuda",
+                         max_len=JAMBA_P + JAMBA_G + 1)
+    del params
+    zero_counts()
+    engine.generate(prompts, min(2, JAMBA_G))                  # warm-up
+    res = engine.generate(prompts, JAMBA_G, seed=0)
+    seq = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (JAMBA_B, JAMBA_P + 1))).long().cuda()
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        loss, parts = api.loss(engine.params, cfg, batch)
+    torch.cuda.synchronize()
+    loss_ms = (time.perf_counter() - t1) * 1e3
+    n_mamba = sum(cfg.layer_kind(i) == "mamba" for i in range(JAMBA_DEPTH))
+    n_attn = JAMBA_DEPTH - n_mamba
+    counts = expect_counts("jamba main path",
+                           selective_scan=3 * n_mamba,
+                           flash_attention=3 * n_attn)
+    peak = torch.cuda.max_memory_allocated()
+    if res.tokens.shape != (JAMBA_B, JAMBA_P + JAMBA_G):
+        _fail(f"jamba main path returned tokens {res.tokens.shape}")
+    if res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
+        _fail("jamba main path produced tokens outside the vocabulary")
+    if not (torch.isfinite(loss) and torch.isfinite(parts["aux"])):
+        _fail(f"jamba loss {loss.item()} aux {parts['aux'].item()}")
+    pf = JAMBA_B * JAMBA_P / res.prefill_s
+    dec = JAMBA_B * (res.steps - 1) / res.decode_s
+    print(f"jamba main path: {counts['selective_scan']} scan launches (2 "
+          f"prefills + 1 loss forward x {n_mamba} Mamba layers) and "
+          f"{counts['flash_attention']} flash launches, no other kernel")
+    print(f"jamba prefill {res.prefill_s * 1e3:.1f} ms ({pf:.1f} tokens/s), "
+          f"decode {res.decode_s * 1e3:.1f} ms for {res.steps - 1} steps "
+          f"({res.decode_s * 1e3 / (res.steps - 1):.2f} ms per step, "
+          f"{dec:.1f} tokens/s); loss forward {loss_ms:.1f} ms (loss "
+          f"{loss.item():.4f}, ce {parts['ce'].item():.4f}, aux "
+          f"{parts['aux'].item():.4f}); peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; phase {time.perf_counter() - t0:.1f} s")
+    print("jamba sample:", res.tokens[0, JAMBA_P:JAMBA_P + 16].tolist())
+    return cfg, engine, res, counts, peak
+
+
+def jamba_card_vs_cpu(cfg, engine, registry):
+    """The main path's weights copied to the host: a greedy B=1, P=128,
+    8-token generation on the card against the CPU's prefill (P=128: the
+    chunked scan) and plain decode fed the card's tokens, and one B=1 x
+    128 loss forward on each.  Logits agree per step within
+    ``JAMBA_LOGIT_TOL`` of max(1, max|logit|), tokens wherever the CPU's
+    top-2 margin exceeds that, the loss within ``JAMBA_LOSS_TOL``."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    host = tree_map(lambda t: t.detach().cpu(), engine.params)
+    print(f"jamba weights to the host: {time.perf_counter() - t0:.1f} s")
+    api = registry.get_model(cfg)
+    rng = np.random.default_rng(3)
+    B, P, G = 1, 128, 8
+    prompts = rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    card = engine.generate(prompts, G, return_logits=True)
+    toks = torch.from_numpy(card.tokens).long()
+    want = []
+    with torch.inference_mode():
+        cache = tr.lm_init_cache(host, cfg, B, P + G, torch.float32,
+                                 device="cpu")
+        logits, cache = tr.lm_prefill(host, cfg, toks[:, :P], cache,
+                                      last_only=True)
+        want.append(logits[:, 0])
+        for t in range(1, G):
+            logits, cache = tr.lm_decode_step(
+                host, cfg, toks[:, P + t - 1:P + t], cache, P + t - 1)
+            want.append(logits[:, 0])
+    want = torch.stack(want, dim=1).numpy()               # (B, G, V)
+    scale = max(1.0, float(np.abs(want).max()))
+    worst = 0.0
+    for t in range(G):
+        rel = float(np.abs(card.logits[:, t] - want[:, t]).max()) / scale
+        worst = max(worst, rel)
+        top2 = np.sort(want[:, t], axis=-1)[:, -2:]
+        margins = top2[:, 1] - top2[:, 0]
+        tok, cpu_tok = card.tokens[:, P + t], want[:, t].argmax(-1)
+        print(f"  jamba step {t}: logits rel diff={rel:.2e} top-2 margin="
+              f"{np.round(margins, 4).tolist()} tokens card={tok.tolist()} "
+              f"cpu={cpu_tok.tolist()}")
+        if rel > JAMBA_LOGIT_TOL:
+            _fail(f"jamba step {t} logits differ by {rel:.2e} relative")
+        if np.any((tok != cpu_tok) & (margins > JAMBA_LOGIT_TOL * scale)):
+            _fail(f"jamba step {t} tokens differ beyond the margin")
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (B, P + 1))).long()
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    with torch.no_grad():
+        card_loss = api.loss(engine.params, cfg,
+                             {k: v.cuda() for k, v in batch.items()})[0]
+        cpu_loss = api.loss(host, cfg, batch)[0]
+    rel_loss = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    print(f"jamba loss card {card_loss.item():.6f} cpu {cpu_loss.item():.6f}"
+          f" rel diff {rel_loss:.2e}")
+    if rel_loss > JAMBA_LOSS_TOL:
+        _fail(f"jamba loss differs by {rel_loss:.2e} relative")
+    print(f"jamba card vs cpu: logits within {JAMBA_LOGIT_TOL:.0e} relative "
+          f"over {G} steps (worst {worst:.2e}), tokens equal where the "
+          f"margin allows, loss within {JAMBA_LOSS_TOL:.0e}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    del host
+    gc.collect()
+
+
+def jamba_times(scan_ops, fa_ops, res, n_mamba):
+    """The scan kernel and both plain forms at the main path's prefill
+    shape (CUDA events), beside the bound; the scan launches' share of the
+    timed prefill; and the flash-attention forward at jamba's attention
+    shape beside its plain version and SDPA."""
+    B, S, d, N = JAMBA_SCAN_SHAPE
+    *args, state = scan_case(B, S, d, N, torch.float32, False, "model", 77)
+    kernel_ms = _time_device_ms(
+        lambda: scan_ops.selective_scan_with_state(*args, h0=state,
+                                                   force="kernel"), 20)
+    chunked_ms = _time_ms(lambda: scan_ops.selective_scan_with_state(
+        *args, h0=state, force="chunked"), 3)
+    step_ms = _time_ms(lambda: scan_ops.selective_scan_with_state(
+        *args, h0=state, force="ref"), 2)
+    u, dt, A, Bm, Cm, Dp = args
+    nbytes = (sum(t.numel() * t.element_size()
+                  for t in (u, dt, A, Bm, Cm, Dp))
+              + u.numel() * u.element_size()              # y out
+              + 2 * state.numel() * state.element_size())  # h0 in, h out
+    # Per state update: dt * A, (dt u) * B_n, the update FMA and the y FMA.
+    flops = 6 * B * S * d * N
+    bound = _bound(flops, nbytes)
+    share = n_mamba * kernel_ms / (res.prefill_s * 1e3)
+    print(f"scan times at B={B} S={S} d={d} N={N} f32: kernel "
+          f"{kernel_ms:.4f} ms, plain chunked {chunked_ms:.4f} ms, plain "
+          f"per-step {step_ms:.4f} ms, library none; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+          f"{B * S * d * N / 1e6:.0f} M exps)")
+    print(f"jamba prefill {res.prefill_s * 1e3:.1f} ms of which {n_mamba} "
+          f"scan launches ~{n_mamba * kernel_ms:.2f} ms "
+          f"({100 * share:.2f}%)")
+    H, KV, hd = 32, 8, 128
+    q, k, v = _inputs(JAMBA_B, JAMBA_P, H, KV, hd, torch.float32, 4321)
+    fa_ms = _time_ms(lambda: fa_ops.flash_attention(q, k, v, force="kernel"),
+                     50)
+    fa_plain = _time_ms(lambda: fa_ops.flash_attention(q, k, v, force="ref"),
+                        10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fa_lib = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 50)
+    fa_bound = _bound(4 * JAMBA_B * H * hd * JAMBA_P * (JAMBA_P + 1) // 2,
+                      sum(t.numel() * t.element_size() for t in (q, k, v, q)))
+    print(f"flash at jamba's B={JAMBA_B} S={JAMBA_P} H={H}/{KV} hd={hd} "
+          f"causal f32: kernel {fa_ms:.4f} ms, plain {fa_plain:.4f} ms, sdpa "
+          f"{fa_lib:.4f} ms; bound {fa_bound['bound_ms']:.4f} ms "
+          f"({fa_bound['bound_by']})")
+    return dict(ms=kernel_ms, plain_ms=chunked_ms, library_ms=None, **bound)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1109,13 +1419,14 @@ def main() -> int:
     from repro_torch import configs as cfglib
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.newton_schulz import ops as ns_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.launch import serve, train
     from repro_torch.models import registry
     from repro_torch.train.serve_engine import ServeEngine
-    OPS.update(fa=fa_ops, pa=pa_ops, ns=ns_ops, wkv=wkv_ops)
+    OPS.update(fa=fa_ops, pa=pa_ops, ns=ns_ops, wkv=wkv_ops, scan=scan_ops)
 
     # 1. the card
     card = card_line()
@@ -1196,6 +1507,27 @@ def main() -> int:
 
     # 17. WKV times
     t_wkv = wkv_times(wkv_ops, rwkv_res, rwkv_cfg.num_layers)
+    del rwkv_res
+
+    # 18. scan parity on the card
+    t0 = time.perf_counter()
+    scan_err = scan_parity(scan_ops)
+    print(f"scan parity phase {time.perf_counter() - t0:.1f} s")
+
+    # 19. the jamba main path, counters from 0
+    jamba_cfg, engine, jamba_res, jamba_counts, _ = jamba_main_path(
+        cfglib, registry, ServeEngine)
+
+    # 20. card against CPU
+    jamba_card_vs_cpu(jamba_cfg, engine, registry)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 21. scan times
+    n_mamba = sum(jamba_cfg.layer_kind(i) == "mamba"
+                  for i in range(jamba_cfg.num_layers))
+    t_scan = jamba_times(scan_ops, fa_ops, jamba_res, n_mamba)
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -1229,7 +1561,13 @@ def main() -> int:
         {"name": "wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
          "replaces": "src/repro/kernels/rwkv6/kernel.py:71",
-         "launches": wkv_launches, "max_abs_err": wkv_err, **t_wkv}]}
+         "launches": wkv_launches, "max_abs_err": wkv_err, **t_wkv},
+        {"name": "selective_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/mamba_scan/csrc/"
+                   "selective_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan/kernel.py:49",
+         "launches": jamba_counts["selective_scan"], "max_abs_err": scan_err,
+         **t_scan}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Config registry of the port: the paper's GPT2 family and ``rwkv6-7b``.
+"""Config registry of the port: the paper's GPT2 family, ``rwkv6-7b`` and
+``jamba-v0.1-52b``.
 
 ``get_config(name)`` returns the full-scale config; ``get_smoke_config``
 the reduced same-family config the CPU tests run (the reference's
@@ -20,22 +21,18 @@ _WAITS_FOR = {
                   "layers (item 12)",
     "yi-34b": "RoPE (queue A items 2-3)",
     "starcoder2-3b": "RoPE (queue A items 2-3)",
-    "jamba-v0.1-52b": "Mamba layers (queue A item 12) with the selective-scan "
-                      "kernel (queue B item 5), and the MoE feed-forward "
-                      "(item 12)",
     "whisper-base": "the encoder-decoder model and its audio frontend "
                     "(queue A item 12)",
     "qwen2-vl-2b": "M-RoPE and frontend embeds (queue A item 12)",
-    "moonshot-v1-16b-a3b": "the MoE feed-forward (queue A item 12) and RoPE "
-                           "(items 2-3)",
-    "deepseek-moe-16b": "the MoE feed-forward (queue A item 12) and RoPE "
-                        "(items 2-3)",
+    "moonshot-v1-16b-a3b": "RoPE (queue A items 2-3) under its MoE "
+                           "feed-forward",
+    "deepseek-moe-16b": "RoPE (queue A items 2-3) under its MoE "
+                        "feed-forward",
     "llama3-0.3b": "RoPE (queue A items 2-3)",
     "qwen3-0.3b": "RoPE and qk-norm (queue A items 2-3)",
-    "mixtral-0.3b": "the MoE feed-forward (queue A item 12) and RoPE "
-                    "(items 2-3)",
-    "deepseekv3-0.3b": "MLA and the MoE feed-forward (queue A item 12) and "
-                       "RoPE (items 2-3)",
+    "mixtral-0.3b": "RoPE (queue A items 2-3) under its MoE feed-forward",
+    "deepseekv3-0.3b": "MLA (queue A item 12) and RoPE (items 2-3) under "
+                       "its MoE feed-forward",
 }
 
 
@@ -47,15 +44,25 @@ def get_config(name: str) -> ModelConfig:
     if name == "rwkv6-7b":
         from repro_torch.configs.rwkv6_7b import CONFIG
         return CONFIG
+    if name == "jamba-v0.1-52b":
+        from repro_torch.configs.jamba_v01_52b import CONFIG
+        return CONFIG
     raise NotImplementedError(
         f"ROADMAP: {name} is not ported yet; it waits for "
         f"{_WAITS_FOR.get(name, 'its queue A item')}")
 
 
 def get_smoke_config(name: str) -> ModelConfig:
-    """Reduced same-family config: 2 layers, d_model 64, vocab 256 (RWKV6
-    heads of 16) — runs a forward on the CPU in milliseconds."""
+    """Reduced same-family config: 1-2 pattern periods deep, d_model 64,
+    vocab 256, 8 experts of width 32 (RWKV6 heads of 16) — runs a forward
+    on the CPU in milliseconds."""
     cfg = get_config(name)
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(
+            moe, num_experts=8, top_k=min(moe.top_k, 2),
+            num_shared_experts=min(moe.num_shared_experts, 1),
+            expert_ffn_dim=32 if moe.expert_ffn_dim else 0)
     ssm = cfg.ssm
     if ssm is not None:
         ssm = dataclasses.replace(
@@ -72,6 +79,6 @@ def get_smoke_config(name: str) -> ModelConfig:
         name=cfg.name + "-smoke",
         num_layers=2 * period if period <= 4 else period,
         d_model=64, num_heads=heads, num_kv_heads=kv, head_dim=16,
-        d_ff=128, vocab_size=256, ssm=ssm, window_pattern=window,
+        d_ff=128, vocab_size=256, moe=moe, ssm=ssm, window_pattern=window,
         max_seq_len=128,
     )

@@ -25,7 +25,8 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_KERNELS_DIR)))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "repro_torch")
 
 # Kernel packages with CUDA sources, in the order the main path meets them.
-KERNELS = ("flash_attention", "paged_attention", "newton_schulz", "rwkv6")
+KERNELS = ("flash_attention", "paged_attention", "newton_schulz", "rwkv6",
+           "mamba_scan")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]

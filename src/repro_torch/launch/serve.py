@@ -8,13 +8,18 @@ per-token decode, or continuous batching over a paged KV pool.
         --smoke --device cpu                           # plain path, CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --batch 4 --prompt-len 1024 --gen 32           # RWKV6, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --smoke --device cpu     # jamba, CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-12l \
         --continuous --paged --max-batch 8 --requests 32 --prompt-len 512 \
         --gen 64 --rate 1000                           # paged, on the card
 
-``--arch`` takes ``gpt2-*`` and ``rwkv6-7b`` (``--smoke`` for the reduced
-config); RWKV6 serves batch to completion, its prefill through the WKV
-kernel on the card and its decode stepping the recurrent state.
+``--arch`` takes ``gpt2-*``, ``rwkv6-7b`` and ``jamba-v0.1-52b``
+(``--smoke`` for the reduced config); RWKV6 and jamba serve batch to
+completion, their prefill through the WKV and selective-scan kernels on
+the card and their decode stepping the recurrent state.  ``jamba`` at
+full depth (32 layers, 206 GB of float32 weights) does not fit one card:
+serve a checkpoint of fewer layers.
 ``--checkpoint DIR`` serves a checkpoint the JAX ``ProgressiveTrainer``
 wrote: the params subtree is restored at the depth its manifest records.
 Without it the weights are random, drawn from ``--seed``.  Prompts are drawn
@@ -74,6 +79,20 @@ def load_params(checkpoint_dir: str, cfg, step=None):
     like = registry.get_model(cfg).init(None, cfg, device="meta")
     params = ckpt.restore_subtree(checkpoint_dir, step, like, "params")
     return bridge.params_from_jax(params), cfg
+
+
+def _check_fits(cfg, device: str):
+    """Refuse, before drawing them, weights that the card cannot hold."""
+    if device != "cuda" or not torch.cuda.is_available():
+        return
+    like = registry.get_model(cfg).init(None, cfg, device="meta")
+    need = sum(t.numel() * t.element_size() for t in tree_leaves(like))
+    have = torch.cuda.get_device_properties(0).total_memory
+    if need > have:
+        raise SystemExit(
+            f"{cfg.name} at {cfg.num_layers} layers holds {need / 1e9:.1f} "
+            f"GB of weights, more than the card's {have / 1e9:.1f} GB: serve "
+            "a checkpoint of fewer layers (--checkpoint)")
 
 
 def main(argv=None):
@@ -162,6 +181,7 @@ def main(argv=None):
     if args.checkpoint:
         params, cfg = load_params(args.checkpoint, cfg, step=args.step)
     else:
+        _check_fits(cfg, args.device)
         t0 = time.perf_counter()
         gen = torch.Generator().manual_seed(args.seed)
         params = registry.get_model(cfg).init(gen, cfg, device="cpu")

@@ -42,6 +42,19 @@ def normal(generator: Optional[torch.Generator], shape, std: float,
     return x.to(device=resolve_device(dev), dtype=dtype)
 
 
+def uniform(generator: Optional[torch.Generator], shape, dtype=torch.float32,
+            device="cuda") -> torch.Tensor:
+    """U[0, 1) draws of ``shape`` in float32, made on the generator's device
+    and moved to ``device`` (``normal``'s rule)."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    gen_dev = generator.device if generator is not None else "cpu"
+    x = torch.rand(shape, generator=generator, device=gen_dev,
+                   dtype=torch.float32)
+    return x.to(device=resolve_device(dev), dtype=dtype)
+
+
 def dense_init(generator, in_dim: int, out_dim: int, dtype=torch.float32,
                scale: float = 1.0, device="cuda") -> torch.Tensor:
     """muP/spectral-consistent init: std = scale / sqrt(in_dim)."""

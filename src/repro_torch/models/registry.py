@@ -45,22 +45,21 @@ def _lm_loss(params, cfg, batch):
 
 # What each model family of the reference registry still waits for.
 _FAMILY_WAITS_FOR = {
-    "moe": "the MoE feed-forward (queue A item 12)",
-    "hybrid": "Mamba layers (queue A item 12) with the selective-scan kernel "
-              "(queue B item 5), and the MoE feed-forward (item 12)",
+    "moe": "RoPE (queue A items 2-3) and MLA (item 12), which the registry's "
+           "MoE models need beside the MoE feed-forward",
     "audio": "the encoder-decoder model (queue A item 12)",
     "vlm": "M-RoPE and frontend embeds (queue A item 12)",
-    "ssm": "Mamba layers (queue A item 12) with the selective-scan kernel "
-           "(queue B item 5)",
 }
 
 
 def _ported(cfg: ModelConfig) -> bool:
-    """Dense decoders, and all-RWKV6 stacks."""
+    """Dense decoders, Mamba/attention hybrids (with MoE feed-forwards), and
+    all-recurrent (RWKV6 or Mamba) stacks."""
     if cfg.is_encoder_decoder:
         return False
-    return cfg.family == "dense" or (
-        cfg.family == "ssm" and all(b == "rwkv" for b in cfg.block_pattern))
+    return cfg.family in ("dense", "hybrid") or (
+        cfg.family == "ssm"
+        and all(b in ("rwkv", "mamba") for b in cfg.block_pattern))
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:

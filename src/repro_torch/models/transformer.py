@@ -1,5 +1,6 @@
-"""Stacked decoder-only LM (``repro/models/transformer.py``: dense attention
-blocks and RWKV6 blocks).
+"""Stacked decoder-only LM (``repro/models/transformer.py``: attention
+blocks with a dense or MoE feed-forward, Mamba blocks with or without an
+MoE feed-forward, and RWKV6 blocks).
 
 Layers are grouped into super-blocks of ``cfg.pattern_period`` layers; every
 leaf of ``params["blocks"]`` carries a leading ``n_super`` axis, as in the
@@ -22,26 +23,20 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_norm, cross_entropy,
                                        dense_init, embed_init, normal,
                                        norm_init, softcap)
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves_with_path, tree_map
 
 _KIND = ("ROADMAP queue A item 12 (remaining architectures): {what} is not "
          "ported yet")
-_MAMBA = ("Mamba layers (queue A item 12, with the selective-scan kernel of "
-          "queue B item 5)")
 CARRY_NOT_PORTED = ("ROADMAP queue A item 17 (recurrent carries in "
-                    "continuous batching, the rest of item 12's RWKV6 "
-                    "part): RWKV6 layers serve batch to completion only")
+                    "continuous batching): RWKV6 and Mamba layers serve "
+                    "batch to completion only")
 
 
 def _check_layer(cfg: ModelConfig, i: int):
-    """Admit the ported layer kinds: dense attention and RWKV6."""
+    """Admit the ported layer kinds: attention, Mamba and RWKV6."""
     kind = cfg.layer_kind(i)
-    if kind == "mamba":
-        raise NotImplementedError(_KIND.format(what=_MAMBA))
-    if kind not in ("attn", "rwkv"):
+    if kind not in ("attn", "mamba", "rwkv"):
         raise NotImplementedError(_KIND.format(what=f"block kind {kind!r}"))
-    if cfg.layer_is_moe(i):
-        raise NotImplementedError(_KIND.format(what="the MoE feed-forward"))
 
 
 def has_recurrent_layers(cfg: ModelConfig) -> bool:
@@ -52,7 +47,7 @@ def has_recurrent_layers(cfg: ModelConfig) -> bool:
 def _check_attention(cfg: ModelConfig, i: int):
     """Admit the layers whose per-row state lives in the paged pool."""
     _check_layer(cfg, i)
-    if cfg.layer_kind(i) == "rwkv":
+    if cfg.layer_kind(i) != "attn":
         raise NotImplementedError(CARRY_NOT_PORTED)
 
 
@@ -66,17 +61,33 @@ def _tree_index(tree, s: int):
 # ---------------------------------------------------------------------------
 
 
+def _ffn_init(generator, cfg: ModelConfig, i: int, dtype, device):
+    if cfg.layer_is_moe(i):
+        return {"moe": mlp_mod.moe_init(generator, cfg, dtype, device)}
+    return {"mlp": mlp_mod.mlp_init(generator, cfg, dtype, device=device)}
+
+
 def _layer_init(generator, cfg: ModelConfig, layer_in_period: int, dtype,
                 device):
-    _check_layer(cfg, layer_in_period)
-    if cfg.layer_kind(layer_in_period) == "rwkv":
-        return {"ln1": norm_init(cfg.d_model, cfg.norm, device),
-                "rwkv_tm": ssm_mod.rwkv_init(generator, cfg, dtype, device),
-                "ln2": norm_init(cfg.d_model, cfg.norm, device)}
-    return {"ln1": norm_init(cfg.d_model, cfg.norm, device),
-            "attn": attn.attn_init(generator, cfg, dtype, device),
-            "ln2": norm_init(cfg.d_model, cfg.norm, device),
-            "mlp": mlp_mod.mlp_init(generator, cfg, dtype, device=device)}
+    """One layer's params; the structure depends only on the position in
+    the period.  A Mamba layer has a feed-forward only where it is MoE."""
+    i = layer_in_period
+    _check_layer(cfg, i)
+    kind = cfg.layer_kind(i)
+    p = {"ln1": norm_init(cfg.d_model, cfg.norm, device)}
+    if kind == "rwkv":
+        p["rwkv_tm"] = ssm_mod.rwkv_init(generator, cfg, dtype, device)
+        p["ln2"] = norm_init(cfg.d_model, cfg.norm, device)
+    elif kind == "mamba":
+        p["mamba"] = ssm_mod.mamba_init(generator, cfg, dtype, device)
+        if cfg.layer_is_moe(i):
+            p["ln2"] = norm_init(cfg.d_model, cfg.norm, device)
+            p.update(_ffn_init(generator, cfg, i, dtype, device))
+    else:
+        p["attn"] = attn.attn_init(generator, cfg, dtype, device)
+        p["ln2"] = norm_init(cfg.d_model, cfg.norm, device)
+        p.update(_ffn_init(generator, cfg, i, dtype, device))
+    return p
 
 
 def superblock_init(generator, cfg: ModelConfig, dtype=torch.float32,
@@ -106,10 +117,28 @@ def lm_init(generator, cfg: ModelConfig, dtype=torch.float32, num_layers=None,
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size,
                                        dtype, device=device)
     if n_super > 0:
-        blocks = [superblock_init(generator, cfg, dtype, device)
-                  for _ in range(n_super)]
-        params["blocks"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
+        params["blocks"] = _stack_superblocks(
+            [dict(leaves_with_path(superblock_init(generator, cfg, dtype,
+                                                   device)))
+             for _ in range(n_super)])
     return params
+
+
+def _stack_superblocks(flats) -> dict:
+    """Stack super-blocks, each a {path: leaf} dict, into one tree whose
+    leaves carry a leading n_super axis.  Leaf by leaf, dropping each
+    super-block's copy as it is stacked, so at most one leaf exists twice
+    at any moment; one super-block is a view (``unsqueeze(0)``), no copy."""
+    out: dict = {}
+    for path in list(flats[0]):
+        parts = [flat.pop(path) for flat in flats]
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (parts[0].unsqueeze(0) if len(parts) == 1
+                          else torch.stack(parts))
+        del parts
+    return out
 
 
 def num_superblocks(params) -> int:
@@ -126,22 +155,35 @@ def num_superblocks(params) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _mlp_residual(lp, cfg: ModelConfig, x):
+def _ffn_residual(lp, cfg: ModelConfig, i: int, x):
+    """x + the layer's feed-forward (dense or MoE) of ln2(x); returns
+    (x, aux) with aux = aux_loss + router_zloss of an MoE layer, else 0.
+    A Mamba layer without a feed-forward returns x unchanged."""
+    aux = torch.zeros((), device=x.device)
+    if "ln2" not in lp:
+        return x, aux
     h = apply_norm(lp["ln2"], x, cfg.norm)
-    return x + mlp_mod.mlp_apply(lp["mlp"], cfg, h)
+    if cfg.layer_is_moe(i):
+        y, a = mlp_mod.moe_apply(lp["moe"], cfg, h)
+        return x + y, aux + a["aux_loss"] + a["router_zloss"]
+    return x + mlp_mod.mlp_apply(lp["mlp"], cfg, h), aux
 
 
 def _apply_layer(lp, cfg: ModelConfig, i: int, x, positions):
     """One layer, full-sequence.  Returns (x, aux_loss)."""
     h = apply_norm(lp["ln1"], x, cfg.norm)
-    if cfg.layer_kind(i) == "rwkv":
+    kind = cfg.layer_kind(i)
+    if kind == "rwkv":
         x = x + ssm_mod.rwkv_time_mix(lp["rwkv_tm"], cfg, h)
         h = apply_norm(lp["ln2"], x, cfg.norm)
         x = x + ssm_mod.rwkv_channel_mix(lp["rwkv_tm"], cfg, h)
         return x, torch.zeros((), device=x.device)
-    x = x + attn.attn_apply(lp["attn"], cfg, h, positions,
-                            window=cfg.layer_window(i))
-    return _mlp_residual(lp, cfg, x), torch.zeros((), device=x.device)
+    if kind == "mamba":
+        x = x + ssm_mod.mamba_apply(lp["mamba"], cfg, h)
+    else:
+        x = x + attn.attn_apply(lp["attn"], cfg, h, positions,
+                                window=cfg.layer_window(i))
+    return _ffn_residual(lp, cfg, i, x)
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, offset: int = 0):
@@ -200,9 +242,9 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, mask=None):
 def lm_init_cache(params, cfg: ModelConfig, batch_size: int, max_len: int,
                   dtype=torch.bfloat16, device="cuda"):
     """Cache tree mirroring the super-block stack (leading n_super axis).
-    Attention layers hold K/V in ``dtype``; RWKV6 layers hold their
-    recurrent state (tm_x, cm_x, wkv) in float32 whatever ``dtype`` is, as
-    the reference keeps it."""
+    Attention layers hold K/V in ``dtype``; RWKV6 layers (tm_x, cm_x, wkv)
+    and Mamba layers (conv, ssm) hold their recurrent state in float32
+    whatever ``dtype`` is, as the reference keeps it."""
     n_super = num_superblocks(params)
     if n_super == 0:
         return {}
@@ -211,6 +253,8 @@ def lm_init_cache(params, cfg: ModelConfig, batch_size: int, max_len: int,
         _check_layer(cfg, i)
         if cfg.layer_kind(i) == "rwkv":
             one = ssm_mod.rwkv_init_state(cfg, batch_size, device="meta")
+        elif cfg.layer_kind(i) == "mamba":
+            one = ssm_mod.mamba_init_state(cfg, batch_size, device="meta")
         else:
             one = attn.init_kv_cache(cfg, batch_size, max_len, dtype,
                                      window=cfg.layer_window(i),
@@ -271,9 +315,15 @@ def _write(cache_l: dict, new: dict):
 
 
 def _prefill_layer(lp, cache_l, cfg: ModelConfig, i: int, x, positions):
-    """One layer over the full prompt, filling its decode cache in place."""
+    """One layer over the full prompt, filling its decode cache in place
+    (the train-path math; aux losses dropped)."""
     h = apply_norm(lp["ln1"], x, cfg.norm)
-    if cfg.layer_kind(i) == "rwkv":
+    kind = cfg.layer_kind(i)
+    if kind == "mamba":
+        y, state = ssm_mod.mamba_prefill(lp["mamba"], cfg, h, cache_l)
+        _write(cache_l, state)
+        return _ffn_residual(lp, cfg, i, x + y)[0], cache_l
+    if kind == "rwkv":
         y, state = ssm_mod.rwkv_time_mix_prefill(lp["rwkv_tm"], cfg, h,
                                                  cache_l)
         x = x + y
@@ -284,7 +334,7 @@ def _prefill_layer(lp, cache_l, cfg: ModelConfig, i: int, x, positions):
         return x + y, cache_l
     y, cache_l = attn.attn_prefill(lp["attn"], cfg, h, cache_l, positions,
                                    window=cfg.layer_window(i))
-    return _mlp_residual(lp, cfg, x + y), cache_l
+    return _ffn_residual(lp, cfg, i, x + y)[0], cache_l
 
 
 def lm_prefill(params, cfg: ModelConfig, tokens, cache, positions=None,
@@ -330,16 +380,22 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens, cache, carry,
                 lp["attn"], cfg, h, cache_sb[f"layer{i}"], ctx_len,
                 positions, window=cfg.layer_window(i),
                 block_table=block_table)
-            x = _mlp_residual(lp, cfg, x + y)
+            x = _ffn_residual(lp, cfg, i, x + y)[0]
     return _head(params, cfg, x[:, -1:]), cache, carry
 
 
 def _decode_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions,
                   block_table=None, write_mask=None):
     h = apply_norm(lp["ln1"], x, cfg.norm)
-    if cfg.layer_kind(i) == "rwkv":
-        if write_mask is not None or block_table is not None:
-            raise NotImplementedError(CARRY_NOT_PORTED)
+    kind = cfg.layer_kind(i)
+    if kind != "attn" and (write_mask is not None
+                           or block_table is not None):
+        raise NotImplementedError(CARRY_NOT_PORTED)
+    if kind == "mamba":
+        y, state = ssm_mod.mamba_decode(lp["mamba"], cfg, h, cache_l)
+        _write(cache_l, state)
+        return _ffn_residual(lp, cfg, i, x + y)[0], cache_l
+    if kind == "rwkv":
         y, state = ssm_mod.rwkv_decode(lp["rwkv_tm"], cfg, h, cache_l)
         x = x + y
         h = apply_norm(lp["ln2"], x, cfg.norm)
@@ -355,7 +411,7 @@ def _decode_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions,
         y, cache_l = attn.attn_decode(lp["attn"], cfg, h, cache_l, index,
                                       positions, window=cfg.layer_window(i),
                                       write_mask=write_mask)
-    return _mlp_residual(lp, cfg, x + y), cache_l
+    return _ffn_residual(lp, cfg, i, x + y)[0], cache_l
 
 
 def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,

@@ -1,6 +1,6 @@
 """The CUDA kernels (flash attention forward and backward, paged-attention
-decode, the Newton–Schulz chain and matmul, the RWKV6 WKV recurrence)
-against their plain PyTorch versions, on the card.
+decode, the Newton–Schulz chain and matmul, the RWKV6 WKV recurrence, the
+Mamba selective scan) against their plain PyTorch versions, on the card.
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.newton_schulz import ops as ns_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
@@ -299,3 +300,78 @@ def test_wkv_kernel_refuses_grads_and_what_it_does_not_take(cuda_device):
     with torch.no_grad():
         wkv_ops.wkv(args[0].clone().requires_grad_(), *args[1:])
     assert wkv_ops.KERNEL_LAUNCHES == before + 1
+
+
+def _scan_inputs(seed, B, S, d, N, dtype, device, regime):
+    """u, Bm, Cm ~ N(0, 1) in ``dtype``; dt in ``dtype`` and A float32 by
+    regime (decays near 1, or large dt * A down to -80); D ~ 1 + 0.1 N(0,
+    1); a N(0, 1) initial state."""
+    rng = np.random.default_rng(seed)
+    (dlo, dhi), (alo, ahi) = {"near 1": ((0.01, 0.1), (1e-3, 1e-2)),
+                              "large": ((1.0, 5.0), (1.0, 16.0))}[regime]
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+    u = t(rng.standard_normal((B, S, d)))
+    dt = t(rng.uniform(dlo, dhi, (B, S, d)))
+    A = t(-rng.uniform(alo, ahi, (d, N)), torch.float32)
+    Bm = t(rng.standard_normal((B, S, N)))
+    Cm = t(rng.standard_normal((B, S, N)))
+    Dp = t(1.0 + 0.1 * rng.standard_normal(d), torch.float32)
+    h0 = t(rng.standard_normal((B, d, N)), torch.float32)
+    return u, dt, A, Bm, Cm, Dp, h0
+
+
+# The scan kernel against both plain forms, y and the final state relative
+# to max(1, max|·|): f32 sums and decay products in other orders, with the
+# kernel's exp on the SFU (2 ulp), to the reference's own 1e-4 bar for its
+# kernel; with bf16 inputs both sides round y to bf16 once (2^-8
+# relative), the state stays f32.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("S,d,regime", [(1, 16, "large"), (63, 200, "near 1"),
+                                        (200, 256, "large"),
+                                        (1000, 130, "near 1")])
+def test_scan_kernel_matches_plain_forms(cuda_device, dtype, N, S, d,
+                                         regime):
+    td = getattr(torch, dtype)
+    *args, h0 = _scan_inputs(N + S + d, 2, S, d, N, td, cuda_device, regime)
+    before = scan_ops.KERNEL_LAUNCHES
+    y, h = scan_ops.selective_scan_with_state(*args, h0=h0)
+    y_only = scan_ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert scan_ops.KERNEL_LAUNCHES == before + 2
+    assert y.dtype == td and h.dtype == torch.float32
+    tol = 1e-2 if dtype == "bfloat16" else 1e-4
+    for force in ("ref", "chunked"):
+        want_y, want_h = scan_ops.selective_scan_with_state(*args, h0=h0,
+                                                            force=force)
+        assert _rel(y, want_y, floor=1.0) <= tol
+        assert _rel(h, want_h, floor=1.0) <= 1e-4
+        want_0 = scan_ops.selective_scan(*args, force=force)
+        assert _rel(y_only, want_0, floor=1.0) <= tol
+
+
+@pytest.mark.gpu
+def test_scan_kernel_refuses_grads_and_what_it_does_not_take(cuda_device):
+    """An input that requires grad raises naming the ROADMAP item of the
+    backward; float16 inputs, a state dim of 3 or mixed dtypes raise; no
+    launch is counted and nothing falls back to the plain versions."""
+    *args, h0 = _scan_inputs(1, 1, 8, 32, 4, torch.float32, cuda_device,
+                             "large")
+    before = scan_ops.KERNEL_LAUNCHES
+    with pytest.raises(NotImplementedError, match="item 18"):
+        scan_ops.selective_scan(args[0].clone().requires_grad_(), *args[1:])
+    with pytest.raises(ValueError, match="dtypes"):
+        scan_ops.selective_scan(*(a.half() for a in args[:2]), args[2],
+                                *(a.half() for a in args[3:5]), args[5])
+    with pytest.raises(ValueError, match="dtypes"):
+        scan_ops.selective_scan(args[0].bfloat16(), *args[1:])
+    odd = _scan_inputs(2, 1, 8, 32, 3, torch.float32, cuda_device, "large")
+    with pytest.raises(ValueError, match="state dim 3"):
+        scan_ops.selective_scan(*odd[:6])
+    assert scan_ops.KERNEL_LAUNCHES == before
+    with torch.no_grad():
+        scan_ops.selective_scan(args[0].clone().requires_grad_(), *args[1:])
+    assert scan_ops.KERNEL_LAUNCHES == before + 1

@@ -276,7 +276,7 @@ def test_serve_cli_on_cpu_and_default_device(monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["--arch", "rwkv6-7b", "--continuous"], "item 17"),
     (["--arch", "rwkv6-7b", "--continuous", "--paged"], "item 17"),
-    (["--arch", "jamba-v0.1-52b"], "queue B item 5"),
+    (["--arch", "jamba-v0.1-52b", "--continuous"], "item 17"),
     (["--arch", "gemma2-9b"], "sliding-window")])
 def test_unported_paths_name_their_roadmap_item(argv, item):
     with pytest.raises((SystemExit, NotImplementedError), match=item):
@@ -292,10 +292,12 @@ def test_unported_layers_raise_naming_their_items():
     with pytest.raises(NotImplementedError, match="item 17"):
         tr.lm_init_prefill_carry(tp, CFG, 32, device="cpu")
     mamba = dataclasses.replace(CFG, block_pattern=("mamba",))
-    with pytest.raises(NotImplementedError, match="queue B item 5"):
-        registry.get_model(mamba)
-    with pytest.raises(NotImplementedError, match="queue B item 5"):
-        tr.lm_init(torch.Generator().manual_seed(0), mamba, device="cpu")
+    mp = registry.get_model(mamba).init(torch.Generator().manual_seed(0),
+                                        mamba, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        ServeEngine(mamba, mp, device="cpu").continuous_state(2)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tr.lm_init_paged_cache(mp, mamba, 2, 8, 4, 32, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         registry.get_model(dataclasses.replace(CFG, family="moe"))
 
