@@ -18,10 +18,12 @@ result):
    head dim x ragged lengths, plus jamba's attention shape and the serving
    prefill's exact shape;
 4. paged parity: the paged-attention decode kernel against its plain
-   version over (q, pages) dtypes x head dim x MHA/GQA x block size x
-   softcap x cursors (zero, ragged, bs-1, bs, last slot), with permuted
-   pages, garbage past every cursor and an all-trash row, plus the timing
-   shape;
+   version over (q, pages) dtypes (f32/bf16 q over f32, bf16, int8 and fp8
+   pages, the 1-byte pages with their f32 scale pages) x head dim x
+   MHA/GQA x block size x softcap x cursors (zero, ragged, bs-1, bs, last
+   slot), with permuted pages, garbage past every cursor (random 1-byte
+   values under large scales in the quantized pools) and an all-trash
+   row, plus the timing shape per page dtype;
 5. the contiguous main path: ``repro_torch.launch.serve.main`` serves
    ``gpt2-12l`` at full width (batch 8, prompt 512, 64 tokens, random
    weights from seed 0) with the launch counters set to 0 just before and
@@ -30,13 +32,20 @@ result):
    --paged``, 32 requests (prompts 128-512, budgets 16-64) into 8 slots,
    counters from 0: every request ends at its budget, the pool gets every
    page back, the paged kernel ran 12 times per masked decode step and
-   flash attention never;
+   flash attention never; then the same over int8 pages, over fp8 pages
+   and with the prefix cache over int8 pages (counters from 0 before
+   each; the pool's bytes per token (hd + 4) / (4 hd) of f32, the radix
+   tree's pins audited, and the prefix run must hit);
 7. card against CPU: the same weights, a greedy B=1 P=128 8-token
    contiguous generation, and three requests through the paged scheduler,
-   on the card against the port's plain CPU path fed the same tokens;
+   on the card against the port's plain CPU path fed the same tokens; and
+   four requests (the longest prompt twice, the second a full hit with a
+   copy-on-write clone) through the int8 prefix-cache scheduler on the
+   card and on the CPU, token agreement at least 0.9;
 8. times, with CUDA events: each kernel, its plain version and a PyTorch
    yardstick the port never calls (``scaled_dot_product_attention``), at
-   the main paths' shapes, beside the bound;
+   the main paths' shapes, beside the bound; the paged kernel over f32,
+   int8 and fp8 pages;
 9. training parity: the Newton–Schulz chain (``ns_fused``) and ``matmul``
    against their plain versions over stack sizes, aspects, ragged dims,
    dtypes and the exact ``gpt2-12l`` shapes (the tied embedding's too),
@@ -271,20 +280,44 @@ PAGED_SHAPE = dict(B=8, H=12, KV=12, hd=64, bs=16, NB=37, cursor=575)
 GARBAGE = 1e3            # scale of the finite garbage past every cursor
 
 
+def _garbage_bytes(shape, dtype, g):
+    """Random finite 1-byte values of ``dtype``: every int8, every fp8 e4m3
+    code but the two NaNs (0x7F and 0xFF become ±448)."""
+    raw = torch.randint(0, 256, shape, generator=g, device="cuda",
+                        dtype=torch.int32)
+    if dtype == torch.int8:
+        return (raw - 128).to(torch.int8)
+    raw = raw.to(torch.uint8)
+    raw = torch.where((raw & 0x7F) == 0x7F, raw ^ 1, raw)
+    return raw.view(dtype)
+
+
 def paged_case(B, H, KV, hd, bs, NB, q_dtype, kv_dtype, cursors, seed,
                trash_row=True):
     """A pool with permuted physical pages, spare pages and every slot past
     a row's cursor filled with large finite garbage; with ``trash_row`` the
     last row's table is all trash (the pool's last page, garbage too).
-    Returns (q, k_pages, v_pages, table int32, index int32)."""
+    Quantized pools (int8/fp8) hold random 1-byte garbage with scales of
+    ``GARBAGE`` scale, and each live slot its N(0, 1) values quantized per
+    head.  Returns (q, k_pages, v_pages, table int32, index int32,
+    k_scales, v_scales), the scales None for float pools."""
+    from repro_torch.core import quant
     g = torch.Generator(device="cuda").manual_seed(seed)
     NP = B * NB + 3 + 1                         # rows' pages, spares, trash
     trash = NP - 1
+    quantized = quant.is_quantized(kv_dtype)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda")
     q = randn(B, 1, H, hd).to(q_dtype)
-    kp, vp = (GARBAGE * randn(NP, bs, KV, hd) for _ in range(2))
+    scales = (None, None)
+    if quantized:
+        kp, vp = (_garbage_bytes((NP, bs, KV, hd), kv_dtype, g)
+                  for _ in range(2))
+        scales = tuple(GARBAGE * (1 + torch.rand(
+            (NP, bs, KV, 1), generator=g, device="cuda")) for _ in range(2))
+    else:
+        kp, vp = (GARBAGE * randn(NP, bs, KV, hd) for _ in range(2))
     perm = torch.randperm(NP - 1, generator=g, device="cuda")[:B * NB]
     table = perm.reshape(B, NB).to(torch.int32)
     if trash_row:
@@ -294,18 +327,36 @@ def paged_case(B, H, KV, hd, bs, NB, q_dtype, kv_dtype, cursors, seed,
     for b in range(B - 1 if trash_row else B):  # live slots get N(0, 1)
         live = slot[slot <= int(index[b])]
         pages, offs = table[b, live // bs].long(), live % bs
-        kp[pages, offs] = randn(len(live), KV, hd)
-        vp[pages, offs] = randn(len(live), KV, hd)
-    return q, kp.to(kv_dtype), vp.to(kv_dtype), table, index
+        for pool, sc in zip((kp, vp), scales):
+            x = randn(len(live), KV, hd)
+            if quantized:
+                xq, xs = quant.quantize(x, axis=-1, dtype=kv_dtype)
+                pool[pages, offs] = xq
+                sc[pages, offs] = xs
+            else:
+                pool[pages, offs] = x
+    if not quantized:
+        kp, vp = kp.to(kv_dtype), vp.to(kv_dtype)
+    return (q, kp, vp, table, index) + scales
 
 
-def paged_parity(pa_ops) -> float:
-    """Paged kernel against its plain version over the grid; returns the
-    max abs error at the timing shape.  The all-trash row must be finite;
-    every other row must agree within the tolerance."""
+def paged_parity(pa_ops) -> dict:
+    """Paged kernel against its plain version over the grid, float pages
+    and int8/fp8 pages with their scales; returns the max abs error at the
+    timing shape per page dtype.  The all-trash row must be finite; every
+    other row must agree within the tolerance.  Float pages: ``TOL``
+    absolute, as since the kernel's first slice.  Quantized pages: ``TOL``
+    relative to max(1, max|plain|).  With f32 q both sides dequantize in
+    f32 (the same product) and only sum orders differ; with bf16 q the
+    plain version rounds the dequantized context, the scores and the
+    probabilities to bf16 (each a relative step of 2^-8) where the kernel
+    keeps them in f32, so its error grows with the outputs' magnitude
+    (up to ~4 here, where an absolute 2e-2 is under two bf16 steps)."""
     f32, bf16 = torch.float32, torch.bfloat16
+    i8, f8 = torch.int8, torch.float8_e4m3fn
     cases = []
-    for q_dt, kv_dt in ((f32, f32), (bf16, bf16), (f32, bf16)):
+    for q_dt, kv_dt in ((f32, f32), (bf16, bf16), (f32, bf16), (f32, i8),
+                        (bf16, i8), (f32, f8), (bf16, f8)):
         for hd in (64, 128):
             for H, KV in ((12, 12), (8, 2)):
                 for bs in (16, 64):
@@ -314,35 +365,43 @@ def paged_parity(pa_ops) -> float:
                             cases.append((4, H, KV, hd, bs, 256 // bs, q_dt,
                                           kv_dt, cap, mode))
     s = PAGED_SHAPE
-    cases.append((s["B"], s["H"], s["KV"], s["hd"], s["bs"], s["NB"], f32,
-                  f32, 0.0, "timing"))
-    bad, err = 0, 0.0
+    for kv_dt in (f32, i8, f8):
+        cases.append((s["B"], s["H"], s["KV"], s["hd"], s["bs"], s["NB"],
+                      f32, kv_dt, 0.0, "timing"))
+    bad, worst, timing = 0, {}, {}
     for n, (B, H, KV, hd, bs, NB, q_dt, kv_dt, cap, mode) in enumerate(cases):
         top = NB * bs - 1
         cursors = {"zero": [0] * B, "bs-1": [bs - 1] * B, "bs": [bs] * B,
                    "last": [top] * B, "timing": [s["cursor"]] * B,
                    "ragged": np.random.default_rng(n).integers(
                        0, top + 1, B).tolist()}[mode]
-        q, kp, vp, tbl, idx = paged_case(B, H, KV, hd, bs, NB, q_dt, kv_dt,
-                                         cursors, seed=1000 + n,
-                                         trash_row=mode != "timing")
-        got = pa_ops.paged_attention(q, kp, vp, tbl, idx, logit_softcap=cap,
-                                     force="kernel")
-        want = pa_ops.paged_attention(q, kp, vp, tbl, idx,
-                                      logit_softcap=cap, force="ref")
+        q, kp, vp, tbl, idx, ks, vs = paged_case(
+            B, H, KV, hd, bs, NB, q_dt, kv_dt, cursors, seed=1000 + n,
+            trash_row=mode != "timing")
+        kw = dict(k_scales=ks, v_scales=vs, logit_softcap=cap)
+        got = pa_ops.paged_attention(q, kp, vp, tbl, idx, force="kernel",
+                                     **kw)
+        want = pa_ops.paged_attention(q, kp, vp, tbl, idx, force="ref", **kw)
         torch.cuda.synchronize()
         tol = TOL[bf16] if bf16 in (q_dt, kv_dt) else TOL[f32]
         live = slice(None) if mode == "timing" else slice(0, B - 1)
+        if ks is not None:
+            tol *= max(1.0, want[live].float().abs().max().item())
         err = (got[live].float() - want[live].float()).abs().max().item()
         ok = err <= tol and bool(torch.isfinite(got).all())
         bad += not ok
-        print(f"  pa q {str(q_dt)[6:]:8s} kv {str(kv_dt)[6:]:8s} B{B} "
+        name = str(kv_dt)[6:]
+        worst[name] = max(worst.get(name, 0.0), err)
+        if mode == "timing":
+            timing[name] = err
+        print(f"  pa q {str(q_dt)[6:]:8s} kv {name:13s} B{B} "
               f"H{H}/{KV} hd{hd} bs{bs} NB{NB} cap{cap:<4g} {mode:6s} "
-              f"err={err:.2e} tol={tol:.0e} {'ok' if ok else 'FAIL'}")
+              f"err={err:.2e} tol={tol:.1e} {'ok' if ok else 'FAIL'}")
     if bad:
         _fail(f"{bad} of {len(cases)} paged-attention parity cases")
-    print(f"paged parity: {len(cases)} cases within tolerance")
-    return err                                   # the last case: timing
+    print(f"paged parity: {len(cases)} cases within tolerance; worst error "
+          f"per page dtype {worst}")
+    return timing
 
 
 def card_vs_cpu(cfglib, registry, ServeEngine, fa_ops):
@@ -421,11 +480,33 @@ def times(fa_ops):
                 bound_by="operations" if op_ms >= byte_ms else "bytes")
 
 
-def paged_main_path(cfg, serve, fa_ops, pa_ops):
-    """``serve.main(PAGED_ARGV)`` with every launch counter at 0 just
-    before.  Returns the paged kernel's launches."""
+def _drawn_requests(cfg, argv):
+    """(prompt lengths, budgets) of the requests ``serve.main(argv)`` draws
+    with ``--continuous``: the reference's rng order (the shared prefix,
+    then lengths, then budgets); the prefix cache adds a shared prefix of
+    max(prompt_len // 2, block_size) tokens to every prompt."""
+    arg = {k: int(v) for k, v in zip(argv, argv[1:])
+           if k in ("--prompt-len", "--gen", "--requests", "--seed",
+                    "--block-size")}
+    P, G, n = arg["--prompt-len"], arg["--gen"], arg["--requests"]
+    shared = max(P // 2, arg["--block-size"]) if "--prefix-cache" in argv \
+        else 0
+    rng = np.random.default_rng(arg["--seed"])
+    rng.integers(0, cfg.vocab_size, (shared,))
+    lens = rng.integers(max(2, P // 4), P + 1, n)
+    gens = rng.integers(max(2, G // 4), max(G, 2) + 1, n)
+    return shared + lens, gens
+
+
+def paged_main_path(cfg, serve, fa_ops, pa_ops, extra=()):
+    """``serve.main(PAGED_ARGV + extra)`` with every launch counter at 0
+    just before.  Returns (paged-kernel launches, the scheduler, the
+    results, their TTFT p50 and p95 in seconds).  The CLI prints the
+    timed run's aggregate tokens/s itself."""
     from repro_torch.train import serve_scheduler
     from repro_torch.train.serve_engine import ServeEngine
+    argv = PAGED_ARGV + list(extra)
+    label = "paged main path" + (f" {' '.join(extra)}" if extra else "")
     calls = [0]
     scheds = []
     decode, run = ServeEngine.decode_masked, serve_scheduler.ContinuousScheduler.run
@@ -441,47 +522,96 @@ def paged_main_path(cfg, serve, fa_ops, pa_ops):
     serve_scheduler.ContinuousScheduler.run = kept_run
     zero_counts()
     try:
-        results = serve.main(PAGED_ARGV)
+        results = serve.main(argv)
     finally:
         ServeEngine.decode_masked = decode
         serve_scheduler.ContinuousScheduler.run = run
     launches, flash = pa_ops.KERNEL_LAUNCHES, fa_ops.KERNEL_LAUNCHES
-    expect_counts("paged main path", paged_attention=launches,
-                  flash_attention=flash)
-    # The requests serve.main drew: the reference's rng order (an empty
-    # shared prefix, then lengths, then budgets).
-    arg = {k: int(v) for k, v in zip(PAGED_ARGV, PAGED_ARGV[1:])
-           if k in ("--prompt-len", "--gen", "--requests", "--seed")}
-    P, G, n = arg["--prompt-len"], arg["--gen"], arg["--requests"]
-    rng = np.random.default_rng(arg["--seed"])
-    rng.integers(0, cfg.vocab_size, (0,))
-    lens = rng.integers(max(2, P // 4), P + 1, n)
-    gens = rng.integers(max(2, G // 4), max(G, 2) + 1, n)
+    expect_counts(label, paged_attention=launches, flash_attention=flash)
+    lens, gens = _drawn_requests(cfg, argv)
+    n = len(lens)
     if len(results) != n:
-        _fail(f"paged main path returned {len(results)} results")
+        _fail(f"{label} returned {len(results)} results")
     for r, p, g in zip(results, lens, gens):
         if r.finish_reason != "limit" or len(r.new_tokens) != g \
                 or len(r.prompt) != p:
-            _fail(f"request {r.uid}: {r.finish_reason} with "
+            _fail(f"{label}, request {r.uid}: {r.finish_reason} with "
                   f"{len(r.new_tokens)} of {g} tokens (prompt {len(r.prompt)} "
                   f"of {p})")
         if r.new_tokens.min() < 0 or r.new_tokens.max() >= cfg.vocab_size:
-            _fail(f"request {r.uid} produced tokens outside the vocabulary")
-    pool = scheds[-1].last_state.pool
+            _fail(f"{label}, request {r.uid} produced tokens outside the "
+                  "vocabulary")
+    sched = scheds[-1]
+    state = sched.last_state
+    pool = state.pool
     pool.check_invariants()
-    if pool.free_blocks != pool.num_blocks or pool.committed_blocks:
-        _fail(f"pool not returned: {pool.free_blocks} of {pool.num_blocks} "
-              f"pages free, {pool.committed_blocks} committed")
+    if state.radix is not None:
+        state.radix.check_invariants()
+    # With the prefix cache, pages the radix tree still pins stay allocated
+    # (evictable, referenced by no row) after every request finished.
+    pinned = len(state.radix.pinned_pages()) if state.radix is not None \
+        else 0
+    if pool.free_blocks + pinned != pool.num_blocks or pool.committed_blocks \
+            or pool.evictable_blocks != pinned:
+        _fail(f"{label}: pool not returned: {pool.free_blocks} of "
+              f"{pool.num_blocks} pages free, {pinned} pinned by the tree, "
+              f"{pool.evictable_blocks} evictable, {pool.committed_blocks} "
+              "committed")
     if launches != calls[0] * cfg.num_layers or launches == 0:
-        _fail(f"paged kernel launched {launches} times for {calls[0]} masked "
-              f"decode steps x {cfg.num_layers} layers")
+        _fail(f"{label}: paged kernel launched {launches} times for "
+              f"{calls[0]} masked decode steps x {cfg.num_layers} layers")
     if flash != 0:
-        _fail(f"the paged path launched flash attention {flash} times")
-    print(f"paged main path: {n} requests at their budgets, pool "
-          f"{pool.free_blocks}/{pool.num_blocks} pages free, {launches} "
-          f"paged-kernel launches = {calls[0]} decode steps x "
-          f"{cfg.num_layers} layers, 0 flash-attention launches")
-    return launches
+        _fail(f"{label} launched flash attention {flash} times")
+    print(f"{label}: {n} requests at their budgets, pool "
+          f"{pool.free_blocks}/{pool.num_blocks} pages free (+{pinned} "
+          f"pinned by the radix tree), {launches} paged-kernel launches = "
+          f"{calls[0]} decode steps x {cfg.num_layers} layers, 0 "
+          "flash-attention launches")
+    ttft = [r.ttft_s for r in results]
+    return (launches, sched, results,
+            (float(np.percentile(ttft, 50)), float(np.percentile(ttft, 95))))
+
+
+def quant_main_paths(cfg, serve, fa_ops, pa_ops) -> dict:
+    """The continuous paged main path with int8 pages, with fp8 pages, and
+    with the prefix cache over int8 pages, each with every counter at 0
+    just before.  Returns the paged launches of each run."""
+    out, stats = {}, {}
+    for key, extra in (("int8", ("--kv-dtype", "int8")),
+                       ("fp8", ("--kv-dtype", "fp8")),
+                       ("prefix+int8", ("--prefix-cache", "--kv-dtype",
+                                        "int8"))):
+        launches, sched, results, st = paged_main_path(cfg, serve, fa_ops,
+                                                       pa_ops, extra)
+        ks = sched.kv_stats()
+        ratio = (cfg.head_dim + 4) / (4 * cfg.head_dim)
+        print(f"  kv storage {key}: dtype={ks['kv_dtype']} bytes/token="
+              f"{ks['kv_bytes_per_token']} (f32: "
+              f"{ks['kv_bytes_per_token_f32']}), ratio "
+              f"{ks['kv_bytes_ratio']} (expected {ratio})")
+        if ks["kv_bytes_ratio"] != ratio:
+            _fail(f"{key}: kv bytes ratio {ks['kv_bytes_ratio']} != {ratio}")
+        print(f"  {key}: ttft p50 {st[0] * 1e3:.1f} ms, p95 "
+              f"{st[1] * 1e3:.1f} ms")
+        out[key], stats[key] = launches, st
+        if key == "prefix+int8":
+            ps = sched.prefix_stats()
+            if ps["prefix_hits"] < 1:
+                _fail(f"the prefix-cache run had no hit: {ps}")
+            hit = [r.ttft_s for r in results if r.prefix_tokens]
+            cold = [r.ttft_s for r in results if not r.prefix_tokens]
+            print(f"  prefix cache: hits {ps['prefix_hits']}/"
+                  f"{ps['prefix_requests']} (rate "
+                  f"{ps['prefix_hit_rate']:.4f}), skipped tokens "
+                  f"{ps['prefix_skipped_tokens']}; ttft p50/p95 "
+                  f"{st[0] * 1e3:.1f}/{st[1] * 1e3:.1f} ms against the "
+                  f"int8 run's {stats['int8'][0] * 1e3:.1f}/"
+                  f"{stats['int8'][1] * 1e3:.1f} ms (whose "
+                  f"prompts lack the shared prefix); within this run hits {np.median(hit) * 1e3:.1f} ms median over "
+                  f"{len(hit)}, misses "
+                  + (f"{np.median(cold) * 1e3:.1f} ms median over "
+                     f"{len(cold)}" if cold else "none"))
+    return out
 
 
 def paged_card_vs_cpu(cfglib, registry):
@@ -524,6 +654,68 @@ def paged_card_vs_cpu(cfglib, registry):
           f"margin allows (smallest top-2 margin {worst:.4f})")
 
 
+# Card against CPU over int8 pages with the prefix cache: per-token greedy
+# agreement at least the reference's int8 lane (TestQuantizedTolerance).
+QUANT_AGREEMENT = 0.9
+
+
+def _agreement(res_a, res_b):
+    """(equal tokens, compared tokens): position by position over each
+    pair of streams, the longer stream's length counted."""
+    tot = hit = 0
+    for a, b in zip(res_a, res_b):
+        n = min(len(a.new_tokens), len(b.new_tokens))
+        hit += int((a.new_tokens[:n] == b.new_tokens[:n]).sum())
+        tot += max(len(a.new_tokens), len(b.new_tokens))
+    return hit, tot
+
+
+def quant_card_vs_cpu(cfglib, registry):
+    """The three prompts of ``paged_card_vs_cpu`` (the longest first) and a
+    second arrival of the longest, 8 tokens each, through the int8
+    prefix-cache scheduler (2 slots, pages of 16) on the card and on the
+    CPU from the same weights.  The second 128-token prompt is a full
+    8-page hit on an exact page boundary: the copy-on-write clone and the
+    one-token rerun.  Token agreement must reach ``QUANT_AGREEMENT``;
+    agreement with the card's f32 pool is printed as a finding."""
+    from repro_torch.train.serve_engine import ServeEngine
+    from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
+    cfg = cfglib.get_config("gpt2-12l")
+    params = registry.get_model(cfg).init(torch.Generator().manual_seed(0),
+                                          cfg, device="cpu")
+    rng = np.random.default_rng(2)
+    G = 8
+    p100, p37, p128 = (rng.integers(0, cfg.vocab_size, (P,)).astype(np.int32)
+                       for P in (100, 37, 128))
+    reqs = [Request(prompt=p, max_new_tokens=G)
+            for p in (p128, p100, p37, p128)]
+    out = {}
+    for device, kv, prefix in (("cuda", "int8", True), ("cpu", "int8", True),
+                               ("cuda", "f32", False)):
+        eng = ServeEngine(cfg, params, device=device, max_len=128 + G + 1,
+                          paged=True, block_size=16, kv_dtype=kv,
+                          prefix_cache=prefix)
+        sched = ContinuousScheduler(eng, max_batch=2, invariant_every=1)
+        out[device, kv] = sched.run(reqs)
+        if prefix:
+            hits = [r.prefix_tokens for r in out[device, kv]]
+            if hits != [0, 0, 0, 127]:
+                _fail(f"int8 prefix run on {device}: prefix tokens {hits}, "
+                      "expected [0, 0, 0, 127]")
+            sched.last_state.radix.check_invariants()
+    hit, tot = _agreement(out["cuda", "int8"], out["cpu", "int8"])
+    for r_card, r_cpu in zip(out["cuda", "int8"], out["cpu", "int8"]):
+        print(f"  int8 request {r_card.uid}: P={len(r_card.prompt)} prefix "
+              f"{r_card.prefix_tokens} card {r_card.new_tokens.tolist()} "
+              f"cpu {r_cpu.new_tokens.tolist()}")
+    f_hit, f_tot = _agreement(out["cuda", "int8"], out["cuda", "f32"])
+    print(f"quant card vs cpu: int8 + prefix cache, {hit}/{tot} tokens equal "
+          f"(agreement {hit / tot:.4f}, bar {QUANT_AGREEMENT}); against the "
+          f"card's f32 pool {f_hit}/{f_tot} ({f_hit / f_tot:.4f}, a finding)")
+    if hit / tot < QUANT_AGREEMENT:
+        _fail(f"int8 card vs cpu agreement {hit}/{tot} < {QUANT_AGREEMENT}")
+
+
 def _time_device_ms(fn, reps: int, flush=None) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, each bracketed by
     its own CUDA events.  Before each launch the stream spins ~0.5 ms in a
@@ -550,53 +742,58 @@ def _time_device_ms(fn, reps: int, flush=None) -> float:
     return total / reps
 
 
-def paged_times(pa_ops):
+def paged_times(pa_ops, kv_dtype=torch.float32):
     """The paged kernel, its plain version and the SDPA yardstick at the
-    timing shape, device time with the L2 flushed before each launch.  The yardstick is
-    ``scaled_dot_product_attention`` over the already gathered contiguous
-    (B, H, 576, hd) context: at uniform cursors the same function, but it
-    reads no block table."""
+    timing shape over ``kv_dtype`` pages (int8/fp8 with their scales),
+    device time with the L2 flushed before each launch.  The yardstick is
+    ``scaled_dot_product_attention`` over the already gathered (and, for
+    quantized pages, dequantized) contiguous (B, H, 576, hd) f32 context:
+    at uniform cursors the same function, but it reads no block table."""
+    from repro_torch.kernels.paged_attention import ref
     s = PAGED_SHAPE
     B, H, KV, hd, bs, NB = (s[k] for k in ("B", "H", "KV", "hd", "bs", "NB"))
-    q, kp, vp, tbl, idx = paged_case(B, H, KV, hd, bs, NB, torch.float32,
-                                     torch.float32, [s["cursor"]] * B,
-                                     seed=4242, trash_row=False)
+    q, kp, vp, tbl, idx, ks, vs = paged_case(
+        B, H, KV, hd, bs, NB, torch.float32, kv_dtype, [s["cursor"]] * B,
+        seed=4242, trash_row=False)
+    kw = dict(k_scales=ks, v_scales=vs)
     junk = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
 
     def flush():
         junk.zero_()
     kernel_ms = _time_device_ms(lambda: pa_ops.paged_attention(
-        q, kp, vp, tbl, idx, force="kernel"), 50, flush)
+        q, kp, vp, tbl, idx, force="kernel", **kw), 50, flush)
     plain_ms = _time_device_ms(lambda: pa_ops.paged_attention(
-        q, kp, vp, tbl, idx, force="ref"), 20, flush)
-    from repro_torch.kernels.paged_attention import ref
+        q, kp, vp, tbl, idx, force="ref", **kw), 20, flush)
     S = s["cursor"] + 1
-    kt, vt = (ref.gather_pages(t, tbl)[:, :S].transpose(1, 2).contiguous()
-              for t in (kp, vp))
+    kt, vt = (ref.gather_dequant(t, sc, tbl, torch.float32)[:, :S]
+              .transpose(1, 2).contiguous() for t, sc in ((kp, ks), (vp, vs)))
     qt = q.transpose(1, 2).contiguous()
     library_ms = _time_device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
         50, flush)
     live = int((idx.long() + 1).sum())
     pages = int(((idx.long() + 1 + bs - 1) // bs).sum())
+    scale_bytes = 2 * live * KV * 4 if ks is not None else 0
     nbytes = (2 * live * KV * hd * kp.element_size()        # K and V
+              + scale_bytes                                 # their scales
               + 2 * q.numel() * q.element_size()            # q in, out
               + 4 * pages + 4 * B)                          # table, cursor
     flops = 4 * live * H * hd
     op_ms = flops / PEAK_F32_FLOPS * 1e3
     byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    name = str(kv_dtype)[6:]
     print(f"paged times at B={B} H={H} KV={KV} hd={hd} bs={bs} cursors "
-          f"{s['cursor']} f32, L2 flushed: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa on the gathered context "
-          f"{library_ms:.4f} ms; bound {max(op_ms, byte_ms):.4f} ms "
-          f"({flops / 1e6:.1f} MFLOP -> {op_ms:.4f} ms, {nbytes / 1e6:.1f} MB "
-          f"-> {byte_ms:.4f} ms)")
+          f"{s['cursor']} q f32, {name} pages, L2 flushed: kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on the "
+          f"gathered context {library_ms:.4f} ms; bound "
+          f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e6:.1f} MFLOP -> "
+          f"{op_ms:.4f} ms, {nbytes / 1e6:.3f} MB -> {byte_ms:.4f} ms)")
     warm_ms = _time_device_ms(lambda: pa_ops.paged_attention(
-        q, kp, vp, tbl, idx, force="kernel"), 50)
+        q, kp, vp, tbl, idx, force="kernel", **kw), 50)
     back_ms = _time_ms(lambda: pa_ops.paged_attention(
-        q, kp, vp, tbl, idx, force="kernel"), 50)
-    print(f"paged kernel with a warm L2: {warm_ms:.4f} ms; back to back, "
-          f"host wrapper included: {back_ms:.4f} ms per call")
+        q, kp, vp, tbl, idx, force="kernel", **kw), 50)
+    print(f"paged kernel ({name}) with a warm L2: {warm_ms:.4f} ms; back to "
+          f"back, host wrapper included: {back_ms:.4f} ms per call")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(op_ms, byte_ms),
                 bound_by="operations" if op_ms >= byte_ms else "bytes")
@@ -1445,7 +1642,7 @@ def main() -> int:
 
     # 3-4. kernel parity on the card
     main_err = parity(fa_ops)
-    paged_err = paged_parity(pa_ops)
+    paged_errs = paged_parity(pa_ops)
 
     # 5. the contiguous main path, counters from 0
     cfg = cfglib.get_config("gpt2-12l")
@@ -1462,16 +1659,28 @@ def main() -> int:
     print(f"main path: {launches} flash-attention launches "
           f"(2 prefills x {cfg.num_layers} layers, 0 in decode)")
 
-    # 6. the continuous paged main path, counters from 0
-    paged_launches = paged_main_path(cfg, serve, fa_ops, pa_ops)
+    # 6. the continuous paged main path, counters from 0; then over int8
+    # pages, fp8 pages and the prefix cache over int8 pages, counters from
+    # 0 before each
+    paged_launches = paged_main_path(cfg, serve, fa_ops, pa_ops)[0]
+    quant_launches = quant_main_paths(cfg, serve, fa_ops, pa_ops)
 
     # 7. card against CPU
     card_vs_cpu(cfglib, registry, ServeEngine, fa_ops)
     paged_card_vs_cpu(cfglib, registry)
+    quant_card_vs_cpu(cfglib, registry)
 
     # 8. times
     t = times(fa_ops)
     tp = paged_times(pa_ops)
+    tq = {name: paged_times(pa_ops, dt) for name, dt in
+          (("int8", torch.int8), ("float8_e4m3fn", torch.float8_e4m3fn))}
+    quantized = [
+        {"kv_dtype": name, "launches": quant_launches[key],
+         "prefix_cache_launches": (quant_launches["prefix+int8"]
+                                   if key == "int8" else None),
+         "max_abs_err": paged_errs[name], **tq[name]}
+        for name, key in (("int8", "int8"), ("float8_e4m3fn", "fp8"))]
 
     # 9. training parity on the card
     ns_err = ns_parity(ns_ops)
@@ -1539,7 +1748,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
                    "paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:97",
-         "launches": paged_launches, "max_abs_err": paged_err, **tp},
+         "launches": paged_launches, "max_abs_err": paged_errs["float32"],
+         **tp, "quantized": quantized},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cu",

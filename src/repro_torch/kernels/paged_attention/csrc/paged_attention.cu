@@ -1,7 +1,8 @@
 // Paged-attention decode for Hopper (sm_90a), CUDA C++ with plain f32 FMA.
 //
 // Replaces: src/repro/kernels/paged_attention/kernel.py:97
-// (paged_attention_tpu, Pallas body `_body`), float pages.  Same function:
+// (paged_attention_tpu, Pallas body `_body`), float and quantized pages.
+// Same function:
 // one new query per row, q (B,1,H,hd), attends over the K/V pages
 // (NP,bs,KV,hd) that its block-table row (B,NB) int32 names, slots
 // s <= index[b] valid (int32 cursor; the new token is already written at
@@ -11,22 +12,32 @@
 // query heads of one kv head share every page read.  Pages past the cursor
 // are never read (the TPU kernel DMAs them and skips only the math).
 // q and the pages are f32 or bf16 independently (a bf16 pool under f32
-// activations); both become f32 in registers.  Quantized pages (int8/fp8
-// with scales) are not handled here: ROADMAP queue A item 10.
+// activations); both become f32 in registers.  Quantized pages (the
+// `quantized=True` body, kernel.py:45, dequant at :68-74) are int8 or fp8
+// e4m3 with one f32 scale per (slot, kv head), read at slot * KV + kvh from
+// scale pages (NP, bs, KV, 1) through the same block-table entry as the
+// page: each loaded value is dequantized in registers right after the
+// load, float(k_q) * k_scale, then enters the FMA with the pre-scaled q;
+// V is dequantized the same way.  Everything after the load is the float
+// branch's.
 //
 // Bound on the card: decode reads every live K/V byte once and does
 // 4·hd FLOP per (head, token) against 2·hd·bytes of K/V per (kv head,
-// token): about 0.5 FLOP per byte in f32, far below the H100's
-// ~20 FLOP/byte f32 ridge.  It is bound by bytes.  At the timing shape
-// (B=8, H=KV=12, hd=64, bs=16, cursors 575, f32) that is 28.3 MB, ~8.5 us
-// at 3.35 TB/s.
+// token): about 0.5 FLOP per byte in f32 (2 with 1-byte pages), far below
+// the H100's ~20 FLOP/byte f32 ridge.  It is bound by bytes.  At the
+// timing shape (B=8, H=KV=12, hd=64, bs=16, cursors 575) that is 28.3 MB,
+// ~8.5 us at 3.35 TB/s in f32; int8/fp8 pages read 7.08 MB of K/V plus
+// 0.44 MB of scales, ~2.3 us.
 //
 // Design (flash-decoding).  A (B, KV) grid alone is 96 CTAs at B=8 on
 // 132 SMs, too few to pull the card's bandwidth.  So the row's token range
 // is split: pass 1 runs a (B, KV, n_split) grid, each CTA of 128 threads
 // walks its share of the row's live tokens in tiles, reading its own
 // block-table entries.  A token's K (then V) row is read by hd/VEC threads
-// with 16-byte loads (VEC = 4 f32 or 8 bf16); partial dot products are
+// with 16-byte loads (VEC = 4 f32 or 8 bf16) or, for 1-byte pages, 8-byte
+// loads (VEC = 8: the bf16 lane layout, so acc[MAXG][VEC] stays at the 64
+// floats a thread the bf16 build already holds without spilling, where 16
+// one-byte values a load would need 128); partial dot products are
 // reduced with warp shuffles; scores of a tile go to shared memory where one
 // warp per query head updates the running max m and sum l; each thread
 // keeps its slice of the accumulator for all G heads in registers.  At the
@@ -47,6 +58,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace {
@@ -60,6 +73,8 @@ constexpr float NEG_INF = -1e30f;
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
 template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
+template <> struct Vec<int8_t> { static constexpr int N = 8; };
+template <> struct Vec<__nv_fp8_e4m3> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -77,6 +92,40 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// 1-byte pages: one 8-byte load of 8 values.
+__device__ __forceinline__ void load_vec(const int8_t* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(b[i]);
+}
+
+__device__ __forceinline__ void load_vec(const __nv_fp8_e4m3* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_fp8_storage_t* b =
+      reinterpret_cast<const __nv_fp8_storage_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)        // e4m3 -> half is exact, half -> f32 too
+    out[i] = __half2float(__half(__nv_cvt_fp8_to_halfraw(b[i], __NV_E4M3)));
+}
+
+template <typename KT> struct IsQuant { static constexpr bool value = false; };
+template <> struct IsQuant<int8_t> { static constexpr bool value = true; };
+template <> struct IsQuant<__nv_fp8_e4m3> { static constexpr bool value = true; };
+
+// Load one token's VEC values of K or V and, for quantized pages, multiply
+// by the (slot, kv head) scale: float(q) * scale, the reference's order.
+template <typename KT, int VEC>
+__device__ __forceinline__ void load_kv(const KT* p, const float* scales,
+                                        size_t scale_idx, float* out) {
+  load_vec(p, out);
+  if constexpr (IsQuant<KT>::value) {
+    const float sc = scales[scale_idx];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) out[e] *= sc;
+  }
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -87,11 +136,14 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
 }
 
 // Pass 1: grid (B, KV, n_split), NTHREADS threads; dynamic shared memory
-// holds the token lanes' accumulators, TL * G * HD floats.
+// holds the token lanes' accumulators, TL * G * HD floats.  ks/vs are the
+// scale pages of quantized K/V (null for float pages).
 template <typename QT, typename KT, int HD>
 __global__ void __launch_bounds__(NTHREADS)
 paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
-                   const KT* __restrict__ vp, const int* __restrict__ table,
+                   const KT* __restrict__ vp, const float* __restrict__ ks,
+                   const float* __restrict__ vs,
+                   const int* __restrict__ table,
                    const int* __restrict__ index, float* __restrict__ ws_m,
                    float* __restrict__ ws_l, float* __restrict__ ws_acc,
                    int H, int KV, int G, int bs, int NB, int tok_per_split,
@@ -154,7 +206,8 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
       if (t < end) {
         const size_t slot = (size_t)trow[t / bs] * bs + t % bs;
         float kv[VEC];
-        load_vec(kp + slot * slot_stride + head_off, kv);
+        load_kv<KT, VEC>(kp + slot * slot_stride + head_off, ks,
+                         slot * KV + kvh, kv);
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
           if (g < G) {
@@ -224,7 +277,8 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
       if (t < end) {
         const size_t slot = (size_t)trow[t / bs] * bs + t % bs;
         float vv[VEC];
-        load_vec(vp + slot * slot_stride + head_off, vv);
+        load_kv<KT, VEC>(vp + slot * slot_stride + head_off, vs,
+                         slot * KV + kvh, vv);
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
           if (g < G) {
@@ -281,6 +335,7 @@ paged_combine_kernel(const float* __restrict__ ws_m,
 
 template <typename QT, typename KT, int HD>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
+                   const float* ks, const float* vs,
                    const int* table, const int* index, void* out,
                    float* ws_m, float* ws_l, float* ws_acc, int B, int H,
                    int KV, int bs, int NB, int n_split, int tok_per_split,
@@ -292,8 +347,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   paged_split_kernel<QT, KT, HD><<<dim3(B, KV, n_split), NTHREADS, smem,
                                    stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(kp),
-      static_cast<const KT*>(vp), table, index, ws_m, ws_l, ws_acc, H, KV, G,
-      bs, NB, tok_per_split, n_split, softcap, scale);
+      static_cast<const KT*>(vp), ks, vs, table, index, ws_m, ws_l, ws_acc,
+      H, KV, G, bs, NB, tok_per_split, n_split, softcap, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_combine_kernel<QT, HD><<<dim3(B, H), HD, 0, stream>>>(
@@ -303,37 +358,62 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 
 template <typename QT, typename KT>
 cudaError_t dispatch_hd(int hd, const void* q, const void* kp, const void* vp,
+                        const float* ks, const float* vs,
                         const int* table, const int* index, void* out,
                         float* ws_m, float* ws_l, float* ws_acc, int B, int H,
                         int KV, int bs, int NB, int n_split,
                         int tok_per_split, float softcap, cudaStream_t st) {
   if (hd == 64)
-    return launch<QT, KT, 64>(q, kp, vp, table, index, out, ws_m, ws_l,
-                              ws_acc, B, H, KV, bs, NB, n_split,
+    return launch<QT, KT, 64>(q, kp, vp, ks, vs, table, index, out, ws_m,
+                              ws_l, ws_acc, B, H, KV, bs, NB, n_split,
                               tok_per_split, softcap, st);
   if (hd == 128)
-    return launch<QT, KT, 128>(q, kp, vp, table, index, out, ws_m, ws_l,
-                               ws_acc, B, H, KV, bs, NB, n_split,
+    return launch<QT, KT, 128>(q, kp, vp, ks, vs, table, index, out, ws_m,
+                               ws_l, ws_acc, B, H, KV, bs, NB, n_split,
                                tok_per_split, softcap, st);
+  return cudaErrorInvalidValue;
+}
+
+template <typename QT>
+cudaError_t dispatch_kv(int kv_dtype, int hd, const void* q, const void* kp,
+                        const void* vp, const float* ks, const float* vs,
+                        const int* table, const int* index, void* out,
+                        float* ws_m, float* ws_l, float* ws_acc, int B, int H,
+                        int KV, int bs, int NB, int n_split,
+                        int tok_per_split, float softcap, cudaStream_t st) {
+#define PA_ARGS hd, q, kp, vp, ks, vs, table, index, out, ws_m, ws_l, ws_acc, \
+                B, H, KV, bs, NB, n_split, tok_per_split, softcap, st
+  switch (kv_dtype) {
+    case 0: return dispatch_hd<QT, float>(PA_ARGS);
+    case 1: return dispatch_hd<QT, __nv_bfloat16>(PA_ARGS);
+    case 2: return dispatch_hd<QT, int8_t>(PA_ARGS);
+    case 3: return dispatch_hd<QT, __nv_fp8_e4m3>(PA_ARGS);
+  }
+#undef PA_ARGS
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q_dtype / kv_dtype: 0 = float32, 1 = bfloat16.  ws is an f32 workspace of
-// B*H*n_split*(hd + 2) floats: m, then l, then acc.  Returns a cudaError_t
-// (0 = both passes launched).
+// q_dtype: 0 = float32, 1 = bfloat16.  kv_dtype: 0 = float32, 1 = bfloat16,
+// 2 = int8, 3 = fp8 e4m3; the 1-byte codes take f32 scale pages k_scales,
+// v_scales (NP, bs, KV, 1), which the float codes must leave null.  ws is
+// an f32 workspace of B*H*n_split*(hd + 2) floats: m, then l, then acc.
+// Returns a cudaError_t (0 = both passes launched).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
-                                   const void* v_pages, const void* table,
+                                   const void* v_pages, const void* k_scales,
+                                   const void* v_scales, const void* table,
                                    const void* index, void* out, void* ws,
                                    int B, int H, int KV, int hd, int bs,
                                    int NB, int n_split, int tok_per_split,
                                    int q_dtype, int kv_dtype, float softcap,
                                    void* stream) {
+  const bool quant = kv_dtype == 2 || kv_dtype == 3;
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAXG ||
       bs <= 0 || NB <= 0 || n_split <= 0 || tok_per_split <= 0 ||
       (long long)n_split * tok_per_split < (long long)NB * bs ||
-      q_dtype < 0 || q_dtype > 1 || kv_dtype < 0 || kv_dtype > 1)
+      q_dtype < 0 || q_dtype > 1 || kv_dtype < 0 || kv_dtype > 3 ||
+      quant != (k_scales != nullptr) || quant != (v_scales != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ws_m = static_cast<float*>(ws);
@@ -341,17 +421,17 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
   float* ws_acc = ws_l + (size_t)B * H * n_split;
   const int* tbl = static_cast<const int*>(table);
   const int* idx = static_cast<const int*>(index);
-#define PA_ARGS hd, q, k_pages, v_pages, tbl, idx, out, ws_m, ws_l, ws_acc, \
-                B, H, KV, bs, NB, n_split, tok_per_split, softcap, st
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
   cudaError_t err;
-  if (q_dtype == 0 && kv_dtype == 0)
-    err = dispatch_hd<float, float>(PA_ARGS);
-  else if (q_dtype == 0)
-    err = dispatch_hd<float, __nv_bfloat16>(PA_ARGS);
-  else if (kv_dtype == 0)
-    err = dispatch_hd<__nv_bfloat16, float>(PA_ARGS);
+  if (q_dtype == 0)
+    err = dispatch_kv<float>(kv_dtype, hd, q, k_pages, v_pages, ks, vs, tbl,
+                             idx, out, ws_m, ws_l, ws_acc, B, H, KV, bs, NB,
+                             n_split, tok_per_split, softcap, st);
   else
-    err = dispatch_hd<__nv_bfloat16, __nv_bfloat16>(PA_ARGS);
-#undef PA_ARGS
+    err = dispatch_kv<__nv_bfloat16>(kv_dtype, hd, q, k_pages, v_pages, ks,
+                                     vs, tbl, idx, out, ws_m, ws_l, ws_acc,
+                                     B, H, KV, bs, NB, n_split, tok_per_split,
+                                     softcap, st);
   return (int)err;
 }

@@ -8,7 +8,11 @@ take the plain gather-then-masked-attention version (``ref.py``).
 smoke run.
 
 ``paged_attention_decode`` writes the new token's K/V into the pool in
-place and then attends, on every device: the reference's TPU branch.  The
+place and then attends, on every device: the reference's TPU branch.
+Quantized pools (int8/fp8 pages with per-slot-per-head f32 scales,
+``k_scales``/``v_scales``) quantize the new K/V per head
+(``core.quant.quantize``, ``axis=-1``) and write values and scales through
+the same (page, offset); the kernel dequantizes in registers.  The
 reference's other backends defer the write (``pending``) and select the new
 K/V into the gathered context instead; both give the same attention input,
 and the port keeps one discipline.  Chunked prefill is plain gather +
@@ -21,6 +25,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import ref
 
@@ -30,7 +35,10 @@ KERNEL_LAUNCHES = 0
 
 KERNEL_HEAD_DIMS = (64, 128)
 MAX_GROUP = 8                     # query heads per kv head (MAXG in the .cu)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+if quant.fp8_dtype() is not None:
+    _KV_CODES[quant.fp8_dtype()] = 3
 _TARGET_CTAS = 2 * 132            # two CTAs per H100 SM for pass 1
 
 
@@ -41,12 +49,13 @@ def _library() -> ctypes.CDLL:
         # Pointers and the stream as c_void_p: ctypes would cut a bare int
         # to 32 bits.
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
     return lib
 
 
-def _check(q, k_pages, v_pages, block_table, index):
+def _check(q, k_pages, v_pages, block_table, index, k_scales=None,
+           v_scales=None):
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"paged_attention: q must be (B, 1, H, hd), got "
                          f"{tuple(q.shape)}")
@@ -65,6 +74,17 @@ def _check(q, k_pages, v_pages, block_table, index):
     if index.ndim != 1 or index.shape[0] != B:
         raise ValueError(f"paged_attention: cursor {tuple(index.shape)} for "
                          f"batch {B}")
+    want = tuple(k_pages.shape[:3]) + (1,)
+    if quant.is_quantized(k_pages.dtype) != (k_scales is not None) \
+            or (k_scales is None) != (v_scales is None):
+        raise ValueError(f"paged_attention: {k_pages.dtype} pages take "
+                         f"{'both' if quant.is_quantized(k_pages.dtype) else 'no'}"
+                         " scale pages")
+    for t in (k_scales, v_scales):
+        if t is not None and (tuple(t.shape) != want
+                              or t.dtype != torch.float32):
+            raise ValueError(f"paged_attention: scales {tuple(t.shape)} "
+                             f"{t.dtype}, expected {want} float32")
 
 
 def split_plan(B: int, KV: int, NB: int, bs: int):
@@ -77,30 +97,38 @@ def split_plan(B: int, KV: int, NB: int, bs: int):
 
 
 def paged_attention_cuda(q, k_pages, v_pages, block_table, index, *,
+                         k_scales=None, v_scales=None,
                          logit_softcap: float = 0.0) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream.  Raises on what the
-    kernel does not take: non-CUDA or mixed devices, dtypes other than
-    float32/bfloat16, head dims other than 64/128, more than 8 query heads
-    per kv head, non-contiguous or misaligned inputs, or a refused launch.
-    The table and cursor are cast to int32 here if they are not already."""
+    kernel does not take: non-CUDA or mixed devices, q other than
+    float32/bfloat16, pages other than float32/bfloat16/int8/fp8 (the
+    1-byte pages with float32 scale pages (NP, bs, KV, 1), the float pages
+    without), head dims other than 64/128, more than 8 query heads per kv
+    head, non-contiguous or misaligned inputs, or a refused launch.  The
+    table and cursor are cast to int32 here if they are not already."""
     global KERNEL_LAUNCHES
-    _check(q, k_pages, v_pages, block_table, index)
+    _check(q, k_pages, v_pages, block_table, index, k_scales, v_scales)
     B, _, H, hd = q.shape
     NP, bs, KV, _ = k_pages.shape
     NB = block_table.shape[1]
     table = block_table.to(torch.int32).contiguous()
     cursor = index.to(torch.int32).contiguous()
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_table", table), ("index", cursor)):
+    scales = [("k_scales", k_scales), ("v_scales", v_scales)] \
+        if k_scales is not None else []
+    for name, t in [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_table", table), ("index", cursor)] + scales:
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"paged_attention kernel: {name} must lie on "
                              f"q's CUDA device, got {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        # Scales are read one float at a time: 4-byte alignment suffices.
+        align = 4 if name.endswith("scales") else 16
+        if not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"paged_attention kernel: {name} must be "
-                             "contiguous and 16-byte aligned")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in _DTYPE_CODES:
+                             f"contiguous and {align}-byte aligned")
+    if q.dtype not in _Q_CODES or k_pages.dtype not in _KV_CODES:
         raise ValueError(f"paged_attention kernel: dtypes q {q.dtype}, pages "
-                         f"{k_pages.dtype} (float32 and bfloat16 only)")
+                         f"{k_pages.dtype} (q float32/bfloat16; pages "
+                         "float32/bfloat16/int8/float8_e4m3fn)")
     if v_pages.dtype != k_pages.dtype:
         raise ValueError("paged_attention kernel: k and v pages differ in "
                          "dtype")
@@ -119,9 +147,11 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, index, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_attention_fwd(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            None if k_scales is None else k_scales.data_ptr(),
+            None if v_scales is None else v_scales.data_ptr(),
             table.data_ptr(), cursor.data_ptr(), out.data_ptr(),
             ws.data_ptr(), B, H, KV, hd, bs, NB, n_split, tok_per_split,
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
+            _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
             float(logit_softcap), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error "
@@ -135,15 +165,18 @@ def paged_attention(q, k_pages, v_pages, block_table, index, *,
                     k_scales=None, v_scales=None,
                     logit_softcap: float = 0.0, force: str = "auto"):
     """q: (B,1,H,hd); pages (NP,bs,KV,hd); block_table (B,NB); index (B,)
-    -> (B,1,H,hd): slots ``s <= index[b]`` of row b are attended."""
+    -> (B,1,H,hd): slots ``s <= index[b]`` of row b are attended.  int8/fp8
+    pages come with their f32 scale pages ``k_scales``/``v_scales``
+    (NP,bs,KV,1)."""
     if force not in ("auto", "kernel", "ref"):
         raise ValueError(f"force={force!r} (auto|kernel|ref)")
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(ref._QUANT)
     if force == "kernel" or (force == "auto" and q.is_cuda):
         return paged_attention_cuda(q, k_pages, v_pages, block_table, index,
+                                    k_scales=k_scales, v_scales=v_scales,
                                     logit_softcap=logit_softcap)
+    _check(q, k_pages, v_pages, block_table, index, k_scales, v_scales)
     return ref.paged_attention_ref(q, k_pages, v_pages, block_table, index,
+                                   k_scales=k_scales, v_scales=v_scales,
                                    logit_softcap=logit_softcap)
 
 
@@ -155,24 +188,35 @@ def paged_attention_decode(q, k_pages, v_pages, k_new, v_new, page, off,
 
     q: (B,1,H,hd); k_new/v_new: (B,KV,hd), the new token's K/V; page/off:
     (B,) physical write coordinates (masked rows already redirected to the
-    trash page).  The write lands in ``k_pages``/``v_pages`` in place (the
-    reference returns an updated pool); returns ``(out, {"k_pages",
-    "v_pages"})`` with the same pool tensors."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(ref._QUANT)
-    k_pages[page, off] = k_new.to(k_pages.dtype)
-    v_pages[page, off] = v_new.to(v_pages.dtype)
+    trash page).  With ``k_scales``/``v_scales`` ((NP,bs,KV,1) f32: int8 or
+    fp8 pages) the new K/V is quantized per head and its scales land at the
+    same coordinates.  The writes land in the pool in place (the reference
+    returns an updated pool); returns ``(out, cache)`` with the same pool
+    tensors, the scale pages included when given."""
+    cache = {"k_pages": k_pages, "v_pages": v_pages}
+    if k_scales is not None:
+        k_w, k_s = quant.quantize(k_new, axis=-1, dtype=k_pages.dtype)
+        v_w, v_s = quant.quantize(v_new, axis=-1, dtype=v_pages.dtype)
+        k_scales[page, off] = k_s
+        v_scales[page, off] = v_s
+        cache.update(k_scales=k_scales, v_scales=v_scales)
+    else:
+        k_w, v_w = k_new.to(k_pages.dtype), v_new.to(v_pages.dtype)
+    k_pages[page, off] = k_w
+    v_pages[page, off] = v_w
     out = paged_attention(q, k_pages, v_pages, block_table, index,
+                          k_scales=k_scales, v_scales=v_scales,
                           logit_softcap=logit_softcap, force=force)
-    return out, {"k_pages": k_pages, "v_pages": v_pages}
+    return out, cache
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_table, ctx_len, *,
                             k_scales=None, v_scales=None,
                             logit_softcap: float = 0.0):
     """Chunked prefill: C queries at positions ctx_len..ctx_len+C-1 over the
-    row's pages (which already hold the chunk's own K/V).  Plain gather +
-    masked attention on every device."""
+    row's pages (which already hold the chunk's own K/V, quantized with
+    their scales by the caller when ``k_scales``/``v_scales`` are given).
+    Plain gather + masked attention on every device."""
     return ref.paged_prefill_attention_ref(
         q, k_pages, v_pages, block_table, ctx_len, k_scales=k_scales,
         v_scales=v_scales, logit_softcap=logit_softcap)

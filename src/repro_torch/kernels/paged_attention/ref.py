@@ -15,8 +15,12 @@ decode kernel (``ops.paged_attention``) is held against.
 ``paged_prefill_attention_ref`` is the chunked prefill's attention, plain on
 every device as in the reference.
 
-Quantized pages (int8/fp8 with per-slot scales) come with ROADMAP queue A
-item 10; passing scales raises.
+Quantized pool storage (``kv_dtype`` int8/fp8): pages hold quantized values
+plus per-slot-per-head float32 scale pages (``repro_torch.core.quant``,
+trailing keepdim so the scales ride the same block-table gathers as their
+pages).  Every path here takes optional ``*_scales`` and dequantizes in the
+gather: the float context is ``q.float() * scale``, the plain version the
+kernel's quantized branch is held against.
 """
 from __future__ import annotations
 
@@ -25,9 +29,6 @@ import math
 import torch
 
 NEG_INF = -1e30
-
-_QUANT = ("ROADMAP queue A item 10 (prefix sharing + quantized pages): "
-          "quantized KV pages (k_scales/v_scales) are not ported yet")
 
 
 def _softcap(x, cap: float):
@@ -68,10 +69,15 @@ def gather_pages(pages, block_table):
 
 
 def gather_dequant(pages, scales, block_table, dtype):
-    """Gather pages through the table into ``dtype``.  Float pages only."""
-    if scales is not None:
-        raise NotImplementedError(_QUANT)
-    return gather_pages(pages, block_table).to(dtype)
+    """Gather pages through the table into ``dtype``; with ``scales``
+    (quantized storage) dequantize in the gather: the (B, S, ...) context
+    is ``pages.float() * scales``, the scale pages gathered through the
+    same table, so a shared (radix) page dequantizes alike in every row."""
+    g = gather_pages(pages, block_table)
+    if scales is None:
+        return g.to(dtype)
+    s = gather_pages(scales, block_table)
+    return (g.float() * s).to(dtype)
 
 
 def _cursor(index, B: int, device):

@@ -35,8 +35,26 @@ serves through the block-paged KV pool: ``--num-blocks`` pages of
 ``--block-size`` tokens (default: full provisioning), prompts prefilled
 ``--chunk-len`` tokens per iteration straight into the pool, pages freed
 on EOS, decode attention in the paged-attention kernel on the card.
-``--kv-dtype {f32,bf16}`` sets the pool's storage dtype.  ``--no-overlap``
-turns off the scheduler's dispatch-then-fetch double buffering.
+``--no-overlap`` turns off the scheduler's dispatch-then-fetch double
+buffering.
+
+``--prefix-cache`` (with ``--paged``) turns on the prefix-sharing radix
+cache (``train/radix_cache``): finished prompts publish their full KV pages
+into a radix tree keyed by token content, later requests whose prompts
+share that prefix map the pages straight into their block tables and
+prefill only the unmatched tail (copy-on-write on an exact page boundary;
+LRU-leaf eviction under pool pressure).  The synthetic requests then share
+a system prefix of ``max(prompt_len // 2, block_size)`` tokens, and the run
+reports its hit rate and skipped tokens.  ``--no-prefix-cache`` (the
+default) serves every prompt cold.
+
+``--kv-dtype {f32,bf16,int8,fp8}`` sets the pool's storage dtype.  int8
+and fp8 (with ``--paged``) store quantized pages plus per-slot-per-head f32
+scales, dequantized inside the paged-attention kernel on the card: the
+pool's bytes per token fall to (hd + 4) / (4 hd) of f32.  Quantized greedy
+streams agree with the f32 pool's within a tolerance lane (>= 0.9 of
+tokens for int8, >= 0.8 for fp8), not byte for byte; prefix hits on a
+quantized pool stay byte-identical to quantized cold runs.
 """
 from __future__ import annotations
 
@@ -59,7 +77,6 @@ from repro_torch.tree import tree_leaves
 _LATER = {
     "spec_depth": "ROADMAP queue A item 9 (self-speculative decoding)",
     "draft_checkpoint": "ROADMAP queue A item 9 (self-speculative decoding)",
-    "prefix_cache": "ROADMAP queue A item 10 (prefix sharing)",
     "deadline_s": "ROADMAP queue A item 11 (fault tolerance)",
     "queue_limit": "ROADMAP queue A item 11 (fault tolerance)",
     "faults": "ROADMAP queue A item 11 (fault tolerance)",
@@ -134,8 +151,8 @@ def main(argv=None):
                     help="page pool size (default: full provisioning)")
     ap.add_argument("--kv-dtype", default="f32",
                     choices=["f32", "bf16", "int8", "fp8"],
-                    help="paged-pool storage dtype (int8/fp8: ROADMAP "
-                         "queue A item 10)")
+                    help="paged-pool storage dtype; int8/fp8 (require "
+                         "--paged) quantize pages with per-slot f32 scales")
     ap.add_argument("--chunk-len", type=int, default=None,
                     help="max prefill chunk width per iteration for --paged")
     ap.add_argument("--no-overlap", action="store_true",
@@ -144,10 +161,15 @@ def main(argv=None):
                     help="admission aging threshold in seconds (paged "
                          "first-fit blocks for the oldest request past it)")
     ap.add_argument("--invariant-every", type=int, default=0,
-                    help="audit the page pool every N scheduler iterations "
-                         "(0: off)")
-    ap.add_argument("--prefix-cache", action="store_true",
-                    help=_LATER["prefix_cache"])
+                    help="audit pool refcounts/commitments and radix pins "
+                         "every N scheduler iterations (0: off)")
+    ap.add_argument("--prefix-cache", action="store_true", default=False,
+                    help="prefix-sharing radix cache over the page pool "
+                         "(with --paged); synthetic requests then share a "
+                         "common system prefix")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false",
+                    help="serve every prompt cold (default)")
     ap.add_argument("--spec-depth", type=int, default=None,
                     help=_LATER["spec_depth"])
     ap.add_argument("--draft-checkpoint", default=None,
@@ -167,11 +189,13 @@ def main(argv=None):
         if getattr(args, flag) not in (None, False, 0):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
                              f"{item}")
-    if args.kv_dtype in ("int8", "fp8"):
-        raise SystemExit(f"--kv-dtype {args.kv_dtype} is not ported yet: "
-                         "ROADMAP queue A item 10 (quantized pages)")
     if args.paged and not args.continuous:
         raise SystemExit("--paged requires --continuous")
+    if args.prefix_cache and not args.paged:
+        raise SystemExit("--prefix-cache requires --paged")
+    if args.kv_dtype in ("int8", "fp8") and not args.paged:
+        raise SystemExit("--kv-dtype int8/fp8 requires --paged (scales are "
+                         "per-pool-page state)")
 
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
@@ -188,13 +212,20 @@ def main(argv=None):
         print(f"init: {time.perf_counter() - t0:.1f} s for "
               f"{sum(t.numel() for t in tree_leaves(params))} params")
     rng = np.random.default_rng(args.seed)
+    # With the prefix cache on, continuous requests share a system prefix
+    # (half the prompt budget, but at least one full page: only full pages
+    # publish into the radix tree) so that the cache has traffic to hit.
+    shared_len = (max(args.prompt_len // 2, args.block_size)
+                  if args.prefix_cache else 0)
     engine = ServeEngine(cfg, params, device=args.device,
-                         max_len=args.prompt_len + max(args.gen, 1) + 1,
+                         max_len=shared_len + args.prompt_len
+                         + max(args.gen, 1) + 1,
                          paged=args.paged, block_size=args.block_size,
-                         num_blocks=args.num_blocks, kv_dtype=args.kv_dtype)
+                         num_blocks=args.num_blocks, kv_dtype=args.kv_dtype,
+                         prefix_cache=args.prefix_cache)
 
     if args.continuous:
-        return _serve_continuous(args, cfg, engine, rng)
+        return _serve_continuous(args, cfg, engine, rng, shared_len)
 
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
@@ -211,11 +242,11 @@ def main(argv=None):
     return res
 
 
-def _serve_continuous(args, cfg, engine, rng):
+def _serve_continuous(args, cfg, engine, rng, shared_len: int):
     """The synthetic open-loop workload, drawn from ``rng`` in the
-    reference's order (an empty shared prefix, then lengths, budgets,
-    arrivals and each prompt), so both packages build the same requests."""
-    shared = rng.integers(0, cfg.vocab_size, (0,)).astype(np.int32)
+    reference's order (the shared prefix, then lengths, budgets, arrivals
+    and each prompt), so both packages build the same requests."""
+    shared = rng.integers(0, cfg.vocab_size, (shared_len,)).astype(np.int32)
     lens = rng.integers(max(2, args.prompt_len // 4), args.prompt_len + 1,
                         args.requests)
     gens = rng.integers(max(2, args.gen // 4), max(args.gen, 2) + 1,
@@ -252,6 +283,12 @@ def _serve_continuous(args, cfg, engine, rng):
               f"bytes/token={ks['kv_bytes_per_token']:.1f} "
               f"(f32: {ks['kv_bytes_per_token_f32']:.1f}, "
               f"ratio={ks['kv_bytes_ratio']:.3f})")
+    if args.prefix_cache:
+        ps = sched.prefix_stats()
+        print(f"prefix cache: hits={ps['prefix_hits']}/"
+              f"{ps['prefix_requests']} "
+              f"(rate={ps['prefix_hit_rate']:.2%}) "
+              f"skipped_tokens={ps['prefix_skipped_tokens']}")
     return results
 
 

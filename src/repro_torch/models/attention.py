@@ -7,7 +7,9 @@ against the contiguous cache attends one new token with the plain masked
 GQA math shared with the paged path.  The paged pool (``init_paged_kv_cache``)
 is read by ``attn_decode_paged`` through ``kernels.paged_attention.ops``
 (the Hopper decode kernel on the card) and written by ``attn_prefill_chunk``
-one prefill chunk at a time.
+one prefill chunk at a time.  An int8/fp8 pool quantizes every write per
+slot and head (``core.quant``) and keeps the f32 scales in scale pages
+beside the pages.
 
 The reference returns new caches from pure functions and donates the old
 buffers; here the preallocated cache is written in place (slice and index
@@ -20,6 +22,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
@@ -31,8 +34,6 @@ _WINDOW = ("ROADMAP queue A item 12 (remaining architectures): sliding-window "
            "ring caches are not ported yet")
 _ROPE = ("ROADMAP queue A item 12 (remaining architectures): rotary position "
          "encodings are not ported yet")
-_QUANT_POOL = ("ROADMAP queue A item 10 (prefix sharing + quantized pages): "
-               "int8/fp8 KV pages are not ported yet")
 
 
 def _is_mla(cfg: ModelConfig) -> bool:
@@ -71,14 +72,23 @@ def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     tokens plus one trailing *trash* page (id ``num_blocks``) that free
     rows' block tables point at.  Rows address it through a
     ``(B, max_blocks)`` block table (``repro_torch.train.kv_pool``).
-    Float dtypes only."""
+
+    Quantized storage (``dtype`` int8/fp8): pages hold quantized values
+    and the dict gains float32 scale leaves with the same leading (page,
+    slot) dims plus a trailing keepdim, one scale per slot per kv head.
+    Keyed by physical page, the scales go wherever their page goes: trash
+    redirection, the copy-on-write clone, radix prefix sharing."""
     if _is_mla(cfg):
         raise NotImplementedError(_MLA)
-    if not dtype.is_floating_point or dtype.itemsize < 2:
-        raise NotImplementedError(_QUANT_POOL)
     shape = (num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
-    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+         "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    if quant.is_quantized(dtype):
+        c["k_scales"] = torch.zeros(shape[:3] + (1,), dtype=torch.float32,
+                                    device=device)
+        c["v_scales"] = torch.zeros(shape[:3] + (1,), dtype=torch.float32,
+                                    device=device)
+    return c
 
 
 def _split_heads(x, n: int, hd: int):
@@ -217,6 +227,7 @@ def attn_decode_paged(p, cfg: ModelConfig, x: torch.Tensor, cache,
     out, cache = pa_ops.paged_attention_decode(
         q.contiguous(), cache["k_pages"], cache["v_pages"], k_new[:, 0],
         v_new[:, 0], page, off, block_table, cache_index,
+        k_scales=cache.get("k_scales"), v_scales=cache.get("v_scales"),
         logit_softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"]
     return out, cache
@@ -229,7 +240,9 @@ def attn_prefill_chunk(p, cfg: ModelConfig, x: torch.Tensor, cache, ctx_len,
     ``ctx_len .. ctx_len + C - 1``.  The chunk's K/V is written into the
     paged pool through ``block_table`` (in place), then the chunk attends
     through the table: context + in-chunk causal triangle in one
-    ``slot <= q_pos`` rule.  Global attention over float pages only."""
+    ``slot <= q_pos`` rule.  A quantized pool takes the chunk's K/V
+    quantized per slot and head, values and scales through the same
+    (page, offset).  Global attention only."""
     if window > 0:
         raise NotImplementedError(_WINDOW)
     if _is_mla(cfg):
@@ -243,10 +256,18 @@ def attn_prefill_chunk(p, cfg: ModelConfig, x: torch.Tensor, cache, ctx_len,
     pos = ctx_len + torch.arange(C, device=x.device)       # (C,) slots
     page = block_table[:, pos // bs]                       # (B, C)
     off = (pos % bs)[None, :].expand(B, C)
-    k_pages[page, off] = k_new.to(k_pages.dtype)
-    v_pages[page, off] = v_new.to(v_pages.dtype)
+    ks, vs = cache.get("k_scales"), cache.get("v_scales")
+    if ks is not None:                               # quantized pool
+        k_w, k_s = quant.quantize(k_new, axis=-1, dtype=k_pages.dtype)
+        v_w, v_s = quant.quantize(v_new, axis=-1, dtype=v_pages.dtype)
+        ks[page, off] = k_s
+        vs[page, off] = v_s
+    else:
+        k_w, v_w = k_new.to(k_pages.dtype), v_new.to(v_pages.dtype)
+    k_pages[page, off] = k_w
+    v_pages[page, off] = v_w
     out = pa_ops.paged_prefill_attention(
-        q, k_pages, v_pages, block_table, ctx_len,
+        q, k_pages, v_pages, block_table, ctx_len, k_scales=ks, v_scales=vs,
         logit_softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, C, cfg.q_dim) @ p["wo"]
     return out, cache

@@ -272,8 +272,9 @@ def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
 
     Global-attention layers hold one pool of ``num_blocks`` pages (+1 trash
     page) addressed per row through the engine's block table; their leaves
-    carry no batch dim.  ``kv_dtype`` overrides the pool's storage dtype
-    (float only).  ``batch_size`` and ``max_len`` size the per-row state of
+    carry no batch dim.  ``kv_dtype`` overrides the pool's storage dtype;
+    int8/fp8 pools add float32 scale leaves, which stay float32.
+    ``batch_size`` and ``max_len`` size the per-row state of
     window and recurrent layers, which come with ROADMAP queue A items 12
     (window rings) and 17 (recurrent carries)."""
     del batch_size, max_len
@@ -290,7 +291,7 @@ def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
         one = attn.init_paged_kv_cache(cfg, num_blocks, block_size,
                                        pool_dtype, device="meta")
         out[f"layer{i}"] = {k: torch.zeros((n_super,) + tuple(t.shape),
-                                           dtype=pool_dtype, device=device)
+                                           dtype=t.dtype, device=device)
                             for k, t in one.items()}
     return out
 

@@ -24,11 +24,22 @@ prompts are prefilled in power-of-two chunks straight into the pool
 (``begin_prefill`` / ``prefill_chunk`` / ``admit_paged``), decode attends
 through the block table with the paged-attention kernel on the card, and a
 finished row's pages return to the pool at once (``free_slot``).  Greedy
-tokens stay byte-identical to contiguous solo generation.  Continuous
-batching serves attention layers only; recurrent carries come with ROADMAP
-queue A item 17.  Speculative decoding, prefix sharing and quantized pages
-come with items 9-10, fault injection with item 11, mesh sharding with
-item 13.
+tokens stay byte-identical to contiguous solo generation.
+
+``prefix_cache=True`` (paged only) adds a radix tree over the pool
+(``train.radix_cache``): a prompt's full pages publish into it when its
+prefill completes (``admit_paged``), and a later prompt that shares a
+prefix maps the published pages into its block table (``prefix_match``,
+``begin_prefill(match=...)``) and prefills only the tail; an exact-boundary
+full match clones its last page first (copy-on-write) and reruns one token
+at P-1.  Hits stay byte-identical to cold runs.  ``kv_dtype`` 'int8' or
+'fp8' (paged only) stores the pool quantized per slot and head with
+float32 scales (``core.quant``); greedy streams then agree with the f32
+pool within a tolerance lane instead of byte for byte.
+
+Continuous batching serves attention layers only; recurrent carries come
+with ROADMAP queue A item 17.  Speculative decoding comes with item 9,
+fault injection with item 11, mesh sharding with item 13.
 """
 from __future__ import annotations
 
@@ -40,29 +51,24 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant
 from repro_torch.models import registry
 from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
 from repro_torch.train import steps as steps_lib
 from repro_torch.train.kv_pool import KVBlockPool
+from repro_torch.train.radix_cache import RadixCache
 from repro_torch.tree import leaves_with_path
-
-_KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-_QUANT = ("ROADMAP queue A item 10 (prefix sharing + quantized pages): "
-          "{what} is not ported yet")
 
 
 def resolve_kv_dtype(kv_dtype):
-    """None, 'f32'/'bf16' or a float torch dtype -> torch dtype or None."""
-    if kv_dtype is None:
-        return None
-    if isinstance(kv_dtype, str):
-        if kv_dtype not in _KV_DTYPES:
-            raise NotImplementedError(
-                _QUANT.format(what=f"kv_dtype {kv_dtype!r}"))
-        return _KV_DTYPES[kv_dtype]
-    if not kv_dtype.is_floating_point or kv_dtype.itemsize < 2:
-        raise NotImplementedError(_QUANT.format(what=f"kv_dtype {kv_dtype}"))
+    """None, a ``--kv-dtype`` name ('f32', 'bf16', 'int8', 'fp8') or a
+    torch dtype (float, int8 or fp8) -> torch dtype or None."""
+    if kv_dtype is None or isinstance(kv_dtype, str):
+        return quant.resolve_kv_dtype(kv_dtype)
+    if not (quant.is_quantized(kv_dtype) or (kv_dtype.is_floating_point
+                                              and kv_dtype.itemsize >= 2)):
+        raise ValueError(f"kv_dtype {kv_dtype}: not a pool storage dtype")
     return kv_dtype
 
 
@@ -76,7 +82,8 @@ class ContinuousState:
     between iterations; the scheduler fetches (tokens, active) once per
     step.  Paged engines also carry the host page allocator (``pool``) and
     a persistent device block table, re-uploaded in stream order only when
-    ``pool.version`` moved past ``table_version``."""
+    ``pool.version`` moved past ``table_version``; prefix-cache engines the
+    radix tree over the pool (``radix``)."""
     tokens: torch.Tensor               # (B, 1) int64
     cache: dict                        # decode cache tree
     index: torch.Tensor                # (B,) int64 per-row cursor
@@ -87,6 +94,7 @@ class ContinuousState:
     block_table: Optional[torch.Tensor] = None   # (B, max_blocks) int32
     table_version: int = -1            # pool.version the device table holds
     table_host: Optional[np.ndarray] = None      # host copy last uploaded
+    radix: Optional[RadixCache] = None           # prefix_cache engines
 
     @property
     def batch(self) -> int:
@@ -101,13 +109,15 @@ class PrefillJob:
     (largest first, optionally capped at the scheduler's ``chunk_len``),
     one chunk per scheduler iteration.  K/V lands directly in the shared
     pool through the row's block table; ``carry`` threads the B=1 per-row
-    state between chunks."""
+    state between chunks.  A prefix-cache hit starts at ``ctx =
+    prefix_tokens``."""
     row: int
     prompt: np.ndarray               # (P,) int32
     max_new_tokens: int
     chunks: list                     # chunk widths, consumed front to back
     carry: object                    # B=1 prefill carry
     ctx: int = 0                     # tokens prefilled so far
+    prefix_tokens: int = 0           # prompt tokens served from shared pages
     first_token: object = None       # (1, 1) device token once sampled
 
     @property
@@ -154,7 +164,8 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, device="cuda",
                  max_len: int = 512, cache_dtype=torch.float32,
                  paged: bool = False, block_size: int = 16,
-                 num_blocks: Optional[int] = None, kv_dtype=None):
+                 num_blocks: Optional[int] = None, kv_dtype=None,
+                 prefix_cache: bool = False):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # Keep float32 matmuls around the kernel in full float32, as the
@@ -171,14 +182,26 @@ class ServeEngine:
         self.paged = paged
         self.block_size = block_size
         self.num_blocks = num_blocks          # None: full provisioning
-        # kv_dtype overrides the paged pool's storage dtype only (f32/bf16;
-        # None keeps cache_dtype).
+        # kv_dtype overrides the paged pool's storage dtype only ('f32'/
+        # 'bf16'/'int8'/'fp8' or a dtype; None keeps cache_dtype).  int8/fp8
+        # store quantized pages plus per-slot f32 scales.
         self.kv_dtype = resolve_kv_dtype(kv_dtype)
+        if self.kv_dtype is not None and quant.is_quantized(self.kv_dtype) \
+                and not paged:
+            raise ValueError("quantized kv_dtype requires paged=True (scales "
+                             "are per-pool-page state; the contiguous cache "
+                             "has no page machinery to carry them)")
+        self.prefix_cache = prefix_cache
+        if prefix_cache and not paged:
+            raise ValueError("prefix_cache requires paged=True (shared "
+                             "prefixes are shared pool pages mapped through "
+                             "block tables)")
         self.module = registry.ParamModule(params).to(self.device)
         self.params = self.module.tree()
         self._built = {}              # sample? -> (prefill, decode)
         self._cont_built = {}         # sample? -> (masked decode, admit)
         self._chunk_built = {}        # (final?, sample?) -> chunk step
+        self._page_copy = steps_lib.make_page_copy_step()
 
     def _steps(self, temperature: float):
         sample = temperature > 0
@@ -293,9 +316,11 @@ class ServeEngine:
 
     def kv_bytes_per_token(self, kv_dtype="engine") -> float:
         """Device bytes ONE cached token costs in the paged pool, all
-        layers.  ``kv_dtype='engine'`` prices this engine's pool; pass a
-        dtype (or None for cache_dtype) to price another.  Shapes only:
-        nothing is allocated."""
+        layers, scale leaves included: quantization changes no page count,
+        so the ratio to an f32 pool is the quantized mode's capacity win.
+        ``kv_dtype='engine'`` prices this engine's pool; pass a dtype (or
+        None for cache_dtype) to price another.  Shapes only: nothing is
+        allocated."""
         if not self.paged:
             raise ValueError("kv_bytes_per_token is defined for paged "
                              "engines")
@@ -316,12 +341,13 @@ class ServeEngine:
                          num_blocks: Optional[int] = None) -> ContinuousState:
         """Fresh all-slots-free decode state.  Paged engines also create
         the host page allocator (``num_blocks`` overrides the engine
-        default), the pool and the device block table."""
+        default), the pool and the device block table; prefix-cache engines
+        the radix tree over the pool."""
         del temperature               # steps are built per call
         if transformer.has_recurrent_layers(self.cfg):
             raise NotImplementedError(transformer.CARRY_NOT_PORTED)
         dev = self.device
-        pool = table = None
+        pool = table = radix = None
         if self.paged:
             nb = num_blocks if num_blocks is not None \
                 else self._resolved_num_blocks(batch)
@@ -331,6 +357,8 @@ class ServeEngine:
                 self.max_len, self.cache_dtype, self.kv_dtype, device=dev)
             table = torch.empty((batch, self.max_blocks), dtype=torch.int32,
                                 device=dev)
+            if self.prefix_cache:
+                radix = RadixCache(pool)
         else:
             cache = self.api.init_cache(self.params, self.cfg, batch,
                                         self.max_len, self.cache_dtype,
@@ -342,7 +370,7 @@ class ServeEngine:
             active=torch.zeros((batch,), dtype=torch.bool, device=dev),
             limit=torch.zeros((batch,), dtype=torch.long, device=dev),
             generator=torch.Generator(device=dev).manual_seed(seed),
-            pool=pool, block_table=table)
+            pool=pool, block_table=table, radix=radix)
         return self._sync_table(state)
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
@@ -421,6 +449,21 @@ class ServeEngine:
             state = dataclasses.replace(state, table_host=host)
         return dataclasses.replace(state, table_version=state.pool.version)
 
+    def prefix_match(self, state: ContinuousState, prompt, max_pages=None):
+        """Radix-tree lookup for an arriving prompt (None off a prefix-
+        cache engine, or on a miss).  The result feeds
+        ``pool.can_admit_prefix`` (the scheduler's preflight) and
+        :meth:`begin_prefill`; between those two host calls nothing can
+        evict the matched pages (eviction only runs inside allocation).
+        ``max_pages`` caps the match depth: the scheduler re-clamps an
+        inadmissible hit shallower until it fits.  Every config served here
+        is carryless (its non-pool layers carry nothing), so a match may
+        reach any page depth."""
+        if state.radix is None:
+            return None
+        prompt = np.asarray(prompt, np.int32).ravel()
+        return state.radix.match(prompt, carryless=True, max_pages=max_pages)
+
     def begin_prefill(self, state: ContinuousState, row: int, prompt,
                       max_new_tokens: int, chunk_len: Optional[int] = None,
                       temperature: float = 0.0, match=None):
@@ -429,22 +472,39 @@ class ServeEngine:
         Commits the request's worst-case pages (``kv_pool``'s admission
         contract), assigns slot ``row`` and returns ``(state, job)``; drive
         the job with :meth:`prefill_chunk` once per scheduler iteration,
-        then :meth:`admit_paged`.  A prefix-cache ``match`` comes with
-        ROADMAP queue A item 10."""
+        then :meth:`admit_paged`.
+
+        ``match`` (a ``radix_cache.PrefixMatch`` from :meth:`prefix_match`)
+        maps the matched shared pages straight into the row's table and
+        starts the chunked prefill at the unmatched tail; an exact-boundary
+        full match clones its last page first (copy-on-write: a shared
+        page is never written) and reruns one token at P-1 for the
+        first-token logits.  Greedy tokens stay byte-identical to a cold
+        run: shared-page K/V depends only on the token prefix and the
+        position, and the tail attends over it through the block table
+        exactly as the request's own prefill would have."""
         del temperature
-        if match is not None:
-            raise NotImplementedError(_QUANT.format(what="prefix sharing"))
         prompt = np.asarray(prompt, np.int32).ravel()
         P = len(prompt)
         if P >= self.max_len:
             raise ValueError(f"prompt {P} exceeds max_len {self.max_len}")
-        state.pool.admit(row, P, max_new_tokens)
+        skip = 0
+        if match is not None:
+            cow = state.pool.admit_prefix(row, P, max_new_tokens,
+                                          match.pages, match.cow_last)
+            if cow is not None:
+                state = dataclasses.replace(
+                    state, cache=self._page_copy(state.cache, *cow))
+            skip = match.skip
+        else:
+            state.pool.admit(row, P, max_new_tokens)
         carry = self.api.init_prefill_carry(self.params, self.cfg,
                                             self.max_len, self.cache_dtype,
                                             device=self.device)
         job = PrefillJob(row=row, prompt=prompt,
                          max_new_tokens=max_new_tokens,
-                         chunks=pow2_chunks(P, chunk_len), carry=carry)
+                         chunks=pow2_chunks(P - skip, chunk_len), carry=carry,
+                         ctx=skip, prefix_tokens=skip)
         return state, job
 
     def prefill_chunk(self, state: ContinuousState, job: PrefillJob,
@@ -472,9 +532,17 @@ class ServeEngine:
                     first_token, temperature: float = 0.0) -> ContinuousState:
         """Activate a fully prefilled request in its slot: scatter its B=1
         carry (the pages are already in the pool) and arm
-        tokens/cursor/active/limit."""
+        tokens/cursor/active/limit.  A prefix-cache engine first publishes
+        the prompt's full pages: every slot of them now holds prompt K/V
+        and is never written again (decode writes positions >= P).  The
+        first publisher of a path wins."""
         _, admit = self._cont_steps(temperature)
         P = len(job.prompt)
+        if state.radix is not None:
+            n_pub = P // self.block_size
+            if n_pub:
+                state.radix.publish(
+                    job.prompt, state.pool.row_pages(job.row)[:n_pub], n_pub)
         cache, tokens, index, active, limit = admit(
             state.cache, state.tokens, state.index, state.active,
             state.limit, job.carry, first_token, P,

@@ -11,7 +11,11 @@ the decode batch is ``max_batch`` *slots*.
     row per iteration, written straight into the shared page pool through
     the request's block table, and admission is gated on the pool
     (``kv_pool``: commitment admission, first fit over the arrived queue,
-    alloc-on-advance with one page of lookahead, free-on-EOS).
+    alloc-on-advance with one page of lookahead, free-on-EOS).  With the
+    engine's prefix cache, admission is match-aware: a radix hit is
+    charged its tail only (``can_admit_prefix``), and an inadmissible
+    hit is re-clamped shallower until it fits, so a fully cached head
+    never deadlocks admission.
   * Every iteration runs ONE masked decode step across all slots; each row
     samples and writes its cache at its own cursor and stops itself on EOS
     or its token budget, while free slots are exact no-ops.
@@ -27,7 +31,9 @@ flag flipped on the device), so no token stream changes.
 Admission aging (``admission_age_s``): once the oldest arrived request has
 waited longer than this, later arrivals stop jumping it and admission
 blocks until its worst-case pages fit (commitments drain as live requests
-finish, so it then admits).
+finish, so it then admits).  The aging preflight is prefix-aware: a head
+whose full-depth hit cannot fit falls back to a shallower (or cold)
+admission rather than block forever on a need no drain can satisfy.
 
 Greedy decoding is deterministic per request: a request's tokens are
 byte-identical to running it alone through ``ServeEngine.generate``.
@@ -35,9 +41,8 @@ Temperature sampling draws from one generator shared across slots, so
 sampled streams depend on scheduling order.
 
 Deadlines, cancellation, shedding, retries, fault containment and
-snapshot/restore come with ROADMAP queue A item 11; speculative decoding
-with item 9; prefix sharing with item 10.  So the only finish reasons here
-are ``eos`` and ``limit``.
+snapshot/restore come with ROADMAP queue A item 11, speculative decoding
+with item 9.  So the only finish reasons here are ``eos`` and ``limit``.
 """
 from __future__ import annotations
 
@@ -74,6 +79,8 @@ class RequestResult:
     arrival_s: float
     admitted_s: float                 # prefill completion (= first token)
     finished_s: float
+    prefix_tokens: int = 0            # prompt tokens served from shared
+                                      # pages (prefix-cache hit; 0 = cold)
 
     @property
     def completed(self) -> bool:
@@ -98,7 +105,7 @@ class ContinuousScheduler:
     ``num_blocks`` overrides the engine's pool size per run.
     ``overlap=False`` fetches each step before dispatching the next (the
     token streams are identical either way).  ``invariant_every`` audits
-    the pool every N iterations."""
+    the pool, and the radix tree's pins, every N iterations."""
 
     def __init__(self, engine: ServeEngine, max_batch: int = 4,
                  temperature: float = 0.0, eos_id: int = -1, seed: int = 0,
@@ -125,10 +132,25 @@ class ContinuousScheduler:
         self.invariant_every = invariant_every
         self.peak_concurrency = 0              # max in flight (live+prefill)
         self.last_state = None                 # the last run's final state
+        self.prefix_requests = 0               # prefix-cache telemetry:
+        self.prefix_hits = 0                   #   admissions / tree hits /
+        self.prefix_skipped_tokens = 0         #   prompt tokens not prefilled
+
+    def prefix_stats(self) -> dict:
+        """Prefix-cache telemetry of the last run (all zero when the engine
+        serves without a radix cache)."""
+        return {"prefix_requests": self.prefix_requests,
+                "prefix_hits": self.prefix_hits,
+                "prefix_hit_rate": (self.prefix_hits
+                                    / max(self.prefix_requests, 1)),
+                "prefix_skipped_tokens": self.prefix_skipped_tokens}
 
     def kv_stats(self) -> dict:
-        """The pool's bytes per cached token and its ratio to an f32 pool
-        (degenerate on contiguous engines, which have no pool)."""
+        """The pool's bytes per cached token, scale leaves included, and
+        its ratio to an f32 pool.  Quantization changes no page count, so
+        the ratio is the capacity win at fixed cache bytes (int8 or fp8
+        pages with f32 scales: (hd + 4) / (4 hd)).  Degenerate on
+        contiguous engines, which have no pool."""
         eng = self.engine
         if not eng.paged:
             return {"kv_dtype": None, "kv_bytes_per_token": 0.0,
@@ -178,6 +200,9 @@ class ContinuousScheduler:
                 for i, r in enumerate(requests)]
         self._validate(reqs)
         self.peak_concurrency = 0
+        self.prefix_requests = self.prefix_hits = 0
+        self.prefix_skipped_tokens = 0
+        prefix_by_uid: dict = {}  # uid -> prompt tokens served by a hit
         pending = deque(sorted(reqs, key=lambda r: r.arrival_s))
         waiting: deque = deque()  # arrived, not yet admitted
         state = engine.continuous_state(
@@ -202,7 +227,8 @@ class ContinuousScheduler:
                 uid=req.uid, prompt=req.prompt,
                 new_tokens=np.asarray(tokens, np.int32),
                 finish_reason=reason, slot=slot, arrival_s=req.arrival_s,
-                admitted_s=t_first, finished_s=now)
+                admitted_s=t_first, finished_s=now,
+                prefix_tokens=prefix_by_uid.pop(req.uid, 0))
             done[req.uid] = res
             if on_finish is not None:
                 on_finish(res)
@@ -234,6 +260,8 @@ class ContinuousScheduler:
             if self.invariant_every and it % self.invariant_every == 0 \
                     and paged:
                 state.pool.check_invariants()
+                if state.radix is not None:
+                    state.radix.check_invariants()
             while pending and pending[0].arrival_s <= now:
                 waiting.append(pending.popleft())
             # ---- admit waiting requests into free slots -------------------
@@ -261,9 +289,30 @@ class ContinuousScheduler:
                     live[row] = (req, [first], t_first)
                     cursors[row] = len(req.prompt)
                     continue
+                # Match-aware admission: a prefix-cache hit references its
+                # matched pages instead of allocating them, so it is charged
+                # the unmatched tail (+ the COW clone, + any matched page
+                # that stops being evictable).
+                match = engine.prefix_match(state, req.prompt) \
+                    if engine.prefix_cache else None
                 need = state.pool.blocks_needed(len(req.prompt),
                                                 req.max_new_tokens)
-                if not state.pool.can_admit(need):
+                ok = state.pool.can_admit(need) if match is None else \
+                    state.pool.can_admit_prefix(need, match.pages,
+                                                match.cow_last)
+                # A deep hit can charge MORE than a cold admission (matched
+                # pinned-only pages stop being evictable), so a fully cached
+                # request in a tight pool may not fit at full depth while a
+                # shallower match, or a cold admission with the evictor
+                # reclaiming pins, fits now.  Re-clamp until it fits, or an
+                # aged head would block admission forever.
+                while not ok and match is not None:
+                    match = engine.prefix_match(
+                        state, req.prompt, max_pages=len(match.pages) - 1)
+                    ok = state.pool.can_admit(need) if match is None \
+                        else state.pool.can_admit_prefix(
+                            need, match.pages, match.cow_last)
+                if not ok:
                     if skip == 0 and self.admission_age_s is not None \
                             and now - req.arrival_s > self.admission_age_s:
                         break      # aged head: no one admits past it
@@ -272,8 +321,15 @@ class ContinuousScheduler:
                 row = free.pop()
                 state, job = engine.begin_prefill(
                     state, row, req.prompt, req.max_new_tokens,
-                    chunk_len=self.chunk_len, temperature=self.temperature)
+                    chunk_len=self.chunk_len, temperature=self.temperature,
+                    match=match)
                 del waiting[skip]
+                if engine.prefix_cache:
+                    self.prefix_requests += 1
+                    if match is not None:
+                        self.prefix_hits += 1
+                        self.prefix_skipped_tokens += job.prefix_tokens
+                        prefix_by_uid[req.uid] = job.prefix_tokens
                 prefilling[row] = (req, job)
             # ---- chunked prefill: one chunk per prefilling row ------------
             for row in list(prefilling):

@@ -1,7 +1,8 @@
 """Train, eval and serving steps (``repro/train/steps.py``:
 ``make_train_step``, ``make_eval_step``, ``_sample``, ``make_prefill_step``,
 ``make_serve_decode_step`` with its masked and paged continuous-batching
-forms, and the admit and chunked-prefill steps).
+forms, the admit and chunked-prefill steps, and the copy-on-write page
+copy).
 
 The train step takes gradients with autograd and lets the optimizer write
 params and moments in place, where the reference jits the step and donates
@@ -154,10 +155,15 @@ def make_prefill_step(cfg: ModelConfig, sample: bool = False) -> Callable:
 
 
 def _is_paged_leaf(path) -> bool:
-    """Pool leaves (k_pages/v_pages) have no batch dim: per-row admit logic
-    skips them (their per-row no-op is the trash-page write redirect
-    inside ``attn_decode_paged``).  ``path`` is a tuple of dict keys."""
-    return any(k in ("k_pages", "v_pages") for k in path)
+    """Pool leaves (k_pages/v_pages and, under quantized storage, their
+    per-slot scale leaves k_scales/v_scales) have no batch dim: per-row
+    admit logic skips them (their per-row no-op is the trash-page write
+    redirect inside ``attn_decode_paged``).  Listing the scale leaves here
+    keeps scales in lockstep with their pages: the copy-on-write clone
+    copies them with the page and admission leaves them alone.  ``path``
+    is a tuple of dict keys."""
+    return any(k in ("k_pages", "v_pages", "k_scales", "v_scales")
+               for k in path)
 
 
 def make_serve_decode_step(cfg: ModelConfig, sample: bool = False,
@@ -304,3 +310,23 @@ def make_paged_admit_step() -> Callable:
                                    row_tok, row_len, row_limit)
 
     return admit
+
+
+def make_page_copy_step() -> Callable:
+    """(cache, src, dst) -> cache.
+
+    Copy-on-write clone: page ``src`` is copied into page ``dst`` in every
+    pool leaf (pages and scales; page axis 1, after the superblock axis),
+    in place; nothing else moves.  Used when a prefix-cache hit must write
+    into its last shared page (the exact-boundary one-token rerun): a page
+    with refcount > 1 is never written, the row writes its private clone
+    instead.  A plain index copy, as in the reference."""
+
+    @torch.inference_mode()
+    def copy(cache, src: int, dst: int):
+        for path, leaf in leaves_with_path(cache):
+            if _is_paged_leaf(path):
+                leaf[:, dst] = leaf[:, src]
+        return cache
+
+    return copy

@@ -1,6 +1,7 @@
 """The CUDA kernels (flash attention forward and backward, paged-attention
-decode, the Newton–Schulz chain and matmul, the RWKV6 WKV recurrence, the
-Mamba selective scan) against their plain PyTorch versions, on the card.
+decode over float and int8/fp8 pages, the Newton–Schulz chain and matmul,
+the RWKV6 WKV recurrence, the Mamba selective scan) against their plain
+PyTorch versions, on the card.
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.newton_schulz import ops as ns_ops
@@ -125,6 +127,98 @@ def test_paged_kernel_refuses_an_unsupported_head_dim(cuda_device):
     before = pa_ops.KERNEL_LAUNCHES
     with pytest.raises(ValueError, match="head dim 16"):
         pa_ops.paged_attention(q, kp, vp, tbl, idx)
+    assert pa_ops.KERNEL_LAUNCHES == before
+
+
+def _quant_pages(pages, kv, device):
+    """Quantize float pages per slot and head -> (pages, scales) on the
+    card."""
+    q, s = quant.quantize(pages, axis=-1, dtype=quant.resolve_kv_dtype(kv))
+    return q.to(device), s.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,KV,bs,NB,softcap", [(12, 12, 16, 37, 0.0),
+                                                (8, 2, 64, 4, 30.0)])
+def test_quantized_paged_kernel_matches_plain_version(cuda_device, kv,
+                                                      q_dtype, hd, H, KV, bs,
+                                                      NB, softcap):
+    """int8/fp8 pages with their f32 scale pages (garbage past every
+    cursor quantized too).  Tolerance relative to max(1, max|plain|): 1e-4
+    for f32 q (the same dequantizing product, sums in other orders); 2e-2
+    for bf16 q, where the plain version rounds the dequantized context,
+    scores and probabilities to bf16 and the kernel keeps them in f32."""
+    q, kp, vp, tbl, idx = _paged(10, 3, H, KV, hd, bs, NB,
+                                 (q_dtype, "float32"), "cpu")
+    (kq, ks), (vq, vs) = (_quant_pages(t, kv, cuda_device) for t in (kp, vp))
+    q, tbl, idx = (t.to(cuda_device) for t in (q, tbl, idx))
+    before = pa_ops.KERNEL_LAUNCHES
+    kw = dict(k_scales=ks, v_scales=vs, logit_softcap=softcap)
+    got = pa_ops.paged_attention(q, kq, vq, tbl, idx, **kw)
+    want = pa_ops.paged_attention(q, kq, vq, tbl, idx, force="ref", **kw)
+    torch.cuda.synchronize()
+    assert pa_ops.KERNEL_LAUNCHES == before + 1
+    want = want.float().cpu().numpy()
+    tol = (2e-2 if q_dtype == "bfloat16" else 1e-4) * max(
+        1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_quantize_on_the_card_is_bit_exact_with_the_cpu(cuda_device, kv):
+    """Per-head quantization of the decode's new K/V: values and scales on
+    the card equal the CPU's byte for byte (IEEE division, round half to
+    even, the same fp8 rounding)."""
+    x = torch.from_numpy(3 * np.random.default_rng(12).standard_normal(
+        (8, 12, 64), dtype=np.float32))
+    dt = quant.resolve_kv_dtype(kv)
+    qc, sc = quant.quantize(x, axis=-1, dtype=dt)
+    qg, sg = quant.quantize(x.to(cuda_device), axis=-1, dtype=dt)
+    assert torch.equal(qg.cpu(), qc)
+    assert torch.equal(sg.cpu(), sc)
+
+
+@pytest.mark.gpu
+def test_quantized_decode_on_the_card_matches_the_cpu(cuda_device):
+    """``paged_attention_decode`` over an int8 pool: the quantized write
+    lands byte for byte as on the CPU, and the attention output agrees
+    with the CPU's plain version within 1e-4."""
+    B, H, KV, hd, bs, NB = 3, 8, 2, 64, 16, 4
+    q, kp, vp, tbl, idx = _paged(13, B, H, KV, hd, bs, NB,
+                                 ("float32", "float32"), "cpu")
+    (kq, ks), (vq, vs) = (_quant_pages(t, "int8", "cpu") for t in (kp, vp))
+    rng = np.random.default_rng(14)
+    k_new, v_new = (torch.from_numpy(rng.standard_normal(
+        (B, KV, hd), dtype=np.float32)) for _ in range(2))
+    page = tbl[torch.arange(B), idx.long() // bs].clone()
+    off = idx % bs
+    cpu = [t.clone() for t in (kq, vq, ks, vs)]
+    want, _ = pa_ops.paged_attention_decode(
+        q, *cpu[:2], k_new, v_new, page, off, tbl, idx, k_scales=cpu[2],
+        v_scales=cpu[3])
+    card = [t.to(cuda_device) for t in (kq, vq, ks, vs)]
+    args = [t.to(cuda_device) for t in (q, k_new, v_new, page, off, tbl,
+                                        idx)]
+    got, _ = pa_ops.paged_attention_decode(
+        args[0], *card[:2], *args[1:], k_scales=card[2], v_scales=card[3])
+    torch.cuda.synchronize()
+    for c, g in zip(cpu, card):
+        assert torch.equal(g.cpu(), c)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_quantized_pages_without_scales_raise_on_the_card(cuda_device):
+    q, kp, vp, tbl, idx = _paged(15, 2, 4, 2, 64, 8, 2,
+                                 ("float32", "float32"), cuda_device)
+    before = pa_ops.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="both scale pages"):
+        pa_ops.paged_attention(q, kp.to(torch.int8), vp.to(torch.int8), tbl,
+                               idx)
     assert pa_ops.KERNEL_LAUNCHES == before
 
 

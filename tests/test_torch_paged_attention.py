@@ -5,14 +5,20 @@ plain versions (``kernels/paged_attention/ref.py``, which CPU tensors take)
 against the reference's ``ref.py`` and its Pallas kernel in interpret mode.
 Tolerance 2e-5 absolute and relative (the reference tests' own): float32
 sums in other orders.  Gathers and pool writes move bits unchanged, so they
-are held bit-equal.  The CUDA kernel is held against the same plain version
-on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+are held bit-equal.  Quantized pools (int8/fp8 pages with per-slot-per-head
+f32 scales) go through the same checks: the pages and scales are made by
+the JAX quantizer and handed to both packages as bytes, dequantization is
+one f32 product on both sides (held bit-equal), and the decode's quantized
+writes are held bit-equal to the reference's.  The CUDA kernel is held
+against the same plain version on the card (``tests/test_torch_gpu.py``,
+``chip_smoke.py``).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import quant as jquant
 from repro.kernels.paged_attention import ops as jops
 from repro.kernels.paged_attention import ref as jref
 from repro.kernels.paged_attention.kernel import paged_attention_tpu
@@ -134,14 +140,128 @@ def test_kernel_path_on_a_cpu_tensor_raises():
     assert ops.KERNEL_LAUNCHES == before
 
 
-def test_quantized_pages_name_their_roadmap_item():
+def _qcase(seed, B, H, KV, hd, bs, NB, kv):
+    """``_case`` with its pages quantized per slot and head by the JAX
+    quantizer: (q, k_pages, v_pages, table, index, k_scales, v_scales) as
+    numpy arrays (fp8 pages as ml_dtypes float8_e4m3fn)."""
+    q, kp, vp, tbl, idx = _case(seed, B, H, KV, hd, bs, NB)
+    jdt = jquant.resolve_kv_dtype(kv)
+    (kq, ks), (vq, vs) = (jquant.quantize(jnp.asarray(x), axis=-1, dtype=jdt)
+                          for x in (kp, vp))
+    return (q, np.asarray(kq), np.asarray(vq), tbl, idx, np.asarray(ks),
+            np.asarray(vs))
+
+
+def _tq(*arrays):
+    """numpy (fp8 via its bytes) -> torch."""
+    out = []
+    for a in arrays:
+        a = np.array(a)
+        if a.dtype == jnp.float8_e4m3fn:
+            out.append(torch.from_numpy(a.view(np.uint8)).view(
+                torch.float8_e4m3fn))
+        else:
+            out.append(torch.from_numpy(a))
+    return tuple(out)
+
+
+def _raw(t):
+    return (t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn
+            else t).numpy()
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("H,KV,hd,bs,NB", [(4, 2, 16, 8, 4), (8, 2, 8, 4, 6)])
+def test_quantized_plain_version_matches_jax_ref_and_pallas(kv, H, KV, hd,
+                                                            bs, NB):
+    """Quantized pages with their scale pages: the port's plain version
+    against JAX ``ref.paged_attention_ref`` and interpret-mode
+    ``paged_attention_tpu`` (its ``quantized=True`` body), both with
+    scales, softcap 20 on the second shape."""
+    q, kp, vp, tbl, idx, ks, vs = _qcase(8, 3, H, KV, hd, bs, NB, kv)
+    cap = 20.0 if H == 8 else 0.0
+    got = ops.paged_attention(*_tq(q, kp, vp, tbl, idx), k_scales=_tq(ks)[0],
+                              v_scales=_tq(vs)[0], logit_softcap=cap)
+    kw = dict(k_scales=ks, v_scales=vs, logit_softcap=cap)
+    _close(got, jref.paged_attention_ref(q, kp, vp, tbl, idx, **kw))
+    _close(got, paged_attention_tpu(q, kp, vp, tbl, idx, interpret=True,
+                                    **kw))
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_gather_dequant_is_bit_equal_to_jax(kv):
+    """Pages and scales gathered through one table, dequantized as one f32
+    product: bit-equal to the reference's ``gather_dequant``."""
+    _, kp, _, tbl, _, ks, _ = _qcase(9, 3, 4, 2, 16, 8, 4, kv)
+    got = ref.gather_dequant(*_tq(kp, ks, tbl), torch.float32)
+    want = jref.gather_dequant(kp, ks, tbl, jnp.float32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_quantized_decode_matches_jax_pallas_branch(kv):
+    """The quantized write-then-attend decode against the reference's
+    ``force='pallas'`` branch (interpret mode): the new K/V quantized per
+    head and written with its scales bit-equal, outputs to 2e-5; row 2 is
+    redirected to the trash page."""
+    B, H, KV, hd, bs, NB = 3, 4, 2, 16, 8, 4
+    q, kp, vp, tbl, idx, ks, vs = _qcase(10, B, H, KV, hd, bs, NB, kv)
+    rng = np.random.default_rng(11)
+    k_new = rng.standard_normal((B, KV, hd), dtype=np.float32)
+    v_new = rng.standard_normal((B, KV, hd), dtype=np.float32)
+    page = tbl[np.arange(B), idx // bs].copy()
+    page[2] = kp.shape[0] - 1
+    off = (idx % bs).astype(np.int32)
+    want, wc = jops.paged_attention_decode(
+        q, jnp.asarray(kp), jnp.asarray(vp), k_new, v_new, page, off, tbl,
+        idx, k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs),
+        force="pallas")
+    tq, tkp, tvp, tks, tvs = _tq(q, kp, vp, ks, vs)
+    got, cache = ops.paged_attention_decode(
+        tq, tkp, tvp, *_t(k_new, v_new, page, off, tbl, idx), k_scales=tks,
+        v_scales=tvs)
+    assert cache["k_pages"] is tkp and cache["k_scales"] is tks  # in place
+    for name, t in (("k_pages", tkp), ("v_pages", tvp)):
+        np.testing.assert_array_equal(_raw(t).view(np.uint8),
+                                      np.asarray(wc[name]).view(np.uint8))
+    for name, t in (("k_scales", tks), ("v_scales", tvs)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(wc[name]))
+    _close(got[:2], np.asarray(want)[:2])
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_quantized_prefill_attention_matches_jax(kv):
+    """Chunked-prefill attention over quantized pages with a per-row
+    ``ctx_len`` vector."""
+    B, C, H, KV, hd, bs, NB = 2, 5, 4, 2, 16, 4, 6
+    _, kp, vp, tbl, _, ks, vs = _qcase(12, B, H, KV, hd, bs, NB, kv)
+    q = np.random.default_rng(13).standard_normal((B, C, H, hd),
+                                                  dtype=np.float32)
+    ctx = np.asarray([3, 11], np.int32)
+    want = jref.paged_prefill_attention_ref(q, kp, vp, tbl, ctx, k_scales=ks,
+                                            v_scales=vs, logit_softcap=30.0)
+    tks, tvs = _tq(ks, vs)
+    got = ops.paged_prefill_attention(*_tq(q, kp, vp, tbl),
+                                      torch.as_tensor(ctx), k_scales=tks,
+                                      v_scales=tvs, logit_softcap=30.0)
+    _close(got, want)
+
+
+def test_scale_pages_must_match_the_page_dtype():
+    """1-byte pages need both scale pages, of (NP, bs, KV, 1) float32;
+    float pages take none.  Raised on the CPU path as on the kernel's."""
     q, kp, vp, tbl, idx = _t(*_case(7, 2, 4, 2, 16, 8, 2))
     scales = torch.ones(kp.shape[:3] + (1,))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="no scale pages"):
         ops.paged_attention(q, kp, vp, tbl, idx, k_scales=scales,
                             v_scales=scales)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ref.gather_dequant(kp, scales, tbl, torch.float32)
+    kq, vq = kp.to(torch.int8), vp.to(torch.int8)
+    with pytest.raises(ValueError, match="both scale pages"):
+        ops.paged_attention(q, kq, vq, tbl, idx)
+    with pytest.raises(ValueError, match="expected"):
+        ops.paged_attention(q, kq, vq, tbl, idx, k_scales=scales[..., 0],
+                            v_scales=scales)
 
 
 @pytest.mark.parametrize("B,KV,NB", [(8, 12, 37), (1, 1, 37), (64, 12, 37),

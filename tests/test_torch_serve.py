@@ -155,7 +155,9 @@ def test_default_device_is_the_card(monkeypatch):
 @pytest.mark.parametrize("flag,item", [
     (["--continuous", "--faults", "storm:0.1"], "item 11"),
     (["--paged"], "requires --continuous"),
-    (["--spec-depth", "1"], "item 9"), (["--prefix-cache"], "item 10"),
+    (["--spec-depth", "1"], "item 9"),
+    (["--prefix-cache"], "requires --paged"),
+    (["--kv-dtype", "int8"], "requires --paged"),
     (["--mesh", "host"], "item 13")])
 def test_unported_cli_paths_name_their_roadmap_item(flag, item):
     with pytest.raises(SystemExit, match=item):

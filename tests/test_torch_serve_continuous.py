@@ -285,10 +285,38 @@ def test_cli_continuous_paged_on_cpu():
     assert all(r.finish_reason == "limit" for r in results)
 
 
+@pytest.mark.parametrize("flag,dtype,ratio", [
+    (["--prefix-cache"], "float32", "1.000"),
+    (["--kv-dtype", "int8"], "int8", "0.312"),
+    (["--kv-dtype", "fp8"], "float8_e4m3fn", "0.312")])
+def test_cli_prefix_cache_and_quantized_pages(flag, dtype, ratio):
+    """The prefix cache and 1-byte pages through the CLI: every request runs
+    to its budget, the ``kv storage`` line gives the pool's dtype and its
+    bytes-per-token ratio to f32 ((16 + 4) / 64 for 1-byte pages at the
+    smoke head dim 16), and the prefix cache reports its hits over the
+    shared system prefix (half the 12-token prompt budget: 6 tokens, one
+    full page and a half)."""
+    text, results = _cli(["--smoke", "--device", "cpu", "--continuous",
+                          "--paged", "--max-batch", "2", "--requests", "4",
+                          "--prompt-len", "12", "--gen", "6",
+                          "--block-size", "4", "--rate", "1000",
+                          "--invariant-every", "1"] + flag)
+    assert f"kv storage: dtype={dtype} " in text
+    assert f"ratio={ratio})" in text
+    assert len(results) == 4
+    assert all(r.finish_reason == "limit" for r in results)
+    if "--prefix-cache" in flag:
+        assert "prefix cache: hits=" in text and "/4 " in text
+        assert all(len(r.prompt) >= 6 for r in results)
+        hits = [r.prefix_tokens for r in results]
+        assert sum(hits) > 0 and set(hits) <= {0, 4}
+    else:
+        assert "prefix cache:" not in text
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--spec-depth", "1"], "item 9"), (["--draft-checkpoint", "d"], "item 9"),
-    (["--prefix-cache"], "item 10"), (["--kv-dtype", "int8"], "item 10"),
-    (["--kv-dtype", "fp8"], "item 10"), (["--deadline-s", "1"], "item 11"),
+    (["--deadline-s", "1"], "item 11"),
     (["--queue-limit", "2"], "item 11"), (["--faults", "storm:0.1"], "item 11"),
     (["--snapshot-every", "2"], "item 11")])
 def test_refused_continuous_flags_name_their_roadmap_item(flag, item):
