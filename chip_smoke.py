@@ -49,7 +49,10 @@ result):
 9. training parity: the Newton–Schulz chain (``ns_fused``) and ``matmul``
    against their plain versions over stack sizes, aspects, ragged dims,
    dtypes and the exact ``gpt2-12l`` shapes (the tied embedding's too),
-   plus the orthogonality check; the flash-attention backward's dq, dk,
+   plus the orthogonality check; ``matmul``'s symmetric route (x @ x.T
+   and G G^T, split-K, exactly symmetric, the same bits twice; the
+   embedding's Gram within 1e-5 of an f64 product) and the large route's
+   fused updates; the flash-attention backward's dq, dk,
    dv against autograd of the plain version over the forward's grid and
    at the training shape;
 10. the training main path: ``repro_torch.launch.train.main`` trains
@@ -61,10 +64,12 @@ result):
 11. serving that checkpoint: ``serve.main --checkpoint`` at 12 layers;
 12. card against CPU: one train step at full width (depth 1, batch 2, 128
    tokens) from the same params and batch, loss and updated params;
-13. training times: the Newton–Schulz chain, matmul and the flash
-   backward against their plain versions and a PyTorch yardstick, beside
-   the bound, and the Newton–Schulz share of a training step at 1 and 12
-   layers;
+13. training times: the Newton–Schulz chain, matmul (the Gram, G G^T and
+   P X) and the flash backward against their plain versions and a PyTorch
+   yardstick, beside the bound (for the Newton–Schulz kernels both the f32
+   FMA bound and their route's, 3xTF32 on the tensor cores over the
+   symmetric half), and the Newton–Schulz share of a training step at 1
+   and 12 layers;
 14. WKV parity: the RWKV6 WKV kernel against both plain forms (per-step and
    chunked) over head dim x sequence length x batch·heads x zero/random
    initial state x dtype x decays near 0.69 and near 0.9975, y and the
@@ -127,8 +132,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # kernel sum in other orders through 12 layers of float32 (TF32 off).
 LOGIT_TOL = 1e-3
 
-# H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, HBM.
+# H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, TF32
+# on them, HBM.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 MAIN_ARGV = ["--arch", "gpt2-12l", "--batch", "8", "--prompt-len", "512",
@@ -151,6 +158,12 @@ TRAIN_SHAPE = (16, 256, 12, 64)     # (B, S, H, hd) of its attention
 # directions (~1e-5 seen at the gpt2 shapes); with bf16 input and output
 # the result is rounded to bf16 (a relative step of 2^-8) on both sides.
 NS_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The embedding's Gram against an f64 product, relative to its largest
+# entry.  The tensor cores truncate as they accumulate: over 50304 terms of
+# one sign (the diagonal) that biases a running sum by ~1e-4, within
+# NS_TOL; summing each k-slice afresh and adding it in IEEE f32 keeps the
+# kernel near cuBLAS's f32 error (~1e-6).  The limit lies between the two.
+GRAM_F64_TOL = 1e-5
 # The backward against autograd of the plain version, relative to
 # max(1, the largest gradient entry): f32 sums in another order; bf16
 # gradients are rounded to bf16 once on each side (2^-8 relative).
@@ -863,8 +876,10 @@ MATMUL_CASES = [(100, 300, 77, False, torch.float32),
 
 
 def matmul_parity(ns_ops) -> float:
-    """``matmul`` against the plain product; returns the max abs error at
-    the embedding's Gram (768 x 50304 @ its transpose)."""
+    """``matmul`` against the plain product, then the symmetric route and
+    the large route's fused updates; returns the max abs error at the
+    embedding's Gram (768 x 50304 @ its transpose, the symmetric route the
+    main path takes)."""
     g = torch.Generator(device="cuda").manual_seed(8)
     bad, err = 0, 0.0
     for M, K, N, trans_b, dtype in MATMUL_CASES:
@@ -885,7 +900,75 @@ def matmul_parity(ns_ops) -> float:
     if bad:
         _fail(f"{bad} of {len(MATMUL_CASES)} matmul parity cases")
     print(f"matmul parity: {len(MATMUL_CASES)} cases within tolerance")
-    return err
+    return sym_parity(ns_ops)
+
+
+# The symmetric route (y is x, or G G^T with G symmetric): the embedding's
+# Gram (normalized as Newton–Schulz feeds it), G G^T at 768^3, and ragged
+# and bf16 ones; then the large route's products with their updates fused.
+SYM_CASES = [(768, 50304, torch.float32), (100, 20000, torch.float32),
+             (300, 77, torch.float32), (130, 64, torch.bfloat16)]
+
+
+def sym_parity(ns_ops) -> float:
+    """Each symmetric product against the plain one, exactly symmetric and
+    the same bits on a second call; the embedding's Gram, and the plain f32
+    one (cuBLAS) beside it, against an f64 product; then c G G^T + b G and
+    P X + a X through the GEMM's epilogue.  Returns the max abs error at
+    the embedding's Gram."""
+    from repro_torch.kernels.newton_schulz.ref import NS_COEFFS
+    a, b, c = NS_COEFFS
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows, bad, gram_err, f64_ok = [], 0, 0.0, True
+    for M, K, dtype in SYM_CASES:
+        x = torch.randn((M, K), generator=g, device="cuda")
+        x = (x / torch.linalg.norm(x)).to(dtype)
+        gram = ns_ops.matmul(x, x, trans_b=True, force="kernel")
+        rows.append((f"({M},{K})@T", dtype, gram,
+                     ns_ops.matmul(x, x, trans_b=True, force="ref"),
+                     ns_ops.matmul(x, x, trans_b=True, force="kernel")))
+        if M == 768:
+            gram_err = (gram.float() - rows[-1][3].float()).abs().max().item()
+            f64 = x.double() @ x.double().T
+            k_rel, lib_rel = (((p.double() - f64).abs().max()
+                               / f64.abs().max()).item()
+                              for p in (gram, rows[-1][3]))
+            f64_ok = k_rel <= GRAM_F64_TOL
+            print(f"  matmul sym ({M},{K})@T against f64: kernel "
+                  f"rel={k_rel:.2e} (cuBLAS f32 {lib_rel:.2e}) "
+                  f"tol={GRAM_F64_TOL:.0e} {'ok' if f64_ok else 'FAIL'}")
+            gg = ns_ops.matmul(gram, gram, trans_b=True, force="kernel")
+            rows.append((f"G G^T ({M},{M})", dtype, gg,
+                         ns_ops.matmul(gram, gram, trans_b=True, force="ref"),
+                         ns_ops.matmul(gram, gram, trans_b=True,
+                                       force="kernel")))
+            poly = ns_ops._gemm(gram, gram, trans_b=True, d=gram, alpha=c,
+                                beta=b)
+            rows.append(("c G G^T + b G", dtype, poly,
+                         c * (gram @ gram.T) + b * gram,
+                         ns_ops._gemm(gram, gram, trans_b=True, d=gram,
+                                      alpha=c, beta=b)))
+            upd = ns_ops._gemm(poly, x, d=x, beta=a)
+            rows.append(("P X + a X", dtype, upd, poly @ x + a * x,
+                         ns_ops._gemm(poly, x, d=x, beta=a)))
+    torch.cuda.synchronize()
+    for name, dtype, got, want, again in rows:
+        rel = _rel_err(got, want)
+        square = got.shape[0] == got.shape[1]
+        sym = bool(torch.equal(got, got.T)) if square else None
+        same = bool(torch.equal(got, again))
+        ok = rel <= NS_TOL[dtype] and sym is not False and same
+        bad += not ok
+        print(f"  matmul sym {str(dtype)[6:]:8s} {name:14s} rel={rel:.2e} "
+              f"tol={NS_TOL[dtype]:.0e} symmetric={sym} repeat-equal={same} "
+              f"{'ok' if ok else 'FAIL'}")
+    if bad or not f64_ok:
+        _fail(f"{bad} of {len(rows)} symmetric and fused matmul cases, "
+              f"the Gram against f64 {'ok' if f64_ok else 'FAILED'}")
+    print(f"matmul symmetric route: {len(rows)} cases within tolerance, "
+          f"exactly symmetric, bit-identical on repeat; the Gram within "
+          f"{GRAM_F64_TOL:.0e} of f64")
+    return gram_err
 
 
 def _bwd_pair(fa_ops, q, k, v, do, kw, force):
@@ -1057,11 +1140,22 @@ def _library_ns(x, steps=5, eps=1e-7):
     return x
 
 
-def _bound(flops, nbytes):
-    op_ms = flops / PEAK_F32_FLOPS * 1e3
+def _bound(flops, nbytes, peak=PEAK_F32_FLOPS):
+    op_ms = flops / peak * 1e3
     byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return dict(bound_ms=max(op_ms, byte_ms),
                 bound_by="operations" if op_ms >= byte_ms else "bytes")
+
+
+def _ns_bounds(flops_f32, flops_route, nbytes):
+    """A Newton–Schulz kernel's two bounds: ``bound_ms`` its route's (the
+    3xTF32 products it does, three TF32 products per f32 one, over the
+    symmetric half where it takes it, at the TF32 peak) and
+    ``f32_bound_ms`` the f32 FMA bound of the full products (the bound
+    earlier rows give)."""
+    f32 = _bound(flops_f32, nbytes)
+    return dict(**_bound(3 * flops_route, nbytes, PEAK_TF32_FLOPS),
+                f32_bound_ms=f32["bound_ms"], f32_bound_by=f32["bound_by"])
 
 
 def train_times(ns_ops, fa_ops, res, cfg):
@@ -1071,14 +1165,20 @@ def train_times(ns_ops, fa_ops, res, cfg):
     then the Newton–Schulz share of a training step per depth."""
     L, n, m = 12, 768, 3072
     x = torch.randn((L, n, m), device="cuda") * 0.02
+    half = n * (n + 1) // 2               # entries of a symmetric n x n
     ns = dict(ms=_time_ms(lambda: ns_ops.ns_fused(x, force="kernel"), 10),
               plain_ms=_time_ms(lambda: ns_ops.ns_fused(x, force="ref"), 5),
               library_ms=_time_ms(lambda: _library_ns(x), 10),
-              **_bound(L * 5 * (4 * n * n * m + 2 * n ** 3), 2 * 4 * L * n * m))
+              **_ns_bounds(L * 5 * (4 * n * n * m + 2 * n ** 3),
+                           L * 5 * (2 * half * m + 2 * half * n
+                                    + 2 * n * n * m),
+                           2 * 4 * L * n * m))
     print(f"ns_fused at L={L} {n}x{m} f32, 5 steps: kernel {ns['ms']:.4f} ms, "
           f"plain {ns['plain_ms']:.4f} ms, batched torch "
           f"{ns['library_ms']:.4f} ms; bound {ns['bound_ms']:.4f} ms "
-          f"({ns['bound_by']})")
+          f"({ns['bound_by']}; 3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s, Grams over the symmetric half), f32 bound "
+          f"{ns['f32_bound_ms']:.4f} ms")
     for shape in ((12, 768, 768), (12, 3072, 768)):
         y = torch.randn(shape, device="cuda") * 0.02
         print(f"  newton_schulz at {shape}: kernel route "
@@ -1091,13 +1191,34 @@ def train_times(ns_ops, fa_ops, res, cfg):
               plain_ms=_time_ms(lambda: ns_ops.matmul(a, a, trans_b=True,
                                                       force="ref"), 10),
               library_ms=_time_ms(lambda: torch.matmul(a, a.T), 10),
-              **_bound(2 * M * M * K, 4 * (2 * M * K + M * M)))
+              **_ns_bounds(2 * M * M * K, 2 * (M * (M + 1) // 2) * K,
+                           4 * (M * K + M * M)))
     p = torch.randn((M, M), device="cuda")
     mm_x = _time_ms(lambda: ns_ops.matmul(p, a, force="kernel"), 10)
+    px_lib = _time_ms(lambda: torch.matmul(p, a), 10)
+    px_bound = _ns_bounds(2 * M * M * K, 2 * M * M * K,
+                          4 * (M * M + 2 * M * K))
+    gram = ns_ops.matmul(a, a, trans_b=True) / K
+    gg_ms = _time_ms(lambda: ns_ops.matmul(gram, gram, trans_b=True,
+                                           force="kernel"), 50)
+    gg_lib = _time_ms(lambda: torch.matmul(gram, gram), 50)
+    gg_bound = _ns_bounds(2 * M ** 3, 2 * (M * (M + 1) // 2) * M,
+                          4 * 2 * M * M)
+    mm.update(gg_ms=gg_ms, gg_library_ms=gg_lib,
+              gg_bound_ms=gg_bound["bound_ms"],
+              gg_f32_bound_ms=gg_bound["f32_bound_ms"], px_ms=mm_x,
+              px_library_ms=px_lib, px_bound_ms=px_bound["bound_ms"],
+              px_f32_bound_ms=px_bound["f32_bound_ms"])
     print(f"matmul at ({M},{K})@T: kernel {mm['ms']:.4f} ms, plain "
           f"{mm['plain_ms']:.4f} ms, torch.matmul {mm['library_ms']:.4f} ms; "
-          f"bound {mm['bound_ms']:.4f} ms ({mm['bound_by']}); ({M},{M})@"
-          f"({M},{K}): kernel {mm_x:.4f} ms")
+          f"bound {mm['bound_ms']:.4f} ms ({mm['bound_by']}; 3xTF32, the "
+          f"symmetric half), f32 bound {mm['f32_bound_ms']:.4f} ms")
+    print(f"  G G^T at ({M},{M}): kernel {gg_ms:.4f} ms, torch.matmul "
+          f"{gg_lib:.4f} ms; bound {gg_bound['bound_ms']:.4f} ms, f32 bound "
+          f"{gg_bound['f32_bound_ms']:.4f} ms")
+    print(f"  P X ({M},{M})@({M},{K}): kernel {mm_x:.4f} ms, torch.matmul "
+          f"{px_lib:.4f} ms; bound {px_bound['bound_ms']:.4f} ms, f32 bound "
+          f"{px_bound['f32_bound_ms']:.4f} ms")
 
     B, S, H, hd = TRAIN_SHAPE
     q, k, v = _inputs(B, S, H, H, hd, torch.float32, 777)

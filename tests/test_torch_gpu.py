@@ -13,6 +13,8 @@ in f32, in other orders); 2e-2 in bf16, where both sides round the output
 to bf16 once.  The training kernels' tolerances are stated above their
 tests.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -334,6 +336,105 @@ def test_newton_schulz_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ns_ops.matmul(x[0].T, x[0])
     assert (ns_ops.NS_FUSED_LAUNCHES, ns_ops.MATMUL_LAUNCHES) == before
+
+
+# The GEMM's symmetric route and split-K (``ns_ops.gemm_plan``): x @ x.T at
+# a ragged one-tile M = N = 100 with K = 20000, at the tied embedding's
+# 768 x 50304 Gram, and G G^T at 768^3 (G a Gram, exactly symmetric); a
+# bf16 Gram.  Each is exactly symmetric, the same bits on a second call,
+# and within the tolerances of the tests above (1e-4 f32, 1e-2 bf16).
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,gram_of,dtype", [
+    (100, 20000, 0, "float32"), (768, 50304, 0, "float32"),
+    (768, 768, 50304, "float32"), (130, 4096, 0, "bfloat16")])
+def test_symmetric_split_k_matmul(cuda_device, M, K, gram_of, dtype):
+    td = getattr(torch, dtype)
+    rng = np.random.default_rng(M + K)
+    x = torch.from_numpy(rng.standard_normal(
+        (M, gram_of or K)).astype(np.float32)).to(cuda_device)
+    if gram_of:
+        x = ns_ops.matmul(x, x, trans_b=True) / gram_of
+        assert torch.equal(x, x.T)
+    x = x.to(td)
+    plan = ns_ops.gemm_plan(1, M, M, K, symmetric=True)
+    assert plan.splits >= 2 and plan.tiles == (-(-M // 128)) * (
+        -(-M // 128) + 1) // 2
+    before = ns_ops.MATMUL_LAUNCHES
+    got = ns_ops.matmul(x, x, trans_b=True)
+    again = ns_ops.matmul(x, x, trans_b=True)
+    want = ns_ops.matmul(x, x, trans_b=True, force="ref")
+    torch.cuda.synchronize()
+    assert ns_ops.MATMUL_LAUNCHES == before + 2 and got.dtype == td
+    assert torch.equal(got, got.T)
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= (1e-2 if dtype == "bfloat16" else 1e-4)
+
+
+@pytest.mark.gpu
+def test_large_route_updates_fused_into_the_gemm(cuda_device):
+    """``_ns_large``'s c G G^T + b G and P X + a X through the GEMM's
+    epilogue against the same arithmetic in plain f32 products."""
+    from repro_torch.kernels.newton_schulz.ref import NS_COEFFS
+    a, b, c = NS_COEFFS
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((768, 4096)).astype(
+        np.float32)).to(cuda_device)
+    x = x / torch.linalg.norm(x)
+    gram = ns_ops.matmul(x, x, trans_b=True)
+    poly = ns_ops._gemm(gram, gram, trans_b=True, d=gram, alpha=c, beta=b)
+    upd = ns_ops._gemm(poly, x, d=x, beta=a)
+    torch.cuda.synchronize()
+    assert torch.equal(poly, poly.T)
+    assert _rel(poly, c * (gram @ gram) + b * gram) <= 1e-4
+    assert _rel(upd, poly @ x + a * x) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,n,m", [(12, 768, 3072), (1, 768, 3072),
+                                   (3, 100, 300)])
+def test_ns_fused_is_bit_identical_on_repeat(cuda_device, L, n, m):
+    """No atomics: a one-layer stack cuts K (its Grams have 21 tiles), and
+    its split-K sums come out the same on every call."""
+    x = 0.02 * torch.from_numpy(np.random.default_rng(L + n).standard_normal(
+        (L, n, m)).astype(np.float32)).to(cuda_device)
+    first = ns_ops.ns_fused(x)
+    assert torch.equal(first, ns_ops.ns_fused(x))
+
+
+@pytest.mark.gpu
+def test_gram_accumulates_in_f32_against_f64(cuda_device):
+    """The embedding's Gram against an f64 product.  The tensor cores
+    truncate as they accumulate, which over 50304 same-signed terms (a
+    Gram's diagonal) biases the sum by ~1e-4 relative unless each k-slice
+    is summed afresh and added in IEEE f32, as the kernel does; 1e-5 lies
+    between the two (PERF.md gives both readings)."""
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (768, 50304)).astype(np.float32)).to(cuda_device)
+    x = x / torch.linalg.norm(x)
+    got = ns_ops.matmul(x, x, trans_b=True).double()
+    want = x.double() @ x.double().T
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_gemm_refused_launch_raises(cuda_device, monkeypatch):
+    """A plan the GEMM refuses (K cut into no splits) comes back from the
+    launch as an error: both wrappers raise RuntimeError with nothing
+    counted, and the next launch runs."""
+    x = torch.randn(256, 512, device=cuda_device)
+    plan = ns_ops.gemm_plan
+    monkeypatch.setattr(ns_ops, "gemm_plan", lambda *a, **k: (
+        dataclasses.replace(plan(*a, **k), splits=0)))
+    before = (ns_ops.MATMUL_LAUNCHES, ns_ops.NS_FUSED_LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ns_ops.matmul(x, x, trans_b=True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ns_ops.ns_fused(x[None])
+    assert (ns_ops.MATMUL_LAUNCHES, ns_ops.NS_FUSED_LAUNCHES) == before
+    monkeypatch.undo()
+    got = ns_ops.matmul(x, x, trans_b=True)
+    torch.cuda.synchronize()
+    assert _rel(got, x @ x.T) <= 1e-4
 
 
 def _wkv_inputs(seed, B, S, H, hd, dtype, device, decay):
