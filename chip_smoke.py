@@ -12,11 +12,14 @@ result):
    Newton–Schulz chain and matmul, the RWKV6 WKV recurrence, the Mamba
    selective scan), compiled from
    the sources in this checkout at once, one ``nvcc`` per kernel package,
-   with ``-Xptxas -v`` register/shared-memory use;
+   with ``-Xptxas -v`` register/shared-memory use; every flash entry
+   function's registers and spill bytes, none of the 12 spilling;
 3. kernel parity: the flash-attention kernel against its plain PyTorch
    version on the card over dtype x causal x window x softcap x MHA/GQA x
    head dim x ragged lengths, plus jamba's attention shape and the serving
-   prefill's exact shape;
+   prefill's exact shape; at those two shapes the f32 kernel within
+   ``FA_F64_TOL`` of an f64 plain version (the plain f32 version's own
+   error printed beside it), and bit-identical on repeat;
 4. paged parity: the paged-attention decode kernel against its plain
    version over (q, pages) dtypes (f32/bf16 q over f32, bf16, int8 and fp8
    pages, the 1-byte pages with their f32 scale pages) x head dim x
@@ -43,8 +46,10 @@ result):
    copy-on-write clone) through the int8 prefix-cache scheduler on the
    card and on the CPU, token agreement at least 0.9;
 8. times, with CUDA events: each kernel, its plain version and a PyTorch
-   yardstick the port never calls (``scaled_dot_product_attention``), at
-   the main paths' shapes, beside the bound; the paged kernel over f32,
+   yardstick the port never calls (``scaled_dot_product_attention``, under
+   the one backend PyTorch's dispatch picks, named), at the main paths'
+   shapes, beside the bound (for the flash kernels both the 3xTF32
+   route's and the f32 FMA one); the paged kernel over f32,
    int8 and fp8 pages;
 9. training parity: the Newton–Schulz chain (``ns_fused``) and ``matmul``
    against their plain versions over stack sizes, aspects, ragged dims,
@@ -54,7 +59,8 @@ result):
    embedding's Gram within 1e-5 of an f64 product) and the large route's
    fused updates; the flash-attention backward's dq, dk,
    dv against autograd of the plain version over the forward's grid and
-   at the training shape;
+   at the training shape, there also within ``FA_F64_TOL`` (relative) of
+   autograd of an f64 plain version, and bit-identical on repeat;
 10. the training main path: ``repro_torch.launch.train.main`` trains
    ``gpt2-12l`` at full width from a one-layer source (batch 16, 256
    tokens), expands to 12 layers mid-run and checkpoints, with every
@@ -65,8 +71,9 @@ result):
 12. card against CPU: one train step at full width (depth 1, batch 2, 128
    tokens) from the same params and batch, loss and updated params;
 13. training times: the Newton–Schulz chain, matmul (the Gram, G G^T and
-   P X) and the flash backward against their plain versions and a PyTorch
-   yardstick, beside the bound (for the Newton–Schulz kernels both the f32
+   P X) and the flash backward (and the forward with lse, beside SDPA's
+   forward) against their plain versions and a PyTorch yardstick, beside
+   the bound (for the Newton–Schulz kernels both the f32
    FMA bound and their route's, 3xTF32 on the tensor cores over the
    symmetric half), and the Newton–Schulz share of a training step at 1
    and 12 layers;
@@ -99,7 +106,8 @@ result):
    P=128 8-token generation and one B=1 x 128 loss forward;
 21. scan times at the main path's prefill shape: the kernel and both
    plain forms beside the bound, and the kernel's share of the prefill;
-   the flash-attention forward at jamba's attention shape.
+   the flash-attention forward at jamba's attention shape, beside SDPA and
+   both bounds.
 
 Every main path (5, 6, 10, 11, 15, 19) starts with every kernel's launch
 counter at 0 and checks every counter after it, the kernels it must not
@@ -164,6 +172,12 @@ NS_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # NS_TOL; summing each k-slice afresh and adding it in IEEE f32 keeps the
 # kernel near cuBLAS's f32 error (~1e-6).  The limit lies between the two.
 GRAM_F64_TOL = 1e-5
+# The flash kernels' f32 results against an f64 plain version: the forward
+# as max abs error, the backward's dq, dk, dv relative to max(1, the
+# largest gradient entry).  Their 3xTF32 products keep them about as close
+# to f64 as the plain f32 version is (~1e-6); one TF32 pass is ~7e-4 off
+# (the CPU emulation in tests/test_torch_flash_attention.py), past TOL.
+FA_F64_TOL = 1e-5
 # The backward against autograd of the plain version, relative to
 # max(1, the largest gradient entry): f32 sums in another order; bf16
 # gradients are rounded to bf16 once on each side (2^-8 relative).
@@ -248,6 +262,48 @@ def _inputs(B, S, H, KV, hd, dtype, seed):
     return tuple(torch.randn((B, S, n, hd), generator=g, device="cuda",
                              dtype=torch.float32).to(dtype)
                  for n in (H, KV, KV))
+
+
+def attention_f64(q, k, v, causal=True):
+    """Causal attention in f64 on (B, S, heads, hd) inputs, GQA by repeated
+    K/V: the plain version the f64 checks hold the kernels to."""
+    q, k, v = (t.double() for t in (q, k, v))
+    G = q.shape[2] // k.shape[2]
+    k, v = (t.repeat_interleave(G, dim=2) for t in (k, v))
+    S = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                     device=q.device).triu(1), -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+def fa_f64_and_repeats(fa_ops) -> dict:
+    """The f32 forward at the serving prefill's and jamba's shapes against
+    ``attention_f64`` (max abs, within ``FA_F64_TOL``), beside the plain
+    f32 version's own error; and two launches on the same inputs give the
+    same bits.  Returns the kernel's f64 error per shape."""
+    errs = {}
+    for name, (B, S, H, KV, hd) in (("gpt2 prefill", MAIN_SHAPE[:3] + (
+            MAIN_SHAPE[2], MAIN_SHAPE[3])), ("jamba", (JAMBA_B, JAMBA_P, 32, 8,
+                                                       128))):
+        q, k, v = _inputs(B, S, H, KV, hd, torch.float32, 31)
+        got = fa_ops.flash_attention(q, k, v, force="kernel")
+        again = fa_ops.flash_attention(q, k, v, force="kernel")
+        plain = fa_ops.flash_attention(q, k, v, force="ref")
+        want = attention_f64(q, k, v)
+        err = (got.double() - want).abs().max().item()
+        plain_err = (plain.double() - want).abs().max().item()
+        same = torch.equal(got, again)
+        print(f"fa f64 at {name} B{B} S{S} H{H}/{KV} hd{hd}: kernel {err:.2e}, "
+              f"plain f32 {plain_err:.2e} (tol {FA_F64_TOL:.0e}); repeat "
+              f"bit-identical {same}")
+        if err > FA_F64_TOL or not same:
+            _fail(f"flash forward at {name}: f64 error {err:.2e} (tol "
+                  f"{FA_F64_TOL:.0e}), repeat equal {same}")
+        errs[name] = err
+        del q, k, v, got, again, plain, want
+    return errs
 
 
 def parity(fa_ops) -> float:
@@ -469,6 +525,48 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def sdpa_yardstick(q, k, v):
+    """(time it, backend) for ``scaled_dot_product_attention`` on (B, S,
+    heads, hd) inputs, causal, as PyTorch's dispatch serves them: the
+    backend ``torch._fused_sdp_choice`` picks, then enabled alone while
+    the caller times the call, so the reading names what it timed."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=gqa))
+
+    def timed(timer, *args):
+        with sdpa_kernel([backend]):
+            return timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=gqa), *args)
+    return timed, backend.name
+
+
+def flash_registers(build_log: str) -> list:
+    """(entry, registers, spill bytes stored + loaded) of every flash entry
+    function in ``-Xptxas -v`` output."""
+    import re
+    rows, name, spill = [], None, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_kernel)ILi(\d+)E"
+                          r"(f|13__nv_bfloat16)", m.group(1))
+            name = (f"{k.group(1)}<{k.group(2)}, "
+                    f"{'float' if k.group(3) == 'f' else 'bf16'}>"
+                    if k else None)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill))
+            name, spill = None, 0
+    return rows
+
+
 def times(fa_ops):
     B, S, H, hd = MAIN_SHAPE
     q, k, v = _inputs(B, S, H, H, hd, torch.float32, 12345)
@@ -476,21 +574,19 @@ def times(fa_ops):
                                                         force="kernel"), 50)
     plain_ms = _time_ms(lambda: fa_ops.flash_attention(q, k, v, force="ref"),
                         10)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 50)
+    sdpa, backend = sdpa_yardstick(q, k, v)
+    library_ms = sdpa(_time_ms, 50)
     flops = 4 * B * H * hd * S * (S + 1) // 2          # causal pairs only
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    op_ms = flops / PEAK_F32_FLOPS * 1e3
-    byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    bound = _route_bounds(flops, flops, nbytes)
     print(f"times at B={B} S={S} H={H} hd={hd} causal f32: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{library_ms:.4f} ms; bound {max(op_ms, byte_ms):.4f} ms "
-          f"({flops / 1e9:.3f} GFLOP -> {op_ms:.4f} ms, "
-          f"{nbytes / 1e6:.1f} MB -> {byte_ms:.4f} ms)")
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) "
+          f"{library_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}; 3xTF32 on {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB), f32 FMA bound "
+          f"{bound['f32_bound_ms']:.4f} ms")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(op_ms, byte_ms),
-                bound_by="operations" if op_ms >= byte_ms else "bytes")
+                library_backend=backend, **bound)
 
 
 def _drawn_requests(cfg, argv):
@@ -1021,6 +1117,36 @@ def bwd_parity(fa_ops) -> float:
     return err                                   # the last case: training
 
 
+def bwd_f64_and_repeats(fa_ops) -> float:
+    """dq, dk, dv at the training shape against autograd of
+    ``attention_f64`` (relative to max(1, max|grad|), within
+    ``FA_F64_TOL``), beside the plain f32 version's own error; and two
+    backward calls on the same inputs give the same bits.  Returns the
+    kernel's largest f64 error."""
+    B, S, H, hd = TRAIN_SHAPE
+    q, k, v = _inputs(B, S, H, H, hd, torch.float32, 41)
+    do = _inputs(B, S, H, H, hd, torch.float32, 42)[0]
+    got = _bwd_pair(fa_ops, q, k, v, do, {}, "kernel")
+    again = _bwd_pair(fa_ops, q, k, v, do, {}, "kernel")
+    plain = _bwd_pair(fa_ops, q, k, v, do, {}, "ref")
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_f64(*leaves), leaves, do.double())
+    errs, plain_errs = [], []
+    for a, p, w in zip(got, plain, want):
+        scale = max(1.0, w.abs().max().item())
+        errs.append((a.double() - w).abs().max().item() / scale)
+        plain_errs.append((p.double() - w).abs().max().item() / scale)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"fa-bwd f64 at B{B} S{S} H{H} hd{hd}: kernel dq/dk/dv "
+          f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e}, plain f32 "
+          f"{plain_errs[0]:.2e}/{plain_errs[1]:.2e}/{plain_errs[2]:.2e} "
+          f"(tol {FA_F64_TOL:.0e}); repeat bit-identical {same}")
+    if max(errs) > FA_F64_TOL or not same:
+        _fail(f"flash backward: f64 error {max(errs):.2e} (tol "
+              f"{FA_F64_TOL:.0e}), repeat equal {same}")
+    return max(errs)
+
+
 def _stacked_matrix_leaves(cfg, layers) -> int:
     """Muon leaves with the layer-stack axis: one ns_fused call each."""
     from repro_torch.models import registry
@@ -1147,10 +1273,10 @@ def _bound(flops, nbytes, peak=PEAK_F32_FLOPS):
                 bound_by="operations" if op_ms >= byte_ms else "bytes")
 
 
-def _ns_bounds(flops_f32, flops_route, nbytes):
-    """A Newton–Schulz kernel's two bounds: ``bound_ms`` its route's (the
-    3xTF32 products it does, three TF32 products per f32 one, over the
-    symmetric half where it takes it, at the TF32 peak) and
+def _route_bounds(flops_f32, flops_route, nbytes):
+    """A 3xTF32 kernel's two bounds: ``bound_ms`` its route's (the products
+    it needs, three TF32 products per f32 one, over the symmetric half
+    where it takes it, at the TF32 peak, or its bytes) and
     ``f32_bound_ms`` the f32 FMA bound of the full products (the bound
     earlier rows give)."""
     f32 = _bound(flops_f32, nbytes)
@@ -1169,7 +1295,7 @@ def train_times(ns_ops, fa_ops, res, cfg):
     ns = dict(ms=_time_ms(lambda: ns_ops.ns_fused(x, force="kernel"), 10),
               plain_ms=_time_ms(lambda: ns_ops.ns_fused(x, force="ref"), 5),
               library_ms=_time_ms(lambda: _library_ns(x), 10),
-              **_ns_bounds(L * 5 * (4 * n * n * m + 2 * n ** 3),
+              **_route_bounds(L * 5 * (4 * n * n * m + 2 * n ** 3),
                            L * 5 * (2 * half * m + 2 * half * n
                                     + 2 * n * n * m),
                            2 * 4 * L * n * m))
@@ -1191,18 +1317,18 @@ def train_times(ns_ops, fa_ops, res, cfg):
               plain_ms=_time_ms(lambda: ns_ops.matmul(a, a, trans_b=True,
                                                       force="ref"), 10),
               library_ms=_time_ms(lambda: torch.matmul(a, a.T), 10),
-              **_ns_bounds(2 * M * M * K, 2 * (M * (M + 1) // 2) * K,
+              **_route_bounds(2 * M * M * K, 2 * (M * (M + 1) // 2) * K,
                            4 * (M * K + M * M)))
     p = torch.randn((M, M), device="cuda")
     mm_x = _time_ms(lambda: ns_ops.matmul(p, a, force="kernel"), 10)
     px_lib = _time_ms(lambda: torch.matmul(p, a), 10)
-    px_bound = _ns_bounds(2 * M * M * K, 2 * M * M * K,
+    px_bound = _route_bounds(2 * M * M * K, 2 * M * M * K,
                           4 * (M * M + 2 * M * K))
     gram = ns_ops.matmul(a, a, trans_b=True) / K
     gg_ms = _time_ms(lambda: ns_ops.matmul(gram, gram, trans_b=True,
                                            force="kernel"), 50)
     gg_lib = _time_ms(lambda: torch.matmul(gram, gram), 50)
-    gg_bound = _ns_bounds(2 * M ** 3, 2 * (M * (M + 1) // 2) * M,
+    gg_bound = _route_bounds(2 * M ** 3, 2 * (M * (M + 1) // 2) * M,
                           4 * 2 * M * M)
     mm.update(gg_ms=gg_ms, gg_library_ms=gg_lib,
               gg_bound_ms=gg_bound["bound_ms"],
@@ -1230,23 +1356,43 @@ def train_times(ns_ops, fa_ops, res, cfg):
     ref_out = fa_ops.flash_attention(*leaves, force="ref")
     plain_ms = _time_device_ms(lambda: torch.autograd.grad(
         ref_out, leaves, do, retain_graph=True), 10)
+    from torch.nn.attention import sdpa_kernel
+    _, backend = sdpa_yardstick(q, k, v)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
-    lib_ms = _time_device_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qt, kt, vt), dot, retain_graph=True), 50)
+    with sdpa_kernel([getattr(torch.nn.attention.SDPBackend, backend)]):
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        lib_ms = _time_device_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), dot, retain_graph=True), 50)
+    bwd_again = _time_device_ms(lambda: fa_ops.flash_attention_bwd_cuda(
+        q, k, v, out, lse, do), 50)
+    pairs = B * H * S * (S + 1) // 2
+    nbytes = 4 * (8 * B * S * H * hd + B * H * S)
+    bwd = dict(ms=bwd_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_backend=backend,
+               **_route_bounds(10 * hd * pairs, 10 * hd * pairs, nbytes))
+    seven = _bound(3 * 14 * hd * pairs, nbytes, PEAK_TF32_FLOPS)["bound_ms"]
+    print(f"flash backward at B={B} S={S} H={H} hd={hd} causal f32: kernel "
+          f"{bwd_ms:.4f} ms (again {bwd_again:.4f}), plain (autograd) "
+          f"{plain_ms:.4f} ms, sdpa ({backend}) backward {lib_ms:.4f} ms; "
+          f"bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}; 3xTF32, five "
+          f"products a pair; the seven this design runs {seven:.4f}), f32 "
+          f"FMA bound {bwd['f32_bound_ms']:.4f} ms")
     fwd_ms = _time_device_ms(lambda: fa_ops.flash_attention_cuda(
         q, k, v, with_lse=True), 50)
-    pairs = B * H * S * (S + 1) // 2
-    bwd = dict(ms=bwd_ms, plain_ms=plain_ms, library_ms=lib_ms,
-               **_bound(10 * hd * pairs,
-                        4 * (8 * B * S * H * hd + B * H * S)))
-    print(f"flash backward at B={B} S={S} H={H} hd={hd} causal f32: kernel "
-          f"{bwd_ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, sdpa "
-          f"backward {lib_ms:.4f} ms; bound {bwd['bound_ms']:.4f} ms "
-          f"({bwd['bound_by']}); forward with lse {fwd_ms:.4f} ms")
+    sdpa, backend = sdpa_yardstick(q, k, v)
+    fwd_lib = sdpa(_time_device_ms, 50)
+    fwd_bound = _route_bounds(4 * hd * pairs, 4 * hd * pairs,
+                              4 * 4 * B * S * H * hd + 4 * B * H * S)
+    bwd.update(fwd_lse_ms=fwd_ms, fwd_library_ms=fwd_lib,
+               fwd_bound_ms=fwd_bound["bound_ms"],
+               fwd_f32_bound_ms=fwd_bound["f32_bound_ms"])
+    print(f"flash forward with lse at B={B} S={S}: kernel {fwd_ms:.4f} ms, "
+          f"sdpa ({backend}) {fwd_lib:.4f} ms; bound "
+          f"{fwd_bound['bound_ms']:.4f} ms ({fwd_bound['bound_by']}), f32 FMA "
+          f"bound {fwd_bound['f32_bound_ms']:.4f} ms")
 
     # Newton–Schulz per training step at each depth: every Muon leaf,
     # through the port's route, against the measured step time.
@@ -1682,7 +1828,8 @@ def jamba_times(scan_ops, fa_ops, res, n_mamba):
     """The scan kernel and both plain forms at the main path's prefill
     shape (CUDA events), beside the bound; the scan launches' share of the
     timed prefill; and the flash-attention forward at jamba's attention
-    shape beside its plain version and SDPA."""
+    shape beside its plain version, SDPA and both bounds.  Returns the
+    scan's record and the flash forward's readings there."""
     B, S, d, N = JAMBA_SCAN_SHAPE
     *args, state = scan_case(B, S, d, N, torch.float32, False, "model", 77)
     kernel_ms = _time_device_ms(
@@ -1716,16 +1863,22 @@ def jamba_times(scan_ops, fa_ops, res, n_mamba):
                      50)
     fa_plain = _time_ms(lambda: fa_ops.flash_attention(q, k, v, force="ref"),
                         10)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fa_lib = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 50)
-    fa_bound = _bound(4 * JAMBA_B * H * hd * JAMBA_P * (JAMBA_P + 1) // 2,
-                      sum(t.numel() * t.element_size() for t in (q, k, v, q)))
+    sdpa, backend = sdpa_yardstick(q, k, v)
+    fa_lib = sdpa(_time_ms, 50)
+    flops = 4 * JAMBA_B * H * hd * JAMBA_P * (JAMBA_P + 1) // 2
+    fa_bound = _route_bounds(flops, flops, sum(
+        t.numel() * t.element_size() for t in (q, k, v, q)))
     print(f"flash at jamba's B={JAMBA_B} S={JAMBA_P} H={H}/{KV} hd={hd} "
           f"causal f32: kernel {fa_ms:.4f} ms, plain {fa_plain:.4f} ms, sdpa "
-          f"{fa_lib:.4f} ms; bound {fa_bound['bound_ms']:.4f} ms "
-          f"({fa_bound['bound_by']})")
-    return dict(ms=kernel_ms, plain_ms=chunked_ms, library_ms=None, **bound)
+          f"({backend}) {fa_lib:.4f} ms; bound {fa_bound['bound_ms']:.4f} ms "
+          f"({fa_bound['bound_by']}), f32 FMA bound "
+          f"{fa_bound['f32_bound_ms']:.4f} ms")
+    fa = dict(jamba_ms=fa_ms, jamba_plain_ms=fa_plain,
+              jamba_library_ms=fa_lib, jamba_library_backend=backend,
+              jamba_bound_ms=fa_bound["bound_ms"],
+              jamba_f32_bound_ms=fa_bound["f32_bound_ms"])
+    return dict(ms=kernel_ms, plain_ms=chunked_ms, library_ms=None,
+                **bound), fa
 
 
 def main() -> int:
@@ -1760,9 +1913,15 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
+    fa_regs = flash_registers(_build.build_log("flash_attention"))
+    print("flash entry functions (registers, spill bytes): " + "; ".join(
+        f"{n} {r}, {sp}" for n, r, sp in fa_regs))
+    if len(fa_regs) != 12 or any(sp for _, _, sp in fa_regs):
+        _fail(f"flash entry functions: {fa_regs} (12 expected, none spilling)")
 
     # 3-4. kernel parity on the card
     main_err = parity(fa_ops)
+    fa_f64 = fa_f64_and_repeats(fa_ops)
     paged_errs = paged_parity(pa_ops)
 
     # 5. the contiguous main path, counters from 0
@@ -1807,6 +1966,7 @@ def main() -> int:
     ns_err = ns_parity(ns_ops)
     mm_err = matmul_parity(ns_ops)
     bwd_err = bwd_parity(fa_ops)
+    bwd_f64 = bwd_f64_and_repeats(fa_ops)
 
     # 10-11. the training main path, counters from 0, then serve its
     # checkpoint
@@ -1857,14 +2017,17 @@ def main() -> int:
     # 21. scan times
     n_mamba = sum(jamba_cfg.layer_kind(i) == "mamba"
                   for i in range(jamba_cfg.num_layers))
-    t_scan = jamba_times(scan_ops, fa_ops, jamba_res, n_mamba)
+    t_scan, t_fa_jamba = jamba_times(scan_ops, fa_ops, jamba_res,
+                                     n_mamba)
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-         "launches": launches, "max_abs_err": main_err, **t},
+         "launches": launches, "max_abs_err": main_err, **t,
+         **t_fa_jamba, "f64_err": fa_f64,
+         "registers_spills": [list(r) for r in fa_regs]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
                    "paged_attention.cu",
@@ -1877,7 +2040,7 @@ def main() -> int:
          "replaces": "none (no TPU kernel: JAX differentiates its attention "
                      "itself)",
          "launches": train_counts["flash_attention_bwd"],
-         "max_abs_err": bwd_err, **t_bwd},
+         "max_abs_err": bwd_err, "f64_err": bwd_f64, **t_bwd},
         {"name": "ns_fused", "route": "cuda",
          "source": "src/repro_torch/kernels/newton_schulz/csrc/"
                    "newton_schulz.cu",

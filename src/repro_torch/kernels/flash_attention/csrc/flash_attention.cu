@@ -1,9 +1,10 @@
-// Flash attention forward for Hopper (sm_90a), CUDA C++ with plain f32 FMA.
+// Flash attention forward for Hopper (sm_90a), CUDA C++ on the tensor
+// cores in error-compensated TF32 ("3xTF32").
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py:flash_attention_tpu
-// (the Pallas body `_body`).  Same function: q (B,S,H,hd), k/v (B,S,KV,hd)
-// -> o (B,S,H,hd); scores q·k/sqrt(hd) (q pre-scaled, as the Pallas body
-// does), optional softcap·tanh(s/softcap), causal (qi >= ki) and window
+// (the Pallas body `_body`, pallas_call at :98).  Same function: q
+// (B,S,H,hd), k/v (B,S,KV,hd) -> o (B,S,H,hd); scores q·k/sqrt(hd),
+// optional softcap·tanh(s/softcap), causal (qi >= ki) and window
 // (qi - ki < window) masks with NEG_INF = -1e30, online softmax with the
 // running max m, sum l and accumulator in f32, l clamped to 1e-30 at the
 // end.  GQA: q head h reads kv head h / (H/KV); K/V are never repeated.
@@ -11,230 +12,260 @@
 // passes an lse pointer and gets each row's logsumexp m + log(l) as
 // (B, H, S) f32, which the backward (flash_attention_bwd.cu) recomputes
 // the probabilities from; the serving paths pass null and run the same
-// arithmetic.
+// arithmetic, so both write the same output bits.
 //
-// Precision: inputs f32 or bf16, converted to f32 on load; every product,
-// sum and exp is f32 (no tensor cores, no TF32); the output is rounded once
-// to the input type (round to nearest even for bf16).
+// Precision.  Inputs f32 or bf16.  Both products (S = Q K^T and O += P V)
+// run on the tensor cores (wgmma, TF32 in, f32 accumulator).  f32 operands
+// take three TF32 passes, small·big + big·small + big·big of x = big +
+// small (flash_common.cuh), which keeps the output within 1e-5 of an f64
+// version (chip_smoke.py checks it; tests/test_torch_flash_attention.py
+// emulates the route on the CPU, where one pass is ~7e-4 off, past the
+// 1e-4 tolerance).  bf16 q, k, v are exact
+// in TF32 and take one pass; so does P in P V then, rounded to TF32
+// (2^-11 relative) where the output is rounded to bf16 (2^-8).  The score
+// tile is summed afresh on each key tile (at most 3 hd / 8 = 48 passes), and
+// the P V tile afresh too, added to the f32 accumulator by the softmax's
+// rescale acc = acc·alpha + P V, so the tensor cores' truncating
+// accumulation never runs long.  Softmax statistics, exp and lse are f32;
+// the output is rounded once to the input type.
 //
-// Design.  Grid (ceil(S/BQ), H, B); one CTA of 256 threads owns BQ = 64
-// query rows of one head and loops over the k-tiles between its window and
-// causal limits.  Q (pre-scaled), the K and V tiles and the probability
-// tile P live in shared memory as f32.  The 16x16 thread grid computes the
-// 64x64 score tile as 4x4 register micro-tiles (thread (ty, tx) owns rows
-// ty + 16i and keys tx + 16j), reading Q and K four dims at a time as
-// float4; the row max and sum of the online softmax are reduced across the
-// 16 lanes of a half-warp that share a row.  The same thread then owns the
-// output rows ty + 16i at columns 4tx..4tx+3 (+64), so its running m/l
-// rescale its own accumulator with no exchange.  The ragged last query and
-// key tiles are masked, never padded by the caller; heavy (late) query
-// tiles of a causal launch are issued first.
+// Bound on the card (H100 SXM, 700 W; f32 inputs, causal).  The two
+// products are 4·B·H·hd·S(S+1)/2 FLOP; on this route each is three TF32
+// products at 495 TFLOP/s, against q, k, v, o once at 3.35 TB/s:
+//   serving prefill B=8 S=512 H=12 hd=64: 3.23 GFLOP, 19.6 us of TF32 (the
+//     bound; 48.2 us of f32 FMA at 67 TFLOP/s), 50.3 MB = 15.0 us;
+//   training B=16 S=256: 1.62 GFLOP = 9.8 us, 50.3 MB = 15.1 us (bytes);
+//   jamba B=4 S=1024 H=32/8 hd=128: 34.4 GFLOP = 208 us of TF32 (513 us
+//     of f32 FMA), 168 MB = 50 us: bound by operations.
 //
-// Bound on the card: at the serving prefill shape (B=8, S=512, H=12,
-// hd=64, causal, f32) the work is 4·B·H·hd·S(S+1)/2 ≈ 3.2 GFLOP, ≈ 48 us at
-// the H100 SXM's 67 TFLOP/s f32 outside the tensor cores, against ≈ 50 MB of
-// q/k/v/o, ≈ 15 us at 3.35 TB/s: this kernel is bound by f32 operations.
+// What bounded the first version (plain f32 FMA), and what this design
+// does about it:
+//   * CUDA cores only: both products now run on the tensor cores (wgmma
+//     m64nNk8 TF32; 495 TFLOP/s against 67 of f32 FMA).  S = Q K^T takes Q
+//     as A from registers (its rows kept raw in shared-memory slots in
+//     fragment order, split as they are loaded) and K as B, split once per
+//     tile into big/small copies in core-matrix layout.  The score
+//     accumulator becomes P in registers and, by the permuted k order, the
+//     A fragment of O += P V, whose B is V split transposed (hd x keys), as
+//     the TF32 wgmma takes K-major operands only.  At hd 128 P V runs as
+//     two 64-column blocks.
+//   * Synchronous loads: K and V tiles are copied by cp.async into one raw
+//     staging tile; as soon as it is split, the next tile's copy is
+//     issued, so it lands while this tile multiplies.
+//   * Occupancy: hd 64 runs one warpgroup of 64 query rows with 64-key
+//     tiles, 112 KB of shared memory in f32, so two CTAs share an SM and
+//     hide each other's split and softmax phases (two warpgroups sharing
+//     the split tiles measured no faster there).  hd 128 runs two
+//     warpgroups of 64 rows sharing each split tile of 32 keys: 160 KB,
+//     one CTA of eight warps an SM (64-key tiles needed 224 KB for four).
+//     A warpgroup skips the tiles its masks cover entirely.
+//   * Late (heavy causal) query tiles are issued first; the ragged last
+//     query and key tiles are masked (zero-filled copies, NEG_INF
+//     scores), and the caller pads nothing.
 //
-// What the simple design leaves on the table: tensor cores (wgmma on bf16
-// or TF32 inputs would lift the operation bound ~15x), TMA loads and a
-// double-buffered K/V ring (here each tile load is waited for with the SMs
-// idle), warp specialisation, and a persistent schedule across tiles.
+// What it still leaves on the table: within one CTA the split, the
+// products and the softmax run one after another (a producer warpgroup
+// splitting into a ring for consumers, in ping-pong, would overlap them;
+// splitting V^T while S runs measured no faster); TMA would take the
+// copies off the threads; a persistent schedule would end the tail of the
+// causal grid.
 
 #include "flash_common.cuh"
 
 namespace {
 
+// Per head dim: warpgroups of 64 query rows per CTA, and keys per tile.
+// hd 64: one warpgroup, 64 keys, 112 KB in f32 (two CTAs an SM).  hd 128:
+// two warpgroups sharing each split tile of 32 keys, 160 KB (one CTA of
+// eight warps an SM; 64 keys would fill 224 KB for four warps).
+template <int HD>
+__host__ __device__ constexpr int fwd_wgs() { return HD == 64 ? 1 : 2; }
+template <int HD>
+__host__ __device__ constexpr int fwd_bk() { return HD == 64 ? 64 : 32; }
+
 template <int HD, typename T>
-__global__ void __launch_bounds__(NTHREADS)
+constexpr int fwd_smem_bytes() {
+  // Q slots (f32), raw K and V (T), K big/small, V^T big/small.
+  constexpr int BK = fwd_bk<HD>();
+  return 64 * fwd_wgs<HD>() * HD * 4 + 2 * BK * HD * (int)sizeof(T) +
+         (kExact<T> ? 2 : 4) * BK * HD * 4;
+}
+
+template <int HD, typename T>
+__global__ void __launch_bounds__(128 * fwd_wgs<HD>(), HD == 64 ? 2 : 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse,
-                 int S, int H, int KV, int causal, int window, float softcap,
-                 float scale) {
-  constexpr int QSTR = HD + 4;   // float4 rows, conflict-free column reads
-  constexpr int KSTR = HD + 4;
-  constexpr int VSTR = HD;
-  constexpr int PSTR = BK + 4;
-  constexpr int NC = HD / 64;    // float4 column groups per thread in P·V
+                 float* __restrict__ lse, int S, int H, int KV, int causal,
+                 int window, float softcap, float scale) {
+  constexpr bool EXACT = kExact<T>;
+  constexpr int NC = HD / 64;            // 64-column blocks of O
+  constexpr int BK = fwd_bk<HD>();
+  constexpr int NT = 128 * fwd_wgs<HD>();
+  constexpr int BQ = 64 * fwd_wgs<HD>();
+  constexpr int TILE = BK * HD;          // words of one split copy
 
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                      // [BQ][QSTR]
-  float* Ks = Qs + BQ * QSTR;            // [BK][KSTR]
-  float* Vs = Ks + BK * KSTR;            // [BK][VSTR]
-  float* Ps = Vs + BK * VSTR;            // [BQ][PSTR]
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int wg = threadIdx.x >> 7;       // this warpgroup's 64 rows
+  float4* slots = reinterpret_cast<float4*>(smem_raw) + wg * (64 * HD / 4);
+  uint32_t* kb = reinterpret_cast<uint32_t*>(smem_raw + BQ * HD * 4);
+  uint32_t* ks = kb + TILE;
+  uint32_t* vb = EXACT ? ks : ks + TILE;
+  uint32_t* vs = vb + TILE;
+  T* raw_k = reinterpret_cast<T*>(EXACT ? vs : vs + TILE);
+  T* raw_v = raw_k + TILE;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  // Causal work grows with the query tile: issue the late tiles first.
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
   const int qb = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int q0 = qb * BQ;
-
-  const int q_stride = H * HD;
-  const int kv_stride = KV * HD;
+  const int q_stride = H * HD, kv_stride = KV * HD;
   const T* qbase = q + (size_t)b * S * q_stride + (size_t)h * HD;
   const T* kbase = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
   const T* vbase = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
   T* obase = o + (size_t)b * S * q_stride + (size_t)h * HD;
 
-  load_tile<HD, QSTR>(Qs, qbase, q0, S, q_stride, scale);
-
-  // Key range this query tile can see.
   int k_hi = S - 1;
   if (causal) k_hi = min(k_hi, q0 + BQ - 1);
-  int k_lo = 0;
-  if (window > 0) k_lo = max(0, q0 - window + 1);
-  const int kt_begin = k_lo / BK;
-  const int kt_end = k_hi / BK;          // inclusive
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kt_begin = k_lo / BK, kt_end = k_hi / BK;
 
-  float m[4], l[4], acc[4][4 * NC];
+  load_raw<T, HD, BK, NT>(raw_k, kbase, kt_begin * BK, S, kv_stride);
+  load_raw<T, HD, BK, NT>(raw_v, vbase, kt_begin * BK, S, kv_stride);
+  cp_async_commit();
+  const int qw = q0 + 64 * wg;           // this warpgroup's first row
+  fill_slots<T, HD>(slots, qbase, qw, S, q_stride);
+
+  // This thread's rows: 16w + g and + 8 of its warpgroup's.
+  const int qi0 = qw + 16 * w + g, qi1 = qi0 + 8;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NC][32];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-  }
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
 
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int k0 = kt * BK;
-    load_tile<HD, KSTR>(Ks, kbase, k0, S, kv_stride, 1.f);
-    load_tile<HD, VSTR>(Vs, vbase, k0, S, kv_stride, 1.f);
-    __syncthreads();
-
-    // Scores: s[i][j] = Qs[ty + 16i] · Ks[tx + 16j].
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * QSTR + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv4[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * KSTR + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv4[j].x, a);
-          a = fmaf(qv[i].y, kv4[j].y, a);
-          a = fmaf(qv[i].z, kv4[j].z, a);
-          a = fmaf(qv[i].w, kv4[j].w, a);
-          s[i][j] = a;
-        }
+    cp_async_wait_all();
+    __syncthreads();                   // the tile is in; last tile's wgmma done
+    split_kmajor<T, HD, BK, NT, EXACT>(kb, ks, raw_k);
+    split_trans<T, HD, BK, NT, EXACT>(vb, vs, raw_v);
+    fence_to_tensor_cores();
+    __syncthreads();                   // the raw tile is free
+    if (kt < kt_end) {
+      load_raw<T, HD, BK, NT>(raw_k, kbase, k0 + BK, S, kv_stride);
+      load_raw<T, HD, BK, NT>(raw_v, vbase, k0 + BK, S, kv_stride);
+      cp_async_commit();
     }
 
-    // Softcap, masks and the online-softmax update, row by row.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ki = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool ok = ki < S;
-        if (causal) ok = ok && (qi >= ki);
-        if (window > 0) ok = ok && (qi - ki < window);
-        x = ok ? x : NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float alpha = expf(m[i] - mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - mx);
-        Ps[(ty + 16 * i) * PSTR + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = mx;
-#pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
+    // A warpgroup skips a tile that its masks cover entirely (the online
+    // softmax would add exactly nothing for it).
+    if ((causal && k0 > qw + 63) ||
+        (window > 0 && k0 + BK - 1 < qw - window + 1))
+      continue;
+    float s[BK / 2];
+    mma_slots<BK, HD / 8, BK, EXACT>(s, slots, kb, ks);
+    wgmma_wait<0>();
 
-    // acc[i][4g + e] += sum_kk P[ty + 16i][kk] * V[kk][64g + 4tx + e].
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pv[4];
+    // Softcap, masks and the online softmax in base 2 (m, mx, and the
+    // scores are x log2 e); s[4j + e] is row qi0 (qi1 for e >= 2), key
+    // k0 + 8j + 2t + (e & 1).
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * PSTR + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int g = 0; g < NC; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              Vs + (kk + e) * VSTR + 64 * g + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = e == 0 ? pv[i].x : e == 1 ? pv[i].y
-                          : e == 2 ? pv[i].z : pv[i].w;
-            acc[i][4 * g + 0] = fmaf(p, vv.x, acc[i][4 * g + 0]);
-            acc[i][4 * g + 1] = fmaf(p, vv.y, acc[i][4 * g + 1]);
-            acc[i][4 * g + 2] = fmaf(p, vv.z, acc[i][4 * g + 2]);
-            acc[i][4 * g + 3] = fmaf(p, vv.w, acc[i][4 * g + 3]);
-          }
-        }
-      }
+    for (int i = 0; i < BK / 2; ++i) {
+      const int qi = (i & 2) ? qi1 : qi0;
+      const int ki = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      float x = s[i] * scale;
+      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      x *= LOG2E;
+      bool ok = ki < S;
+      if (causal) ok = ok && qi >= ki;
+      if (window > 0) ok = ok && qi - ki < window;
+      x = ok ? x : NEG_INF;
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
     }
-    __syncthreads();
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2f(s[i] - mx[r]);
+      rs[r] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = l[r] * alpha[r] + rs[r];
+      m[r] = mx[r];
+    }
+
+    // O = O·alpha + P V, the tile's product summed afresh (at hd 128 one
+    // 64-column block after the other, to keep the registers in bounds).
+    uint32_t pb[BK / 8][4], ps[BK / 8][4];
+    frags_from_acc<BK / 8, EXACT>(s, pb, ps);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float part[32];
+      wgmma_fence();
+      mma_regs<BK / 8, HD, EXACT>(part, pb, ps, vb, vs, c);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[c][i] = acc[c][i] * alpha[(i >> 1) & 1] + part[i];
+    }
   }
 
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r ? qi1 : qi0;
     if (qi >= S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    T* orow = obase + (size_t)qi * q_stride;
 #pragma unroll
-    for (int g = 0; g < NC; ++g) {
-      const float4 out = make_float4(acc[i][4 * g + 0] * inv, acc[i][4 * g + 1] * inv,
-                                     acc[i][4 * g + 2] * inv, acc[i][4 * g + 3] * inv);
-      store4(obase + (size_t)qi * q_stride + 64 * g + 4 * tx, out);
-    }
-    // The 16 lanes of a row hold the same m and l after the reductions.
-    if (lse != nullptr && tx == 0)
-      lse[((size_t)b * H + h) * S + qi] = m[i] + logf(fmaxf(l[i], 1e-30f));
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        store2(orow + 64 * c + 8 * j + 2 * t, acc[c][4 * j + 2 * r] * inv[r],
+               acc[c][4 * j + 2 * r + 1] * inv[r]);
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * H + h) * S + qi] = m[r] * LN2 + logf(fmaxf(l[r], 1e-30f));
   }
-}
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (HD + 4) + BK * (HD + 4) + BK * HD + BQ * (BK + 4));
 }
 
 template <int HD, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int S, int H, int KV, int causal,
                    int window, float softcap, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD>();
-  // Above 48 KB a kernel must opt in to dynamic shared memory; the call is
-  // cheap, and a per-process flag would have to be thread-safe.
+  constexpr int smem = fwd_smem_bytes<HD, T>();
+  constexpr int BQ = 64 * fwd_wgs<HD>();
+  // Above 48 KB a kernel must opt in to dynamic shared memory; the largest
+  // carveout lets two 112 KB CTAs share an SM.
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
+      smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd_kernel<HD, T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
   dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale = 1.0f / sqrtf((float)HD);
-  flash_fwd_kernel<HD, T><<<grid, NTHREADS, smem, stream>>>(
+  flash_fwd_kernel<HD, T><<<grid, 128 * fwd_wgs<HD>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KV, causal,
       window, softcap, scale);
@@ -250,7 +281,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, int B, int S, int H,
                                    int KV, int hd, int dtype, int causal,
                                    int window, float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
+  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
+      H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64 && dtype == 0)

@@ -1,4 +1,5 @@
-// Flash attention backward for Hopper (sm_90a), CUDA C++ with plain f32 FMA.
+// Flash attention backward for Hopper (sm_90a), CUDA C++ on the tensor
+// cores in error-compensated TF32 ("3xTF32").
 //
 // Replaces: no TPU kernel.  The JAX package differentiates its attention
 // automatically (there is no custom_vjp anywhere in src/repro), so this is
@@ -8,368 +9,402 @@
 //
 // Function: given q (B,S,H,hd), k/v (B,S,KV,hd), the forward's output o and
 // per-row logsumexp lse (B,H,S) f32, and the upstream gradient dO, return
-// dq, dk, dv.  With s = (q/sqrt(hd))·k, x = softcap·tanh(s/softcap) (or s),
+// dq, dk, dv.  With s = (q·k)/sqrt(hd), x = softcap·tanh(s/softcap) (or s),
 // masked entries at NEG_INF:
 //   P  = exp(x - lse)                      (recomputed, never stored)
-//   D  = rowsum(dO ∘ o)                    (pass 1)
+//   D  = rowsum(dO ∘ o)
 //   dV = Pᵀ dO,   dP = dO Vᵀ,   dX = P ∘ (dP - D)
 //   dS = dX ∘ (1 - (x/softcap)²)           (the softcap's derivative)
-//   dQ = dS K / sqrt(hd),   dK = dSᵀ (q/sqrt(hd))
+//   dQ = dS K / sqrt(hd),   dK = dSᵀ q / sqrt(hd)
 // Causal, window, softcap, MHA/GQA, hd 64/128, f32/bf16 and ragged S as the
 // forward takes them.
 //
-// Design: three launches, deterministic, no atomics.
-//   1. dsum: one warp per (b, s, h) row computes D.
-//   2. dkdv: grid (ceil(S/64), KV, B).  A CTA owns 64 keys of one kv head,
-//      holds their K and V tiles in shared memory and dK, dV in registers,
-//      and loops over the G = H/KV query heads of its group and over the
-//      query tiles that can see its keys, so GQA sums inside the CTA.
-//   3. dq: grid (ceil(S/64), H, B).  A CTA owns 64 query rows of one head,
-//      holds Q, dO, lse and D, and loops over the key tiles it can see
-//      (late causal tiles issued first, as in the forward).
-// Tiles are 64x64 and every CTA has 256 threads in a 16x16 grid: thread
-// (ty, tx) computes scores for rows ty+16a and columns tx+16c as 4x4 f32
-// register micro-tiles (float4 reads over hd), and owns output rows ty+16a
-// at columns 4tx..4tx+3 (+64) of its dK/dV/dQ accumulators.  P and dS go
-// through shared memory between the two layouts.  Ragged tiles are masked;
-// the caller pads nothing.
+// Precision as in the forward: every product on the tensor cores (wgmma,
+// TF32 in, f32 accumulator), three TF32 passes for f32 operands (x = big +
+// small, small·small dropped), one for bf16 inputs (exact in TF32; P and
+// dS then rounded to TF32, 2^-11, where the gradients are rounded to bf16,
+// 2^-8).  Each tile's products are summed afresh and added to the f32
+// gradient accumulators.  P, dS, D and the softcap's derivative are f32.
 //
-// Bound on the card: at the training shape (B=16, S=256, H=12, hd=64,
-// causal, f32) the minimal backward is five 64-wide products per visible
-// (query, key) pair (S, dP, dV, dQ, dK: 2.5x the forward's two),
-// 10·B·H·hd·S(S+1)/2 ≈ 4.0 GFLOP, ≈ 60 us at 67 TFLOP/s f32, against
-// ≈ 44 MB of q, k, v, o, dO, lse, dq, dk, dv at 3.35 TB/s ≈ 13 us: bound by
-// f32 operations.  This design recomputes S and dP in both the dkdv and the
-// dq pass (seven products per pair instead of five) to stay free of atomics.
+// Design: two launches, deterministic (no atomics; the same inputs give the
+// same bits on every run).
+//   1. dq: grid (ceil(S/64), H, B), late causal tiles first; one warpgroup
+//      owns 64 query rows of one head.  It first computes D for its rows
+//      (each thread sums its quarter of the two rows whose dO it loads
+//      into its slots, then two shuffles, in a fixed order) and writes it
+//      for launch 2; this replaces the first version's separate D launch.
+//      Then over key steps of 32: S = Q Kᵀ and dP = dO Vᵀ (m64n32k8, Q and
+//      dO as A from slots, K and V as K-major B), P and dS in registers,
+//      dQ += dS K (dS as A straight from the score accumulator, K
+//      transposed as B).
+//   2. dkdv: grid (ceil(S/64), KV, B).  A CTA owns 64 keys of one kv head
+//      and loops over the G = H/KV query heads of its group and the query
+//      steps of 32 that can see its keys, so GQA sums inside the CTA.  It
+//      computes the transposed scores Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (K and V
+//      as A from slots, Q and dO as K-major B), so that Pᵀ and dSᵀ come
+//      out with keys as rows: they are the A operands of dV += Pᵀ dO and
+//      dK += dSᵀ Q (dO and Q transposed as B) with no exchange.  At hd 128
+//      the CTA holds two warpgroups, each owning 64 columns of dK and dV
+//      and computing Sᵀ and dPᵀ itself, so that neither spills.
+// Each step's Q/dO (or K/V) tile, and in dkdv its lse and D, is copied by
+// cp.async into a raw staging tile, split into the B copies it feeds, and
+// the next step's copy issued at once, so it lands while this step
+// multiplies.  Ragged tiles are masked (zero-filled copies, p = 0); the
+// caller pads nothing.
 //
-// What the simple design leaves on the table: tensor cores (wgmma on bf16
-// or TF32 operands), TMA and a double-buffered Q/dO ring in the dkdv pass,
-// one fused pass with an atomic or split-buffer dQ, and a persistent
-// schedule.
+// Bound on the card (H100 SXM, 700 W): at the training shape (B=16, S=256,
+// H=12, hd=64, causal, f32) the minimal backward is five 64-wide products
+// per visible (query, key) pair (S, dP, dV, dQ, dK: 2.5x the forward's
+// two), 10·B·H·hd·S(S+1)/2 = 4.04 GFLOP: 60 us of f32 FMA at 67 TFLOP/s,
+// 24.5 us on this route (three TF32 products each at 495 TFLOP/s),
+// against 101 MB of q, k, v, o, dO, lse, dq, dk, dv at 3.35 TB/s = 30 us:
+// on this route bound by bytes.  This design recomputes S and dP in both
+// launches (seven products per pair, 34 us of TF32) to stay free of
+// atomics and of a dQ workspace.
+//
+// What bounded the first version, and what this design does about it:
+//   * CUDA cores only: every product is a TF32 wgmma, 3xTF32 for f32.
+//   * Synchronous loads: cp.async copies of the next step while this one
+//     multiplies (above); dkdv's lse and D come with them, no longer as
+//     loads the step waits for.
+//   * Seven products per pair: kept (five would need atomics or a dQ
+//     workspace summed in a second pass); the launch that computed D alone
+//     is folded into dq.
+//   * dkdv at one CTA an SM (186 registers x 256 threads): now 128 threads
+//     at 251 registers and 115 KB, two CTAs an SM at hd 64 in f32.
+//
+// What it still leaves on the table: the two recomputed products; within
+// a CTA the splits, products and elementwise work run one after another
+// (warp specialisation would overlap them); 32-wide steps keep two CTAs
+// on an SM at the price of m64n32 score products, and 64-wide steps at
+// one CTA an SM are untried.
 
 #include "flash_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int BQ = 64;          // query rows of a dq CTA
+constexpr int BKQ = 32;         // keys per step of a dq CTA
+constexpr int BK = 64;          // keys of a dkdv CTA
+constexpr int BQS = 32;         // queries per step of a dkdv CTA
+
+template <int HD, typename T>
+constexpr int dq_smem_bytes() {
+  // Q and dO slots (f32), raw K and V (T), K, V (K-major) and K^T big/small.
+  return 2 * BQ * HD * 4 + 2 * BKQ * HD * (int)sizeof(T) +
+         (kExact<T> ? 3 : 6) * BKQ * HD * 4;
 }
 
-constexpr int PSTR = BK + 4;    // P / dS tiles: float4 rows, 4-float pad
+template <int HD, typename T>
+constexpr int dkdv_smem_bytes() {
+  // K and V slots (f32), raw Q and dO (T), Q, dO (K-major) and Q^T, dO^T
+  // big/small, lse and D of two steps.
+  return 2 * BK * HD * 4 + 2 * BQS * HD * (int)sizeof(T) +
+         (kExact<T> ? 4 : 8) * BQS * HD * 4 + 4 * BQS * 4;
+}
 
-// out[a][c] = X[ty + 16a] · Y[tx + 16c] over HD (rows of two shared tiles).
-template <int HD, int STR>
-__device__ __forceinline__ void tile_dots(float (&out)[4][4], const float* X,
-                                          const float* Y, int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[a][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 xv[4], yv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      xv[a] = *reinterpret_cast<const float4*>(X + (ty + 16 * a) * STR + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      yv[c] = *reinterpret_cast<const float4*>(Y + (tx + 16 * c) * STR + d);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float s = out[a][c];
-        s = fmaf(xv[a].x, yv[c].x, s);
-        s = fmaf(xv[a].y, yv[c].y, s);
-        s = fmaf(xv[a].z, yv[c].z, s);
-        s = fmaf(xv[a].w, yv[c].w, s);
-        out[a][c] = s;
-      }
+// p and dS of one (query, key) pair: s the scaled score, lse2 the row's
+// logsumexp times log2 e, ok false where a mask covers the pair.
+__device__ __forceinline__ void probs_and_grad(float s, float dp, float lse2,
+                                               float d_i, bool ok,
+                                               float softcap, float& p,
+                                               float& ds) {
+  float deriv = 1.f;
+  if (softcap > 0.f) {
+    s = softcap * tanhf(s / softcap);
+    const float tt = s / softcap;
+    deriv = 1.f - tt * tt;
   }
+  p = ok ? exp2f(fmaf(s, LOG2E, -lse2)) : 0.f;
+  ds = p * (dp - d_i) * deriv;
 }
 
-__device__ __forceinline__ float lane4(float4 v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// acc[a][4g+e] += sum_j W[ty+16a][j] * M[j][64g + 4tx + e]   (W 64x64)
-template <int HD, int STR>
-__device__ __forceinline__ void acc_rows(float (&acc)[4][HD / 16],
-                                         const float* W, const float* M,
-                                         int ty, int tx) {
+template <int HD, typename T>
+__global__ void __launch_bounds__(128, HD == 64 ? 2 : 1)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    float* __restrict__ dsum, T* __restrict__ dq, int S,
+                    int H, int KV, int causal, int window, float softcap,
+                    float scale) {
+  constexpr bool EXACT = kExact<T>;
   constexpr int NC = HD / 64;
-#pragma unroll 2
-  for (int j = 0; j < BK; j += 4) {
-    float4 wv[4];
+  constexpr int TILE = BKQ * HD;
+  constexpr int NT = 128;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float4* q_slots = reinterpret_cast<float4*>(smem_raw);
+  float4* do_slots = q_slots + BQ * HD / 4;
+  uint32_t* kb = reinterpret_cast<uint32_t*>(do_slots + BQ * HD / 4);
+  uint32_t* ks = kb + TILE;
+  uint32_t* vb = EXACT ? ks : ks + TILE;
+  uint32_t* vs = vb + TILE;
+  uint32_t* ktb = EXACT ? vs : vs + TILE;
+  uint32_t* kts = ktb + TILE;
+  T* raw_k = reinterpret_cast<T*>(EXACT ? kts : kts + TILE);
+  T* raw_v = raw_k + TILE;
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q0 = qb * BQ;
+  const int q_stride = H * HD, kv_stride = KV * HD;
+  const size_t q_off = (size_t)b * S * q_stride + (size_t)h * HD;
+  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * HD;
+
+  int k_hi = S - 1;
+  if (causal) k_hi = min(k_hi, q0 + BQ - 1);
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kt_begin = k_lo / BKQ, kt_end = k_hi / BKQ;
+
+  load_raw<T, HD, BKQ, NT>(raw_k, k + kv_off, kt_begin * BKQ, S, kv_stride);
+  load_raw<T, HD, BKQ, NT>(raw_v, v + kv_off, kt_begin * BKQ, S, kv_stride);
+  cp_async_commit();
+  // D of this thread's rows qi0 = q0 + 16w + g and qi1 = qi0 + 8 from the
+  // dO values its slots take and O at the same places: each thread of the
+  // quad sums its quarter in k order, then two shuffles.
+  const int qi0 = q0 + 16 * w + g, qi1 = qi0 + 8;
+  const float* lse_row = lse + ((size_t)b * H + h) * S;
+  float* d_row = dsum + ((size_t)b * H + h) * S;
+  float d_i[2], lse_i[2];
+  lse_i[0] = qi0 < S ? lse_row[qi0] * LOG2E : 0.f;
+  lse_i[1] = qi1 < S ? lse_row[qi1] * LOG2E : 0.f;
+  fill_slots<T, HD>(do_slots, dout + q_off, q0, S, q_stride, o + q_off, d_i);
+  fill_slots<T, HD>(q_slots, q + q_off, q0, S, q_stride);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-      wv[a] = *reinterpret_cast<const float4*>(W + (ty + 16 * a) * PSTR + j);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int g = 0; g < NC; ++g) {
-        const float4 mv = *reinterpret_cast<const float4*>(
-            M + (j + e) * STR + 64 * g + 4 * tx);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float w = lane4(wv[a], e);
-          acc[a][4 * g + 0] = fmaf(w, mv.x, acc[a][4 * g + 0]);
-          acc[a][4 * g + 1] = fmaf(w, mv.y, acc[a][4 * g + 1]);
-          acc[a][4 * g + 2] = fmaf(w, mv.z, acc[a][4 * g + 2]);
-          acc[a][4 * g + 3] = fmaf(w, mv.w, acc[a][4 * g + 3]);
-        }
-      }
+  for (int r = 0; r < 2; ++r) {
+    d_i[r] += __shfl_xor_sync(0xffffffffu, d_i[r], 1);
+    d_i[r] += __shfl_xor_sync(0xffffffffu, d_i[r], 2);
+    const int qi = r ? qi1 : qi0;
+    if (qi < S && t == 0) d_row[qi] = d_i[r];
   }
-}
 
-// acc[a][4g+e] += sum_i W[i][ty+16a] * M[i][64g + 4tx + e]   (Wᵀ times M)
-template <int HD, int STR>
-__device__ __forceinline__ void acc_cols(float (&acc)[4][HD / 16],
-                                         const float* W, const float* M,
-                                         int ty, int tx) {
-  constexpr int NC = HD / 64;
-#pragma unroll 4
-  for (int i = 0; i < BQ; ++i) {
-    float w[4];
+  float dq_acc[NC][32];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) w[a] = W[i * PSTR + ty + 16 * a];
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int g = 0; g < NC; ++g) {
-      const float4 mv = *reinterpret_cast<const float4*>(
-          M + i * STR + 64 * g + 4 * tx);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        acc[a][4 * g + 0] = fmaf(w[a], mv.x, acc[a][4 * g + 0]);
-        acc[a][4 * g + 1] = fmaf(w[a], mv.y, acc[a][4 * g + 1]);
-        acc[a][4 * g + 2] = fmaf(w[a], mv.z, acc[a][4 * g + 2]);
-        acc[a][4 * g + 3] = fmaf(w[a], mv.w, acc[a][4 * g + 3]);
-      }
+    for (int i = 0; i < 32; ++i) dq_acc[c][i] = 0.f;
+
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int k0 = kt * BKQ;
+    cp_async_wait_all();
+    __syncthreads();                   // the tile is in; last step's wgmma done
+    split_kmajor<T, HD, BKQ, NT, EXACT>(kb, ks, raw_k);
+    split_kmajor<T, HD, BKQ, NT, EXACT>(vb, vs, raw_v);
+    split_trans<T, HD, BKQ, NT, EXACT>(ktb, kts, raw_k);
+    fence_to_tensor_cores();
+    __syncthreads();                   // the raw tile is free
+    if (kt < kt_end) {
+      load_raw<T, HD, BKQ, NT>(raw_k, k + kv_off, k0 + BKQ, S, kv_stride);
+      load_raw<T, HD, BKQ, NT>(raw_v, v + kv_off, k0 + BKQ, S, kv_stride);
+      cp_async_commit();
     }
-  }
-}
 
-// P and dS of one 64x64 (query, key) tile from the scores s and dP, stored
-// row-major [query][key] into Ps and dSs.  Thread (ty, tx) holds query rows
-// ty+16a and keys tx+16c.
-__device__ __forceinline__ void probs_and_grads(
-    const float (&s)[4][4], const float (&dp)[4][4], const float* lse_s,
-    const float* d_s, float* Ps, float* dSs, int q0, int k0, int S,
-    int causal, int window, float softcap, int ty, int tx) {
+    float s[16], dp[16];
+    mma_slots<32, HD / 8, BKQ, EXACT>(s, q_slots, kb, ks);
+    mma_slots<32, HD / 8, BKQ, EXACT>(dp, do_slots, vb, vs);
+    wgmma_wait<0>();
+
+    // s[4j + e]: row qi0 (qi1 for e >= 2), key k0 + 8j + 2t + (e & 1).
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a;
-    const int qi = q0 + r;
-    const float lse_i = lse_s[r];
-    const float d_i = d_s[r];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int ki = k0 + tx + 16 * c;
-      float x = s[a][c];
-      float deriv = 1.f;
-      if (softcap > 0.f) {
-        x = softcap * tanhf(x / softcap);
-        const float t = x / softcap;
-        deriv = 1.f - t * t;
-      }
+    for (int i = 0; i < 16; ++i) {
+      const int r = (i >> 1) & 1;
+      const int qi = r ? qi1 : qi0;
+      const int ki = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
       bool ok = qi < S && ki < S;
-      if (causal) ok = ok && (qi >= ki);
-      if (window > 0) ok = ok && (qi - ki < window);
-      const float p = ok ? expf(x - lse_i) : 0.f;
-      Ps[r * PSTR + tx + 16 * c] = p;
-      dSs[r * PSTR + tx + 16 * c] = p * (dp[a][c] - d_i) * deriv;
+      if (causal) ok = ok && qi >= ki;
+      if (window > 0) ok = ok && qi - ki < window;
+      float p;
+      probs_and_grad(s[i] * scale, dp[i], lse_i[r], d_i[r], ok, softcap, p,
+                     s[i]);
+    }
+
+    // dQ += dS K, the step's product summed afresh (one 64-column block
+    // after the other).
+    uint32_t ab[4][4], as[4][4];
+    frags_from_acc<4, EXACT>(s, ab, as);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float part[32];
+      wgmma_fence();
+      mma_regs<4, HD, EXACT>(part, ab, as, ktb, kts, c);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq_acc[c][i] += part[i];
     }
   }
-}
 
-// lse and D of query rows q0..q0+63 of one head into shared memory
-// (0 past S: those rows are masked).
-__device__ __forceinline__ void load_rows(float* lse_s, float* d_s,
-                                          const float* lse_row,
-                                          const float* d_row, int q0, int S) {
-  if (threadIdx.x < BQ) {
-    const int qi = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = qi < S ? lse_row[qi] : 0.f;
-    d_s[threadIdx.x] = qi < S ? d_row[qi] : 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r ? qi1 : qi0;
+    if (qi >= S) continue;
+    T* row = dq + q_off + (size_t)qi * q_stride;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        store2(row + 64 * c + 8 * j + 2 * t, dq_acc[c][4 * j + 2 * r] * scale,
+               dq_acc[c][4 * j + 2 * r + 1] * scale);
   }
 }
 
 template <int HD, typename T>
-__device__ __forceinline__ void store_rows(T* base, const float (&acc)[4][HD / 16],
-                                           int row0, int S, int row_stride,
-                                           float scale, int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = row0 + ty + 16 * a;
-    if (r >= S) continue;
-#pragma unroll
-    for (int g = 0; g < HD / 64; ++g)
-      store4(base + (size_t)r * row_stride + 64 * g + 4 * tx,
-             make_float4(acc[a][4 * g + 0] * scale, acc[a][4 * g + 1] * scale,
-                         acc[a][4 * g + 2] * scale, acc[a][4 * g + 3] * scale));
-  }
-}
-
-// D[b, h, s] = sum_d dO[b, s, h, d] * o[b, s, h, d]; one warp per row.
-template <int HD, typename T>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dsum_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                      float* __restrict__ dsum, int S, int H, long long rows) {
-  const long long r = (long long)blockIdx.x * (NTHREADS / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= rows) return;                 // whole warps leave together
-  const T* orow = o + r * HD;
-  const T* drow = dout + r * HD;
-  float acc = 0.f;
-#pragma unroll
-  for (int d = lane; d < HD; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const long long h = r % H;
-    const long long s = (r / H) % S;
-    const long long b = r / ((long long)H * S);
-    dsum[(b * H + h) * S + s] = acc;
-  }
-}
-
-template <int HD, typename T>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(HD * 2, HD == 64 ? 2 : 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ dsum, T* __restrict__ dk,
                       T* __restrict__ dv, int S, int H, int KV, int causal,
                       int window, float softcap, float scale) {
-  constexpr int STR = HD + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                      // [BK][STR]
-  float* Vs = Ks + BK * STR;             // [BK][STR]
-  float* Qs = Vs + BK * STR;             // [BQ][STR], pre-scaled
-  float* dOs = Qs + BQ * STR;            // [BQ][STR]
-  float* Ps = dOs + BQ * STR;            // [BQ][PSTR]
-  float* dSs = Ps + BQ * PSTR;           // [BQ][PSTR]
-  float* lse_s = dSs + BQ * PSTR;        // [BQ]
-  float* d_s = lse_s + BQ;               // [BQ]
+  constexpr bool EXACT = kExact<T>;
+  constexpr int NT = HD * 2;             // one warpgroup per 64 columns
+  constexpr int TILE = BQS * HD;
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float4* k_slots = reinterpret_cast<float4*>(smem_raw);
+  float4* v_slots = k_slots + BK * HD / 4;
+  uint32_t* qb_ = reinterpret_cast<uint32_t*>(v_slots + BK * HD / 4);
+  uint32_t* qs_ = qb_ + TILE;
+  uint32_t* dob = EXACT ? qs_ : qs_ + TILE;
+  uint32_t* dos = dob + TILE;
+  uint32_t* qtb = EXACT ? dos : dos + TILE;
+  uint32_t* qts = qtb + TILE;
+  uint32_t* dotb = EXACT ? qts : qts + TILE;
+  uint32_t* dots = dotb + TILE;
+  T* raw_q = reinterpret_cast<T*>(EXACT ? dots : dots + TILE);
+  T* raw_do = raw_q + TILE;
+  float* lse_s = reinterpret_cast<float*>(raw_do + TILE);   // [2][BQS]
+  float* d_s = lse_s + 2 * BQS;                             // [2][BQS]
+
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int wg = threadIdx.x >> 7;       // this warpgroup's 64 columns
+  const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * BK;        // low key tiles see the most queries
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
-  const int q_stride = H * HD;
-  const int kv_stride = KV * HD;
+  const int q_stride = H * HD, kv_stride = KV * HD;
   const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * HD;
 
-  load_tile<HD, STR>(Ks, k + kv_off, k0, S, kv_stride, 1.f);
-  load_tile<HD, STR>(Vs, v + kv_off, k0, S, kv_stride, 1.f);
+  // Query steps that can see keys k0 .. min(k0 + 63, S - 1).
+  const int nsteps_all = (S + BQS - 1) / BQS;
+  const int qs_begin = causal ? k0 / BQS : 0;
+  int qs_end = nsteps_all - 1;
+  if (window > 0)
+    qs_end = min(qs_end, (min(k0 + BK - 1, S - 1) + window - 1) / BQS);
+  const int nsteps = qs_end - qs_begin + 1;
+  const int total = G * nsteps;
 
-  // Query tiles that can see keys k0..min(k0+63, S-1).
-  const int nq = (S + BQ - 1) / BQ;
-  const int qt_begin = causal ? k0 / BQ : 0;
-  int qt_end = nq - 1;
-  if (window > 0) qt_end = min(qt_end, (min(k0 + BK - 1, S - 1) + window - 1) / BQ);
+  auto q_offset = [&](int it) {
+    return (size_t)b * S * q_stride + (size_t)(kvh * G + it / nsteps) * HD;
+  };
+  auto q_start = [&](int it) { return (qs_begin + it % nsteps) * BQS; };
+  // Step it's Q and dO rows, and its lse and D into buffer it % 2.
+  auto load_step = [&](int it) {
+    load_raw<T, HD, BQS, NT>(raw_q, q + q_offset(it), q_start(it), S,
+                             q_stride);
+    load_raw<T, HD, BQS, NT>(raw_do, dout + q_offset(it), q_start(it), S,
+                             q_stride);
+    if (threadIdx.x < 2 * BQS) {
+      const int i = threadIdx.x % BQS, qi = q_start(it) + i;
+      const float* src = (threadIdx.x < BQS ? lse : dsum) +
+                         ((size_t)b * H + kvh * G + it / nsteps) * S;
+      float* dst = (threadIdx.x < BQS ? lse_s : d_s) + (it & 1) * BQS + i;
+      cp_async4(dst, qi < S ? src + qi : src, qi < S ? 4 : 0);
+    }
+    cp_async_commit();
+  };
 
-  float dk_acc[4][HD / 16], dv_acc[4][HD / 16];
+  load_step(0);
+  if (wg == 0) {
+    fill_slots<T, HD>(k_slots, k + kv_off, k0, S, kv_stride);
+    fill_slots<T, HD>(v_slots, v + kv_off, k0, S, kv_stride);
+  }
+
+  // This thread's keys: k0 + 16w + g and + 8.
+  const int ki0 = k0 + 16 * w + g, ki1 = ki0 + 8;
+  float dk_acc[32], dv_acc[32];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = kvh * G + hh;
-    const size_t q_off = (size_t)b * S * q_stride + (size_t)h * HD;
-    const float* lse_row = lse + ((size_t)b * H + h) * S;
-    const float* d_row = dsum + ((size_t)b * H + h) * S;
-    for (int qt = qt_begin; qt <= qt_end; ++qt) {
-      const int q0 = qt * BQ;
-      load_tile<HD, STR>(Qs, q + q_off, q0, S, q_stride, scale);
-      load_tile<HD, STR>(dOs, dout + q_off, q0, S, q_stride, 1.f);
-      load_rows(lse_s, d_s, lse_row, d_row, q0, S);
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_dots<HD, STR>(s, Qs, Ks, ty, tx);
-      tile_dots<HD, STR>(dp, dOs, Vs, ty, tx);
-      probs_and_grads(s, dp, lse_s, d_s, Ps, dSs, q0, k0, S, causal, window,
-                      softcap, ty, tx);
-      __syncthreads();
-      acc_cols<HD, STR>(dv_acc, Ps, dOs, ty, tx);     // dV += Pᵀ dO
-      acc_cols<HD, STR>(dk_acc, dSs, Qs, ty, tx);     // dK += dSᵀ (q·scale)
-      __syncthreads();
+  for (int it = 0; it < total; ++it) {
+    const int q0 = q_start(it);
+    const float* lse_b = lse_s + (it & 1) * BQS;
+    const float* d_b = d_s + (it & 1) * BQS;
+    cp_async_wait_all();
+    __syncthreads();                   // the tile is in; last step's wgmma done
+    split_kmajor<T, HD, BQS, NT, EXACT>(qb_, qs_, raw_q);
+    split_kmajor<T, HD, BQS, NT, EXACT>(dob, dos, raw_do);
+    split_trans<T, HD, BQS, NT, EXACT>(qtb, qts, raw_q);
+    split_trans<T, HD, BQS, NT, EXACT>(dotb, dots, raw_do);
+    fence_to_tensor_cores();
+    __syncthreads();                   // the raw tile is free
+    if (it + 1 < total) load_step(it + 1);
+
+    float st[16], dpt[16];
+    mma_slots<32, HD / 8, BQS, EXACT>(st, k_slots, qb_, qs_);
+    mma_slots<32, HD / 8, BQS, EXACT>(dpt, v_slots, dob, dos);
+    wgmma_wait<0>();
+
+    // st[4j + e]: key ki0 (ki1 for e >= 2), query q0 + 8j + 2t + (e & 1).
+    float pt[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int ki = (i & 2) ? ki1 : ki0;
+      const int c = 8 * (i >> 2) + 2 * t + (i & 1);
+      const int qi = q0 + c;
+      bool ok = qi < S && ki < S;
+      if (causal) ok = ok && qi >= ki;
+      if (window > 0) ok = ok && qi - ki < window;
+      probs_and_grad(st[i] * scale, dpt[i], lse_b[c] * LOG2E, d_b[c], ok,
+                     softcap, pt[i], dpt[i]);
+    }
+
+    // dV += Pᵀ dO and dK += dSᵀ Q over this warpgroup's 64 columns, each
+    // step's product summed afresh.
+    uint32_t pb[4][4], ps[4][4], sb[4][4], ss[4][4];
+    frags_from_acc<4, EXACT>(pt, pb, ps);
+    frags_from_acc<4, EXACT>(dpt, sb, ss);
+    float part_v[32], part_k[32];
+    wgmma_fence();
+    mma_regs<4, HD, EXACT>(part_v, pb, ps, dotb, dots, wg);
+    mma_regs<4, HD, EXACT>(part_k, sb, ss, qtb, qts, wg);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      dv_acc[i] += part_v[i];
+      dk_acc[i] += part_k[i];
     }
   }
-  store_rows<HD>(dk + kv_off, dk_acc, k0, S, kv_stride, 1.f, ty, tx);
-  store_rows<HD>(dv + kv_off, dv_acc, k0, S, kv_stride, 1.f, ty, tx);
-}
 
-template <int HD, typename T>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dsum, T* __restrict__ dq, int S,
-                    int H, int KV, int causal, int window, float softcap,
-                    float scale) {
-  constexpr int STR = HD + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                      // [BQ][STR], pre-scaled
-  float* dOs = Qs + BQ * STR;            // [BQ][STR]
-  float* Ks = dOs + BQ * STR;            // [BK][STR]
-  float* Vs = Ks + BK * STR;             // [BK][STR]
-  float* dSs = Vs + BK * STR;            // [BQ][PSTR]
-  float* Ps = dSs + BQ * PSTR;           // [BQ][PSTR] (written, not read)
-  float* lse_s = Ps + BQ * PSTR;         // [BQ]
-  float* d_s = lse_s + BQ;               // [BQ]
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int qb = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int q0 = qb * BQ;
-  const int q_stride = H * HD;
-  const int kv_stride = KV * HD;
-  const size_t q_off = (size_t)b * S * q_stride + (size_t)h * HD;
-  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * HD;
-
-  load_tile<HD, STR>(Qs, q + q_off, q0, S, q_stride, scale);
-  load_tile<HD, STR>(dOs, dout + q_off, q0, S, q_stride, 1.f);
-  load_rows(lse_s, d_s, lse + ((size_t)b * H + h) * S,
-            dsum + ((size_t)b * H + h) * S, q0, S);
-
-  int k_hi = S - 1;
-  if (causal) k_hi = min(k_hi, q0 + BQ - 1);
-  int k_lo = 0;
-  if (window > 0) k_lo = max(0, q0 - window + 1);
-
-  float dq_acc[4][HD / 16];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int r = 0; r < 2; ++r) {
+    const int ki = r ? ki1 : ki0;
+    if (ki >= S) continue;
+    T* krow = dk + kv_off + (size_t)ki * kv_stride + 64 * wg;
+    T* vrow = dv + kv_off + (size_t)ki * kv_stride + 64 * wg;
 #pragma unroll
-    for (int c = 0; c < HD / 16; ++c) dq_acc[a][c] = 0.f;
-
-  for (int kt = k_lo / BK; kt <= k_hi / BK; ++kt) {
-    const int k0 = kt * BK;
-    load_tile<HD, STR>(Ks, k + kv_off, k0, S, kv_stride, 1.f);
-    load_tile<HD, STR>(Vs, v + kv_off, k0, S, kv_stride, 1.f);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dots<HD, STR>(s, Qs, Ks, ty, tx);
-    tile_dots<HD, STR>(dp, dOs, Vs, ty, tx);
-    probs_and_grads(s, dp, lse_s, d_s, Ps, dSs, q0, k0, S, causal, window,
-                    softcap, ty, tx);
-    __syncthreads();
-    acc_rows<HD, STR>(dq_acc, dSs, Ks, ty, tx);         // dQ += dS K
-    __syncthreads();
+    for (int j = 0; j < 8; ++j) {
+      store2(krow + 8 * j + 2 * t, dk_acc[4 * j + 2 * r] * scale,
+             dk_acc[4 * j + 2 * r + 1] * scale);
+      store2(vrow + 8 * j + 2 * t, dv_acc[4 * j + 2 * r],
+             dv_acc[4 * j + 2 * r + 1]);
+    }
   }
-  store_rows<HD>(dq + q_off, dq_acc, q0, S, q_stride, scale, ty, tx);
 }
 
-template <int HD>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (HD + 4) + 2 * 64 * PSTR + 2 * 64);
+template <typename K>
+cudaError_t prepare(K kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 template <int HD, typename T>
@@ -378,46 +413,37 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        float* dsum, void* dq, void* dk, void* dv, int B, int S,
                        int H, int KV, int causal, int window, float softcap,
                        cudaStream_t stream) {
-  const long long rows = (long long)B * S * H;
-  const int per_block = NTHREADS / 32;
-  flash_bwd_dsum_kernel<HD, T><<<(unsigned)((rows + per_block - 1) / per_block),
-                                 NTHREADS, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), dsum, S, H, rows);
-  cudaError_t err = cudaGetLastError();
+  const float scale = 1.0f / sqrtf((float)HD);
+  constexpr int dq_smem = dq_smem_bytes<HD, T>();
+  cudaError_t err = prepare(flash_bwd_dq_kernel<HD, T>, dq_smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<HD, T><<<dim3((S + BQ - 1) / BQ, H, B), 128, dq_smem,
+                               stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), S, H, KV,
+      causal, window, softcap, scale);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem = bwd_smem_bytes<HD>();
-  const float scale = 1.0f / sqrtf((float)HD);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  constexpr int kv_smem = dkdv_smem_bytes<HD, T>();
+  err = prepare(flash_bwd_dkdv_kernel<HD, T>, kv_smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<HD, T><<<dim3((S + BK - 1) / BK, KV, B), NTHREADS,
-                                 smem, stream>>>(
+  flash_bwd_dkdv_kernel<HD, T><<<dim3((S + BK - 1) / BK, KV, B), HD * 2,
+                                 kv_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
       static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, causal, window,
       softcap, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<HD, T><<<dim3((S + BQ - 1) / BQ, H, B), NTHREADS, smem,
-                               stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
-      static_cast<T*>(dq), S, H, KV, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv share it).
-// lse (B, H, S) f32 from the forward; dsum (B, H, S) f32 is scratch.
-// Returns the first cudaError_t (0 = all three launched).
+// lse (B, H, S) f32 from the forward; dsum (B, H, S) f32 is scratch, D as
+// the dq launch writes it for the dkdv launch.  Returns the first
+// cudaError_t (0 = both launched).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
@@ -425,7 +451,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int B, int S, int H, int KV, int hd,
                                    int dtype, int causal, int window,
                                    float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
+  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
+      H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_BWD(HD_, T_)                                                      \

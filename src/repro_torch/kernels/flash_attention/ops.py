@@ -26,9 +26,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
 # Launches of the CUDA forward kernel, and calls of the CUDA backward (each
-# one dsum, one dK/dV and one dQ launch), in this process; the chip smoke
-# run resets them and reads them to show that the serving and training
-# paths went through the kernels.
+# one dQ launch, which also writes D = rowsum(dO * o), then one dK/dV
+# launch), in this process; the chip smoke run resets them and reads them
+# to show that the serving and training paths went through the kernels.
 KERNEL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
@@ -139,6 +139,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
                          f"({B}, {H}, {S}) on {q.device}")
     lib = _library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # D of every row, written by the dQ launch for the dK/dV launch.
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -7,8 +7,11 @@ softcap and GQA grid of ``tests/test_kernels.py``.  Tolerances: 1e-5 in
 f32 (both sides sum in f32, in other orders); 2e-2 in bf16, where both
 sides compute in f32 and round the output to bf16 once (a relative step of
 2^-8), so one rounding may land on either side.  The CUDA kernel itself is
-held against the plain version on the card by ``test_torch_gpu.py``.
+held against the plain version on the card by ``test_torch_gpu.py``; its
+3xTF32 products are emulated here, with TF32 rounding, against f64.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,3 +148,95 @@ def test_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
     # the library name follows the sources: an edit means a rebuild
     assert _build.library_path("flash_attention").startswith(
         str(tmp_path / "build" / "flash_attention-"))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' 3xTF32 products against plain TF32, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's FA_F64_TOL (the kernels' f32 results against f64) and
+# TOL[float32] (the kernels against their plain f32 version).
+FA_F64_TOL = 1e-5
+KERNEL_F32_TOL = 1e-4
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: round f32 to 10 mantissa bits, to nearest with
+    ties away from zero (the sign-magnitude bits round up on a half)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The kernels' product: each operand split into big = tf32(x) and
+    small = tf32(x - big); small*small dropped.  Products of TF32 values
+    are exact in f32, the sums f32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention_and_grads(q, k, v, do, mm, causal, window, softcap):
+    """The kernels' arithmetic on (B, H, S, hd) tensors, every product
+    through ``mm``: the forward S = Q Kᵀ (scaled after the product), the
+    softmax in the tensors' type, O = P V / l and the logsumexp; the
+    backward from them, dP = dO Vᵀ, dS = P (dP - D) and the softcap's
+    derivative, dQ = dS K, dK = dSᵀ Q, dV = Pᵀ dO."""
+    S, hd = q.shape[-2], q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    x = mm(q, k.transpose(-1, -2)) * scale
+    deriv = torch.ones_like(x)
+    if softcap > 0:
+        x = softcap * torch.tanh(x / softcap)
+        deriv = 1 - (x / softcap) ** 2
+    i = torch.arange(S)
+    keep = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        keep &= i[:, None] >= i[None, :]
+    if window > 0:
+        keep &= (i[:, None] - i[None, :]) < window
+    x = torch.where(keep, x, torch.full((), ref.NEG_INF, dtype=x.dtype))
+    m = x.amax(-1, keepdim=True)
+    p = torch.exp(x - m)
+    l = p.sum(-1, keepdim=True)
+    out = mm(p, v) / l
+    lse = m + torch.log(l)
+    p = torch.where(keep, torch.exp(x - lse), torch.zeros((), dtype=x.dtype))
+    d = (do * out).sum(-1, keepdim=True)
+    ds = p * (mm(do, v.transpose(-1, -2)) - d) * deriv
+    return (out, mm(ds, k) * scale, mm(ds.transpose(-1, -2), q) * scale,
+            mm(p.transpose(-1, -2), do))
+
+
+@pytest.mark.parametrize("causal,window,softcap", [(True, 0, 0.0),
+                                                   (True, 32, 0.0),
+                                                   (True, 0, 30.0),
+                                                   (False, 0, 0.0)])
+def test_3xtf32_attention_holds_f64_and_one_tf32_pass_does_not(
+        causal, window, softcap):
+    """With 3xTF32 products the forward stays within FA_F64_TOL of f64 (max
+    abs) and so do the gradients (relative to max(1, largest)); one TF32
+    pass misses the kernels' f32 tolerance.  The f64 arithmetic is held to
+    the JAX oracle first."""
+    q, k, v = _qkv(7, 1, 128, 2, 2, 64)
+    do = _qkv(8, 1, 128, 2, 2, 64)[0]
+    kw = dict(causal=causal, window=window, logit_softcap=softcap)
+    oracle = jax_ref.naive_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                     **kw)
+    bhsd = [torch.from_numpy(x).transpose(1, 2).contiguous()
+            for x in (q, k, v, do)]
+    want = _attention_and_grads(*(t.double() for t in bhsd), torch.matmul,
+                                causal, window, softcap)
+    np.testing.assert_allclose(want[0].transpose(1, 2).numpy(), _np(oracle),
+                               atol=F32_TOL)
+    got = _attention_and_grads(*bhsd, _mm_3xtf32, causal, window, softcap)
+    one = _attention_and_grads(*bhsd, _mm_tf32, causal, window, softcap)
+    assert (got[0].double() - want[0]).abs().max().item() <= FA_F64_TOL
+    for g, w in zip(got[1:], want[1:]):
+        scale = max(1.0, w.abs().max().item())
+        assert (g.double() - w).abs().max().item() / scale <= FA_F64_TOL
+    assert (one[0].double() - want[0]).abs().max().item() > KERNEL_F32_TOL

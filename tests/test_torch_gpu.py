@@ -10,8 +10,9 @@ that has only PyTorch.  Without a card every test skips (decided in a
 fixture when the test runs, so that test workers all collect the same
 tests).  Tolerances of the attention kernels: 1e-4 in f32 (both sides sum
 in f32, in other orders); 2e-2 in bf16, where both sides round the output
-to bf16 once.  The training kernels' tolerances are stated above their
-tests.
+to bf16 once; in f32 also 1e-5 against an f64 version, which tells the
+kernels' 3xTF32 products from plain TF32.  The training kernels'
+tolerances are stated above their tests.
 """
 import dataclasses
 
@@ -285,6 +286,70 @@ def test_serving_forward_is_unchanged_by_the_lse_output(cuda_device):
         + torch.triu(torch.full((100, 100), -1e30, device=cuda_device), 1),
         dim=-1)
     assert (lse - want).abs().max().item() < 1e-4
+
+
+def _attention_f64(q, k, v, causal, window, softcap):
+    """Attention in f64 with the kernels' masks and softcap; GQA by
+    repeated K/V."""
+    q, k, v = (t.double() for t in (q, k, v))
+    G = q.shape[2] // k.shape[2]
+    k, v = (t.repeat_interleave(G, dim=2) for t in (k, v))
+    S = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    i = torch.arange(S, device=q.device)
+    keep = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= i[:, None] >= i[None, :]
+    if window > 0:
+        keep &= (i[:, None] - i[None, :]) < window
+    s = s.masked_fill(~keep, -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+# The f32 kernels against f64 (the forward's max abs error, the gradients
+# relative to max(1, largest)): their 3xTF32 products keep them about as
+# close as the plain f32 version (~1e-6); one TF32 pass is ~7e-4 off.
+FA_F64_TOL = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,H,KV,causal,window,softcap", [
+    (200, 4, 4, True, 0, 0.0), (150, 8, 2, True, 32, 30.0),
+    (130, 4, 2, False, 0, 0.0)])
+def test_flash_f32_is_within_1e5_of_f64(cuda_device, hd, S, H, KV, causal,
+                                         window, softcap):
+    q, k, v = (torch.from_numpy(x).to(cuda_device)
+               for x in _qkv(13, 2, S, H, KV, hd))
+    do = torch.from_numpy(_qkv(14, 2, S, H, KV, hd)[0]).to(cuda_device)
+    kw = dict(causal=causal, window=window, logit_softcap=softcap)
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    want = _attention_f64(*leaves, causal, window, softcap)
+    want_grads = torch.autograd.grad(want, leaves, do.double())
+    got = ops.flash_attention(q, k, v, **kw)
+    assert (got.double() - want).abs().max().item() <= FA_F64_TOL
+    for g, w in zip(_grads(q, k, v, do, kw, "auto"), want_grads):
+        assert _rel(g.double(), w, floor=1.0) <= FA_F64_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_repeats_are_bit_identical(cuda_device, dtype, hd):
+    """No atomics and fixed sum orders: the same inputs give the same bits,
+    forward and backward."""
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(cuda_device, td)
+               for x in _qkv(15, 2, 300, 8, 2, hd))
+    do = torch.from_numpy(_qkv(16, 2, 300, 8, 2, hd)[0]).to(cuda_device, td)
+    with torch.no_grad():
+        assert torch.equal(ops.flash_attention(q, k, v),
+                           ops.flash_attention(q, k, v))
+    first = _grads(q, k, v, do, {}, "auto")
+    for a, b in zip(first, _grads(q, k, v, do, {}, "auto")):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
