@@ -13,7 +13,9 @@ result):
    selective scan), compiled from
    the sources in this checkout at once, one ``nvcc`` per kernel package,
    with ``-Xptxas -v`` register/shared-memory use; every flash entry
-   function's registers and spill bytes, none of the 12 spilling;
+   function's registers and spill bytes, none of the 12 spilling, and the
+   same for the 32 paged-decode entry functions (q dtype x page dtype x
+   head dim x one or eight heads per kv head);
 3. kernel parity: the flash-attention kernel against its plain PyTorch
    version on the card over dtype x causal x window x softcap x MHA/GQA x
    head dim x ragged lengths, plus jamba's attention shape and the serving
@@ -50,7 +52,11 @@ result):
    the one backend PyTorch's dispatch picks, named), at the main paths'
    shapes, beside the bound (for the flash kernels both the 3xTF32
    route's and the f32 FMA one); the paged kernel over f32,
-   int8 and fp8 pages;
+   int8 and fp8 pages, with the L2 flushed and warm and back to back with
+   its host wrapper, after a ``torch.profiler`` reading that one call as
+   the main path makes it (an int64 cursor) runs exactly one device kernel
+   and a check that repeated calls give the same bits (f32 and int8
+   pages), and the cluster size it chose at the timing shape;
 9. training parity: the Newton–Schulz chain (``ns_fused``) and ``matmul``
    against their plain versions over stack sizes, aspects, ragged dims,
    dtypes and the exact ``gpt2-12l`` shapes (the tied embedding's too),
@@ -543,19 +549,16 @@ def sdpa_yardstick(q, k, v):
     return timed, backend.name
 
 
-def flash_registers(build_log: str) -> list:
-    """(entry, registers, spill bytes stored + loaded) of every flash entry
-    function in ``-Xptxas -v`` output."""
+def _entry_registers(build_log: str, name_of) -> list:
+    """(name, registers, spill bytes stored + loaded) of every entry
+    function in ``-Xptxas -v`` output that ``name_of`` (mangled name ->
+    name or None) names."""
     import re
     rows, name, spill = [], None, 0
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_kernel)ILi(\d+)E"
-                          r"(f|13__nv_bfloat16)", m.group(1))
-            name = (f"{k.group(1)}<{k.group(2)}, "
-                    f"{'float' if k.group(3) == 'f' else 'bf16'}>"
-                    if k else None)
+            name = name_of(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -565,6 +568,36 @@ def flash_registers(build_log: str) -> list:
             rows.append((name, int(m.group(1)), spill))
             name, spill = None, 0
     return rows
+
+
+def flash_registers(build_log: str) -> list:
+    """(entry, registers, spill bytes) of every flash entry function."""
+    import re
+
+    def name_of(mangled):
+        k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_kernel)ILi(\d+)E"
+                      r"(f|13__nv_bfloat16)", mangled)
+        return (f"{k.group(1)}<{k.group(2)}, "
+                f"{'float' if k.group(3) == 'f' else 'bf16'}>" if k else None)
+    return _entry_registers(build_log, name_of)
+
+
+_PAGE_NAMES = {"0": "f32", "1": "bf16", "2": "int8", "3": "fp8"}
+
+
+def paged_registers(build_log: str) -> list:
+    """(entry, registers, spill bytes) of every paged decode entry function
+    (q dtype, page dtype, head dim, GM: the query heads per kv head it
+    carries, 1 or 8)."""
+    import re
+
+    def name_of(mangled):
+        k = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d)ELi"
+                      r"(\d+)ELi(\d)E", mangled)
+        return (f"paged<{'f32' if k.group(1) == 'f' else 'bf16'} q, "
+                f"{_PAGE_NAMES[k.group(2)]} pages, hd {k.group(3)}, "
+                f"GM {k.group(4)}>" if k else None)
+    return _entry_registers(build_log, name_of)
 
 
 def times(fa_ops):
@@ -906,6 +939,45 @@ def paged_times(pa_ops, kv_dtype=torch.float32):
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(op_ms, byte_ms),
                 bound_by="operations" if op_ms >= byte_ms else "bytes")
+
+
+def paged_one_kernel(pa_ops) -> dict:
+    """One call of the paged kernel as the main path makes it (an int64
+    cursor, the engine's; an int32 table) under ``torch.profiler``: the
+    device kernels it ran, which must be exactly one (no workspace, no
+    cursor cast); and the same call repeated gives the same bits, over f32
+    and int8 pages.  Returns {"device_kernels": [names], "n_split": ...}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    s = PAGED_SHAPE
+    B, H, KV, hd, bs, NB = (s[k] for k in ("B", "H", "KV", "hd", "bs", "NB"))
+    n_split = pa_ops.split_plan(B, KV, NB)
+    for kv in (torch.float32, torch.int8):
+        q, kp, vp, tbl, idx, ks, vs = paged_case(
+            B, H, KV, hd, bs, NB, torch.float32, kv, [s["cursor"]] * B,
+            seed=77, trash_row=False)
+        cursor = idx.long()
+        kw = dict(k_scales=ks, v_scales=vs, force="kernel")
+        first = pa_ops.paged_attention(q, kp, vp, tbl, cursor, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = pa_ops.paged_attention(q, kp, vp, tbl, cursor, **kw)
+            torch.cuda.synchronize()
+        kernels = [(e.name, getattr(e, "device_time_total", None))
+                   for e in prof.events() if e.device_type == DeviceType.CUDA]
+        same = all(torch.equal(first, pa_ops.paged_attention(
+            q, kp, vp, tbl, cursor, **kw)) for _ in range(3)) \
+            and torch.equal(first, again)
+        print(f"paged kernel ({str(kv)[6:]} pages, int64 cursor): one call "
+              f"ran {len(kernels)} device kernel(s) {kernels}; n_split "
+              f"{n_split} at the timing shape ({B * KV * n_split} CTAs); "
+              f"4 repeats {'bit-identical' if same else 'DIFFER'}")
+        if len(kernels) != 1:
+            _fail(f"one paged call ran {len(kernels)} device kernels: "
+                  f"{kernels}")
+        if not same:
+            _fail(f"paged kernel repeats over {kv} pages differ")
+    return {"device_kernels": [n for n, _ in kernels], "n_split": n_split}
 
 
 # ---------------------------------------------------------------------------
@@ -1918,6 +1990,12 @@ def main() -> int:
         f"{n} {r}, {sp}" for n, r, sp in fa_regs))
     if len(fa_regs) != 12 or any(sp for _, _, sp in fa_regs):
         _fail(f"flash entry functions: {fa_regs} (12 expected, none spilling)")
+    pa_regs = paged_registers(_build.build_log("paged_attention"))
+    print("paged entry functions (registers, spill bytes): " + "; ".join(
+        f"{n} {r}, {sp}" for n, r, sp in pa_regs))
+    if len(pa_regs) != 32 or any(sp for _, _, sp in pa_regs):
+        _fail(f"paged entry functions: {pa_regs} (32 expected, none "
+              "spilling)")
 
     # 3-4. kernel parity on the card
     main_err = parity(fa_ops)
@@ -1952,6 +2030,7 @@ def main() -> int:
 
     # 8. times
     t = times(fa_ops)
+    pa_call = paged_one_kernel(pa_ops)
     tp = paged_times(pa_ops)
     tq = {name: paged_times(pa_ops, dt) for name, dt in
           (("int8", torch.int8), ("float8_e4m3fn", torch.float8_e4m3fn))}
@@ -2033,7 +2112,8 @@ def main() -> int:
                    "paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:97",
          "launches": paged_launches, "max_abs_err": paged_errs["float32"],
-         **tp, "quantized": quantized},
+         **tp, "quantized": quantized, **pa_call,
+         "registers_spills": [list(r) for r in pa_regs]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cu",

@@ -1,129 +1,154 @@
-// Paged-attention decode for Hopper (sm_90a), CUDA C++ with plain f32 FMA.
+// Paged-attention decode for Hopper (sm_90a), CUDA C++ with plain f32 FMA:
+// one launch a call, the splits of a row merged on chip in a thread-block
+// cluster, K/V pages copied into shared memory by pipelined cp.async.
 //
 // Replaces: src/repro/kernels/paged_attention/kernel.py:97
-// (paged_attention_tpu, Pallas body `_body`), float and quantized pages.
-// Same function:
-// one new query per row, q (B,1,H,hd), attends over the K/V pages
-// (NP,bs,KV,hd) that its block-table row (B,NB) int32 names, slots
-// s <= index[b] valid (int32 cursor; the new token is already written at
-// slot index[b]).  Scores are q·k with q pre-scaled by 1/sqrt(hd), then
+// (paged_attention_tpu, `pl.pallas_call` at :148), float pages and the
+// `quantized=True` body (dequant at :68-74).  Same function: one new query
+// per row, q (B,1,H,hd), attends over the K/V pages (NP,bs,KV,hd) that its
+// block-table row (B,NB) int32 names, slots s <= index[b] valid (the new
+// token is already written at slot index[b]; the cursor is int32 or int64).
+// Scores are q·k with q pre-scaled by 1/sqrt(hd), then
 // softcap·tanh(s/softcap), then the mask (NEG_INF = -1e30); online softmax
-// in f32; the output is acc / max(l, 1e-30) in q's dtype.  GQA: the G = H/KV
-// query heads of one kv head share every page read.  Pages past the cursor
-// are never read (the TPU kernel DMAs them and skips only the math).
-// q and the pages are f32 or bf16 independently (a bf16 pool under f32
-// activations); both become f32 in registers.  Quantized pages (the
-// `quantized=True` body, kernel.py:45, dequant at :68-74) are int8 or fp8
-// e4m3 with one f32 scale per (slot, kv head), read at slot * KV + kvh from
-// scale pages (NP, bs, KV, 1) through the same block-table entry as the
-// page: each loaded value is dequantized in registers right after the
-// load, float(k_q) * k_scale, then enters the FMA with the pre-scaled q;
-// V is dequantized the same way.  Everything after the load is the float
-// branch's.
+// in f32; the output is acc / max(l, 1e-30) in q's dtype.  GQA: the
+// G = H/KV <= 8 query heads of one kv head share every page read.  q is f32
+// or bf16, pages f32, bf16, int8 or fp8 e4m3; int8/fp8 pages come with one
+// f32 scale per (slot, kv head) in scale pages (NP,bs,KV,1), read through
+// the same table entry, and each value is dequantized in registers as
+// float(x_q) * scale before it meets q or p.  Pages past the cursor are
+// never read (the TPU kernel DMAs them and skips only the math).
 //
-// Bound on the card: decode reads every live K/V byte once and does
-// 4·hd FLOP per (head, token) against 2·hd·bytes of K/V per (kv head,
-// token): about 0.5 FLOP per byte in f32 (2 with 1-byte pages), far below
-// the H100's ~20 FLOP/byte f32 ridge.  It is bound by bytes.  At the
-// timing shape (B=8, H=KV=12, hd=64, bs=16, cursors 575) that is 28.3 MB,
-// ~8.5 us at 3.35 TB/s in f32; int8/fp8 pages read 7.08 MB of K/V plus
-// 0.44 MB of scales, ~2.3 us.
+// Bound on the card.  Decode reads every live K/V byte once and does
+// 4·hd·G FLOP per (kv head, token) against 2·hd·bytes of K/V: 0.5 FLOP a
+// byte over f32 pages and 2 over 1-byte pages at G = 1, far below the
+// H100's ~20 FLOP/byte f32 ridge.  It is bound by bytes, so the tensor
+// cores would buy nothing: scores and P·V stay in f32 FMA.  At the timing
+// shape (B=8, H=KV=12, hd=64, bs=16, cursors 575) that is 28.4 MB, ~8.5 us
+// at 3.35 TB/s, over f32 pages and 7.57 MB, ~2.3 us, over int8/fp8 pages.
 //
-// Design (flash-decoding).  A (B, KV) grid alone is 96 CTAs at B=8 on
-// 132 SMs, too few to pull the card's bandwidth.  So the row's token range
-// is split: pass 1 runs a (B, KV, n_split) grid, each CTA of 128 threads
-// walks its share of the row's live tokens in tiles, reading its own
-// block-table entries.  A token's K (then V) row is read by hd/VEC threads
-// with 16-byte loads (VEC = 4 f32 or 8 bf16) or, for 1-byte pages, 8-byte
-// loads (VEC = 8: the bf16 lane layout, so acc[MAXG][VEC] stays at the 64
-// floats a thread the bf16 build already holds without spilling, where 16
-// one-byte values a load would need 128); partial dot products are
-// reduced with warp shuffles; scores of a tile go to shared memory where one
-// warp per query head updates the running max m and sum l; each thread
-// keeps its slice of the accumulator for all G heads in registers.  At the
-// end the token lanes' accumulators are summed in shared memory and the
-// CTA writes a partial (m, l, acc[hd]) per head to an f32 workspace.  A
-// split that starts past the cursor writes m = -1e30, l = 0.  Pass 2, a
-// (B, H) grid of hd threads, merges the splits: M = max m_s,
-// out = sum acc_s e^(m_s - M) / max(sum l_s e^(m_s - M), 1e-30).  The
-// wrapper picks n_split so that B·KV·n_split is at least ~2x132 CTAs with
-// at least one page per split.
+// Design.
+// 1. One launch, grid (n_split, KV, B).  The n_split <= 8 CTAs of one
+//    (row, kv head) form a cluster (cudaLaunchKernelEx with
+//    cudaLaunchAttributeClusterDimension (n_split, 1, 1)).  Each CTA reads
+//    the row's cursor itself and takes its rank's share of the row's live
+//    pages: the ceil(live / bs) pages split evenly, pages per rank
+//    ceil(live pages / n_split), so a short row leaves the last ranks
+//    empty and no rank reads past the cursor, whatever the table's width.
+//    The wrapper chooses n_split (ops.split_plan): enough CTAs for about
+//    two per SM, at most 8, at most NB, and 1 once B·KV alone reaches
+//    that.  When B·KV·8 < 132 (B = KV = 1) the rest of the SMs idle.
+// 2. The row's block table goes into shared memory once, up front, loaded
+//    together with the cursor and q (pre-scaled, f32): one round trip of
+//    setup, and no page address in the loop waits on a table load.  The
+//    page of token t is found by a multiply with ceil(2^32 / bs) (exact
+//    while NB·bs·bs < 2^32).
+// 3. Each of the 4 warps walks every 4th tile of the CTA's range with its
+//    own ring of STAGES = 3 stages in shared memory.  A tile is TW tokens
+//    whose K rows (one kv head) make 2 KB, and their V rows another 2 KB:
+//    8 f32 tokens at hd 64, 32 one-byte tokens.  K and V of a tile, and
+//    for 1-byte pages their scales (4-byte copies per (slot, kv head)),
+//    are issued together as one cp.async group, 16 bytes a copy for every
+//    page dtype (16 one-byte values); rows past the range are zero-filled
+//    and never read from global memory.  While a warp computes one tile
+//    its next two are in flight: 8 KB a warp, 32 KB a CTA, and at the
+//    timing shape's 288 CTAs over 132 SMs ~70 KB an SM, above the
+//    ~25-32 KB that 3.35 TB/s at ~1 us of latency needs.  cp.async
+//    rather than TMA: the rows are gathered through the table one token
+//    at a time, which a tensor map cannot describe without one descriptor
+//    per page, built on the host on a loop that is already host-bound.
+//    Warps never wait for one another inside the loop: each keeps its own
+//    online softmax (m, l, acc), and __syncwarp orders its copies and
+//    reads.
+// 4. Compute reads shared memory with its own lane mapping.  Scores: the
+//    lanes of a token each take one 16-byte chunk of its K row (4..32
+//    lanes a token), dot it with q for every head (held in registers at
+//    G = 1, else read from shared memory, broadcast) and reduce with xor
+//    shuffles; the tile's max is one more shuffle step over the tokens.
+//    P·V: 4 dims a lane (16 lanes a token at hd 64, 32 at hd 128), the
+//    weights broadcast from shared memory, so the accumulator is
+//    acc[GM][4] whatever the page dtype.  GM, the heads a kernel carries,
+//    is 1 for G = 1 and 8 for G = 2..8 (heads past G run on a zero q and
+//    are dropped): no loop over heads branches, so the compiler
+//    interleaves the tile's independent chains.  Reductions run in a fixed
+//    order, so repeated calls give identical bits.
+// 5. The merge on chip.  Each warp leaves (m, l, acc[G][hd]) in shared
+//    memory and the CTA merges its 4 warps in warp order.  With n_split = 1
+//    that is the output.  Otherwise rank r owns a fixed slice of the G·hd
+//    outputs, and every CTA writes through distributed shared memory
+//    (cluster.map_shared_rank) its (m, l) into every rank and each element
+//    of its merged acc into the rank that owns it; after one cluster
+//    barrier (arrive.release, wait.acquire) each rank merges its slice
+//    from its own shared memory in rank order: M = max m,
+//    L = sum l e^(m-M), out = sum acc e^(m-M) / max(L, 1e-30).  Writing
+//    rather than reading the partials puts one cluster barrier and no
+//    remote round trip on the critical path: no CTA touches another's
+//    memory after the barrier, so none has to wait for the others before
+//    it exits.  The barrier that makes every CTA of the cluster run before
+//    the first remote write is split too: arrive after the setup, wait
+//    after the loop.  No workspace, no second pass.
 //
-// What the simple design leaves on the table: cp.async/TMA prefetch of the
-// next tile's pages while this tile computes (here each load is waited
-// for), packing several rows into one CTA when B·KV is already large, and
-// fusing pass 2 into pass 1 with a last-CTA-done counter.  At the serving
-// shape the two launches' fixed costs are of the order of the whole
-// byte bound.
+// Where the time goes at the timing shape (tools/paged_variants.py, its
+// ablations and plan sweep, H100 80GB HBM3 at 700 W): ~5 us of a reading
+// is launch and events (a one-thread kernel reads ~4.9-5.1 us), the setup
+// round trip ~1.4 us, the merges ~1.4 us; the rest is the page reads, and
+// for 1-byte pages ~1.6 (int8) to ~2.5 us (fp8) of dequantizing FMA after
+// the last tile lands (issue-bound: 3-5 instructions a value).  One CTA
+// per (row, kv head) reads ~5% faster with the L2 flushed (no merge) but
+// ~20% slower warm over f32 pages, so the plan keeps ~2 CTAs per SM.
+//
+// What it leaves on the table: reading all kv heads of a slot in one CTA
+// (a page row's 64-byte pieces now go to 12 CTAs at different times);
+// several rows per CTA when B·KV far exceeds the card; a warp-specialised
+// producer; the scale folded out of the dequantized products (kept as
+// float(x_q) * scale per value, the reference's arithmetic).
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NTHREADS = 128;     // 4 warps
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAXG = 8;           // query heads per kv head
-constexpr int TOK_PER_LANE = 4;   // tokens per token lane per tile
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = 32 * NWARPS;
+constexpr int MAXG = 8;            // query heads per kv head
+constexpr int MAX_CLUSTER = 8;     // the portable cluster size
+constexpr int STAGES = 3;          // ring depth of each warp
+constexpr int TILE_BYTES = 2048;   // K bytes of one warp tile (V the same)
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
-template <> struct Vec<int8_t> { static constexpr int N = 8; };
-template <> struct Vec<__nv_fp8_e4m3> { static constexpr int N = 8; };
+// Tile geometry of one instantiation: page dtype code KVC (0 f32, 1 bf16,
+// 2 int8, 3 fp8 e4m3), head dim HD and heads carried GM (1 or 8).
+template <int KVC, int HD, int GM>
+struct Shape {
+  static constexpr int ES = KVC == 0 ? 4 : KVC == 1 ? 2 : 1;  // bytes
+  static constexpr bool QUANT = KVC >= 2;
+  static constexpr int ROW = HD * ES;           // one token's K row
+  static constexpr int TW = TILE_BYTES / ROW;   // tokens of a warp tile
+  static constexpr int LPT = ROW / 16;          // score lanes a token
+  static constexpr int TGS = 32 / LPT;          // tokens a score sub-step
+  static constexpr int SUB = TW / TGS;          // score sub-steps a tile
+  static constexpr int CW = 16 / ES;            // values a 16-byte chunk
+  static constexpr int DPV = 4;                 // P·V dims a lane
+  static constexpr int LPV = HD / DPV;          // P·V lanes a token
+  static constexpr int TGP = 32 / LPV;          // tokens a P·V step
+  static constexpr int STAGE = 2 * TILE_BYTES + (QUANT ? 2 * TW * 4 : 0);
+  static_assert(SUB == 4 && TW <= 32 && LPT <= 32 && TGP >= 1 &&
+                    TW % TGP == 0, "tile");
+};
 
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-// 1-byte pages: one 8-byte load of 8 values.
-__device__ __forceinline__ void load_vec(const int8_t* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(b[i]);
-}
-
-__device__ __forceinline__ void load_vec(const __nv_fp8_e4m3* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_fp8_storage_t* b =
-      reinterpret_cast<const __nv_fp8_storage_t*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)        // e4m3 -> half is exact, half -> f32 too
-    out[i] = __half2float(__half(__nv_cvt_fp8_to_halfraw(b[i], __NV_E4M3)));
-}
-
-template <typename KT> struct IsQuant { static constexpr bool value = false; };
-template <> struct IsQuant<int8_t> { static constexpr bool value = true; };
-template <> struct IsQuant<__nv_fp8_e4m3> { static constexpr bool value = true; };
-
-// Load one token's VEC values of K or V and, for quantized pages, multiply
-// by the (slot, kv head) scale: float(q) * scale, the reference's order.
-template <typename KT, int VEC>
-__device__ __forceinline__ void load_kv(const KT* p, const float* scales,
-                                        size_t scale_idx, float* out) {
-  load_vec(p, out);
-  if constexpr (IsQuant<KT>::value) {
-    const float sc = scales[scale_idx];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) out[e] *= sc;
-  }
+// Dynamic shared memory: the warps' rings, q (GM·HD f32), the warps'
+// accumulators (4·G·HD f32), the ranks' parts of this CTA's output slice
+// (G·HD + 8 f32), then the row's block table (NB ints).
+template <int KVC, int HD, int GM>
+size_t smem_bytes(int G, int NB) {
+  return (size_t)NWARPS * STAGES * Shape<KVC, HD, GM>::STAGE +
+         ((size_t)(GM + (NWARPS + 1) * G) * HD + MAX_CLUSTER) * sizeof(float) +
+         (size_t)NB * sizeof(int);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -135,261 +160,470 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Pass 1: grid (B, KV, n_split), NTHREADS threads; dynamic shared memory
-// holds the token lanes' accumulators, TL * G * HD floats.  ks/vs are the
-// scale pages of quantized K/V (null for float pages).
-template <typename QT, typename KT, int HD>
+// The 4 / ES values of one 32-bit word of page data, exactly, as f32.
+// int8: the byte offset by 128 goes into the mantissa of 2^23, and
+// 2^23 + 128 is subtracted.  fp8 e4m3: sign, exponent and mantissa bits go
+// where f32 keeps them and a product with 2^120 rebiases the exponent,
+// subnormals included (the two NaN codes, which the quantizer never
+// writes, read as ±480).
+template <int KVC>
+__device__ __forceinline__ void word_to_f32(uint32_t w, float* o) {
+  if constexpr (KVC == 0) {
+    o[0] = __uint_as_float(w);
+  } else if constexpr (KVC == 1) {
+    o[0] = __uint_as_float(w << 16);
+    o[1] = __uint_as_float(w & 0xffff0000u);
+  } else if constexpr (KVC == 2) {
+    const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | i)) -
+             8388736.0f;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = (int)__byte_perm(w, 0u, 0x0444u | (i << 12));
+      o[i] = __uint_as_float((uint32_t)(t >> 4) & 0x87F00000u) * 0x1p120f;
+    }
+  }
+}
+
+// N page values at p in shared memory (N·ES bytes, aligned to them) as f32.
+template <int KVC, int N>
+__device__ __forceinline__ void load_f32(const unsigned char* p, float* o) {
+  constexpr int ES = KVC == 0 ? 4 : KVC == 1 ? 2 : 1;
+  constexpr int BYTES = N * ES;
+  constexpr int PER = 4 / ES;
+  uint32_t w[BYTES / 4];
+  if constexpr (BYTES == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (BYTES == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    static_assert(BYTES == 4, "4, 8 or 16 bytes");
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int k = 0; k < BYTES / 4; ++k) word_to_f32<KVC>(w[k], o + k * PER);
+}
+
+// 2^x on the SFU (ex2.approx, ~2 ulp; -1e30·log2 e gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 16 bytes global -> shared, or 16 zero bytes (nothing read) if !pred.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// A cluster barrier split in two: arrive (relaxed: only "this CTA runs",
+// or release: its stores so far) now, wait (acquire) later.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Grid (n_split, KV, B), cluster (n_split, 1, 1), NTHREADS threads.  GM is
+// 1 (G = 1) or 8 (G = 2..8, the heads past G computed on a zero q and
+// dropped), so that no loop over the heads branches.
+template <typename QT, int KVC, int HD, int GM>
 __global__ void __launch_bounds__(NTHREADS)
-paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
-                   const KT* __restrict__ vp, const float* __restrict__ ks,
-                   const float* __restrict__ vs,
-                   const int* __restrict__ table,
-                   const int* __restrict__ index, float* __restrict__ ws_m,
-                   float* __restrict__ ws_l, float* __restrict__ ws_acc,
-                   int H, int KV, int G, int bs, int NB, int tok_per_split,
-                   int n_split, float softcap, float scale) {
-  constexpr int VEC = Vec<KT>::N;
-  constexpr int TPT = HD / VEC;              // threads per token row
-  constexpr int TL = NTHREADS / TPT;         // token lanes
-  constexpr int TILE = TL * TOK_PER_LANE;    // tokens per tile
-  static_assert(TPT <= 32 && 32 % TPT == 0, "a token row within one warp");
+paged_decode_kernel(const QT* __restrict__ q,
+                    const unsigned char* __restrict__ kp,
+                    const unsigned char* __restrict__ vp,
+                    const float* __restrict__ ks, const float* __restrict__ vs,
+                    const int* __restrict__ table, const void* index,
+                    int index64, QT* __restrict__ out, int H, int KV, int G,
+                    int bs, unsigned long long bs_magic, int NB,
+                    float softcap, float scale) {
+  using S = Shape<KVC, HD, GM>;
+  constexpr int TW = S::TW, LPT = S::LPT, TGS = S::TGS, SUB = S::SUB;
+  constexpr int CW = S::CW, DPV = S::DPV, LPV = S::LPV, TGP = S::TGP;
+  constexpr int ROW = S::ROW, STAGE = S::STAGE;
 
-  __shared__ float q_s[MAXG * HD];
-  __shared__ float p_s[MAXG * TILE];
-  __shared__ float m_s[MAXG], l_s[MAXG], alpha_s[MAXG];
-  extern __shared__ float red_s[];
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(16) float p_s[NWARPS][32][GM];   // softmax weights
+  __shared__ float part_m[NWARPS][GM], part_l[NWARPS][GM], wt_s[NWARPS][GM];
+  __shared__ float recv_m[MAX_CLUSTER][GM], recv_l[MAX_CLUSTER][GM];
+  float* q_s = reinterpret_cast<float*>(smem + NWARPS * STAGES * STAGE);
+  float* part_acc = q_s + GM * HD;              // the warps' acc, G x HD each
+  float* recv_acc = part_acc + NWARPS * G * HD; // the ranks' acc of my slice
+  int* tbl_s = reinterpret_cast<int*>(recv_acc + G * HD + MAX_CLUSTER);
 
-  const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane_tok = tid / TPT, d0 = (tid % TPT) * VEC;
-  const int warp = tid / 32, lane = tid % 32;
-  const size_t head0 = (size_t)b * H + (size_t)kvh * G;   // first q head
+  const int n_split = gridDim.x, rank = blockIdx.x;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  const int start = split * tok_per_split;
-  const int end = min(min(start + tok_per_split, index[b] + 1), NB * bs);
-  if (start >= end) {             // nothing live in this split
-    for (int i = tid; i < G * HD; i += NTHREADS)
-      ws_acc[((head0 + i / HD) * n_split + split) * HD + i % HD] = 0.f;
-    if (tid < G) {
-      ws_m[(head0 + tid) * n_split + split] = NEG_INF;
-      ws_l[(head0 + tid) * n_split + split] = 0.f;
-    }
-    return;
-  }
-
-  for (int i = tid; i < G * HD; i += NTHREADS)
-    q_s[i] = to_f32(q[head0 * HD + i]) * scale;
-  if (tid < G) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[MAXG][VEC];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+  // The cursor, the row's block table and q, loaded at once.
+  const long long cur = index64
+                            ? static_cast<const long long*>(index)[b]
+                            : (long long)static_cast<const int*>(index)[b];
+  for (int i = tid; i < NB; i += NTHREADS)
+    tbl_s[i] = table[(size_t)b * NB + i];
+  const size_t head0 = (size_t)b * H + (size_t)kvh * G;
+  for (int i = tid; i < GM * HD; i += NTHREADS)
+    q_s[i] = i < G * HD ? to_f32(q[head0 * HD + i]) * scale : 0.f;
+  // This rank's share of the row's live pages, and its tokens [t0, t1).
+  const int live = (int)min(max(cur + 1, 0LL), (long long)NB * bs);
+  const int live_pages = (live + bs - 1) / bs;
+  const int pps = (live_pages + n_split - 1) / n_split;
+  const int p0 = min(rank * pps, live_pages);
+  const int p1 = min(p0 + pps, live_pages);
+  const int t0 = p0 * bs, t1 = min(p1 * bs, live);
+  // Every CTA of the cluster must run before any writes into another's
+  // shared memory: arrive now, wait just before the first such write.
+  if (n_split > 1) cluster_arrive_relaxed();
   __syncthreads();
 
-  const int* trow = table + (size_t)b * NB;
-  const size_t slot_stride = (size_t)KV * HD;       // elements per slot
-  const size_t head_off = (size_t)kvh * HD + d0;
+  // Slot of token t (t < live) in the pool.
+  auto slot_of = [&](int t) -> size_t {
+    const int pg = (int)(((unsigned long long)(unsigned)t * bs_magic) >> 32);
+    return (size_t)tbl_s[pg] * bs + (t - pg * bs);
+  };
 
-  for (int t0 = start; t0 < end; t0 += TILE) {
-    // Scores of this tile's tokens, softcapped and masked, into p_s.
+  unsigned char* ring = smem + warp * STAGES * STAGE;
+  const int n_tiles = (max(t1 - t0, 0) + TW - 1) / TW;
+  const int my_tiles = n_tiles > warp ? (n_tiles - warp + NWARPS - 1) / NWARPS
+                                      : 0;
+  const int tg = lane / LPT, col = lane % LPT;   // score mapping
+  const int vt = lane / LPV, vc = lane % LPV;    // P·V mapping
+  float q_reg[GM == 1 ? CW : 1];                 // G = 1: q's chunk held
+  if constexpr (GM == 1) {
 #pragma unroll
-    for (int j = 0; j < TOK_PER_LANE; ++j) {
-      const int ti = lane_tok + j * TL;
-      const int t = t0 + ti;
-      float part[MAXG];
+    for (int e = 0; e < CW; ++e) q_reg[e] = q_s[col * CW + e];
+  }
+
+  // Tile j of this warp (the CTA's tile warp + 4j) into ring slot j % STAGES.
+  auto issue = [&](int j) {
+    unsigned char* st = ring + (j % STAGES) * STAGE;
+    const int tbase = t0 + (warp + NWARPS * j) * TW;
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) part[g] = 0.f;
-      if (t < end) {
-        const size_t slot = (size_t)trow[t / bs] * bs + t % bs;
-        float kv[VEC];
-        load_kv<KT, VEC>(kp + slot * slot_stride + head_off, ks,
-                         slot * KV + kvh, kv);
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g < G) {
-            float s = 0.f;
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) s = fmaf(q_s[g * HD + d0 + e], kv[e], s);
-            part[g] = s;
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {              // G is uniform: no divergence
-#pragma unroll
-          for (int off = TPT / 2; off > 0; off >>= 1)
-            part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
-          if (tid % TPT == 0) {
-            float s = part[g];
-            if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-            p_s[g * TILE + ti] = t < end ? s : NEG_INF;
-          }
-        }
+    for (int i = 0; i < SUB; ++i) {
+      const int r = i * TGS + tg, t = tbase + r;
+      const bool ok = t < t1;
+      const size_t off = ok ? (slot_of(t) * KV + kvh) * ROW + col * 16 : 0;
+      cp_async16(st + r * ROW + col * 16, kp + off, ok);
+      cp_async16(st + TILE_BYTES + r * ROW + col * 16, vp + off, ok);
+    }
+    if constexpr (S::QUANT) {
+      if (lane < TW) {
+        const int t = tbase + lane;
+        const bool ok = t < t1;
+        const size_t si = ok ? slot_of(t) * KV + kvh : 0;
+        float* sc = reinterpret_cast<float*>(st + 2 * TILE_BYTES);
+        cp_async4(sc + lane, ks + si, ok);
+        cp_async4(sc + TW + lane, vs + si, ok);
       }
     }
-    __syncthreads();
+  };
 
-    // Online softmax: one warp per query head.
-    for (int g = warp; g < G; g += NWARPS) {
-      float mx = NEG_INF;
-      for (int i = lane; i < TILE; i += 32) mx = fmaxf(mx, p_s[g * TILE + i]);
+  float acc[GM][DPV], m[GM], l[GM];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
+  for (int g = 0; g < GM; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPV; ++e) acc[g][e] = 0.f;
+  }
+
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < my_tiles) issue(j);
+    cp_async_commit();
+  }
+  for (int j = 0; j < my_tiles; ++j) {
+    if (j + STAGES - 1 < my_tiles) issue(j + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();
+    const unsigned char* st = ring + (j % STAGES) * STAGE;
+    const float* k_scale = reinterpret_cast<const float*>(st + 2 * TILE_BYTES);
+    const int tbase = t0 + (warp + NWARPS * j) * TW;
+
+    // Scores of the tile's tokens for every head, softcapped and masked.
+    float s[SUB][GM];
+#pragma unroll
+    for (int i = 0; i < SUB; ++i) {
+      const int r = i * TGS + tg;
+      float k[CW];
+      load_f32<KVC, CW>(st + r * ROW + col * 16, k);
+      if constexpr (S::QUANT) {
+        const float sk = k_scale[r];
+#pragma unroll
+        for (int e = 0; e < CW; ++e) k[e] *= sk;
+      }
+      const bool valid = tbase + r < t1;
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float dot = 0.f;
+        if constexpr (GM == 1) {
+#pragma unroll
+          for (int e = 0; e < CW; ++e) dot = fmaf(q_reg[e], k[e], dot);
+        } else {
+          const float* qg = q_s + g * HD + col * CW;
+#pragma unroll
+          for (int e = 0; e < CW; e += 4) {
+            const float4 qq = *reinterpret_cast<const float4*>(qg + e);
+            dot = fmaf(qq.x, k[e], dot);
+            dot = fmaf(qq.y, k[e + 1], dot);
+            dot = fmaf(qq.z, k[e + 2], dot);
+            dot = fmaf(qq.w, k[e + 3], dot);
+          }
+        }
+#pragma unroll
+        for (int off = LPT / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(FULL, dot, off);
+        if (softcap > 0.f) dot = softcap * tanhf(dot / softcap);
+        s[i][g] = valid ? dot : NEG_INF;
+      }
+    }
+
+    // Online softmax: s becomes p; the token-group leaders keep l and
+    // publish p.
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float mx = fmaxf(fmaxf(s[0][g], s[1][g]), fmaxf(s[2][g], s[3][g]));
+#pragma unroll
+      for (int off = 16; off >= LPT; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = ex2((m[g] - m_new) * LOG2E);
+      m[g] = m_new;
       float sum = 0.f;
-      for (int i = lane; i < TILE; i += 32) {
-        const float p = expf(p_s[g * TILE + i] - m_new);
-        p_s[g * TILE + i] = p;
-        sum += p;
-      }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-        alpha_s[g] = alpha;
+      for (int i = 0; i < SUB; ++i) {
+        s[i][g] = ex2((s[i][g] - m_new) * LOG2E);
+        sum += s[i][g];
       }
+      l[g] = l[g] * alpha + (col == 0 ? sum : 0.f);
+#pragma unroll
+      for (int e = 0; e < DPV; ++e) acc[g][e] *= alpha;
     }
-    __syncthreads();
-
-    // Rescale, then accumulate P·V for this thread's tokens and dims.
+    if (col == 0) {
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < G) {
-        const float alpha = alpha_s[g];
+      for (int i = 0; i < SUB; ++i) {
+        float* dst = &p_s[warp][i * TGS + tg][0];
+        if constexpr (GM == 1) {
+          dst[0] = s[i][0];
+        } else {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < TOK_PER_LANE; ++j) {
-      const int ti = lane_tok + j * TL;
-      const int t = t0 + ti;
-      if (t < end) {
-        const size_t slot = (size_t)trow[t / bs] * bs + t % bs;
-        float vv[VEC];
-        load_kv<KT, VEC>(vp + slot * slot_stride + head_off, vs,
-                         slot * KV + kvh, vv);
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g < G) {
-            const float p = p_s[g * TILE + ti];
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vv[e], acc[g][e]);
-          }
+          for (int g = 0; g < GM; g += 4)
+            *reinterpret_cast<float4*>(dst + g) =
+                make_float4(s[i][g], s[i][g + 1], s[i][g + 2], s[i][g + 3]);
         }
       }
     }
-    __syncthreads();              // p_s is rewritten by the next tile
+    __syncwarp();
+
+    // P·V over the tile's tokens.
+    const float* v_scale = k_scale + TW;
+#pragma unroll
+    for (int jj = 0; jj < TW / TGP; ++jj) {
+      const int r = jj * TGP + vt;
+      float v[DPV];
+      load_f32<KVC, DPV>(st + TILE_BYTES + r * ROW + vc * DPV * S::ES, v);
+      if constexpr (S::QUANT) {
+        const float sv = v_scale[r];
+#pragma unroll
+        for (int e = 0; e < DPV; ++e) v[e] *= sv;
+      }
+      float pr[GM];
+      if constexpr (GM == 1) {
+        pr[0] = p_s[warp][r][0];
+      } else {
+#pragma unroll
+        for (int g = 0; g < GM; g += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(&p_s[warp][r][g]);
+          pr[g] = p4.x; pr[g + 1] = p4.y; pr[g + 2] = p4.z; pr[g + 3] = p4.w;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+#pragma unroll
+        for (int e = 0; e < DPV; ++e) acc[g][e] = fmaf(pr[g], v[e], acc[g][e]);
+    }
+    __syncwarp();                 // the slot and p_s are rewritten next
   }
 
-  // Sum the token lanes' accumulators and write this split's partials.
+  // The warp's partial state: l summed over the leaders, acc over the
+  // P·V token groups (xor butterflies: every lane ends with the same bits).
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g < G) {
+  for (int g = 0; g < GM; ++g) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        red_s[(lane_tok * G + g) * HD + d0 + e] = acc[g][e];
+    for (int off = 16; off > 0; off >>= 1)
+      l[g] += __shfl_xor_sync(FULL, l[g], off);
+#pragma unroll
+    for (int off = 16; off >= LPV; off >>= 1)
+#pragma unroll
+      for (int e = 0; e < DPV; ++e)
+        acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
+    if (g < G && lane < LPV) {
+#pragma unroll
+      for (int e = 0; e < DPV; e += 4)
+        *reinterpret_cast<float4*>(
+            &part_acc[(warp * G + g) * HD + vc * DPV + e]) =
+            make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2], acc[g][e + 3]);
+    }
+    if (lane == 0) {
+      part_m[warp][g] = m[g];
+      part_l[warp][g] = l[g];
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * HD; i += NTHREADS) {
-    float s = 0.f;
-    for (int r = 0; r < TL; ++r) s += red_s[r * G * HD + i];
-    ws_acc[((head0 + i / HD) * n_split + split) * HD + i % HD] = s;
-  }
+
+  // The CTA's state, its warps merged in warp order.  With n_split = 1 it
+  // is the output.  Otherwise each CTA pushes its (m, l) to every rank and
+  // each element of its acc to the rank that owns that element (rank o
+  // owns elements [o·per, (o+1)·per) of the G·HD outputs), into their
+  // shared memory; after one cluster barrier each rank merges its slice in
+  // rank order from its own shared memory.
+  const int E = G * HD, per = (E + n_split - 1) / n_split;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (n_split > 1) cluster_wait();
   if (tid < G) {
-    ws_m[(head0 + tid) * n_split + split] = m_s[tid];
-    ws_l[(head0 + tid) * n_split + split] = l_s[tid];
+    const int g = tid;
+    float M = NEG_INF, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, part_m[w][g]);
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      wt_s[w][g] = ex2((part_m[w][g] - M) * LOG2E);
+      L = fmaf(part_l[w][g], wt_s[w][g], L);
+    }
+    if (n_split == 1) recv_l[0][g] = L;
+    for (int r = 0; r < n_split && n_split > 1; ++r) {
+      *cluster.map_shared_rank(&recv_m[rank][g], r) = M;
+      *cluster.map_shared_rank(&recv_l[rank][g], r) = L;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < E; e += NTHREADS) {
+    const int g = e / HD;
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w)
+      o = fmaf(part_acc[w * G * HD + e], wt_s[w][g], o);
+    if (n_split == 1) {
+      store_f32(out + head0 * HD + e, o / fmaxf(recv_l[0][g], 1e-30f));
+    } else {
+      const int own = e / per;
+      *cluster.map_shared_rank(&recv_acc[rank * per + e - own * per], own) = o;
+    }
+  }
+  if (n_split == 1) return;       // the whole cluster: uniform
+  cluster_arrive_release();
+  cluster_wait();
+  const int e0 = min(rank * per, E), e1 = min(e0 + per, E);
+  for (int e = e0 + tid; e < e1; e += NTHREADS) {
+    const int g = e / HD;
+    float M = NEG_INF;
+    for (int r = 0; r < n_split; ++r) M = fmaxf(M, recv_m[r][g]);
+    float L = 0.f, o = 0.f;
+    for (int r = 0; r < n_split; ++r) {
+      const float wt = ex2((recv_m[r][g] - M) * LOG2E);
+      L = fmaf(recv_l[r][g], wt, L);
+      o = fmaf(recv_acc[r * per + e - e0], wt, o);
+    }
+    store_f32(out + head0 * HD + e, o / fmaxf(L, 1e-30f));
   }
 }
 
-// Pass 2: grid (B, H), HD threads; merges the splits of one (row, head).
-template <typename QT, int HD>
-__global__ void __launch_bounds__(HD)
-paged_combine_kernel(const float* __restrict__ ws_m,
-                     const float* __restrict__ ws_l,
-                     const float* __restrict__ ws_acc, QT* __restrict__ out,
-                     int H, int n_split) {
-  const size_t row = (size_t)blockIdx.x * H + blockIdx.y;
-  const int d = threadIdx.x;
-  float M = NEG_INF;
-  for (int s = 0; s < n_split; ++s) M = fmaxf(M, ws_m[row * n_split + s]);
-  float L = 0.f, o = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float w = expf(ws_m[row * n_split + s] - M);
-    L = fmaf(ws_l[row * n_split + s], w, L);
-    o = fmaf(ws_acc[(row * n_split + s) * HD + d], w, o);
+struct Args {
+  const void *q, *kp, *vp;
+  const float *ks, *vs;
+  const int* table;
+  const void* index;
+  int index64;
+  void* out;
+  int B, H, KV, G, bs, NB, n_split;
+  unsigned long long bs_magic;
+  float softcap;
+  cudaStream_t stream;
+  int* max_clusters;    // non-null: report the occupancy, launch nothing
+};
+
+template <typename QT, int KVC, int HD, int GM>
+cudaError_t launch(const Args& a) {
+  const size_t smem = smem_bytes<KVC, HD, GM>(a.G, a.NB);
+  auto kern = paged_decode_kernel<QT, KVC, HD, GM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
   }
-  store_f32(out + row * HD + d, o / fmaxf(L, 1e-30f));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_split, a.KV, a.B);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.n_split > 1 || a.max_clusters != nullptr ? 1 : 0;
+  if (a.max_clusters != nullptr)
+    err = cudaOccupancyMaxActiveClusters(a.max_clusters, kern, &cfg);
+  else
+    err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const QT*>(a.q),
+      static_cast<const unsigned char*>(a.kp),
+      static_cast<const unsigned char*>(a.vp), a.ks, a.vs, a.table, a.index,
+      a.index64, static_cast<QT*>(a.out), a.H, a.KV, a.G, a.bs, a.bs_magic,
+      a.NB, a.softcap, 1.0f / sqrtf((float)HD));
+  if (err != cudaSuccess) cudaGetLastError();   // leave no error behind
+  return err;
 }
 
-template <typename QT, typename KT, int HD>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const float* ks, const float* vs,
-                   const int* table, const int* index, void* out,
-                   float* ws_m, float* ws_l, float* ws_acc, int B, int H,
-                   int KV, int bs, int NB, int n_split, int tok_per_split,
-                   float softcap, cudaStream_t stream) {
-  constexpr int TL = NTHREADS / (HD / Vec<KT>::N);
-  const int G = H / KV;
-  const size_t smem = sizeof(float) * TL * G * HD;   // <= 32 KB at MAXG
-  const float scale = 1.0f / sqrtf((float)HD);
-  paged_split_kernel<QT, KT, HD><<<dim3(B, KV, n_split), NTHREADS, smem,
-                                   stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(kp),
-      static_cast<const KT*>(vp), ks, vs, table, index, ws_m, ws_l, ws_acc,
-      H, KV, G, bs, NB, tok_per_split, n_split, softcap, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_combine_kernel<QT, HD><<<dim3(B, H), HD, 0, stream>>>(
-      ws_m, ws_l, ws_acc, static_cast<QT*>(out), H, n_split);
-  return cudaGetLastError();
-}
-
-template <typename QT, typename KT>
-cudaError_t dispatch_hd(int hd, const void* q, const void* kp, const void* vp,
-                        const float* ks, const float* vs,
-                        const int* table, const int* index, void* out,
-                        float* ws_m, float* ws_l, float* ws_acc, int B, int H,
-                        int KV, int bs, int NB, int n_split,
-                        int tok_per_split, float softcap, cudaStream_t st) {
+template <typename QT, int KVC>
+cudaError_t dispatch_hd(int hd, const Args& a) {
   if (hd == 64)
-    return launch<QT, KT, 64>(q, kp, vp, ks, vs, table, index, out, ws_m,
-                              ws_l, ws_acc, B, H, KV, bs, NB, n_split,
-                              tok_per_split, softcap, st);
+    return a.G == 1 ? launch<QT, KVC, 64, 1>(a) : launch<QT, KVC, 64, 8>(a);
   if (hd == 128)
-    return launch<QT, KT, 128>(q, kp, vp, ks, vs, table, index, out, ws_m,
-                               ws_l, ws_acc, B, H, KV, bs, NB, n_split,
-                               tok_per_split, softcap, st);
+    return a.G == 1 ? launch<QT, KVC, 128, 1>(a) : launch<QT, KVC, 128, 8>(a);
   return cudaErrorInvalidValue;
 }
 
 template <typename QT>
-cudaError_t dispatch_kv(int kv_dtype, int hd, const void* q, const void* kp,
-                        const void* vp, const float* ks, const float* vs,
-                        const int* table, const int* index, void* out,
-                        float* ws_m, float* ws_l, float* ws_acc, int B, int H,
-                        int KV, int bs, int NB, int n_split,
-                        int tok_per_split, float softcap, cudaStream_t st) {
-#define PA_ARGS hd, q, kp, vp, ks, vs, table, index, out, ws_m, ws_l, ws_acc, \
-                B, H, KV, bs, NB, n_split, tok_per_split, softcap, st
+cudaError_t dispatch_kv(int kv_dtype, int hd, const Args& a) {
   switch (kv_dtype) {
-    case 0: return dispatch_hd<QT, float>(PA_ARGS);
-    case 1: return dispatch_hd<QT, __nv_bfloat16>(PA_ARGS);
-    case 2: return dispatch_hd<QT, int8_t>(PA_ARGS);
-    case 3: return dispatch_hd<QT, __nv_fp8_e4m3>(PA_ARGS);
+    case 0: return dispatch_hd<QT, 0>(hd, a);
+    case 1: return dispatch_hd<QT, 1>(hd, a);
+    case 2: return dispatch_hd<QT, 2>(hd, a);
+    case 3: return dispatch_hd<QT, 3>(hd, a);
   }
-#undef PA_ARGS
   return cudaErrorInvalidValue;
 }
 
@@ -397,41 +631,52 @@ cudaError_t dispatch_kv(int kv_dtype, int hd, const void* q, const void* kp,
 
 // q_dtype: 0 = float32, 1 = bfloat16.  kv_dtype: 0 = float32, 1 = bfloat16,
 // 2 = int8, 3 = fp8 e4m3; the 1-byte codes take f32 scale pages k_scales,
-// v_scales (NP, bs, KV, 1), which the float codes must leave null.  ws is
-// an f32 workspace of B*H*n_split*(hd + 2) floats: m, then l, then acc.
-// Returns a cudaError_t (0 = both passes launched).
+// v_scales (NP, bs, KV, 1), which the float codes must leave null.  table
+// is int32 (B, NB); index is (B,) int32 (index_dtype 0) or int64 (1).
+// n_split is the cluster size, 1..8.  Returns the launch's cudaError_t
+// (0 = launched; a refused launch leaves no error state behind).  With
+// max_clusters non-null nothing is launched: it receives how many clusters
+// of this launch the card holds at once (cudaOccupancyMaxActiveClusters).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* k_scales,
                                    const void* v_scales, const void* table,
-                                   const void* index, void* out, void* ws,
-                                   int B, int H, int KV, int hd, int bs,
-                                   int NB, int n_split, int tok_per_split,
-                                   int q_dtype, int kv_dtype, float softcap,
-                                   void* stream) {
+                                   const void* index, void* out, int B, int H,
+                                   int KV, int hd, int bs, int NB,
+                                   int n_split, int q_dtype, int kv_dtype,
+                                   int index_dtype, float softcap,
+                                   void* stream, int* max_clusters) {
   const bool quant = kv_dtype == 2 || kv_dtype == 3;
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAXG ||
-      bs <= 0 || NB <= 0 || n_split <= 0 || tok_per_split <= 0 ||
-      (long long)n_split * tok_per_split < (long long)NB * bs ||
-      q_dtype < 0 || q_dtype > 1 || kv_dtype < 0 || kv_dtype > 3 ||
-      quant != (k_scales != nullptr) || quant != (v_scales != nullptr))
+  if (B <= 0 || B > 65535 || H <= 0 || KV <= 0 || KV > 65535 ||
+      H % KV != 0 || H / KV > MAXG || bs <= 0 || NB <= 0 || n_split < 1 ||
+      n_split > MAX_CLUSTER ||
+      (unsigned long long)NB * bs * bs >= (1ull << 32) || q_dtype < 0 ||
+      q_dtype > 1 || kv_dtype < 0 || kv_dtype > 3 || index_dtype < 0 ||
+      index_dtype > 1 || quant != (k_scales != nullptr) ||
+      quant != (v_scales != nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ws_m = static_cast<float*>(ws);
-  float* ws_l = ws_m + (size_t)B * H * n_split;
-  float* ws_acc = ws_l + (size_t)B * H * n_split;
-  const int* tbl = static_cast<const int*>(table);
-  const int* idx = static_cast<const int*>(index);
-  const float* ks = static_cast<const float*>(k_scales);
-  const float* vs = static_cast<const float*>(v_scales);
-  cudaError_t err;
-  if (q_dtype == 0)
-    err = dispatch_kv<float>(kv_dtype, hd, q, k_pages, v_pages, ks, vs, tbl,
-                             idx, out, ws_m, ws_l, ws_acc, B, H, KV, bs, NB,
-                             n_split, tok_per_split, softcap, st);
-  else
-    err = dispatch_kv<__nv_bfloat16>(kv_dtype, hd, q, k_pages, v_pages, ks,
-                                     vs, tbl, idx, out, ws_m, ws_l, ws_acc,
-                                     B, H, KV, bs, NB, n_split, tok_per_split,
-                                     softcap, st);
+  Args a;
+  a.q = q;
+  a.kp = k_pages;
+  a.vp = v_pages;
+  a.ks = static_cast<const float*>(k_scales);
+  a.vs = static_cast<const float*>(v_scales);
+  a.table = static_cast<const int*>(table);
+  a.index = index;
+  a.index64 = index_dtype;
+  a.out = out;
+  a.B = B;
+  a.H = H;
+  a.KV = KV;
+  a.G = H / KV;
+  a.bs = bs;
+  a.NB = NB;
+  a.n_split = n_split;
+  a.bs_magic = ((1ull << 32) + bs - 1) / bs;   // ceil(2^32 / bs)
+  a.softcap = softcap;
+  a.stream = static_cast<cudaStream_t>(stream);
+  a.max_clusters = max_clusters;
+  const cudaError_t err = q_dtype == 0
+                              ? dispatch_kv<float>(kv_dtype, hd, a)
+                              : dispatch_kv<__nv_bfloat16>(kv_dtype, hd, a);
   return (int)err;
 }

@@ -29,17 +29,20 @@ from repro_torch.core import quant
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import ref
 
-# Launches of the CUDA kernel in this process (one per call: both passes);
-# the chip smoke run resets and reads it to show the decode path used it.
+# Launches of the CUDA kernel in this process (one per call, a single
+# device kernel); the chip smoke run resets and reads it to show the decode
+# path used it.
 KERNEL_LAUNCHES = 0
 
 KERNEL_HEAD_DIMS = (64, 128)
 MAX_GROUP = 8                     # query heads per kv head (MAXG in the .cu)
+MAX_CLUSTER = 8                   # the portable thread-block cluster size
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 if quant.fp8_dtype() is not None:
     _KV_CODES[quant.fp8_dtype()] = 3
-_TARGET_CTAS = 2 * 132            # two CTAs per H100 SM for pass 1
+_INDEX_CODES = {torch.int32: 0, torch.int64: 1}
+_TARGET_CTAS = 2 * 132            # about two CTAs per H100 SM
 
 
 def _library() -> ctypes.CDLL:
@@ -49,8 +52,8 @@ def _library() -> ctypes.CDLL:
         # Pointers and the stream as c_void_p: ctypes would cut a bare int
         # to 32 bits.
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     return lib
 
 
@@ -87,13 +90,33 @@ def _check(q, k_pages, v_pages, block_table, index, k_scales=None,
                              f"{t.dtype}, expected {want} float32")
 
 
-def split_plan(B: int, KV: int, NB: int, bs: int):
-    """(n_split, tokens per split) of pass 1: enough CTAs for the card
-    (B·KV·n_split >= ~2x132) with at least one page per split, and splits
-    that start on page boundaries."""
-    n_split = max(1, min(NB, -(-_TARGET_CTAS // (B * KV))))
-    pages = -(-NB // n_split)
-    return -(-NB // pages), pages * bs
+def split_plan(B: int, KV: int, NB: int) -> int:
+    """The cluster size n_split: the CTAs of one (row, kv head), which
+    split the row's live pages among them and merge on chip.  Enough CTAs
+    for about two per SM (B·KV·n_split >= 2x132), at most 8 (the portable
+    cluster size), and cut so that a full table gives every rank at least
+    one page (``rank_tokens``); 1 once B·KV alone reaches 2x132.  When
+    B·KV·8 < 132 (B = KV = 1) the other SMs idle."""
+    n = max(1, min(MAX_CLUSTER, NB, -(-_TARGET_CTAS // (B * KV))))
+    return -(-NB // -(-NB // n))
+
+
+def rank_tokens(cursor: int, NB: int, bs: int, n_split: int):
+    """The kernel's split of one row: [(t0, t1) per rank], the tokens each
+    CTA of the cluster reads.  The row's ceil(live / bs) live pages (live =
+    cursor + 1 slots) go to the ranks in order, ceil(live pages / n_split)
+    each, so every range starts on a page boundary, the ranges cover the
+    live slots in rank order, trailing ranks of a short row are empty and
+    no rank reads past the cursor."""
+    live = min(max(cursor + 1, 0), NB * bs)
+    pages = -(-live // bs)
+    per = -(-pages // n_split)
+    out = []
+    for r in range(n_split):
+        p0 = min(r * per, pages)
+        p1 = min(p0 + per, pages)
+        out.append((p0 * bs, min(p1 * bs, live)))
+    return out
 
 
 def paged_attention_cuda(q, k_pages, v_pages, block_table, index, *,
@@ -104,15 +127,19 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, index, *,
     float32/bfloat16, pages other than float32/bfloat16/int8/fp8 (the
     1-byte pages with float32 scale pages (NP, bs, KV, 1), the float pages
     without), head dims other than 64/128, more than 8 query heads per kv
-    head, non-contiguous or misaligned inputs, or a refused launch.  The
-    table and cursor are cast to int32 here if they are not already."""
+    head, tables of NB pages with NB·bs·bs >= 2^32, non-contiguous or
+    misaligned inputs, or a refused launch (the C function's
+    ``cudaError_t``).  One call is one device kernel: no workspace, and no
+    cast of an int32 table or of an int32 or int64 cursor (the engine's
+    int64 cursor is read as it is; another integer dtype is cast)."""
     global KERNEL_LAUNCHES
     _check(q, k_pages, v_pages, block_table, index, k_scales, v_scales)
     B, _, H, hd = q.shape
     NP, bs, KV, _ = k_pages.shape
     NB = block_table.shape[1]
     table = block_table.to(torch.int32).contiguous()
-    cursor = index.to(torch.int32).contiguous()
+    cursor = (index if index.dtype in _INDEX_CODES
+              else index.to(torch.int32)).contiguous()
     scales = [("k_scales", k_scales), ("v_scales", v_scales)] \
         if k_scales is not None else []
     for name, t in [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
@@ -120,8 +147,8 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, index, *,
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"paged_attention kernel: {name} must lie on "
                              f"q's CUDA device, got {t.device}")
-        # Scales are read one float at a time: 4-byte alignment suffices.
-        align = 4 if name.endswith("scales") else 16
+        # Pages are copied 16 bytes at a time; the rest is read by element.
+        align = 16 if name.endswith("pages") else t.element_size()
         if not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"paged_attention kernel: {name} must be "
                              f"contiguous and {align}-byte aligned")
@@ -138,25 +165,26 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, index, *,
     if H // KV > MAX_GROUP:
         raise ValueError(f"paged_attention kernel: {H // KV} query heads per "
                          f"kv head (at most {MAX_GROUP})")
-    n_split, tok_per_split = split_plan(B, KV, NB, bs)
+    if NB * bs * bs >= 2 ** 32:
+        raise ValueError(f"paged_attention kernel: {NB} pages of {bs} slots "
+                         "(NB·bs·bs must stay below 2^32)")
+    n_split = split_plan(B, KV, NB)
     lib = _library()
     out = torch.empty_like(q)
-    ws = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
-                     device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_attention_fwd(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             None if k_scales is None else k_scales.data_ptr(),
             None if v_scales is None else v_scales.data_ptr(),
-            table.data_ptr(), cursor.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), B, H, KV, hd, bs, NB, n_split, tok_per_split,
-            _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
-            float(logit_softcap), stream)
+            table.data_ptr(), cursor.data_ptr(), out.data_ptr(), B, H, KV,
+            hd, bs, NB, n_split, _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
+            _INDEX_CODES[cursor.dtype], float(logit_softcap), stream, None)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error "
                            f"{err} (B={B} H={H} KV={KV} hd={hd} bs={bs} "
-                           f"NB={NB} NP={NP} {q.dtype}/{k_pages.dtype})")
+                           f"NB={NB} NP={NP} n_split={n_split} "
+                           f"{q.dtype}/{k_pages.dtype})")
     KERNEL_LAUNCHES += 1
     return out
 

@@ -77,9 +77,10 @@ def test_cuda_tensors_never_take_the_plain_version(cuda_device):
     assert ops.KERNEL_LAUNCHES == before
 
 
-def _paged(seed, B, H, KV, hd, bs, NB, dtypes, device):
+def _paged(seed, B, H, KV, hd, bs, NB, dtypes, device, cursors=None):
     """Permuted physical pages; slots past each cursor hold large finite
-    garbage, which must not reach the output."""
+    garbage, which must not reach the output.  Cursors are drawn unless
+    given."""
     rng = np.random.default_rng(seed)
     NP = B * NB + 2
     q = rng.standard_normal((B, 1, H, hd), dtype=np.float32)
@@ -87,6 +88,8 @@ def _paged(seed, B, H, KV, hd, bs, NB, dtypes, device):
     vp = 1e3 * rng.standard_normal((NP, bs, KV, hd), dtype=np.float32)
     tbl = rng.permutation(NP)[:B * NB].reshape(B, NB).astype(np.int32)
     idx = rng.integers(0, NB * bs, (B,)).astype(np.int32)
+    if cursors is not None:
+        idx = np.asarray(cursors, np.int32)
     for b in range(B):
         live = np.arange(idx[b] + 1)
         for pages in (kp, vp):
@@ -223,6 +226,111 @@ def test_quantized_pages_without_scales_raise_on_the_card(cuda_device):
         pa_ops.paged_attention(q, kp.to(torch.int8), vp.to(torch.int8), tbl,
                                idx)
     assert pa_ops.KERNEL_LAUNCHES == before
+
+
+def _paged_kw(seed, B, H, KV, hd, bs, NB, kv, device, cursors=None):
+    """``_paged`` with f32 q over ``kv`` pages ("float32", "int8", "fp8"):
+    (q, k_pages, v_pages, table, index) on the card and the scale pages'
+    keywords (empty for float pages)."""
+    q, kp, vp, tbl, idx = _paged(seed, B, H, KV, hd, bs, NB,
+                                 ("float32", "float32"), "cpu", cursors)
+    kw = {}
+    if kv != "float32":
+        (kp, ks), (vp, vs) = (_quant_pages(t, kv, "cpu") for t in (kp, vp))
+        kw = dict(k_scales=ks.to(device), v_scales=vs.to(device))
+    return tuple(t.to(device) for t in (q, kp, vp, tbl, idx)), kw
+
+
+def _close_to_plain(got, want):
+    """Within 1e-4 of the plain version, relative to max(1, max|plain|)
+    (f32 q: the same dequantizing product, f32 sums in other orders)."""
+    want = want.float().cpu().numpy()
+    tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+def test_paged_kernel_repeats_are_bit_identical(cuda_device, kv):
+    """The cluster merge reads every rank's partials in rank order, and
+    each reduction has a fixed order: the same inputs give the same bits,
+    at the serving timing shape (B=8, H=KV=12, hd=64, bs=16)."""
+    (q, kp, vp, tbl, idx), kw = _paged_kw(16, 8, 12, 12, 64, 16, 37, kv,
+                                          cuda_device)
+    first = pa_ops.paged_attention(q, kp, vp, tbl, idx, **kw)
+    for _ in range(3):
+        assert torch.equal(pa_ops.paged_attention(q, kp, vp, tbl, idx, **kw),
+                           first)
+    _close_to_plain(first, pa_ops.paged_attention(q, kp, vp, tbl, idx,
+                                                  force="ref", **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,KV,NB,n_split", [(1, 1, 256, 8), (64, 12, 8, 1)])
+def test_paged_cluster_plan_at_its_extremes(cuda_device, B, KV, NB, n_split):
+    """B = KV = 1 over a 4096-slot table takes the largest cluster, 8 CTAs
+    (the other SMs idle); B = 64, KV = 12 fills the card without splits.
+    Cursors at the last slot, a page boundary, and 0 (seven empty ranks)."""
+    assert pa_ops.split_plan(B, KV, NB) == n_split
+    top = NB * 16 - 1
+    cursors = [top, 16 * (NB // 2), 0][:B] + [top - 5] * (B - 3)
+    (q, kp, vp, tbl, idx), kw = _paged_kw(17, B, KV, KV, 64, 16, NB,
+                                          "float32", cuda_device, cursors)
+    ranges = pa_ops.rank_tokens(top, NB, 16, n_split)
+    assert all(t1 > t0 for t0, t1 in ranges)
+    before = pa_ops.KERNEL_LAUNCHES
+    got = pa_ops.paged_attention(q, kp, vp, tbl, idx)
+    want = pa_ops.paged_attention(q, kp, vp, tbl, idx, force="ref")
+    assert pa_ops.KERNEL_LAUNCHES == before + 1
+    _close_to_plain(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_quantized_paged_kernel_hd128_gqa8(cuda_device, kv):
+    """hd 128 with G = 8 query heads per kv head over 1-byte pages: the
+    widest accumulator (acc[8][4] a lane) and the 16-lane score rows."""
+    (q, kp, vp, tbl, idx), kw = _paged_kw(18, 3, 16, 2, 128, 16, 12, kv,
+                                          cuda_device)
+    _close_to_plain(pa_ops.paged_attention(q, kp, vp, tbl, idx,
+                                           logit_softcap=30.0, **kw),
+                    pa_ops.paged_attention(q, kp, vp, tbl, idx, force="ref",
+                                           logit_softcap=30.0, **kw))
+
+
+@pytest.mark.gpu
+def test_paged_kernel_takes_either_cursor_dtype(cuda_device):
+    """The engine's int64 cursor is read as it is (no cast kernel); an
+    int32 one gives the same bits."""
+    (q, kp, vp, tbl, idx), kw = _paged_kw(19, 4, 8, 2, 64, 16, 9, "int8",
+                                          cuda_device)
+    got32 = pa_ops.paged_attention(q, kp, vp, tbl, idx, **kw)
+    got64 = pa_ops.paged_attention(q, kp, vp, tbl, idx.long(), **kw)
+    assert torch.equal(got32, got64)
+    _close_to_plain(got64, pa_ops.paged_attention(q, kp, vp, tbl, idx.long(),
+                                                  force="ref", **kw))
+
+
+@pytest.mark.gpu
+def test_paged_refused_launch_raises(cuda_device, monkeypatch):
+    """Nine query heads per kv head raise before the launch; a cluster of
+    9 CTAs, past the portable 8, comes back from the C function as a CUDA
+    error and raises RuntimeError; neither counts a launch, and the next
+    launch runs."""
+    (q, kp, vp, tbl, idx), _ = _paged_kw(20, 2, 18, 2, 64, 16, 4, "float32",
+                                         cuda_device)
+    before = pa_ops.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="9 query heads per kv head"):
+        pa_ops.paged_attention(q, kp, vp, tbl, idx)
+    q = q[:, :, :16].contiguous()
+    monkeypatch.setattr(pa_ops, "split_plan", lambda *a: 9)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pa_ops.paged_attention(q, kp, vp, tbl, idx)
+    assert pa_ops.KERNEL_LAUNCHES == before
+    monkeypatch.undo()
+    got = pa_ops.paged_attention(q, kp, vp, tbl, idx)
+    _close_to_plain(got, pa_ops.paged_attention(q, kp, vp, tbl, idx,
+                                                force="ref"))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ the JAX quantizer and handed to both packages as bytes, dequantization is
 one f32 product on both sides (held bit-equal), and the decode's quantized
 writes are held bit-equal to the reference's.  The CUDA kernel is held
 against the same plain version on the card (``tests/test_torch_gpu.py``,
-``chip_smoke.py``).
+``chip_smoke.py``); here its split-and-merge arithmetic (the cluster plan,
+a partial softmax state per warp and rank, the merges in order) is
+emulated in f32 and held against both packages.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -265,10 +267,134 @@ def test_scale_pages_must_match_the_page_dtype():
 
 
 @pytest.mark.parametrize("B,KV,NB", [(8, 12, 37), (1, 1, 37), (64, 12, 37),
-                                     (4, 2, 16)])
+                                     (4, 2, 16), (1, 1, 9), (2, 3, 1)])
 def test_split_plan_covers_the_table_on_page_boundaries(B, KV, NB):
+    """The cluster plan: at most 8 CTAs (the portable cluster size) and NB,
+    at least half the ~2x132 CTAs the card wants where the table allows,
+    1 once B·KV alone gives them; the kernel's per-rank ranges
+    (``rank_tokens``) start on page boundaries, follow each other in rank
+    order, cover the live slots exactly for every cursor, and give every
+    rank a page when the table is full."""
     bs = 16
-    n_split, tok = ops.split_plan(B, KV, NB, bs)
-    assert tok % bs == 0 and tok >= bs                # >= one page each
-    assert n_split * tok >= NB * bs > (n_split - 1) * tok
-    assert B * KV * n_split >= min(2 * 132, B * KV * NB)
+    n = ops.split_plan(B, KV, NB)
+    assert 1 <= n <= min(ops.MAX_CLUSTER, NB)
+    assert 2 * B * KV * n >= min(2 * 132, B * KV * min(NB, ops.MAX_CLUSTER))
+    if B * KV >= 2 * 132:
+        assert n == 1
+    top = NB * bs - 1
+    for cursor in sorted({min(c, top) for c in (0, 1, bs - 1, bs, 5 * bs + 3,
+                                                top)}):
+        ranges = ops.rank_tokens(cursor, NB, bs, n)
+        assert len(ranges) == n
+        pos = 0
+        for t0, t1 in ranges:
+            assert t0 % bs == 0
+            if t1 > t0:
+                assert t0 == pos
+                pos = t1
+        assert pos == cursor + 1
+        if cursor == top:
+            assert all(t1 - t0 >= bs for t0, t1 in ranges[:-1])
+            assert ranges[-1][1] > ranges[-1][0]
+
+
+# The CUDA kernel's arithmetic (csrc/paged_attention.cu), emulated in f32 on
+# the CPU: the cluster plan and each rank's page range (ops.split_plan,
+# ops.rank_tokens); in each rank 4 warps taking every 4th tile of TW tokens
+# (TW rows of one kv head's K make 2 KB); per tile the scores of q
+# pre-scaled by 1/sqrt(hd), softcap, then an online softmax; a partial
+# (m, l, acc) per warp, empty ones (m = -1e30, l = 0) included, merged in
+# warp order into the CTA's; and the CTAs' merged in rank order,
+# acc e^(m - M) / max(L, 1e-30).  Held to
+# TOL (2e-5) against both packages' plain versions and interpret-mode
+# Pallas: f32 sums in other orders.
+KERNEL_WARPS, KERNEL_TILE_BYTES = 4, 2048
+
+
+def _emulate_kernel(q, kp, vp, tbl, idx, ks=None, vs=None, softcap=0.0):
+    B, _, H, hd = q.shape
+    NP, bs, KV, _ = kp.shape
+    G, NB = H // KV, tbl.shape[1]
+    n_split = ops.split_plan(B, KV, NB)
+    TW = KERNEL_TILE_BYTES // (hd * kp.element_size())
+    scale = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(
+        float(hd)).sqrt()
+    flat = [t.reshape(NP * bs, KV, -1) if t is not None else None
+            for t in (kp, vp, ks, vs)]
+
+    def rows(i, sc, slots, kvh):
+        x = flat[i][slots, kvh].float()
+        return x if sc is None else x * flat[sc][slots, kvh]
+    out = torch.empty(B, 1, H, hd)
+    for b in range(B):
+        for kvh in range(KV):
+            qs = q[b, 0, kvh * G:(kvh + 1) * G].float() * scale
+            ranks = []
+            for t0, t1 in ops.rank_tokens(int(idx[b]), NB, bs, n_split):
+                n_tiles = -(-max(t1 - t0, 0) // TW)
+                parts = []
+                for w in range(KERNEL_WARPS):
+                    m = torch.full((G,), ref.NEG_INF)
+                    l, acc = torch.zeros(G), torch.zeros(G, hd)
+                    for tile in range(w, n_tiles, KERNEL_WARPS):
+                        ts = torch.arange(t0 + tile * TW,
+                                          min(t0 + (tile + 1) * TW, t1))
+                        slots = tbl[b, ts // bs].long() * bs + ts % bs
+                        k = rows(0, None if ks is None else 2, slots, kvh)
+                        v = rows(1, None if vs is None else 3, slots, kvh)
+                        s = qs @ k.T
+                        if softcap > 0:
+                            s = softcap * torch.tanh(s / softcap)
+                        m_new = torch.maximum(m, s.max(dim=1).values)
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new[:, None])
+                        l = l * alpha + p.sum(dim=1)
+                        acc = acc * alpha[:, None] + p @ v
+                        m = m_new
+                    parts.append((m, l, acc))
+                ranks.append(_merge(parts))            # warp order
+            _, L, o = _merge(ranks)                    # rank order
+            out[b, 0, kvh * G:(kvh + 1) * G] = o / L.clamp_min(1e-30)[:, None]
+    return out
+
+
+def _merge(parts):
+    """(m, l, acc) of partial softmax states, summed in their order."""
+    M = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+    L, o = torch.zeros_like(parts[0][1]), torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        wt = torch.exp(m - M)
+        L = L + l * wt
+        o = o + acc * wt[:, None]
+    return M, L, o
+
+
+@pytest.mark.parametrize("kv", ["float32", "int8", "fp8"])
+@pytest.mark.parametrize("G,cap", [(1, 0.0), (4, 20.0), (8, 0.0)])
+def test_kernel_split_and_merge_matches_jax(kv, G, cap):
+    """Three rows over a 320-slot table (a cluster of 8 ranks of 5 pages,
+    so warps take several tiles): a ragged cursor, cursor 0 (seven empty
+    ranks, three empty warps) and an all-trash row (every entry one spare
+    page).  The emulation against the port's plain version, the JAX
+    ``paged_attention_ref`` and interpret-mode ``paged_attention_tpu``."""
+    B, KV, hd, bs, NB = 3, 2, 64, 8, 40
+    if kv == "float32":
+        q, kp, vp, tbl, idx = _case(14, B, G * KV, KV, hd, bs, NB)
+        ks = vs = None
+    else:
+        q, kp, vp, tbl, idx, ks, vs = _qcase(14, B, G * KV, KV, hd, bs, NB,
+                                             kv)
+    idx = np.asarray([287, 0, 201], np.int32)
+    tbl = tbl.copy()
+    tbl[2] = kp.shape[0] - 1
+    assert ops.split_plan(B, KV, NB) == 8
+    scales = () if ks is None else (ks, vs)
+    tq = _tq(q, kp, vp, tbl, idx, *scales)
+    tkw = {} if ks is None else dict(k_scales=tq[5], v_scales=tq[6])
+    got = _emulate_kernel(*tq[:5], *tq[5:], softcap=cap)
+    _close(got, ops.paged_attention(*tq[:5], logit_softcap=cap, **tkw))
+    kw = dict(logit_softcap=cap) if ks is None else dict(
+        k_scales=ks, v_scales=vs, logit_softcap=cap)
+    _close(got, jref.paged_attention_ref(q, kp, vp, tbl, idx, **kw))
+    _close(got, paged_attention_tpu(q, kp, vp, tbl, idx, interpret=True,
+                                    **kw))
