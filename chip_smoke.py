@@ -15,7 +15,8 @@ result):
    with ``-Xptxas -v`` register/shared-memory use; every flash entry
    function's registers and spill bytes, none of the 12 spilling, and the
    same for the 32 paged-decode entry functions (q dtype x page dtype x
-   head dim x one or eight heads per kv head);
+   head dim x one or eight heads per kv head), the 8 WKV entry functions
+   (dtype x head dim) and the 4 selective-scan ones (dtype x state dim);
 3. kernel parity: the flash-attention kernel against its plain PyTorch
    version on the card over dtype x causal x window x softcap x MHA/GQA x
    head dim x ragged lengths, plus jamba's attention shape and the serving
@@ -85,8 +86,9 @@ result):
    and 12 layers;
 14. WKV parity: the RWKV6 WKV kernel against both plain forms (per-step and
    chunked) over head dim x sequence length x batch·heads x zero/random
-   initial state x dtype x decays near 0.69 and near 0.9975, y and the
-   final state;
+   initial state x dtype x decays near 0.69, near 0.9975 and near 0 (a
+   tenth exactly 0, some below the reference's 1e-30 floor), y and the
+   final state, finite; then 3 repeats bit-identical at the main shape;
 15. the RWKV6 main path: ``serve.main`` serves ``rwkv6-7b`` at full width
    and depth (batch 4, prompt 1024, 32 tokens, random weights from seed 0),
    every counter at 0 just before: one WKV launch per layer per prefill and
@@ -94,14 +96,17 @@ result):
 16. card against CPU: ``rwkv6-7b`` at full width and depth 2, a greedy
    B=2 P=80 8-token generation on the card against the CPU's prefill
    (chunked WKV form) and decode fed the same tokens;
-17. WKV times at the main path's prefill shape: the kernel and both plain
-   forms beside the bound, and the kernel's share of the prefill;
+17. WKV times at the main path's prefill shape, L2 flushed: the kernel with
+   f32 and with bf16 r/k/v, each beside its bound, and both plain forms;
+   the device kernels of three warm calls (``torch.profiler``, exactly
+   three: one a call); the kernel's share of the prefill;
 18. scan parity: the Mamba selective-scan kernel against both plain forms
    (per-step and chunked) over channels (16, 256, 1000, 8192) x state
    dim (4, 16) x sequence length (1, 63, 64, 1000, 1024) x batch (1, 4) x
    zero/random initial state x f32/bf16 x decays near 1 and large
    dt * A, each with and without the final state, y and the final state,
-   plus the main path's exact shape;
+   and the model's dt and A at a few shapes, plus the main path's exact
+   shape; then 3 repeats bit-identical there;
 19. the jamba main path: ``jamba-v0.1-52b`` at full width and depth 8 (one
    period; random weights drawn on the card from seed 0),
    ``ServeEngine.generate`` at batch 4, prompt 1024, 32 greedy tokens (a
@@ -110,8 +115,11 @@ result):
    before: 21 scan and 3 flash launches, no other kernel;
 20. card against CPU: the same weights copied to the host, a greedy B=1
    P=128 8-token generation and one B=1 x 128 loss forward;
-21. scan times at the main path's prefill shape: the kernel and both
-   plain forms beside the bound, and the kernel's share of the prefill;
+21. scan times at the main path's prefill shape, L2 flushed: the kernel in
+   f32 and bf16, each beside its bound, and the SFU's floor on the busiest
+   SM (its exps at 16 a clock at the SM clock ``nvidia-smi`` reads) beside
+   the byte bound; the device kernels of three warm calls (one a call);
+   both plain forms; the kernel's share of the prefill;
    the flash-attention forward at jamba's attention shape, beside SDPA and
    both bounds.
 
@@ -600,6 +608,30 @@ def paged_registers(build_log: str) -> list:
     return _entry_registers(build_log, name_of)
 
 
+def wkv_registers(build_log: str) -> list:
+    """(entry, registers, spill bytes) of every WKV entry function (r/k/v
+    dtype, head dim)."""
+    import re
+
+    def name_of(mangled):
+        k = re.search(r"wkv_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+        return (f"wkv<{'f32' if k.group(1) == 'f' else 'bf16'}, hd "
+                f"{k.group(2)}>" if k else None)
+    return _entry_registers(build_log, name_of)
+
+
+def scan_registers(build_log: str) -> list:
+    """(entry, registers, spill bytes) of every selective-scan entry
+    function (input dtype, state dim)."""
+    import re
+
+    def name_of(mangled):
+        k = re.search(r"scan_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+        return (f"scan<{'f32' if k.group(1) == 'f' else 'bf16'}, N "
+                f"{k.group(2)}>" if k else None)
+    return _entry_registers(build_log, name_of)
+
+
 def times(fa_ops):
     B, S, H, hd = MAIN_SHAPE
     q, k, v = _inputs(B, S, H, H, hd, torch.float32, 12345)
@@ -884,6 +916,12 @@ def _time_device_ms(fn, reps: int, flush=None) -> float:
     return total / reps
 
 
+def _flusher():
+    """A callable that evicts the 50 MB L2 by writing 256 MB."""
+    junk = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    return junk.zero_
+
+
 def paged_times(pa_ops, kv_dtype=torch.float32):
     """The paged kernel, its plain version and the SDPA yardstick at the
     timing shape over ``kv_dtype`` pages (int8/fp8 with their scales),
@@ -898,10 +936,7 @@ def paged_times(pa_ops, kv_dtype=torch.float32):
         B, H, KV, hd, bs, NB, torch.float32, kv_dtype, [s["cursor"]] * B,
         seed=4242, trash_row=False)
     kw = dict(k_scales=ks, v_scales=vs)
-    junk = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-
-    def flush():
-        junk.zero_()
+    flush = _flusher()
     kernel_ms = _time_device_ms(lambda: pa_ops.paged_attention(
         q, kp, vp, tbl, idx, force="kernel", **kw), 50, flush)
     plain_ms = _time_device_ms(lambda: pa_ops.paged_attention(
@@ -1496,9 +1531,11 @@ def train_times(ns_ops, fa_ops, res, cfg):
 # ---------------------------------------------------------------------------
 
 
-def wkv_case(B, S, H, hd, dtype, state, decay, seed):
-    """r, k, v ~ N(0, 1) in ``dtype``; w float32 uniform in ``decay``;
-    u ~ 0.1 N(0, 1); a zero or N(0, 1) initial state."""
+def wkv_case(B, S, H, hd, dtype, state, decay, seed, zeros=False):
+    """r, k, v ~ N(0, 1) in ``dtype``; w float32 uniform in ``decay``, with
+    ``zeros`` a tenth of it exactly 0 and a twentieth in [1e-37, 1e-31]
+    (below the reference's 1e-30 floor); u ~ 0.1 N(0, 1); a zero or N(0, 1)
+    initial state."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -1507,6 +1544,11 @@ def wkv_case(B, S, H, hd, dtype, state, decay, seed):
     lo, hi = decay
     w = lo + (hi - lo) * torch.rand((B, S, H, hd), generator=g,
                                     device="cuda")
+    if zeros:
+        pick = torch.rand(w.shape, generator=g, device="cuda")
+        tiny = 10.0 ** (-37 + 6 * torch.rand(w.shape, generator=g,
+                                              device="cuda"))
+        w = torch.where(pick < 0.1, 0.0, torch.where(pick < 0.15, tiny, w))
     u = 0.1 * randn(H, hd)
     s0 = randn(B, H, hd, hd) if state else torch.zeros(
         (B, H, hd, hd), device="cuda")
@@ -1520,8 +1562,12 @@ def _rel_floor(got, want) -> float:
 
 
 # Decays at rwkv_init: w = exp(-exp(w_base)) with w_base in [-6, -1] spans
-# about [0.69, 0.9975]; the grid takes each end.
-WKV_DECAYS = {"near 0.69": (0.69, 0.72), "near 0.9975": (0.995, 0.9975)}
+# about [0.69, 0.9975]; the grid takes each end, and decays near 0 (a
+# trained w_base > 2), where a tenth are exactly 0 and some below the
+# reference's 1e-30 floor: a kernel that factored the scores across a chunk
+# would overflow there.
+WKV_DECAYS = {"near 0.69": (0.69, 0.72), "near 0.9975": (0.995, 0.9975),
+              "near 0": (1e-4, 0.05)}
 
 
 def wkv_parity(wkv_ops) -> float:
@@ -1544,7 +1590,7 @@ def wkv_parity(wkv_ops) -> float:
     worst = {}
     for n, (B, S, H, hd, dtype, state, decay) in enumerate(cases):
         args = wkv_case(B, S, H, hd, dtype, state, WKV_DECAYS[decay],
-                        seed=3000 + n)
+                        seed=3000 + n, zeros=decay == "near 0")
         y, s = wkv_ops.wkv(*args, force="kernel")
         errs = []
         for form in ("ref", "chunked"):
@@ -1571,6 +1617,14 @@ def wkv_parity(wkv_ops) -> float:
         _fail(f"{bad} of {len(cases)} WKV parity cases")
     print(f"wkv parity: {len(cases)} cases within tolerance against both "
           "plain forms")
+    for dtype in (f32, bf16):
+        args = wkv_case(B, S, H, hd, dtype, True, WKV_DECAYS["near 0.69"], 7)
+        first = wkv_ops.wkv(*args, force="kernel")
+        if not all(all(torch.equal(a, b) for a, b in zip(
+                first, wkv_ops.wkv(*args, force="kernel"))) for _ in range(3)):
+            _fail(f"wkv kernel repeats differ ({dtype})")
+    print("wkv kernel: 3 repeats bit-identical at the main shape, f32 and "
+          "bf16 (y and the state)")
     return err                                   # the last case: main shape
 
 
@@ -1649,30 +1703,95 @@ def rwkv_card_vs_cpu(cfglib, registry):
           f"(worst {worst:.2e}), tokens equal where the margin allows")
 
 
+_PROFILE_CHILD = """
+import json, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+fn = {expr}
+fn()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    for _ in range({calls}):
+        fn()
+        torch.cuda.synchronize()
+print(json.dumps([e.name for e in p.events()
+                  if e.device_type == DeviceType.CUDA]))
+"""
+
+
+def device_kernels(expr: str, calls: int = 3) -> list:
+    """Names of the device kernels that ``calls`` warm calls of the
+    callable ``expr`` builds (Python source over chip_smoke as ``cs`` and
+    the two recurrent ops modules) run, read with ``torch.profiler``
+    (CUPTI) in a process of its own: in this one, after the earlier
+    phases, CUPTI was seen to report no device activity at all."""
+    out = subprocess.run(
+        [sys.executable, "-c", _PROFILE_CHILD.format(
+            src=os.path.join(ROOT, "src"), root=ROOT, expr=expr,
+            calls=calls)],
+        capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        _fail(f"the profiler's process failed:\n{out.stdout}{out.stderr}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def wkv_times(wkv_ops, res, layers):
-    """The kernel and both plain forms at the main path's prefill shape
-    (CUDA events), beside the bound; then the WKV launches' share of the
-    timed prefill."""
+    """The kernel, f32 and bf16 r/k/v, L2 flushed, each beside its route's
+    bound (its products run on the tensor cores in 3xTF32) and the f32 FMA
+    bound, and both plain forms (f32) at the main path's prefill shape
+    (CUDA events); the device kernels of three warm calls
+    (``torch.profiler``); then the WKV launches' share of the timed
+    prefill."""
     B, S, H, hd = RWKV_SHAPE
-    args = wkv_case(B, S, H, hd, torch.float32, False, (0.69, 0.9975), 99)
-    kernel_ms = _time_device_ms(lambda: wkv_ops.wkv(*args, force="kernel"),
-                                20)
+    flush = _flusher()
+    # The function's products, 4 operations per state entry a step; the
+    # kernel's chunked form runs them as 3xTF32 products.
+    flops = 4 * hd * hd * B * S * H
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = wkv_case(B, S, H, hd, dtype, False, (0.69, 0.9975), 99)
+        ms = _time_device_ms(lambda: wkv_ops.wkv(*args, force="kernel"), 20,
+                             flush)
+        r, k, v, w, u, s0 = args
+        nbytes = (sum(t.numel() * t.element_size() for t in (r, k, v, w, u))
+                  + r.numel() * r.element_size()              # y out
+                  + 2 * s0.numel() * s0.element_size())       # state in, out
+        bound = _route_bounds(flops, flops, nbytes)
+        name = str(dtype)[6:]
+        print(f"wkv kernel at B={B} S={S} H={H} hd={hd} {name} r/k/v, L2 "
+              f"flushed: {ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP x3 TF32), "
+              f"{ms / bound['bound_ms']:.2f}x; f32 FMA bound "
+              f"{bound['f32_bound_ms']:.4f} ms ({bound['f32_bound_by']})")
+        out[name] = (ms, bound, args)
+    kernel_ms, bound, args = out["float32"]
+    kernels = device_kernels(
+        f"(lambda a: lambda: wkv_ops.wkv(*a, force='kernel'))(cs.wkv_case("
+        f"{B}, {S}, {H}, {hd}, torch.float32, False, (0.69, 0.9975), 99))")
+    print(f"wkv kernel: 3 calls ran {len(kernels)} device kernel(s) "
+          f"{sorted(set(kernels))}")
+    if len(kernels) != 3:
+        _fail(f"3 wkv calls ran {len(kernels)} device kernels: {kernels}")
     chunked_ms = _time_ms(lambda: wkv_ops.wkv(*args, force="chunked"), 3)
     step_ms = _time_ms(lambda: wkv_ops.wkv(*args, force="ref"), 3)
-    r, k, v, w, u, s0 = args
-    nbytes = (sum(t.numel() * t.element_size() for t in (r, k, v, w, u))
-              + r.numel() * r.element_size()              # y out
-              + 2 * s0.numel() * s0.element_size())       # state in, out
-    bound = _bound(4 * hd * hd * B * S * H, nbytes)
     share = layers * kernel_ms / (res.prefill_s * 1e3)
     print(f"wkv times at B={B} S={S} H={H} hd={hd} f32: kernel "
           f"{kernel_ms:.4f} ms, plain chunked {chunked_ms:.4f} ms, plain "
           f"per-step {step_ms:.4f} ms, library none; bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-          f"{nbytes / 1e6:.1f} MB, {4 * hd * hd * B * S * H / 1e9:.2f} GFLOP)")
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
     print(f"rwkv6 prefill {res.prefill_s * 1e3:.1f} ms of which {layers} "
           f"WKV launches ~{layers * kernel_ms:.1f} ms ({100 * share:.1f}%)")
-    return dict(ms=kernel_ms, plain_ms=chunked_ms, library_ms=None, **bound)
+    bf16_ms, bf16_bound, _ = out["bfloat16"]
+    return dict(ms=kernel_ms, plain_ms=chunked_ms, library_ms=None, **bound,
+                bf16_ms=bf16_ms, bf16_bound_ms=bf16_bound["bound_ms"],
+                device_kernels=sorted(set(kernels)),
+                device_kernels_per_call=len(kernels) / 3)
 
 
 # ---------------------------------------------------------------------------
@@ -1723,6 +1842,10 @@ def scan_parity(scan_ops) -> float:
              for N in (4, 16) for S in (1, 63, 64, 1000, 1024)
              for B in (1, 4) for h0 in (False, True)
              for regime in SCAN_REGIMES]
+    # The model's dt and A (the timing inputs' regime) at a few shapes.
+    cases += [(B, S, d, 16, dtype, h0, "model")
+              for dtype in (f32, bf16) for d in (256, 1000)
+              for S in (63, 1024) for B in (1, 4) for h0 in (False, True)]
     B, S, d, N = JAMBA_SCAN_SHAPE
     cases.append((B, S, d, N, f32, False, "model"))
     bad, err, worst = 0, 0.0, {}
@@ -1763,6 +1886,16 @@ def scan_parity(scan_ops) -> float:
     print(f"scan parity: {len(cases)} input sets ({len(cases) + n_zero} "
           "kernel calls, with and without the final state) within "
           "tolerance against both plain forms")
+    for dtype in (f32, bf16):
+        *args, state = scan_case(B, S, d, N, dtype, True, "model", 11)
+        first = scan_ops.selective_scan_with_state(*args, h0=state,
+                                                   force="kernel")
+        if not all(all(torch.equal(a, b) for a, b in zip(
+                first, scan_ops.selective_scan_with_state(
+                    *args, h0=state, force="kernel"))) for _ in range(3)):
+            _fail(f"scan kernel repeats differ ({dtype})")
+    print("scan kernel: 3 repeats bit-identical at the main shape, f32 and "
+          "bf16 (y and the final state)")
     return err                                   # the last case: main shape
 
 
@@ -1902,29 +2035,66 @@ def jamba_times(scan_ops, fa_ops, res, n_mamba):
     timed prefill; and the flash-attention forward at jamba's attention
     shape beside its plain version, SDPA and both bounds.  Returns the
     scan's record and the flash forward's readings there."""
+    import re
     B, S, d, N = JAMBA_SCAN_SHAPE
-    *args, state = scan_case(B, S, d, N, torch.float32, False, "model", 77)
-    kernel_ms = _time_device_ms(
-        lambda: scan_ops.selective_scan_with_state(*args, h0=state,
-                                                   force="kernel"), 20)
+    flush = _flusher()
+    # Per state update: dt * A, (dt u) * B_n, the update FMA and the y FMA.
+    flops = 6 * B * S * d * N
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        *args, state = scan_case(B, S, d, N, dtype, False, "model", 77)
+        ms = _time_device_ms(lambda: scan_ops.selective_scan_with_state(
+            *args, h0=state, force="kernel"), 20, flush)
+        u, dt, A, Bm, Cm, Dp = args
+        nbytes = (sum(t.numel() * t.element_size()
+                      for t in (u, dt, A, Bm, Cm, Dp))
+                  + u.numel() * u.element_size()              # y out
+                  + 2 * state.numel() * state.element_size())  # h0, h out
+        bound = _bound(flops, nbytes)
+        name = str(dtype)[6:]
+        print(f"scan kernel at B={B} S={S} d={d} N={N} {name}, L2 flushed: "
+              f"{ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP), {ms / bound['bound_ms']:.2f}x")
+        out[name] = (ms, bound, args, state)
+    kernel_ms, bound, args, state = out["float32"]
+    # The SFU's floor if every exp ran there: the busiest SM's share of
+    # the CTAs (all resident at once; CPB channels a CTA, as the kernel's
+    # source sets it), 16 exps a clock, at the SM clock nvidia-smi reads
+    # right after the timing.
+    with open(os.path.join(ROOT, "src", "repro_torch", "kernels", "mamba_scan",
+                           "csrc", "selective_scan.cu")) as f:
+        cpb = int(re.search(r"constexpr int CPB = (\d+);", f.read()).group(1))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = -(-d // cpb) * B
+    busiest = -(-ctas // n_sm) * cpb * S * N
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split(",")
+    sm_mhz, max_mhz = (float(c) for c in clocks[:2])
+    sfu_ms = busiest / 16 / (sm_mhz * 1e6) * 1e3
+    print(f"scan SFU floor: {busiest / 1e6:.2f} M exps on the busiest SM "
+          f"({ctas} CTAs on {n_sm} SMs) / 16 a clock at {sm_mhz:.0f} MHz "
+          f"(clocks.sm; max {max_mhz:.0f}) = {sfu_ms:.4f} ms, beside the "
+          f"byte bound {bound['bound_ms']:.4f} ms")
+    kernels = device_kernels(
+        "(lambda c: lambda: scan_ops.selective_scan_with_state(*c[:-1], "
+        f"h0=c[-1], force='kernel'))(cs.scan_case({B}, {S}, {d}, {N}, "
+        "torch.float32, False, 'model', 77))")
+    print(f"scan kernel: 3 calls ran {len(kernels)} device kernel(s) "
+          f"{sorted(set(kernels))}")
+    if len(kernels) != 3:
+        _fail(f"3 scan calls ran {len(kernels)} device kernels: {kernels}")
     chunked_ms = _time_ms(lambda: scan_ops.selective_scan_with_state(
         *args, h0=state, force="chunked"), 3)
     step_ms = _time_ms(lambda: scan_ops.selective_scan_with_state(
         *args, h0=state, force="ref"), 2)
-    u, dt, A, Bm, Cm, Dp = args
-    nbytes = (sum(t.numel() * t.element_size()
-                  for t in (u, dt, A, Bm, Cm, Dp))
-              + u.numel() * u.element_size()              # y out
-              + 2 * state.numel() * state.element_size())  # h0 in, h out
-    # Per state update: dt * A, (dt u) * B_n, the update FMA and the y FMA.
-    flops = 6 * B * S * d * N
-    bound = _bound(flops, nbytes)
     share = n_mamba * kernel_ms / (res.prefill_s * 1e3)
     print(f"scan times at B={B} S={S} d={d} N={N} f32: kernel "
           f"{kernel_ms:.4f} ms, plain chunked {chunked_ms:.4f} ms, plain "
           f"per-step {step_ms:.4f} ms, library none; bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
           f"{B * S * d * N / 1e6:.0f} M exps)")
     print(f"jamba prefill {res.prefill_s * 1e3:.1f} ms of which {n_mamba} "
           f"scan launches ~{n_mamba * kernel_ms:.2f} ms "
@@ -1949,8 +2119,11 @@ def jamba_times(scan_ops, fa_ops, res, n_mamba):
               jamba_library_ms=fa_lib, jamba_library_backend=backend,
               jamba_bound_ms=fa_bound["bound_ms"],
               jamba_f32_bound_ms=fa_bound["f32_bound_ms"])
-    return dict(ms=kernel_ms, plain_ms=chunked_ms, library_ms=None,
-                **bound), fa
+    bf16_ms, bf16_bound, _, _ = out["bfloat16"]
+    return dict(ms=kernel_ms, plain_ms=chunked_ms, library_ms=None, **bound,
+                bf16_ms=bf16_ms, bf16_bound_ms=bf16_bound["bound_ms"],
+                sfu_floor_ms=sfu_ms, device_kernels=sorted(set(kernels)),
+                device_kernels_per_call=len(kernels) / 3), fa
 
 
 def main() -> int:
@@ -1996,6 +2169,14 @@ def main() -> int:
     if len(pa_regs) != 32 or any(sp for _, _, sp in pa_regs):
         _fail(f"paged entry functions: {pa_regs} (32 expected, none "
               "spilling)")
+    wkv_regs = wkv_registers(_build.build_log("rwkv6"))
+    scan_regs = scan_registers(_build.build_log("mamba_scan"))
+    print("wkv and scan entry functions (registers, spill bytes): "
+          + "; ".join(f"{n} {r}, {sp}" for n, r, sp in wkv_regs + scan_regs))
+    if (len(wkv_regs) != 8 or len(scan_regs) != 4
+            or any(sp for _, _, sp in wkv_regs + scan_regs)):
+        _fail(f"wkv and scan entry functions: {wkv_regs} {scan_regs} (8 and "
+              "4 expected, none spilling)")
 
     # 3-4. kernel parity on the card
     main_err = parity(fa_ops)
@@ -2135,13 +2316,14 @@ def main() -> int:
         {"name": "wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
          "replaces": "src/repro/kernels/rwkv6/kernel.py:71",
-         "launches": wkv_launches, "max_abs_err": wkv_err, **t_wkv},
+         "launches": wkv_launches, "max_abs_err": wkv_err, **t_wkv,
+         "registers_spills": [list(r) for r in wkv_regs]},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/mamba_scan/csrc/"
                    "selective_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/kernel.py:49",
          "launches": jamba_counts["selective_scan"], "max_abs_err": scan_err,
-         **t_scan}]}
+         **t_scan, "registers_spills": [list(r) for r in scan_regs]}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

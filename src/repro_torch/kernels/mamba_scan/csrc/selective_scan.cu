@@ -1,4 +1,5 @@
-// Mamba selective scan for Hopper (sm_90a), CUDA C++ with plain f32 FMA.
+// Mamba selective scan for Hopper (sm_90a), CUDA C++: the streams staged
+// by cp.async, the steps of a chunk pipelined, y out as 16-byte rows.
 //
 // Replaces: src/repro/kernels/mamba_scan/kernel.py:49 (selective_scan_tpu,
 // Pallas body `_body`).  Same function: for u, dt (B,S,d), A (d,N), B_t,
@@ -10,43 +11,55 @@
 // its pallas_call) fused in.  Beyond the TPU kernel, the final state h_S is
 // written when h_out is not null: the serving prefill hands it to decode.
 // u, dt, B and C are all float32 or all bfloat16; A, D and the state are
-// float32 (the wrapper casts D, which is small).  N is 4 or 16.
+// float32 (the wrapper casts D, which is small).  N is 4 or 16; any S >= 0
+// and d >= 1.
 //
 // Not carried over block by block: the Pallas kernel blocks 512 channels x
 // 128-step chunks on a sequential grid axis and carries h in VMEM scratch
 // from one grid step to the next.  Here blocks run in parallel, so the time
-// loop lives inside the block: one thread per channel keeps that channel's
-// N state entries in registers for the whole sequence.
+// loop lives inside the block and a channel's N state entries stay in
+// registers for the whole sequence.
 //
 // Bound on the card.  Per (b, t, c) the function reads u and dt and writes
 // y; B_t and C_t are shared by the d channels of a batch row.  At the
 // serving prefill (B=4, S=1024, d=8192, N=16, f32) that is 3 x 134.2 MB of
 // streams plus about 5.3 MB of A, B, C, D, h0 and h_S: 407.9 MB, 0.122 ms
 // at 3.35 TB/s.  The arithmetic is B*S*d*N = 537 M state updates of one
-// exp and three multiply-adds each; the exps run on the SFU (16 a clock on
-// each SM), 0.13-0.145 ms at 1.98-1.755 GHz, while the 3.2 GFLOP of f32
-// FMA take 0.048 ms at 67 TFLOP/s.  So the exps and the bytes bound it
-// together.
+// exp and four f32 operations each (dt A, (dt u) B_n, the update and the y
+// sum).  On the SFU alone the exps are 16 a clock on an SM: 4.19 M on the
+// busiest SM, ~0.132 ms at 1.98 GHz, beside the byte bound.
 //
-// Design.  A CTA holds 128 consecutive channels of one batch row (grid
-// (ceil(d/128), B)); lane i takes channel i, so each step's loads of u and
-// dt and its store of y coalesce along d.  Per step a thread does, for
-// each of its N entries, h = h * 2^(dt * A log2 e) + (dt u) B_n and
-// y += h C_n: N independent chains, so a thread's own exps keep the SFU
-// busy without needing many warps on the SM.  The exp is ex2.approx with
-// A log2 e taken once per channel (__expf's method: 2 ulp on the decay
-// near 1, flushing to 0 far below it); the parity grid holds it to 1e-4
-// relative over S = 1024 with decays near 1.  B_t and C_t are staged in
-// shared memory in chunks of CH = 16 steps by cp.async (4-byte words, so
-// any S and either dtype), double-buffered: chunk n+1's copies are in
-// flight while chunk n is computed, with one barrier per chunk; every
-// thread then reads a step's B and C as broadcast vector loads.  Each
-// thread prefetches its u and dt for chunk n+1 into registers during chunk
-// n.  Deterministic: no atomics, a fixed order of sums.
+// Design.  A CTA holds CPB = 64 consecutive channels of one batch row (grid
+// (ceil(d/64), B)), one thread a channel.  Per step a thread does, for each
+// of its N entries, h = h * 2^(dt * A log2 e) + (dt u) B_n and y += h C_n
+// (four partial sums), A log2 e taken once.  u and dt reach shared memory
+// by 16-byte cp.async, double-buffered in chunks of CH steps (chunk n+1's
+// copies in flight while chunk n computes), so bf16 moves half the bytes
+// of f32 in the same number of copies; B_t and C_t of the next chunk are
+// loaded into registers and written to shared memory as f32 at the end of
+// the current one, so every lane reads them as broadcast vector loads.
+// Within a whole chunk, step k+1's loads, its exps and its (dt u) B_n are
+// issued before step k's updates, so that the exps on the SFU overlap the
+// updates' chain of FMAs; y stays in registers until the chunk's end, then
+// goes through shared memory and out as 16-byte rows.  One barrier a
+// chunk; no atomics, a fixed order of sums: repeats are bit-identical.
+// Where d's rows are not 16-byte aligned (d not a multiple of 4 f32 or 8
+// bf16 values) the copies and stores go element by element.
 //
-// What the simple design leaves: a polynomial exp on the FMA pipe for part
-// of the entries (the FMA pipe idles beside the SFU), and splitting a
-// channel's N entries across lanes when B * d is too small to fill the card.
+// Every exp runs on the SFU (ex2.approx).  tools/scan_variants.py measured
+// a share of them moved to a polynomial exp2 on the FMA pipe slower, and
+// taking the exps away altogether only 6-12% faster, so the SFU is not what
+// sets the time here.
+//
+// What the design leaves: at the prefill shape the f32 time is ~3% below
+// the one-thread-a-channel kernel it replaces and bf16 ~25% below it, now
+// under f32; the copies and stores alone take ~0.16 ms in f32 and the
+// updates alone ~0.19-0.25: with eight warps an SM the per-step
+// chain (shared-memory loads, the updates, the y sum) keeps the issue rate
+// near half of the SM's.  Splitting a channel over lanes, two channels a
+// thread (one load of B and C for both), 32 or 128 channels a CTA, chunks
+// of 8 steps, a 3- or 4-chunk ring and y stored from each step measured
+// slower or no faster (PERF.md records the times).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,224 +67,244 @@
 
 namespace {
 
-constexpr int THREADS = 128;         // channels per CTA
-constexpr int CH = 16;               // time steps per staged chunk
+constexpr int CPB = 64;              // channels of a CTA
+constexpr int CH = 16;               // steps of a staged chunk
+constexpr int NSTAGE = 2;            // cp.async ring depth, in chunks
 constexpr float LOG2E = 1.4426950408889634f;
 
+// 2^x rounded by the SFU: about 2 ulp, 0 below -126 (.ftz).
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(s), "l"(gmem));
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// One element's raw bits: float32 as is, bfloat16 in the low half.  They
-// stay raw until used, so a prefetch does not stall the thread.
-template <typename T> struct Elem;
-template <> struct Elem<float> {
-  static __device__ __forceinline__ uint32_t load(const float* p, size_t i) {
-    return __float_as_uint(__ldg(p + i));
-  }
-  static __device__ __forceinline__ float f32(uint32_t bits) {
-    return __uint_as_float(bits);
-  }
-  static __device__ __forceinline__ void store(float* p, size_t i, float x) {
-    p[i] = x;
-  }
-};
-template <> struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t load(const __nv_bfloat16* p,
-                                                  size_t i) {
-    return static_cast<uint32_t>(
-        __ldg(reinterpret_cast<const unsigned short*>(p) + i));
-  }
-  static __device__ __forceinline__ float f32(uint32_t bits) {
-    return __uint_as_float(bits << 16);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, size_t i,
-                                               float x) {
-    p[i] = __float2bfloat16(x);                  // round to nearest even
-  }
-};
-
-// RW consecutive 32-bit words from shared memory, by the widest aligned
-// vector load (row offsets are multiples of RW words; RW is 2, 4, 8 or 16).
-template <int RW>
-__device__ __forceinline__ void load_words(const uint32_t* p,
-                                           uint32_t (&w)[RW]) {
-  if constexpr (RW % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < RW; q += 4) {
-      const uint4 v = *reinterpret_cast<const uint4*>(p + q);
-      w[q] = v.x; w[q + 1] = v.y; w[q + 2] = v.z; w[q + 3] = v.w;
-    }
-  } else {
-    static_assert(RW == 2, "row words");
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    w[0] = v.x; w[1] = v.y;
-  }
-}
-
-// One step's N values of B or C from its staged words, as float32.
-template <typename T, int N>
-__device__ __forceinline__ void read_row(const uint32_t* p, float (&out)[N]) {
-  constexpr int RW = N * (int)sizeof(T) / 4;
-  uint32_t w[RW];
-  load_words<RW>(p, w);
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) out[n] = __uint_as_float(w[n]);
-  } else {
-#pragma unroll
-    for (int q = 0; q < RW; ++q) {
-      out[2 * q] = __uint_as_float(w[q] << 16);          // element 2q: low
-      out[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
-    }
-  }
-}
-
-// N consecutive floats of global memory (N a multiple of 4, 16-byte
-// aligned).
 template <int N>
-__device__ __forceinline__ void load_state(const float* p, float (&out)[N]) {
-#pragma unroll
-  for (int q = 0; q < N; q += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p + q);
-    out[q] = v.x; out[q + 1] = v.y; out[q + 2] = v.z; out[q + 3] = v.w;
-  }
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void store_state(float* p, const float (&h)[N]) {
-#pragma unroll
-  for (int q = 0; q < N; q += 4)
-    *reinterpret_cast<float4*>(p + q) =
-        make_float4(h[q], h[q + 1], h[q + 2], h[q + 3]);
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);                      // round to nearest even
+}
+
+// 16 bytes of y from f32 values in shared memory.
+__device__ __forceinline__ void store16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* src) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  const __nv_bfloat162 p0 = __floats2bfloat162_rn(a.x, a.y);
+  const __nv_bfloat162 p1 = __floats2bfloat162_rn(a.z, a.w);
+  const __nv_bfloat162 p2 = __floats2bfloat162_rn(b.x, b.y);
+  const __nv_bfloat162 p3 = __floats2bfloat162_rn(b.z, b.w);
+  uint4 o;
+  o.x = *reinterpret_cast<const uint32_t*>(&p0);
+  o.y = *reinterpret_cast<const uint32_t*>(&p1);
+  o.z = *reinterpret_cast<const uint32_t*>(&p2);
+  o.w = *reinterpret_cast<const uint32_t*>(&p3);
+  *reinterpret_cast<uint4*>(dst) = o;
 }
 
 template <typename T, int N>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(CPB)
 scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
             const float* __restrict__ A, const T* __restrict__ Bm,
             const T* __restrict__ Cm, const float* __restrict__ Dp,
             const float* __restrict__ h0, T* __restrict__ y,
             float* __restrict__ h_out, int S, int d) {
-  constexpr int RW = N * (int)sizeof(T) / 4;   // words of one step of B or C
-  constexpr int W = CH * RW;                   // words of one chunk
-  static_assert(N % 4 == 0 && W % 4 == 0, "staging layout");
-  // [buffer][B or C][step in chunk * RW + word]
-  __shared__ __align__(16) uint32_t sbc[2][2][W];
+  static_assert(N % 4 == 0, "B_t and C_t rows are float4 rows");
+  constexpr int THREADS = CPB;
+  constexpr int VPP = 16 / (int)sizeof(T);       // values of a 16-byte piece
+  constexpr int PR = CPB / VPP;                  // pieces of a row
+  constexpr int BCT = (2 * CH * N + THREADS - 1) / THREADS;  // B, C a thread
+  __shared__ __align__(16) T ud[NSTAGE][2][CH][CPB];   // u, dt
+  __shared__ __align__(16) float bc[2][2][CH][N];      // B, C as f32
+  __shared__ __align__(16) float ys[2][CH][CPB];       // y before its store
 
   const int b = blockIdx.y;
-  const int c = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = c < d;
-  const int cc = live ? c : d - 1;     // idle lanes compute a live channel
-                                       // and store nothing
+  const int c0 = blockIdx.x * CPB;
+  const int tid = threadIdx.x;
+  const bool vec = d % VPP == 0;        // rows of u, dt, y 16-byte aligned
+  const size_t row0 = (size_t)b * S;    // (b, 0)
+  const int nchunks = (S + CH - 1) / CH;
 
+  // Channels past d compute on channel d - 1 and store nothing.
+  const int cc = min(c0 + tid, d - 1);
   float a2[N], h[N];
-  load_state<N>(A + (size_t)cc * N, a2);
 #pragma unroll
-  for (int n = 0; n < N; ++n) a2[n] *= LOG2E;
-  if (h0 != nullptr) {
-    load_state<N>(h0 + ((size_t)b * d + cc) * N, h);
-  } else {
-#pragma unroll
-    for (int n = 0; n < N; ++n) h[n] = 0.f;
+  for (int e = 0; e < N; ++e) {
+    a2[e] = A[(size_t)cc * N + e] * LOG2E;
+    h[e] = h0 != nullptr ? h0[((size_t)b * d + cc) * N + e] : 0.f;
   }
   const float dc = Dp[cc];
 
-  const uint32_t* bw = reinterpret_cast<const uint32_t*>(Bm)
-                       + (size_t)b * S * RW;
-  const uint32_t* cw = reinterpret_cast<const uint32_t*>(Cm)
-                       + (size_t)b * S * RW;
-  const size_t row_words = (size_t)S * RW;     // this batch row's words
-  const size_t col = (size_t)b * S * d + cc;   // (b, 0, cc)
-
-  // cp.async of chunk [t0, t0 + CH) of B and C into buffer `buf`; words
-  // past this batch row's end are left alone (never read).
-  auto stage = [&](int buf, int t0) {
-    const size_t base = (size_t)t0 * RW;
-    for (int w = threadIdx.x; w < W; w += THREADS) {
-      if (base + w < row_words) {
-        cp_async4(&sbc[buf][0][w], bw + base + w);
-        cp_async4(&sbc[buf][1][w], cw + base + w);
+  // Chunk n's u and dt into stage n % NSTAGE, zeros past S and d; always
+  // commits a group.
+  auto issue = [&](int n) {
+    if (n < nchunks) {
+      for (int q = tid; q < 2 * CH * PR; q += THREADS) {
+        const int a = q / (CH * PR), row = (q / PR) % CH, pc = q % PR;
+        const int t = n * CH + row, ch = c0 + pc * VPP;
+        T* dst = &ud[n % NSTAGE][a][row][pc * VPP];
+        const T* src = (a ? dt : u) + (row0 + t) * d + ch;
+        if (vec) {
+          const bool in = t < S && ch < d;
+          cp_async16(dst, in ? src : u, in ? 16 : 0);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VPP; ++e)
+            dst[e] = t < S && ch + e < d ? src[e] : T(0.f);
+        }
       }
     }
     cp_async_commit();
   };
-  uint32_t pu[CH], pdt[CH];
-  auto fetch = [&](int t0) {
+  // Chunk n's B and C: loaded into registers, then written as f32.
+  T bcr[BCT];
+  auto fetch_bc = [&](int n) {
 #pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      const bool in = t0 + k < S;
-      const size_t i = col + (size_t)(t0 + k) * d;
-      pu[k] = in ? Elem<T>::load(u, i) : 0u;
-      pdt[k] = in ? Elem<T>::load(dt, i) : 0u;
+    for (int i = 0; i < BCT; ++i) {
+      const int q = tid + i * THREADS;
+      const int a = q / (CH * N), t = n * CH + (q / N) % CH;
+      bcr[i] = q < 2 * CH * N && t < S
+                   ? (a ? Cm : Bm)[(row0 + t) * N + q % N] : T(0.f);
+    }
+  };
+  auto stash_bc = [&](int n) {
+#pragma unroll
+    for (int i = 0; i < BCT; ++i) {
+      const int q = tid + i * THREADS;
+      if (q < 2 * CH * N) (&bc[n & 1][0][0][0])[q] = to_f32(bcr[i]);
+    }
+  };
+  // Chunk n's y from shared memory to (b, t, c0..), rows < S, columns < d.
+  auto store_y = [&](int n) {
+    const int t0 = n * CH;
+    if (vec) {
+      for (int q = tid; q < CH * PR; q += THREADS) {
+        const int row = q / PR, ch = c0 + (q % PR) * VPP;
+        if (t0 + row < S && ch < d)
+          store16(y + (row0 + t0 + row) * d + ch,
+                  &ys[n & 1][row][(q % PR) * VPP]);
+      }
+    } else {
+      for (int q = tid; q < CH * CPB; q += THREADS) {
+        const int row = q / CPB, ch = c0 + q % CPB;
+        if (t0 + row < S && ch < d)
+          from_f32(y + (row0 + t0 + row) * d + ch, ys[n & 1][row][q % CPB]);
+      }
     }
   };
 
-  const int nchunks = (S + CH - 1) / CH;
+#pragma unroll
+  for (int n = 0; n < NSTAGE - 1; ++n) issue(n);
   if (nchunks > 0) {
-    stage(0, 0);
-    fetch(0);
+    fetch_bc(0);
+    stash_bc(0);
   }
   for (int n = 0; n < nchunks; ++n) {
-    const int buf = n & 1;
-    const int t0 = n * CH;
-    // My copies of chunk n have landed; after the barrier everyone's have,
-    // and everyone is done reading chunk n-1 from the other buffer.
-    cp_async_wait_all();
+    // Chunk n's copies and B, C have landed; chunk n-1 is done with its
+    // stage, its B and C buffer and its y buffer's neighbour.
+    cp_async_wait<NSTAGE - 2>();
     __syncthreads();
-    uint32_t cu[CH], cdt[CH];
+    if (n > 0) store_y(n - 1);
+    issue(n + NSTAGE - 1);
+    if (n + 1 < nchunks) fetch_bc(n + 1);
+    const int stage = n % NSTAGE;
+    const int steps = min(CH, S - n * CH);
+    // A step's inputs and all of its work that does not need h: u, the
+    // decays 2^(dt A log2 e), (dt u) B_n and C_t.
+    struct In { float u, bu[N], c[N], da[N]; };
+    auto load = [&](int k, In& in) {
+      in.u = to_f32(ud[stage][0][k][tid]);
+      const float dt = to_f32(ud[stage][1][k][tid]);
+      const float dtu = dt * in.u;
 #pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      cu[k] = pu[k];
-      cdt[k] = pdt[k];
-    }
-    if (n + 1 < nchunks) {
-      stage(buf ^ 1, t0 + CH);
-      fetch(t0 + CH);
-    }
-    const int steps = min(CH, S - t0);
+      for (int e = 0; e < N; e += 4) {
+        const float4 p = *reinterpret_cast<const float4*>(&bc[n & 1][0][k][e]);
+        const float4 q = *reinterpret_cast<const float4*>(&bc[n & 1][1][k][e]);
+        in.bu[e] = dtu * p.x; in.bu[e + 1] = dtu * p.y;
+        in.bu[e + 2] = dtu * p.z; in.bu[e + 3] = dtu * p.w;
+        in.c[e] = q.x; in.c[e + 1] = q.y; in.c[e + 2] = q.z; in.c[e + 3] = q.w;
+      }
 #pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      if (k < steps) {
-        float bv[N], cv[N];
-        read_row<T, N>(&sbc[buf][0][k * RW], bv);
-        read_row<T, N>(&sbc[buf][1][k * RW], cv);
-        const float dtv = Elem<T>::f32(cdt[k]);
-        const float uv = Elem<T>::f32(cu[k]);
-        const float dtu = dtv * uv;
-        float y0 = 0.f, y1 = 0.f;
+      for (int e = 0; e < N; ++e) in.da[e] = ex2_approx(dt * a2[e]);
+    };
+    // One step's N updates and its y: four partial sums, then D u.
+    auto update = [&](const In& in) {
+      float yp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int e = 0; e < N; ++e) {
-          const float da = ex2_approx(dtv * a2[e]);
-          h[e] = fmaf(h[e], da, dtu * bv[e]);
-          if (e & 1) y1 = fmaf(h[e], cv[e], y1);
-          else       y0 = fmaf(h[e], cv[e], y0);
-        }
-        if (live)
-          Elem<T>::store(y, col + (size_t)(t0 + k) * d,
-                         fmaf(dc, uv, y0 + y1));
+      for (int e = 0; e < N; ++e) {
+        h[e] = fmaf(h[e], in.da[e], in.bu[e]);
+        yp[e % 4] = fmaf(h[e], in.c[e], yp[e % 4]);
+      }
+      return fmaf(dc, in.u, (yp[0] + yp[1]) + (yp[2] + yp[3]));
+    };
+    auto put = [&](int k, float yv) { ys[n & 1][k][tid] = yv; };
+    if (steps == CH) {
+      // A whole chunk: step k+1's loads, decays and (dt u) B_n issued
+      // before step k's updates, y kept in registers and stored after the
+      // last step, so that no shared-memory store stands between one step
+      // and the next.
+      float yk[CH];
+      In cur, nxt;
+      load(0, cur);
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        if (k + 1 < CH) load(k + 1, nxt);
+        yk[k] = update(cur);
+        if (k + 1 < CH) cur = nxt;
+      }
+#pragma unroll
+      for (int k = 0; k < CH; ++k) put(k, yk[k]);
+    } else {
+      for (int k = 0; k < steps; ++k) {        // the ragged last chunk
+        In in;
+        load(k, in);
+        put(k, update(in));
       }
     }
+    if (n + 1 < nchunks) stash_bc(n + 1);
+  }
+  if (nchunks > 0) {
+    __syncthreads();
+    store_y(nchunks - 1);
   }
 
-  if (h_out != nullptr && live)
-    store_state<N>(h_out + ((size_t)b * d + c) * N, h);
+  if (h_out != nullptr && c0 + tid < d) {
+    float* p = h_out + ((size_t)b * d + c0 + tid) * N;
+#pragma unroll
+    for (int e = 0; e < N; e += 4)
+      *reinterpret_cast<float4*>(p + e) =
+          make_float4(h[e], h[e + 1], h[e + 2], h[e + 3]);
+  }
+}
+
+// The whole carveout for shared memory, so that four CTAs (28 KB each in
+// f32) share an SM.
+template <typename T, int N>
+cudaError_t set_attributes() {
+  return cudaFuncSetAttribute(scan_kernel<T, N>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 template <typename T, int N>
@@ -279,8 +312,10 @@ cudaError_t launch(const void* u, const void* dt, const void* A,
                    const void* Bm, const void* Cm, const void* Dp,
                    const void* h0, void* y, void* h_out, int B, int S, int d,
                    cudaStream_t st) {
-  const dim3 grid((d + THREADS - 1) / THREADS, B);
-  scan_kernel<T, N><<<grid, THREADS, 0, st>>>(
+  const cudaError_t err = set_attributes<T, N>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((d + CPB - 1) / CPB, B);
+  scan_kernel<T, N><<<grid, CPB, 0, st>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(Dp),
@@ -304,9 +339,10 @@ cudaError_t dispatch_n(int N, const void* u, const void* dt, const void* A,
 }  // namespace
 
 // u, dt, y: (B,S,d) contiguous, float32 (dtype 0) or bfloat16 (dtype 1);
-// Bm, Cm: (B,S,N) of the same dtype, N = 4 (the smoke configs) or 16; A: (d,N) float32; Dp: (d,) float32;
-// h0 (nullable), h_out (nullable): (B,d,N) float32.  Launches on `stream`;
-// returns the launch's CUDA error code (0 on success).
+// Bm, Cm: (B,S,N) of the same dtype, N = 4 (the smoke configs) or 16; A:
+// (d,N) float32; Dp: (d,) float32; h0 (nullable), h_out (nullable): (B,d,N)
+// float32; all 16-byte aligned.  Launches on `stream`; returns the launch's
+// CUDA error code (0 on success).
 extern "C" int selective_scan_fwd(const void* u, const void* dt,
                                   const void* A, const void* Bm,
                                   const void* Cm, const void* Dp,
@@ -324,3 +360,4 @@ extern "C" int selective_scan_fwd(const void* u, const void* dt,
                                       B, S, d, st);
   return (int)err;
 }
+

@@ -2,7 +2,8 @@
 (``repro/kernels/mamba_scan/ops.py``).
 
 Dispatch is by the tensors' device: CUDA tensors launch the hand-written
-Hopper kernel (``csrc/selective_scan.cu``) or raise; CPU tensors take the
+Hopper kernel (``csrc/selective_scan.cu``: cp.async staging, pipelined
+steps, y out as 16-byte rows) or raise; CPU tensors take the
 plain version the reference's non-TPU path takes: the per-step recurrence
 for S < 64, the chunked form otherwise.  ``force="kernel"``, ``"ref"`` or
 ``"chunked"`` pins a path for tests and the chip smoke run.

@@ -2,10 +2,11 @@
 (``repro/kernels/rwkv6/ops.py``).
 
 Dispatch is by the tensors' device: CUDA tensors launch the hand-written
-Hopper kernel (``csrc/wkv.cu``) or raise; CPU tensors take the plain
-version the reference's non-TPU path takes: the per-step recurrence for
-S < 64, the chunked closed form otherwise.  ``force="kernel"``, ``"ref"``
-or ``"chunked"`` pins a path for tests and the chip smoke run.
+Hopper kernel (``csrc/wkv.cu``: the chunked form with its products on the
+tensor cores in 3xTF32) or raise; CPU tensors take the plain version the
+reference's non-TPU path takes: the per-step recurrence for S < 64, the
+chunked closed form otherwise.  ``force="kernel"``, ``"ref"`` or
+``"chunked"`` pins a path for tests and the chip smoke run.
 
 The kernel has no backward.  A CUDA input that requires grad raises,
 naming the ROADMAP item that brings it; on the CPU autograd differentiates

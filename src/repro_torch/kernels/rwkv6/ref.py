@@ -38,8 +38,16 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int = 64):
               + sum_{s<t} (r_t ⊙ exp(cum_{t-1} - cum_s)) · k_s v_s
               + (r_t ⊙ u) · k_t v_t,
 
-    and the state is carried to the chunk's end.  Every exp is of a
-    non-positive number.  ``chunk`` is halved until it divides S."""
+    and the state is carried to the chunk's end.  ``chunk`` is halved
+    until it divides S.
+
+    The pairwise decays are taken for every (t, s) and the pairs s >= t
+    masked after the sum over channels; their exponents cum_{t-1} - cum_s
+    are positive, so they are clamped at 0 first: with strong decays (w
+    near 0, floored at 1e-30) they would reach e^{+69 per step}, overflow
+    to inf, and inf * 0 makes the whole row NaN, as the reference's
+    ``wkv_chunked`` does (ROADMAP queue C).  Below the diagonal, where
+    every exponent is non-positive, nothing changes."""
     B, S, H, hd = r.shape
     chunk = min(chunk, S)
     while chunk and S % chunk:
@@ -63,7 +71,8 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int = 64):
         cum = torch.cumsum(logw, dim=1)                  # inclusive over time
         cum_prev = cum - logw
         y = torch.einsum("bthk,bhkv->bthv", rt * torch.exp(cum_prev), s0)
-        decay = torch.exp(cum_prev[:, :, None] - cum[:, None, :])  # (B,t,s,H,hd)
+        decay = torch.exp(torch.clamp(cum_prev[:, :, None] - cum[:, None, :],
+                                      max=0.0))            # (B,t,s,H,hd)
         att = torch.einsum("bthk,btshk,bshk->bhts", rt, decay, kt) * tri
         diag = torch.einsum("bthk,bthk->bth", rt * uf[None, None], kt)
         att = att + torch.einsum("bth,ts->bhts", diag, eye)

@@ -610,14 +610,28 @@ def test_gemm_refused_launch_raises(cuda_device, monkeypatch):
     assert _rel(got, x @ x.T) <= 1e-4
 
 
+def _near_zero_decays(rng, shape):
+    """w uniform in [1e-4, 0.05], a tenth of the entries exactly 0 and a
+    twentieth in [1e-37, 1e-31], below the reference's 1e-30 floor: a
+    factorization across a chunk would overflow f32 here."""
+    w = rng.uniform(1e-4, 0.05, shape)
+    pick = rng.random(shape)
+    w[pick < 0.1] = 0.0
+    tiny = (pick >= 0.1) & (pick < 0.15)
+    w[tiny] = 10.0 ** rng.uniform(-37, -31, int(tiny.sum()))
+    return w
+
+
 def _wkv_inputs(seed, B, S, H, hd, dtype, device, decay):
-    """r, k, v ~ N(0, 1) in ``dtype``; w float32 uniform in ``decay``;
-    u ~ 0.1 N(0, 1); a N(0, 1) initial state."""
+    """r, k, v ~ N(0, 1) in ``dtype``; w float32 uniform in ``decay`` (or
+    the "near 0" regime); u ~ 0.1 N(0, 1); a N(0, 1) initial state."""
     rng = np.random.default_rng(seed)
     r, k, v = (torch.from_numpy(rng.standard_normal(
         (B, S, H, hd), dtype=np.float32)).to(device, dtype) for _ in range(3))
-    w = torch.from_numpy(rng.uniform(*decay, (B, S, H, hd)).astype(
-        np.float32)).to(device)
+    shape = (B, S, H, hd)
+    w = (_near_zero_decays(rng, shape) if decay == "near 0"
+         else rng.uniform(*decay, shape))
+    w = torch.from_numpy(w.astype(np.float32)).to(device)
     u = torch.from_numpy((0.1 * rng.standard_normal((H, hd))).astype(
         np.float32)).to(device)
     s0 = torch.from_numpy(rng.standard_normal(
@@ -633,7 +647,8 @@ def _wkv_inputs(seed, B, S, H, hd, dtype, device, decay):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("S,decay", [(1, (0.69, 0.75)), (63, (0.69, 0.75)),
-                                     (100, (0.995, 0.9975))])
+                                     (100, (0.995, 0.9975)), (17, "near 0"),
+                                     (100, "near 0")])
 def test_wkv_kernel_matches_plain_forms(cuda_device, dtype, hd, S, decay):
     td = getattr(torch, dtype)
     args = _wkv_inputs(hd + S, 2, S, 3, hd, td, cuda_device, decay)
@@ -642,6 +657,7 @@ def test_wkv_kernel_matches_plain_forms(cuda_device, dtype, hd, S, decay):
     torch.cuda.synchronize()
     assert wkv_ops.KERNEL_LAUNCHES == before + 1
     assert y.dtype == td and s.dtype == torch.float32
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
     tol = 1e-2 if dtype == "bfloat16" else 1e-4
     for force in ("ref", "chunked"):
         want_y, want_s = wkv_ops.wkv(*args, force=force)
@@ -672,17 +688,22 @@ def test_wkv_kernel_refuses_grads_and_what_it_does_not_take(cuda_device):
 
 def _scan_inputs(seed, B, S, d, N, dtype, device, regime):
     """u, Bm, Cm ~ N(0, 1) in ``dtype``; dt in ``dtype`` and A float32 by
-    regime (decays near 1, or large dt * A down to -80); D ~ 1 + 0.1 N(0,
-    1); a N(0, 1) initial state."""
+    regime (decays near 1, large dt * A down to -80, or the model's: dt =
+    softplus(N(0, 1)), A = -(1..N) as mamba_init makes it); D ~ 1 + 0.1
+    N(0, 1); a N(0, 1) initial state."""
     rng = np.random.default_rng(seed)
-    (dlo, dhi), (alo, ahi) = {"near 1": ((0.01, 0.1), (1e-3, 1e-2)),
-                              "large": ((1.0, 5.0), (1.0, 16.0))}[regime]
 
     def t(a, dt=dtype):
         return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
     u = t(rng.standard_normal((B, S, d)))
-    dt = t(rng.uniform(dlo, dhi, (B, S, d)))
-    A = t(-rng.uniform(alo, ahi, (d, N)), torch.float32)
+    if regime == "model":
+        dt = t(np.log1p(np.exp(rng.standard_normal((B, S, d)))))
+        A = t(-np.tile(np.arange(1, N + 1), (d, 1)), torch.float32)
+    else:
+        (dlo, dhi), (alo, ahi) = {"near 1": ((0.01, 0.1), (1e-3, 1e-2)),
+                                  "large": ((1.0, 5.0), (1.0, 16.0))}[regime]
+        dt = t(rng.uniform(dlo, dhi, (B, S, d)))
+        A = t(-rng.uniform(alo, ahi, (d, N)), torch.float32)
     Bm = t(rng.standard_normal((B, S, N)))
     Cm = t(rng.standard_normal((B, S, N)))
     Dp = t(1.0 + 0.1 * rng.standard_normal(d), torch.float32)
@@ -700,7 +721,8 @@ def _scan_inputs(seed, B, S, d, N, dtype, device, regime):
 @pytest.mark.parametrize("N", [4, 16])
 @pytest.mark.parametrize("S,d,regime", [(1, 16, "large"), (63, 200, "near 1"),
                                         (200, 256, "large"),
-                                        (1000, 130, "near 1")])
+                                        (1000, 130, "near 1"),
+                                        (300, 192, "model")])
 def test_scan_kernel_matches_plain_forms(cuda_device, dtype, N, S, d,
                                          regime):
     td = getattr(torch, dtype)
@@ -711,6 +733,7 @@ def test_scan_kernel_matches_plain_forms(cuda_device, dtype, N, S, d,
     torch.cuda.synchronize()
     assert scan_ops.KERNEL_LAUNCHES == before + 2
     assert y.dtype == td and h.dtype == torch.float32
+    assert bool(torch.isfinite(y).all() and torch.isfinite(h).all())
     tol = 1e-2 if dtype == "bfloat16" else 1e-4
     for force in ("ref", "chunked"):
         want_y, want_h = scan_ops.selective_scan_with_state(*args, h0=h0,
@@ -743,3 +766,33 @@ def test_scan_kernel_refuses_grads_and_what_it_does_not_take(cuda_device):
     with torch.no_grad():
         scan_ops.selective_scan(args[0].clone().requires_grad_(), *args[1:])
     assert scan_ops.KERNEL_LAUNCHES == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_and_scan_repeats_are_bit_identical(cuda_device, dtype):
+    """No atomics and a fixed order of sums: the same call gives the same
+    bits, y and the final state, for both recurrent kernels."""
+    td = getattr(torch, dtype)
+    args = _wkv_inputs(5, 2, 70, 4, 64, td, cuda_device, (0.69, 0.9975))
+    first = wkv_ops.wkv(*args)
+    *sargs, h0 = _scan_inputs(6, 2, 70, 256, 16, td, cuda_device, "model")
+    sfirst = scan_ops.selective_scan_with_state(*sargs, h0=h0)
+    for _ in range(3):
+        again = wkv_ops.wkv(*args)
+        sagain = scan_ops.selective_scan_with_state(*sargs, h0=h0)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        assert all(torch.equal(a, b) for a, b in zip(sfirst, sagain))
+
+
+@pytest.mark.gpu
+def test_wkv_and_scan_take_an_empty_sequence(cuda_device):
+    """S = 0 launches once and hands the initial state back."""
+    args = _wkv_inputs(7, 2, 0, 3, 64, torch.float32, cuda_device,
+                       (0.69, 0.9975))
+    y, s = wkv_ops.wkv(*args)
+    assert y.shape == (2, 0, 3, 64) and torch.equal(s, args[-1])
+    *sargs, h0 = _scan_inputs(8, 2, 0, 64, 16, torch.float32, cuda_device,
+                              "model")
+    y, h = scan_ops.selective_scan_with_state(*sargs, h0=h0)
+    assert y.shape == (2, 0, 64) and torch.equal(h, h0)

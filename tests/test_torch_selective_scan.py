@@ -203,3 +203,56 @@ def test_bad_force_shapes_and_cpu_kernel_raise():
         ops.selective_scan(targs[0], targs[1], targs[2], targs[3][:, :2],
                            targs[4], targs[5], force="kernel")
     assert ops.KERNEL_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's arithmetic, emulated in f32
+# ---------------------------------------------------------------------------
+
+def _fma(a, b, c):
+    """fmaf in f32: the product of two f32 values is exact in f64, then one
+    rounding of the sum (a double rounding only at f64 ties)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _scan_emulation(u, dt, A, Bm, Cm, Dp, h0):
+    """csrc/selective_scan.cu's update in f32, one thread a channel: every
+    decay 2^(dt * A log2 e) by f32 exp2 (the SFU's ex2.approx, within 2 ulp
+    of it), A log2 e taken once, h = fmaf(h, decay, (dt u) B_n); y in four
+    partial sums by entry mod 4, summed pairwise, then fmaf(D, u, y)."""
+    f32 = np.float32
+    B, S, d = u.shape
+    N = A.shape[1]
+    a2 = (A * f32(1.4426950408889634)).astype(f32)
+    h = h0.astype(f32).copy()
+    y = np.empty((B, S, d), f32)
+    for t in range(S):
+        dtv, uv = dt[:, t, :, None], u[:, t, :, None]
+        da = np.exp2((dtv * a2[None]).astype(f32)).astype(f32)  # (B, d, N)
+        dtu = (dtv * uv).astype(f32)
+        h = _fma(h, da, (dtu * Bm[:, t, None, :]).astype(f32))
+        yp = np.zeros((B, d, 4), f32)
+        for e in range(N):
+            yp[..., e % 4] = _fma(h[..., e], Cm[:, t, None, e], yp[..., e % 4])
+        ys = (((yp[..., 0] + yp[..., 1]).astype(f32)
+               + (yp[..., 2] + yp[..., 3]).astype(f32))).astype(f32)
+        y[:, t] = _fma(Dp[None].astype(f32), u[:, t], ys)
+    return y, h
+
+
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("regime", ["model", "near 1", "large"])
+def test_kernel_arithmetic_matches_jax(regime, N):
+    """The emulated kernel at both state dims it takes against JAX's
+    per-step form, y and the final state within 1e-4 of max(1, max|.|),
+    the reference's bar for its kernel; near 1 over S = 512, where a
+    biased exp would drift."""
+    S = 512 if regime == "near 1" else 64
+    *args, state = _inputs(2, S, 8, N, seed=31, h0=True, regime=regime)
+    y, h = _scan_emulation(*args, state)
+    want_y, want_h = jref.selective_scan_ref(*args, h0=state)
+    for got, want in ((y, want_y), (h, want_h)):
+        want = np.asarray(want, np.float64)
+        scale = max(1.0, float(np.abs(want).max()))
+        assert float(np.abs(got - want).max()) <= RTOL * scale

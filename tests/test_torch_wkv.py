@@ -10,6 +10,9 @@ orders.  With bfloat16 inputs both sides round y to bfloat16 once, after
 float32 sums in other orders, so y is held to 1e-2 of max(1, max|y|); the
 state stays float32 on both sides.
 """
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -153,3 +156,186 @@ def test_bad_force_and_shapes_raise():
         ops.wkv_cuda(*arrays[:4], arrays[4][:1], arrays[5])
     with pytest.raises(ValueError, match="CUDA"):
         ops.wkv_cuda(*arrays)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's chunk and sub-chunk arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+_CU = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
+                   "kernels", "rwkv6", "csrc", "wkv.cu")
+
+
+def _kernel_plan(hd):
+    """(C, L, FAST_MIN) as csrc/wkv.cu sets them at head dim ``hd``: the
+    steps of a chunk, of a sub-chunk, and the least sub-chunk decay total
+    with which a chunk takes its diagonal score blocks on the tensor
+    cores."""
+    with open(_CU) as f:
+        src = f.read()
+    sub_chunk = int(re.search(r"constexpr int L = (\d+);", src).group(1))
+    fast_min = float(re.search(r"constexpr float FAST_MIN = ([0-9.e+-]+)f;",
+                               src).group(1))
+    edge, big, small = (int(x) for x in re.search(
+        r"static constexpr int C = HD >= (\d+) \? (\d+) : (\d+);",
+        src).groups())
+    return (big if hd >= edge else small), sub_chunk, fast_min
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: 10 mantissa bits, to nearest, ties away."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b):
+    """The kernel's 3xTF32 product: big·small + small·big + big·big."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _kernel_emulation(r, k, v, w, u, s0):
+    """csrc/wkv.cu's arithmetic in f32 for one (b, h) at a time, with the
+    chunk plan ``_kernel_plan`` reads from the source; running
+    products of w from each sub-chunk's start (Qs) and to its end (Ks), the
+    sub-chunk totals W; the inter-chunk product (Qs ⊙ Π W_{<j}) S, the
+    off-diagonal scores (Qs ⊙ Π W_{i<m<j}) Ksᵀ, the state update's keys Ks
+    ⊙ Π W_{>i}, all four in 3xTF32; the diagonal blocks as Qs (Ks ⊙ 1 /
+    W_i)ᵀ in 3xTF32 when every W is at least FAST_MIN, else pairwise by
+    running products; the state's product summed from zero and added to
+    diag(Π W) S in f32.  Rows past S decay by 1."""
+    B, S, H, hd = r.shape
+    C, L, fast_min = _kernel_plan(hd)
+    n_sub = C // L
+    y = torch.zeros(B, S, H, hd)
+    s_out = torch.zeros(B, H, hd, hd)
+    nchunks = -(-S // C)
+    for b in range(B):
+        for h in range(H):
+            st = s0[b, h].clone()
+            for n in range(nchunks):
+                t0, steps = n * C, min(C, S - n * C)
+
+                def pad(x, fill):
+                    out = torch.full((C, x.shape[-1]), fill)
+                    out[:steps] = x[b, t0:t0 + steps, h]
+                    return out
+                rr, kk, ww = pad(r, 0.0), pad(k, 0.0), pad(w, 1.0)
+                vv = pad(v, 0.0)
+                qs, ks = torch.empty(C, hd), torch.empty(C, hd)
+                tot = torch.empty(n_sub, hd)
+                for i in range(n_sub):
+                    p = torch.ones(hd)
+                    for t in range(i * L, i * L + L):
+                        qs[t] = rr[t] * p
+                        p = p * ww[t]
+                    tot[i] = p
+                    p = torch.ones(hd)
+                    for t in range(i * L + L - 1, i * L - 1, -1):
+                        ks[t] = kk[t] * p
+                        p = p * ww[t]
+                A = torch.zeros(C, C)
+                bonus = (rr * u[h] * kk).sum(1)
+                fast = bool((tot >= fast_min).all())
+                for i in range(n_sub):                 # diagonal blocks
+                    blk = slice(i * L, i * L + L)
+                    if fast:
+                        A[blk, blk] = torch.tril(
+                            _mm3(qs[blk], (ks[blk] * (1 / tot[i])).T), -1)
+                    else:
+                        for s in range(i * L, i * L + L):
+                            kp = kk[s].clone()
+                            for t in range(s + 1, i * L + L):
+                                A[t, s] = (rr[t] * kp).sum()
+                                kp = kp * ww[t]
+                    A[blk, blk] += torch.diag(bonus[blk])
+                yy = torch.empty(C, hd)
+                for j in range(n_sub):
+                    rows = slice(j * L, j * L + L)
+                    pfx = torch.ones(hd)
+                    for i in range(j):
+                        pfx = pfx * tot[i]
+                        d = torch.ones(hd)
+                        for m in range(i + 1, j):
+                            d = d * tot[m]
+                        A[rows, i * L:i * L + L] = _mm3(
+                            qs[rows] * d, ks[i * L:i * L + L].T)
+                    yy[rows] = _mm3(qs[rows] * pfx, st)
+                for j in range(n_sub):
+                    rows = slice(j * L, j * L + L)
+                    yy[rows] += _mm3(A[rows, :j * L + L], vv[:j * L + L])
+                y[b, t0:t0 + steps, h] = yy[:steps]
+                sfx = torch.ones(n_sub, hd)
+                for i in range(n_sub - 2, -1, -1):
+                    sfx[i] = sfx[i + 1] * tot[i + 1]
+                dec = sfx[0] * tot[0]
+                keys = ks * sfx.repeat_interleave(L, dim=0)
+                st = torch.addcmul(_mm3(keys.T, vv), st, dec[:, None])
+            s_out[b, h] = st
+    return y, s_out
+
+
+def _decay_inputs(S, hd, state, regime, seed):
+    """Two heads of a batch row; w by regime: the init's ends, or near 0
+    with a tenth exactly 0 and a twentieth below the 1e-30 floor."""
+    decay = {"near 0.69": (0.69, 0.72), "near 0.9975": (0.995, 0.9975),
+             "near 0": (1e-4, 0.05)}[regime]
+    arrays = _inputs(1, S, 2, hd, seed=seed, state=state, decay=decay)
+    if regime == "near 0":
+        rng = np.random.default_rng(seed + 1)
+        w = arrays[3].astype(np.float64)
+        pick = rng.random(w.shape)
+        w[pick < 0.1] = 0.0
+        tiny = (pick >= 0.1) & (pick < 0.15)
+        w[tiny] = 10.0 ** rng.uniform(-37, -31, int(tiny.sum()))
+        arrays = arrays[:3] + (w.astype(np.float32),) + arrays[4:]
+    return arrays
+
+
+def _rel_to(got, want):
+    want = np.asarray(want, np.float64)
+    scale = max(1.0, float(np.abs(want).max()))
+    return float(np.abs(np.asarray(got, np.float64) - want).max()) / scale
+
+
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 64, 100])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("regime", ["near 0.69", "near 0.9975", "near 0"])
+def test_kernel_arithmetic_matches_jax(S, state, regime):
+    """The emulated kernel at hd 16 (its chunk plan read from the source)
+    against JAX's per-step ``wkv_ref`` and its chunked ``wkv_chunked``: y
+    and the state within 1e-4 of max(1, max|.|), the reference's bar for
+    its chunked kernel, and finite.  Near 0 the reference's chunked form can
+    be NaN (its masked exponents overflow once a chunk spans decays of 0,
+    ROADMAP queue C): there it is left out, and the port's chunked plain
+    form, which clamps them, is held to the per-step form too."""
+    arrays = _decay_inputs(S, 16, state, regime, seed=S + 3 * state)
+    y, s = _kernel_emulation(*_torch(arrays))
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    wants = [jref.wkv_ref(*arrays)]
+    jc = jref.wkv_chunked(*arrays, chunk=16)
+    if np.isfinite(np.asarray(jc[0])).all():
+        wants.append(jc)
+    else:
+        assert regime == "near 0"
+    if regime == "near 0":
+        port_y, port_s = ref.wkv_chunked(*_torch(arrays), chunk=16)
+        assert _rel_to(port_y, wants[0][0]) <= TOL
+        assert _rel_to(port_s, wants[0][1]) <= TOL
+    for want_y, want_s in wants:
+        assert _rel_to(y, want_y) <= TOL
+        assert _rel_to(s, want_s) <= TOL
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("regime", ["near 0.9975", "near 0"])
+def test_kernel_chunk_plan_at_each_head_dim_matches_jax(hd, regime):
+    """The emulated kernel at the head dims whose chunk plans differ from
+    hd 16's in width (32) or in length (128: one sub-chunk a chunk), over
+    chunks cut by S = 40, held to JAX's per-step form like the grid
+    above."""
+    arrays = _decay_inputs(40, hd, True, regime, seed=hd + 5)
+    y, s = _kernel_emulation(*_torch(arrays))
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    want_y, want_s = jref.wkv_ref(*arrays)
+    assert _rel_to(y, want_y) <= TOL and _rel_to(s, want_s) <= TOL
