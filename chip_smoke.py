@@ -121,11 +121,22 @@ result):
    the byte bound; the device kernels of three warm calls (one a call);
    both plain forms; the kernel's share of the prefill;
    the flash-attention forward at jamba's attention shape, beside SDPA and
-   both bounds.
+   both bounds;
+22. the speculative main path: ``serve.main`` with ``--continuous --paged
+   --spec-depth 2 --gamma 4`` over phase 6's traffic, counters from 0:
+   every request at its budget, the pool returned, flash attention once per
+   draft layer per admission (the draft's B=1 prefill), the paged kernel
+   never (speculation rounds replace the masked decode); acceptance, mean
+   accepted length and aggregate tokens/s beside phase 6's; the same with
+   the prefix cache over int8 pages, which must hit; the paper's draft (a
+   random one-layer ``gpt2-12l`` expanded by ``copying_zeroL`` to 12,
+   served with its depth-1 truncation): acceptance at least 0.99; and each
+   spec stream equal to phase 6's f32 stream, or first different at a
+   near-tie (the target's top-2 gap below 1e-4).
 
-Every main path (5, 6, 10, 11, 15, 19) starts with every kernel's launch
-counter at 0 and checks every counter after it, the kernels it must not
-launch included.
+Every main path (5, 6, 10, 11, 15, 19, 22) starts with every kernel's
+launch counter at 0 and checks every counter after it, the kernels it must
+not launch included.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -672,37 +683,51 @@ def _drawn_requests(cfg, argv):
     return shared + lens, gens
 
 
-def paged_main_path(cfg, serve, fa_ops, pa_ops, extra=()):
-    """``serve.main(PAGED_ARGV + extra)`` with every launch counter at 0
-    just before.  Returns (paged-kernel launches, the scheduler, the
-    results, their TTFT p50 and p95 in seconds).  The CLI prints the
-    timed run's aggregate tokens/s itself."""
+def _serve_counted(serve, argv, counted):
+    """``serve.main(argv)`` with every launch counter at 0 just before and
+    each ``ServeEngine`` method named in ``counted`` counted.  Returns (the
+    results, the timed run's scheduler, its ``summarize`` record, the
+    calls of each counted method)."""
     from repro_torch.train import serve_scheduler
     from repro_torch.train.serve_engine import ServeEngine
-    argv = PAGED_ARGV + list(extra)
-    label = "paged main path" + (f" {' '.join(extra)}" if extra else "")
-    calls = [0]
-    scheds = []
-    decode, run = ServeEngine.decode_masked, serve_scheduler.ContinuousScheduler.run
+    calls = {name: 0 for name in counted}
+    scheds, stats = [], []
+    saved = {name: getattr(ServeEngine, name) for name in counted}
+    run, summ = serve_scheduler.ContinuousScheduler.run, serve.summarize
 
-    def counted_decode(self, *a, **kw):
-        calls[0] += 1
-        return decode(self, *a, **kw)
+    def counting(name):
+        def method(self, *a, **kw):
+            calls[name] += 1
+            return saved[name](self, *a, **kw)
+        return method
 
     def kept_run(self, *a, **kw):
         scheds.append(self)
         return run(self, *a, **kw)
-    ServeEngine.decode_masked = counted_decode
+
+    def kept_summary(*a, **kw):
+        stats.append(summ(*a, **kw))
+        return stats[-1]
+    for name in counted:
+        setattr(ServeEngine, name, counting(name))
     serve_scheduler.ContinuousScheduler.run = kept_run
+    serve.summarize = kept_summary
     zero_counts()
     try:
         results = serve.main(argv)
     finally:
-        ServeEngine.decode_masked = decode
+        for name in counted:
+            setattr(ServeEngine, name, saved[name])
         serve_scheduler.ContinuousScheduler.run = run
-    launches, flash = pa_ops.KERNEL_LAUNCHES, fa_ops.KERNEL_LAUNCHES
-    expect_counts(label, paged_attention=launches, flash_attention=flash)
-    lens, gens = _drawn_requests(cfg, argv)
+        serve.summarize = summ
+    return results, scheds[-1], stats[-1], calls
+
+
+def _check_served(label, cfg, lens, gens, results, sched):
+    """Every request ended at its budget with in-vocabulary tokens, and
+    the pool got every page back (pages the radix tree still pins stay
+    allocated, evictable, referenced by no row).  Returns the pinned
+    page count."""
     n = len(lens)
     if len(results) != n:
         _fail(f"{label} returned {len(results)} results")
@@ -715,7 +740,6 @@ def paged_main_path(cfg, serve, fa_ops, pa_ops, extra=()):
         if r.new_tokens.min() < 0 or r.new_tokens.max() >= cfg.vocab_size:
             _fail(f"{label}, request {r.uid} produced tokens outside the "
                   "vocabulary")
-    sched = scheds[-1]
     state = sched.last_state
     pool = state.pool
     pool.check_invariants()
@@ -731,19 +755,37 @@ def paged_main_path(cfg, serve, fa_ops, pa_ops, extra=()):
               f"{pool.num_blocks} pages free, {pinned} pinned by the tree, "
               f"{pool.evictable_blocks} evictable, {pool.committed_blocks} "
               "committed")
-    if launches != calls[0] * cfg.num_layers or launches == 0:
+    return pinned
+
+
+def paged_main_path(cfg, serve, fa_ops, pa_ops, extra=()):
+    """``serve.main(PAGED_ARGV + extra)`` with every launch counter at 0
+    just before.  Returns (paged-kernel launches, the scheduler, the
+    results, their TTFT p50 and p95 in seconds, the timed run's
+    ``summarize`` record).  The CLI prints the aggregate tokens/s too."""
+    argv = PAGED_ARGV + list(extra)
+    label = "paged main path" + (f" {' '.join(extra)}" if extra else "")
+    results, sched, stats, calls = _serve_counted(serve, argv,
+                                                  ("decode_masked",))
+    launches, flash = pa_ops.KERNEL_LAUNCHES, fa_ops.KERNEL_LAUNCHES
+    expect_counts(label, paged_attention=launches, flash_attention=flash)
+    lens, gens = _drawn_requests(cfg, argv)
+    pinned = _check_served(label, cfg, lens, gens, results, sched)
+    pool, n, steps = sched.last_state.pool, len(lens), calls["decode_masked"]
+    if launches != steps * cfg.num_layers or launches == 0:
         _fail(f"{label}: paged kernel launched {launches} times for "
-              f"{calls[0]} masked decode steps x {cfg.num_layers} layers")
+              f"{steps} masked decode steps x {cfg.num_layers} layers")
     if flash != 0:
         _fail(f"{label} launched flash attention {flash} times")
     print(f"{label}: {n} requests at their budgets, pool "
           f"{pool.free_blocks}/{pool.num_blocks} pages free (+{pinned} "
           f"pinned by the radix tree), {launches} paged-kernel launches = "
-          f"{calls[0]} decode steps x {cfg.num_layers} layers, 0 "
+          f"{steps} decode steps x {cfg.num_layers} layers, 0 "
           "flash-attention launches")
     ttft = [r.ttft_s for r in results]
     return (launches, sched, results,
-            (float(np.percentile(ttft, 50)), float(np.percentile(ttft, 95))))
+            (float(np.percentile(ttft, 50)), float(np.percentile(ttft, 95))),
+            stats)
 
 
 def quant_main_paths(cfg, serve, fa_ops, pa_ops) -> dict:
@@ -755,8 +797,8 @@ def quant_main_paths(cfg, serve, fa_ops, pa_ops) -> dict:
                        ("fp8", ("--kv-dtype", "fp8")),
                        ("prefix+int8", ("--prefix-cache", "--kv-dtype",
                                         "int8"))):
-        launches, sched, results, st = paged_main_path(cfg, serve, fa_ops,
-                                                       pa_ops, extra)
+        launches, sched, results, st, _ = paged_main_path(cfg, serve, fa_ops,
+                                                          pa_ops, extra)
         ks = sched.kv_stats()
         ratio = (cfg.head_dim + 4) / (4 * cfg.head_dim)
         print(f"  kv storage {key}: dtype={ks['kv_dtype']} bytes/token="
@@ -2126,6 +2168,124 @@ def jamba_times(scan_ops, fa_ops, res, n_mamba):
                 device_kernels_per_call=len(kernels) / 3), fa
 
 
+# Phase 22: self-speculative decoding over phase 6's traffic, the draft the
+# served model's first SPEC_DEPTH layers proposing SPEC_GAMMA tokens a round.
+SPEC_DEPTH, SPEC_GAMMA = 2, 4
+SPEC_ARGV = ["--spec-depth", str(SPEC_DEPTH), "--gamma", str(SPEC_GAMMA)]
+# The paper's draft (a copying_zeroL expansion truncated to its source
+# depth) proposes what the target emits; on the card the draft's decode and
+# the target's verify sum in other orders, so only near-ties flip an argmax.
+SPEC_ZEROL_ACCEPTANCE = 0.99
+# A spec stream may leave phase 6's f32 stream only where the target's
+# top-2 logit gap at the first differing position is below this: the
+# verify's gathered f32 context and the decode kernel sum in other orders
+# (~1e-6 apart, LOGIT_TOL's lane), and a gap that small flips the argmax.
+SPEC_TIE_GAP = 1e-4
+
+
+def spec_main_path(cfg, serve, fa_ops, extra=()):
+    """``serve.main(PAGED_ARGV + SPEC_ARGV + extra)`` with every launch
+    counter at 0 just before: every request at its budget, the pool
+    returned, flash attention launched once per draft layer per admission
+    (the draft's B=1 prefill) and no other kernel (spec rounds replace the
+    masked decode; the verify's attention is the plain gather).  Returns
+    (the results, the scheduler, the ``summarize`` record, launches)."""
+    argv = PAGED_ARGV + SPEC_ARGV + list(extra)
+    label = "spec main path" + (f" {' '.join(extra)}" if extra else "")
+    results, sched, stats, calls = _serve_counted(serve, argv,
+                                                  ("admit_paged",))
+    admitted = calls["admit_paged"]
+    launches = expect_counts(label, flash_attention=SPEC_DEPTH * admitted)[
+        "flash_attention"]
+    if admitted == 0:
+        _fail(f"{label} admitted nothing")
+    lens, gens = _drawn_requests(cfg, argv)
+    pinned = _check_served(label, cfg, lens, gens, results, sched)
+    ss = sched.spec_stats()
+    mal = float(np.mean([r.mean_accepted_len for r in results]))
+    print(f"{label}: {len(lens)} requests at their budgets, pool returned "
+          f"(+{pinned} pinned by the radix tree), {launches} flash launches "
+          f"= {admitted} admissions x {SPEC_DEPTH} draft layers, 0 paged; "
+          f"{ss['spec_rounds']} rounds, acceptance "
+          f"{ss['acceptance_rate']:.4f}, mean accepted length {mal:.4f}, "
+          f"aggregate tokens/s {stats['tokens_per_s']:.1f}")
+    return results, sched, stats, launches
+
+
+def spec_zerol(cfglib, registry):
+    """The paper's draft on the card: a random one-layer ``gpt2-12l``
+    expanded by ``copying_zeroL`` to 12 layers, served over phase 6's
+    lengths and budgets with its depth-1 truncation as the draft, every
+    counter at 0 just before: acceptance at least
+    ``SPEC_ZEROL_ACCEPTANCE``, one flash launch per admission."""
+    from repro_torch.core import expansion
+    from repro_torch.train.serve_engine import ServeEngine
+    from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
+    cfg = cfglib.get_config("gpt2-12l")
+    cfg1 = cfg.with_depth(1)
+    p1 = registry.get_model(cfg1).init(torch.Generator().manual_seed(0),
+                                       cfg1, device="cpu")
+    p12 = expansion.expand_params(p1, cfg1, cfg.num_layers, "copying_zeroL")
+    lens, gens = _drawn_requests(cfg, PAGED_ARGV)
+    rng = np.random.default_rng(3)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
+                                        (int(p),)).astype(np.int32),
+                    max_new_tokens=int(g)) for p, g in zip(lens, gens)]
+    eng = ServeEngine(cfg, p12, device="cuda", max_len=int(max(lens + gens)),
+                      paged=True, block_size=16, spec_decode=True,
+                      gamma=SPEC_GAMMA, draft_depth=1)
+    sched = ContinuousScheduler(eng, max_batch=8)
+    zero_counts()
+    t0 = time.perf_counter()
+    results = sched.run(reqs)
+    wall = time.perf_counter() - t0
+    expect_counts("zeroL spec", flash_attention=len(reqs))
+    _check_served("zeroL spec", cfg, lens, gens, results, sched)
+    rate = sched.acceptance_rate
+    mal = float(np.mean([r.mean_accepted_len for r in results]))
+    print(f"zeroL spec: 1 -> {cfg.num_layers} layers (copying_zeroL), draft "
+          f"depth 1, gamma {SPEC_GAMMA}: {len(reqs)} requests at their "
+          f"budgets, {sched.spec_rounds} rounds, acceptance {rate:.4f} "
+          f"({sched.spec_accepted}/{sched.spec_proposed}; bar "
+          f"{SPEC_ZEROL_ACCEPTANCE}), mean accepted length {mal:.4f}, "
+          f"{sum(len(r.new_tokens) for r in results) / wall:.1f} tokens/s "
+          "(no warm-up)")
+    if rate < SPEC_ZEROL_ACCEPTANCE:
+        _fail(f"zeroL draft acceptance {rate:.4f} < {SPEC_ZEROL_ACCEPTANCE}")
+    return rate
+
+
+def spec_vs_plain(cfg, registry, spec, plain, engine) -> int:
+    """Each spec stream against phase 6's f32 stream of the same request:
+    equal, or first different where the target's top-2 logit gap (a solo
+    forward on the card over the prompt and the common prefix) is below
+    ``SPEC_TIE_GAP``.  Returns how many streams differ."""
+    api = registry.get_model(cfg)
+    differ = 0
+    for a, b in zip(spec, plain):
+        if a.uid != b.uid or not np.array_equal(a.prompt, b.prompt):
+            _fail(f"spec request {a.uid} is not phase 6's request {b.uid}")
+        if np.array_equal(a.new_tokens, b.new_tokens):
+            continue
+        differ += 1
+        t = int(np.argmax(a.new_tokens != b.new_tokens))
+        ctx = np.concatenate([a.prompt, a.new_tokens[:t]])
+        with torch.inference_mode():
+            logits, _ = api.apply(engine.params, cfg, torch.from_numpy(
+                ctx[None]).long().cuda())
+        top2 = torch.topk(logits[0, -1].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        print(f"  request {a.uid}: first differs at token {t} (spec "
+              f"{a.new_tokens[t]}, plain {b.new_tokens[t]}), top-2 gap "
+              f"{gap:.3e}")
+        if gap >= SPEC_TIE_GAP:
+            _fail(f"spec request {a.uid} leaves the plain stream at token {t} "
+                  f"with a top-2 gap {gap:.3e} >= {SPEC_TIE_GAP:.0e}")
+    print(f"spec vs plain on the card: {differ} of {len(spec)} streams "
+          f"differ, each at a near-tie (gap < {SPEC_TIE_GAP:.0e})")
+    return differ
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2201,7 +2361,8 @@ def main() -> int:
     # 6. the continuous paged main path, counters from 0; then over int8
     # pages, fp8 pages and the prefix cache over int8 pages, counters from
     # 0 before each
-    paged_launches = paged_main_path(cfg, serve, fa_ops, pa_ops)[0]
+    paged_launches, _, paged_results, _, paged_stats = paged_main_path(
+        cfg, serve, fa_ops, pa_ops)
     quant_launches = quant_main_paths(cfg, serve, fa_ops, pa_ops)
 
     # 7. card against CPU
@@ -2280,19 +2441,41 @@ def main() -> int:
     t_scan, t_fa_jamba = jamba_times(scan_ops, fa_ops, jamba_res,
                                      n_mamba)
 
+    # 22. self-speculative decoding: phase 6's traffic, counters from 0;
+    # the same with the prefix cache over int8 pages; the paper's draft;
+    # spec streams against phase 6's
+    t0 = time.perf_counter()
+    spec_results, spec_sched, spec_stats, spec_launches = spec_main_path(
+        cfg, serve, fa_ops)
+    print(f"  {card}: spec aggregate tokens/s "
+          f"{spec_stats['tokens_per_s']:.1f} against phase 6's f32 "
+          f"{paged_stats['tokens_per_s']:.1f}")
+    _, sched_pi, _, _ = spec_main_path(cfg, serve, fa_ops,
+                                       ("--prefix-cache", "--kv-dtype",
+                                        "int8"))
+    if sched_pi.prefix_hits < 1:
+        _fail(f"the spec prefix-cache run had no hit: "
+              f"{sched_pi.prefix_stats()}")
+    spec_zerol(cfglib, registry)
+    spec_vs_plain(cfg, registry, spec_results, paged_results,
+                  spec_sched.engine)
+    print(f"spec phase {time.perf_counter() - t0:.1f} s")
+
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-         "launches": launches, "max_abs_err": main_err, **t,
+         "launches": launches, "spec_path_launches": spec_launches,
+         "max_abs_err": main_err, **t,
          **t_fa_jamba, "f64_err": fa_f64,
          "registers_spills": [list(r) for r in fa_regs]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
                    "paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:97",
-         "launches": paged_launches, "max_abs_err": paged_errs["float32"],
+         "launches": paged_launches, "spec_path_launches": 0,
+         "max_abs_err": paged_errs["float32"],
          **tp, "quantized": quantized, **pa_call,
          "registers_spills": [list(r) for r in pa_regs]},
         {"name": "flash_attention_bwd", "route": "cuda",

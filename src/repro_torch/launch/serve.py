@@ -55,6 +55,18 @@ pool's bytes per token fall to (hd + 4) / (4 hd) of f32.  Quantized greedy
 streams agree with the f32 pool's within a tolerance lane (>= 0.9 of
 tokens for int8, >= 0.8 for fp8), not byte for byte; prefix hits on a
 quantized pool stay byte-identical to quantized cold runs.
+
+``--spec-depth N`` (with ``--paged``) serves self-speculatively: the draft
+is the served model truncated to its first N layers, or with
+``--draft-checkpoint DIR`` a shallower checkpoint restored at its
+manifest depth; it proposes ``--gamma`` tokens a round (default 4) and the
+target verifies them in one forward through the block table.  Greedy
+streams equal non-speculative ones; the run reports its rounds, the
+acceptance rate and the mean accepted length.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --continuous --paged --spec-depth 1 --gamma 3 --max-batch 2 \
+        --requests 6 --block-size 4 --chunk-len 4 --rate 1000
 """
 from __future__ import annotations
 
@@ -75,8 +87,6 @@ from repro_torch.tree import tree_leaves
 
 # Flags of the reference CLI whose paths come with later slices.
 _LATER = {
-    "spec_depth": "ROADMAP queue A item 9 (self-speculative decoding)",
-    "draft_checkpoint": "ROADMAP queue A item 9 (self-speculative decoding)",
     "deadline_s": "ROADMAP queue A item 11 (fault tolerance)",
     "queue_limit": "ROADMAP queue A item 11 (fault tolerance)",
     "faults": "ROADMAP queue A item 11 (fault tolerance)",
@@ -171,9 +181,14 @@ def main(argv=None):
                     action="store_false",
                     help="serve every prompt cold (default)")
     ap.add_argument("--spec-depth", type=int, default=None,
-                    help=_LATER["spec_depth"])
+                    help="self-speculative decoding: draft = the served "
+                         "model truncated to this many layers (with "
+                         "--paged)")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="draft tokens proposed per speculation round")
     ap.add_argument("--draft-checkpoint", default=None,
-                    help=_LATER["draft_checkpoint"])
+                    help="draft from this checkpoint (restored at its "
+                         "manifest depth) instead of depth truncation")
     ap.add_argument("--deadline-s", type=float, default=None,
                     help=_LATER["deadline_s"])
     ap.add_argument("--queue-limit", type=int, default=None,
@@ -191,6 +206,9 @@ def main(argv=None):
                              f"{item}")
     if args.paged and not args.continuous:
         raise SystemExit("--paged requires --continuous")
+    spec = args.spec_depth is not None or args.draft_checkpoint is not None
+    if spec and not args.paged:
+        raise SystemExit("--spec-depth/--draft-checkpoint require --paged")
     if args.prefix_cache and not args.paged:
         raise SystemExit("--prefix-cache requires --paged")
     if args.kv_dtype in ("int8", "fp8") and not args.paged:
@@ -211,6 +229,9 @@ def main(argv=None):
         params = registry.get_model(cfg).init(gen, cfg, device="cpu")
         print(f"init: {time.perf_counter() - t0:.1f} s for "
               f"{sum(t.numel() for t in tree_leaves(params))} params")
+    draft_params = None
+    if args.draft_checkpoint:          # its own latest step, manifest depth
+        draft_params, _ = load_params(args.draft_checkpoint, cfg)
     rng = np.random.default_rng(args.seed)
     # With the prefix cache on, continuous requests share a system prefix
     # (half the prompt budget, but at least one full page: only full pages
@@ -222,7 +243,9 @@ def main(argv=None):
                          + max(args.gen, 1) + 1,
                          paged=args.paged, block_size=args.block_size,
                          num_blocks=args.num_blocks, kv_dtype=args.kv_dtype,
-                         prefix_cache=args.prefix_cache)
+                         prefix_cache=args.prefix_cache, spec_decode=spec,
+                         gamma=args.gamma, draft_depth=args.spec_depth,
+                         draft_params=draft_params)
 
     if args.continuous:
         return _serve_continuous(args, cfg, engine, rng, shared_len)
@@ -289,6 +312,13 @@ def _serve_continuous(args, cfg, engine, rng, shared_len: int):
               f"{ps['prefix_requests']} "
               f"(rate={ps['prefix_hit_rate']:.2%}) "
               f"skipped_tokens={ps['prefix_skipped_tokens']}")
+    if engine.spec_decode:
+        ss = sched.spec_stats()
+        mal = [r.mean_accepted_len for r in results if r.spec_rounds]
+        print(f"speculative: draft_layers={engine.draft_cfg.num_layers} "
+              f"gamma={engine.gamma} rounds={ss['spec_rounds']} "
+              f"acceptance={ss['acceptance_rate']:.2%} "
+              f"mean_accepted_len={np.mean(mal) if mal else 0.0:.2f}")
     return results
 
 

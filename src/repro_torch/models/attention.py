@@ -7,9 +7,10 @@ against the contiguous cache attends one new token with the plain masked
 GQA math shared with the paged path.  The paged pool (``init_paged_kv_cache``)
 is read by ``attn_decode_paged`` through ``kernels.paged_attention.ops``
 (the Hopper decode kernel on the card) and written by ``attn_prefill_chunk``
-one prefill chunk at a time.  An int8/fp8 pool quantizes every write per
-slot and head (``core.quant``) and keeps the f32 scales in scale pages
-beside the pages.
+one prefill chunk at a time, and by ``attn_verify_chunk`` one speculation
+round at a time (γ+1 positions a row, read back with the plain gather).  An
+int8/fp8 pool quantizes every write per slot and head (``core.quant``) and
+keeps the f32 scales in scale pages beside the pages.
 
 The reference returns new caches from pure functions and donates the old
 buffers; here the preallocated cache is written in place (slice and index
@@ -168,7 +169,10 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, cache,
     cursor over the whole cache.  Rows with ``write_mask == False``
     (inactive continuous-batching slots) write back what their slot held,
     so their cache row stays byte-identical: the reference's per-row
-    freeze select.  Returns (out (B,1,D), cache)."""
+    freeze select.  A cursor at or past the cache's end (a speculative
+    draft proposing past a row's limit) writes nothing, as the
+    reference's scatter drops it; that row's output is never used.
+    Returns (out (B,1,D), cache)."""
     if window > 0:
         raise NotImplementedError(_WINDOW)
     B = x.shape[0]
@@ -182,13 +186,17 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, cache,
 
     k_buf, v_buf = cache["k"], cache["v"]
     S = k_buf.shape[1]
-    k_w, v_w = k_new[:, 0].to(k_buf.dtype), v_new[:, 0].to(v_buf.dtype)
+    # Clamp the slot and write its old value back where the write drops:
+    # no index past the end reaches torch, and no check syncs the card.
+    keep = cache_index < S
     if write_mask is not None:
-        keep = write_mask[:, None, None]
-        k_w = torch.where(keep, k_w, k_buf[bidx, cache_index])
-        v_w = torch.where(keep, v_w, v_buf[bidx, cache_index])
-    k_buf[bidx, cache_index] = k_w
-    v_buf[bidx, cache_index] = v_w
+        keep = keep & write_mask
+    slot = cache_index.clamp(max=S - 1)
+    keep = keep[:, None, None]
+    k_w = torch.where(keep, k_new[:, 0].to(k_buf.dtype), k_buf[bidx, slot])
+    v_w = torch.where(keep, v_new[:, 0].to(v_buf.dtype), v_buf[bidx, slot])
+    k_buf[bidx, slot] = k_w
+    v_buf[bidx, slot] = v_w
     k = k_buf.to(x.dtype)
     v = v_buf.to(x.dtype)
 
@@ -268,6 +276,59 @@ def attn_prefill_chunk(p, cfg: ModelConfig, x: torch.Tensor, cache, ctx_len,
     v_pages[page, off] = v_w
     out = pa_ops.paged_prefill_attention(
         q, k_pages, v_pages, block_table, ctx_len, k_scales=ks, v_scales=vs,
+        logit_softcap=cfg.attn_logit_softcap)
+    out = out.reshape(B, C, cfg.q_dim) @ p["wo"]
+    return out, cache
+
+
+def attn_verify_chunk(p, cfg: ModelConfig, x: torch.Tensor, cache, index,
+                      positions, window: int, block_table,
+                      write_mask=None) -> Tuple[torch.Tensor, dict]:
+    """Multi-token verify forward of self-speculative decoding (the paged
+    full-attention branch of the reference's ``attn_verify_chunk``).
+
+    x: (B, C, D), each row's [current token, γ draft tokens] at absolute
+    positions ``index[b] .. index[b] + C - 1`` (``index`` (B,) is the per-row
+    cursor).  The chunk's K/V is written through the block table as
+    ``attn_prefill_chunk`` writes it, at per-row offsets and under a (B, C)
+    ``write_mask``: masked writes (inactive rows, positions at or past the
+    row's limit) go to the trash page, and a block index past the table's
+    width is clamped first (those positions are always masked).  A
+    quantized pool takes the chunk quantized per slot and head.  Rejected
+    positions need no masking: their K/V lies past the rewound cursor, is
+    never read (validity is ``slot <= position``) and is rewritten before
+    the cursor reaches it again, so rollback is cursor and page
+    bookkeeping alone.  Attention is the plain gather over the table, on
+    every device, as in the reference."""
+    if window > 0:
+        raise NotImplementedError(_WINDOW)
+    if _is_mla(cfg):
+        raise NotImplementedError(_MLA)
+    B, C, _ = x.shape
+    q, k_new, v_new = _project_qkv(p, cfg, x)
+    q, k_new = _qk_norm(p, cfg, q, k_new)
+    q, k_new = _position_encode(cfg, q, k_new, positions)
+    k_pages, v_pages = cache["k_pages"], cache["v_pages"]
+    bs = k_pages.shape[1]
+    trash = k_pages.shape[0] - 1
+    pos = index[:, None] + torch.arange(C, device=x.device)[None, :]  # (B,C)
+    blk = (pos // bs).clamp(max=block_table.shape[1] - 1)
+    page = torch.gather(block_table, 1, blk).long()
+    if write_mask is not None:
+        page = torch.where(write_mask, page, trash)
+    off = pos % bs
+    ks, vs = cache.get("k_scales"), cache.get("v_scales")
+    if ks is not None:                               # quantized pool
+        k_w, k_s = quant.quantize(k_new, axis=-1, dtype=k_pages.dtype)
+        v_w, v_s = quant.quantize(v_new, axis=-1, dtype=v_pages.dtype)
+        ks[page, off] = k_s
+        vs[page, off] = v_s
+    else:
+        k_w, v_w = k_new.to(k_pages.dtype), v_new.to(v_pages.dtype)
+    k_pages[page, off] = k_w
+    v_pages[page, off] = v_w
+    out = pa_ops.paged_prefill_attention(
+        q, k_pages, v_pages, block_table, index, k_scales=ks, v_scales=vs,
         logit_softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, C, cfg.q_dim) @ p["wo"]
     return out, cache

@@ -36,6 +36,11 @@ class ModelApi:
     # (params, cfg, tokens(B,C), cache, carry, block_table, ctx_len) ->
     # (last logits (B,1,V), cache, carry); the pool is written in place.
     prefill_chunk: Optional[Callable] = None
+    # (params, cfg, tokens(B,C), cache, index(B,), block_table(B,NB),
+    #  write_mask(B,C)) -> (logits (B,C,V), cache): the speculative verify.
+    verify: Optional[Callable] = None
+    # (cache, index(B,), acc(B,)) -> cache: commit each row's accepted prefix.
+    spec_commit: Optional[Callable] = None
 
 
 def _lm_loss(params, cfg, batch):
@@ -77,7 +82,9 @@ def get_model(cfg: ModelConfig) -> ModelApi:
                     prefill=transformer.lm_prefill,
                     init_paged_cache=transformer.lm_init_paged_cache,
                     init_prefill_carry=transformer.lm_init_prefill_carry,
-                    prefill_chunk=transformer.lm_prefill_chunk)
+                    prefill_chunk=transformer.lm_prefill_chunk,
+                    verify=transformer.lm_verify,
+                    spec_commit=transformer.lm_spec_commit)
 
 
 class ParamModule(nn.Module):

@@ -199,6 +199,16 @@ def embed_tokens(params, cfg: ModelConfig, tokens, offset: int = 0):
     return x
 
 
+def _pos_embed(params, pos):
+    """Learned positions at ``pos`` (any shape), clamped to the table as
+    the reference's gather clamps: a speculative round reads positions up
+    to ``cursor + γ``, past ``max_seq_len`` near a row's limit, whose
+    logits are never in play.  Torch indexing past the end would fail (on
+    the card as a device-side assert), and a check would sync every step."""
+    table = params["pos_embed"]
+    return table[pos.clamp(max=table.shape[0] - 1)]
+
+
 def _positions_for(cfg: ModelConfig, B: int, S: int, device):
     return torch.arange(S, device=device)[None, :].expand(B, S)
 
@@ -434,11 +444,7 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,
     attn_index = index if block_table is None else index.to(torch.int32)
     x = params["embed"][tokens]
     if cfg.position == "absolute":
-        # The reference clamps an index past max_seq_len; torch indexing
-        # fails instead (on the card as a device-side assert).  Checking
-        # here would sync with the card every token, so callers keep
-        # index < max_seq_len (ServeEngine checks it per request).
-        x = x + params["pos_embed"][index][:, None, :]
+        x = x + _pos_embed(params, index)[:, None, :]
     if positions is None:
         positions = index[:, None]
     for s in range(num_superblocks(params)):
@@ -450,3 +456,64 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,
                                  block_table=block_table,
                                  write_mask=write_mask)
     return _head(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Self-speculative decoding: the multi-token verify forward
+# ---------------------------------------------------------------------------
+
+_SPEC_CARRY = ("ROADMAP queue A item 17 (recurrent carries in continuous "
+               "batching): the recurrent checkpoint rings of the draft loop "
+               "and the verify are not ported yet")
+
+
+def _verify_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions,
+                  block_table, write_mask):
+    """One attention layer over a (B, C) verify chunk at per-row offsets
+    ``index``, scored through the block table.  A window layer raises in
+    ``attn_verify_chunk`` (its deferred ring commit comes with ROADMAP
+    queue A item 12)."""
+    if cfg.layer_kind(i) != "attn":
+        raise NotImplementedError(_SPEC_CARRY)
+    h = apply_norm(lp["ln1"], x, cfg.norm)
+    y, cache_l = attn.attn_verify_chunk(lp["attn"], cfg, h, cache_l, index,
+                                        positions, cfg.layer_window(i),
+                                        block_table, write_mask=write_mask)
+    return _ffn_residual(lp, cfg, i, x + y)[0], cache_l
+
+
+def lm_verify(params, cfg: ModelConfig, tokens, cache, index, block_table,
+              write_mask):
+    """Speculative-decoding verify forward: score all C = γ+1 positions of
+    ``tokens`` (B, C) = [current token, γ draft proposals] in one pass,
+    row b's chunk at absolute positions ``index[b] .. index[b] + C - 1``.
+    K/V goes into the paged pool through ``block_table`` (B, NB), in place;
+    ``write_mask`` (B, C) sends inactive rows and positions at or past a
+    row's limit to the trash page.  Returns (logits (B, C, V), cache)."""
+    B, C = tokens.shape
+    index = torch.as_tensor(index, device=tokens.device).long()
+    if index.ndim == 0:
+        index = index.expand(B)
+    pos = index[:, None] + torch.arange(C, device=tokens.device)[None, :]
+    x = params["embed"][tokens]
+    if cfg.position == "absolute":
+        x = x + _pos_embed(params, pos)
+    for s in range(num_superblocks(params)):
+        sb = _tree_index(params["blocks"], s)
+        cache_sb = _tree_index(cache, s)
+        for i in range(cfg.pattern_period):
+            x, _ = _verify_layer(sb[f"layer{i}"], cache_sb[f"layer{i}"], cfg,
+                                 i, x, index, pos, block_table, write_mask)
+    return _head(params, cfg, x), cache
+
+
+def lm_spec_commit(cache, index, acc):
+    """Resolve a verify forward's deferred per-row advances for the ``acc``
+    accepted tokens of each row.  Paged pool leaves pass through: rejected
+    positions there lie past the rewound cursor (never read, always
+    rewritten first), so rollback costs them nothing.  The deferred
+    entries of window rings and recurrent layers come with ROADMAP queue A
+    items 12 and 17; ``lm_verify`` refuses those layers before making
+    any, so every leaf here is a pool leaf."""
+    del index, acc
+    return cache

@@ -27,10 +27,12 @@ host side: a free-list allocator with
     list runs dry;
   * **copy-on-write**: a row about to write a shared page swaps in a fresh
     private page first (``cow_page``; the caller copies the bytes), so a
-    page with refcount > 1 is never written.
+    page with refcount > 1 is never written;
+  * **speculative rollback**: ``truncate_row`` releases a row's pages past
+    its rewound cursor (pages holding only rejected draft tokens) and
+    keeps its commitment; no page data moves.
 
-Speculative rollback (``truncate_row``) comes with ROADMAP queue A item 9
-and the fault-injection sites with item 11.
+The fault-injection sites come with ROADMAP queue A item 11.
 
 The trash page (id ``num_blocks``, the pool's last page) is where free
 rows' block-table entries point and where masked decode writes of inactive
@@ -247,6 +249,33 @@ class KVBlockPool:
             self._deref(p)
         self.table[row, :] = self.trash
         self.version += 1
+
+    def truncate_row(self, row: int, num_tokens: int) -> bool:
+        """Speculative-decoding rollback: release row's pages past its first
+        ``num_tokens`` slots (the rewound cursor), keeping the commitment.
+
+        The inverse of :meth:`advance`: pages holding only rejected draft
+        tokens drop this row's reference (returning to the free list when it
+        was the last) and their table entries point back at the trash page.
+        Stale K/V on a released page is harmless: a page is always
+        re-advanced, and its slots rewritten, before any slot on it is read
+        again.  Returns True iff the table changed.  Idempotent for
+        ``num_tokens`` at or above the allocated frontier."""
+        if row not in self._commit:
+            raise ValueError(f"row {row} not admitted")
+        if num_tokens < 0:
+            raise ValueError(f"truncate_row({row}, {num_tokens})")
+        keep = -(-num_tokens // self.block_size)
+        pages = self._rows[row]
+        if keep >= len(pages):
+            return False
+        dropped = pages[keep:]
+        del pages[keep:]
+        for p in reversed(dropped):
+            self._deref(p)
+        self.table[row, keep:] = self.trash
+        self.version += 1
+        return True
 
     # -- tree pins (radix prefix cache) -------------------------------------
 

@@ -37,9 +37,21 @@ at P-1.  Hits stay byte-identical to cold runs.  ``kv_dtype`` 'int8' or
 float32 scales (``core.quant``); greedy streams then agree with the f32
 pool within a tolerance lane instead of byte for byte.
 
-Continuous batching serves attention layers only; recurrent carries come
-with ROADMAP queue A item 17.  Speculative decoding comes with item 9,
-fault injection with item 11, mesh sharding with item 13.
+``spec_decode=True`` (paged only) runs self-speculative decoding: a draft
+(the served model truncated to ``draft_depth`` layers, sharing its
+embedding, final norm and tied head, or a shallower ``draft_params``)
+proposes ``gamma`` tokens a round from its own contiguous cache, and the
+target scores all γ+1 positions in one verify forward through the block
+table (``decode_spec``).  Rejected tokens roll back by the cursor and
+``KVBlockPool.truncate_row``; no page data moves, and a full-attention
+draft rolls back by its cursor alone.  Greedy spec streams stay
+byte-identical to non-speculative decode, and a ``copying_zeroL``
+expansion's draft at its source depth accepts every proposal.
+
+Continuous batching serves attention layers only; recurrent carries, and
+with them the recurrent checkpoint rings of speculation, come with ROADMAP
+queue A item 17, sliding-window rings with item 12, fault injection with
+item 11, mesh sharding with item 13.
 """
 from __future__ import annotations
 
@@ -51,7 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import quant
+from repro_torch.core import expansion, quant
 from repro_torch.models import registry
 from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
@@ -95,6 +107,8 @@ class ContinuousState:
     table_version: int = -1            # pool.version the device table holds
     table_host: Optional[np.ndarray] = None      # host copy last uploaded
     radix: Optional[RadixCache] = None           # prefix_cache engines
+    draft_cache: Optional[dict] = None           # spec engines: the draft's
+                                                 # contiguous cache
 
     @property
     def batch(self) -> int:
@@ -165,7 +179,9 @@ class ServeEngine:
                  max_len: int = 512, cache_dtype=torch.float32,
                  paged: bool = False, block_size: int = 16,
                  num_blocks: Optional[int] = None, kv_dtype=None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, spec_decode: bool = False,
+                 gamma: int = 4, draft_depth: Optional[int] = None,
+                 draft_params=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # Keep float32 matmuls around the kernel in full float32, as the
@@ -202,6 +218,39 @@ class ServeEngine:
         self._cont_built = {}         # sample? -> (masked decode, admit)
         self._chunk_built = {}        # (final?, sample?) -> chunk step
         self._page_copy = steps_lib.make_page_copy_step()
+        self.spec_decode = spec_decode
+        self.gamma = gamma
+        if spec_decode:
+            self._init_spec(draft_depth, draft_params)
+
+    def _init_spec(self, draft_depth, draft_params):
+        """Resolve the draft of self-speculative decoding: the target
+        truncated to ``draft_depth`` layers (its leaves are views of the
+        target's: no copy), or ``draft_params`` (a shallower checkpoint,
+        at the depth of its block stack)."""
+        if not self.paged:
+            raise ValueError("spec_decode requires paged=True (rollback of "
+                             "rejected drafts is block-table cursor rewind)")
+        if self.gamma < 1:
+            raise ValueError(f"gamma {self.gamma} < 1")
+        cfg = self.cfg
+        if draft_params is not None:
+            depth = transformer.num_superblocks(draft_params) \
+                * cfg.pattern_period
+            self.draft_cfg = cfg.with_depth(depth)
+            self.draft_params = registry.ParamModule(draft_params).to(
+                self.device).tree()
+        else:
+            if draft_depth is None:
+                raise ValueError("spec_decode needs draft_depth (layers to "
+                                 "truncate the target to) or draft_params")
+            self.draft_cfg = cfg.with_depth(draft_depth)
+            self.draft_params = expansion.truncate_params(self.params, cfg,
+                                                          draft_depth)
+        self.draft_api = registry.get_model(self.draft_cfg)
+        self._spec_built = {}         # sample? -> (draft loop, verify)
+        self._draft_prefill = steps_lib.make_prefill_step(self.draft_cfg)
+        self._row_scatter = steps_lib.make_row_scatter_step()
 
     def _steps(self, temperature: float):
         sample = temperature > 0
@@ -363,9 +412,14 @@ class ServeEngine:
             cache = self.api.init_cache(self.params, self.cfg, batch,
                                         self.max_len, self.cache_dtype,
                                         device=dev)
+        draft_cache = None
+        if self.spec_decode:
+            draft_cache = self.draft_api.init_cache(
+                self.draft_params, self.draft_cfg, batch, self.max_len,
+                self.cache_dtype, device=dev)
         state = ContinuousState(
             tokens=torch.zeros((batch, 1), dtype=torch.long, device=dev),
-            cache=cache,
+            cache=cache, draft_cache=draft_cache,
             index=torch.zeros((batch,), dtype=torch.long, device=dev),
             active=torch.zeros((batch,), dtype=torch.bool, device=dev),
             limit=torch.zeros((batch,), dtype=torch.long, device=dev),
@@ -429,6 +483,69 @@ class ServeEngine:
             state.active, state.limit, eos_id, temp, state.generator, *table)
         return dataclasses.replace(state, tokens=tokens, cache=cache,
                                    index=index, active=active)
+
+    # -- self-speculative decoding -------------------------------------------
+
+    def _spec_steps(self, temperature: float):
+        """(draft loop, verify) of ``steps_lib.make_draft_loop_step`` and
+        ``make_verify_step`` for this sampling mode."""
+        sample = temperature > 0
+        if sample not in self._spec_built:
+            self._spec_built[sample] = (
+                steps_lib.make_draft_loop_step(self.draft_cfg, self.gamma,
+                                               sample=sample),
+                steps_lib.make_verify_step(self.cfg, self.gamma,
+                                           sample=sample))
+        return self._spec_built[sample]
+
+    def _admit_draft(self, state: ContinuousState, row: int,
+                     prompt) -> ContinuousState:
+        """The speculative half of a paged admission: one B=1 draft
+        prefill at the exact prompt length (flash attention on the card),
+        scattered into the draft cache's slot ``row``.  The draft's
+        greedy first token is dropped: the target's chunked prefill owns
+        the first token, and no sampling draw is spent."""
+        if not state.draft_cache:
+            return state              # zero-layer draft: nothing to cache
+        prompt = np.asarray(prompt, np.int64).reshape(1, -1)
+        row_cache = self.draft_api.init_cache(
+            self.draft_params, self.draft_cfg, 1, self.max_len,
+            self.cache_dtype, device=self.device)
+        _, _, row_cache, _ = self._draft_prefill(
+            self.draft_params, self._upload(prompt), row_cache, None,
+            state.generator)
+        self._row_scatter(state.draft_cache, row_cache, row)
+        return state
+
+    def decode_spec(self, state: ContinuousState, temperature: float = 0.0,
+                    eos_id: int = -1):
+        """One speculation round over all slots: γ+1 masked draft steps
+        propose, one target verify forward scores, accepts and commits.
+
+        Returns ``(state, out_tokens (B, γ+1), acc (B,))`` on the device:
+        row b emitted ``out_tokens[b, :acc[b]]`` (inactive rows none).  The
+        caller moves its host cursors by ``acc`` and releases pages past
+        them (``state.pool.truncate_row``); neither the pool nor the
+        full-attention draft cache needs a device rollback."""
+        state = self._sync_table(state)
+        draft, verify = self._spec_steps(temperature)
+        if temperature > 0:
+            vt, probs, dcache = draft(
+                self.draft_params, state.tokens, state.draft_cache,
+                state.index, state.active, temperature, state.generator)
+            extra = (probs, temperature)
+        else:
+            vt, dcache = draft(self.draft_params, state.tokens,
+                               state.draft_cache, state.index, state.active,
+                               state.generator)
+            extra = ()
+        out, acc, nxt, cache, index, active = verify(
+            self.params, vt, state.cache, state.index, state.active,
+            state.limit, state.block_table, eos_id, *extra, state.generator)
+        state = dataclasses.replace(state, tokens=nxt, cache=cache,
+                                    draft_cache=dcache, index=index,
+                                    active=active)
+        return state, out, acc
 
     # -- paged request lifecycle (chunked prefill through the pool) ---------
 
@@ -537,6 +654,8 @@ class ServeEngine:
         and is never written again (decode writes positions >= P).  The
         first publisher of a path wins."""
         _, admit = self._cont_steps(temperature)
+        if self.spec_decode:
+            state = self._admit_draft(state, job.row, job.prompt)
         P = len(job.prompt)
         if state.radix is not None:
             n_pub = P // self.block_size

@@ -28,6 +28,17 @@ bookkeeping runs under the next device step.  Termination is observed one
 iteration late; the extra step is a no-op for the finished row (its active
 flag flipped on the device), so no token stream changes.
 
+Speculative decoding (``ServeEngine(spec_decode=True)``): every iteration
+is one speculation round, a draft loop and one multi-token verify, that
+emits 1..γ+1 tokens per live row.  Before the round each row's pages are
+backed up to ``min(cursor + γ + 1, limit)``; after it the fetched
+accepted length moves the host cursor and ``KVBlockPool.truncate_row``
+releases the pages past it, so rollback is host bookkeeping and no page
+data moves.  Spec rounds fetch every round (``overlap`` does not apply):
+the next round's pages depend on this round's accepted lengths.  The
+accepted lengths land in ``RequestResult.spec_rounds`` /
+``mean_accepted_len`` and ``spec_stats()``.
+
 Admission aging (``admission_age_s``): once the oldest arrived request has
 waited longer than this, later arrivals stop jumping it and admission
 blocks until its worst-case pages fit (commitments drain as live requests
@@ -41,8 +52,8 @@ Temperature sampling draws from one generator shared across slots, so
 sampled streams depend on scheduling order.
 
 Deadlines, cancellation, shedding, retries, fault containment and
-snapshot/restore come with ROADMAP queue A item 11, speculative decoding
-with item 9.  So the only finish reasons here are ``eos`` and ``limit``.
+snapshot/restore come with ROADMAP queue A item 11, so the only finish
+reasons here are ``eos`` and ``limit``.
 """
 from __future__ import annotations
 
@@ -79,6 +90,7 @@ class RequestResult:
     arrival_s: float
     admitted_s: float                 # prefill completion (= first token)
     finished_s: float
+    spec_rounds: int = 0              # speculation rounds this request saw
     prefix_tokens: int = 0            # prompt tokens served from shared
                                       # pages (prefix-cache hit; 0 = cold)
 
@@ -94,6 +106,14 @@ class RequestResult:
     def ttft_s(self) -> float:
         """Time to first token: arrival -> first sampled token (prefill)."""
         return self.admitted_s - self.arrival_s
+
+    @property
+    def mean_accepted_len(self) -> float:
+        """Mean tokens emitted per speculation round (1 + accepted drafts;
+        the prefill's token is not a round's).  0.0 when not spec-decoded."""
+        if not self.spec_rounds:
+            return 0.0
+        return max(len(self.new_tokens) - 1, 0) / self.spec_rounds
 
 
 class ContinuousScheduler:
@@ -131,10 +151,25 @@ class ContinuousScheduler:
         self.admission_age_s = admission_age_s
         self.invariant_every = invariant_every
         self.peak_concurrency = 0              # max in flight (live+prefill)
+        self.spec_rounds = 0                   # speculation telemetry:
+        self.spec_proposed = 0                 #   rounds / draft tokens in
+        self.spec_accepted = 0                 #   play / accepted
         self.last_state = None                 # the last run's final state
         self.prefix_requests = 0               # prefix-cache telemetry:
         self.prefix_hits = 0                   #   admissions / tree hits /
         self.prefix_skipped_tokens = 0         #   prompt tokens not prefilled
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Accepted over proposed draft tokens in the last run (0.0 when
+        not spec-decoding)."""
+        return self.spec_accepted / max(self.spec_proposed, 1)
+
+    def spec_stats(self) -> dict:
+        return {"spec_rounds": self.spec_rounds,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "acceptance_rate": self.acceptance_rate}
 
     def prefix_stats(self) -> dict:
         """Prefix-cache telemetry of the last run (all zero when the engine
@@ -199,7 +234,10 @@ class ContinuousScheduler:
                     prompt=np.asarray(r.prompt, np.int32).ravel())
                 for i, r in enumerate(requests)]
         self._validate(reqs)
+        spec = paged and engine.spec_decode
         self.peak_concurrency = 0
+        self.spec_rounds = self.spec_proposed = self.spec_accepted = 0
+        rounds_by_uid: dict = {}  # uid -> speculation rounds seen
         self.prefix_requests = self.prefix_hits = 0
         self.prefix_skipped_tokens = 0
         prefix_by_uid: dict = {}  # uid -> prompt tokens served by a hit
@@ -216,8 +254,10 @@ class ContinuousScheduler:
         # Dispatch-then-fetch double buffering: device tensors of steps
         # whose host bookkeeping is pending, with (row, uid) of every row
         # live at dispatch; the uid guards against crediting a stale step's
-        # token to a request readmitted into a just-freed slot.
-        fetch_q: deque = deque()  # (tokens_dev, active_dev, ((row, uid),..))
+        # token to a request readmitted into a just-freed slot.  A spec
+        # round's entry also holds its accepted lengths.
+        fetch_q: deque = deque()  # (tokens_dev, active_dev, ((row, uid),..)
+                                  #  [, acc_dev])
         t0 = self.time_fn()
 
         def finish(req, tokens, slot, t_first, now):
@@ -228,6 +268,7 @@ class ContinuousScheduler:
                 new_tokens=np.asarray(tokens, np.int32),
                 finish_reason=reason, slot=slot, arrival_s=req.arrival_s,
                 admitted_s=t_first, finished_s=now,
+                spec_rounds=rounds_by_uid.pop(req.uid, 0),
                 prefix_tokens=prefix_by_uid.pop(req.uid, 0))
             done[req.uid] = res
             if on_finish is not None:
@@ -237,14 +278,30 @@ class ContinuousScheduler:
             """Apply host bookkeeping for dispatched steps beyond `keep`."""
             nonlocal state
             while len(fetch_q) > keep:
-                toks_d, act_d, rows = fetch_q.popleft()
-                toks, act = toks_d.cpu().numpy(), act_d.cpu().numpy()
+                entry = fetch_q.popleft()
+                rows = entry[2]
+                toks, act = entry[0].cpu().numpy(), entry[1].cpu().numpy()
+                acc = entry[3].cpu().numpy() if len(entry) > 3 else None
                 now = self.time_fn() - t0
                 for row, uid in rows:
                     if row not in live or live[row][0].uid != uid:
                         continue     # slot readmitted since this dispatch
                     req, out, t_first = live[row]
-                    out.append(int(toks[row, 0]))
+                    if acc is None:  # masked decode: cursor moved at dispatch
+                        out.append(int(toks[row, 0]))
+                    else:            # speculation round: 1..γ+1 tokens
+                        a = int(acc[row])
+                        out.extend(int(t) for t in toks[row, :a])
+                        # Proposals in play only: the limit caps a round's
+                        # emissions at limit - cursor (bonus included), so
+                        # a perfect draft reads exactly 1.0 also on the
+                        # round that ends a row at its budget.
+                        limit = len(req.prompt) + req.max_new_tokens - 1
+                        self.spec_proposed += max(
+                            min(engine.gamma, limit - cursors[row] - 1), 0)
+                        self.spec_accepted += max(a - 1, 0)
+                        rounds_by_uid[uid] = rounds_by_uid.get(uid, 0) + 1
+                        cursors[row] += a
                     if not act[row]:   # terminated: stream out, free slot
                         finish(req, out, row, t_first, now)
                         del live[row]
@@ -252,6 +309,10 @@ class ContinuousScheduler:
                         if paged:
                             state = engine.free_slot(state, row)
                         free.append(row)
+                    elif acc is not None:
+                        # Rollback: release the pages past the accepted
+                        # cursor (the round backed all γ+1 positions).
+                        state.pool.truncate_row(row, cursors[row])
 
         it = 0
         while pending or waiting or live or prefilling or fetch_q:
@@ -366,6 +427,22 @@ class ContinuousScheduler:
                     elif waiting:
                         # blocked admission: nothing to decode, idle a tick
                         self.sleep_fn(self.poll_s)
+                continue
+            # ---- one speculation round across all slots -------------------
+            if spec:
+                # The verify writes positions cursor..cursor+γ, those short
+                # of the row's limit: back them all before the dispatch.
+                for row, (req, _, _) in live.items():
+                    limit = len(req.prompt) + req.max_new_tokens - 1
+                    state.pool.advance(
+                        row, min(cursors[row] + engine.gamma + 1, limit))
+                state, out_d, acc_d = engine.decode_spec(
+                    state, temperature=self.temperature, eos_id=self.eos_id)
+                self.spec_rounds += 1
+                fetch_q.append((out_d, state.active,
+                                tuple((row, live[row][0].uid)
+                                      for row in live), acc_d))
+                drain(0)
                 continue
             # ---- one masked decode iteration across all slots -------------
             if paged:

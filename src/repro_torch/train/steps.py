@@ -1,8 +1,9 @@
 """Train, eval and serving steps (``repro/train/steps.py``:
 ``make_train_step``, ``make_eval_step``, ``_sample``, ``make_prefill_step``,
 ``make_serve_decode_step`` with its masked and paged continuous-batching
-forms, the admit and chunked-prefill steps, and the copy-on-write page
-copy).
+forms, the admit, row-scatter and chunked-prefill steps, the copy-on-write
+page copy, and self-speculative decoding's draft loop and verify for
+full-attention models).
 
 The train step takes gradients with autograd and lets the optimizer write
 params and moments in place, where the reference jits the step and donates
@@ -244,16 +245,33 @@ def make_admit_step() -> Callable:
     The cache row is overwritten whole, in place; other rows are never
     touched, so admission never perturbs requests in flight."""
 
+    scatter = make_row_scatter_step()
+
     @torch.inference_mode()
     def admit(cache, tokens, index, active, limit, row_cache, row_tok,
               row_len: int, row_limit: int, row: int):
+        return (scatter(cache, row_cache, row),) + _set_row(
+            tokens, index, active, limit, row, row_tok, row_len, row_limit)
+
+    return admit
+
+
+def make_row_scatter_step() -> Callable:
+    """(cache, row_cache, row) -> cache.
+
+    Writes a B=1 cache tree into batch slot ``row`` of ``cache`` (both
+    stacked, batch on dim 1), in place: the contiguous admission's cache
+    half, and the speculative admission's draft half (the target's paged
+    admission owns tokens, cursor, active and limit)."""
+
+    @torch.inference_mode()
+    def scatter(cache, row_cache, row: int):
         rows = dict(leaves_with_path(row_cache))
         for path, big in leaves_with_path(cache):
             big[:, row] = rows[path][:, 0].to(big.dtype)
-        return (cache,) + _set_row(tokens, index, active, limit, row,
-                                   row_tok, row_len, row_limit)
+        return cache
 
-    return admit
+    return scatter
 
 
 def make_prefill_chunk_step(cfg: ModelConfig, final: bool = False,
@@ -330,3 +348,175 @@ def make_page_copy_step() -> Callable:
         return cache
 
     return copy
+
+
+# ---------------------------------------------------------------------------
+# Self-speculative decoding (depth-truncated draft + multi-token verify)
+# ---------------------------------------------------------------------------
+
+
+def make_draft_loop_step(cfg: ModelConfig, gamma: int,
+                         sample: bool = False) -> Callable:
+    """The draft loop of one speculation round: γ+1 masked draft decode
+    steps over the draft's contiguous cache.
+
+    Greedy:
+        (draft_params, token (B,1), cache, index (B,), active (B,),
+         generator) -> (verify_tokens (B, γ+1), cache)
+    Sampling also returns the draft's post-temperature proposal
+    distributions, the verify's accept-ratio denominator:
+        (draft_params, token, cache, index, active, temp, generator) ->
+            (verify_tokens, probs (B, γ, V), cache)
+
+    Row b of ``verify_tokens`` is [current token, d_1 .. d_γ]: each step's
+    input token, so the last step's proposal is dropped while its cache
+    write still lands (no hole at ``cursor + γ`` after a fully accepted
+    round).  Inactive rows are exact no-ops (``write_mask``: their slot is
+    written back unchanged, their cursor stays).  There is no eos or
+    limit termination: the draft proposes unconditionally and the verify
+    owns termination, so near a row's limit the draft runs positions past
+    ``max_len`` and ``max_seq_len``; those writes drop and those position
+    reads clamp (``attn_decode``, ``transformer._pos_embed``).  A
+    full-attention draft rolls back by its cursor alone: its slots past
+    the accepted prefix are invalid until rewritten."""
+    api = registry.get_model(cfg)
+    if gamma < 1:
+        raise ValueError(f"gamma {gamma} < 1")
+
+    @torch.inference_mode()
+    def run(params, tokens, cache, index, active, temp, generator):
+        inputs, probs = [], []
+        tok, idx = tokens, index
+        for step in range(gamma + 1):
+            inputs.append(tok[:, 0])
+            logits, cache = api.decode_step(params, cfg, tok, cache, idx,
+                                            write_mask=active)
+            if step == gamma:
+                break                # the last proposal is never verified
+            last = logits[:, -1]
+            if sample:
+                p = torch.softmax(last.float() / temp, dim=-1)
+                nxt = torch.multinomial(p, 1, generator=generator)[:, 0]
+                probs.append(p)
+            else:
+                nxt = torch.argmax(last, dim=-1)
+            tok = torch.where(active, nxt, torch.zeros_like(nxt))[:, None]
+            idx = idx + active.to(idx.dtype)
+        vt = torch.stack(inputs, dim=1)
+        if sample:
+            return vt, torch.stack(probs, dim=1), cache
+        return vt, cache
+
+    if sample:
+        return run
+
+    def greedy(params, tokens, cache, index, active, generator):
+        return run(params, tokens, cache, index, active, None, generator)
+
+    return greedy
+
+
+def make_verify_step(cfg: ModelConfig, gamma: int,
+                     sample: bool = False) -> Callable:
+    """One multi-token target forward that scores, accepts and commits a
+    speculation round.
+
+    Greedy:
+        (params, tokens (B,C), cache, index (B,), active (B,), limit (B,),
+         table (B,NB), eos, generator) ->
+            (out_tokens (B,C), acc (B,), next_token (B,1), cache,
+             new_index, new_active)
+    Sampling also takes the draft's proposal distributions and the
+    temperature:
+        (..., table, eos, draft_probs (B,γ,V), temp, generator) -> (same)
+
+    ``tokens`` is each row's [current token, γ proposals], C = γ+1.  The
+    forward (``ModelApi.verify``) writes all C K/V entries through the
+    block table (positions at or past a row's limit, and every position of
+    an inactive row, to the trash page) and returns logits at every
+    position.
+
+    Greedy accept: targets ``g = argmax(logits)``; n matched proposals mean
+    positions 0..n saw the sequential greedy prefix, so the emitted tokens
+    are ``g[:, :n+1]`` and the stream equals non-speculative greedy
+    decode.  Sampling: proposal j is accepted with probability
+    ``min(1, p_t(d_j) / p_d(d_j))`` (the u's drawn first), the first
+    rejection resamples from the normalized residual ``max(p_t - p_d, 0)``
+    and full acceptance draws the bonus from ``p_t[γ]``, so the emitted
+    distribution is sequential sampling's.  The draws come from
+    ``generator``, not the reference's threefry bits.
+
+    The accepted count is clamped per row as masked decode would stop: at
+    the first emitted ``eos`` (-1 disables) and at the row's ``limit``
+    cursor; inactive rows emit nothing (``acc == 0``).  The pool needs no
+    device rollback (``ModelApi.spec_commit`` passes it through): the host
+    releases rejected pages with ``KVBlockPool.truncate_row``.  Every
+    output is a new tensor; the inputs are never written."""
+    api = registry.get_model(cfg)
+    if api.verify is None:
+        raise NotImplementedError(f"{cfg.name}: no verify path for this arch")
+    if gamma < 1:
+        raise ValueError(f"gamma {gamma} < 1")
+    C = gamma + 1
+
+    @torch.inference_mode()
+    def body(params, tokens, cache, index, active, limit, table, eos,
+             draft_probs, temp, generator):
+        B, dev = tokens.shape[0], tokens.device
+        idx_c = torch.arange(C, device=dev)[None, :]
+        wmask = active[:, None] & (index[:, None] + idx_c < limit[:, None])
+        logits, cache = api.verify(params, cfg, tokens, cache, index, table,
+                                   wmask)
+        if not sample:
+            emitted = torch.argmax(logits, dim=-1)
+            match = (tokens[:, 1:] == emitted[:, :gamma]).long()
+            n = torch.cumprod(match, dim=1).sum(dim=1)
+        else:
+            p_t = torch.softmax(logits.float() / temp, dim=-1)
+            d = tokens[:, 1:]                                  # (B, γ)
+            pt_d = torch.gather(p_t[:, :gamma], 2, d[..., None])[..., 0]
+            pd_d = torch.gather(draft_probs, 2, d[..., None])[..., 0]
+            u = torch.rand((B, gamma), generator=generator, device=dev)
+            accept = (u * pd_d < pt_d).long()
+            n = torch.cumprod(accept, dim=1).sum(dim=1)
+            # Resample at position n: the residual after a rejection,
+            # p_t[γ] after full acceptance (draft_probs padded with zeros
+            # there, so the same formula degenerates to p_t[γ]).
+            rows = torch.arange(B, device=dev)
+            pd_full = torch.cat([draft_probs,
+                                 torch.zeros_like(draft_probs[:, :1])], 1)
+            pt_n, pd_n = p_t[rows, n], pd_full[rows, n]
+            res = torch.clamp(pt_n - pd_n, min=0.0)
+            mass = res.sum(dim=-1, keepdim=True)
+            res = torch.where(mass > 0, res / mass.clamp(min=1e-30), pt_n)
+            x_star = torch.multinomial(res, 1, generator=generator)
+            pad_d = torch.cat([d, torch.zeros_like(d[:, :1])], dim=1)
+            emitted = torch.where(
+                idx_c < n[:, None], pad_d,
+                torch.where(idx_c == n[:, None], x_star,
+                            torch.zeros_like(pad_d)))
+        is_eos = emitted == eos
+        k_eos = torch.where(is_eos.any(dim=1),
+                            torch.argmax(is_eos.to(torch.uint8), dim=1) + 1,
+                            C)
+        acc = torch.minimum(torch.minimum(n + 1, limit - index), k_eos)
+        acc = torch.where(active, acc, torch.zeros_like(acc))
+        emit = idx_c < acc[:, None]
+        eos_in = (is_eos & emit).any(dim=1)
+        new_index = index + acc
+        new_active = active & ~eos_in & (new_index < limit)
+        out_tokens = torch.where(emit, emitted, torch.zeros_like(emitted))
+        nxt = torch.gather(emitted, 1, (acc - 1).clamp(0, C - 1)[:, None])
+        nxt = torch.where(new_active[:, None], nxt, torch.zeros_like(nxt))
+        cache = api.spec_commit(cache, index, acc)
+        return out_tokens, acc, nxt, cache, new_index, new_active
+
+    if sample:
+        return body
+
+    def greedy(params, tokens, cache, index, active, limit, table, eos,
+               generator):
+        return body(params, tokens, cache, index, active, limit, table, eos,
+                    None, None, generator)
+
+    return greedy

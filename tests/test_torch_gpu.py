@@ -796,3 +796,71 @@ def test_wkv_and_scan_take_an_empty_sequence(cuda_device):
                               "model")
     y, h = scan_ops.selective_scan_with_state(*sargs, h0=h0)
     assert y.shape == (2, 0, 64) and torch.equal(h, h0)
+
+
+# Self-speculative decoding on the card: a 4-layer gpt2 of head dim 64 (the
+# flash kernel runs the draft's prefill; the smoke configs' head dim 16 is
+# not one it takes), 2 heads, vocab 512, max_seq_len 64.
+def _spec_cfg():
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config("gpt2-12l"), num_layers=4,
+                               d_model=128, num_heads=2, num_kv_heads=2,
+                               d_ff=256, vocab_size=512, max_seq_len=64)
+
+
+def _spec_run(cfg, params, device, shapes, max_len, seed=0):
+    from repro_torch.train.serve_engine import ServeEngine
+    from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
+                                        (p,)).astype(np.int32),
+                    max_new_tokens=g) for p, g in shapes]
+    eng = ServeEngine(cfg, params, device=device, max_len=max_len,
+                      paged=True, block_size=16, spec_decode=True, gamma=3,
+                      draft_depth=2)
+    sched = ContinuousScheduler(eng, max_batch=2, invariant_every=1)
+    results = sched.run(reqs)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return sched, results
+
+
+@pytest.mark.gpu
+def test_spec_serving_on_the_card_agrees_with_the_cpu(cuda_device):
+    """Four requests through the spec scheduler on the card and on the
+    CPU from the same weights: token agreement at least 0.9 (chip_smoke
+    phase 7's lane; the card's verify and draft sum in other orders, so a
+    near-tie may flip a token), every request at its budget, and the
+    draft's prefill on the flash kernel, two launches per admission."""
+    from repro_torch.models import registry
+    cfg = _spec_cfg()
+    params = registry.get_model(cfg).init(torch.Generator().manual_seed(0),
+                                          cfg, device="cpu")
+    shapes = ((40, 12), (17, 9), (33, 20), (8, 14))
+    before = ops.KERNEL_LAUNCHES
+    _, card = _spec_run(cfg, params, cuda_device, shapes, 64)
+    assert ops.KERNEL_LAUNCHES - before == 2 * len(shapes)
+    _, cpu = _spec_run(cfg, params, torch.device("cpu"), shapes, 64)
+    hit = tot = 0
+    for a, b, (_, g) in zip(card, cpu, shapes):
+        assert len(a.new_tokens) == len(b.new_tokens) == g
+        hit += int((a.new_tokens == b.new_tokens).sum())
+        tot += g
+    assert hit / tot >= 0.9
+
+
+@pytest.mark.gpu
+def test_spec_draft_past_the_position_table_on_the_card(cuda_device):
+    """P + G - 1 == max_seq_len (max_len one more, as P + G <= max_len
+    needs), γ = 3: the last rounds' draft runs positions past the position
+    table and its cache, the verify's block index past the table's width.
+    The run ends without a device-side assert, at the budget."""
+    from repro_torch.models import registry
+    cfg = _spec_cfg()
+    params = registry.get_model(cfg).init(torch.Generator().manual_seed(1),
+                                          cfg, device="cpu")
+    L = cfg.max_seq_len
+    sched, (res,) = _spec_run(cfg, params, cuda_device, ((L - 9, 10),),
+                              L + 1)
+    assert len(res.new_tokens) == 10 and res.finish_reason == "limit"
+    assert sched.spec_rounds > 0

@@ -96,8 +96,8 @@ def test_pool_admission_contract():
 
 def _drive_pool(events, num_blocks):
     """Admit / advance token by token / EOS churn (the reference fuzz's
-    event loop without its speculative rollback, which comes with ROADMAP
-    queue A item 9).  Pages never leak or double-book, commitments bound
+    event loop without its speculative rollback, which
+    tests/test_torch_spec.py drives op by op against the JAX pool).  Pages never leak or double-book, commitments bound
     allocation, admitted rows' advances never fail, and a drained pool is
     fully free with zero commitment."""
     pool = KVBlockPool(num_blocks=num_blocks, block_size=4, batch=6,
