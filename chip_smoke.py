@@ -14,8 +14,9 @@ result):
    the sources in this checkout at once, one ``nvcc`` per kernel package,
    with ``-Xptxas -v`` register/shared-memory use; every flash entry
    function's registers and spill bytes, none of the 12 spilling, and the
-   same for the 32 paged-decode entry functions (q dtype x page dtype x
-   head dim x one or eight heads per kv head), the 8 WKV entry functions
+   same for the 48 paged-decode entry functions (q dtype x page dtype x
+   head dim x one query head per kv head, 2..8, or more in head blocks of
+   8), the 8 WKV entry functions
    (dtype x head dim) and the 4 selective-scan ones (dtype x state dim);
 3. kernel parity: the flash-attention kernel against its plain PyTorch
    version on the card over dtype x causal x window x softcap x MHA/GQA x
@@ -26,10 +27,11 @@ result):
 4. paged parity: the paged-attention decode kernel against its plain
    version over (q, pages) dtypes (f32/bf16 q over f32, bf16, int8 and fp8
    pages, the 1-byte pages with their f32 scale pages) x head dim x
-   MHA/GQA x block size x softcap x cursors (zero, ragged, bs-1, bs, last
-   slot), with permuted pages, garbage past every cursor (random 1-byte
-   values under large scales in the quantized pools) and an all-trash
-   row, plus the timing shape per page dtype;
+   MHA, G = 4 and G in {9, 12, 16} x block size x softcap x cursors (zero,
+   ragged, bs-1, bs, last slot), with permuted pages, garbage past every
+   cursor (random 1-byte values under large scales in the quantized
+   pools) and an all-trash row, plus the timing shape per page dtype and
+   starcoder2-3b's decode shape;
 5. the contiguous main path: ``repro_torch.launch.serve.main`` serves
    ``gpt2-12l`` at full width (batch 8, prompt 512, 64 tokens, random
    weights from seed 0) with the launch counters set to 0 just before and
@@ -54,17 +56,20 @@ result):
    shapes, beside the bound (for the flash kernels both the 3xTF32
    route's and the f32 FMA one); the paged kernel over f32,
    int8 and fp8 pages, with the L2 flushed and warm and back to back with
-   its host wrapper, after a ``torch.profiler`` reading that one call as
+   its host wrapper, and over f32 pages at starcoder2-3b's decode shape
+   (B=8, H=24, KV=2, hd=128: G = 12; SDPA with ``enable_gqa``), after a
+   ``torch.profiler`` reading that one call as
    the main path makes it (an int64 cursor) runs exactly one device kernel
    and a check that repeated calls give the same bits (f32 and int8
    pages), and the cluster size it chose at the timing shape;
 9. training parity: the Newton–Schulz chain (``ns_fused``) and ``matmul``
    against their plain versions over stack sizes, aspects, ragged dims,
    dtypes and the exact ``gpt2-12l`` shapes (the tied embedding's too),
-   plus the orthogonality check; ``matmul``'s symmetric route (x @ x.T
-   and G G^T, split-K, exactly symmetric, the same bits twice; the
-   embedding's Gram within 1e-5 of an f64 product) and the large route's
-   fused updates; the flash-attention backward's dq, dk,
+   ``llama3-0.3b``'s stacks and ``mixtral-0.3b``'s routers (n = 8) and
+   expert stacks, plus the orthogonality check; ``matmul``'s symmetric
+   route (x @ x.T and G G^T, split-K, exactly symmetric, the same bits
+   twice; the embedding's Gram within 1e-5 of an f64 product) and the
+   large route's fused updates; the flash-attention backward's dq, dk,
    dv against autograd of the plain version over the forward's grid and
    at the training shape, there also within ``FA_F64_TOL`` (relative) of
    autograd of an f64 plain version, and bit-identical on repeat;
@@ -75,7 +80,8 @@ result):
    boundary and final checkpoints, and each kernel's launches against
    the count the run implies;
 11. serving that checkpoint: ``serve.main --checkpoint`` at 12 layers;
-12. card against CPU: one train step at full width (depth 1, batch 2, 128
+12. card against CPU: one train step at full width (``gpt2-12l`` at depth
+   1, ``llama3-0.3b`` and ``mixtral-0.3b`` at depth 2; batch 2, 128
    tokens) from the same params and batch, loss and updated params;
 13. training times: the Newton–Schulz chain, matmul (the Gram, G G^T and
    P X) and the flash backward (and the forward with lse, beside SDPA's
@@ -132,14 +138,32 @@ result):
    random one-layer ``gpt2-12l`` expanded by ``copying_zeroL`` to 12,
    served with its depth-1 truncation): acceptance at least 0.99; and each
    spec stream equal to phase 6's f32 stream, or first different at a
-   near-tie (the target's top-2 gap below 1e-4).
+   near-tie (the target's top-2 gap below 1e-4);
+23. the paper's ``llama3-0.3b`` (RoPE, GQA 16/8, untied head) trained
+   with the launcher's defaults at full width from a one-layer source to
+   24 layers at τ = 0.5 of 12 steps: the expansion, finite losses, the
+   checkpoints, flash forward and backward at G = 2, ``ns_fused`` and
+   ``matmul`` launches against the count the run implies (the untied head
+   on the large route beside the embedding), tokens/s at 1 and 24 layers;
+24. ``qwen3-0.3b`` (qk-norm, tied) over phase 6's traffic on paged KV, f32
+   and then int8 pages (the paged kernel at G = 2, hd 64); then the
+   paper's draft: a one-layer ``qwen3-0.3b`` expanded by ``copying_zeroL``
+   to 24, served with its depth-1 truncation, acceptance at least 0.99;
+25. ``mixtral-0.3b``: 6 training steps through one expansion (expert
+   stacks and routers through the Newton–Schulz kernel), then phase 6's
+   traffic on paged KV;
+26. ``starcoder2-3b`` at full size (~3.0 B parameters, ~12 GB f32) over
+   phase 6's traffic on paged KV: the paged kernel at G = 12, hd 128; then
+   card against CPU at depth 2 (the B=1 P=128 generation, whose prefill
+   runs flash at G = 12, and three paged requests).
 
-Every main path (5, 6, 10, 11, 15, 19, 22) starts with every kernel's
+Every main path (5, 6, 10, 11, 15, 19, 22-26) starts with every kernel's
 launch counter at 0 and checks every counter after it, the kernels it must
 not launch included.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record (the paged row's
+launches and times at G = 12, starcoder2-3b's, its gpt2-12l ones under
+``gpt2_12l``); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -371,6 +395,9 @@ def parity(fa_ops) -> float:
 # The paged decode's timing shape: the continuous main path's batch and
 # widths at its longest context (prompt 512 + 64 generated = 576 tokens).
 PAGED_SHAPE = dict(B=8, H=12, KV=12, hd=64, bs=16, NB=37, cursor=575)
+# starcoder2-3b's decode at the same batch and cursors: 24 query heads over
+# 2 kv heads (G = 12, head blocks of 8 in the kernel), hd 128.
+G12_SHAPE = dict(B=8, H=24, KV=2, hd=128, bs=16, NB=37, cursor=575)
 GARBAGE = 1e3            # scale of the finite garbage past every cursor
 
 
@@ -438,22 +465,26 @@ def paged_parity(pa_ops) -> dict:
     """Paged kernel against its plain version over the grid, float pages
     and int8/fp8 pages with their scales; returns the max abs error at the
     timing shape per page dtype.  The all-trash row must be finite; every
-    other row must agree within the tolerance.  Float pages: ``TOL``
-    absolute, as since the kernel's first slice.  Quantized pages: ``TOL``
-    relative to max(1, max|plain|).  With f32 q both sides dequantize in
-    f32 (the same product) and only sum orders differ; with bf16 q the
-    plain version rounds the dequantized context, the scores and the
-    probabilities to bf16 (each a relative step of 2^-8) where the kernel
-    keeps them in f32, so its error grows with the outputs' magnitude
-    (up to ~4 here, where an absolute 2e-2 is under two bf16 steps)."""
+    other row must agree within the tolerance.  Both sides read bf16 pages
+    exactly into f32 and dequantize 1-byte pages by the same f32 product,
+    so only sum orders differ: with f32 q, float pages are held to
+    ``TOL[f32]`` absolute, quantized pages to ``TOL[f32]`` relative to
+    peak = max(1, max|plain|).  With bf16 q the plain version rounds the
+    scores and the probabilities to bf16 where the kernel keeps them in
+    f32 (a score of 10 moves by 2^-5, its probability by 3%), so the
+    kernel is held instead to the plain version run on f32 copies of the
+    same values (bf16 -> f32 is exact), i.e. to its own arithmetic and
+    one bf16 rounding of each output: element by element within
+    2^-8 |plain| + ``TOL[f32]`` peak."""
     f32, bf16 = torch.float32, torch.bfloat16
     i8, f8 = torch.int8, torch.float8_e4m3fn
     cases = []
     for q_dt, kv_dt in ((f32, f32), (bf16, bf16), (f32, bf16), (f32, i8),
                         (bf16, i8), (f32, f8), (bf16, f8)):
         for hd in (64, 128):
-            for H, KV in ((12, 12), (8, 2)):
-                for bs in (16, 64):
+            # MHA, G = 4, and G > 8 (head blocks of 8; starcoder2's 12)
+            for H, KV in ((12, 12), (8, 2), (18, 2), (24, 2), (32, 2)):
+                for bs in (16, 64) if H // KV <= 8 else (16,):
                     for cap in (0.0, 30.0):
                         for mode in ("zero", "ragged", "bs-1", "bs", "last"):
                             cases.append((4, H, KV, hd, bs, 256 // bs, q_dt,
@@ -462,6 +493,9 @@ def paged_parity(pa_ops) -> dict:
     for kv_dt in (f32, i8, f8):
         cases.append((s["B"], s["H"], s["KV"], s["hd"], s["bs"], s["NB"],
                       f32, kv_dt, 0.0, "timing"))
+    g = G12_SHAPE
+    cases.append((g["B"], g["H"], g["KV"], g["hd"], g["bs"], g["NB"], f32,
+                  f32, 0.0, "timing"))
     bad, worst, timing = 0, {}, {}
     for n, (B, H, KV, hd, bs, NB, q_dt, kv_dt, cap, mode) in enumerate(cases):
         top = NB * bs - 1
@@ -475,22 +509,28 @@ def paged_parity(pa_ops) -> dict:
         kw = dict(k_scales=ks, v_scales=vs, logit_softcap=cap)
         got = pa_ops.paged_attention(q, kp, vp, tbl, idx, force="kernel",
                                      **kw)
-        want = pa_ops.paged_attention(q, kp, vp, tbl, idx, force="ref", **kw)
+        want = pa_ops.paged_attention(q.float(), kp, vp, tbl, idx,
+                                      force="ref", **kw)
         torch.cuda.synchronize()
-        tol = TOL[bf16] if bf16 in (q_dt, kv_dt) else TOL[f32]
         live = slice(None) if mode == "timing" else slice(0, B - 1)
-        if ks is not None:
-            tol *= max(1.0, want[live].float().abs().max().item())
-        err = (got[live].float() - want[live].float()).abs().max().item()
-        ok = err <= tol and bool(torch.isfinite(got).all())
+        want_l = want[live].float()
+        peak = max(1.0, want_l.abs().max().item())
+        tol = TOL[f32] * (peak if ks is not None or q_dt == bf16 else 1.0)
+        diff = (got[live].float() - want_l).abs()
+        # err: the largest difference; ok: every element within its bound
+        err = diff.max().item()
+        room = tol + (2.0 ** -8 * want_l.abs() if q_dt == bf16 else 0.0)
+        ok = bool((diff <= room).all()) and bool(torch.isfinite(got).all())
         bad += not ok
         name = str(kv_dt)[6:]
         worst[name] = max(worst.get(name, 0.0), err)
         if mode == "timing":
-            timing[name] = err
+            timing[name if H == s["H"] else f"{name} G{H // KV}"] = err
         print(f"  pa q {str(q_dt)[6:]:8s} kv {name:13s} B{B} "
               f"H{H}/{KV} hd{hd} bs{bs} NB{NB} cap{cap:<4g} {mode:6s} "
-              f"err={err:.2e} tol={tol:.1e} {'ok' if ok else 'FAIL'}")
+              f"err={err:.2e} tol={tol:.1e}"
+              f"{' + 2^-8|plain|' if q_dt == bf16 else ''} "
+              f"{'ok' if ok else 'FAIL'}")
     if bad:
         _fail(f"{bad} of {len(cases)} paged-attention parity cases")
     print(f"paged parity: {len(cases)} cases within tolerance; worst error "
@@ -498,12 +538,15 @@ def paged_parity(pa_ops) -> dict:
     return timing
 
 
-def card_vs_cpu(cfglib, registry, ServeEngine, fa_ops):
+def card_vs_cpu(cfglib, registry, ServeEngine, fa_ops, arch="gpt2-12l",
+                depth=None):
     """Greedy B=1 P=128 8-token generation on the card, held against the
     port's plain path on the CPU fed the same tokens (teacher forcing: one
     CPU forward over prompt + generated tokens gives each step's logits,
-    so a near-tie cannot send the two runs down different paths)."""
-    cfg = cfglib.get_config("gpt2-12l")
+    so a near-tie cannot send the two runs down different paths).
+    ``arch`` at ``depth`` layers (default: its full depth)."""
+    cfg = cfglib.get_config(arch)
+    cfg = cfg if depth is None else cfg.with_depth(depth)
     api = registry.get_model(cfg)
     params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     P, G = 128, 8
@@ -533,8 +576,9 @@ def card_vs_cpu(cfglib, registry, ServeEngine, fa_ops):
             _fail(f"step {t} logits differ by {diff:.2e} > {LOGIT_TOL:.0e}")
         if tok != cpu_tok and margin > LOGIT_TOL:
             _fail(f"step {t} tokens differ with top-2 margin {margin:.4f}")
-    print(f"card vs cpu: logits within {LOGIT_TOL:.0e} over {G} steps "
-          f"(worst {worst:.2e}), tokens equal where the margin allows")
+    print(f"card vs cpu ({cfg.name}, {cfg.num_layers} layers): logits "
+          f"within {LOGIT_TOL:.0e} over {G} steps (worst {worst:.2e}), "
+          f"tokens equal where the margin allows; {launches} flash launches")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -606,16 +650,17 @@ _PAGE_NAMES = {"0": "f32", "1": "bf16", "2": "int8", "3": "fp8"}
 
 def paged_registers(build_log: str) -> list:
     """(entry, registers, spill bytes) of every paged decode entry function
-    (q dtype, page dtype, head dim, GM: the query heads per kv head it
-    carries, 1 or 8)."""
+    (q dtype, page dtype, head dim, GM: the query heads a head block
+    carries, 1 or 8, and MB: head blocks of 8 over each tile, for G > 8)."""
     import re
 
     def name_of(mangled):
         k = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d)ELi"
-                      r"(\d+)ELi(\d)E", mangled)
+                      r"(\d+)ELi(\d)ELb([01])E", mangled)
         return (f"paged<{'f32' if k.group(1) == 'f' else 'bf16'} q, "
                 f"{_PAGE_NAMES[k.group(2)]} pages, hd {k.group(3)}, "
-                f"GM {k.group(4)}>" if k else None)
+                f"GM {k.group(4)}{', MB' if k.group(5) == '1' else ''}>"
+                if k else None)
     return _entry_registers(build_log, name_of)
 
 
@@ -758,13 +803,22 @@ def _check_served(label, cfg, lens, gens, results, sched):
     return pinned
 
 
+def _with_arch(argv, arch):
+    """``argv`` with ``--arch`` set to ``arch``."""
+    out = list(argv)
+    out[out.index("--arch") + 1] = arch
+    return out
+
+
 def paged_main_path(cfg, serve, fa_ops, pa_ops, extra=()):
-    """``serve.main(PAGED_ARGV + extra)`` with every launch counter at 0
-    just before.  Returns (paged-kernel launches, the scheduler, the
-    results, their TTFT p50 and p95 in seconds, the timed run's
-    ``summarize`` record).  The CLI prints the aggregate tokens/s too."""
-    argv = PAGED_ARGV + list(extra)
-    label = "paged main path" + (f" {' '.join(extra)}" if extra else "")
+    """``serve.main(PAGED_ARGV + extra)`` for ``cfg``'s architecture, with
+    every launch counter at 0 just before.  Returns (paged-kernel
+    launches, the scheduler, the results, their TTFT p50 and p95 in
+    seconds, the timed run's ``summarize`` record).  The CLI prints the
+    aggregate tokens/s too."""
+    argv = _with_arch(PAGED_ARGV, cfg.name) + list(extra)
+    label = f"paged main path {cfg.name}" + (f" {' '.join(extra)}"
+                                             if extra else "")
     results, sched, stats, calls = _serve_counted(serve, argv,
                                                   ("decode_masked",))
     launches, flash = pa_ops.KERNEL_LAUNCHES, fa_ops.KERNEL_LAUNCHES
@@ -830,15 +884,16 @@ def quant_main_paths(cfg, serve, fa_ops, pa_ops) -> dict:
     return out
 
 
-def paged_card_vs_cpu(cfglib, registry):
+def paged_card_vs_cpu(cfglib, registry, arch="gpt2-12l", depth=None):
     """Three requests (prompts 100, 37, 128; 8 tokens each; 2 slots; pages
     of 16) through the paged scheduler on the card, each stream held
     against the port's plain CPU forward fed the same tokens (teacher
     forcing): tokens equal wherever the CPU top-2 margin exceeds
-    ``LOGIT_TOL``."""
+    ``LOGIT_TOL``.  ``arch`` at ``depth`` layers (default: full depth)."""
     from repro_torch.train.serve_engine import ServeEngine
     from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
-    cfg = cfglib.get_config("gpt2-12l")
+    cfg = cfglib.get_config(arch)
+    cfg = cfg if depth is None else cfg.with_depth(depth)
     api = registry.get_model(cfg)
     params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     rng = np.random.default_rng(2)
@@ -866,8 +921,9 @@ def paged_card_vs_cpu(cfglib, registry):
             worst = min(worst, margin)
         print(f"  paged request {res.uid}: P={P} tokens "
               f"{res.new_tokens.tolist()} equal the CPU argmax")
-    print(f"paged card vs cpu: 3 requests x {G} tokens equal where the "
-          f"margin allows (smallest top-2 margin {worst:.4f})")
+    print(f"paged card vs cpu ({cfg.name}, {cfg.num_layers} layers): 3 "
+          f"requests x {G} tokens equal where the margin allows (smallest "
+          f"top-2 margin {worst:.4f})")
 
 
 # Card against CPU over int8 pages with the prefix cache: per-token greedy
@@ -964,15 +1020,15 @@ def _flusher():
     return junk.zero_
 
 
-def paged_times(pa_ops, kv_dtype=torch.float32):
+def paged_times(pa_ops, kv_dtype=torch.float32, s=PAGED_SHAPE):
     """The paged kernel, its plain version and the SDPA yardstick at the
-    timing shape over ``kv_dtype`` pages (int8/fp8 with their scales),
-    device time with the L2 flushed before each launch.  The yardstick is
-    ``scaled_dot_product_attention`` over the already gathered (and, for
-    quantized pages, dequantized) contiguous (B, H, 576, hd) f32 context:
-    at uniform cursors the same function, but it reads no block table."""
+    timing shape ``s`` over ``kv_dtype`` pages (int8/fp8 with their
+    scales), device time with the L2 flushed before each launch.  The
+    yardstick is ``scaled_dot_product_attention`` over the already gathered
+    (and, for quantized pages, dequantized) contiguous (B, H, 576, hd) f32
+    context, its kv heads repeated for GQA (``enable_gqa``): at uniform
+    cursors the same function, but it reads no block table."""
     from repro_torch.kernels.paged_attention import ref
-    s = PAGED_SHAPE
     B, H, KV, hd, bs, NB = (s[k] for k in ("B", "H", "KV", "hd", "bs", "NB"))
     q, kp, vp, tbl, idx, ks, vs = paged_case(
         B, H, KV, hd, bs, NB, torch.float32, kv_dtype, [s["cursor"]] * B,
@@ -987,9 +1043,10 @@ def paged_times(pa_ops, kv_dtype=torch.float32):
     kt, vt = (ref.gather_dequant(t, sc, tbl, torch.float32)[:, :S]
               .transpose(1, 2).contiguous() for t, sc in ((kp, ks), (vp, vs)))
     qt = q.transpose(1, 2).contiguous()
+    gqa = dict(enable_gqa=True) if H != KV else {}
     library_ms = _time_device_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
-        50, flush)
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, **gqa), 50, flush)
     live = int((idx.long() + 1).sum())
     pages = int(((idx.long() + 1 + bs - 1) // bs).sum())
     scale_bytes = 2 * live * KV * 4 if ks is not None else 0
@@ -1071,8 +1128,10 @@ def _rel_err(got, want) -> float:
 def ns_parity(ns_ops) -> float:
     """The Newton–Schulz route (``ns_fused`` for the per-layer stacks,
     ``matmul`` for the embedding) against ``newton_schulz_ref`` per matrix,
-    plus the orthogonality check.  Returns the max abs error at the main
-    path's largest stack (12 x 768 x 3072, f32)."""
+    at small ragged shapes and at the stacks the training paths give it
+    (gpt2-12l's, llama3-0.3b's, mixtral-0.3b's routers and expert stacks),
+    plus the orthogonality check.  Returns the max abs error at gpt2-12l's
+    largest stack (12 x 768 x 3072, f32)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for dtype in (f32, bf16):
@@ -1082,6 +1141,11 @@ def ns_parity(ns_ops) -> float:
                 cases.append((L, n, m, dtype))
     cases += [(12, 768, 768, f32), (12, 3072, 768, f32), (1, 50304, 768, f32),
               (12, 768, 3072, f32)]
+    # llama3-0.3b's stacks at 24 layers; mixtral-0.3b's routers at 1 and 24
+    # layers (n = 8) and its expert stacks at 24 layers of 8 experts
+    cases += [(24, 1024, 512, f32), (24, 2048, 1024, f32),
+              (24, 1024, 2048, f32), (1, 512, 8, f32), (24, 512, 8, f32),
+              (192, 1024, 512, f32), (192, 512, 1024, f32)]
     g = torch.Generator(device="cuda").manual_seed(7)
     bad, err = 0, 0.0
     for L, n, m, dtype in cases:
@@ -1091,12 +1155,14 @@ def ns_parity(ns_ops) -> float:
         want = ns_ops.newton_schulz(x, force="ref")
         torch.cuda.synchronize()
         rel = _rel_err(got, want)
-        err = (got.float() - want.float()).abs().max().item()
+        abs_err = (got.float() - want.float()).abs().max().item()
+        if (L, n, m, dtype) == (12, 768, 3072, f32):
+            err = abs_err
         ok = rel <= NS_TOL[dtype] and bool(torch.isfinite(got).all()) \
             and got.shape == x.shape and got.dtype == x.dtype
         bad += not ok
         print(f"  ns {str(dtype)[6:]:8s} L{L:<2d} {n}x{m} route "
-              f"{ns_ops.route(n, m)} rel={rel:.2e} abs={err:.2e} "
+              f"{ns_ops.route(n, m)} rel={rel:.2e} abs={abs_err:.2e} "
               f"tol={NS_TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
     y = ns_ops.newton_schulz(torch.randn((64, 128), generator=g,
                                          device="cuda"), force="kernel")
@@ -1108,7 +1174,7 @@ def ns_parity(ns_ops) -> float:
         _fail(f"{bad} of {len(cases)} Newton-Schulz parity cases, "
               f"orthogonality {'ok' if orth else 'FAILED'}")
     print(f"ns parity: {len(cases)} cases within tolerance")
-    return err                                   # the last case
+    return err
 
 
 # The embedding's three products per iteration, and ragged and bf16 cases.
@@ -1296,27 +1362,54 @@ def bwd_f64_and_repeats(fa_ops) -> float:
     return max(errs)
 
 
-def _stacked_matrix_leaves(cfg, layers) -> int:
-    """Muon leaves with the layer-stack axis: one ns_fused call each."""
+# The route each Muon matrix leaf of a trained architecture takes, written
+# out: every per-layer stack (attention, MLP, and the MoE's routers and
+# expert stacks, an (L, E, n, m) stack being one chain) is one ns_fused
+# chain; the embedding and an untied head take the large route, 3 GEMMs
+# for each of 5 Newton–Schulz steps.
+NS_ROUTES = {
+    "gpt2-12l": {"fused": ("wq", "wk", "wv", "wo", "w_up", "w_down"),
+                 "large": ("embed",)},
+    "llama3-0.3b": {"fused": ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                              "w_down"),
+                    "large": ("embed", "lm_head")},
+    "mixtral-0.3b": {"fused": ("wq", "wk", "wv", "wo", "router", "w_gate",
+                               "w_up", "w_down"),
+                     "large": ("embed", "lm_head")},
+}
+
+
+def _ns_launches(cfg):
+    """(ns_fused, matmul) launches of one Muon update at any depth, from
+    ``NS_ROUTES``; fails unless its leaves are the model's matrix leaves
+    (the optimizer's own selection)."""
     from repro_torch.models import registry
     from repro_torch.optim import muon
     from repro_torch.tree import leaves_with_path
-    params = registry.get_model(cfg.with_depth(layers)).init(
-        None, cfg.with_depth(layers), device="meta")
-    return sum(muon._is_matrix(p, x) and muon._stacked(p)
-               for p, x in leaves_with_path(params))
+    routes = NS_ROUTES[cfg.name]
+    params = registry.get_model(cfg).init(None, cfg, device="meta")
+    leaves = sorted(path[-1] for path, x in leaves_with_path(params)
+                    if muon._is_matrix(path, x))
+    if leaves != sorted(routes["fused"] + routes["large"]):
+        _fail(f"{cfg.name} Muon matrix leaves {leaves}, NS_ROUTES lists "
+              f"{routes}")
+    return len(routes["fused"]), 3 * 5 * len(routes["large"])
 
 
-def train_main_path(cfg, train, ckpt_dir):
-    """``train.main(TRAIN_ARGV)`` with every launch counter at 0 just
-    before; checks the expansion, the losses, the checkpoints and each
-    kernel's launches.  Returns (result, {kernel: launches})."""
+def train_main_path(cfg, train, ckpt_dir, argv=TRAIN_ARGV):
+    """``train.main(argv)`` for ``cfg``'s architecture with every launch
+    counter at 0 just before; checks the expansion, the losses, the
+    checkpoints and each kernel's launches.  Returns (result, {kernel:
+    launches})."""
     from repro_torch.checkpoint import checkpointer as ckpt
+    argv = _with_arch(argv, cfg.name)
+    arg = dict(zip(argv, argv[1:]))
+    n_steps, tau = int(arg["--steps"]), int(float(arg["--tau"])
+                                            * int(arg["--steps"]))
     zero_counts()
-    res = train.main(TRAIN_ARGV + ["--ckpt-dir", ckpt_dir])
+    res = train.main(argv + ["--ckpt-dir", ckpt_dir])
     counts = read_counts()
-    tau = int(TRAIN_TAU * TRAIN_STEPS)
-    layers = [1] * tau + [cfg.num_layers] * (TRAIN_STEPS - tau)
+    layers = [1] * tau + [cfg.num_layers] * (n_steps - tau)
     h = res.history
     if h["expansion_steps"] != [tau] or res.final_layers != cfg.num_layers:
         _fail(f"expansion at {h['expansion_steps']} to {res.final_layers} "
@@ -1326,25 +1419,26 @@ def train_main_path(cfg, train, ckpt_dir):
         _fail(f"training losses {h['loss']} at layers {h['layers']}")
     from repro_torch.configs.base import TrainConfig
     tc = TrainConfig()                 # the launcher's eval cadence
-    evals = [s for s in range(1, TRAIN_STEPS) if s % tc.eval_every == 0]
+    evals = [s for s in range(1, n_steps) if s % tc.eval_every == 0]
+    fused, large = _ns_launches(cfg)
     want = {name: 0 for name in COUNTERS}      # the kernels it never runs
     want.update(flash_attention=sum(layers)
                 + tc.eval_batches * sum(layers[s] for s in evals),
                 flash_attention_bwd=sum(layers),
-                ns_fused=sum(_stacked_matrix_leaves(cfg, L) for L in layers),
-                matmul=3 * 5 * TRAIN_STEPS)
+                ns_fused=fused * n_steps, matmul=large * n_steps)
     if counts != want:
-        _fail(f"training launches {counts}, expected {want}")
+        _fail(f"{cfg.name} training launches {counts}, expected {want}")
     saved = ckpt.all_steps(ckpt_dir)
-    if saved != [tau, TRAIN_STEPS]:
-        _fail(f"checkpoints {saved}, expected [{tau}, {TRAIN_STEPS}]")
+    if saved != [tau, n_steps]:
+        _fail(f"checkpoints {saved}, expected [{tau}, {n_steps}]")
     if ckpt.load_metadata(ckpt_dir, tau)["num_layers"] != 1 or \
-            ckpt.load_metadata(ckpt_dir, TRAIN_STEPS)["num_layers"] != \
+            ckpt.load_metadata(ckpt_dir, n_steps)["num_layers"] != \
             cfg.num_layers:
         _fail("checkpoint depths do not follow the expansion")
-    print(f"training main path: {TRAIN_STEPS} steps, expansion at step "
-          f"{tau} to {cfg.num_layers} layers, losses {h['loss'][0]:.4f} -> "
-          f"{h['loss'][-1]:.4f}, checkpoints {saved}; launches {counts}")
+    print(f"training main path {cfg.name}: {n_steps} steps, expansion at "
+          f"step {tau} to {cfg.num_layers} layers, losses "
+          f"{h['loss'][0]:.4f} -> {h['loss'][-1]:.4f}, checkpoints {saved}; "
+          f"launches {counts}")
     return res, counts
 
 
@@ -1362,16 +1456,17 @@ def serve_trained(serve, ckpt_dir, layers):
           f"{2 * layers} flash-attention launches")
 
 
-def train_card_vs_cpu(cfglib, registry):
-    """One train step at full width (depth 1, batch 2, 128 tokens) from the
-    same params and batch on the card and on the CPU."""
+def train_card_vs_cpu(cfglib, registry, arch="gpt2-12l", depth=1):
+    """One train step of ``arch`` at full width (``depth`` layers, batch 2,
+    128 tokens) from the same params and batch on the card and on the
+    CPU."""
     from repro_torch import bridge
     from repro_torch.configs.base import OptimizerConfig, ScheduleConfig
     from repro_torch.core.schedules import make_schedule
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.optim.base import make_optimizer
     from repro_torch.train import steps
-    cfg = cfglib.get_config("gpt2-12l").with_depth(1)
+    cfg = cfglib.get_config(arch).with_depth(depth)
     opt = make_optimizer(OptimizerConfig())
     step = steps.make_train_step(cfg, opt, make_schedule(
         ScheduleConfig(), 0.01, 100))
@@ -1393,7 +1488,8 @@ def train_card_vs_cpu(cfglib, registry):
         d = float(np.abs(out["cuda"][1][key] - want).max())
         if d > worst:
             worst, worst_key = d, key
-    print(f"train card vs cpu: loss {out['cuda'][0]:.6f} vs "
+    print(f"train card vs cpu ({cfg.name}, {depth} layers): loss "
+          f"{out['cuda'][0]:.6f} vs "
           f"{out['cpu'][0]:.6f} (diff {loss_diff:.2e}, tol "
           f"{TRAIN_LOSS_TOL:.0e}); worst param diff {worst:.2e} at "
           f"{worst_key} (tol {TRAIN_PARAM_TOL:.0e}); CPU step "
@@ -2212,16 +2308,16 @@ def spec_main_path(cfg, serve, fa_ops, extra=()):
     return results, sched, stats, launches
 
 
-def spec_zerol(cfglib, registry):
-    """The paper's draft on the card: a random one-layer ``gpt2-12l``
-    expanded by ``copying_zeroL`` to 12 layers, served over phase 6's
-    lengths and budgets with its depth-1 truncation as the draft, every
-    counter at 0 just before: acceptance at least
-    ``SPEC_ZEROL_ACCEPTANCE``, one flash launch per admission."""
+def spec_zerol(cfglib, registry, arch="gpt2-12l"):
+    """The paper's draft on the card: a random one-layer ``arch`` expanded
+    by ``copying_zeroL`` to its full depth, served over phase 6's lengths
+    and budgets with its depth-1 truncation as the draft, every counter at
+    0 just before: acceptance at least ``SPEC_ZEROL_ACCEPTANCE``, one
+    flash launch per admission."""
     from repro_torch.core import expansion
     from repro_torch.train.serve_engine import ServeEngine
     from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
-    cfg = cfglib.get_config("gpt2-12l")
+    cfg = cfglib.get_config(arch)
     cfg1 = cfg.with_depth(1)
     p1 = registry.get_model(cfg1).init(torch.Generator().manual_seed(0),
                                        cfg1, device="cpu")
@@ -2243,7 +2339,8 @@ def spec_zerol(cfglib, registry):
     _check_served("zeroL spec", cfg, lens, gens, results, sched)
     rate = sched.acceptance_rate
     mal = float(np.mean([r.mean_accepted_len for r in results]))
-    print(f"zeroL spec: 1 -> {cfg.num_layers} layers (copying_zeroL), draft "
+    print(f"zeroL spec {cfg.name}: 1 -> {cfg.num_layers} layers "
+          f"(copying_zeroL), draft "
           f"depth 1, gamma {SPEC_GAMMA}: {len(reqs)} requests at their "
           f"budgets, {sched.spec_rounds} rounds, acceptance {rate:.4f} "
           f"({sched.spec_accepted}/{sched.spec_proposed}; bar "
@@ -2286,6 +2383,51 @@ def spec_vs_plain(cfg, registry, spec, plain, engine) -> int:
     return differ
 
 
+# Phases 23-26: the RoPE architectures at full width, random weights from
+# seed 0 in f32.  llama3-0.3b trains with the launcher's defaults, one
+# layer to 24 at half of 12 steps; mixtral-0.3b through one expansion in 6.
+MIXTRAL_TRAIN_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + [
+    "--steps", "6"] + TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 2:]
+
+
+def rope_train_path(cfglib, train, arch, argv=TRAIN_ARGV):
+    """``train.main`` for ``arch`` (``train_main_path``: the expansion, the
+    losses, the checkpoints, every kernel's launches against the count the
+    run implies), then the Newton–Schulz chain's launches named by leaf
+    kind.  Returns (result, {kernel: launches})."""
+    cfg = cfglib.get_config(arch)
+    with tempfile.TemporaryDirectory() as tmp:
+        res, counts = train_main_path(cfg, train, os.path.join(tmp, "run"),
+                                      argv)
+    fused, large = _ns_launches(cfg)
+    print(f"  {arch}: flash forward and backward at G = "
+          f"{cfg.num_heads // cfg.num_kv_heads}, hd {cfg.head_dim}; at "
+          f"{cfg.num_layers} layers one Muon update is {fused} ns_fused "
+          f"chains (stacked leaves"
+          + (", expert stacks and routers" if cfg.moe else "")
+          + f") and {large} GEMMs (the large-route embedding"
+          + ("" if cfg.tie_embeddings else " and head") + ")")
+    return res, counts
+
+
+def rope_serve_paths(cfglib, registry, serve, fa_ops, pa_ops, arch,
+                     int8=False):
+    """Phase 6's traffic for ``arch`` over f32 pages (and, with ``int8``,
+    over int8 pages), counters from 0 before each run.  Returns (the f32
+    run's paged launches, its ``summarize`` record, the int8 run's
+    launches or None)."""
+    cfg = cfglib.get_config(arch)
+    launches, _, _, _, stats = paged_main_path(cfg, serve, fa_ops, pa_ops)
+    q_launches = None
+    if int8:
+        q_launches = paged_main_path(cfg, serve, fa_ops, pa_ops,
+                                     ("--kv-dtype", "int8"))[0]
+    print(f"  {arch}: paged kernel at G = {cfg.num_heads // cfg.num_kv_heads}"
+          f", hd {cfg.head_dim}; aggregate tokens/s "
+          f"{stats['tokens_per_s']:.1f} (f32 pages)")
+    return launches, stats, q_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2326,8 +2468,8 @@ def main() -> int:
     pa_regs = paged_registers(_build.build_log("paged_attention"))
     print("paged entry functions (registers, spill bytes): " + "; ".join(
         f"{n} {r}, {sp}" for n, r, sp in pa_regs))
-    if len(pa_regs) != 32 or any(sp for _, _, sp in pa_regs):
-        _fail(f"paged entry functions: {pa_regs} (32 expected, none "
+    if len(pa_regs) != 48 or any(sp for _, _, sp in pa_regs):
+        _fail(f"paged entry functions: {pa_regs} (48 expected, none "
               "spilling)")
     wkv_regs = wkv_registers(_build.build_log("rwkv6"))
     scan_regs = scan_registers(_build.build_log("mamba_scan"))
@@ -2376,6 +2518,7 @@ def main() -> int:
     tp = paged_times(pa_ops)
     tq = {name: paged_times(pa_ops, dt) for name, dt in
           (("int8", torch.int8), ("float8_e4m3fn", torch.float8_e4m3fn))}
+    t_g12 = paged_times(pa_ops, s=G12_SHAPE)     # starcoder2-3b's decode
     quantized = [
         {"kv_dtype": name, "launches": quant_launches[key],
          "prefix_cache_launches": (quant_launches["prefix+int8"]
@@ -2396,8 +2539,11 @@ def main() -> int:
         res, train_counts = train_main_path(cfg, train, ckpt_dir)
         serve_trained(serve, ckpt_dir, cfg.num_layers)
 
-    # 12. card against CPU, one train step
+    # 12. card against CPU, one train step (gpt2-12l at depth 1,
+    # llama3-0.3b and mixtral-0.3b at depth 2)
     train_card_vs_cpu(cfglib, registry)
+    train_card_vs_cpu(cfglib, registry, "llama3-0.3b", 2)
+    train_card_vs_cpu(cfglib, registry, "mixtral-0.3b", 2)
 
     # 13. training times
     t_ns, t_mm, t_bwd = train_times(ns_ops, fa_ops, res, cfg)
@@ -2461,6 +2607,37 @@ def main() -> int:
                   spec_sched.engine)
     print(f"spec phase {time.perf_counter() - t0:.1f} s")
 
+    # 23. progressive training of llama3-0.3b at full width and depth
+    t0 = time.perf_counter()
+    rope_train_path(cfglib, train, "llama3-0.3b")
+    print(f"llama3 training phase {time.perf_counter() - t0:.1f} s")
+
+    # 24. qwen3-0.3b over paged KV, f32 and int8 pages; the paper's draft
+    t0 = time.perf_counter()
+    rope_serve_paths(cfglib, registry, serve, fa_ops, pa_ops, "qwen3-0.3b",
+                     int8=True)
+    spec_zerol(cfglib, registry, "qwen3-0.3b")
+    print(f"qwen3 serving phase {time.perf_counter() - t0:.1f} s")
+
+    # 25. mixtral-0.3b: a few training steps through one expansion, then
+    # phase 6's traffic over paged KV
+    t0 = time.perf_counter()
+    rope_train_path(cfglib, train, "mixtral-0.3b", MIXTRAL_TRAIN_ARGV)
+    rope_serve_paths(cfglib, registry, serve, fa_ops, pa_ops, "mixtral-0.3b")
+    print(f"mixtral phase {time.perf_counter() - t0:.1f} s")
+
+    # 26. starcoder2-3b at full size over paged KV (the paged kernel at
+    # G = 12, hd 128), then card against CPU at depth 2 (flash's prefill at
+    # G = 12, and three paged requests)
+    t0 = time.perf_counter()
+    g12_launches, _, _ = rope_serve_paths(cfglib, registry, serve, fa_ops,
+                                          pa_ops, "starcoder2-3b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_vs_cpu(cfglib, registry, ServeEngine, fa_ops, "starcoder2-3b", 2)
+    paged_card_vs_cpu(cfglib, registry, "starcoder2-3b", 2)
+    print(f"starcoder2 phase {time.perf_counter() - t0:.1f} s")
+
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2474,9 +2651,12 @@ def main() -> int:
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
                    "paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:97",
-         "launches": paged_launches, "spec_path_launches": 0,
-         "max_abs_err": paged_errs["float32"],
-         **tp, "quantized": quantized, **pa_call,
+         "launches": g12_launches, "max_abs_err": paged_errs["float32 G12"],
+         "shape": "starcoder2-3b decode: B=8 H=24 KV=2 hd=128 bs=16 "
+                  "cursors 575, f32 pages, L2 flushed", **t_g12,
+         "gpt2_12l": {"launches": paged_launches, "spec_path_launches": 0,
+                      "max_abs_err": paged_errs["float32"], **tp, **pa_call},
+         "quantized": quantized,
          "registers_spills": [list(r) for r in pa_regs]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"

@@ -1,5 +1,7 @@
-"""Config registry of the port: the paper's GPT2 family, ``rwkv6-7b`` and
-``jamba-v0.1-52b``.
+"""Config registry of the port: the paper's GPT2 family and its RoPE
+testbeds (``llama3-0.3b``, ``qwen3-0.3b``, ``mixtral-0.3b``), ``yi-34b``,
+``starcoder2-3b``, ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``,
+``rwkv6-7b`` and ``jamba-v0.1-52b``.
 
 ``get_config(name)`` returns the full-scale config; ``get_smoke_config``
 the reduced same-family config the CPU tests run (the reference's
@@ -15,25 +17,33 @@ from repro_torch.configs.base import ModelConfig
 
 # What each architecture of the reference registry still waits for.
 _WAITS_FOR = {
-    "gemma2-9b": "RoPE (queue A items 2-3), sliding-window and softcapped "
-                 "attention (item 12)",
-    "gemma3-12b": "RoPE and qk-norm (queue A items 2-3), sliding-window "
-                  "layers (item 12)",
-    "yi-34b": "RoPE (queue A items 2-3)",
-    "starcoder2-3b": "RoPE (queue A items 2-3)",
+    "gemma2-9b": "sliding-window and softcapped attention with ring caches "
+                 "(queue A item 12)",
+    "gemma3-12b": "sliding-window layers with ring caches (queue A item 12)",
     "whisper-base": "the encoder-decoder model and its audio frontend "
                     "(queue A item 12)",
     "qwen2-vl-2b": "M-RoPE and frontend embeds (queue A item 12)",
-    "moonshot-v1-16b-a3b": "RoPE (queue A items 2-3) under its MoE "
-                           "feed-forward",
-    "deepseek-moe-16b": "RoPE (queue A items 2-3) under its MoE "
-                        "feed-forward",
-    "llama3-0.3b": "RoPE (queue A items 2-3)",
-    "qwen3-0.3b": "RoPE and qk-norm (queue A items 2-3)",
-    "mixtral-0.3b": "RoPE (queue A items 2-3) under its MoE feed-forward",
-    "deepseekv3-0.3b": "MLA (queue A item 12) and RoPE (items 2-3) under "
-                       "its MoE feed-forward",
+    "deepseekv3-0.3b": "MLA latent attention (queue A item 12)",
 }
+
+# The registry modules the port carries, by architecture name.
+_MODULES = {
+    "rwkv6-7b": "rwkv6_7b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
+    "yi-34b": "yi_34b",
+    "starcoder2-3b": "starcoder2_3b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+}
+
+# Every name ``get_config`` takes besides ``gpt2-*``: the registry
+# architectures above and the paper's testbeds.
+PORTED_ARCHS = tuple(_MODULES) + ("llama3-0.3b", "qwen3-0.3b",
+                                  "mixtral-0.3b")
+# The launchers' --arch help.
+ARCH_HELP = ("gpt2-*, " + ", ".join(PORTED_ARCHS) + "; not yet: "
+             + "; ".join(f"{name}, waiting for {what}"
+                         for name, what in _WAITS_FOR.items()))
 
 
 def get_config(name: str) -> ModelConfig:
@@ -41,12 +51,14 @@ def get_config(name: str) -> ModelConfig:
         from repro_torch.configs.gpt2 import gpt2
         layers = int(name.split("-")[1][:-1]) if "-" in name else 12
         return gpt2(layers)
-    if name == "rwkv6-7b":
-        from repro_torch.configs.rwkv6_7b import CONFIG
-        return CONFIG
-    if name == "jamba-v0.1-52b":
-        from repro_torch.configs.jamba_v01_52b import CONFIG
-        return CONFIG
+    if name not in _WAITS_FOR:
+        from repro_torch.configs.paper_testbeds import PAPER_TESTBEDS
+        if name in PAPER_TESTBEDS:
+            return PAPER_TESTBEDS[name]
+        if name in _MODULES:
+            import importlib
+            return importlib.import_module(
+                f"repro_torch.configs.{_MODULES[name]}").CONFIG
     raise NotImplementedError(
         f"ROADMAP: {name} is not ported yet; it waits for "
         f"{_WAITS_FOR.get(name, 'its queue A item')}")

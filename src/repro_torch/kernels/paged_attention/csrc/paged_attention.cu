@@ -11,7 +11,7 @@
 // Scores are q·k with q pre-scaled by 1/sqrt(hd), then
 // softcap·tanh(s/softcap), then the mask (NEG_INF = -1e30); online softmax
 // in f32; the output is acc / max(l, 1e-30) in q's dtype.  GQA: the
-// G = H/KV <= 8 query heads of one kv head share every page read.  q is f32
+// G = H/KV query heads of one kv head, any G, share every page read.  q is f32
 // or bf16, pages f32, bf16, int8 or fp8 e4m3; int8/fp8 pages come with one
 // f32 scale per (slot, kv head) in scale pages (NP,bs,KV,1), read through
 // the same table entry, and each value is dequantized in registers as
@@ -71,6 +71,19 @@
 //    are dropped): no loop over heads branches, so the compiler
 //    interleaves the tile's independent chains.  Reductions run in a fixed
 //    order, so repeated calls give identical bits.
+//    G > 8 (starcoder2-3b's 24 query heads over 2 kv heads: G = 12) takes
+//    head blocks of 8 (MB): a warp runs the scores, softmax and P·V of
+//    each block in turn over the tile it holds in shared memory, so the
+//    pages are still read once for all G heads.  A GM = 16 accumulator
+//    would not fit the registers beside the scores (GM = 8 already takes
+//    ~130), so a block's running (m, l, acc) waits in shared memory
+//    between tiles: the tile's P·V goes into a fresh acc, summed over the
+//    token groups, and is folded in as acc · alpha + tile.  That costs
+//    each block one 16-byte read and write of its acc a lane per tile and
+//    the K dequantization once per block.  Shared memory bounds G: q, the
+//    warps' and ranks' accumulators take 6·G·hd f32 beside the rings, so
+//    over 1024 pages hd 128 serves G up to 54 and hd 64 up to 104; past
+//    that cudaFuncSetAttribute refuses the launch and its error returns.
 // 5. The merge on chip.  Each warp leaves (m, l, acc[G][hd]) in shared
 //    memory and the CTA merges its 4 warps in warp order.  With n_split = 1
 //    that is the output.  Otherwise rank r owns a fixed slice of the G·hd
@@ -113,7 +126,7 @@ namespace {
 
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = 32 * NWARPS;
-constexpr int MAXG = 8;            // query heads per kv head
+constexpr int MAXG = 8;            // query heads a head block carries
 constexpr int MAX_CLUSTER = 8;     // the portable cluster size
 constexpr int STAGES = 3;          // ring depth of each warp
 constexpr int TILE_BYTES = 2048;   // K bytes of one warp tile (V the same)
@@ -122,7 +135,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Tile geometry of one instantiation: page dtype code KVC (0 f32, 1 bf16,
-// 2 int8, 3 fp8 e4m3), head dim HD and heads carried GM (1 or 8).
+// 2 int8, 3 fp8 e4m3), head dim HD and heads a block carries GM (1 or 8).
 template <int KVC, int HD, int GM>
 struct Shape {
   static constexpr int ES = KVC == 0 ? 4 : KVC == 1 ? 2 : 1;  // bytes
@@ -141,13 +154,26 @@ struct Shape {
                     TW % TGP == 0, "tile");
 };
 
-// Dynamic shared memory: the warps' rings, q (GM·HD f32), the warps'
+// Heads of q held in shared memory (G padded to whole head blocks of GM)
+// and the stride of the per-head (m, l) arrays: GM for G <= GM, where the
+// heads past G run on a zero q, else G.
+__host__ __device__ constexpr int q_heads(int G, int GM) {
+  return (G + GM - 1) / GM * GM;
+}
+__host__ __device__ constexpr int head_stride(int G, int GM, bool MB) {
+  return MB ? G : GM;
+}
+
+// Dynamic shared memory: the warps' rings, q (q_heads·HD f32), the warps'
 // accumulators (4·G·HD f32), the ranks' parts of this CTA's output slice
-// (G·HD + 8 f32), then the row's block table (NB ints).
-template <int KVC, int HD, int GM>
+// (G·HD + 8 f32), the warps' (m, l) and merge weights (3·4 per head), the
+// ranks' (m, l) (2·8 per head), then the row's block table (NB ints).
+template <int KVC, int HD, int GM, bool MB>
 size_t smem_bytes(int G, int NB) {
+  const size_t GS = head_stride(G, GM, MB);
   return (size_t)NWARPS * STAGES * Shape<KVC, HD, GM>::STAGE +
-         ((size_t)(GM + (NWARPS + 1) * G) * HD + MAX_CLUSTER) * sizeof(float) +
+         ((size_t)(q_heads(G, GM) + (NWARPS + 1) * G) * HD + MAX_CLUSTER +
+          (3 * NWARPS + 2 * MAX_CLUSTER) * GS) * sizeof(float) +
          (size_t)NB * sizeof(int);
 }
 
@@ -253,11 +279,126 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// Scores of one tile's tokens for GM heads, softcapped and masked past t1:
+// s[i][g] for token i·TGS + tg of the tile.  q is read from qb in shared
+// memory (f32, pre-scaled), or for GM = 1 from the lane's chunk in q_reg.
+template <int KVC, int HD, int GM>
+__device__ __forceinline__ void tile_scores(
+    float (&s)[Shape<KVC, HD, GM>::SUB][GM], const unsigned char* st,
+    const float* qb, const float (&q_reg)[GM == 1 ? Shape<KVC, HD, GM>::CW : 1],
+    int tg, int col, int tbase, int t1, float softcap) {
+  using S = Shape<KVC, HD, GM>;
+  constexpr int LPT = S::LPT, TGS = S::TGS, SUB = S::SUB, CW = S::CW;
+  const float* k_scale = reinterpret_cast<const float*>(st + 2 * TILE_BYTES);
+#pragma unroll
+  for (int i = 0; i < SUB; ++i) {
+    const int r = i * TGS + tg;
+    float k[CW];
+    load_f32<KVC, CW>(st + r * S::ROW + col * 16, k);
+    if constexpr (S::QUANT) {
+      const float sk = k_scale[r];
+#pragma unroll
+      for (int e = 0; e < CW; ++e) k[e] *= sk;
+    }
+    const bool valid = tbase + r < t1;
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float dot = 0.f;
+      if constexpr (GM == 1) {
+#pragma unroll
+        for (int e = 0; e < CW; ++e) dot = fmaf(q_reg[e], k[e], dot);
+      } else {
+        const float* qg = qb + g * HD + col * CW;
+#pragma unroll
+        for (int e = 0; e < CW; e += 4) {
+          const float4 qq = *reinterpret_cast<const float4*>(qg + e);
+          dot = fmaf(qq.x, k[e], dot);
+          dot = fmaf(qq.y, k[e + 1], dot);
+          dot = fmaf(qq.z, k[e + 2], dot);
+          dot = fmaf(qq.w, k[e + 3], dot);
+        }
+      }
+#pragma unroll
+      for (int off = LPT / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(FULL, dot, off);
+      if (softcap > 0.f) dot = softcap * tanhf(dot / softcap);
+      s[i][g] = valid ? dot : NEG_INF;
+    }
+  }
+}
+
+// The token-group leaders (col 0) publish the tile's softmax weights s into
+// the warp's p (p_s[warp]), token-major.
+template <int KVC, int HD, int GM>
+__device__ __forceinline__ void publish_p(
+    float (*p)[GM], const float (&s)[Shape<KVC, HD, GM>::SUB][GM], int tg,
+    int col) {
+  using S = Shape<KVC, HD, GM>;
+  if (col != 0) return;
+#pragma unroll
+  for (int i = 0; i < S::SUB; ++i) {
+    float* dst = &p[i * S::TGS + tg][0];
+    if constexpr (GM == 1) {
+      dst[0] = s[i][0];
+    } else {
+#pragma unroll
+      for (int g = 0; g < GM; g += 4)
+        *reinterpret_cast<float4*>(dst + g) =
+            make_float4(s[i][g], s[i][g + 1], s[i][g + 2], s[i][g + 3]);
+    }
+  }
+}
+
+// acc += P·V over the tile's tokens: the lane's DPV dims of its P·V token
+// group, the weights broadcast from the warp's p.
+template <int KVC, int HD, int GM>
+__device__ __forceinline__ void tile_pv(float (&acc)[GM][4],
+                                        const unsigned char* st,
+                                        const float (*p)[GM], int vt, int vc) {
+  using S = Shape<KVC, HD, GM>;
+  constexpr int TW = S::TW, DPV = S::DPV, TGP = S::TGP;
+  static_assert(DPV == 4, "4 dims a lane");
+  const float* v_scale =
+      reinterpret_cast<const float*>(st + 2 * TILE_BYTES) + TW;
+#pragma unroll
+  for (int jj = 0; jj < TW / TGP; ++jj) {
+    const int r = jj * TGP + vt;
+    float v[DPV];
+    load_f32<KVC, DPV>(st + TILE_BYTES + r * S::ROW + vc * DPV * S::ES, v);
+    if constexpr (S::QUANT) {
+      const float sv = v_scale[r];
+#pragma unroll
+      for (int e = 0; e < DPV; ++e) v[e] *= sv;
+    }
+    float pr[GM];
+    if constexpr (GM == 1) {
+      pr[0] = p[r][0];
+    } else {
+#pragma unroll
+      for (int g = 0; g < GM; g += 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(&p[r][g]);
+        pr[g] = p4.x; pr[g + 1] = p4.y; pr[g + 2] = p4.z; pr[g + 3] = p4.w;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int e = 0; e < DPV; ++e) acc[g][e] = fmaf(pr[g], v[e], acc[g][e]);
+  }
+}
+
 // Grid (n_split, KV, B), cluster (n_split, 1, 1), NTHREADS threads.  GM is
-// 1 (G = 1) or 8 (G = 2..8, the heads past G computed on a zero q and
-// dropped), so that no loop over the heads branches.
-template <typename QT, int KVC, int HD, int GM>
-__global__ void __launch_bounds__(NTHREADS)
+// 1 (G = 1) or 8.  MB false (G <= 8): the heads past G run on a zero q and
+// are dropped, so that no loop over the heads branches, and a warp keeps
+// its (m, l, acc) in registers.  MB true (G > 8): a warp walks the G heads
+// in head blocks of 8 over each tile it holds in shared memory, so every
+// page is still read once for all G heads; a block's running (m, l, acc)
+// waits in shared memory (part_m, part_l, part_acc) between tiles, and the
+// heads past G of the last block are dropped.
+// One CTA an SM is all the launch needs (minBlocks 1): without it ptxas
+// capped the head-block entries at 96-128 registers and spilled.
+template <typename QT, int KVC, int HD, int GM, bool MB>
+__global__ void __launch_bounds__(NTHREADS, 1)
 paged_decode_kernel(const QT* __restrict__ q,
                     const unsigned char* __restrict__ kp,
                     const unsigned char* __restrict__ vp,
@@ -268,17 +409,22 @@ paged_decode_kernel(const QT* __restrict__ q,
                     float softcap, float scale) {
   using S = Shape<KVC, HD, GM>;
   constexpr int TW = S::TW, LPT = S::LPT, TGS = S::TGS, SUB = S::SUB;
-  constexpr int CW = S::CW, DPV = S::DPV, LPV = S::LPV, TGP = S::TGP;
+  constexpr int CW = S::CW, DPV = S::DPV, LPV = S::LPV;
   constexpr int ROW = S::ROW, STAGE = S::STAGE;
+  static_assert(!MB || GM > 1, "head blocks of GM > 1 heads");
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(16) float p_s[NWARPS][32][GM];   // softmax weights
-  __shared__ float part_m[NWARPS][GM], part_l[NWARPS][GM], wt_s[NWARPS][GM];
-  __shared__ float recv_m[MAX_CLUSTER][GM], recv_l[MAX_CLUSTER][GM];
+  const int GS = head_stride(G, GM, MB), GQ = q_heads(G, GM);
   float* q_s = reinterpret_cast<float*>(smem + NWARPS * STAGES * STAGE);
-  float* part_acc = q_s + GM * HD;              // the warps' acc, G x HD each
+  float* part_acc = q_s + GQ * HD;              // the warps' acc, G x HD each
   float* recv_acc = part_acc + NWARPS * G * HD; // the ranks' acc of my slice
-  int* tbl_s = reinterpret_cast<int*>(recv_acc + G * HD + MAX_CLUSTER);
+  float* part_m = recv_acc + G * HD + MAX_CLUSTER;   // [warp * GS + g]
+  float* part_l = part_m + NWARPS * GS;
+  float* wt_s = part_l + NWARPS * GS;
+  float* recv_m = wt_s + NWARPS * GS;                // [rank * GS + g]
+  float* recv_l = recv_m + MAX_CLUSTER * GS;
+  int* tbl_s = reinterpret_cast<int*>(recv_l + MAX_CLUSTER * GS);
 
   const int n_split = gridDim.x, rank = blockIdx.x;
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -291,8 +437,15 @@ paged_decode_kernel(const QT* __restrict__ q,
   for (int i = tid; i < NB; i += NTHREADS)
     tbl_s[i] = table[(size_t)b * NB + i];
   const size_t head0 = (size_t)b * H + (size_t)kvh * G;
-  for (int i = tid; i < GM * HD; i += NTHREADS)
+  for (int i = tid; i < GQ * HD; i += NTHREADS)
     q_s[i] = i < G * HD ? to_f32(q[head0 * HD + i]) * scale : 0.f;
+  if constexpr (MB) {            // every warp's running state, empty
+    for (int i = tid; i < NWARPS * G; i += NTHREADS) {
+      part_m[i] = NEG_INF;
+      part_l[i] = 0.f;
+    }
+    for (int i = tid; i < NWARPS * G * HD; i += NTHREADS) part_acc[i] = 0.f;
+  }
   // This rank's share of the row's live pages, and its tokens [t0, t1).
   const int live = (int)min(max(cur + 1, 0LL), (long long)NB * bs);
   const int live_pages = (live + bs - 1) / bs;
@@ -347,13 +500,15 @@ paged_decode_kernel(const QT* __restrict__ q,
     }
   };
 
-  float acc[GM][DPV], m[GM], l[GM];
+  float acc[MB ? 1 : GM][DPV], m[MB ? 1 : GM], l[MB ? 1 : GM];
+  if constexpr (!MB) {
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
+    for (int g = 0; g < GM; ++g) {
+      m[g] = NEG_INF;
+      l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < DPV; ++e) acc[g][e] = 0.f;
+      for (int e = 0; e < DPV; ++e) acc[g][e] = 0.f;
+    }
   }
 
 #pragma unroll
@@ -367,136 +522,136 @@ paged_decode_kernel(const QT* __restrict__ q,
     cp_async_wait<STAGES - 1>();
     __syncwarp();
     const unsigned char* st = ring + (j % STAGES) * STAGE;
-    const float* k_scale = reinterpret_cast<const float*>(st + 2 * TILE_BYTES);
     const int tbase = t0 + (warp + NWARPS * j) * TW;
 
-    // Scores of the tile's tokens for every head, softcapped and masked.
-    float s[SUB][GM];
-#pragma unroll
-    for (int i = 0; i < SUB; ++i) {
-      const int r = i * TGS + tg;
-      float k[CW];
-      load_f32<KVC, CW>(st + r * ROW + col * 16, k);
-      if constexpr (S::QUANT) {
-        const float sk = k_scale[r];
-#pragma unroll
-        for (int e = 0; e < CW; ++e) k[e] *= sk;
-      }
-      const bool valid = tbase + r < t1;
+    if constexpr (!MB) {
+      // Scores of the tile's tokens for every head, then the online
+      // softmax: s becomes p; the token-group leaders keep l and publish p.
+      float s[SUB][GM];
+      tile_scores<KVC, HD, GM>(s, st, q_s, q_reg, tg, col, tbase, t1,
+                               softcap);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        float dot = 0.f;
-        if constexpr (GM == 1) {
+        float mx = fmaxf(fmaxf(s[0][g], s[1][g]), fmaxf(s[2][g], s[3][g]));
 #pragma unroll
-          for (int e = 0; e < CW; ++e) dot = fmaf(q_reg[e], k[e], dot);
-        } else {
-          const float* qg = q_s + g * HD + col * CW;
+        for (int off = 16; off >= LPT; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+        const float m_new = fmaxf(m[g], mx);
+        const float alpha = ex2((m[g] - m_new) * LOG2E);
+        m[g] = m_new;
+        float sum = 0.f;
 #pragma unroll
-          for (int e = 0; e < CW; e += 4) {
-            const float4 qq = *reinterpret_cast<const float4*>(qg + e);
-            dot = fmaf(qq.x, k[e], dot);
-            dot = fmaf(qq.y, k[e + 1], dot);
-            dot = fmaf(qq.z, k[e + 2], dot);
-            dot = fmaf(qq.w, k[e + 3], dot);
+        for (int i = 0; i < SUB; ++i) {
+          s[i][g] = ex2((s[i][g] - m_new) * LOG2E);
+          sum += s[i][g];
+        }
+        l[g] = l[g] * alpha + (col == 0 ? sum : 0.f);
+#pragma unroll
+        for (int e = 0; e < DPV; ++e) acc[g][e] *= alpha;
+      }
+      publish_p<KVC, HD, GM>(p_s[warp], s, tg, col);
+      __syncwarp();
+      tile_pv<KVC, HD, GM>(acc, st, p_s[warp], vt, vc);
+      __syncwarp();               // the slot and p_s are rewritten next
+    } else {
+      // Head block by head block over the same tile in shared memory.  The
+      // block's (m, l) are warp-uniform; the tile's P·V goes into a fresh
+      // acc, summed over the token groups and folded into the block's
+      // running acc in shared memory as acc · alpha + tile.
+#pragma unroll 1
+      for (int h0 = 0; h0 < GQ; h0 += GM) {
+        float s[SUB][GM];
+        tile_scores<KVC, HD, GM>(s, st, q_s + h0 * HD, q_reg, tg, col, tbase,
+                                 t1, softcap);
+        float m_new[GM], l_new[GM], alpha[GM];
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          float mx = fmaxf(fmaxf(s[0][g], s[1][g]), fmaxf(s[2][g], s[3][g]));
+#pragma unroll
+          for (int off = 16; off >= LPT; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+          const bool head = h0 + g < G;
+          const float m_old = head ? part_m[warp * G + h0 + g] : NEG_INF;
+          const float l_old = head ? part_l[warp * G + h0 + g] : 0.f;
+          m_new[g] = fmaxf(m_old, mx);
+          alpha[g] = ex2((m_old - m_new[g]) * LOG2E);
+          float sum = 0.f;
+#pragma unroll
+          for (int i = 0; i < SUB; ++i) {
+            s[i][g] = ex2((s[i][g] - m_new[g]) * LOG2E);
+            sum += s[i][g];
+          }
+#pragma unroll
+          for (int off = 16; off >= LPT; off >>= 1)
+            sum += __shfl_xor_sync(FULL, sum, off);
+          l_new[g] = l_old * alpha[g] + sum;
+        }
+        __syncwarp();             // every lane has read the block's (m, l)
+        if (lane == 0) {
+#pragma unroll
+          for (int g = 0; g < GM; ++g)
+            if (h0 + g < G) {
+              part_m[warp * G + h0 + g] = m_new[g];
+              part_l[warp * G + h0 + g] = l_new[g];
+            }
+        }
+        publish_p<KVC, HD, GM>(p_s[warp], s, tg, col);
+        __syncwarp();             // p published
+        float tile[GM][DPV];
+#pragma unroll
+        for (int g = 0; g < GM; ++g)
+#pragma unroll
+          for (int e = 0; e < DPV; ++e) tile[g][e] = 0.f;
+        tile_pv<KVC, HD, GM>(tile, st, p_s[warp], vt, vc);
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+#pragma unroll
+          for (int off = 16; off >= LPV; off >>= 1)
+#pragma unroll
+            for (int e = 0; e < DPV; ++e)
+              tile[g][e] += __shfl_xor_sync(FULL, tile[g][e], off);
+          if (h0 + g < G && lane < LPV) {
+            float4* a = reinterpret_cast<float4*>(
+                &part_acc[(warp * G + h0 + g) * HD + vc * DPV]);
+            float4 o = *a;
+            o.x = fmaf(o.x, alpha[g], tile[g][0]);
+            o.y = fmaf(o.y, alpha[g], tile[g][1]);
+            o.z = fmaf(o.z, alpha[g], tile[g][2]);
+            o.w = fmaf(o.w, alpha[g], tile[g][3]);
+            *a = o;
           }
         }
-#pragma unroll
-        for (int off = LPT / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(FULL, dot, off);
-        if (softcap > 0.f) dot = softcap * tanhf(dot / softcap);
-        s[i][g] = valid ? dot : NEG_INF;
+        __syncwarp();             // p_s and the state are rewritten next
       }
     }
-
-    // Online softmax: s becomes p; the token-group leaders keep l and
-    // publish p.
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      float mx = fmaxf(fmaxf(s[0][g], s[1][g]), fmaxf(s[2][g], s[3][g]));
-#pragma unroll
-      for (int off = 16; off >= LPT; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-      const float m_new = fmaxf(m[g], mx);
-      const float alpha = ex2((m[g] - m_new) * LOG2E);
-      m[g] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < SUB; ++i) {
-        s[i][g] = ex2((s[i][g] - m_new) * LOG2E);
-        sum += s[i][g];
-      }
-      l[g] = l[g] * alpha + (col == 0 ? sum : 0.f);
-#pragma unroll
-      for (int e = 0; e < DPV; ++e) acc[g][e] *= alpha;
-    }
-    if (col == 0) {
-#pragma unroll
-      for (int i = 0; i < SUB; ++i) {
-        float* dst = &p_s[warp][i * TGS + tg][0];
-        if constexpr (GM == 1) {
-          dst[0] = s[i][0];
-        } else {
-#pragma unroll
-          for (int g = 0; g < GM; g += 4)
-            *reinterpret_cast<float4*>(dst + g) =
-                make_float4(s[i][g], s[i][g + 1], s[i][g + 2], s[i][g + 3]);
-        }
-      }
-    }
-    __syncwarp();
-
-    // P·V over the tile's tokens.
-    const float* v_scale = k_scale + TW;
-#pragma unroll
-    for (int jj = 0; jj < TW / TGP; ++jj) {
-      const int r = jj * TGP + vt;
-      float v[DPV];
-      load_f32<KVC, DPV>(st + TILE_BYTES + r * ROW + vc * DPV * S::ES, v);
-      if constexpr (S::QUANT) {
-        const float sv = v_scale[r];
-#pragma unroll
-        for (int e = 0; e < DPV; ++e) v[e] *= sv;
-      }
-      float pr[GM];
-      if constexpr (GM == 1) {
-        pr[0] = p_s[warp][r][0];
-      } else {
-#pragma unroll
-        for (int g = 0; g < GM; g += 4) {
-          const float4 p4 = *reinterpret_cast<const float4*>(&p_s[warp][r][g]);
-          pr[g] = p4.x; pr[g + 1] = p4.y; pr[g + 2] = p4.z; pr[g + 3] = p4.w;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < GM; ++g)
-#pragma unroll
-        for (int e = 0; e < DPV; ++e) acc[g][e] = fmaf(pr[g], v[e], acc[g][e]);
-    }
-    __syncwarp();                 // the slot and p_s are rewritten next
   }
 
-  // The warp's partial state: l summed over the leaders, acc over the
-  // P·V token groups (xor butterflies: every lane ends with the same bits).
+  if constexpr (!MB) {
+    // The warp's partial state: l summed over the leaders, acc over the
+    // P·V token groups (xor butterflies: every lane ends with the same
+    // bits).
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
+    for (int g = 0; g < GM; ++g) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      l[g] += __shfl_xor_sync(FULL, l[g], off);
+      for (int off = 16; off > 0; off >>= 1)
+        l[g] += __shfl_xor_sync(FULL, l[g], off);
 #pragma unroll
-    for (int off = 16; off >= LPV; off >>= 1)
+      for (int off = 16; off >= LPV; off >>= 1)
 #pragma unroll
-      for (int e = 0; e < DPV; ++e)
-        acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
-    if (g < G && lane < LPV) {
+        for (int e = 0; e < DPV; ++e)
+          acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
+      if (g < G && lane < LPV) {
 #pragma unroll
-      for (int e = 0; e < DPV; e += 4)
-        *reinterpret_cast<float4*>(
-            &part_acc[(warp * G + g) * HD + vc * DPV + e]) =
-            make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2], acc[g][e + 3]);
-    }
-    if (lane == 0) {
-      part_m[warp][g] = m[g];
-      part_l[warp][g] = l[g];
+        for (int e = 0; e < DPV; e += 4)
+          *reinterpret_cast<float4*>(
+              &part_acc[(warp * G + g) * HD + vc * DPV + e]) =
+              make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2],
+                          acc[g][e + 3]);
+      }
+      if (lane == 0) {
+        part_m[warp * GS + g] = m[g];
+        part_l[warp * GS + g] = l[g];
+      }
     }
   }
   __syncthreads();
@@ -510,20 +665,19 @@ paged_decode_kernel(const QT* __restrict__ q,
   const int E = G * HD, per = (E + n_split - 1) / n_split;
   cg::cluster_group cluster = cg::this_cluster();
   if (n_split > 1) cluster_wait();
-  if (tid < G) {
-    const int g = tid;
+  for (int g = tid; g < G; g += NTHREADS) {
     float M = NEG_INF, L = 0.f;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, part_m[w][g]);
+    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, part_m[w * GS + g]);
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) {
-      wt_s[w][g] = ex2((part_m[w][g] - M) * LOG2E);
-      L = fmaf(part_l[w][g], wt_s[w][g], L);
+      wt_s[w * GS + g] = ex2((part_m[w * GS + g] - M) * LOG2E);
+      L = fmaf(part_l[w * GS + g], wt_s[w * GS + g], L);
     }
-    if (n_split == 1) recv_l[0][g] = L;
+    if (n_split == 1) recv_l[g] = L;
     for (int r = 0; r < n_split && n_split > 1; ++r) {
-      *cluster.map_shared_rank(&recv_m[rank][g], r) = M;
-      *cluster.map_shared_rank(&recv_l[rank][g], r) = L;
+      *cluster.map_shared_rank(&recv_m[rank * GS + g], r) = M;
+      *cluster.map_shared_rank(&recv_l[rank * GS + g], r) = L;
     }
   }
   __syncthreads();
@@ -532,9 +686,9 @@ paged_decode_kernel(const QT* __restrict__ q,
     float o = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w)
-      o = fmaf(part_acc[w * G * HD + e], wt_s[w][g], o);
+      o = fmaf(part_acc[w * G * HD + e], wt_s[w * GS + g], o);
     if (n_split == 1) {
-      store_f32(out + head0 * HD + e, o / fmaxf(recv_l[0][g], 1e-30f));
+      store_f32(out + head0 * HD + e, o / fmaxf(recv_l[g], 1e-30f));
     } else {
       const int own = e / per;
       *cluster.map_shared_rank(&recv_acc[rank * per + e - own * per], own) = o;
@@ -547,11 +701,11 @@ paged_decode_kernel(const QT* __restrict__ q,
   for (int e = e0 + tid; e < e1; e += NTHREADS) {
     const int g = e / HD;
     float M = NEG_INF;
-    for (int r = 0; r < n_split; ++r) M = fmaxf(M, recv_m[r][g]);
+    for (int r = 0; r < n_split; ++r) M = fmaxf(M, recv_m[r * GS + g]);
     float L = 0.f, o = 0.f;
     for (int r = 0; r < n_split; ++r) {
-      const float wt = ex2((recv_m[r][g] - M) * LOG2E);
-      L = fmaf(recv_l[r][g], wt, L);
+      const float wt = ex2((recv_m[r * GS + g] - M) * LOG2E);
+      L = fmaf(recv_l[r * GS + g], wt, L);
       o = fmaf(recv_acc[r * per + e - e0], wt, o);
     }
     store_f32(out + head0 * HD + e, o / fmaxf(L, 1e-30f));
@@ -572,10 +726,10 @@ struct Args {
   int* max_clusters;    // non-null: report the occupancy, launch nothing
 };
 
-template <typename QT, int KVC, int HD, int GM>
+template <typename QT, int KVC, int HD, int GM, bool MB>
 cudaError_t launch(const Args& a) {
-  const size_t smem = smem_bytes<KVC, HD, GM>(a.G, a.NB);
-  auto kern = paged_decode_kernel<QT, KVC, HD, GM>;
+  const size_t smem = smem_bytes<KVC, HD, GM, MB>(a.G, a.NB);
+  auto kern = paged_decode_kernel<QT, KVC, HD, GM, MB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
@@ -607,12 +761,18 @@ cudaError_t launch(const Args& a) {
   return err;
 }
 
+// G = 1, G = 2..8 (one head block), G > 8 (head blocks of 8 a tile).
+template <typename QT, int KVC, int HD>
+cudaError_t dispatch_g(const Args& a) {
+  if (a.G == 1) return launch<QT, KVC, HD, 1, false>(a);
+  if (a.G <= MAXG) return launch<QT, KVC, HD, MAXG, false>(a);
+  return launch<QT, KVC, HD, MAXG, true>(a);
+}
+
 template <typename QT, int KVC>
 cudaError_t dispatch_hd(int hd, const Args& a) {
-  if (hd == 64)
-    return a.G == 1 ? launch<QT, KVC, 64, 1>(a) : launch<QT, KVC, 64, 8>(a);
-  if (hd == 128)
-    return a.G == 1 ? launch<QT, KVC, 128, 1>(a) : launch<QT, KVC, 128, 8>(a);
+  if (hd == 64) return dispatch_g<QT, KVC, 64>(a);
+  if (hd == 128) return dispatch_g<QT, KVC, 128>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -647,7 +807,7 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    void* stream, int* max_clusters) {
   const bool quant = kv_dtype == 2 || kv_dtype == 3;
   if (B <= 0 || B > 65535 || H <= 0 || KV <= 0 || KV > 65535 ||
-      H % KV != 0 || H / KV > MAXG || bs <= 0 || NB <= 0 || n_split < 1 ||
+      H % KV != 0 || bs <= 0 || NB <= 0 || n_split < 1 ||
       n_split > MAX_CLUSTER ||
       (unsigned long long)NB * bs * bs >= (1ull << 32) || q_dtype < 0 ||
       q_dtype > 1 || kv_dtype < 0 || kv_dtype > 3 || index_dtype < 0 ||

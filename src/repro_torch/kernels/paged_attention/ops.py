@@ -35,7 +35,6 @@ from repro_torch.kernels.paged_attention import ref
 KERNEL_LAUNCHES = 0
 
 KERNEL_HEAD_DIMS = (64, 128)
-MAX_GROUP = 8                     # query heads per kv head (MAXG in the .cu)
 MAX_CLUSTER = 8                   # the portable thread-block cluster size
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -126,12 +125,14 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, index, *,
     kernel does not take: non-CUDA or mixed devices, q other than
     float32/bfloat16, pages other than float32/bfloat16/int8/fp8 (the
     1-byte pages with float32 scale pages (NP, bs, KV, 1), the float pages
-    without), head dims other than 64/128, more than 8 query heads per kv
-    head, tables of NB pages with NB·bs·bs >= 2^32, non-contiguous or
-    misaligned inputs, or a refused launch (the C function's
-    ``cudaError_t``).  One call is one device kernel: no workspace, and no
-    cast of an int32 table or of an int32 or int64 cursor (the engine's
-    int64 cursor is read as it is; another integer dtype is cast)."""
+    without), head dims other than 64/128, tables of NB pages with
+    NB·bs·bs >= 2^32, non-contiguous or misaligned inputs, or a refused
+    launch (the C function's ``cudaError_t``: among others, G = H/KV query
+    heads per kv head and a table whose shared memory passes what a block
+    can use, which ``cudaFuncSetAttribute`` refuses).  One call is one
+    device kernel: no workspace, and no cast of an int32 table or of an
+    int32 or int64 cursor (the engine's int64 cursor is read as it is;
+    another integer dtype is cast)."""
     global KERNEL_LAUNCHES
     _check(q, k_pages, v_pages, block_table, index, k_scales, v_scales)
     B, _, H, hd = q.shape
@@ -162,9 +163,6 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table, index, *,
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"paged_attention kernel: head dim {hd} "
                          f"(built for {KERNEL_HEAD_DIMS})")
-    if H // KV > MAX_GROUP:
-        raise ValueError(f"paged_attention kernel: {H // KV} query heads per "
-                         f"kv head (at most {MAX_GROUP})")
     if NB * bs * bs >= 2 ** 32:
         raise ValueError(f"paged_attention kernel: {NB} pages of {bs} slots "
                          "(NB·bs·bs must stay below 2^32)")

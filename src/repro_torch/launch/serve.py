@@ -14,12 +14,17 @@ per-token decode, or continuous batching over a paged KV pool.
         --continuous --paged --max-batch 8 --requests 32 --prompt-len 512 \
         --gen 64 --rate 1000                           # paged, on the card
 
-``--arch`` takes ``gpt2-*``, ``rwkv6-7b`` and ``jamba-v0.1-52b``
-(``--smoke`` for the reduced config); RWKV6 and jamba serve batch to
+``--arch`` takes ``gpt2-*``, the paper's RoPE testbeds ``llama3-0.3b``,
+``qwen3-0.3b`` and ``mixtral-0.3b``, ``yi-34b``, ``starcoder2-3b``,
+``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``, ``rwkv6-7b`` and
+``jamba-v0.1-52b`` (``--smoke`` for the reduced config); the rest of the
+reference registry exits naming its ROADMAP item (windows, MLA, the
+encoder-decoder, M-RoPE: item 12).  RWKV6 and jamba serve batch to
 completion, their prefill through the WKV and selective-scan kernels on
-the card and their decode stepping the recurrent state.  ``jamba`` at
-full depth (32 layers, 206 GB of float32 weights) does not fit one card:
-serve a checkpoint of fewer layers.
+the card and their decode stepping the recurrent state.  Random weights
+that the card cannot hold are refused before they are drawn: ``yi-34b``
+(60 layers, ~138 GB of float32 weights) and ``jamba`` (32 layers, 206 GB)
+at full depth do not fit one card; serve a checkpoint of fewer layers.
 ``--checkpoint DIR`` serves a checkpoint the JAX ``ProgressiveTrainer``
 wrote: the params subtree is restored at the depth its manifest records.
 Without it the weights are random, drawn from ``--seed``.  Prompts are drawn
@@ -126,7 +131,7 @@ def main(argv=None):
     """Run the CLI; returns the timed run's ``GenerateResult``, or with
     ``--continuous`` the list of ``RequestResult``s."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gpt2-12l")
+    ap.add_argument("--arch", default="gpt2-12l", help=cfglib.ARCH_HELP)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--mesh", default="single",
                     help="only 'single' (mesh sharding: ROADMAP queue A "

@@ -74,7 +74,7 @@ def throughput_lines(step_times, tokens_per_step: int):
 def main(argv=None):
     """Run the CLI; returns the ``TrainResult``."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gpt2-12l")
+    ap.add_argument("--arch", default="gpt2-12l", help=cfglib.ARCH_HELP)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config for --arch")
     ap.add_argument("--source-layers", type=int, default=1)

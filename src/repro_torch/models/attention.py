@@ -27,14 +27,15 @@ from repro_torch.core import quant
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
-from repro_torch.models.common import apply_norm, dense_init, norm_init
+from repro_torch.models.common import (apply_norm, apply_rope, dense_init,
+                                       norm_init)
 
 _MLA = ("ROADMAP queue A item 12 (remaining architectures): MLA latent "
         "attention is not ported yet")
 _WINDOW = ("ROADMAP queue A item 12 (remaining architectures): sliding-window "
            "ring caches are not ported yet")
-_ROPE = ("ROADMAP queue A item 12 (remaining architectures): rotary position "
-         "encodings are not ported yet")
+_MROPE = ("ROADMAP queue A item 12 (remaining architectures): M-RoPE "
+          "(qwen2-vl) is not ported yet")
 
 
 def _is_mla(cfg: ModelConfig) -> bool:
@@ -114,9 +115,18 @@ def _qk_norm(p, cfg: ModelConfig, q, k):
     return q, k
 
 
-def _position_encode(cfg: ModelConfig, q, k, positions):
-    if cfg.position in ("rope", "mrope"):
-        raise NotImplementedError(_ROPE)
+def _position_encode(cfg: ModelConfig, q, k, positions, span: int = 0):
+    """RoPE at ``positions`` (B, S), the rotation table covering
+    ``max_seq_len``, the positions of a longer training sequence and
+    ``span``, the positions a cache holds (its slots, or its block
+    table's); a speculative round's positions past the cache clamp.  The
+    caches store the rotated keys, as the reference's do."""
+    if cfg.position == "mrope":
+        raise NotImplementedError(_MROPE)
+    if cfg.position == "rope":
+        n = max(cfg.max_seq_len, positions.shape[-1], span)
+        q = apply_rope(q, positions, cfg.rope_theta, n)
+        k = apply_rope(k, positions, cfg.rope_theta, n)
     # 'absolute' is added at the embedding layer; 'none' is a no-op.
     return q, k
 
@@ -130,7 +140,8 @@ def attn_apply(p, cfg: ModelConfig, x: torch.Tensor, positions, window: int,
     written token by token, and the return becomes ``(out, cache)``."""
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _qk_norm(p, cfg, q, k)
-    q, k = _position_encode(cfg, q, k, positions)
+    q, k = _position_encode(cfg, q, k, positions,
+                            0 if cache is None else cache["k"].shape[1])
     if cache is not None:
         _fill_cache(cache["k"], k)
         _fill_cache(cache["v"], v)
@@ -182,7 +193,8 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, cache,
     bidx = torch.arange(B, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x)
     q, k_new = _qk_norm(p, cfg, q, k_new)
-    q, k_new = _position_encode(cfg, q, k_new, positions)
+    q, k_new = _position_encode(cfg, q, k_new, positions,
+                                cache["k"].shape[1])
 
     k_buf, v_buf = cache["k"], cache["v"]
     S = k_buf.shape[1]
@@ -225,8 +237,9 @@ def attn_decode_paged(p, cfg: ModelConfig, x: torch.Tensor, cache,
     bidx = torch.arange(B, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x)
     q, k_new = _qk_norm(p, cfg, q, k_new)
-    q, k_new = _position_encode(cfg, q, k_new, positions)
     bs = cache["k_pages"].shape[1]
+    q, k_new = _position_encode(cfg, q, k_new, positions,
+                                block_table.shape[1] * bs)
     trash = cache["k_pages"].shape[0] - 1
     page = block_table[bidx, cache_index // bs]
     if write_mask is not None:
@@ -258,9 +271,10 @@ def attn_prefill_chunk(p, cfg: ModelConfig, x: torch.Tensor, cache, ctx_len,
     B, C, _ = x.shape
     q, k_new, v_new = _project_qkv(p, cfg, x)
     q, k_new = _qk_norm(p, cfg, q, k_new)
-    q, k_new = _position_encode(cfg, q, k_new, positions)
     k_pages, v_pages = cache["k_pages"], cache["v_pages"]
     bs = k_pages.shape[1]
+    q, k_new = _position_encode(cfg, q, k_new, positions,
+                                block_table.shape[1] * bs)
     pos = ctx_len + torch.arange(C, device=x.device)       # (C,) slots
     page = block_table[:, pos // bs]                       # (B, C)
     off = (pos % bs)[None, :].expand(B, C)
@@ -307,9 +321,10 @@ def attn_verify_chunk(p, cfg: ModelConfig, x: torch.Tensor, cache, index,
     B, C, _ = x.shape
     q, k_new, v_new = _project_qkv(p, cfg, x)
     q, k_new = _qk_norm(p, cfg, q, k_new)
-    q, k_new = _position_encode(cfg, q, k_new, positions)
     k_pages, v_pages = cache["k_pages"], cache["v_pages"]
     bs = k_pages.shape[1]
+    q, k_new = _position_encode(cfg, q, k_new, positions,
+                                block_table.shape[1] * bs)
     trash = k_pages.shape[0] - 1
     pos = index[:, None] + torch.arange(C, device=x.device)[None, :]  # (B,C)
     blk = (pos // bs).clamp(max=block_table.shape[1] - 1)

@@ -1,6 +1,6 @@
 """Shared model building blocks: device resolution, initializers, norms,
-activations, softcap and the cross-entropy loss (``repro/models/
-common.py``).
+activations, softcap, rotary position embeddings and the cross-entropy
+loss (``repro/models/common.py``).
 
 Models are ``init(generator, cfg, device=...) -> params`` /
 ``apply(params, ...)`` function pairs over nested dicts of tensors keyed as
@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -103,6 +104,59 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0.0:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (RoPE)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
+    """theta^(-2i/hd) for i < hd/2, in float32 on the CPU (the reference's
+    f32 arithmetic)."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32)
+                            / head_dim))
+
+
+_ROPE_TABLES: dict = {}
+
+
+def rope_table(head_dim: int, theta: float, length: int, device):
+    """(cos, sin), each (length, hd/2) float32 on ``device``: the rotation
+    of every position below ``length``, built once per (hd, θ, length,
+    device).  The angles are the reference's float32 products pos · freq;
+    their sin and cos are taken by numpy in float64 (one function for
+    every element, on one thread) and rounded, so a position gets the same
+    bits in tables of every length, on every device and wherever it sits
+    in a batch (torch's CPU sin/cos split a tensor by thread and by vector
+    tail), and a decode step launches no transcendental."""
+    dev = torch.device(device)
+    key = (head_dim, float(theta), length, dev)
+    if key not in _ROPE_TABLES:
+        pos = np.arange(length, dtype=np.float32)
+        angles = (pos[:, None] * rope_freqs(head_dim, theta).numpy()[None, :]
+                  ).astype(np.float64)
+        _ROPE_TABLES[key] = tuple(
+            torch.from_numpy(f(angles).astype(np.float32)).to(dev)
+            for f in (np.cos, np.sin))
+    return _ROPE_TABLES[key]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               max_len: int) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: integer, broadcastable to (..., S).
+    The half-split rotation [x1 cos - x2 sin, x1 sin + x2 cos] in float32,
+    returned in x's dtype.  The table covers positions below
+    ``max_len``; a position at or past it is clamped to the last entry,
+    as the learned position table clamps (a speculative round reads up to
+    ``cursor + γ``, whose logits are never in play), with no check that
+    would sync the card."""
+    cos, sin = rope_table(x.shape[-1], theta, max_len, x.device)
+    pos = positions.long().clamp(0, max_len - 1)
+    cos, sin = cos[pos][..., None, :], sin[pos][..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

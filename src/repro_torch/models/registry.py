@@ -50,18 +50,19 @@ def _lm_loss(params, cfg, batch):
 
 # What each model family of the reference registry still waits for.
 _FAMILY_WAITS_FOR = {
-    "moe": "RoPE (queue A items 2-3) and MLA (item 12), which the registry's "
-           "MoE models need beside the MoE feed-forward",
+    "moe": "MLA latent attention (queue A item 12)",
     "audio": "the encoder-decoder model (queue A item 12)",
     "vlm": "M-RoPE and frontend embeds (queue A item 12)",
 }
 
 
 def _ported(cfg: ModelConfig) -> bool:
-    """Dense decoders, Mamba/attention hybrids (with MoE feed-forwards), and
-    all-recurrent (RWKV6 or Mamba) stacks."""
+    """Dense decoders, MoE decoders without MLA, Mamba/attention hybrids
+    (with MoE feed-forwards), and all-recurrent (RWKV6 or Mamba) stacks."""
     if cfg.is_encoder_decoder:
         return False
+    if cfg.family == "moe":
+        return cfg.attention != "mla"
     return cfg.family in ("dense", "hybrid") or (
         cfg.family == "ssm"
         and all(b in ("rwkv", "mamba") for b in cfg.block_pattern))

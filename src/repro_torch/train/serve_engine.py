@@ -266,10 +266,12 @@ class ServeEngine:
 
     def check_lengths(self, prompt_len: int, num_tokens: int):
         """Raise if a request of ``prompt_len`` + ``num_tokens`` does not
-        fit ``max_len``, or needs positions past ``max_seq_len``: the last
-        generated token is never fed back, so positions run to P + G - 2.
-        The reference clamps past the position table; torch indexing
-        cannot (on the card it is a device-side assert)."""
+        fit ``max_len``, or needs learned positions past ``max_seq_len``:
+        the last generated token is never fed back, so positions run to
+        P + G - 2.  The reference clamps a position past the learned table
+        and so serves it wrongly without a word; the port refuses the
+        request.  Rotary positions are served up to ``max_len``, as the
+        reference rotates any position."""
         if prompt_len + num_tokens > self.max_len:
             raise ValueError(f"prompt {prompt_len} + gen {num_tokens} exceeds "
                              f"max_len {self.max_len}")

@@ -299,6 +299,38 @@ def test_quantized_paged_kernel_hd128_gqa8(cuda_device, kv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [9, 12, 16])
+def test_paged_kernel_past_eight_heads_per_kv_head(cuda_device, kv, hd, G):
+    """G > 8 query heads per kv head (starcoder2-3b: 24 over 2, G = 12) in
+    one launch: head blocks of 8 over each tile in shared memory.  Two kv
+    heads, a cluster of 8 ranks over a 640-slot table (the merge runs), a
+    ragged cursor, cursor 0 and the last slot; f32 q over f32, bf16, int8
+    and fp8 pages, each within ``_close_to_plain`` (both sides read bf16
+    pages exactly into f32); repeats bit-identical."""
+    B, KV, bs, NB = 3, 2, 16, 40
+    cursors = [377, 0, NB * bs - 1]
+    if kv == "bfloat16":
+        q, kp, vp, tbl, idx = _paged(21, B, G * KV, KV, hd, bs, NB,
+                                     ("float32", "bfloat16"), cuda_device,
+                                     cursors)
+        kw = {}
+    else:
+        (q, kp, vp, tbl, idx), kw = _paged_kw(21, B, G * KV, KV, hd, bs, NB,
+                                              kv, cuda_device, cursors)
+    assert pa_ops.split_plan(B, KV, NB) == 8
+    before = pa_ops.KERNEL_LAUNCHES
+    got = pa_ops.paged_attention(q, kp, vp, tbl, idx, logit_softcap=30.0,
+                                 **kw)
+    assert pa_ops.KERNEL_LAUNCHES == before + 1
+    assert torch.equal(got, pa_ops.paged_attention(
+        q, kp, vp, tbl, idx, logit_softcap=30.0, **kw))
+    _close_to_plain(got, pa_ops.paged_attention(
+        q, kp, vp, tbl, idx, logit_softcap=30.0, force="ref", **kw))
+
+
+@pytest.mark.gpu
 def test_paged_kernel_takes_either_cursor_dtype(cuda_device):
     """The engine's int64 cursor is read as it is (no cast kernel); an
     int32 one gives the same bits."""
@@ -313,14 +345,14 @@ def test_paged_kernel_takes_either_cursor_dtype(cuda_device):
 
 @pytest.mark.gpu
 def test_paged_refused_launch_raises(cuda_device, monkeypatch):
-    """Nine query heads per kv head raise before the launch; a cluster of
-    9 CTAs, past the portable 8, comes back from the C function as a CUDA
-    error and raises RuntimeError; neither counts a launch, and the next
-    launch runs."""
-    (q, kp, vp, tbl, idx), _ = _paged_kw(20, 2, 18, 2, 64, 16, 4, "float32",
+    """120 query heads per kv head at hd 64 pass the shared memory a block
+    can use, and a cluster of 9 CTAs passes the portable 8: each comes back
+    from the C function as a CUDA error and raises RuntimeError; neither
+    counts a launch, and the next launch runs."""
+    (q, kp, vp, tbl, idx), _ = _paged_kw(20, 2, 240, 2, 64, 16, 4, "float32",
                                          cuda_device)
     before = pa_ops.KERNEL_LAUNCHES
-    with pytest.raises(ValueError, match="9 query heads per kv head"):
+    with pytest.raises(RuntimeError, match="launch failed"):
         pa_ops.paged_attention(q, kp, vp, tbl, idx)
     q = q[:, :, :16].contiguous()
     monkeypatch.setattr(pa_ops, "split_plan", lambda *a: 9)
@@ -864,3 +896,89 @@ def test_spec_draft_past_the_position_table_on_the_card(cuda_device):
                               L + 1)
     assert len(res.new_tokens) == 10 and res.finish_reason == "limit"
     assert sched.spec_rounds > 0
+
+
+@pytest.mark.gpu
+def test_spec_draft_past_the_rope_table_on_the_card(cuda_device):
+    """The same run on a RoPE config (``_spec_cfg`` with rotary positions
+    and GQA 4/2): the draft's and the verify's positions past ``max_len``
+    gather the cos/sin table's last row, without a device-side assert."""
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(_spec_cfg(), position="rope", num_heads=4,
+                              num_kv_heads=2, d_model=256, d_ff=512)
+    params = registry.get_model(cfg).init(torch.Generator().manual_seed(1),
+                                          cfg, device="cpu")
+    L = cfg.max_seq_len
+    sched, (res,) = _spec_run(cfg, params, cuda_device, ((L - 9, 10),),
+                              L + 1)
+    assert len(res.new_tokens) == 10 and res.finish_reason == "limit"
+    assert sched.spec_rounds > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("theta,hd,max_len", [(1e4, 64, 1024),
+                                              (5e6, 128, 32768)])
+def test_rope_rotation_bits_agree_across_paths_and_with_the_cpu(
+        cuda_device, theta, hd, max_len):
+    """The same q/k rows at the same positions, laid out as the prefill
+    (B, S), a decode step (B, 1), a chunk (ctx + arange(C)) and a verify
+    (per-row cursor + arange(C)) lay them out, rotate to the same bits on
+    the card, and to the CPU's bits: the cos/sin table is built once on
+    the host, and the rotation is elementwise products and sums, each
+    rounded once.  Positions run up to max_seq_len - 1."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import attention
+    cfg = ModelConfig(name="rope", family="dense", num_layers=1,
+                      d_model=4 * hd, num_heads=4, num_kv_heads=2,
+                      head_dim=hd, d_ff=64, vocab_size=64,
+                      max_seq_len=max_len, rope_theta=theta)
+    rng = np.random.default_rng(3)
+    S = 48
+    base = max_len - S                      # the table's last S positions
+    xq = rng.standard_normal((2, S, 4, hd), dtype=np.float32)
+    xk = rng.standard_normal((2, S, 2, hd), dtype=np.float32)
+
+    def rotate(device, starts, n):
+        """Rows starts[b] .. starts[b] + n - 1 of batch row b, at their
+        positions."""
+        q = np.stack([xq[b, t:t + n] for b, t in enumerate(starts)])
+        k = np.stack([xk[b, t:t + n] for b, t in enumerate(starts)])
+        pos = np.stack([base + t + np.arange(n) for t in starts])
+        q, k = attention._position_encode(
+            cfg, torch.from_numpy(q).to(device), torch.from_numpy(k).to(device),
+            torch.from_numpy(pos).to(device))
+        return q.cpu(), k.cpu()
+
+    ref_q, ref_k = rotate(torch.device("cpu"), (0, 0), S)
+    layouts = [((0, 0), S),                               # prefill
+               ((0, 17), 1), ((S - 1, 5), 1),             # decode steps
+               ((16, 16), 16),                            # a chunk
+               ((40, 30), 5)]                             # a verify round
+    for dev in (cuda_device, torch.device("cpu")):
+        for starts, n in layouts:
+            q, k = rotate(dev, starts, n)
+            for b, t in enumerate(starts):
+                assert torch.equal(q[b], ref_q[b, t:t + n])
+                assert torch.equal(k[b], ref_k[b, t:t + n])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(24, 512, 8), (3, 8, 1024, 512)],
+                         ids=["routers", "expert_stacks"])
+def test_ns_fused_on_moe_leaves(cuda_device, shape):
+    """Muon's orthogonalization of mixtral-0.3b's MoE leaves through the
+    kernel: the routers (n_super, 512, 8) reach ``ns_fused`` as 8 x 512
+    (n = 8, a shape the GEMM's tiles meet nowhere else), the expert stacks
+    (n_super, E, 1024, 512) as one batch of E·n_super matrices; against
+    the plain version within 1e-4 of the largest entry."""
+    from repro_torch.optim import muon
+    x = (0.02 * torch.from_numpy(np.random.default_rng(len(shape))
+                                 .standard_normal(shape).astype(np.float32))
+         ).to(cuda_device)
+    before = ns_ops.NS_FUSED_LAUNCHES
+    got = muon.orthogonalize(x)
+    torch.cuda.synchronize()
+    assert ns_ops.NS_FUSED_LAUNCHES == before + 1
+    want = ns_ops.newton_schulz(x.reshape((-1,) + shape[-2:]),
+                                force="ref").reshape(shape)
+    assert got.shape == shape and _rel(got, want) <= 1e-4

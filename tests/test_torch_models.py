@@ -201,9 +201,10 @@ def test_param_module_facade_moves_and_names_the_tree():
 
 
 def test_unported_architectures_raise_naming_the_roadmap():
-    rope = dataclasses.replace(CFG, position="rope")
-    params = tr.lm_init(torch.Generator().manual_seed(0), rope, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.lm_apply(params, rope, torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_model(dataclasses.replace(CFG, family="moe"))
+    mrope = dataclasses.replace(CFG, position="mrope")
+    params = tr.lm_init(torch.Generator().manual_seed(0), mrope, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12.*M-RoPE"):
+        tr.lm_apply(params, mrope, torch.zeros((1, 4), dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*MLA"):
+        registry.get_model(dataclasses.replace(CFG, family="moe",
+                                               attention="mla"))

@@ -298,8 +298,9 @@ def test_unported_layers_raise_naming_their_items():
         ServeEngine(mamba, mp, device="cpu").continuous_state(2)
     with pytest.raises(NotImplementedError, match="item 17"):
         tr.lm_init_paged_cache(mp, mamba, 2, 8, 4, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        registry.get_model(dataclasses.replace(CFG, family="moe"))
+    with pytest.raises(NotImplementedError, match="MLA"):
+        registry.get_model(dataclasses.replace(CFG, family="moe",
+                                               attention="mla"))
 
 
 def test_random_init_shapes_and_scales():

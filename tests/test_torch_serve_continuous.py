@@ -11,9 +11,13 @@ solo ``ServeEngine.generate``, with overlap on and off; EOS frees a slot
 that is then readmitted; a readmitted slot equals a fresh one; and the pool
 keeps its invariants under Poisson arrivals with EOS.  The serving prefill
 normalises and projects its last position only, and its logits match the
-JAX prefill step to 1e-5.
+JAX prefill step to 1e-5.  On RoPE configs: the byte contracts above on
+``llama3-0.3b``'s smoke config with GQA and qk-norm, and
+``mixtral-0.3b``'s greedy streams equal to the JAX scheduler's (MoE has no
+solo contract: capacity drops depend on the rows sharing a step).
 """
 import contextlib
+import dataclasses
 import io
 
 import jax
@@ -100,6 +104,58 @@ def test_paged_equals_continuous_equals_solo(params):
         for res, w, (_, g) in zip(results, want, prompts):
             np.testing.assert_array_equal(res.tokens, w)
             assert len(res.new_tokens) == g and res.finish_reason == "limit"
+
+
+# RoPE serving: llama3-0.3b's smoke config with GQA 4/2 (qk-norm on), and
+# mixtral-0.3b's (8 experts top-2 at smoke width), the JAX init carried over.
+ROPE_CFG = dataclasses.replace(configs.get_smoke_config("llama3-0.3b"),
+                               num_kv_heads=2, qk_norm=True)
+JROPE_CFG = dataclasses.replace(jax_configs.get_smoke_config("llama3-0.3b"),
+                                num_kv_heads=2, qk_norm=True)
+
+
+def _jax_params(jcfg, seed):
+    jp = jax.device_get(jtr.lm_init(jax.random.PRNGKey(seed), jcfg))
+    return jp, bridge.params_from_jax(jp)
+
+
+def test_rope_paged_equals_continuous_equals_solo():
+    """The in-port byte contracts on a RoPE config: paged (chunked prefill
+    through a tight pool, overlap on and off) equals the contiguous
+    scheduler equals solo generation (one whole prefill)."""
+    _, tp = _jax_params(JROPE_CFG, 4)
+    prompts = _prompts(2)
+    solo = ServeEngine(ROPE_CFG, tp, device="cpu", max_len=MAX_LEN)
+    want = [solo.generate(p[None, :], g).tokens[0] for p, g in prompts]
+
+    def eng(paged):
+        return ServeEngine(ROPE_CFG, tp, device="cpu", max_len=MAX_LEN,
+                           paged=paged, block_size=4)
+    runs = [_run(eng(False), prompts),
+            _run(eng(True), prompts, num_blocks=8),
+            _run(eng(True), prompts, num_blocks=8, overlap=False)]
+    for results in runs:
+        for res, w in zip(results, want):
+            np.testing.assert_array_equal(res.tokens, w)
+
+
+def test_mixtral_streams_match_jax_scheduler():
+    """MoE under continuous paged serving: which tokens a step drops at
+    capacity depends on the rows that share the step, so the reference
+    holds no solo contract for MoE; the port's greedy streams are held to
+    the JAX scheduler's on the same params and requests instead."""
+    cfg = configs.get_smoke_config("mixtral-0.3b")
+    jcfg = jax_configs.get_smoke_config("mixtral-0.3b")
+    jp, tp = _jax_params(jcfg, 6)
+    prompts = _prompts(3)
+    jeng = jax_engine.ServeEngine(jcfg, jp, mesh=mesh_lib.single_device_mesh(),
+                                  max_len=MAX_LEN, paged=True, block_size=4)
+    want = jax_sched.ContinuousScheduler(jeng, max_batch=2, chunk_len=4).run(
+        [jax_sched.Request(prompt=p, max_new_tokens=g) for p, g in prompts])
+    got = _run(ServeEngine(cfg, tp, device="cpu", max_len=MAX_LEN,
+                           paged=True, block_size=4), prompts)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])

@@ -4,10 +4,11 @@
 ``decode_spec`` and the scheduler's speculation rounds) against the JAX
 package's, on the CPU.
 
-The reference's spec tests use a RoPE config, which the port has not
-ported yet, so these run the port's smoke ``gpt2-12l`` at depth 4 (d_model
-64, 4 heads of 16, vocab 256, ``max_seq_len`` 128), the JAX init carried
-over by ``repro_torch.bridge``.
+Most run the port's smoke ``gpt2-12l`` at depth 4 (d_model 64, 4 heads of
+16, vocab 256, ``max_seq_len`` 128), the JAX init carried over by
+``repro_torch.bridge``; the reference's own RoPE GQA config
+(``tests/test_serving_spec.py:CFG_DENSE``) holds the spec streams to
+plain decode and solo generation.
 
 Cross-framework: ``truncate_row`` op by op against the JAX pool; the
 verify forward's logits within ``LOGIT_TOL`` of JAX's ``lm_verify`` and
@@ -29,6 +30,7 @@ emitted token against ``p_t[0]`` and its bonus against ``p_t[γ]``, within
 ``FREQ_TOL``.
 """
 import contextlib
+import dataclasses
 import io
 
 import jax
@@ -38,6 +40,7 @@ import pytest
 import torch
 
 from repro import configs as jax_configs
+from repro.configs.base import ModelConfig as JaxModelConfig
 from repro.launch import mesh as mesh_lib
 from repro.models import transformer as jtr
 from repro.train import serve_engine as jax_engine
@@ -47,6 +50,7 @@ from repro.train.kv_pool import KVBlockPool as JaxPool
 from repro_torch import bridge
 from repro_torch import configs
 from repro_torch.checkpoint import checkpointer as ckpt
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import expansion as exp
 from repro_torch.launch import serve
 from repro_torch.models import registry
@@ -382,6 +386,58 @@ def test_spec_streams_match_jax_scheduler_and_solo(params):
         assert res.spec_rounds >= 1
         assert res.mean_accepted_len == (len(res.new_tokens) - 1) \
             / res.spec_rounds
+
+
+# The reference's spec config (tests/test_serving_spec.py:CFG_DENSE): RoPE,
+# GQA 4/2 of head dim 8, 4 layers, vocab 64, max_seq_len 64.
+ROPE_CFG = ModelConfig(name="sp-dense", family="dense", num_layers=4,
+                       d_model=32, num_heads=4, num_kv_heads=2, d_ff=64,
+                       vocab_size=64, max_seq_len=64)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_rope_spec_streams_equal_plain_decode(kv):
+    """On the reference's RoPE GQA config (the JAX init carried over):
+    greedy spec streams (depth-2 draft, γ 3) are byte-identical to the
+    port's non-spec paged streams on the same pool dtype and, over f32
+    pages, to solo generation."""
+    jcfg = JaxModelConfig(**dataclasses.asdict(ROPE_CFG))
+    tp = bridge.params_from_jax(jax.device_get(
+        jtr.lm_init(jax.random.PRNGKey(5), jcfg)))
+    reqs = _requests(ROPE_CFG, seed=3)
+    kw = {} if kv is None else dict(kv_dtype=kv)
+    _, results = _run(_spec(ROPE_CFG, tp, draft_depth=2, **kw), reqs)
+    plain = ServeEngine(ROPE_CFG, tp, device="cpu", max_len=MAX_LEN,
+                        paged=True, block_size=4, **kw)
+    _assert_same_streams(results, _run(plain, reqs)[1])
+    if kv is None:
+        _assert_solo_parity(ROPE_CFG, tp, reqs, results)
+
+
+def test_rope_positions_past_max_seq_len_are_served():
+    """RoPE requests with P + G - 1 past ``max_seq_len`` (16) but inside
+    ``max_len`` (48) are served, as the reference rotates any position:
+    solo generation's logits at positions up to 28 agree with the JAX
+    forward on the same params (carried over by the bridge) and tokens
+    within ``LOGIT_TOL`` (absolute, plus 1e-5 relative), and the paged
+    spec streams (depth-2 draft, γ 3) equal solo byte for byte."""
+    cfg = dataclasses.replace(ROPE_CFG, max_seq_len=16)
+    jcfg = JaxModelConfig(**dataclasses.asdict(cfg))
+    tp = registry.get_model(cfg).init(torch.Generator().manual_seed(6), cfg,
+                                      device="cpu")
+    jp = bridge.params_to_numpy(tp)
+    reqs = _requests(cfg, seed=4, shapes=((20, 10), (13, 12)))
+    solo = ServeEngine(cfg, tp, device="cpu", max_len=MAX_LEN)
+    for req in reqs:
+        P = len(req.prompt)
+        res = solo.generate(req.prompt[None, :], req.max_new_tokens,
+                            return_logits=True)
+        want, _ = jax.jit(lambda p, t: jtr.lm_apply(p, jcfg, t))(
+            jp, jnp.asarray(res.tokens[:, :-1]))
+        np.testing.assert_allclose(res.logits, np.asarray(want)[:, P - 1:],
+                                   atol=LOGIT_TOL, rtol=1e-5)
+    _, results = _run(_spec(cfg, tp, draft_depth=2), reqs)
+    _assert_solo_parity(cfg, tp, reqs, results)
 
 
 @pytest.mark.parametrize("draft", ["depth", "params"])

@@ -67,14 +67,14 @@ _AFTER_SETUP = ("  if (n_split > 1) cluster_arrive_relaxed();\n"
                 "  __syncthreads();\n")
 _BEFORE_MERGE = "  __syncthreads();\n\n  // The CTA's state"
 _DPV = "  static constexpr int DPV = 4;"
-_Q_REG = ("        if constexpr (GM == 1) {\n#pragma unroll\n"
-          "          for (int e = 0; e < CW; ++e) dot = fmaf(q_reg[e]")
+_Q_REG = ("      if constexpr (GM == 1) {\n#pragma unroll\n"
+          "        for (int e = 0; e < CW; ++e) dot = fmaf(q_reg[e]")
 _EX2 = ('  float y;\n  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));\n'
         '  return y;\n')
 _SCALES = "    if constexpr (S::QUANT) {\n      if (lane < TW) {\n"
 _START = "  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"
 _COMPUTE = "    const unsigned char* st = ring + (j % STAGES) * STAGE;\n"
-_PV = "    // P·V over the tile's tokens.\n"
+_PV = "      tile_pv<KVC, HD, GM>(acc, st, p_s[warp], vt, vc);\n"
 _SKIP = "    if (n_split > 0) {\n      __syncwarp();\n      continue;\n    }\n"
 
 # name -> edits as (old, new, occurrences)
