@@ -155,9 +155,33 @@ result):
 26. ``starcoder2-3b`` at full size (~3.0 B parameters, ~12 GB f32) over
    phase 6's traffic on paged KV: the paged kernel at G = 12, hd 128; then
    card against CPU at depth 2 (the B=1 P=128 generation, whose prefill
-   runs flash at G = 12, and three paged requests).
+   runs flash at G = 12, and three paged requests);
+27. ``rwkv6-7b`` at full width and depth in continuous serving, over phase
+   6's traffic: ``serve.main --continuous --paged`` (every request at its
+   budget, the pool returned, aggregate tokens/s and TTFT p50/p95), then
+   on its weights through ``ServeEngine`` and ``ContinuousScheduler`` the
+   prefix cache over the shared-prefix traffic with its last 8 requests
+   sent again (it must hit; each repeat's stream equals its first run's),
+   ``--spec-depth 2 --gamma 4`` (acceptance, mean accepted length, each
+   stream equal to the paged run's or first different at a near-tie) and
+   the paper's draft, a one-layer ``rwkv6-7b`` expanded by
+   ``copying_zeroL`` to 4 layers and drafted at depth 1 (acceptance at
+   least 0.99); every WKV launch count derived from the requests with this
+   script's own binary decomposition (plus the snapshot edge of the prefix
+   cache): 32 per prefill chunk, 2 per draft prefill;
+28. jamba at full width and depth 8 on phase 19's weights (run right after
+   phase 21) over phase 6's traffic through ``ContinuousScheduler``: paged
+   over f32 and then int8 pages (the scan 7 times a prefill chunk, the
+   paged kernel once a masked decode step, flash never), contiguous (flash
+   once and the scan 7 times an admission) and with the zero-layer draft;
+   tokens/s, TTFT and peak memory of each;
+29. card against CPU through the port's plain CPU serving path fed the
+   card's tokens over the same chunks: jamba at depth 8, three short paged
+   requests (run after phase 28), and ``rwkv6-7b`` at full width and depth
+   2, three paged requests and a prefix hit (which also equals its cold
+   run), tokens equal where the CPU's top-2 margin allows.
 
-Every main path (5, 6, 10, 11, 15, 19, 22-26) starts with every kernel's
+Every main path (5, 6, 10, 11, 15, 19, 22-28) starts with every kernel's
 launch counter at 0 and checks every counter after it, the kernels it must
 not launch included.
 
@@ -710,22 +734,34 @@ def times(fa_ops):
                 library_backend=backend, **bound)
 
 
-def _drawn_requests(cfg, argv):
-    """(prompt lengths, budgets) of the requests ``serve.main(argv)`` draws
-    with ``--continuous``: the reference's rng order (the shared prefix,
-    then lengths, then budgets); the prefix cache adds a shared prefix of
-    max(prompt_len // 2, block_size) tokens to every prompt."""
-    arg = {k: int(v) for k, v in zip(argv, argv[1:])
+def _drawn_traffic(cfg, argv):
+    """[(prompt, budget)] of the requests ``serve.main(argv)`` draws with
+    ``--continuous``, in the reference's rng order (the shared prefix,
+    lengths, budgets, arrivals, then each prompt); the prefix cache adds a
+    shared prefix of max(prompt_len // 2, block_size) tokens to every
+    prompt."""
+    arg = {k: float(v) for k, v in zip(argv, argv[1:])
            if k in ("--prompt-len", "--gen", "--requests", "--seed",
-                    "--block-size")}
-    P, G, n = arg["--prompt-len"], arg["--gen"], arg["--requests"]
-    shared = max(P // 2, arg["--block-size"]) if "--prefix-cache" in argv \
-        else 0
-    rng = np.random.default_rng(arg["--seed"])
-    rng.integers(0, cfg.vocab_size, (shared,))
+                    "--block-size", "--rate")}
+    P, G, n = int(arg["--prompt-len"]), int(arg["--gen"]), \
+        int(arg["--requests"])
+    shared_len = max(P // 2, int(arg["--block-size"])) \
+        if "--prefix-cache" in argv else 0
+    rng = np.random.default_rng(int(arg["--seed"]))
+    shared = rng.integers(0, cfg.vocab_size, (shared_len,)).astype(np.int32)
     lens = rng.integers(max(2, P // 4), P + 1, n)
     gens = rng.integers(max(2, G // 4), max(G, 2) + 1, n)
-    return shared + lens, gens
+    rng.exponential(1.0 / arg["--rate"], n)
+    return [(np.concatenate([shared, rng.integers(
+                0, cfg.vocab_size, (int(p),)).astype(np.int32)]), int(g))
+            for p, g in zip(lens, gens)]
+
+
+def _drawn_requests(cfg, argv):
+    """(prompt lengths, budgets) of ``_drawn_traffic(cfg, argv)``."""
+    traffic = _drawn_traffic(cfg, argv)
+    return (np.array([len(p) for p, _ in traffic]),
+            np.array([g for _, g in traffic]))
 
 
 def _serve_counted(serve, argv, counted):
@@ -2108,7 +2144,8 @@ def jamba_card_vs_cpu(cfg, engine, registry):
     chunked scan) and plain decode fed the card's tokens, and one B=1 x
     128 loss forward on each.  Logits agree per step within
     ``JAMBA_LOGIT_TOL`` of max(1, max|logit|), tokens wherever the CPU's
-    top-2 margin exceeds that, the loss within ``JAMBA_LOSS_TOL``."""
+    top-2 margin exceeds that, the loss within ``JAMBA_LOSS_TOL``.
+    Returns the host copy (phase 29 serves it on the CPU)."""
     from repro_torch.models import transformer as tr
     from repro_torch.tree import tree_map
     t0 = time.perf_counter()
@@ -2163,8 +2200,7 @@ def jamba_card_vs_cpu(cfg, engine, registry):
           f"over {G} steps (worst {worst:.2e}), tokens equal where the "
           f"margin allows, loss within {JAMBA_LOSS_TOL:.0e}; phase "
           f"{time.perf_counter() - t0:.1f} s")
-    del host
-    gc.collect()
+    return host
 
 
 def jamba_times(scan_ops, fa_ops, res, n_mamba):
@@ -2308,16 +2344,20 @@ def spec_main_path(cfg, serve, fa_ops, extra=()):
     return results, sched, stats, launches
 
 
-def spec_zerol(cfglib, registry, arch="gpt2-12l"):
+def spec_zerol(cfglib, registry, arch="gpt2-12l", depth=None):
     """The paper's draft on the card: a random one-layer ``arch`` expanded
-    by ``copying_zeroL`` to its full depth, served over phase 6's lengths
-    and budgets with its depth-1 truncation as the draft, every counter at
-    0 just before: acceptance at least ``SPEC_ZEROL_ACCEPTANCE``, one
-    flash launch per admission."""
+    by ``copying_zeroL`` to ``depth`` layers (default: its full depth),
+    served over phase 6's lengths and budgets with its depth-1 truncation
+    as the draft, every counter at 0 just before: acceptance at least
+    ``SPEC_ZEROL_ACCEPTANCE``, one flash launch per admission (the draft's
+    prefill), or for ``rwkv6-7b`` one WKV launch per admission and one per
+    target layer per prefill chunk."""
     from repro_torch.core import expansion
     from repro_torch.train.serve_engine import ServeEngine
     from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
     cfg = cfglib.get_config(arch)
+    if depth is not None:
+        cfg = cfg.with_depth(depth)
     cfg1 = cfg.with_depth(1)
     p1 = registry.get_model(cfg1).init(torch.Generator().manual_seed(0),
                                        cfg1, device="cpu")
@@ -2335,7 +2375,12 @@ def spec_zerol(cfglib, registry, arch="gpt2-12l"):
     t0 = time.perf_counter()
     results = sched.run(reqs)
     wall = time.perf_counter() - t0
-    expect_counts("zeroL spec", flash_attention=len(reqs))
+    if cfg.layer_kind(0) == "rwkv":
+        counts = expect_counts("zeroL spec", wkv=len(reqs) + cfg.num_layers
+                               * sum(len(_prefill_chunks(int(p), 16))
+                                     for p in lens))
+    else:
+        counts = expect_counts("zeroL spec", flash_attention=len(reqs))
     _check_served("zeroL spec", cfg, lens, gens, results, sched)
     rate = sched.acceptance_rate
     mal = float(np.mean([r.mean_accepted_len for r in results]))
@@ -2349,7 +2394,7 @@ def spec_zerol(cfglib, registry, arch="gpt2-12l"):
           "(no warm-up)")
     if rate < SPEC_ZEROL_ACCEPTANCE:
         _fail(f"zeroL draft acceptance {rate:.4f} < {SPEC_ZEROL_ACCEPTANCE}")
-    return rate
+    return rate, counts
 
 
 def spec_vs_plain(cfg, registry, spec, plain, engine) -> int:
@@ -2426,6 +2471,348 @@ def rope_serve_paths(cfglib, registry, serve, fa_ops, pa_ops, arch,
           f", hd {cfg.head_dim}; aggregate tokens/s "
           f"{stats['tokens_per_s']:.1f} (f32 pages)")
     return launches, stats, q_launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 27-29: recurrent carries in continuous serving (rwkv6-7b, jamba)
+# ---------------------------------------------------------------------------
+
+RWKV_PAGED_ARGV = _with_arch(PAGED_ARGV, "rwkv6-7b")
+# The paper's draft over rwkv6-7b: a one-layer source expanded to this many
+# layers (cut from 32: the acceptance does not depend on the depth, the
+# run's time does).
+RWKV_ZEROL_DEPTH = 4
+PAGE = 16                           # --block-size of every paged run here
+
+
+def _pow2(n: int) -> list:
+    """The binary decomposition of n, largest power of two first (this
+    script's own copy, so the launch checks do not take their counts from
+    the code under check)."""
+    out = []
+    while n:
+        out.append(1 << (n.bit_length() - 1))
+        n -= out[-1]
+    return out
+
+
+def _prefill_chunks(P: int, bs: int, prefix_cache=False, skip=0) -> list:
+    """Chunk widths of a P-token prompt's paged prefill (no --chunk-len
+    cap) from ``skip`` tokens on.  With the prefix cache a recurrent
+    model's prefill is cut at the last page boundary at or below P - 1,
+    where its carry is snapshot."""
+    snap = (P - 1) // bs * bs if prefix_cache else 0
+    if snap > skip:
+        return _pow2(snap - skip) + _pow2(P - snap)
+    return _pow2(P - skip)
+
+
+def _run_counted(label, eng, reqs, max_batch=8):
+    """``ContinuousScheduler(eng).run(reqs)`` with every launch counter at
+    0 just before and the engine's masked decode steps counted.  Returns
+    (results, scheduler, summarize record, decode steps, peak bytes)."""
+    from repro_torch.train.serve_scheduler import (ContinuousScheduler,
+                                                   summarize)
+    steps = [0]
+    decode = eng.decode_masked
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return decode(*a, **kw)
+    eng.decode_masked = counted
+    sched = ContinuousScheduler(eng, max_batch=max_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    results = sched.run(reqs)
+    torch.cuda.synchronize()
+    stats = summarize(results, time.perf_counter() - t0)
+    print(f"  {label}: {stats['generated_tokens']} tokens, aggregate "
+          f"tokens/s {stats['tokens_per_s']:.1f}, ttft p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
+          f"{stats['ttft_p95_s'] * 1e3:.1f} ms, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return results, sched, stats, steps[0], torch.cuda.max_memory_allocated()
+
+
+def _requests_of(traffic):
+    from repro_torch.train.serve_scheduler import Request
+    return [Request(prompt=p, max_new_tokens=g) for p, g in traffic]
+
+
+def rwkv_continuous_paths(cfglib, registry, serve):
+    """Phase 27: ``rwkv6-7b`` at full width and depth over phase 6's
+    traffic.  ``serve.main --continuous --paged`` first (warm-up and timed
+    run), then on the same weights the prefix cache, ``--spec-depth 2
+    --gamma 4`` and the paper's draft, counters from 0 before each run and
+    the WKV launches checked against the chunks this script derives from
+    the requests.  Returns {run: WKV launches}."""
+    from repro_torch.train.serve_engine import ServeEngine
+    cfg = cfglib.get_config("rwkv6-7b")
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {}
+    # (a) the CLI: its warm-up serves each prompt length once, then the run
+    results, sched, stats, _ = _serve_counted(serve, RWKV_PAGED_ARGV, ())
+    traffic = _drawn_traffic(cfg, RWKV_PAGED_ARGV)
+    lens = [len(p) for p, _ in traffic]
+    _check_served("rwkv6-7b paged", cfg, lens, [g for _, g in traffic],
+                  results, sched)
+    chunks = sum(len(_pow2(P)) for P in set(lens)) \
+        + sum(len(_pow2(P)) for P in lens)
+    out["paged"] = expect_counts("rwkv6-7b paged main path",
+                                 wkv=chunks * L)["wkv"]
+    ks = sched.kv_stats()
+    print(f"rwkv6-7b paged main path: {len(lens)} requests at their budgets, "
+          f"pool returned; {out['paged']} WKV launches = {chunks} prefill "
+          f"chunks (warm-up included) x {L} layers, no other kernel; "
+          f"aggregate tokens/s {stats['tokens_per_s']:.1f}, ttft p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
+          f"{stats['ttft_p95_s'] * 1e3:.1f} ms; kv storage "
+          f"{ks['kv_bytes_per_token']} bytes a token (ratio "
+          f"{ks['kv_bytes_ratio']}); {time.perf_counter() - t0:.1f} s")
+    params = sched.engine.params
+    max_len = sched.engine.max_len
+    del sched
+    # (b) the prefix cache over the shared-prefix traffic, the last eight
+    # requests sent again: a repeat hits at its publisher's snapshot
+    ptraffic = _drawn_traffic(cfg, RWKV_PAGED_ARGV + ["--prefix-cache"])
+    ptraffic = ptraffic + ptraffic[-8:]
+    eng = ServeEngine(cfg, params, device="cuda",
+                      max_len=max(len(p) + g for p, g in ptraffic) + 1,
+                      paged=True, block_size=PAGE, prefix_cache=True)
+    pres, psched, _, _, _ = _run_counted("rwkv6-7b prefix cache", eng,
+                                         _requests_of(ptraffic))
+    plens = [len(p) for p, _ in ptraffic]
+    _check_served("rwkv6-7b prefix cache", cfg, plens,
+                  [g for _, g in ptraffic], pres, psched)
+    pchunks = 0
+    for r in pres:
+        # A hit restores a snapshot: a page boundary at or below P - 1.
+        P, skip = len(r.prompt), r.prefix_tokens
+        if skip % PAGE or skip > (P - 1) // PAGE * PAGE:
+            _fail(f"prefix request {r.uid} (P={P}) skipped {skip} tokens, "
+                  "not a snapshot boundary below P")
+        pchunks += len(_prefill_chunks(P, PAGE, True, skip))
+    out["prefix"] = expect_counts("rwkv6-7b prefix cache",
+                                  wkv=pchunks * L)["wkv"]
+    hits = [r for r in pres if r.prefix_tokens]
+    if not hits:
+        _fail(f"the rwkv6-7b prefix-cache run had no hit: "
+              f"{psched.prefix_stats()}")
+    for r in pres[len(ptraffic) - 8:]:
+        # A repeat runs cold or from its own first run's snapshot: the same
+        # chunk edges as that run, so the same bits.
+        first = pres[r.uid - 8]
+        if r.prefix_tokens not in (0, (len(r.prompt) - 1) // PAGE * PAGE):
+            _fail(f"prefix request {r.uid} hit at {r.prefix_tokens} tokens, "
+                  "not at its first run's snapshot")
+        if not np.array_equal(r.tokens, first.tokens):
+            _fail(f"prefix request {r.uid} ({r.prefix_tokens} tokens from "
+                  f"the cache) differs from its cold run {first.uid}")
+    print(f"rwkv6-7b prefix cache: hits {len(hits)}/{len(pres)} at the "
+          f"snapshot boundary, {psched.prefix_skipped_tokens} prompt tokens "
+          f"skipped, every repeat's stream equal to its cold run's; "
+          f"{out['prefix']} WKV launches = {pchunks} chunks x {L}")
+    del eng, psched
+    # (c) --spec-depth 2 --gamma 4 over (a)'s requests
+    eng = ServeEngine(cfg, params, device="cuda", max_len=max_len,
+                      paged=True, block_size=PAGE, spec_decode=True,
+                      gamma=SPEC_GAMMA, draft_depth=SPEC_DEPTH)
+    reqs = _requests_of([(r.prompt, len(r.new_tokens)) for r in results])
+    sres, ssched, _, _, _ = _run_counted("rwkv6-7b spec", eng, reqs)
+    _check_served("rwkv6-7b spec", cfg, lens, [g for _, g in traffic], sres,
+                  ssched)
+    schunks = sum(len(_pow2(P)) for P in lens)
+    out["spec"] = expect_counts(
+        "rwkv6-7b spec", wkv=schunks * L + SPEC_DEPTH * len(reqs))["wkv"]
+    mal = float(np.mean([r.mean_accepted_len for r in sres]))
+    print(f"rwkv6-7b spec: {ssched.spec_rounds} rounds, acceptance "
+          f"{ssched.acceptance_rate:.4f}, mean accepted length {mal:.4f}; "
+          f"{out['spec']} WKV launches = {schunks} chunks x {L} + "
+          f"{len(reqs)} draft prefills x {SPEC_DEPTH}")
+    spec_vs_plain(cfg, registry, sres, results, eng)
+    del eng, ssched
+    # (d) the paper's draft
+    _, counts = spec_zerol(cfglib, registry, "rwkv6-7b", RWKV_ZEROL_DEPTH)
+    out["zeroL"] = counts["wkv"]
+    print(f"rwkv6-7b continuous phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def jamba_continuous_paths(cfg, engine):
+    """Phase 28: jamba at full width and depth 8 on phase 19's weights
+    over phase 6's traffic through ``ContinuousScheduler``: paged over f32
+    and int8 pages, contiguous, and speculative with the zero-layer draft.
+    Counters from 0 before each run, checked against counts derived from
+    the requests: the scan once per Mamba layer per prefill chunk (paged)
+    or per admission (contiguous), the paged kernel once per attention
+    layer per masked decode step, flash once per attention layer per
+    contiguous admission.  Returns {run: launch counts}."""
+    from repro_torch.train.serve_engine import ServeEngine
+    t0 = time.perf_counter()
+    n_mamba = sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.num_layers))
+    n_attn = cfg.num_layers - n_mamba
+    traffic = _drawn_traffic(cfg, PAGED_ARGV)
+    lens, gens = [len(p) for p, _ in traffic], [g for _, g in traffic]
+    chunks = sum(len(_pow2(P)) for P in lens)
+    max_len = max(P + g for P, g in zip(lens, gens)) + 1
+    out = {}
+    for run, kw in (("paged f32", dict(paged=True)),
+                    ("paged int8", dict(paged=True, kv_dtype="int8")),
+                    ("contiguous", dict()),
+                    ("zero-layer draft", dict(paged=True, spec_decode=True,
+                                              gamma=SPEC_GAMMA,
+                                              draft_depth=0))):
+        eng = ServeEngine(cfg, engine.params, device="cuda", max_len=max_len,
+                          block_size=PAGE, **kw)
+        label = f"jamba {run}"
+        res, sched, _, steps, _ = _run_counted(label, eng,
+                                               _requests_of(traffic))
+        if "paged" in kw:
+            _check_served(label, cfg, lens, gens, res, sched)
+        elif [len(r.new_tokens) for r in res] != gens:
+            _fail(f"{label}: budgets not met")
+        if run.startswith("paged"):
+            want = dict(selective_scan=chunks * n_mamba,
+                        paged_attention=steps * n_attn)
+        elif run == "contiguous":
+            want = dict(selective_scan=len(lens) * n_mamba,
+                        flash_attention=len(lens) * n_attn)
+        else:
+            want = dict(selective_scan=chunks * n_mamba)
+        if run.startswith("paged") and steps == 0:
+            _fail(f"{label}: no masked decode step")
+        out[run] = expect_counts(label, **want)
+        extra = ""
+        if run == "zero-layer draft":
+            mal = float(np.mean([r.mean_accepted_len for r in res]))
+            extra = (f"; {sched.spec_rounds} rounds, acceptance "
+                     f"{sched.acceptance_rate:.4f}, mean accepted length "
+                     f"{mal:.4f}")
+        if run == "paged int8":
+            extra = f"; kv storage {sched.kv_stats()}"
+        print(f"  {label}: launches {out[run]} ({chunks} prefill chunks, "
+              f"{len(lens)} admissions, {steps} masked decode steps){extra}")
+        del eng, sched
+    print(f"jamba continuous phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _served_logits_cpu(cfg, params, prompt, new_tokens, chunks):
+    """The port's plain CPU serving path fed the card's tokens: a B=1 paged
+    cache, ``lm_prefill_chunk`` over ``chunks`` (the carry admitted into the
+    cache as the paged admission does), then one decode step a token.
+    Returns the logits that picked each new token, (G, V)."""
+    from repro_torch.models import transformer as tr
+    P, G = len(prompt), len(new_tokens)
+    nb = -(-(P + G) // PAGE)
+    table = torch.arange(nb, dtype=torch.int32)[None, :]
+    toks = torch.from_numpy(np.concatenate([prompt, new_tokens])).long()[None]
+    out = []
+    with torch.inference_mode():
+        cache = tr.lm_init_paged_cache(params, cfg, 1, nb, PAGE, P + G,
+                                       torch.float32, device="cpu")
+        carry = tr.lm_init_prefill_carry(params, cfg, P + G, torch.float32,
+                                         device="cpu")
+        ctx = 0
+        for C in chunks:
+            logits, cache, carry = tr.lm_prefill_chunk(
+                params, cfg, toks[:, ctx:ctx + C], cache, carry, table, ctx)
+            ctx += C
+        out.append(logits[0, 0])
+        for ln, lc in carry.items():
+            for key, t in lc.items():
+                cache[ln][key].copy_(t)
+        for t in range(1, G):
+            logits, cache = tr.lm_decode_step(
+                params, cfg, toks[:, P + t - 1:P + t], cache, P + t - 1,
+                block_table=table)
+            out.append(logits[0, 0])
+    return torch.stack(out).numpy()
+
+
+def _stream_vs_cpu(label, cfg, params, res, chunks, tol, relative=False):
+    """Each card token against the CPU's argmax fed the same tokens: equal
+    wherever the CPU's top-2 margin exceeds ``tol`` (with ``relative``,
+    ``tol`` times max(1, max|logit|)).  Returns the smallest margin seen."""
+    want = _served_logits_cpu(cfg, params, res.prompt, res.new_tokens,
+                              chunks)
+    if relative:
+        tol = tol * max(1.0, float(np.abs(want).max()))
+    worst = np.inf
+    for t, row in enumerate(want):
+        top2 = np.sort(row)[-2:]
+        margin = float(top2[1] - top2[0])
+        tok, cpu_tok = int(res.new_tokens[t]), int(np.argmax(row))
+        if tok != cpu_tok and margin > tol:
+            _fail(f"{label} request {res.uid} step {t}: card {tok} cpu "
+                  f"{cpu_tok}, top-2 margin {margin:.4f}")
+        worst = min(worst, margin)
+    print(f"  {label} request {res.uid}: P={len(res.prompt)} prefix "
+          f"{res.prefix_tokens} tokens {res.new_tokens.tolist()} equal the "
+          f"CPU argmax (smallest margin {worst:.4f})")
+    return worst
+
+
+def rwkv_paged_card_vs_cpu(cfglib, registry):
+    """Phase 29, ``rwkv6-7b`` at full width and depth 2: three requests
+    (prompts 100, 37, 128; 8 tokens; 2 slots; pages of 16) and a repeat of
+    the first, which hits the prefix cache, through the paged scheduler on
+    the card, each stream held against the port's plain CPU serving path
+    fed the same tokens over the same chunks."""
+    from repro_torch.train.serve_engine import ServeEngine
+    from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
+    t0 = time.perf_counter()
+    cfg = cfglib.get_config("rwkv6-7b").with_depth(2)
+    params = registry.get_model(cfg).init(torch.Generator().manual_seed(0),
+                                          cfg, device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, (P,)).astype(np.int32)
+               for P in (100, 37, 128)]
+    reqs = [Request(prompt=p, max_new_tokens=8) for p in prompts + prompts[:1]]
+    eng = ServeEngine(cfg, params, device="cuda", max_len=128 + 8 + 1,
+                      paged=True, block_size=PAGE, prefix_cache=True)
+    res = ContinuousScheduler(eng, max_batch=2, num_blocks=48).run(reqs)
+    if [r.prefix_tokens for r in res] != [0, 0, 0, 96]:
+        _fail(f"rwkv card vs cpu: prefix tokens "
+              f"{[r.prefix_tokens for r in res]}, expected [0, 0, 0, 96]")
+    if not np.array_equal(res[3].tokens, res[0].tokens):
+        _fail("rwkv card vs cpu: the prefix hit differs from its cold run")
+    worst = min(_stream_vs_cpu("rwkv6-7b paged", cfg, params, r,
+                               _prefill_chunks(len(r.prompt), PAGE, True),
+                               LOGIT_TOL) for r in res)
+    print(f"rwkv paged card vs cpu ({cfg.num_layers} layers): 4 requests x 8 "
+          f"tokens equal where the margin allows (smallest {worst:.4f}), the "
+          f"hit equal to its cold run; {time.perf_counter() - t0:.1f} s")
+
+
+def jamba_paged_card_vs_cpu(cfg, engine, host):
+    """Phase 29, jamba at full width and depth 8: three short requests
+    (prompts 64, 37, 20; 4 tokens; 2 slots; pages of 16) through the paged
+    scheduler on the card against the CPU's serving path over the same
+    chunks (``host``: phase 19's weights on the host), tokens equal where
+    the CPU's top-2 margin exceeds ``JAMBA_LOGIT_TOL`` of max(1,
+    max|logit|)."""
+    from repro_torch.train.serve_engine import ServeEngine
+    from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
+                                        (P,)).astype(np.int32),
+                    max_new_tokens=4) for P in (64, 37, 20)]
+    eng = ServeEngine(cfg, engine.params, device="cuda", max_len=64 + 4 + 1,
+                      paged=True, block_size=PAGE)
+    res = ContinuousScheduler(eng, max_batch=2).run(reqs)
+    worst = min(_stream_vs_cpu("jamba paged", cfg, host, r,
+                               _pow2(len(r.prompt)),
+                               JAMBA_LOGIT_TOL, relative=True) for r in res)
+    print(f"jamba paged card vs cpu: 3 requests x 4 tokens equal where the "
+          f"margin allows (smallest {worst:.4f}); "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2576,16 +2963,22 @@ def main() -> int:
         cfglib, registry, ServeEngine)
 
     # 20. card against CPU
-    jamba_card_vs_cpu(jamba_cfg, engine, registry)
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
+    jamba_host = jamba_card_vs_cpu(jamba_cfg, engine, registry)
 
     # 21. scan times
     n_mamba = sum(jamba_cfg.layer_kind(i) == "mamba"
                   for i in range(jamba_cfg.num_layers))
     t_scan, t_fa_jamba = jamba_times(scan_ops, fa_ops, jamba_res,
                                      n_mamba)
+
+    # 28. jamba in continuous serving on phase 19's weights: paged over
+    # f32 and int8 pages, contiguous, the zero-layer draft; counters from 0
+    # before each run.  29, jamba's half: card against CPU, paged
+    jamba_cont = jamba_continuous_paths(jamba_cfg, engine)
+    jamba_paged_card_vs_cpu(jamba_cfg, engine, jamba_host)
+    del engine, jamba_host
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 22. self-speculative decoding: phase 6's traffic, counters from 0;
     # the same with the prefix cache over int8 pages; the paper's draft;
@@ -2637,6 +3030,19 @@ def main() -> int:
     card_vs_cpu(cfglib, registry, ServeEngine, fa_ops, "starcoder2-3b", 2)
     paged_card_vs_cpu(cfglib, registry, "starcoder2-3b", 2)
     print(f"starcoder2 phase {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 27. rwkv6-7b at full width and depth in continuous serving: paged
+    # through the CLI, then on its weights the prefix cache, speculation
+    # and the paper's draft, counters from 0 before each run
+    rwkv_cont = rwkv_continuous_paths(cfglib, registry, serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 29, rwkv6-7b's half: card against CPU at depth 2, paged with a
+    # prefix hit
+    rwkv_paged_card_vs_cpu(cfglib, registry)
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -2644,6 +3050,8 @@ def main() -> int:
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
          "launches": launches, "spec_path_launches": spec_launches,
+         "jamba_contiguous_launches":
+             jamba_cont["contiguous"]["flash_attention"],
          "max_abs_err": main_err, **t,
          **t_fa_jamba, "f64_err": fa_f64,
          "registers_spills": [list(r) for r in fa_regs]},
@@ -2657,6 +3065,8 @@ def main() -> int:
          "gpt2_12l": {"launches": paged_launches, "spec_path_launches": 0,
                       "max_abs_err": paged_errs["float32"], **tp, **pa_call},
          "quantized": quantized,
+         "jamba_v01_52b": {run: jamba_cont[run]["paged_attention"]
+                           for run in ("paged f32", "paged int8")},
          "registers_spills": [list(r) for r in pa_regs]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2679,13 +3089,19 @@ def main() -> int:
         {"name": "wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
          "replaces": "src/repro/kernels/rwkv6/kernel.py:71",
-         "launches": wkv_launches, "max_abs_err": wkv_err, **t_wkv,
+         "launches": wkv_launches, "spec_path_launches": rwkv_cont["spec"],
+         "continuous_launches": rwkv_cont, "max_abs_err": wkv_err, **t_wkv,
          "registers_spills": [list(r) for r in wkv_regs]},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/mamba_scan/csrc/"
                    "selective_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/kernel.py:49",
-         "launches": jamba_counts["selective_scan"], "max_abs_err": scan_err,
+         "launches": jamba_counts["selective_scan"],
+         "spec_path_launches":
+             jamba_cont["zero-layer draft"]["selective_scan"],
+         "continuous_launches": {run: c["selective_scan"]
+                                 for run, c in jamba_cont.items()},
+         "max_abs_err": scan_err,
          **t_scan, "registers_spills": [list(r) for r in scan_regs]}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,10 @@ per-token decode, or continuous batching over a paged KV pool.
 ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``, ``rwkv6-7b`` and
 ``jamba-v0.1-52b`` (``--smoke`` for the reduced config); the rest of the
 reference registry exits naming its ROADMAP item (windows, MLA, the
-encoder-decoder, M-RoPE: item 12).  RWKV6 and jamba serve batch to
-completion, their prefill through the WKV and selective-scan kernels on
-the card and their decode stepping the recurrent state.  Random weights
+encoder-decoder, M-RoPE: item 12).  RWKV6 and jamba serve in every mode
+below, their prefill (and each chunk of a chunked prefill, from the
+carried state) through the WKV and selective-scan kernels on the card and
+their decode stepping the recurrent state.  Random weights
 that the card cannot hold are refused before they are drawn: ``yi-34b``
 (60 layers, ~138 GB of float32 weights) and ``jamba`` (32 layers, 206 GB)
 at full depth do not fit one card; serve a checkpoint of fewer layers.
@@ -72,6 +73,9 @@ acceptance rate and the mean accepted length.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --continuous --paged --spec-depth 1 --gamma 3 --max-batch 2 \
         --requests 6 --block-size 4 --chunk-len 4 --rate 1000
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --smoke --device cpu --continuous --paged --prefix-cache \
+        --spec-depth 1                                 # RWKV6, every mode
 """
 from __future__ import annotations
 
@@ -84,7 +88,7 @@ import torch
 from repro_torch import bridge
 from repro_torch import configs as cfglib
 from repro_torch.checkpoint import checkpointer as ckpt
-from repro_torch.models import registry, transformer
+from repro_torch.models import registry
 from repro_torch.train.serve_engine import ServeEngine
 from repro_torch.train.serve_scheduler import (ContinuousScheduler, Request,
                                                summarize)
@@ -222,9 +226,6 @@ def main(argv=None):
 
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
-    if args.continuous and transformer.has_recurrent_layers(cfg):
-        raise SystemExit(f"--continuous with {cfg.name}: "
-                         f"{transformer.CARRY_NOT_PORTED}")
     if args.checkpoint:
         params, cfg = load_params(args.checkpoint, cfg, step=args.step)
     else:

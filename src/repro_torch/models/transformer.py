@@ -27,9 +27,6 @@ from repro_torch.tree import leaves_with_path, tree_map
 
 _KIND = ("ROADMAP queue A item 12 (remaining architectures): {what} is not "
          "ported yet")
-CARRY_NOT_PORTED = ("ROADMAP queue A item 17 (recurrent carries in "
-                    "continuous batching): RWKV6 and Mamba layers serve "
-                    "batch to completion only")
 
 
 def _check_layer(cfg: ModelConfig, i: int):
@@ -39,16 +36,27 @@ def _check_layer(cfg: ModelConfig, i: int):
         raise NotImplementedError(_KIND.format(what=f"block kind {kind!r}"))
 
 
-def has_recurrent_layers(cfg: ModelConfig) -> bool:
-    """Whether any layer keeps per-row recurrent state instead of K/V."""
-    return any(cfg.layer_kind(i) != "attn" for i in range(cfg.pattern_period))
-
-
-def _check_attention(cfg: ModelConfig, i: int):
-    """Admit the layers whose per-row state lives in the paged pool."""
+def _check_paged(cfg: ModelConfig, i: int):
+    """Admit the layers a paged cache holds: global attention in the pool,
+    Mamba and RWKV6 state per row.  A sliding-window ring beside the pool
+    comes with ROADMAP queue A item 12."""
     _check_layer(cfg, i)
-    if cfg.layer_kind(i) != "attn":
-        raise NotImplementedError(CARRY_NOT_PORTED)
+    if cfg.layer_kind(i) == "attn" and cfg.layer_window(i) > 0:
+        raise NotImplementedError(
+            _KIND.format(what="a sliding-window ring beside the pool"))
+
+
+def _recurrent_state(cfg: ModelConfig, i: int, batch: int):
+    """Shapes (meta tensors) of one recurrent layer's per-row state."""
+    if cfg.layer_kind(i) == "rwkv":
+        return ssm_mod.rwkv_init_state(cfg, batch, device="meta")
+    return ssm_mod.mamba_init_state(cfg, batch, device="meta")
+
+
+def _stacked_zeros(one: dict, n_super: int, device) -> dict:
+    """Zeros of ``one``'s shapes and dtypes behind a leading n_super axis."""
+    return {k: torch.zeros((n_super,) + tuple(t.shape), dtype=t.dtype,
+                           device=device) for k, t in one.items()}
 
 
 def _tree_index(tree, s: int):
@@ -261,17 +269,13 @@ def lm_init_cache(params, cfg: ModelConfig, batch_size: int, max_len: int,
     out = {}
     for i in range(cfg.pattern_period):
         _check_layer(cfg, i)
-        if cfg.layer_kind(i) == "rwkv":
-            one = ssm_mod.rwkv_init_state(cfg, batch_size, device="meta")
-        elif cfg.layer_kind(i) == "mamba":
-            one = ssm_mod.mamba_init_state(cfg, batch_size, device="meta")
+        if cfg.layer_kind(i) != "attn":
+            one = _recurrent_state(cfg, i, batch_size)
         else:
             one = attn.init_kv_cache(cfg, batch_size, max_len, dtype,
                                      window=cfg.layer_window(i),
                                      device="meta")
-        out[f"layer{i}"] = {k: torch.zeros((n_super,) + tuple(t.shape),
-                                           dtype=t.dtype, device=device)
-                            for k, t in one.items()}
+        out[f"layer{i}"] = _stacked_zeros(one, n_super, device)
     return out
 
 
@@ -283,40 +287,45 @@ def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
     Global-attention layers hold one pool of ``num_blocks`` pages (+1 trash
     page) addressed per row through the engine's block table; their leaves
     carry no batch dim.  ``kv_dtype`` overrides the pool's storage dtype;
-    int8/fp8 pools add float32 scale leaves, which stay float32.
-    ``batch_size`` and ``max_len`` size the per-row state of
-    window and recurrent layers, which come with ROADMAP queue A items 12
-    (window rings) and 17 (recurrent carries)."""
-    del batch_size, max_len
+    int8/fp8 pools add float32 scale leaves, which stay float32.  Mamba and
+    RWKV6 layers keep their O(1) recurrent state per row
+    (``batch_size`` rows) in float32, which ``kv_dtype`` never touches:
+    it is not the paged working set.  ``max_len`` sizes the sliding-window
+    rings of ROADMAP queue A item 12."""
+    del max_len
     n_super = num_superblocks(params)
     if n_super == 0:
         return {}
     pool_dtype = dtype if kv_dtype is None else kv_dtype
     out = {}
     for i in range(cfg.pattern_period):
-        _check_attention(cfg, i)
-        if cfg.layer_window(i) > 0:
-            raise NotImplementedError(
-                _KIND.format(what="a sliding-window ring beside the pool"))
-        one = attn.init_paged_kv_cache(cfg, num_blocks, block_size,
-                                       pool_dtype, device="meta")
-        out[f"layer{i}"] = {k: torch.zeros((n_super,) + tuple(t.shape),
-                                           dtype=t.dtype, device=device)
-                            for k, t in one.items()}
+        _check_paged(cfg, i)
+        if cfg.layer_kind(i) != "attn":
+            one = _recurrent_state(cfg, i, batch_size)
+        else:
+            one = attn.init_paged_kv_cache(cfg, num_blocks, block_size,
+                                           pool_dtype, device="meta")
+        out[f"layer{i}"] = _stacked_zeros(one, n_super, device)
     return out
 
 
 def lm_init_prefill_carry(params, cfg: ModelConfig, max_len: int,
                           dtype=torch.bfloat16, device="cuda"):
     """B=1 chunked-prefill carry: the per-row state a prefilling request
-    threads between chunks.  Paged global-attention layers carry nothing
-    ({}): their K/V goes straight into the shared pool."""
-    del max_len, dtype, device
-    if num_superblocks(params) == 0:
+    threads between chunks, the recurrent states of Mamba and RWKV6 layers
+    (float32, leading n_super axis).  Paged global-attention layers carry
+    nothing ({}): their K/V goes straight into the shared pool."""
+    del max_len, dtype
+    n_super = num_superblocks(params)
+    if n_super == 0:
         return {}
+    out = {}
     for i in range(cfg.pattern_period):
-        _check_attention(cfg, i)
-    return {f"layer{i}": {} for i in range(cfg.pattern_period)}
+        _check_paged(cfg, i)
+        out[f"layer{i}"] = ({} if cfg.layer_kind(i) == "attn" else
+                            _stacked_zeros(_recurrent_state(cfg, i, 1),
+                                           n_super, device))
+    return out
 
 
 def _write(cache_l: dict, new: dict):
@@ -372,11 +381,14 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens, cache, carry,
                      block_table, ctx_len: int):
     """One chunked-prefill step: tokens (B, C) at absolute positions
     ``ctx_len .. ctx_len + C - 1``.  K/V lands in the shared pool of
-    ``cache`` through ``block_table`` (B, NB), in place; ``carry`` (the
-    B=1 per-row state of window and recurrent layers) is empty for the
-    global-attention layers served here and returned as is.  Returns
-    (last-position logits (B, 1, V), cache, carry): only the final
-    chunk's logits are sampled, so the head runs on one position."""
+    ``cache`` through ``block_table`` (B, NB), in place; Mamba and RWKV6
+    layers thread the B=1 ``carry`` through ``mamba_prefill`` and
+    ``rwkv_*_prefill`` exactly as the full prefill threads its cache, in
+    place (on the card: one scan or WKV launch per layer, from the
+    carried state).  The chunks of a binary decomposition are exact (never
+    padded), so the carry sees only real tokens.  Returns (last-position
+    logits (B, 1, V), cache, carry): only the final chunk's logits are
+    sampled, so the head runs on one position."""
     B, C = tokens.shape
     x = embed_tokens(params, cfg, tokens, offset=ctx_len)
     positions = (ctx_len + torch.arange(C, device=x.device))[None, :].expand(
@@ -384,8 +396,13 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens, cache, carry,
     for s in range(num_superblocks(params)):
         sb = _tree_index(params["blocks"], s)
         cache_sb = _tree_index(cache, s)
+        carry_sb = _tree_index(carry, s)
         for i in range(cfg.pattern_period):
             lp = sb[f"layer{i}"]
+            if cfg.layer_kind(i) != "attn":
+                x, _ = _prefill_layer(lp, carry_sb[f"layer{i}"], cfg, i, x,
+                                      positions)
+                continue
             h = apply_norm(lp["ln1"], x, cfg.norm)
             y, _ = attn.attn_prefill_chunk(
                 lp["attn"], cfg, h, cache_sb[f"layer{i}"], ctx_len,
@@ -395,25 +412,38 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens, cache, carry,
     return _head(params, cfg, x[:, -1:]), cache, carry
 
 
+def _recurrent_step(lp, cfg: ModelConfig, i: int, x, state):
+    """One Mamba or RWKV6 layer over one token per row, x (B, 1, D):
+    the decode math, returning (x, new state) without writing it."""
+    h = apply_norm(lp["ln1"], x, cfg.norm)
+    if cfg.layer_kind(i) == "mamba":
+        y, state = ssm_mod.mamba_decode(lp["mamba"], cfg, h, state)
+        return _ffn_residual(lp, cfg, i, x + y)[0], state
+    y, state = ssm_mod.rwkv_decode(lp["rwkv_tm"], cfg, h, state)
+    x = x + y
+    h = apply_norm(lp["ln2"], x, cfg.norm)
+    y, state = ssm_mod.rwkv_channel_mix_decode(lp["rwkv_tm"], cfg, h, state)
+    return x + y, state
+
+
+def _frozen(new: dict, old: dict, write_mask) -> dict:
+    """Rows with ``write_mask`` False keep ``old`` bit for bit."""
+    if write_mask is None:
+        return new
+    out = {}
+    for key, t in new.items():
+        keep = write_mask.reshape((-1,) + (1,) * (t.ndim - 1))
+        out[key] = torch.where(keep, t, old[key])
+    return out
+
+
 def _decode_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions,
                   block_table=None, write_mask=None):
+    if cfg.layer_kind(i) != "attn":
+        x, state = _recurrent_step(lp, cfg, i, x, cache_l)
+        _write(cache_l, _frozen(state, cache_l, write_mask))
+        return x, cache_l
     h = apply_norm(lp["ln1"], x, cfg.norm)
-    kind = cfg.layer_kind(i)
-    if kind != "attn" and (write_mask is not None
-                           or block_table is not None):
-        raise NotImplementedError(CARRY_NOT_PORTED)
-    if kind == "mamba":
-        y, state = ssm_mod.mamba_decode(lp["mamba"], cfg, h, cache_l)
-        _write(cache_l, state)
-        return _ffn_residual(lp, cfg, i, x + y)[0], cache_l
-    if kind == "rwkv":
-        y, state = ssm_mod.rwkv_decode(lp["rwkv_tm"], cfg, h, cache_l)
-        x = x + y
-        h = apply_norm(lp["ln2"], x, cfg.norm)
-        y, state = ssm_mod.rwkv_channel_mix_decode(lp["rwkv_tm"], cfg, h,
-                                                   state)
-        _write(cache_l, state)
-        return x + y, cache_l
     if "k_pages" in cache_l:
         y, cache_l = attn.attn_decode_paged(lp["attn"], cfg, h, cache_l,
                                             block_table, index, positions,
@@ -436,7 +466,9 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,
     the shared pool through ``block_table`` (B, NB); the cursor is cast to
     int32 once here for every layer's kernel.  Rows with
     ``write_mask == False`` leave the cache as it was: contiguous rows
-    write their slot's old value back, pool writes go to the trash page."""
+    write their slot's old value back, pool writes go to the trash page,
+    and Mamba and RWKV6 rows keep their state bit for bit (a select
+    against the old state before the in-place write)."""
     B = tokens.shape[0]
     index = torch.as_tensor(index, device=tokens.device).long()
     if index.ndim == 0:
@@ -462,9 +494,21 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,
 # Self-speculative decoding: the multi-token verify forward
 # ---------------------------------------------------------------------------
 
-_SPEC_CARRY = ("ROADMAP queue A item 17 (recurrent carries in continuous "
-               "batching): the recurrent checkpoint rings of the draft loop "
-               "and the verify are not ported yet")
+def _replay_layer(lp, cache_l, ring_l, cfg: ModelConfig, i: int, x):
+    """A Mamba or RWKV6 layer over a (B, C) verify chunk, replayed as C
+    single-token decode steps with the exact decode math (so the replay is
+    bitwise sequential decode).  ``ring_l`` leaves (C+1, B, ...) receive
+    the pre-round state (entry 0) and the state after every step; the
+    cache itself is left as it was, for ``lm_spec_commit``."""
+    for key, t in cache_l.items():
+        ring_l[key][0].copy_(t)
+    state, outs = cache_l, []
+    for t in range(x.shape[1]):
+        xt, state = _recurrent_step(lp, cfg, i, x[:, t:t + 1], state)
+        for key, v in state.items():
+            ring_l[key][t + 1].copy_(v)
+        outs.append(xt)
+    return torch.cat(outs, dim=1)
 
 
 def _verify_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions,
@@ -473,8 +517,6 @@ def _verify_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions,
     ``index``, scored through the block table.  A window layer raises in
     ``attn_verify_chunk`` (its deferred ring commit comes with ROADMAP
     queue A item 12)."""
-    if cfg.layer_kind(i) != "attn":
-        raise NotImplementedError(_SPEC_CARRY)
     h = apply_norm(lp["ln1"], x, cfg.norm)
     y, cache_l = attn.attn_verify_chunk(lp["attn"], cfg, h, cache_l, index,
                                         positions, cfg.layer_window(i),
@@ -489,7 +531,11 @@ def lm_verify(params, cfg: ModelConfig, tokens, cache, index, block_table,
     row b's chunk at absolute positions ``index[b] .. index[b] + C - 1``.
     K/V goes into the paged pool through ``block_table`` (B, NB), in place;
     ``write_mask`` (B, C) sends inactive rows and positions at or past a
-    row's limit to the trash page.  Returns (logits (B, C, V), cache)."""
+    row's limit to the trash page.  Mamba and RWKV6 layers replay the chunk
+    as C decode steps into a (C+1)-deep checkpoint ring per layer (entry 0
+    the pre-round state), which the returned cache carries under
+    ``"pending"`` for :func:`lm_spec_commit`; their state leaves are not
+    written here.  Returns (logits (B, C, V), cache)."""
     B, C = tokens.shape
     index = torch.as_tensor(index, device=tokens.device).long()
     if index.ndim == 0:
@@ -498,22 +544,46 @@ def lm_verify(params, cfg: ModelConfig, tokens, cache, index, block_table,
     x = params["embed"][tokens]
     if cfg.position == "absolute":
         x = x + _pos_embed(params, pos)
+    rings = {}                 # leaves (n_super, C+1, B, ...)
+    for i in range(cfg.pattern_period):
+        ln = f"layer{i}"
+        if ln in cache and cfg.layer_kind(i) != "attn":
+            rings[ln] = {k: t.new_empty((t.shape[0], C + 1) + t.shape[1:])
+                         for k, t in cache[ln].items()}
     for s in range(num_superblocks(params)):
         sb = _tree_index(params["blocks"], s)
         cache_sb = _tree_index(cache, s)
         for i in range(cfg.pattern_period):
-            x, _ = _verify_layer(sb[f"layer{i}"], cache_sb[f"layer{i}"], cfg,
-                                 i, x, index, pos, block_table, write_mask)
-    return _head(params, cfg, x), cache
+            ln = f"layer{i}"
+            if ln in rings:
+                x = _replay_layer(sb[ln], cache_sb[ln],
+                                  _tree_index(rings[ln], s), cfg, i, x)
+                continue
+            x, _ = _verify_layer(sb[ln], cache_sb[ln], cfg, i, x, index, pos,
+                                 block_table, write_mask)
+    out = dict(cache)
+    for ln, ring in rings.items():
+        out[ln] = {**cache[ln], "pending": ring}
+    return _head(params, cfg, x), out
 
 
 def lm_spec_commit(cache, index, acc):
     """Resolve a verify forward's deferred per-row advances for the ``acc``
-    accepted tokens of each row.  Paged pool leaves pass through: rejected
+    accepted tokens of each row.  Mamba and RWKV6 layers write checkpoint
+    ``acc[b]`` of their ring into row b's state, in place (entry 0 is the
+    pre-round state, so ``acc == 0``, an inactive row, is an exact
+    freeze), and drop the ring.  Paged pool leaves pass through: rejected
     positions there lie past the rewound cursor (never read, always
-    rewritten first), so rollback costs them nothing.  The deferred
-    entries of window rings and recurrent layers come with ROADMAP queue A
-    items 12 and 17; ``lm_verify`` refuses those layers before making
-    any, so every leaf here is a pool leaf."""
-    del index, acc
-    return cache
+    rewritten first), so rollback costs them nothing.  The deferred ring
+    commit of window layers comes with ROADMAP queue A item 12."""
+    del index
+    rows = torch.arange(acc.shape[0], device=acc.device)
+    out = {}
+    for ln, lc in cache.items():
+        if "pending" in lc:
+            lc = dict(lc)
+            ring = lc.pop("pending")
+            for key, ck in ring.items():       # (n_super, C+1, B, ...)
+                lc[key].copy_(ck[:, acc, rows])
+        out[ln] = lc
+    return out

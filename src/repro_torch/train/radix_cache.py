@@ -297,9 +297,9 @@ class RadixCache:
         never FREE it; the fallback may drop its tree node, but an engine
         hands the restored carry out as a device COPY before any
         allocation runs, so dropping a node's snapshot buffers cannot
-        invalidate an admitted row's state.  (The port's engine serves
-        carryless configs only: carry configs come with ROADMAP queue A
-        items 12 and 17.)"""
+        invalidate an admitted row's state.  (The port's engine snapshots
+        the recurrent carries of Mamba and RWKV6 layers; window rings come
+        with ROADMAP queue A item 12.)"""
         victim, fallback = None, None
 
         def walk(n):

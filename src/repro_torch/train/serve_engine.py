@@ -48,10 +48,15 @@ draft rolls back by its cursor alone.  Greedy spec streams stay
 byte-identical to non-speculative decode, and a ``copying_zeroL``
 expansion's draft at its source depth accepts every proposal.
 
-Continuous batching serves attention layers only; recurrent carries, and
-with them the recurrent checkpoint rings of speculation, come with ROADMAP
-queue A item 17, sliding-window rings with item 12, fault injection with
-item 11, mesh sharding with item 13.
+Continuous batching serves Mamba and RWKV6 layers too (``rwkv6-7b``,
+Mamba stacks, jamba's hybrid): their O(1) state lives per row beside the
+pool, a chunked prefill threads it through a B=1 carry, a masked decode
+freezes inactive rows' state, a verify replays the chunk as decode steps
+into a checkpoint ring from which each row keeps its accepted prefix, and
+the draft rolls back the same way.  A prefix-cache hit on such a model
+restores a copy of the carry its publisher snapshotted at a page
+boundary.  Sliding-window rings come with ROADMAP queue A item 12, fault
+injection with item 11, mesh sharding with item 13.
 """
 from __future__ import annotations
 
@@ -70,7 +75,7 @@ from repro_torch.models.common import resolve_device
 from repro_torch.train import steps as steps_lib
 from repro_torch.train.kv_pool import KVBlockPool
 from repro_torch.train.radix_cache import RadixCache
-from repro_torch.tree import leaves_with_path
+from repro_torch.tree import leaves_with_path, tree_map
 
 
 def resolve_kv_dtype(kv_dtype):
@@ -123,8 +128,11 @@ class PrefillJob:
     (largest first, optionally capped at the scheduler's ``chunk_len``),
     one chunk per scheduler iteration.  K/V lands directly in the shared
     pool through the row's block table; ``carry`` threads the B=1 per-row
-    state between chunks.  A prefix-cache hit starts at ``ctx =
-    prefix_tokens``."""
+    state between chunks, written in place.  A prefix-cache hit starts at
+    ``ctx = prefix_tokens``.  On a prefix-cache engine whose carry is not
+    empty, ``snap_at`` is the page boundary where a chunk edge is forced
+    and ``snapshot`` the copy of the carry taken there (published with the
+    prompt's pages)."""
     row: int
     prompt: np.ndarray               # (P,) int32
     max_new_tokens: int
@@ -133,6 +141,8 @@ class PrefillJob:
     ctx: int = 0                     # tokens prefilled so far
     prefix_tokens: int = 0           # prompt tokens served from shared pages
     first_token: object = None       # (1, 1) device token once sampled
+    snap_at: int = 0                 # carry snapshot boundary (0: none)
+    snapshot: object = None          # device copy of the carry at snap_at
 
     @property
     def done(self) -> bool:
@@ -218,6 +228,12 @@ class ServeEngine:
         self._cont_built = {}         # sample? -> (masked decode, admit)
         self._chunk_built = {}        # (final?, sample?) -> chunk step
         self._page_copy = steps_lib.make_page_copy_step()
+        # Carryless configs (every layer paged global attention) restore no
+        # state on a prefix hit and may match at any page depth; recurrent
+        # configs clamp their matches to carry snapshots.
+        self._carry_empty = all(
+            cfg.layer_kind(i) == "attn" and cfg.layer_window(i) == 0
+            for i in range(cfg.pattern_period))
         self.spec_decode = spec_decode
         self.gamma = gamma
         if spec_decode:
@@ -249,6 +265,14 @@ class ServeEngine:
                                                           draft_depth)
         self.draft_api = registry.get_model(self.draft_cfg)
         self._spec_built = {}         # sample? -> (draft loop, verify)
+        # The draft's Mamba/RWKV6 layers roll back from the draft loop's
+        # checkpoint ring; its attention layers by the cursor alone.
+        dcfg = self.draft_cfg
+        self._draft_rec = tuple(
+            f"layer{i}" for i in range(dcfg.pattern_period)
+            if dcfg.num_layers and dcfg.layer_kind(i) != "attn")
+        self._draft_rollback = steps_lib.make_draft_rollback_step(
+            self._draft_rec)
         self._draft_prefill = steps_lib.make_prefill_step(self.draft_cfg)
         self._row_scatter = steps_lib.make_row_scatter_step()
 
@@ -395,8 +419,6 @@ class ServeEngine:
         default), the pool and the device block table; prefix-cache engines
         the radix tree over the pool."""
         del temperature               # steps are built per call
-        if transformer.has_recurrent_layers(self.cfg):
-            raise NotImplementedError(transformer.CARRY_NOT_PORTED)
         dev = self.device
         pool = table = radix = None
         if self.paged:
@@ -495,7 +517,8 @@ class ServeEngine:
         if sample not in self._spec_built:
             self._spec_built[sample] = (
                 steps_lib.make_draft_loop_step(self.draft_cfg, self.gamma,
-                                               sample=sample),
+                                               sample=sample,
+                                               rec_layers=self._draft_rec),
                 steps_lib.make_verify_step(self.cfg, self.gamma,
                                            sample=sample))
         return self._spec_built[sample]
@@ -528,22 +551,26 @@ class ServeEngine:
         row b emitted ``out_tokens[b, :acc[b]]`` (inactive rows none).  The
         caller moves its host cursors by ``acc`` and releases pages past
         them (``state.pool.truncate_row``); neither the pool nor the
-        full-attention draft cache needs a device rollback."""
+        full-attention draft cache needs a device rollback.  The target's
+        recurrent layers keep their accepted prefix in the verify's commit,
+        the draft's are rolled back here, from the draft loop's ring."""
         state = self._sync_table(state)
         draft, verify = self._spec_steps(temperature)
         if temperature > 0:
-            vt, probs, dcache = draft(
+            vt, probs, dcache, ring = draft(
                 self.draft_params, state.tokens, state.draft_cache,
                 state.index, state.active, temperature, state.generator)
             extra = (probs, temperature)
         else:
-            vt, dcache = draft(self.draft_params, state.tokens,
-                               state.draft_cache, state.index, state.active,
-                               state.generator)
+            vt, dcache, ring = draft(self.draft_params, state.tokens,
+                                     state.draft_cache, state.index,
+                                     state.active, state.generator)
             extra = ()
         out, acc, nxt, cache, index, active = verify(
             self.params, vt, state.cache, state.index, state.active,
             state.limit, state.block_table, eos_id, *extra, state.generator)
+        if self._draft_rec:
+            dcache = self._draft_rollback(dcache, ring, acc)
         state = dataclasses.replace(state, tokens=nxt, cache=cache,
                                     draft_cache=dcache, index=index,
                                     active=active)
@@ -575,13 +602,15 @@ class ServeEngine:
         :meth:`begin_prefill`; between those two host calls nothing can
         evict the matched pages (eviction only runs inside allocation).
         ``max_pages`` caps the match depth: the scheduler re-clamps an
-        inadmissible hit shallower until it fits.  Every config served here
-        is carryless (its non-pool layers carry nothing), so a match may
-        reach any page depth."""
+        inadmissible hit shallower until it fits.  A carryless config
+        matches at any page depth; a config with Mamba or RWKV6 layers
+        clamps to the deepest carry snapshot strictly below the prompt's
+        length (``RadixCache.match``)."""
         if state.radix is None:
             return None
         prompt = np.asarray(prompt, np.int32).ravel()
-        return state.radix.match(prompt, carryless=True, max_pages=max_pages)
+        return state.radix.match(prompt, self._carry_empty,
+                                 max_pages=max_pages)
 
     def begin_prefill(self, state: ContinuousState, row: int, prompt,
                       max_new_tokens: int, chunk_len: Optional[int] = None,
@@ -601,29 +630,47 @@ class ServeEngine:
         first-token logits.  Greedy tokens stay byte-identical to a cold
         run: shared-page K/V depends only on the token prefix and the
         position, and the tail attends over it through the block table
-        exactly as the request's own prefill would have."""
+        exactly as the request's own prefill would have.  A hit on a
+        recurrent config starts from a copy of the matched node's carry
+        snapshot (the chunks write the carry in place; the node serves
+        later hits too).  Its publishers force a chunk edge onto the last
+        page boundary at or below P-1 and snapshot the carry there, where
+        matches clamp (the tail always reruns at least one real token)."""
         del temperature
         prompt = np.asarray(prompt, np.int32).ravel()
         P = len(prompt)
         if P >= self.max_len:
             raise ValueError(f"prompt {P} exceeds max_len {self.max_len}")
-        skip = 0
-        if match is not None:
+        skip, carry = 0, None
+        if match is None:
+            state.pool.admit(row, P, max_new_tokens)
+        else:
             cow = state.pool.admit_prefix(row, P, max_new_tokens,
                                           match.pages, match.cow_last)
             if cow is not None:
                 state = dataclasses.replace(
                     state, cache=self._page_copy(state.cache, *cow))
             skip = match.skip
+            if match.carry is not None:
+                carry = tree_map(torch.clone, match.carry)
+        if carry is None:
+            carry = self.api.init_prefill_carry(
+                self.params, self.cfg, self.max_len, self.cache_dtype,
+                device=self.device)
+        snap_at = 0
+        if state.radix is not None and not self._carry_empty:
+            boundary = ((P - 1) // self.block_size) * self.block_size
+            if boundary > skip:
+                snap_at = boundary
+        if snap_at:
+            chunks = (pow2_chunks(snap_at - skip, chunk_len)
+                      + pow2_chunks(P - snap_at, chunk_len))
         else:
-            state.pool.admit(row, P, max_new_tokens)
-        carry = self.api.init_prefill_carry(self.params, self.cfg,
-                                            self.max_len, self.cache_dtype,
-                                            device=self.device)
+            chunks = pow2_chunks(P - skip, chunk_len)
         job = PrefillJob(row=row, prompt=prompt,
-                         max_new_tokens=max_new_tokens,
-                         chunks=pow2_chunks(P - skip, chunk_len), carry=carry,
-                         ctx=skip, prefix_tokens=skip)
+                         max_new_tokens=max_new_tokens, chunks=chunks,
+                         carry=carry, ctx=skip, prefix_tokens=skip,
+                         snap_at=snap_at)
         return state, job
 
     def prefill_chunk(self, state: ContinuousState, job: PrefillJob,
@@ -645,6 +692,9 @@ class ServeEngine:
         job.chunks.pop(0)
         job.carry = out[-1]
         job.ctx += C
+        if job.snap_at and job.ctx == job.snap_at and job.snapshot is None:
+            # A copy, not the carry itself: the next chunk writes it.
+            job.snapshot = tree_map(torch.clone, job.carry)
         return dataclasses.replace(state, cache=out[-2]), tok
 
     def admit_paged(self, state: ContinuousState, job: PrefillJob,
@@ -654,7 +704,8 @@ class ServeEngine:
         tokens/cursor/active/limit.  A prefix-cache engine first publishes
         the prompt's full pages: every slot of them now holds prompt K/V
         and is never written again (decode writes positions >= P).  The
-        first publisher of a path wins."""
+        first publisher of a path wins; a recurrent config's carry
+        snapshot attaches at its page boundary."""
         _, admit = self._cont_steps(temperature)
         if self.spec_decode:
             state = self._admit_draft(state, job.row, job.prompt)
@@ -663,7 +714,8 @@ class ServeEngine:
             n_pub = P // self.block_size
             if n_pub:
                 state.radix.publish(
-                    job.prompt, state.pool.row_pages(job.row)[:n_pub], n_pub)
+                    job.prompt, state.pool.row_pages(job.row)[:n_pub], n_pub,
+                    carry=job.snapshot, carry_tokens=job.snap_at)
         cache, tokens, index, active, limit = admit(
             state.cache, state.tokens, state.index, state.active,
             state.limit, job.carry, first_token, P,

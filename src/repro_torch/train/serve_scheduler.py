@@ -185,7 +185,10 @@ class ContinuousScheduler:
         its ratio to an f32 pool.  Quantization changes no page count, so
         the ratio is the capacity win at fixed cache bytes (int8 or fp8
         pages with f32 scales: (hd + 4) / (4 hd)).  Degenerate on
-        contiguous engines, which have no pool."""
+        contiguous engines, which have no pool, and on models with no
+        paged attention layer (``rwkv6-7b``, Mamba stacks): their pool
+        holds 0 bytes a token in every dtype, and the ratio is 1.0 where
+        the reference divides 0 by 0 and raises."""
         eng = self.engine
         if not eng.paged:
             return {"kv_dtype": None, "kv_bytes_per_token": 0.0,
@@ -195,7 +198,7 @@ class ContinuousScheduler:
         dtype = eng.kv_dtype if eng.kv_dtype is not None else eng.cache_dtype
         return {"kv_dtype": str(dtype).replace("torch.", ""),
                 "kv_bytes_per_token": bpt, "kv_bytes_per_token_f32": f32,
-                "kv_bytes_ratio": bpt / f32}
+                "kv_bytes_ratio": bpt / f32 if f32 else 1.0}
 
     def warmup(self, requests: Sequence[Request]):
         """Run every prompt length the workload holds once, two tokens

@@ -2,8 +2,8 @@
 ``make_train_step``, ``make_eval_step``, ``_sample``, ``make_prefill_step``,
 ``make_serve_decode_step`` with its masked and paged continuous-batching
 forms, the admit, row-scatter and chunked-prefill steps, the copy-on-write
-page copy, and self-speculative decoding's draft loop and verify for
-full-attention models).
+page copy, and self-speculative decoding's draft loop, verify and the
+draft's recurrent rollback).
 
 The train step takes gradients with autograd and lets the optimizer write
 params and moments in place, where the reference jits the step and donates
@@ -356,41 +356,56 @@ def make_page_copy_step() -> Callable:
 
 
 def make_draft_loop_step(cfg: ModelConfig, gamma: int,
-                         sample: bool = False) -> Callable:
+                         sample: bool = False, rec_layers=()) -> Callable:
     """The draft loop of one speculation round: γ+1 masked draft decode
     steps over the draft's contiguous cache.
 
     Greedy:
         (draft_params, token (B,1), cache, index (B,), active (B,),
-         generator) -> (verify_tokens (B, γ+1), cache)
+         generator) -> (verify_tokens (B, γ+1), cache, ring)
     Sampling also returns the draft's post-temperature proposal
     distributions, the verify's accept-ratio denominator:
         (draft_params, token, cache, index, active, temp, generator) ->
-            (verify_tokens, probs (B, γ, V), cache)
+            (verify_tokens, probs (B, γ, V), cache, ring)
 
     Row b of ``verify_tokens`` is [current token, d_1 .. d_γ]: each step's
     input token, so the last step's proposal is dropped while its cache
     write still lands (no hole at ``cursor + γ`` after a fully accepted
     round).  Inactive rows are exact no-ops (``write_mask``: their slot is
-    written back unchanged, their cursor stays).  There is no eos or
-    limit termination: the draft proposes unconditionally and the verify
-    owns termination, so near a row's limit the draft runs positions past
-    ``max_len`` and ``max_seq_len``; those writes drop and those position
-    reads clamp (``attn_decode``, ``transformer._pos_embed``).  A
-    full-attention draft rolls back by its cursor alone: its slots past
-    the accepted prefix are invalid until rewritten."""
+    written back unchanged, their state kept, their cursor stays).  There
+    is no eos or limit termination: the draft proposes unconditionally and
+    the verify owns termination, so near a row's limit the draft runs
+    positions past ``max_len`` and ``max_seq_len``; those writes drop and
+    those position reads clamp (``attn_decode``, ``transformer._pos_embed``).
+    A full-attention draft rolls back by its cursor alone: its slots past
+    the accepted prefix are invalid until rewritten.  The Mamba and RWKV6
+    layers named in ``rec_layers`` cannot: ``ring`` holds, per such layer,
+    a (γ+2)-deep checkpoint ring of their state (leaves (γ+2, n_super, B,
+    ...); entry 0 the pre-round state, entry j the state after draft step
+    j), copies the steps' in-place writes cannot touch, from which
+    ``make_draft_rollback_step`` rewinds each row.  ``ring`` is {} without
+    ``rec_layers``."""
     api = registry.get_model(cfg)
     if gamma < 1:
         raise ValueError(f"gamma {gamma} < 1")
 
+    def checkpoint(ring, cache, j: int):
+        for ln in rec_layers:
+            for key, t in cache[ln].items():
+                ring[ln][key][j].copy_(t)
+
     @torch.inference_mode()
     def run(params, tokens, cache, index, active, temp, generator):
+        ring = {ln: {k: t.new_empty((gamma + 2,) + t.shape)
+                     for k, t in cache[ln].items()} for ln in rec_layers}
+        checkpoint(ring, cache, 0)
         inputs, probs = [], []
         tok, idx = tokens, index
         for step in range(gamma + 1):
             inputs.append(tok[:, 0])
             logits, cache = api.decode_step(params, cfg, tok, cache, idx,
                                             write_mask=active)
+            checkpoint(ring, cache, step + 1)
             if step == gamma:
                 break                # the last proposal is never verified
             last = logits[:, -1]
@@ -404,8 +419,8 @@ def make_draft_loop_step(cfg: ModelConfig, gamma: int,
             idx = idx + active.to(idx.dtype)
         vt = torch.stack(inputs, dim=1)
         if sample:
-            return vt, torch.stack(probs, dim=1), cache
-        return vt, cache
+            return vt, torch.stack(probs, dim=1), cache, ring
+        return vt, cache, ring
 
     if sample:
         return run
@@ -414,6 +429,30 @@ def make_draft_loop_step(cfg: ModelConfig, gamma: int,
         return run(params, tokens, cache, index, active, None, generator)
 
     return greedy
+
+
+def make_draft_rollback_step(rec_layers) -> Callable:
+    """(draft_cache, ring, acc (B,)) -> draft_cache.
+
+    Rolls the draft's Mamba and RWKV6 layers (``rec_layers``) back to the
+    verify's accepted prefix: row b's state becomes checkpoint ``acc[b]``
+    of the draft loop's ring, written in place: the state a sequential
+    decode of exactly the accepted tokens would carry.  An inactive row
+    (``acc == 0``) selects the pre-round state, which its frozen steps
+    left unchanged.  Full-attention draft leaves need nothing: their slots
+    past the rewound cursor are invalid until rewritten.  (The reference's
+    window-ring half comes with ROADMAP queue A item 12.)"""
+    rec_layers = tuple(rec_layers)
+
+    @torch.inference_mode()
+    def rollback(cache, ring, acc):
+        rows = torch.arange(acc.shape[0], device=acc.device)
+        for ln in rec_layers:
+            for key, ck in ring[ln].items():     # (γ+2, n_super, B, ...)
+                cache[ln][key].copy_(ck.transpose(0, 1)[:, acc, rows])
+        return cache
+
+    return rollback
 
 
 def make_verify_step(cfg: ModelConfig, gamma: int,

@@ -982,3 +982,150 @@ def test_ns_fused_on_moe_leaves(cuda_device, shape):
     want = ns_ops.newton_schulz(x.reshape((-1,) + shape[-2:]),
                                 force="ref").reshape(shape)
     assert got.shape == shape and _rel(got, want) <= 1e-4
+
+
+# Recurrent carries in continuous serving on the card: RWKV6 (heads of 16)
+# and Mamba (state dim 4) smoke stacks; the WKV and scan kernels take those
+# sizes, and neither model has an attention layer.
+def _recurrent_cfg(kind):
+    from repro_torch import configs
+    from repro_torch.configs.base import ModelConfig, SSMConfig
+    if kind == "rwkv":
+        return configs.get_smoke_config("rwkv6-7b")
+    return ModelConfig(name="t-mamba", family="ssm", num_layers=4,
+                       d_model=32, num_heads=4, num_kv_heads=4, d_ff=64,
+                       vocab_size=64, max_seq_len=160, attention="none",
+                       position="none", block_pattern=("mamba",),
+                       ssm=SSMConfig(d_state=4))
+
+
+def _recurrent_params(cfg, device, seed=0):
+    from repro_torch.models import registry
+    from repro_torch.tree import tree_map
+    params = registry.get_model(cfg).init(
+        torch.Generator().manual_seed(seed), cfg, device="cpu")
+    return params, tree_map(lambda t: t.to(device), params)
+
+
+def _recurrent_ops(kind):
+    return wkv_ops if kind == "rwkv" else scan_ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rwkv", "mamba"])
+def test_chunked_prefill_carry_on_the_card_matches_the_plain_path(
+        cuda_device, kind):
+    """A 90-token prompt as chunks of 80, 8 and 2 through
+    ``lm_prefill_chunk``: on the card each recurrent layer launches its
+    kernel once a chunk from the carried state (no plain form runs), and
+    each chunk's logits and the carry after it agree with the CPU's plain
+    forms within 1e-4 (relative to max(1, max|x|) for the carry)."""
+    from repro_torch.models import transformer as tr
+    cfg = _recurrent_cfg(kind)
+    host, dev = _recurrent_params(cfg, cuda_device)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 90))).long()
+    table = torch.zeros((1, 1), dtype=torch.int32)
+    carries = [tr.lm_init_prefill_carry(p, cfg, 90, torch.float32, device=d)
+               for p, d in ((host, "cpu"), (dev, cuda_device))]
+    kernel = _recurrent_ops(kind)
+    ctx = 0
+    for C in (80, 8, 2):
+        before = kernel.KERNEL_LAUNCHES
+        with torch.inference_mode():
+            want, _, _ = tr.lm_prefill_chunk(host, cfg, prompt[:, ctx:ctx + C],
+                                             {}, carries[0], table, ctx)
+            got, _, _ = tr.lm_prefill_chunk(
+                dev, cfg, prompt[:, ctx:ctx + C].to(cuda_device), {},
+                carries[1], table.to(cuda_device), ctx)
+        torch.cuda.synchronize()
+        assert kernel.KERNEL_LAUNCHES - before == cfg.num_layers
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=0)
+        for ln, lc in carries[0].items():
+            for key, w in lc.items():
+                g = carries[1][ln][key].cpu()
+                scale = max(1.0, float(w.abs().max()))
+                assert float((g - w).abs().max()) / scale <= 1e-4, (C, key)
+        ctx += C
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rwkv", "mamba"])
+def test_masked_decode_freezes_recurrent_rows_on_the_card(cuda_device, kind):
+    """On the card an inactive row's recurrent state comes out of a masked
+    paged decode step, a verify committed at ``acc == 0`` and a draft
+    rolled back to ``acc == 0`` bit for bit as it went in; the active
+    rows' state moves."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import steps
+    cfg = _recurrent_cfg(kind)
+    _, params = _recurrent_params(cfg, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    B = 3
+    cache = tr.lm_init_paged_cache(params, cfg, B, 4, 4, 32, torch.float32,
+                                   device=cuda_device)
+    for lc in cache.values():
+        for t in lc.values():
+            t.normal_(generator=g)
+    before = {ln: {k: t.clone() for k, t in lc.items()}
+              for ln, lc in cache.items()}
+    toks = torch.randint(0, cfg.vocab_size, (B, 4), device=cuda_device,
+                         generator=g)
+    index = torch.tensor([3, 5, 7], device=cuda_device)
+    active = torch.tensor([True, False, True], device=cuda_device)
+    table = torch.zeros((B, 4), dtype=torch.int32, device=cuda_device)
+
+    def frozen(cache, moved=True):
+        for ln, lc in cache.items():
+            for key, t in lc.items():
+                assert torch.equal(t[:, 1], before[ln][key][:, 1]), key
+                assert not moved or not torch.equal(t[:, 0],
+                                                    before[ln][key][:, 0])
+    step = steps.make_serve_decode_step(cfg, masked=True, paged=True)
+    _, _, cache, _, _ = step(params, toks[:, :1], cache, index, active,
+                             index + 10, -1, None, None, table)
+    frozen(cache)
+    with torch.inference_mode():
+        _, out = tr.lm_verify(params, cfg, toks, cache, index, table,
+                              active[:, None].expand(B, 4))
+        cache = tr.lm_spec_commit(out, index, torch.tensor(
+            [4, 0, 2], device=cuda_device))
+    frozen(cache)
+    rec = tuple(cache)
+    draft = steps.make_draft_loop_step(cfg, 3, rec_layers=rec)
+    _, cache, ring = draft(params, toks[:, :1], cache, index, active, None)
+    cache = steps.make_draft_rollback_step(rec)(
+        cache, ring, torch.tensor([1, 0, 3], device=cuda_device))
+    torch.cuda.synchronize()
+    frozen(cache)
+
+
+@pytest.mark.gpu
+def test_recurrent_prefix_hit_equals_cold_on_the_card(cuda_device):
+    """The RWKV6 smoke stack through the prefix-cached paged scheduler on
+    the card, one slot: a repeat of the first prompt hits at the
+    publisher's snapshot and runs the publisher's own tail chunks, so its
+    stream equals the cold run's bit for bit; the WKV kernel runs every
+    chunk (the snapshot edge forced into the cold run's chunks)."""
+    from repro_torch.train.serve_engine import ServeEngine
+    from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
+    cfg = _recurrent_cfg("rwkv")
+    host, _ = _recurrent_params(cfg, cuda_device)
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab_size, (70,)).astype(np.int32)
+    other = rng.integers(0, cfg.vocab_size, (30,)).astype(np.int32)
+    reqs = [Request(prompt=p, max_new_tokens=8)
+            for p in (prompt, other, prompt)]
+    eng = ServeEngine(cfg, host, device=cuda_device, max_len=96, paged=True,
+                      block_size=16, prefix_cache=True)
+    before = wkv_ops.KERNEL_LAUNCHES
+    sched = ContinuousScheduler(eng, max_batch=1, num_blocks=16,
+                                invariant_every=1)
+    res = sched.run(reqs)
+    torch.cuda.synchronize()
+    assert [r.prefix_tokens for r in res] == [0, 0, 64]
+    np.testing.assert_array_equal(res[2].tokens, res[0].tokens)
+    # cold 70: 64 + 4 + 2 (edge at 64); 30: 16 + 8 + 4 + 2 (edge at 16);
+    # the hit's tail: 4 + 2
+    assert wkv_ops.KERNEL_LAUNCHES - before == 9 * cfg.num_layers

@@ -351,15 +351,30 @@ def test_serve_cli_serves_a_jax_checkpoint(tmp_path):
 
 
 def test_serve_cli_refuses_continuous_naming_its_item():
+    """Recurrent carries in continuous serving (ROADMAP item 17) are
+    ported, so jamba serves continuously, contiguous and paged: its seven
+    Mamba layers keep per-row state beside the attention layer's pool and
+    thread a B=1 carry through chunked prefill (the name is the old
+    test's)."""
     for extra in (["--continuous"], ["--continuous", "--paged"]):
-        with pytest.raises(SystemExit, match="item 17"):
-            serve.main(["--arch", "jamba-v0.1-52b", "--smoke", "--device",
-                        "cpu"] + extra)
+        out = _run(serve.main, ["--arch", "jamba-v0.1-52b", "--smoke",
+                                "--device", "cpu", "--max-batch", "2",
+                                "--requests", "3", "--prompt-len", "8",
+                                "--gen", "4", "--block-size", "4",
+                                "--rate", "1000"] + extra)
+        assert "aggregate tokens/s=" in out and out.count("tok (limit)") == 3
     _, tp = _params()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tr.lm_init_paged_cache(tp, CFG, 2, 8, 4, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tr.lm_init_prefill_carry(tp, CFG, 32, device="cpu")
+    cache = tr.lm_init_paged_cache(tp, CFG, 2, 8, 4, 32, device="cpu")
+    carry = tr.lm_init_prefill_carry(tp, CFG, 32, device="cpu")
+    for i in range(CFG.pattern_period):
+        if CFG.layer_kind(i) == "attn":
+            assert set(cache[f"layer{i}"]) == {"k_pages", "v_pages"}
+            assert carry[f"layer{i}"] == {}
+        else:
+            assert set(cache[f"layer{i}"]) == set(carry[f"layer{i}"]) \
+                == {"conv", "ssm"}
+            assert cache[f"layer{i}"]["ssm"].shape[1] == 2
+            assert carry[f"layer{i}"]["ssm"].shape[1] == 1
 
 
 def test_random_init_shapes_and_scales():

@@ -371,17 +371,24 @@ def test_cli_prefix_cache_and_quantized_pages(flag, dtype, ratio):
 
 
 @pytest.mark.parametrize("flag,item", [
-    # Speculative decoding (item 9) is ported; on a recurrent model it is
-    # refused with --continuous itself (item 17).  The ids stay the cases'
-    # old ones.
-    pytest.param(["--spec-depth", "1", "--arch", "rwkv6-7b"], "item 17",
+    # Speculative decoding (item 9) and recurrent carries (item 17) are
+    # ported: spec on rwkv6-7b and jamba (whose period of 8 leaves it the
+    # zero-layer draft) serves now.  The ids stay the cases' old ones.
+    pytest.param(["--spec-depth", "1", "--arch", "rwkv6-7b"], None,
                  id="flag0-item 9"),
-    pytest.param(["--draft-checkpoint", "d", "--arch", "jamba-v0.1-52b"],
-                 "item 17", id="flag1-item 9"),
+    pytest.param(["--spec-depth", "0", "--arch", "jamba-v0.1-52b"], None,
+                 id="flag1-item 9"),
     (["--deadline-s", "1"], "item 11"),
     (["--queue-limit", "2"], "item 11"), (["--faults", "storm:0.1"], "item 11"),
     (["--snapshot-every", "2"], "item 11")])
 def test_refused_continuous_flags_name_their_roadmap_item(flag, item):
+    argv = ["--smoke", "--device", "cpu", "--continuous", "--paged"] + flag
+    if item is None:
+        text, results = _cli(argv + ["--max-batch", "2", "--requests", "3",
+                                     "--prompt-len", "8", "--gen", "4",
+                                     "--block-size", "4", "--rate", "1000"])
+        assert "speculative: draft_layers=" in text
+        assert all(r.finish_reason == "limit" for r in results)
+        return
     with pytest.raises(SystemExit, match=item):
-        serve.main(["--smoke", "--device", "cpu", "--continuous",
-                    "--paged"] + flag)
+        serve.main(argv)
