@@ -162,8 +162,9 @@ result):
    on its weights through ``ServeEngine`` and ``ContinuousScheduler`` the
    prefix cache over the shared-prefix traffic with its last 8 requests
    sent again (it must hit; each repeat's stream equals its first run's),
-   ``--spec-depth 2 --gamma 4`` (acceptance, mean accepted length, each
-   stream equal to the paged run's or first different at a near-tie) and
+   ``--spec-depth 2 --gamma 4`` over the first 8 requests (acceptance,
+   mean accepted length, each stream equal to the paged run's or first
+   different at a near-tie) and
    the paper's draft, a one-layer ``rwkv6-7b`` expanded by
    ``copying_zeroL`` to 4 layers and drafted at depth 1 (acceptance at
    least 0.99); every WKV launch count derived from the requests with this
@@ -179,11 +180,42 @@ result):
    card's tokens over the same chunks: jamba at depth 8, three short paged
    requests (run after phase 28), and ``rwkv6-7b`` at full width and depth
    2, three paged requests and a prefix hit (which also equals its cold
-   run), tokens equal where the CPU's top-2 margin allows.
+   run), tokens equal where the CPU's top-2 margin allows;
+30. fault tolerance in serving over phase 6's traffic (``gpt2-12l``, 32
+   requests into 8 slots, pages of 16): ``serve.main --faults
+   storm:0.02:0 --retries 2`` (every request ends with one finish reason,
+   each completed stream equal to phase 6's f32 stream and each failed
+   one equal to its first tokens, or first different at a near-tie); the
+   prefix cache over int8 pages with a tape that faults each serving site
+   once (pool.evict aside: full provisioning never evicts), every stream
+   held to phase 6's prefix-cache run; ``--spec-depth 2 --gamma 4`` with
+   ``engine.draft_prefill:1``, held to phase 22's streams;
+   ``sched.iter:60:crash`` under ``snapshot_every=1`` through
+   ``ContinuousScheduler``, the snapshot restored on a fresh engine over
+   the same weights (the re-prefill's share of the restore printed), the
+   merged streams held to phase 6's; ``--queue-limit 8 --deadline-s
+   0.001`` with every request arrived before the first iteration: 24 shed
+   and 8 past their deadline, as derived; ``rwkv6-7b`` at full width and
+   depth 2 (12 requests) crashed and restored, the WKV kernel running the
+   re-prefill from fresh carries, chunk counts derived from the snapshot;
+   paged, flash and WKV launches derived from the successful calls;
+31. fault tolerance in training, phase 13's run (``gpt2-12l``, batch 16
+   x 256, Muon-NSGD, WSD, 1 -> 12 layers at step 6 of 12) through
+   ``train.loop.train`` with a checkpoint every 3 steps: the clean run
+   twice, bit-identical (losses, params, momenta); ``train.iter:6`` and
+   ``train.iter:8`` crashes and a ``ckpt.write:2`` crash in the
+   asynchronous writer, each resumed bit-identical to the clean run;
+   ``nan:8`` under ``skip`` with a ``train.step`` fault retried (the bad
+   step leaves params and momenta bit for bit, earlier losses equal the
+   clean run's); a hang deadline at half the 12-layer step time (hangs
+   at exactly the steps past it, the run bit-identical to the clean one);
+   the sentinel step's and a retry's time, and the asynchronous save
+   against the synchronous one around a 12-layer step.  Each run's
+   kernel launches are derived from the steps it ran.
 
-Every main path (5, 6, 10, 11, 15, 19, 22-28) starts with every kernel's
-launch counter at 0 and checks every counter after it, the kernels it must
-not launch included.
+Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31) starts with every
+kernel's launch counter at 0 and checks every counter after it, the
+kernels it must not launch included.
 
 The line before the last is the kernels' JSON record (the paged row's
 launches and times at G = 12, starcoder2-3b's, its gpt2-12l ones under
@@ -193,6 +225,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -766,9 +799,10 @@ def _drawn_requests(cfg, argv):
 
 def _serve_counted(serve, argv, counted):
     """``serve.main(argv)`` with every launch counter at 0 just before and
-    each ``ServeEngine`` method named in ``counted`` counted.  Returns (the
-    results, the timed run's scheduler, its ``summarize`` record, the
-    calls of each counted method)."""
+    each ``ServeEngine`` method named in ``counted`` counted where it
+    returns (a call an injected fault stops fires before it launches
+    anything).  Returns (the results, the timed run's scheduler, its
+    ``summarize`` record, the calls of each counted method)."""
     from repro_torch.train import serve_scheduler
     from repro_torch.train.serve_engine import ServeEngine
     calls = {name: 0 for name in counted}
@@ -778,8 +812,9 @@ def _serve_counted(serve, argv, counted):
 
     def counting(name):
         def method(self, *a, **kw):
-            calls[name] += 1
-            return saved[name](self, *a, **kw)
+            out = saved[name](self, *a, **kw)
+            calls[name] += 1           # a call that raised launched nothing
+            return out
         return method
 
     def kept_run(self, *a, **kw):
@@ -878,11 +913,12 @@ def paged_main_path(cfg, serve, fa_ops, pa_ops, extra=()):
             stats)
 
 
-def quant_main_paths(cfg, serve, fa_ops, pa_ops) -> dict:
+def quant_main_paths(cfg, serve, fa_ops, pa_ops):
     """The continuous paged main path with int8 pages, with fp8 pages, and
     with the prefix cache over int8 pages, each with every counter at 0
-    just before.  Returns the paged launches of each run."""
-    out, stats = {}, {}
+    just before.  Returns the paged launches of each run and the results
+    of each run."""
+    out, stats, served = {}, {}, {}
     for key, extra in (("int8", ("--kv-dtype", "int8")),
                        ("fp8", ("--kv-dtype", "fp8")),
                        ("prefix+int8", ("--prefix-cache", "--kv-dtype",
@@ -899,7 +935,7 @@ def quant_main_paths(cfg, serve, fa_ops, pa_ops) -> dict:
             _fail(f"{key}: kv bytes ratio {ks['kv_bytes_ratio']} != {ratio}")
         print(f"  {key}: ttft p50 {st[0] * 1e3:.1f} ms, p95 "
               f"{st[1] * 1e3:.1f} ms")
-        out[key], stats[key] = launches, st
+        out[key], stats[key], served[key] = launches, st, results
         if key == "prefix+int8":
             ps = sched.prefix_stats()
             if ps["prefix_hits"] < 1:
@@ -917,7 +953,7 @@ def quant_main_paths(cfg, serve, fa_ops, pa_ops) -> dict:
                   f"{len(hit)}, misses "
                   + (f"{np.median(cold) * 1e3:.1f} ms median over "
                      f"{len(cold)}" if cold else "none"))
-    return out
+    return out, served
 
 
 def paged_card_vs_cpu(cfglib, registry, arch="gpt2-12l", depth=None):
@@ -2397,35 +2433,49 @@ def spec_zerol(cfglib, registry, arch="gpt2-12l", depth=None):
     return rate, counts
 
 
-def spec_vs_plain(cfg, registry, spec, plain, engine) -> int:
-    """Each spec stream against phase 6's f32 stream of the same request:
-    equal, or first different where the target's top-2 logit gap (a solo
-    forward on the card over the prompt and the common prefix) is below
-    ``SPEC_TIE_GAP``.  Returns how many streams differ."""
+def streams_vs(label, cfg, registry, got, want, params) -> int:
+    """Each stream of ``got`` against ``want``'s of the same request: equal
+    (a stream cut short by a fault or a deadline: equal to the first
+    tokens of ``want``'s), or first different where the target's top-2
+    logit gap (a solo forward with ``params`` on the card over the prompt
+    and the common prefix) is below ``SPEC_TIE_GAP``.  Returns how many
+    streams are exactly equal."""
     api = registry.get_model(cfg)
-    differ = 0
-    for a, b in zip(spec, plain):
+    equal = 0
+    for a, b in zip(got, want, strict=True):
         if a.uid != b.uid or not np.array_equal(a.prompt, b.prompt):
-            _fail(f"spec request {a.uid} is not phase 6's request {b.uid}")
-        if np.array_equal(a.new_tokens, b.new_tokens):
+            _fail(f"{label}: request {a.uid} is not request {b.uid}")
+        n = len(a.new_tokens)
+        if n > len(b.new_tokens) or (a.completed
+                                      and n != len(b.new_tokens)):
+            _fail(f"{label}, request {a.uid}: {n} tokens "
+                  f"({a.finish_reason}) against {len(b.new_tokens)}")
+        ref = b.new_tokens[:n]
+        if np.array_equal(a.new_tokens, ref):
+            equal += 1
             continue
-        differ += 1
-        t = int(np.argmax(a.new_tokens != b.new_tokens))
+        t = int(np.argmax(a.new_tokens != ref))
         ctx = np.concatenate([a.prompt, a.new_tokens[:t]])
         with torch.inference_mode():
-            logits, _ = api.apply(engine.params, cfg, torch.from_numpy(
+            logits, _ = api.apply(params, cfg, torch.from_numpy(
                 ctx[None]).long().cuda())
         top2 = torch.topk(logits[0, -1].float(), 2).values
         gap = float(top2[0] - top2[1])
-        print(f"  request {a.uid}: first differs at token {t} (spec "
-              f"{a.new_tokens[t]}, plain {b.new_tokens[t]}), top-2 gap "
-              f"{gap:.3e}")
+        print(f"  {label}, request {a.uid}: first differs at token {t} "
+              f"({a.new_tokens[t]} against {ref[t]}), top-2 gap {gap:.3e}")
         if gap >= SPEC_TIE_GAP:
-            _fail(f"spec request {a.uid} leaves the plain stream at token {t} "
+            _fail(f"{label}, request {a.uid} leaves the stream at token {t} "
                   f"with a top-2 gap {gap:.3e} >= {SPEC_TIE_GAP:.0e}")
-    print(f"spec vs plain on the card: {differ} of {len(spec)} streams "
-          f"differ, each at a near-tie (gap < {SPEC_TIE_GAP:.0e})")
-    return differ
+    print(f"{label}: {equal} of {len(got)} streams equal, the rest first "
+          f"different at a near-tie (gap < {SPEC_TIE_GAP:.0e})")
+    return equal
+
+
+def spec_vs_plain(cfg, registry, spec, plain, engine) -> int:
+    """Each spec stream against phase 6's f32 stream of the same request
+    (``streams_vs``).  Returns how many streams differ."""
+    return len(spec) - streams_vs("spec vs plain on the card", cfg,
+                                  registry, spec, plain, engine.params)
 
 
 # Phases 23-26: the RoPE architectures at full width, random weights from
@@ -2482,6 +2532,7 @@ RWKV_PAGED_ARGV = _with_arch(PAGED_ARGV, "rwkv6-7b")
 # layers (cut from 32: the acceptance does not depend on the depth, the
 # run's time does).
 RWKV_ZEROL_DEPTH = 4
+RWKV_SPEC_REQUESTS = 8
 PAGE = 16                           # --block-size of every paged run here
 
 
@@ -2618,15 +2669,19 @@ def rwkv_continuous_paths(cfglib, registry, serve):
           f"skipped, every repeat's stream equal to its cold run's; "
           f"{out['prefix']} WKV launches = {pchunks} chunks x {L}")
     del eng, psched
-    # (c) --spec-depth 2 --gamma 4 over (a)'s requests
+    # (c) --spec-depth 2 --gamma 4 over the first RWKV_SPEC_REQUESTS of
+    # (a)'s requests (a round replays the target's γ+1 decode steps, so
+    # the whole traffic took a minute of the script's time limit)
     eng = ServeEngine(cfg, params, device="cuda", max_len=max_len,
                       paged=True, block_size=PAGE, spec_decode=True,
                       gamma=SPEC_GAMMA, draft_depth=SPEC_DEPTH)
-    reqs = _requests_of([(r.prompt, len(r.new_tokens)) for r in results])
+    n = RWKV_SPEC_REQUESTS
+    reqs = _requests_of([(r.prompt, len(r.new_tokens))
+                         for r in results[:n]])
     sres, ssched, _, _, _ = _run_counted("rwkv6-7b spec", eng, reqs)
-    _check_served("rwkv6-7b spec", cfg, lens, [g for _, g in traffic], sres,
-                  ssched)
-    schunks = sum(len(_pow2(P)) for P in lens)
+    _check_served("rwkv6-7b spec", cfg, lens[:n], [g for _, g in traffic][:n],
+                  sres, ssched)
+    schunks = sum(len(_pow2(P)) for P in lens[:n])
     out["spec"] = expect_counts(
         "rwkv6-7b spec", wkv=schunks * L + SPEC_DEPTH * len(reqs))["wkv"]
     mal = float(np.mean([r.mean_accepted_len for r in sres]))
@@ -2634,7 +2689,7 @@ def rwkv_continuous_paths(cfglib, registry, serve):
           f"{ssched.acceptance_rate:.4f}, mean accepted length {mal:.4f}; "
           f"{out['spec']} WKV launches = {schunks} chunks x {L} + "
           f"{len(reqs)} draft prefills x {SPEC_DEPTH}")
-    spec_vs_plain(cfg, registry, sres, results, eng)
+    spec_vs_plain(cfg, registry, sres, results[:n], eng)
     del eng, ssched
     # (d) the paper's draft
     _, counts = spec_zerol(cfglib, registry, "rwkv6-7b", RWKV_ZEROL_DEPTH)
@@ -2815,6 +2870,494 @@ def jamba_paged_card_vs_cpu(cfg, engine, host):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# Phase 30: fault tolerance in serving over phase 6's traffic.  A seeded
+# storm (2% of the site hits fault, 2 retries); a tape that faults each
+# serving site once, late enough that the radix tree is warm (pool.evict
+# fires only under pool pressure, which phase 6's full provisioning never
+# makes: the CPU tests fault it); a crash at a scheduler iteration
+# boundary, restored on a fresh engine; a bounded queue and a deadline.
+FAULT_STORM = "storm:0.02:0"
+FAULT_TAPE = ("pool.alloc:40,radix.match:10,radix.publish:10,"
+              "engine.prefill_chunk:30,engine.decode:50,"
+              "engine.table_upload:5")
+CRASH_ITER, RWKV_CRASH_ITER = 60, 25
+QUEUE_LIMIT, DEADLINE_S = 8, 1e-3
+
+
+def _engine_calls(eng, names):
+    """Count ``eng``'s calls of each method in ``names`` where it returns,
+    and time each with the card synchronized before and after (seconds
+    under ``names[i] + '_s'``)."""
+    calls = {}
+    for name in names:
+        calls[name], calls[name + "_s"] = 0, 0.0
+        method = getattr(eng, name)
+
+        def counted(*a, _m=method, _n=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _m(*a, **kw)
+            torch.cuda.synchronize()
+            calls[_n + "_s"] += time.perf_counter() - t0
+            calls[_n] += 1
+            return out
+        setattr(eng, name, counted)
+    return calls
+
+
+def _crash_and_restore(label, cfg, params, reqs, crash_iter, max_len):
+    """``reqs`` through ``ContinuousScheduler(snapshot_every=1)`` on an
+    engine armed with ``sched.iter:crash_iter:crash``, then the last
+    snapshot restored on a fresh engine over the same weights, every
+    counter at 0 before the crash run.  Returns (merged results, masked
+    decode steps and prefill chunks of both runs, the snapshot, restore
+    seconds, seconds in the restore's prefill chunks, the fresh engine's
+    params on the card)."""
+    from repro_torch.train.faults import CrashError
+    from repro_torch.train.serve_engine import ServeEngine
+    from repro_torch.train.serve_scheduler import ContinuousScheduler
+    kw = dict(device="cuda", max_len=max_len, paged=True, block_size=16)
+    eng = ServeEngine(cfg, params, faults=f"sched.iter:{crash_iter}:crash",
+                      **kw)
+    first = _engine_calls(eng, ("decode_masked", "prefill_chunk"))
+    sched = ContinuousScheduler(eng, max_batch=8, snapshot_every=1)
+    zero_counts()
+    try:
+        sched.run(reqs)
+    except CrashError as e:
+        print(f"  {label}: {e}")
+    else:
+        _fail(f"{label}: the run outlived sched.iter:{crash_iter}:crash")
+    snap = sched.last_snapshot
+    if not any(item["emitted"] for item in snap["inflight"]):
+        _fail(f"{label}: the snapshot holds no request mid-decode")
+    del eng, sched
+    eng2 = ServeEngine(cfg, params, **kw)
+    second = _engine_calls(eng2, ("decode_masked", "prefill_chunk"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    merged = ContinuousScheduler(eng2, max_batch=8).restore(snap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = first["decode_masked"] + second["decode_masked"]
+    chunks = (first["prefill_chunk"], second["prefill_chunk"])
+    print(f"  {label}: snapshot at the boundary of iteration {crash_iter}: "
+          f"{len(snap['done'])} done, {len(snap['inflight'])} in flight "
+          f"({sum(len(i['emitted']) for i in snap['inflight'])} tokens "
+          f"emitted), {len(snap['queued'])} queued; restore {wall:.3f} s on "
+          f"a fresh engine, {second['prefill_chunk_s']:.3f} s of it "
+          f"({second['prefill_chunk_s'] / wall:.1%}) in "
+          f"{second['prefill_chunk']} re-prefill chunks")
+    return (merged, steps, chunks, snap, wall, second["prefill_chunk_s"],
+            eng2.params)
+
+
+def fault_serving_paths(cfg, cfglib, registry, serve, plain, prefix_int8,
+                        spec) -> dict:
+    """Phase 30 (see the module docstring).  ``plain``, ``prefix_int8`` and
+    ``spec``: phase 6's f32 and prefix-cache-over-int8 results and phase
+    22's spec results, the streams each run is held to.  Returns the
+    readings for the record."""
+    from repro_torch.train.serve_scheduler import FINISH_REASONS
+    out = {}
+    weights = registry.get_model(cfg).init(torch.Generator().manual_seed(0),
+                                           cfg, device="cpu")
+    # (a) the storm: every request ends with one reason; completed streams
+    # equal phase 6's, failed ones are its first tokens (near-tie rule)
+    argv = PAGED_ARGV + ["--faults", FAULT_STORM, "--retries", "2"]
+    results, sched, stats, calls = _serve_counted(serve, argv,
+                                                  ("decode_masked",))
+    expect_counts("fault storm",
+                  paged_attention=calls["decode_masked"] * cfg.num_layers)
+    fs, plane = sched.fault_stats(), sched.engine.faults
+    if len(results) != len(plain) or any(
+            r.finish_reason not in FINISH_REASONS for r in results):
+        _fail(f"fault storm results {[r.finish_reason for r in results]}")
+    if not plane.fired:
+        _fail("the fault storm never fired")
+    eq = streams_vs("fault storm", cfg, registry, results, plain,
+                    sched.engine.params)
+    print(f"fault storm {FAULT_STORM}: {len(plane.fired)} faults over "
+          f"{sum(plane.counts.values())} site hits, {fs['retries']} retries, "
+          f"{fs['failed']} failed; finish reasons {stats['finish_reasons']}; "
+          f"aggregate tokens/s {stats['tokens_per_s']:.1f} (goodput), "
+          f"{stats['tokens_per_s_all']:.1f} all; paged launches "
+          f"{calls['decode_masked'] * cfg.num_layers} = "
+          f"{calls['decode_masked']} decode steps x {cfg.num_layers}")
+    out["storm"] = dict(faults=len(plane.fired), retries=fs["retries"],
+                        failed=fs["failed"], equal=eq,
+                        tokens_per_s=stats["tokens_per_s"])
+    # (b) each serving site once over the prefix cache on int8 pages:
+    # streams equal the clean prefix + int8 run's
+    argv = PAGED_ARGV + ["--prefix-cache", "--kv-dtype", "int8", "--faults",
+                         FAULT_TAPE]
+    results, sched, stats, calls = _serve_counted(serve, argv,
+                                                  ("decode_masked",))
+    expect_counts("fault tape",
+                  paged_attention=calls["decode_masked"] * cfg.num_layers)
+    plane = sched.engine.faults
+    lens, gens = _drawn_requests(cfg, argv)
+    _check_served("fault tape", cfg, lens, gens, results, sched)
+    want = sorted(tuple(e.split(":")[:2]) for e in FAULT_TAPE.split(","))
+    got = sorted((site, str(hit)) for site, hit, _ in plane.fired)
+    if got != want:
+        _fail(f"fault tape fired {plane.fired}, expected {want}")
+    eq = streams_vs("fault tape", cfg, registry, results, prefix_int8,
+                    sched.engine.params)
+    print(f"fault tape over the prefix cache on int8 pages: "
+          f"{len(plane.fired)} faults, {sched.retries} retries, every "
+          f"request at its budget; prefix hits "
+          f"{sched.prefix_stats()['prefix_hits']}")
+    out["tape"] = dict(retries=sched.retries, equal=eq)
+    # (c) the draft prefill faulted once under speculation
+    argv = PAGED_ARGV + SPEC_ARGV + ["--faults", "engine.draft_prefill:1"]
+    results, sched, stats, calls = _serve_counted(serve, argv,
+                                                  ("admit_paged",))
+    expect_counts("draft prefill fault",
+                  flash_attention=SPEC_DEPTH * calls["admit_paged"])
+    lens, gens = _drawn_requests(cfg, argv)
+    _check_served("draft prefill fault", cfg, lens, gens, results, sched)
+    if sched.engine.faults.fired != [("engine.draft_prefill", 1, "fault")]:
+        _fail(f"draft prefill tape fired {sched.engine.faults.fired}")
+    eq = streams_vs("draft prefill fault", cfg, registry, results, spec,
+                    sched.engine.params)
+    out["draft_prefill"] = dict(retries=sched.retries, equal=eq)
+    # (d) a crash at an iteration boundary, restored on a fresh engine
+    reqs = _requests_of(_drawn_traffic(cfg, PAGED_ARGV))
+    arg = dict(zip(PAGED_ARGV, PAGED_ARGV[1:]))
+    max_len = int(arg["--prompt-len"]) + int(arg["--gen"]) + 1  # serve.main's
+    merged, steps, chunks, snap, wall, pf, on_card = _crash_and_restore(
+        "crash-restore", cfg, weights, reqs, CRASH_ITER, max_len)
+    expect_counts("crash-restore",
+                  paged_attention=steps * cfg.num_layers)
+    if [r.finish_reason for r in merged] != ["limit"] * len(reqs):
+        _fail(f"crash-restore reasons {[r.finish_reason for r in merged]}")
+    eq = streams_vs("crash-restore", cfg, registry, merged, plain, on_card)
+    out["crash_restore"] = dict(equal=eq, restore_s=wall,
+                                reprefill_share=pf / wall,
+                                paged_launches=steps * cfg.num_layers)
+    del weights, on_card
+    # (e) a bounded queue and a deadline: every request arrives before the
+    # first iteration (rate 1e9), so QUEUE_LIMIT wait and the rest shed;
+    # the QUEUE_LIMIT admitted in the first iteration are past DEADLINE_S
+    # at the second (a 12-layer chunk each is dispatched in between), and
+    # none can reach its budget (16 tokens at least) by then
+    argv = PAGED_ARGV[:PAGED_ARGV.index("--rate")] + ["--rate", "1e9"] \
+        + PAGED_ARGV[PAGED_ARGV.index("--rate") + 2:] + [
+            "--queue-limit", str(QUEUE_LIMIT), "--deadline-s",
+            str(DEADLINE_S)]
+    results, sched, stats, calls = _serve_counted(serve, argv,
+                                                  ("decode_masked",))
+    expect_counts("queue limit and deadline",
+                  paged_attention=calls["decode_masked"] * cfg.num_layers)
+    n = len(results)
+    want = {"shed": n - QUEUE_LIMIT, "deadline": QUEUE_LIMIT}
+    if stats["finish_reasons"] != want or sched.shed != want["shed"] or \
+            sched.deadline_hits != want["deadline"]:
+        _fail(f"queue limit and deadline: {stats['finish_reasons']}, "
+              f"expected {want}")
+    for r in results:
+        if r.finish_reason == "deadline" and \
+                r.finished_s - r.arrival_s <= DEADLINE_S:
+            _fail(f"request {r.uid} finished 'deadline' before it")
+    streams_vs("queue limit and deadline", cfg, registry,
+               [r for r in results if len(r.new_tokens)],
+               [p for r, p in zip(results, plain) if len(r.new_tokens)],
+               sched.engine.params)
+    print(f"queue limit {QUEUE_LIMIT}, deadline {DEADLINE_S} s: "
+          f"{stats['finish_reasons']} as derived")
+    out["queue_deadline"] = dict(stats["finish_reasons"])
+    # (f) rwkv6-7b at depth 2: a crash and a restore; the WKV kernel runs
+    # the re-prefill from a fresh carry, chunk by chunk
+    rcfg = cfglib.get_config("rwkv6-7b").with_depth(2)
+    rw = registry.get_model(rcfg).init(torch.Generator().manual_seed(0),
+                                       rcfg, device="cpu")
+    reqs = _requests_of(_drawn_traffic(rcfg, _with_arch(PAGED_ARGV,
+                                                        rcfg.name))[:12])
+    from repro_torch.train.serve_engine import ServeEngine
+    eng = ServeEngine(rcfg, rw, device="cuda", max_len=max_len, paged=True,
+                      block_size=16)
+    clean_chunks = _engine_calls(eng, ("prefill_chunk",))
+    clean, _, _, _, _ = _run_counted("rwkv6-7b depth 2 clean", eng, reqs)
+    derived = sum(len(_prefill_chunks(len(r.prompt), 16)) for r in reqs)
+    expect_counts("rwkv6-7b depth 2 clean", wkv=rcfg.num_layers * derived)
+    if clean_chunks["prefill_chunk"] != derived:
+        _fail(f"rwkv clean run: {clean_chunks['prefill_chunk']} chunks, "
+              f"derived {derived}")
+    del eng
+    merged, _, chunks, snap, wall, pf, on_card = _crash_and_restore(
+        "rwkv6-7b depth 2 crash-restore", rcfg, rw, reqs, RWKV_CRASH_ITER,
+        max_len)
+    re_derived = sum(len(_prefill_chunks(len(i["prompt"]) + len(i["emitted"]),
+                                         16))
+                     for i in snap["inflight"] + snap["queued"])
+    if chunks[1] != re_derived:
+        _fail(f"rwkv restore: {chunks[1]} chunks, derived {re_derived}")
+    wkv = expect_counts("rwkv6-7b depth 2 crash-restore",
+                        wkv=rcfg.num_layers * sum(chunks))["wkv"]
+    eq = streams_vs("rwkv6-7b depth 2 crash-restore", rcfg, registry, merged,
+                    clean, on_card)
+    del on_card, rw
+    print(f"rwkv6-7b depth 2: {wkv} WKV launches = 2 layers x ({chunks[0]} "
+          f"chunks before the crash + {chunks[1]} re-prefill chunks, "
+          f"derived {re_derived})")
+    out["rwkv_crash_restore"] = dict(equal=eq, wkv=wkv, restore_s=wall,
+                                     reprefill_share=pf / wall)
+    return out
+
+
+def _fault_tcfg(**kw):
+    """Phase 13's training as ``launch/train.py`` builds it from
+    ``TRAIN_ARGV``, with a checkpoint every 3 steps and every step
+    logged."""
+    from repro_torch.configs.base import (ExpansionConfig, OptimizerConfig,
+                                          ScheduleConfig, TrainConfig)
+    arg = dict(zip(TRAIN_ARGV, TRAIN_ARGV[1:]))
+    base = dict(total_steps=TRAIN_STEPS, seq_len=int(arg["--seq-len"]),
+                global_batch=int(arg["--batch"]), source_layers=1,
+                expansions=(ExpansionConfig(at_frac=TRAIN_TAU,
+                                            target_layers=12,
+                                            init=arg["--init"]),),
+                optimizer=OptimizerConfig(name="muon_nsgd",
+                                          learning_rate=0.01),
+                schedule=ScheduleConfig(name="wsd"), seed=0,
+                checkpoint_every=3, log_every=1)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def _train_counts(cfg, first: int, last: int, tau: int):
+    """Each kernel's launches over steps first..last-1 of phase 13's run
+    (1 layer before ``tau``, then cfg's depth; no eval in 12 steps)."""
+    layers = [1 if s < tau else cfg.num_layers for s in range(first, last)]
+    fused, large = _ns_launches(cfg)
+    want = {name: 0 for name in COUNTERS}
+    want.update(flash_attention=sum(layers), flash_attention_bwd=sum(layers),
+                ns_fused=fused * len(layers), matmul=large * len(layers))
+    return want
+
+
+def _same_state(label, a, b):
+    """Bit equality of two runs' losses, params and momenta."""
+    from repro_torch.tree import leaves_with_path
+    if a.history["loss"] != b.history["loss"]:
+        _fail(f"{label}: losses {a.history['loss']} against "
+              f"{b.history['loss']}")
+    differ = [".".join(p) for (p, x), (_, y) in zip(
+        leaves_with_path({"params": a.params, "opt_state": a.opt_state}),
+        leaves_with_path({"params": b.params, "opt_state": b.opt_state}))
+        if not torch.equal(x, y)]
+    return differ
+
+
+def fault_training_paths(cfg, registry) -> dict:
+    """Phase 31 (see the module docstring).  Returns the readings."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.train import loop
+    from repro_torch.train.engine import ProgressiveTrainer
+    from repro_torch.train.faults import CrashError
+    tau = int(TRAIN_TAU * TRAIN_STEPS)
+    tc = _fault_tcfg()
+    out = {}
+
+    def train(label, first, last, ckpt_dir=None, crash=False, **kw):
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            res = loop.train(cfg, tc, checkpoint_dir=ckpt_dir,
+                             device="cuda", log_fn=lambda *a: None, **kw)
+        except CrashError as e:
+            if not crash:
+                raise
+            print(f"  {label}: {e} after {time.perf_counter() - t0:.1f} s; "
+                  f"latest checkpoint {ckpt.latest_step(ckpt_dir)}")
+            res = None
+        else:
+            if crash:
+                _fail(f"{label} did not crash")
+            print(f"  {label}: {time.perf_counter() - t0:.1f} s, losses "
+                  f"{res.history['loss'][0]:.4f} -> "
+                  f"{res.history['loss'][-1]:.4f}")
+        want = _train_counts(cfg, first, last, tau)
+        if read_counts() != want:
+            _fail(f"{label}: launches {read_counts()}, expected {want}")
+        return res
+
+    clean = train("clean run", 0, TRAIN_STEPS)
+    again = train("clean run again", 0, TRAIN_STEPS)
+    differ = _same_state("clean runs", clean, again)
+    if differ:
+        # name the op that breaks determinism: torch raises on the first
+        # one with no deterministic implementation
+        torch.use_deterministic_algorithms(True)
+        try:
+            train("deterministic algorithms", 0, TRAIN_STEPS)
+        except RuntimeError as e:
+            print(f"  deterministic algorithms: {e}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        _fail(f"two clean runs differ in {differ}")
+    print(f"phase 31 clean runs: losses, params and momenta bit-identical "
+          f"(12 steps, 1 -> 12 layers at step {tau})")
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in (5, 7):
+            d = os.path.join(tmp, f"k{k}")
+            train(f"train.iter:{k + 1}:crash", 0, k, d, crash=True,
+                  faults=f"train.iter:{k + 1}:crash")
+            latest = ckpt.latest_step(d)
+            if latest != (3 if k < tau else 6):
+                _fail(f"crash at step {k}: latest checkpoint {latest}")
+            res = train(f"resumed from {latest}", latest, TRAIN_STEPS, d)
+            differ = _same_state(f"resume from {latest}", res, clean)
+            if differ:
+                _fail(f"resumed from {latest}: {differ} differ")
+        d = os.path.join(tmp, "write")
+        train("ckpt.write:2:crash (async)", 0, tau, d, crash=True,
+              faults="ckpt.write:2:crash")
+        if ckpt.latest_step(d) != 3 or not os.path.isdir(
+                os.path.join(d, "step_000000006.tmp")):
+            _fail(f"async crash: steps {ckpt.all_steps(d)}")
+        res = train("resumed from 3", 3, TRAIN_STEPS, d)
+        differ = _same_state("resume after the async crash", res, clean)
+        if differ:
+            _fail(f"resumed after the async crash: {differ} differ")
+    print("phase 31 crash-resume: train.iter:6, train.iter:8 and "
+          "ckpt.write:2 (async) crashes resumed bit-identical to the clean "
+          "run")
+    # nan at step 8 under skip, a train.step fault retried at step 2: the
+    # skipped step leaves params and momenta bit for bit
+    checked = []
+    build = ProgressiveTrainer._build_steps
+
+    def watched(self, c):
+        step_fn, eval_fn = build(self, c)
+
+        def stepped(params, opt_state, batch, step, *rest):
+            if step != 8:
+                return step_fn(params, opt_state, batch, step, *rest)
+            before = [t.clone() for t in _leaves((params, opt_state))]
+            params, opt_state, m = step_fn(params, opt_state, batch, step,
+                                           *rest)
+            after = _leaves((params, opt_state))
+            checked.append((float(m["bad"]), all(
+                torch.equal(x, y) for x, y in zip(before, after))))
+            return params, opt_state, m
+        return stepped, eval_fn
+    ProgressiveTrainer._build_steps = watched
+    try:
+        skip = train("nan:8 under skip, train.step:3 retried", 0,
+                     TRAIN_STEPS, nan_policy="skip", nan_inject="nan:8",
+                     faults="train.step:3")
+    finally:
+        ProgressiveTrainer._build_steps = build
+    h = skip.history
+    if checked != [(1.0, True)] or h["skipped_steps"] != [8] or \
+            not math.isnan(h["loss"][8]) or \
+            h["loss"][:8] != clean.history["loss"][:8] or \
+            skip.fault_stats["retries"] != 1:
+        _fail(f"skip: {checked} {h['skipped_steps']} {h['loss']} "
+              f"{skip.fault_stats}")
+    if not all(torch.isfinite(t).all() for t in _leaves(skip.params)):
+        _fail("skip: non-finite params after the skipped step")
+    dts = [dt for _, dt in skip.step_times]
+    clean_dts = [dt for _, dt in clean.step_times]
+    out["retry_step_s"] = dts[2]
+    out["sentinel_step_ms"] = 1e3 * float(np.median(dts[tau + 1:]))
+    out["plain_step_ms"] = 1e3 * float(np.median(clean_dts[tau + 1:]))
+    print(f"phase 31 skip: step 8 bad, params and momenta bit-identical "
+          f"across it, losses 0-7 equal the clean run's; the retried step 2 "
+          f"took {dts[2] * 1e3:.1f} ms (1-layer steps "
+          f"{1e3 * float(np.median(dts[1:tau])):.1f} ms median; backoff "
+          f"50 ms); sentinel step {out['sentinel_step_ms']:.2f} ms against "
+          f"the plain step's {out['plain_step_ms']:.2f} ms at 12 layers "
+          "(median of steps 7-11)")
+    # the hang deadline below the 12-layer step time
+    deadline = 0.5 * out["plain_step_ms"] / 1e3
+    hang = train(f"hang deadline {deadline * 1e3:.1f} ms", 0, TRAIN_STEPS,
+                 hang_deadline_s=deadline)
+    want = [s for s, (_, dt) in enumerate(hang.step_times) if dt > deadline]
+    if hang.history["hangs"] != want or not want:
+        _fail(f"hangs {hang.history['hangs']}, expected {want}")
+    differ = _same_state("hang run", hang, clean)
+    if differ:
+        _fail(f"the hang run differs from the clean run in {differ}")
+    print(f"phase 31 hang deadline {deadline * 1e3:.1f} ms: hangs at steps "
+          f"{want}, run completed bit-identical to the clean run")
+    out["hangs"] = want
+    out.update(async_overlap(cfg, registry, clean))
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in tree_leaves(t)]
+    return tree_leaves(tree)
+
+
+def async_overlap(cfg, registry, res) -> dict:
+    """The asynchronous save against the synchronous one at 12 layers
+    (params and momenta of ``res``, ~1 GB): the time ``save`` holds the
+    caller (device clones), the three train steps after it against three
+    steps alone, and how long the write runs on after them.  What the save
+    costs the training loop: the hold plus the steps' excess, against the
+    synchronous save's whole time."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.optim.base import make_optimizer
+    from repro_torch.train import steps as steps_lib
+    tc = _fault_tcfg()
+    step = steps_lib.make_train_step(
+        cfg, make_optimizer(tc.optimizer),
+        make_schedule(tc.schedule, tc.optimizer.learning_rate,
+                      tc.total_steps))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=tc.seq_len,
+                                  global_batch=tc.global_batch, seed=0))
+    batch = {k: torch.from_numpy(np.asarray(v)).cuda().long()
+             for k, v in data.batch(0).items()}
+    p, o = res.params, res.opt_state
+    tree = {"params": p, "opt_state": o}
+
+    def timed(fn):
+        # the compute stream only, as the trainer waits for a step: the
+        # async write's copy runs on a side stream
+        stream = torch.cuda.current_stream()
+        stream.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        stream.synchronize()
+        return time.perf_counter() - t0
+    alone = [timed(lambda: step(p, o, batch, 11)) for _ in range(3)]
+    with tempfile.TemporaryDirectory() as tmp:
+        sync = timed(lambda: ckpt.save(tmp, 1, tree))
+        ac = ckpt.AsyncCheckpointer()
+        call = timed(lambda: ac.save(tmp, 2, tree))
+        during = [timed(lambda: step(p, o, batch, 11)) for _ in range(3)]
+        t0 = time.perf_counter()
+        ac.wait()
+        rest = time.perf_counter() - t0
+        if ckpt.latest_step(tmp) != 2:
+            _fail("the async save did not land")
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(tree))
+    held = call + sum(during) - sum(alone)
+
+    def ms(xs):
+        return ", ".join(f"{1e3 * x:.1f}" for x in xs)
+    print(f"phase 31 async save of {nbytes / 1e9:.3f} GB: save() held the "
+          f"caller {call * 1e3:.1f} ms (device clones), the next 3 steps "
+          f"took {ms(during)} ms against {ms(alone)} alone, the write ran "
+          f"on {rest * 1e3:.1f} ms after them; it cost the loop "
+          f"{held * 1e3:.1f} ms against {sync * 1e3:.1f} ms for a "
+          "synchronous save")
+    return {"async_call_ms": call * 1e3,
+            "async_steps_ms": [1e3 * x for x in during],
+            "steps_alone_ms": [1e3 * x for x in alone],
+            "async_rest_ms": rest * 1e3, "async_held_ms": held * 1e3,
+            "sync_save_ms": sync * 1e3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2892,7 +3435,8 @@ def main() -> int:
     # 0 before each
     paged_launches, _, paged_results, _, paged_stats = paged_main_path(
         cfg, serve, fa_ops, pa_ops)
-    quant_launches = quant_main_paths(cfg, serve, fa_ops, pa_ops)
+    quant_launches, quant_results = quant_main_paths(cfg, serve, fa_ops,
+                                                     pa_ops)
 
     # 7. card against CPU
     card_vs_cpu(cfglib, registry, ServeEngine, fa_ops)
@@ -3043,6 +3587,24 @@ def main() -> int:
     # 29, rwkv6-7b's half: card against CPU at depth 2, paged with a
     # prefix hit
     rwkv_paged_card_vs_cpu(cfglib, registry)
+
+    # 30. fault tolerance in serving, over phase 6's traffic: a fault
+    # storm, each serving site once over the prefix cache on int8 pages,
+    # the draft prefill under speculation, a crash restored on a fresh
+    # engine, a bounded queue and a deadline; rwkv6-7b at depth 2 crashed
+    # and restored
+    t0 = time.perf_counter()
+    fault_serving_paths(cfg, cfglib, registry, serve, paged_results,
+                        quant_results["prefix+int8"], spec_results)
+    print(f"fault serving phase {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 31. fault tolerance in training: phase 13's run twice, bit for bit;
+    # crashes resumed; nan under skip; the hang deadline; the async save
+    t0 = time.perf_counter()
+    fault_training_paths(cfg, registry)
+    print(f"fault training phase {time.perf_counter() - t0:.1f} s")
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",

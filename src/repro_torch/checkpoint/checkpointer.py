@@ -11,19 +11,31 @@ sorted) and the manifest records each leaf's keypath string
 package restores what the port writes and the port restores, and serves,
 what the JAX ``ProgressiveTrainer`` wrote.  A save is written to
 ``step_<N>.tmp``, its manifest fsync'd, then renamed; the oldest steps
-beyond ``keep`` are removed.  Writes are synchronous; the reference's
-``AsyncCheckpointer`` comes with ROADMAP queue A item 6.
+beyond ``keep`` are removed.
+
+Fault sites (``train.faults``): ``save(faults=)`` fires ``ckpt.write`` in
+the torn-write window, after ``arrays.npz`` lands and before the manifest,
+so an injected fault or crash leaves a ``.tmp`` that :func:`all_steps`
+ignores and the next save sweeps; :func:`restore` and
+:func:`restore_subtree` fire ``ckpt.restore`` before any file is read.
+:class:`AsyncCheckpointer` keeps one write in flight: its snapshot is a
+device clone taken on the compute stream before ``save`` returns, and the
+device-to-host copy and the file write run in a worker thread.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch import bridge
+from repro_torch.train import faults as faults_lib
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _treedef_str(tree) -> str:
@@ -37,9 +49,16 @@ def _treedef_str(tree) -> str:
 
 
 def save(directory: str, step: int, tree: Any,
-         metadata: Optional[dict] = None, keep: int = 3) -> str:
+         metadata: Optional[dict] = None, keep: int = 3, faults=None) -> str:
     """Atomically save ``tree`` (a nested dict of tensors or arrays: params,
-    opt state, ...) at ``step``; returns the step directory."""
+    opt state, ...) at ``step``; returns the step directory.
+
+    ``faults`` (a ``train.faults`` plane) arms the ``ckpt.write`` site
+    after ``arrays.npz`` lands and before the manifest: the preemption
+    window.  The step directory is then left as a ``.tmp`` that
+    :func:`all_steps` ignores and the next save sweeps, so the previous
+    checkpoint stays the latest."""
+    plane = faults_lib.resolve(faults)
     os.makedirs(directory, exist_ok=True)
     final = _step_dir(directory, step)
     tmp = final + ".tmp"
@@ -50,6 +69,7 @@ def save(directory: str, step: int, tree: Any,
     arrays = {f"leaf_{i}": bridge.to_numpy(x)
               for i, x in enumerate(flat.values())}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    plane.fire("ckpt.write")
     manifest = {
         "step": step,
         "num_leaves": len(flat),
@@ -96,11 +116,14 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, step: int, like):
+def restore(directory: str, step: int, like, faults=None):
     """Restore a whole checkpoint into the structure of ``like`` (a nested
     dict whose leaves have ``.shape``) as a nested dict of numpy arrays.
     Leaves are taken in order, as the reference restores; a keypath or
-    shape that differs from the manifest's raises ``ValueError``."""
+    shape that differs from the manifest's raises ``ValueError``.
+    ``faults`` arms the ``ckpt.restore`` site before any file is read, so
+    a faulted read loads nothing and the caller may retry."""
+    faults_lib.resolve(faults).fire("ckpt.restore")
     path = _step_dir(directory, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -121,12 +144,15 @@ def restore(directory: str, step: int, like):
     return bridge.unflatten(out)
 
 
-def restore_subtree(directory: str, step: int, like, prefix: str):
+def restore_subtree(directory: str, step: int, like, prefix: str,
+                    faults=None):
     """Restore one top-level subtree (e.g. ``'params'``) of a checkpoint as a
     nested dict of numpy arrays shaped like ``like`` (a nested dict whose
     leaves have ``.shape``, e.g. tensors on the ``meta`` device).  A leaf
     the checkpoint lacks raises ``KeyError``; a shape that differs (a
-    config or depth mismatch) raises ``ValueError``."""
+    config or depth mismatch) raises ``ValueError``.  ``faults`` arms the
+    ``ckpt.restore`` site before any file is read."""
+    faults_lib.resolve(faults).fire("ckpt.restore")
     path = _step_dir(directory, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -156,3 +182,58 @@ def restore_subtree(directory: str, step: int, like, prefix: str):
 def load_metadata(directory: str, step: int) -> dict:
     with open(os.path.join(_step_dir(directory, step), "manifest.json")) as f:
         return json.load(f)["metadata"]
+
+
+class AsyncCheckpointer:
+    """Overlaps a checkpoint's device-to-host copy and file write with
+    training, one write in flight.
+
+    ``save`` returns once a device clone of every tensor leaf is queued on
+    the current (compute) stream: the trainer updates params and momenta
+    in place, so the next step would otherwise change what the write reads.
+    A worker thread waits for the clones (an event, not the whole stream),
+    copies them to the host on a side stream, so the copy overlaps the next
+    step, and runs :func:`save`.  Errors, an injected ``CrashError``
+    included, surface on the next ``wait`` or ``save``."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, directory: str, step: int, tree: Any,
+             metadata: Optional[dict] = None, keep: int = 3, faults=None):
+        self.wait()
+        snap = tree_map(lambda x: x.detach().clone()
+                        if isinstance(x, torch.Tensor) else x, tree)
+        cuda = [x for x in tree_leaves(snap)
+                if isinstance(x, torch.Tensor) and x.is_cuda]
+        ready = side = None
+        if cuda:
+            ready = torch.cuda.Event()
+            ready.record()
+            side = torch.cuda.Stream(device=cuda[0].device)
+
+        def run():
+            try:
+                host = snap
+                if ready is not None:
+                    ready.synchronize()
+                    with torch.cuda.stream(side):
+                        host = tree_map(lambda x: x.cpu()
+                                        if isinstance(x, torch.Tensor)
+                                        else x, snap)
+                save(directory, step, host, metadata, keep, faults=faults)
+            except BaseException as e:   # surfaced on the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        """Join the write in flight; re-raise its error, if any."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err

@@ -76,6 +76,19 @@ acceptance rate and the mean accepted length.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --smoke --device cpu --continuous --paged --prefix-cache \
         --spec-depth 1                                 # RWKV6, every mode
+
+The request lifecycle (with ``--continuous``) is the reference's:
+``--deadline-s`` finishes a request ``deadline`` past it, ``--queue-limit``
+sheds arrivals past a bounded queue, ``--retries`` bounds the retries of a
+transient fault before the one request it hit fails, ``--faults TAPE``
+injects faults (``site:nth[:kind]`` entries or ``storm:rate[:seed]``) and
+``--snapshot-every N`` snapshots the host state for crash recovery.  A run
+that sheds, fails or retries anything, or runs under ``--faults``, prints
+a ``lifecycle:`` line with its finish reasons and goodput.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --continuous --paged --max-batch 2 --requests 6 --block-size 4 \
+        --chunk-len 4 --rate 1000 --faults storm:0.05:0 --snapshot-every 1
 """
 from __future__ import annotations
 
@@ -89,19 +102,11 @@ from repro_torch import bridge
 from repro_torch import configs as cfglib
 from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.models import registry
+from repro_torch.train import faults as faults_lib
 from repro_torch.train.serve_engine import ServeEngine
 from repro_torch.train.serve_scheduler import (ContinuousScheduler, Request,
                                                summarize)
 from repro_torch.tree import tree_leaves
-
-# Flags of the reference CLI whose paths come with later slices.
-_LATER = {
-    "deadline_s": "ROADMAP queue A item 11 (fault tolerance)",
-    "queue_limit": "ROADMAP queue A item 11 (fault tolerance)",
-    "faults": "ROADMAP queue A item 11 (fault tolerance)",
-    "snapshot_every": "ROADMAP queue A item 11 (fault tolerance)",
-}
-
 
 def load_params(checkpoint_dir: str, cfg, step=None):
     """(params as CPU tensors, cfg at the checkpoint's depth) from a
@@ -199,20 +204,32 @@ def main(argv=None):
                     help="draft from this checkpoint (restored at its "
                          "manifest depth) instead of depth truncation")
     ap.add_argument("--deadline-s", type=float, default=None,
-                    help=_LATER["deadline_s"])
+                    help="per-request deadline from arrival (finish reason "
+                         "'deadline' past it — queued, prefilling, or "
+                         "mid-decode; partial tokens are returned)")
     ap.add_argument("--queue-limit", type=int, default=None,
-                    help=_LATER["queue_limit"])
-    ap.add_argument("--faults", default=None, help=_LATER["faults"])
+                    help="bound on the arrived-but-unadmitted queue; "
+                         "overflow requests are shed with a structured "
+                         "rejection instead of queueing unboundedly")
+    ap.add_argument("--retries", type=int, default=2,
+                    help="bounded retry-with-backoff for transient "
+                         "admission/prefill/decode faults before failing "
+                         "the one affected request")
+    ap.add_argument("--faults", default=None, metavar="TAPE",
+                    help="deterministic fault injection: 'site:nth[:kind]' "
+                         "entries joined by commas (kind: fault|crash; "
+                         "sites: " + ", ".join(faults_lib.SITES)
+                         + ") or 'storm:rate[:seed]' for a seeded "
+                         "Bernoulli fault storm")
     ap.add_argument("--snapshot-every", type=int, default=0,
-                    help=_LATER["snapshot_every"])
+                    help="snapshot host-side in-flight serving state every "
+                         "N iteration boundaries (crash recovery: restore "
+                         "re-prefills prompt+emitted for byte-identical "
+                         "resumed greedy streams; 0: off)")
     args = ap.parse_args(argv)
     if args.mesh != "single":
         raise SystemExit(f"--mesh {args.mesh}: the port serves on one device "
                          "(mesh sharding: ROADMAP queue A item 13)")
-    for flag, item in _LATER.items():
-        if getattr(args, flag) not in (None, False, 0):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: "
-                             f"{item}")
     if args.paged and not args.continuous:
         raise SystemExit("--paged requires --continuous")
     spec = args.spec_depth is not None or args.draft_checkpoint is not None
@@ -251,7 +268,7 @@ def main(argv=None):
                          num_blocks=args.num_blocks, kv_dtype=args.kv_dtype,
                          prefix_cache=args.prefix_cache, spec_decode=spec,
                          gamma=args.gamma, draft_depth=args.spec_depth,
-                         draft_params=draft_params)
+                         draft_params=draft_params, faults=args.faults)
 
     if args.continuous:
         return _serve_continuous(args, cfg, engine, rng, shared_len)
@@ -292,7 +309,11 @@ def _serve_continuous(args, cfg, engine, rng, shared_len: int):
                                 chunk_len=args.chunk_len,
                                 overlap=not args.no_overlap,
                                 admission_age_s=args.age_limit,
-                                invariant_every=args.invariant_every)
+                                deadline_s=args.deadline_s,
+                                queue_limit=args.queue_limit,
+                                max_retries=args.retries,
+                                invariant_every=args.invariant_every,
+                                snapshot_every=args.snapshot_every)
     sched.warmup(reqs)                 # build and warm outside the timed run
     t0 = time.perf_counter()
     results = sched.run(reqs, on_finish=lambda r: print(
@@ -306,6 +327,14 @@ def _serve_continuous(args, cfg, engine, rng, shared_len: int):
     print(f"aggregate tokens/s={stats['tokens_per_s']:.1f}  "
           f"ttft p50={stats['ttft_p50_s'] * 1e3:.1f}ms "
           f"p95={stats['ttft_p95_s'] * 1e3:.1f}ms")
+    fs = sched.fault_stats()
+    if stats["completed"] < stats["requests"] or fs["retries"] \
+            or args.faults:
+        reasons = " ".join(f"{k}={v}" for k, v in
+                           sorted(stats["finish_reasons"].items()))
+        print(f"lifecycle: {reasons} retries={fs['retries']} "
+              f"goodput tokens/s={stats['goodput']:.1f} "
+              f"(all: {stats['tokens_per_s_all']:.1f})")
     if args.paged:
         ks = sched.kv_stats()
         print(f"kv storage: dtype={ks['kv_dtype']} "

@@ -13,21 +13,34 @@ training, checkpoint every expansion boundary.  Prints ``[expand] step=N
 -> L layers``, ``final loss: ... (layers L)`` and, per depth, the training
 throughput: batch·seq_len tokens per step over the synchronized step time,
 leaving out the first step at each depth (it builds the kernels and sizes
-the allocator).  The reference's flags that select paths not ported yet
-exit, naming the ROADMAP item that brings them.
+the allocator).  The fault-tolerance flags (``--faults``,
+``--nan-policy``, ``--nan-inject``, ``--expansion-guard``,
+``--hang-deadline-s``) are the reference's and print its ``faults:``
+line; ``--mesh`` and ``--remat`` exit, naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
+FAULT_GRAMMAR = """\
+fault spec grammar (shared with launch/serve.py — one FaultPlane.parse):
+  site:nth[:kind],...   the nth (1-based) hit of a named site raises; kind
+                        is 'fault' (transient, retried/contained) or 'crash'
+                        (process death — resume from --ckpt-dir to recover)
+  storm:rate[:seed]     seeded Bernoulli fault storm over all non-iteration
+                        sites
+train-side sites: train.batch train.step train.eval train.expand train.iter
+                  ckpt.write ckpt.restore   (train.iter = scheduled-crash
+                  point, e.g. train.iter:40:crash)
+example: --faults ckpt.write:1,train.iter:120:crash --nan-policy skip
+"""
+
 from repro_torch import configs as cfglib
 from repro_torch.configs.base import (ExpansionConfig, OptimizerConfig,
                                       ScheduleConfig, TrainConfig)
 from repro_torch.train import loop
-
-_A11 = "ROADMAP queue A item 11 (fault tolerance)"
-
 
 def _refuse_later(args):
     later = []
@@ -36,15 +49,6 @@ def _refuse_later(args):
     if args.remat != "off":
         later.append(("--remat",
                       "ROADMAP queue A item 15 (activation checkpointing)"))
-    for flag, value, off in (("--faults", args.faults, None),
-                             ("--nan-policy", args.nan_policy, "off"),
-                             ("--nan-inject", args.nan_inject, None),
-                             ("--expansion-guard", args.expansion_guard,
-                              False),
-                             ("--hang-deadline-s", args.hang_deadline_s,
-                              None)):
-        if value != off:
-            later.append((flag, _A11))
     if later:
         raise SystemExit("not ported yet: " + "; ".join(
             f"{flag} ({item})" for flag, item in later))
@@ -73,7 +77,9 @@ def throughput_lines(step_times, tokens_per_step: int):
 
 def main(argv=None):
     """Run the CLI; returns the ``TrainResult``."""
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        epilog=FAULT_GRAMMAR,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="gpt2-12l", help=cfglib.ARCH_HELP)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config for --arch")
@@ -112,19 +118,24 @@ def main(argv=None):
                     help="microbatches per step (gradient accumulation); "
                     "must divide --batch")
     ap.add_argument("--faults", default=None, metavar="SPEC",
-                    help=f"not ported ({_A11})")
+                    help="deterministic fault injection (see grammar below)")
     ap.add_argument("--nan-policy", default="off",
                     choices=["off", "warn", "skip", "rollback"],
-                    help=f"only 'off' ({_A11})")
+                    help="bad-step sentinel ladder: warn logs, skip discards "
+                    "the update, rollback also restores the latest "
+                    "checkpoint after repeated bad steps")
     ap.add_argument("--nan-inject", default=None, metavar="SPEC",
-                    help=f"not ported ({_A11})")
+                    help="numerical fault injection 'kind:step[@attempt],...'"
+                    " with kind nan|spike (testing the sentinels)")
     ap.add_argument("--expansion-guard", action="store_true",
-                    help=f"not ported ({_A11})")
+                    help="post-expansion divergence watchdog: auto-rollback "
+                    "to the boundary checkpoint and retry with a "
+                    "function-preserving init / deferred tau")
     ap.add_argument("--retries", type=int, default=2,
-                    help="max retries per transient fault site (no effect "
-                    "without the fault plane)")
+                    help="max retries per transient fault site")
     ap.add_argument("--hang-deadline-s", type=float, default=None,
-                    help=f"not ported ({_A11})")
+                    help="fail a train step as a train.step fault if it "
+                    "exceeds this wall time instead of stalling")
     args = ap.parse_args(argv)
     _refuse_later(args)
 
@@ -147,9 +158,22 @@ def main(argv=None):
         optimizer=OptimizerConfig(name=args.optimizer, learning_rate=args.lr),
         schedule=ScheduleConfig(name=args.schedule), seed=args.seed)
     res = loop.train(cfg, tcfg, checkpoint_dir=args.ckpt_dir,
-                     device=args.device)
+                     device=args.device, faults=args.faults,
+                     nan_policy=args.nan_policy, nan_inject=args.nan_inject,
+                     expansion_guard=args.expansion_guard,
+                     max_retries=args.retries,
+                     hang_deadline_s=args.hang_deadline_s)
     print(f"final loss: {res.history['loss'][-1]:.4f} "
           f"(layers {res.final_layers})")
+    fs = res.fault_stats
+    if (args.faults or args.nan_policy != "off" or args.nan_inject
+            or args.expansion_guard or args.hang_deadline_s is not None):
+        print(f"faults: retries={fs['retries']} "
+              f"ckpt_failures={fs['ckpt_failures']} "
+              f"skipped={fs['skipped_steps']} "
+              f"nan_rollbacks={fs['nan_rollbacks']} "
+              f"guard_events={fs['guard_events']} hangs={fs['hangs']} "
+              f"site_hits={fs['fault_counts']} fired={fs['fired']}")
     for line in throughput_lines(res.step_times, args.batch * args.seq_len):
         print(line)
     if args.history_out:

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -196,8 +197,11 @@ def _apply_layer(lp, cfg: ModelConfig, i: int, x, positions):
 
 def embed_tokens(params, cfg: ModelConfig, tokens, offset: int = 0):
     """Token embedding (+ learned absolute positions offset..offset+S-1).
-    tokens: (B, S)."""
-    x = params["embed"][tokens]
+    tokens: (B, S).  The gather is ``F.embedding``: the same forward bits
+    as indexing, and a backward that sums each row's gradient in a fixed
+    order on every device, where indexing's ``index_put_`` accumulates in
+    thread order on the CPU (two identical steps may then differ)."""
+    x = F.embedding(tokens, params["embed"])
     if cfg.position == "absolute":
         S = tokens.shape[1]
         if offset + S > params["pos_embed"].shape[0]:

@@ -32,7 +32,9 @@ host side: a free-list allocator with
     its rewound cursor (pages holding only rejected draft tokens) and
     keeps its commitment; no page data moves.
 
-The fault-injection sites come with ROADMAP queue A item 11.
+Page allocation fires the ``pool.alloc`` site, and each eviction it asks
+for the ``pool.evict`` site, of the pool's fault plane (``train.faults``)
+before the free list moves.
 
 The trash page (id ``num_blocks``, the pool's last page) is where free
 rows' block-table entries point and where masked decode writes of inactive
@@ -43,6 +45,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.train import faults as faults_lib
 
 
 class PoolExhausted(RuntimeError):
@@ -59,13 +63,14 @@ class KVBlockPool:
     """
 
     def __init__(self, num_blocks: int, block_size: int, batch: int,
-                 max_blocks: int):
+                 max_blocks: int, faults=None):
         if num_blocks < 1 or block_size < 1:
             raise ValueError(f"bad pool shape ({num_blocks}, {block_size})")
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.batch = batch
         self.max_blocks = max_blocks
+        self.faults = faults_lib.resolve(faults)
         self.trash = num_blocks                      # reserved page id
         self._free: List[int] = list(range(num_blocks))[::-1]  # pop() -> 0
         self._rows: Dict[int, List[int]] = {}        # row -> referenced pages
@@ -188,8 +193,15 @@ class KVBlockPool:
 
     def _alloc_page(self) -> int:
         """Pop a free page, asking the evictor to reclaim pinned-only pages
-        when the free list is dry (admission guarantees one exists)."""
+        when the free list is dry (admission guarantees one exists).
+
+        The fault sites fire BEFORE any state moves: an injected
+        ``pool.alloc`` or ``pool.evict`` fault leaves the free list,
+        refcounts and tables untouched, so the caller may retry (or fail
+        just its own request) without a cleanup pass."""
+        self.faults.fire("pool.alloc")
         while not self._free:
+            self.faults.fire("pool.evict")
             if self.evictor is None or not self.evictor.evict_one():
                 raise PoolExhausted("free list empty and nothing evictable")
         page = self._free.pop()

@@ -22,9 +22,9 @@ def train(model_cfg: ModelConfig, tcfg: TrainConfig,
           device="cuda", **engine_kwargs) -> TrainResult:
     """Run (possibly progressive) training.  ``model_cfg.num_layers`` is the
     target depth; training starts at ``tcfg.source_layers`` and follows
-    ``tcfg.expansions``.  Extra keyword arguments pass through to
-    ``ProgressiveTrainer`` (which raises for the reference's options that
-    are not ported)."""
+    ``tcfg.expansions``.  Extra keyword arguments (``faults``,
+    ``nan_policy``, ``expansion_guard``, ...) pass through to
+    ``ProgressiveTrainer``."""
     return ProgressiveTrainer(model_cfg, tcfg, checkpoint_dir=checkpoint_dir,
                               data=data, eval_batches=eval_batches,
                               dtype=dtype, log_fn=log_fn, device=device,

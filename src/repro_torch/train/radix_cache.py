@@ -1,6 +1,7 @@
 """Radix tree over token prefixes for prefix-sharing paged serving
-(``repro/train/radix_cache.py``; the fault-injection sites come with
-ROADMAP queue A item 11).
+(``repro/train/radix_cache.py``).  ``match`` and ``publish`` fire the
+``radix.match`` and ``radix.publish`` fault sites of the pool's plane
+(``train.faults``) before they touch the tree.
 
 Production traffic concentrates on a handful of system prompts / few-shot
 templates: prefill cost and cache bytes should scale with O(distinct
@@ -172,6 +173,7 @@ class RadixCache:
         than a cold admission — matched pinned-only pages stop being
         evictable) until ``can_admit_prefix`` passes.  Carry configs
         re-clamp to the next-shallower snapshot node automatically."""
+        self.pool.faults.fire("radix.match")
         P = len(prompt)
         path = self._walk(prompt)
         if max_pages is not None:
@@ -216,6 +218,7 @@ class RadixCache:
         carry-bearing configs can match up to it.  Existing nodes win
         (first publisher dedup); returns the number of pages newly
         pinned."""
+        self.pool.faults.fire("radix.publish")
         bs = self.block_size
         node, new = self.root, 0
         for i in range(n_pages):

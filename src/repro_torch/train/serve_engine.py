@@ -55,8 +55,17 @@ freezes inactive rows' state, a verify replays the chunk as decode steps
 into a checkpoint ring from which each row keeps its accepted prefix, and
 the draft rolls back the same way.  A prefix-cache hit on such a model
 restores a copy of the carry its publisher snapshotted at a page
-boundary.  Sliding-window rings come with ROADMAP queue A item 12, fault
-injection with item 11, mesh sharding with item 13.
+boundary.  Sliding-window rings come with ROADMAP queue A item 12, mesh
+sharding with item 13.
+
+Fault injection (``faults``, a ``train.faults`` plane; the NULL plane by
+default): the engine fires ``engine.prefill_chunk``, ``engine.decode``,
+``engine.table_upload`` and ``engine.draft_prefill`` and hands the plane
+to its page pool (``pool.alloc``, ``pool.evict``) and radix tree
+(``radix.match``, ``radix.publish``).  Each step here writes caches,
+carries or the device table in place, so every site fires before the
+first write, upload or copy: a faulted call leaves the state as it was
+and can simply be retried.
 """
 from __future__ import annotations
 
@@ -72,6 +81,7 @@ from repro_torch.core import expansion, quant
 from repro_torch.models import registry
 from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
+from repro_torch.train import faults as faults_lib
 from repro_torch.train import steps as steps_lib
 from repro_torch.train.kv_pool import KVBlockPool
 from repro_torch.train.radix_cache import RadixCache
@@ -191,7 +201,7 @@ class ServeEngine:
                  num_blocks: Optional[int] = None, kv_dtype=None,
                  prefix_cache: bool = False, spec_decode: bool = False,
                  gamma: int = 4, draft_depth: Optional[int] = None,
-                 draft_params=None):
+                 draft_params=None, faults=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # Keep float32 matmuls around the kernel in full float32, as the
@@ -222,6 +232,8 @@ class ServeEngine:
             raise ValueError("prefix_cache requires paged=True (shared "
                              "prefixes are shared pool pages mapped through "
                              "block tables)")
+        # One no-op call per site when off (the NULL plane).
+        self.faults = faults_lib.resolve(faults)
         self.module = registry.ParamModule(params).to(self.device)
         self.params = self.module.tree()
         self._built = {}              # sample? -> (prefill, decode)
@@ -424,7 +436,8 @@ class ServeEngine:
         if self.paged:
             nb = num_blocks if num_blocks is not None \
                 else self._resolved_num_blocks(batch)
-            pool = KVBlockPool(nb, self.block_size, batch, self.max_blocks)
+            pool = KVBlockPool(nb, self.block_size, batch, self.max_blocks,
+                               faults=self.faults)
             cache = self.api.init_paged_cache(
                 self.params, self.cfg, batch, nb, self.block_size,
                 self.max_len, self.cache_dtype, self.kv_dtype, device=dev)
@@ -449,7 +462,7 @@ class ServeEngine:
             limit=torch.zeros((batch,), dtype=torch.long, device=dev),
             generator=torch.Generator(device=dev).manual_seed(seed),
             pool=pool, block_table=table, radix=radix)
-        return self._sync_table(state)
+        return self._sync_table(state, fire=False)
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(
@@ -496,6 +509,7 @@ class ServeEngine:
         self-terminate on eos / per-row limit; inactive rows are no-ops.
         Paged engines read and write K/V through the block table,
         re-uploaded only when the pool changed it."""
+        self.faults.fire("engine.decode")
         decode, _ = self._cont_steps(temperature)
         temp = temperature if temperature > 0 else None
         table = ()
@@ -532,6 +546,7 @@ class ServeEngine:
         the first token, and no sampling draw is spent."""
         if not state.draft_cache:
             return state              # zero-layer draft: nothing to cache
+        self.faults.fire("engine.draft_prefill")
         prompt = np.asarray(prompt, np.int64).reshape(1, -1)
         row_cache = self.draft_api.init_cache(
             self.draft_params, self.draft_cfg, 1, self.max_len,
@@ -554,6 +569,7 @@ class ServeEngine:
         full-attention draft cache needs a device rollback.  The target's
         recurrent layers keep their accepted prefix in the verify's commit,
         the draft's are rolled back here, from the draft loop's ring."""
+        self.faults.fire("engine.decode")
         state = self._sync_table(state)
         draft, verify = self._spec_steps(temperature)
         if temperature > 0:
@@ -578,17 +594,23 @@ class ServeEngine:
 
     # -- paged request lifecycle (chunked prefill through the pool) ---------
 
-    def _sync_table(self, state: ContinuousState) -> ContinuousState:
+    def _sync_table(self, state: ContinuousState,
+                    fire: bool = True) -> ContinuousState:
         """Copy the host block table into the persistent device table iff
         the pool changed it.  The copy is queued on the current stream, so
         a decode already queued reads the old table and the next one the
         new.  A changed version whose bytes match the last upload copies
-        nothing."""
+        nothing.  The ``engine.table_upload`` site fires before the copy:
+        a faulted upload leaves the device table at its last version,
+        consistent with the last dispatched step, and the caller
+        retries."""
         if state.pool is None or state.table_version == state.pool.version:
             return state
         host = state.pool.table
         if state.table_host is None or not np.array_equal(host,
                                                           state.table_host):
+            if fire:
+                self.faults.fire("engine.table_upload")
             host = host.copy()
             state.block_table.copy_(torch.from_numpy(host),
                                     non_blocking=True)
@@ -677,7 +699,15 @@ class ServeEngine:
                       temperature: float = 0.0):
         """Run the job's next prefill chunk (K/V into the pool through the
         row's block table).  Returns ``(state, first_token or None)``: the
-        (1, 1) device token appears when the final chunk samples it."""
+        (1, 1) device token appears when the final chunk samples it.
+
+        Transactional under injected faults: the site fires first and the
+        pool's alloc/evict sites fire before the free list moves (and
+        ``advance`` resumes where it stopped), all before the chunk writes
+        the pool or the carry in place; the job's ``chunks``/``carry``/
+        ``ctx`` move only after the chunk ran.  A faulted call can simply
+        be retried."""
+        self.faults.fire("engine.prefill_chunk")
         C = job.chunks[0]
         final = len(job.chunks) == 1
         state.pool.advance(job.row, job.ctx + C)       # alloc-on-advance
@@ -705,7 +735,12 @@ class ServeEngine:
         the prompt's full pages: every slot of them now holds prompt K/V
         and is never written again (decode writes positions >= P).  The
         first publisher of a path wins; a recurrent config's carry
-        snapshot attaches at its page boundary."""
+        snapshot attaches at its page boundary.
+
+        The fault-prone host steps (the draft prefill, the radix publish)
+        run BEFORE the scatter flips the row active, so a fault here leaves
+        the slot inert and the whole call retryable (the draft's slot is
+        rewritten whole by the retry)."""
         _, admit = self._cont_steps(temperature)
         if self.spec_decode:
             state = self._admit_draft(state, job.row, job.prompt)
@@ -722,6 +757,18 @@ class ServeEngine:
             P + job.max_new_tokens - 1, job.row)
         return dataclasses.replace(state, cache=cache, tokens=tokens,
                                    index=index, active=active, limit=limit)
+
+    def deactivate_row(self, state: ContinuousState,
+                       row: int) -> ContinuousState:
+        """Force one row inactive on the device (the scheduler fails a
+        faulted row and keeps the batch serving).  Only ``active`` changes,
+        as a new tensor: a step already queued that still holds the old one
+        may land the row's write, on pages the pool frees after this call
+        and before any new owner's prefill is queued (in-order execution
+        on one stream, as ``KVBlockPool.truncate_row``'s rollback)."""
+        active = state.active.clone()
+        active[row] = False
+        return dataclasses.replace(state, active=active)
 
     def free_slot(self, state: ContinuousState, row: int) -> ContinuousState:
         """Free-on-EOS: return the finished row's pages to the pool at once

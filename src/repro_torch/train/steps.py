@@ -20,16 +20,15 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import bridge
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry
 from repro_torch.optim.base import Optimizer
-from repro_torch.tree import leaves_with_path
+from repro_torch.tree import leaves_with_path, tree_map
 
-_SENTINELS = ("ROADMAP queue A item 11 (fault tolerance): the train step's "
-              "sentinels and NaN injection are not ported yet")
 _REMAT = ("ROADMAP queue A item 15 (activation checkpointing): remat={remat!r} "
           "is not ported yet; the port trains with remat off")
 
@@ -51,9 +50,17 @@ def _microbatch(batch, grad_accum: int):
     return out
 
 
+def _global_norm(leaves) -> torch.Tensor:
+    """sqrt of the sum, leaf by leaf in order, of float32 squared sums."""
+    total = sum(torch.sum(torch.square(x.float())) for x in leaves)
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
 def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
                     remat=False, grad_accum: int = 1,
-                    sentinels: bool = False, inject=None) -> Callable:
+                    sentinels: bool = False, nan_policy: str = "warn",
+                    spike_factor: float = 10.0,
+                    inject: Optional[dict] = None) -> Callable:
     """(params, opt_state, batch, step) -> (params, opt_state, metrics).
 
     The schedule is evaluated inside the step from the global step counter
@@ -63,12 +70,30 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
     1/grad_accum, as the reference's scan does.  Gradients are taken with
     respect to the stacked param leaves themselves (detached aliases that
     share their storage), and the optimizer updates those leaves in place.
-    Metrics: loss, lr, ce, aux (0-d tensors on the params' device)."""
+    Metrics: loss, lr, ce, aux (0-d tensors on the params' device).
+
+    With ``sentinels=True`` the step becomes ``(params, opt_state, batch,
+    step, gnorm_ema) -> (..., metrics)`` and the metrics gain the
+    reference's health scalars: ``grad_norm`` and ``update_norm`` (global
+    L2 norms of the gradient and of new - old params), ``bad`` (1.0 for a
+    non-finite loss or grad norm, or ``grad_norm > spike_factor *
+    gnorm_ema`` once the EMA operand is > 0) and ``gnorm_ema`` (the
+    updated EMA; a bad step leaves it).  The optimizer writes params and
+    momenta in place, so ``bad`` is decided on the host BEFORE it runs:
+    the loss and grad norm are read back (the engine reads the metrics
+    every step anyway).  Under ``nan_policy`` 'skip' or 'rollback' a bad
+    step then never touches params or momenta, which stay bit-identical to
+    their pre-step values; its ``update_norm`` is that of the update it
+    would have applied, computed on clones.  'warn' applies the update.
+    A healthy step keeps one clone of the params for ``update_norm``.
+
+    ``inject`` ({step: 'nan'|'spike'}) injects numerical faults at the
+    named global steps: the loss and grads times NaN, or the grads times
+    1e4."""
     if remat not in (False, None, "off"):
         raise NotImplementedError(_REMAT.format(remat=remat))
-    if sentinels or inject:
-        raise NotImplementedError(_SENTINELS)
     api = registry.get_model(cfg)
+    inject = dict(inject or {})
 
     def loss_and_grads(flat, batch):
         leaves = {k: v.detach().requires_grad_() for k, v in flat.items()}
@@ -81,31 +106,73 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
 
-    def step_fn(params, opt_state, batch, step):
+    def forward(params, batch, step):
+        """(flat params, lr, loss, metrics, grads as a list in flat order)."""
         flat = bridge.flatten(params)
         dev = next(iter(flat.values())).device
         lr = schedule(step).to(dev)
         if grad_accum <= 1:
             loss, metrics, grads = loss_and_grads(flat, batch)
-        else:
-            grads = [torch.zeros_like(p) for p in flat.values()]
-            loss = torch.zeros((), device=dev)
-            metrics = None
-            for mb in _microbatch(batch, grad_accum):
-                l, m, g = loss_and_grads(flat, mb)
-                grads = [a + b for a, b in zip(grads, g)]
-                loss = loss + l
-                metrics = m if metrics is None else {
-                    k: metrics[k] + m[k] for k in metrics}
-            inv = 1.0 / grad_accum
-            grads = [g * inv for g in grads]
-            loss = loss * inv
-            metrics = {k: v * inv for k, v in metrics.items()}
+            return flat, lr, loss, metrics, grads
+        grads = [torch.zeros_like(p) for p in flat.values()]
+        loss = torch.zeros((), device=dev)
+        metrics = None
+        for mb in _microbatch(batch, grad_accum):
+            l, m, g = loss_and_grads(flat, mb)
+            grads = [a + b for a, b in zip(grads, g)]
+            loss = loss + l
+            metrics = m if metrics is None else {
+                k: metrics[k] + m[k] for k in metrics}
+        inv = 1.0 / grad_accum
+        return (flat, lr, loss * inv, {k: v * inv for k, v in metrics.items()},
+                [g * inv for g in grads])
+
+    def step_fn(params, opt_state, batch, step):
+        flat, lr, loss, metrics, grads = forward(params, batch, step)
         grad_tree = bridge.unflatten(dict(zip(flat, grads)))
         params, opt_state = opt.update(grad_tree, opt_state, params, lr)
         return params, opt_state, {"loss": loss, "lr": lr, **metrics}
 
-    return step_fn
+    def sentinel_fn(params, opt_state, batch, step, gnorm_ema):
+        flat, lr, loss, metrics, grads = forward(params, batch, step)
+        kind = inject.get(int(step))
+        if kind == "nan":
+            loss = loss * float("nan")
+            grads = [g * float("nan") for g in grads]
+        elif kind == "spike":
+            grads = [g * 1e4 for g in grads]
+        gnorm = _global_norm(grads)
+        loss_v, gnorm_v = torch.stack([loss.float(), gnorm]).cpu().numpy()
+        ema = np.float32(gnorm_ema)
+        ema_live = ema > 0.0
+        bad = bool(not (np.isfinite(loss_v) and np.isfinite(gnorm_v))
+                   or (ema_live and gnorm_v > np.float32(spike_factor) * ema))
+        skip = bad and nan_policy in ("skip", "rollback")
+        old = list(flat.values())
+        if skip:       # the would-be update, on clones: nothing is written
+            new_p, new_s = opt.update(
+                bridge.unflatten(dict(zip(flat, grads))),
+                tree_map(torch.clone, opt_state),
+                tree_map(torch.clone, params), lr)
+        else:
+            old = [p.clone() for p in old]
+            params, opt_state = new_p, new_s = opt.update(
+                bridge.unflatten(dict(zip(flat, grads))), opt_state, params,
+                lr)
+        upd = _global_norm(n.float() - o.float() for n, o in
+                           zip(bridge.flatten(new_p).values(), old))
+        if bad:
+            new_ema = ema
+        elif ema_live:
+            new_ema = np.float32(0.9) * ema + np.float32(0.1) * gnorm_v
+        else:
+            new_ema = gnorm_v
+        return params, opt_state, {
+            "loss": loss, "lr": lr, **metrics, "grad_norm": gnorm,
+            "update_norm": upd, "bad": torch.tensor(float(bad)),
+            "gnorm_ema": torch.tensor(new_ema, dtype=torch.float32)}
+
+    return sentinel_fn if sentinels else step_fn
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:

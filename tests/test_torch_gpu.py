@@ -1129,3 +1129,82 @@ def test_recurrent_prefix_hit_equals_cold_on_the_card(cuda_device):
     # cold 70: 64 + 4 + 2 (edge at 64); 30: 16 + 8 + 4 + 2 (edge at 16);
     # the hit's tail: 4 + 2
     assert wkv_ops.KERNEL_LAUNCHES - before == 9 * cfg.num_layers
+
+
+@pytest.mark.gpu
+def test_async_checkpoint_snapshot_survives_the_next_in_place_step(
+        cuda_device, tmp_path):
+    """``AsyncCheckpointer.save`` clones every leaf on the compute stream
+    before it returns; the worker copies the clones to the host on a side
+    stream.  In-place updates queued right after the save (as the next
+    train step makes them) never reach the file, and the write overlaps
+    them."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"params": {"w": torch.randn(4096, 4096, generator=g,
+                                        device=cuda_device)},
+            "opt_state": {"m": torch.randn(8192, 1024, generator=g,
+                                           device=cuda_device)}}
+    want = {k: {n: t.cpu().numpy().copy() for n, t in v.items()}
+            for k, v in tree.items()}
+    ac = ckpt.AsyncCheckpointer()
+    ac.save(str(tmp_path), 1, tree)
+    for _ in range(20):               # the "next step": in place, queued
+        tree["params"]["w"].mul_(-1.5).add_(1.0)
+        tree["opt_state"]["m"].sqrt_()
+    ac.wait()
+    back = ckpt.restore(str(tmp_path), 1, tree)
+    for k, v in want.items():
+        for n, arr in v.items():
+            np.testing.assert_array_equal(back[k][n], arr)
+
+
+def _train_cfg():
+    from repro_torch.configs.base import ModelConfig
+    return ModelConfig(name="gpu-sentinel", family="dense", num_layers=2,
+                       d_model=128, num_heads=2, num_kv_heads=2, d_ff=256,
+                       vocab_size=256, max_seq_len=64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["nan", "spike"])
+def test_skipped_step_leaves_params_and_momenta_bit_identical(cuda_device,
+                                                             kind):
+    """A sentinel step under 'skip' on the card (flash forward and
+    backward, the Newton–Schulz kernels): a clean step moves the state, an
+    injected ``nan`` or ``spike`` step is bad and leaves params and Muon
+    momenta bit for bit (the optimizer runs on clones only), and the step
+    after it moves on as from the pre-step state."""
+    from repro_torch.configs.base import OptimizerConfig, ScheduleConfig
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.models import registry
+    from repro_torch.optim.base import make_optimizer
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_leaves
+    cfg = _train_cfg()
+    params = registry.get_model(cfg).init(torch.Generator().manual_seed(0),
+                                          cfg, device=cuda_device)
+    opt = make_optimizer(OptimizerConfig(name="muon_nsgd"))
+    state = opt.init(params)
+    step = steps.make_train_step(cfg, opt, make_schedule(
+        ScheduleConfig(), 0.01, 10), sentinels=True, nan_policy="skip",
+        inject={1: kind})
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64)))
+             .to(cuda_device) for k in ("tokens", "labels")}
+    before_ns = ns_ops.NS_FUSED_LAUNCHES
+    params, state, m0 = step(params, state, batch, 0, 0.0)
+    assert float(m0["bad"]) == 0.0 and float(m0["update_norm"]) > 0.0
+    assert ns_ops.NS_FUSED_LAUNCHES > before_ns
+    before = [t.clone() for t in tree_leaves({"p": params, "s": state})]
+    params, state, m1 = step(params, state, batch, 1,
+                             float(m0["gnorm_ema"]))
+    torch.cuda.synchronize()
+    assert float(m1["bad"]) == 1.0
+    assert float(m1["gnorm_ema"]) == float(m0["gnorm_ema"])
+    after = tree_leaves({"p": params, "s": state})
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+    assert int(state["step"]) == 1
+    params, state, m2 = step(params, state, batch, 2,
+                             float(m1["gnorm_ema"]))
+    assert float(m2["bad"]) == 0.0 and int(state["step"]) == 2

@@ -378,17 +378,26 @@ def test_cli_prefix_cache_and_quantized_pages(flag, dtype, ratio):
                  id="flag0-item 9"),
     pytest.param(["--spec-depth", "0", "--arch", "jamba-v0.1-52b"], None,
                  id="flag1-item 9"),
-    (["--deadline-s", "1"], "item 11"),
-    (["--queue-limit", "2"], "item 11"), (["--faults", "storm:0.1"], "item 11"),
-    (["--snapshot-every", "2"], "item 11")])
+    # The request lifecycle (item 11) is ported too: each of its flags
+    # serves to the end.
+    pytest.param(["--deadline-s", "60"], None, id="flag2-item 11"),
+    pytest.param(["--queue-limit", "2"], None, id="flag3-item 11"),
+    pytest.param(["--faults", "storm:0.1"], None, id="flag4-item 11"),
+    pytest.param(["--snapshot-every", "2"], None, id="flag5-item 11")])
 def test_refused_continuous_flags_name_their_roadmap_item(flag, item):
     argv = ["--smoke", "--device", "cpu", "--continuous", "--paged"] + flag
     if item is None:
         text, results = _cli(argv + ["--max-batch", "2", "--requests", "3",
                                      "--prompt-len", "8", "--gen", "4",
                                      "--block-size", "4", "--rate", "1000"])
-        assert "speculative: draft_layers=" in text
-        assert all(r.finish_reason == "limit" for r in results)
+        if "--spec-depth" in flag:
+            assert "speculative: draft_layers=" in text
+            assert all(r.finish_reason == "limit" for r in results)
+        elif "--faults" in flag:
+            assert "lifecycle: " in text
+        assert len(results) == 3
+        assert all(r.finish_reason in ("limit", "failed", "shed")
+                   for r in results)
         return
     with pytest.raises(SystemExit, match=item):
         serve.main(argv)

@@ -288,7 +288,10 @@ def test_launch_train_smoke_cpu(capsys, tmp_path):
     assert "final loss:" in out and "(layers 2)" in out
     assert "train tokens/s layers=1" in out
     assert ckpt.all_steps(str(tmp_path)) == [3, 6]
-    for flag in (["--mesh", "4x2"], ["--remat"], ["--faults", "x:1"],
-                 ["--nan-policy", "skip"], ["--expansion-guard"]):
+    for flag in (["--mesh", "4x2"], ["--remat"]):
         with pytest.raises(SystemExit, match="not ported"):
             launch_train.main(["--smoke", "--device", "cpu"] + flag)
+    # The fault-tolerance flags are ported (ROADMAP queue A item 11): a bad
+    # spec is the plane's own error now, not a refusal.
+    with pytest.raises(ValueError, match="unknown fault site"):
+        launch_train.main(["--smoke", "--device", "cpu", "--faults", "x:1"])
