@@ -13,10 +13,11 @@ result):
    selective scan), compiled from
    the sources in this checkout at once, one ``nvcc`` per kernel package,
    with ``-Xptxas -v`` register/shared-memory use; every flash entry
-   function's registers and spill bytes, none of the 12 spilling, and the
-   same for the 48 paged-decode entry functions (q dtype x page dtype x
-   head dim x one query head per kv head, 2..8, or more in head blocks of
-   8), the 8 WKV entry functions
+   function's registers and spill bytes, none of the 18 spilling (forward
+   and the backward's two, x f32/bf16 x hd 64/128/256), and the same for
+   the 72 paged-decode entry functions (q dtype x page dtype x head dim
+   64/128/256 x one query head per kv head, 2..8, or more in head blocks
+   of 8), the hd-256 ones printed apart, the 8 WKV entry functions
    (dtype x head dim) and the 4 selective-scan ones (dtype x state dim);
 3. kernel parity: the flash-attention kernel against its plain PyTorch
    version on the card over dtype x causal x window x softcap x MHA/GQA x
@@ -95,10 +96,11 @@ result):
    initial state x dtype x decays near 0.69, near 0.9975 and near 0 (a
    tenth exactly 0, some below the reference's 1e-30 floor), y and the
    final state, finite; then 3 repeats bit-identical at the main shape;
-15. the RWKV6 main path: ``serve.main`` serves ``rwkv6-7b`` at full width
-   and depth (batch 4, prompt 1024, 32 tokens, random weights from seed 0),
-   every counter at 0 just before: one WKV launch per layer per prefill and
-   no other kernel;
+15. the RWKV6 main path: the ``ServeEngine`` that ``serve.main`` builds
+   serves ``rwkv6-7b`` at full width and depth as the CLI runs it (batch
+   4, prompt 1024, 32 tokens after a two-token warm-up; random weights
+   drawn once on the card from seed 0 for phases 15-17 and 27), every
+   counter at 0 just before: one WKV launch per layer per prefill and no other kernel;
 16. card against CPU: ``rwkv6-7b`` at full width and depth 2, a greedy
    B=2 P=80 8-token generation on the card against the CPU's prefill
    (chunked WKV form) and decode fed the same tokens;
@@ -156,10 +158,12 @@ result):
    phase 6's traffic on paged KV: the paged kernel at G = 12, hd 128; then
    card against CPU at depth 2 (the B=1 P=128 generation, whose prefill
    runs flash at G = 12, and three paged requests);
-27. ``rwkv6-7b`` at full width and depth in continuous serving, over phase
-   6's traffic: ``serve.main --continuous --paged`` (every request at its
+27. ``rwkv6-7b`` at full width and depth in continuous serving (run right
+   after phase 17, on phase 15's weights), over phase 6's traffic
+   through ``ServeEngine`` and ``ContinuousScheduler`` as ``serve.main
+   --continuous --paged`` builds and warms them (every request at its
    budget, the pool returned, aggregate tokens/s and TTFT p50/p95), then
-   on its weights through ``ServeEngine`` and ``ContinuousScheduler`` the
+   on the same weights the
    prefix cache over the shared-prefix traffic with its last 8 requests
    sent again (it must hit; each repeat's stream equals its first run's),
    ``--spec-depth 2 --gamma 4`` over the first 8 requests (acceptance,
@@ -211,15 +215,51 @@ result):
    at exactly the steps past it, the run bit-identical to the clean one);
    the sentinel step's and a retry's time, and the asynchronous save
    against the synchronous one around a 12-layer step.  Each run's
-   kernel launches are derived from the steps it ran.
+   kernel launches are derived from the steps it ran;
+32. the hd-256 kernels (run right after phase 4): flash forward and
+   backward at gemma2-9b's prefill shape (B 1, S 5120, 16/8 heads, window
+   4096, softcap 50, q scaled so that the logits reach the cap) and
+   gemma3-12b's (B 2, S 2048, window 1024), f32 and bf16, entry by entry
+   against their plain versions (bf16 within 2^-8 of each entry plus
+   2^-10 of its sum of magnitudes), a rule that must reject the plain
+   version without the softcap and without the window; finite and
+   bit-identical on repeat, timed beside SDPA's best call (causal,
+   without the window and softcap) and the card's bound (bf16 at its
+   bf16 peak); the paged decode at G = 2, hd 256,
+   softcap 50 and 0, f32/bf16 q over f32, bf16, int8 and fp8 pages at
+   contexts past 4096, held by phase 4's rule and timed per page dtype;
+33. ``gemma2-9b`` at full size (42 layers, 7.09 B params drawn on the
+   card) in paged continuous serving, f32: 8 requests into 4 slots,
+   prompts 4160-6144 (past the 4096 window), 32 tokens, pages of 16,
+   counters from 0: the paged kernel once per global layer per decode
+   step, flash never, the pool returned; each stream held to solo
+   ``generate`` (flash prefill at hd 256 with the window and softcap)
+   under phase 22's near-tie rule; then card against CPU at depth 2;
+34. ``gemma3-12b`` at full width and 12 layers (two 5:1 periods; cut from
+   48 for time), 16 requests into 8 slots, prompts of 1280-2000 tokens
+   over a 1280-token shared prefix, 32 tokens: paged over f32 and int8
+   pages (agreement at least 0.9), the prefix cache (hits restore the
+   bare prefix's ring snapshot) and ``--spec-depth 6 --gamma 4`` (flash
+   once per draft layer per admission), streams held to the f32 run's
+   under the near-tie rule, launches derived;
+35. training: ``gemma2-9b`` at full width through ``ProgressiveTrainer``,
+   2 -> 4 layers, one 5120-token sequence a step, AdamW, remat at its
+   ``REMAT_DEFAULTS`` policy (the windowed, softcapped backward at hd
+   256; flash forward twice a layer a step under remat), peak memory; and
+   ``gpt2-12l`` at phase 13's settings for 6 steps under AdamW, NSGD and
+   SGD, then AdamW under remat 'nothing' and 'dots', whose losses and
+   params are bit for bit those of remat off and whose own peak memory
+   is below remat off's.
 
-Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31) starts with every
-kernel's launch counter at 0 and checks every counter after it, the
-kernels it must not launch included.
+Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35) starts with
+every kernel's launch counter at 0 and checks every counter after it, the
+kernels it must not launch included.  Each phase prints its seconds.
 
 The line before the last is the kernels' JSON record (the paged row's
 launches and times at G = 12, starcoder2-3b's, its gpt2-12l ones under
-``gpt2_12l``); the last line is ``{"ok": true, "device": {...}}``.
+``gpt2_12l``; the hd-256 readings and launches of the flash, backward and
+paged rows under ``hd_256``); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -247,9 +287,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOGIT_TOL = 1e-3
 
 # H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, TF32
-# on them, HBM.
+# and bf16 on them, HBM.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 MAIN_ARGV = ["--arch", "gpt2-12l", "--batch", "8", "--prompt-len", "512",
@@ -1092,10 +1133,11 @@ def _flusher():
     return junk.zero_
 
 
-def paged_times(pa_ops, kv_dtype=torch.float32, s=PAGED_SHAPE):
+def paged_times(pa_ops, kv_dtype=torch.float32, s=PAGED_SHAPE, cap=0.0):
     """The paged kernel, its plain version and the SDPA yardstick at the
     timing shape ``s`` over ``kv_dtype`` pages (int8/fp8 with their
-    scales), device time with the L2 flushed before each launch.  The
+    scales), device time with the L2 flushed before each launch; the
+    kernel and its plain version with softcap ``cap``, SDPA without.  The
     yardstick is ``scaled_dot_product_attention`` over the already gathered
     (and, for quantized pages, dequantized) contiguous (B, H, 576, hd) f32
     context, its kv heads repeated for GQA (``enable_gqa``): at uniform
@@ -1105,7 +1147,7 @@ def paged_times(pa_ops, kv_dtype=torch.float32, s=PAGED_SHAPE):
     q, kp, vp, tbl, idx, ks, vs = paged_case(
         B, H, KV, hd, bs, NB, torch.float32, kv_dtype, [s["cursor"]] * B,
         seed=4242, trash_row=False)
-    kw = dict(k_scales=ks, v_scales=vs)
+    kw = dict(k_scales=ks, v_scales=vs, logit_softcap=cap)
     flush = _flusher()
     kernel_ms = _time_device_ms(lambda: pa_ops.paged_attention(
         q, kp, vp, tbl, idx, force="kernel", **kw), 50, flush)
@@ -1131,7 +1173,8 @@ def paged_times(pa_ops, kv_dtype=torch.float32, s=PAGED_SHAPE):
     byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
     name = str(kv_dtype)[6:]
     print(f"paged times at B={B} H={H} KV={KV} hd={hd} bs={bs} cursors "
-          f"{s['cursor']} q f32, {name} pages, L2 flushed: kernel "
+          f"{s['cursor']} softcap {cap:g} q f32, {name} pages, L2 flushed: "
+          f"kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on the "
           f"gathered context {library_ms:.4f} ms; bound "
           f"{max(op_ms, byte_ms):.4f} ms ({flops / 1e6:.1f} MFLOP -> "
@@ -1838,21 +1881,45 @@ def wkv_parity(wkv_ops) -> float:
     return err                                   # the last case: main shape
 
 
-def rwkv_main_path(cfglib, serve):
-    """``serve.main(RWKV_ARGV)`` with every counter at 0 just before:
+def draw_on_card(registry, cfg, seed=0):
+    """``cfg``'s random weights drawn on the card from ``seed`` (seconds,
+    where a host draw of a 7 B model takes about a minute)."""
+    t0 = time.perf_counter()
+    params = registry.get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(seed), cfg, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"  {cfg.name} at {cfg.num_layers} layers: {n} params "
+          f"({4 * n / 1e9:.2f} GB f32) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def rwkv_main_path(cfglib, params):
+    """``RWKV_ARGV``'s run on ``params`` (drawn once on the card for phases
+    15-17 and 27) through the ``ServeEngine`` that ``serve.main`` builds,
+    as it runs it: a two-token warm-up, then the timed generation of the
+    same prompts (``--seed``'s draw).  Every counter at 0 just before:
     exactly one WKV launch per layer per prefill (warm-up and timed), no
     other kernel.  Returns (result, WKV launches, peak device bytes)."""
+    from repro_torch.train.serve_engine import ServeEngine
     cfg = cfglib.get_config("rwkv6-7b")
+    arg = {k: int(v) for k, v in zip(RWKV_ARGV, RWKV_ARGV[1:])
+           if k in ("--batch", "--prompt-len", "--gen", "--seed")}
+    B, P, G = arg["--batch"], arg["--prompt-len"], arg["--gen"]
+    prompts = np.random.default_rng(arg["--seed"]).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, device="cuda", max_len=P + G + 1)
     zero_counts()
-    res = serve.main(RWKV_ARGV)
+    eng.generate(prompts, 2)
+    res = eng.generate(prompts, G, seed=arg["--seed"])
     launches = expect_counts("rwkv6 main path", wkv=2 * cfg.num_layers)["wkv"]
     peak = torch.cuda.max_memory_allocated()
-    arg = {k: int(v) for k, v in zip(RWKV_ARGV, RWKV_ARGV[1:])
-           if k in ("--batch", "--prompt-len", "--gen")}
-    shape = (arg["--batch"], arg["--prompt-len"] + arg["--gen"])
+    del eng
+    shape = (B, P + G)
     if res.tokens.shape != shape:
         _fail(f"rwkv6 main path returned tokens {res.tokens.shape}, "
               f"expected {shape}")
@@ -2558,10 +2625,12 @@ def _prefill_chunks(P: int, bs: int, prefix_cache=False, skip=0) -> list:
     return _pow2(P - skip)
 
 
-def _run_counted(label, eng, reqs, max_batch=8):
+def _run_counted(label, eng, reqs, max_batch=8, warmup=False):
     """``ContinuousScheduler(eng).run(reqs)`` with every launch counter at
-    0 just before and the engine's masked decode steps counted.  Returns
-    (results, scheduler, summarize record, decode steps, peak bytes)."""
+    0 just before (and before ``warmup(reqs)`` where ``warmup``, as
+    ``serve.main`` warms up) and the engine's masked decode steps counted.
+    Returns (results, scheduler, summarize record, decode steps, peak
+    bytes)."""
     from repro_torch.train.serve_scheduler import (ContinuousScheduler,
                                                    summarize)
     steps = [0]
@@ -2575,6 +2644,8 @@ def _run_counted(label, eng, reqs, max_batch=8):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    if warmup:
+        sched.warmup(reqs)
     t0 = time.perf_counter()
     results = sched.run(reqs)
     torch.cuda.synchronize()
@@ -2592,13 +2663,15 @@ def _requests_of(traffic):
     return [Request(prompt=p, max_new_tokens=g) for p, g in traffic]
 
 
-def rwkv_continuous_paths(cfglib, registry, serve):
+def rwkv_continuous_paths(cfglib, registry, params):
     """Phase 27: ``rwkv6-7b`` at full width and depth over phase 6's
-    traffic.  ``serve.main --continuous --paged`` first (warm-up and timed
-    run), then on the same weights the prefix cache, ``--spec-depth 2
-    --gamma 4`` and the paper's draft, counters from 0 before each run and
-    the WKV launches checked against the chunks this script derives from
-    the requests.  Returns {run: WKV launches}."""
+    traffic, on phase 15's weights ``params``.  ``RWKV_PAGED_ARGV``'s run
+    through the engine and scheduler ``serve.main --continuous --paged``
+    builds (warm-up and run) first, then on the same weights the prefix
+    cache, ``--spec-depth 2 --gamma 4`` and the paper's draft, counters
+    from 0 before each run and the WKV launches checked against the
+    chunks this script derives from the requests.  Returns {run: WKV
+    launches}."""
     from repro_torch.train.serve_engine import ServeEngine
     cfg = cfglib.get_config("rwkv6-7b")
     L = cfg.num_layers
@@ -2606,9 +2679,18 @@ def rwkv_continuous_paths(cfglib, registry, serve):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out = {}
-    # (a) the CLI: its warm-up serves each prompt length once, then the run
-    results, sched, stats, _ = _serve_counted(serve, RWKV_PAGED_ARGV, ())
+    # (a) as the CLI serves it: the warm-up serves each prompt length once,
+    # then the run
     traffic = _drawn_traffic(cfg, RWKV_PAGED_ARGV)
+    arg = {k: int(v) for k, v in zip(RWKV_PAGED_ARGV, RWKV_PAGED_ARGV[1:])
+           if k in ("--prompt-len", "--gen", "--max-batch")}
+    eng = ServeEngine(cfg, params, device="cuda",
+                      max_len=arg["--prompt-len"] + arg["--gen"] + 1,
+                      paged=True, block_size=PAGE)
+    results, sched, stats, _, _ = _run_counted(
+        "rwkv6-7b paged", eng, _requests_of(traffic),
+        max_batch=arg["--max-batch"], warmup=True)
+    del eng
     lens = [len(p) for p, _ in traffic]
     _check_served("rwkv6-7b paged", cfg, lens, [g for _, g in traffic],
                   results, sched)
@@ -2625,7 +2707,6 @@ def rwkv_continuous_paths(cfglib, registry, serve):
           f"{stats['ttft_p95_s'] * 1e3:.1f} ms; kv storage "
           f"{ks['kv_bytes_per_token']} bytes a token (ratio "
           f"{ks['kv_bytes_ratio']}); {time.perf_counter() - t0:.1f} s")
-    params = sched.engine.params
     max_len = sched.engine.max_len
     del sched
     # (b) the prefix cache over the shared-prefix traffic, the last eight
@@ -3358,6 +3439,671 @@ def async_overlap(cfg, registry, res) -> dict:
             "sync_save_ms": sync * 1e3}
 
 
+# ---------------------------------------------------------------------------
+# Phases 32-35: sliding windows, softcaps and head dim 256 (gemma2-9b,
+# gemma3-12b), and the rest of the training recipe (AdamW, SGD, NSGD,
+# remat)
+# ---------------------------------------------------------------------------
+
+# The gemmas' flash shapes (hd 256, 16 query heads over 8 kv heads): gemma2
+# prefill past its 4096 window with softcap 50, gemma3 past its 1024 one.
+GEMMA_FA = {"gemma2-9b": dict(B=1, S=5120, H=16, KV=8, window=4096,
+                              softcap=50.0),
+            "gemma3-12b": dict(B=2, S=2048, H=16, KV=8, window=1024,
+                               softcap=0.0)}
+HD256 = 256
+# gemma's global-layer decode: G = 2, hd 256, pages of 16, contexts past
+# 4096 (the last row of a parity case is all trash).
+# With the softcap on, q is scaled so that the logits reach the cap
+# (|q.k|/16 with a standard deviation of 8 against a cap of 50).
+SOFTCAP_Q_SCALE = 8.0
+GEMMA_PAGED = dict(B=4, H=16, KV=8, hd=HD256, bs=16, NB=400, cursor=5000)
+GEMMA_PAGED_CURSORS = [4200, 6175, 4096, 0]
+# Phase 33: gemma2-9b at full size, 8 requests into 4 slots.
+GEMMA2_TRAFFIC = dict(n=8, lo=4160, hi=6144, gen=32, slots=4, seed=33)
+# Phase 34: gemma3-12b at full width and 12 layers (two 5:1 periods), 16
+# requests into 8 slots: a 1280-token shared prefix alone, then 15 prompts
+# of 1281-2000 tokens that extend it.
+GEMMA3_DEPTH = 12
+GEMMA3_TRAFFIC = dict(n=16, lo=1281, hi=2000, gen=32, slots=8, seed=34,
+                      shared=1280)
+GEMMA3_SPEC_DEPTH, GEMMA3_GAMMA = 6, 4
+# Phase 35: gemma2-9b at full width trained 2 -> 4 layers, one 5120-token
+# sequence a step; gpt2-12l at phase 13's settings for 6 steps.
+GEMMA2_TRAIN = dict(source=2, target=4, steps=4, seq=5120, batch=1)
+RECIPE_STEPS = 6
+
+
+def _visible_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal attention over S positions sees, within
+    ``window`` when it is > 0."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _flash_plain(q, k, v, o, do, window, cap):
+    """The plain backward on the backward kernel's own inputs, head by
+    head in f32 on the card: dq, dk, dv from q, k, v, the forward output
+    ``o`` it is handed (D = rowsum(dO o) with that o: bf16 inputs get a
+    bf16 o) and dO, with the window, the softcap and its derivative.  And
+    the sums of magnitudes behind each entry of the forward's output and
+    of dq, dk, dv: ``P |V|``, ``|dS| |K|``, ``|dS|^T |Q|`` and ``P^T |dO|``
+    (the last two summed over each kv head's group); a kernel that rounds
+    each P or dS to TF32 (2^-11 relative) moves an entry by at most 2^-11
+    times its magnitude.  Returns ((dq, dk, dv), (o, dq, dk, dv) of
+    magnitudes)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
+    i = torch.arange(S, device=q.device)
+    mask = i[:, None] >= i[None, :]
+    if window > 0:
+        mask &= (i[:, None] - i[None, :]) < window
+    grads = [torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)]
+    mags = [torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(k),
+            torch.zeros_like(v)]
+    rs = 1.0 / math.sqrt(hd)
+    for b in range(B):
+        for h in range(H):
+            kh = h // G
+            qh, kk, vv, dh = q[b, :, h], k[b, :, kh], v[b, :, kh], do[b, :, h]
+            x = qh @ kk.T * rs
+            if cap > 0:
+                x = cap * torch.tanh(x / cap)
+            p = torch.softmax(x.masked_fill(~mask, -1e30), dim=-1)
+            dx = p * (dh @ vv.T - (dh * o[b, :, h]).sum(-1, keepdim=True))
+            ds = dx * (1 - (x / cap) ** 2) if cap > 0 else dx
+            grads[0][b, :, h] = ds @ kk * rs
+            grads[1][b, :, kh] += ds.T @ qh * rs
+            grads[2][b, :, kh] += p.T @ dh
+            ds = ds.abs()
+            mags[0][b, :, h] = p @ vv.abs()
+            mags[1][b, :, h] = ds @ kk.abs() * rs
+            mags[2][b, :, kh] += ds.T @ qh.abs() * rs
+            mags[3][b, :, kh] += p.T @ dh.abs()
+            del x, p, dx, ds
+    return grads, mags
+
+
+def _flash_room(want, mag, dtype, backward=False):
+    """Each entry's limit against the plain version (``hd256_flash``): f32
+    by ``TOL`` (forward) or
+    ``BWD_TOL`` times max(1, max|plain|) (each gradient); bf16, whose
+    kernel rounds P and dS to TF32 for its second products and its result
+    to bf16 once, by 2^-8 |plain| + 2^-10 magnitude + 1e-6 max(1,
+    max|plain|) (the 2^-11 of each rounded P or dS, doubled for f32 sums
+    in another order)."""
+    if dtype == torch.float32:
+        peak = max(1.0, want.abs().max().item()) if backward else 1.0
+        return torch.full_like(want, (BWD_TOL if backward else TOL)[dtype]
+                               * peak)
+    return (2.0 ** -8 * want.abs() + 2.0 ** -10 * mag
+            + 1e-6 * max(1.0, want.abs().max().item()))
+
+
+def _worst_ratio(got, want, room) -> float:
+    return ((got.float() - want).abs() / room).max().item()
+
+
+def _sdpa_best(q, k, v, do):
+    """SDPA's best single call (causal; no window or softcap) on (B, S,
+    heads, hd) inputs, forward and backward: as PyTorch dispatches GQA
+    (``enable_gqa``) and on K/V repeated to every query head (the repeat
+    not timed), each on the backend ``torch._fused_sdp_choice`` picks.
+    Returns {fwd: (ms, backend), bwd: (ms, backend), readings}."""
+    from torch.nn.attention import sdpa_kernel
+    H = q.shape[2]
+    rep = [t.repeat_interleave(H // k.shape[2], dim=2) for t in (k, v)]
+    readings = {}
+    for label, (kk, vv) in (("gqa", (k, v)), ("repeated", rep)):
+        sdpa, backend = sdpa_yardstick(q, kk, vv)
+        fwd = sdpa(_time_device_ms, 10)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, kk, vv))
+        with sdpa_kernel([getattr(torch.nn.attention.SDPBackend, backend)]):
+            so = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=kt.shape[1] != H)
+            bwd = _time_device_ms(lambda: torch.autograd.grad(
+                so, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 10)
+        readings[label] = dict(backend=backend, fwd_ms=fwd, bwd_ms=bwd)
+        del so, qt, kt, vt
+    del rep
+    best = {}
+    for key in ("fwd", "bwd"):
+        label = min(readings, key=lambda r: readings[r][f"{key}_ms"])
+        best[key] = (readings[label][f"{key}_ms"],
+                     f"{readings[label]['backend']} ({label})")
+    return dict(best, readings=readings)
+
+
+def hd256_flash(fa_ops) -> dict:
+    """Phase 32, the flash half: forward and backward at gemma2's and
+    gemma3's shapes, f32 and bf16, on the card, entry by entry
+    (``_flash_room``; dq, dk, dv each on its own): the forward against the
+    plain version run on f32 copies of the same inputs, the backward
+    against the plain backward on its own inputs (``_flash_plain``: the o
+    the forward gave it); finite, bit-identical on repeat.  Where
+    the softcap is on, q is scaled by ``SOFTCAP_Q_SCALE`` so that the
+    logits reach it; the same rule must reject the plain version without
+    the softcap and without the window (the check can see both).  Then
+    device times (CUDA events) of the kernel, its plain version and SDPA's
+    best call (causal, without the window and the softcap it cannot
+    express), beside the card's bound: f32 on this route's three TF32
+    passes, bf16 at the bf16 tensor-core peak (and the one TF32 pass this
+    route runs).  Returns {arch: {dtype: record}}."""
+    out = {}
+    for n, (arch, s) in enumerate(GEMMA_FA.items()):
+        B, S, H, KV, W, cap = (s[k] for k in ("B", "S", "H", "KV", "window",
+                                              "softcap"))
+        kw = dict(causal=True, window=W, logit_softcap=cap)
+        pairs = B * H * _visible_pairs(S, W)
+        out[arch] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _inputs(B, S, H, KV, HD256, dtype, 3200 + 10 * n)
+            if cap > 0:
+                q = (q.float() * SOFTCAP_Q_SCALE).to(dtype)
+            do = _inputs(B, S, H, H, HD256, dtype, 3201 + 10 * n)[0]
+            f32 = [t.float() for t in (q, k, v, do)]
+            before = fa_ops.KERNEL_LAUNCHES
+            got = fa_ops.flash_attention(q, k, v, force="kernel", **kw)
+            again = fa_ops.flash_attention(q, k, v, force="kernel", **kw)
+            want = fa_ops.flash_attention(*f32[:3], force="ref", **kw)
+            torch.cuda.synchronize()
+            gw, mags = _flash_plain(q, k, v, got, do, W, cap)
+            room = _flash_room(want, mags[0], dtype)
+            err = (got.float() - want).abs().max().item()
+            ratio = _worst_ratio(got, want, room)
+            blind = {}
+            for what, kw_off in (("softcap", dict(kw, logit_softcap=0.0)),
+                                 ("window", dict(kw, window=0))):
+                if kw_off != kw:
+                    off = fa_ops.flash_attention(*f32[:3], force="ref",
+                                                 **kw_off)
+                    blind[what] = _worst_ratio(off, want, room)
+                    del off
+            if (ratio > 1.0 or fa_ops.KERNEL_LAUNCHES != before + 2
+                    or not bool(torch.isfinite(got).all())
+                    or not torch.equal(got, again)
+                    or min(blind.values()) <= 1.0):
+                _fail(f"hd 256 flash forward {arch} {dtype}: err {err:.2e}, "
+                      f"worst err/limit {ratio:.3f}, repeat equal "
+                      f"{torch.equal(got, again)}, the plain version "
+                      f"without each of {list(blind)} at {blind} of the "
+                      "limit (must exceed 1)")
+            del want, again, room
+            gk = _bwd_pair(fa_ops, q, k, v, do, kw, "kernel")
+            gk2 = _bwd_pair(fa_ops, q, k, v, do, kw, "kernel")
+            rooms = [_flash_room(w, m, dtype, backward=True)
+                     for w, m in zip(gw, mags[1:])]
+            berrs = [(a.float() - b).abs().max().item()
+                     for a, b in zip(gk, gw)]
+            bratios = [_worst_ratio(a, b, r) for a, b, r in zip(gk, gw, rooms)]
+            bblind = {}
+            for what, off in (("softcap", (W, 0.0)), ("window", (0, cap))):
+                if off != (W, cap):
+                    go, _ = _flash_plain(q, k, v, got, do, *off)
+                    bblind[what] = min(_worst_ratio(a, b, r) for a, b, r
+                                       in zip(go, gw, rooms))
+                    del go
+            if (max(bratios) > 1.0
+                    or not all(bool(torch.isfinite(t).all()) for t in gk)
+                    or not all(torch.equal(a, b) for a, b in zip(gk, gk2))
+                    or min(bblind.values()) <= 1.0):
+                _fail(f"hd 256 flash backward {arch} {dtype}: dq/dk/dv err "
+                      f"{berrs}, err/limit {bratios}, the plain version "
+                      f"without each of {list(bblind)} at {bblind} of the "
+                      "limit (must exceed 1)")
+            del gk, gw, gk2, rooms, mags, f32, got
+            ms = _time_device_ms(lambda: fa_ops.flash_attention(
+                q, k, v, force="kernel", **kw), 10)
+            plain_ms = _time_device_ms(lambda: fa_ops.flash_attention(
+                q, k, v, force="ref", **kw), 2)
+            lib = _sdpa_best(q, k, v, do)
+            es = q.element_size()
+            nbytes = es * (2 * q.numel() + 2 * k.numel())
+            flops = 4 * HD256 * pairs
+            if dtype == torch.float32:
+                bound = dict(**_bound(3 * flops, nbytes, PEAK_TF32_FLOPS),
+                             f32_bound_ms=_bound(flops, nbytes)["bound_ms"])
+            else:
+                bound = dict(**_bound(flops, nbytes, PEAK_BF16_FLOPS),
+                             tf32_route_bound_ms=_bound(
+                                 flops, nbytes, PEAK_TF32_FLOPS)["bound_ms"])
+            fwd = dict(ms=ms, plain_ms=plain_ms, library_ms=lib["fwd"][0],
+                       library_backend=lib["fwd"][1], **bound,
+                       max_abs_err=err, err_over_limit=ratio,
+                       blind_over_limit=blind, sdpa=lib["readings"])
+            o, lse = fa_ops.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+            bwd_ms = _time_device_ms(lambda: fa_ops.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, **kw), 10)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref_out = fa_ops.flash_attention(*leaves, force="ref", **kw)
+            bwd_plain = _time_device_ms(lambda: torch.autograd.grad(
+                ref_out, leaves, do, retain_graph=True), 2)
+            del ref_out, leaves
+            bbytes = es * (4 * q.numel() + 4 * k.numel()) + 2 * 4 * B * H * S
+            bflops = 10 * HD256 * pairs
+            if dtype == torch.float32:
+                bbound = dict(**_bound(3 * bflops, bbytes, PEAK_TF32_FLOPS),
+                              f32_bound_ms=_bound(bflops, bbytes)["bound_ms"])
+            else:
+                bbound = dict(**_bound(bflops, bbytes, PEAK_BF16_FLOPS),
+                              tf32_route_bound_ms=_bound(
+                                  bflops, bbytes, PEAK_TF32_FLOPS)["bound_ms"])
+            bwd = dict(ms=bwd_ms, plain_ms=bwd_plain,
+                       library_ms=lib["bwd"][0],
+                       library_backend=lib["bwd"][1], **bbound,
+                       max_abs_err=max(berrs), err_over_limit=max(bratios),
+                       blind_over_limit=bblind)
+            name = str(dtype)[6:]
+            out[arch][name] = dict(forward=fwd, backward=bwd)
+            peak = ("3xTF32" if dtype == torch.float32 else
+                    f"bf16 at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s")
+            print(f"  {card_line()}: hd 256 flash at {arch}'s shape (B={B} "
+                  f"S={S} H={H}/{KV} window {W} softcap {cap:g}"
+                  f"{f', q x{SOFTCAP_Q_SCALE:g}' if cap > 0 else ''}) "
+                  f"{name}: forward err {err:.2e} = {ratio:.3f} of its "
+                  f"limit (plain without {blind}), kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, sdpa {lib['fwd'][1]} (causal, "
+                  f"no window or softcap) {lib['fwd'][0]:.4f} ms, bound "
+                  f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}; "
+                  f"{flops / 1e9:.2f} GFLOP, {peak}); backward err "
+                  f"{max(berrs):.2e}, dq/dk/dv at "
+                  f"{[round(r, 3) for r in bratios]} of their limits "
+                  f"(plain without {bblind}), kernel {bwd_ms:.4f} ms, "
+                  f"plain (autograd) {bwd_plain:.4f} ms, sdpa backward "
+                  f"{lib['bwd'][1]} {lib['bwd'][0]:.4f} ms, bound "
+                  f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}); sdpa "
+                  f"readings {lib['readings']}")
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+    return out
+
+
+def hd256_paged(pa_ops) -> dict:
+    """Phase 32, the paged half: the decode at G = 2, hd 256 (gemma's
+    global layers), softcap 50 and 0, f32 and bf16 q over f32, bf16, int8
+    and fp8 pages, contexts past 4096 (and a zero cursor and an all-trash
+    row), against the plain version with ``paged_parity``'s rule, finite
+    and bit-identical on repeat; then device times of each page dtype at
+    softcap 50 (L2 flushed) beside the byte bound and SDPA on the gathered
+    context.  Returns {page dtype: record}."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    s = GEMMA_PAGED
+    B, H, KV, hd, bs, NB = (s[k] for k in ("B", "H", "KV", "hd", "bs",
+                                           "NB"))
+    worst, n = {}, 0
+    for q_dt in (f32, bf16):
+        for kv_dt in (f32, bf16, torch.int8, torch.float8_e4m3fn):
+            for cap in (50.0, 0.0):
+                n += 1
+                q, kp, vp, tbl, idx, ks, vs = paged_case(
+                    B, H, KV, hd, bs, NB, q_dt, kv_dt, GEMMA_PAGED_CURSORS,
+                    seed=3300 + n)
+                kw = dict(k_scales=ks, v_scales=vs, logit_softcap=cap)
+                before = pa_ops.KERNEL_LAUNCHES
+                got = pa_ops.paged_attention(q, kp, vp, tbl, idx,
+                                             force="kernel", **kw)
+                again = pa_ops.paged_attention(q, kp, vp, tbl, idx,
+                                               force="kernel", **kw)
+                want = pa_ops.paged_attention(q.float(), kp, vp, tbl, idx,
+                                              force="ref", **kw)
+                torch.cuda.synchronize()
+                live = slice(0, B - 1)
+                want_l = want[live].float()
+                peak = max(1.0, want_l.abs().max().item())
+                tol = TOL[f32] * (peak if ks is not None or q_dt == bf16
+                                  else 1.0)
+                diff = (got[live].float() - want_l).abs()
+                room = tol + (2.0 ** -8 * want_l.abs() if q_dt == bf16
+                              else 0.0)
+                err = diff.max().item()
+                ok = (bool((diff <= room).all())
+                      and bool(torch.isfinite(got).all())
+                      and torch.equal(got, again)
+                      and pa_ops.KERNEL_LAUNCHES == before + 2)
+                name = str(kv_dt)[6:]
+                worst[name] = max(worst.get(name, 0.0), err)
+                print(f"  pa hd256 q {str(q_dt)[6:]:8s} kv {name:13s} B{B} "
+                      f"H{H}/{KV} NB{NB} cap{cap:<4g} cursors "
+                      f"{GEMMA_PAGED_CURSORS} err={err:.2e} tol={tol:.1e} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    _fail(f"hd 256 paged decode q {q_dt} pages {kv_dt} cap "
+                          f"{cap}: err {err:.2e}")
+    out = {}
+    for kv_dt in (f32, bf16, torch.int8, torch.float8_e4m3fn):
+        name = str(kv_dt)[6:]
+        out[name] = dict(paged_times(pa_ops, kv_dt, s, cap=50.0),
+                         max_abs_err=worst[name])
+    print(f"hd 256 paged parity: {n} cases within tolerance; worst error "
+          f"per page dtype {worst}")
+    return out
+
+
+def hd256_registers(fa_regs, pa_regs) -> dict:
+    """The hd-256 entry functions' (registers, spill bytes), out of every
+    flash and paged entry function's."""
+    fa = [r for r in fa_regs if "<256," in r[0]]
+    pa = [r for r in pa_regs if ", hd 256," in r[0]]
+    print("hd 256 entry functions (registers, spill bytes): flash "
+          + "; ".join(f"{n} {r}, {sp}" for n, r, sp in fa) + " | paged "
+          + "; ".join(f"{r}, {sp}" for _, r, sp in pa))
+    if len(fa) != 6 or len(pa) != 24:
+        _fail(f"hd 256 entry functions: {len(fa)} flash (6 expected), "
+              f"{len(pa)} paged (24 expected)")
+    return dict(flash=[list(r) for r in fa], paged=[list(r) for r in pa])
+
+
+def _gemma_traffic(cfg, t):
+    """[(prompt, budget)]: ``t["n"]`` prompts of lengths uniform in
+    [lo, hi], drawn from ``t["seed"]``.  With ``t["shared"]`` every prompt
+    begins with one shared prefix of that many tokens, and the first is
+    that prefix alone: a sliding-window model hits the prefix cache only
+    at a snapshot its publisher took (at its last page boundary below its
+    length), so later prompts that extend the bare prefix hit there."""
+    rng = np.random.default_rng(t["seed"])
+    shared = rng.integers(0, cfg.vocab_size, (t.get("shared", 0),))
+    lens = rng.integers(t["lo"], t["hi"] + 1, t["n"])
+    if len(shared):
+        lens[0] = len(shared)
+    return [(np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, (int(P) - len(shared),))]).astype(np.int32),
+        t["gen"]) for P in lens]
+
+
+def _global_layers(cfg) -> int:
+    return sum(cfg.layer_kind(i) == "attn" and cfg.layer_window(i) == 0
+               for i in range(cfg.num_layers))
+
+
+def _solo_streams(label, cfg, params, traffic, max_len):
+    """Each request alone through ``ServeEngine.generate`` (contiguous
+    cache, B=1, greedy), counters from 0: one flash launch per layer per
+    prefill (windowed layers with their window), decode attention plain.
+    Returns result-like records for ``streams_vs``."""
+    import types
+    from repro_torch.train.serve_engine import ServeEngine
+    eng = ServeEngine(cfg, params, device="cuda", max_len=max_len)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = []
+    for uid, (prompt, gen) in enumerate(traffic):
+        res = eng.generate(prompt[None], gen)
+        out.append(types.SimpleNamespace(
+            uid=uid, prompt=prompt, new_tokens=res.tokens[0, len(prompt):],
+            completed=True, finish_reason="limit"))
+    expect_counts(label, flash_attention=len(traffic) * cfg.num_layers)
+    print(f"  {label}: {len(traffic)} solo generations, "
+          f"{len(traffic) * cfg.num_layers} flash launches (hd 256; window "
+          f"layers with their window), {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def gemma2_full_serving(cfglib, registry) -> dict:
+    """Phase 33: ``gemma2-9b`` at full size (42 layers, 7.09 B params,
+    random weights drawn on the card), paged continuous serving in f32: 8
+    requests into 4 slots, prompts uniform in 4160-6144 (past the 4096
+    window: every ring wraps), 32 new tokens, pages of 16, counters from
+    0: the paged kernel once per global layer per masked decode step
+    (G = 2, hd 256, softcap 50), flash never; the pool returned; each
+    stream held to solo ``generate`` (flash prefill with the window and
+    the softcap) under phase 22's near-tie rule.  Returns launch counts."""
+    from repro_torch.train.serve_engine import ServeEngine
+    t0 = time.perf_counter()
+    cfg = cfglib.get_config("gemma2-9b")
+    params = draw_on_card(registry, cfg)
+    t = GEMMA2_TRAFFIC
+    traffic = _gemma_traffic(cfg, t)
+    max_len = t["hi"] + t["gen"] + 1
+    eng = ServeEngine(cfg, params, device="cuda", max_len=max_len,
+                      paged=True, block_size=PAGE)
+    res, sched, stats, steps, peak = _run_counted(
+        "gemma2-9b paged f32", eng, _requests_of(traffic),
+        max_batch=t["slots"])
+    n_glob = _global_layers(cfg)
+    paged = expect_counts("gemma2-9b paged", paged_attention=steps * n_glob)[
+        "paged_attention"]
+    _check_served("gemma2-9b paged", cfg, [len(p) for p, _ in traffic],
+                  [g for _, g in traffic], res, sched)
+    del eng, sched
+    torch.cuda.empty_cache()
+    solo = _solo_streams("gemma2-9b solo", cfg, params, traffic, max_len)
+    flash = cfg.num_layers * len(traffic)
+    equal = streams_vs("gemma2-9b paged vs solo", cfg, registry, res, solo,
+                       params)
+    ring_gb = 2 * 4096 * cfg.num_kv_heads * cfg.head_dim * 4 \
+        * (cfg.num_layers - n_glob) / 1e9
+    print(f"gemma2-9b full size: {len(traffic)} requests (prompts "
+          f"{min(len(p) for p, _ in traffic)}-"
+          f"{max(len(p) for p, _ in traffic)}) at their budgets; {paged} "
+          f"paged launches = {steps} decode steps x {n_glob} global layers; "
+          f"{equal}/{len(res)} streams equal to solo generate; aggregate "
+          f"tokens/s {stats['tokens_per_s']:.1f}, ttft p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
+          f"{stats['ttft_p95_s'] * 1e3:.1f} ms; rings {ring_gb:.2f} GB a "
+          f"row; peak {peak / 2 ** 30:.2f} GiB; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(paged=paged, flash_solo=flash,
+                tokens_per_s=stats["tokens_per_s"])
+
+
+def gemma3_serving(cfglib, registry) -> dict:
+    """Phase 34: ``gemma3-12b`` at full width and 12 layers (two 5:1
+    periods; random weights drawn on the card), 16 requests into 8 slots,
+    prompts of 1280-2000 tokens (a 1280-token shared prefix, first alone:
+    every ring of 1024 wraps), 32 tokens, pages of 16, counters from 0
+    before each run: paged over f32 pages and over int8 pages (agreement
+    with f32 at least ``QUANT_AGREEMENT``), the prefix cache (the requests
+    admitted after the bare prefix published hit at its snapshot, 1264
+    tokens, and restore its rings; streams held to the f32 run's under
+    the near-tie rule) and ``--spec-depth 6 --gamma 4`` (flash once per
+    draft layer per admission, paged never; streams held likewise).
+    Returns launch counts per run."""
+    from repro_torch.train.serve_engine import ServeEngine
+    t0 = time.perf_counter()
+    cfg = cfglib.get_config("gemma3-12b").with_depth(GEMMA3_DEPTH)
+    params = draw_on_card(registry, cfg)
+    t = GEMMA3_TRAFFIC
+    traffic = _gemma_traffic(cfg, t)
+    max_len = t["hi"] + t["gen"] + 1
+    lens, gens = [len(p) for p, _ in traffic], [g for _, g in traffic]
+    n_glob = _global_layers(cfg)
+    out, runs = {}, {}
+    for key, kw in (("f32", {}), ("int8", dict(kv_dtype="int8")),
+                    ("prefix", dict(prefix_cache=True))):
+        eng = ServeEngine(cfg, params, device="cuda", max_len=max_len,
+                          paged=True, block_size=PAGE, **kw)
+        res, sched, stats, steps, _ = _run_counted(
+            f"gemma3-12b paged {key}", eng, _requests_of(traffic),
+            max_batch=t["slots"])
+        out[key] = expect_counts(f"gemma3-12b paged {key}",
+                                 paged_attention=steps * n_glob)[
+                                     "paged_attention"]
+        _check_served(f"gemma3-12b paged {key}", cfg, lens, gens, res, sched)
+        if key == "prefix":
+            hits = [r for r in res if r.prefix_tokens]
+            for r in hits:
+                if r.prefix_tokens % PAGE or \
+                        r.prefix_tokens > (len(r.prompt) - 1) // PAGE * PAGE:
+                    _fail(f"gemma3 prefix request {r.uid} skipped "
+                          f"{r.prefix_tokens} tokens, not a snapshot "
+                          "boundary below P")
+            if not hits:
+                _fail(f"the gemma3 prefix-cache run had no hit: "
+                      f"{sched.prefix_stats()}")
+            print(f"  gemma3-12b prefix cache: hits {len(hits)}/{len(res)}, "
+                  f"{sched.prefix_skipped_tokens} prompt tokens skipped "
+                  "(each hit restored its publisher's ring snapshot)")
+        runs[key] = res
+        del eng, sched
+        torch.cuda.empty_cache()
+    hit, tot = _agreement(runs["f32"], runs["int8"])
+    print(f"  gemma3-12b int8 pages: agreement with f32 {hit}/{tot} = "
+          f"{hit / tot:.4f} (bar {QUANT_AGREEMENT})")
+    if hit / tot < QUANT_AGREEMENT:
+        _fail(f"gemma3 int8 agreement {hit / tot:.4f} < {QUANT_AGREEMENT}")
+    streams_vs("gemma3-12b prefix vs f32", cfg, registry, runs["prefix"],
+               runs["f32"], params)
+    eng = ServeEngine(cfg, params, device="cuda", max_len=max_len,
+                      paged=True, block_size=PAGE, spec_decode=True,
+                      gamma=GEMMA3_GAMMA, draft_depth=GEMMA3_SPEC_DEPTH)
+    res, sched, stats, _, _ = _run_counted(
+        "gemma3-12b spec", eng, _requests_of(traffic), max_batch=t["slots"])
+    out["spec"] = expect_counts(
+        "gemma3-12b spec",
+        flash_attention=GEMMA3_SPEC_DEPTH * len(traffic))["flash_attention"]
+    _check_served("gemma3-12b spec", cfg, lens, gens, res, sched)
+    mal = float(np.mean([r.mean_accepted_len for r in res]))
+    print(f"  gemma3-12b spec (draft {GEMMA3_SPEC_DEPTH} layers, gamma "
+          f"{GEMMA3_GAMMA}): {sched.spec_rounds} rounds, acceptance "
+          f"{sched.acceptance_rate:.4f}, mean accepted length {mal:.4f}; "
+          f"{out['spec']} flash launches = {len(traffic)} admissions x "
+          f"{GEMMA3_SPEC_DEPTH} draft layers")
+    streams_vs("gemma3-12b spec vs f32", cfg, registry, res, runs["f32"],
+               params)
+    del eng, sched
+    print(f"gemma3-12b phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+class _UniformTokens:
+    """Training batches of uniform random tokens, drawn from a seed per
+    step (``SyntheticLM``'s interface; its Zipf draws take ~12 s for one
+    5120-token sequence over gemma's 256000-token vocabulary)."""
+
+    def __init__(self, vocab: int, seq_len: int, batch: int, seed: int = 0):
+        self.vocab, self.seq_len, self.batch_size = vocab, seq_len, batch
+        self.seed = seed
+
+    def batch(self, step: int, shard: int = 0, num_shards: int = 1) -> dict:
+        rng = np.random.default_rng((self.seed, step, shard))
+        toks = rng.integers(0, self.vocab, (self.batch_size // num_shards,
+                                            self.seq_len + 1))
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
+
+
+def gemma2_training(cfglib) -> dict:
+    """Phase 35, gemma2's half: ``gemma2-9b`` at full width (hd 256,
+    window 4096, softcaps) through ``ProgressiveTrainer``, 2 -> 4 layers
+    at step 2 of 4, one 5120-token sequence a step, AdamW, remat at the
+    launcher's ``--remat`` default for the arch (``REMAT_DEFAULTS``:
+    'nothing'), every counter at 0 just before: the flash forward twice a
+    layer a step (the checkpointed forward reruns in the backward), the
+    backward once, no Newton–Schulz; finite losses, peak memory."""
+    from repro_torch.configs.base import (ExpansionConfig, OptimizerConfig,
+                                          ScheduleConfig, TrainConfig)
+    from repro_torch.train.engine import ProgressiveTrainer
+    t0 = time.perf_counter()
+    g = GEMMA2_TRAIN
+    cfg = cfglib.get_config("gemma2-9b").with_depth(g["target"])
+    remat = cfglib.default_remat("gemma2-9b")
+    tau = g["steps"] // 2
+    tc = TrainConfig(total_steps=g["steps"], seq_len=g["seq"],
+                     global_batch=g["batch"], source_layers=g["source"],
+                     expansions=(ExpansionConfig(at_frac=tau / g["steps"],
+                                                 target_layers=g["target"]),),
+                     optimizer=OptimizerConfig(name="adamw",
+                                               learning_rate=1e-4),
+                     schedule=ScheduleConfig(name="constant"), seed=0,
+                     eval_every=10_000, log_every=1, remat=remat)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = ProgressiveTrainer(
+        cfg, tc, device="cuda", log_fn=lambda *a: None, eval_batches=[],
+        data=_UniformTokens(cfg.vocab_size, g["seq"], g["batch"])).run()
+    layers = [g["source"]] * tau + [g["target"]] * (g["steps"] - tau)
+    counts = expect_counts("gemma2-9b training",
+                           flash_attention=2 * sum(layers),
+                           flash_attention_bwd=sum(layers))
+    h = res.history
+    if h["expansion_steps"] != [tau] or res.final_layers != g["target"] \
+            or not all(np.isfinite(h["loss"])) or len(h["loss"]) != g["steps"]:
+        _fail(f"gemma2-9b training: expansion {h['expansion_steps']}, "
+              f"layers {res.final_layers}, losses {h['loss']}")
+    peak = torch.cuda.max_memory_allocated()
+    dts = [dt for _, dt in res.step_times]
+    print(f"gemma2-9b training at full width: {g['source']} -> "
+          f"{g['target']} layers at step {tau}, {g['batch']} x {g['seq']} "
+          f"tokens a step (window 4096 binding), AdamW, remat {remat!r}: "
+          f"losses {[round(x, 4) for x in h['loss']]}; launches {counts}; "
+          f"step times {[round(1e3 * d, 1) for d in dts]} ms; peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(flash_attention=counts["flash_attention"],
+                flash_attention_bwd=counts["flash_attention_bwd"],
+                peak_gib=peak / 2 ** 30)
+
+
+def recipe_training(cfglib) -> dict:
+    """Phase 35, the recipe's half: ``gpt2-12l`` at phase 13's settings
+    (batch 16 x 256, 1 -> 12 layers at τ = 0.5, WSD, lr 0.01) for
+    ``RECIPE_STEPS`` steps through ``train.loop.train`` under AdamW, NSGD
+    and SGD, then AdamW under remat 'nothing' and 'dots': every loss and
+    the final params of each remat run bit for bit those of remat off;
+    each run's launches derived (flash forward once a layer a step, twice
+    under remat; the backward once; no Newton–Schulz) and its own peak
+    memory printed, each remat run's below remat off's."""
+    from repro_torch.configs.base import (ExpansionConfig, OptimizerConfig,
+                                          ScheduleConfig, TrainConfig)
+    from repro_torch.train import loop
+    t0 = time.perf_counter()
+    cfg = cfglib.get_config("gpt2-12l")
+    tau = int(TRAIN_TAU * RECIPE_STEPS)
+    layers = [1] * tau + [cfg.num_layers] * (RECIPE_STEPS - tau)
+    runs = {}
+    for name, remat in (("adamw", False), ("nsgd", False), ("sgd", False),
+                        ("adamw", "nothing"), ("adamw", "dots")):
+        tc = TrainConfig(total_steps=RECIPE_STEPS, seq_len=256,
+                         global_batch=16, source_layers=1,
+                         expansions=(ExpansionConfig(
+                             at_frac=TRAIN_TAU, target_layers=cfg.num_layers),),
+                         optimizer=OptimizerConfig(name=name,
+                                                   learning_rate=0.01),
+                         schedule=ScheduleConfig(name="wsd"), seed=0,
+                         log_every=1, remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        zero_counts()
+        res = loop.train(cfg, tc, device="cuda")
+        fwd = (2 if remat else 1) * sum(layers)
+        expect_counts(f"{name} remat {remat}", flash_attention=fwd,
+                      flash_attention_bwd=sum(layers))
+        losses = res.history["loss"]
+        if len(losses) != RECIPE_STEPS or not all(np.isfinite(losses)):
+            _fail(f"gpt2-12l {name} remat {remat}: losses {losses}")
+        # the run's own peak: what it allocated above what was held before
+        # it (each run's params go to the host, so nothing is)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        runs[(name, remat)] = (losses, [t.cpu() for t in _leaves(res.params)],
+                               peak)
+        del res
+        print(f"  gpt2-12l {name} remat {remat!r}: losses "
+              f"{[round(x, 4) for x in losses]}, flash {fwd} forward and "
+              f"{sum(layers)} backward launches, peak {peak:.2f} GiB above "
+              f"the {held / 2 ** 30:.2f} GiB held before it")
+    base_l, base_p, base_peak = runs[("adamw", False)]
+    for remat in ("nothing", "dots"):
+        l, p, peak = runs[("adamw", remat)]
+        if l != base_l or not all(torch.equal(a, b)
+                                  for a, b in zip(p, base_p)):
+            _fail(f"remat {remat!r}: losses {l} against {base_l}, or params "
+                  "not bit-identical to remat off")
+        if peak >= base_peak:
+            _fail(f"remat {remat!r} peaked at {peak:.2f} GiB, not below "
+                  f"remat off's {base_peak:.2f}")
+        print(f"  remat {remat!r}: losses and params bit for bit those of "
+              f"remat off; peak {peak:.2f} GiB against {base_peak:.2f}")
+    print(f"recipe training phase {time.perf_counter() - t0:.1f} s")
+    return {f"{n} remat {r}": v[2] for (n, r), v in runs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3393,14 +4139,15 @@ def main() -> int:
     fa_regs = flash_registers(_build.build_log("flash_attention"))
     print("flash entry functions (registers, spill bytes): " + "; ".join(
         f"{n} {r}, {sp}" for n, r, sp in fa_regs))
-    if len(fa_regs) != 12 or any(sp for _, _, sp in fa_regs):
-        _fail(f"flash entry functions: {fa_regs} (12 expected, none spilling)")
+    if len(fa_regs) != 18 or any(sp for _, _, sp in fa_regs):
+        _fail(f"flash entry functions: {fa_regs} (18 expected, none spilling)")
     pa_regs = paged_registers(_build.build_log("paged_attention"))
     print("paged entry functions (registers, spill bytes): " + "; ".join(
         f"{n} {r}, {sp}" for n, r, sp in pa_regs))
-    if len(pa_regs) != 48 or any(sp for _, _, sp in pa_regs):
-        _fail(f"paged entry functions: {pa_regs} (48 expected, none "
+    if len(pa_regs) != 72 or any(sp for _, _, sp in pa_regs):
+        _fail(f"paged entry functions: {pa_regs} (72 expected, none "
               "spilling)")
+    hd256_regs = hd256_registers(fa_regs, pa_regs)
     wkv_regs = wkv_registers(_build.build_log("rwkv6"))
     scan_regs = scan_registers(_build.build_log("mamba_scan"))
     print("wkv and scan entry functions (registers, spill bytes): "
@@ -3414,6 +4161,13 @@ def main() -> int:
     main_err = parity(fa_ops)
     fa_f64 = fa_f64_and_repeats(fa_ops)
     paged_errs = paged_parity(pa_ops)
+
+    # 32. the hd-256 kernels (gemma2's and gemma3's shapes) against their
+    # plain versions, f32 and bf16, and their times
+    t0 = time.perf_counter()
+    fa256 = hd256_flash(fa_ops)
+    pa256 = hd256_paged(pa_ops)
+    print(f"hd 256 kernels phase {time.perf_counter() - t0:.1f} s")
 
     # 5. the contiguous main path, counters from 0
     cfg = cfglib.get_config("gpt2-12l")
@@ -3484,9 +4238,11 @@ def main() -> int:
     wkv_err = wkv_parity(wkv_ops)
     print(f"wkv parity phase {time.perf_counter() - t0:.1f} s")
 
-    # 15. the RWKV6 main path, counters from 0
+    # 15. the RWKV6 main path, counters from 0, on weights drawn once on
+    # the card for phases 15-17 and 27
     rwkv_cfg = cfglib.get_config("rwkv6-7b")
-    rwkv_res, wkv_launches, _ = rwkv_main_path(cfglib, serve)
+    rwkv_params = draw_on_card(registry, rwkv_cfg)
+    rwkv_res, wkv_launches, _ = rwkv_main_path(cfglib, rwkv_params)
 
     # 16. card against CPU
     t0 = time.perf_counter()
@@ -3496,6 +4252,15 @@ def main() -> int:
     # 17. WKV times
     t_wkv = wkv_times(wkv_ops, rwkv_res, rwkv_cfg.num_layers)
     del rwkv_res
+
+    # 27. rwkv6-7b at full width and depth in continuous serving on phase
+    # 15's weights (run right after phase 17): paged through the CLI, then
+    # the prefix cache, speculation and the paper's draft, counters from 0
+    # before each run
+    rwkv_cont = rwkv_continuous_paths(cfglib, registry, rwkv_params)
+    del rwkv_params
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 18. scan parity on the card
     t0 = time.perf_counter()
@@ -3577,13 +4342,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 27. rwkv6-7b at full width and depth in continuous serving: paged
-    # through the CLI, then on its weights the prefix cache, speculation
-    # and the paper's draft, counters from 0 before each run
-    rwkv_cont = rwkv_continuous_paths(cfglib, registry, serve)
-    gc.collect()
-    torch.cuda.empty_cache()
-
     # 29, rwkv6-7b's half: card against CPU at depth 2, paged with a
     # prefix hit
     rwkv_paged_card_vs_cpu(cfglib, registry)
@@ -3605,6 +4363,32 @@ def main() -> int:
     t0 = time.perf_counter()
     fault_training_paths(cfg, registry)
     print(f"fault training phase {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 33. gemma2-9b at full size, paged continuous serving past its window,
+    # held to solo generation; card against CPU at depth 2
+    g2 = gemma2_full_serving(cfglib, registry)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paged_card_vs_cpu(cfglib, registry, "gemma2-9b", 2)
+    print(f"gemma2-9b card vs cpu phase {time.perf_counter() - t0:.1f} s")
+
+    # 34. gemma3-12b at full width and 12 layers: paged f32 and int8, the
+    # prefix cache restoring ring snapshots, speculation
+    gc.collect()
+    torch.cuda.empty_cache()
+    g3 = gemma3_serving(cfglib, registry)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 35. training: gemma2-9b at full width 2 -> 4 layers under AdamW and
+    # remat; gpt2-12l under AdamW, NSGD and SGD, remat bit for bit off
+    g2_train = gemma2_training(cfglib)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recipe_peaks = recipe_training(cfglib)
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -3616,7 +4400,14 @@ def main() -> int:
              jamba_cont["contiguous"]["flash_attention"],
          "max_abs_err": main_err, **t,
          **t_fa_jamba, "f64_err": fa_f64,
-         "registers_spills": [list(r) for r in fa_regs]},
+         "registers_spills": [list(r) for r in fa_regs],
+         "hd_256": {"launches": {"gemma2_9b_solo_generate": g2["flash_solo"],
+                                 "gemma3_12b_spec": g3["spec"],
+                                 "gemma2_9b_training":
+                                     g2_train["flash_attention"]},
+                    "shapes": {a: {d: r["forward"] for d, r in v.items()}
+                               for a, v in fa256.items()},
+                    "registers_spills": hd256_regs["flash"]}},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/paged_attention/csrc/"
                    "paged_attention.cu",
@@ -3629,14 +4420,27 @@ def main() -> int:
          "quantized": quantized,
          "jamba_v01_52b": {run: jamba_cont[run]["paged_attention"]
                            for run in ("paged f32", "paged int8")},
-         "registers_spills": [list(r) for r in pa_regs]},
+         "registers_spills": [list(r) for r in pa_regs],
+         "hd_256": {"launches": {"gemma2_9b": g2["paged"],
+                                 **{f"gemma3_12b_{k}": v for k, v in
+                                    g3.items() if k != "spec"}},
+                    "shape": "gemma decode: B=4 H=16 KV=8 hd=256 bs=16 "
+                             "cursors 5000, softcap 50, q f32, L2 flushed",
+                    "pages": pa256,
+                    "registers_spills": hd256_regs["paged"]}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cu",
          "replaces": "none (no TPU kernel: JAX differentiates its attention "
                      "itself)",
          "launches": train_counts["flash_attention_bwd"],
-         "max_abs_err": bwd_err, "f64_err": bwd_f64, **t_bwd},
+         "max_abs_err": bwd_err, "f64_err": bwd_f64, **t_bwd,
+         "hd_256": {"launches": {"gemma2_9b_training":
+                                 g2_train["flash_attention_bwd"]},
+                    "shapes": {a: {d: r["backward"] for d, r in v.items()}
+                               for a, v in fa256.items()},
+                    "peak_gib_gemma2_9b_training": g2_train["peak_gib"],
+                    "peak_gib_gpt2_12l_recipe": recipe_peaks}},
         {"name": "ns_fused", "route": "cuda",
          "source": "src/repro_torch/kernels/newton_schulz/csrc/"
                    "newton_schulz.cu",

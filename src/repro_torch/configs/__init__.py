@@ -1,7 +1,8 @@
 """Config registry of the port: the paper's GPT2 family and its RoPE
 testbeds (``llama3-0.3b``, ``qwen3-0.3b``, ``mixtral-0.3b``), ``yi-34b``,
 ``starcoder2-3b``, ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``,
-``rwkv6-7b`` and ``jamba-v0.1-52b``.
+``rwkv6-7b``, ``jamba-v0.1-52b``, ``gemma2-9b`` and ``gemma3-12b``, and the
+reference's per-architecture remat policies (``REMAT_DEFAULTS``).
 
 ``get_config(name)`` returns the full-scale config; ``get_smoke_config``
 the reduced same-family config the CPU tests run (the reference's
@@ -17,9 +18,6 @@ from repro_torch.configs.base import ModelConfig
 
 # What each architecture of the reference registry still waits for.
 _WAITS_FOR = {
-    "gemma2-9b": "sliding-window and softcapped attention with ring caches "
-                 "(queue A item 12)",
-    "gemma3-12b": "sliding-window layers with ring caches (queue A item 12)",
     "whisper-base": "the encoder-decoder model and its audio frontend "
                     "(queue A item 12)",
     "qwen2-vl-2b": "M-RoPE and frontend embeds (queue A item 12)",
@@ -34,7 +32,32 @@ _MODULES = {
     "starcoder2-3b": "starcoder2_3b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "gemma2-9b": "gemma2_9b",
+    "gemma3-12b": "gemma3_12b",
 }
+
+# Checkpoint policy to use when remat is on (the reference's
+# ``REMAT_DEFAULTS``, which it measured on its host mesh): 'dots' (keep
+# matmul outputs) only where it beat full recompute by >= 5%; the rest
+# recompute everything, which also keeps the least memory live.
+REMAT_DEFAULTS = {
+    "gemma2-9b": "nothing",
+    "gemma3-12b": "dots",
+    "yi-34b": "dots",
+    "starcoder2-3b": "nothing",
+    "jamba-v0.1-52b": "nothing",
+    "whisper-base": "nothing",
+    "rwkv6-7b": "nothing",
+    "qwen2-vl-2b": "dots",
+    "moonshot-v1-16b-a3b": "nothing",
+    "deepseek-moe-16b": "dots",
+}
+
+
+def default_remat(name: str) -> str:
+    """The checkpoint policy for ``name`` when remat is on
+    (``REMAT_DEFAULTS``); other configs recompute everything."""
+    return REMAT_DEFAULTS.get(name, "nothing")
 
 # Every name ``get_config`` takes besides ``gpt2-*``: the registry
 # architectures above and the paper's testbeds.

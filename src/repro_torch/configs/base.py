@@ -178,7 +178,7 @@ class TrainConfig:
     eval_batches: int = 4
     seed: int = 0
     dtype: str = "float32"           # compute dtype
-    # Activation checkpointing: only False (off) is ported (ROADMAP queue A
-    # item 15); the reference also takes True / 'nothing' / 'dots'.
+    # Activation checkpointing per super-block: False (off), True /
+    # 'nothing' (recompute everything) or 'dots' (keep matmul outputs).
     remat: "bool | str" = False
     log_every: int = 10

@@ -30,6 +30,15 @@ KERNELS = ("flash_attention", "paged_attention", "newton_schulz", "rwkv6",
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+# Per package: the paged decode's 72 entry functions are the longest build
+# by far (~90 s in one thread); nvcc optimizes them in parallel, a thread
+# per CPU.
+EXTRA_FLAGS = {"paged_attention": ["-split-compile=0"]}
+
+
+def flags(name: str) -> List[str]:
+    """nvcc's flags for kernel package ``name``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -57,7 +66,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for src in _sources(name) + _headers(name):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
@@ -82,7 +91,7 @@ def _start(name: str):
         return None, out, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources(name)]
+    cmd = [_nvcc(), *flags(name), "-o", tmp, *_sources(name)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, out, tmp

@@ -23,7 +23,7 @@
 // 1e-4 tolerance).  bf16 q, k, v are exact
 // in TF32 and take one pass; so does P in P V then, rounded to TF32
 // (2^-11 relative) where the output is rounded to bf16 (2^-8).  The score
-// tile is summed afresh on each key tile (at most 3 hd / 8 = 48 passes), and
+// tile is summed afresh on each key tile (3 hd / 8 passes at most), and
 // the P V tile afresh too, added to the f32 accumulator by the softmax's
 // rescale acc = acc·alpha + P V, so the tensor cores' truncating
 // accumulation never runs long.  Softmax statistics, exp and lse are f32;
@@ -48,7 +48,7 @@
 //     accumulator becomes P in registers and, by the permuted k order, the
 //     A fragment of O += P V, whose B is V split transposed (hd x keys), as
 //     the TF32 wgmma takes K-major operands only.  At hd 128 P V runs as
-//     two 64-column blocks.
+//     two 64-column blocks, at hd 256 as four.
 //   * Synchronous loads: K and V tiles are copied by cp.async into one raw
 //     staging tile; as soon as it is split, the next tile's copy is
 //     issued, so it lands while this tile multiplies.
@@ -58,7 +58,12 @@
 //     the split tiles measured no faster there).  hd 128 runs two
 //     warpgroups of 64 rows sharing each split tile of 32 keys: 160 KB,
 //     one CTA of eight warps an SM (64-key tiles needed 224 KB for four).
-//     A warpgroup skips the tiles its masks cover entirely.
+//     hd 256 (gemma2-9b, gemma3-12b) runs one warpgroup with 16-key
+//     tiles: 160 KB in f32 (one CTA an SM), 112 KB in bf16 (room for two
+//     CTAs an SM; 32-key bf16 tiles at 160 KB measured 3.60 against 3.19
+//     ms at gemma2's prefill, tools/flash_variants.py): m64n16 score
+//     products, P V four 64-column blocks.  A warpgroup skips the tiles its masks cover
+//     entirely.
 //   * Late (heavy causal) query tiles are issued first; the ragged last
 //     query and key tiles are masked (zero-filled copies, NEG_INF
 //     scores), and the caller pads nothing.
@@ -77,16 +82,23 @@ namespace {
 // Per head dim: warpgroups of 64 query rows per CTA, and keys per tile.
 // hd 64: one warpgroup, 64 keys, 112 KB in f32 (two CTAs an SM).  hd 128:
 // two warpgroups sharing each split tile of 32 keys, 160 KB (one CTA of
-// eight warps an SM; 64 keys would fill 224 KB for four warps).
+// eight warps an SM; 64 keys would fill 224 KB for four warps).  hd 256:
+// one warpgroup, whose Q slots alone take 64 KB; 16 keys a tile: 160 KB
+// in f32 (32 keys would need 256 KB, or 224 KB with K and V staged in
+// turn through one raw tile, where the entry spills at 255 registers) and
+// 112 KB in bf16, whose raw tiles are half as large and which needs no
+// small copies.  Its O accumulator is 4 x 32 f32 registers a thread.
 template <int HD>
-__host__ __device__ constexpr int fwd_wgs() { return HD == 64 ? 1 : 2; }
-template <int HD>
-__host__ __device__ constexpr int fwd_bk() { return HD == 64 ? 64 : 32; }
+__host__ __device__ constexpr int fwd_wgs() { return HD == 128 ? 2 : 1; }
+template <int HD, typename T>
+__host__ __device__ constexpr int fwd_bk() {
+  return HD == 64 ? 64 : HD == 128 ? 32 : 16;
+}
 
 template <int HD, typename T>
 constexpr int fwd_smem_bytes() {
   // Q slots (f32), raw K and V (T), K big/small, V^T big/small.
-  constexpr int BK = fwd_bk<HD>();
+  constexpr int BK = fwd_bk<HD, T>();
   return 64 * fwd_wgs<HD>() * HD * 4 + 2 * BK * HD * (int)sizeof(T) +
          (kExact<T> ? 2 : 4) * BK * HD * 4;
 }
@@ -99,7 +111,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int window, float softcap, float scale) {
   constexpr bool EXACT = kExact<T>;
   constexpr int NC = HD / 64;            // 64-column blocks of O
-  constexpr int BK = fwd_bk<HD>();
+  constexpr int BK = fwd_bk<HD, T>();
   constexpr int NT = 128 * fwd_wgs<HD>();
   constexpr int BQ = 64 * fwd_wgs<HD>();
   constexpr int TILE = BK * HD;          // words of one split copy
@@ -293,5 +305,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return (int)launch<128, float>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
   if (hd == 128 && dtype == 1)
     return (int)launch<128, __nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
+  if (hd == 256 && dtype == 0)
+    return (int)launch<256, float>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
+  if (hd == 256 && dtype == 1)
+    return (int)launch<256, __nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

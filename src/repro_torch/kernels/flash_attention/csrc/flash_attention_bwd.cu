@@ -16,7 +16,7 @@
 //   dV = Pᵀ dO,   dP = dO Vᵀ,   dX = P ∘ (dP - D)
 //   dS = dX ∘ (1 - (x/softcap)²)           (the softcap's derivative)
 //   dQ = dS K / sqrt(hd),   dK = dSᵀ q / sqrt(hd)
-// Causal, window, softcap, MHA/GQA, hd 64/128, f32/bf16 and ragged S as the
+// Causal, window, softcap, MHA/GQA, hd 64/128/256, f32/bf16 and ragged S as the
 // forward takes them.
 //
 // Precision as in the forward: every product on the tensor cores (wgmma,
@@ -45,7 +45,10 @@
 //      out with keys as rows: they are the A operands of dV += Pᵀ dO and
 //      dK += dSᵀ Q (dO and Q transposed as B) with no exchange.  At hd 128
 //      the CTA holds two warpgroups, each owning 64 columns of dK and dV
-//      and computing Sᵀ and dPᵀ itself, so that neither spills.
+//      and computing Sᵀ and dPᵀ itself, so that neither spills; at hd 256
+//      two warpgroups of 128 columns each.
+//   At hd 256 the steps narrow (bwd_step): 8 keys or queries a step in
+//   f32, 16 in bf16.
 // Each step's Q/dO (or K/V) tile, and in dkdv its lse and D, is copied by
 // cp.async into a raw staging tile, split into the B copies it feeds, and
 // the next step's copy issued at once, so it lands while this step
@@ -84,13 +87,29 @@
 namespace {
 
 constexpr int BQ = 64;          // query rows of a dq CTA
-constexpr int BKQ = 32;         // keys per step of a dq CTA
 constexpr int BK = 64;          // keys of a dkdv CTA
-constexpr int BQS = 32;         // queries per step of a dkdv CTA
+
+// Keys per step of a dq CTA and queries per step of a dkdv CTA: 32 at hd
+// 64 and 128.  At hd 256 the two 64-row slot operands alone take 128 KB,
+// so the steps narrow until the staging fits the 227 KB a CTA may take:
+// 8 (f32) or 16 (bf16) keys a dq step (192 KB), 8 or 16 queries a dkdv
+// step (208 KB), with m64n8 and m64n16 score products.
+template <int HD, typename T>
+__host__ __device__ constexpr int bwd_step() {
+  return HD <= 128 ? 32 : kExact<T> ? 16 : 8;
+}
+// Threads of a dkdv CTA: one warpgroup per 64 columns of dK and dV at hd
+// 64 and 128; at hd 256 two warpgroups of 128 columns each (four would
+// leave 128 registers a thread, where dK and dV alone take 64).
+template <int HD>
+__host__ __device__ constexpr int dkdv_threads() {
+  return HD == 256 ? 256 : HD * 2;
+}
 
 template <int HD, typename T>
 constexpr int dq_smem_bytes() {
   // Q and dO slots (f32), raw K and V (T), K, V (K-major) and K^T big/small.
+  constexpr int BKQ = bwd_step<HD, T>();
   return 2 * BQ * HD * 4 + 2 * BKQ * HD * (int)sizeof(T) +
          (kExact<T> ? 3 : 6) * BKQ * HD * 4;
 }
@@ -99,6 +118,7 @@ template <int HD, typename T>
 constexpr int dkdv_smem_bytes() {
   // K and V slots (f32), raw Q and dO (T), Q, dO (K-major) and Q^T, dO^T
   // big/small, lse and D of two steps.
+  constexpr int BQS = bwd_step<HD, T>();
   return 2 * BK * HD * 4 + 2 * BQS * HD * (int)sizeof(T) +
          (kExact<T> ? 4 : 8) * BQS * HD * 4 + 4 * BQS * 4;
 }
@@ -129,6 +149,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float scale) {
   constexpr bool EXACT = kExact<T>;
   constexpr int NC = HD / 64;
+  constexpr int BKQ = bwd_step<HD, T>();
   constexpr int TILE = BKQ * HD;
   constexpr int NT = 128;
 
@@ -202,14 +223,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_commit();
     }
 
-    float s[16], dp[16];
-    mma_slots<32, HD / 8, BKQ, EXACT>(s, q_slots, kb, ks);
-    mma_slots<32, HD / 8, BKQ, EXACT>(dp, do_slots, vb, vs);
+    float s[BKQ / 2], dp[BKQ / 2];
+    mma_slots<BKQ, HD / 8, BKQ, EXACT>(s, q_slots, kb, ks);
+    mma_slots<BKQ, HD / 8, BKQ, EXACT>(dp, do_slots, vb, vs);
     wgmma_wait<0>();
 
     // s[4j + e]: row qi0 (qi1 for e >= 2), key k0 + 8j + 2t + (e & 1).
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < BKQ / 2; ++i) {
       const int r = (i >> 1) & 1;
       const int qi = r ? qi1 : qi0;
       const int ki = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
@@ -223,13 +244,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // dQ += dS K, the step's product summed afresh (one 64-column block
     // after the other).
-    uint32_t ab[4][4], as[4][4];
-    frags_from_acc<4, EXACT>(s, ab, as);
+    uint32_t ab[BKQ / 8][4], as[BKQ / 8][4];
+    frags_from_acc<BKQ / 8, EXACT>(s, ab, as);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       float part[32];
       wgmma_fence();
-      mma_regs<4, HD, EXACT>(part, ab, as, ktb, kts, c);
+      mma_regs<BKQ / 8, HD, EXACT>(part, ab, as, ktb, kts, c);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
@@ -252,7 +273,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int HD, typename T>
-__global__ void __launch_bounds__(HD * 2, HD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(dkdv_threads<HD>(), HD == 64 ? 2 : 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
@@ -260,7 +281,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       T* __restrict__ dv, int S, int H, int KV, int causal,
                       int window, float softcap, float scale) {
   constexpr bool EXACT = kExact<T>;
-  constexpr int NT = HD * 2;             // one warpgroup per 64 columns
+  constexpr int NT = dkdv_threads<HD>();
+  constexpr int NCW = HD / 64 / (NT / 128);   // 64-column blocks a warpgroup
+  constexpr int BQS = bwd_step<HD, T>();
   constexpr int TILE = BQS * HD;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -280,7 +303,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* d_s = lse_s + 2 * BQS;                             // [2][BQS]
 
   const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
-  const int wg = threadIdx.x >> 7;       // this warpgroup's 64 columns
+  const int wg = threadIdx.x >> 7;       // this warpgroup's 64 NCW columns
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * BK;        // low key tiles see the most queries
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -325,9 +348,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // This thread's keys: k0 + 16w + g and + 8.
   const int ki0 = k0 + 16 * w + g, ki1 = ki0 + 8;
-  float dk_acc[32], dv_acc[32];
+  float dk_acc[NCW][32], dv_acc[NCW][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int c = 0; c < NCW; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
 
   for (int it = 0; it < total; ++it) {
     const int q0 = q_start(it);
@@ -343,15 +368,15 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                   // the raw tile is free
     if (it + 1 < total) load_step(it + 1);
 
-    float st[16], dpt[16];
-    mma_slots<32, HD / 8, BQS, EXACT>(st, k_slots, qb_, qs_);
-    mma_slots<32, HD / 8, BQS, EXACT>(dpt, v_slots, dob, dos);
+    float st[BQS / 2], dpt[BQS / 2];
+    mma_slots<BQS, HD / 8, BQS, EXACT>(st, k_slots, qb_, qs_);
+    mma_slots<BQS, HD / 8, BQS, EXACT>(dpt, v_slots, dob, dos);
     wgmma_wait<0>();
 
     // st[4j + e]: key ki0 (ki1 for e >= 2), query q0 + 8j + 2t + (e & 1).
-    float pt[16];
+    float pt[BQS / 2];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < BQS / 2; ++i) {
       const int ki = (i & 2) ? ki1 : ki0;
       const int c = 8 * (i >> 2) + 2 * t + (i & 1);
       const int qi = q0 + c;
@@ -362,21 +387,43 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      softcap, pt[i], dpt[i]);
     }
 
-    // dV += Pᵀ dO and dK += dSᵀ Q over this warpgroup's 64 columns, each
+    // dV += Pᵀ dO and dK += dSᵀ Q over this warpgroup's columns, each
     // step's product summed afresh.
-    uint32_t pb[4][4], ps[4][4], sb[4][4], ss[4][4];
-    frags_from_acc<4, EXACT>(pt, pb, ps);
-    frags_from_acc<4, EXACT>(dpt, sb, ss);
-    float part_v[32], part_k[32];
-    wgmma_fence();
-    mma_regs<4, HD, EXACT>(part_v, pb, ps, dotb, dots, wg);
-    mma_regs<4, HD, EXACT>(part_k, sb, ss, qtb, qts, wg);
-    wgmma_commit();
-    wgmma_wait<0>();
+    constexpr int KS = BQS / 8;
+    uint32_t pb[KS][4], ps[KS][4], sb[KS][4], ss[KS][4];
+    frags_from_acc<KS, EXACT>(pt, pb, ps);
+    frags_from_acc<KS, EXACT>(dpt, sb, ss);
+    if constexpr (NCW == 1) {
+      float part_v[32], part_k[32];
+      wgmma_fence();
+      mma_regs<KS, HD, EXACT>(part_v, pb, ps, dotb, dots, wg);
+      mma_regs<KS, HD, EXACT>(part_k, sb, ss, qtb, qts, wg);
+      wgmma_commit();
+      wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      dv_acc[i] += part_v[i];
-      dk_acc[i] += part_k[i];
+      for (int i = 0; i < 32; ++i) {
+        dv_acc[0][i] += part_v[i];
+        dk_acc[0][i] += part_k[i];
+      }
+    } else {
+      // One 64-column product at a time: a single part stays live beside
+      // the NCW-block accumulators.
+#pragma unroll
+      for (int c = 0; c < NCW; ++c) {
+        float part[32];
+        wgmma_fence();
+        mma_regs<KS, HD, EXACT>(part, pb, ps, dotb, dots, wg * NCW + c);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dv_acc[c][i] += part[i];
+        wgmma_fence();
+        mma_regs<KS, HD, EXACT>(part, sb, ss, qtb, qts, wg * NCW + c);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dk_acc[c][i] += part[i];
+      }
     }
   }
 
@@ -384,14 +431,18 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int ki = r ? ki1 : ki0;
     if (ki >= S) continue;
-    T* krow = dk + kv_off + (size_t)ki * kv_stride + 64 * wg;
-    T* vrow = dv + kv_off + (size_t)ki * kv_stride + 64 * wg;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      store2(krow + 8 * j + 2 * t, dk_acc[4 * j + 2 * r] * scale,
-             dk_acc[4 * j + 2 * r + 1] * scale);
-      store2(vrow + 8 * j + 2 * t, dv_acc[4 * j + 2 * r],
-             dv_acc[4 * j + 2 * r + 1]);
+    for (int c = 0; c < NCW; ++c) {
+      const int col = 64 * (wg * NCW + c);
+      T* krow = dk + kv_off + (size_t)ki * kv_stride + col;
+      T* vrow = dv + kv_off + (size_t)ki * kv_stride + col;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        store2(krow + 8 * j + 2 * t, dk_acc[c][4 * j + 2 * r] * scale,
+               dk_acc[c][4 * j + 2 * r + 1] * scale);
+        store2(vrow + 8 * j + 2 * t, dv_acc[c][4 * j + 2 * r],
+               dv_acc[c][4 * j + 2 * r + 1]);
+      }
     }
   }
 }
@@ -429,8 +480,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   constexpr int kv_smem = dkdv_smem_bytes<HD, T>();
   err = prepare(flash_bwd_dkdv_kernel<HD, T>, kv_smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<HD, T><<<dim3((S + BK - 1) / BK, KV, B), HD * 2,
-                                 kv_smem, stream>>>(
+  flash_bwd_dkdv_kernel<HD, T><<<dim3((S + BK - 1) / BK, KV, B),
+                                 dkdv_threads<HD>(), kv_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
       static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, causal, window,
@@ -462,6 +513,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (hd == 64 && dtype == 1) FA_BWD(64, __nv_bfloat16);
   if (hd == 128 && dtype == 0) FA_BWD(128, float);
   if (hd == 128 && dtype == 1) FA_BWD(128, __nv_bfloat16);
+  if (hd == 256 && dtype == 0) FA_BWD(256, float);
+  if (hd == 256 && dtype == 1) FA_BWD(256, __nv_bfloat16);
 #undef FA_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -18,7 +18,7 @@
 //     no swizzle).  K-major: B[n][k] = X[n][k] (K in S = Q K^T, Q in
 //     S^T = K Q^T).  Transposed: B[n][k] = X[k][n] (V in O = P V, K in
 //     dQ = dS K, Q and dO in dK = dS^T Q and dV = P^T dO);
-//   * wgmma m64nNk8 TF32 (N = 32 or 64), A from registers, B through a
+//   * wgmma m64nNk8 TF32 (N = 8, 16, 32 or 64), A from registers, B through a
 //     shared-memory descriptor, f32 accumulator.
 //
 // Within each k8 step the k order is permuted alike for A and B: slot j
@@ -88,7 +88,8 @@ __device__ __forceinline__ void fence_to_tensor_cores() {
 // ---------------------------------------------------------------------------
 
 // The copy and split loops below are unrolled whole at hd 64 (their loads
-// then issue together) and by two at hd 128, where whole unrolling spills.
+// then issue together) and by two at hd 128 and 256, where whole unrolling
+// spills.
 
 // Rows [row0, row0 + ROWS) of one head (row stride `stride` elements) into
 // `dst` (ROWS x HD elements of T, chunks swizzled), by cp.async; rows >= S
@@ -292,8 +293,23 @@ __device__ __forceinline__ uint64_t trans_desc(const uint32_t* b, int s,
 template <int N>
 __device__ __forceinline__ void wgmma(float* d, const uint32_t* a, uint64_t b,
                                       int scale_d) {
-  static_assert(N == 32 || N == 64, "wgmma: N is 32 or 64");
-  if constexpr (N == 64) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64,
+                "wgmma: N is 8, 16, 32 or 64");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %8, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0,%1,%2,%3},{%4,%5,%6,%7}, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %12, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7},{%8,%9,%10,%11}, %13, p, 1, 1;\n}\n"
+        : FA_ACC8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b));
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "

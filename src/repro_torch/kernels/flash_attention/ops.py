@@ -32,7 +32,7 @@ from repro_torch.kernels.flash_attention import ref
 KERNEL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -68,7 +68,7 @@ def _check(q, k, v):
 def _check_cuda(q, named):
     """Raise on what the kernels do not take: non-CUDA or mixed devices,
     dtypes other than float32/bfloat16 or mixed, head dims other than
-    64/128, non-contiguous or misaligned tensors."""
+    64/128/256, non-contiguous or misaligned tensors."""
     hd = q.shape[-1]
     for name, t in named:
         if not t.is_cuda or t.device != q.device:

@@ -129,29 +129,36 @@ constexpr int NTHREADS = 32 * NWARPS;
 constexpr int MAXG = 8;            // query heads a head block carries
 constexpr int MAX_CLUSTER = 8;     // the portable cluster size
 constexpr int STAGES = 3;          // ring depth of each warp
-constexpr int TILE_BYTES = 2048;   // K bytes of one warp tile (V the same)
+constexpr int TILE_BYTES = 2048;   // K bytes of a warp tile up to 512-byte rows
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Tile geometry of one instantiation: page dtype code KVC (0 f32, 1 bf16,
 // 2 int8, 3 fp8 e4m3), head dim HD and heads a block carries GM (1 or 8).
+// Rows of up to 512 bytes (every case at hd 64 and 128) take one 16-byte
+// chunk a score lane and 4 P·V dims a lane, in tiles of TILE_BYTES.  hd
+// 256 in f32 (1024-byte rows) takes two chunks a lane (CPL) in tiles of
+// 4 tokens, 4 KB; at hd 256 a lane takes 8 P·V dims, so that a token's
+// P·V lanes still fit one warp.
 template <int KVC, int HD, int GM>
 struct Shape {
   static constexpr int ES = KVC == 0 ? 4 : KVC == 1 ? 2 : 1;  // bytes
   static constexpr bool QUANT = KVC >= 2;
   static constexpr int ROW = HD * ES;           // one token's K row
-  static constexpr int TW = TILE_BYTES / ROW;   // tokens of a warp tile
-  static constexpr int LPT = ROW / 16;          // score lanes a token
+  static constexpr int LPT = ROW / 16 < 32 ? ROW / 16 : 32;  // score lanes
+  static constexpr int CPL = ROW / 16 / LPT;    // 16-byte chunks a lane
   static constexpr int TGS = 32 / LPT;          // tokens a score sub-step
+  static constexpr int TB = ROW > 512 ? 4 * ROW : TILE_BYTES;  // K bytes
+  static constexpr int TW = TB / ROW;           // tokens of a warp tile
   static constexpr int SUB = TW / TGS;          // score sub-steps a tile
   static constexpr int CW = 16 / ES;            // values a 16-byte chunk
-  static constexpr int DPV = 4;                 // P·V dims a lane
+  static constexpr int DPV = HD <= 128 ? 4 : HD / 32;   // P·V dims a lane
   static constexpr int LPV = HD / DPV;          // P·V lanes a token
   static constexpr int TGP = 32 / LPV;          // tokens a P·V step
-  static constexpr int STAGE = 2 * TILE_BYTES + (QUANT ? 2 * TW * 4 : 0);
+  static constexpr int STAGE = 2 * TB + (QUANT ? 2 * TW * 4 : 0);
   static_assert(SUB == 4 && TW <= 32 && LPT <= 32 && TGP >= 1 &&
-                    TW % TGP == 0, "tile");
+                    TW % TGP == 0 && DPV % 4 == 0, "tile");
 };
 
 // Heads of q held in shared memory (G padded to whole head blocks of GM)
@@ -221,14 +228,19 @@ __device__ __forceinline__ void load_f32(const unsigned char* p, float* o) {
   constexpr int BYTES = N * ES;
   constexpr int PER = 4 / ES;
   uint32_t w[BYTES / 4];
-  if constexpr (BYTES == 16) {
+  if constexpr (BYTES == 32) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint4 u = *reinterpret_cast<const uint4*>(p + 16);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    w[4] = u.x; w[5] = u.y; w[6] = u.z; w[7] = u.w;
+  } else if constexpr (BYTES == 16) {
     const uint4 v = *reinterpret_cast<const uint4*>(p);
     w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
   } else if constexpr (BYTES == 8) {
     const uint2 v = *reinterpret_cast<const uint2*>(p);
     w[0] = v.x; w[1] = v.y;
   } else {
-    static_assert(BYTES == 4, "4, 8 or 16 bytes");
+    static_assert(BYTES == 4, "4, 8, 16 or 32 bytes");
     w[0] = *reinterpret_cast<const uint32_t*>(p);
   }
 #pragma unroll
@@ -285,20 +297,26 @@ __device__ __forceinline__ void cluster_wait() {
 template <int KVC, int HD, int GM>
 __device__ __forceinline__ void tile_scores(
     float (&s)[Shape<KVC, HD, GM>::SUB][GM], const unsigned char* st,
-    const float* qb, const float (&q_reg)[GM == 1 ? Shape<KVC, HD, GM>::CW : 1],
+    const float* qb,
+    const float (&q_reg)[GM == 1 ? Shape<KVC, HD, GM>::CW *
+                                       Shape<KVC, HD, GM>::CPL : 1],
     int tg, int col, int tbase, int t1, float softcap) {
   using S = Shape<KVC, HD, GM>;
   constexpr int LPT = S::LPT, TGS = S::TGS, SUB = S::SUB, CW = S::CW;
-  const float* k_scale = reinterpret_cast<const float*>(st + 2 * TILE_BYTES);
+  constexpr int CPL = S::CPL;
+  const float* k_scale = reinterpret_cast<const float*>(st + 2 * S::TB);
 #pragma unroll
   for (int i = 0; i < SUB; ++i) {
     const int r = i * TGS + tg;
-    float k[CW];
-    load_f32<KVC, CW>(st + r * S::ROW + col * 16, k);
+    // The lane's chunks col, col + LPT, ... of the row, in that order.
+    float k[CPL * CW];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      load_f32<KVC, CW>(st + r * S::ROW + (col + c * LPT) * 16, k + c * CW);
     if constexpr (S::QUANT) {
       const float sk = k_scale[r];
 #pragma unroll
-      for (int e = 0; e < CW; ++e) k[e] *= sk;
+      for (int e = 0; e < CPL * CW; ++e) k[e] *= sk;
     }
     const bool valid = tbase + r < t1;
 #pragma unroll
@@ -306,16 +324,19 @@ __device__ __forceinline__ void tile_scores(
       float dot = 0.f;
       if constexpr (GM == 1) {
 #pragma unroll
-        for (int e = 0; e < CW; ++e) dot = fmaf(q_reg[e], k[e], dot);
+        for (int e = 0; e < CPL * CW; ++e) dot = fmaf(q_reg[e], k[e], dot);
       } else {
-        const float* qg = qb + g * HD + col * CW;
 #pragma unroll
-        for (int e = 0; e < CW; e += 4) {
-          const float4 qq = *reinterpret_cast<const float4*>(qg + e);
-          dot = fmaf(qq.x, k[e], dot);
-          dot = fmaf(qq.y, k[e + 1], dot);
-          dot = fmaf(qq.z, k[e + 2], dot);
-          dot = fmaf(qq.w, k[e + 3], dot);
+        for (int c = 0; c < CPL; ++c) {
+          const float* qg = qb + g * HD + (col + c * LPT) * CW;
+#pragma unroll
+          for (int e = 0; e < CW; e += 4) {
+            const float4 qq = *reinterpret_cast<const float4*>(qg + e);
+            dot = fmaf(qq.x, k[c * CW + e], dot);
+            dot = fmaf(qq.y, k[c * CW + e + 1], dot);
+            dot = fmaf(qq.z, k[c * CW + e + 2], dot);
+            dot = fmaf(qq.w, k[c * CW + e + 3], dot);
+          }
         }
       }
 #pragma unroll
@@ -352,19 +373,17 @@ __device__ __forceinline__ void publish_p(
 // acc += P·V over the tile's tokens: the lane's DPV dims of its P·V token
 // group, the weights broadcast from the warp's p.
 template <int KVC, int HD, int GM>
-__device__ __forceinline__ void tile_pv(float (&acc)[GM][4],
-                                        const unsigned char* st,
-                                        const float (*p)[GM], int vt, int vc) {
+__device__ __forceinline__ void tile_pv(
+    float (&acc)[GM][Shape<KVC, HD, GM>::DPV], const unsigned char* st,
+    const float (*p)[GM], int vt, int vc) {
   using S = Shape<KVC, HD, GM>;
   constexpr int TW = S::TW, DPV = S::DPV, TGP = S::TGP;
-  static_assert(DPV == 4, "4 dims a lane");
-  const float* v_scale =
-      reinterpret_cast<const float*>(st + 2 * TILE_BYTES) + TW;
+  const float* v_scale = reinterpret_cast<const float*>(st + 2 * S::TB) + TW;
 #pragma unroll
   for (int jj = 0; jj < TW / TGP; ++jj) {
     const int r = jj * TGP + vt;
     float v[DPV];
-    load_f32<KVC, DPV>(st + TILE_BYTES + r * S::ROW + vc * DPV * S::ES, v);
+    load_f32<KVC, DPV>(st + S::TB + r * S::ROW + vc * DPV * S::ES, v);
     if constexpr (S::QUANT) {
       const float sv = v_scale[r];
 #pragma unroll
@@ -409,8 +428,8 @@ paged_decode_kernel(const QT* __restrict__ q,
                     float softcap, float scale) {
   using S = Shape<KVC, HD, GM>;
   constexpr int TW = S::TW, LPT = S::LPT, TGS = S::TGS, SUB = S::SUB;
-  constexpr int CW = S::CW, DPV = S::DPV, LPV = S::LPV;
-  constexpr int ROW = S::ROW, STAGE = S::STAGE;
+  constexpr int CW = S::CW, DPV = S::DPV, LPV = S::LPV, CPL = S::CPL;
+  constexpr int ROW = S::ROW, STAGE = S::STAGE, TB = S::TB;
   static_assert(!MB || GM > 1, "head blocks of GM > 1 heads");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -470,10 +489,13 @@ paged_decode_kernel(const QT* __restrict__ q,
                                       : 0;
   const int tg = lane / LPT, col = lane % LPT;   // score mapping
   const int vt = lane / LPV, vc = lane % LPV;    // P·V mapping
-  float q_reg[GM == 1 ? CW : 1];                 // G = 1: q's chunk held
+  float q_reg[GM == 1 ? CPL * CW : 1];           // G = 1: q's chunks held
   if constexpr (GM == 1) {
 #pragma unroll
-    for (int e = 0; e < CW; ++e) q_reg[e] = q_s[col * CW + e];
+    for (int c = 0; c < CPL; ++c)
+#pragma unroll
+      for (int e = 0; e < CW; ++e)
+        q_reg[c * CW + e] = q_s[(col + c * LPT) * CW + e];
   }
 
   // Tile j of this warp (the CTA's tile warp + 4j) into ring slot j % STAGES.
@@ -484,16 +506,20 @@ paged_decode_kernel(const QT* __restrict__ q,
     for (int i = 0; i < SUB; ++i) {
       const int r = i * TGS + tg, t = tbase + r;
       const bool ok = t < t1;
-      const size_t off = ok ? (slot_of(t) * KV + kvh) * ROW + col * 16 : 0;
-      cp_async16(st + r * ROW + col * 16, kp + off, ok);
-      cp_async16(st + TILE_BYTES + r * ROW + col * 16, vp + off, ok);
+      const size_t row = ok ? (slot_of(t) * KV + kvh) * ROW : 0;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int b = (col + c * LPT) * 16;
+        cp_async16(st + r * ROW + b, kp + row + b, ok);
+        cp_async16(st + TB + r * ROW + b, vp + row + b, ok);
+      }
     }
     if constexpr (S::QUANT) {
       if (lane < TW) {
         const int t = tbase + lane;
         const bool ok = t < t1;
         const size_t si = ok ? slot_of(t) * KV + kvh : 0;
-        float* sc = reinterpret_cast<float*>(st + 2 * TILE_BYTES);
+        float* sc = reinterpret_cast<float*>(st + 2 * TB);
         cp_async4(sc + lane, ks + si, ok);
         cp_async4(sc + TW + lane, vs + si, ok);
       }
@@ -611,14 +637,17 @@ paged_decode_kernel(const QT* __restrict__ q,
             for (int e = 0; e < DPV; ++e)
               tile[g][e] += __shfl_xor_sync(FULL, tile[g][e], off);
           if (h0 + g < G && lane < LPV) {
-            float4* a = reinterpret_cast<float4*>(
-                &part_acc[(warp * G + h0 + g) * HD + vc * DPV]);
-            float4 o = *a;
-            o.x = fmaf(o.x, alpha[g], tile[g][0]);
-            o.y = fmaf(o.y, alpha[g], tile[g][1]);
-            o.z = fmaf(o.z, alpha[g], tile[g][2]);
-            o.w = fmaf(o.w, alpha[g], tile[g][3]);
-            *a = o;
+#pragma unroll
+            for (int e = 0; e < DPV; e += 4) {
+              float4* a = reinterpret_cast<float4*>(
+                  &part_acc[(warp * G + h0 + g) * HD + vc * DPV + e]);
+              float4 o = *a;
+              o.x = fmaf(o.x, alpha[g], tile[g][e]);
+              o.y = fmaf(o.y, alpha[g], tile[g][e + 1]);
+              o.z = fmaf(o.z, alpha[g], tile[g][e + 2]);
+              o.w = fmaf(o.w, alpha[g], tile[g][e + 3]);
+              *a = o;
+            }
           }
         }
         __syncwarp();             // p_s and the state are rewritten next
@@ -773,6 +802,7 @@ template <typename QT, int KVC>
 cudaError_t dispatch_hd(int hd, const Args& a) {
   if (hd == 64) return dispatch_g<QT, KVC, 64>(a);
   if (hd == 128) return dispatch_g<QT, KVC, 128>(a);
+  if (hd == 256) return dispatch_g<QT, KVC, 256>(a);
   return cudaErrorInvalidValue;
 }
 

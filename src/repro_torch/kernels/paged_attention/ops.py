@@ -34,7 +34,7 @@ from repro_torch.kernels.paged_attention import ref
 # path used it.
 KERNEL_LAUNCHES = 0
 
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 MAX_CLUSTER = 8                   # the portable thread-block cluster size
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

@@ -57,6 +57,30 @@ def masked_gqa_attention(q, k, v, valid, logit_softcap: float = 0.0):
     return out.reshape(B, C, H, hd)
 
 
+def masked_gqa_attention_per_query(q, k, v, valid,
+                                   logit_softcap: float = 0.0):
+    """Grouped-query attention where every query has its own key set.
+
+    q: (B, C, H, hd); k, v: (B, C, S, KV, hd), key s of query c being that
+    query's s-th context entry; valid: (B, C, S) bool.  Returns
+    (B, C, H, hd).  The math of ``masked_gqa_attention``, the key axis
+    reduced in the same (slot) order: the speculative verify gathers, for
+    each query, the ring state a sequential sliding-window decode at its
+    position attends to, laid out in ring-slot order."""
+    B, C, H, hd = q.shape
+    KV = k.shape[3]
+    G = H // KV
+    qg = q.reshape(B, C, KV, G, hd)
+    scores = torch.einsum("bqkgh,bqskh->bkgqs", qg, k) / math.sqrt(hd)
+    scores = _softcap(scores, logit_softcap)
+    scores = torch.where(valid[:, None, None, :, :], scores,
+                         torch.full((), NEG_INF, dtype=scores.dtype,
+                                    device=scores.device))
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bqskh->bqkgh", probs, v)
+    return out.reshape(B, C, H, hd)
+
+
 def gather_pages(pages, block_table):
     """pages: (NP, bs, ...); block_table: (B, NB) -> (B, NB * bs, ...).
 

@@ -16,10 +16,14 @@ per-token decode, or continuous batching over a paged KV pool.
 
 ``--arch`` takes ``gpt2-*``, the paper's RoPE testbeds ``llama3-0.3b``,
 ``qwen3-0.3b`` and ``mixtral-0.3b``, ``yi-34b``, ``starcoder2-3b``,
-``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``, ``rwkv6-7b`` and
-``jamba-v0.1-52b`` (``--smoke`` for the reduced config); the rest of the
-reference registry exits naming its ROADMAP item (windows, MLA, the
-encoder-decoder, M-RoPE: item 12).  RWKV6 and jamba serve in every mode
+``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``, ``rwkv6-7b``,
+``jamba-v0.1-52b``, ``gemma2-9b`` and ``gemma3-12b`` (``--smoke`` for the
+reduced config); the rest of the reference registry exits naming its
+ROADMAP item (MLA, the encoder-decoder, M-RoPE: item 12).  The gemmas'
+sliding-window layers keep a ring per row beside the pool in every mode
+(hd 256 in the flash and paged kernels on the card), and
+``--spec-depth``'s ``--gamma`` + 1 may not exceed their window.  RWKV6 and
+jamba serve in every mode
 below, their prefill (and each chunk of a chunked prefill, from the
 carried state) through the WKV and selective-scan kernels on the card and
 their decode stepping the recurrent state.  Random weights

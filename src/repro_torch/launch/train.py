@@ -13,11 +13,12 @@ training, checkpoint every expansion boundary.  Prints ``[expand] step=N
 -> L layers``, ``final loss: ... (layers L)`` and, per depth, the training
 throughput: batch·seq_len tokens per step over the synchronized step time,
 leaving out the first step at each depth (it builds the kernels and sizes
-the allocator).  The fault-tolerance flags (``--faults``,
+the allocator).  ``--optimizer`` takes the reference's four optimizers and
+``--remat`` its activation checkpointing (a bare ``--remat`` picks the
+architecture's policy from ``configs.REMAT_DEFAULTS``).  The fault-tolerance flags (``--faults``,
 ``--nan-policy``, ``--nan-inject``, ``--expansion-guard``,
 ``--hang-deadline-s``) are the reference's and print its ``faults:``
-line; ``--mesh`` and ``--remat`` exit, naming the ROADMAP item that
-brings them.
+line; ``--mesh`` exits, naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -46,9 +47,6 @@ def _refuse_later(args):
     later = []
     if args.mesh != "single":
         later.append(("--mesh", "ROADMAP queue A item 13 (distributed)"))
-    if args.remat != "off":
-        later.append(("--remat",
-                      "ROADMAP queue A item 15 (activation checkpointing)"))
     if later:
         raise SystemExit("not ported yet: " + "; ".join(
             f"{flag} ({item})" for flag, item in later))
@@ -99,9 +97,7 @@ def main(argv=None):
     ap.add_argument("--schedule", default="wsd", choices=["wsd", "cosine",
                                                           "constant"])
     ap.add_argument("--optimizer", default="muon_nsgd",
-                    choices=["muon_nsgd", "adamw", "nsgd", "sgd"],
-                    help="only muon_nsgd is ported (the others: ROADMAP "
-                    "queue A item 5)")
+                    choices=["muon_nsgd", "adamw", "nsgd", "sgd"])
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--history-out", default=None)
@@ -109,8 +105,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--remat", nargs="?", const="auto", default="off",
                     choices=["off", "auto", "nothing", "dots"],
-                    help="only 'off' (activation checkpointing: ROADMAP "
-                    "queue A item 15)")
+                    help="activation checkpointing: bare --remat picks the "
+                    "arch's measured policy (configs.REMAT_DEFAULTS); "
+                    "'nothing' recomputes everything, 'dots' saves matmul "
+                    "outputs")
     ap.add_argument("--mesh", default="single",
                     help="only 'single' (mesh sharding: ROADMAP queue A "
                     "item 13)")
@@ -156,7 +154,10 @@ def main(argv=None):
         total_steps=args.steps, seq_len=args.seq_len, global_batch=args.batch,
         grad_accum=args.grad_accum, source_layers=src, expansions=expansions,
         optimizer=OptimizerConfig(name=args.optimizer, learning_rate=args.lr),
-        schedule=ScheduleConfig(name=args.schedule), seed=args.seed)
+        schedule=ScheduleConfig(name=args.schedule), seed=args.seed,
+        remat=(False if args.remat == "off"
+               else cfglib.default_remat(args.arch) if args.remat == "auto"
+               else args.remat))
     res = loop.train(cfg, tcfg, checkpoint_dir=args.ckpt_dir,
                      device=args.device, faults=args.faults,
                      nan_policy=args.nan_policy, nan_inject=args.nan_inject,

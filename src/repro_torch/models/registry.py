@@ -17,8 +17,8 @@ from repro_torch.models import transformer
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     init: Callable        # (generator, cfg, dtype=..., num_layers=None, device=...) -> params
-    # (params, cfg, batch) -> (loss, {"ce", "aux"}); batch holds tokens,
-    # labels and optionally mask.
+    # (params, cfg, batch, remat=False) -> (loss, {"ce", "aux"}); batch
+    # holds tokens, labels and optionally mask.
     loss: Callable
     apply: Callable       # (params, cfg, tokens) -> (logits, aux)
     init_cache: Callable  # (params, cfg, batch_size, max_len, dtype, device) -> cache
@@ -43,9 +43,9 @@ class ModelApi:
     spec_commit: Optional[Callable] = None
 
 
-def _lm_loss(params, cfg, batch):
+def _lm_loss(params, cfg, batch, remat=False):
     return transformer.lm_loss(params, cfg, batch["tokens"], batch["labels"],
-                               mask=batch.get("mask"))
+                               mask=batch.get("mask"), remat=remat)
 
 
 # What each model family of the reference registry still waits for.

@@ -37,14 +37,9 @@ def _check_layer(cfg: ModelConfig, i: int):
         raise NotImplementedError(_KIND.format(what=f"block kind {kind!r}"))
 
 
-def _check_paged(cfg: ModelConfig, i: int):
-    """Admit the layers a paged cache holds: global attention in the pool,
-    Mamba and RWKV6 state per row.  A sliding-window ring beside the pool
-    comes with ROADMAP queue A item 12."""
-    _check_layer(cfg, i)
-    if cfg.layer_kind(i) == "attn" and cfg.layer_window(i) > 0:
-        raise NotImplementedError(
-            _KIND.format(what="a sliding-window ring beside the pool"))
+def _is_ring(cfg: ModelConfig, i: int) -> bool:
+    """A sliding-window attention layer: its cache is a per-row ring."""
+    return cfg.layer_kind(i) == "attn" and cfg.layer_window(i) > 0
 
 
 def _recurrent_state(cfg: ModelConfig, i: int, batch: int):
@@ -231,27 +226,89 @@ def _head(params, cfg: ModelConfig, x):
     return softcap(x @ head, cfg.final_logit_softcap)
 
 
-def lm_apply(params, cfg: ModelConfig, tokens,
-             positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V), aux_loss scalar)."""
+def _apply_superblock(sb, cfg: ModelConfig, x, positions):
+    """One super-block, full-sequence.  Returns (x, its aux losses)."""
+    aux = torch.zeros((), device=x.device)
+    for i in range(cfg.pattern_period):
+        x, a = _apply_layer(sb[f"layer{i}"], cfg, i, x, positions)
+        aux = aux + a
+    return x, aux
+
+
+# Ops whose outputs the 'dots' policy keeps: the matrix products with no
+# batch dimension, the counterpart of the reference's
+# dots_with_no_batch_dims_saveable.  ``torch.einsum`` runs such a product
+# as a bmm over a batch of one; a bmm over a real batch (the attention's
+# scores on the CPU, the MoE experts) is recomputed, as the reference
+# recomputes its batched dot_generals.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    keep = op in _DOTS or (op is torch.ops.aten.bmm.default
+                           and args[0].shape[0] == 1)
+    return (CheckpointPolicy.MUST_SAVE if keep
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy(remat):
+    """Normalize the reference's knob: False/None/'off' -> None (no
+    checkpointing), True/'nothing' -> 'nothing', 'dots' -> 'dots'."""
+    if remat in (False, None, "off"):
+        return None
+    if remat is True or remat == "nothing":
+        return "nothing"
+    if remat == "dots":
+        return "dots"
+    raise ValueError(f"remat={remat!r} (False, True, 'nothing' or 'dots')")
+
+
+def _checkpointed(fn, policy: str):
+    """``fn`` with each call's activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant): 'nothing' keeps no
+    activation inside the call, 'dots' keeps the outputs of the matrix
+    products (a selective-checkpoint context) and recomputes the rest.
+    The recomputation runs the same deterministic kernels on the same
+    inputs, so loss, gradients and updates are those of remat off."""
+    from torch.utils import checkpoint as ckpt
+    if policy == "dots":
+        import functools
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                          context_fn=ctx)
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+
+
+def lm_apply(params, cfg: ModelConfig, tokens, positions=None,
+             remat=False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V), aux_loss scalar).  ``remat`` (False,
+    True/'nothing' or 'dots') checkpoints each super-block's body, as the
+    reference checkpoints its scan body."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = _positions_for(cfg, B, S, x.device)
+
+    def body(sb, x):
+        return _apply_superblock(sb, cfg, x, positions)
+
+    policy = remat_policy(remat)
+    if policy is not None and torch.is_grad_enabled():
+        body = _checkpointed(body, policy)
     aux = torch.zeros((), device=x.device)
     for s in range(num_superblocks(params)):
-        sb = _tree_index(params["blocks"], s)
-        for i in range(cfg.pattern_period):
-            x, a = _apply_layer(sb[f"layer{i}"], cfg, i, x, positions)
-            aux = aux + a
+        x, a = body(_tree_index(params["blocks"], s), x)
+        aux = aux + a
     return _head(params, cfg, x), aux
 
 
-def lm_loss(params, cfg: ModelConfig, tokens, labels, mask=None):
+def lm_loss(params, cfg: ModelConfig, tokens, labels, mask=None,
+            remat=False):
     """Returns (loss + aux, {"ce": loss, "aux": aux}).  The reference's
-    ``embeds`` (frontend) and ``remat`` arguments come with ROADMAP queue
-    A items 12 and 15."""
-    logits, aux = lm_apply(params, cfg, tokens)
+    ``embeds`` (frontend) argument comes with ROADMAP queue A item 12."""
+    logits, aux = lm_apply(params, cfg, tokens, remat=remat)
     loss = cross_entropy(logits, labels, mask)
     return loss + aux, {"ce": loss, "aux": aux}
 
@@ -294,18 +351,23 @@ def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
     int8/fp8 pools add float32 scale leaves, which stay float32.  Mamba and
     RWKV6 layers keep their O(1) recurrent state per row
     (``batch_size`` rows) in float32, which ``kv_dtype`` never touches:
-    it is not the paged working set.  ``max_len`` sizes the sliding-window
-    rings of ROADMAP queue A item 12."""
-    del max_len
+    it is not the paged working set.  Sliding-window layers keep a ring of
+    ``min(max_len, window)`` slots per row in ``dtype`` beside the pool
+    (already O(window) a row: paging them buys less than a page);
+    ``kv_dtype`` applies to the pool leaves only."""
     n_super = num_superblocks(params)
     if n_super == 0:
         return {}
     pool_dtype = dtype if kv_dtype is None else kv_dtype
     out = {}
     for i in range(cfg.pattern_period):
-        _check_paged(cfg, i)
+        _check_layer(cfg, i)
         if cfg.layer_kind(i) != "attn":
             one = _recurrent_state(cfg, i, batch_size)
+        elif _is_ring(cfg, i):
+            one = attn.init_kv_cache(cfg, batch_size, max_len, dtype,
+                                     window=cfg.layer_window(i),
+                                     device="meta")
         else:
             one = attn.init_paged_kv_cache(cfg, num_blocks, block_size,
                                            pool_dtype, device="meta")
@@ -316,19 +378,25 @@ def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
 def lm_init_prefill_carry(params, cfg: ModelConfig, max_len: int,
                           dtype=torch.bfloat16, device="cuda"):
     """B=1 chunked-prefill carry: the per-row state a prefilling request
-    threads between chunks, the recurrent states of Mamba and RWKV6 layers
-    (float32, leading n_super axis).  Paged global-attention layers carry
+    threads between chunks (leading n_super axis): the rings of
+    sliding-window layers (in ``dtype``) and the recurrent states of Mamba
+    and RWKV6 layers (float32).  Paged global-attention layers carry
     nothing ({}): their K/V goes straight into the shared pool."""
-    del max_len, dtype
     n_super = num_superblocks(params)
     if n_super == 0:
         return {}
     out = {}
     for i in range(cfg.pattern_period):
-        _check_paged(cfg, i)
-        out[f"layer{i}"] = ({} if cfg.layer_kind(i) == "attn" else
-                            _stacked_zeros(_recurrent_state(cfg, i, 1),
-                                           n_super, device))
+        _check_layer(cfg, i)
+        if _is_ring(cfg, i):
+            one = attn.init_kv_cache(cfg, 1, max_len, dtype,
+                                     window=cfg.layer_window(i),
+                                     device="meta")
+        elif cfg.layer_kind(i) == "attn":
+            one = {}
+        else:
+            one = _recurrent_state(cfg, i, 1)
+        out[f"layer{i}"] = _stacked_zeros(one, n_super, device)
     return out
 
 
@@ -385,8 +453,9 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens, cache, carry,
                      block_table, ctx_len: int):
     """One chunked-prefill step: tokens (B, C) at absolute positions
     ``ctx_len .. ctx_len + C - 1``.  K/V lands in the shared pool of
-    ``cache`` through ``block_table`` (B, NB), in place; Mamba and RWKV6
-    layers thread the B=1 ``carry`` through ``mamba_prefill`` and
+    ``cache`` through ``block_table`` (B, NB), in place; sliding-window
+    layers attend over and advance the B=1 ``carry``'s ring, and Mamba and
+    RWKV6 layers thread it through ``mamba_prefill`` and
     ``rwkv_*_prefill`` exactly as the full prefill threads its cache, in
     place (on the card: one scan or WKV launch per layer, from the
     carried state).  The chunks of a binary decomposition are exact (never
@@ -408,8 +477,9 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens, cache, carry,
                                       positions)
                 continue
             h = apply_norm(lp["ln1"], x, cfg.norm)
+            layer_cache = (carry_sb if _is_ring(cfg, i) else cache_sb)
             y, _ = attn.attn_prefill_chunk(
-                lp["attn"], cfg, h, cache_sb[f"layer{i}"], ctx_len,
+                lp["attn"], cfg, h, layer_cache[f"layer{i}"], ctx_len,
                 positions, window=cfg.layer_window(i),
                 block_table=block_table)
             x = _ffn_residual(lp, cfg, i, x + y)[0]
@@ -515,16 +585,18 @@ def _replay_layer(lp, cache_l, ring_l, cfg: ModelConfig, i: int, x):
     return torch.cat(outs, dim=1)
 
 
-def _verify_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions,
-                  block_table, write_mask):
+def _verify_layer(lp, cache_l, pend_l, cfg: ModelConfig, i: int, x, index,
+                  positions, block_table, write_mask):
     """One attention layer over a (B, C) verify chunk at per-row offsets
-    ``index``, scored through the block table.  A window layer raises in
-    ``attn_verify_chunk`` (its deferred ring commit comes with ROADMAP
-    queue A item 12)."""
+    ``index``: a global layer scored through the block table, a window
+    layer against its ring, whose chunk K/V goes into ``pend_l`` (leaves
+    (B, C, KV, hd)) for the deferred ring commit."""
     h = apply_norm(lp["ln1"], x, cfg.norm)
     y, cache_l = attn.attn_verify_chunk(lp["attn"], cfg, h, cache_l, index,
                                         positions, cfg.layer_window(i),
                                         block_table, write_mask=write_mask)
+    for key, t in cache_l.get("pending", {}).items():
+        pend_l[key].copy_(t)
     return _ffn_residual(lp, cfg, i, x + y)[0], cache_l
 
 
@@ -535,11 +607,15 @@ def lm_verify(params, cfg: ModelConfig, tokens, cache, index, block_table,
     row b's chunk at absolute positions ``index[b] .. index[b] + C - 1``.
     K/V goes into the paged pool through ``block_table`` (B, NB), in place;
     ``write_mask`` (B, C) sends inactive rows and positions at or past a
-    row's limit to the trash page.  Mamba and RWKV6 layers replay the chunk
-    as C decode steps into a (C+1)-deep checkpoint ring per layer (entry 0
-    the pre-round state), which the returned cache carries under
-    ``"pending"`` for :func:`lm_spec_commit`; their state leaves are not
-    written here.  Returns (logits (B, C, V), cache)."""
+    row's limit to the trash page.  Sliding-window layers score each query
+    against the ring a sequential decode would hold and leave the ring as
+    it was; their chunk K/V (leaves (n_super, B, C, KV, hd)) goes under
+    ``"pending"`` for the deferred ring commit.  Mamba and RWKV6 layers
+    replay the chunk as C decode steps into a (C+1)-deep checkpoint ring
+    per layer (entry 0 the pre-round state), which the returned cache
+    carries under ``"pending"`` too; their state leaves are not written
+    here.  :func:`lm_spec_commit` resolves both.  Returns (logits
+    (B, C, V), cache)."""
     B, C = tokens.shape
     index = torch.as_tensor(index, device=tokens.device).long()
     if index.ndim == 0:
@@ -549,11 +625,15 @@ def lm_verify(params, cfg: ModelConfig, tokens, cache, index, block_table,
     if cfg.position == "absolute":
         x = x + _pos_embed(params, pos)
     rings = {}                 # leaves (n_super, C+1, B, ...)
+    pend = {}                  # leaves (n_super, B, C, KV, hd)
     for i in range(cfg.pattern_period):
         ln = f"layer{i}"
         if ln in cache and cfg.layer_kind(i) != "attn":
             rings[ln] = {k: t.new_empty((t.shape[0], C + 1) + t.shape[1:])
                          for k, t in cache[ln].items()}
+        elif ln in cache and _is_ring(cfg, i):
+            pend[ln] = {k: t.new_empty(t.shape[:2] + (C,) + t.shape[3:])
+                        for k, t in cache[ln].items()}
     for s in range(num_superblocks(params)):
         sb = _tree_index(params["blocks"], s)
         cache_sb = _tree_index(cache, s)
@@ -563,31 +643,37 @@ def lm_verify(params, cfg: ModelConfig, tokens, cache, index, block_table,
                 x = _replay_layer(sb[ln], cache_sb[ln],
                                   _tree_index(rings[ln], s), cfg, i, x)
                 continue
-            x, _ = _verify_layer(sb[ln], cache_sb[ln], cfg, i, x, index, pos,
-                                 block_table, write_mask)
+            x, _ = _verify_layer(sb[ln], cache_sb[ln],
+                                 _tree_index(pend[ln], s) if ln in pend
+                                 else {}, cfg, i, x, index, pos, block_table,
+                                 write_mask)
     out = dict(cache)
-    for ln, ring in rings.items():
+    for ln, ring in {**rings, **pend}.items():
         out[ln] = {**cache[ln], "pending": ring}
     return _head(params, cfg, x), out
 
 
 def lm_spec_commit(cache, index, acc):
     """Resolve a verify forward's deferred per-row advances for the ``acc``
-    accepted tokens of each row.  Mamba and RWKV6 layers write checkpoint
-    ``acc[b]`` of their ring into row b's state, in place (entry 0 is the
-    pre-round state, so ``acc == 0``, an inactive row, is an exact
-    freeze), and drop the ring.  Paged pool leaves pass through: rejected
+    accepted tokens of each row, in place, and drop the ``pending``
+    entries.  Sliding-window layers commit the accepted prefix of their
+    chunk K/V into their rings (``attn.spec_ring_commit``).  Mamba and
+    RWKV6 layers write checkpoint ``acc[b]`` of their ring into row b's
+    state (entry 0 is the pre-round state, so ``acc == 0``, an inactive
+    row, is an exact freeze).  Paged pool leaves pass through: rejected
     positions there lie past the rewound cursor (never read, always
-    rewritten first), so rollback costs them nothing.  The deferred ring
-    commit of window layers comes with ROADMAP queue A item 12."""
-    del index
+    rewritten first), so rollback costs them nothing."""
     rows = torch.arange(acc.shape[0], device=acc.device)
     out = {}
     for ln, lc in cache.items():
         if "pending" in lc:
             lc = dict(lc)
-            ring = lc.pop("pending")
-            for key, ck in ring.items():       # (n_super, C+1, B, ...)
-                lc[key].copy_(ck[:, acc, rows])
+            pend = lc.pop("pending")
+            if "k" in lc and "k" in pend:      # a ring's chunk K/V
+                attn.spec_ring_commit(lc["k"], lc["v"], pend["k"],
+                                      pend["v"], index, acc)
+            else:
+                for key, ck in pend.items():   # (n_super, C+1, B, ...)
+                    lc[key].copy_(ck[:, acc, rows])
         out[ln] = lc
     return out

@@ -2,7 +2,7 @@
 
 Contract (required by ``repro_torch.core.expansion.expand_opt_state``):
   * ``init(params) -> state`` where state is a dict with 'step' plus
-    params-like moment trees under 'm';
+    params-like moment trees under 'm' (and 'v' for AdamW);
   * ``update(grads, state, params, lr) -> (params, state)``: ``lr`` is the
     scheduled float32 scalar for this step; schedules live outside the
     optimizer so progressive training can share one schedule across
@@ -21,10 +21,6 @@ import torch
 
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.tree import tree_leaves, tree_map
-
-_LATER = ("ROADMAP queue A item 5 (optimizers): {name!r} is not ported yet; "
-          "the port trains with 'muon_nsgd'")
-
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -48,9 +44,8 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
-    from repro_torch.optim import muon
-    if cfg.name != "muon_nsgd":
-        if cfg.name in ("adamw", "nsgd", "sgd"):
-            raise NotImplementedError(_LATER.format(name=cfg.name))
-        raise KeyError(cfg.name)
-    return muon.muon_nsgd(cfg)
+    """The optimizer ``cfg.name`` names; an unknown name raises KeyError."""
+    from repro_torch.optim import adamw, muon, sgd
+    builders = {"muon_nsgd": muon.muon_nsgd, "adamw": adamw.adamw,
+                "nsgd": sgd.nsgd, "sgd": sgd.sgd}
+    return builders[cfg.name](cfg)

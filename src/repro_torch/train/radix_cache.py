@@ -301,8 +301,8 @@ class RadixCache:
         hands the restored carry out as a device COPY before any
         allocation runs, so dropping a node's snapshot buffers cannot
         invalidate an admitted row's state.  (The port's engine snapshots
-        the recurrent carries of Mamba and RWKV6 layers; window rings come
-        with ROADMAP queue A item 12.)"""
+        the window rings of sliding-window layers and the recurrent
+        carries of Mamba and RWKV6 layers.)"""
         victim, fallback = None, None
 
         def walk(n):

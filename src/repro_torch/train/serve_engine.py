@@ -55,8 +55,12 @@ freezes inactive rows' state, a verify replays the chunk as decode steps
 into a checkpoint ring from which each row keeps its accepted prefix, and
 the draft rolls back the same way.  A prefix-cache hit on such a model
 restores a copy of the carry its publisher snapshotted at a page
-boundary.  Sliding-window rings come with ROADMAP queue A item 12, mesh
-sharding with item 13.
+boundary.  Sliding-window layers (gemma2-9b, gemma3-12b) keep a ring per
+row beside the pool in the same way: a chunked prefill advances the B=1
+carry's ring, the verify defers each ring's advance to the accepted
+prefix, the draft restores its rings from a pre-round copy (so γ + 1 may
+not exceed a window), and a prefix hit restores the ring its publisher
+snapshotted.  Mesh sharding comes with ROADMAP queue A item 13.
 
 Fault injection (``faults``, a ``train.faults`` plane; the NULL plane by
 default): the engine fires ``engine.prefill_chunk``, ``engine.decode``,
@@ -262,6 +266,12 @@ class ServeEngine:
         if self.gamma < 1:
             raise ValueError(f"gamma {self.gamma} < 1")
         cfg = self.cfg
+        w = steps_lib.narrowest_window_below(cfg, self.gamma + 1)
+        if w:
+            raise ValueError(
+                f"gamma {self.gamma} + 1 draft writes exceed sliding window "
+                f"{w}: a speculation round may not overwrite a draft ring "
+                "slot twice")
         if draft_params is not None:
             depth = transformer.num_superblocks(draft_params) \
                 * cfg.pattern_period
@@ -277,14 +287,20 @@ class ServeEngine:
                                                           draft_depth)
         self.draft_api = registry.get_model(self.draft_cfg)
         self._spec_built = {}         # sample? -> (draft loop, verify)
-        # The draft's Mamba/RWKV6 layers roll back from the draft loop's
-        # checkpoint ring; its attention layers by the cursor alone.
+        # The draft's sliding-window rings roll back from a pre-round copy,
+        # its Mamba/RWKV6 layers from the draft loop's checkpoint ring, its
+        # global attention layers by the cursor alone.
         dcfg = self.draft_cfg
+        self._draft_ring = tuple(
+            f"layer{i}" for i in range(dcfg.pattern_period)
+            if dcfg.num_layers and dcfg.layer_kind(i) == "attn"
+            and dcfg.layer_window(i) > 0)
         self._draft_rec = tuple(
             f"layer{i}" for i in range(dcfg.pattern_period)
             if dcfg.num_layers and dcfg.layer_kind(i) != "attn")
         self._draft_rollback = steps_lib.make_draft_rollback_step(
-            self._draft_rec)
+            dcfg, self.gamma, ring_layers=self._draft_ring,
+            rec_layers=self._draft_rec)
         self._draft_prefill = steps_lib.make_prefill_step(self.draft_cfg)
         self._row_scatter = steps_lib.make_row_scatter_step()
 
@@ -532,6 +548,7 @@ class ServeEngine:
             self._spec_built[sample] = (
                 steps_lib.make_draft_loop_step(self.draft_cfg, self.gamma,
                                                sample=sample,
+                                               ring_layers=self._draft_ring,
                                                rec_layers=self._draft_rec),
                 steps_lib.make_verify_step(self.cfg, self.gamma,
                                            sample=sample))
@@ -567,8 +584,9 @@ class ServeEngine:
         caller moves its host cursors by ``acc`` and releases pages past
         them (``state.pool.truncate_row``); neither the pool nor the
         full-attention draft cache needs a device rollback.  The target's
-        recurrent layers keep their accepted prefix in the verify's commit,
-        the draft's are rolled back here, from the draft loop's ring."""
+        ring and recurrent layers keep their accepted prefix in the
+        verify's commit; the draft's are rolled back here, from the draft
+        loop's copies."""
         self.faults.fire("engine.decode")
         state = self._sync_table(state)
         draft, verify = self._spec_steps(temperature)
@@ -585,8 +603,8 @@ class ServeEngine:
         out, acc, nxt, cache, index, active = verify(
             self.params, vt, state.cache, state.index, state.active,
             state.limit, state.block_table, eos_id, *extra, state.generator)
-        if self._draft_rec:
-            dcache = self._draft_rollback(dcache, ring, acc)
+        if self._draft_rec or self._draft_ring:
+            dcache = self._draft_rollback(dcache, ring, state.index, acc)
         state = dataclasses.replace(state, tokens=nxt, cache=cache,
                                     draft_cache=dcache, index=index,
                                     active=active)

@@ -25,12 +25,9 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import registry
+from repro_torch.models import registry, transformer
 from repro_torch.optim.base import Optimizer
 from repro_torch.tree import leaves_with_path, tree_map
-
-_REMAT = ("ROADMAP queue A item 15 (activation checkpointing): remat={remat!r} "
-          "is not ported yet; the port trains with remat off")
 
 
 def _microbatch(batch, grad_accum: int):
@@ -71,6 +68,9 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
     respect to the stacked param leaves themselves (detached aliases that
     share their storage), and the optimizer updates those leaves in place.
     Metrics: loss, lr, ce, aux (0-d tensors on the params' device).
+    ``remat`` (False, True/'nothing' or 'dots') checkpoints each
+    super-block of the loss forward (``transformer.lm_apply``); the step's
+    loss, gradients and update are bit for bit those of remat off.
 
     With ``sentinels=True`` the step becomes ``(params, opt_state, batch,
     step, gnorm_ema) -> (..., metrics)`` and the metrics gain the
@@ -90,15 +90,15 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
     ``inject`` ({step: 'nan'|'spike'}) injects numerical faults at the
     named global steps: the loss and grads times NaN, or the grads times
     1e4."""
-    if remat not in (False, None, "off"):
-        raise NotImplementedError(_REMAT.format(remat=remat))
+    transformer.remat_policy(remat)          # raises on an unknown knob
     api = registry.get_model(cfg)
     inject = dict(inject or {})
 
     def loss_and_grads(flat, batch):
         leaves = {k: v.detach().requires_grad_() for k, v in flat.items()}
         with torch.enable_grad():
-            loss, metrics = api.loss(bridge.unflatten(leaves), cfg, batch)
+            loss, metrics = api.loss(bridge.unflatten(leaves), cfg, batch,
+                                     remat=remat)
             grads = torch.autograd.grad(loss, list(leaves.values()),
                                         allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -423,7 +423,8 @@ def make_page_copy_step() -> Callable:
 
 
 def make_draft_loop_step(cfg: ModelConfig, gamma: int,
-                         sample: bool = False, rec_layers=()) -> Callable:
+                         sample: bool = False, ring_layers=(),
+                         rec_layers=()) -> Callable:
     """The draft loop of one speculation round: γ+1 masked draft decode
     steps over the draft's contiguous cache.
 
@@ -445,13 +446,15 @@ def make_draft_loop_step(cfg: ModelConfig, gamma: int,
     positions past ``max_len`` and ``max_seq_len``; those writes drop and
     those position reads clamp (``attn_decode``, ``transformer._pos_embed``).
     A full-attention draft rolls back by its cursor alone: its slots past
-    the accepted prefix are invalid until rewritten.  The Mamba and RWKV6
-    layers named in ``rec_layers`` cannot: ``ring`` holds, per such layer,
-    a (γ+2)-deep checkpoint ring of their state (leaves (γ+2, n_super, B,
-    ...); entry 0 the pre-round state, entry j the state after draft step
-    j), copies the steps' in-place writes cannot touch, from which
-    ``make_draft_rollback_step`` rewinds each row.  ``ring`` is {} without
-    ``rec_layers``."""
+    the accepted prefix are invalid until rewritten.  The layers named in
+    ``ring_layers`` and ``rec_layers`` cannot, and ``ring`` holds copies of
+    their state that the steps' in-place writes cannot touch, from which
+    ``make_draft_rollback_step`` rewinds each row: for a sliding-window
+    layer its ring buffers as of round start (leaves (n_super, B, W, KV,
+    hd)); for a Mamba or RWKV6 layer a (γ+2)-deep checkpoint ring of its
+    state (leaves (γ+2, n_super, B, ...); entry 0 the pre-round state,
+    entry j the state after draft step j).  ``ring`` is {} without
+    either."""
     api = registry.get_model(cfg)
     if gamma < 1:
         raise ValueError(f"gamma {gamma} < 1")
@@ -466,6 +469,8 @@ def make_draft_loop_step(cfg: ModelConfig, gamma: int,
         ring = {ln: {k: t.new_empty((gamma + 2,) + t.shape)
                      for k, t in cache[ln].items()} for ln in rec_layers}
         checkpoint(ring, cache, 0)
+        ring.update({ln: {k: t.clone() for k, t in cache[ln].items()}
+                     for ln in ring_layers})
         inputs, probs = [], []
         tok, idx = tokens, index
         for step in range(gamma + 1):
@@ -498,25 +503,52 @@ def make_draft_loop_step(cfg: ModelConfig, gamma: int,
     return greedy
 
 
-def make_draft_rollback_step(rec_layers) -> Callable:
-    """(draft_cache, ring, acc (B,)) -> draft_cache.
+def narrowest_window_below(cfg: ModelConfig, n: int) -> int:
+    """The smallest sliding window of ``cfg``'s attention layers that is
+    below ``n`` (a speculation round's γ + 1 ring writes), or 0."""
+    windows = [cfg.layer_window(i) for i in range(cfg.pattern_period)
+               if cfg.layer_kind(i) == "attn"]
+    return min((w for w in windows if 0 < w < n), default=0)
 
-    Rolls the draft's Mamba and RWKV6 layers (``rec_layers``) back to the
-    verify's accepted prefix: row b's state becomes checkpoint ``acc[b]``
-    of the draft loop's ring, written in place: the state a sequential
-    decode of exactly the accepted tokens would carry.  An inactive row
-    (``acc == 0``) selects the pre-round state, which its frozen steps
-    left unchanged.  Full-attention draft leaves need nothing: their slots
-    past the rewound cursor are invalid until rewritten.  (The reference's
-    window-ring half comes with ROADMAP queue A item 12.)"""
-    rec_layers = tuple(rec_layers)
+
+def make_draft_rollback_step(cfg: ModelConfig, gamma: int, ring_layers=(),
+                             rec_layers=()) -> Callable:
+    """(draft_cache, ring, index (B,), acc (B,)) -> draft_cache.
+
+    Rolls the draft's per-row state back to the verify's accepted prefix,
+    in place.  Sliding-window rings (``ring_layers``): the draft loop wrote
+    positions ``index .. index + γ`` into them; slots whose latest write
+    was a rejected position (offset ``r`` in [acc, γ]) are restored from
+    the pre-round copy.  With γ + 1 <= W each slot was written at most
+    once, so that copy is exactly what a sequential decode rolled back to
+    ``index + acc`` would hold.  Mamba and RWKV6 layers (``rec_layers``):
+    row b's state becomes checkpoint ``acc[b]`` of the draft loop's ring,
+    the state a sequential decode of exactly the accepted tokens would
+    carry.  An inactive row (``acc == 0``) had every draft write frozen,
+    so its restore is a no-op.  Full-attention draft leaves need nothing:
+    their slots past the rewound cursor are invalid until rewritten."""
+    w = narrowest_window_below(cfg, gamma + 1)
+    if w:
+        raise ValueError(
+            f"gamma {gamma} + 1 draft writes exceed a sliding window {w}: a "
+            "speculation round may not overwrite a draft ring slot twice")
+    ring_layers, rec_layers = tuple(ring_layers), tuple(rec_layers)
 
     @torch.inference_mode()
-    def rollback(cache, ring, acc):
+    def rollback(cache, ring, index, acc):
         rows = torch.arange(acc.shape[0], device=acc.device)
         for ln in rec_layers:
             for key, ck in ring[ln].items():     # (γ+2, n_super, B, ...)
                 cache[ln][key].copy_(ck.transpose(0, 1)[:, acc, rows])
+        for ln in ring_layers:
+            for key, old in ring[ln].items():    # (n_super, B, W, KV, hd)
+                cur = cache[ln][key]
+                W = cur.shape[2]
+                r = (torch.arange(W, device=cur.device)[None, :]
+                     - index[:, None]) % W
+                restore = (r < gamma + 1) & (r >= acc[:, None])
+                cur.copy_(torch.where(restore[None, :, :, None, None], old,
+                                      cur))
         return cache
 
     return rollback

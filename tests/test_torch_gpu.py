@@ -45,7 +45,7 @@ def _qkv(seed, B, S, H, KV, hd):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("S,H,KV,causal,window,softcap", [
     (77, 12, 12, True, 0, 0.0), (512, 8, 2, True, 64, 30.0),
     (1000, 8, 2, False, 0, 30.0)])
@@ -106,7 +106,7 @@ def _paged(seed, B, H, KV, hd, bs, NB, dtypes, device, cursors=None):
 @pytest.mark.parametrize("dtypes", [("float32", "float32"),
                                     ("bfloat16", "bfloat16"),
                                     ("float32", "bfloat16")])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("H,KV,bs,NB,softcap", [(12, 12, 16, 37, 0.0),
                                                 (8, 2, 64, 4, 30.0)])
 def test_paged_kernel_matches_plain_version(cuda_device, dtypes, hd, H, KV,
@@ -146,7 +146,7 @@ def _quant_pages(pages, kv, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv", ["int8", "fp8"])
 @pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("H,KV,bs,NB,softcap", [(12, 12, 16, 37, 0.0),
                                                 (8, 2, 64, 4, 30.0)])
 def test_quantized_paged_kernel_matches_plain_version(cuda_device, kv,
@@ -300,7 +300,7 @@ def test_quantized_paged_kernel_hd128_gqa8(cuda_device, kv):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "fp8"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("G", [9, 12, 16])
 def test_paged_kernel_past_eight_heads_per_kv_head(cuda_device, kv, hd, G):
     """G > 8 query heads per kv head (starcoder2-3b: 24 over 2, G = 12) in
@@ -328,6 +328,34 @@ def test_paged_kernel_past_eight_heads_per_kv_head(cuda_device, kv, hd, G):
         q, kp, vp, tbl, idx, logit_softcap=30.0, **kw))
     _close_to_plain(got, pa_ops.paged_attention(
         q, kp, vp, tbl, idx, logit_softcap=30.0, force="ref", **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("softcap", [50.0, 0.0])
+def test_paged_kernel_hd256_at_gemma_shape(cuda_device, kv, softcap):
+    """gemma's global layers: hd 256, G = 2 (16 query heads over 8 kv
+    heads), softcap 50 (gemma2) and none (gemma3), contexts past 4096
+    tokens over pages of 16; f32 q, each page dtype within
+    ``_close_to_plain``; repeats bit-identical."""
+    B, H, KV, bs, NB = 2, 16, 8, 16, 400
+    cursors = [4200, 6175]
+    if kv == "bfloat16":
+        q, kp, vp, tbl, idx = _paged(23, B, H, KV, 256, bs, NB,
+                                     ("float32", "bfloat16"), cuda_device,
+                                     cursors)
+        kw = {}
+    else:
+        (q, kp, vp, tbl, idx), kw = _paged_kw(23, B, H, KV, 256, bs, NB, kv,
+                                              cuda_device, cursors)
+    before = pa_ops.KERNEL_LAUNCHES
+    got = pa_ops.paged_attention(q, kp, vp, tbl, idx, logit_softcap=softcap,
+                                 **kw)
+    assert pa_ops.KERNEL_LAUNCHES == before + 1
+    assert torch.equal(got, pa_ops.paged_attention(
+        q, kp, vp, tbl, idx, logit_softcap=softcap, **kw))
+    _close_to_plain(got, pa_ops.paged_attention(
+        q, kp, vp, tbl, idx, logit_softcap=softcap, force="ref", **kw))
 
 
 @pytest.mark.gpu
@@ -389,7 +417,7 @@ def _grads(q, k, v, do, kw, force):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("B,S,H,KV,causal,window,softcap", [
     (2, 77, 12, 12, True, 0, 0.0), (2, 300, 8, 2, True, 64, 30.0),
     (2, 200, 8, 2, False, 0, 30.0), (16, 256, 12, 12, True, 0, 0.0)])
@@ -455,7 +483,7 @@ FA_F64_TOL = 1e-5
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("S,H,KV,causal,window,softcap", [
     (200, 4, 4, True, 0, 0.0), (150, 8, 2, True, 32, 30.0),
     (130, 4, 2, False, 0, 0.0)])
@@ -476,7 +504,7 @@ def test_flash_f32_is_within_1e5_of_f64(cuda_device, hd, S, H, KV, causal,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_repeats_are_bit_identical(cuda_device, dtype, hd):
     """No atomics and fixed sum orders: the same inputs give the same bits,
     forward and backward."""
@@ -1095,8 +1123,8 @@ def test_masked_decode_freezes_recurrent_rows_on_the_card(cuda_device, kind):
     rec = tuple(cache)
     draft = steps.make_draft_loop_step(cfg, 3, rec_layers=rec)
     _, cache, ring = draft(params, toks[:, :1], cache, index, active, None)
-    cache = steps.make_draft_rollback_step(rec)(
-        cache, ring, torch.tensor([1, 0, 3], device=cuda_device))
+    cache = steps.make_draft_rollback_step(cfg, 3, rec_layers=rec)(
+        cache, ring, index, torch.tensor([1, 0, 3], device=cuda_device))
     torch.cuda.synchronize()
     frozen(cache)
 

@@ -58,6 +58,17 @@ MAMBA = ModelConfig(**_MAMBA_ONLY, ssm=SSMConfig(d_state=4))
 JMAMBA = JModelConfig(**_MAMBA_ONLY, ssm=JSSMConfig(d_state=4))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these ops are tiny, and on a shared CPU many
+    threads make them several times slower.  Every comparison here is
+    between runs under the same setting, or within a stated tolerance."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _no_drop(cfg):
     """``cfg`` with an MoE capacity of every token (capacity factor E/K):
     no token is dropped at any length, so one prefill equals a

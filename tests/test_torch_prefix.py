@@ -50,6 +50,17 @@ JCFG = jax_configs.get_smoke_config("gpt2-12l")
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these ops are tiny, and on a shared CPU many
+    threads make them several times slower.  Every comparison here is
+    between runs under the same setting, or within a stated tolerance."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pool_state(pool, radix):
     return (pool.table.copy(), pool.version, sorted(pool._free),
             dict(pool._ref), dict(pool._pins), pool.free_blocks,

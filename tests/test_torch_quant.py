@@ -38,6 +38,17 @@ QUANT_AGREEMENT = 0.9          # the reference's int8 lane
 FP8_AGREEMENT = 0.8            # fp8 keeps 3 mantissa bits against int8's 7
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these ops are tiny, and on a shared CPU many
+    threads make them several times slower.  Every comparison here is
+    between runs under the same setting, or within a stated tolerance."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand(shape, seed=0, lo=-3.0, hi=3.0):
     rng = np.random.default_rng(seed)
     return rng.uniform(lo, hi, size=shape).astype(np.float32)

@@ -70,6 +70,17 @@ REQ_SHAPES = ((5, 7), (9, 4), (3, 10), (6, 2), (4, 8), (7, 5), (2, 6),
               (8, 3))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these ops are tiny, and on a shared CPU many
+    threads make them several times slower.  Every comparison here is
+    between runs under the same setting, or within a stated tolerance."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _params(cfg, seed=0):
     return registry.get_model(cfg).init(torch.Generator().manual_seed(seed),
                                         cfg, device="cpu")
@@ -226,7 +237,7 @@ def test_draft_rolled_back_equals_sequential_decode(arch):
     start = _random_cache(cache, rng)
     rec = tuple(cache)
     draft = steps.make_draft_loop_step(cfg, GAMMA, rec_layers=rec)
-    rollback = steps.make_draft_rollback_step(rec)
+    rollback = steps.make_draft_rollback_step(cfg, GAMMA, rec_layers=rec)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1))).long()
     index = np.array([4, 6, 8, 10])
     active = torch.tensor([False, True, True, True])
@@ -235,7 +246,7 @@ def test_draft_rolled_back_equals_sequential_decode(arch):
     assert all(leaf.shape[0] == GAMMA + 2
                for lc in ring.values() for leaf in lc.values())
     acc = [0, 1, 2, GAMMA + 1]
-    cache = rollback(cache, ring, torch.tensor(acc))
+    cache = rollback(cache, ring, torch.from_numpy(index), torch.tensor(acc))
     _assert_rows_at(cache, _sequential(cfg, params, start, vt.numpy(), index),
                     acc)
 

@@ -50,6 +50,17 @@ REQ_SHAPES = ((5, 7), (9, 4), (3, 10), (6, 2), (4, 8), (7, 5), (2, 6),
               (8, 3))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these ops are tiny, and on a shared CPU many
+    threads make them several times slower.  Every comparison here is
+    between runs under the same setting, or within a stated tolerance."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def params():
     jp = jax.device_get(jtr.lm_init(jax.random.PRNGKey(3), JCFG))

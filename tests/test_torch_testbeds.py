@@ -48,6 +48,17 @@ LOGIT_TOL = 1e-5
 GRAD_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these ops are tiny, and on a shared CPU many
+    threads make them several times slower.  Every comparison here is
+    between runs under the same setting, or within a stated tolerance."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tokens(B, S, seed, vocab=256):
     return np.random.default_rng(seed).integers(0, vocab,
                                                 (B, S)).astype(np.int32)
@@ -73,8 +84,6 @@ def test_configs_copy_the_reference_and_the_registry_admits_them():
 
 @pytest.mark.parametrize("name,item", [
     ("deepseekv3-0.3b", "MLA.*item 12"),
-    ("gemma2-9b", "sliding-window.*item 12"),
-    ("gemma3-12b", "sliding-window.*item 12"),
     ("whisper-base", "encoder-decoder.*item 12"),
     ("qwen2-vl-2b", "M-RoPE.*item 12")])
 def test_the_rest_still_raises_naming_its_item(name, item):

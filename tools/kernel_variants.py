@@ -37,6 +37,9 @@ def build(build_mod, package: str, variants: dict, out: str,
     src = build_mod._sources(package)[0]
     with open(src) as f:
         bodies = make_sources(f.read(), variants, suffix)
+    # A checkout that predates per-package flags has NVCC_FLAGS alone.
+    flags = (build_mod.flags(package) if hasattr(build_mod, "flags")
+             else build_mod.NVCC_FLAGS)
     procs = {}
     for name, body in bodies.items():
         d = os.path.join(out, name)
@@ -46,7 +49,7 @@ def build(build_mod, package: str, variants: dict, out: str,
             f.write(body)
         so = os.path.join(d, package + ".so")
         procs[name] = (subprocess.Popen(
-            [build_mod._nvcc(), *build_mod.NVCC_FLAGS, "-o", so, path],
+            [build_mod._nvcc(), *flags, "-o", so, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     built = {}
     for name, (proc, so) in procs.items():

@@ -71,7 +71,7 @@ def build() -> dict:
         with open(cu, "w") as f:
             f.write(body)
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+            [_build._nvcc(), *_build.flags("newton_schulz"), "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     built = {}
     for name, (proc, so) in procs.items():

@@ -121,7 +121,7 @@ def build() -> dict:
             f.write(body)
         so = os.path.join(d, "paged_attention.so")
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+            [_build._nvcc(), *_build.flags("paged_attention"), "-o", so,
              os.path.join(d, SRC)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     built = {}
