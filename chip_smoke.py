@@ -147,14 +147,17 @@ result):
    checkpoints, flash forward and backward at G = 2, ``ns_fused`` and
    ``matmul`` launches against the count the run implies (the untied head
    on the large route beside the embedding), tokens/s at 1 and 24 layers;
-24. ``qwen3-0.3b`` (qk-norm, tied) over phase 6's traffic on paged KV, f32
-   and then int8 pages (the paged kernel at G = 2, hd 64); then the
-   paper's draft: a one-layer ``qwen3-0.3b`` expanded by ``copying_zeroL``
-   to 24, served with its depth-1 truncation, acceptance at least 0.99;
+24. ``qwen3-0.3b`` (qk-norm, tied) at full width over phase 6's traffic on
+   paged KV, f32 and then int8 pages (the paged kernel at G = 2, hd 64),
+   at 12 layers (``SERVE_CUT``, reduced from 24); then the paper's draft:
+   a one-layer ``qwen3-0.3b`` expanded by ``copying_zeroL`` to 6
+   (``QWEN3_ZEROL_DEPTH``, reduced from 24), served with its depth-1
+   truncation, acceptance at least 0.99;
 25. ``mixtral-0.3b``: 6 training steps through one expansion (expert
    stacks and routers through the Newton–Schulz kernel), then phase 6's
-   traffic on paged KV;
-26. ``starcoder2-3b`` at full size (~3.0 B parameters, ~12 GB f32) over
+   traffic on paged KV at 8 layers (reduced from 24);
+26. ``starcoder2-3b`` at full width, 10 of its 30 layers (reduced; ~1.2 B
+   parameters, ~5 GB f32) over
    phase 6's traffic on paged KV: the paged kernel at G = 12, hd 128; then
    card against CPU at depth 2 (the B=1 P=128 generation, whose prefill
    runs flash at G = 12, and three paged requests);
@@ -249,11 +252,40 @@ result):
    ``gpt2-12l`` at phase 13's settings for 6 steps under AdamW, NSGD and
    SGD, then AdamW under remat 'nothing' and 'dots', whose losses and
    params are bit for bit those of remat off and whose own peak memory
-   is below remat off's.
+   is below remat off's;
+36. the flash kernels at S_k != S_q (run right after phase 32): whisper's
+   cross-attention (B 4, 448 queries over 1500 frames, 8 heads of 64),
+   the encoder's S = 1500 self-attention and a GQA case (300 queries over
+   1000 keys, 8/2 heads of 128), non-causal, f32 and bf16, forward and
+   backward held entry by entry to the plain version by phase 32's rule,
+   finite and bit-identical on repeat, timed beside SDPA's best
+   non-causal call and the bound; causal attention at S_k != S_q refused;
+37. ``deepseekv3-0.3b`` (MLA) at full size: ``launch/train.py`` 1 -> 24
+   layers at step 3 of 6 (flash at hd 64, G = 2 on the up-projected K/V;
+   Newton–Schulz over the latent projections and the expert stacks), the
+   24-layer checkpoint served over latent pages (f32, int8, the prefix
+   cache; no kernel launches: the latent read is plain, as in the
+   reference) held to solo ``generate`` under the near-tie rule, MoE
+   routed dropless for it; the run's 1-layer checkpoint expanded by
+   ``copying_zeroL`` as the draft (acceptance >= 0.99); card against CPU
+   at depth 2 (a generation, int8 prefix-cache serving, a train step);
+38. ``qwen2-vl-2b`` (M-RoPE) at full width and depth: text-only paged
+   serving over f32 and int8 pages (the paged kernel at G = 6, hd 128)
+   held to solo ``generate``, one training step with 256 frontend embeds
+   prepended, card against CPU at depth 2;
+39. ``whisper-base`` at full size: Muon steps on batches of frames (the
+   flash kernels on the encoder's S = 1500, the decoder's causal
+   self-attention and the cross-attention at S_k = 1500), 2 -> 6 decoder
+   layers with the encoder scaled, greedy decoding through
+   ``encdec_decode_step`` equal to the teacher-forced argmax.
 
-Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35) starts with
-every kernel's launch counter at 0 and checks every counter after it, the
-kernels it must not launch included.  Each phase prints its seconds.
+``--only 36,37,38,39`` runs the card, the build and the named phases of
+36-39 alone, prints their readings and no closing line.
+
+Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-39) starts
+with every kernel's launch counter at 0 and checks every counter after
+it, the kernels it must not launch included.  Each phase prints its
+seconds.
 
 The line before the last is the kernels' JSON record (the paged row's
 launches and times at G = 12, starcoder2-3b's, its gpt2-12l ones under
@@ -263,6 +295,7 @@ paged rows under ``hd_256``); the last line is ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -271,6 +304,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -637,14 +671,17 @@ def paged_parity(pa_ops) -> dict:
 
 
 def card_vs_cpu(cfglib, registry, ServeEngine, fa_ops, arch="gpt2-12l",
-                depth=None):
+                depth=None, dropless=False):
     """Greedy B=1 P=128 8-token generation on the card, held against the
     port's plain path on the CPU fed the same tokens (teacher forcing: one
     CPU forward over prompt + generated tokens gives each step's logits,
     so a near-tie cannot send the two runs down different paths).
-    ``arch`` at ``depth`` layers (default: its full depth)."""
+    ``arch`` at ``depth`` layers (default: its full depth); an MoE model
+    ``dropless`` (``_dropless``) where prefill and teacher forcing group
+    tokens otherwise."""
     cfg = cfglib.get_config(arch)
     cfg = cfg if depth is None else cfg.with_depth(depth)
+    cfg = _dropless(cfg) if dropless else cfg
     api = registry.get_model(cfg)
     params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     P, G = 128, 8
@@ -692,21 +729,22 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def sdpa_yardstick(q, k, v):
+def sdpa_yardstick(q, k, v, causal=True):
     """(time it, backend) for ``scaled_dot_product_attention`` on (B, S,
-    heads, hd) inputs, causal, as PyTorch's dispatch serves them: the
-    backend ``torch._fused_sdp_choice`` picks, then enabled alone while
-    the caller times the call, so the reading names what it timed."""
+    heads, hd) inputs, causal (or not, over S_k keys), as PyTorch's
+    dispatch serves them: the backend ``torch._fused_sdp_choice`` picks,
+    then enabled alone while the caller times the call, so the reading
+    names what it timed."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = q.shape[2] != k.shape[2]
-    backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True,
+    backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=causal,
                                                  enable_gqa=gqa))
 
     def timed(timer, *args):
         with sdpa_kernel([backend]):
             return timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=gqa), *args)
+                qt, kt, vt, is_causal=causal, enable_gqa=gqa), *args)
     return timed, backend.name
 
 
@@ -1055,17 +1093,22 @@ def _agreement(res_a, res_b):
     return hit, tot
 
 
-def quant_card_vs_cpu(cfglib, registry):
+def quant_card_vs_cpu(cfglib, registry, arch="gpt2-12l", depth=None,
+                      dropless=False):
     """The three prompts of ``paged_card_vs_cpu`` (the longest first) and a
     second arrival of the longest, 8 tokens each, through the int8
     prefix-cache scheduler (2 slots, pages of 16) on the card and on the
     CPU from the same weights.  The second 128-token prompt is a full
     8-page hit on an exact page boundary: the copy-on-write clone and the
     one-token rerun.  Token agreement must reach ``QUANT_AGREEMENT``;
-    agreement with the card's f32 pool is printed as a finding."""
+    agreement with the card's f32 pool is printed as a finding.  ``arch``
+    at ``depth`` layers (default: full depth), an MoE model ``dropless``
+    as in ``card_vs_cpu``."""
     from repro_torch.train.serve_engine import ServeEngine
     from repro_torch.train.serve_scheduler import ContinuousScheduler, Request
-    cfg = cfglib.get_config("gpt2-12l")
+    cfg = cfglib.get_config(arch)
+    cfg = cfg if depth is None else cfg.with_depth(depth)
+    cfg = _dropless(cfg) if dropless else cfg
     params = registry.get_model(cfg).init(torch.Generator().manual_seed(0),
                                           cfg, device="cpu")
     rng = np.random.default_rng(2)
@@ -1094,7 +1137,8 @@ def quant_card_vs_cpu(cfglib, registry):
               f"{r_card.prefix_tokens} card {r_card.new_tokens.tolist()} "
               f"cpu {r_cpu.new_tokens.tolist()}")
     f_hit, f_tot = _agreement(out["cuda", "int8"], out["cuda", "f32"])
-    print(f"quant card vs cpu: int8 + prefix cache, {hit}/{tot} tokens equal "
+    print(f"quant card vs cpu ({cfg.name}, {cfg.num_layers} layers): int8 + "
+          f"prefix cache, {hit}/{tot} tokens equal "
           f"(agreement {hit / tot:.4f}, bar {QUANT_AGREEMENT}); against the "
           f"card's f32 pool {f_hit}/{f_tot} ({f_hit / f_tot:.4f}, a finding)")
     if hit / tot < QUANT_AGREEMENT:
@@ -1491,24 +1535,45 @@ NS_ROUTES = {
     "mixtral-0.3b": {"fused": ("wq", "wk", "wv", "wo", "router", "w_gate",
                                "w_up", "w_down"),
                      "large": ("embed", "lm_head")},
+    # MLA's latent projections; the shared expert's three and the expert
+    # stacks' three.
+    "deepseekv3-0.3b": {"fused": ("wq", "wkv_a", "wkv_b", "wo", "router",
+                                  "w_gate", "w_up", "w_down", "w_gate",
+                                  "w_up", "w_down"),
+                        "large": ("embed", "lm_head")},
+    # its feed-forward's (1536, 8960) matrices take the large route, one
+    # chain a layer
+    "qwen2-vl-2b": {"fused": ("wq", "wk", "wv", "wo"),
+                    "large": ("embed", "w_gate", "w_up", "w_down")},
+    # the decoder's self- and cross-attention, the encoder's attention, and
+    # both stacks' feed-forwards (the position tables are not matrices to
+    # Muon)
+    "whisper-base": {"fused": ("wq", "wk", "wv", "wo") * 3
+                     + ("w_up", "w_down") * 2,
+                     "large": ("embed",)},
 }
 
 
 def _ns_launches(cfg):
-    """(ns_fused, matmul) launches of one Muon update at any depth, from
-    ``NS_ROUTES``; fails unless its leaves are the model's matrix leaves
+    """(ns_fused, matmul) launches of one Muon update at ``cfg``'s depth,
+    from ``NS_ROUTES``: one ``ns_fused`` a fused leaf (its whole stack),
+    15 GEMMs (5 steps of 3) a matrix of a large-route leaf (each matrix of
+    a stacked one); fails unless its leaves are the model's matrix leaves
     (the optimizer's own selection)."""
     from repro_torch.models import registry
     from repro_torch.optim import muon
     from repro_torch.tree import leaves_with_path
     routes = NS_ROUTES[cfg.name]
     params = registry.get_model(cfg).init(None, cfg, device="meta")
-    leaves = sorted(path[-1] for path, x in leaves_with_path(params)
-                    if muon._is_matrix(path, x))
-    if leaves != sorted(routes["fused"] + routes["large"]):
-        _fail(f"{cfg.name} Muon matrix leaves {leaves}, NS_ROUTES lists "
-              f"{routes}")
-    return len(routes["fused"]), 3 * 5 * len(routes["large"])
+    mats = [(path[-1], x) for path, x in leaves_with_path(params)
+            if muon._is_matrix(path, x)]
+    if sorted(n for n, _ in mats) != sorted(routes["fused"]
+                                           + routes["large"]):
+        _fail(f"{cfg.name} Muon matrix leaves {sorted(n for n, _ in mats)}, "
+              f"NS_ROUTES lists {routes}")
+    large = sum(math.prod(x.shape[:-2]) for n, x in mats
+                if n in routes["large"])
+    return len(routes["fused"]), 3 * 5 * large
 
 
 def train_main_path(cfg, train, ckpt_dir, argv=TRAIN_ARGV):
@@ -2548,6 +2613,15 @@ def spec_vs_plain(cfg, registry, spec, plain, engine) -> int:
 # Phases 23-26: the RoPE architectures at full width, random weights from
 # seed 0 in f32.  llama3-0.3b trains with the launcher's defaults, one
 # layer to 24 at half of 12 steps; mixtral-0.3b through one expansion in 6.
+# Phases 24-26 serve phase 6's traffic at these depths (cut in PR 26 from
+# 24, 24 and 30 to make room for phases 36-39: each layer adds the same
+# host-bound step work, and starcoder2's 3 B weights were drawn on the
+# host for 27 s).
+SERVE_CUT = {"qwen3-0.3b": 12, "mixtral-0.3b": 8, "starcoder2-3b": 10}
+# The paper's draft over qwen3-0.3b: a one-layer source expanded to this
+# many layers (cut from 24 in PR 26 to make room for phases 36-39: the
+# acceptance does not depend on the depth, the run's time does).
+QWEN3_ZEROL_DEPTH = 6
 MIXTRAL_TRAIN_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + [
     "--steps", "6"] + TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 2:]
 
@@ -2573,20 +2647,31 @@ def rope_train_path(cfglib, train, arch, argv=TRAIN_ARGV):
 
 
 def rope_serve_paths(cfglib, registry, serve, fa_ops, pa_ops, arch,
-                     int8=False):
+                     int8=False, depth=None):
     """Phase 6's traffic for ``arch`` over f32 pages (and, with ``int8``,
-    over int8 pages), counters from 0 before each run.  Returns (the f32
-    run's paged launches, its ``summarize`` record, the int8 run's
-    launches or None)."""
+    over int8 pages), counters from 0 before each run; at ``depth`` layers
+    where given (``serve.main`` then draws the model at that depth).
+    Returns (the f32 run's paged launches, its ``summarize`` record, the
+    int8 run's launches or None)."""
     cfg = cfglib.get_config(arch)
-    launches, _, _, _, stats = paged_main_path(cfg, serve, fa_ops, pa_ops)
-    q_launches = None
-    if int8:
-        q_launches = paged_main_path(cfg, serve, fa_ops, pa_ops,
-                                     ("--kv-dtype", "int8"))[0]
-    print(f"  {arch}: paged kernel at G = {cfg.num_heads // cfg.num_kv_heads}"
-          f", hd {cfg.head_dim}; aggregate tokens/s "
-          f"{stats['tokens_per_s']:.1f} (f32 pages)")
+    if depth is not None:
+        cfg = cfg.with_depth(depth)
+    saved = serve.cfglib
+    serve.cfglib = types.SimpleNamespace(**{
+        **vars(saved), "get_config": lambda name: cfg if name == arch
+        else saved.get_config(name)})
+    try:
+        launches, _, _, _, stats = paged_main_path(cfg, serve, fa_ops,
+                                                   pa_ops)
+        q_launches = None
+        if int8:
+            q_launches = paged_main_path(cfg, serve, fa_ops, pa_ops,
+                                         ("--kv-dtype", "int8"))[0]
+    finally:
+        serve.cfglib = saved
+    print(f"  {arch} at {cfg.num_layers} layers: paged kernel at G = "
+          f"{cfg.num_heads // cfg.num_kv_heads}, hd {cfg.head_dim}; "
+          f"aggregate tokens/s {stats['tokens_per_s']:.1f} (f32 pages)")
     return launches, stats, q_launches
 
 
@@ -3482,9 +3567,10 @@ def _visible_pairs(S: int, window: int) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def _flash_plain(q, k, v, o, do, window, cap):
+def _flash_plain(q, k, v, o, do, window, cap, causal=True):
     """The plain backward on the backward kernel's own inputs, head by
-    head in f32 on the card: dq, dk, dv from q, k, v, the forward output
+    head in f32 on the card (causal, or over every key at S_k != S_q
+    with ``causal=False``): dq, dk, dv from q, k, v, the forward output
     ``o`` it is handed (D = rowsum(dO o) with that o: bf16 inputs get a
     bf16 o) and dO, with the window, the softcap and its derivative.  And
     the sums of magnitudes behind each entry of the forward's output and
@@ -3497,9 +3583,12 @@ def _flash_plain(q, k, v, o, do, window, cap):
     G = H // k.shape[2]
     q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
     i = torch.arange(S, device=q.device)
-    mask = i[:, None] >= i[None, :]
+    j = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i[:, None] >= j[None, :]
     if window > 0:
-        mask &= (i[:, None] - i[None, :]) < window
+        mask &= (i[:, None] - j[None, :]) < window
     grads = [torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)]
     mags = [torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(k),
             torch.zeros_like(v)]
@@ -3546,9 +3635,10 @@ def _worst_ratio(got, want, room) -> float:
     return ((got.float() - want).abs() / room).max().item()
 
 
-def _sdpa_best(q, k, v, do):
-    """SDPA's best single call (causal; no window or softcap) on (B, S,
-    heads, hd) inputs, forward and backward: as PyTorch dispatches GQA
+def _sdpa_best(q, k, v, do, causal=True):
+    """SDPA's best single call (causal unless ``causal=False``; no window
+    or softcap) on (B, S, heads, hd) inputs, forward and backward: as
+    PyTorch dispatches GQA
     (``enable_gqa``) and on K/V repeated to every query head (the repeat
     not timed), each on the backend ``torch._fused_sdp_choice`` picks.
     Returns {fwd: (ms, backend), bwd: (ms, backend), readings}."""
@@ -3557,13 +3647,13 @@ def _sdpa_best(q, k, v, do):
     rep = [t.repeat_interleave(H // k.shape[2], dim=2) for t in (k, v)]
     readings = {}
     for label, (kk, vv) in (("gqa", (k, v)), ("repeated", rep)):
-        sdpa, backend = sdpa_yardstick(q, kk, vv)
+        sdpa, backend = sdpa_yardstick(q, kk, vv, causal)
         fwd = sdpa(_time_device_ms, 10)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, kk, vv))
         with sdpa_kernel([getattr(torch.nn.attention.SDPBackend, backend)]):
             so = torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=kt.shape[1] != H)
+                qt, kt, vt, is_causal=causal, enable_gqa=kt.shape[1] != H)
             bwd = _time_device_ms(lambda: torch.autograd.grad(
                 so, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 10)
         readings[label] = dict(backend=backend, fwd_ms=fwd, bwd_ms=bwd)
@@ -3836,8 +3926,9 @@ def _solo_streams(label, cfg, params, traffic, max_len):
             completed=True, finish_reason="limit"))
     expect_counts(label, flash_attention=len(traffic) * cfg.num_layers)
     print(f"  {label}: {len(traffic)} solo generations, "
-          f"{len(traffic) * cfg.num_layers} flash launches (hd 256; window "
-          f"layers with their window), {time.perf_counter() - t0:.1f} s")
+          f"{len(traffic) * cfg.num_layers} flash launches (hd "
+          f"{cfg.head_dim}; window layers with their window), "
+          f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4104,7 +4195,530 @@ def recipe_training(cfglib) -> dict:
     return {f"{n} remat {r}": v[2] for (n, r), v in runs.items()}
 
 
+# Phase 36: the flash kernels at S_k != S_q (whisper-base's
+# cross-attention: decoder queries over every encoder frame, non-causal),
+# the encoder's own S = 1500 self-attention (no key tile of 64, 32 or 16
+# divides 1500) and GQA with S_k != S_q: (label, B, S_q, S_k, H, KV, hd).
+CROSS_FA = (("whisper cross", 4, 448, 1500, 8, 8, 64),
+            ("whisper encoder", 4, 1500, 1500, 8, 8, 64),
+            ("gqa cross", 2, 300, 1000, 8, 2, 128))
+
+
+def cross_attention_lane(fa_ops) -> dict:
+    """Phase 36: the forward and backward kernels, non-causal, at
+    ``CROSS_FA``'s shapes in f32 and bf16, entry by entry against the
+    plain version (phase 32's rule, ``_flash_room``: the forward against
+    the plain version on f32 copies, dq, dk, dv against the plain backward
+    on the kernel's own inputs), finite and bit-identical on repeat; then
+    device times of the kernel, its plain version and SDPA's best
+    non-causal call (which takes S_k != S_q itself) beside the card's
+    bound: f32 on this route's three TF32 passes, bf16 at the bf16 peak.
+    Returns {label: {dtype: {forward, backward}}}."""
+    t0 = time.perf_counter()
+    out = {}
+    for n, (label, B, Sq, Sk, H, KV, hd) in enumerate(CROSS_FA):
+        kw = dict(causal=False, window=0, logit_softcap=0.0)
+        out[label] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(3600 + 10 * n)
+            q, do = (torch.randn((B, Sq, H, hd), generator=g, device="cuda")
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, Sk, KV, hd), generator=g, device="cuda")
+                    .to(dtype) for _ in range(2))
+            before = fa_ops.KERNEL_LAUNCHES, fa_ops.BWD_LAUNCHES
+            got = fa_ops.flash_attention(q, k, v, force="kernel", **kw)
+            again = fa_ops.flash_attention(q, k, v, force="kernel", **kw)
+            want = fa_ops.flash_attention(q.float(), k.float(), v.float(),
+                                          force="ref", **kw)
+            gw, mags = _flash_plain(q, k, v, got, do, 0, 0.0, causal=False)
+            room = _flash_room(want, mags[0], dtype)
+            err = (got.float() - want).abs().max().item()
+            ratio = _worst_ratio(got, want, room)
+            gk = _bwd_pair(fa_ops, q, k, v, do, kw, "kernel")
+            gk2 = _bwd_pair(fa_ops, q, k, v, do, kw, "kernel")
+            rooms = [_flash_room(w, m, dtype, backward=True)
+                     for w, m in zip(gw, mags[1:])]
+            berrs = [(a.float() - b).abs().max().item()
+                     for a, b in zip(gk, gw)]
+            bratios = [_worst_ratio(a, b, r) for a, b, r in zip(gk, gw, rooms)]
+            shapes = [tuple(t.shape) for t in gk]
+            if (ratio > 1.0 or max(bratios) > 1.0
+                    or fa_ops.KERNEL_LAUNCHES != before[0] + 4
+                    or fa_ops.BWD_LAUNCHES != before[1] + 2
+                    or shapes != [tuple(q.shape), tuple(k.shape),
+                                  tuple(v.shape)]
+                    or not all(bool(torch.isfinite(t).all())
+                               for t in (got, *gk))
+                    or not torch.equal(got, again)
+                    or not all(torch.equal(a, b) for a, b in zip(gk, gk2))):
+                _fail(f"flash at {label} (B={B} Sq={Sq} Sk={Sk} H={H}/{KV} "
+                      f"hd={hd}) {dtype}: forward err {err:.2e} = {ratio:.3f} "
+                      f"of its limit, dq/dk/dv err {berrs} at {bratios}, "
+                      f"grad shapes {shapes}, repeats equal "
+                      f"{torch.equal(got, again)}")
+            del gk, gk2, gw, rooms, mags, want, again, room, got
+            ms = _time_device_ms(lambda: fa_ops.flash_attention(
+                q, k, v, force="kernel", **kw), 10)
+            plain_ms = _time_device_ms(lambda: fa_ops.flash_attention(
+                q, k, v, force="ref", **kw), 2)
+            lib = _sdpa_best(q, k, v, do, causal=False)
+            o, lse = fa_ops.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+            bwd_ms = _time_device_ms(lambda: fa_ops.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, **kw), 10)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref_out = fa_ops.flash_attention(*leaves, force="ref", **kw)
+            bwd_plain = _time_device_ms(lambda: torch.autograd.grad(
+                ref_out, leaves, do, retain_graph=True), 2)
+            del ref_out, leaves, o, lse
+            es = q.element_size()
+            pairs = B * H * Sq * Sk
+            peak = (PEAK_TF32_FLOPS if dtype == torch.float32
+                    else PEAK_BF16_FLOPS)
+            passes = 3 if dtype == torch.float32 else 1
+            fwd = dict(ms=ms, plain_ms=plain_ms, library_ms=lib["fwd"][0],
+                       library_backend=lib["fwd"][1],
+                       **_bound(passes * 4 * hd * pairs,
+                                es * (2 * q.numel() + 2 * k.numel()), peak),
+                       max_abs_err=err, err_over_limit=ratio)
+            bwd = dict(ms=bwd_ms, plain_ms=bwd_plain,
+                       library_ms=lib["bwd"][0],
+                       library_backend=lib["bwd"][1],
+                       **_bound(passes * 10 * hd * pairs,
+                                es * (4 * q.numel() + 4 * k.numel())
+                                + 2 * 4 * B * H * Sq, peak),
+                       max_abs_err=max(berrs), err_over_limit=max(bratios))
+            name = str(dtype)[6:]
+            out[label][name] = dict(forward=fwd, backward=bwd)
+            print(f"  {card_line()}: flash at {label} (B={B} Sq={Sq} Sk={Sk} "
+                  f"H={H}/{KV} hd={hd}, non-causal) {name}: forward err "
+                  f"{err:.2e} = {ratio:.3f} of its limit, kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, sdpa {lib['fwd'][1]} "
+                  f"{lib['fwd'][0]:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
+                  f"({fwd['bound_by']}); backward dq/dk/dv at "
+                  f"{[round(r, 3) for r in bratios]} of their limits, kernel "
+                  f"{bwd_ms:.4f} ms, plain (autograd) {bwd_plain:.4f} ms, "
+                  f"sdpa {lib['bwd'][1]} {lib['bwd'][0]:.4f} ms, bound "
+                  f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    # Causal attention at S_k != S_q has no caller: the wrapper refuses it.
+    q, k, v = (torch.zeros((1, n, 8, 64), device="cuda") for n in (8, 16, 16))
+    try:
+        fa_ops.flash_attention(q, k, v, causal=True, force="kernel")
+    except ValueError:
+        pass
+    else:
+        _fail("causal flash attention at S_k != S_q was not refused")
+    print(f"cross-attention lane phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# Phase 37: deepseekv3-0.3b (MLA) at full size.  Its training is the
+# launcher's run of phase 25's length (1 -> 24 layers); its serving
+# traffic 6 requests into 3 slots over a 128-token shared prefix (the bare
+# prefix first), prompts up to 448 tokens, 16 tokens each, pages of 16.
+DSV3 = "deepseekv3-0.3b"
+DSV3_TRAFFIC = dict(n=6, lo=160, hi=448, gen=16, slots=3, seed=37,
+                    shared=128)
+# Phase 38: qwen2-vl-2b at full width and depth (28 layers), text-only
+# serving of 8 requests into 8 slots, then one training step of 2
+# sequences of 256 frontend embeds + 256 tokens.
+QWEN2VL = "qwen2-vl-2b"
+QWEN2VL_TRAFFIC = dict(n=8, lo=256, hi=768, gen=32, slots=8, seed=38)
+QWEN2VL_TRAIN_B, QWEN2VL_TRAIN_S = 2, 256
+# Phase 39: whisper-base at full size (6 + 6 layers, 1500 frames): batches
+# of 4 x 1500 frames and 448 tokens (the decoder's context), 2 Muon steps
+# at 2 decoder layers, the expansion to 6, 2 more; then 32 greedy tokens.
+WHISPER = "whisper-base"
+WHISPER_B, WHISPER_S, WHISPER_G = 4, 448, 32
+
+
+def _dropless(cfg):
+    """``cfg`` with an MoE capacity of num_experts / top_k: every expert
+    takes every token that picks it (a token picks an expert once), so a
+    prefill routes alike in chunks and in one piece.  At the configs'
+    1.25 which tokens overflow depends on how they are grouped, and a
+    chunked prefill groups them otherwise than ``generate``'s."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+
+
+def _on_card(params):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.cuda(), params)
+
+
+def deepseekv3_paths(cfglib, registry, train, serve, fa_ops) -> dict:
+    """Phase 37: ``deepseekv3-0.3b`` at full size.  The paper's recipe
+    through ``launch/train.py`` (phase 25's length: 1 -> 24 layers at step
+    3 of 6, Muon-NSGD under WSD; flash forward and backward at hd 64, G = 2
+    on the up-projected K/V; the Newton–Schulz kernels over the latent
+    projections and the expert stacks).  Its 24-layer checkpoint served
+    with continuous batching over paged KV, the pages holding latent rows:
+    f32 pages, int8 pages, the prefix cache (hits held to the f32 run's
+    streams); no kernel launches there (the latent read is plain, as in
+    the reference; chunked prefill is plain).  The f32 streams held to
+    solo ``generate`` (flash prefill) under phase 22's near-tie rule.  The
+    int8 run's agreement with f32 is a finding, not held to the
+    reference's 0.9: a perturbation that moves a token's hidden state
+    flips its top-2 experts where the router's second and third logits
+    are close, so an MoE model's int8 stream leaves the f32 one far more
+    often than a dense one's (the int8 MLA path is held to the CPU's
+    instead, at depth 2).  The paper's draft: the run's one-layer
+    checkpoint at step 3 expanded by ``copying_zeroL`` to 24 and drafted
+    at depth 1 (acceptance at least ``SPEC_ZEROL_ACCEPTANCE``, one flash
+    launch an admission), its streams held to the source's solo
+    generation.  Serving routes dropless (``_dropless``), so that chunked
+    and one-piece prefills route alike.  Then card against CPU at depth 2:
+    a generation, the int8 prefix-cache run and one train step.  Returns
+    launch counts and readings."""
+    from repro_torch.core import expansion
+    from repro_torch.train.serve_engine import ServeEngine
+    t0 = time.perf_counter()
+    cfg = cfglib.get_config(DSV3)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "run")
+        _, out["training"] = train_main_path(cfg, train, ckpt_dir,
+                                             MIXTRAL_TRAIN_ARGV)
+        p24, _ = serve.load_params(ckpt_dir, cfg)
+        p1, cfg1 = serve.load_params(ckpt_dir, cfg, step=int(
+            TRAIN_TAU * 6))
+    print(f"  {DSV3} training phase {time.perf_counter() - t0:.1f} s")
+    scfg = _dropless(cfg)
+    p24 = _on_card(p24)
+    t = DSV3_TRAFFIC
+    traffic = _gemma_traffic(cfg, t)
+    max_len = t["hi"] + t["gen"] + 1
+    lens, gens = [len(p) for p, _ in traffic], [g for _, g in traffic]
+    r = cfg.mla_kv_lora_rank
+    runs = {}
+    for key, kw in (("f32", {}), ("int8", dict(kv_dtype="int8")),
+                    ("prefix", dict(prefix_cache=True))):
+        label = f"{DSV3} paged {key}"
+        eng = ServeEngine(scfg, p24, device="cuda", max_len=max_len,
+                          paged=True, block_size=PAGE, **kw)
+        res, sched, stats, steps, _ = _run_counted(
+            label, eng, _requests_of(traffic), max_batch=t["slots"])
+        expect_counts(label)           # the latent read is plain: no kernel
+        if steps == 0:
+            _fail(f"{label} ran no masked decode step")
+        _check_served(label, cfg, lens, gens, res, sched)
+        ks = sched.kv_stats()
+        want = cfg.num_layers * (r + 4 if key == "int8" else 4 * r)
+        if ks["kv_bytes_per_token"] != want:
+            _fail(f"{label}: {ks['kv_bytes_per_token']} pool bytes a token, "
+                  f"expected {want} (latent rows of {r})")
+        print(f"  {label}: {steps} masked decode steps, pool bytes a token "
+              f"{ks['kv_bytes_per_token']} (f32 K/V pages would take "
+              f"{cfg.num_layers * 8 * cfg.kv_dim})")
+        if key == "prefix":
+            ps = sched.prefix_stats()
+            if ps["prefix_hits"] < 1:
+                _fail(f"the {DSV3} prefix-cache run had no hit: {ps}")
+            print(f"  {DSV3} prefix cache: hits {ps['prefix_hits']}/"
+                  f"{ps['prefix_requests']}, {ps['prefix_skipped_tokens']} "
+                  "prompt tokens skipped")
+        out[f"paged_{key}"] = dict(tokens_per_s=stats["tokens_per_s"],
+                                   ttft_p50_s=stats["ttft_p50_s"],
+                                   decode_steps=steps)
+        runs[key] = res
+        del eng, sched
+    hit, tot = _agreement(runs["f32"], runs["int8"])
+    print(f"  {DSV3} int8 latent pages: agreement with f32 {hit}/{tot} = "
+          f"{hit / tot:.4f} (a finding: MoE routing flips, see above)")
+    out["int8_agreement"] = hit / tot
+    streams_vs(f"{DSV3} prefix vs f32", scfg, registry, runs["prefix"],
+               runs["f32"], p24)
+    solo = _solo_streams(f"{DSV3} solo generate", scfg, p24, traffic,
+                         max_len)
+    out["paged_equal_solo"] = streams_vs(f"{DSV3} paged vs solo", scfg,
+                                         registry, runs["f32"], solo, p24)
+    del p24
+    # the paper's draft from the run's own one-layer checkpoint
+    p1 = _on_card(p1)
+    zl = expansion.expand_params(p1, cfg1, cfg.num_layers, "copying_zeroL")
+    eng = ServeEngine(scfg, zl, device="cuda", max_len=max_len, paged=True,
+                      block_size=PAGE, spec_decode=True, gamma=SPEC_GAMMA,
+                      draft_depth=1)
+    res, sched, stats, _, _ = _run_counted(
+        f"{DSV3} zeroL spec", eng, _requests_of(traffic),
+        max_batch=t["slots"])
+    out["spec"] = expect_counts(f"{DSV3} zeroL spec",
+                                flash_attention=len(traffic))[
+                                    "flash_attention"]
+    _check_served(f"{DSV3} zeroL spec", cfg, lens, gens, res, sched)
+    rate = sched.acceptance_rate
+    print(f"  {DSV3} zeroL spec (1 -> {cfg.num_layers} layers, draft depth "
+          f"1, gamma {SPEC_GAMMA}): {sched.spec_rounds} rounds, acceptance "
+          f"{rate:.4f}, {out['spec']} flash launches (the draft's prefills)")
+    if rate < SPEC_ZEROL_ACCEPTANCE:
+        _fail(f"{DSV3} zeroL acceptance {rate:.4f} < {SPEC_ZEROL_ACCEPTANCE}")
+    out["zerol_acceptance"] = rate
+    s1 = _dropless(cfg1)
+    solo1 = _solo_streams(f"{DSV3} one-layer source solo", s1, p1, traffic,
+                          max_len)
+    streams_vs(f"{DSV3} zeroL spec vs its source", s1, registry, res, solo1,
+               p1)
+    del eng, sched, zl, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_vs_cpu(cfglib, registry, ServeEngine, fa_ops, DSV3, 2,
+                dropless=True)
+    quant_card_vs_cpu(cfglib, registry, DSV3, 2, dropless=True)
+    train_card_vs_cpu(cfglib, registry, DSV3, 2)
+    print(f"{DSV3} phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def qwen2_vl_paths(cfglib, registry, fa_ops) -> dict:
+    """Phase 38: ``qwen2-vl-2b`` at full width and depth (28 layers, ~1.5
+    B params drawn on the card), M-RoPE with text ids.  Text-only
+    continuous serving over paged KV, f32 and int8 pages (the paged kernel
+    at G = 6, hd 128, once a layer a masked decode step; the int8 run's
+    agreement with f32 a finding: at this width with random weights the
+    top-2 logit gaps are small beside int8's error, 0.75 on the CPU at
+    depth 2), the f32 streams held to solo ``generate`` under the near-tie
+    rule; then one ``make_train_step`` step (Muon-NSGD) on 2
+    sequences of 256 frontend embeds prepended to 256 tokens, the loss over
+    the text: flash forward and backward once a layer over 512 positions,
+    the Newton–Schulz kernels over the stacks and the 151936-row
+    embedding; then card against CPU at depth 2 (a generation, and the
+    int8 prefix-cache run held to the CPU's at the int8 lane).  Returns
+    launch counts and readings."""
+    from repro_torch.configs.base import OptimizerConfig, ScheduleConfig
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.optim.base import make_optimizer
+    from repro_torch.train import steps as steps_lib
+    from repro_torch.train.serve_engine import ServeEngine
+    t0 = time.perf_counter()
+    cfg = cfglib.get_config(QWEN2VL)
+    params = draw_on_card(registry, cfg)
+    t = QWEN2VL_TRAFFIC
+    traffic = _gemma_traffic(cfg, t)
+    max_len = t["hi"] + t["gen"] + 1
+    lens, gens = [len(p) for p, _ in traffic], [g for _, g in traffic]
+    out, runs = {}, {}
+    for key, kw in (("f32", {}), ("int8", dict(kv_dtype="int8"))):
+        label = f"{QWEN2VL} paged {key}"
+        eng = ServeEngine(cfg, params, device="cuda", max_len=max_len,
+                          paged=True, block_size=PAGE, **kw)
+        res, sched, stats, steps, _ = _run_counted(
+            label, eng, _requests_of(traffic), max_batch=t["slots"])
+        out[f"paged_{key}"] = expect_counts(
+            label, paged_attention=steps * cfg.num_layers)["paged_attention"]
+        if steps == 0:
+            _fail(f"{label} ran no masked decode step")
+        _check_served(label, cfg, lens, gens, res, sched)
+        out[f"paged_{key}_tokens_per_s"] = stats["tokens_per_s"]
+        runs[key] = res
+        del eng, sched
+    hit, tot = _agreement(runs["f32"], runs["int8"])
+    print(f"  {QWEN2VL} int8 pages: agreement with f32 {hit}/{tot} = "
+          f"{hit / tot:.4f} (a finding; the int8 path is held to the CPU's "
+          "at depth 2 below)")
+    out["int8_agreement"] = hit / tot
+    solo = _solo_streams(f"{QWEN2VL} solo generate", cfg, params, traffic,
+                         max_len)
+    out["paged_equal_solo"] = streams_vs(f"{QWEN2VL} paged vs solo", cfg,
+                                         registry, runs["f32"], solo, params)
+    # one training step with the frontend's embeds prepended
+    opt = make_optimizer(OptimizerConfig())
+    step = steps_lib.make_train_step(cfg, opt, make_schedule(
+        ScheduleConfig(), 0.01, 100))
+    g = torch.Generator(device="cuda").manual_seed(38)
+    B, S, N = QWEN2VL_TRAIN_B, QWEN2VL_TRAIN_S, cfg.num_frontend_embeds
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "embeds": torch.randn((B, N, cfg.d_model), generator=g,
+                                   device="cuda")}
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t1 = time.perf_counter()
+    params, state, m = step(params, state, batch, 0)
+    loss = float(m["loss"])
+    dt = time.perf_counter() - t1
+    fused, large = _ns_launches(cfg)
+    out["training"] = expect_counts(
+        f"{QWEN2VL} train step", flash_attention=cfg.num_layers,
+        flash_attention_bwd=cfg.num_layers, ns_fused=fused, matmul=large)
+    if not math.isfinite(loss):
+        _fail(f"{QWEN2VL} train step loss {loss}")
+    print(f"  {QWEN2VL} train step: {B} x ({N} embeds + {S} tokens), loss "
+          f"{loss:.4f} over the text, {dt * 1e3:.1f} ms (the first step), "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"{out['training']}")
+    out["train_step_ms"], out["train_loss"] = dt * 1e3, loss
+    del params, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_vs_cpu(cfglib, registry, ServeEngine, fa_ops, QWEN2VL, 2)
+    quant_card_vs_cpu(cfglib, registry, QWEN2VL, 2)
+    print(f"{QWEN2VL} phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def whisper_paths(cfglib, registry) -> dict:
+    """Phase 39: ``whisper-base`` at full size.  Muon-NSGD steps through
+    ``make_train_step`` on batches of 4 x 1500 frames and 448 tokens: 2 at
+    2 decoder layers (2 encoder layers), ``expand_params`` to 6 (the
+    encoder scaled to 6 with it, 'random'), 2 more; per step and layer the
+    flash kernels run the encoder's S = 1500 self-attention, the decoder's
+    causal self-attention and its cross-attention at S_k = 1500 != S_q =
+    448, forward and backward.  Then greedy decoding of 32 tokens through
+    ``encdec_decode_step`` (the encoder once through flash; the decode's
+    attention plain, as in the reference) equal to the teacher-forced
+    argmax of ``encdec_apply`` under the near-tie rule.  Returns launch
+    counts and readings."""
+    from repro_torch.configs.base import OptimizerConfig, ScheduleConfig
+    from repro_torch.core import expansion
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.models import encdec
+    from repro_torch.optim.base import make_optimizer
+    from repro_torch.train import steps as steps_lib
+    t0 = time.perf_counter()
+    cfg = cfglib.get_config(WHISPER)
+    cfg2 = cfg.with_depth(2)
+    api = registry.get_model(cfg)
+    # the 2-layer source of the full config: its encoder at 6 * 2 / 6 = 2
+    # layers (an init of cfg2, whose num_layers is 2, would keep 6)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      num_layers=2, device="cuda")
+    opt = make_optimizer(OptimizerConfig())
+    sched = make_schedule(ScheduleConfig(), 0.01, 100)
+    g = torch.Generator(device="cuda").manual_seed(39)
+    B, S, T = WHISPER_B, WHISPER_S, cfg.encoder_seq_len
+
+    def batch():
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                             device="cuda")
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                "frames": torch.randn((B, T, cfg.d_model), generator=g,
+                                      device="cuda")}
+    def enc_depth(p):
+        leaf = p["enc_blocks"]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        return leaf.shape[0]
+    if enc_depth(params) != encdec.encoder_depth(cfg, 2):
+        _fail(f"{WHISPER} source: {enc_depth(params)} encoder layers")
+    state = opt.init(params)
+    fused, large = _ns_launches(cfg)
+    zero_counts()
+    losses, times, depths = [], [], []
+    for c, n in ((cfg2, 2), (cfg, 2)):
+        if c is cfg:
+            params, state = expansion.make_expand_fn(cfg2, cfg.num_layers,
+                                                     "random")(
+                params, state, torch.Generator(device="cuda").manual_seed(1))
+        step = steps_lib.make_train_step(c, opt, sched)
+        for _ in range(n):
+            b = batch()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, state, m = step(params, state, b, len(losses))
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t1)
+            depths.append(c.num_layers)
+    enc_depths = [encdec.encoder_depth(cfg, L) for L in depths]
+    per_step = [e + 2 * d for e, d in zip(enc_depths, depths)]
+    out = {"training": expect_counts(
+        f"{WHISPER} training", flash_attention=sum(per_step),
+        flash_attention_bwd=sum(per_step), ns_fused=fused * len(losses),
+        matmul=large * len(losses))}
+    if enc_depth(params) != cfg.num_encoder_layers or \
+            not all(math.isfinite(x) for x in losses):
+        _fail(f"{WHISPER} training: encoder depth {enc_depth(params)} after "
+              f"the expansion, losses {losses}")
+    print(f"  {WHISPER} training: steps at decoder depths {depths} (encoder "
+          f"{enc_depths}), losses {[round(x, 4) for x in losses]}, step "
+          f"times {[round(x * 1e3, 1) for x in times]} ms; launches "
+          f"{out['training']}")
+    out["losses"], out["step_ms"] = losses, [x * 1e3 for x in times]
+    # greedy decoding against teacher forcing
+    frames, G = batch()["frames"], WHISPER_G
+    with torch.inference_mode():
+        zero_counts()
+        enc = encdec.encode(params, cfg, frames)
+        cache = api.init_cache(params, cfg, B, G + 1, torch.float32,
+                               device="cuda", enc_out=enc)
+        toks = [torch.zeros((B, 1), dtype=torch.long, device="cuda")]
+        logs = []
+        for t in range(G):
+            lg, cache = api.decode_step(params, cfg, toks[-1], cache,
+                                        torch.full((B,), t, device="cuda"))
+            logs.append(lg)
+            toks.append(lg.argmax(-1))
+        out["decode"] = expect_counts(f"{WHISPER} decode",
+                                      flash_attention=cfg.num_encoder_layers)
+        stream = torch.cat(toks, dim=1)
+        zero_counts()
+        tf, _ = api.apply(params, cfg, stream[:, :-1], frames)
+        out["teacher_forced"] = expect_counts(
+            f"{WHISPER} teacher forcing",
+            flash_attention=cfg.num_encoder_layers + 2 * cfg.num_layers)
+    dec = torch.cat(logs, dim=1)
+    diff = (dec - tf).abs().max().item()
+    for b in range(B):
+        got, want = stream[b, 1:], tf[b].argmax(-1)
+        if torch.equal(got, want):
+            continue
+        i = int((got != want).nonzero()[0])
+        top2 = torch.topk(tf[b, i].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        print(f"  {WHISPER} row {b}: first differs at token {i}, top-2 gap "
+              f"{gap:.3e}")
+        if gap >= SPEC_TIE_GAP:
+            _fail(f"{WHISPER} greedy row {b} leaves the teacher-forced "
+                  f"argmax at token {i} with a top-2 gap {gap:.3e}")
+    print(f"  {WHISPER} greedy decode: {B} x {G} tokens through "
+          f"encdec_decode_step equal the teacher-forced argmax of "
+          f"encdec_apply (where the gap allows); logits within {diff:.2e}; "
+          f"{cfg.num_encoder_layers} flash launches (the encoder) in "
+          f"decoding, {out['teacher_forced']['flash_attention']} in the "
+          "teacher-forced forward")
+    out["decode_vs_teacher_forced_max_abs"] = diff
+    if diff > LOGIT_TOL:
+        _fail(f"{WHISPER} decode logits differ from teacher forcing by "
+              f"{diff:.2e} > {LOGIT_TOL:.0e}")
+    del params, state, cache, enc
+    print(f"{WHISPER} phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def run_only(only, cfglib, registry, fa_ops, pa_ops, train, serve) -> int:
+    """``--only``: after the card and the build, the named phases of
+    36-39 alone, each as the full run makes it; prints their readings as
+    JSON and no closing line."""
+    got = {}
+    if 36 in only:
+        got["36"] = cross_attention_lane(fa_ops)
+    if 37 in only:
+        got["37"] = deepseekv3_paths(cfglib, registry, train, serve, fa_ops)
+    if 38 in only:
+        got["38"] = qwen2_vl_paths(cfglib, registry, fa_ops)
+    if 39 in only:
+        got["39"] = whisper_paths(cfglib, registry)
+    print(json.dumps(got))
+    return 0
+
+
 def main() -> int:
+    only = None
+    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
+        only = {int(x) for x in sys.argv[2].split(",")}
+        if not only <= {36, 37, 38, 39}:
+            print("chip_smoke: --only takes phases among 36-39",
+                  file=sys.stderr)
+            return 2
+    elif sys.argv[1:]:
+        print("usage: chip_smoke.py [--only 36,37,38,39]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -4148,6 +4762,9 @@ def main() -> int:
         _fail(f"paged entry functions: {pa_regs} (72 expected, none "
               "spilling)")
     hd256_regs = hd256_registers(fa_regs, pa_regs)
+    if only:
+        return run_only(only, cfglib, registry, fa_ops, pa_ops, train,
+                        serve)
     wkv_regs = wkv_registers(_build.build_log("rwkv6"))
     scan_regs = scan_registers(_build.build_log("mamba_scan"))
     print("wkv and scan entry functions (registers, spill bytes): "
@@ -4168,6 +4785,10 @@ def main() -> int:
     fa256 = hd256_flash(fa_ops)
     pa256 = hd256_paged(pa_ops)
     print(f"hd 256 kernels phase {time.perf_counter() - t0:.1f} s")
+
+    # 36. the flash kernels at S_k != S_q (whisper's cross-attention) and
+    # at the encoder's S = 1500, non-causal, against their plain versions
+    cross = cross_attention_lane(fa_ops)
 
     # 5. the contiguous main path, counters from 0
     cfg = cfglib.get_config("gpt2-12l")
@@ -4317,23 +4938,25 @@ def main() -> int:
     # 24. qwen3-0.3b over paged KV, f32 and int8 pages; the paper's draft
     t0 = time.perf_counter()
     rope_serve_paths(cfglib, registry, serve, fa_ops, pa_ops, "qwen3-0.3b",
-                     int8=True)
-    spec_zerol(cfglib, registry, "qwen3-0.3b")
+                     int8=True, depth=SERVE_CUT["qwen3-0.3b"])
+    spec_zerol(cfglib, registry, "qwen3-0.3b", QWEN3_ZEROL_DEPTH)
     print(f"qwen3 serving phase {time.perf_counter() - t0:.1f} s")
 
     # 25. mixtral-0.3b: a few training steps through one expansion, then
     # phase 6's traffic over paged KV
     t0 = time.perf_counter()
     rope_train_path(cfglib, train, "mixtral-0.3b", MIXTRAL_TRAIN_ARGV)
-    rope_serve_paths(cfglib, registry, serve, fa_ops, pa_ops, "mixtral-0.3b")
+    rope_serve_paths(cfglib, registry, serve, fa_ops, pa_ops, "mixtral-0.3b",
+                     depth=SERVE_CUT["mixtral-0.3b"])
     print(f"mixtral phase {time.perf_counter() - t0:.1f} s")
 
-    # 26. starcoder2-3b at full size over paged KV (the paged kernel at
+    # 26. starcoder2-3b at full width over paged KV (the paged kernel at
     # G = 12, hd 128), then card against CPU at depth 2 (flash's prefill at
     # G = 12, and three paged requests)
     t0 = time.perf_counter()
-    g12_launches, _, _ = rope_serve_paths(cfglib, registry, serve, fa_ops,
-                                          pa_ops, "starcoder2-3b")
+    g12_launches, _, _ = rope_serve_paths(
+        cfglib, registry, serve, fa_ops, pa_ops, "starcoder2-3b",
+        depth=SERVE_CUT["starcoder2-3b"])
     gc.collect()
     torch.cuda.empty_cache()
     card_vs_cpu(cfglib, registry, ServeEngine, fa_ops, "starcoder2-3b", 2)
@@ -4389,6 +5012,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     recipe_peaks = recipe_training(cfglib)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 37. deepseekv3-0.3b (MLA) at full size: the paper's recipe 1 -> 24
+    # layers, its checkpoint served over latent pages (f32, int8, prefix
+    # cache), a copying_zeroL draft, card against CPU at depth 2
+    dsv3 = deepseekv3_paths(cfglib, registry, train, serve, fa_ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 38. qwen2-vl-2b (M-RoPE) at full size: paged serving, one training
+    # step with 256 frontend embeds, card against CPU at depth 2
+    vl = qwen2_vl_paths(cfglib, registry, fa_ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 39. whisper-base at full size: training on frames through an
+    # expansion, greedy decoding against teacher forcing
+    wh = whisper_paths(cfglib, registry)
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -4401,6 +5043,14 @@ def main() -> int:
          "max_abs_err": main_err, **t,
          **t_fa_jamba, "f64_err": fa_f64,
          "registers_spills": [list(r) for r in fa_regs],
+         "cross_attention": {lbl: {d: r["forward"] for d, r in v.items()}
+                             for lbl, v in cross.items()},
+         "new_archs_launches": {
+             "deepseekv3_0_3b_training": dsv3["training"]["flash_attention"],
+             "deepseekv3_0_3b_zerol_spec": dsv3["spec"],
+             "qwen2_vl_2b_train_step": vl["training"]["flash_attention"],
+             "whisper_base_training": wh["training"]["flash_attention"],
+             "whisper_base_decode": wh["decode"]["flash_attention"]},
          "hd_256": {"launches": {"gemma2_9b_solo_generate": g2["flash_solo"],
                                  "gemma3_12b_spec": g3["spec"],
                                  "gemma2_9b_training":
@@ -4415,6 +5065,7 @@ def main() -> int:
          "launches": g12_launches, "max_abs_err": paged_errs["float32 G12"],
          "shape": "starcoder2-3b decode: B=8 H=24 KV=2 hd=128 bs=16 "
                   "cursors 575, f32 pages, L2 flushed", **t_g12,
+         "qwen2_vl_2b_launches": vl["paged_f32"],
          "gpt2_12l": {"launches": paged_launches, "spec_path_launches": 0,
                       "max_abs_err": paged_errs["float32"], **tp, **pa_call},
          "quantized": quantized,
@@ -4435,6 +5086,13 @@ def main() -> int:
                      "itself)",
          "launches": train_counts["flash_attention_bwd"],
          "max_abs_err": bwd_err, "f64_err": bwd_f64, **t_bwd,
+         "cross_attention": {lbl: {d: r["backward"] for d, r in v.items()}
+                             for lbl, v in cross.items()},
+         "new_archs_launches": {
+             "deepseekv3_0_3b_training":
+                 dsv3["training"]["flash_attention_bwd"],
+             "qwen2_vl_2b_train_step": vl["training"]["flash_attention_bwd"],
+             "whisper_base_training": wh["training"]["flash_attention_bwd"]},
          "hd_256": {"launches": {"gemma2_9b_training":
                                  g2_train["flash_attention_bwd"]},
                     "shapes": {a: {d: r["backward"] for d, r in v.items()}
@@ -4446,12 +5104,21 @@ def main() -> int:
                    "newton_schulz.cu",
          "replaces": "src/repro/kernels/newton_schulz/kernel.py:48",
          "launches": train_counts["ns_fused"], "max_abs_err": ns_err,
+         "new_archs_launches": {
+             "deepseekv3_0_3b": dsv3["training"]["ns_fused"],
+             "qwen2_vl_2b": vl["training"]["ns_fused"],
+             "whisper_base": wh["training"]["ns_fused"]},
          **t_ns},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/newton_schulz/csrc/"
                    "newton_schulz.cu",
          "replaces": "src/repro/kernels/newton_schulz/kernel.py:79",
-         "launches": train_counts["matmul"], "max_abs_err": mm_err, **t_mm},
+         "launches": train_counts["matmul"], "max_abs_err": mm_err,
+         "new_archs_launches": {
+             "deepseekv3_0_3b": dsv3["training"]["matmul"],
+             "qwen2_vl_2b": vl["training"]["matmul"],
+             "whisper_base": wh["training"]["matmul"]},
+         **t_mm},
         {"name": "wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
          "replaces": "src/repro/kernels/rwkv6/kernel.py:71",

@@ -1,28 +1,20 @@
-"""Config registry of the port: the paper's GPT2 family and its RoPE
-testbeds (``llama3-0.3b``, ``qwen3-0.3b``, ``mixtral-0.3b``), ``yi-34b``,
-``starcoder2-3b``, ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``,
-``rwkv6-7b``, ``jamba-v0.1-52b``, ``gemma2-9b`` and ``gemma3-12b``, and the
-reference's per-architecture remat policies (``REMAT_DEFAULTS``).
+"""Config registry of the port: the paper's GPT2 family and its §B
+testbeds (``llama3-0.3b``, ``qwen3-0.3b``, ``mixtral-0.3b``,
+``deepseekv3-0.3b``), ``yi-34b``, ``starcoder2-3b``, ``deepseek-moe-16b``,
+``moonshot-v1-16b-a3b``, ``rwkv6-7b``, ``jamba-v0.1-52b``, ``gemma2-9b``,
+``gemma3-12b``, ``qwen2-vl-2b`` and ``whisper-base`` (every architecture of
+the reference registry), and the reference's per-architecture remat
+policies (``REMAT_DEFAULTS``).
 
 ``get_config(name)`` returns the full-scale config; ``get_smoke_config``
 the reduced same-family config the CPU tests run (the reference's
-``repro.configs`` reduction rules).  The other architectures of the
-reference registry come with their ROADMAP slices and raise until then,
-each naming what it waits for.
+``repro.configs`` reduction rules).
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig
-
-# What each architecture of the reference registry still waits for.
-_WAITS_FOR = {
-    "whisper-base": "the encoder-decoder model and its audio frontend "
-                    "(queue A item 12)",
-    "qwen2-vl-2b": "M-RoPE and frontend embeds (queue A item 12)",
-    "deepseekv3-0.3b": "MLA latent attention (queue A item 12)",
-}
 
 # The registry modules the port carries, by architecture name.
 _MODULES = {
@@ -34,6 +26,8 @@ _MODULES = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "gemma2-9b": "gemma2_9b",
     "gemma3-12b": "gemma3_12b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "whisper-base": "whisper_base",
 }
 
 # Checkpoint policy to use when remat is on (the reference's
@@ -62,11 +56,9 @@ def default_remat(name: str) -> str:
 # Every name ``get_config`` takes besides ``gpt2-*``: the registry
 # architectures above and the paper's testbeds.
 PORTED_ARCHS = tuple(_MODULES) + ("llama3-0.3b", "qwen3-0.3b",
-                                  "mixtral-0.3b")
+                                  "mixtral-0.3b", "deepseekv3-0.3b")
 # The launchers' --arch help.
-ARCH_HELP = ("gpt2-*, " + ", ".join(PORTED_ARCHS) + "; not yet: "
-             + "; ".join(f"{name}, waiting for {what}"
-                         for name, what in _WAITS_FOR.items()))
+ARCH_HELP = "gpt2-*, " + ", ".join(PORTED_ARCHS)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -74,23 +66,21 @@ def get_config(name: str) -> ModelConfig:
         from repro_torch.configs.gpt2 import gpt2
         layers = int(name.split("-")[1][:-1]) if "-" in name else 12
         return gpt2(layers)
-    if name not in _WAITS_FOR:
-        from repro_torch.configs.paper_testbeds import PAPER_TESTBEDS
-        if name in PAPER_TESTBEDS:
-            return PAPER_TESTBEDS[name]
-        if name in _MODULES:
-            import importlib
-            return importlib.import_module(
-                f"repro_torch.configs.{_MODULES[name]}").CONFIG
-    raise NotImplementedError(
-        f"ROADMAP: {name} is not ported yet; it waits for "
-        f"{_WAITS_FOR.get(name, 'its queue A item')}")
+    from repro_torch.configs.paper_testbeds import PAPER_TESTBEDS
+    if name in PAPER_TESTBEDS:
+        return PAPER_TESTBEDS[name]
+    if name in _MODULES:
+        import importlib
+        return importlib.import_module(
+            f"repro_torch.configs.{_MODULES[name]}").CONFIG
+    raise KeyError(f"unknown architecture {name!r} (known: {ARCH_HELP})")
 
 
 def get_smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config: 1-2 pattern periods deep, d_model 64,
-    vocab 256, 8 experts of width 32 (RWKV6 heads of 16) — runs a forward
-    on the CPU in milliseconds."""
+    vocab 256, 8 experts of width 32 (RWKV6 heads of 16), an encoder of 2
+    layers over 16 frames, 8 frontend embeds — runs a forward on the CPU in
+    milliseconds."""
     cfg = get_config(name)
     moe = cfg.moe
     if moe is not None:
@@ -115,5 +105,8 @@ def get_smoke_config(name: str) -> ModelConfig:
         num_layers=2 * period if period <= 4 else period,
         d_model=64, num_heads=heads, num_kv_heads=kv, head_dim=16,
         d_ff=128, vocab_size=256, moe=moe, ssm=ssm, window_pattern=window,
+        num_encoder_layers=2 if cfg.is_encoder_decoder else 0,
+        encoder_seq_len=16 if cfg.is_encoder_decoder else cfg.encoder_seq_len,
+        num_frontend_embeds=8 if cfg.frontend != "none" else 0,
         max_seq_len=128,
     )

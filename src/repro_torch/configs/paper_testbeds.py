@@ -6,10 +6,8 @@ hyperparameters), beyond the assigned-architecture pool:
   mixtral-0.3b   MoE 8e top-2, GQA
   deepseekv3-0.3b MoE + MLA (multi-head latent attention)
 
-The port's own copy of ``repro/configs/paper_testbeds.py``.  The first
-three run the paper's Figure 3 sweep through the same ``--arch`` flags;
-``deepseekv3-0.3b`` is listed but ``get_config`` refuses it until MLA
-latent attention is ported (ROADMAP queue A item 12).
+The port's own copy of ``repro/configs/paper_testbeds.py``: all four run
+the paper's Figure 3 sweep through the same ``--arch`` flags.
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig
 

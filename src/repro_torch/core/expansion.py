@@ -2,7 +2,8 @@
 (``repro/core/expansion.py``).
 
 Every model stacks its layers as super-blocks with a leading ``n_super``
-axis on each leaf of ``params["blocks"]``, so depth expansion is one
+axis on each leaf of ``params["blocks"]`` (and an encoder-decoder its
+encoder layers on ``params["enc_blocks"]``), so depth expansion is one
 operation on that axis.  Initializations (paper §3.1/§3.3/§A.2):
 
   random         new blocks freshly initialized (muP scale)   [feature learning]
@@ -151,24 +152,38 @@ def expand_stack(old_stack, n_tgt: int, method: str,
     return copied
 
 
-def _fresh_blocks(cfg: ModelConfig, target_layers: int, method: str,
-                  generator: Optional[torch.Generator], dtype, device):
-    """The target-depth block stack the reference takes from a fresh
-    model init: random draws for 'random', zeros of that shape for
-    'zero'."""
-    from repro_torch.models import transformer
+def _fresh_stacks(cfg: ModelConfig, target_layers: int, method: str,
+                  generator: Optional[torch.Generator], dtype, device) -> dict:
+    """The target-depth stacks the reference takes from a fresh model
+    init ({"blocks"}, and an encoder-decoder's "enc_blocks" at the
+    encoder depth that decoder depth implies): random draws for 'random',
+    zeros of that shape for 'zero'.  A decoder-only model draws its
+    super-blocks alone."""
+    from repro_torch.models import encdec, transformer
     tcfg = cfg.with_depth(target_layers)
+    if cfg.is_encoder_decoder:
+        if method == "zero":
+            meta = encdec.encdec_init(None, tcfg, dtype, device="meta")
+            fresh = tree_map(lambda x: torch.zeros(x.shape, dtype=x.dtype,
+                                                   device=device), meta)
+        else:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            fresh = encdec.encdec_init(generator, tcfg, dtype, device=device)
+        return {k: fresh[k] for k in ("blocks", "enc_blocks") if k in fresh}
     n_tgt = target_layers // cfg.pattern_period
+    if not n_tgt:
+        return {}
     if method == "zero":
         one = transformer.superblock_init(None, tcfg, dtype, device="meta")
-        return tree_map(lambda x: torch.zeros((n_tgt,) + tuple(x.shape),
-                                              dtype=x.dtype, device=device),
-                        one)
+        return {"blocks": tree_map(
+            lambda x: torch.zeros((n_tgt,) + tuple(x.shape), dtype=x.dtype,
+                                  device=device), one)}
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     blocks = [transformer.superblock_init(generator, tcfg, dtype, device)
               for _ in range(n_tgt)]
-    return tree_map(lambda *xs: torch.stack(xs), *blocks)
+    return {"blocks": tree_map(lambda *xs: torch.stack(xs), *blocks)}
 
 
 def expand_params(params, cfg: ModelConfig, target_layers: int, method: str,
@@ -176,29 +191,38 @@ def expand_params(params, cfg: ModelConfig, target_layers: int, method: str,
                   insert_at: str = "bottom", dtype=torch.float32):
     """Expand a model's depth.  Non-block params (embed, head, norms) are
     inherited unchanged (the same tensors): the paper keeps them across
-    expansion."""
+    expansion.  An encoder-decoder's ``enc_blocks`` grow with it: to the
+    fresh init's encoder depth under 'random'/'zero' (proportional to the
+    decoder's), to the decoder's target depth under the copying methods,
+    as the reference grows them."""
     period = cfg.pattern_period
     if target_layers % period:
         raise ValueError((target_layers, period))
     n_tgt = target_layers // period
     device = params["embed"].device
-    fresh = None
+    fresh = {}
     if method in ("random", "zero"):
-        fresh = _fresh_blocks(cfg, target_layers, method, generator, dtype,
+        fresh = _fresh_stacks(cfg, target_layers, method, generator, dtype,
                               device)
     new_params = dict(params)
-    if "blocks" in params or fresh is not None:
-        new_params["blocks"] = expand_stack(
-            params.get("blocks"), n_tgt, method, fresh_stack=fresh,
-            insert_at=insert_at)
+    for key in ("blocks", "enc_blocks"):
+        fresh_stack = fresh.get(key)
+        if key not in params and fresh_stack is None:
+            continue
+        nt = (_n_stack(fresh_stack) if key == "enc_blocks"
+              and fresh_stack is not None else n_tgt)
+        new_params[key] = expand_stack(params.get(key), nt, method,
+                                       fresh_stack=fresh_stack,
+                                       insert_at=insert_at)
     return new_params
 
 
 def truncate_params(params, cfg: ModelConfig, num_layers: int):
     """Depth-truncated model: the first ``num_layers`` layers plus the
     shared embedding / final norm / (tied) head, the expansion's inverse.
-    Non-block leaves are the same tensors; block leaves are ``x[:n_keep]``
-    views of the stacked axis."""
+    Non-block leaves are the same tensors (an encoder-decoder's whole
+    encoder among them); block leaves are ``x[:n_keep]`` views of the
+    stacked axis."""
     period = cfg.pattern_period
     if num_layers % period:
         raise ValueError(f"draft depth {num_layers} not a multiple of the "
@@ -234,18 +258,19 @@ def expand_opt_state(opt_state: dict, params_new, policy: str, method: str,
         if policy == "reset":
             return tree_map(torch.zeros_like, params_new)
         out = dict(tree)
-        if "blocks" in params_new:
-            n_tgt = _n_stack(params_new["blocks"])
-            old = tree.get("blocks")
+        for key in ("blocks", "enc_blocks"):
+            if key not in params_new:
+                continue
+            n_tgt = _n_stack(params_new[key])
+            old = tree.get(key)
             if old is None:      # zero-layer source: no prior block OS
-                out["blocks"] = tree_map(torch.zeros_like,
-                                         params_new["blocks"])
+                out[key] = tree_map(torch.zeros_like, params_new[key])
             elif policy == "copy" and method in COPY_METHODS:
-                out["blocks"] = expand_stack(old, n_tgt, method,
-                                             insert_at=insert_at)
+                out[key] = expand_stack(old, n_tgt, method,
+                                        insert_at=insert_at)
             else:                # inherit: old OS kept, new blocks zero
-                out["blocks"] = expand_stack(old, n_tgt, "zero",
-                                             insert_at=insert_at)
+                out[key] = expand_stack(old, n_tgt, "zero",
+                                        insert_at=insert_at)
         return out
 
     new_state = {}

@@ -3,14 +3,19 @@
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py:flash_attention_tpu
 // (the Pallas body `_body`, pallas_call at :98).  Same function: q
-// (B,S,H,hd), k/v (B,S,KV,hd) -> o (B,S,H,hd); scores q·k/sqrt(hd),
+// (B,Sq,H,hd), k/v (B,Sk,KV,hd) -> o (B,Sq,H,hd); scores q·k/sqrt(hd),
 // optional softcap·tanh(s/softcap), causal (qi >= ki) and window
 // (qi - ki < window) masks with NEG_INF = -1e30, online softmax with the
 // running max m, sum l and accumulator in f32, l clamped to 1e-30 at the
 // end.  GQA: q head h reads kv head h / (H/KV); K/V are never repeated.
+// Sk may differ from Sq for non-causal attention (the encoder-decoder's
+// cross-attention: decoder queries over every encoder frame); the key
+// loop then runs to Sk, its last tile ragged.  The Pallas kernel takes its
+// key blocks from q's length and attends over the first Sq keys only; the
+// reference's CPU paths, which this follows, attend over all Sk.
 // Key tiles that the masks cover entirely are never visited.  Training
 // passes an lse pointer and gets each row's logsumexp m + log(l) as
-// (B, H, S) f32, which the backward (flash_attention_bwd.cu) recomputes
+// (B, H, Sq) f32, which the backward (flash_attention_bwd.cu) recomputes
 // the probabilities from; the serving paths pass null and run the same
 // arithmetic, so both write the same output bits.
 //
@@ -107,8 +112,8 @@ template <int HD, typename T>
 __global__ void __launch_bounds__(128 * fwd_wgs<HD>(), HD == 64 ? 2 : 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int KV, int causal,
-                 int window, float softcap, float scale) {
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                 int causal, int window, float softcap, float scale) {
   constexpr bool EXACT = kExact<T>;
   constexpr int NC = HD / 64;            // 64-column blocks of O
   constexpr int BK = fwd_bk<HD, T>();
@@ -133,21 +138,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const int q0 = qb * BQ;
   const int q_stride = H * HD, kv_stride = KV * HD;
-  const T* qbase = q + (size_t)b * S * q_stride + (size_t)h * HD;
-  const T* kbase = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
-  const T* vbase = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
-  T* obase = o + (size_t)b * S * q_stride + (size_t)h * HD;
+  const T* qbase = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const T* kbase = k + (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
+  const T* vbase = v + (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
+  T* obase = o + (size_t)b * Sq * q_stride + (size_t)h * HD;
 
-  int k_hi = S - 1;
+  int k_hi = Sk - 1;
   if (causal) k_hi = min(k_hi, q0 + BQ - 1);
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int kt_begin = k_lo / BK, kt_end = k_hi / BK;
 
-  load_raw<T, HD, BK, NT>(raw_k, kbase, kt_begin * BK, S, kv_stride);
-  load_raw<T, HD, BK, NT>(raw_v, vbase, kt_begin * BK, S, kv_stride);
+  load_raw<T, HD, BK, NT>(raw_k, kbase, kt_begin * BK, Sk, kv_stride);
+  load_raw<T, HD, BK, NT>(raw_v, vbase, kt_begin * BK, Sk, kv_stride);
   cp_async_commit();
   const int qw = q0 + 64 * wg;           // this warpgroup's first row
-  fill_slots<T, HD>(slots, qbase, qw, S, q_stride);
+  fill_slots<T, HD>(slots, qbase, qw, Sq, q_stride);
 
   // This thread's rows: 16w + g and + 8 of its warpgroup's.
   const int qi0 = qw + 16 * w + g, qi1 = qi0 + 8;
@@ -167,8 +172,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     fence_to_tensor_cores();
     __syncthreads();                   // the raw tile is free
     if (kt < kt_end) {
-      load_raw<T, HD, BK, NT>(raw_k, kbase, k0 + BK, S, kv_stride);
-      load_raw<T, HD, BK, NT>(raw_v, vbase, k0 + BK, S, kv_stride);
+      load_raw<T, HD, BK, NT>(raw_k, kbase, k0 + BK, Sk, kv_stride);
+      load_raw<T, HD, BK, NT>(raw_v, vbase, k0 + BK, Sk, kv_stride);
       cp_async_commit();
     }
 
@@ -192,7 +197,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float x = s[i] * scale;
       if (softcap > 0.f) x = softcap * tanhf(x / softcap);
       x *= LOG2E;
-      bool ok = ki < S;
+      bool ok = ki < Sk;
       if (causal) ok = ok && qi >= ki;
       if (window > 0) ok = ok && qi - ki < window;
       x = ok ? x : NEG_INF;
@@ -243,7 +248,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = r ? qi1 : qi0;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     T* orow = obase + (size_t)qi * q_stride;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -252,14 +257,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         store2(orow + 64 * c + 8 * j + 2 * t, acc[c][4 * j + 2 * r] * inv[r],
                acc[c][4 * j + 2 * r + 1] * inv[r]);
     if (lse != nullptr && t == 0)
-      lse[((size_t)b * H + h) * S + qi] = m[r] * LN2 + logf(fmaxf(l[r], 1e-30f));
+      lse[((size_t)b * H + h) * Sq + qi] = m[r] * LN2 + logf(fmaxf(l[r], 1e-30f));
   }
 }
 
 template <int HD, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int S, int H, int KV, int causal,
-                   int window, float softcap, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Sk, int H, int KV,
+                   int causal, int window, float softcap,
+                   cudaStream_t stream) {
   constexpr int smem = fwd_smem_bytes<HD, T>();
   constexpr int BQ = 64 * fwd_wgs<HD>();
   // Above 48 KB a kernel must opt in to dynamic shared memory; the largest
@@ -275,39 +281,42 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     cudaGetLastError();
     return err;
   }
-  dim3 grid((S + BQ - 1) / BQ, H, B);
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const float scale = 1.0f / sqrtf((float)HD);
   flash_fwd_kernel<HD, T><<<grid, 128 * fwd_wgs<HD>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KV, causal,
-      window, softcap, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KV,
+      causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  lse (B, H, S) f32 receives each row's
-// logsumexp of its (scaled, softcapped, masked) scores for the backward, or
-// is null (the serving paths).  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  q and o are (B, Sq, H, hd), k and v
+// (B, Sk, KV, hd); causal attention needs Sk == Sq.  lse (B, H, Sq) f32
+// receives each row's logsumexp of its (scaled, softcapped, masked) scores
+// for the backward, or is null (the serving paths).  Returns a cudaError_t
+// (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, float* lse, int B, int S, int H,
-                                   int KV, int hd, int dtype, int causal,
-                                   int window, float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
-      H > 65535)
+                                   void* o, float* lse, int B, int Sq, int Sk,
+                                   int H, int KV, int hd, int dtype,
+                                   int causal, int window, float softcap,
+                                   void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
+      B > 65535 || H > 65535 || (causal && Sk != Sq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64 && dtype == 0)
-    return (int)launch<64, float>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
+    return (int)launch<64, float>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, softcap, st);
   if (hd == 64 && dtype == 1)
-    return (int)launch<64, __nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
+    return (int)launch<64, __nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, softcap, st);
   if (hd == 128 && dtype == 0)
-    return (int)launch<128, float>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
+    return (int)launch<128, float>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, softcap, st);
   if (hd == 128 && dtype == 1)
-    return (int)launch<128, __nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
+    return (int)launch<128, __nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, softcap, st);
   if (hd == 256 && dtype == 0)
-    return (int)launch<256, float>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
+    return (int)launch<256, float>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, softcap, st);
   if (hd == 256 && dtype == 1)
-    return (int)launch<256, __nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, causal, window, softcap, st);
+    return (int)launch<256, __nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

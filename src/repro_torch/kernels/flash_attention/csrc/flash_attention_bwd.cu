@@ -7,17 +7,17 @@
 // flash_attention.cu, which ports
 // src/repro/kernels/flash_attention/kernel.py:flash_attention_tpu.
 //
-// Function: given q (B,S,H,hd), k/v (B,S,KV,hd), the forward's output o and
-// per-row logsumexp lse (B,H,S) f32, and the upstream gradient dO, return
-// dq, dk, dv.  With s = (q·k)/sqrt(hd), x = softcap·tanh(s/softcap) (or s),
+// Function: given q (B,Sq,H,hd), k/v (B,Sk,KV,hd), the forward's output o
+// and per-row logsumexp lse (B,H,Sq) f32, and the upstream gradient dO,
+// return dq (B,Sq,H,hd), dk and dv (B,Sk,KV,hd).  With s = (q·k)/sqrt(hd), x = softcap·tanh(s/softcap) (or s),
 // masked entries at NEG_INF:
 //   P  = exp(x - lse)                      (recomputed, never stored)
 //   D  = rowsum(dO ∘ o)
 //   dV = Pᵀ dO,   dP = dO Vᵀ,   dX = P ∘ (dP - D)
 //   dS = dX ∘ (1 - (x/softcap)²)           (the softcap's derivative)
 //   dQ = dS K / sqrt(hd),   dK = dSᵀ q / sqrt(hd)
-// Causal, window, softcap, MHA/GQA, hd 64/128/256, f32/bf16 and ragged S as the
-// forward takes them.
+// Causal, window, softcap, MHA/GQA, hd 64/128/256, f32/bf16, ragged lengths
+// and Sk != Sq (non-causal) as the forward takes them.
 //
 // Precision as in the forward: every product on the tensor cores (wgmma,
 // TF32 in, f32 accumulator), three TF32 passes for f32 operands (x = big +
@@ -28,7 +28,7 @@
 //
 // Design: two launches, deterministic (no atomics; the same inputs give the
 // same bits on every run).
-//   1. dq: grid (ceil(S/64), H, B), late causal tiles first; one warpgroup
+//   1. dq: grid (ceil(Sq/64), H, B), late causal tiles first; one warpgroup
 //      owns 64 query rows of one head.  It first computes D for its rows
 //      (each thread sums its quarter of the two rows whose dO it loads
 //      into its slots, then two shuffles, in a fixed order) and writes it
@@ -37,7 +37,7 @@
 //      dO as A from slots, K and V as K-major B), P and dS in registers,
 //      dQ += dS K (dS as A straight from the score accumulator, K
 //      transposed as B).
-//   2. dkdv: grid (ceil(S/64), KV, B).  A CTA owns 64 keys of one kv head
+//   2. dkdv: grid (ceil(Sk/64), KV, B).  A CTA owns 64 keys of one kv head
 //      and loops over the G = H/KV query heads of its group and the query
 //      steps of 32 that can see its keys, so GQA sums inside the CTA.  It
 //      computes the transposed scores Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (K and V
@@ -144,9 +144,9 @@ __global__ void __launch_bounds__(128, HD == 64 ? 2 : 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ dsum, T* __restrict__ dq, int S,
-                    int H, int KV, int causal, int window, float softcap,
-                    float scale) {
+                    float* __restrict__ dsum, T* __restrict__ dq, int Sq,
+                    int Sk, int H, int KV, int causal, int window,
+                    float softcap, float scale) {
   constexpr bool EXACT = kExact<T>;
   constexpr int NC = HD / 64;
   constexpr int BKQ = bwd_step<HD, T>();
@@ -172,34 +172,34 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const int q0 = qb * BQ;
   const int q_stride = H * HD, kv_stride = KV * HD;
-  const size_t q_off = (size_t)b * S * q_stride + (size_t)h * HD;
-  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const size_t q_off = (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const size_t kv_off = (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
 
-  int k_hi = S - 1;
+  int k_hi = Sk - 1;
   if (causal) k_hi = min(k_hi, q0 + BQ - 1);
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int kt_begin = k_lo / BKQ, kt_end = k_hi / BKQ;
 
-  load_raw<T, HD, BKQ, NT>(raw_k, k + kv_off, kt_begin * BKQ, S, kv_stride);
-  load_raw<T, HD, BKQ, NT>(raw_v, v + kv_off, kt_begin * BKQ, S, kv_stride);
+  load_raw<T, HD, BKQ, NT>(raw_k, k + kv_off, kt_begin * BKQ, Sk, kv_stride);
+  load_raw<T, HD, BKQ, NT>(raw_v, v + kv_off, kt_begin * BKQ, Sk, kv_stride);
   cp_async_commit();
   // D of this thread's rows qi0 = q0 + 16w + g and qi1 = qi0 + 8 from the
   // dO values its slots take and O at the same places: each thread of the
   // quad sums its quarter in k order, then two shuffles.
   const int qi0 = q0 + 16 * w + g, qi1 = qi0 + 8;
-  const float* lse_row = lse + ((size_t)b * H + h) * S;
-  float* d_row = dsum + ((size_t)b * H + h) * S;
+  const float* lse_row = lse + ((size_t)b * H + h) * Sq;
+  float* d_row = dsum + ((size_t)b * H + h) * Sq;
   float d_i[2], lse_i[2];
-  lse_i[0] = qi0 < S ? lse_row[qi0] * LOG2E : 0.f;
-  lse_i[1] = qi1 < S ? lse_row[qi1] * LOG2E : 0.f;
-  fill_slots<T, HD>(do_slots, dout + q_off, q0, S, q_stride, o + q_off, d_i);
-  fill_slots<T, HD>(q_slots, q + q_off, q0, S, q_stride);
+  lse_i[0] = qi0 < Sq ? lse_row[qi0] * LOG2E : 0.f;
+  lse_i[1] = qi1 < Sq ? lse_row[qi1] * LOG2E : 0.f;
+  fill_slots<T, HD>(do_slots, dout + q_off, q0, Sq, q_stride, o + q_off, d_i);
+  fill_slots<T, HD>(q_slots, q + q_off, q0, Sq, q_stride);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     d_i[r] += __shfl_xor_sync(0xffffffffu, d_i[r], 1);
     d_i[r] += __shfl_xor_sync(0xffffffffu, d_i[r], 2);
     const int qi = r ? qi1 : qi0;
-    if (qi < S && t == 0) d_row[qi] = d_i[r];
+    if (qi < Sq && t == 0) d_row[qi] = d_i[r];
   }
 
   float dq_acc[NC][32];
@@ -218,8 +218,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     fence_to_tensor_cores();
     __syncthreads();                   // the raw tile is free
     if (kt < kt_end) {
-      load_raw<T, HD, BKQ, NT>(raw_k, k + kv_off, k0 + BKQ, S, kv_stride);
-      load_raw<T, HD, BKQ, NT>(raw_v, v + kv_off, k0 + BKQ, S, kv_stride);
+      load_raw<T, HD, BKQ, NT>(raw_k, k + kv_off, k0 + BKQ, Sk, kv_stride);
+      load_raw<T, HD, BKQ, NT>(raw_v, v + kv_off, k0 + BKQ, Sk, kv_stride);
       cp_async_commit();
     }
 
@@ -234,7 +234,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = (i >> 1) & 1;
       const int qi = r ? qi1 : qi0;
       const int ki = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-      bool ok = qi < S && ki < S;
+      bool ok = qi < Sq && ki < Sk;
       if (causal) ok = ok && qi >= ki;
       if (window > 0) ok = ok && qi - ki < window;
       float p;
@@ -261,7 +261,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = r ? qi1 : qi0;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     T* row = dq + q_off + (size_t)qi * q_stride;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -278,8 +278,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ dsum, T* __restrict__ dk,
-                      T* __restrict__ dv, int S, int H, int KV, int causal,
-                      int window, float softcap, float scale) {
+                      T* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                      int causal, int window, float softcap, float scale) {
   constexpr bool EXACT = kExact<T>;
   constexpr int NT = dkdv_threads<HD>();
   constexpr int NCW = HD / 64 / (NT / 128);   // 64-column blocks a warpgroup
@@ -309,45 +309,47 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
   const int q_stride = H * HD, kv_stride = KV * HD;
-  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const size_t kv_off = (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
 
-  // Query steps that can see keys k0 .. min(k0 + 63, S - 1).
-  const int nsteps_all = (S + BQS - 1) / BQS;
+  // Query steps that can see keys k0 .. min(k0 + 63, Sk - 1).
+  const int nsteps_all = (Sq + BQS - 1) / BQS;
   const int qs_begin = causal ? k0 / BQS : 0;
   int qs_end = nsteps_all - 1;
   if (window > 0)
-    qs_end = min(qs_end, (min(k0 + BK - 1, S - 1) + window - 1) / BQS);
+    qs_end = min(qs_end, (min(k0 + BK - 1, Sk - 1) + window - 1) / BQS);
   const int nsteps = qs_end - qs_begin + 1;
   const int total = G * nsteps;
 
   auto q_offset = [&](int it) {
-    return (size_t)b * S * q_stride + (size_t)(kvh * G + it / nsteps) * HD;
+    return (size_t)b * Sq * q_stride + (size_t)(kvh * G + it / nsteps) * HD;
   };
   auto q_start = [&](int it) { return (qs_begin + it % nsteps) * BQS; };
   // Step it's Q and dO rows, and its lse and D into buffer it % 2.
   auto load_step = [&](int it) {
-    load_raw<T, HD, BQS, NT>(raw_q, q + q_offset(it), q_start(it), S,
+    load_raw<T, HD, BQS, NT>(raw_q, q + q_offset(it), q_start(it), Sq,
                              q_stride);
-    load_raw<T, HD, BQS, NT>(raw_do, dout + q_offset(it), q_start(it), S,
+    load_raw<T, HD, BQS, NT>(raw_do, dout + q_offset(it), q_start(it), Sq,
                              q_stride);
     if (threadIdx.x < 2 * BQS) {
       const int i = threadIdx.x % BQS, qi = q_start(it) + i;
       const float* src = (threadIdx.x < BQS ? lse : dsum) +
-                         ((size_t)b * H + kvh * G + it / nsteps) * S;
+                         ((size_t)b * H + kvh * G + it / nsteps) * Sq;
       float* dst = (threadIdx.x < BQS ? lse_s : d_s) + (it & 1) * BQS + i;
-      cp_async4(dst, qi < S ? src + qi : src, qi < S ? 4 : 0);
+      cp_async4(dst, qi < Sq ? src + qi : src, qi < Sq ? 4 : 0);
     }
     cp_async_commit();
   };
 
   load_step(0);
   if (wg == 0) {
-    fill_slots<T, HD>(k_slots, k + kv_off, k0, S, kv_stride);
-    fill_slots<T, HD>(v_slots, v + kv_off, k0, S, kv_stride);
+    fill_slots<T, HD>(k_slots, k + kv_off, k0, Sk, kv_stride);
+    fill_slots<T, HD>(v_slots, v + kv_off, k0, Sk, kv_stride);
   }
 
-  // This thread's keys: k0 + 16w + g and + 8.
+  // This thread's keys: k0 + 16w + g and + 8, and whether each lies
+  // below Sk (taken once: Sk is not needed past this point).
   const int ki0 = k0 + 16 * w + g, ki1 = ki0 + 8;
+  const bool k_in[2] = {ki0 < Sk, ki1 < Sk};
   float dk_acc[NCW][32], dv_acc[NCW][32];
 #pragma unroll
   for (int c = 0; c < NCW; ++c)
@@ -380,7 +382,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int ki = (i & 2) ? ki1 : ki0;
       const int c = 8 * (i >> 2) + 2 * t + (i & 1);
       const int qi = q0 + c;
-      bool ok = qi < S && ki < S;
+      bool ok = qi < Sq && k_in[(i >> 1) & 1];
       if (causal) ok = ok && qi >= ki;
       if (window > 0) ok = ok && qi - ki < window;
       probs_and_grad(st[i] * scale, dpt[i], lse_b[c] * LOG2E, d_b[c], ok,
@@ -430,7 +432,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int ki = r ? ki1 : ki0;
-    if (ki >= S) continue;
+    if (!k_in[r]) continue;
 #pragma unroll
     for (int c = 0; c < NCW; ++c) {
       const int col = 64 * (wg * NCW + c);
@@ -461,30 +463,30 @@ cudaError_t prepare(K kernel, int smem) {
 template <int HD, typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
-                       float* dsum, void* dq, void* dk, void* dv, int B, int S,
-                       int H, int KV, int causal, int window, float softcap,
-                       cudaStream_t stream) {
+                       float* dsum, void* dq, void* dk, void* dv, int B,
+                       int Sq, int Sk, int H, int KV, int causal, int window,
+                       float softcap, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)HD);
   constexpr int dq_smem = dq_smem_bytes<HD, T>();
   cudaError_t err = prepare(flash_bwd_dq_kernel<HD, T>, dq_smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<HD, T><<<dim3((S + BQ - 1) / BQ, H, B), 128, dq_smem,
+  flash_bwd_dq_kernel<HD, T><<<dim3((Sq + BQ - 1) / BQ, H, B), 128, dq_smem,
                                stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), S, H, KV,
-      causal, window, softcap, scale);
+      static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), Sq, Sk, H,
+      KV, causal, window, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr int kv_smem = dkdv_smem_bytes<HD, T>();
   err = prepare(flash_bwd_dkdv_kernel<HD, T>, kv_smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<HD, T><<<dim3((S + BK - 1) / BK, KV, B),
+  flash_bwd_dkdv_kernel<HD, T><<<dim3((Sk + BK - 1) / BK, KV, B),
                                  dkdv_threads<HD>(), kv_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, causal, window,
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KV, causal, window,
       softcap, scale);
   return cudaGetLastError();
 }
@@ -492,23 +494,25 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv share it).
-// lse (B, H, S) f32 from the forward; dsum (B, H, S) f32 is scratch, D as
-// the dq launch writes it for the dkdv launch.  Returns the first
-// cudaError_t (0 = both launched).
+// q, o, dout and dq are (B, Sq, H, hd), k, v, dk and dv (B, Sk, KV, hd);
+// causal attention needs Sk == Sq.  lse (B, H, Sq) f32 from the forward;
+// dsum (B, H, Sq) f32 is scratch, D as the dq launch writes it for the dkdv
+// launch.  Returns the first cudaError_t (0 = both launched).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
                                    float* dsum, void* dq, void* dk, void* dv,
-                                   int B, int S, int H, int KV, int hd,
-                                   int dtype, int causal, int window,
+                                   int B, int Sq, int Sk, int H, int KV,
+                                   int hd, int dtype, int causal, int window,
                                    float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
-      H > 65535)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
+      B > 65535 || H > 65535 || (causal && Sk != Sq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_BWD(HD_, T_)                                                      \
   return (int)launch_bwd<HD_, T_>(q, k, v, o, dout, lse, dsum, dq, dk, dv,   \
-                                  B, S, H, KV, causal, window, softcap, st)
+                                  B, Sq, Sk, H, KV, causal, window, softcap, \
+                                  st)
   if (hd == 64 && dtype == 0) FA_BWD(64, float);
   if (hd == 64 && dtype == 1) FA_BWD(64, __nv_bfloat16);
   if (hd == 128 && dtype == 0) FA_BWD(128, float);

@@ -15,6 +15,10 @@ backward launches the hand-written backward (``csrc/flash_attention_bwd.cu``;
 the reference has no TPU counterpart, JAX differentiates its attention
 itself).  Every other call (the serving paths) runs the forward alone, with
 no logsumexp.
+
+Keys may outnumber queries (S_k != S_q) in non-causal attention: the
+encoder-decoder's cross-attention, decoder queries over every encoder
+frame.  Causal attention at S_k != S_q has no caller and raises.
 """
 from __future__ import annotations
 
@@ -43,23 +47,26 @@ def _library() -> ctypes.CDLL:
         # Pointers and the stream as c_void_p: ctypes would cut a bare int
         # to 32 bits.
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         bwd = lib.flash_attention_bwd
         bwd.restype = ctypes.c_int
-        bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                         + [ctypes.c_float, ctypes.c_void_p])
     return lib
 
 
-def _check(q, k, v):
+def _check(q, k, v, causal):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: q, k, v must be (B, S, heads, hd)")
     B, S, H, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S \
-            or k.shape[3] != hd:
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not match "
                          f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if causal and k.shape[1] != S:
+        raise ValueError(f"flash_attention: causal attention over "
+                         f"{k.shape[1]} keys for {S} queries (non-causal "
+                         "only at S_k != S_q)")
     if H % k.shape[2]:
         raise ValueError(f"flash_attention: {H} query heads not a multiple "
                          f"of {k.shape[2]} kv heads")
@@ -91,14 +98,14 @@ def _check_cuda(q, named):
 def flash_attention_cuda(q, k, v, *, causal=True, window=0,
                          logit_softcap=0.0, with_lse=False):
     """Launch the forward kernel on the current stream; returns the output,
-    or ``(out, lse)`` with ``with_lse`` (lse (B, H, S) float32, each row's
-    logsumexp, for the backward).  Raises on what the kernel does not take
-    (see ``_check_cuda``) or on a refused launch."""
+    or ``(out, lse)`` with ``with_lse`` (lse (B, H, S_q) float32, each
+    row's logsumexp, for the backward).  Raises on what the kernel does not
+    take (see ``_check_cuda``) or on a refused launch."""
     global KERNEL_LAUNCHES
-    _check(q, k, v)
+    _check(q, k, v, causal)
     _check_cuda(q, (("q", q), ("k", k), ("v", v)))
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
     lib = _library()
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -108,12 +115,12 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0,
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            B, S, H, KV, hd, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            B, S, Sk, H, KV, hd, _DTYPE_CODES[q.dtype], int(bool(causal)),
             int(window), float(logit_softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{err} (B={B} S={S} H={H} KV={KV} hd={hd} "
-                           f"{q.dtype})")
+                           f"{err} (B={B} S={S} Sk={Sk} H={H} KV={KV} "
+                           f"hd={hd} {q.dtype})")
     KERNEL_LAUNCHES += 1
     return (out, lse) if with_lse else out
 
@@ -124,7 +131,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
     the attention whose forward gave ``out`` and ``lse``, for the upstream
     gradient ``dout``.  Raises as ``flash_attention_cuda`` does."""
     global BWD_LAUNCHES
-    _check(q, k, v)
+    _check(q, k, v, causal)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention backward: out {tuple(out.shape)} "
                          f"/ dout {tuple(dout.shape)} differ from q "
@@ -132,7 +139,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout)))
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"flash_attention backward: lse must be float32 "
@@ -146,13 +153,13 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, S, H, KV, hd,
+            dk.data_ptr(), dv.data_ptr(), B, S, Sk, H, KV, hd,
             _DTYPE_CODES[q.dtype], int(bool(causal)), int(window),
             float(logit_softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
-                           f"error {err} (B={B} S={S} H={H} KV={KV} hd={hd} "
-                           f"{q.dtype})")
+                           f"error {err} (B={B} S={S} Sk={Sk} H={H} KV={KV} "
+                           f"hd={hd} {q.dtype})")
     BWD_LAUNCHES += 1
     return dq, dk, dv
 
@@ -181,8 +188,9 @@ class FlashAttentionFn(torch.autograd.Function):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, logit_softcap=0.0):
-    """The plain PyTorch version, on any device."""
-    _check(q, k, v)
+    """The plain PyTorch version, on any device: the naive one up to 256
+    queries, else the blocked one, as the reference picks by q's length."""
+    _check(q, k, v, causal)
     fn = ref.naive_attention if q.shape[1] <= 256 else ref.blocked_attention
     return fn(q, k, v, causal=causal, window=window,
               logit_softcap=logit_softcap)
@@ -190,9 +198,10 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, logit_softcap=0.0):
 
 def flash_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
                     force: str = "auto"):
-    """q: (B,S,H,hd); k,v: (B,S,KV,hd) -> (B,S,H,hd).  Differentiable on
-    every path: on the card through ``FlashAttentionFn``, on the CPU through
-    autograd of the plain version."""
+    """q: (B,S_q,H,hd); k,v: (B,S_k,KV,hd) -> (B,S_q,H,hd), S_k == S_q
+    unless non-causal.  Differentiable on every path: on the card through
+    ``FlashAttentionFn``, on the CPU through autograd of the plain
+    version."""
     if force not in ("auto", "kernel", "ref"):
         raise ValueError(f"force={force!r} (auto|kernel|ref)")
     kw = dict(causal=causal, window=window, logit_softcap=logit_softcap)

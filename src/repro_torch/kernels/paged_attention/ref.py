@@ -13,7 +13,9 @@ the two layouts differ only in where the keys come from.
 contiguous layout and runs that math; it is the plain version the CUDA
 decode kernel (``ops.paged_attention``) is held against.
 ``paged_prefill_attention_ref`` is the chunked prefill's attention, plain on
-every device as in the reference.
+every device as in the reference, and ``paged_mla_attention_ref`` the
+read of an MLA layer's latent pool (up-projected in the gather), plain on
+every device too: the reference wrote no kernel for it.
 
 Quantized pool storage (``kv_dtype`` int8/fp8): pages hold quantized values
 plus per-slot-per-head float32 scale pages (``repro_torch.core.quant``,
@@ -146,3 +148,41 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_table, ctx_len, *,
     valid = (torch.arange(S, device=q.device)[None, None, :]
              <= qpos[:, :, None])                                    # (B,C,S)
     return masked_gqa_attention(q, k, v, valid, logit_softcap)
+
+
+def paged_mla_attention_ref(q, latent_pages, block_table, valid, wkv_b,
+                            num_kv_heads: int, *, rotate_fn=None,
+                            latent_new=None, index=None, latent_scales=None,
+                            logit_softcap: float = 0.0):
+    """MLA attention through the block table: the pages hold compressed
+    pre-RoPE latent rows (NP, bs, r), up-projected to K/V in the gather.
+
+    q: (B, C, H, hd); valid: (B, C, S) with S = NB * bs; wkv_b:
+    (r, 2 KV hd).  The gathered latents are dequantized with
+    ``latent_scales`` (int8/fp8 pages); ``latent_new`` (B, r) with
+    ``index`` (B,) selects a new token's latent into slot ``index[b]``
+    before the up-projection (the reference's deferred pool write; pass the
+    quantize-dequantize round trip for quantized pages).  ``rotate_fn``
+    rotates the re-derived keys (B, S, KV, hd) at their absolute slot
+    positions 0..S-1: the pages hold pre-RoPE latents.  Returns
+    (B, C, H, hd)."""
+    lat = gather_dequant(latent_pages, latent_scales, block_table, q.dtype)
+    B, S = lat.shape[0], lat.shape[1]
+    if latent_new is not None:
+        at_new = (torch.arange(S, device=q.device)[None, :]
+                  == _cursor(index, B, q.device)[:, None])[..., None]
+        lat = torch.where(at_new, latent_new.to(q.dtype)[:, None], lat)
+    k, v = mla_kv(lat, wkv_b, num_kv_heads, rotate_fn)
+    return masked_gqa_attention(q, k, v, valid, logit_softcap)
+
+
+def mla_kv(lat, wkv_b, num_kv_heads: int, rotate_fn=None):
+    """K and V (B, S, KV, hd) of an MLA layer, up-projected from latents
+    (B, S, r) through ``wkv_b`` (r, 2 KV hd); ``rotate_fn``, when given,
+    rotates the keys."""
+    B, S = lat.shape[0], lat.shape[1]
+    k, v = (lat @ wkv_b).chunk(2, dim=-1)                 # (B, S, KV hd)
+    hd = k.shape[-1] // num_kv_heads
+    k = k.reshape(B, S, num_kv_heads, hd)
+    v = v.reshape(B, S, num_kv_heads, hd)
+    return (k if rotate_fn is None else rotate_fn(k)), v

@@ -14,12 +14,14 @@ per-token decode, or continuous batching over a paged KV pool.
         --continuous --paged --max-batch 8 --requests 32 --prompt-len 512 \
         --gen 64 --rate 1000                           # paged, on the card
 
-``--arch`` takes ``gpt2-*``, the paper's RoPE testbeds ``llama3-0.3b``,
-``qwen3-0.3b`` and ``mixtral-0.3b``, ``yi-34b``, ``starcoder2-3b``,
+``--arch`` takes ``gpt2-*``, the paper's testbeds ``llama3-0.3b``,
+``qwen3-0.3b``, ``mixtral-0.3b`` and ``deepseekv3-0.3b`` (MLA: its pool
+pages hold latent rows), ``yi-34b``, ``starcoder2-3b``,
 ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``, ``rwkv6-7b``,
-``jamba-v0.1-52b``, ``gemma2-9b`` and ``gemma3-12b`` (``--smoke`` for the
-reduced config); the rest of the reference registry exits naming its
-ROADMAP item (MLA, the encoder-decoder, M-RoPE: item 12).  The gemmas'
+``jamba-v0.1-52b``, ``gemma2-9b``, ``gemma3-12b`` and ``qwen2-vl-2b``
+(M-RoPE, served text-only as the reference serves it; ``--smoke`` for the
+reduced config).  ``whisper-base`` exits before any weight is drawn, with
+the reference's message: the engine serves decoder-only models.  The gemmas'
 sliding-window layers keep a ring per row beside the pool in every mode
 (hd 256 in the flash and paged kernels on the card), and
 ``--spec-depth``'s ``--gamma`` + 1 may not exceed their window.  RWKV6 and
@@ -107,7 +109,7 @@ from repro_torch import configs as cfglib
 from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.models import registry
 from repro_torch.train import faults as faults_lib
-from repro_torch.train.serve_engine import ServeEngine
+from repro_torch.train.serve_engine import ServeEngine, refuse_unservable
 from repro_torch.train.serve_scheduler import (ContinuousScheduler, Request,
                                                summarize)
 from repro_torch.tree import tree_leaves
@@ -247,6 +249,7 @@ def main(argv=None):
 
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
+    refuse_unservable(cfg)
     if args.checkpoint:
         params, cfg = load_params(args.checkpoint, cfg, step=args.step)
     else:

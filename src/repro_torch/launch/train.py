@@ -19,6 +19,10 @@ architecture's policy from ``configs.REMAT_DEFAULTS``).  The fault-tolerance fla
 ``--nan-policy``, ``--nan-inject``, ``--expansion-guard``,
 ``--hang-deadline-s``) are the reference's and print its ``faults:``
 line; ``--mesh`` exits, naming the ROADMAP item that brings it.
+``whisper-base`` exits too: the trainer's synthetic batches carry no
+encoder ``frames`` (the reference's trainer fails on them with a
+``KeyError``); ``train.steps.make_train_step`` trains it on batches that
+carry them.
 """
 from __future__ import annotations
 
@@ -139,6 +143,12 @@ def main(argv=None):
 
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
+    if cfg.is_encoder_decoder:
+        raise SystemExit(
+            f"{cfg.name}: the trainer's synthetic batches carry no encoder "
+            "'frames' (the reference's trainer fails on them with a "
+            "KeyError); train an encoder-decoder with "
+            "train.steps.make_train_step on batches that carry them")
     period = cfg.pattern_period
     src = args.source_layers - args.source_layers % period \
         if args.source_layers >= period else 0

@@ -1,6 +1,6 @@
 """Attention layers and the contiguous KV cache (``repro/models/
-attention.py``, the MHA/GQA branches with global and sliding-window
-attention and the logit softcap).
+attention.py``: MHA/GQA and MLA, global and sliding-window attention, the
+logit softcap, RoPE and M-RoPE).
 
 Full-sequence attention routes through ``kernels.flash_attention.ops``
 (the Hopper kernel for CUDA tensors, the plain version on the CPU).  Decode
@@ -23,6 +23,18 @@ each query against the exact ring a sequential decode would hold, with the
 ring advance deferred to ``spec_ring_commit``.  Rings are never paged:
 they are O(window) per row already.
 
+MLA layers (``attention="mla"`` with ``mla_kv_lora_rank`` r > 0,
+``deepseekv3-0.3b``) project x to an r-wide latent (``wkv_a``) and up to K
+and V (``wkv_b``).  Their caches hold the pre-RoPE latent rows, r values
+a token (one scale a slot in an int8/fp8 pool) where K/V would hold
+2 KV hd: the contiguous cache a (B, S, r) buffer, the pool (pages, bs, r)
+pages.  Every read up-projects the latents it attends over and rotates the
+re-derived keys at their absolute slot positions through the rope table
+(``paged_ref.paged_mla_attention_ref`` through a block table).  The
+reference wrote no Pallas kernel for that read, and its TPU run takes the
+same plain path: so does the port, on every device.  An MLA sliding-window
+ring is refused, as the reference refuses it.
+
 The reference returns new caches from pure functions and donates the old
 buffers; here the preallocated cache is written in place (slice and index
 assignment) and the same dict is returned, so callers keep one buffer.
@@ -38,27 +50,35 @@ from repro_torch.core import quant
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
-from repro_torch.models.common import (apply_norm, apply_rope, dense_init,
-                                       norm_init)
-
-_MLA = ("ROADMAP queue A item 12 (remaining architectures): MLA latent "
-        "attention is not ported yet")
-_MROPE = ("ROADMAP queue A item 12 (remaining architectures): M-RoPE "
-          "(qwen2-vl) is not ported yet")
+from repro_torch.models.common import (apply_mrope, apply_norm, apply_rope,
+                                       dense_init, norm_init)
 
 
 def _is_mla(cfg: ModelConfig) -> bool:
     return cfg.attention == "mla" and bool(cfg.mla_kv_lora_rank)
 
 
+def _refuse_mla_ring(cfg: ModelConfig, window: int):
+    if _is_mla(cfg) and window > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA sliding-window rings are not served")
+
+
 def attn_init(generator, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
-    if _is_mla(cfg):
-        raise NotImplementedError(_MLA)
+    """wq, wk, wv, wo (MLA: wq, the latent down- and up-projections
+    wkv_a (D, r) and wkv_b (r, 2 KV hd), wo), and the qk-norm scales."""
     D, Q, KV = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    p = {"wq": dense_init(generator, D, Q, dtype, device=device),
-         "wk": dense_init(generator, D, KV, dtype, device=device),
-         "wv": dense_init(generator, D, KV, dtype, device=device),
-         "wo": dense_init(generator, Q, D, dtype, device=device)}
+    if _is_mla(cfg):
+        r = cfg.mla_kv_lora_rank
+        p = {"wq": dense_init(generator, D, Q, dtype, device=device),
+             "wkv_a": dense_init(generator, D, r, dtype, device=device),
+             "wkv_b": dense_init(generator, r, 2 * KV, dtype, device=device),
+             "wo": dense_init(generator, Q, D, dtype, device=device)}
+    else:
+        p = {"wq": dense_init(generator, D, Q, dtype, device=device),
+             "wk": dense_init(generator, D, KV, dtype, device=device),
+             "wv": dense_init(generator, D, KV, dtype, device=device),
+             "wo": dense_init(generator, Q, D, dtype, device=device)}
     if cfg.qk_norm:
         p["q_norm"] = norm_init(cfg.head_dim, "rmsnorm", device)
         p["k_norm"] = norm_init(cfg.head_dim, "rmsnorm", device)
@@ -69,10 +89,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, window: int = 0, device="cuda"):
     """Per-layer KV cache: zeros of (batch, S, KV, hd) for k and v, with
     S = max_len, or for a sliding-window layer (``window > 0``) the ring
-    S = min(max_len, window)."""
-    if _is_mla(cfg):
-        raise NotImplementedError(_MLA)
+    S = min(max_len, window); an MLA layer's is the pre-RoPE latent,
+    (batch, S, r)."""
     S = min(max_len, window) if window > 0 else max_len
+    if _is_mla(cfg):
+        return {"latent": torch.zeros((batch, S, cfg.mla_kv_lora_rank),
+                                      dtype=dtype, device=device)}
     shape = (batch, S, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -89,9 +111,19 @@ def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     and the dict gains float32 scale leaves with the same leading (page,
     slot) dims plus a trailing keepdim, one scale per slot per kv head.
     Keyed by physical page, the scales go wherever their page goes: trash
-    redirection, the copy-on-write clone, radix prefix sharing."""
+    redirection, the copy-on-write clone, radix prefix sharing.
+
+    An MLA layer pages its pre-RoPE latent rows: ``latent_pages``
+    (pages, bs, r), and in an int8/fp8 pool ``latent_scales`` (pages, bs,
+    1), one scale a slot."""
     if _is_mla(cfg):
-        raise NotImplementedError(_MLA)
+        shape = (num_blocks + 1, block_size, cfg.mla_kv_lora_rank)
+        c = {"latent_pages": torch.zeros(shape, dtype=dtype, device=device)}
+        if quant.is_quantized(dtype):
+            c["latent_scales"] = torch.zeros(shape[:2] + (1,),
+                                             dtype=torch.float32,
+                                             device=device)
+        return c
     shape = (num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
     c = {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
          "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
@@ -108,14 +140,16 @@ def _split_heads(x, n: int, hd: int):
 
 
 def _project_qkv(p, cfg: ModelConfig, x):
-    """Returns q, k, v of shapes (B,S,H,hd) / (B,S,KV,hd)."""
-    if _is_mla(cfg):
-        raise NotImplementedError(_MLA)
+    """Returns q, k, v of shapes (B,S,H,hd) / (B,S,KV,hd), and an MLA
+    layer's latent (B,S,r) (else None), from which its k and v come."""
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(x @ p["wq"], H, hd)
+    if _is_mla(cfg):
+        latent = x @ p["wkv_a"]
+        return (q,) + paged_ref.mla_kv(latent, p["wkv_b"], KVH) + (latent,)
     k = _split_heads(x @ p["wk"], KVH, hd)
     v = _split_heads(x @ p["wv"], KVH, hd)
-    return q, k, v
+    return q, k, v, None
 
 
 def _qk_norm(p, cfg: ModelConfig, q, k):
@@ -126,19 +160,37 @@ def _qk_norm(p, cfg: ModelConfig, q, k):
 
 
 def _position_encode(cfg: ModelConfig, q, k, positions, span: int = 0):
-    """RoPE at ``positions`` (B, S), the rotation table covering
-    ``max_seq_len``, the positions of a longer training sequence and
-    ``span``, the positions a cache holds (its slots, or its block
-    table's); a speculative round's positions past the cache clamp.  The
-    caches store the rotated keys, as the reference's do."""
-    if cfg.position == "mrope":
-        raise NotImplementedError(_MROPE)
-    if cfg.position == "rope":
+    """RoPE at ``positions`` (B, S), or M-RoPE at (3, B, S) ids, the
+    rotation table covering ``max_seq_len``, the positions of a longer
+    training sequence and ``span``, the positions a cache holds (its
+    slots, or its block table's); a speculative round's positions past
+    the cache clamp.  The caches store the rotated keys, as the
+    reference's do (MLA's store pre-RoPE latents: ``_rotate_slots``)."""
+    if cfg.position in ("rope", "mrope"):
         n = max(cfg.max_seq_len, positions.shape[-1], span)
-        q = apply_rope(q, positions, cfg.rope_theta, n)
-        k = apply_rope(k, positions, cfg.rope_theta, n)
+        rot = apply_rope if cfg.position == "rope" else apply_mrope
+        q = rot(q, positions, cfg.rope_theta, n)
+        k = rot(k, positions, cfg.rope_theta, n)
     # 'absolute' is added at the embedding layer; 'none' is a no-op.
     return q, k
+
+
+def _rotate_slots(cfg: ModelConfig, S: int):
+    """The rotation of keys re-derived from S cached latent slots at their
+    absolute positions 0..S-1 (None without RoPE), from the table the
+    queries were rotated with (the cache's span is S)."""
+    if cfg.position != "rope":
+        return None
+
+    def rot(k):
+        pos = torch.arange(S, device=k.device)[None, :]
+        return apply_rope(k, pos, cfg.rope_theta, max(cfg.max_seq_len, S))
+    return rot
+
+
+def _cache_span(cache) -> int:
+    """Slots of a contiguous cache (K/V or MLA latent)."""
+    return (cache["latent"] if "latent" in cache else cache["k"]).shape[1]
 
 
 def attn_apply(p, cfg: ModelConfig, x: torch.Tensor, positions, window: int,
@@ -147,12 +199,16 @@ def attn_apply(p, cfg: ModelConfig, x: torch.Tensor, positions, window: int,
 
     With ``cache`` (serve prefill) the decode cache is filled alongside the
     forward with the same keys and values ``attn_decode`` would have
-    written token by token, and the return becomes ``(out, cache)``."""
-    q, k, v = _project_qkv(p, cfg, x)
+    written token by token (an MLA layer's pre-RoPE latents), and the
+    return becomes ``(out, cache)``.  ``causal=False`` attends over every
+    position (the encoder's self-attention)."""
+    q, k, v, latent = _project_qkv(p, cfg, x)
     q, k = _qk_norm(p, cfg, q, k)
     q, k = _position_encode(cfg, q, k, positions,
-                            0 if cache is None else cache["k"].shape[1])
-    if cache is not None:
+                            0 if cache is None else _cache_span(cache))
+    if cache is not None and latent is not None:
+        _fill_cache(cache["latent"], latent)
+    elif cache is not None:
         _fill_cache(cache["k"], k)
         _fill_cache(cache["v"], v)
     # The kernel takes contiguous (B,S,heads,hd) tensors; the projections'
@@ -200,20 +256,20 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, cache,
     slot held, so their cache row stays byte-identical: the reference's
     per-row freeze select.  A cursor at or past a full cache's end (a
     speculative draft proposing past a row's limit) writes nothing, as the
-    reference's scatter drops it; that row's output is never used.
+    reference's scatter drops it; that row's output is never used.  An MLA
+    layer writes its latent and attends over K/V up-projected from the
+    whole latent cache, the keys rotated at their slot positions.
     Returns (out (B,1,D), cache)."""
     B = x.shape[0]
     cache_index = torch.as_tensor(cache_index, device=x.device).long()
     cache_index = cache_index.expand(B) if cache_index.ndim == 0 \
         else cache_index
     bidx = torch.arange(B, device=x.device)
-    q, k_new, v_new = _project_qkv(p, cfg, x)
+    q, k_new, v_new, latent = _project_qkv(p, cfg, x)
     q, k_new = _qk_norm(p, cfg, q, k_new)
-    q, k_new = _position_encode(cfg, q, k_new, positions,
-                                cache["k"].shape[1])
+    S = _cache_span(cache)
+    q, k_new = _position_encode(cfg, q, k_new, positions, S)
 
-    k_buf, v_buf = cache["k"], cache["v"]
-    S = k_buf.shape[1]
     if window > 0:                       # ring: every cursor has its slot
         slot = cache_index % S
         keep = torch.ones_like(cache_index, dtype=torch.bool)
@@ -225,13 +281,19 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, cache,
         slot = cache_index.clamp(max=S - 1)
     if write_mask is not None:
         keep = keep & write_mask
-    keep = keep[:, None, None]
-    k_w = torch.where(keep, k_new[:, 0].to(k_buf.dtype), k_buf[bidx, slot])
-    v_w = torch.where(keep, v_new[:, 0].to(v_buf.dtype), v_buf[bidx, slot])
-    k_buf[bidx, slot] = k_w
-    v_buf[bidx, slot] = v_w
-    k = k_buf.to(x.dtype)
-    v = v_buf.to(x.dtype)
+    new = {"latent": latent} if latent is not None \
+        else {"k": k_new, "v": v_new}
+    for key, t in new.items():
+        buf = cache[key]
+        kept = keep.reshape((-1,) + (1,) * (buf.ndim - 2))
+        buf[bidx, slot] = torch.where(kept, t[:, 0].to(buf.dtype),
+                                      buf[bidx, slot])
+    if latent is not None:
+        k, v = paged_ref.mla_kv(cache["latent"].to(x.dtype), p["wkv_b"],
+                                cfg.num_kv_heads, _rotate_slots(cfg, S))
+    else:
+        k = cache["k"].to(x.dtype)
+        v = cache["v"].to(x.dtype)
 
     filled = cache_index.clamp(max=S - 1) if window > 0 else cache_index
     valid = torch.arange(S, device=x.device)[None, :] <= filled[:, None]
@@ -239,6 +301,27 @@ def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, cache,
                                          cfg.attn_logit_softcap)
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"]
     return out, cache
+
+
+def _mla_pool_attend(p, cfg: ModelConfig, q, latent, cache, block_table,
+                     page, off, valid):
+    """An MLA layer's pool write and read: the latents (any leading shape
+    matching ``page``/``off``) go to (page, offset) in place, quantized per
+    slot with their scales in an int8/fp8 pool; then the queries q
+    (B, C, H, hd) attend through the table under ``valid`` (B, C, S),
+    the gathered latents dequantized, up-projected and their keys rotated
+    at slot positions (``paged_ref.paged_mla_attention_ref``)."""
+    lp, ls = cache["latent_pages"], cache.get("latent_scales")
+    if ls is not None:
+        lat_w, lat_s = quant.quantize(latent, axis=-1, dtype=lp.dtype)
+        ls[page, off] = lat_s
+    else:
+        lat_w = latent.to(lp.dtype)
+    lp[page, off] = lat_w
+    return paged_ref.paged_mla_attention_ref(
+        q, lp, block_table, valid, p["wkv_b"], cfg.num_kv_heads,
+        rotate_fn=_rotate_slots(cfg, valid.shape[-1]), latent_scales=ls,
+        logit_softcap=cfg.attn_logit_softcap)
 
 
 def attn_decode_paged(p, cfg: ModelConfig, x: torch.Tensor, cache,
@@ -252,21 +335,29 @@ def attn_decode_paged(p, cfg: ModelConfig, x: torch.Tensor, cache,
     ``idx % bs``; rows with ``write_mask == False`` (inactive slots) are
     redirected to the trash page, so a frozen slot's pages never change.
     The write lands in place before attention reads through the table
-    (the Hopper kernel on the card).  Returns (out (B,1,D), cache)."""
-    if _is_mla(cfg):
-        raise NotImplementedError(_MLA)
+    (the Hopper kernel on the card).  An MLA layer writes its latent (and
+    scale) the same way and attends through ``_mla_pool_attend``, plain on
+    every device.  Returns (out (B,1,D), cache)."""
     B = x.shape[0]
     bidx = torch.arange(B, device=x.device)
-    q, k_new, v_new = _project_qkv(p, cfg, x)
+    q, k_new, v_new, latent = _project_qkv(p, cfg, x)
     q, k_new = _qk_norm(p, cfg, q, k_new)
-    bs = cache["k_pages"].shape[1]
+    pages = cache["latent_pages" if latent is not None else "k_pages"]
+    bs = pages.shape[1]
     q, k_new = _position_encode(cfg, q, k_new, positions,
                                 block_table.shape[1] * bs)
-    trash = cache["k_pages"].shape[0] - 1
+    trash = pages.shape[0] - 1
     page = block_table[bidx, cache_index // bs]
     if write_mask is not None:
         page = torch.where(write_mask, page, trash)
     off = cache_index % bs
+    if latent is not None:
+        S = block_table.shape[1] * bs
+        valid = (torch.arange(S, device=x.device)[None, :]
+                 <= cache_index[:, None])[:, None, :]           # (B, 1, S)
+        out = _mla_pool_attend(p, cfg, q, latent[:, 0], cache, block_table,
+                               page, off, valid)
+        return out.reshape(B, 1, cfg.q_dim) @ p["wo"], cache
     out, cache = pa_ops.paged_attention_decode(
         q.contiguous(), cache["k_pages"], cache["v_pages"], k_new[:, 0],
         v_new[:, 0], page, off, block_table, cache_index,
@@ -288,23 +379,32 @@ def attn_prefill_chunk(p, cfg: ModelConfig, x: torch.Tensor, cache, ctx_len,
     ``slot <= q_pos`` rule.  A quantized pool takes the chunk's K/V
     quantized per slot and head, values and scales through the same
     (page, offset).  Sliding-window layers keep their per-row ring
-    (``cache`` is the B=1 carry's ring): see ``_ring_prefill_chunk``."""
-    if _is_mla(cfg):
-        raise NotImplementedError(_MLA)
+    (``cache`` is the B=1 carry's ring): see ``_ring_prefill_chunk``.  An
+    MLA layer writes the chunk's latents through the table and attends
+    over the up-projected pool (``_mla_pool_attend``); its window ring is
+    refused, as in the reference."""
+    _refuse_mla_ring(cfg, window)
     B, C, _ = x.shape
-    q, k_new, v_new = _project_qkv(p, cfg, x)
+    q, k_new, v_new, latent = _project_qkv(p, cfg, x)
     q, k_new = _qk_norm(p, cfg, q, k_new)
     if window > 0:
         q, k_new = _position_encode(cfg, q, k_new, positions)
         out = _ring_prefill_chunk(cfg, q, k_new, v_new, cache, ctx_len)
         return out.reshape(B, C, cfg.q_dim) @ p["wo"], cache
-    k_pages, v_pages = cache["k_pages"], cache["v_pages"]
-    bs = k_pages.shape[1]
+    bs = cache["latent_pages" if latent is not None else "k_pages"].shape[1]
     q, k_new = _position_encode(cfg, q, k_new, positions,
                                 block_table.shape[1] * bs)
     pos = ctx_len + torch.arange(C, device=x.device)       # (C,) slots
     page = block_table[:, pos // bs]                       # (B, C)
     off = (pos % bs)[None, :].expand(B, C)
+    if latent is not None:
+        S = block_table.shape[1] * bs
+        valid = (torch.arange(S, device=x.device)[None, None, :]
+                 <= pos[None, :, None]).expand(B, C, S)
+        out = _mla_pool_attend(p, cfg, q, latent, cache, block_table, page,
+                               off, valid)
+        return out.reshape(B, C, cfg.q_dim) @ p["wo"], cache
+    k_pages, v_pages = cache["k_pages"], cache["v_pages"]
     ks, vs = cache.get("k_scales"), cache.get("v_scales")
     if ks is not None:                               # quantized pool
         k_w, k_s = quant.quantize(k_new, axis=-1, dtype=k_pages.dtype)
@@ -386,26 +486,36 @@ def attn_verify_chunk(p, cfg: ModelConfig, x: torch.Tensor, cache, index,
     cache's dtype as a ring write would be), laid out in ring-slot order,
     so that the softmax reduces in the decode step's key order.  The ring
     advance is deferred: the returned cache carries the chunk's K/V under
-    ``pending`` for ``spec_ring_commit``."""
-    if _is_mla(cfg):
-        raise NotImplementedError(_MLA)
+    ``pending`` for ``spec_ring_commit``.  An MLA layer writes the chunk's
+    latents as a global layer writes K/V and attends over the up-projected
+    pool (``_mla_pool_attend``); its window ring is refused, as in the
+    reference."""
+    _refuse_mla_ring(cfg, window)
     B, C, _ = x.shape
-    q, k_new, v_new = _project_qkv(p, cfg, x)
+    q, k_new, v_new, latent = _project_qkv(p, cfg, x)
     q, k_new = _qk_norm(p, cfg, q, k_new)
     if window > 0:
         q, k_new = _position_encode(cfg, q, k_new, positions)
         return _ring_verify(p, cfg, q, k_new, v_new, cache, index)
-    k_pages, v_pages = cache["k_pages"], cache["v_pages"]
-    bs = k_pages.shape[1]
+    pages = cache["latent_pages" if latent is not None else "k_pages"]
+    bs = pages.shape[1]
     q, k_new = _position_encode(cfg, q, k_new, positions,
                                 block_table.shape[1] * bs)
-    trash = k_pages.shape[0] - 1
+    trash = pages.shape[0] - 1
     pos = index[:, None] + torch.arange(C, device=x.device)[None, :]  # (B,C)
     blk = (pos // bs).clamp(max=block_table.shape[1] - 1)
     page = torch.gather(block_table, 1, blk).long()
     if write_mask is not None:
         page = torch.where(write_mask, page, trash)
     off = pos % bs
+    if latent is not None:
+        S = block_table.shape[1] * bs
+        valid = (torch.arange(S, device=x.device)[None, None, :]
+                 <= pos[:, :, None])                             # (B, C, S)
+        out = _mla_pool_attend(p, cfg, q, latent, cache, block_table, page,
+                               off, valid)
+        return out.reshape(B, C, cfg.q_dim) @ p["wo"], cache
+    k_pages, v_pages = cache["k_pages"], cache["v_pages"]
     ks, vs = cache.get("k_scales"), cache.get("v_scales")
     if ks is not None:                               # quantized pool
         k_w, k_s = quant.quantize(k_new, axis=-1, dtype=k_pages.dtype)

@@ -1,5 +1,6 @@
 """Shared model building blocks: device resolution, initializers, norms,
-activations, softcap, rotary position embeddings and the cross-entropy
+activations, softcap, rotary position embeddings (RoPE and Qwen2-VL's
+M-RoPE), the whisper encoder's sinusoidal positions and the cross-entropy
 loss (``repro/models/common.py``).
 
 Models are ``init(generator, cfg, device=...) -> params`` /
@@ -107,7 +108,7 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings (RoPE)
+# Rotary position embeddings (RoPE and 3D M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -157,6 +158,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int, sections=(16, 24, 24)) -> list:
+    """The (temporal, height, width) frequency bands of M-RoPE, by
+    half-dim; rescaled as the reference rescales them when they do not add
+    up to hd/2 (the remainder to the first band)."""
+    half = head_dim // 2
+    secs = list(sections)
+    if sum(secs) != half:
+        tot = sum(secs)
+        secs = [n * half // tot for n in secs]
+        secs[0] += half - sum(secs)
+    return secs
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                max_len: int, sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (..., S, H, hd); positions_3d:
+    (3, ..., S) temporal/height/width ids.  The rotary frequency bands are
+    split into ``mrope_sections``, each rotated by its own position
+    component: band i's angles are gathered from ``rope_table``'s columns
+    of that band at ids ``positions_3d[i]``, so text-only ids (t = h = w =
+    pos) rotate to ``apply_rope``'s bits.  Ids at or past ``max_len``
+    clamp, as in ``apply_rope``."""
+    cos_t, sin_t = rope_table(x.shape[-1], theta, max_len, x.device)
+    pos = positions_3d.long().clamp(0, max_len - 1)
+    cos, sin, start = [], [], 0
+    for i, n in enumerate(mrope_sections(x.shape[-1], sections)):
+        cos.append(cos_t[:, start:start + n][pos[i]])
+        sin.append(sin_t[:, start:start + n][pos[i]])
+        start += n
+    cos = torch.cat(cos, dim=-1)[..., None, :]
+    sin = torch.cat(sin, dim=-1)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(max_len: int, dim: int,
+                         device="cuda") -> torch.Tensor:
+    """Absolute sinusoidal table (max_len, dim) of the whisper encoder:
+    [sin(pos · inv), cos(pos · inv)], inv = exp(-(2i/dim) ln 10000), in
+    float32 as the reference computes it."""
+    pos = torch.arange(max_len, dtype=torch.float32)[:, None]
+    inv = torch.exp(-torch.arange(0, dim, 2, dtype=torch.float32) / dim
+                    * math.log(10000.0))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(
+        resolve_device(device))
 
 
 # ---------------------------------------------------------------------------

@@ -11,16 +11,19 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     init: Callable        # (generator, cfg, dtype=..., num_layers=None, device=...) -> params
     # (params, cfg, batch, remat=False) -> (loss, {"ce", "aux"}); batch
-    # holds tokens, labels and optionally mask.
+    # holds tokens, labels and optionally mask, a frontend's embeds (the
+    # loss then covers the text tail) or an encoder-decoder's frames.
     loss: Callable
-    apply: Callable       # (params, cfg, tokens) -> (logits, aux)
+    # (params, cfg, tokens, embeds=None) -> (logits, aux); an
+    # encoder-decoder's (params, cfg, tokens, frames).
+    apply: Callable
     init_cache: Callable  # (params, cfg, batch_size, max_len, dtype, device) -> cache
     # (params, cfg, tokens(B,1), cache, index(B,)) -> (logits, cache); the
     # cache is written in place.
@@ -45,37 +48,37 @@ class ModelApi:
 
 def _lm_loss(params, cfg, batch, remat=False):
     return transformer.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                               embeds=batch.get("embeds"),
                                mask=batch.get("mask"), remat=remat)
 
 
-# What each model family of the reference registry still waits for.
-_FAMILY_WAITS_FOR = {
-    "moe": "MLA latent attention (queue A item 12)",
-    "audio": "the encoder-decoder model (queue A item 12)",
-    "vlm": "M-RoPE and frontend embeds (queue A item 12)",
-}
+def _encdec_loss(params, cfg, batch, remat=False):
+    return encdec.encdec_loss(params, cfg, batch["tokens"], batch["labels"],
+                              batch["frames"], mask=batch.get("mask"),
+                              remat=remat)
 
 
-def _ported(cfg: ModelConfig) -> bool:
-    """Dense decoders, MoE decoders without MLA, Mamba/attention hybrids
-    (with MoE feed-forwards), and all-recurrent (RWKV6 or Mamba) stacks."""
-    if cfg.is_encoder_decoder:
-        return False
-    if cfg.family == "moe":
-        return cfg.attention != "mla"
-    return cfg.family in ("dense", "hybrid") or (
-        cfg.family == "ssm"
-        and all(b in ("rwkv", "mamba") for b in cfg.block_pattern))
+def _encdec_init_cache(params, cfg, batch_size, max_len, dtype=torch.bfloat16,
+                       device="cuda", enc_out=None):
+    """The decoder's caches over ``enc_out`` (zeros of (B, T_enc, D) when
+    none is given, as the reference defaults it)."""
+    if enc_out is None:
+        enc_out = torch.zeros((batch_size, cfg.encoder_seq_len, cfg.d_model),
+                              dtype=dtype, device=device)
+    return encdec.encdec_init_cache(params, cfg, batch_size, max_len,
+                                    enc_out, dtype, device)
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if not _ported(cfg):
-        waits = _FAMILY_WAITS_FOR.get(
-            "audio" if cfg.is_encoder_decoder else cfg.family,
-            "its ROADMAP queue A item")
-        raise NotImplementedError(
-            f"ROADMAP: {cfg.name} (family {cfg.family!r}) is not ported yet; "
-            f"it waits for {waits}")
+    """Every architecture of the reference registry.  An encoder-decoder
+    (whisper) has the reference's narrower API: no prefill, no paged or
+    speculative serving, so ``ServeEngine`` refuses it; its ``apply`` takes
+    ``(params, cfg, tokens, frames)`` and its batches carry ``frames``."""
+    if cfg.is_encoder_decoder:
+        return ModelApi(init=encdec.encdec_init, loss=_encdec_loss,
+                        apply=encdec.encdec_apply,
+                        init_cache=_encdec_init_cache,
+                        decode_step=encdec.encdec_decode_step)
     return ModelApi(init=transformer.lm_init, loss=_lm_loss,
                     apply=transformer.lm_apply,
                     init_cache=transformer.lm_init_cache,

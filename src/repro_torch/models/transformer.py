@@ -1,6 +1,7 @@
 """Stacked decoder-only LM (``repro/models/transformer.py``: attention
-blocks with a dense or MoE feed-forward, Mamba blocks with or without an
-MoE feed-forward, and RWKV6 blocks).
+blocks (MHA/GQA or MLA) with a dense or MoE feed-forward, Mamba blocks with
+or without an MoE feed-forward, and RWKV6 blocks; a vision frontend's
+precomputed embeddings prepended to the text, positioned by M-RoPE ids).
 
 Layers are grouped into super-blocks of ``cfg.pattern_period`` layers; every
 leaf of ``params["blocks"]`` carries a leading ``n_super`` axis, as in the
@@ -190,12 +191,15 @@ def _apply_layer(lp, cfg: ModelConfig, i: int, x, positions):
     return _ffn_residual(lp, cfg, i, x)
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens, offset: int = 0):
-    """Token embedding (+ learned absolute positions offset..offset+S-1).
-    tokens: (B, S).  The gather is ``F.embedding``: the same forward bits
-    as indexing, and a backward that sums each row's gradient in a fixed
-    order on every device, where indexing's ``index_put_`` accumulates in
-    thread order on the CPU (two identical steps may then differ)."""
+def embed_tokens(params, cfg: ModelConfig, tokens, embeds=None,
+                 offset: int = 0):
+    """Token embedding (+ learned absolute positions offset..offset+S-1),
+    with a frontend's precomputed embeddings ``embeds`` (B, N, D), when
+    given, prepended.  tokens: (B, S).  The gather is ``F.embedding``: the
+    same forward bits as indexing, and a backward that sums each row's
+    gradient in a fixed order on every device, where indexing's
+    ``index_put_`` accumulates in thread order on the CPU (two identical
+    steps may then differ)."""
     x = F.embedding(tokens, params["embed"])
     if cfg.position == "absolute":
         S = tokens.shape[1]
@@ -203,6 +207,8 @@ def embed_tokens(params, cfg: ModelConfig, tokens, offset: int = 0):
             raise ValueError(f"positions {offset}..{offset + S - 1} exceed "
                              f"max_seq_len {params['pos_embed'].shape[0]}")
         x = x + params["pos_embed"][offset:offset + S]
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
     return x
 
 
@@ -216,8 +222,19 @@ def _pos_embed(params, pos):
     return table[pos.clamp(max=table.shape[0] - 1)]
 
 
-def _positions_for(cfg: ModelConfig, B: int, S: int, device):
-    return torch.arange(S, device=device)[None, :].expand(B, S)
+def _positions_for(cfg: ModelConfig, B: int, S: int, device, offset=0):
+    """Positions offset..offset+S-1 of every row: (B, S), or for M-RoPE
+    the (3, B, S) ids of text (t = h = w = position), the reference's
+    text-only stub ids."""
+    return _mrope_ids(cfg, (offset + torch.arange(S, device=device))[
+        None, :].expand(B, S))
+
+
+def _mrope_ids(cfg: ModelConfig, pos):
+    """``pos`` (B, S) as M-RoPE's (3, B, S) text ids under
+    ``position='mrope'``, else unchanged."""
+    return pos[None].expand((3,) + tuple(pos.shape)) \
+        if cfg.position == "mrope" else pos
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -281,12 +298,13 @@ def _checkpointed(fn, policy: str):
     return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
 
 
-def lm_apply(params, cfg: ModelConfig, tokens, positions=None,
+def lm_apply(params, cfg: ModelConfig, tokens, embeds=None, positions=None,
              remat=False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V), aux_loss scalar).  ``remat`` (False,
+    """Returns (logits (B, S_total, V), aux_loss scalar), S_total the
+    frontend embeds' N plus the text's S.  ``remat`` (False,
     True/'nothing' or 'dots') checkpoints each super-block's body, as the
     reference checkpoints its scan body."""
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, embeds)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = _positions_for(cfg, B, S, x.device)
@@ -304,11 +322,13 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions=None,
     return _head(params, cfg, x), aux
 
 
-def lm_loss(params, cfg: ModelConfig, tokens, labels, mask=None,
-            remat=False):
-    """Returns (loss + aux, {"ce": loss, "aux": aux}).  The reference's
-    ``embeds`` (frontend) argument comes with ROADMAP queue A item 12."""
-    logits, aux = lm_apply(params, cfg, tokens, remat=remat)
+def lm_loss(params, cfg: ModelConfig, tokens, labels, embeds=None,
+            mask=None, remat=False):
+    """Returns (loss + aux, {"ce": loss, "aux": aux}).  With frontend
+    ``embeds`` the loss covers the text tail only."""
+    logits, aux = lm_apply(params, cfg, tokens, embeds=embeds, remat=remat)
+    if embeds is not None:
+        logits = logits[:, embeds.shape[1]:]
     loss = cross_entropy(logits, labels, mask)
     return loss + aux, {"ce": loss, "aux": aux}
 
@@ -429,14 +449,16 @@ def _prefill_layer(lp, cache_l, cfg: ModelConfig, i: int, x, positions):
     return _ffn_residual(lp, cfg, i, x + y)[0], cache_l
 
 
-def lm_prefill(params, cfg: ModelConfig, tokens, cache, positions=None,
-               last_only: bool = False) -> Tuple[torch.Tensor, dict]:
+def lm_prefill(params, cfg: ModelConfig, tokens, cache, embeds=None,
+               positions=None, last_only: bool = False
+               ) -> Tuple[torch.Tensor, dict]:
     """Full-sequence prefill: one forward through the train-path math that
     also fills the decode cache.  Returns (logits (B, S, V), cache ready for
-    decode at per-row cursor S).  ``last_only`` normalises and projects the
-    last position alone and returns (B, 1, V) logits: the serving step
-    samples from nothing else, and the full head is S times its work."""
-    x = embed_tokens(params, cfg, tokens)
+    decode at per-row cursor S; S counts frontend ``embeds``).
+    ``last_only`` normalises and projects the last position alone and
+    returns (B, 1, V) logits: the serving step samples from nothing else,
+    and the full head is S times its work."""
+    x = embed_tokens(params, cfg, tokens, embeds)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = _positions_for(cfg, B, S, x.device)
@@ -464,8 +486,7 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens, cache, carry,
     sampled, so the head runs on one position."""
     B, C = tokens.shape
     x = embed_tokens(params, cfg, tokens, offset=ctx_len)
-    positions = (ctx_len + torch.arange(C, device=x.device))[None, :].expand(
-        B, C)
+    positions = _positions_for(cfg, B, C, x.device, ctx_len)
     for s in range(num_superblocks(params)):
         sb = _tree_index(params["blocks"], s)
         cache_sb = _tree_index(cache, s)
@@ -518,7 +539,7 @@ def _decode_layer(lp, cache_l, cfg: ModelConfig, i: int, x, index, positions,
         _write(cache_l, _frozen(state, cache_l, write_mask))
         return x, cache_l
     h = apply_norm(lp["ln1"], x, cfg.norm)
-    if "k_pages" in cache_l:
+    if "k_pages" in cache_l or "latent_pages" in cache_l:
         y, cache_l = attn.attn_decode_paged(lp["attn"], cfg, h, cache_l,
                                             block_table, index, positions,
                                             write_mask=write_mask)
@@ -552,7 +573,7 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,
     if cfg.position == "absolute":
         x = x + _pos_embed(params, index)[:, None, :]
     if positions is None:
-        positions = index[:, None]
+        positions = _mrope_ids(cfg, index[:, None])
     for s in range(num_superblocks(params)):
         sb = _tree_index(params["blocks"], s)
         cache_sb = _tree_index(cache, s)
@@ -645,7 +666,8 @@ def lm_verify(params, cfg: ModelConfig, tokens, cache, index, block_table,
                 continue
             x, _ = _verify_layer(sb[ln], cache_sb[ln],
                                  _tree_index(pend[ln], s) if ln in pend
-                                 else {}, cfg, i, x, index, pos, block_table,
+                                 else {}, cfg, i, x, index,
+                                 _mrope_ids(cfg, pos), block_table,
                                  write_mask)
     out = dict(cache)
     for ln, ring in {**rings, **pend}.items():

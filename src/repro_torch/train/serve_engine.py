@@ -196,6 +196,16 @@ class GenerateResult:
     decode_s: float = 0.0            # wall time of the decode loop
 
 
+def refuse_unservable(cfg: ModelConfig):
+    """Raise, with the reference's message, for an architecture without a
+    prefill path (the encoder-decoder): the engine serves decoder-only
+    models."""
+    if registry.get_model(cfg).prefill is None:
+        raise NotImplementedError(
+            f"{cfg.name}: arch has no prefill path; ServeEngine supports "
+            "decoder-only archs (transformer / ssm / rwkv6)")
+
+
 class ServeEngine:
     """Serving engine on one device (see module docstring)."""
 
@@ -215,8 +225,7 @@ class ServeEngine:
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.api = registry.get_model(cfg)
-        if self.api.prefill is None:
-            raise NotImplementedError(f"{cfg.name}: arch has no prefill path")
+        refuse_unservable(cfg)
         self.max_len = max_len
         self.cache_dtype = cache_dtype
         self.paged = paged

@@ -223,15 +223,16 @@ def make_prefill_step(cfg: ModelConfig, sample: bool = False) -> Callable:
 
 
 def _is_paged_leaf(path) -> bool:
-    """Pool leaves (k_pages/v_pages and, under quantized storage, their
-    per-slot scale leaves k_scales/v_scales) have no batch dim: per-row
-    admit logic skips them (their per-row no-op is the trash-page write
-    redirect inside ``attn_decode_paged``).  Listing the scale leaves here
-    keeps scales in lockstep with their pages: the copy-on-write clone
-    copies them with the page and admission leaves them alone.  ``path``
+    """Pool leaves (k_pages/v_pages, MLA latent_pages and, under quantized
+    storage, their per-slot scale leaves k_scales/v_scales/latent_scales)
+    have no batch dim: per-row admit logic skips them (their per-row no-op
+    is the trash-page write redirect inside ``attn_decode_paged``).
+    Listing the scale leaves here keeps scales in lockstep with their
+    pages: the copy-on-write clone copies them with the page, admission
+    leaves them alone, and the pool's bytes a token count them.  ``path``
     is a tuple of dict keys."""
-    return any(k in ("k_pages", "v_pages", "k_scales", "v_scales")
-               for k in path)
+    return any(k in ("k_pages", "v_pages", "latent_pages", "k_scales",
+                     "v_scales", "latent_scales") for k in path)
 
 
 def make_serve_decode_step(cfg: ModelConfig, sample: bool = False,

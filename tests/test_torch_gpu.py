@@ -1236,3 +1236,66 @@ def test_skipped_step_leaves_params_and_momenta_bit_identical(cuda_device,
     params, state, m2 = step(params, state, batch, 2,
                              float(m1["gnorm_ema"]))
     assert float(m2["bad"]) == 0.0 and int(state["step"]) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV", [(2, 77, 300, 8, 8),
+                                          (2, 200, 1500, 4, 2),
+                                          (1, 333, 190, 4, 4)])
+def test_flash_takes_more_or_fewer_keys_than_queries(cuda_device, dtype, hd,
+                                                     B, Sq, Sk, H, KV):
+    """Non-causal attention of Sq queries over Sk keys (the encoder-decoder's
+    cross-attention; ragged last tiles on both sides): the forward and the
+    backward's dq (B, Sq, ...), dk and dv (B, Sk, ...) against the plain
+    version and autograd of it, by the tolerances above; f32 within 1e-5
+    of f64; repeats bit-identical."""
+    td = getattr(torch, dtype)
+    rng = np.random.default_rng(Sq + Sk + hd)
+    q, do = (torch.from_numpy(rng.standard_normal(
+        (B, Sq, H, hd), dtype=np.float32)).to(cuda_device, td)
+        for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (B, Sk, KV, hd), dtype=np.float32)).to(cuda_device, td)
+        for _ in range(2))
+    kw = dict(causal=False)
+    before = ops.KERNEL_LAUNCHES, ops.BWD_LAUNCHES
+    with torch.no_grad():
+        got = ops.flash_attention(q, k, v, **kw)
+        again = ops.flash_attention(q, k, v, **kw)
+        want = ops.flash_attention(q, k, v, force="ref", **kw)
+    grads = _grads(q, k, v, do, kw, "auto")
+    torch.cuda.synchronize()
+    assert ops.KERNEL_LAUNCHES == before[0] + 3
+    assert ops.BWD_LAUNCHES == before[1] + 1
+    assert torch.equal(got, again)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    assert got.shape == q.shape
+    assert _rel(got, want, floor=1.0) <= tol
+    for g, w in zip(grads, _grads(q, k, v, do, kw, "ref")):
+        assert g.dtype == td and g.shape == w.shape
+        assert _rel(g, w, floor=1.0) <= tol
+    assert [tuple(g.shape) for g in grads] == [tuple(q.shape),
+                                                tuple(k.shape),
+                                                tuple(v.shape)]
+    if dtype == "float32":
+        leaves = [t.double() for t in (q, k, v)]
+        G = H // KV
+        s = torch.einsum("bqhd,bkhd->bhqk", leaves[0],
+                         leaves[1].repeat_interleave(G, dim=2)) / hd ** 0.5
+        f64 = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                           leaves[2].repeat_interleave(G, dim=2))
+        assert (got.double() - f64).abs().max().item() <= FA_F64_TOL
+
+
+@pytest.mark.gpu
+def test_causal_flash_at_unequal_lengths_is_refused(cuda_device):
+    """Causal attention at S_k != S_q has no caller: the wrapper refuses it
+    before any launch."""
+    q = torch.zeros((1, 8, 4, 64), device=cuda_device)
+    k = torch.zeros((1, 16, 4, 64), device=cuda_device)
+    before = ops.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="non-causal only"):
+        ops.flash_attention(q, k, k, causal=True)
+    assert ops.KERNEL_LAUNCHES == before

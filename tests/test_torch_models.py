@@ -58,8 +58,10 @@ def test_config_copy_matches_reference():
         want = dataclasses.asdict(jax_configs.get_config(name))
         assert dataclasses.asdict(configs.get_config(name)) == want
     assert dataclasses.asdict(CFG) == dataclasses.asdict(JCFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config("whisper-base")
+    assert dataclasses.asdict(configs.get_config("whisper-base")) \
+        == dataclasses.asdict(jax_configs.get_config("whisper-base"))
+    with pytest.raises(KeyError, match="unknown architecture"):
+        configs.get_config("whisper-large")
 
 
 @pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
@@ -201,10 +203,16 @@ def test_param_module_facade_moves_and_names_the_tree():
 
 
 def test_unported_architectures_raise_naming_the_roadmap():
+    """M-RoPE and MLA now run: on text-only ids an M-RoPE model gives the
+    RoPE model's logits bit for bit, and the registry takes an MLA config
+    (with ``mla_kv_lora_rank`` 0 its attention keeps wk and wv)."""
+    rope = dataclasses.replace(CFG, position="rope")
     mrope = dataclasses.replace(CFG, position="mrope")
-    params = tr.lm_init(torch.Generator().manual_seed(0), mrope, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12.*M-RoPE"):
-        tr.lm_apply(params, mrope, torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*MLA"):
-        registry.get_model(dataclasses.replace(CFG, family="moe",
-                                               attention="mla"))
+    params = tr.lm_init(torch.Generator().manual_seed(0), rope, device="cpu")
+    toks = torch.from_numpy(_tokens(2, 12, 3)).long()
+    assert torch.equal(tr.lm_apply(params, mrope, toks)[0],
+                       tr.lm_apply(params, rope, toks)[0])
+    mla = dataclasses.replace(CFG, family="moe", attention="mla")
+    registry.get_model(mla)
+    assert set(attn.attn_init(None, mla, device="meta")) \
+        == {"wq", "wk", "wv", "wo"}

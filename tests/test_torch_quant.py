@@ -177,8 +177,8 @@ def _requests(seed=0):
             for p, g in zip(rng.integers(2, 11, 8), rng.integers(3, 10, 8))]
 
 
-def _run(tp, kv_dtype, reqs):
-    eng = ServeEngine(CFG, tp, device="cpu", max_len=48, paged=True,
+def _run(tp, kv_dtype, reqs, cfg=CFG):
+    eng = ServeEngine(cfg, tp, device="cpu", max_len=48, paged=True,
                       block_size=4, kv_dtype=kv_dtype)
     return ContinuousScheduler(eng, max_batch=2, chunk_len=4,
                                num_blocks=8).run(reqs)
@@ -194,15 +194,44 @@ def _agreement(res_a, res_b):
     return hit / max(tot, 1)
 
 
+# The reference's window lane (tests/test_serving_paged.py:36, :639): a
+# 4-layer model whose even layers keep a ring of 4 beside the pool.
+_WINDOW = dict(name="pg-window", family="dense", num_layers=4, d_model=32,
+               num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=64,
+               max_seq_len=64, window_pattern=(4, 0))
+_WINDOW_SHAPES = ((5, 7), (9, 4), (3, 10), (6, 2), (4, 8), (7, 5), (2, 6),
+                  (8, 3))
+
+
+def _window_case():
+    """The window lane's config, its JAX init (PRNGKey(0)) carried over,
+    and the reference's eight requests."""
+    from repro.configs.base import ModelConfig as JModelConfig
+    from repro_torch.configs.base import ModelConfig
+    jp = jax.device_get(jtr.lm_init(jax.random.PRNGKey(0),
+                                    JModelConfig(**_WINDOW)))
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, 64, (p,)).astype(np.int32),
+                    max_new_tokens=g) for p, g in _WINDOW_SHAPES]
+    return ModelConfig(**_WINDOW), bridge.params_from_jax(jp), reqs
+
+
 @pytest.mark.parametrize("kv,lane", [("int8", QUANT_AGREEMENT),
-                                     ("fp8", FP8_AGREEMENT)])
+                                     ("fp8", FP8_AGREEMENT),
+                                     ("int8-window", QUANT_AGREEMENT)])
 def test_greedy_agreement_with_f32_pool(params, kv, lane):
     """The reference's tolerance lane: quantized greedy streams agree with
     the f32 pool's on at least ``lane`` of the tokens; lengths and finish
-    reasons are dtype-invariant."""
+    reasons are dtype-invariant.  ``int8-window`` is the reference's
+    window case (rings of 4 in f32 beside an int8 pool, its config, JAX
+    weights and requests)."""
     _, tp = params
     reqs = _requests()
-    f32, qz = _run(tp, None, reqs), _run(tp, kv, reqs)
+    cfg = CFG
+    if kv == "int8-window":
+        kv = "int8"
+        cfg, tp, reqs = _window_case()
+    f32, qz = _run(tp, None, reqs, cfg), _run(tp, kv, reqs, cfg)
     assert _agreement(f32, qz) >= lane
     for a, b in zip(f32, qz):
         assert len(a.new_tokens) == len(b.new_tokens)

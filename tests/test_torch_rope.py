@@ -12,6 +12,8 @@ by position · 9e-10.  So the rotated values are held to
 ``ROPE_TOL`` · max|x| plus, at θ 5e6, position · 1e-9 · max|x|, at
 positions up to each config's ``max_seq_len - 1``.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,9 +124,14 @@ def test_positions_past_the_table_clamp_and_training_past_it_grows_it():
 
 
 def test_mrope_still_raises_naming_item_12():
+    """M-RoPE is ported: the attention's position encoding takes (3, B,
+    S) ids, and text-only ids (t = h = w) rotate to RoPE's bits."""
     cfg = ModelConfig(name="vl", family="vlm", num_layers=1, d_model=16,
                       num_heads=1, num_kv_heads=1, d_ff=32, vocab_size=64,
                       position="mrope")
-    x = torch.zeros(1, 2, 1, 16)
-    with pytest.raises(NotImplementedError, match="item 12.*M-RoPE"):
-        attention._position_encode(cfg, x, x, torch.zeros(1, 2).long())
+    x = torch.from_numpy(_x(5, (1, 12, 1, 16)))
+    pos = torch.arange(12)[None, :]
+    q, k = attention._position_encode(cfg, x, x, pos[None].expand(3, 1, 12))
+    want, _ = attention._position_encode(
+        dataclasses.replace(cfg, position="rope"), x, x, pos)
+    assert torch.equal(q, want) and torch.equal(k, want)

@@ -295,8 +295,9 @@ def test_serve_cli_on_cpu_and_default_device(monkeypatch):
     pytest.param(["--arch", "jamba-v0.1-52b", "--continuous"], None,
                  id="argv2-item 17"),
     # Sliding-window rings are ported too (gemma2-9b serves): the last
-    # case names the encoder-decoder, which is not, under its old id.
-    pytest.param(["--arch", "whisper-base"], "encoder-decoder",
+    # case, under its old id, is the encoder-decoder, which the engine
+    # refuses with the reference's message.
+    pytest.param(["--arch", "whisper-base"], "no prefill path",
                  id="argv3-sliding-window")])
 def test_unported_paths_name_their_roadmap_item(argv, item):
     if item is None:
@@ -311,8 +312,8 @@ def test_unported_paths_name_their_roadmap_item(argv, item):
 
 def test_unported_layers_raise_naming_their_items():
     """RWKV6 and Mamba layers keep float32 per-row state beside the pool
-    and thread a B=1 carry through chunked prefill; MLA still names its
-    item."""
+    and thread a B=1 carry through chunked prefill; an MLA layer pages its
+    latent rows (one scale a slot in an int8 pool) and carries nothing."""
     _, tp = _params(2)
     mamba = dataclasses.replace(CFG, block_pattern=("mamba",))
     mp = registry.get_model(mamba).init(torch.Generator().manual_seed(0),
@@ -329,9 +330,18 @@ def test_unported_layers_raise_naming_their_items():
             for t in tree["layer0"].values():
                 assert t.shape[:2] == (2, rows) and t.dtype == torch.float32
                 assert not t.any()
-    with pytest.raises(NotImplementedError, match="MLA"):
-        registry.get_model(dataclasses.replace(CFG, family="moe",
-                                               attention="mla"))
+    mla = dataclasses.replace(CFG, block_pattern=("attn",), family="moe",
+                              attention="mla", mla_kv_lora_rank=8)
+    lp = registry.get_model(mla).init(torch.Generator().manual_seed(0), mla,
+                                      device="cpu")
+    cache = tr.lm_init_paged_cache(lp, mla, 2, 8, 4, 32,
+                                   kv_dtype=torch.int8, device="cpu")
+    assert {k: (tuple(t.shape), t.dtype) for k, t in
+            cache["layer0"].items()} == {
+        "latent_pages": ((2, 9, 4, 8), torch.int8),
+        "latent_scales": ((2, 9, 4, 1), torch.float32)}
+    assert tr.lm_init_prefill_carry(lp, mla, 32, device="cpu") \
+        == {"layer0": {}}
 
 
 def test_random_init_shapes_and_scales():

@@ -63,8 +63,8 @@ _FWD_SPLITS = '''    split_kmajor<T, HD, BK, NT, EXACT>(kb, ks, raw_k);
     fence_to_tensor_cores();
     __syncthreads();                   // the raw tile is free
     if (kt < kt_end) {
-      load_raw<T, HD, BK, NT>(raw_k, kbase, k0 + BK, S, kv_stride);
-      load_raw<T, HD, BK, NT>(raw_v, vbase, k0 + BK, S, kv_stride);
+      load_raw<T, HD, BK, NT>(raw_k, kbase, k0 + BK, Sk, kv_stride);
+      load_raw<T, HD, BK, NT>(raw_v, vbase, k0 + BK, Sk, kv_stride);
       cp_async_commit();
     }
 
@@ -89,8 +89,8 @@ _FWD_OVERLAP = '''    split_kmajor<T, HD, BK, NT, EXACT>(kb, ks, raw_k);
     fence_to_tensor_cores();
     __syncthreads();
     if (kt < kt_end) {
-      load_raw<T, HD, BK, NT>(raw_k, kbase, k0 + BK, S, kv_stride);
-      load_raw<T, HD, BK, NT>(raw_v, vbase, k0 + BK, S, kv_stride);
+      load_raw<T, HD, BK, NT>(raw_k, kbase, k0 + BK, Sk, kv_stride);
+      load_raw<T, HD, BK, NT>(raw_v, vbase, k0 + BK, Sk, kv_stride);
       cp_async_commit();
     }
     if (skip) continue;
@@ -101,8 +101,8 @@ _DQ_SPLITS = '''    split_kmajor<T, HD, BKQ, NT, EXACT>(kb, ks, raw_k);
     fence_to_tensor_cores();
     __syncthreads();                   // the raw tile is free
     if (kt < kt_end) {
-      load_raw<T, HD, BKQ, NT>(raw_k, k + kv_off, k0 + BKQ, S, kv_stride);
-      load_raw<T, HD, BKQ, NT>(raw_v, v + kv_off, k0 + BKQ, S, kv_stride);
+      load_raw<T, HD, BKQ, NT>(raw_k, k + kv_off, k0 + BKQ, Sk, kv_stride);
+      load_raw<T, HD, BKQ, NT>(raw_v, v + kv_off, k0 + BKQ, Sk, kv_stride);
       cp_async_commit();
     }
 
@@ -123,8 +123,8 @@ _DQ_OVERLAP = '''    split_kmajor<T, HD, BKQ, NT, EXACT>(kb, ks, raw_k);
     fence_to_tensor_cores();
     __syncthreads();
     if (kt < kt_end) {
-      load_raw<T, HD, BKQ, NT>(raw_k, k + kv_off, k0 + BKQ, S, kv_stride);
-      load_raw<T, HD, BKQ, NT>(raw_v, v + kv_off, k0 + BKQ, S, kv_stride);
+      load_raw<T, HD, BKQ, NT>(raw_k, k + kv_off, k0 + BKQ, Sk, kv_stride);
+      load_raw<T, HD, BKQ, NT>(raw_v, v + kv_off, k0 + BKQ, Sk, kv_stride);
       cp_async_commit();
     }
 '''
@@ -165,7 +165,7 @@ _FWD_ONE_RAW = '''    cp_async_wait_all();
     split_kmajor<T, HD, BK, NT, EXACT>(kb, ks, raw_k);
     fence_to_tensor_cores();
     __syncthreads();                   // the raw tile is free for V
-    load_raw<T, HD, BK, NT>(raw_v, vbase, k0, S, kv_stride);
+    load_raw<T, HD, BK, NT>(raw_v, vbase, k0, Sk, kv_stride);
     cp_async_commit();
     const bool skip = (causal && k0 > qw + 63) ||
                       (window > 0 && k0 + BK - 1 < qw - window + 1);
@@ -178,7 +178,7 @@ _FWD_ONE_RAW = '''    cp_async_wait_all();
     fence_to_tensor_cores();
     __syncthreads();                   // the raw tile is free for next K
     if (kt < kt_end) {
-      load_raw<T, HD, BK, NT>(raw_k, kbase, k0 + BK, S, kv_stride);
+      load_raw<T, HD, BK, NT>(raw_k, kbase, k0 + BK, Sk, kv_stride);
       cp_async_commit();
     }
     if (skip) continue;
@@ -203,7 +203,7 @@ VARIANTS = {
          "  return 64 * fwd_wgs<HD>() * HD * 4 + BK * HD * (int)sizeof(T) +",
          1),
         (FWD, "  T* raw_v = raw_k + TILE;", "  T* raw_v = raw_k;", 1),
-        (FWD, "  load_raw<T, HD, BK, NT>(raw_v, vbase, kt_begin * BK, S, "
+        (FWD, "  load_raw<T, HD, BK, NT>(raw_v, vbase, kt_begin * BK, Sk, "
               "kv_stride);\n", "", 1),
         (FWD, _FWD_TWO_RAW, _FWD_ONE_RAW, 1)],
     "hd256_bf16_32key": [

@@ -20,7 +20,9 @@ decode libraries of both checkouts are built with each checkout's own
   and 64; softcap 0/30; zero, ragged, bs-1, bs and last-slot cursors),
   and its timing shapes with an int64 cursor.
 
-Every output must be bitwise equal (``torch.equal``).  Prints the card's
+A checkout whose flash entry points take one sequence length (before
+S_k != S_q) is called through ``_OneLengthFlash``, on cases where the two
+lengths are equal.  Every output must be bitwise equal (``torch.equal``).  Prints the card's
 name and power limit first, each mismatch, and one JSON object last
 (cases run and equal per kernel); exits 1 if any case differs.
 """
@@ -47,6 +49,39 @@ from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 PACKAGES = ("flash_attention", "paged_attention")
 
 
+class _OneLengthFlash:
+    """A flash library whose entry points take one S where this checkout's
+    take S_q and S_k: the wrapper's calls with S_k dropped."""
+
+    def __init__(self, lib):
+        fwd, bwd = lib.flash_attention_fwd, lib.flash_attention_bwd
+        fwd.restype = bwd.restype = ctypes.c_int
+        fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                        + [ctypes.c_float, ctypes.c_void_p])
+        bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                        + [ctypes.c_float, ctypes.c_void_p])
+        # S_k follows B and S_q: argument 7 of the forward, 12 of the
+        # backward.
+        self.flash_attention_fwd = self._drop(fwd, 7)
+        self.flash_attention_bwd = self._drop(bwd, 12)
+
+    @staticmethod
+    def _drop(fn, i: int):
+        def call(*args):
+            if args[i] != args[i - 1]:
+                raise ValueError("a one-length flash library needs S_k == S_q")
+            return fn(*args[:i], *args[i + 1:])
+        call.argtypes = fn.argtypes       # the wrapper sets none on it
+        return call
+
+
+def _one_length(root: str) -> bool:
+    path = os.path.join(root, "src", "repro_torch", "kernels",
+                        "flash_attention", "csrc", "flash_attention.cu")
+    with open(path) as f:
+        return "int Sq, int Sk" not in f.read()
+
+
 def build(root: str, side: str) -> dict:
     """{package: loaded library} of the checkout at ``root``."""
     path = os.path.join(root, "src", "repro_torch", "kernels", "_build.py")
@@ -70,6 +105,8 @@ def build(root: str, side: str) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed on {side} {name}:\n{log}")
         libs[name] = ctypes.CDLL(lib)
+    if _one_length(root):
+        libs["flash_attention"] = _OneLengthFlash(libs["flash_attention"])
     return libs
 
 
