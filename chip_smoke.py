@@ -9,16 +9,17 @@ result):
 1. the card: ``nvidia-smi`` name and power limit, torch and device names;
 2. the build: every CUDA kernel of the serving and training paths (flash
    attention forward and backward, paged-attention decode, the
-   Newton–Schulz chain and matmul, the RWKV6 WKV recurrence, the Mamba
-   selective scan), compiled from
+   Newton–Schulz chain and matmul, the RWKV6 WKV recurrence and its
+   backward, the Mamba selective scan and its backward), compiled from
    the sources in this checkout at once, one ``nvcc`` per kernel package,
    with ``-Xptxas -v`` register/shared-memory use; every flash entry
    function's registers and spill bytes, none of the 18 spilling (forward
    and the backward's two, x f32/bf16 x hd 64/128/256), and the same for
    the 72 paged-decode entry functions (q dtype x page dtype x head dim
    64/128/256 x one query head per kv head, 2..8, or more in head blocks
-   of 8), the hd-256 ones printed apart, the 8 WKV entry functions
-   (dtype x head dim) and the 4 selective-scan ones (dtype x state dim);
+   of 8), the hd-256 ones printed apart, the 24 WKV entry functions
+   (forward, its chunk-saving twin and the backward x dtype x head dim)
+   and the 12 selective-scan ones (the same x dtype x state dim);
 3. kernel parity: the flash-attention kernel against its plain PyTorch
    version on the card over dtype x causal x window x softcap x MHA/GQA x
    head dim x ragged lengths, plus jamba's attention shape and the serving
@@ -137,7 +138,8 @@ result):
    never (speculation rounds replace the masked decode); acceptance, mean
    accepted length and aggregate tokens/s beside phase 6's; the same with
    the prefix cache over int8 pages, which must hit; the paper's draft (a
-   random one-layer ``gpt2-12l`` expanded by ``copying_zeroL`` to 12,
+   random one-layer ``gpt2-12l`` expanded by ``copying_zeroL`` to 6
+   (``GPT2_ZEROL_DEPTH``, cut from 12 for time),
    served with its depth-1 truncation): acceptance at least 0.99; and each
    spec stream equal to phase 6's f32 stream, or first different at a
    near-tie (the target's top-2 gap below 1e-4);
@@ -149,20 +151,21 @@ result):
    on the large route beside the embedding), tokens/s at 1 and 24 layers;
 24. ``qwen3-0.3b`` (qk-norm, tied) at full width over phase 6's traffic on
    paged KV, f32 and then int8 pages (the paged kernel at G = 2, hd 64),
-   at 12 layers (``SERVE_CUT``, reduced from 24); then the paper's draft:
-   a one-layer ``qwen3-0.3b`` expanded by ``copying_zeroL`` to 6
+   at 6 layers (``SERVE_CUT``, reduced from 24); then the paper's draft:
+   a one-layer ``qwen3-0.3b`` expanded by ``copying_zeroL`` to 3
    (``QWEN3_ZEROL_DEPTH``, reduced from 24), served with its depth-1
    truncation, acceptance at least 0.99;
 25. ``mixtral-0.3b``: 6 training steps through one expansion (expert
    stacks and routers through the Newton–Schulz kernel), then phase 6's
-   traffic on paged KV at 8 layers (reduced from 24);
-26. ``starcoder2-3b`` at full width, 10 of its 30 layers (reduced; ~1.2 B
-   parameters, ~5 GB f32) over
+   traffic on paged KV at 4 layers (reduced from 24);
+26. ``starcoder2-3b`` at full width, 4 of its 30 layers (reduced; 0.53 B
+   parameters) over
    phase 6's traffic on paged KV: the paged kernel at G = 12, hd 128; then
    card against CPU at depth 2 (the B=1 P=128 generation, whose prefill
    runs flash at G = 12, and three paged requests);
-27. ``rwkv6-7b`` at full width and depth in continuous serving (run right
-   after phase 17, on phase 15's weights), over phase 6's traffic
+27. ``rwkv6-7b`` at full width and 8 layers (``RWKV_CONT_DEPTH``, cut
+   from 32 for time) in continuous serving (run right after phase 17, on
+   the first layers of phase 15's weights), over phase 6's traffic
    through ``ServeEngine`` and ``ContinuousScheduler`` as ``serve.main
    --continuous --paged`` builds and warms them (every request at its
    budget, the pool returned, aggregate tokens/s and TTFT p50/p95), then
@@ -231,8 +234,9 @@ result):
    bf16 peak); the paged decode at G = 2, hd 256,
    softcap 50 and 0, f32/bf16 q over f32, bf16, int8 and fp8 pages at
    contexts past 4096, held by phase 4's rule and timed per page dtype;
-33. ``gemma2-9b`` at full size (42 layers, 7.09 B params drawn on the
-   card) in paged continuous serving, f32: 8 requests into 4 slots,
+33. ``gemma2-9b`` at full width and 12 layers (``GEMMA2_SERVE_DEPTH``,
+   cut from 42 for time; 2.68 B params drawn on the card) in paged
+   continuous serving, f32: 8 requests into 4 slots,
    prompts 4160-6144 (past the 4096 window), 32 tokens, pages of 16,
    counters from 0: the paged kernel once per global layer per decode
    step, flash never, the pool returned; each stream held to solo
@@ -260,16 +264,18 @@ result):
    backward held entry by entry to the plain version by phase 32's rule,
    finite and bit-identical on repeat, timed beside SDPA's best
    non-causal call and the bound; causal attention at S_k != S_q refused;
-37. ``deepseekv3-0.3b`` (MLA) at full size: ``launch/train.py`` 1 -> 24
-   layers at step 3 of 6 (flash at hd 64, G = 2 on the up-projected K/V;
+37. ``deepseekv3-0.3b`` (MLA) at full width and 12 of its 24 layers
+   (``DSV3_DEPTH``, cut for time): ``launch/train.py`` 1 -> 12 layers at
+   step 3 of 6 (flash at hd 64, G = 2 on the up-projected K/V;
    Newton–Schulz over the latent projections and the expert stacks), the
-   24-layer checkpoint served over latent pages (f32, int8, the prefix
+   12-layer checkpoint served over latent pages (f32, int8, the prefix
    cache; no kernel launches: the latent read is plain, as in the
    reference) held to solo ``generate`` under the near-tie rule, MoE
    routed dropless for it; the run's 1-layer checkpoint expanded by
    ``copying_zeroL`` as the draft (acceptance >= 0.99); card against CPU
    at depth 2 (a generation, int8 prefix-cache serving, a train step);
-38. ``qwen2-vl-2b`` (M-RoPE) at full width and depth: text-only paged
+38. ``qwen2-vl-2b`` (M-RoPE) at full width and 14 of its 28 layers
+   (``QWEN2VL_DEPTH``, cut for time): text-only paged
    serving over f32 and int8 pages (the paged kernel at G = 6, hd 128)
    held to solo ``generate``, one training step with 256 frontend embeds
    prepended, card against CPU at depth 2;
@@ -277,12 +283,39 @@ result):
    flash kernels on the encoder's S = 1500, the decoder's causal
    self-attention and the cross-attention at S_k = 1500), 2 -> 6 decoder
    layers with the encoder scaled, greedy decoding through
-   ``encdec_decode_step`` equal to the teacher-forced argmax.
+   ``encdec_decode_step`` equal to the teacher-forced argmax;
+40. the paper's expansion-timing recipe (run last): ``core/recipe.
+   calibrate_tau`` on ``gpt2-12l`` at full width through
+   ``train.loop.train``, two probes of 40 steps at the launcher's batch
+   (16 x 256, Muon-NSGD, WSD): the probe steps, the ``MixingReport``, τ and
+   the production plan, the probes' launches against the count they
+   imply; then ``examples/quickstart_torch.py``'s savings line for it;
+41. the WKV backward (run right after phase 27, on phase 15's weights):
+   ``wkv_bwd.cu`` through ``wkv``'s autograd Function against the plain
+   reverse recurrence (``ref.wkv_bwd_ref``) over head dim (16-128) x S
+   (1, 15, 16, 17, 63, 64, 100, 1024) x decays near 0.69, 0.9975 and 0 x
+   zero/random S_0 x f32/bf16, every gradient entry by entry and finite,
+   bit-identical on repeat at the serving shape; timed there (L2 flushed)
+   beside its bound and the plain version; one loss and backward of
+   ``rwkv6-7b`` at depth 1 on the card against the CPU (the loss and every
+   gradient); then ``rwkv6-7b`` at full width trained 2 -> 4 of its 32
+   layers (``copying_stack``) through the trainer, Muon-NSGD, 4 x 1024
+   tokens a step, every launch derived;
+42. the scan backward (run right after phase 29's jamba half, on phase
+   19's weights): ``selective_scan_bwd.cu`` through both entry points
+   (h0 and the final state's gradient) against
+   ``ref.selective_scan_bwd_ref`` over N (4, 16) x S (1, 15, 64, 100,
+   1024) x d (16, 200, 1000) x decays near 1 and large dt * A x f32/bf16,
+   bit-identical on repeat at jamba's shape; timed there beside its bound
+   and SFU floor; one loss and backward at depth 1 (jamba's dense Mamba
+   layer) against the CPU; then jamba's first two layers (dense Mamba,
+   Mamba + the 16-expert MoE; 3.57 B params) trained 3 steps under NSGD.
 
-``--only 36,37,38,39`` runs the card, the build and the named phases of
-36-39 alone, prints their readings and no closing line.
+``--only 36,...,42`` runs the card, the build and the named phases of
+36-42 alone (41 and 42 on weights drawn on the card for them), prints
+their readings and no closing line.
 
-Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-39) starts
+Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-42) starts
 with every kernel's launch counter at 0 and checks every counter after
 it, the kernels it must not launch included.  Each phase prints its
 seconds.
@@ -404,7 +437,9 @@ COUNTERS = {"flash_attention": ("fa", "KERNEL_LAUNCHES"),
             "ns_fused": ("ns", "NS_FUSED_LAUNCHES"),
             "matmul": ("ns", "MATMUL_LAUNCHES"),
             "wkv": ("wkv", "KERNEL_LAUNCHES"),
-            "selective_scan": ("scan", "KERNEL_LAUNCHES")}
+            "wkv_bwd": ("wkv", "BWD_LAUNCHES"),
+            "selective_scan": ("scan", "KERNEL_LAUNCHES"),
+            "selective_scan_bwd": ("scan", "BWD_LAUNCHES")}
 OPS = {}                            # ops module key -> module, set in main
 
 
@@ -801,26 +836,30 @@ def paged_registers(build_log: str) -> list:
 
 
 def wkv_registers(build_log: str) -> list:
-    """(entry, registers, spill bytes) of every WKV entry function (r/k/v
-    dtype, head dim)."""
+    """(entry, registers, spill bytes) of every WKV entry function, forward
+    and backward (r/k/v dtype, head dim)."""
     import re
 
     def name_of(mangled):
-        k = re.search(r"wkv_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
-        return (f"wkv<{'f32' if k.group(1) == 'f' else 'bf16'}, hd "
-                f"{k.group(2)}>" if k else None)
+        k = re.search(r"(wkv|wkv_bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+                      r"(Lb1E)?", mangled)
+        return (f"{k.group(1)}{'_save' if k.group(4) else ''}<"
+                f"{'f32' if k.group(2) == 'f' else 'bf16'}, hd {k.group(3)}>"
+                if k else None)
     return _entry_registers(build_log, name_of)
 
 
 def scan_registers(build_log: str) -> list:
     """(entry, registers, spill bytes) of every selective-scan entry
-    function (input dtype, state dim)."""
+    function, forward and backward (input dtype, state dim)."""
     import re
 
     def name_of(mangled):
-        k = re.search(r"scan_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
-        return (f"scan<{'f32' if k.group(1) == 'f' else 'bf16'}, N "
-                f"{k.group(2)}>" if k else None)
+        k = re.search(r"(scan|scan_bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+                      r"(Lb1E)?", mangled)
+        return (f"{k.group(1)}{'_save' if k.group(4) else ''}<"
+                f"{'f32' if k.group(2) == 'f' else 'bf16'}, N {k.group(3)}>"
+                if k else None)
     return _entry_registers(build_log, name_of)
 
 
@@ -1551,6 +1590,11 @@ NS_ROUTES = {
     "whisper-base": {"fused": ("wq", "wk", "wv", "wo") * 3
                      + ("w_up", "w_down") * 2,
                      "large": ("embed",)},
+    # the decay's low-rank pair takes the fused route; the 4096-wide
+    # projections, the channel mix and both vocabulary matrices the large
+    "rwkv6-7b": {"fused": ("w_a", "w_b"),
+                 "large": ("w_r", "w_k", "w_v", "w_g", "w_o", "cm_r",
+                           "cm_k", "cm_v", "embed", "lm_head")},
 }
 
 
@@ -1888,11 +1932,10 @@ WKV_DECAYS = {"near 0.69": (0.69, 0.72), "near 0.9975": (0.995, 0.9975),
               "near 0": (1e-4, 0.05)}
 
 
-def wkv_parity(wkv_ops) -> float:
-    """The WKV kernel against its per-step and chunked plain forms over
-    the grid; y and the final state.  Returns the max abs error of y at the
-    main path's prefill shape (f32, zero state) against the chunked form,
-    the one the CPU takes there."""
+def wkv_parity_cases() -> list:
+    """Phase 14's grid, (B, S, H, hd, dtype, state, decay) a case, the main
+    path's prefill shape last (``tools/kernel_bits_compare.py`` runs it
+    too)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for dtype in (f32, bf16):
@@ -1904,6 +1947,17 @@ def wkv_parity(wkv_ops) -> float:
                             cases.append((B, S, H, hd, dtype, state, decay))
     B, S, H, hd = RWKV_SHAPE
     cases.append((B, S, H, hd, f32, False, "near 0.69"))
+    return cases
+
+
+def wkv_parity(wkv_ops) -> float:
+    """The WKV kernel against its per-step and chunked plain forms over
+    the grid; y and the final state.  Returns the max abs error of y at the
+    main path's prefill shape (f32, zero state) against the chunked form,
+    the one the CPU takes there."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = wkv_parity_cases()
+    B, S, H, hd = RWKV_SHAPE
     bad, err = 0, 0.0
     worst = {}
     for n, (B, S, H, hd, dtype, state, decay) in enumerate(cases):
@@ -2173,11 +2227,10 @@ def scan_case(B, S, d, N, dtype, h0, regime, seed):
             + [t.to(dtype) for t in (Bm, Cm)] + [Dp, state])
 
 
-def scan_parity(scan_ops) -> float:
-    """The scan kernel against its per-step and chunked plain forms over
-    the grid, with and without the final state (y and h_final).  Returns
-    the max abs error of y at the main path's prefill shape (f32, zero
-    state) against the chunked form, the one the CPU takes there."""
+def scan_parity_cases() -> list:
+    """Phase 18's grid, (B, S, d, N, dtype, h0, regime) an input set, the
+    main path's prefill shape last (``tools/kernel_bits_compare.py`` runs
+    it too)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(B, S, d, N, dtype, h0, regime)
              for dtype in (f32, bf16) for d in (16, 256, 1000, 8192)
@@ -2190,6 +2243,17 @@ def scan_parity(scan_ops) -> float:
               for S in (63, 1024) for B in (1, 4) for h0 in (False, True)]
     B, S, d, N = JAMBA_SCAN_SHAPE
     cases.append((B, S, d, N, f32, False, "model"))
+    return cases
+
+
+def scan_parity(scan_ops) -> float:
+    """The scan kernel against its per-step and chunked plain forms over
+    the grid, with and without the final state (y and h_final).  Returns
+    the max abs error of y at the main path's prefill shape (f32, zero
+    state) against the chunked form, the one the CPU takes there."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = scan_parity_cases()
+    B, S, d, N = JAMBA_SCAN_SHAPE
     bad, err, worst = 0, 0.0, {}
     for n, (B, S, d, N, dtype, h0, regime) in enumerate(cases):
         *args, state = scan_case(B, S, d, N, dtype, h0, regime, 5000 + n)
@@ -2476,6 +2540,10 @@ SPEC_ARGV = ["--spec-depth", str(SPEC_DEPTH), "--gamma", str(SPEC_GAMMA)]
 # depth) proposes what the target emits; on the card the draft's decode and
 # the target's verify sum in other orders, so only near-ties flip an argmax.
 SPEC_ZEROL_ACCEPTANCE = 0.99
+# Phase 22's draft of gpt2-12l: a one-layer source expanded to this many
+# layers (cut from 12 to make room for phases 40-42: the acceptance does
+# not depend on the depth, the run's time does).
+GPT2_ZEROL_DEPTH = 6
 # A spec stream may leave phase 6's f32 stream only where the target's
 # top-2 logit gap at the first differing position is below this: the
 # verify's gathered f32 context and the decode kernel sum in other orders
@@ -2613,15 +2681,14 @@ def spec_vs_plain(cfg, registry, spec, plain, engine) -> int:
 # Phases 23-26: the RoPE architectures at full width, random weights from
 # seed 0 in f32.  llama3-0.3b trains with the launcher's defaults, one
 # layer to 24 at half of 12 steps; mixtral-0.3b through one expansion in 6.
-# Phases 24-26 serve phase 6's traffic at these depths (cut in PR 26 from
-# 24, 24 and 30 to make room for phases 36-39: each layer adds the same
-# host-bound step work, and starcoder2's 3 B weights were drawn on the
-# host for 27 s).
-SERVE_CUT = {"qwen3-0.3b": 12, "mixtral-0.3b": 8, "starcoder2-3b": 10}
+# Phases 24-26 serve phase 6's traffic at these depths (cut from 24, 24
+# and 30 to make room for phases 36-42: each layer adds the same
+# host-bound step work, and starcoder2's weights are drawn on the host).
+SERVE_CUT = {"qwen3-0.3b": 6, "mixtral-0.3b": 4, "starcoder2-3b": 4}
 # The paper's draft over qwen3-0.3b: a one-layer source expanded to this
-# many layers (cut from 24 in PR 26 to make room for phases 36-39: the
-# acceptance does not depend on the depth, the run's time does).
-QWEN3_ZEROL_DEPTH = 6
+# many layers (cut from 24 to make room for phases 36-42: the acceptance
+# does not depend on the depth, the run's time does).
+QWEN3_ZEROL_DEPTH = 3
 MIXTRAL_TRAIN_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + [
     "--steps", "6"] + TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 2:]
 
@@ -2684,6 +2751,10 @@ RWKV_PAGED_ARGV = _with_arch(PAGED_ARGV, "rwkv6-7b")
 # layers (cut from 32: the acceptance does not depend on the depth, the
 # run's time does).
 RWKV_ZEROL_DEPTH = 4
+# Phase 27 serves the first 8 of phase 15's 32 layers (cut from 32 to make
+# room for phases 40-42: each layer adds the same host-bound
+# chunk and step work; the full depth's prefill and decode stay phase 15's).
+RWKV_CONT_DEPTH = 8
 RWKV_SPEC_REQUESTS = 8
 PAGE = 16                           # --block-size of every paged run here
 
@@ -2749,8 +2820,9 @@ def _requests_of(traffic):
 
 
 def rwkv_continuous_paths(cfglib, registry, params):
-    """Phase 27: ``rwkv6-7b`` at full width and depth over phase 6's
-    traffic, on phase 15's weights ``params``.  ``RWKV_PAGED_ARGV``'s run
+    """Phase 27: ``rwkv6-7b`` at full width and ``RWKV_CONT_DEPTH`` layers
+    over phase 6's traffic, on the first layers of phase 15's weights
+    ``params`` (views, no copy).  ``RWKV_PAGED_ARGV``'s run
     through the engine and scheduler ``serve.main --continuous --paged``
     builds (warm-up and run) first, then on the same weights the prefix
     cache, ``--spec-depth 2 --gamma 4`` and the paper's draft, counters
@@ -2758,7 +2830,10 @@ def rwkv_continuous_paths(cfglib, registry, params):
     chunks this script derives from the requests.  Returns {run: WKV
     launches}."""
     from repro_torch.train.serve_engine import ServeEngine
-    cfg = cfglib.get_config("rwkv6-7b")
+    from repro_torch.tree import tree_map
+    cfg = cfglib.get_config("rwkv6-7b").with_depth(RWKV_CONT_DEPTH)
+    params = dict(params, blocks=tree_map(lambda t: t[:RWKV_CONT_DEPTH],
+                                          params["blocks"]))
     L = cfg.num_layers
     gc.collect()
     torch.cuda.empty_cache()
@@ -3546,6 +3621,11 @@ GEMMA_PAGED = dict(B=4, H=16, KV=8, hd=HD256, bs=16, NB=400, cursor=5000)
 GEMMA_PAGED_CURSORS = [4200, 6175, 4096, 0]
 # Phase 33: gemma2-9b at full size, 8 requests into 4 slots.
 GEMMA2_TRAFFIC = dict(n=8, lo=4160, hi=6144, gen=32, slots=4, seed=33)
+# Phase 33 serves gemma2-9b at 12 of its 42 layers (cut to make room for
+# phases 40-42: six of its 21 local/global pairs; every request still runs
+# past the 4096 window and the paged kernel at G = 2, hd 256 on each global
+# layer).
+GEMMA2_SERVE_DEPTH = 12
 # Phase 34: gemma3-12b at full width and 12 layers (two 5:1 periods), 16
 # requests into 8 slots: a 1280-token shared prefix alone, then 15 prompts
 # of 1281-2000 tokens that extend it.
@@ -3933,8 +4013,9 @@ def _solo_streams(label, cfg, params, traffic, max_len):
 
 
 def gemma2_full_serving(cfglib, registry) -> dict:
-    """Phase 33: ``gemma2-9b`` at full size (42 layers, 7.09 B params,
-    random weights drawn on the card), paged continuous serving in f32: 8
+    """Phase 33: ``gemma2-9b`` at full width and ``GEMMA2_SERVE_DEPTH``
+    layers (random weights drawn on the card), paged continuous serving in
+    f32: 8
     requests into 4 slots, prompts uniform in 4160-6144 (past the 4096
     window: every ring wraps), 32 new tokens, pages of 16, counters from
     0: the paged kernel once per global layer per masked decode step
@@ -3943,7 +4024,7 @@ def gemma2_full_serving(cfglib, registry) -> dict:
     the softcap) under phase 22's near-tie rule.  Returns launch counts."""
     from repro_torch.train.serve_engine import ServeEngine
     t0 = time.perf_counter()
-    cfg = cfglib.get_config("gemma2-9b")
+    cfg = cfglib.get_config("gemma2-9b").with_depth(GEMMA2_SERVE_DEPTH)
     params = draw_on_card(registry, cfg)
     t = GEMMA2_TRAFFIC
     traffic = _gemma_traffic(cfg, t)
@@ -3966,7 +4047,8 @@ def gemma2_full_serving(cfglib, registry) -> dict:
                        params)
     ring_gb = 2 * 4096 * cfg.num_kv_heads * cfg.head_dim * 4 \
         * (cfg.num_layers - n_glob) / 1e9
-    print(f"gemma2-9b full size: {len(traffic)} requests (prompts "
+    print(f"gemma2-9b at {cfg.num_layers} layers: {len(traffic)} requests "
+          f"(prompts "
           f"{min(len(p) for p, _ in traffic)}-"
           f"{max(len(p) for p, _ in traffic)}) at their budgets; {paged} "
           f"paged launches = {steps} decode steps x {n_glob} global layers; "
@@ -4314,10 +4396,13 @@ def cross_attention_lane(fa_ops) -> dict:
 
 
 # Phase 37: deepseekv3-0.3b (MLA) at full size.  Its training is the
-# launcher's run of phase 25's length (1 -> 24 layers); its serving
+# launcher's run of phase 25's length (1 -> DSV3_DEPTH layers); its serving
 # traffic 6 requests into 3 slots over a 128-token shared prefix (the bare
 # prefix first), prompts up to 448 tokens, 16 tokens each, pages of 16.
 DSV3 = "deepseekv3-0.3b"
+# Phase 37 trains and serves deepseekv3-0.3b at 12 of its 24 layers (cut
+# to make room for phases 40-42: each layer adds the same host-bound work).
+DSV3_DEPTH = 12
 DSV3_TRAFFIC = dict(n=6, lo=160, hi=448, gen=16, slots=3, seed=37,
                     shared=128)
 # Phase 38: qwen2-vl-2b at full width and depth (28 layers), text-only
@@ -4325,6 +4410,9 @@ DSV3_TRAFFIC = dict(n=6, lo=160, hi=448, gen=16, slots=3, seed=37,
 # sequences of 256 frontend embeds + 256 tokens.
 QWEN2VL = "qwen2-vl-2b"
 QWEN2VL_TRAFFIC = dict(n=8, lo=256, hi=768, gen=32, slots=8, seed=38)
+# Phase 38 runs qwen2-vl-2b at 14 of its 28 layers (cut to make room for
+# phases 40-42: each layer adds the same host-bound step work).
+QWEN2VL_DEPTH = 14
 QWEN2VL_TRAIN_B, QWEN2VL_TRAIN_S = 2, 256
 # Phase 39: whisper-base at full size (6 + 6 layers, 1500 frames): batches
 # of 4 x 1500 frames and 448 tokens (the decoder's context), 2 Muon steps
@@ -4351,10 +4439,11 @@ def _on_card(params):
 
 def deepseekv3_paths(cfglib, registry, train, serve, fa_ops) -> dict:
     """Phase 37: ``deepseekv3-0.3b`` at full size.  The paper's recipe
-    through ``launch/train.py`` (phase 25's length: 1 -> 24 layers at step
+    through ``launch/train.py`` (phase 25's length: 1 -> ``DSV3_DEPTH``
+    layers at step
     3 of 6, Muon-NSGD under WSD; flash forward and backward at hd 64, G = 2
     on the up-projected K/V; the Newton–Schulz kernels over the latent
-    projections and the expert stacks).  Its 24-layer checkpoint served
+    projections and the expert stacks).  Its grown checkpoint served
     with continuous batching over paged KV, the pages holding latent rows:
     f32 pages, int8 pages, the prefix cache (hits held to the f32 run's
     streams); no kernel launches there (the latent read is plain, as in
@@ -4366,7 +4455,8 @@ def deepseekv3_paths(cfglib, registry, train, serve, fa_ops) -> dict:
     are close, so an MoE model's int8 stream leaves the f32 one far more
     often than a dense one's (the int8 MLA path is held to the CPU's
     instead, at depth 2).  The paper's draft: the run's one-layer
-    checkpoint at step 3 expanded by ``copying_zeroL`` to 24 and drafted
+    checkpoint at step 3 expanded by ``copying_zeroL`` to that depth and
+    drafted
     at depth 1 (acceptance at least ``SPEC_ZEROL_ACCEPTANCE``, one flash
     launch an admission), its streams held to the source's solo
     generation.  Serving routes dropless (``_dropless``), so that chunked
@@ -4376,12 +4466,20 @@ def deepseekv3_paths(cfglib, registry, train, serve, fa_ops) -> dict:
     from repro_torch.core import expansion
     from repro_torch.train.serve_engine import ServeEngine
     t0 = time.perf_counter()
-    cfg = cfglib.get_config(DSV3)
+    cfg = cfglib.get_config(DSV3).with_depth(DSV3_DEPTH)
     out = {}
+    saved = train.cfglib
+    # launch/train.py draws and grows the model at DSV3_DEPTH
+    train.cfglib = types.SimpleNamespace(**{
+        **vars(saved), "get_config": lambda name: cfg if name == DSV3
+        else saved.get_config(name)})
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir = os.path.join(tmp, "run")
-        _, out["training"] = train_main_path(cfg, train, ckpt_dir,
-                                             MIXTRAL_TRAIN_ARGV)
+        try:
+            _, out["training"] = train_main_path(cfg, train, ckpt_dir,
+                                                 MIXTRAL_TRAIN_ARGV)
+        finally:
+            train.cfglib = saved
         p24, _ = serve.load_params(ckpt_dir, cfg)
         p1, cfg1 = serve.load_params(ckpt_dir, cfg, step=int(
             TRAIN_TAU * 6))
@@ -4473,8 +4571,8 @@ def deepseekv3_paths(cfglib, registry, train, serve, fa_ops) -> dict:
 
 
 def qwen2_vl_paths(cfglib, registry, fa_ops) -> dict:
-    """Phase 38: ``qwen2-vl-2b`` at full width and depth (28 layers, ~1.5
-    B params drawn on the card), M-RoPE with text ids.  Text-only
+    """Phase 38: ``qwen2-vl-2b`` at full width and ``QWEN2VL_DEPTH``
+    layers (drawn on the card), M-RoPE with text ids.  Text-only
     continuous serving over paged KV, f32 and int8 pages (the paged kernel
     at G = 6, hd 128, once a layer a masked decode step; the int8 run's
     agreement with f32 a finding: at this width with random weights the
@@ -4493,7 +4591,7 @@ def qwen2_vl_paths(cfglib, registry, fa_ops) -> dict:
     from repro_torch.train import steps as steps_lib
     from repro_torch.train.serve_engine import ServeEngine
     t0 = time.perf_counter()
-    cfg = cfglib.get_config(QWEN2VL)
+    cfg = cfglib.get_config(QWEN2VL).with_depth(QWEN2VL_DEPTH)
     params = draw_on_card(registry, cfg)
     t = QWEN2VL_TRAFFIC
     traffic = _gemma_traffic(cfg, t)
@@ -4691,11 +4789,667 @@ def whisper_paths(cfglib, registry) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 40-42: the paper's expansion-timing recipe, and training rwkv6-7b
+# and jamba on the card through the recurrent backward kernels
+# ---------------------------------------------------------------------------
+
+# Phase 40: core/recipe.calibrate_tau on gpt2-12l at full width: two probes
+# of RECIPE_PROBE_STEPS steps at the launcher's batch (16 x 256, Muon-NSGD
+# under WSD, a one-layer source) for a production run of RECIPE_TOTAL steps.
+RECIPE_PROBE_STEPS, RECIPE_TOTAL = 40, 1000
+
+# The backward kernels against their plain reverse recurrences, entry by
+# entry: 1e-4 of max(1, max|plain|) (f32 sums in other orders; the kernels
+# re-run their states from the forward's chunk starts), plus 2^-7 |plain|
+# where the gradient is bfloat16 (both sides round it once, and two f32
+# values a hair apart can round to neighbouring bf16 values, one unit in the
+# last place apart).  The gradients of dtype f32 (dw, du, the states' and
+# the scan's dA, dD) take the f32 rule whatever the inputs' dtype.
+REC_BWD_TOL = 1e-4
+# Phase 41's grid of lengths: one step, around and at the forward's chunks
+# (16 at hd 128, 32 otherwise), past them, and the serving shape's.
+WKV_BWD_S = (1, 15, 16, 17, 63, 64, 100, 1024)
+# rwkv6-7b trained at full width, 2 -> 4 of its 32 layers (copying_stack at
+# half the steps), Muon-NSGD, batches of 4 x 1024 (full depth holds about
+# 90 GB with grads and momentum and does not fit the card).
+RWKV_TRAIN = dict(source=2, target=4, steps=4, batch=4, seq=1024)
+# One step at depth 1, card against CPU: the loss to TRAIN_LOSS_TOL and
+# every gradient leaf within REC_GRAD_TOL of its largest CPU entry (cuBLAS
+# and MKL f32 products and the kernels against the plain forms, through one
+# layer and the 65536-wide head).
+REC_GRAD_TOL = 1e-3
+REC_CPU_BATCH = dict(batch=2, seq=64)
+# Phase 42's grid of the scan backward.
+SCAN_BWD_S, SCAN_BWD_D = (1, 15, 64, 100, 1024), (16, 200, 1000)
+# jamba at full width, its first two layers (a dense Mamba layer, a Mamba
+# layer with the 16-expert MoE) as a period-2 pattern of their own: the
+# 8-layer period admits no depth 1 or 2, and the two-layer pattern no depth
+# 1, so the run trains depth 2 (3.57 B params; 4 layers, 6.6 B, do not fit
+# with grads and momentum).  NSGD, not Muon-NSGD: Muon over the 48 expert
+# matrices of 4096 x 14336 is ~264 TFLOP of 3xTF32 work a step, seconds a
+# step beside the scan's milliseconds.
+JAMBA_TRAIN = dict(layers=2, steps=3, batch=4, seq=1024, optimizer="nsgd")
+
+
+def _load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` unrun)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def recipe_phase(cfglib) -> dict:
+    """Phase 40: ``calibrate_tau`` on ``gpt2-12l`` at full width through
+    ``train.loop.train`` on the card, every counter at 0 just before: the
+    probes' steps, the ``MixingReport``, τ and the production plan, each
+    kernel's launches against the count the two probes imply; then the
+    quickstart's eq (1.1) savings line for that plan."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import recipe
+    t0 = time.perf_counter()
+    cfg = cfglib.get_config("gpt2-12l")
+    base = TrainConfig(total_steps=RECIPE_TOTAL, seq_len=256,
+                       global_batch=16, source_layers=1)
+    zero_counts()
+    res = recipe.calibrate_tau(cfg, base, probe_steps=RECIPE_PROBE_STEPS,
+                               log_fn=lambda m: print(f"  {m}"),
+                               device="cuda")
+    counts = read_counts()
+    T = res.probe_steps
+    warmup = max(1, int(base.schedule.warmup_frac * T))
+    exp = max(1, int((warmup + 1) / T * T))         # the trainer's rounding
+    layers = [cfg.num_layers] * T + [base.source_layers] * exp \
+        + [cfg.num_layers] * (T - exp)
+    fused, large = _ns_launches(cfg)
+    want = {name: 0 for name in COUNTERS}
+    want.update(flash_attention=sum(layers), flash_attention_bwd=sum(layers),
+                ns_fused=fused * 2 * T, matmul=large * 2 * T)
+    if counts != want:
+        _fail(f"calibrate_tau launches {counts}, expected {want}")
+    rep = res.mixing
+    e = res.train_config.expansions[0]
+    warm_prod = int(base.schedule.warmup_frac * base.total_steps)
+    stable_end = base.total_steps - max(1, int(base.total_steps
+                                               * base.schedule.decay_frac))
+    if not warm_prod < res.tau <= stable_end or e.target_layers != 12 \
+            or abs(e.at_frac - res.tau / base.total_steps) > 1e-9:
+        _fail(f"calibrate_tau: tau {res.tau} outside ({warm_prod}, "
+              f"{stable_end}] or plan {e}")
+    quick = _load_example("quickstart_torch")
+    line = quick.savings_line(cfg, base.total_steps, res.tau,
+                              base.seq_len * base.global_batch,
+                              base.source_layers)
+    print(f"calibrate_tau gpt2-12l: probes of {T} steps (16 x 256, "
+          f"Muon-NSGD, WSD; expansion 1 -> 12 at step {exp}); "
+          f"MixingReport(mixed={rep.mixed}, mix_step={rep.mix_step}, "
+          f"mix_tokens={rep.mix_tokens}, tolerance={rep.tolerance}); "
+          f"tau = {res.tau} of {base.total_steps} ({e.init}); launches "
+          f"{counts}")
+    print(f"  quickstart_torch: {line}")
+    sec = time.perf_counter() - t0
+    print(f"recipe phase {sec:.1f} s")
+    return dict(tau=res.tau, mixed=rep.mixed, mix_step=rep.mix_step,
+                mix_tokens=rep.mix_tokens, probe_steps=T, launches=counts,
+                savings=line, seconds=sec)
+
+
+def _bwd_ratio(got, want) -> float:
+    """The largest |got - plain| over its entry's limit (``REC_BWD_TOL``)."""
+    w = want.float()
+    room = torch.full_like(w, REC_BWD_TOL * max(1.0, w.abs().max().item()))
+    if want.dtype == torch.bfloat16:
+        room = room + 2.0 ** -7 * w.abs()
+    return _worst_ratio(got, w, room)
+
+
+def _grads_through(fn, leaves_in, cotangents):
+    """Gradients of sum(out * cotangent) over ``fn``'s outputs with respect
+    to ``leaves_in`` (fresh leaves), through autograd."""
+    leaves = [t.detach().clone().requires_grad_() for t in leaves_in]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * c.float()).sum()
+               for o, c in zip(outs, cotangents) if c is not None)
+    return torch.autograd.grad(loss, leaves)
+
+
+def wkv_bwd_parity(wkv_ops) -> dict:
+    """Phase 41, its kernel lane: the WKV backward through ``wkv``'s
+    autograd Function (the forward saving its chunk states, then the
+    backward kernel) against ``ref.wkv_bwd_ref`` on the same inputs and
+    cotangents (dy, and the final state's), every gradient entry by entry
+    and finite, over head dim x length x decays x zero/random S_0 x dtype,
+    one backward launch a case; then the serving shape (f32) and 3 repeats
+    there, bit-identical, f32 and bf16."""
+    from repro_torch.kernels.rwkv6 import ref
+    t0 = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(2, S, 2, hd, dtype, state, decay)
+             for dtype in (f32, bf16) for hd in (16, 32, 64, 128)
+             for S in WKV_BWD_S for decay in WKV_DECAYS
+             for state in (False, True)]
+    cases.append(RWKV_SHAPE[:3] + (RWKV_SHAPE[3], f32, True, "near 0.69"))
+    bad, worst, main_err = 0, {}, 0.0
+    for n, (B, S, H, hd, dtype, state, decay) in enumerate(cases):
+        args = wkv_case(B, S, H, hd, dtype, state, WKV_DECAYS[decay],
+                        seed=5000 + n, zeros=decay == "near 0")
+        g = torch.Generator(device="cuda").manual_seed(6000 + n)
+        dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dtype)
+        ds = torch.randn(args[5].shape, generator=g, device="cuda")
+        before = wkv_ops.BWD_LAUNCHES
+        got = _grads_through(wkv_ops.wkv, args, (dy, ds))
+        torch.cuda.synchronize()
+        want = ref.wkv_bwd_ref(*args, dy, ds)
+        ratio = max(_bwd_ratio(a, b) for a, b in zip(got, want))
+        ok = (ratio <= 1.0 and wkv_ops.BWD_LAUNCHES == before + 1
+              and all(a.dtype == b.dtype for a, b in zip(got, want))
+              and all(bool(torch.isfinite(a).all()) for a in got))
+        bad += not ok
+        label = (f"{str(dtype)[6:]:8s} B{B} S{S:<4d} H{H:<2d} hd{hd:<3d} "
+                 f"state {'rand' if state else 'zero'} decay {decay}")
+        if dtype not in worst or ratio > worst[dtype][0]:
+            worst[dtype] = (ratio, label)
+        if not ok:
+            print(f"  wkv bwd {label}: {ratio:.3f} of the limit FAIL")
+        if n == len(cases) - 1:
+            main_err = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(got, want))
+        del got, want
+    for dtype, (ratio, label) in worst.items():
+        print(f"  wkv bwd worst {str(dtype)[6:]}: {ratio:.3f} of the limit "
+              f"at {label}")
+    if bad:
+        _fail(f"{bad} of {len(cases)} WKV backward cases")
+    print(f"wkv bwd parity: {len(cases)} cases within their entry-by-entry "
+          f"limits, finite, one backward launch each; serving shape max abs "
+          f"err {main_err:.3e}")
+    B, S, H, hd = RWKV_SHAPE
+    for dtype in (f32, bf16):
+        args = wkv_case(B, S, H, hd, dtype, True, WKV_DECAYS["near 0.69"], 8)
+        g = torch.Generator(device="cuda").manual_seed(9)
+        dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dtype)
+        first = _grads_through(wkv_ops.wkv, args, (dy, None))
+        for _ in range(3):
+            again = _grads_through(wkv_ops.wkv, args, (dy, None))
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                _fail(f"wkv backward repeats differ ({dtype})")
+    print("wkv bwd: 3 repeats bit-identical at the serving shape, f32 and "
+          f"bf16 (every gradient); phase {time.perf_counter() - t0:.1f} s")
+    return dict(cases=len(cases), worst={str(k)[6:]: v[0]
+                                         for k, v in worst.items()},
+                max_abs_err=main_err)
+
+
+def wkv_bwd_times(wkv_ops) -> dict:
+    """The backward kernel at the serving shape, f32 and bf16 r/k/v, L2
+    flushed (CUDA events), beside its bound and the plain reverse
+    recurrence's time (f32)."""
+    from repro_torch.kernels.rwkv6 import ref
+    B, S, H, hd = RWKV_SHAPE
+    flush = _flusher()
+    C = wkv_ops._entry("wkv_chunk_steps")(hd)
+    # Per state entry and step the kernel does: the state re-run twice (a
+    # multiply and an FMA each, 3 operations), then dr, dw and dk as FMAs
+    # (6), dv's multiply and its column sum's add (2), G's multiply and FMA
+    # (3): 17 operations, f32 on the CUDA cores.
+    flops = 17 * B * S * H * hd * hd
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        r, k, v, w, u, s0 = wkv_case(B, S, H, hd, dtype, True,
+                                     WKV_DECAYS["near 0.69"], 11)
+        _, _, chunks = wkv_ops.wkv_cuda(r, k, v, w, u, s0, save_chunks=True)
+        g = torch.Generator(device="cuda").manual_seed(12)
+        dy = torch.randn(r.shape, generator=g, device="cuda").to(dtype)
+        ds = torch.randn(s0.shape, generator=g, device="cuda")
+        ms = _time_device_ms(lambda: wkv_ops.wkv_bwd_cuda(
+            r, k, v, w, u, chunks, dy, ds), 10, flush)
+        e = r.element_size()
+        nbytes = (4 * r.numel() * e + w.numel() * 4      # r, k, v, dy, w
+                  + 3 * r.numel() * e + w.numel() * 4    # dr, dk, dv, dw
+                  + chunks.numel() * 4 + 2 * s0.numel() * 4 + 2 * u.numel() * 4)
+        bound = _bound(flops, nbytes)
+        name = str(dtype)[6:]
+        print(f"wkv bwd kernel at B={B} S={S} H={H} hd={hd} {name} r/k/v "
+              f"(chunks of {C}), L2 flushed: {ms:.4f} ms; bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP f32), "
+              f"{ms / bound['bound_ms']:.2f}x")
+        out[name] = (ms, bound, (r, k, v, w, u, s0, dy, ds))
+    ms, bound, args = out["float32"]
+    plain_ms = _time_ms(lambda: ref.wkv_bwd_ref(*args), 2)
+    print(f"wkv bwd times at B={B} S={S} H={H} hd={hd} f32: kernel "
+          f"{ms:.4f} ms, plain reverse recurrence {plain_ms:.4f} ms, "
+          f"library none; bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, **bound,
+                bf16_ms=out["bfloat16"][0],
+                bf16_bound_ms=out["bfloat16"][1]["bound_ms"])
+
+
+def _cut_params(params, cfg, device="cuda"):
+    """``cfg``'s params taken from a deeper or wider-patterned draw of the
+    same architecture: each leaf of ``cfg``'s tree at the same path, the
+    stacked blocks' leading axis cut to ``cfg``'s; copies on ``device``."""
+    from repro_torch.models import registry
+    from repro_torch.tree import leaves_with_path
+    like = registry.get_model(cfg).init(None, cfg, device="meta")
+    out = {}
+    for path, x in leaves_with_path(like):
+        src = params
+        for key in path:
+            src = src[key]
+        if path[0] == "blocks":
+            src = src[:x.shape[0]]
+        if tuple(src.shape) != tuple(x.shape) or src.dtype != x.dtype:
+            _fail(f"cutting {cfg.name}: {path} {tuple(src.shape)} "
+                  f"{src.dtype}, expected {tuple(x.shape)} {x.dtype}")
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = src.detach().to(device, copy=True)
+    return out
+
+
+def _train_from(params, cfg, tcfg):
+    """``train.loop``'s trainer (``ProgressiveTrainer``) on the card with
+    its fresh init replaced by ``params`` (a cut of weights drawn earlier,
+    instead of a host draw of the same size), uniform-token batches, every
+    counter at 0 just before.  Returns (result, counts, peak GiB)."""
+    from repro_torch.train.engine import ProgressiveTrainer
+
+    class FromParams(ProgressiveTrainer):
+        def _init_state(self, c):
+            if c.num_layers != tcfg.source_layers:
+                _fail(f"{c.name}: fresh init at {c.num_layers} layers")
+            return params, self.opt.init(params)
+
+    data = _UniformTokens(cfg.vocab_size, tcfg.seq_len, tcfg.global_batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = FromParams(cfg, tcfg, data=data, device="cuda",
+                     log_fn=lambda *a: None, async_ckpt=False).run()
+    torch.cuda.synchronize()
+    return res, read_counts(), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _check_training(label, res, counts, want, layers):
+    h = res.history
+    if counts != want:
+        _fail(f"{label} training launches {counts}, expected {want}")
+    if h["layers"] != layers or not all(np.isfinite(h["loss"])):
+        _fail(f"{label} training: losses {h['loss']} at layers "
+              f"{h['layers']}, expected layers {layers}")
+
+
+def rwkv_training(cfglib, src) -> dict:
+    """Phase 41's training: ``rwkv6-7b`` at full width from ``src`` (a
+    2-layer cut of phase 15's weights), expanded to 4 (``copying_stack``)
+    at half of ``RWKV_TRAIN``'s steps, Muon-NSGD, 4 x 1024 tokens a step:
+    finite losses, the expansion, and every kernel's launches against the
+    count the run implies (the WKV forward and backward once a layer a
+    step)."""
+    from repro_torch.configs.base import ExpansionConfig, TrainConfig
+    t0 = time.perf_counter()
+    c = RWKV_TRAIN
+    cfg = cfglib.get_config("rwkv6-7b").with_depth(c["target"])
+    tau = c["steps"] // 2
+    tcfg = TrainConfig(
+        total_steps=c["steps"], seq_len=c["seq"], global_batch=c["batch"],
+        source_layers=c["source"], expansions=(ExpansionConfig(
+            at_frac=tau / c["steps"], target_layers=c["target"],
+            init="copying_stack"),),
+        eval_every=10 ** 9, checkpoint_every=10 ** 9, log_every=1)
+    res, counts, peak = _train_from(src, cfg, tcfg)
+    del src
+    layers = [c["source"]] * tau + [c["target"]] * (c["steps"] - tau)
+    want = {name: 0 for name in COUNTERS}
+    want.update(wkv=sum(layers), wkv_bwd=sum(layers))
+    for n in layers:
+        fused, large = _ns_launches(cfg.with_depth(n))
+        want["ns_fused"] += fused
+        want["matmul"] += large
+    _check_training("rwkv6-7b", res, counts, want, layers)
+    ms = [round(1e3 * t, 1) for _, t in res.step_times]
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    print(f"rwkv6-7b training at full width: {c['source']} -> "
+          f"{c['target']} layers at step {tau} (copying_stack), "
+          f"{c['batch']} x {c['seq']} tokens a step, Muon-NSGD: losses "
+          f"{[round(x, 4) for x in res.history['loss']]}; {n_params} params "
+          f"at {c['target']} layers; launches {counts}; step times {ms} ms; "
+          f"peak device memory {peak:.2f} GiB; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=counts, losses=res.history["loss"], step_ms=ms,
+                peak_gib=peak, params=n_params)
+
+
+def _loss_and_grads(params, cfg, batch):
+    from repro_torch.models import transformer as tr
+    leaves = _leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = tr.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def train_grads_card_vs_cpu(label, cfg, card, host, kernel) -> dict:
+    """One loss and backward at ``cfg`` (full width, reduced depth) from the
+    same params on the card (``card``) and the CPU (``host``), on the same
+    batch (``REC_CPU_BATCH``): the loss to ``TRAIN_LOSS_TOL``, every
+    gradient leaf within ``REC_GRAD_TOL`` of its largest CPU entry; the
+    card's backward kernel ``kernel`` launched once a layer."""
+    c = REC_CPU_BATCH
+    host_batch = _UniformTokens(cfg.vocab_size, c["seq"], c["batch"],
+                                seed=7).batch(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for side, p in (("card", card), ("host", host)):
+        dev = next(iter(_leaves(p))).device
+        batch = {k: torch.from_numpy(v).long().to(dev)
+                 for k, v in host_batch.items()}
+        zero_counts()
+        t0 = time.perf_counter()
+        out[side] = _loss_and_grads(p, cfg, batch) + (
+            time.perf_counter() - t0, read_counts()[kernel])
+    if out["card"][3] != cfg.num_layers or out["host"][3] != 0:
+        _fail(f"{label} card vs cpu: {kernel} launches {out['card'][3]} "
+              f"on the card, {out['host'][3]} on the CPU")
+    loss_diff = abs(out["card"][0] - out["host"][0])
+    worst, worst_i = 0.0, -1
+    for i, (a, b) in enumerate(zip(out["card"][1], out["host"][1])):
+        rel = (a.cpu() - b).abs().max().item() / max(
+            b.abs().max().item(), 1e-30)
+        if not bool(torch.isfinite(a).all()) or rel > worst:
+            worst, worst_i = (float("inf") if not bool(
+                torch.isfinite(a).all()) else rel), i
+    from repro_torch.tree import leaves_with_path
+    names = [".".join(p) for p, _ in leaves_with_path(host)]
+    print(f"{label} train card vs cpu at {cfg.num_layers} layer(s): loss "
+          f"{out['card'][0]:.6f} vs {out['host'][0]:.6f} (diff "
+          f"{loss_diff:.2e}, tol {TRAIN_LOSS_TOL:.0e}); worst gradient "
+          f"{worst:.2e} of its largest entry at {names[worst_i]} (tol "
+          f"{REC_GRAD_TOL:.0e}, {len(names)} leaves); CPU "
+          f"{out['host'][2]:.1f} s")
+    if loss_diff > TRAIN_LOSS_TOL or worst > REC_GRAD_TOL:
+        _fail(f"{label}: one loss and backward differ between the card and "
+              "the CPU")
+    return dict(loss_diff=loss_diff, worst_grad_rel=worst)
+
+
+def rwkv_backward_phase(cfglib, params):
+    """Phase 41's first half (right after phase 27, on phase 15's
+    weights): the depth-1 step card against CPU, and the 2-layer cut the
+    training starts from.  Returns (readings, cut); the caller frees
+    ``params`` before ``rwkv_backward_rest``."""
+    cfg = cfglib.get_config("rwkv6-7b")
+    cfg1 = cfg.with_depth(1)
+    card = _cut_params(params, cfg1)
+    host = _cut_params(params, cfg1, device="cpu")
+    vs = train_grads_card_vs_cpu("rwkv6-7b", cfg1, card, host, "wkv_bwd")
+    del card, host
+    cut = _cut_params(params, cfg.with_depth(RWKV_TRAIN["source"]))
+    return dict(card_vs_cpu=vs), cut
+
+
+def rwkv_backward_rest(cfglib, wkv_ops, out, cut) -> dict:
+    """Phase 41's second half, with the 32-layer weights freed: the WKV
+    backward's lane and times, then ``rwkv6-7b`` trained 2 -> 4 layers
+    from ``cut``."""
+    t0 = time.perf_counter()
+    out.update(lane=wkv_bwd_parity(wkv_ops), times=wkv_bwd_times(wkv_ops))
+    print(f"rwkv backward lanes {time.perf_counter() - t0:.1f} s")
+    out["training"] = rwkv_training(cfglib, cut)
+    return out
+
+
+def scan_bwd_parity(scan_ops) -> dict:
+    """Phase 42, its kernel lane: the scan backward through both entry
+    points' autograd Function (h0 and the final state's gradient on
+    ``selective_scan_with_state``) against ``ref.selective_scan_bwd_ref``,
+    every gradient entry by entry and finite, over N x length x channels x
+    decays x dtype; then jamba's shape (f32) and 3 repeats there,
+    bit-identical, f32 and bf16."""
+    from repro_torch.kernels.mamba_scan import ref
+    t0 = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(2, S, d, N, dtype, regime, with_state)
+             for dtype in (f32, bf16) for N in (4, 16) for S in SCAN_BWD_S
+             for d in SCAN_BWD_D for regime in SCAN_REGIMES
+             for with_state in (True, False)]
+    cases.append(JAMBA_SCAN_SHAPE[:3] + (JAMBA_SCAN_SHAPE[3], f32, "near 1",
+                                        True))
+    bad, worst, main_err = 0, {}, 0.0
+    for n, (B, S, d, N, dtype, regime, with_state) in enumerate(cases):
+        u, dt, A, Bm, Cm, Dp, h0 = scan_case(B, S, d, N, dtype, True, regime,
+                                             seed=7000 + n)
+        g = torch.Generator(device="cuda").manual_seed(8000 + n)
+        dy = torch.randn(u.shape, generator=g, device="cuda").to(dtype)
+        dh = torch.randn(h0.shape, generator=g, device="cuda")
+        before = scan_ops.BWD_LAUNCHES
+        if with_state:
+            got = _grads_through(
+                lambda *a: scan_ops.selective_scan_with_state(*a[:6],
+                                                              h0=a[6]),
+                (u, dt, A, Bm, Cm, Dp, h0), (dy, dh))
+            want = ref.selective_scan_bwd_ref(u, dt, A, Bm, Cm, Dp, h0, dy,
+                                              dh)
+        else:
+            got = _grads_through(scan_ops.selective_scan,
+                                 (u, dt, A, Bm, Cm, Dp), (dy,))
+            want = ref.selective_scan_bwd_ref(u, dt, A, Bm, Cm, Dp, None,
+                                              dy)[:6]
+        torch.cuda.synchronize()
+        ratio = max(_bwd_ratio(a, b) for a, b in zip(got, want))
+        ok = (ratio <= 1.0 and scan_ops.BWD_LAUNCHES == before + 1
+              and all(a.dtype == b.dtype for a, b in zip(got, want))
+              and all(bool(torch.isfinite(a).all()) for a in got))
+        bad += not ok
+        label = (f"{str(dtype)[6:]:8s} B{B} S{S:<4d} d{d:<5d} N{N:<2d} "
+                 f"dtA {regime}{' h0+final' if with_state else ''}")
+        if dtype not in worst or ratio > worst[dtype][0]:
+            worst[dtype] = (ratio, label)
+        if not ok:
+            print(f"  scan bwd {label}: {ratio:.3f} of the limit FAIL")
+        if n == len(cases) - 1:
+            main_err = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(got, want))
+        del got, want
+    for dtype, (ratio, label) in worst.items():
+        print(f"  scan bwd worst {str(dtype)[6:]}: {ratio:.3f} of the limit "
+              f"at {label}")
+    if bad:
+        _fail(f"{bad} of {len(cases)} scan backward cases")
+    print(f"scan bwd parity: {len(cases)} cases within their entry-by-entry "
+          f"limits, finite, one backward launch each; jamba's shape max abs "
+          f"err {main_err:.3e}")
+    B, S, d, N = JAMBA_SCAN_SHAPE
+    for dtype in (f32, bf16):
+        u, dt, A, Bm, Cm, Dp, h0 = scan_case(B, S, d, N, dtype, True,
+                                             "model", seed=13)
+        g = torch.Generator(device="cuda").manual_seed(14)
+        dy = torch.randn(u.shape, generator=g, device="cuda").to(dtype)
+
+        def grads():
+            return _grads_through(
+                lambda *a: scan_ops.selective_scan_with_state(*a[:6],
+                                                              h0=a[6]),
+                (u, dt, A, Bm, Cm, Dp, h0), (dy, None))
+        first = grads()
+        for _ in range(3):
+            if not all(torch.equal(a, b) for a, b in zip(first, grads())):
+                _fail(f"scan backward repeats differ ({dtype})")
+    print("scan bwd: 3 repeats bit-identical at jamba's shape, f32 and bf16 "
+          f"(every gradient); phase {time.perf_counter() - t0:.1f} s")
+    return dict(cases=len(cases), worst={str(k)[6:]: v[0]
+                                         for k, v in worst.items()},
+                max_abs_err=main_err)
+
+
+def scan_bwd_times(scan_ops) -> dict:
+    """The backward kernel at jamba's shape, f32 and bf16, L2 flushed
+    (CUDA events), beside its bound, the SFU's floor for its exps, and the
+    plain reverse recurrence's time (f32)."""
+    from repro_torch.kernels.mamba_scan import ref
+    B, S, d, N = JAMBA_SCAN_SHAPE
+    flush = _flusher()
+    # Per state entry and step: two re-runs of the state (3 operations and
+    # an exp each) and the step back (20 operations and an exp: h_t, dh,
+    # the dB and dC terms, du's and ddt's sums, dA's term, g), plus ~2 adds
+    # of the channel sums: 28 f32 operations and 3 exps.
+    entries = B * S * d * N
+    flops = 28 * entries
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        u, dt, A, Bm, Cm, Dp, h0 = scan_case(B, S, d, N, dtype, True,
+                                             "model", seed=15)
+        _, _, saved = scan_ops.selective_scan_cuda(u, dt, A, Bm, Cm, Dp, h0,
+                                                   save_states=True)
+        g = torch.Generator(device="cuda").manual_seed(16)
+        dy = torch.randn(u.shape, generator=g, device="cuda").to(dtype)
+        dh = torch.randn(h0.shape, generator=g, device="cuda")
+        ms = _time_device_ms(lambda: scan_ops.selective_scan_bwd_cuda(
+            u, dt, A, Bm, Cm, Dp, saved, dy, dh), 10, flush)
+        e = u.element_size()
+        nblk = -(-d // 64)
+        nbytes = (3 * u.numel() * e + 2 * Bm.numel() * e   # u, dt, dy; B, C
+                  + 2 * u.numel() * e                      # du, ddt
+                  + saved.numel() * 4 + 2 * h0.numel() * 4  # states, dh, dh0
+                  + 2 * B * nblk * S * N * 4                # dB, dC partials
+                  + B * d * N * 4 + B * d * 4 + A.numel() * 4 + Dp.numel() * 4)
+        bound = _bound(flops, nbytes)
+        name = str(dtype)[6:]
+        print(f"scan bwd kernel at B={B} S={S} d={d} N={N} {name}, L2 "
+              f"flushed: {ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP f32), {ms / bound['bound_ms']:.2f}x")
+        out[name] = (ms, bound, (u, dt, A, Bm, Cm, Dp, h0, dy, dh))
+    ms, bound, args = out["float32"]
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.split(",")[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = B * -(-d // 64)
+    busiest = -(-ctas // n_sm) * 64 * S * N * 3
+    sfu_ms = busiest / 16 / (clock * 1e6) * 1e3
+    plain_ms = _time_ms(lambda: ref.selective_scan_bwd_ref(*args), 2)
+    print(f"scan bwd SFU floor: {busiest / 1e6:.2f} M exps on the busiest SM "
+          f"({ctas} CTAs on {n_sm} SMs) / 16 a clock at {clock:.0f} MHz = "
+          f"{sfu_ms:.4f} ms, beside the bound {bound['bound_ms']:.4f} ms")
+    print(f"scan bwd times at B={B} S={S} d={d} N={N} f32: kernel {ms:.4f} "
+          f"ms, plain reverse recurrence {plain_ms:.4f} ms, library none; "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, **bound,
+                bf16_ms=out["bfloat16"][0],
+                bf16_bound_ms=out["bfloat16"][1]["bound_ms"],
+                sfu_floor_ms=sfu_ms)
+
+
+def _jamba_cut(cfg, layers: int):
+    """jamba's first ``layers`` layers as a pattern of their own."""
+    return dataclasses.replace(cfg, block_pattern=cfg.block_pattern[:layers],
+                               moe_pattern=cfg.moe_pattern[:layers],
+                               num_layers=layers)
+
+
+def jamba_training(cfg8, params) -> dict:
+    """Phase 42's training: jamba's first two layers at full width (cut
+    from phase 19's weights), ``JAMBA_TRAIN``'s steps through the trainer,
+    NSGD, 4 x 1024 tokens a step: finite losses and the scan's forward and
+    backward once a Mamba layer a step, no other kernel."""
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    t0 = time.perf_counter()
+    c = JAMBA_TRAIN
+    cfg = _jamba_cut(cfg8, c["layers"])
+    tcfg = TrainConfig(total_steps=c["steps"], seq_len=c["seq"],
+                       global_batch=c["batch"], source_layers=c["layers"],
+                       optimizer=OptimizerConfig(name=c["optimizer"]),
+                       eval_every=10 ** 9, checkpoint_every=10 ** 9,
+                       log_every=1)
+    res, counts, peak = _train_from(params, cfg, tcfg)
+    n_mamba = sum(cfg.layer_kind(i) == "mamba" for i in range(c["layers"]))
+    want = {name: 0 for name in COUNTERS}
+    want.update(selective_scan=n_mamba * c["steps"],
+                selective_scan_bwd=n_mamba * c["steps"])
+    _check_training("jamba", res, counts, want, [c["layers"]] * c["steps"])
+    ms = [round(1e3 * t, 1) for _, t in res.step_times]
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    print(f"jamba training at full width: layers 0-1 (dense Mamba, Mamba + "
+          f"16-expert MoE), {c['steps']} steps of {c['batch']} x {c['seq']} "
+          f"tokens, {c['optimizer']}: losses "
+          f"{[round(x, 4) for x in res.history['loss']]}; {n_params} "
+          f"params; launches {counts}; step times {ms} ms; peak device "
+          f"memory {peak:.2f} GiB; phase {time.perf_counter() - t0:.1f} s")
+    return dict(launches=counts, losses=res.history["loss"], step_ms=ms,
+                peak_gib=peak, params=n_params)
+
+
+def jamba_backward_phase(cfg8, params, host=None):
+    """Phase 42's first half (right after phase 29's jamba half, on phase
+    19's weights): the depth-1 (dense Mamba layer) step card against CPU
+    from ``host`` (phase 20's host copy; cut from the card when None), and
+    the two-layer cut the training starts from.  Returns (readings, cut);
+    the caller frees the 8-layer weights before ``jamba_backward_rest``."""
+    cfg1 = _jamba_cut(cfg8, 1)
+    card1 = _cut_params(params, cfg1)
+    host1 = _cut_params(params if host is None else host, cfg1,
+                        device="cpu")
+    vs = train_grads_card_vs_cpu("jamba", cfg1, card1, host1,
+                                 "selective_scan_bwd")
+    del card1, host1
+    cut = _cut_params(params, _jamba_cut(cfg8, JAMBA_TRAIN["layers"]))
+    return dict(card_vs_cpu=vs), cut
+
+
+def jamba_backward_rest(scan_ops, cfg8, out, cut) -> dict:
+    """Phase 42's second half, with the 8-layer weights freed: the scan
+    backward's lane and times, then jamba's first two layers trained from
+    ``cut``."""
+    t0 = time.perf_counter()
+    out.update(lane=scan_bwd_parity(scan_ops), times=scan_bwd_times(scan_ops))
+    print(f"jamba backward lanes {time.perf_counter() - t0:.1f} s")
+    out["training"] = jamba_training(cfg8, cut)
+    return out
+
+
 def run_only(only, cfglib, registry, fa_ops, pa_ops, train, serve) -> int:
     """``--only``: after the card and the build, the named phases of
-    36-39 alone, each as the full run makes it; prints their readings as
-    JSON and no closing line."""
+    36-42 alone, each as the full run makes it (41 and 42 on weights drawn
+    on the card for them); prints their readings as JSON and no closing
+    line."""
     got = {}
+    if 40 in only:
+        got["40"] = recipe_phase(cfglib)
+    if 41 in only:
+        cfg = cfglib.get_config("rwkv6-7b")
+        params = draw_on_card(registry, cfg)
+        got["41"], cut = rwkv_backward_phase(cfglib, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rwkv_backward_rest(cfglib, OPS["wkv"], got["41"], cut)
+        del cut
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 42 in only:
+        cfg8 = cfglib.get_config("jamba-v0.1-52b").with_depth(JAMBA_DEPTH)
+        params = draw_on_card(registry, cfg8)
+        got["42"], cut = jamba_backward_phase(cfg8, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        jamba_backward_rest(OPS["scan"], cfg8, got["42"], cut)
+        del cut
+        gc.collect()
+        torch.cuda.empty_cache()
     if 36 in only:
         got["36"] = cross_attention_lane(fa_ops)
     if 37 in only:
@@ -4712,12 +5466,12 @@ def main() -> int:
     only = None
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = {int(x) for x in sys.argv[2].split(",")}
-        if not only <= {36, 37, 38, 39}:
-            print("chip_smoke: --only takes phases among 36-39",
+        if not only <= {36, 37, 38, 39, 40, 41, 42}:
+            print("chip_smoke: --only takes phases among 36-42",
                   file=sys.stderr)
             return 2
     elif sys.argv[1:]:
-        print("usage: chip_smoke.py [--only 36,37,38,39]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only 36,37,...,42]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4762,17 +5516,18 @@ def main() -> int:
         _fail(f"paged entry functions: {pa_regs} (72 expected, none "
               "spilling)")
     hd256_regs = hd256_registers(fa_regs, pa_regs)
-    if only:
-        return run_only(only, cfglib, registry, fa_ops, pa_ops, train,
-                        serve)
     wkv_regs = wkv_registers(_build.build_log("rwkv6"))
     scan_regs = scan_registers(_build.build_log("mamba_scan"))
     print("wkv and scan entry functions (registers, spill bytes): "
           + "; ".join(f"{n} {r}, {sp}" for n, r, sp in wkv_regs + scan_regs))
-    if (len(wkv_regs) != 8 or len(scan_regs) != 4
+    if (len(wkv_regs) != 24 or len(scan_regs) != 12
             or any(sp for _, _, sp in wkv_regs + scan_regs)):
-        _fail(f"wkv and scan entry functions: {wkv_regs} {scan_regs} (8 and "
-              "4 expected, none spilling)")
+        _fail(f"wkv and scan entry functions: {wkv_regs} {scan_regs} (24 "
+              "and 12 expected: the forward, its chunk-saving twin and the "
+              "backward; none spilling)")
+    if only:
+        return run_only(only, cfglib, registry, fa_ops, pa_ops, train,
+                        serve)
 
     # 3-4. kernel parity on the card
     main_err = parity(fa_ops)
@@ -4879,7 +5634,16 @@ def main() -> int:
     # the prefix cache, speculation and the paper's draft, counters from 0
     # before each run
     rwkv_cont = rwkv_continuous_paths(cfglib, registry, rwkv_params)
+
+    # 41. the WKV backward (right after phase 27, on phase 15's weights):
+    # one depth-1 step card against CPU; then, the weights freed, its lane
+    # and times and rwkv6-7b trained 2 -> 4 layers from a cut of them
+    rwkv_bwd, rwkv_cut = rwkv_backward_phase(cfglib, rwkv_params)
     del rwkv_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv_backward_rest(cfglib, wkv_ops, rwkv_bwd, rwkv_cut)
+    del rwkv_cut
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4906,7 +5670,18 @@ def main() -> int:
     # before each run.  29, jamba's half: card against CPU, paged
     jamba_cont = jamba_continuous_paths(jamba_cfg, engine)
     jamba_paged_card_vs_cpu(jamba_cfg, engine, jamba_host)
+
+    # 42. the scan backward (right after phase 29's jamba half, on phase
+    # 19's weights): one depth-1 step card against CPU; then, the 8 layers
+    # freed, its lane and times and jamba's first two layers trained from a
+    # cut of them
+    jamba_bwd, jamba_cut = jamba_backward_phase(jamba_cfg, engine.params,
+                                                jamba_host)
     del engine, jamba_host
+    gc.collect()
+    torch.cuda.empty_cache()
+    jamba_backward_rest(scan_ops, jamba_cfg, jamba_bwd, jamba_cut)
+    del jamba_cut
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4925,7 +5700,7 @@ def main() -> int:
     if sched_pi.prefix_hits < 1:
         _fail(f"the spec prefix-cache run had no hit: "
               f"{sched_pi.prefix_stats()}")
-    spec_zerol(cfglib, registry)
+    spec_zerol(cfglib, registry, "gpt2-12l", GPT2_ZEROL_DEPTH)
     spec_vs_plain(cfg, registry, spec_results, paged_results,
                   spec_sched.engine)
     print(f"spec phase {time.perf_counter() - t0:.1f} s")
@@ -5015,7 +5790,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 37. deepseekv3-0.3b (MLA) at full size: the paper's recipe 1 -> 24
+    # 37. deepseekv3-0.3b (MLA) at 12 layers: the paper's recipe 1 -> 12
     # layers, its checkpoint served over latent pages (f32, int8, prefix
     # cache), a copying_zeroL draft, card against CPU at depth 2
     dsv3 = deepseekv3_paths(cfglib, registry, train, serve, fa_ops)
@@ -5031,6 +5806,12 @@ def main() -> int:
     # 39. whisper-base at full size: training on frames through an
     # expansion, greedy decoding against teacher forcing
     wh = whisper_paths(cfglib, registry)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 40. the paper's expansion-timing recipe: calibrate_tau on gpt2-12l
+    # at full width, the quickstart's savings line for its plan
+    rec = recipe_phase(cfglib)
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -5123,8 +5904,24 @@ def main() -> int:
          "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
          "replaces": "src/repro/kernels/rwkv6/kernel.py:71",
          "launches": wkv_launches, "spec_path_launches": rwkv_cont["spec"],
-         "continuous_launches": rwkv_cont, "max_abs_err": wkv_err, **t_wkv,
-         "registers_spills": [list(r) for r in wkv_regs]},
+         "continuous_launches": rwkv_cont,
+         "training_launches": rwkv_bwd["training"]["launches"]["wkv"],
+         "max_abs_err": wkv_err, **t_wkv,
+         "registers_spills": [list(r) for r in wkv_regs
+                              if not r[0].startswith("wkv_bwd")]},
+        {"name": "wkv_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv_bwd.cu",
+         "replaces": "none (no TPU kernel: JAX differentiates the WKV's "
+                     "plain forms itself)",
+         "launches": rwkv_bwd["training"]["launches"]["wkv_bwd"],
+         "max_abs_err": rwkv_bwd["lane"]["max_abs_err"],
+         **rwkv_bwd["times"], "cases": rwkv_bwd["lane"]["cases"],
+         "worst_of_limit": rwkv_bwd["lane"]["worst"],
+         "card_vs_cpu": rwkv_bwd["card_vs_cpu"],
+         "training": {k: v for k, v in rwkv_bwd["training"].items()
+                      if k != "launches"},
+         "registers_spills": [list(r) for r in wkv_regs
+                              if r[0].startswith("wkv_bwd")]},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/mamba_scan/csrc/"
                    "selective_scan.cu",
@@ -5134,8 +5931,26 @@ def main() -> int:
              jamba_cont["zero-layer draft"]["selective_scan"],
          "continuous_launches": {run: c["selective_scan"]
                                  for run, c in jamba_cont.items()},
+         "training_launches":
+             jamba_bwd["training"]["launches"]["selective_scan"],
          "max_abs_err": scan_err,
-         **t_scan, "registers_spills": [list(r) for r in scan_regs]}]}
+         **t_scan, "registers_spills": [list(r) for r in scan_regs
+                                        if not r[0].startswith("scan_bwd")]},
+        {"name": "selective_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/mamba_scan/csrc/"
+                   "selective_scan_bwd.cu",
+         "replaces": "none (no TPU kernel: JAX differentiates the scan's "
+                     "plain forms itself)",
+         "launches": jamba_bwd["training"]["launches"]["selective_scan_bwd"],
+         "max_abs_err": jamba_bwd["lane"]["max_abs_err"],
+         **jamba_bwd["times"], "cases": jamba_bwd["lane"]["cases"],
+         "worst_of_limit": jamba_bwd["lane"]["worst"],
+         "card_vs_cpu": jamba_bwd["card_vs_cpu"],
+         "training": {k: v for k, v in jamba_bwd["training"].items()
+                      if k != "launches"},
+         "registers_spills": [list(r) for r in scan_regs
+                              if r[0].startswith("scan_bwd")]}]}
+    print(json.dumps({"recipe": rec}))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -120,6 +120,49 @@ class ModelConfig:
                 f"layer-pattern period {self.pattern_period}")
         return dataclasses.replace(self, num_layers=num_layers)
 
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's analytic count (``repro/configs/base.py``), in
+        its terms: eq (1.1)'s N (``core.mixing.compute_savings``).  RWKV6
+        layers are counted coarsely there and here alike."""
+        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        embed = V * D
+        head = 0 if self.tie_embeddings else V * D
+        per_layer_attn = (D * self.q_dim + 2 * D * self.kv_dim
+                          + self.q_dim * D)
+        if self.attention == "mla" and self.mla_kv_lora_rank:
+            r = self.mla_kv_lora_rank
+            per_layer_attn = (D * r + r * 2 * self.kv_dim + D * self.q_dim
+                              + self.q_dim * D)
+        n_ff_mats = 3 if self.activation == "swiglu" else 2
+        dense_mlp = n_ff_mats * D * F
+
+        total = embed + head
+        for i in range(self.num_layers):
+            kind = self.layer_kind(i)
+            if kind == "attn":
+                total += per_layer_attn
+            else:  # mamba
+                s = self.ssm
+                d_inner = s.expand * D
+                dt_rank = s.dt_rank or -(-D // 16)
+                total += (2 * D * d_inner + s.d_conv * d_inner
+                          + d_inner * (dt_rank + 2 * s.d_state)
+                          + dt_rank * d_inner + d_inner * D)
+            if self.layer_is_moe(i):
+                m = self.moe
+                ef = m.expert_ffn_dim or F
+                n_e = m.num_experts if not active_only else m.top_k
+                total += n_e * n_ff_mats * D * ef
+                total += m.num_shared_experts * n_ff_mats * D * ef
+                total += D * m.num_experts  # router
+            elif kind == "attn":
+                total += dense_mlp
+            total += 2 * D  # norms
+        if self.is_encoder_decoder:
+            total += self.num_encoder_layers * (per_layer_attn * 2
+                                                + dense_mlp + 3 * D)
+        return total
+
 
 # ---------------------------------------------------------------------------
 # Training / progressive-plan configuration

@@ -10,6 +10,10 @@
 // out in u's dtype, with the D ⊙ u term (which the TPU function adds after
 // its pallas_call) fused in.  Beyond the TPU kernel, the final state h_S is
 // written when h_out is not null: the serving prefill hands it to decode.
+// For training, `selective_scan_fwd_save` also writes h at the start of
+// every SAVE = 64 steps (the backward, selective_scan_bwd.cu, re-runs each
+// such chunk from it), in an instantiation of its own: with that pointer
+// null the inference kernel runs, compiled without the store.
 // u, dt, B and C are all float32 or all bfloat16; A, D and the state are
 // float32 (the wrapper casts D, which is small).  N is 4 or 16; any S >= 0
 // and d >= 1.
@@ -70,6 +74,7 @@ namespace {
 constexpr int CPB = 64;              // channels of a CTA
 constexpr int CH = 16;               // steps of a staged chunk
 constexpr int NSTAGE = 2;            // cp.async ring depth, in chunks
+constexpr int SAVE = 64;             // steps between saved states
 constexpr float LOG2E = 1.4426950408889634f;
 
 // 2^x rounded by the SFU: about 2 ulp, 0 below -126 (.ftz).
@@ -123,13 +128,17 @@ __device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* src) {
   *reinterpret_cast<uint4*>(dst) = o;
 }
 
-template <typename T, int N>
+// SAVE_H: also write h at every SAVE-th step (training); the inference
+// instantiation compiles without that store.
+template <typename T, int N, bool SAVE_H = false>
 __global__ void __launch_bounds__(CPB)
 scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
             const float* __restrict__ A, const T* __restrict__ Bm,
             const T* __restrict__ Cm, const float* __restrict__ Dp,
             const float* __restrict__ h0, T* __restrict__ y,
-            float* __restrict__ h_out, int S, int d) {
+            float* __restrict__ h_out, float* __restrict__ h_chunks, int S,
+            int d) {
+  static_assert(SAVE % CH == 0, "saved states at chunk starts");
   static_assert(N % 4 == 0, "B_t and C_t rows are float4 rows");
   constexpr int THREADS = CPB;
   constexpr int VPP = 16 / (int)sizeof(T);       // values of a 16-byte piece
@@ -221,6 +230,17 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     stash_bc(0);
   }
   for (int n = 0; n < nchunks; ++n) {
+    // h at every SAVE-th step, (B, ceil(S/SAVE), d, N), for the backward.
+    if constexpr (SAVE_H) {
+      if (n % (SAVE / CH) == 0 && c0 + tid < d) {
+        float* p = h_chunks + (((size_t)b * ((S + SAVE - 1) / SAVE) +
+                                n / (SAVE / CH)) * d + c0 + tid) * N;
+#pragma unroll
+        for (int e = 0; e < N; e += 4)
+          *reinterpret_cast<float4*>(p + e) =
+              make_float4(h[e], h[e + 1], h[e + 2], h[e + 3]);
+      }
+    }
     // Chunk n's copies and B, C have landed; chunk n-1 is done with its
     // stage, its B and C buffer and its y buffer's neighbour.
     cp_async_wait<NSTAGE - 2>();
@@ -300,38 +320,52 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
 
 // The whole carveout for shared memory, so that four CTAs (28 KB each in
 // f32) share an SM.
-template <typename T, int N>
+template <typename T, int N, bool SAVE_H = false>
 cudaError_t set_attributes() {
-  return cudaFuncSetAttribute(scan_kernel<T, N>,
+  return cudaFuncSetAttribute(scan_kernel<T, N, SAVE_H>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename T, int N, bool SAVE_H>
+cudaError_t launch_as(const void* u, const void* dt, const void* A,
+                      const void* Bm, const void* Cm, const void* Dp,
+                      const void* h0, void* y, void* h_out, void* h_chunks,
+                      int B, int S, int d, cudaStream_t st) {
+  const cudaError_t err = set_attributes<T, N, SAVE_H>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((d + CPB - 1) / CPB, B);
+  scan_kernel<T, N, SAVE_H><<<grid, CPB, 0, st>>>(
+      static_cast<const T*>(u), static_cast<const T*>(dt),
+      static_cast<const float*>(A), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const float*>(Dp),
+      static_cast<const float*>(h0), static_cast<T*>(y),
+      static_cast<float*>(h_out), static_cast<float*>(h_chunks), S, d);
+  return cudaGetLastError();
 }
 
 template <typename T, int N>
 cudaError_t launch(const void* u, const void* dt, const void* A,
                    const void* Bm, const void* Cm, const void* Dp,
-                   const void* h0, void* y, void* h_out, int B, int S, int d,
-                   cudaStream_t st) {
-  const cudaError_t err = set_attributes<T, N>();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((d + CPB - 1) / CPB, B);
-  scan_kernel<T, N><<<grid, CPB, 0, st>>>(
-      static_cast<const T*>(u), static_cast<const T*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const float*>(Dp),
-      static_cast<const float*>(h0), static_cast<T*>(y),
-      static_cast<float*>(h_out), S, d);
-  return cudaGetLastError();
+                   const void* h0, void* y, void* h_out, void* h_chunks,
+                   int B, int S, int d, cudaStream_t st) {
+  return h_chunks != nullptr
+             ? launch_as<T, N, true>(u, dt, A, Bm, Cm, Dp, h0, y, h_out,
+                                     h_chunks, B, S, d, st)
+             : launch_as<T, N, false>(u, dt, A, Bm, Cm, Dp, h0, y, h_out,
+                                      h_chunks, B, S, d, st);
 }
 
 template <typename T>
 cudaError_t dispatch_n(int N, const void* u, const void* dt, const void* A,
                        const void* Bm, const void* Cm, const void* Dp,
-                       const void* h0, void* y, void* h_out, int B, int S,
-                       int d, cudaStream_t st) {
+                       const void* h0, void* y, void* h_out, void* h_chunks,
+                       int B, int S, int d, cudaStream_t st) {
   switch (N) {
-    case 4: return launch<T, 4>(u, dt, A, Bm, Cm, Dp, h0, y, h_out, B, S, d, st);
-    case 16: return launch<T, 16>(u, dt, A, Bm, Cm, Dp, h0, y, h_out, B, S, d, st);
+    case 4: return launch<T, 4>(u, dt, A, Bm, Cm, Dp, h0, y, h_out, h_chunks,
+                                B, S, d, st);
+    case 16: return launch<T, 16>(u, dt, A, Bm, Cm, Dp, h0, y, h_out, h_chunks,
+                                  B, S, d, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -341,23 +375,37 @@ cudaError_t dispatch_n(int N, const void* u, const void* dt, const void* A,
 // u, dt, y: (B,S,d) contiguous, float32 (dtype 0) or bfloat16 (dtype 1);
 // Bm, Cm: (B,S,N) of the same dtype, N = 4 (the smoke configs) or 16; A:
 // (d,N) float32; Dp: (d,) float32; h0 (nullable), h_out (nullable): (B,d,N)
-// float32; all 16-byte aligned.  Launches on `stream`; returns the launch's
-// CUDA error code (0 on success).
+// float32; h_chunks (nullable): (B,ceil(S/64),d,N) float32; all 16-byte
+// aligned.  Launches on `stream`; returns the launch's CUDA error code (0 on
+// success).
+extern "C" int selective_scan_fwd_save(const void* u, const void* dt,
+                                       const void* A, const void* Bm,
+                                       const void* Cm, const void* Dp,
+                                       const void* h0, void* y, void* h_out,
+                                       void* h_chunks, int B, int S, int d,
+                                       int N, int dtype, void* stream) {
+  if (B <= 0 || B > 65535 || d <= 0 || S < 0 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == 0
+          ? dispatch_n<float>(N, u, dt, A, Bm, Cm, Dp, h0, y, h_out, h_chunks,
+                              B, S, d, st)
+          : dispatch_n<__nv_bfloat16>(N, u, dt, A, Bm, Cm, Dp, h0, y, h_out,
+                                      h_chunks, B, S, d, st);
+  return (int)err;
+}
+
+// The inference forward: selective_scan_fwd_save without the saved states.
 extern "C" int selective_scan_fwd(const void* u, const void* dt,
                                   const void* A, const void* Bm,
                                   const void* Cm, const void* Dp,
                                   const void* h0, void* y, void* h_out, int B,
                                   int S, int d, int N, int dtype,
                                   void* stream) {
-  if (B <= 0 || B > 65535 || d <= 0 || S < 0 || dtype < 0 || dtype > 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0
-          ? dispatch_n<float>(N, u, dt, A, Bm, Cm, Dp, h0, y, h_out, B, S, d,
-                              st)
-          : dispatch_n<__nv_bfloat16>(N, u, dt, A, Bm, Cm, Dp, h0, y, h_out,
-                                      B, S, d, st);
-  return (int)err;
+  return selective_scan_fwd_save(u, dt, A, Bm, Cm, Dp, h0, y, h_out, nullptr,
+                                 B, S, d, N, dtype, stream);
 }
 
+// Steps between the saved states.
+extern "C" int selective_scan_save_steps() { return SAVE; }

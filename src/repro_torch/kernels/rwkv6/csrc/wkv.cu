@@ -213,12 +213,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <typename T, int HD>
+// SAVE_S: also write the state at every chunk start (training); the
+// inference instantiation compiles without that store.
+template <typename T, int HD, bool SAVE_S = false>
 __global__ void __launch_bounds__(Cfg<T, HD>::NT, HD <= 64 ? 2 : 1)
 wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ w,
            const float* __restrict__ u, const float* __restrict__ s0,
-           T* __restrict__ y, float* __restrict__ s_out, int S, int H) {
+           T* __restrict__ y, float* __restrict__ s_out,
+           float* __restrict__ s_chunks, int S, int H) {
   using P = Cfg<T, HD>;
   constexpr int C = P::C, NSUB = P::NSUB, NT = P::NT, NG = P::NG;
   constexpr int GC = P::GC, QSTR = P::QSTR, ASTR = P::ASTR, SSTR = P::SSTR;
@@ -318,6 +321,16 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
   for (int n = 0; n < STAGES - 1; ++n) issue(n);
 
   for (int n = 0; n < nchunks; ++n) {
+    // The state at chunk n's start, (B,H,nchunks,hd,hd), for the backward.
+    if constexpr (SAVE_S) {
+      float* cp = s_chunks + ((size_t)bh * nchunks + n) * HD * HD;
+#pragma unroll
+      for (int i = 0; i < P::TPW_S; ++i) {
+        const int n2 = sn0 + 8 * i + 2 * tq;
+        store2(cp + (size_t)(sm0 + g) * HD + n2, st[i][0], st[i][1]);
+        store2(cp + (size_t)(sm0 + g + 8) * HD + n2, st[i][2], st[i][3]);
+      }
+    }
     cp_async_wait<STAGES - 2>();
     __syncthreads();   // chunk n landed; chunk n-1 is done with its stage
     issue(n + STAGES - 1);
@@ -641,42 +654,60 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
 // Dynamic shared memory past 48 KB, and the whole carveout for shared
 // memory, so that two CTAs share an SM wherever they fit.
-template <typename T, int HD>
+template <typename T, int HD, bool SAVE_S = false>
 cudaError_t set_attributes() {
   const cudaError_t err = cudaFuncSetAttribute(
-      wkv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wkv_kernel<T, HD, SAVE_S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Cfg<T, HD>::SMEM);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(wkv_kernel<T, HD>,
+  return cudaFuncSetAttribute(wkv_kernel<T, HD, SAVE_S>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename T, int HD, bool SAVE_S>
+cudaError_t launch_as(const void* r, const void* k, const void* v,
+                      const void* w, const void* u, const void* s0, void* y,
+                      void* s_out, void* s_chunks, int B, int S, int H,
+                      cudaStream_t st) {
+  using P = Cfg<T, HD>;
+  const cudaError_t err = set_attributes<T, HD, SAVE_S>();
+  if (err != cudaSuccess) return err;
+  wkv_kernel<T, HD, SAVE_S><<<B * H, P::NT, P::SMEM, st>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(w),
+      static_cast<const float*>(u), static_cast<const float*>(s0),
+      static_cast<T*>(y), static_cast<float*>(s_out),
+      static_cast<float*>(s_chunks), S, H);
+  return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* w, const void* u, const void* s0, void* y,
-                   void* s_out, int B, int S, int H, cudaStream_t st) {
-  using P = Cfg<T, HD>;
-  const cudaError_t err = set_attributes<T, HD>();
-  if (err != cudaSuccess) return err;
-  wkv_kernel<T, HD><<<B * H, P::NT, P::SMEM, st>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(w),
-      static_cast<const float*>(u), static_cast<const float*>(s0),
-      static_cast<T*>(y), static_cast<float*>(s_out), S, H);
-  return cudaGetLastError();
+                   void* s_out, void* s_chunks, int B, int S, int H,
+                   cudaStream_t st) {
+  return s_chunks != nullptr
+             ? launch_as<T, HD, true>(r, k, v, w, u, s0, y, s_out, s_chunks,
+                                      B, S, H, st)
+             : launch_as<T, HD, false>(r, k, v, w, u, s0, y, s_out, s_chunks,
+                                       B, S, H, st);
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* r, const void* k, const void* v,
                         const void* w, const void* u, const void* s0,
-                        void* y, void* s_out, int B, int S, int H,
-                        cudaStream_t st) {
+                        void* y, void* s_out, void* s_chunks, int B, int S,
+                        int H, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(r, k, v, w, u, s0, y, s_out, B, S, H, st);
-    case 32: return launch<T, 32>(r, k, v, w, u, s0, y, s_out, B, S, H, st);
-    case 64: return launch<T, 64>(r, k, v, w, u, s0, y, s_out, B, S, H, st);
-    case 128: return launch<T, 128>(r, k, v, w, u, s0, y, s_out, B, S, H, st);
+    case 16: return launch<T, 16>(r, k, v, w, u, s0, y, s_out, s_chunks, B, S,
+                                  H, st);
+    case 32: return launch<T, 32>(r, k, v, w, u, s0, y, s_out, s_chunks, B, S,
+                                  H, st);
+    case 64: return launch<T, 64>(r, k, v, w, u, s0, y, s_out, s_chunks, B, S,
+                                  H, st);
+    case 128: return launch<T, 128>(r, k, v, w, u, s0, y, s_out, s_chunks, B,
+                                    S, H, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -685,20 +716,42 @@ cudaError_t dispatch_hd(int hd, const void* r, const void* k, const void* v,
 
 // r, k, v, y: (B,S,H,hd) contiguous, float32 (dtype 0) or bfloat16
 // (dtype 1); w: (B,S,H,hd) float32; u: (H,hd) float32; s0, s_out:
-// (B,H,hd,hd) float32; all 16-byte aligned.  Launches on `stream`; returns
-// the launch's CUDA error code (0 on success).
-extern "C" int wkv_fwd(const void* r, const void* k, const void* v,
-                       const void* w, const void* u, const void* s0, void* y,
-                       void* s_out, int B, int S, int H, int hd, int dtype,
-                       void* stream) {
+// (B,H,hd,hd) float32; s_chunks (nullable): (B,H,ceil(S/C),hd,hd) float32,
+// C = wkv_chunk_steps(hd); all 16-byte aligned.  Launches on `stream`;
+// returns the launch's CUDA error code (0 on success).
+extern "C" int wkv_fwd_save(const void* r, const void* k, const void* v,
+                            const void* w, const void* u, const void* s0,
+                            void* y, void* s_out, void* s_chunks, int B,
+                            int S, int H, int hd, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || S < 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dtype == 0
-          ? dispatch_hd<float>(hd, r, k, v, w, u, s0, y, s_out, B, S, H, st)
-          : dispatch_hd<__nv_bfloat16>(hd, r, k, v, w, u, s0, y, s_out, B,
-                                       S, H, st);
+          ? dispatch_hd<float>(hd, r, k, v, w, u, s0, y, s_out, s_chunks, B,
+                               S, H, st)
+          : dispatch_hd<__nv_bfloat16>(hd, r, k, v, w, u, s0, y, s_out,
+                                       s_chunks, B, S, H, st);
   return (int)err;
 }
 
+// The inference forward: wkv_fwd_save without the chunk states.
+extern "C" int wkv_fwd(const void* r, const void* k, const void* v,
+                       const void* w, const void* u, const void* s0, void* y,
+                       void* s_out, int B, int S, int H, int hd, int dtype,
+                       void* stream) {
+  return wkv_fwd_save(r, k, v, w, u, s0, y, s_out, nullptr, B, S, H, hd,
+                      dtype, stream);
+}
+
+// Steps of a chunk at head dim hd (0 if the kernel does not take hd): the
+// chunk states' stride in time.
+extern "C" int wkv_chunk_steps(int hd) {
+  switch (hd) {
+    case 16: return Cfg<float, 16>::C;
+    case 32: return Cfg<float, 32>::C;
+    case 64: return Cfg<float, 64>::C;
+    case 128: return Cfg<float, 128>::C;
+    default: return 0;
+  }
+}

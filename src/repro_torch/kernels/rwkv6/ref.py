@@ -81,3 +81,49 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int = 64):
         s0 = s0 * torch.exp(cum[:, -1])[..., :, None] + \
             torch.einsum("bshk,bshv->bhkv", kt * carry, vt)
     return torch.cat(ys, dim=1).to(r.dtype), s0
+
+
+@torch.no_grad()
+def wkv_bwd_ref(r, k, v, w, u, s0, dy, ds_final=None):
+    """The backward of ``wkv_ref`` as its explicit reverse recurrence (the
+    plain version of ``csrc/wkv_bwd.cu``, not autograd).  With P_t the
+    state before step t and G_t = dL/dP_t (G_S = ``ds_final``, zero when
+    None), step t back gives
+
+        G_t  = diag(w_t) G_{t+1} + r_t dy_t^T
+        dr_t = P_t dy_t + (u ⊙ k_t)(v_t · dy_t)
+        dk_t = G_{t+1} v_t + (r_t ⊙ u)(v_t · dy_t)
+        dv_t = G_{t+1}^T k_t + (r_t · (u ⊙ k_t)) dy_t
+        dw_t = Σ_j G_{t+1}[:, j] ⊙ P_t[:, j]
+        du  += Σ_b r_t ⊙ k_t (v_t · dy_t)
+
+    Both recurrences run step by step, every P_t and G_{t+1} kept (P_t is
+    never rebuilt as (P_{t+1} - k_t v_t^T) / w_t, which a decay of 0
+    forbids); the products over them then run over all steps at once.
+    Returns (dr, dk, dv, dw, du, ds0) in the dtypes of (r, k, v, w, u, s0),
+    computed in float32."""
+    B, S, H, hd = r.shape
+    rf, kf, vf, wf, yf = (x.float() for x in (r, k, v, w, dy))
+    uf = u.float()
+    P = torch.empty((S, B, H, hd, hd), dtype=torch.float32, device=r.device)
+    Gn = torch.empty_like(P)                  # G_{t+1}
+    st = s0.float()
+    for t in range(S):
+        P[t] = st
+        st = (st * wf[:, t, :, :, None]
+              + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    G = (torch.zeros_like(st) if ds_final is None
+         else ds_final.float().clone())
+    for t in reversed(range(S)):
+        Gn[t] = G
+        G = (G * wf[:, t, :, :, None]
+             + rf[:, t, :, :, None] * yf[:, t, :, None, :])
+    vdy = (vf * yf).sum(-1, keepdim=True)                  # (B, S, H, 1)
+    rku = (rf * uf * kf).sum(-1, keepdim=True)
+    dr = torch.einsum("tbhkv,bthv->bthk", P, yf) + uf * kf * vdy
+    dk = torch.einsum("tbhkv,bthv->bthk", Gn, vf) + rf * uf * vdy
+    dv = torch.einsum("tbhkv,bthk->bthv", Gn, kf) + rku * yf
+    dw = (Gn * P).sum(-1).permute(1, 0, 2, 3)
+    du = (rf * kf * vdy).sum((0, 1))
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            dw.to(w.dtype).contiguous(), du.to(u.dtype), G.to(s0.dtype))

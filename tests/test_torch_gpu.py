@@ -727,23 +727,89 @@ def test_wkv_kernel_matches_plain_forms(cuda_device, dtype, hd, S, decay):
 
 @pytest.mark.gpu
 def test_wkv_kernel_refuses_grads_and_what_it_does_not_take(cuda_device):
-    """An input that requires grad raises naming the ROADMAP item of the
-    backward; a float16 stream or an odd head dim raises; no launch is
-    counted and nothing falls back to the plain versions."""
+    """An input that requires grad now launches the forward (saving its
+    chunk states) and, on backward, the backward kernel; a float16 stream
+    or an odd head dim still raises, counting no launch, and nothing falls
+    back to the plain versions."""
     args = _wkv_inputs(1, 1, 8, 2, 64, torch.float32, cuda_device,
                        (0.7, 0.9))
-    before = wkv_ops.KERNEL_LAUNCHES
-    with pytest.raises(NotImplementedError, match="item 16"):
-        wkv_ops.wkv(args[0].clone().requires_grad_(), *args[1:])
+    before = wkv_ops.KERNEL_LAUNCHES, wkv_ops.BWD_LAUNCHES
+    r = args[0].clone().requires_grad_()
+    y, _ = wkv_ops.wkv(r, *args[1:])
+    assert wkv_ops.KERNEL_LAUNCHES == before[0] + 1
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert wkv_ops.BWD_LAUNCHES == before[1] + 1
+    assert r.grad is not None and bool(torch.isfinite(r.grad).all())
     with pytest.raises(ValueError, match="dtypes"):
         wkv_ops.wkv(*(a.half() for a in args[:3]), *args[3:])
+    with pytest.raises(ValueError, match="dtypes"):
+        wkv_ops.wkv(*(a.half().requires_grad_() for a in args[:3]),
+                    *args[3:])
     odd = _wkv_inputs(2, 1, 8, 2, 48, torch.float32, cuda_device, (0.7, 0.9))
     with pytest.raises(ValueError, match="head dim 48"):
         wkv_ops.wkv(*odd)
-    assert wkv_ops.KERNEL_LAUNCHES == before
+    with pytest.raises(ValueError, match="head dim 48"):
+        wkv_ops.wkv(odd[0].requires_grad_(), *odd[1:])
+    assert (wkv_ops.KERNEL_LAUNCHES, wkv_ops.BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
     with torch.no_grad():
         wkv_ops.wkv(args[0].clone().requires_grad_(), *args[1:])
-    assert wkv_ops.KERNEL_LAUNCHES == before + 1
+    assert wkv_ops.KERNEL_LAUNCHES == before[0] + 2
+
+
+def _bwd_room(want, dtype):
+    """Each gradient entry's limit against the plain backward: 1e-4 of
+    max(1, max|plain|) (f32 sums in other orders; the kernels re-run their
+    states from the forward's chunk starts), plus 2^-7 |plain| where the
+    gradient is bfloat16: both sides round it once, and two f32 values a
+    hair apart can round to neighbouring bf16 values, one unit in the last
+    place (at most 2^-7 relative) apart."""
+    room = torch.full_like(want.float(), 1e-4 * max(
+        1.0, want.float().abs().max().item()))
+    if dtype == torch.bfloat16:
+        room = room + 2.0 ** -7 * want.float().abs()
+    return room
+
+
+def _within(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    ratio = ((got.float() - want.float()).abs()
+             / _bwd_room(want, want.dtype)).max().item()
+    assert ratio <= 1.0, f"{ratio:.3f} of the limit"
+
+
+# The WKV backward kernel against the plain reverse recurrence
+# (ref.wkv_bwd_ref) on the same inputs and output gradients, entry by entry
+# (_bwd_room), over head dims, ragged and chunk-edge lengths, decays near
+# 0.69, 0.9975 and 0 (zeros and values below 1e-30 included), zero and
+# random initial states.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("S,decay,state", [
+    (1, (0.69, 0.75), True), (17, "near 0", True), (64, (0.69, 0.75), False),
+    (100, (0.995, 0.9975), True), (100, "near 0", False)])
+def test_wkv_backward_matches_plain(cuda_device, dtype, hd, S, decay, state):
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    td = getattr(torch, dtype)
+    args = list(_wkv_inputs(hd + S + 7, 2, S, 3, hd, td, cuda_device, decay))
+    if not state:
+        args[5] = torch.zeros_like(args[5])
+    g = torch.Generator(device=cuda_device).manual_seed(S)
+    dy = torch.randn(args[0].shape, generator=g, device=cuda_device).to(td)
+    ds = torch.randn(args[5].shape, generator=g, device=cuda_device)
+    leaves = [a.clone().requires_grad_() for a in args]
+    before = wkv_ops.BWD_LAUNCHES
+    y, s = wkv_ops.wkv(*leaves)
+    got = torch.autograd.grad((y.float() * dy.float()).sum()
+                              + (s * ds).sum(), leaves)
+    torch.cuda.synchronize()
+    assert wkv_ops.BWD_LAUNCHES == before + 1
+    want = wkv_ref.wkv_bwd_ref(*args, dy, ds)
+    for a, b in zip(got, want):
+        _within(a, b)
 
 
 def _scan_inputs(seed, B, S, d, N, dtype, device, regime):
@@ -806,26 +872,76 @@ def test_scan_kernel_matches_plain_forms(cuda_device, dtype, N, S, d,
 
 @pytest.mark.gpu
 def test_scan_kernel_refuses_grads_and_what_it_does_not_take(cuda_device):
-    """An input that requires grad raises naming the ROADMAP item of the
-    backward; float16 inputs, a state dim of 3 or mixed dtypes raise; no
-    launch is counted and nothing falls back to the plain versions."""
+    """An input that requires grad now launches the forward (saving h every
+    64 steps) and, on backward, the backward kernel; float16 inputs, a
+    state dim of 3 or mixed dtypes still raise, counting no launch, and
+    nothing falls back to the plain versions."""
     *args, h0 = _scan_inputs(1, 1, 8, 32, 4, torch.float32, cuda_device,
                              "large")
-    before = scan_ops.KERNEL_LAUNCHES
-    with pytest.raises(NotImplementedError, match="item 18"):
-        scan_ops.selective_scan(args[0].clone().requires_grad_(), *args[1:])
+    before = scan_ops.KERNEL_LAUNCHES, scan_ops.BWD_LAUNCHES
+    u = args[0].clone().requires_grad_()
+    scan_ops.selective_scan(u, *args[1:]).sum().backward()
+    torch.cuda.synchronize()
+    assert (scan_ops.KERNEL_LAUNCHES, scan_ops.BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert u.grad is not None and bool(torch.isfinite(u.grad).all())
     with pytest.raises(ValueError, match="dtypes"):
         scan_ops.selective_scan(*(a.half() for a in args[:2]), args[2],
                                 *(a.half() for a in args[3:5]), args[5])
     with pytest.raises(ValueError, match="dtypes"):
         scan_ops.selective_scan(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError, match="dtypes"):
+        scan_ops.selective_scan(args[0].bfloat16().requires_grad_(),
+                                *args[1:])
     odd = _scan_inputs(2, 1, 8, 32, 3, torch.float32, cuda_device, "large")
     with pytest.raises(ValueError, match="state dim 3"):
         scan_ops.selective_scan(*odd[:6])
-    assert scan_ops.KERNEL_LAUNCHES == before
+    with pytest.raises(ValueError, match="state dim 3"):
+        scan_ops.selective_scan(odd[0].requires_grad_(), *odd[1:6])
+    assert (scan_ops.KERNEL_LAUNCHES, scan_ops.BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
     with torch.no_grad():
         scan_ops.selective_scan(args[0].clone().requires_grad_(), *args[1:])
-    assert scan_ops.KERNEL_LAUNCHES == before + 1
+    assert scan_ops.KERNEL_LAUNCHES == before[0] + 2
+
+
+# The scan backward kernel against the plain reverse recurrence
+# (ref.selective_scan_bwd_ref), entry by entry (_bwd_room): both entry
+# points (h0 and the final state's gradient on selective_scan_with_state),
+# N 4 and 16, ragged and chunk-edge lengths and channel counts, decays near
+# 1 and large dt * A (exp underflowing).
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("S,d,regime", [(1, 16, "large"), (15, 100, "model"),
+                                        (64, 64, "near 1"),
+                                        (100, 200, "large"),
+                                        (300, 130, "near 1")])
+def test_scan_backward_matches_plain(cuda_device, dtype, N, S, d, regime):
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
+    td = getattr(torch, dtype)
+    *args, h0 = _scan_inputs(N + S + d + 11, 2, S, d, N, td, cuda_device,
+                             regime)
+    g = torch.Generator(device=cuda_device).manual_seed(S + d)
+    dy = torch.randn(args[0].shape, generator=g, device=cuda_device).to(td)
+    dh = torch.randn(h0.shape, generator=g, device=cuda_device)
+    for with_state in (True, False):
+        leaves = [a.clone().requires_grad_() for a in args]
+        hl = h0.clone().requires_grad_()
+        before = scan_ops.BWD_LAUNCHES
+        if with_state:
+            y, h = scan_ops.selective_scan_with_state(*leaves, h0=hl)
+            loss = (y.float() * dy.float()).sum() + (h * dh).sum()
+            got = torch.autograd.grad(loss, leaves + [hl])
+            want = scan_ref.selective_scan_bwd_ref(*args, h0, dy, dh)
+        else:
+            y = scan_ops.selective_scan(*leaves)
+            got = torch.autograd.grad((y.float() * dy.float()).sum(), leaves)
+            want = scan_ref.selective_scan_bwd_ref(*args, None, dy)[:6]
+        torch.cuda.synchronize()
+        assert scan_ops.BWD_LAUNCHES == before + 1
+        for a, b in zip(got, want):
+            _within(a, b)
 
 
 @pytest.mark.gpu
@@ -846,6 +962,34 @@ def test_wkv_and_scan_repeats_are_bit_identical(cuda_device, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_and_scan_backward_repeats_are_bit_identical(cuda_device, dtype):
+    """No atomics and fixed orders of sums in the backward kernels and the
+    wrappers' sums of their partials: the same backward gives the same
+    bits, every gradient, for both recurrent kernels."""
+    td = getattr(torch, dtype)
+    args = _wkv_inputs(15, 2, 200, 4, 64, td, cuda_device, (0.69, 0.9975))
+    *sargs, h0 = _scan_inputs(16, 2, 200, 256, 16, td, cuda_device, "model")
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    dy = torch.randn(args[0].shape, generator=g, device=cuda_device).to(td)
+    sdy = torch.randn(sargs[0].shape, generator=g,
+                      device=cuda_device).to(td)
+
+    def grads():
+        leaves = [a.clone().requires_grad_() for a in args]
+        y, _ = wkv_ops.wkv(*leaves)
+        out = torch.autograd.grad((y.float() * dy.float()).sum(), leaves)
+        sleaves = [a.clone().requires_grad_() for a in sargs + [h0]]
+        y, _ = scan_ops.selective_scan_with_state(*sleaves[:6],
+                                                  h0=sleaves[6])
+        return out + torch.autograd.grad((y.float() * sdy.float()).sum(),
+                                         sleaves)
+    first = grads()
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, grads()))
+
+
+@pytest.mark.gpu
 def test_wkv_and_scan_take_an_empty_sequence(cuda_device):
     """S = 0 launches once and hands the initial state back."""
     args = _wkv_inputs(7, 2, 0, 3, 64, torch.float32, cuda_device,
@@ -856,6 +1000,31 @@ def test_wkv_and_scan_take_an_empty_sequence(cuda_device):
                               "model")
     y, h = scan_ops.selective_scan_with_state(*sargs, h0=h0)
     assert y.shape == (2, 0, 64) and torch.equal(h, h0)
+
+
+@pytest.mark.gpu
+def test_wkv_and_scan_backward_take_an_empty_sequence(cuda_device):
+    """S = 0 through the autograd Functions: the initial state's gradient
+    is the final state's, the rest are empty or zero, and no backward
+    kernel launches (there is no step to walk back)."""
+    args = _wkv_inputs(9, 2, 0, 3, 64, torch.float32, cuda_device,
+                       (0.69, 0.9975))
+    leaves = [a.clone().requires_grad_() for a in args]
+    before = wkv_ops.BWD_LAUNCHES, scan_ops.BWD_LAUNCHES
+    _, s = wkv_ops.wkv(*leaves)
+    ds = torch.randn_like(s)
+    grads = torch.autograd.grad((s * ds).sum(), leaves)
+    assert torch.equal(grads[5], ds) and grads[0].shape == (2, 0, 3, 64)
+    assert not bool(grads[4].any())
+    *sargs, h0 = _scan_inputs(10, 2, 0, 64, 16, torch.float32, cuda_device,
+                              "model")
+    sleaves = [a.clone().requires_grad_() for a in sargs + [h0]]
+    _, h = scan_ops.selective_scan_with_state(*sleaves[:6], h0=sleaves[6])
+    dh = torch.randn_like(h)
+    sgrads = torch.autograd.grad((h * dh).sum(), sleaves)
+    assert torch.equal(sgrads[6], dh) and sgrads[0].shape == (2, 0, 64)
+    assert not bool(sgrads[2].any())
+    assert (wkv_ops.BWD_LAUNCHES, scan_ops.BWD_LAUNCHES) == before
 
 
 # Self-speculative decoding on the card: a 4-layer gpt2 of head dim 64 (the

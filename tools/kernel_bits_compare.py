@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Hold the attention kernels of this checkout to another checkout's, bit
-for bit, on the cases both take.
+"""Hold the attention and recurrent kernels of this checkout to another
+checkout's, bit for bit, on the cases both take.
 
     python3 tools/kernel_bits_compare.py --against DIR   # on the card
 
 ``DIR`` is another checkout's root (e.g. a ``git archive`` of the parent
-commit unpacked into ``build/parent``).  The flash-attention and paged-
-decode libraries of both checkouts are built with each checkout's own
-``kernels/_build.py`` (sources and flags) into
+commit unpacked into ``build/parent``).  The flash-attention, paged-decode,
+WKV and selective-scan libraries of both checkouts are built with each
+checkout's own ``kernels/_build.py`` (sources and flags) into
 ``build/kernel_bits_compare/<side>/``, then this checkout's wrappers
 (``kernels/*/ops.py``) call each library in turn on the same inputs:
 
@@ -18,7 +18,11 @@ decode libraries of both checkouts are built with each checkout's own
 * paged: ``chip_smoke.py``'s paged parity grid at hd 64/128 (f32/bf16 q
   over f32, bf16, int8 and fp8 pages; MHA, G = 4, 9, 12, 16; pages of 16
   and 64; softcap 0/30; zero, ragged, bs-1, bs and last-slot cursors),
-  and its timing shapes with an int64 cursor.
+  and its timing shapes with an int64 cursor;
+* wkv and scan: the inference forwards (``wkv_fwd``,
+  ``selective_scan_fwd``: no chunk states saved) over ``chip_smoke.py``'s
+  parity grids (phases 14 and 18; the scan with and without its final
+  state), y and the final state.
 
 A checkout whose flash entry points take one sequence length (before
 S_k != S_q) is called through ``_OneLengthFlash``, on cases where the two
@@ -46,7 +50,10 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 
-PACKAGES = ("flash_attention", "paged_attention")
+from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
+
+PACKAGES = ("flash_attention", "paged_attention", "rwkv6", "mamba_scan")
 
 
 class _OneLengthFlash:
@@ -107,6 +114,15 @@ def build(root: str, side: str) -> dict:
         libs[name] = ctypes.CDLL(lib)
     if _one_length(root):
         libs["flash_attention"] = _OneLengthFlash(libs["flash_attention"])
+    # The recurrent forwards' inference entry points, the same in every
+    # checkout since they were written; set here, so that the wrappers
+    # take a library whatever else it exports.
+    for name, fn, n_ptr in (("rwkv6", "wkv_fwd", 8),
+                            ("mamba_scan", "selective_scan_fwd", 9)):
+        f = getattr(libs[name], fn)
+        f.restype = ctypes.c_int
+        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])
     return libs
 
 
@@ -214,6 +230,46 @@ def paged_compare(libs) -> dict:
     return dict(cases=run, equal=same)
 
 
+def wkv_compare(libs) -> dict:
+    run = same = 0
+    for n, (B, S, H, hd, dtype, state, decay) in enumerate(
+            cs.wkv_parity_cases()):
+        args = cs.wkv_case(B, S, H, hd, dtype, state, cs.WKV_DECAYS[decay],
+                           seed=3000 + n, zeros=decay == "near 0")
+        got = both(libs, "rwkv6", lambda: wkv_ops.wkv_cuda(*args))
+        run += 1
+        ok = _equal(got["this"], got["other"])
+        same += ok
+        if not ok:
+            print(f"  wkv differs: B{B} S{S} H{H} hd{hd} {dtype} "
+                  f"state {state} decay {decay}")
+    print(f"wkv: {same} of {run} cases bit-identical (y, final state)")
+    return dict(cases=run, equal=same)
+
+
+def scan_compare(libs) -> dict:
+    run = same = 0
+    for n, (B, S, d, N, dtype, h0, regime) in enumerate(
+            cs.scan_parity_cases()):
+        *args, state = cs.scan_case(B, S, d, N, dtype, h0, regime, 5000 + n)
+
+        def step():
+            y, h = scan_ops.selective_scan_cuda(*args, h0=state)
+            y_only, _ = scan_ops.selective_scan_cuda(*args,
+                                                     final_state=False)
+            return y, h, y_only
+        got = both(libs, "mamba_scan", step)
+        run += 1
+        ok = _equal(got["this"], got["other"])
+        same += ok
+        if not ok:
+            print(f"  scan differs: B{B} S{S} d{d} N{N} {dtype} h0 {h0} "
+                  f"{regime}")
+    print(f"scan: {same} of {run} input sets bit-identical (y with and "
+          "without the final state, the final state)")
+    return dict(cases=run, equal=same)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", required=True,
@@ -223,7 +279,8 @@ def main() -> int:
     libs = {"this": build(ROOT, "this"),
             "other": build(os.path.abspath(args.against), "other")}
     record = {"flash_attention": flash_compare(libs),
-              "paged_attention": paged_compare(libs)}
+              "paged_attention": paged_compare(libs),
+              "wkv": wkv_compare(libs), "selective_scan": scan_compare(libs)}
     print(json.dumps(record))
     return 0 if all(r["cases"] == r["equal"] for r in record.values()) else 1
 

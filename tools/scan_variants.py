@@ -192,7 +192,6 @@ def main() -> int:
         for rnd in range(2):
             for name, (lib, log) in built.items():
                 _build._loaded["mamba_scan"] = lib
-                ops._library()                    # sets the argtypes
                 row = result["runs"].setdefault(name, {
                     "registers_spills": scan_registers(log), "ms": {},
                     "rel_err": {}, "ctas_per_sm": {

@@ -153,7 +153,6 @@ def main() -> int:
         for rnd in range(2):
             for name, (lib, log) in built.items():
                 _build._loaded["rwkv6"] = lib
-                ops._library()                    # sets the argtypes
                 row = result["runs"].setdefault(name, {
                     "registers_spills": wkv_registers(log), "ms": {},
                     "rel_err": {}, "ctas_per_sm": {
