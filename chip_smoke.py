@@ -138,7 +138,7 @@ result):
    never (speculation rounds replace the masked decode); acceptance, mean
    accepted length and aggregate tokens/s beside phase 6's; the same with
    the prefix cache over int8 pages, which must hit; the paper's draft (a
-   random one-layer ``gpt2-12l`` expanded by ``copying_zeroL`` to 6
+   random one-layer ``gpt2-12l`` expanded by ``copying_zeroL`` to 3
    (``GPT2_ZEROL_DEPTH``, cut from 12 for time),
    served with its depth-1 truncation): acceptance at least 0.99; and each
    spec stream equal to phase 6's f32 stream, or first different at a
@@ -151,19 +151,18 @@ result):
    on the large route beside the embedding), tokens/s at 1 and 24 layers;
 24. ``qwen3-0.3b`` (qk-norm, tied) at full width over phase 6's traffic on
    paged KV, f32 and then int8 pages (the paged kernel at G = 2, hd 64),
-   at 6 layers (``SERVE_CUT``, reduced from 24); then the paper's draft:
+   at 4 layers (``SERVE_CUT``, reduced from 24); then the paper's draft:
    a one-layer ``qwen3-0.3b`` expanded by ``copying_zeroL`` to 3
    (``QWEN3_ZEROL_DEPTH``, reduced from 24), served with its depth-1
    truncation, acceptance at least 0.99;
 25. ``mixtral-0.3b``: 6 training steps through one expansion (expert
    stacks and routers through the Newton–Schulz kernel), then phase 6's
-   traffic on paged KV at 4 layers (reduced from 24);
-26. ``starcoder2-3b`` at full width, 4 of its 30 layers (reduced; 0.53 B
-   parameters) over
+   traffic on paged KV at 2 layers (reduced from 24);
+26. ``starcoder2-3b`` at full width, 2 of its 30 layers (reduced) over
    phase 6's traffic on paged KV: the paged kernel at G = 12, hd 128; then
    card against CPU at depth 2 (the B=1 P=128 generation, whose prefill
    runs flash at G = 12, and three paged requests);
-27. ``rwkv6-7b`` at full width and 8 layers (``RWKV_CONT_DEPTH``, cut
+27. ``rwkv6-7b`` at full width and 4 layers (``RWKV_CONT_DEPTH``, cut
    from 32 for time) in continuous serving (run right after phase 17, on
    the first layers of phase 15's weights), over phase 6's traffic
    through ``ServeEngine`` and ``ContinuousScheduler`` as ``serve.main
@@ -179,7 +178,7 @@ result):
    ``copying_zeroL`` to 4 layers and drafted at depth 1 (acceptance at
    least 0.99); every WKV launch count derived from the requests with this
    script's own binary decomposition (plus the snapshot edge of the prefix
-   cache): 32 per prefill chunk, 2 per draft prefill;
+   cache): one a layer per prefill chunk, 2 per draft prefill;
 28. jamba at full width and depth 8 on phase 19's weights (run right after
    phase 21) over phase 6's traffic through ``ContinuousScheduler``: paged
    over f32 and then int8 pages (the scan 7 times a prefill chunk, the
@@ -234,8 +233,8 @@ result):
    bf16 peak); the paged decode at G = 2, hd 256,
    softcap 50 and 0, f32/bf16 q over f32, bf16, int8 and fp8 pages at
    contexts past 4096, held by phase 4's rule and timed per page dtype;
-33. ``gemma2-9b`` at full width and 12 layers (``GEMMA2_SERVE_DEPTH``,
-   cut from 42 for time; 2.68 B params drawn on the card) in paged
+33. ``gemma2-9b`` at full width and 4 layers (``GEMMA2_SERVE_DEPTH``,
+   cut from 42 for time; drawn on the card) in paged
    continuous serving, f32: 8 requests into 4 slots,
    prompts 4160-6144 (past the 4096 window), 32 tokens, pages of 16,
    counters from 0: the paged kernel once per global layer per decode
@@ -264,17 +263,17 @@ result):
    backward held entry by entry to the plain version by phase 32's rule,
    finite and bit-identical on repeat, timed beside SDPA's best
    non-causal call and the bound; causal attention at S_k != S_q refused;
-37. ``deepseekv3-0.3b`` (MLA) at full width and 12 of its 24 layers
-   (``DSV3_DEPTH``, cut for time): ``launch/train.py`` 1 -> 12 layers at
+37. ``deepseekv3-0.3b`` (MLA) at full width and 4 of its 24 layers
+   (``DSV3_DEPTH``, cut for time): ``launch/train.py`` 1 -> 4 layers at
    step 3 of 6 (flash at hd 64, G = 2 on the up-projected K/V;
    Newton–Schulz over the latent projections and the expert stacks), the
-   12-layer checkpoint served over latent pages (f32, int8, the prefix
+   4-layer checkpoint served over latent pages (f32, int8, the prefix
    cache; no kernel launches: the latent read is plain, as in the
    reference) held to solo ``generate`` under the near-tie rule, MoE
    routed dropless for it; the run's 1-layer checkpoint expanded by
    ``copying_zeroL`` as the draft (acceptance >= 0.99); card against CPU
    at depth 2 (a generation, int8 prefix-cache serving, a train step);
-38. ``qwen2-vl-2b`` (M-RoPE) at full width and 14 of its 28 layers
+38. ``qwen2-vl-2b`` (M-RoPE) at full width and 4 of its 28 layers
    (``QWEN2VL_DEPTH``, cut for time): text-only paged
    serving over f32 and int8 pages (the paged kernel at G = 6, hd 128)
    held to solo ``generate``, one training step with 256 frontend embeds
@@ -309,13 +308,25 @@ result):
    bit-identical on repeat at jamba's shape; timed there beside its bound
    and SFU floor; one loss and backward at depth 1 (jamba's dense Mamba
    layer) against the CPU; then jamba's first two layers (dense Mamba,
-   Mamba + the 16-expert MoE; 3.57 B params) trained 3 steps under NSGD.
+   Mamba + the 16-expert MoE; 3.57 B params) trained 3 steps under NSGD;
+43. the mesh (last): ``gpt2-12l`` at full width, 1 -> 2 layers at step 4
+   of 8, 16 x 256, Muon-NSGD under WSD, through the trainer on a
+   ``single`` mesh (one NCCL rank) against ``mesh=None`` (losses and
+   final params bit for bit), then on two ranks that share the card over
+   gloo (``launch.mesh.spawn``, one spawn running ``tests/mesh_runs.py``'
+   scenarios): 2x1 (FSDP/DP) and 1x2 (TP, the flash kernels on 6 heads a
+   rank) each step within 1e-4 of the single mesh with the same
+   expansion step and each rank's flash, ``ns_fused`` and ``matmul``
+   launches derived; the flash kernel at the 6-head shape against its
+   plain version; the 1x2 run's checkpoint restored under 2x1 and
+   ``mesh=None`` bit for bit, the next step's loss of each; the grown
+   checkpoint served greedily on 2x1 and 1x2 against solo ``generate``.
 
-``--only 36,...,42`` runs the card, the build and the named phases of
-36-42 alone (41 and 42 on weights drawn on the card for them), prints
+``--only 36,...,43`` runs the card, the build and the named phases of
+36-43 alone (41 and 42 on weights drawn on the card for them), prints
 their readings and no closing line.
 
-Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-42) starts
+Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-43) starts
 with every kernel's launch counter at 0 and checks every counter after
 it, the kernels it must not launch included.  Each phase prints its
 seconds.
@@ -430,27 +441,20 @@ SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # scan, the card its kernel).
 JAMBA_LOGIT_TOL, JAMBA_LOSS_TOL = 1e-4, 1e-5
 
-# Each kernel wrapper's launch counter: (ops module key, attribute).
-COUNTERS = {"flash_attention": ("fa", "KERNEL_LAUNCHES"),
-            "flash_attention_bwd": ("fa", "BWD_LAUNCHES"),
-            "paged_attention": ("pa", "KERNEL_LAUNCHES"),
-            "ns_fused": ("ns", "NS_FUSED_LAUNCHES"),
-            "matmul": ("ns", "MATMUL_LAUNCHES"),
-            "wkv": ("wkv", "KERNEL_LAUNCHES"),
-            "wkv_bwd": ("wkv", "BWD_LAUNCHES"),
-            "selective_scan": ("scan", "KERNEL_LAUNCHES"),
-            "selective_scan_bwd": ("scan", "BWD_LAUNCHES")}
+# Each kernel wrapper's launch counter (``repro_torch.kernels.
+# LAUNCH_COUNTERS``: kernel -> (ops package, attribute)), set in main.
+COUNTERS = {}
 OPS = {}                            # ops module key -> module, set in main
 
 
 def zero_counts():
-    for mod, attr in COUNTERS.values():
-        setattr(OPS[mod], attr, 0)
+    from repro_torch.kernels import zero_launch_counts
+    zero_launch_counts()
 
 
 def read_counts() -> dict:
-    return {name: getattr(OPS[mod], attr)
-            for name, (mod, attr) in COUNTERS.items()}
+    from repro_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def expect_counts(phase: str, **want):
@@ -2541,9 +2545,9 @@ SPEC_ARGV = ["--spec-depth", str(SPEC_DEPTH), "--gamma", str(SPEC_GAMMA)]
 # the target's verify sum in other orders, so only near-ties flip an argmax.
 SPEC_ZEROL_ACCEPTANCE = 0.99
 # Phase 22's draft of gpt2-12l: a one-layer source expanded to this many
-# layers (cut from 12 to make room for phases 40-42: the acceptance does
+# layers (cut from 12 to make room for phases 40-43: the acceptance does
 # not depend on the depth, the run's time does).
-GPT2_ZEROL_DEPTH = 6
+GPT2_ZEROL_DEPTH = 3
 # A spec stream may leave phase 6's f32 stream only where the target's
 # top-2 logit gap at the first differing position is below this: the
 # verify's gathered f32 context and the decode kernel sum in other orders
@@ -2682,9 +2686,9 @@ def spec_vs_plain(cfg, registry, spec, plain, engine) -> int:
 # seed 0 in f32.  llama3-0.3b trains with the launcher's defaults, one
 # layer to 24 at half of 12 steps; mixtral-0.3b through one expansion in 6.
 # Phases 24-26 serve phase 6's traffic at these depths (cut from 24, 24
-# and 30 to make room for phases 36-42: each layer adds the same
+# and 30 to make room for phases 36-43: each layer adds the same
 # host-bound step work, and starcoder2's weights are drawn on the host).
-SERVE_CUT = {"qwen3-0.3b": 6, "mixtral-0.3b": 4, "starcoder2-3b": 4}
+SERVE_CUT = {"qwen3-0.3b": 4, "mixtral-0.3b": 2, "starcoder2-3b": 2}
 # The paper's draft over qwen3-0.3b: a one-layer source expanded to this
 # many layers (cut from 24 to make room for phases 36-42: the acceptance
 # does not depend on the depth, the run's time does).
@@ -2751,10 +2755,10 @@ RWKV_PAGED_ARGV = _with_arch(PAGED_ARGV, "rwkv6-7b")
 # layers (cut from 32: the acceptance does not depend on the depth, the
 # run's time does).
 RWKV_ZEROL_DEPTH = 4
-# Phase 27 serves the first 8 of phase 15's 32 layers (cut from 32 to make
-# room for phases 40-42: each layer adds the same host-bound
+# Phase 27 serves the first 4 of phase 15's 32 layers (cut from 32 to make
+# room for phases 40-43: each layer adds the same host-bound
 # chunk and step work; the full depth's prefill and decode stay phase 15's).
-RWKV_CONT_DEPTH = 8
+RWKV_CONT_DEPTH = 4
 RWKV_SPEC_REQUESTS = 8
 PAGE = 16                           # --block-size of every paged run here
 
@@ -3621,11 +3625,11 @@ GEMMA_PAGED = dict(B=4, H=16, KV=8, hd=HD256, bs=16, NB=400, cursor=5000)
 GEMMA_PAGED_CURSORS = [4200, 6175, 4096, 0]
 # Phase 33: gemma2-9b at full size, 8 requests into 4 slots.
 GEMMA2_TRAFFIC = dict(n=8, lo=4160, hi=6144, gen=32, slots=4, seed=33)
-# Phase 33 serves gemma2-9b at 12 of its 42 layers (cut to make room for
-# phases 40-42: six of its 21 local/global pairs; every request still runs
+# Phase 33 serves gemma2-9b at 4 of its 42 layers (cut to make room for
+# phases 40-43: two of its 21 local/global pairs; every request still runs
 # past the 4096 window and the paged kernel at G = 2, hd 256 on each global
 # layer).
-GEMMA2_SERVE_DEPTH = 12
+GEMMA2_SERVE_DEPTH = 4
 # Phase 34: gemma3-12b at full width and 12 layers (two 5:1 periods), 16
 # requests into 8 slots: a 1280-token shared prefix alone, then 15 prompts
 # of 1281-2000 tokens that extend it.
@@ -4400,9 +4404,9 @@ def cross_attention_lane(fa_ops) -> dict:
 # traffic 6 requests into 3 slots over a 128-token shared prefix (the bare
 # prefix first), prompts up to 448 tokens, 16 tokens each, pages of 16.
 DSV3 = "deepseekv3-0.3b"
-# Phase 37 trains and serves deepseekv3-0.3b at 12 of its 24 layers (cut
-# to make room for phases 40-42: each layer adds the same host-bound work).
-DSV3_DEPTH = 12
+# Phase 37 trains and serves deepseekv3-0.3b at 4 of its 24 layers (cut
+# to make room for phases 40-43: each layer adds the same host-bound work).
+DSV3_DEPTH = 4
 DSV3_TRAFFIC = dict(n=6, lo=160, hi=448, gen=16, slots=3, seed=37,
                     shared=128)
 # Phase 38: qwen2-vl-2b at full width and depth (28 layers), text-only
@@ -4410,9 +4414,9 @@ DSV3_TRAFFIC = dict(n=6, lo=160, hi=448, gen=16, slots=3, seed=37,
 # sequences of 256 frontend embeds + 256 tokens.
 QWEN2VL = "qwen2-vl-2b"
 QWEN2VL_TRAFFIC = dict(n=8, lo=256, hi=768, gen=32, slots=8, seed=38)
-# Phase 38 runs qwen2-vl-2b at 14 of its 28 layers (cut to make room for
-# phases 40-42: each layer adds the same host-bound step work).
-QWEN2VL_DEPTH = 14
+# Phase 38 runs qwen2-vl-2b at 4 of its 28 layers (cut to make room for
+# phases 40-43: each layer adds the same host-bound step work).
+QWEN2VL_DEPTH = 4
 QWEN2VL_TRAIN_B, QWEN2VL_TRAIN_S = 2, 256
 # Phase 39: whisper-base at full size (6 + 6 layers, 1500 frames): batches
 # of 4 x 1500 frames and 448 tokens (the decoder's context), 2 Muon steps
@@ -5420,6 +5424,287 @@ def jamba_backward_rest(scan_ops, cfg8, out, cut) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 43. The mesh: gpt2-12l at full width, depth 1 -> 2 at step 4 of 8, global
+# batch 16 x 256, Muon-NSGD under WSD, on a 'single' mesh (one NCCL rank)
+# against mesh=None in this process, then on two ranks that share the card
+# over gloo at 2x1 (FSDP/DP) and 1x2 (TP), spawned once.
+# ---------------------------------------------------------------------------
+
+MESH_STEPS, MESH_TAU = 8, 0.5
+# Per-step losses of the two-rank meshes against the single mesh: the
+# reference's own tolerance for its sharded runs (tests/test_distributed.py).
+MESH_LOSS_TOL = 1e-4
+# (c) the next step's loss, restored under 2x1 against mesh=None: the same
+# params and batch; only the DP mean of two half-batch means differs.
+MESH_RESUME_TOL = 1e-5
+# (d) 1x2 logits against solo generate: TP sums heads, d_ff and vocab rows
+# in two halves; the reference's TP tolerance.
+MESH_LOGIT_TOL = 1e-4
+MESH_PROMPTS = (4, 64, 8)       # (B, P, G) of the serving half
+# A two-rank mesh's larger per-rank training peak over mesh=None's: half
+# the state and half the activations a rank, plus one whole leaf gathered
+# at a time.
+MESH_PEAK_RATIO = 0.85
+
+
+def _mesh_tcfg(total=MESH_STEPS):
+    from repro_torch.configs.base import (ExpansionConfig, OptimizerConfig,
+                                          ScheduleConfig, TrainConfig)
+    return TrainConfig(
+        total_steps=total, seq_len=256, global_batch=16, source_layers=1,
+        expansions=(ExpansionConfig(at_frac=MESH_TAU, target_layers=2,
+                                    init="random"),),
+        optimizer=OptimizerConfig(name="muon_nsgd"),
+        schedule=ScheduleConfig(name="wsd"), eval_every=10_000,
+        checkpoint_every=10_000, log_every=1, seed=0)
+
+
+def _mesh_counts(cfg):
+    """One rank's launches in an 8-step run (every rank computes every
+    step of its shard: one flash forward and backward a layer a step on
+    its rows or heads, and every Muon matrix whole); every other kernel
+    0."""
+    tau = int(MESH_TAU * MESH_STEPS)
+    layers = [1] * tau + [2] * (MESH_STEPS - tau)
+    fused, large = _ns_launches(cfg)
+    want = {name: 0 for name in COUNTERS}
+    want.update(flash_attention=sum(layers),
+                flash_attention_bwd=sum(layers),
+                ns_fused=fused * MESH_STEPS, matmul=large * MESH_STEPS)
+    return want
+
+
+def _serve_counts(cfg):
+    """One rank's launches in one greedy ``generate`` of the grown model:
+    one prefill, one flash forward a layer on the rank's rows (2x1) or
+    heads (1x2); contiguous decode attention is plain torch; every other
+    kernel 0."""
+    want = {name: 0 for name in COUNTERS}
+    want["flash_attention"] = cfg.num_layers
+    return want
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    if sorted(a) != sorted(b):
+        _fail(f"trees differ in leaves: {sorted(set(a) ^ set(b))}")
+    return max(float(np.max(np.abs(a[k].astype(np.float64)
+                                   - b[k].astype(np.float64)))) for k in a)
+
+
+def _run_line(label, r, card):
+    st = r["step_times"][1:] or r["step_times"]
+    return (f"  {label}: {1e3 * sum(st) / len(st):.1f} ms a step (steps 2-8 "
+            f"mean; the first {1e3 * r['step_times'][0]:.1f} ms), peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB, run "
+            f"{r['seconds']:.1f} s (of it {r['mesh_s']:.1f} s building the "
+            f"mesh) [{card}]")
+
+
+def mesh_phase(cfglib, card) -> dict:
+    """Phase 43; returns its readings and each rank's launches."""
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.launch import mesh as mesh_lib
+    # The rank scenarios, shared with the mesh tests (no JAX there).
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import mesh_runs
+    from repro_torch.launch.serve import load_params
+    from repro_torch.models import registry
+    from repro_torch.optim.base import make_optimizer
+    t0 = time.perf_counter()
+    cfg = cfglib.get_config("gpt2-12l").with_depth(2)
+    tcfg = _mesh_tcfg()
+    want = _mesh_counts(cfg.with_depth(1))
+    tau = int(MESH_TAU * MESH_STEPS)
+    print("phase 43: the mesh (gpt2-12l full width, 1 -> 2 layers at step "
+          f"{tau} of {MESH_STEPS}, 16 x 256, Muon-NSGD/WSD) [{card}]")
+
+    # (a) mesh=None and the 'single' mesh, in this process
+    none = mesh_runs.train(cfg, tcfg, None, device="cuda", want_params=True,
+                           count=True)
+    single = mesh_runs.train(cfg, tcfg, "single", device="cuda",
+                             want_params=True, count=True)
+    if dist.get_backend() != "nccl":
+        _fail(f"single mesh backend {dist.get_backend()}, expected nccl")
+    dist.destroy_process_group()
+    mesh_runs._MESHES.clear()
+    if single["history"]["loss"] != none["history"]["loss"]:
+        _fail(f"single mesh losses {single['history']['loss']} != mesh=None "
+              f"{none['history']['loss']}")
+    p_diff = _max_diff(single["params"], none["params"])
+    if p_diff:
+        _fail(f"single mesh final params differ from mesh=None by {p_diff}")
+    for label, r in (("mesh=None", none), ("single", single)):
+        if r["counts"] != want:
+            _fail(f"{label} launches {r['counts']}, expected {want}")
+    print(f"  (a) single (1 NCCL rank) == mesh=None bit for bit: {MESH_STEPS} "
+          f"losses, {len(none['params'])} final leaves; expansion "
+          f"{single['history']['expansion_steps']}")
+    print(_run_line("mesh=None", none, card))
+    print(_run_line("single", single, card))
+
+    # (b)-(d) two ranks sharing the card over gloo, one spawn
+    B, P, G = MESH_PROMPTS
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        mesh_dir = os.path.join(tmp, "resume_2x1")
+        scen = [
+            ("2x1", "train", dict(cfg=cfg, tcfg=tcfg, mesh="2x1",
+                                  count=True)),
+            ("1x2", "train", dict(cfg=cfg, tcfg=tcfg, mesh="1x2",
+                                  ckpt_dir=run_dir, count=True,
+                                  want_params=True)),
+            ("flash_6_heads", "flash_local",
+             dict(shape=(16, 256, cfg.num_heads // 2, cfg.head_dim))),
+            ("restored_2x1", "restore_state",
+             dict(cfg=cfg, mesh="2x1", directory=run_dir, step=MESH_STEPS,
+                  opt_name="muon_nsgd")),
+            ("copy", "copy_step", dict(src=run_dir, dst=mesh_dir,
+                                       step=MESH_STEPS, mesh="2x1")),
+            ("next_2x1", "train", dict(cfg=cfg, tcfg=_mesh_tcfg(MESH_STEPS
+                                                                 + 1),
+                                       mesh="2x1", ckpt_dir=mesh_dir)),
+            ("serve_2x1", "serve", dict(cfg=cfg, params_np=None,
+                                        prompts=prompts, num_tokens=G,
+                                        mesh="2x1", max_len=P + G,
+                                        ckpt_dir=run_dir, count=True)),
+            ("serve_1x2", "serve", dict(cfg=cfg, params_np=None,
+                                        prompts=prompts, num_tokens=G,
+                                        mesh="1x2", max_len=P + G,
+                                        ckpt_dir=run_dir, count=True))]
+        t1 = time.perf_counter()
+        ranks = mesh_lib.spawn(mesh_runs.run, 2, (scen, "cuda"),
+                               device="cuda", threads=0, timeout_s=600)
+        spawn_s = time.perf_counter() - t1
+        # mesh=None: restore and the next step, and solo generate
+        none_dir = os.path.join(tmp, "resume_none")
+        os.makedirs(none_dir)
+        name = f"step_{MESH_STEPS:09d}"
+        import shutil
+        shutil.copytree(os.path.join(run_dir, name),
+                        os.path.join(none_dir, name))
+        like_p = registry.get_model(cfg).init(None, cfg, device="meta")
+        opt = make_optimizer(tcfg.optimizer)
+        restored_none = bridge.flatten(ckpt.restore(
+            run_dir, MESH_STEPS, {"params": like_p,
+                                  "opt_state": opt.init(like_p)}))
+        next_none = mesh_runs.train(cfg, _mesh_tcfg(MESH_STEPS + 1), None,
+                                    device="cuda", ckpt_dir=none_dir)
+        params, scfg = load_params(run_dir, cfg)
+        solo = mesh_runs.serve(scfg, mesh_runs._numpy(bridge.flatten(params)),
+                               prompts, G, None, device="cuda",
+                               max_len=P + G, count=True)
+
+    out = {"single_equals_none": True, "spawn_s": spawn_s}
+    ref_loss = np.array(single["history"]["loss"])
+    for spec in ("2x1", "1x2"):
+        for r, res in enumerate(ranks):
+            got = res[spec]
+            if got["history"] != ranks[0][spec]["history"]:
+                _fail(f"{spec}: rank {r}'s history differs from rank 0's")
+            if got["history"]["expansion_steps"] != [tau]:
+                _fail(f"{spec} expansion at "
+                      f"{got['history']['expansion_steps']}, expected [{tau}]")
+            if got["counts"] != want:
+                _fail(f"{spec} rank {r} launches {got['counts']}, expected "
+                      f"{want}")
+        err = float(np.max(np.abs(np.array(ranks[0][spec]["history"]["loss"])
+                                  - ref_loss)))
+        if not err <= MESH_LOSS_TOL:
+            _fail(f"{spec} losses off the single mesh by {err}")
+        out[spec] = {"loss_max_abs_err": err,
+                     "launches_per_rank": [res[spec]["counts"]
+                                           for res in ranks],
+                     "ms_per_step": [1e3 * float(np.mean(
+                         res[spec]["step_times"][1:])) for res in ranks],
+                     "peak_gib": [res[spec]["peak_bytes"] / 2**30
+                                  for res in ranks]}
+        print(f"  (b) {spec} (2 ranks share the card, gloo): losses within "
+              f"{err:.3g} of single (limit {MESH_LOSS_TOL}), expansion "
+              f"[{tau}], launches per rank {[res[spec]['counts'] for res in ranks]}")
+        for r, res in enumerate(ranks):
+            print(_run_line(f"{spec} rank {r}", res[spec], card))
+        # Each rank holds half the state and computes half the rows (2x1)
+        # or heads, d_ff and vocab (1x2): its peak must stay below one
+        # device's, or some path holds the whole state on a rank.
+        ratio = max(res[spec]["peak_bytes"] for res in ranks) / \
+            none["peak_bytes"]
+        out[spec]["peak_over_mesh_none"] = ratio
+        if not ratio < MESH_PEAK_RATIO:
+            _fail(f"{spec}: a rank's peak is {ratio:.3f} of mesh=None's "
+                  f"(limit {MESH_PEAK_RATIO})")
+        print(f"  (b) {spec}: the larger rank's peak is {ratio:.3f} of "
+              f"mesh=None's (limit {MESH_PEAK_RATIO})")
+    fl = ranks[0]["flash_6_heads"]
+    if not max(fl.values()) <= TOL[torch.float32]:
+        _fail(f"flash at the 6-head local shape: {fl}")
+    out["flash_6_heads"] = fl
+    print(f"  (b) flash fwd/bwd at the TP shape (16, 256, 6, 64) f32 vs plain:"
+          f" {fl} (limit {TOL[torch.float32]})")
+
+    # (c) elastic checkpoints
+    tree_1x2 = {"['params']" + k: v for k, v in
+                ranks[0]["1x2"]["params"].items()}
+    for r, res in enumerate(ranks):
+        got = res["restored_2x1"]
+        if not got["shard_shapes_ok"]:
+            _fail(f"rank {r}: restored shards do not have their specs' "
+                  "shapes")
+        d = _max_diff(got["tree"], restored_none)
+        if d:
+            _fail(f"1x2 checkpoint restored under 2x1 differs from mesh=None "
+                  f"by {d}")
+    d_run = _max_diff({k: v for k, v in restored_none.items()
+                       if k.startswith("['params']")}, tree_1x2)
+    if d_run:
+        _fail(f"restored params differ from the 1x2 run's by {d_run}")
+    l_mesh = ranks[0]["next_2x1"]["history"]["loss"][-1]
+    l_none = next_none["history"]["loss"][-1]
+    if not abs(l_mesh - l_none) <= MESH_RESUME_TOL:
+        _fail(f"next step after restore: 2x1 loss {l_mesh}, mesh=None "
+              f"{l_none}")
+    out["resume"] = {"loss_2x1": l_mesh, "loss_none": l_none}
+    print(f"  (c) saved under 1x2, restored under 2x1 and mesh=None: "
+          f"{len(restored_none)} leaves equal bit for bit; next step's loss "
+          f"{l_mesh!r} (2x1) vs {l_none!r} (mesh=None)")
+
+    # (d) serving the grown checkpoint
+    want_serve = _serve_counts(cfg)
+    if solo["counts"] != want_serve:
+        _fail(f"solo generate launches {solo['counts']}, expected "
+              f"{want_serve}")
+    for spec in ("2x1", "1x2"):
+        for r, res in enumerate(ranks):
+            if res[f"serve_{spec}"]["counts"] != want_serve:
+                _fail(f"serve {spec} rank {r} launches "
+                      f"{res[f'serve_{spec}']['counts']}, expected "
+                      f"{want_serve}")
+        got = ranks[0][f"serve_{spec}"]
+        if not np.array_equal(got["tokens"], solo["tokens"]):
+            _fail(f"{spec} greedy tokens differ from solo generate")
+        lerr = float(np.max(np.abs(got["logits"] - solo["logits"])))
+        if spec == "1x2" and not lerr <= MESH_LOGIT_TOL:
+            _fail(f"1x2 logits off solo by {lerr}")
+        out[f"serve_{spec}"] = {"logit_max_abs_err": lerr,
+                                "seconds": got["seconds"],
+                                "launches_per_rank": [
+                                    res[f"serve_{spec}"]["counts"]
+                                    for res in ranks]}
+        print(f"  (d) serve {spec}: {B} x {G} greedy tokens == solo "
+              f"generate; logits within {lerr:.3g}; flash launches per "
+              f"rank {[res[f'serve_{spec}']['counts']['flash_attention'] for res in ranks]}"
+              f" (1 prefill x {cfg.num_layers} layers, as solo's "
+              f"{solo['counts']['flash_attention']}; no other kernel)")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 43: {out['seconds']:.1f} s (spawn {spawn_s:.1f} s) "
+          f"[{card}]")
+    return out
+
+
 def run_only(only, cfglib, registry, fa_ops, pa_ops, train, serve) -> int:
     """``--only``: after the card and the build, the named phases of
     36-42 alone, each as the full run makes it (41 and 42 on weights drawn
@@ -5458,6 +5743,8 @@ def run_only(only, cfglib, registry, fa_ops, pa_ops, train, serve) -> int:
         got["38"] = qwen2_vl_paths(cfglib, registry, fa_ops)
     if 39 in only:
         got["39"] = whisper_paths(cfglib, registry)
+    if 43 in only:
+        got["43"] = mesh_phase(cfglib, card_line())
     print(json.dumps(got))
     return 0
 
@@ -5466,12 +5753,12 @@ def main() -> int:
     only = None
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = {int(x) for x in sys.argv[2].split(",")}
-        if not only <= {36, 37, 38, 39, 40, 41, 42}:
-            print("chip_smoke: --only takes phases among 36-42",
+        if not only <= {36, 37, 38, 39, 40, 41, 42, 43}:
+            print("chip_smoke: --only takes phases among 36-43",
                   file=sys.stderr)
             return 2
     elif sys.argv[1:]:
-        print("usage: chip_smoke.py [--only 36,37,...,42]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only 36,37,...,43]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5488,6 +5775,8 @@ def main() -> int:
     from repro_torch.launch import serve, train
     from repro_torch.models import registry
     from repro_torch.train.serve_engine import ServeEngine
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    COUNTERS.update(LAUNCH_COUNTERS)
     OPS.update(fa=fa_ops, pa=pa_ops, ns=ns_ops, wkv=wkv_ops, scan=scan_ops)
 
     # 1. the card
@@ -5790,7 +6079,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 37. deepseekv3-0.3b (MLA) at 12 layers: the paper's recipe 1 -> 12
+    # 37. deepseekv3-0.3b (MLA) at 4 layers: the paper's recipe 1 -> 4
     # layers, its checkpoint served over latent pages (f32, int8, prefix
     # cache), a copying_zeroL draft, card against CPU at depth 2
     dsv3 = deepseekv3_paths(cfglib, registry, train, serve, fa_ops)
@@ -5812,6 +6101,17 @@ def main() -> int:
     # 40. the paper's expansion-timing recipe: calibrate_tau on gpt2-12l
     # at full width, the quickstart's savings line for its plan
     rec = recipe_phase(cfglib)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 43. the mesh: gpt2-12l 1 -> 2 layers on a single mesh against
+    # mesh=None, then on two ranks sharing the card (2x1, 1x2), elastic
+    # checkpoints and serving the grown checkpoint
+    mesh = mesh_phase(cfglib, card)
+
+    def mesh_launches(kernel):
+        return {spec: [c[kernel] for c in mesh[spec]["launches_per_rank"]]
+                for spec in ("2x1", "1x2")}
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -5819,6 +6119,12 @@ def main() -> int:
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
          "launches": launches, "spec_path_launches": spec_launches,
+         "mesh_43_launches_per_rank": mesh_launches("flash_attention"),
+         "mesh_43_serve_launches_per_rank": {
+             spec: [c["flash_attention"] for c in
+                    mesh[f"serve_{spec}"]["launches_per_rank"]]
+             for spec in ("2x1", "1x2")},
+         "mesh_43_tp_local_shape_err": mesh["flash_6_heads"]["out"],
          "jamba_contiguous_launches":
              jamba_cont["contiguous"]["flash_attention"],
          "max_abs_err": main_err, **t,
@@ -5867,6 +6173,9 @@ def main() -> int:
                      "itself)",
          "launches": train_counts["flash_attention_bwd"],
          "max_abs_err": bwd_err, "f64_err": bwd_f64, **t_bwd,
+         "mesh_43_launches_per_rank": mesh_launches("flash_attention_bwd"),
+         "mesh_43_tp_local_shape_err": max(
+             v for k, v in mesh["flash_6_heads"].items() if k != "out"),
          "cross_attention": {lbl: {d: r["backward"] for d, r in v.items()}
                              for lbl, v in cross.items()},
          "new_archs_launches": {
@@ -5885,6 +6194,7 @@ def main() -> int:
                    "newton_schulz.cu",
          "replaces": "src/repro/kernels/newton_schulz/kernel.py:48",
          "launches": train_counts["ns_fused"], "max_abs_err": ns_err,
+         "mesh_43_launches_per_rank": mesh_launches("ns_fused"),
          "new_archs_launches": {
              "deepseekv3_0_3b": dsv3["training"]["ns_fused"],
              "qwen2_vl_2b": vl["training"]["ns_fused"],
@@ -5895,6 +6205,7 @@ def main() -> int:
                    "newton_schulz.cu",
          "replaces": "src/repro/kernels/newton_schulz/kernel.py:79",
          "launches": train_counts["matmul"], "max_abs_err": mm_err,
+         "mesh_43_launches_per_rank": mesh_launches("matmul"),
          "new_archs_launches": {
              "deepseekv3_0_3b": dsv3["training"]["matmul"],
              "qwen2_vl_2b": vl["training"]["matmul"],

@@ -24,7 +24,8 @@ def keystr(path) -> str:
     return "".join(f"[{k!r}]" for k in path)
 
 
-def _parse_keystr(key: str):
+def parse_keystr(key: str):
+    """The dict keys of a ``keystr`` path."""
     parts = _KEY.findall(key)
     if not parts or keystr(parts) != key:
         raise ValueError(f"not a dict keypath: {key!r}")
@@ -47,7 +48,7 @@ def flatten(tree, prefix=()) -> Dict[str, object]:
 def unflatten(flat: Dict[str, object]) -> dict:
     tree: dict = {}
     for key, leaf in flat.items():
-        path = _parse_keystr(key)
+        path = parse_keystr(key)
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})

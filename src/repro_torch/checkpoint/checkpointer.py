@@ -21,6 +21,18 @@ ignores and the next save sweeps; :func:`restore` and
 :class:`AsyncCheckpointer` keeps one write in flight: its snapshot is a
 device clone taken on the compute stream before ``save`` returns, and the
 device-to-host copy and the file write run in a worker thread.
+
+On a mesh (``mesh=`` with ``shardings``, a spec tree shaped like the
+saved tree) every rank calls ``save``; each leaf in turn is gathered to
+rank 0 alone (``gather_to_writer``: the ranks that split it with rank 0
+send their shards, the others hold nothing) and moved to its host memory
+before the next leaf, and rank 0 writes, in the format above, so a mesh's
+checkpoint is a single-device checkpoint (the manifest records each
+leaf's spec).  No rank ever holds the whole state on its device: rank 0
+holds one whole leaf at a time.  ``restore``/``restore_subtree`` with
+``mesh=`` and ``shardings`` slice each leaf as it is read, and return
+this rank's slices: a checkpoint saved under any mesh restores under any
+other, or under none.
 """
 from __future__ import annotations
 
@@ -32,8 +44,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import bridge
+from repro_torch.distributed.sharding import dim_axes
 from repro_torch.train import faults as faults_lib
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -48,8 +62,63 @@ def _treedef_str(tree) -> str:
     return f"PyTreeDef({fmt(tree)})"
 
 
+def _leaf_to_writer(x, spec, mesh):
+    """Rank 0: the whole leaf in host memory; every other rank None.  The
+    ranks that split the leaf with rank 0 (those at coordinate 0 on every
+    axis the leaf is not split over) send their shards to rank 0 in one
+    ``gather`` over their group; the rest take no part.  Under gloo the
+    shards go through host memory (their destination), under NCCL they
+    are gathered on the devices."""
+    axes = tuple(a for a in mesh.axis_names
+                 if mesh.shape[a] > 1 and any(a in dim_axes(e) for e in spec))
+    if not axes:
+        if mesh.rank != 0:
+            return None
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+    if any(mesh.coords[a] for a in mesh.axis_names if a not in axes):
+        return None
+    src = x.detach().contiguous()
+    if mesh.backend != "nccl":
+        src = src.cpu()
+    n = mesh.axes_size(axes)
+    parts = [torch.empty_like(src) for _ in range(n)] \
+        if mesh.rank == 0 else None
+    dist.gather(src, parts, dst=0, group=mesh.group(axes))
+    if mesh.rank != 0:
+        return None
+    full = torch.empty(tuple(s * mesh.axes_size(dim_axes(e))
+                             for s, e in zip(src.shape, spec)),
+                       dtype=src.dtype)
+    sizes = [mesh.shape[a] for a in axes]
+    for j, part in enumerate(parts):
+        coords = dict(zip(axes, np.unravel_index(j, sizes)))
+        index = []
+        for d, e in enumerate(spec):
+            i = 0
+            for a in dim_axes(e):
+                i = i * mesh.shape[a] + int(coords.get(a, 0))
+            index.append(slice(i * src.shape[d], (i + 1) * src.shape[d]))
+        full[tuple(index)] = part.cpu()
+    return full
+
+
+def gather_to_writer(tree: Any, shardings: Any, mesh) -> Optional[Any]:
+    """Rank 0: ``tree``'s leaves whole in host memory, gathered one leaf at
+    a time; every other rank None (a collective: every rank of ``mesh``
+    calls it)."""
+    flat = bridge.flatten(tree)
+    specs = bridge.flatten(shardings)
+    out = {k: _leaf_to_writer(x, specs[k], mesh) for k, x in flat.items()}
+    return bridge.unflatten(out) if mesh.rank == 0 else None
+
+
+def _is_writer(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
 def save(directory: str, step: int, tree: Any,
-         metadata: Optional[dict] = None, keep: int = 3, faults=None) -> str:
+         metadata: Optional[dict] = None, keep: int = 3, faults=None,
+         mesh=None, shardings=None) -> Optional[str]:
     """Atomically save ``tree`` (a nested dict of tensors or arrays: params,
     opt state, ...) at ``step``; returns the step directory.
 
@@ -57,7 +126,18 @@ def save(directory: str, step: int, tree: Any,
     after ``arrays.npz`` lands and before the manifest: the preemption
     window.  The step directory is then left as a ``.tmp`` that
     :func:`all_steps` ignores and the next save sweeps, so the previous
-    checkpoint stays the latest."""
+    checkpoint stays the latest.  With ``mesh`` every rank calls it: the
+    leaves are gathered to rank 0, which writes (the others return
+    None)."""
+    if mesh is not None:
+        tree = gather_to_writer(tree, shardings, mesh)
+        if not _is_writer(mesh):
+            return None
+    return _write(directory, step, tree, metadata, keep, faults, shardings)
+
+
+def _write(directory: str, step: int, tree: Any, metadata, keep: int,
+           faults, shardings) -> str:
     plane = faults_lib.resolve(faults)
     os.makedirs(directory, exist_ok=True)
     final = _step_dir(directory, step)
@@ -75,8 +155,9 @@ def save(directory: str, step: int, tree: Any,
         "num_leaves": len(flat),
         "treedef": _treedef_str(tree),
         "paths": list(flat),
-        # Leaves are stored gathered from one device: no layout to record.
-        "shardings": [""] * len(flat),
+        # Leaves are stored whole; a mesh's specs are recorded.
+        "shardings": ([repr(s) for s in bridge.flatten(shardings).values()]
+                      if shardings is not None else [""] * len(flat)),
         "metadata": metadata or {},
     }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -116,13 +197,37 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, step: int, like, faults=None):
+def _slice(a: np.ndarray, spec, mesh) -> np.ndarray:
+    """This rank's shard of a whole numpy leaf under ``spec``."""
+    for d, e in enumerate(spec):
+        axes = dim_axes(e)
+        n = mesh.axes_size(axes)
+        if n > 1:
+            size = a.shape[d] // n
+            i = mesh.axes_index(axes)
+            a = a[(slice(None),) * d + (slice(i * size, (i + 1) * size),)]
+    return np.array(a, order="C")       # 0-d leaves stay 0-d
+
+
+def _slicer(shardings, mesh):
+    """(key, whole leaf) -> what the caller keeps: this rank's slice on a
+    mesh, taken as the leaf is read, else the leaf."""
+    if mesh is None:
+        return lambda key, a: a
+    specs = bridge.flatten(shardings)
+    return lambda key, a: _slice(a, specs[key], mesh)
+
+
+def restore(directory: str, step: int, like, faults=None, mesh=None,
+            shardings=None):
     """Restore a whole checkpoint into the structure of ``like`` (a nested
     dict whose leaves have ``.shape``) as a nested dict of numpy arrays.
     Leaves are taken in order, as the reference restores; a keypath or
     shape that differs from the manifest's raises ``ValueError``.
     ``faults`` arms the ``ckpt.restore`` site before any file is read, so
-    a faulted read loads nothing and the caller may retry."""
+    a faulted read loads nothing and the caller may retry.  With ``mesh``
+    and ``shardings`` (a spec tree shaped like ``like``, whose shapes are
+    the whole leaves') each leaf comes back as this rank's slice."""
     faults_lib.resolve(faults).fire("ckpt.restore")
     path = _step_dir(directory, step)
     with open(os.path.join(path, "manifest.json")) as f:
@@ -132,6 +237,7 @@ def restore(directory: str, step: int, like, faults=None):
         raise ValueError(f"{path}: checkpoint has {manifest['num_leaves']} "
                          f"leaves, expected {len(want)}")
     paths = manifest.get("paths") or list(want)
+    keep = _slicer(shardings, mesh)
     out = {}
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for i, (key, like_leaf) in enumerate(want.items()):
@@ -140,18 +246,19 @@ def restore(directory: str, step: int, like, faults=None):
                 raise ValueError(
                     f"{path}: leaf {i} is {paths[i]!r} {leaf.shape}, caller "
                     f"expects {key!r} {tuple(like_leaf.shape)}")
-            out[key] = leaf
+            out[key] = keep(key, leaf)
     return bridge.unflatten(out)
 
 
 def restore_subtree(directory: str, step: int, like, prefix: str,
-                    faults=None):
+                    faults=None, mesh=None, shardings=None):
     """Restore one top-level subtree (e.g. ``'params'``) of a checkpoint as a
     nested dict of numpy arrays shaped like ``like`` (a nested dict whose
     leaves have ``.shape``, e.g. tensors on the ``meta`` device).  A leaf
     the checkpoint lacks raises ``KeyError``; a shape that differs (a
     config or depth mismatch) raises ``ValueError``.  ``faults`` arms the
-    ``ckpt.restore`` site before any file is read."""
+    ``ckpt.restore`` site before any file is read.  ``mesh`` and
+    ``shardings`` slice as in :func:`restore`."""
     faults_lib.resolve(faults).fire("ckpt.restore")
     path = _step_dir(directory, step)
     with open(os.path.join(path, "manifest.json")) as f:
@@ -161,6 +268,7 @@ def restore_subtree(directory: str, step: int, like, prefix: str,
         raise ValueError(f"{path}: checkpoint predates keypath manifests")
     index = {p: i for i, p in enumerate(paths)}
     head = bridge.keystr((prefix,))
+    keep = _slicer(shardings, mesh)
     out = {}
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for keypath, like_leaf in bridge.flatten(like).items():
@@ -175,7 +283,7 @@ def restore_subtree(directory: str, step: int, like, prefix: str,
                     f"{path}: leaf {key!r} has shape {leaf.shape}, caller "
                     f"expects {want} — config/depth mismatch between the "
                     "checkpoint and the requested model")
-            out[keypath] = leaf
+            out[keypath] = keep(keypath, leaf)
     return bridge.unflatten(out)
 
 
@@ -194,17 +302,29 @@ class AsyncCheckpointer:
     A worker thread waits for the clones (an event, not the whole stream),
     copies them to the host on a side stream, so the copy overlaps the next
     step, and runs :func:`save`.  Errors, an injected ``CrashError``
-    included, surface on the next ``wait`` or ``save``."""
+    included, surface on the next ``wait`` or ``save``.  On a mesh every
+    rank calls ``save``: the leaves are gathered to rank 0's host memory
+    (a collective, so not in the worker; the gathered tree is already a
+    copy, so no device clone is taken) and rank 0's worker writes them."""
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     def save(self, directory: str, step: int, tree: Any,
-             metadata: Optional[dict] = None, keep: int = 3, faults=None):
+             metadata: Optional[dict] = None, keep: int = 3, faults=None,
+             mesh=None, shardings=None):
+        snap = None
+        if mesh is not None:
+            # The gather first, on every rank: an error of rank 0's last
+            # write must not make it skip a collective the others enter.
+            snap = gather_to_writer(tree, shardings, mesh)
+            if not _is_writer(mesh):
+                return
         self.wait()
-        snap = tree_map(lambda x: x.detach().clone()
-                        if isinstance(x, torch.Tensor) else x, tree)
+        if snap is None:
+            snap = tree_map(lambda x: x.detach().clone()
+                            if isinstance(x, torch.Tensor) else x, tree)
         cuda = [x for x in tree_leaves(snap)
                 if isinstance(x, torch.Tensor) and x.is_cuda]
         ready = side = None
@@ -222,7 +342,8 @@ class AsyncCheckpointer:
                         host = tree_map(lambda x: x.cpu()
                                         if isinstance(x, torch.Tensor)
                                         else x, snap)
-                save(directory, step, host, metadata, keep, faults=faults)
+                _write(directory, step, host, metadata, keep, faults,
+                       shardings)
             except BaseException as e:   # surfaced on the next wait()
                 self._error = e
 

@@ -23,6 +23,13 @@ leaf it returns is a new tensor (concatenation, gather or fresh init), so
 the optimizer's moments, expanded alongside, never alias the params.
 ``random`` draws from a ``torch.Generator``; its bits are not the
 reference's threefry bits, only the same distribution.
+
+On a mesh (``make_expand_fn(mesh=...)``) the leaves are the rank's shards.
+The stack axis is never sharded, so stacking, copying and zeroing act on
+the local shards as they are; fresh blocks are drawn whole from the same
+generator on every rank in host memory, as on one device, and only the
+rank's slice moves to its device, so a sharded expansion equals the
+single-device one and no rank holds the whole fresh stack there.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 COPY_METHODS = ("copying_stack", "copying_inter", "copying_last",
                 "copying_zeroL", "copying_zeroN")
@@ -188,13 +195,16 @@ def _fresh_stacks(cfg: ModelConfig, target_layers: int, method: str,
 
 def expand_params(params, cfg: ModelConfig, target_layers: int, method: str,
                   generator: Optional[torch.Generator] = None,
-                  insert_at: str = "bottom", dtype=torch.float32):
+                  insert_at: str = "bottom", dtype=torch.float32,
+                  shard=None):
     """Expand a model's depth.  Non-block params (embed, head, norms) are
     inherited unchanged (the same tensors): the paper keeps them across
     expansion.  An encoder-decoder's ``enc_blocks`` grow with it: to the
     fresh init's encoder depth under 'random'/'zero' (proportional to the
     decoder's), to the decoder's target depth under the copying methods,
-    as the reference grows them."""
+    as the reference grows them.  ``shard`` ((path, whole leaf) -> the
+    rank's shard) slices the fresh stacks of a sharded model, drawn in
+    host memory; each slice then moves to the params' device."""
     period = cfg.pattern_period
     if target_layers % period:
         raise ValueError((target_layers, period))
@@ -203,7 +213,12 @@ def expand_params(params, cfg: ModelConfig, target_layers: int, method: str,
     fresh = {}
     if method in ("random", "zero"):
         fresh = _fresh_stacks(cfg, target_layers, method, generator, dtype,
-                              device)
+                              device if shard is None else "cpu")
+        if shard is not None:
+            fresh = {k: tree_map_with_path(
+                lambda path, x, k=k: shard((k,) + path, x).to(
+                    device, copy=True), v)
+                for k, v in fresh.items()}
     new_params = dict(params)
     for key in ("blocks", "enc_blocks"):
         fresh_stack = fresh.get(key)
@@ -286,15 +301,30 @@ def expand_opt_state(opt_state: dict, params_new, policy: str, method: str,
 
 def make_expand_fn(cfg: ModelConfig, target_layers: int, method: str,
                    insert_at: str = "bottom",
-                   opt_state_policy: str = "inherit", dtype=torch.float32):
+                   opt_state_policy: str = "inherit", dtype=torch.float32,
+                   mesh=None, fsdp: bool = True, layout: str = "tp",
+                   moe_fsdp: str = "auto"):
     """``(params, opt_state, generator) -> (params, opt_state)``: whole-model
     depth expansion (the reference jits it under its mesh; here it is a
-    plain function run without autograd)."""
+    plain function run without autograd).  With ``mesh`` the trees are
+    the rank's shards under ``distributed.sharding``'s rules (``fsdp``,
+    ``layout``, ``moe_fsdp``) and come back sharded by the same rules at
+    the new depth: the moments mirror the params."""
+    shard = None
+    if mesh is not None:
+        from repro_torch.distributed import collectives as coll
+        from repro_torch.distributed import sharding as shd
+
+        def shard(path, full):
+            spec = shd.param_spec(path, full.shape, mesh, fsdp=fsdp,
+                                  moe_fsdp=moe_fsdp, layout=layout)
+            return coll.shard_leaf(full, spec, mesh)
+
     @torch.no_grad()
     def expand_fn(params, opt_state, generator=None):
         new_p = expand_params(params, cfg, target_layers, method,
                               generator=generator, insert_at=insert_at,
-                              dtype=dtype)
+                              dtype=dtype, shard=shard)
         new_os = expand_opt_state(opt_state, new_p, opt_state_policy, method,
                                   insert_at=insert_at)
         return new_p, new_os

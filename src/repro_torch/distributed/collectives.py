@@ -1,16 +1,237 @@
-"""Step-time watermarks for straggler detection
-(``repro/distributed/collectives.py``: ``StragglerMonitor``).
+"""Collectives of the mesh, int8 gradient compression with error feedback,
+and step-time watermarks (``repro/distributed/collectives.py``).
 
-The rest of the reference module, int8 gradient compression with error
-feedback for the cross-pod axis, comes with ROADMAP queue A item 13.
+The mesh's collectives are explicit calls on plain local tensors: every
+rank holds its shards as contiguous tensors and the compute between two
+collectives is ordinary PyTorch (the hand kernels get contiguous local
+CUDA tensors, as on one device).  ``all_reduce`` and ``all_gather``
+return new tensors; a ``group`` of None (one rank) makes each of them the
+identity.  The autograd forms carry the mesh through a
+backward pass:
+
+  * ``gather_shards``: all-gather a leaf's shards (FSDP's gather of a
+    super-block's leaves, or a 'model' gather where a layer computes a
+    leaf whole); its backward sums the gradient over the DP group, scales
+    it by 1/DP and keeps the rank's slice: a reduce-scatter where one dim
+    is split over exactly the DP axes, else an all-reduce and a slice;
+  * ``copy_to_model`` (identity forward, all-reduce over 'model'
+    backward) and ``reduce_from_model`` (all-reduce forward, identity
+    backward): the two ends of a tensor-parallel region (Megatron's f and
+    g);
+  * ``gather_from_model``: all-gather along a dim (vocab-parallel logits
+    made whole), backward the rank's slice.
+
+Two ranks that share a card talk over gloo, which took CUDA tensors in
+every collective used here (all-reduce, its max, all-gather, reduce-scatter
+and broadcast; ``tools/gloo_cuda_probe.py`` on torch 2.11.0+cu128), so no
+collective is staged through host memory by hand.  NCCL takes them all.
+
+The int8 compression (``compress_int8`` ... ``decompress_grads``) is the
+reference's library code over ``core.quant``; the trainer does not call
+it (neither does the reference's).
 """
 from __future__ import annotations
 
 import time
+import warnings
 from collections import deque
 from typing import Deque, Optional, Tuple
 
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import quant
 from repro_torch.train import faults as faults_lib
+from repro_torch.tree import tree_map
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """A new tensor: ``x`` reduced over ``group`` (identity for None)."""
+    if group is None:
+        return x
+    y = x.detach().clone().contiguous()
+    dist.all_reduce(y, op=_OPS[op], group=group)
+    return y
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's shards of ``x`` concatenated along ``dim`` in group rank
+    order (identity for None)."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    src = x.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` (group rank order) of the group's
+    sum of ``x``."""
+    n = dist.get_world_size(group)
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    with warnings.catch_warnings():   # renamed in later torch releases
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def take_slice(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    """The i-th of n equal chunks of ``x`` along ``dim``, contiguous."""
+    size = x.shape[dim] // n
+    return x.narrow(dim, i * size, size).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Autograd forms
+# ---------------------------------------------------------------------------
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gathers, reduce_group, scale):
+        ctx.gathers, ctx.reduce_group, ctx.scale = gathers, reduce_group, \
+            scale
+        for dim, group, _, _ in gathers:
+            x = all_gather(x, group, dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        group = ctx.reduce_group
+        rs = next((e for e in ctx.gathers if e[1] is group), None) \
+            if group is not None else None
+        g = reduce_scatter(g, group, rs[0]) if rs is not None \
+            else all_reduce(g, group)
+        if ctx.scale != 1.0:
+            g = g * ctx.scale
+        for e in ctx.gathers:
+            if e is not rs:
+                g = take_slice(g, e[0], e[2], e[3])
+        return g, None, None, None
+
+
+def gather_shards(x: torch.Tensor, gathers, reduce_group,
+                  scale: float = 1.0) -> torch.Tensor:
+    """``gathers``: (dim, group, ranks, index) per gathered dim.  Backward:
+    all-reduce over ``reduce_group``, times ``scale``, the rank's slice
+    of every gathered dim."""
+    if not gathers and reduce_group is None:
+        return x
+    return _GatherShards.apply(x, tuple(gathers), reduce_group, scale)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, op):
+        return all_reduce(x, group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.n = dim, dist.get_world_size(group)
+        ctx.i = dist.get_rank(group)
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return take_slice(g, ctx.dim, ctx.n, ctx.i), None, None
+
+
+class _MeanOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        return all_reduce(x, group) * (1.0 / n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def mean_over_group(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The mean of ``x`` over the group's n ranks; the backward passes the
+    gradient through unscaled, so after the DP mean of the gradients each
+    rank's share counts 1/n (a batch statistic of a loss every rank
+    computes alike)."""
+    return x if group is None else _MeanOverGroup.apply(x, group, n)
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _ReduceFromModel.apply(x, group, "sum")
+
+
+def gather_from_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return x if group is None else _GatherFromModel.apply(x, group, dim)
+
+
+# ---------------------------------------------------------------------------
+# int8 gradient compression + error feedback
+# ---------------------------------------------------------------------------
+# Per-tensor symmetric int8 over the shared quantizer (``core.quant``), so
+# an all-reduce payload is one int8 tensor + one f32 scalar per leaf.
+
+
+def compress_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantization.  Returns (q, scale)."""
+    return quant.quantize(x, axis=None, dtype=torch.int8)
+
+
+def decompress_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    return quant.dequantize(q, scale, dtype)
+
+
+def init_error_feedback(grads):
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                          device=g.device), grads)
+
+
+def compress_grads_with_ef(grads, ef_state):
+    """Quantize grads to int8 with error feedback: e' = (g+e) - deq(q(g+e)).
+    Returns (tree of (q, scale), new error-feedback tree)."""
+    if isinstance(grads, dict):
+        pairs = {k: compress_grads_with_ef(grads[k], ef_state[k])
+                 for k in grads}
+        return ({k: c for k, (c, _) in pairs.items()},
+                {k: e for k, (_, e) in pairs.items()})
+    corrected = grads.float() + ef_state
+    q, scale = compress_int8(corrected)
+    return (q, scale), corrected - decompress_int8(q, scale)
+
+
+def decompress_grads(comp, dtype=torch.float32):
+    if isinstance(comp, dict):
+        return {k: decompress_grads(v, dtype) for k, v in comp.items()}
+    return decompress_int8(comp[0], comp[1], dtype)
+
+
+# ---------------------------------------------------------------------------
+# Straggler detection (host-side watermarks)
+# ---------------------------------------------------------------------------
 
 
 class StragglerMonitor:
@@ -23,13 +244,16 @@ class StragglerMonitor:
     fault the trainer's containment can log and move past.  The measured
     ``dt`` is recorded in ``last_dt`` before raising.  The caller stops the
     clock after the step's device work has finished (a synchronize): a
-    step only queued on the card would never trip the deadline."""
+    step only queued on the card would never trip the deadline.  On a mesh
+    ``agree`` (dt -> dt) makes every rank see one time, the slowest
+    rank's, so every rank takes the same branch."""
 
     def __init__(self, window: int = 50, threshold: float = 2.0,
-                 hang_deadline_s: Optional[float] = None):
+                 hang_deadline_s: Optional[float] = None, agree=None):
         self.times: Deque[float] = deque(maxlen=window)
         self.threshold = threshold
         self.hang_deadline_s = hang_deadline_s
+        self.agree = agree
         self._t0: Optional[float] = None
         self.flagged = 0
         self.hangs = 0
@@ -40,6 +264,8 @@ class StragglerMonitor:
 
     def stop(self) -> Tuple[float, bool]:
         dt = time.perf_counter() - self._t0
+        if self.agree is not None:
+            dt = self.agree(dt)
         self.last_dt = dt
         slow = False
         if len(self.times) >= 10:
@@ -52,3 +278,32 @@ class StragglerMonitor:
             raise faults_lib.HangError("train.step", self.hangs, dt,
                                        self.hang_deadline_s)
         return dt, slow
+
+
+# ---------------------------------------------------------------------------
+# Whole leaves <-> a rank's shards
+# ---------------------------------------------------------------------------
+
+
+def shard_leaf(full: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's shard of a whole leaf under ``spec`` (a new contiguous
+    tensor where any dim is split, else ``full`` itself)."""
+    from repro_torch.distributed.sharding import dim_axes
+    x = full
+    for d, e in enumerate(spec):
+        axes = dim_axes(e)
+        n = mesh.axes_size(axes)
+        if n > 1:
+            x = take_slice(x, d, n, mesh.axes_index(axes))
+    return x
+
+
+def unshard_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's shard: an all-gather over the axes
+    of every split dim (no autograd)."""
+    from repro_torch.distributed.sharding import dim_axes
+    for d, e in enumerate(spec):
+        axes = dim_axes(e)
+        if mesh.axes_size(axes) > 1:
+            x = all_gather(x, mesh.group(axes), d)
+    return x

@@ -1,0 +1,232 @@
+"""The mesh the model code runs under (the reference's ``set_active_mesh``/
+``maybe_shard`` and its activation layout).
+
+A trainer or server on a mesh runs the model code inside ``mesh_scope``
+with a :class:`MeshContext`, and the layers and the optimizer ask this
+module what to do with their leaves.  ``materialize`` gathers a subtree's
+FSDP shards (and the 'model' shards of a leaf whose layer computes it
+whole) with autograd gathers, so a super-block's leaves are gathered
+before its forward and, under remat, again in its backward;
+``attn_tp``/``mlp_tp``/``vocab_tp`` say where a layer runs
+tensor-parallel on its rank's heads, d_ff columns or vocab rows;
+``model_group`` is the group its all-reduces go over.  The optimizer's
+helpers (``full_leaf``, ``local_leaf``, ``leaf_sq_sum``) give a leaf's
+whole matrix, a rank's slice and a squared norm counted once per element.
+With no mesh every helper is the identity and the single-device code runs
+unchanged.
+
+The layout ('tp': batch over the DP axes, tensor parallelism over
+'model'; 'fsdp': batch over every axis, no tensor parallelism) is the
+context's own field, set by the trainer's or server's ``layout``.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import dim_axes
+from repro_torch.tree import tree_map_with_path
+
+
+@dataclasses.dataclass
+class MeshContext:
+    """The mesh a trainer or server runs the model under.  ``specs``
+    ({path: spec} of the leaves as the rank holds them) is set where the
+    params are FSDP shards (training): ``materialize`` then gathers them.
+    Without it (serving) the params are held as the layers use them."""
+    mesh: object
+    layout: str
+    specs: Optional[Dict[Tuple[str, ...], tuple]] = None
+
+    def __post_init__(self):
+        if self.layout not in ("tp", "fsdp"):
+            raise ValueError(f"layout {self.layout!r} (tp or fsdp)")
+
+
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def mesh_scope(ctx: Optional[MeshContext]):
+    """Run the enclosed model code under ``ctx`` (None: no mesh)."""
+    _ACTIVE.append(ctx)
+    try:
+        yield ctx
+    finally:
+        _ACTIVE.pop()
+
+
+def active_mesh() -> Optional[MeshContext]:
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def dp_axes(mesh, layout: str = "tp") -> Tuple[str, ...]:
+    """The mesh's data-parallel axes: 'pod' and 'data', and 'model' too
+    under the fsdp layout."""
+    names = ("pod", "data") if layout == "tp" else ("pod", "data", "model")
+    return tuple(a for a in names if a in mesh.shape)
+
+
+def model_group(cfg):
+    """The 'model' group tensor-parallel layers reduce over (None: no
+    tensor parallelism: no mesh, the fsdp layout, one 'model' rank, or
+    the encoder-decoder, which computes every leaf whole)."""
+    ctx = active_mesh()
+    if ctx is None or ctx.layout != "tp" or cfg.is_encoder_decoder:
+        return None
+    return ctx.mesh.group(("model",))
+
+
+def tp_size(cfg) -> int:
+    return 1 if model_group(cfg) is None else \
+        active_mesh().mesh.shape["model"]
+
+
+def tp_rank() -> int:
+    return active_mesh().mesh.coords.get("model", 0)
+
+
+def attn_tp(cfg) -> bool:
+    """MHA/GQA attention on the rank's heads: whole query heads and whole
+    KV heads on every 'model' rank (MLA and heads that do not divide
+    compute whole)."""
+    m = tp_size(cfg)
+    return (m > 1 and cfg.attention != "none" and not cfg.mla_kv_lora_rank
+            and cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0)
+
+
+def mlp_tp(cfg) -> bool:
+    """The dense feed-forward on the rank's d_ff columns."""
+    m = tp_size(cfg)
+    return m > 1 and cfg.d_ff % m == 0
+
+
+def vocab_tp(cfg) -> bool:
+    """Vocab-parallel embedding, head and loss on the rank's vocab rows."""
+    m = tp_size(cfg)
+    return m > 1 and cfg.vocab_size % m == 0
+
+
+def tp_local_cfg(cfg):
+    """``cfg`` with a rank's share of the heads (attention under
+    ``attn_tp``): the shapes its local projections and cache have."""
+    m = tp_size(cfg)
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
+                               num_kv_heads=cfg.num_kv_heads // m,
+                               head_dim=cfg.head_dim)
+
+
+def keeps_model_split(path: Tuple[str, ...], cfg) -> bool:
+    """Whether a leaf's layer computes on its 'model' shard (else the leaf
+    is gathered over 'model' and computed whole)."""
+    if tp_size(cfg) == 1:
+        return False
+    last = path[-1]
+    if len(path) == 1 and last in ("embed", "lm_head"):
+        return vocab_tp(cfg)
+    if "attn" in path and last in ("wq", "wk", "wv", "wo"):
+        return attn_tp(cfg)
+    if "mlp" in path and last in ("w_gate", "w_up", "w_down"):
+        return mlp_tp(cfg)
+    return False
+
+
+def materialize(tree, cfg, prefix: Tuple[str, ...] = ()):
+    """The leaves of ``tree`` (at ``prefix`` in the params) as the layers
+    use them: FSDP shards gathered over the DP axes, and over 'model'
+    where the leaf's layer computes it whole.  The backward all-reduces
+    each leaf's gradient over the DP axes, scales it by 1/DP (the loss is
+    a mean over the DP ranks' rows) and keeps the rank's slice.  A
+    super-block's slice of a stacked leaf (its leading axis indexed away)
+    takes the stacked leaf's spec without its stack entry.  The identity
+    outside a training mesh."""
+    ctx = active_mesh()
+    if ctx is None or ctx.specs is None:
+        return tree
+    mesh = ctx.mesh
+    dp = dp_axes(mesh, ctx.layout)
+    group = mesh.group(dp)
+    ndp = mesh.axes_size(dp)
+    scale = 1.0 / ndp if ndp > 1 else 1.0
+
+    def one(path, x):
+        full = prefix + path
+        spec = ctx.specs[full]
+        if len(spec) == x.ndim + 1:
+            spec = spec[1:]
+        keep = keeps_model_split(full, cfg)
+        gathers = []
+        for d, e in enumerate(spec):
+            axes = tuple(a for a in dim_axes(e)
+                         if not (keep and a == "model"))
+            n = mesh.axes_size(axes)
+            if n > 1:
+                gathers.append((d, mesh.group(axes), n,
+                                mesh.axes_index(axes)))
+        return coll.gather_shards(x, gathers, group, scale)
+
+    return tree_map_with_path(one, tree)
+
+
+def dp_mean(x: torch.Tensor) -> torch.Tensor:
+    """On a training mesh, a batch statistic ``x`` of the rank's rows made
+    the statistic of the whole batch: the mean over the DP ranks
+    (``collectives.mean_over_group``).  The identity elsewhere."""
+    ctx = active_mesh()
+    if ctx is None or ctx.specs is None:
+        return x
+    axes = dp_axes(ctx.mesh, ctx.layout)
+    n = ctx.mesh.axes_size(axes)
+    return x if n == 1 else coll.mean_over_group(x, ctx.mesh.group(axes), n)
+
+
+def _leaf_axes(path) -> Tuple[Tuple[str, ...], Optional[tuple]]:
+    """(axes the held leaf at ``path`` is split over with more than one
+    rank, its spec); ((), None) without a training mesh."""
+    ctx = active_mesh()
+    if ctx is None or ctx.specs is None:
+        return (), None
+    spec = ctx.specs[tuple(path)]
+    axes = tuple(a for e in spec for a in dim_axes(e)
+                 if ctx.mesh.shape[a] > 1)
+    return axes, spec
+
+
+def full_leaf(path, x: torch.Tensor) -> torch.Tensor:
+    """The whole leaf (every rank's shards gathered; no autograd)."""
+    axes, spec = _leaf_axes(path)
+    return coll.unshard_leaf(x, spec, active_mesh().mesh) if axes else x
+
+
+def local_leaf(path, full: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of the whole leaf ``full``."""
+    axes, spec = _leaf_axes(path)
+    return coll.shard_leaf(full, spec, active_mesh().mesh) if axes else full
+
+
+def full_shape(path, x: torch.Tensor) -> Tuple[int, ...]:
+    axes, spec = _leaf_axes(path)
+    if not axes:
+        return tuple(x.shape)
+    mesh = active_mesh().mesh
+    return tuple(s * mesh.axes_size(dim_axes(e)) if e is not None else s
+                 for s, e in zip(x.shape, spec))
+
+
+def leaf_sq_sum(path, sq: torch.Tensor) -> torch.Tensor:
+    """A held leaf's partial sum of squares ``sq`` (any shape, e.g. one
+    per layer) summed over the ranks that split the leaf: each element
+    counted once, however many ranks replicate it."""
+    axes, _ = _leaf_axes(path)
+    if not axes:
+        return sq
+    return coll.all_reduce(sq, active_mesh().mesh.group(axes))
+
+
+def split_over_mesh(path) -> bool:
+    """Whether the held leaf at ``path`` is split over more than one rank."""
+    return bool(_leaf_axes(path)[0])

@@ -38,6 +38,11 @@ Without it the weights are random, drawn from ``--seed``.  Prompts are drawn
 from ``numpy.random.default_rng(--seed)`` exactly as the reference draws
 them.  Prefill and decode throughput are reported separately.
 
+``--mesh SPEC`` (with ``--nproc N`` local ranks, or under ``torchrun``)
+serves ``generate`` on a device mesh: rows over the DP axes, heads, d_ff
+and vocab over 'model'; rank 0 prints.  ``--continuous``, ``--paged`` and
+``--spec-depth`` on a mesh exit, naming ROADMAP queue A item 20.
+
 ``--continuous`` switches to the continuous-batching scheduler
 (``train/serve_scheduler``): ``--requests`` synthetic requests with varied
 prompt and generation lengths and Poisson arrivals (``--rate`` req/s) are
@@ -99,6 +104,7 @@ a ``lifecycle:`` line with its finish reasons and goodput.
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -107,6 +113,7 @@ import torch
 from repro_torch import bridge
 from repro_torch import configs as cfglib
 from repro_torch.checkpoint import checkpointer as ckpt
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import registry
 from repro_torch.train import faults as faults_lib
 from repro_torch.train.serve_engine import ServeEngine, refuse_unservable
@@ -148,9 +155,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt2-12l", help=cfglib.ARCH_HELP)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--mesh", default="single",
-                    help="only 'single' (mesh sharding: ROADMAP queue A "
-                         "item 13)")
+    mesh_lib.add_mesh_args(ap)
     ap.add_argument("--checkpoint", default=None,
                     help="ProgressiveTrainer checkpoint dir to serve")
     ap.add_argument("--step", type=int, default=None,
@@ -233,9 +238,20 @@ def main(argv=None):
                          "re-prefills prompt+emitted for byte-identical "
                          "resumed greedy streams; 0: off)")
     args = ap.parse_args(argv)
-    if args.mesh != "single":
-        raise SystemExit(f"--mesh {args.mesh}: the port serves on one device "
-                         "(mesh sharding: ROADMAP queue A item 13)")
+    if args.mesh and (args.continuous or args.paged
+                      or args.spec_depth is not None):
+        raise SystemExit(
+            f"--mesh {args.mesh} serves generate only: --continuous, "
+            "--paged and --spec-depth on a mesh are ROADMAP queue A item 20")
+    if args.nproc > 1:
+        mesh_lib.run_ranks("repro_torch.launch.serve",
+                           sys.argv[1:] if argv is None else argv,
+                           args.nproc, args.device)
+        return None
+    mesh = (mesh_lib.make_train_mesh(args.mesh, device=args.device)
+            if args.mesh else None)
+    say = print if mesh is None or mesh.rank == 0 else \
+        (lambda *a, **k: None)
     if args.paged and not args.continuous:
         raise SystemExit("--paged requires --continuous")
     spec = args.spec_depth is not None or args.draft_checkpoint is not None
@@ -257,8 +273,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         gen = torch.Generator().manual_seed(args.seed)
         params = registry.get_model(cfg).init(gen, cfg, device="cpu")
-        print(f"init: {time.perf_counter() - t0:.1f} s for "
-              f"{sum(t.numel() for t in tree_leaves(params))} params")
+        say(f"init: {time.perf_counter() - t0:.1f} s for "
+            f"{sum(t.numel() for t in tree_leaves(params))} params")
     draft_params = None
     if args.draft_checkpoint:          # its own latest step, manifest depth
         draft_params, _ = load_params(args.draft_checkpoint, cfg)
@@ -275,7 +291,8 @@ def main(argv=None):
                          num_blocks=args.num_blocks, kv_dtype=args.kv_dtype,
                          prefix_cache=args.prefix_cache, spec_decode=spec,
                          gamma=args.gamma, draft_depth=args.spec_depth,
-                         draft_params=draft_params, faults=args.faults)
+                         draft_params=draft_params, faults=args.faults,
+                         mesh=mesh)
 
     if args.continuous:
         return _serve_continuous(args, cfg, engine, rng, shared_len)
@@ -288,10 +305,12 @@ def main(argv=None):
                           temperature=args.temperature, seed=args.seed)
     pf = args.batch * res.prefill_tokens / max(res.prefill_s, 1e-9)
     dec = args.batch * max(res.steps - 1, 0) / max(res.decode_s, 1e-9)
-    print(f"arch={cfg.name} layers={cfg.num_layers} mesh={args.mesh} "
-          f"batch={args.batch} decode_steps={res.steps} device={args.device}")
-    print(f"prefill tokens/s={pf:.1f}  decode tokens/s={dec:.1f}")
-    print("sample:", res.tokens[0, :24].tolist())
+    say(f"arch={cfg.name} layers={cfg.num_layers} "
+        f"mesh={args.mesh or 'single'} batch={args.batch} "
+        f"decode_steps={res.steps} device={args.device}"
+        + (f" ({mesh.spec()} ranks, {mesh.backend})" if mesh else ""))
+    say(f"prefill tokens/s={pf:.1f}  decode tokens/s={dec:.1f}")
+    say("sample:", res.tokens[0, :24].tolist())
     return res
 
 
@@ -328,7 +347,7 @@ def _serve_continuous(args, cfg, engine, rng, shared_len: int):
         f"ttft={r.ttft_s * 1e3:.1f}ms"))
     stats = summarize(results, time.perf_counter() - t0)
     mode = "paged" if args.paged else "continuous"
-    print(f"arch={cfg.name} layers={cfg.num_layers} mesh={args.mesh} "
+    print(f"arch={cfg.name} layers={cfg.num_layers} mesh={args.mesh or 'single'} "
           f"{mode} max_batch={args.max_batch} requests={args.requests} "
           f"peak_concurrency={sched.peak_concurrency} device={args.device}")
     print(f"aggregate tokens/s={stats['tokens_per_s']:.1f}  "

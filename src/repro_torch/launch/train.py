@@ -18,7 +18,16 @@ the allocator).  ``--optimizer`` takes the reference's four optimizers and
 architecture's policy from ``configs.REMAT_DEFAULTS``).  The fault-tolerance flags (``--faults``,
 ``--nan-policy``, ``--nan-inject``, ``--expansion-guard``,
 ``--hang-deadline-s``) are the reference's and print its ``faults:``
-line; ``--mesh`` exits, naming the ROADMAP item that brings it.
+line.  ``--mesh SPEC`` trains on a device mesh (FSDP over 'data', tensor
+parallelism over 'model') with ``--nproc N`` local ranks or under
+``torchrun``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke \
+        --device cpu --mesh 2x2 --nproc 4 --steps 6 --tau 0.5  # CPU, gloo
+    PYTHONPATH=src python -m repro_torch.launch.train --mesh 1x2 \
+        --nproc 2 --steps 8 --tau 0.5 --seq-len 256 --batch 16  # one card
+
+Two ranks on one card talk over gloo (NCCL takes one rank a device).
 ``whisper-base`` exits too: the trainer's synthetic batches carry no
 encoder ``frames`` (the reference's trainer fails on them with a
 ``KeyError``); ``train.steps.make_train_step`` trains it on batches that
@@ -28,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 FAULT_GRAMMAR = """\
 fault spec grammar (shared with launch/serve.py — one FaultPlane.parse):
@@ -45,15 +55,8 @@ example: --faults ckpt.write:1,train.iter:120:crash --nan-policy skip
 from repro_torch import configs as cfglib
 from repro_torch.configs.base import (ExpansionConfig, OptimizerConfig,
                                       ScheduleConfig, TrainConfig)
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.train import loop
-
-def _refuse_later(args):
-    later = []
-    if args.mesh != "single":
-        later.append(("--mesh", "ROADMAP queue A item 13 (distributed)"))
-    if later:
-        raise SystemExit("not ported yet: " + "; ".join(
-            f"{flag} ({item})" for flag, item in later))
 
 
 def throughput_lines(step_times, tokens_per_step: int):
@@ -113,9 +116,7 @@ def main(argv=None):
                     "arch's measured policy (configs.REMAT_DEFAULTS); "
                     "'nothing' recomputes everything, 'dots' saves matmul "
                     "outputs")
-    ap.add_argument("--mesh", default="single",
-                    help="only 'single' (mesh sharding: ROADMAP queue A "
-                    "item 13)")
+    mesh_lib.add_mesh_args(ap)
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches per step (gradient accumulation); "
                     "must divide --batch")
@@ -139,7 +140,16 @@ def main(argv=None):
                     help="fail a train step as a train.step fault if it "
                     "exceeds this wall time instead of stalling")
     args = ap.parse_args(argv)
-    _refuse_later(args)
+    if args.nproc > 1:
+        mesh_lib.run_ranks(__name__ if __name__ != "__main__"
+                           else "repro_torch.launch.train",
+                           sys.argv[1:] if argv is None else argv,
+                           args.nproc, args.device)
+        return None
+    mesh = (mesh_lib.make_train_mesh(args.mesh, device=args.device)
+            if args.mesh else None)
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
 
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
@@ -169,25 +179,28 @@ def main(argv=None):
                else cfglib.default_remat(args.arch) if args.remat == "auto"
                else args.remat))
     res = loop.train(cfg, tcfg, checkpoint_dir=args.ckpt_dir,
-                     device=args.device, faults=args.faults,
+                     device=args.device, mesh=mesh, log_fn=say,
+                     faults=args.faults,
                      nan_policy=args.nan_policy, nan_inject=args.nan_inject,
                      expansion_guard=args.expansion_guard,
                      max_retries=args.retries,
                      hang_deadline_s=args.hang_deadline_s)
-    print(f"final loss: {res.history['loss'][-1]:.4f} "
-          f"(layers {res.final_layers})")
+    say(f"final loss: {res.history['loss'][-1]:.4f} "
+        f"(layers {res.final_layers})"
+        + (f" mesh={args.mesh} ({mesh.spec()}, {mesh.backend})"
+           if mesh is not None else ""))
     fs = res.fault_stats
     if (args.faults or args.nan_policy != "off" or args.nan_inject
             or args.expansion_guard or args.hang_deadline_s is not None):
-        print(f"faults: retries={fs['retries']} "
+        say(f"faults: retries={fs['retries']} "
               f"ckpt_failures={fs['ckpt_failures']} "
               f"skipped={fs['skipped_steps']} "
               f"nan_rollbacks={fs['nan_rollbacks']} "
               f"guard_events={fs['guard_events']} hangs={fs['hangs']} "
               f"site_hits={fs['fault_counts']} fired={fs['fired']}")
     for line in throughput_lines(res.step_times, args.batch * args.seq_len):
-        print(line)
-    if args.history_out:
+        say(line)
+    if args.history_out and rank0:
         with open(args.history_out, "w") as f:
             json.dump(res.history, f)
     return res

@@ -41,15 +41,19 @@ assignment) and the same dict is returned, so callers keep one buffer.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
+from repro_torch.distributed.context import (attn_tp, model_group,
+                                            tp_local_cfg)
 from repro_torch.models.common import (apply_mrope, apply_norm, apply_rope,
                                        dense_init, norm_init)
 
@@ -83,6 +87,33 @@ def attn_init(generator, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
         p["q_norm"] = norm_init(cfg.head_dim, "rmsnorm", device)
         p["k_norm"] = norm_init(cfg.head_dim, "rmsnorm", device)
     return p
+
+
+def _tensor_parallel(fn):
+    """``fn(p, cfg, x, ...)`` on the rank's heads under ``attn_tp``: the
+    input enters the region through ``copy_to_model`` (its gradient is
+    all-reduced over 'model'), q/k/v are the rank's column shards (H/model
+    query heads and their KV/model KV heads, so the flash kernel runs on
+    the local heads), ``wo`` its row shard, and the partial outputs are
+    all-reduced over 'model'.  ``cfg`` inside is ``tp_local_cfg``: a cache
+    made for it holds the rank's KV heads.  Otherwise ``fn`` as is."""
+    @functools.wraps(fn)
+    def run(p, cfg, x, *args, **kwargs):
+        if not attn_tp(cfg):
+            return fn(p, cfg, x, *args, **kwargs)
+        group = model_group(cfg)
+        res = fn(p, tp_local_cfg(cfg), coll.copy_to_model(x, group), *args,
+                 **kwargs)
+        if isinstance(res, tuple):
+            return (coll.reduce_from_model(res[0], group),) + res[1:]
+        return coll.reduce_from_model(res, group)
+    return run
+
+
+def cache_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config a layer's contiguous cache is made for: a rank's share of
+    the KV heads under ``attn_tp``, else ``cfg``."""
+    return tp_local_cfg(cfg) if attn_tp(cfg) else cfg
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -193,6 +224,7 @@ def _cache_span(cache) -> int:
     return (cache["latent"] if "latent" in cache else cache["k"]).shape[1]
 
 
+@_tensor_parallel
 def attn_apply(p, cfg: ModelConfig, x: torch.Tensor, positions, window: int,
                causal: bool = True, cache=None):
     """x: (B, S, D) -> (B, S, D).
@@ -243,6 +275,7 @@ def attn_prefill(p, cfg: ModelConfig, x: torch.Tensor, cache, positions,
     return attn_apply(p, cfg, x, positions, window, cache=cache)
 
 
+@_tensor_parallel
 def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, cache,
                 cache_index: torch.Tensor, positions,
                 window: int, write_mask=None) -> Tuple[torch.Tensor, dict]:

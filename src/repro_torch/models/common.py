@@ -5,8 +5,8 @@ loss (``repro/models/common.py``).
 
 Models are ``init(generator, cfg, device=...) -> params`` /
 ``apply(params, ...)`` function pairs over nested dicts of tensors keyed as
-the reference's pytrees.  The reference's sharding-constraint helpers have no
-counterpart: the port serves from one card.
+the reference's pytrees.  On a mesh the layers ask
+``distributed.context`` what to do with their leaves.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import collectives as coll
 
 
 def resolve_device(device) -> torch.device:
@@ -223,6 +225,33 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = softcap(logits.float(), final_softcap)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 group, vocab_start: int,
+                                 mask: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """``cross_entropy`` over vocab-parallel logits: the rank holds columns
+    ``vocab_start ..`` of (B, S, V/m).  The max is all-reduced (no
+    gradient), the sum of exponentials and the gold logit (zero on the
+    ranks that do not hold it) are all-reduced over 'model', so every rank
+    computes the same loss and each rank's logits get their own
+    gradient."""
+    logits = logits.float()
+    m = coll.all_reduce(logits.detach().amax(dim=-1), group, "max")
+    se = coll.reduce_from_model(torch.exp(logits - m[..., None]).sum(-1),
+                                group)
+    logz = torch.log(se) + m
+    n = logits.shape[-1]
+    local = labels.long() - vocab_start
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = coll.reduce_from_model(gold * inside, group)
     nll = logz - gold
     if mask is None:
         return nll.mean()

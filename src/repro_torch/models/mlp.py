@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.context import dp_mean, mlp_tp, model_group
 from repro_torch.models.common import activate, dense_init
 
 
@@ -42,6 +44,17 @@ def mlp_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = activate(x @ p["w_up"], "gelu")
     return h @ p["w_down"]
+
+
+def mlp_apply_tp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """A layer's dense feed-forward; under ``mlp_tp`` on the rank's d_ff
+    columns (w_gate/w_up column shards, w_down its row shard) with the
+    partial outputs all-reduced over 'model'."""
+    if not mlp_tp(cfg):
+        return mlp_apply(p, cfg, x)
+    group = model_group(cfg)
+    return coll.reduce_from_model(
+        mlp_apply(p, cfg, coll.copy_to_model(x, group)), group)
 
 
 # ---------------------------------------------------------------------------
@@ -150,9 +163,10 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor,
     y = torch.einsum("gtkd,gtk->gtd", y.reshape(G, Tg, K, D),
                      weights.to(x.dtype))
 
-    # Load-balancing auxiliary loss (Switch-style) and router z-loss.
-    me = probs.mean(dim=(0, 1))                                # (E,)
-    ce = counts.float().mean(dim=0) / (Tg * K)
+    # Load-balancing auxiliary loss (Switch-style) and router z-loss.  On
+    # a training mesh the expert shares are the whole batch's (dp_mean).
+    me = dp_mean(probs.mean(dim=(0, 1)))                       # (E,)
+    ce = dp_mean(counts.float().mean(dim=0) / (Tg * K))
     aux_loss = m.aux_loss_coef * E * torch.sum(me * ce)
     zloss = m.router_zloss * torch.mean(
         torch.square(torch.logsumexp(logits.float(), dim=-1)))

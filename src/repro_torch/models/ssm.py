@@ -34,6 +34,16 @@ def mamba_dims(cfg: ModelConfig):
     return d_inner, dt_rank, s.d_state, s.d_conv
 
 
+def _host(generator, dev: torch.device) -> torch.device:
+    """Where an init computes from its draws: the generator's device (the
+    CPU for none), so one seed gives the same weights on every device;
+    ``meta`` stays ``meta``."""
+    if dev.type == "meta":
+        return dev
+    return torch.device(generator.device if generator is not None
+                        else "cpu")
+
+
 def mamba_init(generator, cfg: ModelConfig, dtype=torch.float32,
                device="cuda"):
     """Draws in the reference's key order: in_proj, conv_w, x_proj,
@@ -50,13 +60,16 @@ def mamba_init(generator, cfg: ModelConfig, dtype=torch.float32,
     x_proj = dense(d_inner, dt_rank + 2 * d_state)
     dt_proj = dense(dt_rank, d_inner, scale=dt_rank ** 0.5)
     # dt = exp(U * (log 0.1 - log 1e-3) + log 1e-3), floored at 1e-4, then
-    # the softplus inverse log(expm1(dt)).
+    # the softplus inverse log(expm1(dt)), computed where the draws are made
+    # and then moved (``normal``'s rule).
+    host = _host(generator, dev)
     lo, hi = math.log(1e-3), math.log(0.1)
-    dt = torch.exp(uniform(generator, (d_inner,), torch.float32, dev)
+    dt = torch.exp(uniform(generator, (d_inner,), torch.float32, host)
                    * (hi - lo) + lo)
-    dt_bias = torch.log(torch.expm1(torch.clamp(dt, min=1e-4))).to(dtype)
+    dt_bias = torch.log(torch.expm1(torch.clamp(dt, min=1e-4))).to(
+        dev, dtype)
     A = torch.arange(1, d_state + 1, dtype=torch.float32,
-                     device=dev).repeat(d_inner, 1)
+                     device=host).repeat(d_inner, 1)
     return {
         "in_proj": in_proj,
         "conv_w": conv_w,
@@ -64,7 +77,7 @@ def mamba_init(generator, cfg: ModelConfig, dtype=torch.float32,
         "x_proj": x_proj,
         "dt_proj": dt_proj,
         "dt_bias": dt_bias,
-        "A_log": torch.log(A).to(dtype),
+        "A_log": torch.log(A).to(dev, dtype),
         "D": torch.ones((d_inner,), dtype=dtype, device=dev),
         "out_proj": dense(d_inner, D),
     }
@@ -173,14 +186,15 @@ def rwkv_init(generator, cfg: ModelConfig, dtype=torch.float32,
 
     def dense(n_in, n_out, scale=1.0):
         return dense_init(generator, n_in, n_out, dtype, scale, dev)
-    ramp = torch.arange(D, dtype=torch.float32, device=dev) / max(D - 1, 1)
+    ramp = torch.arange(D, dtype=torch.float32,
+                        device=_host(generator, dev)) / max(D - 1, 1)
     return {
         # token-shift interpolation factors per stream
         "mu": {n: half() for n in ("r", "k", "v", "g", "w")},
         "w_r": dense(D, D), "w_k": dense(D, D), "w_v": dense(D, D),
         "w_g": dense(D, D),
         # data-dependent decay: w = base + tanh(x Wa) Wb  (low-rank, Finch)
-        "w_base": (-6.0 + 5.0 * ramp ** 0.7).to(dtype),
+        "w_base": (-6.0 + 5.0 * ramp ** 0.7).to(dev, dtype),
         "w_a": dense(D, lora),
         "w_b": dense(lora, D, scale=0.1),
         "u": normal(generator, (H, hd), 0.1, dtype, dev),

@@ -19,12 +19,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.distributed.context import (materialize, model_group,
+                                            tp_rank, vocab_tp)
 from repro_torch.models.common import (apply_norm, cross_entropy,
                                        dense_init, embed_init, normal,
-                                       norm_init, softcap)
+                                       norm_init, softcap,
+                                       vocab_parallel_cross_entropy)
 from repro_torch.tree import leaves_with_path, tree_map
 
 _KIND = ("ROADMAP queue A item 12 (remaining architectures): {what} is not "
@@ -171,7 +175,7 @@ def _ffn_residual(lp, cfg: ModelConfig, i: int, x):
     if cfg.layer_is_moe(i):
         y, a = mlp_mod.moe_apply(lp["moe"], cfg, h)
         return x + y, aux + a["aux_loss"] + a["router_zloss"]
-    return x + mlp_mod.mlp_apply(lp["mlp"], cfg, h), aux
+    return x + mlp_mod.mlp_apply_tp(lp["mlp"], cfg, h), aux
 
 
 def _apply_layer(lp, cfg: ModelConfig, i: int, x, positions):
@@ -200,7 +204,7 @@ def embed_tokens(params, cfg: ModelConfig, tokens, embeds=None,
     gradient in a fixed order on every device, where indexing's
     ``index_put_`` accumulates in thread order on the CPU (two identical
     steps may then differ)."""
-    x = F.embedding(tokens, params["embed"])
+    x = _embed_lookup(params, cfg, tokens)
     if cfg.position == "absolute":
         S = tokens.shape[1]
         if offset + S > params["pos_embed"].shape[0]:
@@ -210,6 +214,20 @@ def embed_tokens(params, cfg: ModelConfig, tokens, embeds=None,
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     return x
+
+
+def _embed_lookup(params, cfg: ModelConfig, tokens):
+    """Embedding rows of ``tokens``; under ``vocab_tp`` the rank holds
+    vocab rows [r V/m, (r+1) V/m): ids outside them look up zeros and the
+    partial rows are all-reduced over 'model'."""
+    w = params["embed"]
+    if not vocab_tp(cfg):
+        return F.embedding(tokens, w)
+    n = w.shape[0]
+    local = tokens - tp_rank() * n
+    inside = (local >= 0) & (local < n)
+    x = F.embedding(local.clamp(0, n - 1), w) * inside[..., None].to(w.dtype)
+    return coll.reduce_from_model(x, model_group(cfg))
 
 
 def _pos_embed(params, pos):
@@ -237,10 +255,26 @@ def _mrope_ids(cfg: ModelConfig, pos):
         if cfg.position == "mrope" else pos
 
 
-def _head(params, cfg: ModelConfig, x):
+def _head(params, cfg: ModelConfig, x, whole_vocab: bool = True):
+    """Final norm and head.  Under ``vocab_tp`` the rank computes its vocab
+    columns (gathered over 'model' when ``whole_vocab``; the loss takes
+    them as they are)."""
     x = apply_norm(params["final_norm"], x, cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return softcap(x @ head, cfg.final_logit_softcap)
+    group = model_group(cfg) if vocab_tp(cfg) else None
+    if group is not None:
+        x = coll.copy_to_model(x, group)
+    logits = softcap(x @ head, cfg.final_logit_softcap)
+    if group is not None and whole_vocab:
+        logits = coll.gather_from_model(logits, group, -1)
+    return logits
+
+
+def _materialize_top(params, cfg: ModelConfig):
+    """The non-block leaves as the layers use them (``materialize``)."""
+    top = materialize({k: v for k, v in params.items() if k != "blocks"},
+                      cfg)
+    return {**params, **top}
 
 
 def _apply_superblock(sb, cfg: ModelConfig, x, positions):
@@ -299,17 +333,23 @@ def _checkpointed(fn, policy: str):
 
 
 def lm_apply(params, cfg: ModelConfig, tokens, embeds=None, positions=None,
-             remat=False) -> Tuple[torch.Tensor, torch.Tensor]:
+             remat=False, whole_vocab: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S_total, V), aux_loss scalar), S_total the
     frontend embeds' N plus the text's S.  ``remat`` (False,
     True/'nothing' or 'dots') checkpoints each super-block's body, as the
-    reference checkpoints its scan body."""
+    reference checkpoints its scan body.  On a training mesh each
+    super-block's shards are gathered inside its body (again in the
+    backward under remat); ``whole_vocab=False`` leaves vocab-parallel
+    logits on the rank's vocab columns."""
+    params = _materialize_top(params, cfg)
     x = embed_tokens(params, cfg, tokens, embeds)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = _positions_for(cfg, B, S, x.device)
 
     def body(sb, x):
+        sb = materialize(sb, cfg, ("blocks",))
         return _apply_superblock(sb, cfg, x, positions)
 
     policy = remat_policy(remat)
@@ -319,17 +359,23 @@ def lm_apply(params, cfg: ModelConfig, tokens, embeds=None, positions=None,
     for s in range(num_superblocks(params)):
         x, a = body(_tree_index(params["blocks"], s), x)
         aux = aux + a
-    return _head(params, cfg, x), aux
+    return _head(params, cfg, x, whole_vocab), aux
 
 
 def lm_loss(params, cfg: ModelConfig, tokens, labels, embeds=None,
             mask=None, remat=False):
     """Returns (loss + aux, {"ce": loss, "aux": aux}).  With frontend
     ``embeds`` the loss covers the text tail only."""
-    logits, aux = lm_apply(params, cfg, tokens, embeds=embeds, remat=remat)
+    logits, aux = lm_apply(params, cfg, tokens, embeds=embeds, remat=remat,
+                           whole_vocab=False)
     if embeds is not None:
         logits = logits[:, embeds.shape[1]:]
-    loss = cross_entropy(logits, labels, mask)
+    if vocab_tp(cfg):
+        loss = vocab_parallel_cross_entropy(
+            logits, labels, model_group(cfg), tp_rank() * logits.shape[-1],
+            mask)
+    else:
+        loss = cross_entropy(logits, labels, mask)
     return loss + aux, {"ce": loss, "aux": aux}
 
 
@@ -353,7 +399,8 @@ def lm_init_cache(params, cfg: ModelConfig, batch_size: int, max_len: int,
         if cfg.layer_kind(i) != "attn":
             one = _recurrent_state(cfg, i, batch_size)
         else:
-            one = attn.init_kv_cache(cfg, batch_size, max_len, dtype,
+            one = attn.init_kv_cache(attn.cache_cfg(cfg), batch_size,
+                                     max_len, dtype,
                                      window=cfg.layer_window(i),
                                      device="meta")
         out[f"layer{i}"] = _stacked_zeros(one, n_super, device)
@@ -569,7 +616,7 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,
     if index.ndim == 0:
         index = index.expand(B)
     attn_index = index if block_table is None else index.to(torch.int32)
-    x = params["embed"][tokens]
+    x = _embed_lookup(params, cfg, tokens)
     if cfg.position == "absolute":
         x = x + _pos_embed(params, index)[:, None, :]
     if positions is None:

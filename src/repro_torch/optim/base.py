@@ -11,6 +11,11 @@ Contract (required by ``repro_torch.core.expansion.expand_opt_state``):
 Where the reference returns new trees (its step donates the old buffers),
 the port's update writes params and moments in place under
 ``torch.no_grad()`` and returns the same trees.
+
+On a mesh (``distributed.context.mesh_scope``) the trees hold the rank's
+shards: elementwise updates act on them as they are, norms sum each leaf's
+squares over the ranks that split it (``leaf_norm``, ``global_norm``), and
+Muon orthogonalizes each matrix whole (``muon.py``).
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.distributed.context import leaf_sq_sum, split_over_mesh
+from repro_torch.tree import leaves_with_path, tree_map
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -30,9 +36,21 @@ class Optimizer:
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = tree_leaves(tree)
-    total = sum(torch.sum(torch.square(x.float())) for x in leaves)
+    """sqrt of the sum, leaf by leaf in order, of float32 squared sums; on a
+    mesh each leaf's sum covers its whole (every element once)."""
+    total = sum(leaf_sq_sum(path, torch.sum(torch.square(x.float())))
+                for path, x in leaves_with_path(tree))
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def leaf_norm(path, x: torch.Tensor, dim=None) -> torch.Tensor:
+    """The L2 norm of the whole leaf at ``path`` (over ``dim`` of its
+    held 2-D view when given), summed over the ranks that split it; on
+    one rank ``torch.linalg.norm`` itself."""
+    if not split_over_mesh(path):
+        return torch.linalg.norm(x, dim=dim)
+    sq = torch.sum(torch.square(x), dim=dim)
+    return torch.sqrt(leaf_sq_sum(path, sq))
 
 
 def clip_by_global_norm(grads, max_norm: float):

@@ -10,13 +10,20 @@ layer: the reference vmaps over the stack, the port hands the whole stack
 to ``kernels.newton_schulz.ops.newton_schulz``, one launch chain per
 stacked leaf.  All update arithmetic is float32; params and moments are
 written in place.
+
+On a mesh Newton–Schulz normalises by the whole matrix's norm, so every
+rank gathers each matrix's momentum whole, runs the kernels on the full
+matrix (every rank every matrix: the same launches as one device) and
+keeps its slice; the muP factor reads the whole shape, and the NSGD norms
+sum over the ranks that split the leaf.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
-from repro_torch.optim.base import Optimizer, clip_by_global_norm
+from repro_torch.distributed.context import full_leaf, full_shape, local_leaf
+from repro_torch.optim.base import Optimizer, clip_by_global_norm, leaf_norm
 from repro_torch.tree import leaves_with_path, tree_map
 
 # Leaf names that are *not* semantic matrices even when >=2-D (stacked norm
@@ -29,12 +36,14 @@ NSGD_NAMES = frozenset({
 
 
 def _is_matrix(path, x: torch.Tensor) -> bool:
-    """``path``: the tuple of dict keys of the leaf."""
+    """``path``: the tuple of dict keys of the leaf (its whole shape is
+    read on a mesh)."""
     names = list(path)
     if names and (names[-1] in NSGD_NAMES or
                   (len(names) >= 2 and names[-2] in ("mu", "cm_mu"))):
         return False
-    return x.ndim >= 2 and x.shape[-1] > 1 and x.shape[-2] > 1
+    shape = full_shape(path, x)
+    return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
 def _stacked(path) -> bool:
@@ -72,9 +81,10 @@ def muon_nsgd(cfg: OptimizerConfig) -> Optimizer:
                                      leaves_with_path(m_tree)):
             lr_d = lr.to(p.device)
             if _is_matrix(path, p):
-                upd = orthogonalize(m.float(), cfg.ns_steps)
+                upd = local_leaf(path, orthogonalize(
+                    full_leaf(path, m.float()), cfg.ns_steps))
                 if cfg.mup:
-                    n_in, n_out = p.shape[-2], p.shape[-1]
+                    n_in, n_out = full_shape(path, p)[-2:]
                     upd = upd * torch.sqrt(torch.tensor(
                         max(n_out, n_in) / n_in, dtype=torch.float32,
                         device=p.device))
@@ -85,10 +95,10 @@ def muon_nsgd(cfg: OptimizerConfig) -> Optimizer:
                     # dilute each layer's NSGD step (hyperparameter
                     # transfer).
                     flat = mf.reshape(mf.shape[0], -1)
-                    norm = torch.linalg.norm(flat, dim=1) + 1e-9
+                    norm = leaf_norm(path, flat, dim=1) + 1e-9
                     upd = (flat / norm[:, None]).reshape(mf.shape)
                 else:
-                    upd = mf / (torch.linalg.norm(mf.reshape(-1)) + 1e-9)
+                    upd = mf / (leaf_norm(path, mf.reshape(-1)) + 1e-9)
             new = (1.0 - lr_d * wd) * p.float() - lr_d * upd
             p.copy_(new.to(p.dtype))
         return params, {"step": state["step"] + 1, "m": m_tree}

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
-from repro_torch.optim.base import Optimizer, clip_by_global_norm
+from repro_torch.optim.base import Optimizer, clip_by_global_norm, leaf_norm
 from repro_torch.tree import leaves_with_path, tree_map
 
 
@@ -54,11 +54,11 @@ def nsgd(cfg: OptimizerConfig) -> Optimizer:
         grads = clip_by_global_norm(grads, cfg.grad_clip)
         _momentum(grads, state, beta)
         lr = torch.as_tensor(lr, dtype=torch.float32)
-        for (_, p), (_, m) in zip(leaves_with_path(params),
-                                  leaves_with_path(state["m"])):
+        for (path, p), (_, m) in zip(leaves_with_path(params),
+                                     leaves_with_path(state["m"])):
             lr_d = lr.to(p.device)
             mf = m.float()
-            upd = mf / (torch.linalg.norm(mf.reshape(-1)) + 1e-9)
+            upd = mf / (leaf_norm(path, mf.reshape(-1)) + 1e-9)
             p.copy_(((1.0 - lr_d * wd) * p.float() - lr_d * upd).to(p.dtype))
         return params, {"step": state["step"] + 1, "m": state["m"]}
 

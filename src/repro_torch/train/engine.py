@@ -32,8 +32,19 @@ post-expansion divergence guard and the hang deadline
 time) are the reference's.
 
 On a CUDA device TF32 is switched off for matmuls and cuDNN, so float32
-means float32 on the card as on the CPU.  The reference's mesh is not
-ported (ROADMAP queue A item 13): ``mesh`` raises.
+means float32 on the card as on the CPU.
+
+On a mesh (``mesh=``, a ``launch.mesh.Mesh`` or a spec string; one
+process per rank, every rank running this trainer) each rank holds its
+shards of params and moments under ``distributed.sharding``'s rules
+(``fsdp``, ``layout``, ``moe_fsdp``, the reference's defaults) and its
+rows of every global batch.  Every rank draws the same full initial
+weights (and fresh expansion blocks) from one generator and keeps its
+slice, so sharded init equals single-device init.  Checkpoints are
+written whole by rank 0 and restore under any mesh.  ``history`` is the
+same on every rank (rank 0 logs): losses are means over the DP ranks, the
+fault plane's decisions, the checkpoint outcome and the step time are
+all-reduced, so every rank takes the same branch.
 """
 from __future__ import annotations
 
@@ -52,16 +63,55 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import expansion as exp
 from repro_torch.core.schedules import make_schedule
 from repro_torch.data.synthetic import DataConfig, SyntheticLM, make_eval_batches
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import StragglerMonitor
+from repro_torch.distributed.context import MeshContext
 from repro_torch.models import registry
 from repro_torch.models.common import resolve_device
 from repro_torch.optim.base import make_optimizer
 from repro_torch.train import faults as faults_lib
 from repro_torch.train import steps as steps_lib
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves_with_path, tree_map, tree_map_with_path
 
-_MESH = ("ROADMAP queue A item 13 (distributed): the port trains on one "
-         "device")
+
+def _agree_code(mesh, code: int) -> int:
+    """The largest of every rank's ``code`` (0 on every rank: 0)."""
+    return int(coll.all_reduce(torch.tensor([code], dtype=torch.int64),
+                               mesh.group(mesh.axis_names), "max")[0])
+
+
+def _agreed(mesh, site: str, fn):
+    """Run ``fn`` on this rank; if it raised a ``FaultError`` or a
+    ``CrashError`` on any rank, raise on every rank (a crash over a
+    fault), so every rank retries, contains or unwinds together."""
+    err = None
+    try:
+        fn()
+    except (faults_lib.FaultError, faults_lib.CrashError) as e:
+        err = e
+    code = _agree_code(mesh, 0 if err is None else
+                       2 if isinstance(err, faults_lib.CrashError) else 1)
+    if code == 0:
+        return
+    kind = faults_lib.CrashError if code == 2 else faults_lib.FaultError
+    raise err if isinstance(err, kind) else kind(site, 0)
+
+
+class _AgreedPlane:
+    """A fault plane whose every decision is agreed over the mesh
+    (``_agreed``): no rank runs an operation, and its collectives,
+    alone."""
+
+    def __init__(self, plane, mesh):
+        self.plane = plane
+        self.mesh = mesh
+
+    def fire(self, site: str) -> None:
+        _agreed(self.mesh, site, lambda: self.plane.fire(site))
+
+    def __getattr__(self, name):
+        return getattr(self.plane, name)
 
 
 @dataclasses.dataclass
@@ -79,7 +129,8 @@ class TrainResult:
 
 
 class ProgressiveTrainer:
-    """Progressive-training engine on one device (see module docstring).
+    """Progressive-training engine on one device or a mesh (see module
+    docstring).
 
     Robustness knobs, all off by default (the clean path runs the plain
     step): ``faults`` (a plane or spec string, ``faults.resolve``) with
@@ -102,9 +153,8 @@ class ProgressiveTrainer:
                  guard_tol: float = 1.5, guard_defer: Optional[int] = None,
                  guard_max_retries: int = 2, nan_rollback_after: int = 3,
                  max_retries: int = 2, retry_backoff_s: float = 0.05,
-                 hang_deadline_s: Optional[float] = None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh={mesh!r}: {_MESH}")
+                 hang_deadline_s: Optional[float] = None, fsdp: bool = True,
+                 layout: str = "tp", moe_fsdp: str = "auto"):
         if tcfg.global_batch % max(tcfg.grad_accum, 1):
             raise ValueError(f"global_batch {tcfg.global_batch} not divisible "
                              f"by grad_accum {tcfg.grad_accum}")
@@ -114,14 +164,25 @@ class ProgressiveTrainer:
         self.tcfg = tcfg
         self.checkpoint_dir = checkpoint_dir
         self.dtype = dtype
+        if isinstance(mesh, str):
+            from repro_torch.launch import mesh as mesh_lib
+            mesh = mesh_lib.make_train_mesh(mesh, device=str(device))
+        self.mesh = mesh
+        self.fsdp, self.layout, self.moe_fsdp = fsdp, layout, moe_fsdp
+        if mesh is not None and mesh.rank != 0:
+            log_fn = lambda *a, **k: None          # noqa: E731 (rank 0 logs)
         self.log_fn = log_fn
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self._ckptr = ckpt.AsyncCheckpointer() if async_ckpt else None
 
         self.faults = faults_lib.resolve(faults)
+        # ckpt.write fires in rank 0's writer alone: it keeps the raw plane.
+        self._write_plane = self.faults
+        if mesh is not None and self.faults is not faults_lib.NULL:
+            self.faults = _AgreedPlane(self.faults, mesh)
         self.nan_policy = nan_policy
         self.spike_factor = spike_factor
         self.nan_inject = faults_lib.parse_nan_inject(nan_inject)
@@ -154,15 +215,62 @@ class ProgressiveTrainer:
                                       tcfg.optimizer.learning_rate,
                                       tcfg.total_steps)
 
+    # -- sharding ------------------------------------------------------------
+
+    def _specs(self, cfg: ModelConfig):
+        """{path: spec} of the params at ``cfg``'s depth (None off a mesh)."""
+        if self.mesh is None:
+            return None
+        like = registry.get_model(cfg).init(None, cfg, dtype=self.dtype,
+                                            device="meta")
+        return dict(leaves_with_path(shd.params_shardings(
+            like, self.mesh, fsdp=self.fsdp, moe_fsdp=self.moe_fsdp,
+            layout=self.layout)))
+
+    def _ctx(self, cfg: ModelConfig) -> Optional[MeshContext]:
+        if self.mesh is None:
+            return None
+        return MeshContext(self.mesh, self.layout, self._specs(cfg))
+
+    def _state_shardings(self, cfg: ModelConfig, opt_state):
+        """Spec tree of {"params", "opt_state"} (moments mirror the params;
+        'step' and other scalars are replicated)."""
+        like = registry.get_model(cfg).init(None, cfg, dtype=self.dtype,
+                                            device="meta")
+        p = shd.params_shardings(like, self.mesh, fsdp=self.fsdp,
+                                 moe_fsdp=self.moe_fsdp, layout=self.layout)
+        os_ = {k: (p if k in ("m", "v") else shd.replicated())
+               for k in opt_state}
+        return {"params": p, "opt_state": os_}
+
+    def _shard(self, cfg: ModelConfig, params):
+        """This rank's shards of whole params, each a new tensor on the
+        rank's device."""
+        specs = self._specs(cfg)
+        return tree_map_with_path(
+            lambda path, x: coll.shard_leaf(x, specs[path], self.mesh).to(
+                self.device, copy=True), params)
+
+    def _rows(self, x):
+        """This rank's rows of a global batch leaf (``batch_axes``)."""
+        axes = shd.batch_axes(x.shape[0], self.mesh, self.layout)
+        n = self.mesh.axes_size(axes)
+        if n == 1:
+            return x
+        size = x.shape[0] // n
+        i = self.mesh.axes_index(axes)
+        return x[i * size:(i + 1) * size]
+
     def _build_steps(self, cfg: ModelConfig):
+        ctx = self._ctx(cfg)
         train_step = steps_lib.make_train_step(
             cfg, self.opt, self.schedule, remat=self.tcfg.remat,
             grad_accum=self.tcfg.grad_accum, sentinels=self._sentinels,
             nan_policy=self.nan_policy if self.nan_policy != "off" else "warn",
             spike_factor=self.spike_factor,
             inject=faults_lib.active_inject(self.nan_inject,
-                                           self._guard_attempt))
-        return train_step, steps_lib.make_eval_step(cfg)
+                                           self._guard_attempt), mesh=ctx)
+        return train_step, steps_lib.make_eval_step(cfg, mesh=ctx)
 
     def _retry(self, site: str, fn):
         """Run ``fn`` containing transient ``FaultError``s with bounded
@@ -194,21 +302,49 @@ class ProgressiveTrainer:
         like_p = registry.get_model(cfg).init(None, cfg, dtype=self.dtype,
                                               device="meta")
         like = {"params": like_p, "opt_state": self.opt.init(like_p)}
+        kw = {} if self.mesh is None else dict(
+            mesh=self.mesh,
+            shardings=self._state_shardings(cfg, like["opt_state"]))
         tree = self._retry("ckpt.restore", lambda: ckpt.restore(
-            self.checkpoint_dir, step, like, faults=self.faults))
+            self.checkpoint_dir, step, like, faults=self.faults, **kw))
         state = tree_map(lambda t: t.to(self.device),
                          bridge.params_from_jax(tree))
         return meta, layers, cfg, state["params"], state["opt_state"]
 
     def _init_state(self, cfg: ModelConfig):
         api = registry.get_model(cfg)
-        params = api.init(torch.Generator().manual_seed(self.tcfg.seed), cfg,
-                          dtype=self.dtype, device=self.device)
+        gen = torch.Generator().manual_seed(self.tcfg.seed)
+        if self.mesh is None:
+            params = api.init(gen, cfg, dtype=self.dtype, device=self.device)
+        else:
+            # Drawn whole in host memory (the generator's draws are made on
+            # the CPU on one device too), then each leaf's slice alone moves
+            # to the device: no rank holds the whole model there.
+            params = self._shard(cfg, api.init(gen, cfg, dtype=self.dtype,
+                                               device="cpu"))
         return params, self.opt.init(params)
 
     def _place_batch(self, host_batch):
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device).long()
-                for k, v in host_batch.items()}
+        """The batch on the device: this rank's rows on a mesh."""
+        rows = (lambda a: a) if self.mesh is None else self._rows
+        return {k: torch.from_numpy(np.ascontiguousarray(rows(np.asarray(v))))
+                .to(self.device).long() for k, v in host_batch.items()}
+
+    def _barrier(self):
+        if self.mesh is not None:
+            _agree_code(self.mesh, 0)
+
+    def _settle(self):
+        """On a mesh: rank 0's write in flight lands before any rank reads
+        the checkpoint directory."""
+        if self.mesh is None:
+            return
+        if self._ckptr is not None:
+            try:
+                self._ckptr.wait()
+            except faults_lib.FaultError:
+                self.ckpt_failures += 1
+        self._barrier()
 
     def _sync(self):
         """Wait for the step's work on the compute stream, not the whole
@@ -275,7 +411,14 @@ class ProgressiveTrainer:
             cur_cfg = model_cfg.with_depth(cur_layers)
             params, opt_state = self._init_state(cur_cfg)
         train_step, eval_step = self._build_steps(cur_cfg)
-        monitor = StragglerMonitor(hang_deadline_s=self.hang_deadline_s)
+        agree_dt = None
+        if self.mesh is not None:
+            def agree_dt(dt):
+                return float(coll.all_reduce(
+                    torch.tensor([dt], dtype=torch.float64),
+                    self.mesh.group(self.mesh.axis_names), "max")[0])
+        monitor = StragglerMonitor(hang_deadline_s=self.hang_deadline_s,
+                                   agree=agree_dt)
 
         def save(done):
             """Checkpoint with label = completed steps.  A write that fails
@@ -293,11 +436,21 @@ class ProgressiveTrainer:
                 "history": {k: v for k, v in history.items()
                             if k != "step_time"}}))
             saver = self._ckptr.save if self._ckptr else ckpt.save
+            kw = {} if self.mesh is None else dict(
+                mesh=self.mesh,
+                shardings=self._state_shardings(cur_cfg, opt_state))
 
-            def write():
+            def write_here():
                 saver(self.checkpoint_dir, done,
                       {"params": params, "opt_state": opt_state},
-                      metadata=m, keep=tcfg.keep_checkpoints, faults=plane)
+                      metadata=m, keep=tcfg.keep_checkpoints,
+                      faults=self._write_plane, **kw)
+
+            def write():
+                # On a mesh rank 0 writes and every rank takes its outcome.
+                if self.mesh is None:
+                    return write_here()
+                _agreed(self.mesh, "ckpt.write", write_here)
 
             try:
                 self._retry("ckpt.write", write)
@@ -316,6 +469,7 @@ class ProgressiveTrainer:
                     self._ckptr.wait()      # do not race a write in flight
                 except faults_lib.FaultError:
                     self.ckpt_failures += 1
+            self._barrier()                 # rank 0's write has landed
             (m, cur_layers, cur_cfg, params,
              opt_state) = self._restore_state(at)
             for k, v in m.get("history", {}).items():
@@ -341,7 +495,9 @@ class ProgressiveTrainer:
                     expand_fn = exp.make_expand_fn(
                         cur_cfg, e.target_layers, e.init,
                         insert_at=e.insert_at,
-                        opt_state_policy=e.opt_state_policy, dtype=self.dtype)
+                        opt_state_policy=e.opt_state_policy, dtype=self.dtype,
+                        mesh=self.mesh, fsdp=self.fsdp, layout=self.layout,
+                        moe_fsdp=self.moe_fsdp)
                     return expand_fn(params, opt_state, torch.Generator()
                                      .manual_seed(tcfg.seed + 17 + step))
 
@@ -405,6 +561,7 @@ class ProgressiveTrainer:
                     if (policy == "rollback" and self.checkpoint_dir
                             and bad_streak >= self.nan_rollback_after
                             and self.nan_rollbacks < 1):
+                        self._settle()
                         at = ckpt.latest_step(self.checkpoint_dir)
                         if at is not None and at <= step:
                             # Once per run: injections are deterministic and
@@ -508,6 +665,7 @@ class ProgressiveTrainer:
             except faults_lib.FaultError as e:
                 self.ckpt_failures += 1
                 self.log_fn(f"[ckpt] final save failed: {e}")
+        self._barrier()                 # rank 0's last write has landed
         stats = {"retries": self.retries,
                  "ckpt_failures": self.ckpt_failures,
                  "nan_rollbacks": self.nan_rollbacks,

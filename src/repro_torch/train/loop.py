@@ -1,5 +1,6 @@
 """Progressive training loop (``repro/train/loop.py``): a thin wrapper over
-``repro_torch.train.engine.ProgressiveTrainer`` on one device."""
+``repro_torch.train.engine.ProgressiveTrainer`` on one device or, with
+``mesh=``, on every rank of a mesh."""
 from __future__ import annotations
 
 from typing import Callable, Optional

@@ -1,4 +1,4 @@
-"""Single-device serving engine: true prefill + a preallocated cache, and
+"""Serving engine: true prefill + a preallocated cache, and
 the continuous-batching primitives (``repro/train/serve_engine.py``:
 ``GenerateResult``, ``ContinuousState``, ``PrefillJob``, ``pow2_chunks``
 and ``ServeEngine``).
@@ -60,7 +60,19 @@ row beside the pool in the same way: a chunked prefill advances the B=1
 carry's ring, the verify defers each ring's advance to the accepted
 prefix, the draft restores its rings from a pre-round copy (so γ + 1 may
 not exceed a window), and a prefix hit restores the ring its publisher
-snapshotted.  Mesh sharding comes with ROADMAP queue A item 13.
+snapshotted.
+
+On a mesh (``mesh=``, one process per rank, every rank running the same
+engine; ``generate`` only: continuous, paged, prefix-cached and
+speculative serving on a mesh are ROADMAP queue A item 20) the rows of a
+batch go over the DP axes, as ``cache_shardings`` puts a cache's batch
+dim, and tensor parallelism splits attention heads, d_ff and vocab over
+'model' where they divide (``distributed.context.attn_tp``/``mlp_tp``/
+``vocab_tp``), the other leaves held whole.  A rank's contiguous cache
+holds the KV heads it computes where KV divides 'model', all of them
+otherwise: a deliberate departure from ``cache_shardings``, which puts
+the longest cache dim (the sequence) on 'model' (ROADMAP queue C).
+Tokens and logits come back gathered to every rank.
 
 Fault injection (``faults``, a ``train.faults`` plane; the NULL plane by
 default): the engine fires ``engine.prefill_chunk``, ``engine.decode``,
@@ -82,14 +94,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import expansion, quant
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import registry
 from repro_torch.models import transformer
+from repro_torch.distributed.context import (MeshContext, dp_axes,
+                                            keeps_model_split, mesh_scope)
 from repro_torch.models.common import resolve_device
 from repro_torch.train import faults as faults_lib
 from repro_torch.train import steps as steps_lib
 from repro_torch.train.kv_pool import KVBlockPool
 from repro_torch.train.radix_cache import RadixCache
-from repro_torch.tree import leaves_with_path, tree_map
+from repro_torch.tree import leaves_with_path, tree_map, tree_map_with_path
 
 
 def resolve_kv_dtype(kv_dtype):
@@ -207,7 +223,8 @@ def refuse_unservable(cfg: ModelConfig):
 
 
 class ServeEngine:
-    """Serving engine on one device (see module docstring)."""
+    """Serving engine on one device, or ``generate`` on a mesh (see module
+    docstring)."""
 
     def __init__(self, cfg: ModelConfig, params, device="cuda",
                  max_len: int = 512, cache_dtype=torch.float32,
@@ -215,7 +232,19 @@ class ServeEngine:
                  num_blocks: Optional[int] = None, kv_dtype=None,
                  prefix_cache: bool = False, spec_decode: bool = False,
                  gamma: int = 4, draft_depth: Optional[int] = None,
-                 draft_params=None, faults=None):
+                 draft_params=None, faults=None, mesh=None):
+        if mesh is not None and (paged or spec_decode or prefix_cache):
+            raise NotImplementedError(
+                "paged, prefix-cached and speculative serving on a mesh: "
+                "ROADMAP queue A item 20 (the mesh serves generate)")
+        if isinstance(mesh, str):
+            from repro_torch.launch import mesh as mesh_lib
+            mesh = mesh_lib.make_train_mesh(mesh, device=str(device))
+        self.mesh = mesh
+        self._ctx = None if mesh is None else MeshContext(mesh, "tp")
+        if mesh is not None:
+            device = mesh.device
+            params = self._tp_local(cfg, params, self._ctx)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # Keep float32 matmuls around the kernel in full float32, as the
@@ -263,6 +292,31 @@ class ServeEngine:
         self.gamma = gamma
         if spec_decode:
             self._init_spec(draft_depth, draft_params)
+
+    @staticmethod
+    def _tp_local(cfg: ModelConfig, params, ctx: MeshContext):
+        """The params as a rank serves them: the 'model' shard of every
+        leaf whose layer runs tensor-parallel, every other leaf whole."""
+        mesh = ctx.mesh
+        with mesh_scope(ctx):
+            def one(path, x):
+                if not keeps_model_split(path, cfg):
+                    return x
+                spec = shd.param_spec(path, x.shape, mesh, fsdp=False)
+                spec = tuple("model" if e == "model" else None
+                             for e in spec)
+                return coll.shard_leaf(x, spec, mesh).clone()
+            return tree_map_with_path(one, params)
+
+    def _rows(self, batch: int):
+        """(DP axes, ranks over them) this batch's rows go over: the DP axes
+        where the batch divides them (``cache_shardings``' batch rule),
+        else every rank serves every row."""
+        axes = dp_axes(self.mesh, "tp")
+        n = self.mesh.axes_size(axes)
+        if n > 1 and batch % n == 0:
+            return axes, n
+        return (), 1
 
     def _init_spec(self, draft_depth, draft_params):
         """Resolve the draft of self-speculative decoding: the target
@@ -346,8 +400,18 @@ class ServeEngine:
                         temperature: float = 0.0, seed: int = 0,
                         collect_logits: bool = False):
         """Device-resident generation.  Returns ``(tokens (B, P+G) tensor,
-        per-step logits list or None, (prefill_s, decode_s))``."""
+        per-step logits list or None, (prefill_s, decode_s))``.  On a mesh
+        each rank generates its rows and the tokens and logits come back
+        gathered over the DP axes."""
         prompts = np.asarray(prompts, np.int32)
+        if self.mesh is not None:
+            return self._generate_on_mesh(prompts, num_tokens, temperature,
+                                          seed, collect_logits)
+        return self._generate_local(prompts, num_tokens, temperature, seed,
+                                    collect_logits)
+
+    def _generate_local(self, prompts, num_tokens, temperature, seed,
+                        collect_logits):
         B, P = prompts.shape
         self.check_lengths(P, num_tokens)
         prefill, decode = self._steps(temperature)
@@ -375,6 +439,22 @@ class ServeEngine:
         self._sync()
         t2 = time.perf_counter()
         return tokens, logs, (t1 - t0, t2 - t1)
+
+    def _generate_on_mesh(self, prompts, num_tokens, temperature, seed,
+                          collect_logits):
+        axes, n = self._rows(prompts.shape[0])
+        if n > 1:
+            size = prompts.shape[0] // n
+            i = self.mesh.axes_index(axes)
+            prompts = prompts[i * size:(i + 1) * size]
+        with mesh_scope(self._ctx):
+            tokens, logs, times = self._generate_local(
+                prompts, num_tokens, temperature, seed, collect_logits)
+        group = self.mesh.group(axes) if n > 1 else None
+        tokens = coll.all_gather(tokens, group, 0)
+        if logs is not None:
+            logs = [coll.all_gather(torch.cat(logs, dim=1), group, 0)]
+        return tokens, logs, times
 
     def generate(self, prompts, num_tokens: int, temperature: float = 0.0,
                  seed: int = 0, return_logits: bool = False) -> GenerateResult:
@@ -456,6 +536,9 @@ class ServeEngine:
         default), the pool and the device block table; prefix-cache engines
         the radix tree over the pool."""
         del temperature               # steps are built per call
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "continuous serving on a mesh: ROADMAP queue A item 20")
         dev = self.device
         pool = table = radix = None
         if self.paged:

@@ -25,7 +25,11 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import registry, transformer
+from repro_torch.distributed.context import (MeshContext, dp_axes,
+                                            leaf_sq_sum, materialize,
+                                            mesh_scope)
 from repro_torch.optim.base import Optimizer
 from repro_torch.tree import leaves_with_path, tree_map
 
@@ -47,17 +51,42 @@ def _microbatch(batch, grad_accum: int):
     return out
 
 
-def _global_norm(leaves) -> torch.Tensor:
-    """sqrt of the sum, leaf by leaf in order, of float32 squared sums."""
-    total = sum(torch.sum(torch.square(x.float())) for x in leaves)
+def _global_norm(paths, leaves) -> torch.Tensor:
+    """sqrt of the sum, leaf by leaf in order, of float32 squared sums (on a
+    mesh each leaf's sum over its whole: every element once)."""
+    total = sum(leaf_sq_sum(path, torch.sum(torch.square(x.float())))
+                for path, x in zip(paths, leaves))
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def _dp_mean(ctx: Optional[MeshContext], x: torch.Tensor) -> torch.Tensor:
+    """A rank's mean over its rows -> the mean over the DP ranks' rows."""
+    if ctx is None:
+        return x
+    axes = dp_axes(ctx.mesh, ctx.layout)
+    n = ctx.mesh.axes_size(axes)
+    if n == 1:
+        return x
+    return coll.all_reduce(x, ctx.mesh.group(axes)) * (1.0 / n)
+
+
+def _scoped(ctx: Optional[MeshContext], fn: Callable) -> Callable:
+    """``fn`` run under ``mesh_scope(ctx)`` (``fn`` itself without one)."""
+    if ctx is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with mesh_scope(ctx):
+            return fn(*args, **kwargs)
+    return run
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
                     remat=False, grad_accum: int = 1,
                     sentinels: bool = False, nan_policy: str = "warn",
                     spike_factor: float = 10.0,
-                    inject: Optional[dict] = None) -> Callable:
+                    inject: Optional[dict] = None,
+                    mesh: Optional[MeshContext] = None) -> Callable:
     """(params, opt_state, batch, step) -> (params, opt_state, metrics).
 
     The schedule is evaluated inside the step from the global step counter
@@ -89,7 +118,15 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
 
     ``inject`` ({step: 'nan'|'spike'}) injects numerical faults at the
     named global steps: the loss and grads times NaN, or the grads times
-    1e4."""
+    1e4.
+
+    ``mesh`` (a ``MeshContext`` with the leaves' specs): params, moments
+    and gradients are the rank's shards and ``batch`` its rows.  The
+    forward gathers each super-block's shards
+    (``distributed.context.materialize``; an encoder-decoder gathers every
+    leaf up front), the gradients come back all-reduced over the DP axes to the shards, the
+    loss and metrics are means over the DP ranks, and the global norms
+    count every element once."""
     transformer.remat_policy(remat)          # raises on an unknown knob
     api = registry.get_model(cfg)
     inject = dict(inject or {})
@@ -97,8 +134,10 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
     def loss_and_grads(flat, batch):
         leaves = {k: v.detach().requires_grad_() for k, v in flat.items()}
         with torch.enable_grad():
-            loss, metrics = api.loss(bridge.unflatten(leaves), cfg, batch,
-                                     remat=remat)
+            tree = bridge.unflatten(leaves)
+            if mesh is not None and cfg.is_encoder_decoder:
+                tree = materialize(tree, cfg)
+            loss, metrics = api.loss(tree, cfg, batch, remat=remat)
             grads = torch.autograd.grad(loss, list(leaves.values()),
                                         allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -113,7 +152,9 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
         lr = schedule(step).to(dev)
         if grad_accum <= 1:
             loss, metrics, grads = loss_and_grads(flat, batch)
-            return flat, lr, loss, metrics, grads
+            return (flat, lr, _dp_mean(mesh, loss),
+                    {k: _dp_mean(mesh, v) for k, v in metrics.items()},
+                    grads)
         grads = [torch.zeros_like(p) for p in flat.values()]
         loss = torch.zeros((), device=dev)
         metrics = None
@@ -124,7 +165,8 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
             metrics = m if metrics is None else {
                 k: metrics[k] + m[k] for k in metrics}
         inv = 1.0 / grad_accum
-        return (flat, lr, loss * inv, {k: v * inv for k, v in metrics.items()},
+        return (flat, lr, _dp_mean(mesh, loss * inv),
+                {k: _dp_mean(mesh, v * inv) for k, v in metrics.items()},
                 [g * inv for g in grads])
 
     def step_fn(params, opt_state, batch, step):
@@ -141,7 +183,8 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
             grads = [g * float("nan") for g in grads]
         elif kind == "spike":
             grads = [g * 1e4 for g in grads]
-        gnorm = _global_norm(grads)
+        paths = [tuple(bridge.parse_keystr(k)) for k in flat]
+        gnorm = _global_norm(paths, grads)
         loss_v, gnorm_v = torch.stack([loss.float(), gnorm]).cpu().numpy()
         ema = np.float32(gnorm_ema)
         ema_live = ema > 0.0
@@ -159,8 +202,8 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
             params, opt_state = new_p, new_s = opt.update(
                 bridge.unflatten(dict(zip(flat, grads))), opt_state, params,
                 lr)
-        upd = _global_norm(n.float() - o.float() for n, o in
-                           zip(bridge.flatten(new_p).values(), old))
+        upd = _global_norm(paths, [n.float() - o.float() for n, o in
+                                   zip(bridge.flatten(new_p).values(), old)])
         if bad:
             new_ema = ema
         elif ema_live:
@@ -172,19 +215,23 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
             "update_norm": upd, "bad": torch.tensor(float(bad)),
             "gnorm_ema": torch.tensor(new_ema, dtype=torch.float32)}
 
-    return sentinel_fn if sentinels else step_fn
+    return _scoped(mesh, sentinel_fn if sentinels else step_fn)
 
 
-def make_eval_step(cfg: ModelConfig) -> Callable:
-    """(params, batch) -> mean cross entropy (0-d tensor), no autograd."""
+def make_eval_step(cfg: ModelConfig,
+                   mesh: Optional[MeshContext] = None) -> Callable:
+    """(params, batch) -> mean cross entropy (0-d tensor), no autograd; on
+    a mesh (``make_train_step``'s) the mean over the DP ranks' rows."""
     api = registry.get_model(cfg)
 
     @torch.no_grad()
     def eval_step(params, batch):
+        if mesh is not None and cfg.is_encoder_decoder:
+            params = materialize(params, cfg)
         _, metrics = api.loss(params, cfg, batch)
-        return metrics["ce"]
+        return _dp_mean(mesh, metrics["ce"])
 
-    return eval_step
+    return _scoped(mesh, eval_step)
 
 
 def _sample(logits, temp: Optional[float], generator: Optional[torch.Generator],

@@ -1,0 +1,322 @@
+"""Scenarios run on every rank of a mesh: the bodies that
+``tests/test_torch_distributed.py`` and ``chip_smoke.py``'s mesh phase
+start with ``repro_torch.launch.mesh.spawn``.
+
+This module imports no JAX: spawned ranks import it alone, on the CPU as
+on the card.  Its importer puts this directory on ``sys.path`` (pytest
+does so for the tests; ``chip_smoke.py`` itself), and spawned ranks inherit
+that path.  ``run(scenarios, device)`` runs a list of ``(name, function
+name, kwargs)`` in order on the calling rank and returns ``{name:
+result}``; every function here takes its mesh as a spec string (built
+over the world the rank joined) and returns plain numpy and Python
+values, the same on every rank unless it says otherwise.  Params travel
+as ``{keystr: array}`` (``bridge.flatten``).
+"""
+from __future__ import annotations
+
+import os
+import shutil
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import bridge
+from repro_torch.checkpoint import checkpointer as ckpt
+from repro_torch.core import expansion as exp
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.context import MeshContext, mesh_scope
+from repro_torch.kernels import launch_counts, zero_launch_counts
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import registry
+from repro_torch.optim.base import make_optimizer
+from repro_torch.train.engine import ProgressiveTrainer
+from repro_torch.train.serve_engine import ServeEngine
+from repro_torch.tree import leaves_with_path, tree_map, tree_map_with_path
+
+_MESHES: Dict[str, object] = {}
+
+
+def mesh_for(spec: str, device: str):
+    """One ``Mesh`` per spec and rank process (its groups are made once)."""
+    if spec not in _MESHES:
+        _MESHES[spec] = mesh_lib.make_train_mesh(spec, device=device)
+    return _MESHES[spec]
+
+
+def _numpy(flat: dict) -> dict:
+    return {k: bridge.to_numpy(v) for k, v in flat.items()}
+
+
+def _tensors(flat_np: dict, device) -> dict:
+    return bridge.unflatten({k: torch.from_numpy(np.array(v)).to(device)
+                             for k, v in flat_np.items()})
+
+
+def _gather_tree(tree, shardings, m):
+    """Every leaf of the rank's sharded ``tree`` whole, on every rank (a
+    collective), for comparing a run's trees."""
+    return tree_map(lambda x, s: coll.unshard_leaf(x, s, m), tree, shardings)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train(cfg, tcfg, mesh: Optional[str], device: str = "cpu",
+          ckpt_dir: Optional[str] = None, want_params: bool = False,
+          count: bool = False, expect_crash: bool = False,
+          **engine_kw) -> dict:
+    """A ``ProgressiveTrainer`` run on ``mesh`` (None: no mesh).  Returns
+    its history, final depth, fault stats, step times, peak device memory
+    (above what the process held when the run began),
+    the whole final params (``want_params``) and the kernels' launches in
+    the run (``count``: this rank's counters, zeroed just before);
+    ``mesh_s`` is the time spent building the mesh in this call.  With
+    ``expect_crash`` an injected ``CrashError`` ends the run and the
+    result is ``{"crashed": True}``."""
+    t0 = time.perf_counter()
+    m = mesh_for(mesh, device) if mesh else None
+    mesh_s = time.perf_counter() - t0
+    base = 0
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    if count:
+        zero_launch_counts()
+    trainer = ProgressiveTrainer(cfg, tcfg, mesh=m, device=device,
+                                 checkpoint_dir=ckpt_dir,
+                                 log_fn=lambda *a, **k: None, **engine_kw)
+    if expect_crash:
+        from repro_torch.train.faults import CrashError
+        try:
+            trainer.run()
+        except CrashError:
+            return {"crashed": True}
+        return {"crashed": False}
+    res = trainer.run()
+    _sync(device)
+    out = {"history": {k: v for k, v in res.history.items()
+                       if k != "step_time"},
+           "final_layers": res.final_layers,
+           "fault_stats": res.fault_stats,
+           "step_times": [dt for _, dt in res.step_times],
+           "seconds": time.perf_counter() - t0, "mesh_s": mesh_s,
+           "rank": 0 if m is None else m.rank}
+    if count:
+        out["counts"] = launch_counts()
+    if torch.device(device).type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    if want_params:
+        params = res.params
+        if m is not None:
+            specs = shd.params_shardings(
+                registry.get_model(cfg.with_depth(res.final_layers)).init(
+                    None, cfg.with_depth(res.final_layers), device="meta"),
+                m, fsdp=engine_kw.get("fsdp", True),
+                moe_fsdp=engine_kw.get("moe_fsdp", "auto"),
+                layout=engine_kw.get("layout", "tp"))
+            params = _gather_tree(params, specs, m)
+        out["params"] = _numpy(bridge.flatten(params))
+    return out
+
+
+def _shard_state(cfg, params_np: dict, m, opt_name: str, device):
+    """Whole params -> this rank's shards, and the optimizer's fresh state
+    over them."""
+    params = _tensors(params_np, device)
+    like = registry.get_model(cfg).init(None, cfg, device="meta")
+    specs = shd.params_shardings(like, m)
+    local = tree_map_with_path(
+        lambda path, x: coll.shard_leaf(x, _at(specs, path), m).clone(),
+        params)
+    opt = make_optimizer(_opt_cfg(opt_name))
+    return local, opt.init(local), specs
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _opt_cfg(name):
+    from repro_torch.configs.base import OptimizerConfig
+    return OptimizerConfig(name=name)
+
+
+def expand_logits(cfg, target: int, method: str, params_np: dict,
+                  tokens: np.ndarray, mesh: str, device: str = "cpu") -> dict:
+    """Logits of ``cfg``'s model and of its ``method`` expansion to
+    ``target`` layers, both computed on ``mesh`` from the rank's shards
+    (the expansion sharded), gathered whole."""
+    m = mesh_for(mesh, device)
+    local, state, specs = _shard_state(cfg, params_np, m, "adamw", device)
+    tok = torch.from_numpy(np.asarray(tokens)).long().to(m.device)
+
+    def logits(c, p):
+        flat = dict(leaves_with_path(shd.params_shardings(
+            registry.get_model(c).init(None, c, device="meta"), m)))
+        with torch.no_grad(), mesh_scope(MeshContext(m, "tp", flat)):
+            out, _ = registry.get_model(c).apply(p, c, tok)
+        return out.cpu().numpy()
+
+    before = logits(cfg, local)
+    fn = exp.make_expand_fn(cfg, target, method, mesh=m)
+    new_p, _ = fn(local, state, torch.Generator().manual_seed(2))
+    return {"before": before, "after": logits(cfg.with_depth(target), new_p)}
+
+
+def expand_state(cfg, target: int, method: str, policy: str,
+                 params_np: dict, mesh: str, device: str = "cpu") -> dict:
+    """A sharded expansion of params and AdamW state (the moments made
+    nonzero by one step's worth of fill) under ``policy``: the whole
+    expanded trees, and whether every moment shard has its param shard's
+    shape."""
+    m = mesh_for(mesh, device)
+    local, state, _ = _shard_state(cfg, params_np, m, "adamw", device)
+    for k in ("m", "v"):
+        state[k] = tree_map_with_path(lambda path, x: x + 0.5, state[k])
+    fn = exp.make_expand_fn(cfg, target, method, opt_state_policy=policy,
+                            mesh=m)
+    new_p, new_os = fn(local, state, torch.Generator().manual_seed(3))
+    tcfg = cfg.with_depth(target)
+    specs = shd.params_shardings(
+        registry.get_model(tcfg).init(None, tcfg, device="meta"), m)
+    same = all(
+        tuple(a.shape) == tuple(b.shape)
+        for k in ("m", "v")
+        for (_, a), (_, b) in zip(bridge.flatten(new_os[k]).items(),
+                                  bridge.flatten(new_p).items()))
+    whole = {"params": _gather_tree(new_p, specs, m),
+             "m": _gather_tree(new_os["m"], specs, m),
+             "v": _gather_tree(new_os["v"], specs, m)}
+    return {"same_shapes": same,
+            "trees": {k: _numpy(bridge.flatten(v)) for k, v in whole.items()},
+            "step": int(new_os["step"])}
+
+
+def save_state(cfg, params_np: dict, mesh: str, directory: str, step: int,
+               use_async: bool = False, device: str = "cpu") -> dict:
+    """Save params and a fresh AdamW state from the rank's shards (rank 0
+    writes whole leaves); and whether this rank holds anything after a
+    gather to the writer (rank 0 alone should)."""
+    m = mesh_for(mesh, device)
+    local, state, specs = _shard_state(cfg, params_np, m, "adamw", device)
+    shardings = {"params": specs,
+                 "opt_state": {"m": specs, "v": specs, "step": ()}}
+    tree = {"params": local, "opt_state": state}
+    meta = {"num_layers": cfg.num_layers}
+    if use_async:
+        saver = ckpt.AsyncCheckpointer()
+        saver.save(directory, step, tree, metadata=meta, mesh=m,
+                   shardings=shardings)
+        saver.wait()
+    else:
+        ckpt.save(directory, step, tree, metadata=meta, mesh=m,
+                  shardings=shardings)
+    coll.all_reduce(torch.zeros(1, device=m.device),
+                    m.group(m.axis_names))                 # barrier
+    held = ckpt.gather_to_writer(tree, shardings, m)
+    return {"saved": m.rank == 0, "holds_gathered": held is not None}
+
+
+def restore_state(cfg, mesh: str, directory: str, step: int,
+                  device: str = "cpu", opt_name: str = "adamw") -> dict:
+    """Restore a checkpoint as the rank's shards under ``mesh``, then gather
+    them whole: the tree, and whether each shard has its spec's shape."""
+    m = mesh_for(mesh, device)
+    like_p = registry.get_model(cfg).init(None, cfg, device="meta")
+    opt = make_optimizer(_opt_cfg(opt_name))
+    like = {"params": like_p, "opt_state": opt.init(like_p)}
+    specs = shd.params_shardings(like_p, m)
+    shardings = {"params": specs,
+                 "opt_state": {k: (specs if k in ("m", "v") else ())
+                               for k in like["opt_state"]}}
+    got = ckpt.restore(directory, step, like, mesh=m, shardings=shardings)
+    local = bridge.params_from_jax(got)
+    ok = all(tuple(x.shape) == shd.local_shape(w.shape, s, m)
+             for (_, x), (_, w), (_, s) in zip(
+                 bridge.flatten(local["params"]).items(),
+                 bridge.flatten(like_p).items(),
+                 bridge.flatten(specs).items()))
+    local = tree_map_with_path(lambda p, x: x.to(m.device), local)
+    whole = _gather_tree(local, shardings, m)
+    return {"tree": _numpy(bridge.flatten(whole)), "shard_shapes_ok": ok}
+
+
+def copy_step(src: str, dst: str, step: int, mesh: str,
+              device: str = "cpu") -> dict:
+    """Rank 0 copies checkpoint ``step`` of ``src`` into a fresh ``dst``;
+    every rank waits for it."""
+    m = mesh_for(mesh, device)
+    if m.rank == 0:
+        name = f"step_{step:09d}"
+        os.makedirs(dst)
+        shutil.copytree(os.path.join(src, name), os.path.join(dst, name))
+    coll.all_reduce(torch.zeros(1, device=m.device),
+                    m.group(m.axis_names))                 # barrier
+    return {}
+
+
+def flash_local(shape, seed: int = 0, device: str = "cuda") -> dict:
+    """The flash kernel forward and backward at a rank's local shape
+    (B, S, H, hd) against its plain version on the same inputs (float32,
+    causal): max abs errors of out, dq, dk, dv.  The launches count
+    nowhere: the caller reads its main path's counters before."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g).to(device)
+                   for _ in range(4))
+    errs = {}
+    outs = {}
+    for force in ("kernel", "ref"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fa_ops.flash_attention(*leaves, causal=True, force=force)
+        grads = torch.autograd.grad(out, leaves, do)
+        outs[force] = (out.detach(),) + tuple(grads)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), outs["kernel"],
+                          outs["ref"]):
+        errs[name] = float((a - b).abs().max())
+    return errs
+
+
+def serve(cfg, params_np: Optional[dict], prompts: np.ndarray,
+          num_tokens: int, mesh: Optional[str], device: str = "cpu",
+          max_len: int = 32, count: bool = False,
+          ckpt_dir: Optional[str] = None) -> dict:
+    """Greedy ``generate`` on ``mesh`` (None: one device): tokens and
+    logits, gathered to every rank.  ``ckpt_dir``: serve its latest
+    checkpoint's params (at its depth) instead of ``params_np``."""
+    m = mesh_for(mesh, device) if mesh else None
+    if ckpt_dir is not None:
+        from repro_torch.launch.serve import load_params
+        params, cfg = load_params(ckpt_dir, cfg)
+    else:
+        params = _tensors(params_np, "cpu")
+    if count:
+        zero_launch_counts()
+    eng = ServeEngine(cfg, params, device=device, mesh=m, max_len=max_len)
+    t0 = time.perf_counter()
+    res = eng.generate(np.asarray(prompts, np.int32), num_tokens,
+                       return_logits=True)
+    out = {"tokens": res.tokens, "logits": res.logits,
+           "seconds": time.perf_counter() - t0}
+    if count:
+        out["counts"] = launch_counts()
+    return out
+
+
+def run(scenarios: List[tuple], device: str = "cpu") -> dict:
+    """Run ``(name, function name, kwargs)`` scenarios in order on this
+    rank; {name: result}, and under "_seconds" each scenario's wall time
+    on this rank."""
+    out = {"_seconds": {}}
+    for name, fn, kwargs in scenarios:
+        t0 = time.perf_counter()
+        out[name] = globals()[fn](device=device, **kwargs)
+        out["_seconds"][name] = time.perf_counter() - t0
+    return out

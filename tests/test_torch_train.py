@@ -299,8 +299,9 @@ def test_launch_train_smoke_cpu(capsys, tmp_path):
     assert "final loss:" in out and "(layers 2)" in out
     assert "train tokens/s layers=1" in out
     assert ckpt.all_steps(str(tmp_path)) == [3, 6]
-    # --remat is ported (ROADMAP queue A item 15); --mesh still exits.
-    with pytest.raises(SystemExit, match="not ported"):
+    # --remat is ported (ROADMAP queue A item 15), and so is --mesh (item
+    # 13): in one process a 4x2 spec is refused against the world of 1.
+    with pytest.raises(ValueError, match="has 8 ranks; the world has 1"):
         launch_train.main(["--smoke", "--device", "cpu", "--mesh", "4x2"])
     # The fault-tolerance flags are ported (ROADMAP queue A item 11): a bad
     # spec is the plane's own error now, not a refusal.

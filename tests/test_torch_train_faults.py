@@ -572,5 +572,7 @@ def test_cli_crash_then_resume_prints_faults_line(tmp_path, capsys):
     out = capsys.readouterr().out
     assert out.count("[resume] step=3") == 2     # the crash run resumed too
     assert "faults: retries=0 ckpt_failures=0 skipped=1" in out
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # The mesh is ported (item 13): in one process a 4x2 spec is refused
+    # against the world of 1, naming both.
+    with pytest.raises(ValueError, match="has 8 ranks; the world has 1"):
         ProgressiveTrainer(CFG, tcfg(), device="cpu", mesh="4x2")
