@@ -123,7 +123,7 @@ result):
    ``ModelApi.loss`` forward at batch 4 x 1024, every counter at 0 just
    before: 21 scan and 3 flash launches, no other kernel;
 20. card against CPU: the same weights copied to the host, a greedy B=1
-   P=128 8-token generation and one B=1 x 128 loss forward;
+   P=128 3-token generation and one B=1 x 128 loss forward;
 21. scan times at the main path's prefill shape, L2 flushed: the kernel in
    f32 and bf16, each beside its bound, and the SFU's floor on the busiest
    SM (its exps at 16 a clock at the SM clock ``nvidia-smi`` reads) beside
@@ -137,7 +137,8 @@ result):
    draft layer per admission (the draft's B=1 prefill), the paged kernel
    never (speculation rounds replace the masked decode); acceptance, mean
    accepted length and aggregate tokens/s beside phase 6's; the same with
-   the prefix cache over int8 pages, which must hit; the paper's draft (a
+   the prefix cache over int8 pages (16 requests drawn as phase 6 draws
+   its 32), which must hit; the paper's draft (a
    random one-layer ``gpt2-12l`` expanded by ``copying_zeroL`` to 3
    (``GPT2_ZEROL_DEPTH``, cut from 12 for time),
    served with its depth-1 truncation): acceptance at least 0.99; and each
@@ -180,14 +181,15 @@ result):
    script's own binary decomposition (plus the snapshot edge of the prefix
    cache): one a layer per prefill chunk, 2 per draft prefill;
 28. jamba at full width and depth 8 on phase 19's weights (run right after
-   phase 21) over phase 6's traffic through ``ContinuousScheduler``: paged
+   phase 21) over the first 16 of phase 6's requests through
+   ``ContinuousScheduler``: paged
    over f32 and then int8 pages (the scan 7 times a prefill chunk, the
    paged kernel once a masked decode step, flash never), contiguous (flash
    once and the scan 7 times an admission) and with the zero-layer draft;
    tokens/s, TTFT and peak memory of each;
 29. card against CPU through the port's plain CPU serving path fed the
    card's tokens over the same chunks: jamba at depth 8, three short paged
-   requests (run after phase 28), and ``rwkv6-7b`` at full width and depth
+   requests of 2 tokens (run after phase 28), and ``rwkv6-7b`` at full width and depth
    2, three paged requests and a prefix hit (which also equals its cold
    run), tokens equal where the CPU's top-2 margin allows;
 30. fault tolerance in serving over phase 6's traffic (``gpt2-12l``, 32
@@ -320,7 +322,19 @@ result):
    launches derived; the flash kernel at the 6-head shape against its
    plain version; the 1x2 run's checkpoint restored under 2x1 and
    ``mesh=None`` bit for bit, the next step's loss of each; the grown
-   checkpoint served greedily on 2x1 and 1x2 against solo ``generate``.
+   checkpoint served greedily on 2x1 and 1x2 against solo ``generate``;
+   then (e) continuous serving of that checkpoint on the two ranks, 16
+   requests (prompts of 32-160 tokens, half opening with one shared
+   64-token prefix; 16-32 new tokens, greedy) into 4 slots over pages of
+   16: at 2x1 over f32 pages, over int8 pages with the prefix cache and
+   with speculation (``spec_depth`` 1, ``gamma`` 4), at 1x2 over f32
+   pages and with speculation, each against ``mesh=None``'s run of the
+   same traffic in this process (streams under phase 22's near-tie rule,
+   prefix hits, skipped tokens, acceptance, every rank alike), each
+   rank's launches those of ``mesh=None``'s (the paged kernel on the
+   rank's rows or heads), the radix tree's int8 pages and scales hashing
+   alike on both 2x1 ranks, and the paged kernel at the 1x2 local shape
+   (6 heads of 64, f32 and int8 pages) against its plain version.
 
 ``--only 36,...,43`` runs the card, the build and the named phases of
 36-43 alone (41 and 42 on weights drawn on the card for them), prints
@@ -440,6 +454,13 @@ SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # relative to itself (f32 through 8 layers; the CPU takes the chunked
 # scan, the card its kernel).
 JAMBA_LOGIT_TOL, JAMBA_LOSS_TOL = 1e-4, 1e-5
+# Cut to make room for phase 43's continuous serving: every CPU decode step
+# of jamba at depth 8 reads the whole 51 GB, so phase 20's greedy
+# generation keeps 3 of its 8 tokens and phase 29's jamba requests 2 of
+# their 4; phase 28 serves the first 16 of phase 6's 32 requests (each
+# request runs the same steps, and the counts are derived from the
+# requests served).
+JAMBA_CPU_TOKENS, JAMBA_PAGED_CPU_TOKENS, JAMBA_CONT_REQUESTS = 3, 2, 16
 
 # Each kernel wrapper's launch counter (``repro_torch.kernels.
 # LAUNCH_COUNTERS``: kernel -> (ops package, attribute)), set in main.
@@ -2376,7 +2397,8 @@ def jamba_main_path(cfglib, registry, ServeEngine):
 
 def jamba_card_vs_cpu(cfg, engine, registry):
     """The main path's weights copied to the host: a greedy B=1, P=128,
-    8-token generation on the card against the CPU's prefill (P=128: the
+    ``JAMBA_CPU_TOKENS``-token generation on the card against the CPU's
+    prefill (P=128: the
     chunked scan) and plain decode fed the card's tokens, and one B=1 x
     128 loss forward on each.  Logits agree per step within
     ``JAMBA_LOGIT_TOL`` of max(1, max|logit|), tokens wherever the CPU's
@@ -2389,7 +2411,7 @@ def jamba_card_vs_cpu(cfg, engine, registry):
     print(f"jamba weights to the host: {time.perf_counter() - t0:.1f} s")
     api = registry.get_model(cfg)
     rng = np.random.default_rng(3)
-    B, P, G = 1, 128, 8
+    B, P, G = 1, 128, JAMBA_CPU_TOKENS
     prompts = rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
     card = engine.generate(prompts, G, return_logits=True)
     toks = torch.from_numpy(card.tokens).long()
@@ -2539,6 +2561,10 @@ def jamba_times(scan_ops, fa_ops, res, n_mamba):
 # Phase 22: self-speculative decoding over phase 6's traffic, the draft the
 # served model's first SPEC_DEPTH layers proposing SPEC_GAMMA tokens a round.
 SPEC_DEPTH, SPEC_GAMMA = 2, 4
+# The speculative prefix-cache run over int8 pages serves 16 requests
+# drawn as phase 6 draws its 32 (cut to make room for phase 43's
+# continuous serving; the hits and counts are derived from its own).
+SPEC_PREFIX_REQUESTS = 16
 SPEC_ARGV = ["--spec-depth", str(SPEC_DEPTH), "--gamma", str(SPEC_GAMMA)]
 # The paper's draft (a copying_zeroL expansion truncated to its source
 # depth) proposes what the target emits; on the card the draft's decode and
@@ -2945,7 +2971,8 @@ def rwkv_continuous_paths(cfglib, registry, params):
 
 def jamba_continuous_paths(cfg, engine):
     """Phase 28: jamba at full width and depth 8 on phase 19's weights
-    over phase 6's traffic through ``ContinuousScheduler``: paged over f32
+    over the first ``JAMBA_CONT_REQUESTS`` of phase 6's requests through
+    ``ContinuousScheduler``: paged over f32
     and int8 pages, contiguous, and speculative with the zero-layer draft.
     Counters from 0 before each run, checked against counts derived from
     the requests: the scan once per Mamba layer per prefill chunk (paged)
@@ -2956,7 +2983,7 @@ def jamba_continuous_paths(cfg, engine):
     t0 = time.perf_counter()
     n_mamba = sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.num_layers))
     n_attn = cfg.num_layers - n_mamba
-    traffic = _drawn_traffic(cfg, PAGED_ARGV)
+    traffic = _drawn_traffic(cfg, PAGED_ARGV)[:JAMBA_CONT_REQUESTS]
     lens, gens = [len(p) for p, _ in traffic], [g for _, g in traffic]
     chunks = sum(len(_pow2(P)) for P in lens)
     max_len = max(P + g for P, g in zip(lens, gens)) + 1
@@ -3092,7 +3119,8 @@ def rwkv_paged_card_vs_cpu(cfglib, registry):
 
 def jamba_paged_card_vs_cpu(cfg, engine, host):
     """Phase 29, jamba at full width and depth 8: three short requests
-    (prompts 64, 37, 20; 4 tokens; 2 slots; pages of 16) through the paged
+    (prompts 64, 37, 20; ``JAMBA_PAGED_CPU_TOKENS`` tokens; 2 slots; pages
+    of 16) through the paged
     scheduler on the card against the CPU's serving path over the same
     chunks (``host``: phase 19's weights on the host), tokens equal where
     the CPU's top-2 margin exceeds ``JAMBA_LOGIT_TOL`` of max(1,
@@ -3103,14 +3131,17 @@ def jamba_paged_card_vs_cpu(cfg, engine, host):
     rng = np.random.default_rng(4)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
                                         (P,)).astype(np.int32),
-                    max_new_tokens=4) for P in (64, 37, 20)]
-    eng = ServeEngine(cfg, engine.params, device="cuda", max_len=64 + 4 + 1,
-                      paged=True, block_size=PAGE)
+                    max_new_tokens=JAMBA_PAGED_CPU_TOKENS)
+            for P in (64, 37, 20)]
+    eng = ServeEngine(cfg, engine.params, device="cuda",
+                      max_len=64 + JAMBA_PAGED_CPU_TOKENS + 1, paged=True,
+                      block_size=PAGE)
     res = ContinuousScheduler(eng, max_batch=2).run(reqs)
     worst = min(_stream_vs_cpu("jamba paged", cfg, host, r,
                                _pow2(len(r.prompt)),
                                JAMBA_LOGIT_TOL, relative=True) for r in res)
-    print(f"jamba paged card vs cpu: 3 requests x 4 tokens equal where the "
+    print(f"jamba paged card vs cpu: 3 requests x {JAMBA_PAGED_CPU_TOKENS} "
+          f"tokens equal where the "
           f"margin allows (smallest {worst:.4f}); "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -5442,6 +5473,10 @@ MESH_RESUME_TOL = 1e-5
 # in two halves; the reference's TP tolerance.
 MESH_LOGIT_TOL = 1e-4
 MESH_PROMPTS = (4, 64, 8)       # (B, P, G) of the serving half
+# The paged kernel at a rank's local shape against its plain version,
+# relative to max(1, max|plain|): f32 sums in other orders over f32 pages,
+# the same dequantizing product over int8 ones.
+PAGED_TP_TOL = 1e-4
 # A two-rank mesh's larger per-rank training peak over mesh=None's: half
 # the state and half the activations a rank, plus one whole leaf gathered
 # at a time.
@@ -5483,6 +5518,162 @@ def _serve_counts(cfg):
     want = {name: 0 for name in COUNTERS}
     want["flash_attention"] = cfg.num_layers
     return want
+
+
+# (e) continuous serving on the mesh: 16 requests into 4 slots (4 divides
+# both ranks of 2x1) over pages of 16, prompts of 32-160 tokens, the even
+# ones opening with one shared 64-token (4-page) prefix, 16-32 new tokens,
+# greedy, all queued at once, served from the grown checkpoint.  No
+# warm-up run: every process has trained and served before (a)-(d).
+MESH_CSERVE_REQUESTS, MESH_CSERVE_SLOTS, MESH_CSERVE_BLOCK = 16, 4, 16
+MESH_CSERVE_SHARED = 64
+MESH_CSERVE_MAX_LEN = 192              # the longest prompt + budget
+MESH_CSERVE_KW = {
+    "f32": dict(paged=True, block_size=MESH_CSERVE_BLOCK),
+    "int8+prefix": dict(paged=True, block_size=MESH_CSERVE_BLOCK,
+                        kv_dtype="int8", prefix_cache=True),
+    "spec": dict(paged=True, block_size=MESH_CSERVE_BLOCK, spec_decode=True,
+                 draft_depth=1, gamma=4)}
+MESH_CSERVE_RUNS = {"2x1": ("f32", "int8+prefix", "spec"),
+                    "1x2": ("f32", "spec")}
+
+
+def _mesh_traffic(vocab: int) -> list:
+    """Phase 43's serving traffic (``MESH_CSERVE_*``), from seed 5."""
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, vocab, (MESH_CSERVE_SHARED,))
+    reqs = []
+    for i in range(MESH_CSERVE_REQUESTS):
+        P, G = int(rng.integers(32, 161)), int(rng.integers(16, 33))
+        if i % 2 == 0:
+            P = max(P, MESH_CSERVE_SHARED + 1)
+            prompt = np.concatenate([shared, rng.integers(
+                0, vocab, (P - MESH_CSERVE_SHARED,))])
+        else:
+            prompt = rng.integers(0, vocab, (P,))
+        reqs.append(dict(prompt=prompt.astype(np.int32), max_new_tokens=G))
+    return reqs
+
+
+def _as_results(reqs, got) -> list:
+    """``mesh_runs.cserve``'s results as the ``RequestResult`` fields that
+    ``streams_vs`` reads."""
+    out = []
+    for req, r in zip(reqs, got["results"], strict=True):
+        P = len(req["prompt"])
+        out.append(types.SimpleNamespace(
+            uid=r["uid"], prompt=np.asarray(r["tokens"][:P]),
+            new_tokens=np.asarray(r["tokens"][P:]),
+            finish_reason=r["finish_reason"],
+            completed=r["finish_reason"] in ("eos", "limit")))
+    return out
+
+
+def _cserve_stats(got) -> dict:
+    """The stats that every rank and ``mesh=None`` must share: prefix hits
+    and skipped tokens, rounds, acceptance, mean accepted length."""
+    sp, pf = got["stats"]["spec"], got["stats"]["prefix"]
+    mal = [r["mean_accepted_len"] for r in got["results"]
+           if r["spec_rounds"]]
+    return {"prefix_hits": pf["prefix_hits"],
+            "prefix_skipped_tokens": pf["prefix_skipped_tokens"],
+            "spec_rounds": sp["spec_rounds"],
+            "acceptance": sp["acceptance_rate"],
+            "mean_accepted_len": float(np.mean(mal)) if mal else 0.0}
+
+
+def mesh_serving(ranks, none, traffic, cfg, params, card) -> dict:
+    """(e): each two-rank continuous run against ``mesh=None``'s run of the
+    same mode: every rank's results and stats alike; streams equal under
+    phase 22's near-tie rule; prefix hits and skipped tokens equal to
+    ``mesh=None``'s, acceptance too where every stream is equal; at 2x1
+    the radix tree's pages (int8 values and scales) hashing alike on both
+    ranks; each rank's launches those of ``mesh=None``'s run (one paged
+    launch a layer a masked decode step over the rank's rows or heads; a
+    spec run's one flash launch an admission, the draft's replicated B=1
+    prefill, and no paged launch).  Returns the readings."""
+    from repro_torch.models import registry
+    out = {}
+    n = len(traffic)
+    for spec, runs in MESH_CSERVE_RUNS.items():
+        for run in runs:
+            name = f"cserve_{spec}_{run}"
+            ref = none[run]
+            got = [res[name] for res in ranks]
+            for r, g in enumerate(got):
+                if [x["tokens"].tolist() for x in g["results"]] != \
+                        [x["tokens"].tolist() for x in got[0]["results"]]:
+                    _fail(f"{name}: rank {r}'s streams differ from rank 0's")
+                if _cserve_stats(g) != _cserve_stats(got[0]):
+                    _fail(f"{name}: rank {r}'s stats {_cserve_stats(g)} "
+                          f"differ from rank 0's {_cserve_stats(got[0])}")
+                if [x["admitted_s"] for x in g["results"]] != \
+                        [x["admitted_s"] for x in got[0]["results"]]:
+                    _fail(f"{name}: rank {r}'s admission times differ")
+                if g["counts"] != ref["counts"]:
+                    _fail(f"{name}: rank {r} launches {g['counts']}, "
+                          f"expected mesh=None's {ref['counts']}")
+            if any(x["finish_reason"] != "limit" for x in got[0]["results"]):
+                _fail(f"{name}: not every request ran to its budget")
+            paged = ref["counts"]["paged_attention"]
+            if run == "spec":
+                want = {k: 0 for k in COUNTERS}
+                want["flash_attention"] = n       # draft depth 1
+                if ref["counts"] != want:
+                    _fail(f"{name}: mesh=None launches {ref['counts']}, "
+                          f"expected {want}")
+            elif paged <= 0 or paged % cfg.num_layers or any(
+                    v for k, v in ref["counts"].items()
+                    if k != "paged_attention"):
+                _fail(f"{name}: mesh=None launches {ref['counts']}, "
+                      f"expected {cfg.num_layers} paged a decode step and "
+                      "no other kernel")
+            equal = streams_vs(f"phase 43 {name}", cfg, registry,
+                               _as_results(traffic, got[0]),
+                               _as_results(traffic, ref), params)
+            st, st_none = _cserve_stats(got[0]), _cserve_stats(ref)
+            keys = ("prefix_hits", "prefix_skipped_tokens") + (
+                tuple(st) if equal == n else ())
+            if any(st[k] != st_none[k] for k in keys):
+                _fail(f"{name}: stats {st} against mesh=None's {st_none}")
+            rec = {"streams_equal": equal, "stats": st,
+                   "launches_per_rank": [g["counts"] for g in got],
+                   "launches_mesh_none": ref["counts"],
+                   "tokens_per_s": got[0]["summary"]["tokens_per_s"],
+                   "tokens_per_s_mesh_none": ref["summary"]["tokens_per_s"],
+                   "ttft_p50_s": got[0]["summary"]["ttft_p50_s"],
+                   "ttft_p50_s_mesh_none": ref["summary"]["ttft_p50_s"]}
+            if run == "int8+prefix":
+                hashes = [g["radix_hash"] for g in got]
+                if spec == "2x1" and len(set(hashes)) != 1:
+                    _fail(f"{name}: the radix tree's pages differ between "
+                          f"ranks: {hashes}")
+                if st["prefix_hits"] < 1:
+                    _fail(f"{name}: no prefix hit")
+                rec["radix_hash_equal_mesh_none"] = \
+                    hashes[0] == ref["radix_hash"]
+                print(f"  (e) {name}: radix-tree pages (int8 values and "
+                      f"scales) hash alike on both ranks "
+                      f"({hashes[0][:16]}), equal to mesh=None's: "
+                      f"{rec['radix_hash_equal_mesh_none']}")
+            print(f"  (e) {name}: {equal} of {n} streams equal mesh=None's "
+                  f"(the rest at near-ties); stats {st} on both ranks; "
+                  f"launches per rank {[g['counts'] for g in got]}, as "
+                  f"mesh=None's; {rec['tokens_per_s']:.1f} tokens/s, TTFT "
+                  f"p50 {1e3 * rec['ttft_p50_s']:.1f} ms against mesh=None's "
+                  f"{rec['tokens_per_s_mesh_none']:.1f}, "
+                  f"{1e3 * rec['ttft_p50_s_mesh_none']:.1f} ms [{card}]")
+            out[name] = rec
+    for kv in ("float32", "int8"):
+        err = max(res[f"paged_6_heads_{kv}"]["max_abs_err"] for res in ranks)
+        if not err <= PAGED_TP_TOL:
+            _fail(f"paged kernel at the 1x2 local shape over {kv} pages: "
+                  f"{err}")
+        out[f"paged_6_heads_{kv}"] = err
+        print(f"  (e) paged kernel at the 1x2 local shape (B 4, 6 heads of "
+              f"64, 12 pages of 16) over {kv} pages vs plain: {err:.3g} "
+              f"(limit {PAGED_TP_TOL})")
+    return out
 
 
 def _max_diff(a: dict, b: dict) -> float:
@@ -5549,6 +5740,7 @@ def mesh_phase(cfglib, card) -> dict:
     B, P, G = MESH_PROMPTS
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, P)).astype(np.int32)
+    traffic = _mesh_traffic(cfg.vocab_size)
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = os.path.join(tmp, "run")
         mesh_dir = os.path.join(tmp, "resume_2x1")
@@ -5576,6 +5768,21 @@ def mesh_phase(cfglib, card) -> dict:
                                         prompts=prompts, num_tokens=G,
                                         mesh="1x2", max_len=P + G,
                                         ckpt_dir=run_dir, count=True))]
+        scen += [(f"cserve_{spec}_{run}", "cserve", dict(
+                     cfg=cfg, params_np=None, requests=traffic, mesh=spec,
+                     max_len=MESH_CSERVE_MAX_LEN,
+                     max_batch=MESH_CSERVE_SLOTS,
+                     engine_kw=MESH_CSERVE_KW[run], count=True,
+                     ckpt_dir=run_dir))
+                 for spec, runs in MESH_CSERVE_RUNS.items()
+                 for run in runs]
+        scen += [(f"paged_6_heads_{kv}", "paged_local",
+                  dict(B=MESH_CSERVE_SLOTS, H=cfg.num_heads // 2,
+                       KV=cfg.num_kv_heads // 2, hd=cfg.head_dim,
+                       bs=MESH_CSERVE_BLOCK,
+                       pages=MESH_CSERVE_MAX_LEN // MESH_CSERVE_BLOCK,
+                       kv_dtype=kv))
+                 for kv in ("float32", "int8")]
         t1 = time.perf_counter()
         ranks = mesh_lib.spawn(mesh_runs.run, 2, (scen, "cuda"),
                                device="cuda", threads=0, timeout_s=600)
@@ -5598,6 +5805,14 @@ def mesh_phase(cfglib, card) -> dict:
         solo = mesh_runs.serve(scfg, mesh_runs._numpy(bridge.flatten(params)),
                                prompts, G, None, device="cuda",
                                max_len=P + G, count=True)
+        # (e)'s reference streams: the same traffic with mesh=None
+        t1 = time.perf_counter()
+        cserve_none = {run: mesh_runs.cserve(
+            cfg, None, traffic, None, device="cuda",
+            max_len=MESH_CSERVE_MAX_LEN, max_batch=MESH_CSERVE_SLOTS,
+            engine_kw=MESH_CSERVE_KW[run], count=True, ckpt_dir=run_dir)
+            for run in MESH_CSERVE_KW}
+        none_s = time.perf_counter() - t1
 
     out = {"single_equals_none": True, "spawn_s": spawn_s}
     ref_loss = np.array(single["history"]["loss"])
@@ -5699,6 +5914,15 @@ def mesh_phase(cfglib, card) -> dict:
               f"rank {[res[f'serve_{spec}']['counts']['flash_attention'] for res in ranks]}"
               f" (1 prefill x {cfg.num_layers} layers, as solo's "
               f"{solo['counts']['flash_attention']}; no other kernel)")
+    # (e) continuous, paged, prefix-cached and speculative serving
+    from repro_torch.tree import tree_map
+    out["serving"] = mesh_serving(ranks, cserve_none, traffic, scfg,
+                                  tree_map(lambda t: t.cuda(), params), card)
+    served = {k: v for k, v in ranks[0]["_seconds"].items()
+              if k.startswith("cserve_")}
+    print(f"  (e) rank 0's serving runs {sum(served.values()):.1f} s "
+          f"({ {k: round(v, 1) for k, v in served.items()} }); mesh=None's "
+          f"{none_s:.1f} s")
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 43: {out['seconds']:.1f} s (spawn {spawn_s:.1f} s) "
           f"[{card}]")
@@ -5985,7 +6209,8 @@ def main() -> int:
           f"{paged_stats['tokens_per_s']:.1f}")
     _, sched_pi, _, _ = spec_main_path(cfg, serve, fa_ops,
                                        ("--prefix-cache", "--kv-dtype",
-                                        "int8"))
+                                        "int8", "--requests",
+                                        str(SPEC_PREFIX_REQUESTS)))
     if sched_pi.prefix_hits < 1:
         _fail(f"the spec prefix-cache run had no hit: "
               f"{sched_pi.prefix_stats()}")
@@ -6156,6 +6381,13 @@ def main() -> int:
          "gpt2_12l": {"launches": paged_launches, "spec_path_launches": 0,
                       "max_abs_err": paged_errs["float32"], **tp, **pa_call},
          "quantized": quantized,
+         "mesh_43_launches_per_rank": {
+             name: [c["paged_attention"] for c in r["launches_per_rank"]]
+             for name, r in mesh["serving"].items()
+             if name.startswith("cserve_")},
+         "mesh_43_tp_local_shape_err": {
+             kv: mesh["serving"][f"paged_6_heads_{kv}"]
+             for kv in ("float32", "int8")},
          "jamba_v01_52b": {run: jamba_cont[run]["paged_attention"]
                            for run in ("paged f32", "paged int8")},
          "registers_spills": [list(r) for r in pa_regs],

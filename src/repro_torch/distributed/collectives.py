@@ -21,6 +21,11 @@ backward pass:
   * ``gather_from_model``: all-gather along a dim (vocab-parallel logits
     made whole), backward the rank's slice.
 
+``exchange`` is continuous serving's one collective an iteration on a
+mesh, where every rank runs the scheduler: the slot blocks' sampled
+tokens (and accepted counts) made whole, with rank 0's clock reading so
+that every rank takes the same decisions.
+
 Two ranks that share a card talk over gloo, which took CUDA tensors in
 every collective used here (all-reduce, its max, all-gather, reduce-scatter
 and broadcast; ``tools/gloo_cuda_probe.py`` on torch 2.11.0+cu128), so no
@@ -78,6 +83,31 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
+
+
+def exchange(blocks, clock: float, group, take, device):
+    """The continuous scheduler's per-iteration exchange on a mesh: ONE
+    all-gather over ``group`` of each rank's row blocks (integer or bool
+    tensors, rows first, of one shape on every rank: a slot block's
+    sampled tokens, active flags and accepted counts) and its clock
+    reading, packed into one int64 tensor on ``device``.  Returns (each
+    block of the group ranks ``take`` concatenated along rows, in that
+    order, in its own dtype; group rank 0's clock), the same on every
+    rank.  A ``group`` of None returns the blocks and the clock as
+    given."""
+    if group is None:
+        return list(blocks), clock
+    stamp = torch.tensor([clock], dtype=torch.float64).view(torch.int64)
+    src = torch.cat([b.reshape(-1).to(device, torch.int64) for b in blocks]
+                    + [stamp.to(device)])
+    parts = all_gather(src[None], group, 0)                # (ranks, L)
+    out, off = [], 0
+    for b in blocks:
+        n = b.numel()
+        out.append(torch.cat([parts[r, off:off + n].reshape(b.shape)
+                              for r in take]).to(b.dtype))
+        off += n
+    return out, float(parts[0, -1:].cpu().view(torch.float64)[0])
 
 
 def take_slice(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:

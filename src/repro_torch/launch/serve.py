@@ -39,9 +39,15 @@ from ``numpy.random.default_rng(--seed)`` exactly as the reference draws
 them.  Prefill and decode throughput are reported separately.
 
 ``--mesh SPEC`` (with ``--nproc N`` local ranks, or under ``torchrun``)
-serves ``generate`` on a device mesh: rows over the DP axes, heads, d_ff
-and vocab over 'model'; rank 0 prints.  ``--continuous``, ``--paged`` and
-``--spec-depth`` on a mesh exit, naming ROADMAP queue A item 20.
+serves on a device mesh: rows over the DP axes, heads, d_ff and vocab over
+'model'; rank 0 prints.  Every mode below takes it (``--continuous``,
+``--paged``, ``--prefix-cache``, ``--kv-dtype``, ``--spec-depth``): every
+rank runs the scheduler, the page pool is whole on every rank and the
+slots go in blocks over the DP axes.  ``--faults`` and
+``--snapshot-every`` with ``--mesh`` exit, naming ROADMAP queue A item 22.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mesh host --nproc 2 --continuous --paged --prefix-cache
 
 ``--continuous`` switches to the continuous-batching scheduler
 (``train/serve_scheduler``): ``--requests`` synthetic requests with varied
@@ -238,11 +244,10 @@ def main(argv=None):
                          "re-prefills prompt+emitted for byte-identical "
                          "resumed greedy streams; 0: off)")
     args = ap.parse_args(argv)
-    if args.mesh and (args.continuous or args.paged
-                      or args.spec_depth is not None):
+    if args.mesh and (args.faults or args.snapshot_every):
         raise SystemExit(
-            f"--mesh {args.mesh} serves generate only: --continuous, "
-            "--paged and --spec-depth on a mesh are ROADMAP queue A item 20")
+            f"--mesh {args.mesh}: --faults and --snapshot-every on a mesh are "
+            "ROADMAP queue A item 22 (fault tolerance in mesh serving)")
     if args.nproc > 1:
         mesh_lib.run_ranks("repro_torch.launch.serve",
                            sys.argv[1:] if argv is None else argv,
@@ -295,7 +300,7 @@ def main(argv=None):
                          mesh=mesh)
 
     if args.continuous:
-        return _serve_continuous(args, cfg, engine, rng, shared_len)
+        return _serve_continuous(args, cfg, engine, rng, shared_len, say)
 
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
@@ -314,10 +319,11 @@ def main(argv=None):
     return res
 
 
-def _serve_continuous(args, cfg, engine, rng, shared_len: int):
+def _serve_continuous(args, cfg, engine, rng, shared_len: int, say=print):
     """The synthetic open-loop workload, drawn from ``rng`` in the
     reference's order (the shared prefix, then lengths, budgets, arrivals
-    and each prompt), so both packages build the same requests."""
+    and each prompt), so both packages build the same requests; ``say``
+    prints (rank 0's on a mesh)."""
     shared = rng.integers(0, cfg.vocab_size, (shared_len,)).astype(np.int32)
     lens = rng.integers(max(2, args.prompt_len // 4), args.prompt_len + 1,
                         args.requests)
@@ -342,44 +348,44 @@ def _serve_continuous(args, cfg, engine, rng, shared_len: int):
                                 snapshot_every=args.snapshot_every)
     sched.warmup(reqs)                 # build and warm outside the timed run
     t0 = time.perf_counter()
-    results = sched.run(reqs, on_finish=lambda r: print(
+    results = sched.run(reqs, on_finish=lambda r: say(
         f"  req {r.uid}: +{len(r.new_tokens)} tok ({r.finish_reason}) "
         f"ttft={r.ttft_s * 1e3:.1f}ms"))
     stats = summarize(results, time.perf_counter() - t0)
     mode = "paged" if args.paged else "continuous"
-    print(f"arch={cfg.name} layers={cfg.num_layers} mesh={args.mesh or 'single'} "
-          f"{mode} max_batch={args.max_batch} requests={args.requests} "
-          f"peak_concurrency={sched.peak_concurrency} device={args.device}")
-    print(f"aggregate tokens/s={stats['tokens_per_s']:.1f}  "
-          f"ttft p50={stats['ttft_p50_s'] * 1e3:.1f}ms "
-          f"p95={stats['ttft_p95_s'] * 1e3:.1f}ms")
+    say(f"arch={cfg.name} layers={cfg.num_layers} mesh={args.mesh or 'single'} "
+        f"{mode} max_batch={args.max_batch} requests={args.requests} "
+        f"peak_concurrency={sched.peak_concurrency} device={args.device}")
+    say(f"aggregate tokens/s={stats['tokens_per_s']:.1f}  "
+        f"ttft p50={stats['ttft_p50_s'] * 1e3:.1f}ms "
+        f"p95={stats['ttft_p95_s'] * 1e3:.1f}ms")
     fs = sched.fault_stats()
     if stats["completed"] < stats["requests"] or fs["retries"] \
             or args.faults:
         reasons = " ".join(f"{k}={v}" for k, v in
                            sorted(stats["finish_reasons"].items()))
-        print(f"lifecycle: {reasons} retries={fs['retries']} "
-              f"goodput tokens/s={stats['goodput']:.1f} "
-              f"(all: {stats['tokens_per_s_all']:.1f})")
+        say(f"lifecycle: {reasons} retries={fs['retries']} "
+            f"goodput tokens/s={stats['goodput']:.1f} "
+            f"(all: {stats['tokens_per_s_all']:.1f})")
     if args.paged:
         ks = sched.kv_stats()
-        print(f"kv storage: dtype={ks['kv_dtype']} "
-              f"bytes/token={ks['kv_bytes_per_token']:.1f} "
-              f"(f32: {ks['kv_bytes_per_token_f32']:.1f}, "
-              f"ratio={ks['kv_bytes_ratio']:.3f})")
+        say(f"kv storage: dtype={ks['kv_dtype']} "
+            f"bytes/token={ks['kv_bytes_per_token']:.1f} "
+            f"(f32: {ks['kv_bytes_per_token_f32']:.1f}, "
+            f"ratio={ks['kv_bytes_ratio']:.3f})")
     if args.prefix_cache:
         ps = sched.prefix_stats()
-        print(f"prefix cache: hits={ps['prefix_hits']}/"
-              f"{ps['prefix_requests']} "
-              f"(rate={ps['prefix_hit_rate']:.2%}) "
-              f"skipped_tokens={ps['prefix_skipped_tokens']}")
+        say(f"prefix cache: hits={ps['prefix_hits']}/"
+            f"{ps['prefix_requests']} "
+            f"(rate={ps['prefix_hit_rate']:.2%}) "
+            f"skipped_tokens={ps['prefix_skipped_tokens']}")
     if engine.spec_decode:
         ss = sched.spec_stats()
         mal = [r.mean_accepted_len for r in results if r.spec_rounds]
-        print(f"speculative: draft_layers={engine.draft_cfg.num_layers} "
-              f"gamma={engine.gamma} rounds={ss['spec_rounds']} "
-              f"acceptance={ss['acceptance_rate']:.2%} "
-              f"mean_accepted_len={np.mean(mal) if mal else 0.0:.2f}")
+        say(f"speculative: draft_layers={engine.draft_cfg.num_layers} "
+            f"gamma={engine.gamma} rounds={ss['spec_rounds']} "
+            f"acceptance={ss['acceptance_rate']:.2%} "
+            f"mean_accepted_len={np.mean(mal) if mal else 0.0:.2f}")
     return results
 
 

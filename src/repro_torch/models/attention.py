@@ -13,6 +13,11 @@ round at a time (γ+1 positions a row, read back with the plain gather).  An
 int8/fp8 pool quantizes every write per slot and head (``core.quant``) and
 keeps the f32 scales in scale pages beside the pages.
 
+On a mesh (``distributed.context.attn_tp``) every attention path,
+prefill, decode, the paged decode, a prefill chunk and the verify, runs on
+the rank's heads, and the caches it writes, pool pages and rings, hold
+the rank's KV heads.
+
 Sliding-window layers (``window > 0``, gemma2/gemma3's local layers) keep
 a per-row ring of ``min(max_len, window)`` slots instead: position t lives
 at slot ``t % W``.  Prefill fills it as a token-by-token decode would leave
@@ -357,6 +362,7 @@ def _mla_pool_attend(p, cfg: ModelConfig, q, latent, cache, block_table,
         logit_softcap=cfg.attn_logit_softcap)
 
 
+@_tensor_parallel
 def attn_decode_paged(p, cfg: ModelConfig, x: torch.Tensor, cache,
                       block_table, cache_index, positions,
                       write_mask=None) -> Tuple[torch.Tensor, dict]:
@@ -400,6 +406,7 @@ def attn_decode_paged(p, cfg: ModelConfig, x: torch.Tensor, cache,
     return out, cache
 
 
+@_tensor_parallel
 def attn_prefill_chunk(p, cfg: ModelConfig, x: torch.Tensor, cache, ctx_len,
                        positions, window: int,
                        block_table=None) -> Tuple[torch.Tensor, dict]:
@@ -490,6 +497,7 @@ def _ring_prefill_chunk(cfg: ModelConfig, q, k_new, v_new, cache,
     return out
 
 
+@_tensor_parallel
 def attn_verify_chunk(p, cfg: ModelConfig, x: torch.Tensor, cache, index,
                       positions, window: int, block_table,
                       write_mask=None) -> Tuple[torch.Tensor, dict]:

@@ -421,7 +421,9 @@ def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
     it is not the paged working set.  Sliding-window layers keep a ring of
     ``min(max_len, window)`` slots per row in ``dtype`` beside the pool
     (already O(window) a row: paging them buys less than a page);
-    ``kv_dtype`` applies to the pool leaves only."""
+    ``kv_dtype`` applies to the pool leaves only.  Under tensor
+    parallelism (``attn_tp``) the pool and the rings hold the rank's KV
+    heads (``attn.cache_cfg``)."""
     n_super = num_superblocks(params)
     if n_super == 0:
         return {}
@@ -432,12 +434,14 @@ def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
         if cfg.layer_kind(i) != "attn":
             one = _recurrent_state(cfg, i, batch_size)
         elif _is_ring(cfg, i):
-            one = attn.init_kv_cache(cfg, batch_size, max_len, dtype,
+            one = attn.init_kv_cache(attn.cache_cfg(cfg), batch_size,
+                                     max_len, dtype,
                                      window=cfg.layer_window(i),
                                      device="meta")
         else:
-            one = attn.init_paged_kv_cache(cfg, num_blocks, block_size,
-                                           pool_dtype, device="meta")
+            one = attn.init_paged_kv_cache(attn.cache_cfg(cfg), num_blocks,
+                                           block_size, pool_dtype,
+                                           device="meta")
         out[f"layer{i}"] = _stacked_zeros(one, n_super, device)
     return out
 
@@ -456,7 +460,7 @@ def lm_init_prefill_carry(params, cfg: ModelConfig, max_len: int,
     for i in range(cfg.pattern_period):
         _check_layer(cfg, i)
         if _is_ring(cfg, i):
-            one = attn.init_kv_cache(cfg, 1, max_len, dtype,
+            one = attn.init_kv_cache(attn.cache_cfg(cfg), 1, max_len, dtype,
                                      window=cfg.layer_window(i),
                                      device="meta")
         elif cfg.layer_kind(i) == "attn":
@@ -689,7 +693,7 @@ def lm_verify(params, cfg: ModelConfig, tokens, cache, index, block_table,
     if index.ndim == 0:
         index = index.expand(B)
     pos = index[:, None] + torch.arange(C, device=tokens.device)[None, :]
-    x = params["embed"][tokens]
+    x = _embed_lookup(params, cfg, tokens)
     if cfg.position == "absolute":
         x = x + _pos_embed(params, pos)
     rings = {}                 # leaves (n_super, C+1, B, ...)

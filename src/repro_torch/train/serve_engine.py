@@ -63,16 +63,33 @@ not exceed a window), and a prefix hit restores the ring its publisher
 snapshotted.
 
 On a mesh (``mesh=``, one process per rank, every rank running the same
-engine; ``generate`` only: continuous, paged, prefix-cached and
-speculative serving on a mesh are ROADMAP queue A item 20) the rows of a
-batch go over the DP axes, as ``cache_shardings`` puts a cache's batch
-dim, and tensor parallelism splits attention heads, d_ff and vocab over
-'model' where they divide (``distributed.context.attn_tp``/``mlp_tp``/
-``vocab_tp``), the other leaves held whole.  A rank's contiguous cache
-holds the KV heads it computes where KV divides 'model', all of them
-otherwise: a deliberate departure from ``cache_shardings``, which puts
-the longest cache dim (the sequence) on 'model' (ROADMAP queue C).
-Tokens and logits come back gathered to every rank.
+engine) the rows of a batch go over the DP axes, as ``cache_shardings``
+puts a cache's batch dim, and tensor parallelism splits attention heads,
+d_ff and vocab over 'model' where they divide (``distributed.context.
+attn_tp``/``mlp_tp``/``vocab_tp``), the other leaves held whole.  A
+rank's caches, contiguous rows, pool pages and rings, hold the KV heads
+it computes where KV divides 'model', all of them otherwise: a
+deliberate departure from ``cache_shardings``, which puts the longest
+trailing dim on 'model' (ROADMAP queue C).  ``generate``'s tokens and
+logits come back gathered to every rank.
+
+Every continuous mode runs on a mesh too, each rank running the same
+``ContinuousScheduler`` over the same host state: the page allocator,
+the radix tree and the block table's host copy.  The slots go in blocks
+over the DP axes where ``max_batch`` divides them (``_rows``), else
+every rank serves every slot; a rank's device state holds its block
+alone (tokens, cursors, the block table's rows, rings, recurrent rows,
+the draft's cache), while the page pool and its scales are whole in the
+page dim on every rank.  The B=1 work, a prompt's prefill, its chunks
+and the draft's prefill, runs replicated on every rank (a batch of one
+does not divide DP), so every rank writes the same prompt pages and
+samples the same first token; admission scatters the row's carry, ring
+and draft cache on the rank that owns the row.  A masked decode or a
+verify writes the pool only at the rank's own rows' slots, which no row
+of another rank reads: the pages the radix tree holds are prompt pages,
+equal on every rank.  The scheduler's per-iteration ``exchange`` makes
+the sampled tokens whole on every rank.  Fault planes and crash
+snapshots on a mesh are ROADMAP queue A item 22.
 
 Fault injection (``faults``, a ``train.faults`` plane; the NULL plane by
 default): the engine fires ``engine.prefill_chunk``, ``engine.decode``,
@@ -144,10 +161,19 @@ class ContinuousState:
     radix: Optional[RadixCache] = None           # prefix_cache engines
     draft_cache: Optional[dict] = None           # spec engines: the draft's
                                                  # contiguous cache
+    row0: int = 0                      # on a mesh: the first slot of the
+    slots: Optional[int] = None        # rank's block, and every rank's
 
     @property
     def batch(self) -> int:
-        return self.tokens.shape[0]
+        """Slots in the whole batch (on a mesh, every rank's blocks)."""
+        return self.slots if self.slots is not None else self.tokens.shape[0]
+
+    def local(self, row: int) -> Optional[int]:
+        """Slot ``row``'s index in this rank's block (None: another rank
+        owns it)."""
+        r = row - self.row0
+        return r if 0 <= r < self.tokens.shape[0] else None
 
 
 @dataclasses.dataclass
@@ -223,8 +249,7 @@ def refuse_unservable(cfg: ModelConfig):
 
 
 class ServeEngine:
-    """Serving engine on one device, or ``generate`` on a mesh (see module
-    docstring)."""
+    """Serving engine on one device or a mesh (see module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params, device="cuda",
                  max_len: int = 512, cache_dtype=torch.float32,
@@ -233,10 +258,11 @@ class ServeEngine:
                  prefix_cache: bool = False, spec_decode: bool = False,
                  gamma: int = 4, draft_depth: Optional[int] = None,
                  draft_params=None, faults=None, mesh=None):
-        if mesh is not None and (paged or spec_decode or prefix_cache):
+        if mesh is not None and faults_lib.resolve(faults) \
+                is not faults_lib.NULL:
             raise NotImplementedError(
-                "paged, prefix-cached and speculative serving on a mesh: "
-                "ROADMAP queue A item 20 (the mesh serves generate)")
+                "fault injection in serving on a mesh: ROADMAP queue A item "
+                "22 (every rank would have to agree on each site's draw)")
         if isinstance(mesh, str):
             from repro_torch.launch import mesh as mesh_lib
             mesh = mesh_lib.make_train_mesh(mesh, device=str(device))
@@ -339,6 +365,9 @@ class ServeEngine:
             depth = transformer.num_superblocks(draft_params) \
                 * cfg.pattern_period
             self.draft_cfg = cfg.with_depth(depth)
+            if self.mesh is not None:
+                draft_params = self._tp_local(self.draft_cfg, draft_params,
+                                              self._ctx)
             self.draft_params = registry.ParamModule(draft_params).to(
                 self.device).tree()
         else:
@@ -534,43 +563,67 @@ class ServeEngine:
         """Fresh all-slots-free decode state.  Paged engines also create
         the host page allocator (``num_blocks`` overrides the engine
         default), the pool and the device block table; prefix-cache engines
-        the radix tree over the pool."""
+        the radix tree over the pool.  On a mesh the device state holds
+        the rank's block of slots (``_rows``) and the whole pool; the host
+        state covers every slot."""
         del temperature               # steps are built per call
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "continuous serving on a mesh: ROADMAP queue A item 20")
         dev = self.device
+        local, row0 = batch, 0
+        if self.mesh is not None:
+            axes, n = self._rows(batch)
+            local = batch // n
+            row0 = self.mesh.axes_index(axes) * local if n > 1 else 0
         pool = table = radix = None
-        if self.paged:
-            nb = num_blocks if num_blocks is not None \
-                else self._resolved_num_blocks(batch)
-            pool = KVBlockPool(nb, self.block_size, batch, self.max_blocks,
-                               faults=self.faults)
-            cache = self.api.init_paged_cache(
-                self.params, self.cfg, batch, nb, self.block_size,
-                self.max_len, self.cache_dtype, self.kv_dtype, device=dev)
-            table = torch.empty((batch, self.max_blocks), dtype=torch.int32,
-                                device=dev)
-            if self.prefix_cache:
-                radix = RadixCache(pool)
-        else:
-            cache = self.api.init_cache(self.params, self.cfg, batch,
-                                        self.max_len, self.cache_dtype,
-                                        device=dev)
-        draft_cache = None
-        if self.spec_decode:
-            draft_cache = self.draft_api.init_cache(
-                self.draft_params, self.draft_cfg, batch, self.max_len,
-                self.cache_dtype, device=dev)
+        with mesh_scope(self._ctx):
+            if self.paged:
+                nb = num_blocks if num_blocks is not None \
+                    else self._resolved_num_blocks(batch)
+                pool = KVBlockPool(nb, self.block_size, batch,
+                                   self.max_blocks, faults=self.faults)
+                cache = self.api.init_paged_cache(
+                    self.params, self.cfg, local, nb, self.block_size,
+                    self.max_len, self.cache_dtype, self.kv_dtype,
+                    device=dev)
+                table = torch.empty((local, self.max_blocks),
+                                    dtype=torch.int32, device=dev)
+                if self.prefix_cache:
+                    radix = RadixCache(pool)
+            else:
+                cache = self.api.init_cache(self.params, self.cfg, local,
+                                            self.max_len, self.cache_dtype,
+                                            device=dev)
+            draft_cache = None
+            if self.spec_decode:
+                draft_cache = self.draft_api.init_cache(
+                    self.draft_params, self.draft_cfg, local, self.max_len,
+                    self.cache_dtype, device=dev)
         state = ContinuousState(
-            tokens=torch.zeros((batch, 1), dtype=torch.long, device=dev),
+            tokens=torch.zeros((local, 1), dtype=torch.long, device=dev),
             cache=cache, draft_cache=draft_cache,
-            index=torch.zeros((batch,), dtype=torch.long, device=dev),
-            active=torch.zeros((batch,), dtype=torch.bool, device=dev),
-            limit=torch.zeros((batch,), dtype=torch.long, device=dev),
+            index=torch.zeros((local,), dtype=torch.long, device=dev),
+            active=torch.zeros((local,), dtype=torch.bool, device=dev),
+            limit=torch.zeros((local,), dtype=torch.long, device=dev),
             generator=torch.Generator(device=dev).manual_seed(seed),
-            pool=pool, block_table=table, radix=radix)
+            pool=pool, block_table=table, radix=radix, row0=row0,
+            slots=batch)
         return self._sync_table(state, fire=False)
+
+    def exchange(self, state: ContinuousState, blocks=(),
+                 clock: Optional[float] = None):
+        """The scheduler's per-iteration exchange (``collectives.
+        exchange``): this rank's row blocks (a step's sampled tokens,
+        active flags and accepted counts over the rank's slots) made
+        whole-batch tensors, and rank 0's ``clock`` reading, in one
+        all-gather over every rank of the mesh (each DP block taken from
+        its first 'model' rank).  Off a mesh, or on a mesh of one rank,
+        the blocks and the clock as given."""
+        if self.mesh is None:
+            return list(blocks), clock
+        m = self.mesh
+        _, n = self._rows(state.batch)
+        take = [i * (m.world_size // n) for i in range(n)]
+        return coll.exchange(blocks, clock, m.group(m.axis_names), take,
+                             m.device)
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(
@@ -587,25 +640,29 @@ class ServeEngine:
             raise ValueError(f"prompt {prompt.shape[1]} exceeds max_len "
                              f"{self.max_len}")
         prefill, _ = self._steps(temperature)
-        row_cache = self.api.init_cache(self.params, self.cfg, 1,
-                                        self.max_len, self.cache_dtype,
-                                        device=self.device)
         temp = temperature if temperature > 0 else None
-        tok, _, row_cache, _ = prefill(self.params,
-                                       self._upload(prompt.astype(np.int64)),
-                                       row_cache, temp, state.generator)
+        with mesh_scope(self._ctx):
+            row_cache = self.api.init_cache(self.params, self.cfg, 1,
+                                            self.max_len, self.cache_dtype,
+                                            device=self.device)
+            tok, _, row_cache, _ = prefill(
+                self.params, self._upload(prompt.astype(np.int64)),
+                row_cache, temp, state.generator)
         return state, tok, row_cache
 
     def admit_request(self, state: ContinuousState, row: int, first_token,
                       row_cache, prompt_len: int, max_new_tokens: int,
                       temperature: float = 0.0) -> ContinuousState:
         """Scatter a prefilled request into batch slot ``row`` (other rows
-        untouched)."""
+        untouched; on a mesh, on the rank that owns the slot)."""
         _, admit = self._cont_steps(temperature)
+        r = state.local(row)
+        if r is None:
+            return state
         cache, tokens, index, active, limit = admit(
             state.cache, state.tokens, state.index, state.active,
             state.limit, row_cache, first_token, prompt_len,
-            prompt_len + max_new_tokens - 1, row)
+            prompt_len + max_new_tokens - 1, r)
         return dataclasses.replace(state, cache=cache, tokens=tokens,
                                    index=index, active=active, limit=limit)
 
@@ -616,7 +673,8 @@ class ServeEngine:
         Active rows sample, write their cache at their own cursor and
         self-terminate on eos / per-row limit; inactive rows are no-ops.
         Paged engines read and write K/V through the block table,
-        re-uploaded only when the pool changed it."""
+        re-uploaded only when the pool changed it.  On a mesh the step
+        runs over the rank's block of slots."""
         self.faults.fire("engine.decode")
         decode, _ = self._cont_steps(temperature)
         temp = temperature if temperature > 0 else None
@@ -624,9 +682,11 @@ class ServeEngine:
         if self.paged:
             state = self._sync_table(state)
             table = (state.block_table,)
-        tokens, _, cache, index, active = decode(
-            self.params, state.tokens, state.cache, state.index,
-            state.active, state.limit, eos_id, temp, state.generator, *table)
+        with mesh_scope(self._ctx):
+            tokens, _, cache, index, active = decode(
+                self.params, state.tokens, state.cache, state.index,
+                state.active, state.limit, eos_id, temp, state.generator,
+                *table)
         return dataclasses.replace(state, tokens=tokens, cache=cache,
                                    index=index, active=active)
 
@@ -652,18 +712,22 @@ class ServeEngine:
         prefill at the exact prompt length (flash attention on the card),
         scattered into the draft cache's slot ``row``.  The draft's
         greedy first token is dropped: the target's chunked prefill owns
-        the first token, and no sampling draw is spent."""
+        the first token, and no sampling draw is spent.  On a mesh the
+        prefill runs on every rank and the scatter on the slot's owner."""
         if not state.draft_cache:
             return state              # zero-layer draft: nothing to cache
         self.faults.fire("engine.draft_prefill")
         prompt = np.asarray(prompt, np.int64).reshape(1, -1)
-        row_cache = self.draft_api.init_cache(
-            self.draft_params, self.draft_cfg, 1, self.max_len,
-            self.cache_dtype, device=self.device)
-        _, _, row_cache, _ = self._draft_prefill(
-            self.draft_params, self._upload(prompt), row_cache, None,
-            state.generator)
-        self._row_scatter(state.draft_cache, row_cache, row)
+        with mesh_scope(self._ctx):
+            row_cache = self.draft_api.init_cache(
+                self.draft_params, self.draft_cfg, 1, self.max_len,
+                self.cache_dtype, device=self.device)
+            _, _, row_cache, _ = self._draft_prefill(
+                self.draft_params, self._upload(prompt), row_cache, None,
+                state.generator)
+        r = state.local(row)
+        if r is not None:
+            self._row_scatter(state.draft_cache, row_cache, r)
         return state
 
     def decode_spec(self, state: ContinuousState, temperature: float = 0.0,
@@ -682,19 +746,21 @@ class ServeEngine:
         self.faults.fire("engine.decode")
         state = self._sync_table(state)
         draft, verify = self._spec_steps(temperature)
-        if temperature > 0:
-            vt, probs, dcache, ring = draft(
-                self.draft_params, state.tokens, state.draft_cache,
-                state.index, state.active, temperature, state.generator)
-            extra = (probs, temperature)
-        else:
-            vt, dcache, ring = draft(self.draft_params, state.tokens,
-                                     state.draft_cache, state.index,
-                                     state.active, state.generator)
-            extra = ()
-        out, acc, nxt, cache, index, active = verify(
-            self.params, vt, state.cache, state.index, state.active,
-            state.limit, state.block_table, eos_id, *extra, state.generator)
+        with mesh_scope(self._ctx):
+            if temperature > 0:
+                vt, probs, dcache, ring = draft(
+                    self.draft_params, state.tokens, state.draft_cache,
+                    state.index, state.active, temperature, state.generator)
+                extra = (probs, temperature)
+            else:
+                vt, dcache, ring = draft(self.draft_params, state.tokens,
+                                         state.draft_cache, state.index,
+                                         state.active, state.generator)
+                extra = ()
+            out, acc, nxt, cache, index, active = verify(
+                self.params, vt, state.cache, state.index, state.active,
+                state.limit, state.block_table, eos_id, *extra,
+                state.generator)
         if self._draft_rec or self._draft_ring:
             dcache = self._draft_rollback(dcache, ring, state.index, acc)
         state = dataclasses.replace(state, tokens=nxt, cache=cache,
@@ -722,7 +788,8 @@ class ServeEngine:
             if fire:
                 self.faults.fire("engine.table_upload")
             host = host.copy()
-            state.block_table.copy_(torch.from_numpy(host),
+            rows = host[state.row0:state.row0 + state.block_table.shape[0]]
+            state.block_table.copy_(torch.from_numpy(rows),
                                     non_blocking=True)
             state = dataclasses.replace(state, table_host=host)
         return dataclasses.replace(state, table_version=state.pool.version)
@@ -786,9 +853,10 @@ class ServeEngine:
             if match.carry is not None:
                 carry = tree_map(torch.clone, match.carry)
         if carry is None:
-            carry = self.api.init_prefill_carry(
-                self.params, self.cfg, self.max_len, self.cache_dtype,
-                device=self.device)
+            with mesh_scope(self._ctx):
+                carry = self.api.init_prefill_carry(
+                    self.params, self.cfg, self.max_len, self.cache_dtype,
+                    device=self.device)
         snap_at = 0
         if state.radix is not None and not self._carry_empty:
             boundary = ((P - 1) // self.block_size) * self.block_size
@@ -825,9 +893,10 @@ class ServeEngine:
         toks = self._upload(job.prompt[None, job.ctx:job.ctx + C]
                             .astype(np.int64))
         temp = temperature if temperature > 0 else None
-        out = self._chunk_step(final, temperature)(
-            self.params, toks, state.cache, job.carry, row_table, job.ctx,
-            temp, state.generator)
+        with mesh_scope(self._ctx):
+            out = self._chunk_step(final, temperature)(
+                self.params, toks, state.cache, job.carry, row_table,
+                job.ctx, temp, state.generator)
         tok = out[0] if final else None
         job.chunks.pop(0)
         job.carry = out[-1]
@@ -850,7 +919,8 @@ class ServeEngine:
         The fault-prone host steps (the draft prefill, the radix publish)
         run BEFORE the scatter flips the row active, so a fault here leaves
         the slot inert and the whole call retryable (the draft's slot is
-        rewritten whole by the retry)."""
+        rewritten whole by the retry).  On a mesh every rank publishes and
+        the slot's owner scatters."""
         _, admit = self._cont_steps(temperature)
         if self.spec_decode:
             state = self._admit_draft(state, job.row, job.prompt)
@@ -861,10 +931,13 @@ class ServeEngine:
                 state.radix.publish(
                     job.prompt, state.pool.row_pages(job.row)[:n_pub], n_pub,
                     carry=job.snapshot, carry_tokens=job.snap_at)
+        r = state.local(job.row)
+        if r is None:
+            return state
         cache, tokens, index, active, limit = admit(
             state.cache, state.tokens, state.index, state.active,
             state.limit, job.carry, first_token, P,
-            P + job.max_new_tokens - 1, job.row)
+            P + job.max_new_tokens - 1, r)
         return dataclasses.replace(state, cache=cache, tokens=tokens,
                                    index=index, active=active, limit=limit)
 
@@ -876,8 +949,11 @@ class ServeEngine:
         may land the row's write, on pages the pool frees after this call
         and before any new owner's prefill is queued (in-order execution
         on one stream, as ``KVBlockPool.truncate_row``'s rollback)."""
+        r = state.local(row)
+        if r is None:
+            return state
         active = state.active.clone()
-        active[row] = False
+        active[r] = False
         return dataclasses.replace(state, active=active)
 
     def free_slot(self, state: ContinuousState, row: int) -> ContinuousState:

@@ -77,6 +77,21 @@ Fault tolerance (the request lifecycle; ``train.faults`` injects):
     does not change the arithmetic: see ROADMAP's chunk-split rule).
   * **Invariant watchdog**: ``invariant_every`` audits the pool, and the
     radix tree's pins, every N iterations.
+
+On a mesh (``ServeEngine(mesh=)``) every rank runs this loop over the
+same host state and must take every decision alike, or the ranks enter
+different collectives.  Each iteration's decode or speculation round
+ends in the engine's ``exchange``: ONE all-gather that makes the slot
+blocks' sampled tokens, active flags and accepted counts whole on every
+rank and carries rank 0's clock reading, which the next iteration's
+arrivals, deadlines and aging read.  An iteration that decoded nothing
+exchanges the clock alone at its start, and a request's first-token time
+is one more clock exchange at its admission; every other reading within
+an iteration is the last agreed one.  ``kv_stats``, ``prefix_stats`` and
+``spec_stats`` are then equal on every rank.  Fault planes (the
+engine's), ``snapshot_every``, :meth:`ContinuousScheduler.snapshot` and
+:meth:`ContinuousScheduler.restore` on a mesh raise: ROADMAP queue A
+item 22.
 """
 from __future__ import annotations
 
@@ -189,6 +204,8 @@ class ContinuousScheduler:
             raise ValueError(f"queue_limit {queue_limit} < 1")
         if max_retries < 0:
             raise ValueError(f"max_retries {max_retries} < 0")
+        if engine.mesh is not None and snapshot_every:
+            _refuse_on_mesh("snapshot_every")
         self.engine = engine
         self.max_batch = max_batch
         self.temperature = temperature
@@ -367,6 +384,31 @@ class ContinuousScheduler:
         fetch_q: deque = deque()  # (tokens_dev, active_dev, ((row, uid),..)
                                   #  [, acc_dev])
         t0 = self.time_fn()
+        on_mesh = engine.mesh is not None
+        agreed = None             # on a mesh: the last exchange's clock
+        carried = False           # this iteration's exchange carried it
+
+        def clock(fresh: bool = True) -> float:
+            """Seconds since t0.  On a mesh every rank reads rank 0's
+            clock: a clock-only exchange (``fresh``), else the last
+            exchange's reading."""
+            nonlocal agreed
+            if not on_mesh:
+                return self.time_fn() - t0
+            if fresh:
+                agreed = engine.exchange(state, (), self.time_fn() - t0)[1]
+            return agreed
+
+        def gathered(*blocks):
+            """A dispatched step's slot blocks made whole: on a mesh the
+            iteration's exchange, whose clock the next iteration reads."""
+            nonlocal agreed, carried
+            if not on_mesh:
+                return blocks
+            blocks, agreed = engine.exchange(state, blocks,
+                                             self.time_fn() - t0)
+            carried = True
+            return blocks
 
         def deadline_of(req) -> Optional[float]:
             return req.deadline_s if req.deadline_s is not None \
@@ -406,7 +448,7 @@ class ContinuousScheduler:
                 rows = entry[2]
                 toks, act = entry[0].cpu().numpy(), entry[1].cpu().numpy()
                 acc = entry[3].cpu().numpy() if len(entry) > 3 else None
-                now = self.time_fn() - t0
+                now = clock(fresh=False)
                 for row, uid in rows:
                     if row not in live or live[row][0].uid != uid:
                         continue     # slot readmitted since this dispatch
@@ -477,7 +519,7 @@ class ContinuousScheduler:
                 except (FaultError, PoolExhausted) as e:
                     self.retries += 1
                     err = e
-            fail_row(row, "failed", self.time_fn() - t0, error=str(err))
+            fail_row(row, "failed", clock(fresh=False), error=str(err))
             return False
 
         def retry_batch(fn):
@@ -495,7 +537,7 @@ class ContinuousScheduler:
                     self.retries += 1
                     err = e
             for row in list(live):
-                fail_row(row, "failed", self.time_fn() - t0, error=str(err))
+                fail_row(row, "failed", clock(fresh=False), error=str(err))
             return None
 
         self._ctx = {"live": live, "prefilling": prefilling,
@@ -504,7 +546,8 @@ class ContinuousScheduler:
         it = 0
         while pending or waiting or live or prefilling or fetch_q:
             it += 1
-            now = self.time_fn() - t0
+            now = clock(fresh=not carried)
+            carried = False
             # ---- snapshot at the iteration boundary (crash recovery) ------
             # Taken BEFORE this iteration's site can crash: a crash anywhere
             # in the iteration loses at most the iteration's own work, which
@@ -574,7 +617,7 @@ class ContinuousScheduler:
                     state, tok, row_cache = engine.prefill_request(
                         state, req.prompt, temperature=self.temperature)
                     first = int(tok[0, 0].item())
-                    t_first = self.time_fn() - t0
+                    t_first = clock()
                     if req.max_new_tokens == 1 or \
                             (self.eos_id >= 0 and first == self.eos_id):
                         finish(req, [first], -1, t_first, t_first)
@@ -641,7 +684,7 @@ class ContinuousScheduler:
                     if attempts > self.max_retries:
                         del waiting[skip]
                         finish(req, [], -1, float("nan"),
-                               self.time_fn() - t0, reason="failed",
+                               clock(fresh=False), reason="failed",
                                error=str(e))
                     else:
                         adm_attempts[req.uid] = attempts
@@ -680,7 +723,7 @@ class ContinuousScheduler:
                         row_retry_at.pop(row, None)
                         continue
                     first = int(job.first_token[0, 0].item())
-                    t_first = self.time_fn() - t0
+                    t_first = clock()
                     if req.max_new_tokens == 1 or \
                             (self.eos_id >= 0 and first == self.eos_id):
                         del prefilling[row]
@@ -706,7 +749,7 @@ class ContinuousScheduler:
                     self.retries += 1
                     attempts = row_attempts.get(row, 0) + 1
                     if attempts > self.max_retries:
-                        fail_row(row, "failed", self.time_fn() - t0,
+                        fail_row(row, "failed", clock(fresh=False),
                                  error=str(e))
                     else:
                         row_attempts[row] = attempts
@@ -718,7 +761,7 @@ class ContinuousScheduler:
                 drain(0)
                 if not (live or prefilling):
                     if pending and not waiting:
-                        wait = pending[0].arrival_s - (self.time_fn() - t0)
+                        wait = pending[0].arrival_s - clock(fresh=False)
                         if wait > 0:       # idle until the next arrival
                             self.sleep_fn(min(wait, self.poll_s))
                     elif waiting:
@@ -745,7 +788,8 @@ class ContinuousScheduler:
                     continue
                 state, out_d, acc_d = out
                 self.spec_rounds += 1
-                fetch_q.append((out_d, state.active,
+                out_d, act_d, acc_d = gathered(out_d, state.active, acc_d)
+                fetch_q.append((out_d, act_d,
                                 tuple((row, live[row][0].uid)
                                       for row in live), acc_d))
                 drain(0)
@@ -770,8 +814,9 @@ class ContinuousScheduler:
             if new_state is None:
                 continue
             state = new_state
-            fetch_q.append((state.tokens, state.active,
-                            tuple((row, live[row][0].uid) for row in live)))
+            fetch_q.append(tuple(gathered(state.tokens, state.active))
+                           + (tuple((row, live[row][0].uid)
+                                    for row in live),))
             for row in live:           # host mirror (clamped in advance)
                 cursors[row] += 1
             drain(1 if self.overlap else 0)
@@ -787,6 +832,8 @@ class ContinuousScheduler:
         (:func:`save_snapshot`), in the reference's layout.  Device state
         is left out: K/V at a position depends only on the token prefix,
         so :meth:`restore` rebuilds it by re-prefilling."""
+        if self.engine.mesh is not None:
+            _refuse_on_mesh("snapshot()")
         ctx = self._ctx
         if ctx is None:
             raise RuntimeError("snapshot(): no run in progress or recorded")
@@ -832,6 +879,8 @@ class ContinuousScheduler:
         resume (the dead process's wall time is not charged).  Returns the
         whole workload's results, snapshot-finished and resumed, in
         submission order."""
+        if self.engine.mesh is not None:
+            _refuse_on_mesh("restore()")
         emitted = {}
         reqs = []
         for item in snap["inflight"] + snap["queued"]:
@@ -865,6 +914,12 @@ class ContinuousScheduler:
                 prefix_tokens=item["prefix_tokens"],
                 error=item.get("error"))
         return [merged[uid] for uid in snap["order"] if uid in merged]
+
+
+def _refuse_on_mesh(what: str):
+    raise NotImplementedError(
+        f"{what} on a mesh: crash recovery in mesh serving is ROADMAP queue "
+        "A item 22 (every rank would have to snapshot and restore alike)")
 
 
 def save_snapshot(snap: dict, path) -> None:

@@ -1,6 +1,7 @@
 """Scenarios run on every rank of a mesh: the bodies that
-``tests/test_torch_distributed.py`` and ``chip_smoke.py``'s mesh phase
-start with ``repro_torch.launch.mesh.spawn``.
+``tests/test_torch_distributed.py``, ``tests/test_torch_mesh_serve.py``
+and ``chip_smoke.py``'s mesh phase start with
+``repro_torch.launch.mesh.spawn``.
 
 This module imports no JAX: spawned ranks import it alone, on the CPU as
 on the card.  Its importer puts this directory on ``sys.path`` (pytest
@@ -14,6 +15,7 @@ as ``{keystr: array}`` (``bridge.flatten``).
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import shutil
 import time
@@ -32,6 +34,7 @@ from repro_torch.kernels import launch_counts, zero_launch_counts
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import registry
 from repro_torch.optim.base import make_optimizer
+from repro_torch.train import steps as steps_lib
 from repro_torch.train.engine import ProgressiveTrainer
 from repro_torch.train.serve_engine import ServeEngine
 from repro_torch.tree import leaves_with_path, tree_map, tree_map_with_path
@@ -284,6 +287,37 @@ def flash_local(shape, seed: int = 0, device: str = "cuda") -> dict:
     return errs
 
 
+def paged_local(B: int, H: int, KV: int, hd: int, bs: int, pages: int,
+                kv_dtype: str = "float32", seed: int = 0,
+                device: str = "cuda") -> dict:
+    """The paged decode kernel at a rank's local shape (B rows, H query
+    heads over KV heads of hd, ``pages`` pages of bs a row, cursors drawn
+    over them; f32 queries over ``kv_dtype`` pages, int8/fp8 with their
+    scale pages) against its plain version on the same inputs: the max
+    abs error relative to max(1, max|plain|).  The launches count
+    nowhere: the caller reads its main path's counters before."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = B * pages + 1
+    q = torch.randn((B, 1, H, hd), generator=g)
+    kp, vp = (torch.randn((n, bs, KV, hd), generator=g) for _ in range(2))
+    table = torch.randperm(n - 1, generator=g)[:B * pages].reshape(
+        B, pages).int()
+    index = torch.randint(0, pages * bs, (B,), generator=g).int()
+    kw = {}
+    if kv_dtype != "float32":
+        dt = getattr(torch, kv_dtype)
+        (kp, ks), (vp, vs) = (quant.quantize(t, axis=-1, dtype=dt)
+                              for t in (kp, vp))
+        kw = dict(k_scales=ks.to(device), v_scales=vs.to(device))
+    args = [t.to(device) for t in (q, kp, vp, table, index)]
+    got = pa_ops.paged_attention(*args, **kw)
+    want = pa_ops.paged_attention(*args, force="ref", **kw)
+    return {"max_abs_err": float((got - want).abs().max())
+            / max(1.0, float(want.abs().max()))}
+
+
 def serve(cfg, params_np: Optional[dict], prompts: np.ndarray,
           num_tokens: int, mesh: Optional[str], device: str = "cpu",
           max_len: int = 32, count: bool = False,
@@ -307,6 +341,117 @@ def serve(cfg, params_np: Optional[dict], prompts: np.ndarray,
            "seconds": time.perf_counter() - t0}
     if count:
         out["counts"] = launch_counts()
+    return out
+
+
+def radix_pages_hash(state) -> Optional[str]:
+    """sha256 over the pages the radix tree holds: their ids, then every
+    pool leaf's bytes at those pages (K/V pages, MLA latents, int8/fp8
+    scales) in path order; None without a radix tree."""
+    if state.radix is None:
+        return None
+    pages = sorted(state.radix.pinned_pages())
+    h = hashlib.sha256(np.asarray(pages, np.int64).tobytes())
+    idx = torch.as_tensor(pages, dtype=torch.long)
+    for path, leaf in leaves_with_path(state.cache):
+        if steps_lib._is_paged_leaf(path):
+            part = leaf[:, idx.to(leaf.device)].cpu().contiguous()
+            h.update(str(path).encode())
+            h.update(part.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def cserve(cfg, params_np: Optional[dict], requests: List[dict],
+           mesh: Optional[str], device: str = "cpu", max_len: int = 48,
+           max_batch: int = 4, engine_kw: Optional[dict] = None,
+           sched_kw: Optional[dict] = None, skew_s: float = 0.0,
+           count: bool = False, ckpt_dir: Optional[str] = None) -> dict:
+    """``requests`` (dicts of ``Request`` fields) served through
+    ``ContinuousScheduler`` on ``mesh`` (None: one device) with
+    ``ServeEngine(**engine_kw)`` and ``ContinuousScheduler(**sched_kw)``.
+    The scheduler's clock is ``time.perf_counter`` plus ``skew_s`` times
+    this rank's number.  Returns each request's tokens, finish reason,
+    arrival, admission and finish times, prefix tokens, speculation rounds
+    and mean accepted length (``results``); the scheduler's stats; the
+    kernels' launches in the timed run (``count``: this rank's counters,
+    zeroed just before it); ``summarize``'s metrics and the run's seconds;
+    and ``radix_hash`` (:func:`radix_pages_hash` of the final state).
+    ``ckpt_dir``: serve its latest checkpoint's params instead of
+    ``params_np``."""
+    from repro_torch.train.serve_scheduler import (ContinuousScheduler,
+                                                   Request, summarize)
+    m = mesh_for(mesh, device) if mesh else None
+    if ckpt_dir is not None:
+        from repro_torch.launch.serve import load_params
+        params, cfg = load_params(ckpt_dir, cfg)
+    else:
+        params = _tensors(params_np, "cpu")
+    rank = 0 if m is None else m.rank
+    eng = ServeEngine(cfg, params, device=device, mesh=m, max_len=max_len,
+                      **(engine_kw or {}))
+    sched = ContinuousScheduler(
+        eng, max_batch=max_batch,
+        time_fn=lambda: time.perf_counter() + skew_s * rank,
+        **(sched_kw or {}))
+    reqs = [Request(prompt=np.asarray(r["prompt"], np.int32),
+                    max_new_tokens=int(r["max_new_tokens"]),
+                    arrival_s=float(r.get("arrival_s", 0.0)),
+                    deadline_s=r.get("deadline_s"), uid=r.get("uid"))
+            for r in requests]
+    _sync(device)
+    if count:
+        zero_launch_counts()
+    t0 = time.perf_counter()
+    results = sched.run(reqs)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    out = {"results": [dict(uid=r.uid, tokens=r.tokens, slot=r.slot,
+                            finish_reason=r.finish_reason,
+                            arrival_s=r.arrival_s, admitted_s=r.admitted_s,
+                            finished_s=r.finished_s,
+                            prefix_tokens=r.prefix_tokens,
+                            spec_rounds=r.spec_rounds,
+                            mean_accepted_len=r.mean_accepted_len)
+                       for r in results],
+           "stats": {"spec": sched.spec_stats(),
+                     "prefix": sched.prefix_stats(),
+                     "kv": sched.kv_stats()},
+           "summary": summarize(results, seconds), "seconds": seconds,
+           "radix_hash": radix_pages_hash(sched.last_state), "rank": rank}
+    if count:
+        out["counts"] = launch_counts()
+    return out
+
+
+def serve_refusals(cfg, params_np: dict, mesh: str,
+                   device: str = "cpu") -> dict:
+    """What continuous serving on ``mesh`` refuses (ROADMAP queue A item
+    22): {name: the NotImplementedError's message, or None where nothing
+    was raised} for a fault plane, ``snapshot_every``, ``snapshot()`` and
+    ``restore()``."""
+    from repro_torch.train.serve_scheduler import ContinuousScheduler
+    m = mesh_for(mesh, device)
+    params = _tensors(params_np, "cpu")
+    out = {}
+
+    def refused(name, fn):
+        out[name] = None
+        try:
+            fn()
+        except NotImplementedError as e:
+            out[name] = str(e)
+
+    refused("faults", lambda: ServeEngine(
+        cfg, params, device=device, mesh=m, max_len=16, paged=True,
+        faults="engine.decode:1"))
+    eng = ServeEngine(cfg, params, device=device, mesh=m, max_len=16,
+                      paged=True)
+    refused("snapshot_every",
+            lambda: ContinuousScheduler(eng, snapshot_every=1))
+    sched = ContinuousScheduler(eng)
+    refused("snapshot", sched.snapshot)
+    refused("restore", lambda: sched.restore(
+        {"order": [], "inflight": [], "queued": [], "done": []}))
     return out
 
 

@@ -37,7 +37,9 @@ never import it), one torch thread a rank.  Held:
     (logits 1e-4); TP 4x2 dense tokens equal to one device's and to the
     JAX package's 4x2 serving (logits 1e-4); the ``copying_zeroL``-
     expanded checkpoint served on the DP mesh gives the source model's
-    tokens.
+    tokens;
+  * the serve CLI's continuous, paged, prefix-cached serving on a
+    two-rank mesh, and its refusals of fault injection on a mesh.
 """
 import concurrent.futures
 import dataclasses
@@ -503,19 +505,29 @@ def test_expanded_checkpoint_serves_source_tokens_on_dp_mesh(world):
         np.testing.assert_array_equal(r["grown"]["tokens"], want.tokens)
 
 
-def test_mesh_spec_must_match_world_and_mesh_cli_refusals():
+def test_mesh_spec_must_match_world_and_mesh_cli_refusals(capfd):
     """A spec whose size is not the world's raises naming both (no process
-    group is made for it); the serve CLI refuses continuous, paged and
-    speculative serving on a mesh, naming ROADMAP item A20."""
+    group is made for it); the serve CLI serves continuous batching over
+    paged KV with the prefix cache on a two-rank 'host' mesh to rank 0's
+    report, and refuses fault injection and crash snapshots on a mesh
+    naming ROADMAP item A22, as the engine refuses a fault plane."""
     with pytest.raises(ValueError, match="has 4 ranks; the world has 1"):
         mesh_lib.make_train_mesh("2x2")
     with pytest.raises(ValueError, match="has 8 ranks; the world has 1"):
         launch_train.main(["--smoke", "--device", "cpu", "--mesh", "4x2"])
-    for flags in (["--continuous"], ["--continuous", "--paged"],
-                  ["--continuous", "--paged", "--spec-depth", "1"]):
-        with pytest.raises(SystemExit, match="item 20"):
+    capfd.readouterr()
+    launch_serve.main(["--smoke", "--device", "cpu", "--mesh", "host",
+                       "--nproc", "2", "--continuous", "--paged",
+                       "--prefix-cache"])
+    lines = capfd.readouterr().out.splitlines()
+    report = [ln for ln in lines if ln.startswith("arch=")]
+    assert len(report) == 1 and "mesh=host paged" in report[0], lines
+    assert lines[-1].startswith("prefix cache: hits="), lines
+    assert sum(ln.startswith("  req ") for ln in lines) == 8, lines
+    for flags in (["--faults", "engine.decode:1"], ["--snapshot-every", "1"]):
+        with pytest.raises(SystemExit, match="item 22"):
             launch_serve.main(["--smoke", "--device", "cpu", "--mesh",
-                               "host"] + flags)
-    with pytest.raises(NotImplementedError, match="item 20"):
+                               "host", "--continuous", "--paged"] + flags)
+    with pytest.raises(NotImplementedError, match="item 22"):
         ServeEngine(SRV["dense"], {}, device="cpu", mesh=object(),
-                    paged=True)
+                    paged=True, faults="engine.decode:1")

@@ -164,10 +164,11 @@ def test_default_device_is_the_card(monkeypatch):
                  id="flag2-item 9"),
     (["--prefix-cache"], "requires --paged"),
     (["--kv-dtype", "int8"], "requires --paged"),
-    # The mesh is ported (item 13) for generate; continuous serving on it
-    # is item 20.  The id stays the case's old one.
-    pytest.param(["--mesh", "host", "--continuous"], "item 20",
-                 id="flag5-item 13")])
+    # The mesh is ported (item 13), continuous serving on it too (item
+    # 20); fault injection on a mesh is item 22.  The id stays the case's
+    # old one.
+    pytest.param(["--mesh", "host", "--continuous", "--faults",
+                  "storm:0.1"], "item 22", id="flag5-item 13")])
 def test_unported_cli_paths_name_their_roadmap_item(flag, item):
     argv = ["--smoke", "--device", "cpu"] + flag
     if item is None:

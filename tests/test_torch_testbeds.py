@@ -86,16 +86,18 @@ def test_configs_copy_the_reference_and_the_registry_admits_them():
 @pytest.mark.parametrize("name,item", [
     ("deepseekv3-0.3b", "MLA sliding-window rings are not served"),
     ("whisper-base", "no prefill path"),
-    # The mesh is ported (item 13) for generate; continuous serving on a
-    # mesh is item 20.  The id stays the case's old one.
-    pytest.param("qwen2-vl-2b", "ROADMAP queue A item 20",
+    # The mesh is ported (item 13), continuous serving on it too (item
+    # 20); crash snapshots on a mesh are item 22.  The id stays the
+    # case's old one.
+    pytest.param("qwen2-vl-2b", "ROADMAP queue A item 22",
                  id="qwen2-vl-2b-mesh sharding: ROADMAP queue A item 13")])
 def test_the_rest_still_raises_naming_its_item(name, item):
     """The last three architectures of the reference registry now have
     configs equal to the reference's; what they still refuse: an MLA
     sliding-window ring (the reference refuses it), serving the
-    encoder-decoder (the reference's message), and continuous serving on
-    a mesh (``--mesh`` with ``--continuous``)."""
+    encoder-decoder (the reference's message), and crash snapshots in
+    continuous serving on a mesh (``--mesh`` with ``--continuous
+    --snapshot-every``)."""
     assert dataclasses.asdict(configs.get_config(name)) \
         == dataclasses.asdict(jax_configs.get_config(name))
     assert name in configs.PORTED_ARCHS and name in configs.ARCH_HELP
@@ -114,7 +116,7 @@ def test_the_rest_still_raises_naming_its_item(name, item):
                                         pos, 8, None)
         return
     if name == "qwen2-vl-2b":
-        argv += ["--mesh", "host", "--continuous"]
+        argv += ["--mesh", "host", "--continuous", "--snapshot-every", "1"]
     with pytest.raises((SystemExit, NotImplementedError), match=item):
         serve.main(argv)
 
