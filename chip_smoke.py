@@ -29,8 +29,8 @@ result):
 4. paged parity: the paged-attention decode kernel against its plain
    version over (q, pages) dtypes (f32/bf16 q over f32, bf16, int8 and fp8
    pages, the 1-byte pages with their f32 scale pages) x head dim x
-   MHA, G = 4 and G in {9, 12, 16} x block size x softcap x cursors (zero,
-   ragged, bs-1, bs, last slot), with permuted pages, garbage past every
+   MHA, G = 4 and G in {9, 12, 16} x block size x cursors (zero, ragged,
+   bs-1, bs, last slot; the softcap at ragged cursors), with permuted pages, garbage past every
    cursor (random 1-byte values under large scales in the quantized
    pools) and an all-trash row, plus the timing shape per page dtype and
    starcoder2-3b's decode shape;
@@ -52,7 +52,9 @@ result):
    four requests (the longest prompt twice, the second a full hit with a
    copy-on-write clone) through the int8 prefix-cache scheduler on the
    card and on the CPU, token agreement at least 0.9;
-8. times, with CUDA events: each kernel, its plain version and a PyTorch
+8. one ``torch.profiler`` process (after each reading's control kernel)
+   reads the device kernels of the paged, WKV and scan calls that phases
+   8, 17 and 21 check; times, with CUDA events: each kernel, its plain version and a PyTorch
    yardstick the port never calls (``scaled_dot_product_attention``, under
    the one backend PyTorch's dispatch picks, named), at the main paths'
    shapes, beside the bound (for the flash kernels both the 3xTF32
@@ -107,10 +109,11 @@ result):
    (chunked WKV form) and decode fed the same tokens;
 17. WKV times at the main path's prefill shape, L2 flushed: the kernel with
    f32 and with bf16 r/k/v, each beside its bound, and both plain forms;
-   the device kernels of three warm calls (``torch.profiler``, exactly
-   three: one a call); the kernel's share of the prefill;
+   the device kernels of three warm calls (phase 8's ``torch.profiler``
+   reading, exactly three: one a call); the kernel's share of the prefill;
 18. scan parity: the Mamba selective-scan kernel against both plain forms
-   (per-step and chunked) over channels (16, 256, 1000, 8192) x state
+   (per-step and chunked; at S 1000 and 1024 the per-step one only at 16
+   channels, B 1, and at the main shape) over channels (16, 256, 1000, 8192) x state
    dim (4, 16) x sequence length (1, 63, 64, 1000, 1024) x batch (1, 4) x
    zero/random initial state x f32/bf16 x decays near 1 and large
    dt * A, each with and without the final state, y and the final state,
@@ -123,7 +126,7 @@ result):
    ``ModelApi.loss`` forward at batch 4 x 1024, every counter at 0 just
    before: 21 scan and 3 flash launches, no other kernel;
 20. card against CPU: the same weights copied to the host, a greedy B=1
-   P=128 3-token generation and one B=1 x 128 loss forward;
+   P=128 2-token generation and one B=1 x 128 loss forward;
 21. scan times at the main path's prefill shape, L2 flushed: the kernel in
    f32 and bf16, each beside its bound, and the SFU's floor on the busiest
    SM (its exps at 16 a clock at the SM clock ``nvidia-smi`` reads) beside
@@ -163,7 +166,7 @@ result):
    phase 6's traffic on paged KV: the paged kernel at G = 12, hd 128; then
    card against CPU at depth 2 (the B=1 P=128 generation, whose prefill
    runs flash at G = 12, and three paged requests);
-27. ``rwkv6-7b`` at full width and 4 layers (``RWKV_CONT_DEPTH``, cut
+27. ``rwkv6-7b`` at full width and 2 layers (``RWKV_CONT_DEPTH``, cut
    from 32 for time) in continuous serving (run right after phase 17, on
    the first layers of phase 15's weights), over phase 6's traffic
    through ``ServeEngine`` and ``ContinuousScheduler`` as ``serve.main
@@ -181,7 +184,7 @@ result):
    script's own binary decomposition (plus the snapshot edge of the prefix
    cache): one a layer per prefill chunk, 2 per draft prefill;
 28. jamba at full width and depth 8 on phase 19's weights (run right after
-   phase 21) over the first 16 of phase 6's requests through
+   phase 21) over the first 8 of phase 6's requests through
    ``ContinuousScheduler``: paged
    over f32 and then int8 pages (the scan 7 times a prefill chunk, the
    paged kernel once a masked decode step, flash never), contiguous (flash
@@ -207,15 +210,15 @@ result):
    merged streams held to phase 6's; ``--queue-limit 8 --deadline-s
    0.001`` with every request arrived before the first iteration: 24 shed
    and 8 past their deadline, as derived; ``rwkv6-7b`` at full width and
-   depth 2 (12 requests) crashed and restored, the WKV kernel running the
+   depth 2 (6 requests) crashed and restored, the WKV kernel running the
    re-prefill from fresh carries, chunk counts derived from the snapshot;
    paged, flash and WKV launches derived from the successful calls;
 31. fault tolerance in training, phase 13's run (``gpt2-12l``, batch 16
    x 256, Muon-NSGD, WSD, 1 -> 12 layers at step 6 of 12) through
-   ``train.loop.train`` with a checkpoint every 3 steps: the clean run
-   twice, bit-identical (losses, params, momenta); ``train.iter:6`` and
-   ``train.iter:8`` crashes and a ``ckpt.write:2`` crash in the
-   asynchronous writer, each resumed bit-identical to the clean run;
+   ``train.loop.train`` with a checkpoint every 3 steps: the clean run;
+   a ``train.iter:8`` crash and a ``ckpt.write:2`` crash in the
+   asynchronous writer, each resumed bit-identical to the clean run
+   (losses, params, momenta);
    ``nan:8`` under ``skip`` with a ``train.step`` fault retried (the bad
    step leaves params and momenta bit for bit, earlier losses equal the
    clean run's); a hang deadline at half the 12-layer step time (hangs
@@ -311,7 +314,7 @@ result):
    and SFU floor; one loss and backward at depth 1 (jamba's dense Mamba
    layer) against the CPU; then jamba's first two layers (dense Mamba,
    Mamba + the 16-expert MoE; 3.57 B params) trained 3 steps under NSGD;
-43. the mesh (last): ``gpt2-12l`` at full width, 1 -> 2 layers at step 4
+43. the mesh: ``gpt2-12l`` at full width, 1 -> 2 layers at step 4
    of 8, 16 x 256, Muon-NSGD under WSD, through the trainer on a
    ``single`` mesh (one NCCL rank) against ``mesh=None`` (losses and
    final params bit for bit), then on two ranks that share the card over
@@ -323,7 +326,7 @@ result):
    plain version; the 1x2 run's checkpoint restored under 2x1 and
    ``mesh=None`` bit for bit, the next step's loss of each; the grown
    checkpoint served greedily on 2x1 and 1x2 against solo ``generate``;
-   then (e) continuous serving of that checkpoint on the two ranks, 16
+   then (e) continuous serving of that checkpoint on the two ranks, 8
    requests (prompts of 32-160 tokens, half opening with one shared
    64-token prefix; 16-32 new tokens, greedy) into 4 slots over pages of
    16: at 2x1 over f32 pages, over int8 pages with the prefix cache and
@@ -336,11 +339,29 @@ result):
    alike on both 2x1 ranks, and the paged kernel at the 1x2 local shape
    (6 heads of 64, f32 and int8 pages) against its plain version.
 
-``--only 36,...,43`` runs the card, the build and the named phases of
-36-43 alone (41 and 42 on weights drawn on the card for them), prints
+44. expert parallelism and tensor-parallel Mamba, RWKV6 and MLA (run
+   last): on two ranks that share the card over gloo at 1x2, against
+   ``mesh=None`` in this process (weights drawn on the card from seed 0
+   in every process): jamba's first two layers at full width (Mamba, and
+   Mamba + the 16-expert MoE; 8 experts and 4096 of 8192 channels a rank)
+   3 Muon-NSGD steps of 4 x 1024 and greedy ``generate`` (4 prompts of
+   64, 8 tokens; near-tie rule); ``rwkv6-7b`` at 2 layers (32 of 64 heads
+   a rank) 2 steps and ``generate`` (tokens equal, logits 1e-4);
+   ``deepseekv3-0.3b`` at 2 layers (MLA on 4 of 8 heads, 4 of 8 experts,
+   half the shared expert's d_ff) 3 steps of 16 x 256, then 8 of phase
+   43's requests served dropless over latent pages (near-tie rule):
+   losses within 1e-4 of ``mesh=None``'s, every rank alike, each rank's
+   launches derived (a rank's Newton-Schulz GEMMs on its experts), each
+   rank's peak beside ``mesh=None``'s and the gather path's (reckoned on
+   the meta device); then the scan and WKV forward and backward,
+   ``ns_fused`` and the flash forward and backward at their rank-local
+   shapes against their plain versions.
+
+``--only 36,...,44`` runs the card, the build and the named phases of
+36-44 alone (41 and 42 on weights drawn on the card for them), prints
 their readings and no closing line.
 
-Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-43) starts
+Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-44) starts
 with every kernel's launch counter at 0 and checks every counter after
 it, the kernels it must not launch included.  Each phase prints its
 seconds.
@@ -454,18 +475,26 @@ SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # relative to itself (f32 through 8 layers; the CPU takes the chunked
 # scan, the card its kernel).
 JAMBA_LOGIT_TOL, JAMBA_LOSS_TOL = 1e-4, 1e-5
-# Cut to make room for phase 43's continuous serving: every CPU decode step
-# of jamba at depth 8 reads the whole 51 GB, so phase 20's greedy
-# generation keeps 3 of its 8 tokens and phase 29's jamba requests 2 of
-# their 4; phase 28 serves the first 16 of phase 6's 32 requests (each
-# request runs the same steps, and the counts are derived from the
-# requests served).
-JAMBA_CPU_TOKENS, JAMBA_PAGED_CPU_TOKENS, JAMBA_CONT_REQUESTS = 3, 2, 16
+# Cut to make room for phases 43-44: every CPU decode step of jamba at
+# depth 8 reads the whole 51 GB, so phase 20's greedy generation keeps 2
+# of its 8 tokens (the prefill and one decode step) and phase 29's jamba
+# requests 2 of their 4; phase 28 serves the first 8 of phase 6's 32
+# requests (each request runs the same steps, and the counts are derived
+# from the requests served).
+JAMBA_CPU_TOKENS, JAMBA_PAGED_CPU_TOKENS, JAMBA_CONT_REQUESTS = 2, 2, 8
 
 # Each kernel wrapper's launch counter (``repro_torch.kernels.
 # LAUNCH_COUNTERS``: kernel -> (ops package, attribute)), set in main.
 COUNTERS = {}
 OPS = {}                            # ops module key -> module, set in main
+
+
+_T0 = time.perf_counter()
+
+
+def _mark(phase: str):
+    """The seconds since the script started, before ``phase``."""
+    print(f"[{time.perf_counter() - _T0:.1f} s] phase {phase}")
 
 
 def zero_counts():
@@ -677,10 +706,14 @@ def paged_parity(pa_ops) -> dict:
             # MHA, G = 4, and G > 8 (head blocks of 8; starcoder2's 12)
             for H, KV in ((12, 12), (8, 2), (18, 2), (24, 2), (32, 2)):
                 for bs in (16, 64) if H // KV <= 8 else (16,):
-                    for cap in (0.0, 30.0):
-                        for mode in ("zero", "ragged", "bs-1", "bs", "last"):
-                            cases.append((4, H, KV, hd, bs, 256 // bs, q_dt,
-                                          kv_dt, cap, mode))
+                    # the softcap at ragged cursors alone (its other cursor
+                    # patterns cut for time: the cap acts on each score,
+                    # the cursors on which scores exist)
+                    for cap, mode in [(0.0, m) for m in (
+                            "zero", "ragged", "bs-1", "bs", "last")] + [
+                            (30.0, "ragged")]:
+                        cases.append((4, H, KV, hd, bs, 256 // bs, q_dt,
+                                      kv_dt, cap, mode))
     s = PAGED_SHAPE
     for kv_dt in (f32, i8, f8):
         cases.append((s["B"], s["H"], s["KV"], s["hd"], s["bs"], s["NB"],
@@ -1298,43 +1331,38 @@ def paged_times(pa_ops, kv_dtype=torch.float32, s=PAGED_SHAPE, cap=0.0):
                 bound_by="operations" if op_ms >= byte_ms else "bytes")
 
 
-def paged_one_kernel(pa_ops) -> dict:
+PAGED_PROFILE_DTYPES = (torch.float32, torch.int8)
+
+
+def paged_one_kernel(pa_ops, readings) -> dict:
     """One call of the paged kernel as the main path makes it (an int64
-    cursor, the engine's; an int32 table) under ``torch.profiler``: the
-    device kernels it ran, which must be exactly one (no workspace, no
-    cursor cast); and the same call repeated gives the same bits, over f32
-    and int8 pages.  Returns {"device_kernels": [names], "n_split": ...}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    cursor, the engine's; an int32 table): the device kernels it ran,
+    ``readings`` (``profiler_readings``' "paged", over f32 and int8
+    pages), which must be exactly one (no workspace, no cursor cast); and
+    the same call repeated gives the same bits over both.  Returns
+    {"device_kernels": [names], "n_split": ...}."""
     s = PAGED_SHAPE
     B, H, KV, hd, bs, NB = (s[k] for k in ("B", "H", "KV", "hd", "bs", "NB"))
     n_split = pa_ops.split_plan(B, KV, NB)
-    for kv in (torch.float32, torch.int8):
+    for kv, kernels in zip(PAGED_PROFILE_DTYPES, readings):
         q, kp, vp, tbl, idx, ks, vs = paged_case(
             B, H, KV, hd, bs, NB, torch.float32, kv, [s["cursor"]] * B,
             seed=77, trash_row=False)
         cursor = idx.long()
         kw = dict(k_scales=ks, v_scales=vs, force="kernel")
         first = pa_ops.paged_attention(q, kp, vp, tbl, cursor, **kw)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            again = pa_ops.paged_attention(q, kp, vp, tbl, cursor, **kw)
-            torch.cuda.synchronize()
-        kernels = [(e.name, getattr(e, "device_time_total", None))
-                   for e in prof.events() if e.device_type == DeviceType.CUDA]
         same = all(torch.equal(first, pa_ops.paged_attention(
-            q, kp, vp, tbl, cursor, **kw)) for _ in range(3)) \
-            and torch.equal(first, again)
+            q, kp, vp, tbl, cursor, **kw)) for _ in range(3))
         print(f"paged kernel ({str(kv)[6:]} pages, int64 cursor): one call "
               f"ran {len(kernels)} device kernel(s) {kernels}; n_split "
               f"{n_split} at the timing shape ({B * KV * n_split} CTAs); "
-              f"4 repeats {'bit-identical' if same else 'DIFFER'}")
+              f"4 calls {'bit-identical' if same else 'DIFFER'}")
         if len(kernels) != 1:
             _fail(f"one paged call ran {len(kernels)} device kernels: "
                   f"{kernels}")
         if not same:
             _fail(f"paged kernel repeats over {kv} pages differ")
-    return {"device_kernels": [n for n, _ in kernels], "n_split": n_split}
+    return {"device_kernels": kernels, "n_split": n_split}
 
 
 # ---------------------------------------------------------------------------
@@ -1960,13 +1988,15 @@ WKV_DECAYS = {"near 0.69": (0.69, 0.72), "near 0.9975": (0.995, 0.9975),
 def wkv_parity_cases() -> list:
     """Phase 14's grid, (B, S, H, hd, dtype, state, decay) a case, the main
     path's prefill shape last (``tools/kernel_bits_compare.py`` runs it
-    too)."""
+    too).  At S = 1024 the grid takes B 1 x 2 heads alone (4 x 64 heads
+    there cut for time: taken at every shorter length and at the main
+    path's shape)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for dtype in (f32, bf16):
         for hd in (16, 32, 64, 128):
             for S in (1, 7, 63, 64, 100, 1024):
-                for B, H in ((1, 2), (4, 64)):
+                for B, H in ((1, 2), (4, 64)) if S < 1024 else ((1, 2),):
                     for state in (False, True):
                         for decay in WKV_DECAYS:
                             cases.append((B, S, H, hd, dtype, state, decay))
@@ -2132,42 +2162,102 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
-fn = {expr}
-fn()
+control = torch.zeros(1, dtype=torch.int64, device="cuda")
+readings = [{readings}]
+for fn, _ in readings:
+    fn()
 torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-    for _ in range({calls}):
-        fn()
+    for fn, calls in readings:
+        control.add_(1)
         torch.cuda.synchronize()
-print(json.dumps([e.name for e in p.events()
-                  if e.device_type == DeviceType.CUDA]))
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+names = [e.name for e in sorted((e for e in p.events()
+                                 if e.device_type == DeviceType.CUDA),
+                                key=lambda e: e.time_range.start)]
+out = []
+for name in names:
+    if name == names[0]:
+        out.append([])
+    else:
+        out[-1].append(name)
+print(json.dumps(out))
 """
 
-
-def device_kernels(expr: str, calls: int = 3) -> list:
-    """Names of the device kernels that ``calls`` warm calls of the
-    callable ``expr`` builds (Python source over chip_smoke as ``cs`` and
-    the two recurrent ops modules) run, read with ``torch.profiler``
-    (CUPTI) in a process of its own: in this one, after the earlier
-    phases, CUPTI was seen to report no device activity at all."""
-    out = subprocess.run(
-        [sys.executable, "-c", _PROFILE_CHILD.format(
-            src=os.path.join(ROOT, "src"), root=ROOT, expr=expr,
-            calls=calls)],
-        capture_output=True, text=True, timeout=600)
-    if out.returncode:
-        _fail(f"the profiler's process failed:\n{out.stdout}{out.stderr}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+PROFILE_ATTEMPTS = 3
 
 
-def wkv_times(wkv_ops, res, layers):
+def device_kernels(*readings: tuple) -> list:
+    """For each ``(expr, calls)`` (``expr`` a callable in Python source over
+    chip_smoke as ``cs`` and the paged, WKV and scan ops modules), the
+    names of the device kernels that ``calls`` warm calls of it run, read
+    with ``torch.profiler`` (CUPTI) in one session in a process of its
+    own: in this one, after the earlier phases, CUPTI was seen to report
+    no device activity at all.  Each reading opens with a control kernel
+    (one int64 ``add_`` on the card, synchronized before the calls), the
+    session's first device kernel, whose name splits the readings and is
+    dropped from them: a session that lacks a control saw nothing (or
+    not all), and counts as the profiler's failure, not as a count of
+    launches.  Such a process is run again, ``PROFILE_ATTEMPTS`` times in
+    all."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        out = subprocess.run(
+            [sys.executable, "-c", _PROFILE_CHILD.format(
+                src=os.path.join(ROOT, "src"), root=ROOT,
+                readings=", ".join(f"({e}, {n})" for e, n in readings))],
+            capture_output=True, text=True, timeout=600)
+        if out.returncode:
+            _fail(f"the profiler's process failed:\n{out.stdout}"
+                  f"{out.stderr}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        if len(got) == len(readings):
+            return got
+        print(f"profiler process {attempt} of {PROFILE_ATTEMPTS}: "
+              f"{len(got)} control kernels seen for {len(readings)} "
+              f"readings ({sum(map(len, got))} other device kernels)")
+    _fail(f"torch.profiler saw {len(got)} control kernels for "
+          f"{len(readings)} readings in each of {PROFILE_ATTEMPTS} processes")
+
+
+def profiler_readings() -> dict:
+    """The device kernels of the three kernels whose launches must each
+    be one device kernel, read in one profiler process (``device_kernels``)
+    at phase 8: one paged call as the main path makes it (an int64
+    cursor, the engine's; an int32 table) over f32 and over int8 pages,
+    and three warm calls each of WKV and of the scan (f32) at their main
+    paths' prefill shapes."""
+    s = PAGED_SHAPE
+    B, H, KV, hd, bs, NB = (s[k] for k in ("B", "H", "KV", "hd", "bs", "NB"))
+    paged = [(
+        "(lambda q, kp, vp, tbl, idx, ks, vs: (lambda c: lambda: "
+        "pa_ops.paged_attention(q, kp, vp, tbl, c, k_scales=ks, "
+        "v_scales=vs, force='kernel'))(idx.long()))(*cs.paged_case("
+        f"{B}, {H}, {KV}, {hd}, {bs}, {NB}, torch.float32, {kv}, "
+        f"[{s['cursor']}] * {B}, seed=77, trash_row=False))", 1)
+        for kv in PAGED_PROFILE_DTYPES]
+    rB, rS, rH, rhd = RWKV_SHAPE
+    wkv = ("(lambda a: lambda: wkv_ops.wkv(*a, force='kernel'))(cs.wkv_case("
+           f"{rB}, {rS}, {rH}, {rhd}, torch.float32, False, (0.69, 0.9975), "
+           "99))", 3)
+    jB, jS, jd, jN = JAMBA_SCAN_SHAPE
+    scan = ("(lambda c: lambda: scan_ops.selective_scan_with_state(*c[:-1], "
+            f"h0=c[-1], force='kernel'))(cs.scan_case({jB}, {jS}, {jd}, "
+            f"{jN}, torch.float32, False, 'model', 77))", 3)
+    *got_paged, got_wkv, got_scan = device_kernels(*paged, wkv, scan)
+    return {"paged": got_paged, "wkv": got_wkv, "scan": got_scan}
+
+
+def wkv_times(wkv_ops, res, layers, kernels):
     """The kernel, f32 and bf16 r/k/v, L2 flushed, each beside its route's
     bound (its products run on the tensor cores in 3xTF32) and the f32 FMA
     bound, and both plain forms (f32) at the main path's prefill shape
-    (CUDA events); the device kernels of three warm calls
-    (``torch.profiler``); then the WKV launches' share of the timed
-    prefill."""
+    (CUDA events); the device kernels of three warm calls, ``kernels``
+    (``profiler_readings``' "wkv"); then the WKV launches' share of the
+    timed prefill."""
     B, S, H, hd = RWKV_SHAPE
     flush = _flusher()
     # The function's products, 4 operations per state entry a step; the
@@ -2192,9 +2282,6 @@ def wkv_times(wkv_ops, res, layers):
               f"{bound['f32_bound_ms']:.4f} ms ({bound['f32_bound_by']})")
         out[name] = (ms, bound, args)
     kernel_ms, bound, args = out["float32"]
-    kernels = device_kernels(
-        f"(lambda a: lambda: wkv_ops.wkv(*a, force='kernel'))(cs.wkv_case("
-        f"{B}, {S}, {H}, {hd}, torch.float32, False, (0.69, 0.9975), 99))")
     print(f"wkv kernel: 3 calls ran {len(kernels)} device kernel(s) "
           f"{sorted(set(kernels))}")
     if len(kernels) != 3:
@@ -2255,13 +2342,17 @@ def scan_case(B, S, d, N, dtype, h0, regime, seed):
 def scan_parity_cases() -> list:
     """Phase 18's grid, (B, S, d, N, dtype, h0, regime) an input set, the
     main path's prefill shape last (``tools/kernel_bits_compare.py`` runs
-    it too)."""
+    it too).  At 8192 channels the grid takes B = 1 and S in (1, 64,
+    1024) alone (B = 4 and S 63, 1000 there cut for time: the batch is a
+    grid dim of its own and the ragged lengths a chunk boundary, each
+    taken at every smaller width, and B = 4 at the main path's shape)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(B, S, d, N, dtype, h0, regime)
              for dtype in (f32, bf16) for d in (16, 256, 1000, 8192)
-             for N in (4, 16) for S in (1, 63, 64, 1000, 1024)
-             for B in (1, 4) for h0 in (False, True)
-             for regime in SCAN_REGIMES]
+             for N in (4, 16)
+             for S in ((1, 63, 64, 1000, 1024) if d < 8192 else (1, 64, 1024))
+             for B in ((1, 4) if d < 8192 else (1,))
+             for h0 in (False, True) for regime in SCAN_REGIMES]
     # The model's dt and A (the timing inputs' regime) at a few shapes.
     cases += [(B, S, d, 16, dtype, h0, "model")
               for dtype in (f32, bf16) for d in (256, 1000)
@@ -2271,23 +2362,38 @@ def scan_parity_cases() -> list:
     return cases
 
 
+def scan_per_step_form(case, last: bool) -> bool:
+    """Whether phase 18 holds ``case`` to the per-step plain form as well
+    as the chunked one: below S = 1000 always, at S 1000 and 1024 only at
+    16 channels and B = 1 and at the main path's shape (``last``).  The
+    per-step form runs a step at a time, ~0.17 s a long case on the card,
+    and took 38 of the phase's 51 s; the chunked form, held to it in the
+    CPU tests, checks every case."""
+    B, S, d = case[:3]
+    return S < 1000 or (d == 16 and B == 1) or last
+
+
 def scan_parity(scan_ops) -> float:
     """The scan kernel against its per-step and chunked plain forms over
-    the grid, with and without the final state (y and h_final).  Returns
+    the grid (the per-step one where ``scan_per_step_form`` says), with
+    and without the final state (y and h_final).  Returns
     the max abs error of y at the main path's prefill shape (f32, zero
     state) against the chunked form, the one the CPU takes there."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = scan_parity_cases()
     B, S, d, N = JAMBA_SCAN_SHAPE
-    bad, err, worst = 0, 0.0, {}
+    bad, err, worst, n_step = 0, 0.0, {}, 0
     for n, (B, S, d, N, dtype, h0, regime) in enumerate(cases):
         *args, state = scan_case(B, S, d, N, dtype, h0, regime, 5000 + n)
+        forms = (("ref", "chunked") if scan_per_step_form(
+            cases[n], n == len(cases) - 1) else ("chunked",))
+        n_step += len(forms) == 2
         y, h = scan_ops.selective_scan_with_state(*args, h0=state,
                                                   force="kernel")
         y_only = scan_ops.selective_scan(*args, force="kernel") \
             if not h0 else None
         errs = []
-        for form in ("ref", "chunked"):
+        for form in forms:
             want_y, want_h = scan_ops.selective_scan_with_state(
                 *args, h0=state, force=form)
             e = [_rel_floor(y, want_y), _rel_floor(h, want_h)]
@@ -2316,7 +2422,8 @@ def scan_parity(scan_ops) -> float:
     n_zero = sum(not c[5] for c in cases)
     print(f"scan parity: {len(cases)} input sets ({len(cases) + n_zero} "
           "kernel calls, with and without the final state) within "
-          "tolerance against both plain forms")
+          f"tolerance against the chunked plain form, {n_step} of them "
+          "against the per-step form too")
     for dtype in (f32, bf16):
         *args, state = scan_case(B, S, d, N, dtype, True, "model", 11)
         first = scan_ops.selective_scan_with_state(*args, h0=state,
@@ -2461,10 +2568,11 @@ def jamba_card_vs_cpu(cfg, engine, registry):
     return host
 
 
-def jamba_times(scan_ops, fa_ops, res, n_mamba):
+def jamba_times(scan_ops, fa_ops, res, n_mamba, kernels):
     """The scan kernel and both plain forms at the main path's prefill
-    shape (CUDA events), beside the bound; the scan launches' share of the
-    timed prefill; and the flash-attention forward at jamba's attention
+    shape (CUDA events), beside the bound; the device kernels of three warm
+    calls, ``kernels`` (``profiler_readings``' "scan"); the scan launches'
+    share of the timed prefill; and the flash-attention forward at jamba's attention
     shape beside its plain version, SDPA and both bounds.  Returns the
     scan's record and the flash forward's readings there."""
     import re
@@ -2510,10 +2618,6 @@ def jamba_times(scan_ops, fa_ops, res, n_mamba):
           f"({ctas} CTAs on {n_sm} SMs) / 16 a clock at {sm_mhz:.0f} MHz "
           f"(clocks.sm; max {max_mhz:.0f}) = {sfu_ms:.4f} ms, beside the "
           f"byte bound {bound['bound_ms']:.4f} ms")
-    kernels = device_kernels(
-        "(lambda c: lambda: scan_ops.selective_scan_with_state(*c[:-1], "
-        f"h0=c[-1], force='kernel'))(cs.scan_case({B}, {S}, {d}, {N}, "
-        "torch.float32, False, 'model', 77))")
     print(f"scan kernel: 3 calls ran {len(kernels)} device kernel(s) "
           f"{sorted(set(kernels))}")
     if len(kernels) != 3:
@@ -2781,10 +2885,11 @@ RWKV_PAGED_ARGV = _with_arch(PAGED_ARGV, "rwkv6-7b")
 # layers (cut from 32: the acceptance does not depend on the depth, the
 # run's time does).
 RWKV_ZEROL_DEPTH = 4
-# Phase 27 serves the first 4 of phase 15's 32 layers (cut from 32 to make
-# room for phases 40-43: each layer adds the same host-bound
-# chunk and step work; the full depth's prefill and decode stay phase 15's).
-RWKV_CONT_DEPTH = 4
+# Phase 27 serves the first 2 of phase 15's 32 layers (cut from 32 to make
+# room for phases 40-43, and from 4 for phase 44: each layer adds the same
+# host-bound chunk and step work; the full depth's prefill and decode stay
+# phase 15's).
+RWKV_CONT_DEPTH = 2
 RWKV_SPEC_REQUESTS = 8
 PAGE = 16                           # --block-size of every paged run here
 
@@ -3349,7 +3454,7 @@ def fault_serving_paths(cfg, cfglib, registry, serve, plain, prefix_int8,
     rw = registry.get_model(rcfg).init(torch.Generator().manual_seed(0),
                                        rcfg, device="cpu")
     reqs = _requests_of(_drawn_traffic(rcfg, _with_arch(PAGED_ARGV,
-                                                        rcfg.name))[:12])
+                                                        rcfg.name))[:6])
     from repro_torch.train.serve_engine import ServeEngine
     eng = ServeEngine(rcfg, rw, device="cuda", max_len=max_len, paged=True,
                       block_size=16)
@@ -3459,24 +3564,13 @@ def fault_training_paths(cfg, registry) -> dict:
             _fail(f"{label}: launches {read_counts()}, expected {want}")
         return res
 
+    # One clean run (its repeat cut for time: each resumed run below is
+    # held to it bit for bit, which a nondeterministic step would break).
     clean = train("clean run", 0, TRAIN_STEPS)
-    again = train("clean run again", 0, TRAIN_STEPS)
-    differ = _same_state("clean runs", clean, again)
-    if differ:
-        # name the op that breaks determinism: torch raises on the first
-        # one with no deterministic implementation
-        torch.use_deterministic_algorithms(True)
-        try:
-            train("deterministic algorithms", 0, TRAIN_STEPS)
-        except RuntimeError as e:
-            print(f"  deterministic algorithms: {e}")
-        finally:
-            torch.use_deterministic_algorithms(False)
-        _fail(f"two clean runs differ in {differ}")
-    print(f"phase 31 clean runs: losses, params and momenta bit-identical "
-          f"(12 steps, 1 -> 12 layers at step {tau})")
     with tempfile.TemporaryDirectory() as tmp:
-        for k in (5, 7):
+        # train.iter:8 alone (train.iter:6, cut for time, resumed from 3
+        # as the async crash below does)
+        for k in (7,):
             d = os.path.join(tmp, f"k{k}")
             train(f"train.iter:{k + 1}:crash", 0, k, d, crash=True,
                   faults=f"train.iter:{k + 1}:crash")
@@ -3497,9 +3591,8 @@ def fault_training_paths(cfg, registry) -> dict:
         differ = _same_state("resume after the async crash", res, clean)
         if differ:
             _fail(f"resumed after the async crash: {differ} differ")
-    print("phase 31 crash-resume: train.iter:6, train.iter:8 and "
-          "ckpt.write:2 (async) crashes resumed bit-identical to the clean "
-          "run")
+    print("phase 31 crash-resume: train.iter:8 and ckpt.write:2 (async) "
+          "crashes resumed bit-identical to the clean run")
     # nan at step 8 under skip, a train.step fault retried at step 2: the
     # skipped step leaves params and momenta bit for bit
     checked = []
@@ -4844,7 +4937,8 @@ RECIPE_PROBE_STEPS, RECIPE_TOTAL = 40, 1000
 REC_BWD_TOL = 1e-4
 # Phase 41's grid of lengths: one step, around and at the forward's chunks
 # (16 at hd 128, 32 otherwise), past them, and the serving shape's.
-WKV_BWD_S = (1, 15, 16, 17, 63, 64, 100, 1024)
+# (15 and 63 cut for time: 16, 17, 64 and 100 take the chunk boundaries)
+WKV_BWD_S = (1, 16, 17, 64, 100, 1024)
 # rwkv6-7b trained at full width, 2 -> 4 of its 32 layers (copying_stack at
 # half the steps), Muon-NSGD, batches of 4 x 1024 (full depth holds about
 # 90 GB with grads and momentum and does not fit the card).
@@ -5520,12 +5614,13 @@ def _serve_counts(cfg):
     return want
 
 
-# (e) continuous serving on the mesh: 16 requests into 4 slots (4 divides
-# both ranks of 2x1) over pages of 16, prompts of 32-160 tokens, the even
+# (e) continuous serving on the mesh: 8 requests (16 until phase 44, cut
+# for time; phase 44 serves the same 8) into 4 slots (4 divides both
+# ranks of 2x1) over pages of 16, prompts of 32-160 tokens, the even
 # ones opening with one shared 64-token (4-page) prefix, 16-32 new tokens,
 # greedy, all queued at once, served from the grown checkpoint.  No
 # warm-up run: every process has trained and served before (a)-(d).
-MESH_CSERVE_REQUESTS, MESH_CSERVE_SLOTS, MESH_CSERVE_BLOCK = 16, 4, 16
+MESH_CSERVE_REQUESTS, MESH_CSERVE_SLOTS, MESH_CSERVE_BLOCK = 8, 4, 16
 MESH_CSERVE_SHARED = 64
 MESH_CSERVE_MAX_LEN = 192              # the longest prompt + budget
 MESH_CSERVE_KW = {
@@ -5929,9 +6024,420 @@ def mesh_phase(cfglib, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 44. Expert parallelism and the tensor-parallel Mamba, RWKV6 and MLA layers
+# on 1x2 (two ranks sharing the card over gloo): jamba's first two layers,
+# rwkv6-7b and deepseekv3-0.3b at full width and depth 2, each trained and
+# served on the rank's experts, channels and heads against mesh=None.
+# ---------------------------------------------------------------------------
+
+# (steps, global batch, sequence length) of each model's training run,
+# Muon-NSGD, no expansion: jamba at phase 42's batch, deepseekv3-0.3b at
+# the launcher's, rwkv6-7b at 2 x 512 (cut from phase 41's 4 x 1024 for
+# time: its 1x2 step moves ~16 activations of B x S x 4096 through gloo).
+MESH44_TRAIN = {"jamba": (3, 4, 1024), "rwkv": (2, 2, 512),
+                "dsv3": (3, 16, 256)}
+MESH44_PROMPTS = (4, 64, 8)          # (B, P, G) of the greedy generations
+MESH44_REQUESTS = 8                  # deepseekv3-0.3b's continuous run
+# Losses of the 1x2 runs against mesh=None's: the reference's own
+# tolerance for its sharded runs.  rwkv6-7b's generation: logits against
+# solo generate, phase 43's TP tolerance.
+MESH44_LOSS_TOL = 1e-4
+
+
+def _mesh44_cfgs(cfglib):
+    return {"jamba": _jamba_cut(cfglib.get_config("jamba-v0.1-52b"), 2),
+            "rwkv": cfglib.get_config("rwkv6-7b").with_depth(2),
+            "dsv3": cfglib.get_config("deepseekv3-0.3b").with_depth(2)}
+
+
+def _mesh44_tcfg(cfg, name):
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    steps, batch, seq = MESH44_TRAIN[name]
+    return TrainConfig(total_steps=steps, seq_len=seq, global_batch=batch,
+                       source_layers=cfg.num_layers,
+                       optimizer=OptimizerConfig(name="muon_nsgd"),
+                       eval_every=10 ** 9, checkpoint_every=10 ** 9,
+                       log_every=1, seed=0)
+
+
+def _split_before(path, cfg) -> bool:
+    """Whether a layer computed the leaf at ``path`` on its 'model' shard
+    before expert and tensor parallelism (the vocab, MHA/GQA attention
+    and the dense MLP); every other leaf the rule splits was gathered."""
+    if path[-1] in ("embed", "lm_head"):
+        return True
+    if "attn" in path and path[-1] in ("wq", "wk", "wv", "wo"):
+        return cfg.attention != "mla"
+    return "mlp" in path
+
+
+def _reckon(cfg, registry) -> dict:
+    """From the meta device under 1x2's rules: the params a rank holds
+    (GB f32), the whole model's, and what the gather path (every expert
+    stack, Mamba, RWKV6 and MLA projection gathered over 'model' for the
+    forward, its whole gradient held in the backward) would add a rank:
+    twice the other rank's share of those leaves."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.tree import leaves_with_path
+    ms = shd.MeshShape(("data", "model"), (1, 2))
+    like = registry.get_model(cfg).init(None, cfg, device="meta")
+    local = whole = other = 0
+    for path, x in leaves_with_path(like):
+        spec = shd.param_spec(path, x.shape, ms)
+        n = x.numel()
+        part = int(np.prod(shd.local_shape(x.shape, spec, ms)))
+        whole, local = whole + n, local + part
+        if part < n and not _split_before(path, cfg):
+            other += n - part
+    return {"rank_params_gb": 4 * local / 1e9, "whole_gb": 4 * whole / 1e9,
+            "gather_path_extra_gb": 2 * 4 * other / 1e9}
+
+
+def _ns_rank_launches(cfg, model: int) -> dict:
+    """(ns_fused, matmul) launches of one Muon update on a rank of a 1 x
+    ``model`` mesh: one ``ns_fused`` a fused-route leaf, 15 GEMMs (5
+    steps of 3) a matrix the rank orthogonalizes of a large-route leaf:
+    each matrix whole, the leading dims as the rank holds them (an expert
+    stack split over 'model' gives the rank E/model matrices)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.newton_schulz import ops as ns_ops
+    from repro_torch.models import registry
+    from repro_torch.optim import muon
+    from repro_torch.tree import leaves_with_path
+    ms = shd.MeshShape(("data", "model"), (1, model))
+    fused = large = 0
+    for path, x in leaves_with_path(
+            registry.get_model(cfg).init(None, cfg, device="meta")):
+        if not muon._is_matrix(path, x):
+            continue
+        if ns_ops.route(*x.shape[-2:]) == "fused":
+            fused += 1
+            continue
+        held = shd.local_shape(x.shape, shd.param_spec(path, x.shape, ms),
+                               ms)
+        large += math.prod(held[:-2])
+    return {"ns_fused": fused, "matmul": 15 * large}
+
+
+def _muon_expert_stack(cfg, g) -> torch.Tensor:
+    """A rank's momentum of ``cfg``'s first expert stack (``w_gate``) as
+    Muon hands it to Newton-Schulz on 1x2: the leaf's held shape, its
+    leading dims (layers, the rank's E/2 experts) flattened into one
+    batch, drawn from ``g``."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import registry
+    from repro_torch.tree import leaves_with_path
+    ms = shd.MeshShape(("data", "model"), (1, 2))
+    for path, x in leaves_with_path(
+            registry.get_model(cfg).init(None, cfg, device="meta")):
+        if path[-2:] == ("moe", "w_gate"):
+            held = shd.local_shape(x.shape, shd.param_spec(path, x.shape, ms),
+                                   ms)
+            return torch.randn((math.prod(held[:-2]),) + tuple(held[-2:]),
+                               generator=g, device="cuda") * 0.02
+    raise ValueError(f"{cfg.name} has no expert stack")
+
+
+def mesh44_lanes(scan_ops, wkv_ops, ns_ops, cfgs) -> dict:
+    """Each kernel of phase 44's paths at its rank-local shape on 1x2
+    against its plain version on the same inputs: the scan forward and
+    backward on 4096 of jamba's 8192 channels, the WKV forward and
+    backward on 32 of rwkv6-7b's 64 heads, ``ns_fused`` on deepseekv3-0.3b's
+    expert stack as a rank's Muon hands it over (2 layers x 4 of 8 experts
+    of 512 x 1024), Newton-Schulz through the ``matmul`` kernel on jamba's
+    (8 of 16 experts of 4096 x 14336, too large to fuse), flash forward and
+    backward on deepseekv3-0.3b's 4 of 8 query heads over 2 of 4 KV heads
+    (G = 2).  The launches count nowhere: the caller read its main paths'
+    counters before."""
+    import mesh_runs
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    out = {}
+    _, B, S = MESH44_TRAIN["jamba"]
+    d = cfgs["jamba"].ssm.expand * cfgs["jamba"].d_model // 2
+    N = cfgs["jamba"].ssm.d_state
+    u, dt, A, Bm, Cm, Dp, h0 = scan_case(B, S, d, N, f32, True, "model", 44)
+    y, h = scan_ops.selective_scan_with_state(u, dt, A, Bm, Cm, Dp, h0=h0,
+                                              force="kernel")
+    wy, wh = scan_ops.selective_scan_with_state(u, dt, A, Bm, Cm, Dp, h0=h0,
+                                                force="chunked")
+    out["selective_scan"] = max(_rel_floor(y, wy), _rel_floor(h, wh))
+    g = torch.Generator(device="cuda").manual_seed(45)
+    dy = torch.randn(u.shape, generator=g, device="cuda")
+    got = _grads_through(lambda *a: scan_ops.selective_scan_with_state(
+        *a[:6], h0=a[6]), (u, dt, A, Bm, Cm, Dp, h0), (dy, None))
+    want = scan_ref.selective_scan_bwd_ref(u, dt, A, Bm, Cm, Dp, h0, dy)
+    out["selective_scan_bwd"] = max(_bwd_ratio(a, b)
+                                    for a, b in zip(got, want))
+    del u, dt, A, Bm, Cm, Dp, h0, y, h, wy, wh, got, want
+    H = cfgs["rwkv"].d_model // cfgs["rwkv"].ssm.head_dim // 2
+    hd = cfgs["rwkv"].ssm.head_dim
+    _, B, S = MESH44_TRAIN["rwkv"]
+    args = wkv_case(B, S, H, hd, f32, True, WKV_DECAYS["near 0.69"], 46)
+    y, s = wkv_ops.wkv(*args, force="kernel")
+    wy, ws = wkv_ops.wkv(*args, force="chunked")
+    out["wkv"] = max(_rel_floor(y, wy), _rel_floor(s, ws))
+    dy = torch.randn(args[0].shape, generator=g, device="cuda")
+    got = _grads_through(wkv_ops.wkv, args, (dy, None))
+    want = wkv_ref.wkv_bwd_ref(*args, dy, None)
+    out["wkv_bwd"] = max(_bwd_ratio(a, b) for a, b in zip(got, want))
+    del args, y, s, wy, ws, got, want
+    dsv3 = cfgs["dsv3"]
+    x = _muon_expert_stack(dsv3, g)
+    if ns_ops.route(*x.shape[-2:]) != "fused":
+        _fail(f"phase 44: {tuple(x.shape)} does not take ns_fused's route")
+    out["ns_fused"] = _rel_err(ns_ops.ns_fused(x, force="kernel"),
+                               ns_ops.ns_fused(x, force="ref"))
+    x = _muon_expert_stack(cfgs["jamba"], g)
+    if ns_ops.route(*x.shape[-2:]) != "large":
+        _fail(f"phase 44: {tuple(x.shape)} does not take matmul's route")
+    out["matmul"] = _rel_err(ns_ops.newton_schulz(x, force="kernel"),
+                             ns_ops.newton_schulz(x, force="ref"))
+    del x
+    _, batch, seq = MESH44_TRAIN["dsv3"]
+    fl = mesh_runs.flash_local((batch, seq, dsv3.num_heads // 2,
+                                dsv3.head_dim), device="cuda",
+                               kv_heads=dsv3.num_kv_heads // 2)
+    out["flash_attention"] = fl["out"]
+    out["flash_attention_bwd"] = max(v for k, v in fl.items() if k != "out")
+    torch.cuda.synchronize()
+    limits = {"selective_scan": SCAN_TOL[f32], "selective_scan_bwd": 1.0,
+              "wkv": WKV_TOL[f32], "wkv_bwd": 1.0, "ns_fused": NS_TOL[f32],
+              "matmul": NS_TOL[f32],
+              "flash_attention": TOL[f32], "flash_attention_bwd": TOL[f32]}
+    for name, err in out.items():
+        ok = err <= limits[name]
+        print(f"  (d) {name} at the 1x2 local shape vs plain: {err:.3g} "
+              f"(limit {limits[name]}{' of its entries' if limits[name] == 1.0 else ''}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"phase 44: {name} at its rank-local shape: {err}")
+    print(f"  (d) local-shape lanes {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _ties_only(label, got, want, logits):
+    """Greedy rows ``got`` against ``want``: equal, or first different
+    where ``want``'s logits (B, G, V) at that step have a top-2 gap below
+    ``SPEC_TIE_GAP``.  Returns how many rows are equal."""
+    P = want.shape[1] - logits.shape[1]
+    equal = 0
+    for b in range(want.shape[0]):
+        diff = np.flatnonzero(got[b] != want[b])
+        if not diff.size:
+            equal += 1
+            continue
+        t = int(diff[0]) - P
+        top2 = np.sort(logits[b, t])[-2:]
+        gap = float(top2[1] - top2[0])
+        print(f"  {label}, row {b}: first differs at token {t}, top-2 gap "
+              f"{gap:.3e}")
+        if t < 0 or gap >= SPEC_TIE_GAP:
+            _fail(f"{label}, row {b} leaves solo generate's stream at token "
+                  f"{t} with a top-2 gap {gap:.3e}")
+    return equal
+
+
+def mesh_layers_phase(cfglib, registry, card) -> dict:
+    """Phase 44; returns its readings."""
+    from repro_torch.launch import mesh as mesh_lib
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import mesh_runs
+    t0 = time.perf_counter()
+    cfgs = _mesh44_cfgs(cfglib)
+    print("phase 44: expert parallelism and tensor-parallel Mamba, RWKV6 "
+          "and MLA on 1x2 (two ranks sharing the card over gloo), full "
+          f"width, depth 2 [{card}]")
+    reckoned = {}
+    for name, cfg in cfgs.items():
+        reckoned[name] = r = _reckon(cfg, registry)
+        print(f"  (a) {cfg.name} at 2 layers: {r['whole_gb']:.2f} GB f32 "
+              f"params, {r['rank_params_gb']:.2f} GB a rank on 1x2 (x3 with "
+              f"momentum and gradients: {3 * r['rank_params_gb']:.1f} GB; "
+              f"two ranks {6 * r['rank_params_gb']:.1f} GB); the gather "
+              f"path would add {r['gather_path_extra_gb']:.2f} GB a rank "
+              "(reckoned on the meta device)")
+    B, P, G = MESH44_PROMPTS
+    prompts = {name: np.random.default_rng(44).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+        for name, cfg in cfgs.items()}
+    dsv3 = _dropless(cfgs["dsv3"])
+    traffic = _mesh_traffic(dsv3.vocab_size)[:MESH44_REQUESTS]
+    cs_kw = dict(max_len=MESH_CSERVE_MAX_LEN, max_batch=MESH_CSERVE_SLOTS,
+                 engine_kw=MESH_CSERVE_KW["f32"], count=True, card_seed=0)
+
+    # (a)-(c), mesh=None in this process, one model at a time
+    none = {}
+    for name, cfg in cfgs.items():
+        none[name] = mesh_runs.train(cfg, _mesh44_tcfg(cfg, name), None,
+                                     device="cuda", count=True, card_seed=0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name != "dsv3":
+            none[f"serve_{name}"] = mesh_runs.serve(
+                cfg, None, prompts[name], G, None, device="cuda",
+                max_len=P + G, count=True, card_seed=0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    none["cserve_dsv3"] = mesh_runs.cserve(dsv3, None, traffic, None,
+                                           device="cuda", **cs_kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    scen = []
+    for name, cfg in cfgs.items():
+        scen.append((name, "train", dict(cfg=cfg,
+                                         tcfg=_mesh44_tcfg(cfg, name),
+                                         mesh="1x2", count=True,
+                                         card_seed=0)))
+        if name != "dsv3":
+            scen.append((f"serve_{name}", "serve", dict(
+                cfg=cfg, params_np=None, prompts=prompts[name],
+                num_tokens=G, mesh="1x2", max_len=P + G, count=True,
+                card_seed=0)))
+    scen.append(("cserve_dsv3", "cserve", dict(cfg=dsv3, params_np=None,
+                                               requests=traffic, mesh="1x2",
+                                               **cs_kw)))
+    t1 = time.perf_counter()
+    ranks = mesh_lib.spawn(mesh_runs.run, 2, (scen, "cuda"), device="cuda",
+                           threads=0, timeout_s=900)
+    spawn_s = time.perf_counter() - t1
+
+    out = {"reckoned": reckoned, "spawn_s": spawn_s,
+           "scenario_s": ranks[0]["_seconds"]}
+    for name, cfg in cfgs.items():
+        ref = none[name]
+        got = [res[name] for res in ranks]
+        steps = MESH44_TRAIN[name][0]
+        want = {k: 0 for k in COUNTERS}
+        want.update({"jamba": dict(selective_scan=2 * steps,
+                                   selective_scan_bwd=2 * steps),
+                     "rwkv": dict(wkv=2 * steps, wkv_bwd=2 * steps),
+                     "dsv3": dict(flash_attention=2 * steps,
+                                  flash_attention_bwd=2 * steps)}[name])
+        for model, counts in [(1, ref["counts"])] + [
+                (2, g["counts"]) for g in got]:
+            w = dict(want, **{k: v * steps for k, v in
+                              _ns_rank_launches(cfg, model).items()})
+            if counts != w:
+                _fail(f"{name}: launches {counts} with 'model' {model}, "
+                      f"expected {w}")
+        for r, g in enumerate(got):
+            if g["history"]["loss"] != got[0]["history"]["loss"]:
+                _fail(f"{name}: rank {r}'s losses differ from rank 0's")
+        err = float(np.max(np.abs(np.array(got[0]["history"]["loss"])
+                                  - np.array(ref["history"]["loss"]))))
+        if not err <= MESH44_LOSS_TOL:
+            _fail(f"{name}: 1x2 losses {got[0]['history']['loss']} off "
+                  f"mesh=None's {ref['history']['loss']} by {err}")
+        peaks = [g["peak_bytes"] / 2 ** 30 for g in got]
+        rec = {"losses": got[0]["history"]["loss"],
+               "losses_mesh_none": ref["history"]["loss"],
+               "loss_max_abs_err": err,
+               "launches_per_rank": [g["counts"] for g in got],
+               "peak_gib_per_rank": peaks,
+               "peak_gib_mesh_none": ref["peak_bytes"] / 2 ** 30,
+               "gather_path_peak_gib_reckoned": max(peaks) + reckoned[name][
+                   "gather_path_extra_gb"] * 1e9 / 2 ** 30,
+               "ms_per_step": [1e3 * float(np.mean(g["step_times"][1:]))
+                               for g in got],
+               "ms_per_step_mesh_none": 1e3 * float(np.mean(
+                   ref["step_times"][1:]))}
+        out[name] = rec
+        print(f"  ({'abc'[list(cfgs).index(name)]}) {cfg.name}: {steps} "
+              f"Muon-NSGD steps of {MESH44_TRAIN[name][1]} x "
+              f"{MESH44_TRAIN[name][2]}; losses {rec['losses']} against "
+              f"mesh=None's {rec['losses_mesh_none']} (max diff {err:.3g}, "
+              f"limit {MESH44_LOSS_TOL}); launches per rank "
+              f"{rec['launches_per_rank'][0]}, mesh=None's {ref['counts']} "
+              "(as derived: a rank's Newton-Schulz GEMMs on its experts)")
+        print(f"      peak per rank {[round(p, 2) for p in peaks]} GiB "
+              f"against mesh=None's {rec['peak_gib_mesh_none']:.2f} GiB and "
+              f"the gather path's {rec['gather_path_peak_gib_reckoned']:.2f}"
+              f" GiB (reckoned); ms a step (steps 2+) "
+              f"{[round(x, 1) for x in rec['ms_per_step']]} against "
+              f"{rec['ms_per_step_mesh_none']:.1f} [{card}]")
+
+    for name in ("jamba", "rwkv"):
+        ref = none[f"serve_{name}"]
+        got = [res[f"serve_{name}"] for res in ranks]
+        for r, g in enumerate(got):
+            if not np.array_equal(g["tokens"], got[0]["tokens"]):
+                _fail(f"serve {name}: rank {r}'s tokens differ")
+            if g["counts"] != ref["counts"]:
+                _fail(f"serve {name}: rank {r} launches {g['counts']}, "
+                      f"expected solo's {ref['counts']}")
+        kernel = "selective_scan" if name == "jamba" else "wkv"
+        if ref["counts"][kernel] != 2:
+            _fail(f"serve {name}: solo launches {ref['counts']}, expected "
+                  f"one {kernel} a layer in the prefill")
+        if name == "rwkv":
+            if not np.array_equal(got[0]["tokens"], ref["tokens"]):
+                _fail("rwkv6-7b 1x2 greedy tokens differ from solo generate")
+            lerr = float(np.max(np.abs(got[0]["logits"] - ref["logits"])))
+            if not lerr <= MESH_LOGIT_TOL:
+                _fail(f"rwkv6-7b 1x2 logits off solo by {lerr}")
+            equal = B
+        else:
+            lerr = None
+            equal = _ties_only("phase 44 jamba 1x2 generate",
+                               got[0]["tokens"], ref["tokens"],
+                               ref["logits"])
+        out[f"serve_{name}"] = {"rows_equal": equal, "logit_max_abs_err":
+                                lerr, "launches_per_rank":
+                                [g["counts"] for g in got]}
+        print(f"  ({'ab'[name == 'rwkv']}) {cfgs[name].name} greedy generate "
+              f"at 1x2 ({B} prompts of {P}, {G} tokens): {equal} of {B} "
+              f"rows equal solo generate's"
+              + (f", logits within {lerr:.3g}" if lerr is not None else
+                 " (the rest at near-ties)")
+              + f"; {kernel} launches per rank "
+              f"{[g['counts'][kernel] for g in got]}, as solo's")
+    ref = none["cserve_dsv3"]
+    got = [res["cserve_dsv3"] for res in ranks]
+    for r, g in enumerate(got):
+        if [x["tokens"].tolist() for x in g["results"]] != \
+                [x["tokens"].tolist() for x in got[0]["results"]]:
+            _fail(f"cserve dsv3: rank {r}'s streams differ from rank 0's")
+        if g["counts"] != ref["counts"]:
+            _fail(f"cserve dsv3: rank {r} launches {g['counts']}, expected "
+                  f"mesh=None's {ref['counts']}")
+    if any(x["finish_reason"] != "limit" for x in got[0]["results"]):
+        _fail("cserve dsv3: not every request ran to its budget")
+    params = mesh_runs.card_params(dsv3, 0, "cuda")
+    equal = streams_vs("phase 44 (c) deepseekv3-0.3b 1x2", dsv3, registry,
+                       _as_results(traffic, got[0]),
+                       _as_results(traffic, ref), params)
+    del params
+    out["cserve_dsv3"] = {"streams_equal": equal,
+                          "launches_per_rank": [g["counts"] for g in got],
+                          "tokens_per_s": got[0]["summary"]["tokens_per_s"],
+                          "tokens_per_s_mesh_none":
+                              ref["summary"]["tokens_per_s"]}
+    print(f"  (c) deepseekv3-0.3b continuous paged serving at 1x2 "
+          f"(dropless; {MESH44_REQUESTS} requests into "
+          f"{MESH_CSERVE_SLOTS} slots, latent pages whole, MLA on 4 of 8 "
+          f"heads): {equal} of {MESH44_REQUESTS} streams equal mesh=None's "
+          f"(the rest at near-ties); launches per rank "
+          f"{[g['counts'] for g in got]}, as mesh=None's; "
+          f"{out['cserve_dsv3']['tokens_per_s']:.1f} tokens/s against "
+          f"{out['cserve_dsv3']['tokens_per_s_mesh_none']:.1f} [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lanes"] = mesh44_lanes(OPS["scan"], OPS["wkv"], OPS["ns"], cfgs)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 44: {out['seconds']:.1f} s (spawn {spawn_s:.1f} s; rank "
+          f"0's scenarios { {k: round(v, 1) for k, v in ranks[0]['_seconds'].items()} }) "
+          f"[{card}]")
+    return out
+
+
 def run_only(only, cfglib, registry, fa_ops, pa_ops, train, serve) -> int:
     """``--only``: after the card and the build, the named phases of
-    36-42 alone, each as the full run makes it (41 and 42 on weights drawn
+    36-44 alone, each as the full run makes it (41 and 42 on weights drawn
     on the card for them); prints their readings as JSON and no closing
     line."""
     got = {}
@@ -5969,6 +6475,8 @@ def run_only(only, cfglib, registry, fa_ops, pa_ops, train, serve) -> int:
         got["39"] = whisper_paths(cfglib, registry)
     if 43 in only:
         got["43"] = mesh_phase(cfglib, card_line())
+    if 44 in only:
+        got["44"] = mesh_layers_phase(cfglib, registry, card_line())
     print(json.dumps(got))
     return 0
 
@@ -5977,12 +6485,12 @@ def main() -> int:
     only = None
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = {int(x) for x in sys.argv[2].split(",")}
-        if not only <= {36, 37, 38, 39, 40, 41, 42, 43}:
-            print("chip_smoke: --only takes phases among 36-43",
+        if not only <= {36, 37, 38, 39, 40, 41, 42, 43, 44}:
+            print("chip_smoke: --only takes phases among 36-44",
                   file=sys.stderr)
             return 2
     elif sys.argv[1:]:
-        print("usage: chip_smoke.py [--only 36,37,...,43]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only 36,37,...,44]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6042,11 +6550,13 @@ def main() -> int:
         return run_only(only, cfglib, registry, fa_ops, pa_ops, train,
                         serve)
 
+    _mark("3-4")
     # 3-4. kernel parity on the card
     main_err = parity(fa_ops)
     fa_f64 = fa_f64_and_repeats(fa_ops)
     paged_errs = paged_parity(pa_ops)
 
+    _mark("32")
     # 32. the hd-256 kernels (gemma2's and gemma3's shapes) against their
     # plain versions, f32 and bf16, and their times
     t0 = time.perf_counter()
@@ -6054,10 +6564,12 @@ def main() -> int:
     pa256 = hd256_paged(pa_ops)
     print(f"hd 256 kernels phase {time.perf_counter() - t0:.1f} s")
 
+    _mark("36")
     # 36. the flash kernels at S_k != S_q (whisper's cross-attention) and
     # at the encoder's S = 1500, non-causal, against their plain versions
     cross = cross_attention_lane(fa_ops)
 
+    _mark("5")
     # 5. the contiguous main path, counters from 0
     cfg = cfglib.get_config("gpt2-12l")
     zero_counts()
@@ -6073,6 +6585,7 @@ def main() -> int:
     print(f"main path: {launches} flash-attention launches "
           f"(2 prefills x {cfg.num_layers} layers, 0 in decode)")
 
+    _mark("6")
     # 6. the continuous paged main path, counters from 0; then over int8
     # pages, fp8 pages and the prefix cache over int8 pages, counters from
     # 0 before each
@@ -6081,14 +6594,17 @@ def main() -> int:
     quant_launches, quant_results = quant_main_paths(cfg, serve, fa_ops,
                                                      pa_ops)
 
+    _mark("7")
     # 7. card against CPU
     card_vs_cpu(cfglib, registry, ServeEngine, fa_ops)
     paged_card_vs_cpu(cfglib, registry)
     quant_card_vs_cpu(cfglib, registry)
 
+    _mark("8")
     # 8. times
     t = times(fa_ops)
-    pa_call = paged_one_kernel(pa_ops)
+    readings = profiler_readings()
+    pa_call = paged_one_kernel(pa_ops, readings["paged"])
     tp = paged_times(pa_ops)
     tq = {name: paged_times(pa_ops, dt) for name, dt in
           (("int8", torch.int8), ("float8_e4m3fn", torch.float8_e4m3fn))}
@@ -6100,12 +6616,14 @@ def main() -> int:
          "max_abs_err": paged_errs[name], **tq[name]}
         for name, key in (("int8", "int8"), ("float8_e4m3fn", "fp8"))]
 
+    _mark("9")
     # 9. training parity on the card
     ns_err = ns_parity(ns_ops)
     mm_err = matmul_parity(ns_ops)
     bwd_err = bwd_parity(fa_ops)
     bwd_f64 = bwd_f64_and_repeats(fa_ops)
 
+    _mark("10-11")
     # 10-11. the training main path, counters from 0, then serve its
     # checkpoint
     with tempfile.TemporaryDirectory() as tmp:
@@ -6113,41 +6631,50 @@ def main() -> int:
         res, train_counts = train_main_path(cfg, train, ckpt_dir)
         serve_trained(serve, ckpt_dir, cfg.num_layers)
 
+    _mark("12")
     # 12. card against CPU, one train step (gpt2-12l at depth 1,
     # llama3-0.3b and mixtral-0.3b at depth 2)
     train_card_vs_cpu(cfglib, registry)
     train_card_vs_cpu(cfglib, registry, "llama3-0.3b", 2)
     train_card_vs_cpu(cfglib, registry, "mixtral-0.3b", 2)
 
+    _mark("13")
     # 13. training times
     t_ns, t_mm, t_bwd = train_times(ns_ops, fa_ops, res, cfg)
 
+    _mark("14")
     # 14. WKV parity on the card
     t0 = time.perf_counter()
     wkv_err = wkv_parity(wkv_ops)
     print(f"wkv parity phase {time.perf_counter() - t0:.1f} s")
 
+    _mark("15")
     # 15. the RWKV6 main path, counters from 0, on weights drawn once on
     # the card for phases 15-17 and 27
     rwkv_cfg = cfglib.get_config("rwkv6-7b")
     rwkv_params = draw_on_card(registry, rwkv_cfg)
     rwkv_res, wkv_launches, _ = rwkv_main_path(cfglib, rwkv_params)
 
+    _mark("16")
     # 16. card against CPU
     t0 = time.perf_counter()
     rwkv_card_vs_cpu(cfglib, registry)
     print(f"rwkv card vs cpu phase {time.perf_counter() - t0:.1f} s")
 
+    _mark("17")
     # 17. WKV times
-    t_wkv = wkv_times(wkv_ops, rwkv_res, rwkv_cfg.num_layers)
+    t_wkv = wkv_times(wkv_ops, rwkv_res, rwkv_cfg.num_layers,
+                      readings["wkv"])
     del rwkv_res
 
+    _mark("27")
     # 27. rwkv6-7b at full width and depth in continuous serving on phase
     # 15's weights (run right after phase 17): paged through the CLI, then
     # the prefix cache, speculation and the paper's draft, counters from 0
     # before each run
     rwkv_cont = rwkv_continuous_paths(cfglib, registry, rwkv_params)
 
+    _mark("41")
     # 41. the WKV backward (right after phase 27, on phase 15's weights):
     # one depth-1 step card against CPU; then, the weights freed, its lane
     # and times and rwkv6-7b trained 2 -> 4 layers from a cut of them
@@ -6160,30 +6687,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("18")
     # 18. scan parity on the card
     t0 = time.perf_counter()
     scan_err = scan_parity(scan_ops)
     print(f"scan parity phase {time.perf_counter() - t0:.1f} s")
 
+    _mark("19")
     # 19. the jamba main path, counters from 0
     jamba_cfg, engine, jamba_res, jamba_counts, _ = jamba_main_path(
         cfglib, registry, ServeEngine)
 
+    _mark("20")
     # 20. card against CPU
     jamba_host = jamba_card_vs_cpu(jamba_cfg, engine, registry)
 
+    _mark("21")
     # 21. scan times
     n_mamba = sum(jamba_cfg.layer_kind(i) == "mamba"
                   for i in range(jamba_cfg.num_layers))
     t_scan, t_fa_jamba = jamba_times(scan_ops, fa_ops, jamba_res,
-                                     n_mamba)
+                                     n_mamba, readings["scan"])
 
+    _mark("28")
     # 28. jamba in continuous serving on phase 19's weights: paged over
     # f32 and int8 pages, contiguous, the zero-layer draft; counters from 0
     # before each run.  29, jamba's half: card against CPU, paged
     jamba_cont = jamba_continuous_paths(jamba_cfg, engine)
     jamba_paged_card_vs_cpu(jamba_cfg, engine, jamba_host)
 
+    _mark("42")
     # 42. the scan backward (right after phase 29's jamba half, on phase
     # 19's weights): one depth-1 step card against CPU; then, the 8 layers
     # freed, its lane and times and jamba's first two layers trained from a
@@ -6198,6 +6731,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("22")
     # 22. self-speculative decoding: phase 6's traffic, counters from 0;
     # the same with the prefix cache over int8 pages; the paper's draft;
     # spec streams against phase 6's
@@ -6219,11 +6753,13 @@ def main() -> int:
                   spec_sched.engine)
     print(f"spec phase {time.perf_counter() - t0:.1f} s")
 
+    _mark("23")
     # 23. progressive training of llama3-0.3b at full width and depth
     t0 = time.perf_counter()
     rope_train_path(cfglib, train, "llama3-0.3b")
     print(f"llama3 training phase {time.perf_counter() - t0:.1f} s")
 
+    _mark("24")
     # 24. qwen3-0.3b over paged KV, f32 and int8 pages; the paper's draft
     t0 = time.perf_counter()
     rope_serve_paths(cfglib, registry, serve, fa_ops, pa_ops, "qwen3-0.3b",
@@ -6231,6 +6767,7 @@ def main() -> int:
     spec_zerol(cfglib, registry, "qwen3-0.3b", QWEN3_ZEROL_DEPTH)
     print(f"qwen3 serving phase {time.perf_counter() - t0:.1f} s")
 
+    _mark("25")
     # 25. mixtral-0.3b: a few training steps through one expansion, then
     # phase 6's traffic over paged KV
     t0 = time.perf_counter()
@@ -6239,6 +6776,7 @@ def main() -> int:
                      depth=SERVE_CUT["mixtral-0.3b"])
     print(f"mixtral phase {time.perf_counter() - t0:.1f} s")
 
+    _mark("26")
     # 26. starcoder2-3b at full width over paged KV (the paged kernel at
     # G = 12, hd 128), then card against CPU at depth 2 (flash's prefill at
     # G = 12, and three paged requests)
@@ -6254,10 +6792,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("29")
     # 29, rwkv6-7b's half: card against CPU at depth 2, paged with a
     # prefix hit
     rwkv_paged_card_vs_cpu(cfglib, registry)
 
+    _mark("30")
     # 30. fault tolerance in serving, over phase 6's traffic: a fault
     # storm, each serving site once over the prefix cache on int8 pages,
     # the draft prefill under speculation, a crash restored on a fresh
@@ -6270,6 +6810,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("31")
     # 31. fault tolerance in training: phase 13's run twice, bit for bit;
     # crashes resumed; nan under skip; the hang deadline; the async save
     t0 = time.perf_counter()
@@ -6278,6 +6819,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("33")
     # 33. gemma2-9b at full size, paged continuous serving past its window,
     # held to solo generation; card against CPU at depth 2
     g2 = gemma2_full_serving(cfglib, registry)
@@ -6287,6 +6829,7 @@ def main() -> int:
     paged_card_vs_cpu(cfglib, registry, "gemma2-9b", 2)
     print(f"gemma2-9b card vs cpu phase {time.perf_counter() - t0:.1f} s")
 
+    _mark("34")
     # 34. gemma3-12b at full width and 12 layers: paged f32 and int8, the
     # prefix cache restoring ring snapshots, speculation
     gc.collect()
@@ -6295,6 +6838,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("35")
     # 35. training: gemma2-9b at full width 2 -> 4 layers under AdamW and
     # remat; gpt2-12l under AdamW, NSGD and SGD, remat bit for bit off
     g2_train = gemma2_training(cfglib)
@@ -6304,6 +6848,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("37")
     # 37. deepseekv3-0.3b (MLA) at 4 layers: the paper's recipe 1 -> 4
     # layers, its checkpoint served over latent pages (f32, int8, prefix
     # cache), a copying_zeroL draft, card against CPU at depth 2
@@ -6311,32 +6856,48 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("38")
     # 38. qwen2-vl-2b (M-RoPE) at full size: paged serving, one training
     # step with 256 frontend embeds, card against CPU at depth 2
     vl = qwen2_vl_paths(cfglib, registry, fa_ops)
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("39")
     # 39. whisper-base at full size: training on frames through an
     # expansion, greedy decoding against teacher forcing
     wh = whisper_paths(cfglib, registry)
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("40")
     # 40. the paper's expansion-timing recipe: calibrate_tau on gpt2-12l
     # at full width, the quickstart's savings line for its plan
     rec = recipe_phase(cfglib)
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("43")
     # 43. the mesh: gpt2-12l 1 -> 2 layers on a single mesh against
     # mesh=None, then on two ranks sharing the card (2x1, 1x2), elastic
     # checkpoints and serving the grown checkpoint
     mesh = mesh_phase(cfglib, card)
 
+    _mark("44")
+    # 44. expert parallelism and the tensor-parallel Mamba, RWKV6 and MLA
+    # layers on 1x2: jamba's first two layers, rwkv6-7b and
+    # deepseekv3-0.3b at full width and depth 2 against mesh=None, each
+    # kernel at its rank-local shape against its plain version
+    mesh44 = mesh_layers_phase(cfglib, registry, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     def mesh_launches(kernel):
         return {spec: [c[kernel] for c in mesh[spec]["launches_per_rank"]]
                 for spec in ("2x1", "1x2")}
+
+    def mesh44_launches(kernel, run):
+        return [c[kernel] for c in mesh44[run]["launches_per_rank"]]
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -6350,6 +6911,10 @@ def main() -> int:
                     mesh[f"serve_{spec}"]["launches_per_rank"]]
              for spec in ("2x1", "1x2")},
          "mesh_43_tp_local_shape_err": mesh["flash_6_heads"]["out"],
+         "mesh_44_launches_per_rank": {
+             "deepseekv3_0_3b_training": mesh44_launches("flash_attention",
+                                                         "dsv3")},
+         "mesh_44_local_shape_err": mesh44["lanes"]["flash_attention"],
          "jamba_contiguous_launches":
              jamba_cont["contiguous"]["flash_attention"],
          "max_abs_err": main_err, **t,
@@ -6408,6 +6973,10 @@ def main() -> int:
          "mesh_43_launches_per_rank": mesh_launches("flash_attention_bwd"),
          "mesh_43_tp_local_shape_err": max(
              v for k, v in mesh["flash_6_heads"].items() if k != "out"),
+         "mesh_44_launches_per_rank": {
+             "deepseekv3_0_3b_training": mesh44_launches(
+                 "flash_attention_bwd", "dsv3")},
+         "mesh_44_local_shape_err": mesh44["lanes"]["flash_attention_bwd"],
          "cross_attention": {lbl: {d: r["backward"] for d, r in v.items()}
                              for lbl, v in cross.items()},
          "new_archs_launches": {
@@ -6427,6 +6996,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/newton_schulz/kernel.py:48",
          "launches": train_counts["ns_fused"], "max_abs_err": ns_err,
          "mesh_43_launches_per_rank": mesh_launches("ns_fused"),
+         "mesh_44_launches_per_rank": {
+             run: mesh44_launches("ns_fused", run)
+             for run in ("jamba", "rwkv", "dsv3")},
+         "mesh_44_local_shape_err": mesh44["lanes"]["ns_fused"],
          "new_archs_launches": {
              "deepseekv3_0_3b": dsv3["training"]["ns_fused"],
              "qwen2_vl_2b": vl["training"]["ns_fused"],
@@ -6438,6 +7011,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/newton_schulz/kernel.py:79",
          "launches": train_counts["matmul"], "max_abs_err": mm_err,
          "mesh_43_launches_per_rank": mesh_launches("matmul"),
+         "mesh_44_launches_per_rank": {
+             run: mesh44_launches("matmul", run)
+             for run in ("jamba", "rwkv", "dsv3")},
+         "mesh_44_local_shape_err": mesh44["lanes"]["matmul"],
          "new_archs_launches": {
              "deepseekv3_0_3b": dsv3["training"]["matmul"],
              "qwen2_vl_2b": vl["training"]["matmul"],
@@ -6449,6 +7026,10 @@ def main() -> int:
          "launches": wkv_launches, "spec_path_launches": rwkv_cont["spec"],
          "continuous_launches": rwkv_cont,
          "training_launches": rwkv_bwd["training"]["launches"]["wkv"],
+         "mesh_44_launches_per_rank": {
+             "training": mesh44_launches("wkv", "rwkv"),
+             "generate": mesh44_launches("wkv", "serve_rwkv")},
+         "mesh_44_local_shape_err": mesh44["lanes"]["wkv"],
          "max_abs_err": wkv_err, **t_wkv,
          "registers_spills": [list(r) for r in wkv_regs
                               if not r[0].startswith("wkv_bwd")]},
@@ -6457,6 +7038,8 @@ def main() -> int:
          "replaces": "none (no TPU kernel: JAX differentiates the WKV's "
                      "plain forms itself)",
          "launches": rwkv_bwd["training"]["launches"]["wkv_bwd"],
+         "mesh_44_launches_per_rank": mesh44_launches("wkv_bwd", "rwkv"),
+         "mesh_44_local_shape_ratio": mesh44["lanes"]["wkv_bwd"],
          "max_abs_err": rwkv_bwd["lane"]["max_abs_err"],
          **rwkv_bwd["times"], "cases": rwkv_bwd["lane"]["cases"],
          "worst_of_limit": rwkv_bwd["lane"]["worst"],
@@ -6476,6 +7059,10 @@ def main() -> int:
                                  for run, c in jamba_cont.items()},
          "training_launches":
              jamba_bwd["training"]["launches"]["selective_scan"],
+         "mesh_44_launches_per_rank": {
+             "training": mesh44_launches("selective_scan", "jamba"),
+             "generate": mesh44_launches("selective_scan", "serve_jamba")},
+         "mesh_44_local_shape_err": mesh44["lanes"]["selective_scan"],
          "max_abs_err": scan_err,
          **t_scan, "registers_spills": [list(r) for r in scan_regs
                                         if not r[0].startswith("scan_bwd")]},
@@ -6485,6 +7072,9 @@ def main() -> int:
          "replaces": "none (no TPU kernel: JAX differentiates the scan's "
                      "plain forms itself)",
          "launches": jamba_bwd["training"]["launches"]["selective_scan_bwd"],
+         "mesh_44_launches_per_rank": mesh44_launches("selective_scan_bwd",
+                                                      "jamba"),
+         "mesh_44_local_shape_ratio": mesh44["lanes"]["selective_scan_bwd"],
          "max_abs_err": jamba_bwd["lane"]["max_abs_err"],
          **jamba_bwd["times"], "cases": jamba_bwd["lane"]["cases"],
          "worst_of_limit": jamba_bwd["lane"]["worst"],
@@ -6493,6 +7083,7 @@ def main() -> int:
                       if k != "launches"},
          "registers_spills": [list(r) for r in scan_regs
                               if r[0].startswith("scan_bwd")]}]}
+    _mark("the record")
     print(json.dumps({"recipe": rec}))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

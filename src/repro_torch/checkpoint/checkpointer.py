@@ -32,7 +32,10 @@ leaf's spec).  No rank ever holds the whole state on its device: rank 0
 holds one whole leaf at a time.  ``restore``/``restore_subtree`` with
 ``mesh=`` and ``shardings`` slice each leaf as it is read, and return
 this rank's slices: a checkpoint saved under any mesh restores under any
-other, or under none.
+other, or under none.  The two leaves a tensor-parallel rank holds packed
+(Mamba's ``in_proj``, MLA's ``wkv_b``: ``sharding.held_parts``) are
+unpacked on the way to the file and packed again as they are read, so
+the file always holds the reference's layout.
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import bridge
-from repro_torch.distributed.sharding import dim_axes
+from repro_torch.distributed.sharding import (dim_axes, held_parts, pack,
+                                              unpack)
 from repro_torch.train import faults as faults_lib
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -62,13 +66,14 @@ def _treedef_str(tree) -> str:
     return f"PyTreeDef({fmt(tree)})"
 
 
-def _leaf_to_writer(x, spec, mesh):
+def _leaf_to_writer(x, spec, mesh, path):
     """Rank 0: the whole leaf in host memory; every other rank None.  The
     ranks that split the leaf with rank 0 (those at coordinate 0 on every
     axis the leaf is not split over) send their shards to rank 0 in one
     ``gather`` over their group; the rest take no part.  Under gloo the
     shards go through host memory (their destination), under NCCL they
-    are gathered on the devices."""
+    are gathered on the devices.  A packed leaf (``sharding.held_parts``)
+    is unpacked: the file holds the reference's layout."""
     axes = tuple(a for a in mesh.axis_names
                  if mesh.shape[a] > 1 and any(a in dim_axes(e) for e in spec))
     if not axes:
@@ -99,7 +104,8 @@ def _leaf_to_writer(x, spec, mesh):
                 i = i * mesh.shape[a] + int(coords.get(a, 0))
             index.append(slice(i * src.shape[d], (i + 1) * src.shape[d]))
         full[tuple(index)] = part.cpu()
-    return full
+    return unpack(full, held_parts(path, spec, mesh, full.shape[-1]),
+                  mesh.shape.get("model", 1))
 
 
 def gather_to_writer(tree: Any, shardings: Any, mesh) -> Optional[Any]:
@@ -108,7 +114,8 @@ def gather_to_writer(tree: Any, shardings: Any, mesh) -> Optional[Any]:
     calls it)."""
     flat = bridge.flatten(tree)
     specs = bridge.flatten(shardings)
-    out = {k: _leaf_to_writer(x, specs[k], mesh) for k, x in flat.items()}
+    out = {k: _leaf_to_writer(x, specs[k], mesh, bridge.parse_keystr(k))
+           for k, x in flat.items()}
     return bridge.unflatten(out) if mesh.rank == 0 else None
 
 
@@ -197,8 +204,12 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _slice(a: np.ndarray, spec, mesh) -> np.ndarray:
-    """This rank's shard of a whole numpy leaf under ``spec``."""
+def _slice(a: np.ndarray, spec, mesh, path) -> np.ndarray:
+    """This rank's shard of a whole numpy leaf under ``spec`` (a packed
+    leaf packed first)."""
+    if a.ndim:
+        a = pack(a, held_parts(path, spec, mesh, a.shape[-1]),
+                 mesh.shape.get("model", 1))
     for d, e in enumerate(spec):
         axes = dim_axes(e)
         n = mesh.axes_size(axes)
@@ -215,7 +226,8 @@ def _slicer(shardings, mesh):
     if mesh is None:
         return lambda key, a: a
     specs = bridge.flatten(shardings)
-    return lambda key, a: _slice(a, specs[key], mesh)
+    return lambda key, a: _slice(a, specs[key], mesh,
+                                 bridge.parse_keystr(key))
 
 
 def restore(directory: str, step: int, like, faults=None, mesh=None,

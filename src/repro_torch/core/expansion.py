@@ -318,7 +318,7 @@ def make_expand_fn(cfg: ModelConfig, target_layers: int, method: str,
         def shard(path, full):
             spec = shd.param_spec(path, full.shape, mesh, fsdp=fsdp,
                                   moe_fsdp=moe_fsdp, layout=layout)
-            return coll.shard_leaf(full, spec, mesh)
+            return coll.shard_leaf(full, spec, mesh, path)
 
     @torch.no_grad()
     def expand_fn(params, opt_state, generator=None):

@@ -19,7 +19,11 @@ backward pass:
     backward): the two ends of a tensor-parallel region (Megatron's f and
     g);
   * ``gather_from_model``: all-gather along a dim (vocab-parallel logits
-    made whole), backward the rank's slice.
+    made whole), backward the rank's slice;
+  * ``sum_over_model`` (all-reduce both ways: a partial sum that feeds
+    rank-local work, Mamba's ``x_proj`` and RWKV6's ``ln_x``) and
+    ``split_to_model`` (the rank's chunk of a whole leaf, backward an
+    all-gather: ``conv_w``, ``u``, a LayerNorm's scale, ...).
 
 ``exchange`` is continuous serving's one collective an iteration on a
 mesh, where every rank runs the scheduler: the slot blocks' sampled
@@ -198,6 +202,29 @@ class _MeanOverGroup(torch.autograd.Function):
         return g, None, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _SplitToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return take_slice(x, dim, dist.get_world_size(group),
+                          dist.get_rank(group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
 def mean_over_group(x: torch.Tensor, group, n: int) -> torch.Tensor:
     """The mean of ``x`` over the group's n ranks; the backward passes the
     gradient through unscaled, so after the DP mean of the gradients each
@@ -216,6 +243,23 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_from_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return x if group is None else _GatherFromModel.apply(x, group, dim)
+
+
+def sum_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every 'model' rank's partial ``x``, in both directions:
+    the forward's sum feeds work each rank keeps to its own channels or
+    heads (Mamba's dt/B/C from ``x_proj``'s row shards, RWKV6's ``ln_x``
+    statistics), so each rank's gradient of it is partial and the
+    backward sums those too."""
+    return x if group is None else _SumOverModel.apply(x, group)
+
+
+def split_to_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The rank's chunk along ``dim`` of a tensor every 'model' rank holds
+    whole (a replicated leaf a layer uses per channel or head); the
+    backward all-gathers the chunks' gradients, so every rank holds the
+    whole gradient, each element from the one rank that used it."""
+    return x if group is None else _SplitToModel.apply(x, group, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -315,11 +359,13 @@ class StragglerMonitor:
 # ---------------------------------------------------------------------------
 
 
-def shard_leaf(full: torch.Tensor, spec, mesh) -> torch.Tensor:
+def shard_leaf(full: torch.Tensor, spec, mesh, path) -> torch.Tensor:
     """This rank's shard of a whole leaf under ``spec`` (a new contiguous
-    tensor where any dim is split, else ``full`` itself)."""
-    from repro_torch.distributed.sharding import dim_axes
-    x = full
+    tensor where any dim is split, else ``full`` itself).  ``path`` names
+    the leaf: a packed leaf (``sharding.held_parts``) is packed first."""
+    from repro_torch.distributed.sharding import dim_axes, held_parts, pack
+    parts = held_parts(path, spec, mesh, full.shape[-1] if full.ndim else 0)
+    x = pack(full, parts, mesh.shape.get("model", 1))
     for d, e in enumerate(spec):
         axes = dim_axes(e)
         n = mesh.axes_size(axes)
@@ -328,12 +374,13 @@ def shard_leaf(full: torch.Tensor, spec, mesh) -> torch.Tensor:
     return x
 
 
-def unshard_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+def unshard_leaf(x: torch.Tensor, spec, mesh, path) -> torch.Tensor:
     """The whole leaf from this rank's shard: an all-gather over the axes
-    of every split dim (no autograd)."""
-    from repro_torch.distributed.sharding import dim_axes
+    of every split dim (no autograd), a packed leaf unpacked."""
+    from repro_torch.distributed.sharding import dim_axes, held_parts, unpack
     for d, e in enumerate(spec):
         axes = dim_axes(e)
         if mesh.axes_size(axes) > 1:
             x = all_gather(x, mesh.group(axes), d)
-    return x
+    parts = held_parts(path, spec, mesh, x.shape[-1] if x.ndim else 0)
+    return unpack(x, parts, mesh.shape.get("model", 1))

@@ -7,13 +7,37 @@ module what to do with their leaves.  ``materialize`` gathers a subtree's
 FSDP shards (and the 'model' shards of a leaf whose layer computes it
 whole) with autograd gathers, so a super-block's leaves are gathered
 before its forward and, under remat, again in its backward;
-``attn_tp``/``mlp_tp``/``vocab_tp`` say where a layer runs
-tensor-parallel on its rank's heads, d_ff columns or vocab rows;
-``model_group`` is the group its all-reduces go over.  The optimizer's
-helpers (``full_leaf``, ``local_leaf``, ``leaf_sq_sum``) give a leaf's
-whole matrix, a rank's slice and a squared norm counted once per element.
-With no mesh every helper is the identity and the single-device code runs
-unchanged.
+``model_group`` is the group a layer's all-reduces go over.  The
+optimizer's helpers (``full_matrices``, ``local_matrices``,
+``leaf_sq_sum``) give a leaf's whole matrices, a rank's slice and a
+squared norm counted once per element.  With no mesh every
+helper is the identity and the single-device code runs unchanged.
+
+Under the 'tp' layout a layer computes on its rank's share of 'model'
+where the reference's rule splits its leaves there and the dim divides
+(``keeps_model_split``):
+
+  * ``attn_tp``: MHA/GQA on whole query and KV heads;
+  * ``mla_tp``: MLA on H/model query heads and KV/model heads (``wq`` and
+    ``wkv_b`` column shards, ``wo`` its row shard);
+  * ``mlp_tp``: the dense feed-forward and RWKV6's channel mix (``cm_k``,
+    ``cm_v``) on d_ff columns;
+  * ``moe_ep``: the MoE's E/model experts, ``shared_tp`` its shared
+    experts' d_ff columns;
+  * ``mamba_tp``: Mamba on d_inner/model channels (``in_proj``,
+    ``dt_proj``, ``out_proj``);
+  * ``rwkv_tp``: RWKV6's time mix on H/model heads (``w_r``, ``w_k``,
+    ``w_v``, ``w_g``, ``w_b``, ``w_o``);
+  * ``vocab_tp``: the embedding, head and loss on vocab rows.
+
+Four small leaves the rule splits over 'model' along a dim that is not
+their layer's compute split are gathered whole and used whole or sliced
+in the layer: the MoE ``router`` (D x E: every rank routes every token),
+Mamba's ``x_proj`` (its columns are dt|B|C; a rank takes its channels'
+rows), RWKV6's ``w_a`` (the decay LoRA's rank dim) and MLA's ``wkv_a``
+(the latent has no head axis).  Two leaves are held packed
+(``sharding.held_parts``): Mamba's ``in_proj`` and MLA's ``wkv_b``, so a
+rank's shard holds both halves of its channels or heads.
 
 The layout ('tp': batch over the DP axes, tensor parallelism over
 'model'; 'fsdp': batch over every axis, no tensor parallelism) is the
@@ -28,7 +52,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.sharding import dim_axes
+from repro_torch.distributed.sharding import dim_axes, held_parts, unpack
 from repro_torch.tree import tree_map_with_path
 
 
@@ -92,8 +116,8 @@ def tp_rank() -> int:
 
 def attn_tp(cfg) -> bool:
     """MHA/GQA attention on the rank's heads: whole query heads and whole
-    KV heads on every 'model' rank (MLA and heads that do not divide
-    compute whole)."""
+    KV heads on every 'model' rank (heads that do not divide compute
+    whole; MLA is ``mla_tp``'s)."""
     m = tp_size(cfg)
     return (m > 1 and cfg.attention != "none" and not cfg.mla_kv_lora_rank
             and cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0)
@@ -111,6 +135,44 @@ def vocab_tp(cfg) -> bool:
     return m > 1 and cfg.vocab_size % m == 0
 
 
+def moe_ep(cfg) -> bool:
+    """Expert parallelism: the rank's E/model experts (the reference's
+    rule puts the expert stacks' expert dim on 'model')."""
+    m = tp_size(cfg)
+    return m > 1 and cfg.moe is not None and cfg.moe.num_experts % m == 0
+
+
+def shared_tp(cfg) -> bool:
+    """The MoE's shared experts on the rank's d_ff columns (they follow the
+    dense feed-forward's rule)."""
+    m = tp_size(cfg)
+    if m == 1 or cfg.moe is None or not cfg.moe.num_shared_experts:
+        return False
+    ef = cfg.moe.expert_ffn_dim or cfg.d_ff
+    return (ef * cfg.moe.num_shared_experts) % m == 0
+
+
+def mamba_tp(cfg) -> bool:
+    """Mamba on the rank's d_inner/model channels."""
+    m = tp_size(cfg)
+    return (m > 1 and cfg.ssm is not None and cfg.ssm.kind == "mamba"
+            and (cfg.ssm.expand * cfg.d_model) % m == 0)
+
+
+def rwkv_tp(cfg) -> bool:
+    """RWKV6's time mix on the rank's H/model heads."""
+    m = tp_size(cfg)
+    return (m > 1 and cfg.ssm is not None and cfg.ssm.kind == "rwkv6"
+            and (cfg.d_model // cfg.ssm.head_dim) % m == 0)
+
+
+def mla_tp(cfg) -> bool:
+    """MLA on the rank's query heads and KV/model latent-derived heads."""
+    m = tp_size(cfg)
+    return (m > 1 and cfg.attention == "mla" and bool(cfg.mla_kv_lora_rank)
+            and cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0)
+
+
 def tp_local_cfg(cfg):
     """``cfg`` with a rank's share of the heads (attention under
     ``attn_tp``): the shapes its local projections and cache have."""
@@ -118,6 +180,9 @@ def tp_local_cfg(cfg):
     return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
                                num_kv_heads=cfg.num_kv_heads // m,
                                head_dim=cfg.head_dim)
+
+
+_FFN = ("w_gate", "w_up", "w_down")
 
 
 def keeps_model_split(path: Tuple[str, ...], cfg) -> bool:
@@ -129,8 +194,19 @@ def keeps_model_split(path: Tuple[str, ...], cfg) -> bool:
     if len(path) == 1 and last in ("embed", "lm_head"):
         return vocab_tp(cfg)
     if "attn" in path and last in ("wq", "wk", "wv", "wo"):
-        return attn_tp(cfg)
-    if "mlp" in path and last in ("w_gate", "w_up", "w_down"):
+        return attn_tp(cfg) or mla_tp(cfg)
+    if "attn" in path and last == "wkv_b":
+        return mla_tp(cfg)
+    if "mlp" in path and last in _FFN:
+        return mlp_tp(cfg)
+    if "moe" in path and last in _FFN:
+        return shared_tp(cfg) if "shared" in path else moe_ep(cfg)
+    if "mamba" in path and last in ("in_proj", "dt_proj", "out_proj"):
+        return mamba_tp(cfg)
+    if "rwkv_tm" in path and last in ("w_r", "w_k", "w_v", "w_g", "w_b",
+                                      "w_o"):
+        return rwkv_tp(cfg)
+    if "rwkv_tm" in path and last in ("cm_k", "cm_v"):
         return mlp_tp(cfg)
     return False
 
@@ -138,7 +214,8 @@ def keeps_model_split(path: Tuple[str, ...], cfg) -> bool:
 def materialize(tree, cfg, prefix: Tuple[str, ...] = ()):
     """The leaves of ``tree`` (at ``prefix`` in the params) as the layers
     use them: FSDP shards gathered over the DP axes, and over 'model'
-    where the leaf's layer computes it whole.  The backward all-reduces
+    where the leaf's layer computes it whole (a packed leaf then
+    unpacked).  The backward all-reduces
     each leaf's gradient over the DP axes, scales it by 1/DP (the loss is
     a mean over the DP ranks' rows) and keeps the rank's slice.  A
     super-block's slice of a stacked leaf (its leading axis indexed away)
@@ -167,7 +244,11 @@ def materialize(tree, cfg, prefix: Tuple[str, ...] = ()):
             if n > 1:
                 gathers.append((d, mesh.group(axes), n,
                                 mesh.axes_index(axes)))
-        return coll.gather_shards(x, gathers, group, scale)
+        out = coll.gather_shards(x, gathers, group, scale)
+        if any("model" in dim_axes(spec[d]) for d, *_ in gathers):
+            out = unpack(out, held_parts(full, spec, mesh, out.shape[-1]),
+                         mesh.shape["model"])
+        return out
 
     return tree_map_with_path(one, tree)
 
@@ -196,16 +277,29 @@ def _leaf_axes(path) -> Tuple[Tuple[str, ...], Optional[tuple]]:
     return axes, spec
 
 
-def full_leaf(path, x: torch.Tensor) -> torch.Tensor:
-    """The whole leaf (every rank's shards gathered; no autograd)."""
-    axes, spec = _leaf_axes(path)
-    return coll.unshard_leaf(x, spec, active_mesh().mesh) if axes else x
+def _matrix_spec(spec):
+    """A spec with every dim but the trailing two (the matrix) unsplit."""
+    return (None,) * (len(spec) - 2) + tuple(spec[-2:])
 
 
-def local_leaf(path, full: torch.Tensor) -> torch.Tensor:
-    """This rank's shard of the whole leaf ``full``."""
+def full_matrices(path, x: torch.Tensor) -> torch.Tensor:
+    """The held leaf with its trailing two dims whole: each matrix of a
+    stack gathered, the leading dims (the layer stack, an expert stack
+    split over 'model') left as the rank holds them (no autograd)."""
     axes, spec = _leaf_axes(path)
-    return coll.shard_leaf(full, spec, active_mesh().mesh) if axes else full
+    if not axes:
+        return x
+    return coll.unshard_leaf(x, _matrix_spec(spec), active_mesh().mesh,
+                             path)
+
+
+def local_matrices(path, full: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`full_matrices`: the rank's shard of each matrix."""
+    axes, spec = _leaf_axes(path)
+    if not axes:
+        return full
+    return coll.shard_leaf(full, _matrix_spec(spec), active_mesh().mesh,
+                           path)
 
 
 def full_shape(path, x: torch.Tensor) -> Tuple[int, ...]:

@@ -245,6 +245,49 @@ def spec_axes(spec: Spec) -> Tuple[str, ...]:
     return tuple(a for e in spec for a in dim_axes(e))
 
 
+# Leaves whose last dim packs two halves that their layer splits over
+# 'model' half by half: Mamba's in_proj (xs | z) and MLA's wkv_b (K | V).
+_PACKED = ("in_proj", "wkv_b")
+
+
+def held_parts(path, spec: Spec, mesh, last: int) -> int:
+    """2 where the leaf at ``path``, whole last dim ``last``, is held
+    packed: its last dim is split over 'model' alone, and its two halves
+    each split evenly; else 1.
+    A packed leaf's 'model' rank r holds [half 0's chunk r | half 1's
+    chunk r] (``pack``), so a rank's Mamba channels get their xs and z
+    columns and a rank's MLA heads their K and V columns, where the
+    reference's contiguous split would give rank 0 all of xs (or K).
+    The whole leaf, and so every checkpoint, keeps the reference's
+    layout: ``pack`` is applied where a whole leaf is cut into shards and
+    ``unpack`` where shards are put back together."""
+    if not path or path[-1] not in _PACKED or not spec \
+            or dim_axes(spec[-1]) != ("model",):
+        return 1
+    m = dict(mesh.shape).get("model", 1)
+    return 2 if m > 1 and last % (2 * m) == 0 else 1
+
+
+def pack(x, parts: int, n: int):
+    """Whole leaf (torch or numpy) -> the held order of its last dim for
+    ``n`` 'model' ranks: each rank's chunk of every part, rank by rank.
+    The identity for ``parts`` 1."""
+    if parts == 1:
+        return x
+    lead, last = tuple(x.shape[:-1]), x.shape[-1]
+    y = x.reshape(lead + (parts, n, last // (parts * n))).swapaxes(-3, -2)
+    return y.reshape(lead + (last,))
+
+
+def unpack(x, parts: int, n: int):
+    """Inverse of :func:`pack`."""
+    if parts == 1:
+        return x
+    lead, last = tuple(x.shape[:-1]), x.shape[-1]
+    y = x.reshape(lead + (n, parts, last // (parts * n))).swapaxes(-3, -2)
+    return y.reshape(lead + (last,))
+
+
 def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
     sizes = dict(mesh.shape)
     out = list(shape)

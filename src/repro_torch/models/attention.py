@@ -13,10 +13,12 @@ round at a time (γ+1 positions a row, read back with the plain gather).  An
 int8/fp8 pool quantizes every write per slot and head (``core.quant``) and
 keeps the f32 scales in scale pages beside the pages.
 
-On a mesh (``distributed.context.attn_tp``) every attention path,
-prefill, decode, the paged decode, a prefill chunk and the verify, runs on
-the rank's heads, and the caches it writes, pool pages and rings, hold
-the rank's KV heads.
+On a mesh (``distributed.context.attn_tp``, and ``mla_tp`` for MLA)
+every attention path, prefill, decode, the paged decode, a prefill chunk
+and the verify, runs on the rank's heads, and the caches it writes, pool
+pages and rings, hold the rank's KV heads; an MLA layer's latent caches
+have no head axis and stay whole, each rank up-projecting its own heads
+from them.
 
 Sliding-window layers (``window > 0``, gemma2/gemma3's local layers) keep
 a per-row ring of ``min(max_len, window)`` slots instead: position t lives
@@ -57,7 +59,7 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
-from repro_torch.distributed.context import (attn_tp, model_group,
+from repro_torch.distributed.context import (attn_tp, mla_tp, model_group,
                                             tp_local_cfg)
 from repro_torch.models.common import (apply_mrope, apply_norm, apply_rope,
                                        dense_init, norm_init)
@@ -95,18 +97,30 @@ def attn_init(generator, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
 
 
 def _tensor_parallel(fn):
-    """``fn(p, cfg, x, ...)`` on the rank's heads under ``attn_tp``: the
-    input enters the region through ``copy_to_model`` (its gradient is
-    all-reduced over 'model'), q/k/v are the rank's column shards (H/model
-    query heads and their KV/model KV heads, so the flash kernel runs on
-    the local heads), ``wo`` its row shard, and the partial outputs are
-    all-reduced over 'model'.  ``cfg`` inside is ``tp_local_cfg``: a cache
-    made for it holds the rank's KV heads.  Otherwise ``fn`` as is."""
+    """``fn(p, cfg, x, ...)`` on the rank's heads under ``attn_tp`` or
+    ``mla_tp``: the input enters the region through ``copy_to_model`` (its
+    gradient is all-reduced over 'model'), q/k/v are the rank's column
+    shards (H/model query heads and their KV/model KV heads, so the flash
+    kernel runs on the local heads; an MLA layer's ``wkv_b`` is packed,
+    its shard the rank's K and V columns), ``wo`` its row shard, and the
+    partial outputs are all-reduced over 'model'.  The leaves every rank
+    holds whole but uses for its heads alone, the qk-norm scales and
+    MLA's ``wkv_a`` (the latent and its caches stay whole), pass through
+    ``copy_to_model`` too: their gradients are partial per rank and are
+    summed once.  ``cfg`` inside is ``tp_local_cfg``: a cache made for it
+    holds the rank's KV heads.  Otherwise ``fn`` as is."""
     @functools.wraps(fn)
     def run(p, cfg, x, *args, **kwargs):
-        if not attn_tp(cfg):
+        if not (attn_tp(cfg) or mla_tp(cfg)):
             return fn(p, cfg, x, *args, **kwargs)
         group = model_group(cfg)
+        p = dict(p)
+        for name in ("q_norm", "k_norm"):
+            if name in p:
+                p[name] = {k: coll.copy_to_model(v, group)
+                           for k, v in p[name].items()}
+        if "wkv_a" in p:
+            p["wkv_a"] = coll.copy_to_model(p["wkv_a"], group)
         res = fn(p, tp_local_cfg(cfg), coll.copy_to_model(x, group), *args,
                  **kwargs)
         if isinstance(res, tuple):

@@ -8,6 +8,13 @@ reference's, because the dispatch sorts with a stable sort as
 ``jnp.argsort`` does.  The grouped expert products are batched matrix
 products (``torch.bmm`` over the expert axis), as the reference leaves
 its einsums to XLA outside any kernel.
+
+On a mesh (``distributed.context.moe_ep``) each 'model' rank runs its
+E/model experts: the tokens are whole on every rank of a 'model' group,
+every rank routes them alike, fills only its experts' slots and combines
+its share of each token's choices; the shared experts run on the rank's
+d_ff columns (``shared_tp``), and one all-reduce over 'model' sums both
+partials.
 """
 from __future__ import annotations
 
@@ -18,7 +25,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.context import dp_mean, mlp_tp, model_group
+from repro_torch.distributed.context import (dp_mean, mlp_tp, model_group,
+                                            moe_ep, shared_tp, tp_rank,
+                                            tp_size)
 from repro_torch.models.common import activate, dense_init
 
 
@@ -145,18 +154,29 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor,
     starts = torch.cumsum(counts, dim=-1) - counts             # exclusive
     pos = torch.arange(Tg * K, device=dev) - torch.gather(starts, 1,
                                                           sorted_ids)
-    keep = pos < C
-    slot = torch.where(keep, sorted_ids * C + pos, E * C)
     tok_idx = order // K
-
     rows = torch.arange(G, device=dev)[:, None]
-    buffer = torch.zeros((G, E * C + 1, D), dtype=x.dtype, device=dev)
-    buffer[rows, slot] = xf[rows, tok_idx]
-    out = _experts(p, buffer[:, :E * C].reshape(G, E, C, D))
-    out = out.reshape(G, E * C, D)
+    # The experts [lo, lo + El) this rank runs: its E/model under moe_ep,
+    # else all.  Every rank routes alike and fills only its experts'
+    # slots.  The dispatched tokens and the combine weights enter the
+    # rank-local region through copy_to_model: their gradients are
+    # partial per rank (its experts' choices) and are summed; the router,
+    # aux and z-loss paths stay whole, alike on every rank, and are not.
+    ep = moe_ep(cfg)
+    El = E // tp_size(cfg) if ep else E
+    lo = tp_rank() * El if ep else 0
+    keep = (pos < C) & (sorted_ids >= lo) & (sorted_ids < lo + El)
+    slot = torch.where(keep, (sorted_ids - lo) * C + pos, El * C)
+    n_slots = El * C
+    src = coll.copy_to_model(xf, model_group(cfg) if ep else None)
+    weights = coll.copy_to_model(weights, model_group(cfg) if ep else None)
+    buffer = torch.zeros((G, n_slots + 1, D), dtype=x.dtype, device=dev)
+    buffer[rows, slot] = src[rows, tok_idx]
+    out = _experts(p, buffer[:, :n_slots].reshape(G, -1, C, D))
+    out = out.reshape(G, n_slots, D)
 
     gathered = torch.where(keep[..., None],
-                           out[rows, torch.clamp(slot, max=E * C - 1)],
+                           out[rows, torch.clamp(slot, max=n_slots - 1)],
                            torch.zeros((), dtype=out.dtype, device=dev))
     y = torch.empty((G, Tg * K, D), dtype=x.dtype, device=dev)
     y[rows, order] = gathered.to(x.dtype)
@@ -171,9 +191,19 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor,
     zloss = m.router_zloss * torch.mean(
         torch.square(torch.logsumexp(logits.float(), dim=-1)))
 
-    y = y.reshape(B, S, D)
+    # Terms held whole and terms partial over 'model' (the rank's experts
+    # under moe_ep, the shared experts' d_ff columns under shared_tp): one
+    # all-reduce sums the partial ones.
+    whole, partial = [], []
+    (partial if ep else whole).append(y.reshape(B, S, D))
     if m.num_shared_experts:
+        stp = shared_tp(cfg)
         sp = p["shared"]
-        h = F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])
-        y = y + h @ sp["w_down"]
+        xs = coll.copy_to_model(x, model_group(cfg) if stp else None)
+        h = F.silu(xs @ sp["w_gate"]) * (xs @ sp["w_up"])
+        (partial if stp else whole).append(h @ sp["w_down"])
+    if partial:
+        whole.append(coll.reduce_from_model(sum(partial[1:], partial[0]),
+                                            model_group(cfg)))
+    y = sum(whole[1:], whole[0])
     return y, {"aux_loss": aux_loss, "router_zloss": zloss}

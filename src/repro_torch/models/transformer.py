@@ -389,7 +389,8 @@ def lm_init_cache(params, cfg: ModelConfig, batch_size: int, max_len: int,
     """Cache tree mirroring the super-block stack (leading n_super axis).
     Attention layers hold K/V in ``dtype``; RWKV6 layers (tm_x, cm_x, wkv)
     and Mamba layers (conv, ssm) hold their recurrent state in float32
-    whatever ``dtype`` is, as the reference keeps it."""
+    whatever ``dtype`` is, as the reference keeps it.  On a mesh each
+    holds what the rank computes (``lm_init_paged_cache``)."""
     n_super = num_superblocks(params)
     if n_super == 0:
         return {}
@@ -423,7 +424,8 @@ def lm_init_paged_cache(params, cfg: ModelConfig, batch_size: int,
     (already O(window) a row: paging them buys less than a page);
     ``kv_dtype`` applies to the pool leaves only.  Under tensor
     parallelism (``attn_tp``) the pool and the rings hold the rank's KV
-    heads (``attn.cache_cfg``)."""
+    heads (``attn.cache_cfg``), and Mamba and RWKV6 states the rank's
+    channels and heads (``mamba_tp``, ``rwkv_tp``)."""
     n_super = num_superblocks(params)
     if n_super == 0:
         return {}

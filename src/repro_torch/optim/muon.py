@@ -12,17 +12,20 @@ stacked leaf.  All update arithmetic is float32; params and moments are
 written in place.
 
 On a mesh Newton–Schulz normalises by the whole matrix's norm, so every
-rank gathers each matrix's momentum whole, runs the kernels on the full
-matrix (every rank every matrix: the same launches as one device) and
-keeps its slice; the muP factor reads the whole shape, and the NSGD norms
-sum over the ranks that split the leaf.
+rank gathers each matrix's momentum whole (the axes that split a leaf's
+trailing two dims), runs the kernels on the whole matrices and keeps its
+slice.  The leading dims are a batch: an expert stack split over 'model'
+stays split, so a rank orthogonalizes its own E/model experts (the
+reference vmaps over them).  The muP factor reads the whole shape, and
+the NSGD norms sum over the ranks that split the leaf.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
-from repro_torch.distributed.context import full_leaf, full_shape, local_leaf
+from repro_torch.distributed.context import (full_matrices, full_shape,
+                                            local_matrices)
 from repro_torch.optim.base import Optimizer, clip_by_global_norm, leaf_norm
 from repro_torch.tree import leaves_with_path, tree_map
 
@@ -81,8 +84,8 @@ def muon_nsgd(cfg: OptimizerConfig) -> Optimizer:
                                      leaves_with_path(m_tree)):
             lr_d = lr.to(p.device)
             if _is_matrix(path, p):
-                upd = local_leaf(path, orthogonalize(
-                    full_leaf(path, m.float()), cfg.ns_steps))
+                upd = local_matrices(path, orthogonalize(
+                    full_matrices(path, m.float()), cfg.ns_steps))
                 if cfg.mup:
                     n_in, n_out = full_shape(path, p)[-2:]
                     upd = upd * torch.sqrt(torch.tensor(

@@ -248,8 +248,9 @@ class ProgressiveTrainer:
         rank's device."""
         specs = self._specs(cfg)
         return tree_map_with_path(
-            lambda path, x: coll.shard_leaf(x, specs[path], self.mesh).to(
-                self.device, copy=True), params)
+            lambda path, x: coll.shard_leaf(x, specs[path], self.mesh,
+                                            path).to(self.device, copy=True),
+            params)
 
     def _rows(self, x):
         """This rank's rows of a global batch leaf (``batch_axes``)."""

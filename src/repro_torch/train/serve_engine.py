@@ -64,11 +64,14 @@ snapshotted.
 
 On a mesh (``mesh=``, one process per rank, every rank running the same
 engine) the rows of a batch go over the DP axes, as ``cache_shardings``
-puts a cache's batch dim, and tensor parallelism splits attention heads,
-d_ff and vocab over 'model' where they divide (``distributed.context.
-attn_tp``/``mlp_tp``/``vocab_tp``), the other leaves held whole.  A
-rank's caches, contiguous rows, pool pages and rings, hold the KV heads
-it computes where KV divides 'model', all of them otherwise: a
+puts a cache's batch dim, and tensor parallelism splits attention and
+MLA heads, d_ff, experts, Mamba channels, RWKV6 heads and vocab over
+'model' where they divide (``distributed.context.keeps_model_split``):
+the engine slices each rank's shards at load, the other leaves held
+whole.  A rank's caches, contiguous rows, pool pages and rings, hold the
+KV heads it computes where KV divides 'model', all of them otherwise;
+its Mamba states hold its channels and its RWKV6 WKV states its heads;
+MLA's latent caches have no head axis and are whole.  That is a
 deliberate departure from ``cache_shardings``, which puts the longest
 trailing dim on 'model' (ROADMAP queue C).  ``generate``'s tokens and
 logits come back gathered to every rank.
@@ -331,7 +334,7 @@ class ServeEngine:
                 spec = shd.param_spec(path, x.shape, mesh, fsdp=False)
                 spec = tuple("model" if e == "model" else None
                              for e in spec)
-                return coll.shard_leaf(x, spec, mesh).clone()
+                return coll.shard_leaf(x, spec, mesh, path).clone()
             return tree_map_with_path(one, params)
 
     def _rows(self, batch: int):

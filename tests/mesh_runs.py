@@ -1,7 +1,7 @@
 """Scenarios run on every rank of a mesh: the bodies that
-``tests/test_torch_distributed.py``, ``tests/test_torch_mesh_serve.py``
-and ``chip_smoke.py``'s mesh phase start with
-``repro_torch.launch.mesh.spawn``.
+``tests/test_torch_distributed.py``, ``tests/test_torch_mesh_serve.py``,
+``tests/test_torch_mesh_layers.py`` and ``chip_smoke.py``'s mesh phases
+(43, 44) start with ``repro_torch.launch.mesh.spawn``.
 
 This module imports no JAX: spawned ranks import it alone, on the CPU as
 on the card.  Its importer puts this directory on ``sys.path`` (pytest
@@ -15,6 +15,7 @@ as ``{keystr: array}`` (``bridge.flatten``).
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 import os
 import shutil
@@ -61,7 +62,10 @@ def _tensors(flat_np: dict, device) -> dict:
 def _gather_tree(tree, shardings, m):
     """Every leaf of the rank's sharded ``tree`` whole, on every rank (a
     collective), for comparing a run's trees."""
-    return tree_map(lambda x, s: coll.unshard_leaf(x, s, m), tree, shardings)
+    flat = bridge.flatten(shardings)
+    return tree_map_with_path(
+        lambda path, x: coll.unshard_leaf(
+            x, flat[bridge.keystr(path)], m, path), tree)
 
 
 def _sync(device):
@@ -69,15 +73,41 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+def card_params(cfg, seed: int, device):
+    """``cfg``'s random weights drawn on ``device``'s card from ``seed``
+    (``chip_smoke.draw_on_card``'s draw: seconds, where a host draw of a
+    model of billions of params takes a minute); the same on every rank
+    of one card."""
+    return registry.get_model(cfg).init(
+        torch.Generator(device=device).manual_seed(seed), cfg, device=device)
+
+
+class _CardInit(ProgressiveTrainer):
+    """The trainer with its fresh init drawn on the card
+    (``card_params`` from ``card_seed``), then cut to the rank's
+    shards."""
+    card_seed = 0
+
+    def _init_state(self, cfg):
+        params = card_params(cfg, self.card_seed, self.device)
+        if self.mesh is not None:
+            params = self._shard(cfg, params)
+        return params, self.opt.init(params)
+
+
 def train(cfg, tcfg, mesh: Optional[str], device: str = "cpu",
           ckpt_dir: Optional[str] = None, want_params: bool = False,
           count: bool = False, expect_crash: bool = False,
+          ns_shapes: bool = False, card_seed: Optional[int] = None,
           **engine_kw) -> dict:
     """A ``ProgressiveTrainer`` run on ``mesh`` (None: no mesh).  Returns
     its history, final depth, fault stats, step times, peak device memory
     (above what the process held when the run began),
-    the whole final params (``want_params``) and the kernels' launches in
-    the run (``count``: this rank's counters, zeroed just before);
+    the whole final params (``want_params``), the kernels' launches in
+    the run (``count``: this rank's counters, zeroed just before) and the
+    shape of every stack Muon's ``orthogonalize`` took on this rank
+    (``ns_shapes``); ``card_seed``: the fresh init drawn on the card
+    (``card_params``) instead of the trainer's host draw;
     ``mesh_s`` is the time spent building the mesh in this call.  With
     ``expect_crash`` an injected ``CrashError`` ends the run and the
     result is ``{"crashed": True}``."""
@@ -90,9 +120,11 @@ def train(cfg, tcfg, mesh: Optional[str], device: str = "cpu",
         base = torch.cuda.memory_allocated()
     if count:
         zero_launch_counts()
-    trainer = ProgressiveTrainer(cfg, tcfg, mesh=m, device=device,
-                                 checkpoint_dir=ckpt_dir,
-                                 log_fn=lambda *a, **k: None, **engine_kw)
+    cls = ProgressiveTrainer if card_seed is None else _CardInit
+    trainer = cls(cfg, tcfg, mesh=m, device=device, checkpoint_dir=ckpt_dir,
+                  log_fn=lambda *a, **k: None, **engine_kw)
+    if card_seed is not None:
+        trainer.card_seed = card_seed
     if expect_crash:
         from repro_torch.train.faults import CrashError
         try:
@@ -100,7 +132,20 @@ def train(cfg, tcfg, mesh: Optional[str], device: str = "cpu",
         except CrashError:
             return {"crashed": True}
         return {"crashed": False}
-    res = trainer.run()
+    seen: list = []
+    if ns_shapes:
+        from repro_torch.optim import muon
+        plain = muon.orthogonalize
+
+        def recorded(m, steps=5):
+            seen.append(tuple(m.shape))
+            return plain(m, steps)
+        muon.orthogonalize = recorded
+    try:
+        res = trainer.run()
+    finally:
+        if ns_shapes:
+            muon.orthogonalize = plain
     _sync(device)
     out = {"history": {k: v for k, v in res.history.items()
                        if k != "step_time"},
@@ -111,6 +156,8 @@ def train(cfg, tcfg, mesh: Optional[str], device: str = "cpu",
            "rank": 0 if m is None else m.rank}
     if count:
         out["counts"] = launch_counts()
+    if ns_shapes:
+        out["ns_shapes"] = seen
     if torch.device(device).type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
     if want_params:
@@ -134,7 +181,8 @@ def _shard_state(cfg, params_np: dict, m, opt_name: str, device):
     like = registry.get_model(cfg).init(None, cfg, device="meta")
     specs = shd.params_shardings(like, m)
     local = tree_map_with_path(
-        lambda path, x: coll.shard_leaf(x, _at(specs, path), m).clone(),
+        lambda path, x: coll.shard_leaf(x, _at(specs, path), m,
+                                        path).clone(),
         params)
     opt = make_optimizer(_opt_cfg(opt_name))
     return local, opt.init(local), specs
@@ -149,6 +197,72 @@ def _at(tree, path):
 def _opt_cfg(name):
     from repro_torch.configs.base import OptimizerConfig
     return OptimizerConfig(name=name)
+
+
+def layer_grads(cfg, params_np: dict, tokens: np.ndarray,
+                labels: np.ndarray, mesh: Optional[str],
+                device: str = "cpu", layout: str = "tp",
+                moe_fsdp: str = "auto") -> dict:
+    """One loss and its gradients on ``mesh`` (None: one device) from the
+    whole ``params_np``: the loss (the mean over the DP ranks' rows), every
+    leaf's gradient gathered whole, the leaves ``materialize`` gathered
+    over 'model' (``model_gathers``, as keystrs), the shape each leaf has
+    as its layer uses it (under the mesh's 'model' split) and the
+    kernels' launches (this rank's counters); ``layout`` and
+    ``moe_fsdp`` as the trainer takes them."""
+    from repro_torch.distributed import context
+    api = registry.get_model(cfg)
+    params = _tensors(params_np, device)
+    batch = {"tokens": torch.from_numpy(np.asarray(tokens)).long(),
+             "labels": torch.from_numpy(np.asarray(labels)).long()}
+    zero_launch_counts()
+    if mesh is None:
+        flat = {k: v.requires_grad_() for k, v in
+                bridge.flatten(params).items()}
+        loss, _ = api.loss(bridge.unflatten(flat), cfg,
+                           {k: v.to(device) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        return {"loss": loss.item(), "counts": launch_counts(),
+                "grads": _numpy(dict(zip(flat, grads)))}
+    m = mesh_for(mesh, device)
+    like = api.init(None, cfg, device="meta")
+    specs = shd.params_shardings(like, m, layout=layout, moe_fsdp=moe_fsdp)
+    flat_specs = dict(leaves_with_path(specs))
+    local = tree_map_with_path(
+        lambda path, x: coll.shard_leaf(x, flat_specs[path], m,
+                                        path).clone(), params)
+    axes = shd.batch_axes(batch["tokens"].shape[0], m, layout)
+    n, i = m.axes_size(axes), m.axes_index(axes)
+    rows = {k: v.reshape((n, -1) + tuple(v.shape[1:]))[i].to(m.device)
+            for k, v in batch.items()}
+    flat = {k: v.requires_grad_() for k, v in bridge.flatten(local).items()}
+    ctx = MeshContext(m, layout, flat_specs)
+    # ``materialize`` unpacks (``held_parts``) each leaf it has gathered
+    # over 'model', and no other: the paths it is called with are the
+    # leaves gathered over 'model' in the loss.
+    gathered = set()
+    held_parts = context.held_parts
+
+    def counting(path, *a):
+        gathered.add(bridge.keystr(path))
+        return held_parts(path, *a)
+
+    with mesh_scope(ctx):
+        tree = bridge.unflatten(flat)
+        with torch.no_grad():
+            used = {bridge.keystr(p): tuple(x.shape) for p, x in
+                    leaves_with_path(context.materialize(tree, cfg))}
+        context.held_parts = counting
+        try:
+            loss, _ = api.loss(tree, cfg, rows)
+        finally:
+            context.held_parts = held_parts
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        loss = context.dp_mean(loss.detach())
+    whole = _gather_tree(bridge.unflatten(dict(zip(flat, grads))), specs, m)
+    return {"loss": float(loss), "counts": launch_counts(),
+            "grads": _numpy(bridge.flatten(whole)),
+            "model_gathers": sorted(gathered), "used_shapes": used}
 
 
 def expand_logits(cfg, target: int, method: str, params_np: dict,
@@ -265,15 +379,19 @@ def copy_step(src: str, dst: str, step: int, mesh: str,
     return {}
 
 
-def flash_local(shape, seed: int = 0, device: str = "cuda") -> dict:
+def flash_local(shape, seed: int = 0, device: str = "cuda",
+                kv_heads: int | None = None) -> dict:
     """The flash kernel forward and backward at a rank's local shape
-    (B, S, H, hd) against its plain version on the same inputs (float32,
-    causal): max abs errors of out, dq, dk, dv.  The launches count
-    nowhere: the caller reads its main path's counters before."""
+    (B, S, H, hd) of q, over ``kv_heads`` K/V heads (H by default),
+    against its plain version on the same inputs (float32, causal): max
+    abs errors of out, dq, dk, dv.  The launches count nowhere: the
+    caller reads its main path's counters before."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    B, S, H, hd = shape
+    kv_shape = (B, S, H if kv_heads is None else kv_heads, hd)
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q, k, v, do = (torch.randn(shape, generator=g).to(device)
-                   for _ in range(4))
+    q, k, v, do = (torch.randn(s, generator=g).to(device)
+                   for s in (shape, kv_shape, kv_shape, shape))
     errs = {}
     outs = {}
     for force in ("kernel", "ref"):
@@ -318,22 +436,34 @@ def paged_local(B: int, H: int, KV: int, hd: int, bs: int, pages: int,
             / max(1.0, float(want.abs().max()))}
 
 
+def _served_params(cfg, params_np, ckpt_dir, card_seed, device):
+    """(params, cfg) to serve: ``ckpt_dir``'s latest checkpoint (at its
+    depth), weights drawn on the card from ``card_seed``, or
+    ``params_np``."""
+    if ckpt_dir is not None:
+        from repro_torch.launch.serve import load_params
+        return load_params(ckpt_dir, cfg)
+    if card_seed is not None:
+        return card_params(cfg, card_seed, device), cfg
+    return _tensors(params_np, "cpu"), cfg
+
+
 def serve(cfg, params_np: Optional[dict], prompts: np.ndarray,
           num_tokens: int, mesh: Optional[str], device: str = "cpu",
           max_len: int = 32, count: bool = False,
-          ckpt_dir: Optional[str] = None) -> dict:
+          ckpt_dir: Optional[str] = None,
+          card_seed: Optional[int] = None) -> dict:
     """Greedy ``generate`` on ``mesh`` (None: one device): tokens and
-    logits, gathered to every rank.  ``ckpt_dir``: serve its latest
-    checkpoint's params (at its depth) instead of ``params_np``."""
+    logits, gathered to every rank.  ``ckpt_dir``: serve its latest checkpoint's
+    params (at its depth) instead of ``params_np``; ``card_seed``: weights
+    drawn on the card (``card_params``)."""
     m = mesh_for(mesh, device) if mesh else None
-    if ckpt_dir is not None:
-        from repro_torch.launch.serve import load_params
-        params, cfg = load_params(ckpt_dir, cfg)
-    else:
-        params = _tensors(params_np, "cpu")
+    params, cfg = _served_params(cfg, params_np, ckpt_dir, card_seed,
+                                 m.device if m else device)
     if count:
         zero_launch_counts()
     eng = ServeEngine(cfg, params, device=device, mesh=m, max_len=max_len)
+    del params
     t0 = time.perf_counter()
     res = eng.generate(np.asarray(prompts, np.int32), num_tokens,
                        return_logits=True)
@@ -342,6 +472,31 @@ def serve(cfg, params_np: Optional[dict], prompts: np.ndarray,
     if count:
         out["counts"] = launch_counts()
     return out
+
+
+def cache_shapes(cfg, params_np: dict, mesh: Optional[str],
+                 device: str = "cpu", batch: int = 2, max_len: int = 16,
+                 block_size: int = 4) -> dict:
+    """The shapes of the caches a ``ServeEngine`` on ``mesh`` makes on
+    this rank (they differ between 'model' ranks only in which heads or
+    channels they hold): {"contiguous" | "paged" | "carry": {keystr:
+    shape}}."""
+    from repro_torch.distributed.context import mesh_scope as scope
+    m = mesh_for(mesh, device) if mesh else None
+    eng = ServeEngine(cfg, _tensors(params_np, "cpu"), device=device,
+                      mesh=m, max_len=max_len)
+    with scope(eng._ctx):
+        made = {"contiguous": eng.api.init_cache(
+                    eng.params, cfg, batch, max_len, torch.float32,
+                    device="meta"),
+                "paged": eng.api.init_paged_cache(
+                    eng.params, cfg, batch, 8, block_size, max_len,
+                    torch.float32, device="meta"),
+                "carry": eng.api.init_prefill_carry(
+                    eng.params, cfg, max_len, torch.float32,
+                    device="meta")}
+    return {k: {bridge.keystr(p): tuple(x.shape)
+                for p, x in leaves_with_path(v)} for k, v in made.items()}
 
 
 def radix_pages_hash(state) -> Optional[str]:
@@ -365,7 +520,8 @@ def cserve(cfg, params_np: Optional[dict], requests: List[dict],
            mesh: Optional[str], device: str = "cpu", max_len: int = 48,
            max_batch: int = 4, engine_kw: Optional[dict] = None,
            sched_kw: Optional[dict] = None, skew_s: float = 0.0,
-           count: bool = False, ckpt_dir: Optional[str] = None) -> dict:
+           count: bool = False, ckpt_dir: Optional[str] = None,
+           card_seed: Optional[int] = None) -> dict:
     """``requests`` (dicts of ``Request`` fields) served through
     ``ContinuousScheduler`` on ``mesh`` (None: one device) with
     ``ServeEngine(**engine_kw)`` and ``ContinuousScheduler(**sched_kw)``.
@@ -377,18 +533,16 @@ def cserve(cfg, params_np: Optional[dict], requests: List[dict],
     zeroed just before it); ``summarize``'s metrics and the run's seconds;
     and ``radix_hash`` (:func:`radix_pages_hash` of the final state).
     ``ckpt_dir``: serve its latest checkpoint's params instead of
-    ``params_np``."""
+    ``params_np``; ``card_seed``: weights drawn on the card."""
     from repro_torch.train.serve_scheduler import (ContinuousScheduler,
                                                    Request, summarize)
     m = mesh_for(mesh, device) if mesh else None
-    if ckpt_dir is not None:
-        from repro_torch.launch.serve import load_params
-        params, cfg = load_params(ckpt_dir, cfg)
-    else:
-        params = _tensors(params_np, "cpu")
+    params, cfg = _served_params(cfg, params_np, ckpt_dir, card_seed,
+                                 m.device if m else device)
     rank = 0 if m is None else m.rank
     eng = ServeEngine(cfg, params, device=device, mesh=m, max_len=max_len,
                       **(engine_kw or {}))
+    del params
     sched = ContinuousScheduler(
         eng, max_batch=max_batch,
         time_fn=lambda: time.perf_counter() + skew_s * rank,
@@ -464,4 +618,9 @@ def run(scenarios: List[tuple], device: str = "cpu") -> dict:
         t0 = time.perf_counter()
         out[name] = globals()[fn](device=device, **kwargs)
         out["_seconds"][name] = time.perf_counter() - t0
+        if torch.device(device).type == "cuda":
+            # The ranks share a card: a scenario's cached blocks must not
+            # hold memory the next one (or the other rank) needs.
+            gc.collect()
+            torch.cuda.empty_cache()
     return out

@@ -17,9 +17,10 @@ never import it), one torch thread a rank.  Held:
     end;
   * ``grad_accum=2`` against one full batch on the mesh: 1e-4;
   * Muon-NSGD with the global-norm clip under remat on the mesh (every
-    matrix orthogonalized whole, every element counted once in the
-    norms, each super-block gathered again in its backward) against one
-    device: 1e-4;
+    matrix orthogonalized whole, an expert stack split over 'model'
+    orthogonalized expert by expert on its rank, every element counted
+    once in the norms, each super-block gathered again in its backward)
+    against one device: 1e-4;
   * ``zero`` and ``copying_zeroL`` expansions of sharded params keep the
     logits (1e-5), and ``expand_opt_state`` under every policy gives the
     single-device expansion bit for bit with moments shaped as params;
@@ -413,9 +414,11 @@ def test_async_save_on_mesh_matches_sync(world):
 
 
 def test_moe_fsdp_layout_matches_single_device(world):
-    """MoE under the pure-ZeRO-3 layout (batch over every axis, every leaf
-    gathered whole): the single-device loss trajectory within 1e-4,
-    through the expansion."""
+    """MoE under the pure-ZeRO-3 layout (batch over every axis, no tensor or
+    expert parallelism: every leaf gathered whole, every rank running
+    every expert, as the reference's fsdp layout does; the tp layout's
+    expert parallelism is ``tests/test_torch_mesh_layers.py``'s): the
+    single-device loss trajectory within 1e-4, through the expansion."""
     r8 = world["r8"]
     _same_on_every_rank(r8, "moe")
     h = r8[0]["moe"]["history"]

@@ -24,9 +24,11 @@ Held:
     0.9 of the tokens (the reference's bar), Mamba and RWKV6 (no paged
     layer) are byte-exact;
   * on ``2x2`` (two DP blocks of two slots, heads, d_ff and vocab over
-    'model'): dense and window on their local KV heads, MLA and the
-    recurrent configs computed whole, tokens equal to one device's, the
-    radix tree's pages alike on the DP ranks of each 'model' rank;
+    'model'): dense and window on their local KV heads, MLA on its local
+    heads over whole latent pages, Mamba on its local channels and RWKV6
+    on its local heads (their recurrent states the rank's share), tokens
+    equal to one device's, the radix tree's pages alike on the DP ranks
+    of each 'model' rank;
   * the replicated pool: a request admitted into a slot of rank 1 hits the
     prefix that rank 0's row published, its stream equal to its cold run,
     and the hash of the pages the radix tree holds (K/V and int8 scales)
@@ -316,9 +318,9 @@ def test_int8_lane_on_dp_mesh(world, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_tp_streams_equal_one_device(world, arch):
     """``2x2``: two DP blocks of two slots, each on two 'model' ranks
-    (dense and window on their local KV heads, MLA, Mamba and RWKV6
-    computed whole): every mode's tokens equal one device's, on every
-    rank."""
+    (dense and window on their local KV heads, MLA on its local heads,
+    Mamba on its local channels, RWKV6 on its local heads): every mode's
+    tokens equal one device's, on every rank."""
     ranks = world["tp"]
     for mode in TP_MODES[arch]:
         name = f"{arch}_{mode}"
