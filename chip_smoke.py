@@ -337,14 +337,26 @@ result):
    rank's launches those of ``mesh=None``'s (the paged kernel on the
    rank's rows or heads), the radix tree's int8 pages and scales hashing
    alike on both 2x1 ranks, and the paged kernel at the 1x2 local shape
-   (6 heads of 64, f32 and int8 pages) against its plain version.
+   (6 heads of 64, f32 and int8 pages) against its plain version; then,
+   in the same spawn, (f) that traffic over f32 pages under a seeded
+   storm (``storm:0.05:0``, snapshots at every boundary) at 2x1 and 1x2,
+   every rank's finish reasons, retries, site hits and paged launches
+   ``mesh=None``'s under the same storm, its streams (near-tie rule) the
+   clean run's; (g) a ``sched.iter`` crash at 2x1, over f32 pages and
+   with speculation, rank 0's snapshot restored on a fresh scheduler on
+   each rank to the clean streams (paged launches in the restore's
+   decode, flash in its draft prefills); (h) the placement knobs:
+   ``fsdp=True`` at 2x1 and ``layout="fsdp"`` at 1x2, each serving
+   ``generate`` (against solo) and the f32 paged run (against
+   ``mesh=None``'s), with each rank's resident parameter bytes beside
+   ``mesh=None``'s;
 
 44. expert parallelism and tensor-parallel Mamba, RWKV6 and MLA (run
    last): on two ranks that share the card over gloo at 1x2, against
    ``mesh=None`` in this process (weights drawn on the card from seed 0
    in every process): jamba's first two layers at full width (Mamba, and
    Mamba + the 16-expert MoE; 8 experts and 4096 of 8192 channels a rank)
-   3 Muon-NSGD steps of 4 x 1024 and greedy ``generate`` (4 prompts of
+   2 Muon-NSGD steps of 4 x 1024 and greedy ``generate`` (4 prompts of
    64, 8 tokens; near-tie rule); ``rwkv6-7b`` at 2 layers (32 of 64 heads
    a rank) 2 steps and ``generate`` (tokens equal, logits 1e-4);
    ``deepseekv3-0.3b`` at 2 layers (MLA on 4 of 8 heads, 4 of 8 experts,
@@ -353,7 +365,12 @@ result):
    losses within 1e-4 of ``mesh=None``'s, every rank alike, each rank's
    launches derived (a rank's Newton-Schulz GEMMs on its experts), each
    rank's peak beside ``mesh=None``'s and the gather path's (reckoned on
-   the meta device); then the scan and WKV forward and backward,
+   the meta device); (e) ``rwkv6-7b``'s 4 of those requests over f32
+   pages crashed at a ``sched.iter`` boundary and restored from rank 0's
+   snapshot on each rank (WKV on the rank's 32 heads in the re-prefill),
+   its WKV launches a rank ``mesh=None``'s crash-restore's, its streams
+   ``mesh=None``'s clean run's (near-tie rule); then the scan and WKV
+   forward and backward (WKV forward also at the restore's B=1 chunk),
    ``ns_fused`` and the flash forward and backward at their rank-local
    shapes against their plain versions.
 
@@ -5633,6 +5650,23 @@ MESH_CSERVE_RUNS = {"2x1": ("f32", "int8+prefix", "spec"),
                     "1x2": ("f32", "spec")}
 
 
+# (f)-(h): (e)'s traffic over f32 pages under faults and the placement
+# knobs.  Backoff 0: a faulted row retries at the next iteration whatever
+# the clock reads, so a mesh's site hits are mesh=None's under one storm.
+MESH_STORM = "storm:0.05:0"
+MESH_FAULT_SCHED = dict(snapshot_every=1, retry_backoff_s=0.0)
+MESH_CRASH_ITER = 20
+MESH_CRASH_RUNS = ("f32", "spec")
+MESH_KNOBS = {"fsdp": ("2x1", dict(fsdp=True)),
+              "layout": ("1x2", dict(layout="fsdp"))}
+# (h)'s paged runs serve (e)'s first 4 requests (cut for time: each decode
+# step gathers every leaf through gloo, ~12 tokens/s on two ranks).
+MESH_KNOB_REQUESTS = 4
+# A rank's resident parameter bytes under a knob over mesh=None's: every
+# leaf split in two but for the few whose dims do not divide.
+MESH_KNOB_BYTES = 0.55
+
+
 def _mesh_traffic(vocab: int) -> list:
     """Phase 43's serving traffic (``MESH_CSERVE_*``), from seed 5."""
     rng = np.random.default_rng(5)
@@ -5771,6 +5805,152 @@ def mesh_serving(ranks, none, traffic, cfg, params, card) -> dict:
     return out
 
 
+def _same_streams(label, got):
+    """Every rank's tokens and finish reasons alike."""
+    first = [(x["tokens"].tolist(), x["finish_reason"])
+             for x in got[0]["results"]]
+    for r, g in enumerate(got):
+        if [(x["tokens"].tolist(), x["finish_reason"])
+                for x in g["results"]] != first:
+            _fail(f"{label}: rank {r}'s streams differ from rank 0's")
+
+
+def mesh_fault_lanes(ranks, none, traffic, cfg, params, solo, card) -> dict:
+    """(f)-(h) of phase 43 against ``none`` (``mesh=None``'s clean f32
+    run, its storm run, its run of (h)'s requests) and ``solo``
+    (``mesh=None``'s ``generate``).  Returns the readings."""
+    from repro_torch.models import registry
+    out = {}
+    n = len(traffic)
+    clean = _as_results(traffic, none["f32"])
+    # (f) the storm
+    ref = none["storm"]
+    want_fault = ref["stats"]["fault"]
+    for spec in ("2x1", "1x2"):
+        name = f"storm_{spec}"
+        got = [res[name] for res in ranks]
+        _same_streams(name, got)
+        for r, g in enumerate(got):
+            if g["stats"]["fault"] != want_fault:
+                _fail(f"{name}: rank {r}'s fault stats {g['stats']['fault']}"
+                      f" against mesh=None's {want_fault}")
+            if g["counts"] != ref["counts"]:
+                _fail(f"{name}: rank {r} launches {g['counts']}, expected "
+                      f"mesh=None's {ref['counts']}")
+        reasons = [x["finish_reason"] for x in got[0]["results"]]
+        if reasons != [x["finish_reason"] for x in ref["results"]]:
+            _fail(f"{name}: finish reasons {reasons} against mesh=None's")
+        if not want_fault["retries"] or ref["counts"]["paged_attention"] <= 0:
+            _fail(f"{name}: the storm retried nothing or decoded nothing")
+        equal = streams_vs(f"phase 43 (f) {name}", cfg, registry,
+                           _as_results(traffic, got[0]), clean, params)
+        out[name] = {"streams_equal": equal, "finish_reasons": reasons,
+                     "fault": want_fault,
+                     "launches_per_rank": [g["counts"] for g in got],
+                     "tokens_per_s": got[0]["summary"]["tokens_per_s"],
+                     "goodput": got[0]["summary"]["goodput"],
+                     "seconds": got[0]["seconds"],
+                     "clean_seconds": ranks[0][f"cserve_{spec}_f32"][
+                         "seconds"]}
+        print(f"  (f) {name}: {MESH_STORM} over f32 pages: retries "
+              f"{want_fault['retries']}, site hits "
+              f"{want_fault['fault_sites']}, reasons "
+              f"{ {k: reasons.count(k) for k in set(reasons)} } on both "
+              f"ranks, as mesh=None's; {equal} of {n} streams equal the "
+              f"clean run's; paged launches per rank "
+              f"{[g['counts']['paged_attention'] for g in got]} (mesh=None "
+              f"{ref['counts']['paged_attention']}); run "
+              f"{out[name]['seconds']:.2f} s against the clean run's "
+              f"{out[name]['clean_seconds']:.2f} s [{card}]")
+    # (g) crash-restore at 2x1
+    for run in MESH_CRASH_RUNS:
+        name = f"crash_2x1_{run}"
+        got = [res[name] for res in ranks]
+        _same_streams(name, got)
+        for r, g in enumerate(got):
+            if not g["crashed"]:
+                _fail(f"{name}: rank {r} ran past sched.iter:"
+                      f"{MESH_CRASH_ITER}:crash")
+            if g["counts"] != got[0]["counts"]:
+                _fail(f"{name}: rank {r} launches {g['counts']}, rank 0 "
+                      f"{got[0]['counts']}")
+        kernel = "flash_attention" if run == "spec" else "paged_attention"
+        if got[0]["counts"][kernel] <= 0:
+            _fail(f"{name}: no {kernel} launch through the crash and the "
+                  "restore")
+        if any(x["finish_reason"] != "limit" for x in got[0]["results"]):
+            _fail(f"{name}: not every request ran to its budget")
+        equal = streams_vs(f"phase 43 (g) {name}", cfg, registry,
+                           _as_results(traffic, got[0]), clean, params)
+        out[name] = {"streams_equal": equal,
+                     "launches_per_rank": [g["counts"] for g in got],
+                     "seconds": got[0]["seconds"]}
+        print(f"  (g) {name}: sched.iter:{MESH_CRASH_ITER}:crash on both "
+              f"ranks, rank 0's snapshot restored on a fresh scheduler on "
+              f"each: {equal} of {n} streams equal the clean run's; "
+              f"{kernel} launches per rank "
+              f"{[g['counts'][kernel] for g in got]} through crash and "
+              f"restore; {out[name]['seconds']:.2f} s [{card}]")
+    # (h) the placement knobs
+    whole = solo["held"]["param_bytes"]
+    for knob, (spec, _) in MESH_KNOBS.items():
+        got = [res[f"serve_{knob}_{spec}"] for res in ranks]
+        for r, g in enumerate(got):
+            if not np.array_equal(g["tokens"], got[0]["tokens"]):
+                _fail(f"serve {knob} {spec}: rank {r}'s tokens differ")
+            if g["counts"] != solo["counts"]:
+                _fail(f"serve {knob} {spec}: rank {r} launches "
+                      f"{g['counts']}, expected solo's {solo['counts']}")
+        rows = _ties_only(f"phase 43 (h) serve {knob} {spec}",
+                          got[0]["tokens"], solo["tokens"], solo["logits"])
+        lerr = float(np.max(np.abs(got[0]["logits"] - solo["logits"])))
+        if not lerr <= MESH_LOGIT_TOL:
+            _fail(f"serve {knob} {spec}: logits off solo by {lerr}")
+        ratio = [g["held"]["param_bytes"] / whole for g in got]
+        if not max(ratio) <= MESH_KNOB_BYTES:
+            _fail(f"{knob} {spec}: a rank holds {max(ratio):.3f} of "
+                  f"mesh=None's parameter bytes (limit {MESH_KNOB_BYTES})")
+        name = f"cserve_{knob}_{spec}"
+        cs = [res[name] for res in ranks]
+        ref = none["knobs"]
+        _same_streams(name, cs)
+        for r, g in enumerate(cs):
+            if g["counts"] != ref["counts"]:
+                _fail(f"{name}: rank {r} launches {g['counts']}, expected "
+                      f"mesh=None's {ref['counts']}")
+        if any(x["finish_reason"] != "limit" for x in cs[0]["results"]):
+            _fail(f"{name}: not every request ran to its budget")
+        reqs = traffic[:MESH_KNOB_REQUESTS]
+        equal = streams_vs(f"phase 43 (h) {name}", cfg, registry,
+                           _as_results(reqs, cs[0]),
+                           _as_results(reqs, ref), params)
+        out[knob] = {"spec": spec, "rows_equal": rows,
+                     "logit_max_abs_err": lerr,
+                     "param_bytes_per_rank": [g["held"]["param_bytes"]
+                                              for g in got],
+                     "param_bytes_mesh_none": whole, "ratio": ratio,
+                     "serve_launches_per_rank": [g["counts"] for g in got],
+                     "streams_equal": equal,
+                     "cserve_launches_per_rank": [g["counts"] for g in cs],
+                     "tokens_per_s": cs[0]["summary"]["tokens_per_s"],
+                     "tokens_per_s_mesh_none":
+                         ref["summary"]["tokens_per_s"]}
+        print(f"  (h) {knob} at {spec}: generate {rows} of "
+              f"{len(solo['tokens'])} rows equal solo's, logits within "
+              f"{lerr:.3g}; flash launches per rank "
+              f"{[g['counts']['flash_attention'] for g in got]}; resident "
+              f"parameter bytes per rank "
+              f"{[g['held']['param_bytes'] for g in got]} against "
+              f"mesh=None's {whole} ({[round(x, 4) for x in ratio]}); "
+              f"continuous paged: {equal} of {len(reqs)} streams equal "
+              f"mesh=None's, "
+              f"paged launches per rank "
+              f"{[g['counts']['paged_attention'] for g in cs]}; "
+              f"{out[knob]['tokens_per_s']:.1f} tokens/s against "
+              f"{out[knob]['tokens_per_s_mesh_none']:.1f} [{card}]")
+    return out
+
+
 def _max_diff(a: dict, b: dict) -> float:
     if sorted(a) != sorted(b):
         _fail(f"trees differ in leaves: {sorted(set(a) ^ set(b))}")
@@ -5871,6 +6051,31 @@ def mesh_phase(cfglib, card) -> dict:
                      ckpt_dir=run_dir))
                  for spec, runs in MESH_CSERVE_RUNS.items()
                  for run in runs]
+        f32_kw = dict(cfg=cfg, params_np=None, requests=traffic,
+                      max_len=MESH_CSERVE_MAX_LEN,
+                      max_batch=MESH_CSERVE_SLOTS, count=True,
+                      ckpt_dir=run_dir)
+        snap_dir = os.path.join(tmp, "snapshots")
+        os.makedirs(snap_dir)
+        scen += [(f"storm_{spec}", "cserve", dict(
+                     f32_kw, mesh=spec, engine_kw=MESH_CSERVE_KW["f32"],
+                     faults=MESH_STORM, sched_kw=MESH_FAULT_SCHED))
+                 for spec in ("2x1", "1x2")]
+        scen += [(f"crash_2x1_{run}", "cserve", dict(
+                     f32_kw, mesh="2x1", engine_kw=MESH_CSERVE_KW[run],
+                     faults=f"sched.iter:{MESH_CRASH_ITER}:crash",
+                     snapshot_dir=snap_dir,
+                     sched_kw=dict(snapshot_every=1)))
+                 for run in MESH_CRASH_RUNS]
+        for knob, (spec, kw) in MESH_KNOBS.items():
+            scen += [(f"serve_{knob}_{spec}", "serve", dict(
+                         cfg=cfg, params_np=None, prompts=prompts,
+                         num_tokens=G, mesh=spec, max_len=P + G,
+                         ckpt_dir=run_dir, count=True, engine_kw=kw)),
+                     (f"cserve_{knob}_{spec}", "cserve", dict(
+                         f32_kw, mesh=spec,
+                         requests=traffic[:MESH_KNOB_REQUESTS],
+                         engine_kw=dict(MESH_CSERVE_KW["f32"], **kw)))]
         scen += [(f"paged_6_heads_{kv}", "paged_local",
                   dict(B=MESH_CSERVE_SLOTS, H=cfg.num_heads // 2,
                        KV=cfg.num_kv_heads // 2, hd=cfg.head_dim,
@@ -5907,6 +6112,14 @@ def mesh_phase(cfglib, card) -> dict:
             max_len=MESH_CSERVE_MAX_LEN, max_batch=MESH_CSERVE_SLOTS,
             engine_kw=MESH_CSERVE_KW[run], count=True, ckpt_dir=run_dir)
             for run in MESH_CSERVE_KW}
+        # (f)'s reference: the storm on one device
+        cserve_none["storm"] = mesh_runs.cserve(
+            device="cuda", mesh=None, engine_kw=MESH_CSERVE_KW["f32"],
+            faults=MESH_STORM, sched_kw=MESH_FAULT_SCHED, **f32_kw)
+        # (h)'s reference: its requests on one device
+        cserve_none["knobs"] = mesh_runs.cserve(
+            device="cuda", mesh=None, engine_kw=MESH_CSERVE_KW["f32"],
+            **dict(f32_kw, requests=traffic[:MESH_KNOB_REQUESTS]))
         none_s = time.perf_counter() - t1
 
     out = {"single_equals_none": True, "spawn_s": spawn_s}
@@ -6011,10 +6224,15 @@ def mesh_phase(cfglib, card) -> dict:
               f"{solo['counts']['flash_attention']}; no other kernel)")
     # (e) continuous, paged, prefix-cached and speculative serving
     from repro_torch.tree import tree_map
+    card_params = tree_map(lambda t: t.cuda(), params)
     out["serving"] = mesh_serving(ranks, cserve_none, traffic, scfg,
-                                  tree_map(lambda t: t.cuda(), params), card)
+                                  card_params, card)
+    # (f)-(h) serving under faults and the placement knobs
+    out["faults"] = mesh_fault_lanes(ranks, cserve_none, traffic, scfg,
+                                     card_params, solo, card)
+    del card_params
     served = {k: v for k, v in ranks[0]["_seconds"].items()
-              if k.startswith("cserve_")}
+              if k.startswith(("cserve_", "storm_", "crash_", "serve_"))}
     print(f"  (e) rank 0's serving runs {sum(served.values()):.1f} s "
           f"({ {k: round(v, 1) for k, v in served.items()} }); mesh=None's "
           f"{none_s:.1f} s")
@@ -6032,13 +6250,19 @@ def mesh_phase(cfglib, card) -> dict:
 # ---------------------------------------------------------------------------
 
 # (steps, global batch, sequence length) of each model's training run,
-# Muon-NSGD, no expansion: jamba at phase 42's batch, deepseekv3-0.3b at
-# the launcher's, rwkv6-7b at 2 x 512 (cut from phase 41's 4 x 1024 for
-# time: its 1x2 step moves ~16 activations of B x S x 4096 through gloo).
-MESH44_TRAIN = {"jamba": (3, 4, 1024), "rwkv": (2, 2, 512),
+# Muon-NSGD, no expansion: jamba at phase 42's batch for 2 steps (3 until
+# the serving fault lanes came in, cut for time: a 1x2 step takes ~12 s),
+# deepseekv3-0.3b at the launcher's, rwkv6-7b at 2 x 512 (cut from phase
+# 41's 4 x 1024 for time: its 1x2 step moves ~16 activations of
+# B x S x 4096 through gloo).
+MESH44_TRAIN = {"jamba": (2, 4, 1024), "rwkv": (2, 2, 512),
                 "dsv3": (3, 16, 256)}
 MESH44_PROMPTS = (4, 64, 8)          # (B, P, G) of the greedy generations
 MESH44_REQUESTS = 8                  # deepseekv3-0.3b's continuous run
+# (e) rwkv6-7b's crash-restore at 1x2: 4 of phase 43's requests over f32
+# pages, a sched.iter crash, rank 0's snapshot restored on each rank (its
+# re-prefill runs WKV on the rank's 32 heads from a fresh carry).
+MESH44_RWKV_REQUESTS, MESH44_RWKV_CRASH = 4, 12
 # Losses of the 1x2 runs against mesh=None's: the reference's own
 # tolerance for its sharded runs.  rwkv6-7b's generation: logits against
 # solo generate, phase 43's TP tolerance.
@@ -6139,11 +6363,55 @@ def _muon_expert_stack(cfg, g) -> torch.Tensor:
     raise ValueError(f"{cfg.name} has no expert stack")
 
 
+def mesh44_rwkv_restore(ranks, none, traffic, cfg, registry, card) -> dict:
+    """(e): ``rwkv6-7b``'s crash-restore at 1x2 against ``mesh=None``'s
+    crash-restore (each rank's WKV launches, the crash and the restore's
+    re-prefill chunks on its 32 heads, equal to it) and its clean run (the
+    streams, under the near-tie rule)."""
+    import mesh_runs
+    got = [res["crash_rwkv"] for res in ranks]
+    ref = none["crash_rwkv"]
+    _same_streams("phase 44 (e) crash_rwkv", got)
+    for r, g in enumerate(got + [ref]):
+        if not g["crashed"]:
+            _fail(f"phase 44 (e): run {r} ran past sched.iter:"
+                  f"{MESH44_RWKV_CRASH}:crash")
+    for r, g in enumerate(got):
+        if g["counts"] != ref["counts"]:
+            _fail(f"phase 44 (e): rank {r} launches {g['counts']}, expected "
+                  f"mesh=None's {ref['counts']}")
+    if ref["counts"]["wkv"] <= 0 or any(
+            v for k, v in ref["counts"].items() if k != "wkv"):
+        _fail(f"phase 44 (e): mesh=None launches {ref['counts']}, expected "
+              "WKV alone")
+    if any(x["finish_reason"] != "limit" for x in got[0]["results"]):
+        _fail("phase 44 (e): not every request ran to its budget")
+    params = mesh_runs.card_params(cfg, 0, "cuda")
+    equal = streams_vs("phase 44 (e) rwkv6-7b crash-restore 1x2", cfg,
+                       registry, _as_results(traffic, got[0]),
+                       _as_results(traffic, none["cserve_rwkv"]), params)
+    del params
+    out = {"streams_equal": equal,
+           "launches_per_rank": [g["counts"] for g in got],
+           "launches_mesh_none": ref["counts"],
+           "seconds": got[0]["seconds"]}
+    print(f"  (e) {cfg.name} at 2 layers, 1x2: sched.iter:"
+          f"{MESH44_RWKV_CRASH}:crash on both ranks, rank 0's snapshot "
+          f"restored on each: {equal} of {len(traffic)} streams equal "
+          f"mesh=None's clean run; WKV launches per rank "
+          f"{[g['counts']['wkv'] for g in got]} through crash and restore "
+          f"(32 of 64 heads), as mesh=None's {ref['counts']['wkv']}; "
+          f"{out['seconds']:.2f} s [{card}]")
+    return out
+
+
 def mesh44_lanes(scan_ops, wkv_ops, ns_ops, cfgs) -> dict:
     """Each kernel of phase 44's paths at its rank-local shape on 1x2
     against its plain version on the same inputs: the scan forward and
     backward on 4096 of jamba's 8192 channels, the WKV forward and
-    backward on 32 of rwkv6-7b's 64 heads, ``ns_fused`` on deepseekv3-0.3b's
+    backward on 32 of rwkv6-7b's 64 heads (and the forward at (e)'s
+    restore shape: B 1, a 128-token chunk from a carried state),
+    ``ns_fused`` on deepseekv3-0.3b's
     expert stack as a rank's Muon hands it over (2 layers x 4 of 8 experts
     of 512 x 1024), Newton-Schulz through the ``matmul`` kernel on jamba's
     (8 of 16 experts of 4096 x 14336, too large to fuse), flash forward and
@@ -6184,6 +6452,11 @@ def mesh44_lanes(scan_ops, wkv_ops, ns_ops, cfgs) -> dict:
     got = _grads_through(wkv_ops.wkv, args, (dy, None))
     want = wkv_ref.wkv_bwd_ref(*args, dy, None)
     out["wkv_bwd"] = max(_bwd_ratio(a, b) for a, b in zip(got, want))
+    # (e)'s restore: a B=1 re-prefill chunk from a carried state
+    args = wkv_case(1, 128, H, hd, f32, True, WKV_DECAYS["near 0.69"], 47)
+    y, s = wkv_ops.wkv(*args, force="kernel")
+    wy, ws = wkv_ops.wkv(*args, force="chunked")
+    out["wkv_restore_chunk"] = max(_rel_floor(y, wy), _rel_floor(s, ws))
     del args, y, s, wy, ws, got, want
     dsv3 = cfgs["dsv3"]
     x = _muon_expert_stack(dsv3, g)
@@ -6205,7 +6478,8 @@ def mesh44_lanes(scan_ops, wkv_ops, ns_ops, cfgs) -> dict:
     out["flash_attention_bwd"] = max(v for k, v in fl.items() if k != "out")
     torch.cuda.synchronize()
     limits = {"selective_scan": SCAN_TOL[f32], "selective_scan_bwd": 1.0,
-              "wkv": WKV_TOL[f32], "wkv_bwd": 1.0, "ns_fused": NS_TOL[f32],
+              "wkv": WKV_TOL[f32], "wkv_bwd": 1.0,
+              "wkv_restore_chunk": WKV_TOL[f32], "ns_fused": NS_TOL[f32],
               "matmul": NS_TOL[f32],
               "flash_attention": TOL[f32], "flash_attention_bwd": TOL[f32]}
     for name, err in out.items():
@@ -6286,6 +6560,18 @@ def mesh_layers_phase(cfglib, registry, card) -> dict:
                                            device="cuda", **cs_kw)
     gc.collect()
     torch.cuda.empty_cache()
+    rwkv_traffic = _mesh_traffic(cfgs["rwkv"].vocab_size)[
+        :MESH44_RWKV_REQUESTS]
+    snap_dir = tempfile.mkdtemp(prefix="phase44_")
+    crash_kw = dict(faults=f"sched.iter:{MESH44_RWKV_CRASH}:crash",
+                    snapshot_dir=snap_dir, sched_kw=dict(snapshot_every=1))
+    none["cserve_rwkv"] = mesh_runs.cserve(cfgs["rwkv"], None, rwkv_traffic,
+                                           None, device="cuda", **cs_kw)
+    none["crash_rwkv"] = mesh_runs.cserve(cfgs["rwkv"], None, rwkv_traffic,
+                                          None, device="cuda", **cs_kw,
+                                          **crash_kw)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     scen = []
     for name, cfg in cfgs.items():
@@ -6301,10 +6587,15 @@ def mesh_layers_phase(cfglib, registry, card) -> dict:
     scen.append(("cserve_dsv3", "cserve", dict(cfg=dsv3, params_np=None,
                                                requests=traffic, mesh="1x2",
                                                **cs_kw)))
+    scen.append(("crash_rwkv", "cserve", dict(
+        cfg=cfgs["rwkv"], params_np=None, requests=rwkv_traffic,
+        mesh="1x2", **cs_kw, **crash_kw)))
     t1 = time.perf_counter()
     ranks = mesh_lib.spawn(mesh_runs.run, 2, (scen, "cuda"), device="cuda",
                            threads=0, timeout_s=900)
     spawn_s = time.perf_counter() - t1
+    import shutil
+    shutil.rmtree(snap_dir, ignore_errors=True)
 
     out = {"reckoned": reckoned, "spawn_s": spawn_s,
            "scenario_s": ranks[0]["_seconds"]}
@@ -6425,6 +6716,8 @@ def mesh_layers_phase(cfglib, registry, card) -> dict:
           f"{[g['counts'] for g in got]}, as mesh=None's; "
           f"{out['cserve_dsv3']['tokens_per_s']:.1f} tokens/s against "
           f"{out['cserve_dsv3']['tokens_per_s_mesh_none']:.1f} [{card}]")
+    out["crash_rwkv"] = mesh44_rwkv_restore(ranks, none, rwkv_traffic,
+                                            cfgs["rwkv"], registry, card)
     gc.collect()
     torch.cuda.empty_cache()
     out["lanes"] = mesh44_lanes(OPS["scan"], OPS["wkv"], OPS["ns"], cfgs)
@@ -6899,6 +7192,17 @@ def main() -> int:
     def mesh44_launches(kernel, run):
         return [c[kernel] for c in mesh44[run]["launches_per_rank"]]
 
+    def fault_launches(kernel):
+        """Each rank's launches in phase 43's lanes (f)-(h)."""
+        f = mesh["faults"]
+        out = {name: [c[kernel] for c in r["launches_per_rank"]]
+               for name, r in f.items() if "launches_per_rank" in r}
+        for knob in MESH_KNOBS:
+            for key in ("serve", "cserve"):
+                out[f"{key}_{knob}_{f[knob]['spec']}"] = [
+                    c[kernel] for c in f[knob][f"{key}_launches_per_rank"]]
+        return out
+
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -6911,6 +7215,8 @@ def main() -> int:
                     mesh[f"serve_{spec}"]["launches_per_rank"]]
              for spec in ("2x1", "1x2")},
          "mesh_43_tp_local_shape_err": mesh["flash_6_heads"]["out"],
+         "mesh_43_fault_knob_launches_per_rank": fault_launches(
+             "flash_attention"),
          "mesh_44_launches_per_rank": {
              "deepseekv3_0_3b_training": mesh44_launches("flash_attention",
                                                          "dsv3")},
@@ -6953,6 +7259,8 @@ def main() -> int:
          "mesh_43_tp_local_shape_err": {
              kv: mesh["serving"][f"paged_6_heads_{kv}"]
              for kv in ("float32", "int8")},
+         "mesh_43_fault_knob_launches_per_rank": fault_launches(
+             "paged_attention"),
          "jamba_v01_52b": {run: jamba_cont[run]["paged_attention"]
                            for run in ("paged f32", "paged int8")},
          "registers_spills": [list(r) for r in pa_regs],
@@ -7028,8 +7336,10 @@ def main() -> int:
          "training_launches": rwkv_bwd["training"]["launches"]["wkv"],
          "mesh_44_launches_per_rank": {
              "training": mesh44_launches("wkv", "rwkv"),
-             "generate": mesh44_launches("wkv", "serve_rwkv")},
+             "generate": mesh44_launches("wkv", "serve_rwkv"),
+             "crash_restore": mesh44_launches("wkv", "crash_rwkv")},
          "mesh_44_local_shape_err": mesh44["lanes"]["wkv"],
+         "mesh_44_restore_chunk_err": mesh44["lanes"]["wkv_restore_chunk"],
          "max_abs_err": wkv_err, **t_wkv,
          "registers_spills": [list(r) for r in wkv_regs
                               if not r[0].startswith("wkv_bwd")]},

@@ -27,8 +27,15 @@ backward pass:
 
 ``exchange`` is continuous serving's one collective an iteration on a
 mesh, where every rank runs the scheduler: the slot blocks' sampled
-tokens (and accepted counts) made whole, with rank 0's clock reading so
-that every rank takes the same decisions.
+tokens (and accepted counts) made whole, with rank 0's clock reading and
+pending cancels so that every rank takes the same decisions.
+
+``AgreedPlane`` (``agreed_plane``) makes a fault plane's every decision
+the mesh's: a site's outcome is all-reduced, so every rank raises the
+same kind (a crash over a fault) or none, and no rank retries, contains
+or unwinds, and so enters its collectives, alone.  The trainer and the
+server wrap their planes in it on a mesh; the NULL plane stays one no-op
+call a site, with no collective.
 
 Two ranks that share a card talk over gloo, which took CUDA tensors in
 every collective used here (all-reduce, its max, all-gather, reduce-scatter
@@ -89,21 +96,25 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def exchange(blocks, clock: float, group, take, device):
+def exchange(blocks, clock: float, group, take, device, words=()):
     """The continuous scheduler's per-iteration exchange on a mesh: ONE
     all-gather over ``group`` of each rank's row blocks (integer or bool
     tensors, rows first, of one shape on every rank: a slot block's
-    sampled tokens, active flags and accepted counts) and its clock
-    reading, packed into one int64 tensor on ``device``.  Returns (each
-    block of the group ranks ``take`` concatenated along rows, in that
-    order, in its own dtype; group rank 0's clock), the same on every
-    rank.  A ``group`` of None returns the blocks and the clock as
+    sampled tokens, active flags and accepted counts), its clock reading
+    and ``words`` (int64 values, as many on every rank: the scheduler's
+    pending cancels), packed into one int64 tensor on ``device``.
+    Returns (each block of the group ranks ``take`` concatenated along
+    rows, in that order, in its own dtype; group rank 0's clock; the
+    bitwise OR of every rank's words), the same on every rank.  A
+    ``group`` of None returns the blocks, the clock and the words as
     given."""
+    words = [int(w) for w in words]
     if group is None:
-        return list(blocks), clock
+        return list(blocks), clock, words
     stamp = torch.tensor([clock], dtype=torch.float64).view(torch.int64)
+    tail = torch.cat([stamp, torch.tensor(words, dtype=torch.int64)])
     src = torch.cat([b.reshape(-1).to(device, torch.int64) for b in blocks]
-                    + [stamp.to(device)])
+                    + [tail.to(device)])
     parts = all_gather(src[None], group, 0)                # (ranks, L)
     out, off = [], 0
     for b in blocks:
@@ -111,7 +122,65 @@ def exchange(blocks, clock: float, group, take, device):
         out.append(torch.cat([parts[r, off:off + n].reshape(b.shape)
                               for r in take]).to(b.dtype))
         off += n
-    return out, float(parts[0, -1:].cpu().view(torch.float64)[0])
+    head = parts[:, off:].cpu()
+    words = [0] * (head.shape[1] - 1)
+    for row in head[:, 1:].tolist():
+        words = [a | b for a, b in zip(words, row)]
+    return out, float(head[0, :1].view(torch.float64)[0]), words
+
+
+# ---------------------------------------------------------------------------
+# Fault decisions agreed over the mesh
+# ---------------------------------------------------------------------------
+
+
+def agree_code(mesh, code: int) -> int:
+    """The largest of every rank's ``code`` (0 on every rank: 0)."""
+    return int(all_reduce(torch.tensor([code], dtype=torch.int64),
+                          mesh.group(mesh.axis_names), "max")[0])
+
+
+def agreed(mesh, site: str, fn):
+    """Run ``fn`` on this rank; if it raised a ``FaultError`` or a
+    ``CrashError`` on any rank, raise on every rank (a crash over a
+    fault), so every rank retries, contains or unwinds together."""
+    err = None
+    try:
+        fn()
+    except (faults_lib.FaultError, faults_lib.CrashError) as e:
+        err = e
+    code = agree_code(mesh, 0 if err is None else
+                      2 if isinstance(err, faults_lib.CrashError) else 1)
+    if code == 0:
+        return
+    kind = faults_lib.CrashError if code == 2 else faults_lib.FaultError
+    raise err if isinstance(err, kind) else kind(site, 0)
+
+
+class AgreedPlane:
+    """A fault plane whose every decision is agreed over the mesh
+    (``agreed``): no rank runs an operation, and its collectives,
+    alone.  Its counts, tape and draws are the wrapped plane's."""
+
+    def __init__(self, plane, mesh):
+        self.plane = plane
+        self.mesh = mesh
+
+    def fire(self, site: str) -> None:
+        agreed(self.mesh, site, lambda: self.plane.fire(site))
+
+    def __getattr__(self, name):
+        return getattr(self.plane, name)
+
+
+def agreed_plane(plane, mesh):
+    """``plane`` as a mesh runs it: wrapped in :class:`AgreedPlane` on a
+    mesh; the NULL plane, a plane off a mesh and a plane already agreed
+    as they are."""
+    if mesh is None or plane is faults_lib.NULL \
+            or isinstance(plane, AgreedPlane):
+        return plane
+    return AgreedPlane(plane, mesh)
 
 
 def take_slice(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:

@@ -59,12 +59,17 @@ from repro_torch.tree import tree_map_with_path
 @dataclasses.dataclass
 class MeshContext:
     """The mesh a trainer or server runs the model under.  ``specs``
-    ({path: spec} of the leaves as the rank holds them) is set where the
-    params are FSDP shards (training): ``materialize`` then gathers them.
-    Without it (serving) the params are held as the layers use them."""
+    ({path: spec} of the leaves as the rank holds them) is set where some
+    leaf is held split over an axis its layer does not compute on (FSDP
+    shards, the fsdp layout's ZeRO-3, a served leaf under the server's
+    ``fsdp``, ``layout`` or ``moe_fsdp``): ``materialize`` then gathers
+    them.  Without it every leaf is held as the layers use it.
+    ``serving``: a server's context, whose forwards take no gradient and
+    compute no batch statistic (``dp_mean`` is the identity)."""
     mesh: object
     layout: str
     specs: Optional[Dict[Tuple[str, ...], tuple]] = None
+    serving: bool = False
 
     def __post_init__(self):
         if self.layout not in ("tp", "fsdp"):
@@ -217,18 +222,19 @@ def materialize(tree, cfg, prefix: Tuple[str, ...] = ()):
     where the leaf's layer computes it whole (a packed leaf then
     unpacked).  The backward all-reduces
     each leaf's gradient over the DP axes, scales it by 1/DP (the loss is
-    a mean over the DP ranks' rows) and keeps the rank's slice.  A
-    super-block's slice of a stacked leaf (its leading axis indexed away)
-    takes the stacked leaf's spec without its stack entry.  The identity
-    outside a training mesh."""
+    a mean over the DP ranks' rows) and keeps the rank's slice; a
+    serving context gathers alone.  A super-block's slice of a stacked
+    leaf (its leading axis indexed away) takes the stacked leaf's spec
+    without its stack entry.  The identity where the context holds no
+    specs."""
     ctx = active_mesh()
     if ctx is None or ctx.specs is None:
         return tree
     mesh = ctx.mesh
     dp = dp_axes(mesh, ctx.layout)
-    group = mesh.group(dp)
+    group = None if ctx.serving else mesh.group(dp)
     ndp = mesh.axes_size(dp)
-    scale = 1.0 / ndp if ndp > 1 else 1.0
+    scale = 1.0 / ndp if ndp > 1 and not ctx.serving else 1.0
 
     def one(path, x):
         full = prefix + path
@@ -256,9 +262,10 @@ def materialize(tree, cfg, prefix: Tuple[str, ...] = ()):
 def dp_mean(x: torch.Tensor) -> torch.Tensor:
     """On a training mesh, a batch statistic ``x`` of the rank's rows made
     the statistic of the whole batch: the mean over the DP ranks
-    (``collectives.mean_over_group``).  The identity elsewhere."""
+    (``collectives.mean_over_group``).  The identity elsewhere, serving
+    included."""
     ctx = active_mesh()
-    if ctx is None or ctx.specs is None:
+    if ctx is None or ctx.specs is None or ctx.serving:
         return x
     axes = dp_axes(ctx.mesh, ctx.layout)
     n = ctx.mesh.axes_size(axes)

@@ -19,10 +19,26 @@ ranks on one device).  ``spawn`` starts N local ranks, each in a fresh
 directory (parallel test workers never contend for a TCP port); under
 ``torchrun`` the environment's rank and world size are used instead
 (``init_from_env``).
+
+Teardown (``close_world``): a gloo process group runs worker and
+transport threads that its C++ object joins when it is destroyed.  An
+engine, a scheduler or a ``Mesh`` left in a reference cycle (or in a
+module's cache) keeps its groups alive past ``destroy_process_group``, and
+they were then destroyed during the interpreter's final teardown, where a
+rank could abort with "terminate called without an active exception"
+after it had written its result.  ``close_world`` releases every mesh's
+groups and collects the cycles while the interpreter is whole, waits at a
+barrier until every rank has left its last collective, and only then
+destroys the process group, so no gloo thread outlives it.  A spawned
+rank calls it when its function returns; a world joined under
+``torchrun`` or made for a one-rank mesh in a plain process is closed at
+exit (``atexit``, without the barrier: the peers may be gone).
 """
 from __future__ import annotations
 
+import atexit
 import datetime
+import gc
 import itertools
 import multiprocessing as mp
 import os
@@ -30,6 +46,7 @@ import pickle
 import tempfile
 import time
 import traceback
+import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,6 +54,9 @@ import torch
 import torch.distributed as dist
 
 _TIMEOUT = datetime.timedelta(seconds=300)
+
+# Every Mesh made in this process (``close_world`` releases their groups).
+_LIVE: "weakref.WeakSet[Mesh]" = weakref.WeakSet()
 
 
 def backend_for(device: str, world_size: int) -> str:
@@ -82,6 +102,7 @@ def init_from_env(device: str = "cpu") -> Optional[torch.device]:
         torch.cuda.set_device(dev)
     dist.init_process_group(backend_for(device, world), rank=rank,
                             world_size=world, timeout=_TIMEOUT)
+    atexit.register(close_world, barrier=False)
     return dev
 
 
@@ -108,6 +129,7 @@ def _ensure_world(device: str) -> None:
         return
     path = os.path.join(tempfile.mkdtemp(prefix="repro_torch_pg_"), "store")
     init_distributed(0, 1, path, device)
+    atexit.register(close_world, barrier=False)
 
 
 class Mesh:
@@ -159,6 +181,14 @@ class Mesh:
                     g = dist.new_group([int(x) for x in ranks])
                     if self.rank in ranks:
                         self._groups[axes] = g
+        _LIVE.add(self)
+
+    def release(self) -> None:
+        """Drop this mesh's references to its process groups (``close_world``
+        does so before the groups are destroyed); the mesh runs no
+        collective after it."""
+        self._groups = {}
+        self.device_mesh = None
 
     def axes_size(self, axes) -> int:
         return int(np.prod([self.shape.get(a, 1) for a in axes]))
@@ -179,6 +209,24 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank}, {self.backend})"
+
+
+def close_world(barrier: bool = True) -> None:
+    """Tear the process group down so that no gloo thread outlives it:
+    release every live mesh's groups, collect the reference cycles that
+    may still hold a group (an engine, a scheduler), wait at a barrier
+    until every rank is done with its collectives (``barrier``; a rank
+    that failed skips it, as its peers may never arrive), then destroy the
+    group and collect again.  A no-op without a process group."""
+    if not dist.is_initialized():
+        return
+    for m in list(_LIVE):
+        m.release()
+    gc.collect()
+    if barrier:
+        dist.barrier()
+    dist.destroy_process_group()
+    gc.collect()
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
@@ -238,13 +286,13 @@ def _rank_main(fn, rank: int, world: int, tmp: str, device: str,
         out = fn(*args)
         with open(os.path.join(tmp, f"result_{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
+        del out
+        close_world()
     except BaseException:
         with open(os.path.join(tmp, f"error_{rank}.txt"), "w") as f:
             f.write(traceback.format_exc())
+        close_world(barrier=False)
         raise
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
 
 
 def spawn(fn: Callable, nproc: int, args: tuple = (), device: str = "cpu",

@@ -44,10 +44,14 @@ serves on a device mesh: rows over the DP axes, heads, d_ff and vocab over
 ``--paged``, ``--prefix-cache``, ``--kv-dtype``, ``--spec-depth``): every
 rank runs the scheduler, the page pool is whole on every rank and the
 slots go in blocks over the DP axes.  ``--faults`` and
-``--snapshot-every`` with ``--mesh`` exit, naming ROADMAP queue A item 22.
+``--snapshot-every`` take it too: every rank's fault plane agrees on each
+site's outcome, and every rank snapshots at the same boundary.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --mesh host --nproc 2 --continuous --paged --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mesh host --nproc 2 --continuous --paged --faults storm:0.05:0 \
+        --snapshot-every 1
 
 ``--continuous`` switches to the continuous-batching scheduler
 (``train/serve_scheduler``): ``--requests`` synthetic requests with varied
@@ -244,10 +248,6 @@ def main(argv=None):
                          "re-prefills prompt+emitted for byte-identical "
                          "resumed greedy streams; 0: off)")
     args = ap.parse_args(argv)
-    if args.mesh and (args.faults or args.snapshot_every):
-        raise SystemExit(
-            f"--mesh {args.mesh}: --faults and --snapshot-every on a mesh are "
-            "ROADMAP queue A item 22 (fault tolerance in mesh serving)")
     if args.nproc > 1:
         mesh_lib.run_ranks("repro_torch.launch.serve",
                            sys.argv[1:] if argv is None else argv,

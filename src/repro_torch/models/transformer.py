@@ -31,8 +31,8 @@ from repro_torch.models.common import (apply_norm, cross_entropy,
                                        vocab_parallel_cross_entropy)
 from repro_torch.tree import leaves_with_path, tree_map
 
-_KIND = ("ROADMAP queue A item 12 (remaining architectures): {what} is not "
-         "ported yet")
+_KIND = ("{what}: the port's blocks are attention, Mamba and RWKV6, the "
+         "kinds of every config of the reference registry")
 
 
 def _check_layer(cfg: ModelConfig, i: int):
@@ -277,6 +277,12 @@ def _materialize_top(params, cfg: ModelConfig):
     return {**params, **top}
 
 
+def _block(params, cfg: ModelConfig, s: int):
+    """Super-block ``s``'s leaves as the layers use them: a serving mesh's
+    held shards gathered for this super-block alone (``materialize``)."""
+    return materialize(_tree_index(params["blocks"], s), cfg, ("blocks",))
+
+
 def _apply_superblock(sb, cfg: ModelConfig, x, positions):
     """One super-block, full-sequence.  Returns (x, its aux losses)."""
     aux = torch.zeros((), device=x.device)
@@ -511,12 +517,13 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache, embeds=None,
     ``last_only`` normalises and projects the last position alone and
     returns (B, 1, V) logits: the serving step samples from nothing else,
     and the full head is S times its work."""
+    params = _materialize_top(params, cfg)
     x = embed_tokens(params, cfg, tokens, embeds)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = _positions_for(cfg, B, S, x.device)
     for s in range(num_superblocks(params)):
-        sb = _tree_index(params["blocks"], s)
+        sb = _block(params, cfg, s)
         cache_sb = _tree_index(cache, s)      # views into the stacked cache
         for i in range(cfg.pattern_period):
             x, _ = _prefill_layer(sb[f"layer{i}"], cache_sb[f"layer{i}"], cfg,
@@ -538,10 +545,11 @@ def lm_prefill_chunk(params, cfg: ModelConfig, tokens, cache, carry,
     logits (B, 1, V), cache, carry): only the final chunk's logits are
     sampled, so the head runs on one position."""
     B, C = tokens.shape
+    params = _materialize_top(params, cfg)
     x = embed_tokens(params, cfg, tokens, offset=ctx_len)
     positions = _positions_for(cfg, B, C, x.device, ctx_len)
     for s in range(num_superblocks(params)):
-        sb = _tree_index(params["blocks"], s)
+        sb = _block(params, cfg, s)
         cache_sb = _tree_index(cache, s)
         carry_sb = _tree_index(carry, s)
         for i in range(cfg.pattern_period):
@@ -622,13 +630,14 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache, index,
     if index.ndim == 0:
         index = index.expand(B)
     attn_index = index if block_table is None else index.to(torch.int32)
+    params = _materialize_top(params, cfg)
     x = _embed_lookup(params, cfg, tokens)
     if cfg.position == "absolute":
         x = x + _pos_embed(params, index)[:, None, :]
     if positions is None:
         positions = _mrope_ids(cfg, index[:, None])
     for s in range(num_superblocks(params)):
-        sb = _tree_index(params["blocks"], s)
+        sb = _block(params, cfg, s)
         cache_sb = _tree_index(cache, s)
         for i in range(cfg.pattern_period):
             x, _ = _decode_layer(sb[f"layer{i}"], cache_sb[f"layer{i}"], cfg,
@@ -695,6 +704,7 @@ def lm_verify(params, cfg: ModelConfig, tokens, cache, index, block_table,
     if index.ndim == 0:
         index = index.expand(B)
     pos = index[:, None] + torch.arange(C, device=tokens.device)[None, :]
+    params = _materialize_top(params, cfg)
     x = _embed_lookup(params, cfg, tokens)
     if cfg.position == "absolute":
         x = x + _pos_embed(params, pos)
@@ -709,7 +719,7 @@ def lm_verify(params, cfg: ModelConfig, tokens, cache, index, block_table,
             pend[ln] = {k: t.new_empty(t.shape[:2] + (C,) + t.shape[3:])
                         for k, t in cache[ln].items()}
     for s in range(num_superblocks(params)):
-        sb = _tree_index(params["blocks"], s)
+        sb = _block(params, cfg, s)
         cache_sb = _tree_index(cache, s)
         for i in range(cfg.pattern_period):
             ln = f"layer{i}"

@@ -75,45 +75,6 @@ from repro_torch.train import steps as steps_lib
 from repro_torch.tree import leaves_with_path, tree_map, tree_map_with_path
 
 
-def _agree_code(mesh, code: int) -> int:
-    """The largest of every rank's ``code`` (0 on every rank: 0)."""
-    return int(coll.all_reduce(torch.tensor([code], dtype=torch.int64),
-                               mesh.group(mesh.axis_names), "max")[0])
-
-
-def _agreed(mesh, site: str, fn):
-    """Run ``fn`` on this rank; if it raised a ``FaultError`` or a
-    ``CrashError`` on any rank, raise on every rank (a crash over a
-    fault), so every rank retries, contains or unwinds together."""
-    err = None
-    try:
-        fn()
-    except (faults_lib.FaultError, faults_lib.CrashError) as e:
-        err = e
-    code = _agree_code(mesh, 0 if err is None else
-                       2 if isinstance(err, faults_lib.CrashError) else 1)
-    if code == 0:
-        return
-    kind = faults_lib.CrashError if code == 2 else faults_lib.FaultError
-    raise err if isinstance(err, kind) else kind(site, 0)
-
-
-class _AgreedPlane:
-    """A fault plane whose every decision is agreed over the mesh
-    (``_agreed``): no rank runs an operation, and its collectives,
-    alone."""
-
-    def __init__(self, plane, mesh):
-        self.plane = plane
-        self.mesh = mesh
-
-    def fire(self, site: str) -> None:
-        _agreed(self.mesh, site, lambda: self.plane.fire(site))
-
-    def __getattr__(self, name):
-        return getattr(self.plane, name)
-
-
 @dataclasses.dataclass
 class TrainResult:
     history: Dict[str, List]
@@ -181,8 +142,7 @@ class ProgressiveTrainer:
         self.faults = faults_lib.resolve(faults)
         # ckpt.write fires in rank 0's writer alone: it keeps the raw plane.
         self._write_plane = self.faults
-        if mesh is not None and self.faults is not faults_lib.NULL:
-            self.faults = _AgreedPlane(self.faults, mesh)
+        self.faults = coll.agreed_plane(self.faults, mesh)
         self.nan_policy = nan_policy
         self.spike_factor = spike_factor
         self.nan_inject = faults_lib.parse_nan_inject(nan_inject)
@@ -333,7 +293,7 @@ class ProgressiveTrainer:
 
     def _barrier(self):
         if self.mesh is not None:
-            _agree_code(self.mesh, 0)
+            coll.agree_code(self.mesh, 0)
 
     def _settle(self):
         """On a mesh: rank 0's write in flight lands before any rank reads
@@ -451,7 +411,7 @@ class ProgressiveTrainer:
                 # On a mesh rank 0 writes and every rank takes its outcome.
                 if self.mesh is None:
                     return write_here()
-                _agreed(self.mesh, "ckpt.write", write_here)
+                coll.agreed(self.mesh, "ckpt.write", write_here)
 
             try:
                 self._retry("ckpt.write", write)

@@ -91,8 +91,27 @@ and draft cache on the rank that owns the row.  A masked decode or a
 verify writes the pool only at the rank's own rows' slots, which no row
 of another rank reads: the pages the radix tree holds are prompt pages,
 equal on every rank.  The scheduler's per-iteration ``exchange`` makes
-the sampled tokens whole on every rank.  Fault planes and crash
-snapshots on a mesh are ROADMAP queue A item 22.
+the sampled tokens whole on every rank.
+
+The reference's placement knobs (``fsdp``, ``layout``, ``moe_fsdp``, with
+its defaults) place the served leaves by the trainer's rules
+(``sharding.param_spec``).  Under the default ('tp' layout, no FSDP) a
+rank holds the 'model' shards its layers compute on and every other leaf
+whole, as above.  ``fsdp=True`` holds each leaf's FSDP shard over 'data'
+too, ``moe_fsdp='ef'`` puts an expert stack's expert-ffn dim there, and
+``layout='fsdp'`` holds every leaf split over ('data', 'model'), computes
+it whole (no tensor parallelism) and puts the rows over every axis.  The
+steps then run under a context with the held specs, and
+``context.materialize`` gathers a super-block's leaves before its layers
+run, as training gathers them; a placement with nothing to gather runs
+the held leaves as they are.  The draft of a speculative engine is placed
+alike.
+
+A fault plane on a mesh is agreed (``collectives.AgreedPlane``): each
+site's outcome is all-reduced before the operation runs, so every rank
+retries, contains or unwinds the same faults, and a crash on one rank is
+a crash on every rank.  The ``faults`` attribute wraps any plane set on
+a mesh engine.
 
 Fault injection (``faults``, a ``train.faults`` plane; the NULL plane by
 default): the engine fires ``engine.prefill_chunk``, ``engine.decode``,
@@ -120,6 +139,7 @@ from repro_torch.models import registry
 from repro_torch.models import transformer
 from repro_torch.distributed.context import (MeshContext, dp_axes,
                                             keeps_model_split, mesh_scope)
+from repro_torch.distributed.sharding import dim_axes
 from repro_torch.models.common import resolve_device
 from repro_torch.train import faults as faults_lib
 from repro_torch.train import steps as steps_lib
@@ -260,20 +280,20 @@ class ServeEngine:
                  num_blocks: Optional[int] = None, kv_dtype=None,
                  prefix_cache: bool = False, spec_decode: bool = False,
                  gamma: int = 4, draft_depth: Optional[int] = None,
-                 draft_params=None, faults=None, mesh=None):
-        if mesh is not None and faults_lib.resolve(faults) \
-                is not faults_lib.NULL:
-            raise NotImplementedError(
-                "fault injection in serving on a mesh: ROADMAP queue A item "
-                "22 (every rank would have to agree on each site's draw)")
+                 draft_params=None, faults=None, mesh=None,
+                 fsdp: bool = False, layout: str = "tp",
+                 moe_fsdp: str = "auto"):
+        if layout not in ("tp", "fsdp"):
+            raise ValueError(f"layout {layout!r} (tp or fsdp)")
         if isinstance(mesh, str):
             from repro_torch.launch import mesh as mesh_lib
             mesh = mesh_lib.make_train_mesh(mesh, device=str(device))
         self.mesh = mesh
-        self._ctx = None if mesh is None else MeshContext(mesh, "tp")
+        self.fsdp, self.layout, self.moe_fsdp = fsdp, layout, moe_fsdp
+        self._ctx = None
         if mesh is not None:
             device = mesh.device
-            params = self._tp_local(cfg, params, self._ctx)
+            params, self._ctx = self._place(cfg, params)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # Keep float32 matmuls around the kernel in full float32, as the
@@ -303,8 +323,9 @@ class ServeEngine:
             raise ValueError("prefix_cache requires paged=True (shared "
                              "prefixes are shared pool pages mapped through "
                              "block tables)")
-        # One no-op call per site when off (the NULL plane).
-        self.faults = faults_lib.resolve(faults)
+        # One no-op call per site when off (the NULL plane); agreed over
+        # the mesh on a mesh (the ``faults`` setter).
+        self.faults = faults
         self.module = registry.ParamModule(params).to(self.device)
         self.params = self.module.tree()
         self._built = {}              # sample? -> (prefill, decode)
@@ -322,26 +343,59 @@ class ServeEngine:
         if spec_decode:
             self._init_spec(draft_depth, draft_params)
 
-    @staticmethod
-    def _tp_local(cfg: ModelConfig, params, ctx: MeshContext):
-        """The params as a rank serves them: the 'model' shard of every
-        leaf whose layer runs tensor-parallel, every other leaf whole."""
-        mesh = ctx.mesh
-        with mesh_scope(ctx):
+    @property
+    def faults(self):
+        """The engine's fault plane (the pool and the radix tree take it
+        at ``continuous_state``)."""
+        return self._faults
+
+    @faults.setter
+    def faults(self, plane):
+        # On a mesh every plane set here is agreed over the ranks.
+        self._faults = coll.agreed_plane(faults_lib.resolve(plane),
+                                         self.mesh)
+
+    def _place(self, cfg: ModelConfig, params):
+        """(the params as this rank holds them, the context the steps run
+        under).  Each leaf is split as ``sharding.param_spec`` places it
+        under the engine's ``fsdp``, ``layout`` and ``moe_fsdp``, except
+        that under the 'tp' layout a leaf stays whole over 'model' where
+        its layer computes it whole (``keeps_model_split``).  The context
+        holds the specs where some leaf is split over an axis its layer
+        does not compute on (``materialize`` gathers it per super-block),
+        else none."""
+        mesh = self.mesh
+        specs = {}
+        gather = False
+        with mesh_scope(MeshContext(mesh, self.layout, serving=True)):
+            for path, x in leaves_with_path(params):
+                spec = shd.param_spec(path, x.shape, mesh, fsdp=self.fsdp,
+                                      moe_fsdp=self.moe_fsdp,
+                                      layout=self.layout)
+                keep = keeps_model_split(path, cfg)
+                if self.layout == "tp" and not keep:
+                    spec = tuple(
+                        tuple(a for a in dim_axes(e) if a != "model")
+                        or None for e in spec)
+                specs[path] = spec
+                gather = gather or any(
+                    mesh.axes_size(tuple(a for a in dim_axes(e)
+                                         if not (keep and a == "model"))) > 1
+                    for e in spec)
+
             def one(path, x):
-                if not keeps_model_split(path, cfg):
-                    return x
-                spec = shd.param_spec(path, x.shape, mesh, fsdp=False)
-                spec = tuple("model" if e == "model" else None
-                             for e in spec)
-                return coll.shard_leaf(x, spec, mesh, path).clone()
-            return tree_map_with_path(one, params)
+                y = coll.shard_leaf(x, specs[path], mesh, path)
+                return x if y is x else y.clone()
+            held = tree_map_with_path(one, params)
+        return held, MeshContext(mesh, self.layout,
+                                 specs if gather else None, serving=True)
 
     def _rows(self, batch: int):
-        """(DP axes, ranks over them) this batch's rows go over: the DP axes
-        where the batch divides them (``cache_shardings``' batch rule),
-        else every rank serves every row."""
-        axes = dp_axes(self.mesh, "tp")
+        """(DP axes, ranks over them) this batch's rows go over: the layout's
+        DP axes (every axis under 'fsdp', the reference's
+        ``batch_shardings``) where the batch divides them, else every rank
+        serves every row."""
+        axes = dp_axes(self.mesh, self.layout)
         n = self.mesh.axes_size(axes)
         if n > 1 and batch % n == 0:
             return axes, n
@@ -369,8 +423,9 @@ class ServeEngine:
                 * cfg.pattern_period
             self.draft_cfg = cfg.with_depth(depth)
             if self.mesh is not None:
-                draft_params = self._tp_local(self.draft_cfg, draft_params,
-                                              self._ctx)
+                # Placed as the target: a leaf's spec does not depend on
+                # the depth, so the target's context gathers it.
+                draft_params, _ = self._place(self.draft_cfg, draft_params)
             self.draft_params = registry.ParamModule(draft_params).to(
                 self.device).tree()
         else:
@@ -612,21 +667,22 @@ class ServeEngine:
         return self._sync_table(state, fire=False)
 
     def exchange(self, state: ContinuousState, blocks=(),
-                 clock: Optional[float] = None):
+                 clock: Optional[float] = None, words=()):
         """The scheduler's per-iteration exchange (``collectives.
         exchange``): this rank's row blocks (a step's sampled tokens,
         active flags and accepted counts over the rank's slots) made
-        whole-batch tensors, and rank 0's ``clock`` reading, in one
-        all-gather over every rank of the mesh (each DP block taken from
-        its first 'model' rank).  Off a mesh, or on a mesh of one rank,
-        the blocks and the clock as given."""
+        whole-batch tensors, and rank 0's ``clock`` reading and ``words``
+        (its pending cancels), in one all-gather over every rank of the
+        mesh (each DP block taken from its first 'model' rank).  Returns
+        (blocks, clock, words).  Off a mesh, or on a mesh of one rank, the
+        blocks, the clock and the words as given."""
         if self.mesh is None:
-            return list(blocks), clock
+            return list(blocks), clock, [int(w) for w in words]
         m = self.mesh
         _, n = self._rows(state.batch)
         take = [i * (m.world_size // n) for i in range(n)]
         return coll.exchange(blocks, clock, m.group(m.axis_names), take,
-                             m.device)
+                             m.device, words)
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(

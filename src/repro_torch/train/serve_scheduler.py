@@ -88,10 +88,22 @@ arrivals, deadlines and aging read.  An iteration that decoded nothing
 exchanges the clock alone at its start, and a request's first-token time
 is one more clock exchange at its admission; every other reading within
 an iteration is the last agreed one.  ``kv_stats``, ``prefix_stats`` and
-``spec_stats`` are then equal on every rank.  Fault planes (the
-engine's), ``snapshot_every``, :meth:`ContinuousScheduler.snapshot` and
-:meth:`ContinuousScheduler.restore` on a mesh raise: ROADMAP queue A
-item 22.
+``spec_stats`` are then equal on every rank.
+
+Every exchange also carries the cancels each rank has pending (a bit a
+request of the run, OR'd over the ranks), and the cancellation sweep
+reads the agreed set: a cancel called on any one rank takes effect on
+every rank at the same iteration boundary.  After a request has
+finished (and its ``on_finish`` callback run, on whichever ranks set
+one), the next iteration boundary exchanges afresh, so a cancel made from
+``on_finish`` lands at the boundary where it lands on one device.  The
+engine's fault plane is agreed over the ranks (``ServeEngine.faults``):
+a transient fault is retried, contained or fails its row on every rank
+alike, and a ``CrashError`` unwinds every rank.  ``snapshot_every`` snapshots every rank at the same boundary (the
+host state and the agreed clock readings it records are equal on every
+rank), :func:`save_snapshot` with ``mesh=`` writes rank 0's copy, and
+:meth:`ContinuousScheduler.restore` re-prefills on every rank, each
+rank rebuilding its own share of the caches and recurrent carries.
 """
 from __future__ import annotations
 
@@ -204,8 +216,6 @@ class ContinuousScheduler:
             raise ValueError(f"queue_limit {queue_limit} < 1")
         if max_retries < 0:
             raise ValueError(f"max_retries {max_retries} < 0")
-        if engine.mesh is not None and snapshot_every:
-            _refuse_on_mesh("snapshot_every")
         self.engine = engine
         self.max_batch = max_batch
         self.temperature = temperature
@@ -296,7 +306,8 @@ class ContinuousScheduler:
         wherever it is (queued: no tokens; prefilling or live: the tokens
         so far, pages freed, slot reclaimed).  Unknown or finished uids are
         ignored.  Callable from ``on_finish`` or another thread (a set add
-        is atomic under the GIL)."""
+        is atomic under the GIL).  On a mesh, from any one rank: the next
+        exchange takes it to every rank (module docstring)."""
         self._cancel_uids.add(uid)
 
     def warmup(self, requests: Sequence[Request]):
@@ -387,16 +398,39 @@ class ContinuousScheduler:
         on_mesh = engine.mesh is not None
         agreed = None             # on a mesh: the last exchange's clock
         carried = False           # this iteration's exchange carried it
+        # On a mesh: the cancels every rank applies (the last exchange's),
+        # and whether a request finished since (its on_finish may cancel).
+        uids = [r.uid for r in reqs]
+        bit_of = {uid: i for i, uid in enumerate(uids)}
+        agreed_cancels: set = set()
+        finished_since = False
+
+        def cancel_words():
+            """This rank's pending cancels, a bit per request of the run."""
+            words = [0] * (-(-len(uids) // 63))
+            for uid in list(self._cancel_uids):
+                i = bit_of.get(uid)
+                if i is not None:
+                    words[i // 63] |= 1 << (i % 63)
+            return words
+
+        def agree(words):
+            nonlocal agreed_cancels, finished_since
+            agreed_cancels = {uid for i, uid in enumerate(uids)
+                              if words[i // 63] >> (i % 63) & 1}
+            finished_since = False
 
         def clock(fresh: bool = True) -> float:
             """Seconds since t0.  On a mesh every rank reads rank 0's
-            clock: a clock-only exchange (``fresh``), else the last
-            exchange's reading."""
+            clock: a clock-only exchange (``fresh``), which carries the
+            pending cancels too, else the last exchange's reading."""
             nonlocal agreed
             if not on_mesh:
                 return self.time_fn() - t0
             if fresh:
-                agreed = engine.exchange(state, (), self.time_fn() - t0)[1]
+                _, agreed, words = engine.exchange(
+                    state, (), self.time_fn() - t0, cancel_words())
+                agree(words)
             return agreed
 
         def gathered(*blocks):
@@ -405,8 +439,9 @@ class ContinuousScheduler:
             nonlocal agreed, carried
             if not on_mesh:
                 return blocks
-            blocks, agreed = engine.exchange(state, blocks,
-                                             self.time_fn() - t0)
+            blocks, agreed, words = engine.exchange(
+                state, blocks, self.time_fn() - t0, cancel_words())
+            agree(words)
             carried = True
             return blocks
 
@@ -415,6 +450,7 @@ class ContinuousScheduler:
                 else self.deadline_s
 
         def finish(req, tokens, slot, t_first, now, reason=None, error=None):
+            nonlocal finished_since
             if reason is None:
                 reason = ("eos" if self.eos_id >= 0 and tokens
                           and tokens[-1] == self.eos_id else "limit")
@@ -436,7 +472,11 @@ class ContinuousScheduler:
             adm_attempts.pop(req.uid, None)
             adm_retry_at.pop(req.uid, None)
             self._cancel_uids.discard(req.uid)
+            agreed_cancels.discard(req.uid)
             done[req.uid] = res
+            # On a mesh every rank marks it, whether or not its own
+            # on_finish is set (the ranks' callbacks may differ).
+            finished_since = on_mesh
             if on_finish is not None:
                 on_finish(res)
 
@@ -546,7 +586,7 @@ class ContinuousScheduler:
         it = 0
         while pending or waiting or live or prefilling or fetch_q:
             it += 1
-            now = clock(fresh=not carried)
+            now = clock(fresh=not carried or finished_since)
             carried = False
             # ---- snapshot at the iteration boundary (crash recovery) ------
             # Taken BEFORE this iteration's site can crash: a crash anywhere
@@ -555,6 +595,8 @@ class ContinuousScheduler:
             if self.snapshot_every and (it - 1) % self.snapshot_every == 0:
                 drain(0)
                 self.last_snapshot = self.snapshot()
+                if finished_since:     # on a mesh: the drain's callbacks
+                    now = clock()      # may have cancelled
             try:
                 faults.fire("sched.iter")
             except CrashError:
@@ -578,15 +620,16 @@ class ContinuousScheduler:
                     continue
                 waiting.append(req)
             # ---- cancellation and deadline sweeps -------------------------
-            if self._cancel_uids:
+            cancels = agreed_cancels if on_mesh else self._cancel_uids
+            if cancels:
                 for q in (waiting, pending):
-                    for req in [r for r in q if r.uid in self._cancel_uids]:
+                    for req in [r for r in q if r.uid in cancels]:
                         q.remove(req)
                         finish(req, [], -1, float("nan"), now,
                                reason="cancelled")
                 for row in list(prefilling) + list(live):
                     holder = prefilling.get(row) or live.get(row)
-                    if holder and holder[0].uid in self._cancel_uids:
+                    if holder and holder[0].uid in cancels:
                         fail_row(row, "cancelled", now)
             for req in [r for r in waiting
                         if deadline_of(r) is not None
@@ -832,8 +875,6 @@ class ContinuousScheduler:
         (:func:`save_snapshot`), in the reference's layout.  Device state
         is left out: K/V at a position depends only on the token prefix,
         so :meth:`restore` rebuilds it by re-prefilling."""
-        if self.engine.mesh is not None:
-            _refuse_on_mesh("snapshot()")
         ctx = self._ctx
         if ctx is None:
             raise RuntimeError("snapshot(): no run in progress or recorded")
@@ -879,8 +920,6 @@ class ContinuousScheduler:
         resume (the dead process's wall time is not charged).  Returns the
         whole workload's results, snapshot-finished and resumed, in
         submission order."""
-        if self.engine.mesh is not None:
-            _refuse_on_mesh("restore()")
         emitted = {}
         reqs = []
         for item in snap["inflight"] + snap["queued"]:
@@ -916,17 +955,17 @@ class ContinuousScheduler:
         return [merged[uid] for uid in snap["order"] if uid in merged]
 
 
-def _refuse_on_mesh(what: str):
-    raise NotImplementedError(
-        f"{what} on a mesh: crash recovery in mesh serving is ROADMAP queue "
-        "A item 22 (every rank would have to snapshot and restore alike)")
-
-
-def save_snapshot(snap: dict, path) -> None:
+def save_snapshot(snap: dict, path, mesh=None) -> None:
     """Write a :meth:`ContinuousScheduler.snapshot` as plain JSON (host
-    lists and ints only)."""
-    with open(path, "w") as f:
-        json.dump(snap, f)
+    lists and ints only).  With ``mesh`` (every rank calls it, with the
+    same snapshot) rank 0 writes and every rank returns once the file is
+    written, so every rank may :func:`load_snapshot` it."""
+    if mesh is None or mesh.rank == 0:
+        with open(path, "w") as f:
+            json.dump(snap, f)
+    if mesh is not None:
+        from repro_torch.distributed import collectives as coll
+        coll.agree_code(mesh, 0)                       # a barrier
 
 
 def load_snapshot(path) -> dict:

@@ -1,7 +1,8 @@
 """Scenarios run on every rank of a mesh: the bodies that
 ``tests/test_torch_distributed.py``, ``tests/test_torch_mesh_serve.py``,
-``tests/test_torch_mesh_layers.py`` and ``chip_smoke.py``'s mesh phases
-(43, 44) start with ``repro_torch.launch.mesh.spawn``.
+``tests/test_torch_mesh_layers.py``, ``tests/test_torch_mesh_faults.py``
+and ``chip_smoke.py``'s mesh phases (43, 44) start with
+``repro_torch.launch.mesh.spawn``.
 
 This module imports no JAX: spawned ranks import it alone, on the CPU as
 on the card.  Its importer puts this directory on ``sys.path`` (pytest
@@ -448,27 +449,49 @@ def _served_params(cfg, params_np, ckpt_dir, card_seed, device):
     return _tensors(params_np, "cpu"), cfg
 
 
+def held(eng) -> dict:
+    """What a ``ServeEngine`` holds on this rank: the bytes of its params
+    (the draft's leaves that are views of the target's counted once) and
+    each leaf's shape ({keystr: shape})."""
+    seen, total = set(), 0
+    trees = [eng.params] + ([eng.draft_params] if eng.spec_decode else [])
+    for tree in trees:
+        for _, x in leaves_with_path(tree):
+            key = x.untyped_storage().data_ptr()
+            if key not in seen:
+                seen.add(key)
+                total += x.untyped_storage().nbytes()
+    return {"param_bytes": total,
+            "shapes": {bridge.keystr(p): tuple(x.shape)
+                       for p, x in leaves_with_path(eng.params)}}
+
+
 def serve(cfg, params_np: Optional[dict], prompts: np.ndarray,
           num_tokens: int, mesh: Optional[str], device: str = "cpu",
           max_len: int = 32, count: bool = False,
           ckpt_dir: Optional[str] = None,
-          card_seed: Optional[int] = None) -> dict:
+          card_seed: Optional[int] = None,
+          engine_kw: Optional[dict] = None) -> dict:
     """Greedy ``generate`` on ``mesh`` (None: one device): tokens and
-    logits, gathered to every rank.  ``ckpt_dir``: serve its latest checkpoint's
+    logits, gathered to every rank, and what the engine holds on this rank
+    (:func:`held`).  ``ckpt_dir``: serve its latest checkpoint's
     params (at its depth) instead of ``params_np``; ``card_seed``: weights
-    drawn on the card (``card_params``)."""
+    drawn on the card (``card_params``); ``engine_kw``: more
+    ``ServeEngine`` arguments (the placement knobs ``fsdp``, ``layout``,
+    ``moe_fsdp``)."""
     m = mesh_for(mesh, device) if mesh else None
     params, cfg = _served_params(cfg, params_np, ckpt_dir, card_seed,
                                  m.device if m else device)
     if count:
         zero_launch_counts()
-    eng = ServeEngine(cfg, params, device=device, mesh=m, max_len=max_len)
+    eng = ServeEngine(cfg, params, device=device, mesh=m, max_len=max_len,
+                      **(engine_kw or {}))
     del params
     t0 = time.perf_counter()
     res = eng.generate(np.asarray(prompts, np.int32), num_tokens,
                        return_logits=True)
     out = {"tokens": res.tokens, "logits": res.logits,
-           "seconds": time.perf_counter() - t0}
+           "seconds": time.perf_counter() - t0, "held": held(eng)}
     if count:
         out["counts"] = launch_counts()
     return out
@@ -502,8 +525,9 @@ def cache_shapes(cfg, params_np: dict, mesh: Optional[str],
 def radix_pages_hash(state) -> Optional[str]:
     """sha256 over the pages the radix tree holds: their ids, then every
     pool leaf's bytes at those pages (K/V pages, MLA latents, int8/fp8
-    scales) in path order; None without a radix tree."""
-    if state.radix is None:
+    scales) in path order; None without a radix tree (or a state: a
+    restore with nothing left to serve runs none)."""
+    if state is None or state.radix is None:
         return None
     pages = sorted(state.radix.pinned_pages())
     h = hashlib.sha256(np.asarray(pages, np.int64).tobytes())
@@ -516,26 +540,71 @@ def radix_pages_hash(state) -> Optional[str]:
     return h.hexdigest()
 
 
+class TickClock:
+    """A virtual clock: every reading advances it by ``dt``; a sleep
+    jumps."""
+
+    def __init__(self, dt: float):
+        self.t = 0.0
+        self.dt = dt
+
+    def time(self) -> float:
+        self.t += self.dt
+        return self.t
+
+    def sleep(self, s: float) -> None:
+        self.t += s
+
+
+def _result_dicts(results) -> list:
+    return [dict(uid=r.uid, tokens=r.tokens, slot=r.slot,
+                 finish_reason=r.finish_reason, arrival_s=r.arrival_s,
+                 admitted_s=r.admitted_s, finished_s=r.finished_s,
+                 prefix_tokens=r.prefix_tokens, spec_rounds=r.spec_rounds,
+                 mean_accepted_len=r.mean_accepted_len, error=r.error)
+            for r in results]
+
+
 def cserve(cfg, params_np: Optional[dict], requests: List[dict],
            mesh: Optional[str], device: str = "cpu", max_len: int = 48,
            max_batch: int = 4, engine_kw: Optional[dict] = None,
            sched_kw: Optional[dict] = None, skew_s: float = 0.0,
            count: bool = False, ckpt_dir: Optional[str] = None,
-           card_seed: Optional[int] = None) -> dict:
+           card_seed: Optional[int] = None, faults: Optional[str] = None,
+           snapshot_dir: Optional[str] = None,
+           cancel: Optional[dict] = None,
+           restore_from: Optional[str] = None,
+           tick_s: Optional[float] = None) -> dict:
     """``requests`` (dicts of ``Request`` fields) served through
     ``ContinuousScheduler`` on ``mesh`` (None: one device) with
     ``ServeEngine(**engine_kw)`` and ``ContinuousScheduler(**sched_kw)``.
     The scheduler's clock is ``time.perf_counter`` plus ``skew_s`` times
-    this rank's number.  Returns each request's tokens, finish reason,
-    arrival, admission and finish times, prefix tokens, speculation rounds
-    and mean accepted length (``results``); the scheduler's stats; the
-    kernels' launches in the timed run (``count``: this rank's counters,
-    zeroed just before it); ``summarize``'s metrics and the run's seconds;
-    and ``radix_hash`` (:func:`radix_pages_hash` of the final state).
+    this rank's number, or with ``tick_s`` a virtual clock that every
+    reading advances by ``tick_s`` (a sleep jumps).  Returns each request's tokens, finish reason,
+    arrival, admission and finish times, prefix tokens, speculation rounds,
+    mean accepted length and error (``results``); the scheduler's stats
+    (``fault`` the fault plane's site hits and the retry and reason
+    counters); the kernels' launches in the timed run (``count``: this
+    rank's counters, zeroed just before it); ``summarize``'s metrics and
+    the run's seconds; ``radix_hash`` (:func:`radix_pages_hash` of the
+    final state) and what the engine holds (:func:`held`).
     ``ckpt_dir``: serve its latest checkpoint's params instead of
-    ``params_np``; ``card_seed``: weights drawn on the card."""
+    ``params_np``; ``card_seed``: weights drawn on the card.
+
+    Faults: ``faults`` (a ``--faults`` spec) is the engine's plane for the
+    run (``sched_kw`` may set ``snapshot_every``).  A ``CrashError`` that
+    ends the run is restored: rank 0 writes the scheduler's last snapshot
+    into ``snapshot_dir`` (``save_snapshot``), every rank reads it and a
+    fresh scheduler (``sched_kw`` without ``snapshot_every``, no plane)
+    restores it; ``crashed`` says so, and the fault stats are the
+    crashed run's.  ``cancel`` ({"after": uid, "uids": [...]}) cancels
+    ``uids`` from rank 0's ``on_finish`` of request ``after`` (from the
+    one process off a mesh).  ``restore_from``: restore that snapshot
+    file on a fresh scheduler instead of running ``requests``."""
+    from repro_torch.train.faults import CrashError
     from repro_torch.train.serve_scheduler import (ContinuousScheduler,
-                                                   Request, summarize)
+                                                   Request, load_snapshot,
+                                                   save_snapshot, summarize)
     m = mesh_for(mesh, device) if mesh else None
     params, cfg = _served_params(cfg, params_np, ckpt_dir, card_seed,
                                  m.device if m else device)
@@ -543,70 +612,90 @@ def cserve(cfg, params_np: Optional[dict], requests: List[dict],
     eng = ServeEngine(cfg, params, device=device, mesh=m, max_len=max_len,
                       **(engine_kw or {}))
     del params
-    sched = ContinuousScheduler(
-        eng, max_batch=max_batch,
-        time_fn=lambda: time.perf_counter() + skew_s * rank,
-        **(sched_kw or {}))
+    kw = dict(sched_kw or {})
+    if tick_s is None:
+        kw.update(time_fn=lambda: time.perf_counter() + skew_s * rank)
+    else:
+        clock = TickClock(tick_s)
+        kw.update(time_fn=clock.time, sleep_fn=clock.sleep)
+
+    def scheduler(**extra):
+        return ContinuousScheduler(eng, max_batch=max_batch,
+                                   **{**kw, **extra})
+    sched = scheduler()
     reqs = [Request(prompt=np.asarray(r["prompt"], np.int32),
                     max_new_tokens=int(r["max_new_tokens"]),
                     arrival_s=float(r.get("arrival_s", 0.0)),
                     deadline_s=r.get("deadline_s"), uid=r.get("uid"))
             for r in requests]
+    on_finish = None
+    if cancel is not None and rank == 0:
+        def on_finish(res):
+            if res.uid == cancel["after"]:
+                for uid in cancel["uids"]:
+                    sched.cancel(uid)
+    eng.faults = faults
     _sync(device)
     if count:
         zero_launch_counts()
     t0 = time.perf_counter()
-    results = sched.run(reqs)
+    crashed = False
+    if restore_from is not None:
+        eng.faults = None
+        results = sched.restore(load_snapshot(restore_from))
+    else:
+        try:
+            results = sched.run(reqs, on_finish=on_finish)
+        except CrashError:
+            crashed = True
+            path = os.path.join(snapshot_dir, "snapshot.json")
+            save_snapshot(sched.last_snapshot, path, mesh=m)
+            crashed_stats = sched.fault_stats()
+            eng.faults = None
+            sched = scheduler(snapshot_every=0)
+            results = sched.restore(load_snapshot(path))
     _sync(device)
     seconds = time.perf_counter() - t0
-    out = {"results": [dict(uid=r.uid, tokens=r.tokens, slot=r.slot,
-                            finish_reason=r.finish_reason,
-                            arrival_s=r.arrival_s, admitted_s=r.admitted_s,
-                            finished_s=r.finished_s,
-                            prefix_tokens=r.prefix_tokens,
-                            spec_rounds=r.spec_rounds,
-                            mean_accepted_len=r.mean_accepted_len)
-                       for r in results],
+    fault = crashed_stats if crashed else sched.fault_stats()
+    eng.faults = None
+    out = {"results": _result_dicts(results),
            "stats": {"spec": sched.spec_stats(),
                      "prefix": sched.prefix_stats(),
-                     "kv": sched.kv_stats()},
+                     "kv": sched.kv_stats(), "fault": fault},
+           "crashed": crashed,
            "summary": summarize(results, seconds), "seconds": seconds,
-           "radix_hash": radix_pages_hash(sched.last_state), "rank": rank}
+           "radix_hash": radix_pages_hash(sched.last_state), "rank": rank,
+           "held": held(eng)}
     if count:
         out["counts"] = launch_counts()
     return out
 
 
-def serve_refusals(cfg, params_np: dict, mesh: str,
-                   device: str = "cpu") -> dict:
-    """What continuous serving on ``mesh`` refuses (ROADMAP queue A item
-    22): {name: the NotImplementedError's message, or None where nothing
-    was raised} for a fault plane, ``snapshot_every``, ``snapshot()`` and
-    ``restore()``."""
-    from repro_torch.train.serve_scheduler import ContinuousScheduler
+def teardown_probe(mesh: str, device: str = "cpu") -> dict:
+    """Leave the mesh's process groups held the ways a run leaves them (a
+    ``Mesh`` cached in ``_MESHES``, and one in a reference cycle), run a
+    few collectives, then tear the world down with ``close_world``:
+    the names of the threads this process still runs (gloo's worker and
+    transport threads must all be gone)."""
     m = mesh_for(mesh, device)
-    params = _tensors(params_np, "cpu")
-    out = {}
-
-    def refused(name, fn):
-        out[name] = None
-        try:
-            fn()
-        except NotImplementedError as e:
-            out[name] = str(e)
-
-    refused("faults", lambda: ServeEngine(
-        cfg, params, device=device, mesh=m, max_len=16, paged=True,
-        faults="engine.decode:1"))
-    eng = ServeEngine(cfg, params, device=device, mesh=m, max_len=16,
-                      paged=True)
-    refused("snapshot_every",
-            lambda: ContinuousScheduler(eng, snapshot_every=1))
-    sched = ContinuousScheduler(eng)
-    refused("snapshot", sched.snapshot)
-    refused("restore", lambda: sched.restore(
-        {"order": [], "inflight": [], "queued": [], "done": []}))
-    return out
+    cycle = {"mesh": mesh_lib.make_train_mesh(mesh, device=device)}
+    cycle["self"] = cycle
+    x = torch.ones(4, device=m.device)
+    for _ in range(3):
+        coll.all_gather(x, m.group(m.axis_names), 0)
+        coll.all_reduce(x, cycle["mesh"].group(m.axis_names))
+    del cycle, x
+    mesh_lib.close_world()
+    task = "/proc/self/task"
+    names = []
+    if os.path.isdir(task):
+        for t in os.listdir(task):
+            try:
+                with open(os.path.join(task, t, "comm")) as f:
+                    names.append(f.read().strip())
+            except OSError:
+                pass
+    return {"threads": sorted(names)}
 
 
 def run(scenarios: List[tuple], device: str = "cpu") -> dict:

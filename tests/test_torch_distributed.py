@@ -40,7 +40,7 @@ never import it), one torch thread a rank.  Held:
     expanded checkpoint served on the DP mesh gives the source model's
     tokens;
   * the serve CLI's continuous, paged, prefix-cached serving on a
-    two-rank mesh, and its refusals of fault injection on a mesh.
+    two-rank mesh, and its fault injection and crash snapshots there.
 """
 import concurrent.futures
 import dataclasses
@@ -512,8 +512,9 @@ def test_mesh_spec_must_match_world_and_mesh_cli_refusals(capfd):
     """A spec whose size is not the world's raises naming both (no process
     group is made for it); the serve CLI serves continuous batching over
     paged KV with the prefix cache on a two-rank 'host' mesh to rank 0's
-    report, and refuses fault injection and crash snapshots on a mesh
-    naming ROADMAP item A22, as the engine refuses a fault plane."""
+    report, and serves there under ``--faults`` with ``--snapshot-every``
+    (once refused, naming ROADMAP item A22): rank 0 prints the
+    ``lifecycle:`` line once, with the retried fault."""
     with pytest.raises(ValueError, match="has 4 ranks; the world has 1"):
         mesh_lib.make_train_mesh("2x2")
     with pytest.raises(ValueError, match="has 8 ranks; the world has 1"):
@@ -527,10 +528,12 @@ def test_mesh_spec_must_match_world_and_mesh_cli_refusals(capfd):
     assert len(report) == 1 and "mesh=host paged" in report[0], lines
     assert lines[-1].startswith("prefix cache: hits="), lines
     assert sum(ln.startswith("  req ") for ln in lines) == 8, lines
-    for flags in (["--faults", "engine.decode:1"], ["--snapshot-every", "1"]):
-        with pytest.raises(SystemExit, match="item 22"):
-            launch_serve.main(["--smoke", "--device", "cpu", "--mesh",
-                               "host", "--continuous", "--paged"] + flags)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        ServeEngine(SRV["dense"], {}, device="cpu", mesh=object(),
-                    paged=True, faults="engine.decode:1")
+    launch_serve.main(["--smoke", "--device", "cpu", "--mesh", "host",
+                       "--nproc", "2", "--continuous", "--paged",
+                       "--faults", "engine.decode:1", "--snapshot-every",
+                       "1"])
+    lines = capfd.readouterr().out.splitlines()
+    life = [ln for ln in lines if ln.startswith("lifecycle:")]
+    assert len(life) == 1 and "limit=8" in life[0], lines
+    assert "retries=1 " in life[0], lines
+    assert sum(ln.startswith("  req ") for ln in lines) == 8, lines

@@ -36,12 +36,17 @@ Held:
   * the agreed clock: staggered arrivals, a deadline that expires and a
     ``time_fn`` skewed by the rank times 1000 s give every rank the same
     tokens, finish reasons and admission and finish times;
-  * a fault plane, ``snapshot_every``, ``snapshot()`` and ``restore()`` on
-    a mesh raise, naming ROADMAP queue A item 22.
+  * a fault plane, ``snapshot_every``, ``snapshot()`` and ``restore()`` run
+    on a mesh (ROADMAP queue A item 22): a decode fault retried and a
+    ``sched.iter`` crash restored from rank 0's snapshot file on a fresh
+    scheduler give the JAX solo streams on every rank
+    (``tests/test_torch_mesh_faults.py`` holds the whole fault plane).
 """
 import concurrent.futures
 import dataclasses
 import json
+import shutil
+import tempfile
 
 import jax
 import numpy as np
@@ -217,9 +222,11 @@ def world(one_thread):
         host.append(scen(name, "dense", cross, "host", kw))
     host.append(scen("clock", "dense", clock, "host", MODES["paged"],
                      skew_s=SKEW_S))
-    host.append(("refusals", "serve_refusals",
-                 dict(cfg=CFGS["dense"], params_np=params["dense"],
-                      mesh="host")))
+    snap_dir = tempfile.mkdtemp(prefix="mesh_serve_snap_")
+    host.append(scen("faults", "dense", work["dense"]["reqs"], "host",
+                     MODES["paged"], faults="engine.decode:1,sched.iter:5:crash",
+                     snapshot_dir=snap_dir))
+    host[-1][2]["sched_kw"] = dict(chunk_len=4, snapshot_every=1)
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         ref = pool.submit(jax_solo)
         spawn_tp = pool.submit(mesh_lib.spawn, mesh_runs.run, 4,
@@ -227,6 +234,7 @@ def world(one_thread):
         r_host = mesh_lib.spawn(mesh_runs.run, 4, (host, "cpu"),
                                 timeout_s=600)
         r_tp, solo = spawn_tp.result(), ref.result()
+    shutil.rmtree(snap_dir, ignore_errors=True)
     # One device's port runs of the cross-rank workload, and request 4's
     # cold int8 run alone.
     none = {name: mesh_runs.cserve(CFGS["dense"], params["dense"], cross,
@@ -380,10 +388,13 @@ def test_agreed_clock_under_skewed_time_fn(world):
 
 def test_fault_planes_and_snapshots_on_mesh_name_a22(world):
     """A fault plane, ``snapshot_every``, ``snapshot()`` and ``restore()``
-    on a mesh raise NotImplementedError naming ROADMAP queue A item 22."""
-    for r in world["host"]:
-        got = r["refusals"]
-        assert sorted(got) == ["faults", "restore", "snapshot",
-                               "snapshot_every"]
-        for name, msg in got.items():
-            assert msg is not None and "item 22" in msg, (name, msg)
+    on a mesh (ROADMAP queue A item 22, which once refused them): on
+    ``host`` a decode fault is retried on every rank, a ``sched.iter``
+    crash unwinds every rank, and rank 0's snapshot file restored on a
+    fresh scheduler gives every rank the JAX solo streams."""
+    _same_on_every_rank(world["host"], "faults")
+    got = world["host"][0]["faults"]
+    assert got["crashed"]
+    assert got["stats"]["fault"]["retries"] >= 1
+    assert got["stats"]["fault"]["fault_sites"]["sched.iter"] == 5
+    _assert_solo(world, "dense", world["work"]["dense"]["reqs"], got)

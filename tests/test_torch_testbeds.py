@@ -36,6 +36,7 @@ from repro_torch import bridge
 from repro_torch import configs
 from repro_torch.configs import paper_testbeds
 from repro_torch.core import expansion as exp
+from repro_torch.launch import mesh as torch_mesh
 from repro_torch.launch import serve, train
 from repro_torch.models import attention, mlp, registry
 from repro_torch.models import transformer as tr
@@ -87,17 +88,18 @@ def test_configs_copy_the_reference_and_the_registry_admits_them():
     ("deepseekv3-0.3b", "MLA sliding-window rings are not served"),
     ("whisper-base", "no prefill path"),
     # The mesh is ported (item 13), continuous serving on it too (item
-    # 20); crash snapshots on a mesh are item 22.  The id stays the
-    # case's old one.
-    pytest.param("qwen2-vl-2b", "ROADMAP queue A item 22",
+    # 20), and crash snapshots on a mesh (item 22): the case now serves.
+    # The id stays the case's old one.
+    pytest.param("qwen2-vl-2b", None,
                  id="qwen2-vl-2b-mesh sharding: ROADMAP queue A item 13")])
 def test_the_rest_still_raises_naming_its_item(name, item):
     """The last three architectures of the reference registry now have
     configs equal to the reference's; what they still refuse: an MLA
-    sliding-window ring (the reference refuses it), serving the
-    encoder-decoder (the reference's message), and crash snapshots in
+    sliding-window ring (the reference refuses it) and serving the
+    encoder-decoder (the reference's message).  Crash snapshots in
     continuous serving on a mesh (``--mesh`` with ``--continuous
-    --snapshot-every``)."""
+    --snapshot-every``), once refused, serve ``qwen2-vl-2b`` to the end
+    on a one-rank 'host' mesh."""
     assert dataclasses.asdict(configs.get_config(name)) \
         == dataclasses.asdict(jax_configs.get_config(name))
     assert name in configs.PORTED_ARCHS and name in configs.ARCH_HELP
@@ -116,7 +118,15 @@ def test_the_rest_still_raises_naming_its_item(name, item):
                                         pos, 8, None)
         return
     if name == "qwen2-vl-2b":
-        argv += ["--mesh", "host", "--continuous", "--snapshot-every", "1"]
+        argv += ["--mesh", "host", "--continuous", "--snapshot-every", "1",
+                 "--requests", "3", "--gen", "4", "--rate", "1000"]
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                results = serve.main(argv)
+        finally:
+            torch_mesh.close_world()   # the one-rank world of '--mesh'
+        assert [r.finish_reason for r in results] == ["limit"] * 3
+        return
     with pytest.raises((SystemExit, NotImplementedError), match=item):
         serve.main(argv)
 
