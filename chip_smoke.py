@@ -372,13 +372,26 @@ result):
    ``mesh=None``'s clean run's (near-tie rule); then the scan and WKV
    forward and backward (WKV forward also at the restore's B=1 chunk),
    ``ns_fused`` and the flash forward and backward at their rank-local
-   shapes against their plain versions.
+   shapes against their plain versions;
+45. the roofline (run right after phase 13): ``gpt2-12l``'s 12-layer
+   training step at the launcher's shape (16 x 256, f32, Muon-NSGD,
+   ``mesh=None``) counted on meta by ``roofline.torch_cost.StepCounter``
+   (FLOPs by unit, bytes, kernel bytes, the predicted peak: arguments +
+   the counter's temp), then on the card under the counter after a
+   warm-up (FLOPs equal to meta's, each kernel region's entries equal to
+   its launch counter, bytes within 1%), then timed (5 steps after 2
+   warm-ups, CUDA events: median, spread, achieved FLOP/s, ``mfu``,
+   max_memory_allocated within 15% of the predicted peak); last, one
+   production cell of the dry run (``starcoder2-3b`` x ``train_4k`` on
+   16x16) through its CLI in a child process and ``roofline.report``.
+   Every bound this script prints is a work function's of
+   ``roofline.torch_cost`` at the card's peaks (``configs.base.HW_*``).
 
-``--only 36,...,44`` runs the card, the build and the named phases of
-36-44 alone (41 and 42 on weights drawn on the card for them), prints
+``--only 36,...,45`` runs the card, the build and the named phases of
+36-45 alone (41 and 42 on weights drawn on the card for them), prints
 their readings and no closing line.
 
-Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-44) starts
+Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-45) starts
 with every kernel's launch counter at 0 and checks every counter after
 it, the kernels it must not launch included.  Each phase prints its
 seconds.
@@ -416,12 +429,9 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # kernel sum in other orders through 12 layers of float32 (TF32 off).
 LOGIT_TOL = 1e-3
 
-# H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, TF32
-# and bf16 on them, HBM.
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
+# The card's peaks (``repro_torch.configs.base.HW_*``) and each kernel's
+# work (``repro_torch.roofline.torch_cost``: FLOPs by unit, bytes with each
+# input read once and each output written once) give every bound below.
 
 MAIN_ARGV = ["--arch", "gpt2-12l", "--batch", "8", "--prompt-len", "512",
              "--gen", "64", "--seed", "0"]
@@ -947,9 +957,9 @@ def times(fa_ops):
                         10)
     sdpa, backend = sdpa_yardstick(q, k, v)
     library_ms = sdpa(_time_ms, 50)
-    flops = 4 * B * H * hd * S * (S + 1) // 2          # causal pairs only
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    bound = _route_bounds(flops, flops, nbytes)
+    from repro_torch.roofline import torch_cost
+    work = torch_cost.flash_attention(B, S, S, H, H, hd)  # causal pairs only
+    flops, nbytes, bound = work.flops, work.bytes, work.bounds()
     print(f"times at B={B} S={S} H={H} hd={hd} causal f32: kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({backend}) "
           f"{library_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
@@ -1319,16 +1329,18 @@ def paged_times(pa_ops, kv_dtype=torch.float32, s=PAGED_SHAPE, cap=0.0):
     library_ms = _time_device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, **gqa), 50, flush)
+    from repro_torch.configs.base import HW_HBM_BW
+    from repro_torch.roofline import torch_cost
     live = int((idx.long() + 1).sum())
     pages = int(((idx.long() + 1 + bs - 1) // bs).sum())
-    scale_bytes = 2 * live * KV * 4 if ks is not None else 0
-    nbytes = (2 * live * KV * hd * kp.element_size()        # K and V
-              + scale_bytes                                 # their scales
-              + 2 * q.numel() * q.element_size()            # q in, out
-              + 4 * pages + 4 * B)                          # table, cursor
-    flops = 4 * live * H * hd
-    op_ms = flops / PEAK_F32_FLOPS * 1e3
-    byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    # K and V of the live slots (and their scales), q in and out, the
+    # table's live entries and the cursors
+    work = torch_cost.paged_attention(
+        B, H, KV, hd, live, pages, q_itemsize=q.element_size(),
+        page_itemsize=kp.element_size(), quantized=ks is not None)
+    flops, nbytes = work.flops, work.bytes
+    op_ms = torch_cost.unit_seconds(work.by_unit) * 1e3
+    byte_ms = nbytes / HW_HBM_BW * 1e3
     name = str(kv_dtype)[6:]
     print(f"paged times at B={B} H={H} KV={KV} hd={hd} bs={bs} cursors "
           f"{s['cursor']} softcap {cap:g} q f32, {name} pages, L2 flushed: "
@@ -1805,43 +1817,24 @@ def _library_ns(x, steps=5, eps=1e-7):
     return x
 
 
-def _bound(flops, nbytes, peak=PEAK_F32_FLOPS):
-    op_ms = flops / peak * 1e3
-    byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    return dict(bound_ms=max(op_ms, byte_ms),
-                bound_by="operations" if op_ms >= byte_ms else "bytes")
-
-
-def _route_bounds(flops_f32, flops_route, nbytes):
-    """A 3xTF32 kernel's two bounds: ``bound_ms`` its route's (the products
-    it needs, three TF32 products per f32 one, over the symmetric half
-    where it takes it, at the TF32 peak, or its bytes) and
-    ``f32_bound_ms`` the f32 FMA bound of the full products (the bound
-    earlier rows give)."""
-    f32 = _bound(flops_f32, nbytes)
-    return dict(**_bound(3 * flops_route, nbytes, PEAK_TF32_FLOPS),
-                f32_bound_ms=f32["bound_ms"], f32_bound_by=f32["bound_by"])
-
-
 def train_times(ns_ops, fa_ops, res, cfg):
     """ns_fused at the main path's largest stack, matmul at the
     embedding's Gram, the flash backward at the training shape, each
     against its plain version and a PyTorch yardstick, beside its bound;
     then the Newton–Schulz share of a training step per depth."""
+    from repro_torch.configs.base import HW_PEAK_TF32_FLOPS
+    from repro_torch.roofline import torch_cost
     L, n, m = 12, 768, 3072
     x = torch.randn((L, n, m), device="cuda") * 0.02
-    half = n * (n + 1) // 2               # entries of a symmetric n x n
+    # the bounds: 3xTF32 over the Grams' symmetric halves, and f32 FMA
     ns = dict(ms=_time_ms(lambda: ns_ops.ns_fused(x, force="kernel"), 10),
               plain_ms=_time_ms(lambda: ns_ops.ns_fused(x, force="ref"), 5),
               library_ms=_time_ms(lambda: _library_ns(x), 10),
-              **_route_bounds(L * 5 * (4 * n * n * m + 2 * n ** 3),
-                           L * 5 * (2 * half * m + 2 * half * n
-                                    + 2 * n * n * m),
-                           2 * 4 * L * n * m))
+              **torch_cost.ns_fused(L, n, m, 5).bounds())
     print(f"ns_fused at L={L} {n}x{m} f32, 5 steps: kernel {ns['ms']:.4f} ms, "
           f"plain {ns['plain_ms']:.4f} ms, batched torch "
           f"{ns['library_ms']:.4f} ms; bound {ns['bound_ms']:.4f} ms "
-          f"({ns['bound_by']}; 3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} "
+          f"({ns['bound_by']}; 3xTF32 at {HW_PEAK_TF32_FLOPS / 1e12:.0f} "
           f"TFLOP/s, Grams over the symmetric half), f32 bound "
           f"{ns['f32_bound_ms']:.4f} ms")
     for shape in ((12, 768, 768), (12, 3072, 768)):
@@ -1856,19 +1849,16 @@ def train_times(ns_ops, fa_ops, res, cfg):
               plain_ms=_time_ms(lambda: ns_ops.matmul(a, a, trans_b=True,
                                                       force="ref"), 10),
               library_ms=_time_ms(lambda: torch.matmul(a, a.T), 10),
-              **_route_bounds(2 * M * M * K, 2 * (M * (M + 1) // 2) * K,
-                           4 * (M * K + M * M)))
+              **torch_cost.matmul(M, M, K, symmetric=True).bounds())
     p = torch.randn((M, M), device="cuda")
     mm_x = _time_ms(lambda: ns_ops.matmul(p, a, force="kernel"), 10)
     px_lib = _time_ms(lambda: torch.matmul(p, a), 10)
-    px_bound = _route_bounds(2 * M * M * K, 2 * M * M * K,
-                          4 * (M * M + 2 * M * K))
+    px_bound = torch_cost.matmul(M, K, M).bounds()
     gram = ns_ops.matmul(a, a, trans_b=True) / K
     gg_ms = _time_ms(lambda: ns_ops.matmul(gram, gram, trans_b=True,
                                            force="kernel"), 50)
     gg_lib = _time_ms(lambda: torch.matmul(gram, gram), 50)
-    gg_bound = _route_bounds(2 * M ** 3, 2 * (M * (M + 1) // 2) * M,
-                          4 * 2 * M * M)
+    gg_bound = torch_cost.matmul(M, M, M, symmetric=True).bounds()
     mm.update(gg_ms=gg_ms, gg_library_ms=gg_lib,
               gg_bound_ms=gg_bound["bound_ms"],
               gg_f32_bound_ms=gg_bound["f32_bound_ms"], px_ms=mm_x,
@@ -1908,11 +1898,11 @@ def train_times(ns_ops, fa_ops, res, cfg):
     bwd_again = _time_device_ms(lambda: fa_ops.flash_attention_bwd_cuda(
         q, k, v, out, lse, do), 50)
     pairs = B * H * S * (S + 1) // 2
-    nbytes = 4 * (8 * B * S * H * hd + B * H * S)
+    bwd_work = torch_cost.flash_attention_bwd(B, S, S, H, H, hd)
     bwd = dict(ms=bwd_ms, plain_ms=plain_ms, library_ms=lib_ms,
-               library_backend=backend,
-               **_route_bounds(10 * hd * pairs, 10 * hd * pairs, nbytes))
-    seven = _bound(3 * 14 * hd * pairs, nbytes, PEAK_TF32_FLOPS)["bound_ms"]
+               library_backend=backend, **bwd_work.bounds())
+    seven = torch_cost.bound({"tf32x3": 14 * hd * pairs},
+                             bwd_work.bytes)["bound_ms"]
     print(f"flash backward at B={B} S={S} H={H} hd={hd} causal f32: kernel "
           f"{bwd_ms:.4f} ms (again {bwd_again:.4f}), plain (autograd) "
           f"{plain_ms:.4f} ms, sdpa ({backend}) backward {lib_ms:.4f} ms; "
@@ -1923,8 +1913,8 @@ def train_times(ns_ops, fa_ops, res, cfg):
         q, k, v, with_lse=True), 50)
     sdpa, backend = sdpa_yardstick(q, k, v)
     fwd_lib = sdpa(_time_device_ms, 50)
-    fwd_bound = _route_bounds(4 * hd * pairs, 4 * hd * pairs,
-                              4 * 4 * B * S * H * hd + 4 * B * H * S)
+    fwd_bound = torch_cost.flash_attention(B, S, S, H, H, hd,
+                                           with_lse=True).bounds()
     bwd.update(fwd_lse_ms=fwd_ms, fwd_library_ms=fwd_lib,
                fwd_bound_ms=fwd_bound["bound_ms"],
                fwd_f32_bound_ms=fwd_bound["f32_bound_ms"])
@@ -2275,21 +2265,21 @@ def wkv_times(wkv_ops, res, layers, kernels):
     (CUDA events); the device kernels of three warm calls, ``kernels``
     (``profiler_readings``' "wkv"); then the WKV launches' share of the
     timed prefill."""
+    from repro_torch.roofline import torch_cost
     B, S, H, hd = RWKV_SHAPE
     flush = _flusher()
-    # The function's products, 4 operations per state entry a step; the
-    # kernel's chunked form runs them as 3xTF32 products.
-    flops = 4 * hd * hd * B * S * H
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         args = wkv_case(B, S, H, hd, dtype, False, (0.69, 0.9975), 99)
         ms = _time_device_ms(lambda: wkv_ops.wkv(*args, force="kernel"), 20,
                              flush)
         r, k, v, w, u, s0 = args
-        nbytes = (sum(t.numel() * t.element_size() for t in (r, k, v, w, u))
-                  + r.numel() * r.element_size()              # y out
-                  + 2 * s0.numel() * s0.element_size())       # state in, out
-        bound = _route_bounds(flops, flops, nbytes)
+        # The function's products, 4 operations per state entry a step
+        # (the kernel's chunked form runs them as 3xTF32 products); r, k,
+        # v, w, u in, y out, the state in and out.
+        work = torch_cost.wkv(B, S, H, hd, itemsize=r.element_size(),
+                              u_itemsize=u.element_size())
+        flops, nbytes, bound = work.flops, work.bytes, work.bounds()
         name = str(dtype)[6:]
         print(f"wkv kernel at B={B} S={S} H={H} hd={hd} {name} r/k/v, L2 "
               f"flushed: {ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
@@ -2593,21 +2583,20 @@ def jamba_times(scan_ops, fa_ops, res, n_mamba, kernels):
     shape beside its plain version, SDPA and both bounds.  Returns the
     scan's record and the flash forward's readings there."""
     import re
+    from repro_torch.roofline import torch_cost
     B, S, d, N = JAMBA_SCAN_SHAPE
     flush = _flusher()
-    # Per state update: dt * A, (dt u) * B_n, the update FMA and the y FMA.
-    flops = 6 * B * S * d * N
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         *args, state = scan_case(B, S, d, N, dtype, False, "model", 77)
         ms = _time_device_ms(lambda: scan_ops.selective_scan_with_state(
             *args, h0=state, force="kernel"), 20, flush)
         u, dt, A, Bm, Cm, Dp = args
-        nbytes = (sum(t.numel() * t.element_size()
-                      for t in (u, dt, A, Bm, Cm, Dp))
-                  + u.numel() * u.element_size()              # y out
-                  + 2 * state.numel() * state.element_size())  # h0, h out
-        bound = _bound(flops, nbytes)
+        # Per state update: dt * A, (dt u) * B_n, the update FMA and the y
+        # FMA; u, dt, A, B, C, D in, y out, h0 in and h out.
+        work = torch_cost.selective_scan(B, S, d, N,
+                                         itemsize=u.element_size())
+        flops, nbytes, bound = work.flops, work.bytes, work.bound()
         name = str(dtype)[6:]
         print(f"scan kernel at B={B} S={S} d={d} N={N} {name}, L2 flushed: "
               f"{ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
@@ -2660,9 +2649,8 @@ def jamba_times(scan_ops, fa_ops, res, n_mamba, kernels):
                         10)
     sdpa, backend = sdpa_yardstick(q, k, v)
     fa_lib = sdpa(_time_ms, 50)
-    flops = 4 * JAMBA_B * H * hd * JAMBA_P * (JAMBA_P + 1) // 2
-    fa_bound = _route_bounds(flops, flops, sum(
-        t.numel() * t.element_size() for t in (q, k, v, q)))
+    fa_bound = torch_cost.flash_attention(JAMBA_B, JAMBA_P, JAMBA_P, H, KV,
+                                          hd).bounds()
     print(f"flash at jamba's B={JAMBA_B} S={JAMBA_P} H={H}/{KV} hd={hd} "
           f"causal f32: kernel {fa_ms:.4f} ms, plain {fa_plain:.4f} ms, sdpa "
           f"({backend}) {fa_lib:.4f} ms; bound {fa_bound['bound_ms']:.4f} ms "
@@ -3784,14 +3772,6 @@ GEMMA2_TRAIN = dict(source=2, target=4, steps=4, seq=5120, batch=1)
 RECIPE_STEPS = 6
 
 
-def _visible_pairs(S: int, window: int) -> int:
-    """(query, key) pairs a causal attention over S positions sees, within
-    ``window`` when it is > 0."""
-    if window <= 0 or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
-
-
 def _flash_plain(q, k, v, o, do, window, cap, causal=True):
     """The plain backward on the backward kernel's own inputs, head by
     head in f32 on the card (causal, or over every key at S_k != S_q
@@ -3892,6 +3872,17 @@ def _sdpa_best(q, k, v, do, causal=True):
     return dict(best, readings=readings)
 
 
+def _hd256_bounds(work, dtype) -> dict:
+    """f32: the route's bound (3xTF32) and the f32 FMA one; bf16: the bf16
+    peak's and one TF32 pass's."""
+    from repro_torch.roofline import torch_cost
+    if dtype == torch.float32:
+        return dict(**work.bound(),
+                    f32_bound_ms=work.bounds()["f32_bound_ms"])
+    return dict(**work.bound(), tf32_route_bound_ms=torch_cost.bound(
+        {"tf32": work.flops}, work.bytes)["bound_ms"])
+
+
 def hd256_flash(fa_ops) -> dict:
     """Phase 32, the flash half: forward and backward at gemma2's and
     gemma3's shapes, f32 and bf16, on the card, entry by entry
@@ -3907,12 +3898,13 @@ def hd256_flash(fa_ops) -> dict:
     express), beside the card's bound: f32 on this route's three TF32
     passes, bf16 at the bf16 tensor-core peak (and the one TF32 pass this
     route runs).  Returns {arch: {dtype: record}}."""
+    from repro_torch.configs.base import HW_PEAK_BF16_FLOPS
+    from repro_torch.roofline import torch_cost
     out = {}
     for n, (arch, s) in enumerate(GEMMA_FA.items()):
         B, S, H, KV, W, cap = (s[k] for k in ("B", "S", "H", "KV", "window",
                                               "softcap"))
         kw = dict(causal=True, window=W, logit_softcap=cap)
-        pairs = B * H * _visible_pairs(S, W)
         out[arch] = {}
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _inputs(B, S, H, KV, HD256, dtype, 3200 + 10 * n)
@@ -3976,15 +3968,10 @@ def hd256_flash(fa_ops) -> dict:
                 q, k, v, force="ref", **kw), 2)
             lib = _sdpa_best(q, k, v, do)
             es = q.element_size()
-            nbytes = es * (2 * q.numel() + 2 * k.numel())
-            flops = 4 * HD256 * pairs
-            if dtype == torch.float32:
-                bound = dict(**_bound(3 * flops, nbytes, PEAK_TF32_FLOPS),
-                             f32_bound_ms=_bound(flops, nbytes)["bound_ms"])
-            else:
-                bound = dict(**_bound(flops, nbytes, PEAK_BF16_FLOPS),
-                             tf32_route_bound_ms=_bound(
-                                 flops, nbytes, PEAK_TF32_FLOPS)["bound_ms"])
+            work = torch_cost.flash_attention(B, S, S, H, KV, HD256,
+                                              window=W, itemsize=es)
+            flops = work.flops
+            bound = _hd256_bounds(work, dtype)
             fwd = dict(ms=ms, plain_ms=plain_ms, library_ms=lib["fwd"][0],
                        library_backend=lib["fwd"][1], **bound,
                        max_abs_err=err, err_over_limit=ratio,
@@ -3997,15 +3984,8 @@ def hd256_flash(fa_ops) -> dict:
             bwd_plain = _time_device_ms(lambda: torch.autograd.grad(
                 ref_out, leaves, do, retain_graph=True), 2)
             del ref_out, leaves
-            bbytes = es * (4 * q.numel() + 4 * k.numel()) + 2 * 4 * B * H * S
-            bflops = 10 * HD256 * pairs
-            if dtype == torch.float32:
-                bbound = dict(**_bound(3 * bflops, bbytes, PEAK_TF32_FLOPS),
-                              f32_bound_ms=_bound(bflops, bbytes)["bound_ms"])
-            else:
-                bbound = dict(**_bound(bflops, bbytes, PEAK_BF16_FLOPS),
-                              tf32_route_bound_ms=_bound(
-                                  bflops, bbytes, PEAK_TF32_FLOPS)["bound_ms"])
+            bbound = _hd256_bounds(torch_cost.flash_attention_bwd(
+                B, S, S, H, KV, HD256, window=W, itemsize=es), dtype)
             bwd = dict(ms=bwd_ms, plain_ms=bwd_plain,
                        library_ms=lib["bwd"][0],
                        library_backend=lib["bwd"][1], **bbound,
@@ -4014,7 +3994,7 @@ def hd256_flash(fa_ops) -> dict:
             name = str(dtype)[6:]
             out[arch][name] = dict(forward=fwd, backward=bwd)
             peak = ("3xTF32" if dtype == torch.float32 else
-                    f"bf16 at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s")
+                    f"bf16 at {HW_PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s")
             print(f"  {card_line()}: hd 256 flash at {arch}'s shape (B={B} "
                   f"S={S} H={H}/{KV} window {W} softcap {cap:g}"
                   f"{f', q x{SOFTCAP_Q_SCALE:g}' if cap > 0 else ''}) "
@@ -4441,6 +4421,7 @@ def cross_attention_lane(fa_ops) -> dict:
     non-causal call (which takes S_k != S_q itself) beside the card's
     bound: f32 on this route's three TF32 passes, bf16 at the bf16 peak.
     Returns {label: {dtype: {forward, backward}}}."""
+    from repro_torch.roofline import torch_cost
     t0 = time.perf_counter()
     out = {}
     for n, (label, B, Sq, Sk, H, KV, hd) in enumerate(CROSS_FA):
@@ -4497,22 +4478,17 @@ def cross_attention_lane(fa_ops) -> dict:
             bwd_plain = _time_device_ms(lambda: torch.autograd.grad(
                 ref_out, leaves, do, retain_graph=True), 2)
             del ref_out, leaves, o, lse
-            es = q.element_size()
-            pairs = B * H * Sq * Sk
-            peak = (PEAK_TF32_FLOPS if dtype == torch.float32
-                    else PEAK_BF16_FLOPS)
-            passes = 3 if dtype == torch.float32 else 1
+            dims = dict(causal=False, itemsize=q.element_size())
             fwd = dict(ms=ms, plain_ms=plain_ms, library_ms=lib["fwd"][0],
                        library_backend=lib["fwd"][1],
-                       **_bound(passes * 4 * hd * pairs,
-                                es * (2 * q.numel() + 2 * k.numel()), peak),
+                       **torch_cost.flash_attention(
+                           B, Sq, Sk, H, KV, hd, **dims).bound(),
                        max_abs_err=err, err_over_limit=ratio)
             bwd = dict(ms=bwd_ms, plain_ms=bwd_plain,
                        library_ms=lib["bwd"][0],
                        library_backend=lib["bwd"][1],
-                       **_bound(passes * 10 * hd * pairs,
-                                es * (4 * q.numel() + 4 * k.numel())
-                                + 2 * 4 * B * H * Sq, peak),
+                       **torch_cost.flash_attention_bwd(
+                           B, Sq, Sk, H, KV, hd, **dims).bound(),
                        max_abs_err=max(berrs), err_over_limit=max(bratios))
             name = str(dtype)[6:]
             out[label][name] = dict(forward=fwd, backward=bwd)
@@ -5135,14 +5111,13 @@ def wkv_bwd_times(wkv_ops) -> dict:
     flushed (CUDA events), beside its bound and the plain reverse
     recurrence's time (f32)."""
     from repro_torch.kernels.rwkv6 import ref
+    from repro_torch.roofline import torch_cost
     B, S, H, hd = RWKV_SHAPE
     flush = _flusher()
     C = wkv_ops._entry("wkv_chunk_steps")(hd)
-    # Per state entry and step the kernel does: the state re-run twice (a
-    # multiply and an FMA each, 3 operations), then dr, dw and dk as FMAs
-    # (6), dv's multiply and its column sum's add (2), G's multiply and FMA
-    # (3): 17 operations, f32 on the CUDA cores.
-    flops = 17 * B * S * H * hd * hd
+    if C != wkv_ops.chunk_steps(hd):
+        _fail(f"wkv.cu's chunk of {C} steps at hd {hd}, ops.chunk_steps "
+              f"says {wkv_ops.chunk_steps(hd)}")
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         r, k, v, w, u, s0 = wkv_case(B, S, H, hd, dtype, True,
@@ -5153,11 +5128,10 @@ def wkv_bwd_times(wkv_ops) -> dict:
         ds = torch.randn(s0.shape, generator=g, device="cuda")
         ms = _time_device_ms(lambda: wkv_ops.wkv_bwd_cuda(
             r, k, v, w, u, chunks, dy, ds), 10, flush)
-        e = r.element_size()
-        nbytes = (4 * r.numel() * e + w.numel() * 4      # r, k, v, dy, w
-                  + 3 * r.numel() * e + w.numel() * 4    # dr, dk, dv, dw
-                  + chunks.numel() * 4 + 2 * s0.numel() * 4 + 2 * u.numel() * 4)
-        bound = _bound(flops, nbytes)
+        # 17 f32 operations a state entry and step on the CUDA cores; r,
+        # k, v, dy, w and the chunk states in, dr, dk, dv, dw out
+        work = torch_cost.wkv_bwd(B, S, H, hd, C, itemsize=r.element_size())
+        flops, nbytes, bound = work.flops, work.bytes, work.bound()
         name = str(dtype)[6:]
         print(f"wkv bwd kernel at B={B} S={S} H={H} hd={hd} {name} r/k/v "
               f"(chunks of {C}), L2 flushed: {ms:.4f} ms; bound "
@@ -5444,14 +5418,13 @@ def scan_bwd_times(scan_ops) -> dict:
     (CUDA events), beside its bound, the SFU's floor for its exps, and the
     plain reverse recurrence's time (f32)."""
     from repro_torch.kernels.mamba_scan import ref
+    from repro_torch.roofline import torch_cost
     B, S, d, N = JAMBA_SCAN_SHAPE
     flush = _flusher()
-    # Per state entry and step: two re-runs of the state (3 operations and
-    # an exp each) and the step back (20 operations and an exp: h_t, dh,
-    # the dB and dC terms, du's and ddt's sums, dA's term, g), plus ~2 adds
-    # of the channel sums: 28 f32 operations and 3 exps.
-    entries = B * S * d * N
-    flops = 28 * entries
+    K = scan_ops._entry("selective_scan_save_steps")()
+    if K != scan_ops.SAVE_STEPS:
+        _fail(f"selective_scan.cu saves every {K} steps, ops.SAVE_STEPS "
+              f"says {scan_ops.SAVE_STEPS}")
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         u, dt, A, Bm, Cm, Dp, h0 = scan_case(B, S, d, N, dtype, True,
@@ -5463,14 +5436,12 @@ def scan_bwd_times(scan_ops) -> dict:
         dh = torch.randn(h0.shape, generator=g, device="cuda")
         ms = _time_device_ms(lambda: scan_ops.selective_scan_bwd_cuda(
             u, dt, A, Bm, Cm, Dp, saved, dy, dh), 10, flush)
-        e = u.element_size()
-        nblk = -(-d // 64)
-        nbytes = (3 * u.numel() * e + 2 * Bm.numel() * e   # u, dt, dy; B, C
-                  + 2 * u.numel() * e                      # du, ddt
-                  + saved.numel() * 4 + 2 * h0.numel() * 4  # states, dh, dh0
-                  + 2 * B * nblk * S * N * 4                # dB, dC partials
-                  + B * d * N * 4 + B * d * 4 + A.numel() * 4 + Dp.numel() * 4)
-        bound = _bound(flops, nbytes)
+        # Per state entry and step: two re-runs of the state (3 operations
+        # and an exp each) and the step back (20 operations and an exp),
+        # plus ~2 adds of the channel sums: 28 f32 operations, 3 exps.
+        work = torch_cost.selective_scan_bwd(B, S, d, N, K,
+                                             itemsize=u.element_size())
+        flops, nbytes, bound = work.flops, work.bytes, work.bound()
         name = str(dtype)[6:]
         print(f"scan bwd kernel at B={B} S={S} d={d} N={N} {name}, L2 "
               f"flushed: {ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
@@ -6728,12 +6699,217 @@ def mesh_layers_phase(cfglib, registry, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 45: the roofline and the dry run: gpt2-12l's training step counted
+# on meta and on the card, then timed; one production cell of the dry run
+# ---------------------------------------------------------------------------
+
+# The card's count of the step's bytes against the meta count, and
+# max_memory_allocated against the predicted peak (arguments + the
+# counter's temp), relative.
+ROOF_BYTES_TOL = 0.01
+ROOF_PEAK_TOL = 0.15
+ROOF_WARMUP, ROOF_TIMED = 2, 5
+# One production cell of the dry run, in a child process.
+DRYRUN_CELL = ["--arch", "starcoder2-3b", "--shape", "train_4k", "--mesh",
+               "single"]
+
+
+def _roof_step(cfg, registry, device):
+    """(step, params, optimizer state, batch) of one training step at the
+    launcher's shape (batch 16 x 256, f32, Muon-NSGD under WSD,
+    ``mesh=None``): weights drawn once from seed 0 on the card, meta
+    tensors on meta."""
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.optim.base import make_optimizer
+    from repro_torch.train import steps
+    tc = TrainConfig()
+    opt = make_optimizer(OptimizerConfig())
+    step = steps.make_train_step(cfg, opt, make_schedule(
+        tc.schedule, tc.optimizer.learning_rate, TRAIN_STEPS))
+    gen = None if device == "meta" else torch.Generator().manual_seed(0)
+    params = registry.get_model(cfg).init(gen, cfg, device=device)
+    B, S = TRAIN_SHAPE[:2]
+    g = torch.Generator().manual_seed(1)
+    batch = {k: (torch.empty((B, S), dtype=torch.long, device="meta")
+                 if device == "meta" else
+                 torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+                 .to(device)) for k in ("tokens", "labels")}
+    return step, params, opt.init(params), batch
+
+
+def _tree_bytes(*trees) -> int:
+    from repro_torch.tree import leaves_with_path
+    return sum(x.numel() * x.element_size() for t in trees
+               for _, x in leaves_with_path(t))
+
+
+def roofline_phase(cfglib, registry, card) -> dict:
+    """Phase 45: (a) gpt2-12l's 12-layer training step counted on meta
+    (FLOPs by unit, bytes, kernel bytes, the predicted peak: arguments +
+    the counter's temp); (b) the same step on the card under the counter
+    after a warm-up: FLOPs equal to (a)'s, each kernel region's entries
+    equal to its launch counter, bytes within ``ROOF_BYTES_TOL``; (c) the
+    step timed with CUDA events (``ROOF_TIMED`` steps after
+    ``ROOF_WARMUP``): median and spread, achieved FLOP/s, ``mfu`` (the
+    model FLOPs over the median at the f32 peak, TF32 off), the roofline's
+    t_compute/t_memory, max_memory_allocated against the predicted peak
+    within ``ROOF_PEAK_TOL``; (d) ``DRYRUN_CELL`` through the dry run's CLI
+    in a child process, its row through ``roofline.report``."""
+    from repro_torch.configs.base import HW_PEAK_F32_FLOPS, ShapeConfig
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.torch_cost import StepCounter
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfglib.get_config("gpt2-12l")
+    B, S = TRAIN_SHAPE[:2]
+    shape = ShapeConfig("gpt2_train_16x256", S, B, "train")
+    model_flops = analysis.model_flops_estimate(cfg, shape)
+
+    # (a) the count on meta
+    step, params, state, batch = _roof_step(cfg, registry, "meta")
+    args = _tree_bytes(params, state, batch)
+    with StepCounter() as meta_counter:
+        step(params, state, batch, 0)
+    meta = meta_counter.count
+    predicted_peak = args + meta.peak_bytes
+    terms = analysis.RooflineTerms(
+        arch="gpt2-12l", shape=shape.name, mesh="none", chips=1,
+        hlo_flops=meta.flops, hlo_bytes=meta.bytes, coll_bytes_weighted=0.0,
+        coll_by_op={}, model_flops=model_flops,
+        flops_by_unit=dict(meta.by_unit))
+    print(f"  {card}: (a) gpt2-12l train step {B}x{S} f32 on meta: "
+          f"{meta.flops:.6e} FLOPs ({ {u: f'{f:.4e}' for u, f in meta.by_unit.items()} }), "
+          f"{meta.bytes:.6e} bytes outside kernels, {meta.kernel_bytes:.6e} "
+          f"kernel bytes, regions {dict(meta.regions)}; arguments {args} "
+          f"bytes + temp {meta.peak_bytes} = predicted peak "
+          f"{predicted_peak / 2 ** 30:.3f} GiB; model FLOPs "
+          f"{model_flops:.6e}; t_compute {terms.t_compute * 1e3:.3f} ms, "
+          f"t_memory {terms.t_memory * 1e3:.3f} ms")
+    del params, state, batch
+
+    # (b) the same step on the card under the counter, after a warm-up
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    step, params, state, batch = _roof_step(cfg, registry, "cuda")
+    params, state, _ = step(params, state, batch, 0)
+    torch.cuda.synchronize()
+    zero_counts()
+    with StepCounter() as card_counter:
+        params, state, _ = step(params, state, batch, 1)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    got = card_counter.count
+    fused, large = _ns_launches(cfg)
+    regions = {k: got.regions.get(k, 0) for k in launches}
+    byte_diff = abs(got.bytes - meta.bytes) / meta.bytes
+    print(f"  {card}: (b) the step on the card under the counter: "
+          f"{got.flops:.6e} FLOPs (meta {meta.flops:.6e}), "
+          f"{got.bytes:.6e} bytes ({100 * byte_diff:.4f}% off meta's), "
+          f"kernel bytes {got.kernel_bytes:.6e}; regions {regions}, "
+          f"launches {launches}")
+    if got.flops != meta.flops:
+        _fail(f"phase 45: the card counted {got.flops} FLOPs, meta "
+              f"{meta.flops}")
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=cfg.num_layers,
+                flash_attention_bwd=cfg.num_layers, ns_fused=fused,
+                matmul=large)
+    if regions != launches or launches != want:
+        _fail(f"phase 45: regions {regions}, launches {launches} (flash "
+              f"{cfg.num_layers} and its backward {cfg.num_layers}, ns_fused "
+              f"{fused}, matmul {large} expected, each region = its launches)")
+    if byte_diff > ROOF_BYTES_TOL:
+        _fail(f"phase 45: bytes {got.bytes} against meta's {meta.bytes}")
+
+    # (c) the timing
+    for i in range(ROOF_WARMUP):
+        params, state, _ = step(params, state, batch, 2 + i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(ROOF_TIMED):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        params, state, _ = step(params, state, batch, 2 + ROOF_WARMUP + i)
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    peak = torch.cuda.max_memory_allocated() - before
+    median = float(np.median(ms))
+    mfu = model_flops / (median / 1e3 * HW_PEAK_F32_FLOPS)
+    peak_ratio = peak / predicted_peak
+    print(f"  {card}: (c) {ROOF_TIMED} steps after {ROOF_WARMUP} warm-ups: "
+          f"median {median:.3f} ms (min {min(ms):.3f}, max {max(ms):.3f}, "
+          f"spread {max(ms) - min(ms):.3f} ms); counted {got.flops / median / 1e9:.2f} "
+          f"TFLOP/s achieved, model {model_flops / median / 1e9:.2f} TFLOP/s, "
+          f"mfu {mfu:.4f} (model FLOPs / (median x "
+          f"{HW_PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32)); roofline "
+          f"t_compute {terms.t_compute * 1e3:.3f} ms, t_memory "
+          f"{terms.t_memory * 1e3:.3f} ms ({terms.dominant}); peak "
+          f"{peak / 2 ** 30:.3f} GiB against the predicted "
+          f"{predicted_peak / 2 ** 30:.3f} GiB ({peak_ratio:.4f}x)")
+    if abs(peak_ratio - 1) > ROOF_PEAK_TOL:
+        _fail(f"phase 45: max_memory_allocated {peak} against the predicted "
+              f"{predicted_peak} ({peak_ratio:.4f}x)")
+    del params, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) one production cell of the dry run in a child process
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CELL,
+             "--out", tmp], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=300)
+        cell_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            _fail(f"phase 45: the dry run exited {run.returncode}: "
+                  f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+        rep = subprocess.run(
+            [sys.executable, "-m", "repro_torch.roofline.report", "--dir",
+             tmp], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=120, check=True)
+        (name,) = os.listdir(tmp)
+        with open(os.path.join(tmp, name)) as f:
+            cell = json.load(f)
+    print(f"  {card}: (d) dry run {' '.join(DRYRUN_CELL)} in a child "
+          f"process: {cell_s:.1f} s, count {cell['count_s']:.1f} s; "
+          f"roofline.report:")
+    for line in rep.stdout.splitlines():
+        print(f"    {line}")
+    seconds = time.perf_counter() - t_phase
+    print(f"roofline phase {seconds:.1f} s")
+    return dict(card=card, meta_flops=meta.flops,
+                flops_by_unit=dict(meta.by_unit), meta_bytes=meta.bytes,
+                kernel_bytes=meta.kernel_bytes, card_flops=got.flops,
+                card_bytes=got.bytes, regions=regions, launches=launches,
+                arguments_bytes=args, temp_bytes=meta.peak_bytes,
+                predicted_peak_bytes=predicted_peak,
+                max_memory_allocated=peak, step_ms=ms, median_ms=median,
+                model_flops=model_flops, mfu=mfu,
+                t_compute_ms=terms.t_compute * 1e3,
+                t_memory_ms=terms.t_memory * 1e3,
+                dryrun_cell={k: cell[k] for k in (
+                    "arch", "shape", "mesh", "chips", "hlo_flops",
+                    "t_compute", "t_memory", "t_collective", "dominant",
+                    "roofline_fraction", "fits_hbm", "count_s")},
+                dryrun_cell_s=cell_s, seconds=seconds)
+
+
 def run_only(only, cfglib, registry, fa_ops, pa_ops, train, serve) -> int:
     """``--only``: after the card and the build, the named phases of
-    36-44 alone, each as the full run makes it (41 and 42 on weights drawn
+    36-45 alone, each as the full run makes it (41 and 42 on weights drawn
     on the card for them); prints their readings as JSON and no closing
     line."""
     got = {}
+    if 45 in only:
+        got["45"] = roofline_phase(cfglib, registry, card_line())
     if 40 in only:
         got["40"] = recipe_phase(cfglib)
     if 41 in only:
@@ -6778,12 +6954,12 @@ def main() -> int:
     only = None
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = {int(x) for x in sys.argv[2].split(",")}
-        if not only <= {36, 37, 38, 39, 40, 41, 42, 43, 44}:
-            print("chip_smoke: --only takes phases among 36-44",
+        if not only <= set(range(36, 46)):
+            print("chip_smoke: --only takes phases among 36-45",
                   file=sys.stderr)
             return 2
     elif sys.argv[1:]:
-        print("usage: chip_smoke.py [--only 36,37,...,44]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only 36,37,...,45]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6934,6 +7110,13 @@ def main() -> int:
     _mark("13")
     # 13. training times
     t_ns, t_mm, t_bwd = train_times(ns_ops, fa_ops, res, cfg)
+
+    _mark("45")
+    # 45. the roofline: gpt2-12l's training step counted on meta and on the
+    # card under the counter, timed; one production cell of the dry run
+    gc.collect()
+    torch.cuda.empty_cache()
+    roof = roofline_phase(cfglib, registry, card)
 
     _mark("14")
     # 14. WKV parity on the card
@@ -7395,6 +7578,7 @@ def main() -> int:
                               if r[0].startswith("scan_bwd")]}]}
     _mark("the record")
     print(json.dumps({"recipe": rec}))
+    print(json.dumps({"roofline_45": roof}))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

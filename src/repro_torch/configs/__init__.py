@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig
 
 # The registry modules the port carries, by architecture name.
 _MODULES = {
@@ -29,6 +29,16 @@ _MODULES = {
     "qwen2-vl-2b": "qwen2_vl_2b",
     "whisper-base": "whisper_base",
 }
+
+# The reference's ten assigned architectures: the dry run's cells.
+ASSIGNED_ARCHS = ("gemma2-9b", "gemma3-12b", "yi-34b", "starcoder2-3b",
+                  "jamba-v0.1-52b", "whisper-base", "rwkv6-7b",
+                  "qwen2-vl-2b", "moonshot-v1-16b-a3b", "deepseek-moe-16b")
+
+# long_500k applicability (the reference's): sub-quadratic and
+# local-attention archs run it; pure full-attention archs (and whisper)
+# skip it.
+LONG_CONTEXT_ARCHS = ("rwkv6-7b", "jamba-v0.1-52b", "gemma2-9b", "gemma3-12b")
 
 # Checkpoint policy to use when remat is on (the reference's
 # ``REMAT_DEFAULTS``, which it measured on its host mesh): 'dots' (keep
@@ -74,6 +84,12 @@ def get_config(name: str) -> ModelConfig:
         return importlib.import_module(
             f"repro_torch.configs.{_MODULES[name]}").CONFIG
     raise KeyError(f"unknown architecture {name!r} (known: {ARCH_HELP})")
+
+
+def applicable_shapes(name: str) -> list:
+    """Shape cells for this arch; long_500k only for sub-quadratic archs."""
+    return [shape for shape in SHAPES.values()
+            if shape.name != "long_500k" or name in LONG_CONTEXT_ARCHS]
 
 
 def get_smoke_config(name: str) -> ModelConfig:

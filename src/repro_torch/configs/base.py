@@ -3,9 +3,9 @@
 training configs).
 
 Every field keeps the reference's name and default so a config built here
-describes the same model and run as the reference's.  Shape and mesh
-configs and the TPU roofline constants are not copied: no ported path reads
-them.
+describes the same model and run as the reference's.  The dry run's shape
+cells (``ShapeConfig``, ``SHAPES``) are the reference's; the hardware
+constants are the H100's, where the reference's are a TPU v5e's.
 """
 from __future__ import annotations
 
@@ -225,3 +225,37 @@ class TrainConfig:
     # 'nothing' (recompute everything) or 'dots' (keep matmul outputs).
     remat: "bool | str" = False
     log_every: int = 10
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's shape set for the LM family)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                        # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+# H100 hardware model (roofline constants): NVIDIA's H100 SXM5 data sheet,
+# at its 700 W power limit, dense rates (no sparsity).
+HW_PEAK_F32_FLOPS = 67e12     # FLOP/s, float32 on the CUDA cores
+HW_PEAK_TF32_FLOPS = 495e12   # FLOP/s, TF32 on the tensor cores
+HW_PEAK_BF16_FLOPS = 989e12   # FLOP/s, bf16/fp16 on the tensor cores
+HW_HBM_BW = 3.35e12           # bytes/s of HBM3
+HW_HBM_BYTES = 80e9           # HBM capacity, bytes
+# bytes/s of one card's link off its node: the 400 Gb/s NDR InfiniBand
+# port of each card in a DGX H100.  At the 16x16 and 2x16x16 meshes every
+# axis spans nodes of 8 cards, so the slowest link sets each collective.
+HW_LINK_BW = 50e9

@@ -19,6 +19,11 @@ no logsumexp.
 Keys may outnumber queries (S_k != S_q) in non-causal attention: the
 encoder-decoder's cross-attention, decoder queries over every encoder
 frame.  Causal attention at S_k != S_q has no caller and raises.
+
+Both paths enter the ``flash_attention`` kernel region of
+``roofline.torch_cost`` (and the backward ``flash_attention_bwd``), so a
+counted step reads the kernels' work whichever path ran; the plain path's
+output is contiguous, as the kernel's is.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.roofline import torch_cost
 
 # Launches of the CUDA forward kernel, and calls of the CUDA backward (each
 # one dQ launch, which also writes D = rowsum(dO * o), then one dK/dV
@@ -182,9 +188,20 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse,
-                                              dout.contiguous(), **ctx.kw)
+        with torch_cost.kernel_region("flash_attention_bwd",
+                                      **_work_dims(q, k, ctx.kw)):
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                  dout.contiguous(),
+                                                  **ctx.kw)
         return dq, dk, dv, None, None, None
+
+
+def _work_dims(q, k, kw) -> dict:
+    """The kernels' work dims (``torch_cost.flash_attention``)."""
+    B, S, H, hd = q.shape
+    return dict(B=B, S_q=S, S_k=k.shape[1], H=H, KV=k.shape[2], hd=hd,
+                causal=bool(kw["causal"]), window=int(kw["window"]),
+                itemsize=q.element_size())
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, logit_softcap=0.0):
@@ -205,10 +222,19 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
     if force not in ("auto", "kernel", "ref"):
         raise ValueError(f"force={force!r} (auto|kernel|ref)")
     kw = dict(causal=causal, window=window, logit_softcap=logit_softcap)
-    if force == "kernel" or (force == "auto" and q.is_cuda):
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
-            return FlashAttentionFn.apply(q, k, v, causal, window,
-                                          logit_softcap)
-        return flash_attention_cuda(q, k, v, **kw)
-    return flash_attention_ref(q, k, v, **kw)
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    dims = _work_dims(q, k, kw)
+    with torch_cost.kernel_region("flash_attention", with_lse=grad, **dims):
+        if force == "kernel" or (force == "auto" and q.is_cuda):
+            if grad:
+                return FlashAttentionFn.apply(q, k, v, causal, window,
+                                              logit_softcap)
+            return flash_attention_cuda(q, k, v, **kw)
+        return torch_cost.counted_plain(
+            lambda q, k, v: flash_attention_ref(q, k, v, **kw).contiguous(),
+            (q, k, v), "flash_attention_bwd",
+            like=lambda q, k, v: torch.empty_like(q),
+            saved=lambda q, k, v: (torch.empty(
+                q.shape[:1] + q.shape[2:3] + q.shape[1:2],
+                dtype=torch.float32, device=q.device),), **dims)

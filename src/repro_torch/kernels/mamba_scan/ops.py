@@ -21,6 +21,10 @@ re-runs each 64-step chunk from its saved state; it gives the gradients of
 h0 and of the final state on ``selective_scan_with_state``.  On the CPU
 autograd differentiates the plain versions, as ``jax.grad`` differentiates
 the reference's.  Nothing on the card falls back to the plain version.
+
+Both paths enter the ``selective_scan`` region of ``roofline.torch_cost``
+(and the backward ``selective_scan_bwd``), so a counted step reads the
+kernels' work.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mamba_scan import ref
+from repro_torch.roofline import torch_cost
 
 # Launches of the CUDA kernels in this process (one per call): the forward
 # (inference and training) and the backward; the chip smoke run resets and
@@ -40,6 +45,15 @@ BWD_LAUNCHES = 0
 KERNEL_STATE_DIMS = (4, 16)        # the smoke configs' and jamba's
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FORCES = ("auto", "kernel", "ref", "chunked")
+# Steps between the states the training forward saves: ``SAVE`` in
+# ``csrc/selective_scan.cu`` (its ``selective_scan_save_steps``).
+SAVE_STEPS = 64
+
+
+def _work_dims(u, Bm) -> dict:
+    """The kernels' work dims (``torch_cost.selective_scan``/``_bwd``)."""
+    B, S, d = u.shape
+    return dict(B=B, S=S, d=d, N=Bm.shape[-1], itemsize=u.element_size())
 
 
 # Each entry point's (pointer, int) argument counts; the stream follows as
@@ -232,10 +246,13 @@ class ScanFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh=None):
         u, dt, A, Bm, Cm, Dp, saved = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(u)
-        du, ddt, dA, dB, dC, dD, dh0 = selective_scan_bwd_cuda(
-            u, dt, A, Bm, Cm, Dp, saved, dy, dh)
+        with torch_cost.kernel_region("selective_scan_bwd",
+                                      save_steps=SAVE_STEPS,
+                                      **_work_dims(u, Bm)):
+            if dy is None:
+                dy = torch.zeros_like(u)
+            du, ddt, dA, dB, dC, dD, dh0 = selective_scan_bwd_cuda(
+                u, dt, A, Bm, Cm, Dp, saved, dy, dh)
         return (du, ddt, dA, dB, dC, dD, dh0 if ctx.has_h0 else None, None)
 
 
@@ -254,24 +271,55 @@ def selective_scan_with_state(u, dt, A, Bm, Cm, Dp, h0=None, *,
                               force: str = "auto"):
     """Returns (y (B, S, d) in u.dtype, final state (B, d, N) float32): the
     serving prefill, whose final state seeds decode."""
-    if _on_kernel(force, u):
-        Bm, Cm = Bm.contiguous(), Cm.contiguous()
-        if _grad_wanted(u, dt, A, Bm, Cm, Dp, h0):
-            return ScanFunction.apply(u, dt, A, Bm, Cm, Dp, h0, True)
-        return selective_scan_cuda(u, dt, A, Bm, Cm, Dp, h0)
-    if force == "ref" or (force == "auto" and u.shape[1] < 64):
-        return ref.selective_scan_ref(u, dt, A, Bm, Cm, Dp, h0=h0)
-    return ref.selective_scan_chunked(u, dt, A, Bm, Cm, Dp, h0=h0)
+    dims = _work_dims(u, Bm)
+    with torch_cost.kernel_region("selective_scan", h0=h0 is not None,
+                                  **dims):
+        if _on_kernel(force, u):
+            Bm, Cm = Bm.contiguous(), Cm.contiguous()
+            if _grad_wanted(u, dt, A, Bm, Cm, Dp, h0):
+                return ScanFunction.apply(u, dt, A, Bm, Cm, Dp, h0, True)
+            return selective_scan_cuda(u, dt, A, Bm, Cm, Dp, h0)
+        return _plain(u, dt, A, Bm, Cm, Dp, h0, force, dims)
+
+
+def _plain(u, dt, A, Bm, Cm, Dp, h0, force, dims):
+    """The plain forms (the per-step one for S < 64 or forced, else the
+    chunked one): (y, final state)."""
+    plain = (ref.selective_scan_ref if force == "ref"
+             or (force == "auto" and u.shape[1] < 64)
+             else ref.selective_scan_chunked)
+    return torch_cost.counted_plain(
+        lambda u, dt, A, Bm, Cm, Dp, h0: plain(u, dt, A, Bm, Cm, Dp, h0=h0),
+        (u, dt, A, Bm, Cm, Dp, h0), "selective_scan_bwd", like=_like,
+        saved=_saved, save_steps=SAVE_STEPS, **dims)
+
+
+def _saved(u, dt, A, Bm, Cm, Dp, h0):
+    """Empty states of the shape the training forward saves."""
+    B, S, d = u.shape
+    return (torch.empty((B, -(-S // SAVE_STEPS), d, A.shape[-1]),
+                        dtype=torch.float32, device=u.device),)
+
+
+def _like(u, dt, A, Bm, Cm, Dp, h0):
+    """Empty (y, final state) of the scan's shapes and dtypes."""
+    return torch.empty_like(u), torch.empty(
+        (u.shape[0], u.shape[2], A.shape[-1]), dtype=torch.float32,
+        device=u.device)
 
 
 def selective_scan(u, dt, A, Bm, Cm, Dp, *, force: str = "auto"):
     """Returns y (B, S, d) in u.dtype, from a zero state: the full-sequence
     forward (training, evaluation).  The kernel writes no final state
     here."""
-    if _on_kernel(force, u):
-        Bm, Cm = Bm.contiguous(), Cm.contiguous()
-        if _grad_wanted(u, dt, A, Bm, Cm, Dp):
-            return ScanFunction.apply(u, dt, A, Bm, Cm, Dp, None, False)
-        y, _ = selective_scan_cuda(u, dt, A, Bm, Cm, Dp, final_state=False)
-        return y
-    return selective_scan_with_state(u, dt, A, Bm, Cm, Dp, force=force)[0]
+    dims = _work_dims(u, Bm)
+    with torch_cost.kernel_region("selective_scan", h0=False, final=False,
+                                  **dims):
+        if _on_kernel(force, u):
+            Bm, Cm = Bm.contiguous(), Cm.contiguous()
+            if _grad_wanted(u, dt, A, Bm, Cm, Dp):
+                return ScanFunction.apply(u, dt, A, Bm, Cm, Dp, None, False)
+            y, _ = selective_scan_cuda(u, dt, A, Bm, Cm, Dp,
+                                       final_state=False)
+            return y
+        return _plain(u, dt, A, Bm, Cm, Dp, None, force, dims)[0]

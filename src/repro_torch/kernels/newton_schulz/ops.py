@@ -22,6 +22,12 @@ reference's ``force='pallas'`` runs interpret mode off the TPU);
 route on a CUDA tensor and the reference on the CPU.  ``gemm_plan`` decides
 each product's launch (symmetric tiles, split-K, workspace) in plain
 Python, so that the CPU tests check it.
+
+``newton_schulz``, ``ns_fused``, ``matmul`` and the fused-update GEMM
+enter their regions of ``roofline.torch_cost`` on every path:
+``newton_schulz``'s counts the card's route (the chain, or the large
+route's GEMMs and norm) whichever path ran, and the launches inside it
+count as entries of their own regions.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.newton_schulz.ref import NS_COEFFS, newton_schulz_ref
+from repro_torch.roofline import torch_cost
 
 # Calls of the CUDA ns_fused chain (one per stacked leaf: a norm pass and 3
 # GEMMs per iteration) and of the CUDA matmul (the public ``matmul`` and the
@@ -239,9 +246,13 @@ def ns_fused(x: torch.Tensor, steps: int = 5, eps: float = EPS,
     """x: (L, n, m) with n <= m -> Newton–Schulz of each matrix."""
     if force not in ("auto", "kernel", "ref"):
         raise ValueError(f"force={force!r} (auto|kernel|ref)")
-    if force == "kernel" or (force == "auto" and x.is_cuda):
-        return ns_fused_cuda(x, steps, eps)
-    return ns_fused_ref(x, steps, eps)
+    _check_stack(x)
+    L, n, m = x.shape
+    with torch_cost.kernel_region("ns_fused", L=L, n=n, m=m, steps=steps,
+                                  itemsize=x.element_size()):
+        if force == "kernel" or (force == "auto" and x.is_cuda):
+            return ns_fused_cuda(x, steps, eps)
+        return ns_fused_ref(x, steps, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -310,9 +321,21 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, trans_b: bool = False,
            force: str = "auto") -> torch.Tensor:
     if force not in ("auto", "kernel", "ref"):
         raise ValueError(f"force={force!r} (auto|kernel|ref)")
-    if force == "kernel" or (force == "auto" and x.is_cuda):
-        return matmul_cuda(x, y, trans_b)
-    return matmul_ref(x, y, trans_b)
+    _check_matmul(x, y, trans_b)
+    with torch_cost.kernel_region("matmul", **_gemm_dims(x, y, trans_b)):
+        if force == "kernel" or (force == "auto" and x.is_cuda):
+            return matmul_cuda(x, y, trans_b)
+        return matmul_ref(x, y, trans_b)
+
+
+def _gemm_dims(x, y, trans_b, d=None) -> dict:
+    """The GEMM's work dims (``torch_cost.matmul``); ``d`` counts where it
+    is not one of the operands."""
+    N = y.shape[0] if trans_b else y.shape[1]
+    return dict(M=x.shape[0], N=N, K=x.shape[1],
+                symmetric=trans_b and _same(x, y),
+                with_d=d is not None and not (_same(d, x) or _same(d, y)),
+                itemsize=x.element_size())
 
 
 def _gemm(x: torch.Tensor, y: torch.Tensor, *, trans_b: bool = False,
@@ -321,12 +344,13 @@ def _gemm(x: torch.Tensor, y: torch.Tensor, *, trans_b: bool = False,
     """alpha * x @ op(y) + beta * d with the update fused into the GEMM's
     epilogue on a CUDA tensor (counted as a ``matmul`` call); the plain
     form on the CPU."""
-    if x.is_cuda:
-        return matmul_cuda(x, y, trans_b, d, alpha, beta)
-    out = alpha * matmul_ref(x.float(), y.float(), trans_b)
-    if d is not None:
-        out = out + beta * d.float()
-    return out.to(x.dtype)
+    with torch_cost.kernel_region("matmul", **_gemm_dims(x, y, trans_b, d)):
+        if x.is_cuda:
+            return matmul_cuda(x, y, trans_b, d, alpha, beta)
+        out = alpha * matmul_ref(x.float(), y.float(), trans_b)
+        if d is not None:
+            out = out + beta * d.float()
+        return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +382,14 @@ def newton_schulz(m: torch.Tensor, steps: int = 5,
     if m.ndim not in (2, 3):
         raise ValueError(f"newton_schulz: m must be 2-D or 3-D, got "
                          f"{tuple(m.shape)}")
+    with torch_cost.kernel_region("newton_schulz", shape=tuple(m.shape),
+                                  steps=steps, itemsize=m.element_size()):
+        if m.is_meta:                   # no values: the shape alone
+            return torch.empty_like(m)
+        return _newton_schulz(m, steps, force)
+
+
+def _newton_schulz(m: torch.Tensor, steps: int, force: str) -> torch.Tensor:
     stack = m if m.ndim == 3 else m[None]
     if force == "ref" or (force == "auto" and not m.is_cuda):
         y = torch.stack([newton_schulz_ref(a, steps) for a in stack])

@@ -18,6 +18,11 @@ K/V into the gathered context instead; both give the same attention input,
 and the port keeps one discipline.  Chunked prefill is plain gather +
 masked attention on every device, as in the reference, which wrote no
 kernel for it.
+
+``paged_attention`` enters the ``paged_attention`` region of
+``roofline.torch_cost`` on both paths, and ``paged_prefill_attention`` the
+``paged_prefill_attention`` one: a counted step reads their work (the
+slots attended), not the plain gather's.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import ref
+from repro_torch.roofline import torch_cost
 
 # Launches of the CUDA kernel in this process (one per call, a single
 # device kernel); the chip smoke run resets and reads it to show the decode
@@ -196,14 +202,34 @@ def paged_attention(q, k_pages, v_pages, block_table, index, *,
     (NP,bs,KV,1)."""
     if force not in ("auto", "kernel", "ref"):
         raise ValueError(f"force={force!r} (auto|kernel|ref)")
-    if force == "kernel" or (force == "auto" and q.is_cuda):
-        return paged_attention_cuda(q, k_pages, v_pages, block_table, index,
-                                    k_scales=k_scales, v_scales=v_scales,
-                                    logit_softcap=logit_softcap)
-    _check(q, k_pages, v_pages, block_table, index, k_scales, v_scales)
-    return ref.paged_attention_ref(q, k_pages, v_pages, block_table, index,
-                                   k_scales=k_scales, v_scales=v_scales,
-                                   logit_softcap=logit_softcap)
+    with torch_cost.kernel_region(
+            "paged_attention", **_work_dims(q, k_pages, block_table,
+                                            index)):
+        if force == "kernel" or (force == "auto" and q.is_cuda):
+            return paged_attention_cuda(
+                q, k_pages, v_pages, block_table, index, k_scales=k_scales,
+                v_scales=v_scales, logit_softcap=logit_softcap)
+        _check(q, k_pages, v_pages, block_table, index, k_scales, v_scales)
+        return ref.paged_attention_ref(
+            q, k_pages, v_pages, block_table, index, k_scales=k_scales,
+            v_scales=v_scales, logit_softcap=logit_softcap)
+
+
+def _work_dims(q, k_pages, block_table, index) -> dict:
+    """The kernel's work dims (``torch_cost.paged_attention``): the slots
+    the rows attend (each row's cursor + 1, at most its table's), read
+    from the cursors only under an active counter."""
+    B, _, H, hd = q.shape
+    _, bs, KV, _ = k_pages.shape
+    cap = block_table.shape[1] * bs
+
+    def lens():
+        return (index.long() + 1).clamp(0, cap).tolist()
+    return dict(B=B, H=H, KV=KV, hd=hd, live=lambda: sum(lens()),
+                pages=lambda: sum(-(-c // bs) for c in lens()),
+                q_itemsize=q.element_size(),
+                page_itemsize=k_pages.element_size(),
+                quantized=quant.is_quantized(k_pages.dtype))
 
 
 def paged_attention_decode(q, k_pages, v_pages, k_new, v_new, page, off,
@@ -243,7 +269,12 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, ctx_len, *,
     row's pages (which already hold the chunk's own K/V, quantized with
     their scales by the caller when ``k_scales``/``v_scales`` are given).
     Plain gather + masked attention on every device."""
-    return ref.paged_prefill_attention_ref(
-        q, k_pages, v_pages, block_table, ctx_len, k_scales=k_scales,
-        v_scales=v_scales, logit_softcap=logit_softcap)
+    B, C, H, hd = q.shape
+    with torch_cost.kernel_region(
+            "paged_prefill_attention", B=B, C=C,
+            ctx_total=lambda: int(torch.as_tensor(ctx_len).expand(B).sum()),
+            H=H, KV=k_pages.shape[2], hd=hd, itemsize=q.element_size()):
+        return ref.paged_prefill_attention_ref(
+            q, k_pages, v_pages, block_table, ctx_len, k_scales=k_scales,
+            v_scales=v_scales, logit_softcap=logit_softcap)
 

@@ -14,6 +14,9 @@ start, and the backward is a kernel of its own (``csrc/wkv_bwd.cu``), which
 re-runs each chunk from its start state.  On the CPU autograd
 differentiates the plain version, as ``jax.grad`` differentiates the
 reference's.  Nothing on the card falls back to the plain version.
+
+Both paths enter the ``wkv`` region of ``roofline.torch_cost`` (and the
+backward ``wkv_bwd``), so a counted step reads the kernels' work.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6 import ref
+from repro_torch.roofline import torch_cost
 
 # Launches of the CUDA kernels in this process (one per call): the forward
 # (inference and training) and the backward; the chip smoke run resets and
@@ -38,6 +42,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # a pointer.  Pointers as c_void_p: ctypes would cut a bare int to 32 bits.
 _ENTRIES = {"wkv_fwd": (8, 5), "wkv_fwd_save": (9, 5), "wkv_bwd": (15, 5),
             "wkv_chunk_steps": (0, 1), "wkv_bwd_scratch_floats": (0, 1)}
+
+
+def chunk_steps(hd: int) -> int:
+    """Steps of a chunk at head dim ``hd``: ``Cfg<T, hd>::C`` in
+    ``csrc/wkv.cu`` (its ``wkv_chunk_steps``), one chunk state saved a
+    chunk for the backward."""
+    return 16 if hd >= 128 else 32
+
+
+def _work_dims(r, u) -> dict:
+    """The kernels' work dims (``torch_cost.wkv``/``wkv_bwd``)."""
+    B, S, H, hd = r.shape
+    return dict(B=B, S=S, H=H, hd=hd, itemsize=r.element_size())
 
 
 def _entry(name: str):
@@ -202,20 +219,41 @@ class WKVFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, ds):
         r, k, v, w, u, chunks = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(r)
-        return wkv_bwd_cuda(r, k, v, w, u, chunks, dy, ds)
+        with torch_cost.kernel_region(
+                "wkv_bwd", chunk_steps=chunk_steps(r.shape[-1]),
+                **_work_dims(r, u)):
+            if dy is None:
+                dy = torch.zeros_like(r)
+            return wkv_bwd_cuda(r, k, v, w, u, chunks, dy, ds)
 
 
 def wkv(r, k, v, w, u, state, *, force: str = "auto"):
     """Returns (y (B,S,H,hd) in r.dtype, final state (B,H,hd,hd) float32)."""
     if force not in ("auto", "kernel", "ref", "chunked"):
         raise ValueError(f"force={force!r} (auto|kernel|ref|chunked)")
-    if force == "kernel" or (force == "auto" and r.is_cuda):
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (r, k, v, w, u, state)):
-            return WKVFunction.apply(r, k, v, w, u, state)
-        return wkv_cuda(r, k, v, w, u, state)
-    if force == "ref" or (force == "auto" and r.shape[1] < 64):
-        return ref.wkv_ref(r, k, v, w, u, state)
-    return ref.wkv_chunked(r, k, v, w, u, state)
+    dims = _work_dims(r, u)
+    with torch_cost.kernel_region("wkv", u_itemsize=u.element_size(),
+                                  **dims):
+        if force == "kernel" or (force == "auto" and r.is_cuda):
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (r, k, v, w, u, state)):
+                return WKVFunction.apply(r, k, v, w, u, state)
+            return wkv_cuda(r, k, v, w, u, state)
+        plain = (ref.wkv_ref if force == "ref"
+                 or (force == "auto" and r.shape[1] < 64)
+                 else ref.wkv_chunked)
+        return torch_cost.counted_plain(
+            plain, (r, k, v, w, u, state), "wkv_bwd", like=_like,
+            saved=_saved, chunk_steps=chunk_steps(r.shape[-1]), **dims)
+
+
+def _like(r, k, v, w, u, state):
+    """Empty (y, final state) of ``wkv``'s shapes and dtypes."""
+    return torch.empty_like(r), torch.empty_like(state, dtype=torch.float32)
+
+
+def _saved(r, k, v, w, u, state):
+    """Empty chunk states of the shape the training forward saves."""
+    B, S, H, hd = r.shape
+    return (torch.empty((B, H, -(-S // chunk_steps(hd)), hd, hd),
+                        dtype=torch.float32, device=r.device),)

@@ -1,7 +1,8 @@
 """Model facade: the uniform init/apply/cache/decode/prefill handles over
-the model zoo (``repro/models/registry.py``), and ``ParamModule``, the
+the model zoo (``repro/models/registry.py``), ``ParamModule``, the
 ``nn.Module`` that holds a parameter tree so ``.to(device)`` and
-``state_dict()`` work on it."""
+``state_dict()`` work on it, and ``input_specs``/``decode_input_specs``
+(meta-tensor stand-ins for the dry run; nothing is allocated)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, transformer
 
 
@@ -112,3 +113,42 @@ class ParamModule(nn.Module):
         for name, child in self.named_children():
             out[name] = child.tree()
         return out
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs (meta tensors: never allocates)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Inputs for a train step or a prefill, the reference's shapes and
+    dtypes: int32 tokens and labels, an encoder-decoder's f32 frames, and
+    a frontend's f32 embeds (the patch or frame embeddings supplied
+    directly) ahead of a shorter text."""
+    B, S = shape.global_batch, shape.seq_len
+    tok = torch.int32
+    if cfg.is_encoder_decoder:
+        return {"tokens": _meta((B, S), tok), "labels": _meta((B, S), tok),
+                "frames": _meta((B, cfg.encoder_seq_len, cfg.d_model),
+                                torch.float32)}
+    specs = {}
+    s_text = S
+    if cfg.frontend != "none" and cfg.num_frontend_embeds > 0:
+        s_text = S - cfg.num_frontend_embeds
+        specs["embeds"] = _meta((B, cfg.num_frontend_embeds, cfg.d_model),
+                                torch.float32)
+    specs["tokens"] = _meta((B, s_text), tok)
+    specs["labels"] = _meta((B, s_text), tok)
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Inputs for one serve step: a single new token and the per-row
+    cursor."""
+    B = shape.global_batch
+    return {"tokens": _meta((B, 1), torch.int32),
+            "index": _meta((B,), torch.int32)}

@@ -122,9 +122,12 @@ def _mamba_ssm_params(p, cfg: ModelConfig, u, group=None):
     Under ``group`` u holds the rank's channels: its x_proj rows give a
     partial dt|B|C, summed over 'model' both ways."""
     _, dt_rank, d_state, _ = mamba_dims(cfg)
-    xdbc = coll.sum_over_model(u @ p["x_proj"], group)
+    # A float32 u (the decode's, after the float32 conv state) takes
+    # bf16 weights at float32, as the reference's promotion does.
+    xdbc = coll.sum_over_model(u @ p["x_proj"].to(u.dtype), group)
     dt, Bm, Cm = torch.split(xdbc, [dt_rank, d_state, d_state], dim=-1)
-    dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])     # (B, S, d_inner)
+    dt = F.softplus(dt @ p["dt_proj"].to(dt.dtype)
+                    + p["dt_bias"])                       # (B, S, d_inner)
     return dt, Bm, Cm
 
 
@@ -186,7 +189,8 @@ def mamba_decode(p, cfg: ModelConfig, x: torch.Tensor,
     p, group = _mamba_local(p, cfg)
     xs, z = _mamba_project(p, x, group)                    # (B, 1, d_inner)
     conv_buf = torch.cat([state["conv"], xs], dim=1)       # (B, d_conv, d_inner)
-    u = torch.einsum("bcd,cd->bd", conv_buf, p["conv_w"]) + p["conv_b"]
+    u = torch.einsum("bcd,cd->bd", conv_buf,
+                     p["conv_w"].to(conv_buf.dtype)) + p["conv_b"]
     u = F.silu(u)[:, None, :]                              # (B, 1, d_inner)
     dt, Bm, Cm = _mamba_ssm_params(p, cfg, u, group)
     A = -torch.exp(p["A_log"].float())

@@ -357,38 +357,9 @@ class ServeEngine:
 
     def _place(self, cfg: ModelConfig, params):
         """(the params as this rank holds them, the context the steps run
-        under).  Each leaf is split as ``sharding.param_spec`` places it
-        under the engine's ``fsdp``, ``layout`` and ``moe_fsdp``, except
-        that under the 'tp' layout a leaf stays whole over 'model' where
-        its layer computes it whole (``keeps_model_split``).  The context
-        holds the specs where some leaf is split over an axis its layer
-        does not compute on (``materialize`` gathers it per super-block),
-        else none."""
-        mesh = self.mesh
-        specs = {}
-        gather = False
-        with mesh_scope(MeshContext(mesh, self.layout, serving=True)):
-            for path, x in leaves_with_path(params):
-                spec = shd.param_spec(path, x.shape, mesh, fsdp=self.fsdp,
-                                      moe_fsdp=self.moe_fsdp,
-                                      layout=self.layout)
-                keep = keeps_model_split(path, cfg)
-                if self.layout == "tp" and not keep:
-                    spec = tuple(
-                        tuple(a for a in dim_axes(e) if a != "model")
-                        or None for e in spec)
-                specs[path] = spec
-                gather = gather or any(
-                    mesh.axes_size(tuple(a for a in dim_axes(e)
-                                         if not (keep and a == "model"))) > 1
-                    for e in spec)
-
-            def one(path, x):
-                y = coll.shard_leaf(x, specs[path], mesh, path)
-                return x if y is x else y.clone()
-            held = tree_map_with_path(one, params)
-        return held, MeshContext(mesh, self.layout,
-                                 specs if gather else None, serving=True)
+        under): ``place_params`` under the engine's knobs."""
+        return place_params(cfg, params, self.mesh, self.layout, self.fsdp,
+                            self.moe_fsdp)
 
     def _rows(self, batch: int):
         """(DP axes, ranks over them) this batch's rows go over: the layout's
@@ -1021,3 +992,37 @@ class ServeEngine:
         re-admitted; the device table refreshes at the next decode)."""
         state.pool.free(row)
         return state
+
+
+def place_params(cfg: ModelConfig, params, mesh, layout: str = "tp",
+                 fsdp: bool = False, moe_fsdp: str = "auto"):
+    """(the params as a serving rank of ``mesh`` holds them, the context
+    its steps run under).  Each leaf is split as ``sharding.param_spec``
+    places it under ``fsdp``, ``layout`` and ``moe_fsdp``, except that
+    under the 'tp' layout a leaf stays whole over 'model' where its layer
+    computes it whole (``keeps_model_split``).  The context holds the
+    specs where some leaf is split over an axis its layer does not compute
+    on (``materialize`` gathers it per super-block), else none."""
+    specs = {}
+    gather = False
+    with mesh_scope(MeshContext(mesh, layout, serving=True)):
+        for path, x in leaves_with_path(params):
+            spec = shd.param_spec(path, x.shape, mesh, fsdp=fsdp,
+                                  moe_fsdp=moe_fsdp, layout=layout)
+            keep = keeps_model_split(path, cfg)
+            if layout == "tp" and not keep:
+                spec = tuple(
+                    tuple(a for a in dim_axes(e) if a != "model")
+                    or None for e in spec)
+            specs[path] = spec
+            gather = gather or any(
+                mesh.axes_size(tuple(a for a in dim_axes(e)
+                                     if not (keep and a == "model"))) > 1
+                for e in spec)
+
+        def one(path, x):
+            y = coll.shard_leaf(x, specs[path], mesh, path)
+            return x if y is x else y.clone()
+        held = tree_map_with_path(one, params)
+    return held, MeshContext(mesh, layout, specs if gather else None,
+                             serving=True)

@@ -698,6 +698,23 @@ def teardown_probe(mesh: str, device: str = "cpu") -> dict:
     return {"threads": sorted(names)}
 
 
+def collective_counts(mesh: str, device: str = "cpu") -> dict:
+    """One all-reduce, all-gather, reduce-scatter and broadcast of a
+    (4, 8) f32 tensor over every rank, under the step counter
+    (``roofline.torch_cost``): its collective bytes by kind."""
+    from repro_torch.roofline.torch_cost import StepCounter
+    m = mesh_for(mesh, device)
+    group = m.group(m.axis_names)
+    x = torch.ones((4, 8), device=m.device)
+    with StepCounter() as counter:
+        coll.all_reduce(x, group)
+        coll.all_gather(x, group, 0)
+        out = torch.empty((4 // m.world_size, 8), device=m.device)
+        torch.distributed.reduce_scatter_tensor(out, x, group=group)
+        torch.distributed.broadcast(x, 0, group=group)
+    return dict(counter.count.coll)
+
+
 def run(scenarios: List[tuple], device: str = "cpu") -> dict:
     """Run ``(name, function name, kwargs)`` scenarios in order on this
     rank; {name: result}, and under "_seconds" each scenario's wall time
