@@ -385,13 +385,33 @@ result):
    production cell of the dry run (``starcoder2-3b`` x ``train_4k`` on
    16x16) through its CLI in a child process and ``roofline.report``.
    Every bound this script prints is a work function's of
-   ``roofline.torch_cost`` at the card's peaks (``configs.base.HW_*``).
+   ``roofline.torch_cost`` at the card's peaks (``configs.base.HW_*``);
+46. attention on a rank's query heads over one KV head, and the
+   tensor-parallel encoder-decoder (run after phase 44): four ranks that
+   share the card over gloo at 1x4 hold ``starcoder2-3b`` at full width
+   and 2 of its 30 layers (6 of 24 query heads and 1 of 2 KV heads a
+   rank) against ``mesh=None`` in this process: 2 AdamW steps of 4 x 512
+   (losses within 1e-4, launches a rank ``mesh=None``'s), greedy
+   ``generate`` (4 prompts of 64, 8 tokens) against solo ``generate``,
+   and those prompts served continuously into 2 slots over f32 pages
+   (streams against solo ``generate``) and int8 pages (against
+   ``mesh=None``'s), near-tie rule, paged launches a rank
+   ``mesh=None``'s, a rank's pool half of ``mesh=None``'s; at once two
+   ranks at 1x2 hold ``whisper-base`` (6 + 6 layers; 4 of 8 heads, half
+   the MLPs' d_ff a rank): 2 Muon-NSGD steps on batches of 2 x 64 tokens
+   over 1500 frames (losses within 1e-4), greedy decoding of 8 tokens
+   through ``encdec_decode_step`` against ``mesh=None``'s; then flash
+   forward and backward at a 1x4 rank's (4, 512, 6 heads over 1, hd 128)
+   and at whisper's cross-attention on 4 heads (64 queries over 1500
+   frames), and the paged decode at G = 6 over f32 and int8 pages,
+   against their plain versions, flash and paged timed beside their
+   bounds, plain versions and SDPA.
 
-``--only 36,...,45`` runs the card, the build and the named phases of
-36-45 alone (41 and 42 on weights drawn on the card for them), prints
+``--only 36,...,46`` runs the card, the build and the named phases of
+36-46 alone (41 and 42 on weights drawn on the card for them), prints
 their readings and no closing line.
 
-Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-45) starts
+Every main path (5, 6, 10, 11, 15, 19, 22-28, 30, 31, 33-35, 37-46) starts
 with every kernel's launch counter at 0 and checks every counter after
 it, the kernels it must not launch included.  Each phase prints its
 seconds.
@@ -4421,7 +4441,6 @@ def cross_attention_lane(fa_ops) -> dict:
     non-causal call (which takes S_k != S_q itself) beside the card's
     bound: f32 on this route's three TF32 passes, bf16 at the bf16 peak.
     Returns {label: {dtype: {forward, backward}}}."""
-    from repro_torch.roofline import torch_cost
     t0 = time.perf_counter()
     out = {}
     for n, (label, B, Sq, Sk, H, KV, hd) in enumerate(CROSS_FA):
@@ -4465,43 +4484,23 @@ def cross_attention_lane(fa_ops) -> dict:
                       f"grad shapes {shapes}, repeats equal "
                       f"{torch.equal(got, again)}")
             del gk, gk2, gw, rooms, mags, want, again, room, got
-            ms = _time_device_ms(lambda: fa_ops.flash_attention(
-                q, k, v, force="kernel", **kw), 10)
-            plain_ms = _time_device_ms(lambda: fa_ops.flash_attention(
-                q, k, v, force="ref", **kw), 2)
-            lib = _sdpa_best(q, k, v, do, causal=False)
-            o, lse = fa_ops.flash_attention_cuda(q, k, v, with_lse=True, **kw)
-            bwd_ms = _time_device_ms(lambda: fa_ops.flash_attention_bwd_cuda(
-                q, k, v, o, lse, do, **kw), 10)
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            ref_out = fa_ops.flash_attention(*leaves, force="ref", **kw)
-            bwd_plain = _time_device_ms(lambda: torch.autograd.grad(
-                ref_out, leaves, do, retain_graph=True), 2)
-            del ref_out, leaves, o, lse
-            dims = dict(causal=False, itemsize=q.element_size())
-            fwd = dict(ms=ms, plain_ms=plain_ms, library_ms=lib["fwd"][0],
-                       library_backend=lib["fwd"][1],
-                       **torch_cost.flash_attention(
-                           B, Sq, Sk, H, KV, hd, **dims).bound(),
-                       max_abs_err=err, err_over_limit=ratio)
-            bwd = dict(ms=bwd_ms, plain_ms=bwd_plain,
-                       library_ms=lib["bwd"][0],
-                       library_backend=lib["bwd"][1],
-                       **torch_cost.flash_attention_bwd(
-                           B, Sq, Sk, H, KV, hd, **dims).bound(),
-                       max_abs_err=max(berrs), err_over_limit=max(bratios))
+            t = _flash_times(fa_ops, q, k, v, do, kw)
+            fwd = dict(t["forward"], max_abs_err=err, err_over_limit=ratio)
+            bwd = dict(t["backward"], max_abs_err=max(berrs),
+                       err_over_limit=max(bratios))
             name = str(dtype)[6:]
             out[label][name] = dict(forward=fwd, backward=bwd)
             print(f"  {card_line()}: flash at {label} (B={B} Sq={Sq} Sk={Sk} "
                   f"H={H}/{KV} hd={hd}, non-causal) {name}: forward err "
-                  f"{err:.2e} = {ratio:.3f} of its limit, kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, sdpa {lib['fwd'][1]} "
-                  f"{lib['fwd'][0]:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
-                  f"({fwd['bound_by']}); backward dq/dk/dv at "
-                  f"{[round(r, 3) for r in bratios]} of their limits, kernel "
-                  f"{bwd_ms:.4f} ms, plain (autograd) {bwd_plain:.4f} ms, "
-                  f"sdpa {lib['bwd'][1]} {lib['bwd'][0]:.4f} ms, bound "
-                  f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+                  f"{err:.2e} = {ratio:.3f} of its limit, kernel "
+                  f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, sdpa "
+                  f"{fwd['library_backend']} {fwd['library_ms']:.4f} ms, "
+                  f"bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); "
+                  f"backward dq/dk/dv at {[round(r, 3) for r in bratios]} of "
+                  f"their limits, kernel {bwd['ms']:.4f} ms, plain (autograd) "
+                  f"{bwd['plain_ms']:.4f} ms, sdpa {bwd['library_backend']} "
+                  f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} "
+                  f"ms ({bwd['bound_by']})")
             del q, k, v, do
             torch.cuda.empty_cache()
     # Causal attention at S_k != S_q has no caller: the wrapper refuses it.
@@ -6700,6 +6699,388 @@ def mesh_layers_phase(cfglib, registry, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 46: attention on a rank's query heads over one KV head, and the
+# tensor-parallel encoder-decoder (ROADMAP A21's remainder)
+# ---------------------------------------------------------------------------
+
+# (a) starcoder2-3b (24 query heads over 2 KV heads) at full width and
+# MESH46_DEPTH of its 30 layers (reduced for time), four ranks sharing the
+# card over gloo at 1x4: 6 query heads and 1 of the 2 KV heads a rank.
+# AdamW steps (steps, batch, seq); greedy generate of (B, P, G); the
+# continuous paged runs serve the same B prompts, G tokens each, into
+# MESH46_SLOTS slots over pages of MESH46_BLOCK.
+MESH46_ARCH, MESH46_DEPTH = "starcoder2-3b", 2
+MESH46_TRAIN = (2, 4, 512)
+MESH46_PROMPTS = (4, 64, 8)
+MESH46_SLOTS, MESH46_BLOCK = 2, 16
+MESH46_KV = ("float32", "int8")
+# (b) whisper-base at full width (6 + 6 layers) at 1x2: Muon-NSGD steps of
+# (steps, B, S) over 1500 frames, then G greedy tokens.
+MESH46_WHISPER = (2, 2, 64, 8)
+# The paged decode at a 1x4 rank's shape: starcoder2-3b's timing shape
+# (G12_SHAPE) on 6 query heads over 1 KV head.
+G6_SHAPE = dict(G12_SHAPE, H=6, KV=1)
+
+
+def _mesh46_tcfg():
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    steps, batch, seq = MESH46_TRAIN
+    return TrainConfig(total_steps=steps, seq_len=seq, global_batch=batch,
+                       source_layers=MESH46_DEPTH,
+                       optimizer=OptimizerConfig(name="adamw",
+                                                 learning_rate=1e-3),
+                       eval_every=10 ** 9, checkpoint_every=10 ** 9,
+                       log_every=1, seed=0)
+
+
+def _flash_times(fa_ops, q, k, v, do, kw) -> dict:
+    """Device times of the flash kernel's forward and backward on (q, k,
+    v) under ``kw`` (causal, window, logit_softcap), of their plain
+    versions and of SDPA's best call (``_sdpa_best``), beside the card's
+    bound for the same work (``roofline.torch_cost``):
+    {forward: {...}, backward: {...}}."""
+    from repro_torch.roofline import torch_cost
+    ms = _time_device_ms(lambda: fa_ops.flash_attention(
+        q, k, v, force="kernel", **kw), 10)
+    plain_ms = _time_device_ms(lambda: fa_ops.flash_attention(
+        q, k, v, force="ref", **kw), 2)
+    lib = _sdpa_best(q, k, v, do, causal=kw["causal"])
+    o, lse = fa_ops.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    bwd_ms = _time_device_ms(lambda: fa_ops.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, **kw), 10)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref_out = fa_ops.flash_attention(*leaves, force="ref", **kw)
+    bwd_plain = _time_device_ms(lambda: torch.autograd.grad(
+        ref_out, leaves, do, retain_graph=True), 2)
+    del ref_out, leaves, o, lse
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dims = dict(causal=kw["causal"], itemsize=q.element_size())
+    return {"forward": dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib["fwd"][0],
+                library_backend=lib["fwd"][1], **torch_cost.flash_attention(
+                    B, Sq, Sk, H, KV, hd, **dims).bound()),
+            "backward": dict(
+                ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib["bwd"][0],
+                library_backend=lib["bwd"][1],
+                **torch_cost.flash_attention_bwd(
+                    B, Sq, Sk, H, KV, hd, **dims).bound())}
+
+
+def _whisper46_batches(cfg) -> list:
+    steps, B, S, _ = MESH46_WHISPER
+    rng = np.random.default_rng(46)
+    out = []
+    for _ in range(steps):
+        toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+        out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                    "frames": rng.standard_normal(
+                        (B, cfg.encoder_seq_len, cfg.d_model),
+                        dtype=np.float32)})
+    return out
+
+
+def mesh46_lanes(fa_ops, pa_ops, cfg, wcfg, card) -> dict:
+    """Each kernel of phase 46's paths at its rank-local shape against its
+    plain version on the same inputs: flash forward and backward on (a)'s
+    training shape at a 1x4 rank (6 query heads over 1 KV head, causal),
+    the paged decode at G = 6 over f32 and int8 pages, the cross-attention
+    of (b) at a 1x2 rank (4 of 8 heads, 64 queries over 1500 frames,
+    non-causal); then the flash and paged kernels timed beside their
+    bounds, plain versions and SDPA.  The launches count nowhere: the
+    caller read its main paths' counters before."""
+    import mesh_runs
+    t0 = time.perf_counter()
+    _, B, S = MESH46_TRAIN
+    H, KV = cfg.num_heads // 4, 1
+    fl = mesh_runs.flash_local((B, S, H, cfg.head_dim), seed=46,
+                               device="cuda", kv_heads=KV)
+    steps, wb, ws, _ = MESH46_WHISPER
+    cross = mesh_runs.flash_local(
+        (wb, ws, wcfg.num_heads // 2, wcfg.head_dim), seed=47, device="cuda",
+        s_k=wcfg.encoder_seq_len, causal=False)
+    s = G6_SHAPE
+    paged = {kv: mesh_runs.paged_local(
+        s["B"], s["H"], s["KV"], s["hd"], s["bs"], s["NB"], kv_dtype=kv,
+        seed=46, device="cuda")["max_abs_err"] for kv in MESH46_KV}
+    errs = {"flash_attention": fl["out"],
+            "flash_attention_bwd": max(v for k, v in fl.items()
+                                       if k != "out"),
+            "cross_flash_attention": cross["out"],
+            "cross_flash_attention_bwd": max(v for k, v in cross.items()
+                                             if k != "out"),
+            **{f"paged_attention_{kv}": e for kv, e in paged.items()}}
+    limits = {k: (PAGED_TP_TOL if k.startswith("paged") else
+                  TOL[torch.float32]) for k in errs}
+    for name, err in errs.items():
+        ok = err <= limits[name]
+        print(f"  (c) {name} at the rank-local shape vs plain: {err:.3g} "
+              f"(limit {limits[name]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"phase 46: {name} at its rank-local shape: {err}")
+    g = torch.Generator(device="cuda").manual_seed(460)
+    q, do = (torch.randn((B, S, H, cfg.head_dim), generator=g,
+                         device="cuda") for _ in range(2))
+    k, v = (torch.randn((B, S, KV, cfg.head_dim), generator=g,
+                        device="cuda") for _ in range(2))
+    times = _flash_times(fa_ops, q, k, v, do, dict(causal=True, window=0,
+                                                   logit_softcap=0.0))
+    del q, k, v, do
+    for d, r in times.items():
+        print(f"  (c) {card}: flash {d} at (B={B}, S={S}, {H} query heads "
+              f"over {KV} KV head, hd {cfg.head_dim}, causal, f32): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+              f"{r['library_backend']} {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    times["paged"] = paged_times(pa_ops, s=G6_SHAPE)
+    torch.cuda.empty_cache()
+    print(f"  (c) local-shape lanes {time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "times": times}
+
+
+def mesh_heads_phase(cfglib, registry, card) -> dict:
+    """Phase 46; returns its readings."""
+    import concurrent.futures
+    from repro_torch.launch import mesh as mesh_lib
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import mesh_runs
+    t0 = time.perf_counter()
+    cfg = cfglib.get_config(MESH46_ARCH).with_depth(MESH46_DEPTH)
+    wcfg = cfglib.get_config(WHISPER)
+    print(f"phase 46: {cfg.name} at full width and {MESH46_DEPTH} layers "
+          f"on 1x4 ({cfg.num_heads // 4} query heads over 1 of "
+          f"{cfg.num_kv_heads} KV heads a rank) and {wcfg.name} "
+          f"({wcfg.num_encoder_layers} + {wcfg.num_layers} layers) on 1x2, "
+          f"ranks sharing the card over gloo [{card}]")
+    B, P, G = MESH46_PROMPTS
+    prompts = np.random.default_rng(46).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    reqs = [dict(prompt=p, max_new_tokens=G) for p in prompts]
+    tcfg = _mesh46_tcfg()
+    wbatches = _whisper46_batches(wcfg)
+    frames = wbatches[0]["frames"]
+    WG = MESH46_WHISPER[3]
+
+    def cs_kw(kv):
+        return dict(max_len=P + G, max_batch=MESH46_SLOTS, count=True,
+                    card_seed=0, engine_kw=dict(
+                        paged=True, block_size=MESH46_BLOCK,
+                        **({} if kv == "float32" else {"kv_dtype": kv})))
+
+    a = [("train", "train", dict(cfg=cfg, tcfg=tcfg, mesh="1x4",
+                                 count=True, card_seed=0)),
+         ("serve", "serve", dict(cfg=cfg, params_np=None, prompts=prompts,
+                                 num_tokens=G, mesh="1x4", max_len=P + G,
+                                 count=True, card_seed=0))]
+    a += [(f"cserve_{kv}", "cserve", dict(cfg=cfg, params_np=None,
+                                          requests=reqs, mesh="1x4",
+                                          **cs_kw(kv)))
+          for kv in MESH46_KV]
+    b = [("train", "encdec_train", dict(cfg=wcfg, params_np=None,
+                                        batches=wbatches, mesh="1x2",
+                                        card_seed=0, count=True)),
+         ("decode", "encdec_decode", dict(cfg=wcfg, params_np=None,
+                                          frames=frames, num_tokens=WG,
+                                          mesh="1x2", card_seed=0,
+                                          count=True))]
+    # The two spawns run at once; mesh=None's runs in this process
+    # meanwhile, one at a time.
+    t1 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        fa = pool.submit(mesh_lib.spawn, mesh_runs.run, 4, (a, "cuda"),
+                         device="cuda", threads=0, timeout_s=600)
+        fb = pool.submit(mesh_lib.spawn, mesh_runs.run, 2, (b, "cuda"),
+                         device="cuda", threads=0, timeout_s=600)
+        none = {"train": mesh_runs.train(cfg, tcfg, None, device="cuda",
+                                         count=True, card_seed=0),
+                "serve": mesh_runs.serve(cfg, None, prompts, G, None,
+                                         device="cuda", max_len=P + G,
+                                         count=True, card_seed=0)}
+        for kv in MESH46_KV:
+            none[f"cserve_{kv}"] = mesh_runs.cserve(
+                cfg, None, reqs, None, device="cuda", **cs_kw(kv))
+        gc.collect()
+        torch.cuda.empty_cache()
+        wnone = {"train": mesh_runs.encdec_train(
+                     wcfg, None, wbatches, None, device="cuda",
+                     card_seed=0, count=True),
+                 "decode": mesh_runs.encdec_decode(
+                     wcfg, None, frames, WG, None, device="cuda",
+                     card_seed=0, count=True)}
+        none_s = time.perf_counter() - t1
+        ra, rb = fa.result(), fb.result()
+    spawn_s = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"spawn_s": spawn_s, "mesh_none_s": none_s,
+           "scenario_s": {"1x4": ra[0]["_seconds"], "1x2": rb[0]["_seconds"]}}
+
+    # (a) training: losses, launches
+    steps = MESH46_TRAIN[0]
+    ref = none["train"]
+    got = [r["train"] for r in ra]
+    want = {k: 0 for k in COUNTERS}
+    want.update(flash_attention=MESH46_DEPTH * steps,
+                flash_attention_bwd=MESH46_DEPTH * steps)
+    for who, counts in [("mesh=None", ref["counts"])] + [
+            (f"rank {r}", g["counts"]) for r, g in enumerate(got)]:
+        if counts != want:
+            _fail(f"phase 46 (a) training: {who} launches {counts}, "
+                  f"expected {want}")
+    for r, g in enumerate(got):
+        if g["history"]["loss"] != got[0]["history"]["loss"]:
+            _fail(f"phase 46 (a): rank {r}'s losses differ from rank 0's")
+    err = float(np.max(np.abs(np.array(got[0]["history"]["loss"])
+                              - np.array(ref["history"]["loss"]))))
+    if not (err <= MESH_LOSS_TOL and all(
+            math.isfinite(x) for x in got[0]["history"]["loss"])):
+        _fail(f"phase 46 (a): 1x4 losses {got[0]['history']['loss']} off "
+              f"mesh=None's {ref['history']['loss']} by {err}")
+    out["train"] = {"losses": got[0]["history"]["loss"],
+                    "losses_mesh_none": ref["history"]["loss"],
+                    "loss_max_abs_err": err,
+                    "launches_per_rank": [g["counts"] for g in got],
+                    "peak_gib_per_rank": [g["peak_bytes"] / 2 ** 30
+                                          for g in got],
+                    "peak_gib_mesh_none": ref["peak_bytes"] / 2 ** 30}
+    print(f"  (a) {cfg.name} training, {steps} AdamW steps of "
+          f"{MESH46_TRAIN[1]} x {MESH46_TRAIN[2]}: losses "
+          f"{out['train']['losses']} against mesh=None's "
+          f"{out['train']['losses_mesh_none']} (max diff {err:.3g}, limit "
+          f"{MESH_LOSS_TOL}); launches per rank {got[0]['counts']}, as "
+          f"mesh=None's; peak per rank "
+          f"{[round(p, 2) for p in out['train']['peak_gib_per_rank']]} GiB "
+          f"against mesh=None's {out['train']['peak_gib_mesh_none']:.2f} "
+          f"[{card}]")
+
+    # (a) greedy generate against solo generate
+    ref = none["serve"]
+    got = [r["serve"] for r in ra]
+    for r, g in enumerate(got):
+        if not np.array_equal(g["tokens"], got[0]["tokens"]):
+            _fail(f"phase 46 (a) generate: rank {r}'s tokens differ")
+        if g["counts"] != ref["counts"] or ref["counts"][
+                "flash_attention"] != MESH46_DEPTH:
+            _fail(f"phase 46 (a) generate: rank {r} launches {g['counts']}"
+                  f", solo's {ref['counts']}")
+    equal = _ties_only("phase 46 (a) 1x4 generate", got[0]["tokens"],
+                       ref["tokens"], ref["logits"])
+    out["serve"] = {"rows_equal": equal,
+                    "launches_per_rank": [g["counts"] for g in got]}
+    print(f"  (a) greedy generate at 1x4 ({B} prompts of {P}, {G} tokens): "
+          f"{equal} of {B} rows equal solo generate's (the rest at "
+          f"near-ties); flash launches per rank "
+          f"{[g['counts']['flash_attention'] for g in got]}, as solo's")
+
+    # (a) the continuous paged runs: f32 streams against solo generate,
+    # int8 ones against mesh=None's int8 run; launches and pool bytes
+    params = mesh_runs.card_params(cfg, 0, "cuda")
+    solo = [types.SimpleNamespace(
+        uid=i, prompt=prompts[i], new_tokens=np.asarray(
+            none["serve"]["tokens"][i, P:]), finish_reason="limit",
+        completed=True) for i in range(B)]
+    for kv in MESH46_KV:
+        ref = none[f"cserve_{kv}"]
+        got = [r[f"cserve_{kv}"] for r in ra]
+        for r, g in enumerate(got):
+            if [x["tokens"].tolist() for x in g["results"]] != \
+                    [x["tokens"].tolist() for x in got[0]["results"]]:
+                _fail(f"phase 46 (a) {kv}: rank {r}'s streams differ")
+            if g["counts"] != ref["counts"] or not g["counts"][
+                    "paged_attention"]:
+                _fail(f"phase 46 (a) {kv}: rank {r} launches "
+                      f"{g['counts']}, mesh=None's {ref['counts']}")
+            if 2 * g["pool_bytes"] != ref["pool_bytes"]:
+                _fail(f"phase 46 (a) {kv}: rank {r}'s pool holds "
+                      f"{g['pool_bytes']} bytes, mesh=None's "
+                      f"{ref['pool_bytes']} (1 of 2 KV heads: half)")
+        if any(x["finish_reason"] != "limit" for x in got[0]["results"]):
+            _fail(f"phase 46 (a) {kv}: not every request ran to its budget")
+        mine = _as_results(reqs, got[0])
+        want = solo if kv == "float32" else _as_results(reqs, ref)
+        equal = streams_vs(f"phase 46 (a) {kv} 1x4 continuous", cfg,
+                           registry, mine, want, params)
+        out[f"cserve_{kv}"] = {
+            "streams_equal": equal,
+            "launches_per_rank": [g["counts"] for g in got],
+            "pool_bytes_per_rank": [g["pool_bytes"] for g in got],
+            "pool_bytes_mesh_none": ref["pool_bytes"],
+            "tokens_per_s": got[0]["summary"]["tokens_per_s"],
+            "tokens_per_s_mesh_none": ref["summary"]["tokens_per_s"]}
+        print(f"  (a) continuous paged serving at 1x4 over {kv} pages "
+              f"({B} requests into {MESH46_SLOTS} slots): {equal} of {B} "
+              f"streams equal {'solo generate' if kv == 'float32' else 'mesh=None'}"
+              f"'s; paged launches per rank "
+              f"{[g['counts']['paged_attention'] for g in got]} as "
+              f"mesh=None's {ref['counts']['paged_attention']}; a rank's "
+              f"pool {got[0]['pool_bytes']} bytes, mesh=None's "
+              f"{ref['pool_bytes']}; "
+              f"{out[f'cserve_{kv}']['tokens_per_s']:.1f} tokens/s against "
+              f"{out[f'cserve_{kv}']['tokens_per_s_mesh_none']:.1f} [{card}]")
+    del params
+
+    # (b) whisper-base: losses, decode
+    ref = wnone["train"]
+    got = [r["train"] for r in rb]
+    for r, g in enumerate(got):
+        if g["losses"] != got[0]["losses"]:
+            _fail(f"phase 46 (b): rank {r}'s losses differ from rank 0's")
+        if g["counts"]["flash_attention"] != ref["counts"]["flash_attention"] \
+                or g["counts"]["flash_attention_bwd"] != \
+                ref["counts"]["flash_attention_bwd"]:
+            _fail(f"phase 46 (b): rank {r} launches {g['counts']}, "
+                  f"mesh=None's {ref['counts']}")
+    per_step = wcfg.num_encoder_layers + 2 * wcfg.num_layers
+    if ref["counts"]["flash_attention"] != per_step * len(wbatches):
+        _fail(f"phase 46 (b): mesh=None's launches {ref['counts']}")
+    err = float(np.max(np.abs(np.array(got[0]["losses"])
+                              - np.array(ref["losses"]))))
+    if not (err <= MESH_LOSS_TOL and all(math.isfinite(x)
+                                         for x in got[0]["losses"])):
+        _fail(f"phase 46 (b): 1x2 losses {got[0]['losses']} off mesh=None's "
+              f"{ref['losses']} by {err}")
+    out["whisper_train"] = {"losses": got[0]["losses"],
+                            "losses_mesh_none": ref["losses"],
+                            "loss_max_abs_err": err,
+                            "launches_per_rank": [g["counts"] for g in got],
+                            "step_ms": [1e3 * x for x in got[0]["step_s"]],
+                            "step_ms_mesh_none": [1e3 * x
+                                                  for x in ref["step_s"]]}
+    print(f"  (b) {wcfg.name} training, {len(wbatches)} Muon-NSGD steps of "
+          f"{MESH46_WHISPER[1]} x {MESH46_WHISPER[2]} over "
+          f"{wcfg.encoder_seq_len} frames: losses {got[0]['losses']} "
+          f"against mesh=None's {ref['losses']} (max diff {err:.3g}); flash "
+          f"launches per rank {[g['counts']['flash_attention'] for g in got]}"
+          f", mesh=None's {ref['counts']['flash_attention']} [{card}]")
+    ref = wnone["decode"]
+    got = [r["decode"] for r in rb]
+    for r, g in enumerate(got):
+        if not np.array_equal(g["tokens"], got[0]["tokens"]):
+            _fail(f"phase 46 (b) decode: rank {r}'s tokens differ")
+        if g["counts"] != ref["counts"]:
+            _fail(f"phase 46 (b) decode: rank {r} launches {g['counts']}, "
+                  f"mesh=None's {ref['counts']}")
+        heads = {s[-2] for s in g["cache_shapes"].values()}
+        if heads != {wcfg.num_heads // 2}:
+            _fail(f"phase 46 (b) decode: rank {r}'s caches {g['cache_shapes']}")
+    equal = _ties_only("phase 46 (b) 1x2 whisper decode", got[0]["tokens"],
+                       ref["tokens"], ref["logits"])
+    out["whisper_decode"] = {"rows_equal": equal,
+                             "launches_per_rank": [g["counts"] for g in got]}
+    print(f"  (b) greedy decode at 1x2 ({len(frames)} rows, {WG} tokens "
+          f"through encdec_decode_step, caches on {wcfg.num_heads // 2} of "
+          f"{wcfg.num_heads} heads): {equal} of "
+          f"{len(frames)} rows equal mesh=None's (the rest at near-ties)")
+    out["lanes"] = mesh46_lanes(OPS["fa"], OPS["pa"], cfg, wcfg, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 46: {out['seconds']:.1f} s (spawns {spawn_s:.1f} s, "
+          f"mesh=None {none_s:.1f} s; rank 0's scenarios "
+          f"{ {k: {n: round(x, 1) for n, x in v.items()} for k, v in out['scenario_s'].items()} }) "
+          f"[{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 45: the roofline and the dry run: gpt2-12l's training step counted
 # on meta and on the card, then timed; one production cell of the dry run
 # ---------------------------------------------------------------------------
@@ -6904,7 +7285,7 @@ def roofline_phase(cfglib, registry, card) -> dict:
 
 def run_only(only, cfglib, registry, fa_ops, pa_ops, train, serve) -> int:
     """``--only``: after the card and the build, the named phases of
-    36-45 alone, each as the full run makes it (41 and 42 on weights drawn
+    36-46 alone, each as the full run makes it (41 and 42 on weights drawn
     on the card for them); prints their readings as JSON and no closing
     line."""
     got = {}
@@ -6946,6 +7327,8 @@ def run_only(only, cfglib, registry, fa_ops, pa_ops, train, serve) -> int:
         got["43"] = mesh_phase(cfglib, card_line())
     if 44 in only:
         got["44"] = mesh_layers_phase(cfglib, registry, card_line())
+    if 46 in only:
+        got["46"] = mesh_heads_phase(cfglib, registry, card_line())
     print(json.dumps(got))
     return 0
 
@@ -6954,12 +7337,12 @@ def main() -> int:
     only = None
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = {int(x) for x in sys.argv[2].split(",")}
-        if not only <= set(range(36, 46)):
-            print("chip_smoke: --only takes phases among 36-45",
+        if not only <= set(range(36, 47)):
+            print("chip_smoke: --only takes phases among 36-46",
                   file=sys.stderr)
             return 2
     elif sys.argv[1:]:
-        print("usage: chip_smoke.py [--only 36,37,...,45]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only 36,37,...,46]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -7368,6 +7751,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    _mark("46")
+    # 46. attention on a rank's query heads over one KV head (starcoder2-3b
+    # at 1x4) and the tensor-parallel encoder-decoder (whisper-base at
+    # 1x2) against mesh=None, each kernel at its rank-local shape against
+    # its plain version
+    mesh46 = mesh_heads_phase(cfglib, registry, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     def mesh_launches(kernel):
         return {spec: [c[kernel] for c in mesh[spec]["launches_per_rank"]]
                 for spec in ("2x1", "1x2")}
@@ -7404,6 +7796,21 @@ def main() -> int:
              "deepseekv3_0_3b_training": mesh44_launches("flash_attention",
                                                          "dsv3")},
          "mesh_44_local_shape_err": mesh44["lanes"]["flash_attention"],
+         "mesh_46_launches_per_rank": {
+             "starcoder2_3b_training_1x4": [
+                 c["flash_attention"] for c in
+                 mesh46["train"]["launches_per_rank"]],
+             "starcoder2_3b_generate_1x4": [
+                 c["flash_attention"] for c in
+                 mesh46["serve"]["launches_per_rank"]],
+             "whisper_base_training_1x2": [
+                 c["flash_attention"] for c in
+                 mesh46["whisper_train"]["launches_per_rank"]]},
+         "mesh_46_local_shape_err": {
+             "6_heads_over_1": mesh46["lanes"]["errs"]["flash_attention"],
+             "whisper_cross_4_heads":
+                 mesh46["lanes"]["errs"]["cross_flash_attention"]},
+         "mesh_46_local_shape": mesh46["lanes"]["times"]["forward"],
          "jamba_contiguous_launches":
              jamba_cont["contiguous"]["flash_attention"],
          "max_abs_err": main_err, **t,
@@ -7444,6 +7851,17 @@ def main() -> int:
              for kv in ("float32", "int8")},
          "mesh_43_fault_knob_launches_per_rank": fault_launches(
              "paged_attention"),
+         "mesh_46_launches_per_rank": {
+             kv: [c["paged_attention"] for c in
+                  mesh46[f"cserve_{kv}"]["launches_per_rank"]]
+             for kv in MESH46_KV},
+         "mesh_46_local_shape_err": {
+             kv: mesh46["lanes"]["errs"][f"paged_attention_{kv}"]
+             for kv in MESH46_KV},
+         "mesh_46_local_shape": dict(
+             shape="starcoder2-3b decode at a 1x4 rank: B=8 H=6 KV=1 "
+                   "hd=128 bs=16 cursors 575, f32 pages, L2 flushed",
+             **mesh46["lanes"]["times"]["paged"]),
          "jamba_v01_52b": {run: jamba_cont[run]["paged_attention"]
                            for run in ("paged f32", "paged int8")},
          "registers_spills": [list(r) for r in pa_regs],
@@ -7468,6 +7886,18 @@ def main() -> int:
              "deepseekv3_0_3b_training": mesh44_launches(
                  "flash_attention_bwd", "dsv3")},
          "mesh_44_local_shape_err": mesh44["lanes"]["flash_attention_bwd"],
+         "mesh_46_launches_per_rank": {
+             "starcoder2_3b_training_1x4": [
+                 c["flash_attention_bwd"] for c in
+                 mesh46["train"]["launches_per_rank"]],
+             "whisper_base_training_1x2": [
+                 c["flash_attention_bwd"] for c in
+                 mesh46["whisper_train"]["launches_per_rank"]]},
+         "mesh_46_local_shape_err": {
+             "6_heads_over_1": mesh46["lanes"]["errs"]["flash_attention_bwd"],
+             "whisper_cross_4_heads":
+                 mesh46["lanes"]["errs"]["cross_flash_attention_bwd"]},
+         "mesh_46_local_shape": mesh46["lanes"]["times"]["backward"],
          "cross_attention": {lbl: {d: r["backward"] for d, r in v.items()}
                              for lbl, v in cross.items()},
          "new_archs_launches": {

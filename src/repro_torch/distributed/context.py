@@ -17,7 +17,9 @@ Under the 'tp' layout a layer computes on its rank's share of 'model'
 where the reference's rule splits its leaves there and the dim divides
 (``keeps_model_split``):
 
-  * ``attn_tp``: MHA/GQA on whole query and KV heads;
+  * ``attn_tp``: MHA/GQA on H/model whole query heads, over KV/model KV
+    heads where they divide 'model', or over the one KV head those query
+    heads read where 'model' is a multiple of KV (``kv_shared``);
   * ``mla_tp``: MLA on H/model query heads and KV/model heads (``wq`` and
     ``wkv_b`` column shards, ``wo`` its row shard);
   * ``mlp_tp``: the dense feed-forward and RWKV6's channel mix (``cm_k``,
@@ -30,12 +32,20 @@ where the reference's rule splits its leaves there and the dim divides
     ``w_v``, ``w_g``, ``w_b``, ``w_o``);
   * ``vocab_tp``: the embedding, head and loss on vocab rows.
 
-Four small leaves the rule splits over 'model' along a dim that is not
-their layer's compute split are gathered whole and used whole or sliced
-in the layer: the MoE ``router`` (D x E: every rank routes every token),
+The encoder-decoder takes the same rules: its encoder's ``attn``, its
+decoder's ``self_attn`` and ``cross_attn``, both stacks' ``mlp`` and the
+tied embedding.
+
+Leaves the rule splits over 'model' along a dim that is not their
+layer's compute split are gathered whole and used whole or sliced in the
+layer: the MoE ``router`` (D x E: every rank routes every token),
 Mamba's ``x_proj`` (its columns are dt|B|C; a rank takes its channels'
-rows), RWKV6's ``w_a`` (the decay LoRA's rank dim) and MLA's ``wkv_a``
-(the latent has no head axis).  Two leaves are held packed
+rows), RWKV6's ``w_a`` (the decay LoRA's rank dim), MLA's ``wkv_a``
+(the latent has no head axis), and under ``kv_shared`` attention's
+``wk`` and ``wv`` (the rank takes its KV head's columns).  Each passes
+through ``collectives.copy_to_model`` before its slice, so the gradient
+every rank leaves on its part is summed over 'model' and the held shard
+keeps the whole of it.  Two leaves are held packed
 (``sharding.held_parts``): Mamba's ``in_proj`` and MLA's ``wkv_b``, so a
 rank's shard holds both halves of its channels or heads.
 
@@ -102,10 +112,9 @@ def dp_axes(mesh, layout: str = "tp") -> Tuple[str, ...]:
 
 def model_group(cfg):
     """The 'model' group tensor-parallel layers reduce over (None: no
-    tensor parallelism: no mesh, the fsdp layout, one 'model' rank, or
-    the encoder-decoder, which computes every leaf whole)."""
+    tensor parallelism: no mesh, the fsdp layout or one 'model' rank)."""
     ctx = active_mesh()
-    if ctx is None or ctx.layout != "tp" or cfg.is_encoder_decoder:
+    if ctx is None or ctx.layout != "tp":
         return None
     return ctx.mesh.group(("model",))
 
@@ -120,12 +129,27 @@ def tp_rank() -> int:
 
 
 def attn_tp(cfg) -> bool:
-    """MHA/GQA attention on the rank's heads: whole query heads and whole
-    KV heads on every 'model' rank (heads that do not divide compute
-    whole; MLA is ``mla_tp``'s)."""
-    m = tp_size(cfg)
+    """MHA/GQA attention on the rank's H/model query heads: over its
+    KV/model KV heads where KV divides 'model', or over the one KV head
+    they read where 'model' is a multiple of KV (``kv_shared``).  Query
+    heads that do not divide 'model' compute whole; MLA is
+    ``mla_tp``'s."""
+    m, kv = tp_size(cfg), cfg.num_kv_heads
     return (m > 1 and cfg.attention != "none" and not cfg.mla_kv_lora_rank
-            and cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0)
+            and cfg.num_heads % m == 0 and (kv % m == 0 or m % kv == 0))
+
+
+def kv_shared(cfg) -> bool:
+    """``attn_tp`` with fewer KV heads than 'model' ranks: m/KV ranks
+    share each KV head.  Their ``wk``/``wv`` are gathered whole and each
+    rank takes the columns of ``kv_head``."""
+    return attn_tp(cfg) and cfg.num_kv_heads < tp_size(cfg)
+
+
+def kv_head(cfg) -> int:
+    """Under ``kv_shared``, the KV head the rank's query heads
+    [r H/m, (r+1) H/m) read: r // (m/KV)."""
+    return tp_rank() // (tp_size(cfg) // cfg.num_kv_heads)
 
 
 def mlp_tp(cfg) -> bool:
@@ -180,14 +204,18 @@ def mla_tp(cfg) -> bool:
 
 def tp_local_cfg(cfg):
     """``cfg`` with a rank's share of the heads (attention under
-    ``attn_tp``): the shapes its local projections and cache have."""
+    ``attn_tp``; one KV head under ``kv_shared``): the shapes its local
+    projections and cache have."""
     m = tp_size(cfg)
     return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
-                               num_kv_heads=cfg.num_kv_heads // m,
+                               num_kv_heads=max(cfg.num_kv_heads // m, 1),
                                head_dim=cfg.head_dim)
 
 
 _FFN = ("w_gate", "w_up", "w_down")
+# The attention dicts: a decoder-only layer's, the encoder's, and the
+# encoder-decoder's decoder self- and cross-attention.
+_ATTN = ("attn", "self_attn", "cross_attn")
 
 
 def keeps_model_split(path: Tuple[str, ...], cfg) -> bool:
@@ -198,7 +226,10 @@ def keeps_model_split(path: Tuple[str, ...], cfg) -> bool:
     last = path[-1]
     if len(path) == 1 and last in ("embed", "lm_head"):
         return vocab_tp(cfg)
-    if "attn" in path and last in ("wq", "wk", "wv", "wo"):
+    in_attn = any(a in path for a in _ATTN)
+    if in_attn and last in ("wk", "wv") and kv_shared(cfg):
+        return False
+    if in_attn and last in ("wq", "wk", "wv", "wo"):
         return attn_tp(cfg) or mla_tp(cfg)
     if "attn" in path and last == "wkv_b":
         return mla_tp(cfg)

@@ -16,9 +16,10 @@ keeps the f32 scales in scale pages beside the pages.
 On a mesh (``distributed.context.attn_tp``, and ``mla_tp`` for MLA)
 every attention path, prefill, decode, the paged decode, a prefill chunk
 and the verify, runs on the rank's heads, and the caches it writes, pool
-pages and rings, hold the rank's KV heads; an MLA layer's latent caches
-have no head axis and stay whole, each rank up-projecting its own heads
-from them.
+pages and rings, hold the rank's KV heads: KV/model of them, or the one
+its query heads read where 'model' is a multiple of KV
+(``kv_shared``); an MLA layer's latent caches have no head axis and
+stay whole, each rank up-projecting its own heads from them.
 
 Sliding-window layers (``window > 0``, gemma2/gemma3's local layers) keep
 a per-row ring of ``min(max_len, window)`` slots instead: position t lives
@@ -59,7 +60,8 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
-from repro_torch.distributed.context import (attn_tp, mla_tp, model_group,
+from repro_torch.distributed.context import (attn_tp, kv_head, kv_shared,
+                                            mla_tp, model_group,
                                             tp_local_cfg)
 from repro_torch.models.common import (apply_mrope, apply_norm, apply_rope,
                                        dense_init, norm_init)
@@ -96,33 +98,56 @@ def attn_init(generator, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
     return p
 
 
-def _tensor_parallel(fn):
+def head_params(p, cfg: ModelConfig):
+    """(p, cfg) as a layer on the rank's heads uses them under ``attn_tp``
+    or ``mla_tp``: the leaves every rank holds whole but uses for its
+    heads alone, the qk-norm scales and MLA's ``wkv_a`` (the latent and
+    its caches stay whole), pass through ``copy_to_model`` (their
+    gradients are partial per rank and are summed once); under
+    ``kv_shared`` so do the gathered ``wk`` and ``wv``, cut to the columns
+    of the rank's KV head.  ``cfg`` becomes ``tp_local_cfg``: a cache made
+    for it holds the rank's KV heads.  Otherwise (p, cfg) as given."""
+    if not (attn_tp(cfg) or mla_tp(cfg)):
+        return p, cfg
+    group = model_group(cfg)
+    p = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = {k: coll.copy_to_model(v, group)
+                       for k, v in p[name].items()}
+    if "wkv_a" in p:
+        p["wkv_a"] = coll.copy_to_model(p["wkv_a"], group)
+    if kv_shared(cfg):
+        lo = kv_head(cfg) * cfg.head_dim
+        for name in ("wk", "wv"):
+            p[name] = coll.copy_to_model(p[name], group)[
+                ..., lo:lo + cfg.head_dim]
+    return p, tp_local_cfg(cfg)
+
+
+def _tensor_parallel(fn=None, *, sources: int = 0):
     """``fn(p, cfg, x, ...)`` on the rank's heads under ``attn_tp`` or
-    ``mla_tp``: the input enters the region through ``copy_to_model`` (its
-    gradient is all-reduced over 'model'), q/k/v are the rank's column
-    shards (H/model query heads and their KV/model KV heads, so the flash
+    ``mla_tp``: the input, and the ``sources`` positional arguments after
+    it (a cross-attention's encoder output), enter the region through
+    ``copy_to_model`` (their gradients are all-reduced over 'model'), q/k/v
+    are the rank's column shards (H/model query heads and their KV/model
+    KV heads, or their one KV head under ``kv_shared``, so the flash
     kernel runs on the local heads; an MLA layer's ``wkv_b`` is packed,
     its shard the rank's K and V columns), ``wo`` its row shard, and the
-    partial outputs are all-reduced over 'model'.  The leaves every rank
-    holds whole but uses for its heads alone, the qk-norm scales and
-    MLA's ``wkv_a`` (the latent and its caches stay whole), pass through
-    ``copy_to_model`` too: their gradients are partial per rank and are
-    summed once.  ``cfg`` inside is ``tp_local_cfg``: a cache made for it
-    holds the rank's KV heads.  Otherwise ``fn`` as is."""
+    partial outputs are all-reduced over 'model'.  ``p`` and ``cfg``
+    inside are ``head_params``'.  Otherwise ``fn`` as is."""
+    if fn is None:
+        return functools.partial(_tensor_parallel, sources=sources)
+
     @functools.wraps(fn)
     def run(p, cfg, x, *args, **kwargs):
         if not (attn_tp(cfg) or mla_tp(cfg)):
             return fn(p, cfg, x, *args, **kwargs)
         group = model_group(cfg)
-        p = dict(p)
-        for name in ("q_norm", "k_norm"):
-            if name in p:
-                p[name] = {k: coll.copy_to_model(v, group)
-                           for k, v in p[name].items()}
-        if "wkv_a" in p:
-            p["wkv_a"] = coll.copy_to_model(p["wkv_a"], group)
-        res = fn(p, tp_local_cfg(cfg), coll.copy_to_model(x, group), *args,
-                 **kwargs)
+        p, local = head_params(p, cfg)
+        args = tuple(coll.copy_to_model(a, group) if i < sources else a
+                     for i, a in enumerate(args))
+        res = fn(p, local, coll.copy_to_model(x, group), *args, **kwargs)
         if isinstance(res, tuple):
             return (coll.reduce_from_model(res[0], group),) + res[1:]
         return coll.reduce_from_model(res, group)
@@ -130,8 +155,9 @@ def _tensor_parallel(fn):
 
 
 def cache_cfg(cfg: ModelConfig) -> ModelConfig:
-    """The config a layer's contiguous cache is made for: a rank's share of
-    the KV heads under ``attn_tp``, else ``cfg``."""
+    """The config a layer's caches are made for: a rank's share of the KV
+    heads under ``attn_tp`` (its one KV head under ``kv_shared``), else
+    ``cfg``."""
     return tp_local_cfg(cfg) if attn_tp(cfg) else cfg
 
 

@@ -11,24 +11,36 @@ stays a concat on dim 0 for both.  Self- and cross-attention run through
 the flash kernels on the card (the cross-attention non-causal at
 S_k = T_enc != S_q); decoding attends over the precomputed cross K/V with
 the plain einsum math, as the reference does.
+
+On a mesh (``distributed.context``) every layer takes the decoder-only
+rules: self- and cross-attention on the rank's heads (``attn_tp``: the
+encoder output enters the cross-attention through ``copy_to_model``, each
+rank's heads giving it a partial gradient), the feed-forward on the
+rank's d_ff columns (``mlp_tp``), the tied embedding, head and loss on
+its vocab rows (``vocab_tp``); the decode cache's cross K/V hold the
+rank's KV heads.  Each layer's held shards are gathered for that layer
+alone (``materialize``), the top leaves once.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import materialize
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer
-from repro_torch.models.common import (apply_norm, cross_entropy, embed_init,
-                                       norm_init, normal, resolve_device,
+from repro_torch.models.common import (apply_norm, embed_init, norm_init,
+                                       normal, resolve_device,
                                        sinusoidal_positions)
 from repro_torch.tree import leaves_with_path, tree_map
+
+# The top leaves the encoder reads; the decoder reads the others.
+_ENC_TOP = ("enc_pos", "enc_final_norm")
 
 
 def _enc_layer_init(generator, cfg: ModelConfig, dtype, device):
@@ -89,15 +101,34 @@ def encdec_init(generator, cfg: ModelConfig, dtype=torch.float32,
     return params
 
 
+def _cross_kv(p, cfg: ModelConfig, enc_out):
+    """The cross-attention's K and V of ``enc_out`` (B, T_enc, D): each
+    (B, T_enc, KV, hd)."""
+    shape = enc_out.shape[:2] + (cfg.num_kv_heads, cfg.head_dim)
+    return ((enc_out @ p["wk"]).reshape(shape),
+            (enc_out @ p["wv"]).reshape(shape))
+
+
+@attn._tensor_parallel(sources=1)
 def _cross_attend(p, cfg: ModelConfig, x, enc_out):
     """Decoder-to-encoder attention: full and non-causal, over every one of
     the T_enc frames (the flash kernel at S_k = T_enc on the card)."""
-    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(x.shape[:2] + (H, hd))
-    k = (enc_out @ p["wk"]).reshape(enc_out.shape[:2] + (KVH, hd))
-    v = (enc_out @ p["wv"]).reshape(enc_out.shape[:2] + (KVH, hd))
+    q = (x @ p["wq"]).reshape(x.shape[:2] + (cfg.num_heads, cfg.head_dim))
+    k, v = _cross_kv(p, cfg, enc_out)
     out = fa_ops.flash_attention(q, k, v, causal=False, window=0)
     return out.reshape(x.shape[:2] + (cfg.q_dim,)) @ p["wo"]
+
+
+@attn._tensor_parallel
+def _cross_decode(p, cfg: ModelConfig, x, k, v):
+    """One new token a row (x (B, 1, D)) over the cached cross K/V, every
+    frame valid, with the plain masked-attention math."""
+    B = x.shape[0]
+    q = (x @ p["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    valid = torch.ones((B, 1, k.shape[1]), dtype=torch.bool,
+                       device=x.device)
+    y = paged_ref.masked_gqa_attention(q, k, v, valid)
+    return y.reshape(B, 1, cfg.q_dim) @ p["wo"]
 
 
 def _layers(stack):
@@ -106,44 +137,60 @@ def _layers(stack):
     return [tree_map(lambda x: x[i], stack) for i in range(n)]
 
 
+def _layer(lp, cfg: ModelConfig, stack: str):
+    """One layer's leaves as its layers use them (its held shards gathered
+    for it alone, ``materialize``)."""
+    return materialize(lp, cfg, (stack,))
+
+
+def _decoder_top(params, cfg: ModelConfig):
+    """``params`` with the decoder's top leaves (embedding, positions,
+    final norm) as the layers use them."""
+    top = {k: v for k, v in params.items()
+           if k not in _ENC_TOP + ("enc_blocks", "blocks")}
+    return {**params, **materialize(top, cfg)}
+
+
 def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, T_enc, D) stub frontend embeddings -> encoder output,
     through bidirectional self-attention (``attn_apply(causal=False)``)."""
+    top = materialize({k: params[k] for k in _ENC_TOP}, cfg)
     T = frames.shape[1]
-    x = frames + params["enc_pos"][:T]
+    x = frames + top["enc_pos"][:T]
     if "enc_blocks" in params:
         positions = torch.arange(T, device=x.device)[None, :]
         for lp in _layers(params["enc_blocks"]):
+            lp = _layer(lp, cfg, "enc_blocks")
             h = apply_norm(lp["ln1"], x, cfg.norm)
             x = x + attn.attn_apply(lp["attn"], cfg, h, positions, window=0,
                                     causal=False)
             h = apply_norm(lp["ln2"], x, cfg.norm)
-            x = x + mlp_mod.mlp_apply(lp["mlp"], cfg, h)
-    return apply_norm(params["enc_final_norm"], x, cfg.norm)
+            x = x + mlp_mod.mlp_apply_tp(lp["mlp"], cfg, h)
+    return apply_norm(top["enc_final_norm"], x, cfg.norm)
 
 
-def _head(params, cfg: ModelConfig, x):
-    """Final norm and the head, tied to the embedding as whisper ties it."""
-    return apply_norm(params["final_norm"], x, cfg.norm) @ params["embed"].T
-
-
-def encdec_apply(params, cfg: ModelConfig, tokens, frames,
-                 remat=False) -> Tuple[torch.Tensor, torch.Tensor]:
+def encdec_apply(params, cfg: ModelConfig, tokens, frames, remat=False,
+                 whole_vocab: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S); frames: (B, T_enc, D).  Returns (logits (B, S, V),
     aux = 0).  ``remat`` checkpoints each decoder layer, as the reference
-    checkpoints its scan body."""
+    checkpoints its scan body (on a training mesh the layer's shards are
+    gathered inside it, again in the backward); ``whole_vocab=False``
+    leaves vocab-parallel logits on the rank's vocab columns."""
     enc_out = encode(params, cfg, frames)
+    params = _decoder_top(params, cfg)
     S = tokens.shape[1]
-    x = F.embedding(tokens, params["embed"]) + params["pos_embed"][:S]
+    x = transformer.embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=x.device)[None, :]
 
     def body(lp, x):
+        lp = _layer(lp, cfg, "blocks")
         h = apply_norm(lp["ln1"], x, cfg.norm)
         x = x + attn.attn_apply(lp["self_attn"], cfg, h, positions, window=0)
         h = apply_norm(lp["ln_x"], x, cfg.norm)
         x = x + _cross_attend(lp["cross_attn"], cfg, h, enc_out)
         h = apply_norm(lp["ln2"], x, cfg.norm)
-        return x + mlp_mod.mlp_apply(lp["mlp"], cfg, h)
+        return x + mlp_mod.mlp_apply_tp(lp["mlp"], cfg, h)
 
     policy = transformer.remat_policy(remat)
     if policy is not None and torch.is_grad_enabled():
@@ -151,14 +198,16 @@ def encdec_apply(params, cfg: ModelConfig, tokens, frames,
     if "blocks" in params:
         for lp in _layers(params["blocks"]):
             x = body(lp, x)
-    return _head(params, cfg, x), torch.zeros((), device=x.device)
+    return (transformer._head(params, cfg, x, whole_vocab),
+            torch.zeros((), device=x.device))
 
 
 def encdec_loss(params, cfg: ModelConfig, tokens, labels, frames, mask=None,
                 remat=False):
     """Returns (loss, {"ce": loss, "aux": 0})."""
-    logits, aux = encdec_apply(params, cfg, tokens, frames, remat=remat)
-    loss = cross_entropy(logits, labels, mask)
+    logits, aux = encdec_apply(params, cfg, tokens, frames, remat=remat,
+                               whole_vocab=False)
+    loss = transformer.token_loss(logits, cfg, labels, mask)
     return loss, {"ce": loss, "aux": aux}
 
 
@@ -172,21 +221,23 @@ def encdec_init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda"):
     """Per decoder layer (leading stacked axis): the self-attention's K/V
     cache (``attn.init_kv_cache``) and the cross-attention's K/V of
-    ``enc_out`` (B, T_enc, D), computed once here."""
+    ``enc_out`` (B, T_enc, D), computed once here; on a mesh both hold
+    the rank's KV heads (``attn.cache_cfg``)."""
     if "blocks" not in params:
         return {}
     dev = resolve_device(device)
-    KVH, hd = cfg.num_kv_heads, cfg.head_dim
     layers = _layers(params["blocks"])
-    self_one = attn.init_kv_cache(cfg, batch, max_len, dtype, device="meta")
+    self_one = attn.init_kv_cache(attn.cache_cfg(cfg), batch, max_len, dtype,
+                                  device="meta")
     cache = {"self": {k: torch.zeros((len(layers),) + tuple(t.shape),
                                      dtype=dtype, device=dev)
                       for k, t in self_one.items()}}
-    for key, w in (("cross_k", "wk"), ("cross_v", "wv")):
-        cache[key] = torch.stack([
-            (enc_out @ lp["cross_attn"][w]).reshape(
-                enc_out.shape[:2] + (KVH, hd)) for lp in layers]).to(
-                    device=dev, dtype=dtype)
+    kv = [_cross_kv(*attn.head_params(materialize(
+              lp["cross_attn"], cfg, ("blocks", "cross_attn")), cfg), enc_out)
+          for lp in layers]
+    for i, key in enumerate(("cross_k", "cross_v")):
+        cache[key] = torch.stack([t[i] for t in kv]).to(device=dev,
+                                                        dtype=dtype)
     return cache
 
 
@@ -199,25 +250,22 @@ def encdec_decode_step(params, cfg: ModelConfig, tokens, cache, index):
     index = torch.as_tensor(index, device=tokens.device).long()
     if index.ndim == 0:
         index = index.expand(B)
-    x = F.embedding(tokens, params["embed"]) \
+    params = _decoder_top(params, cfg)
+    x = transformer._embed_lookup(params, cfg, tokens) \
         + transformer._pos_embed(params, index)[:, None, :]
     positions = index[:, None]
-    H, hd = cfg.num_heads, cfg.head_dim
     if "blocks" in params:
         for i, lp in enumerate(_layers(params["blocks"])):
+            lp = _layer(lp, cfg, "blocks")
             c = tree_map(lambda t: t[i], cache)
             h = apply_norm(lp["ln1"], x, cfg.norm)
             y, _ = attn.attn_decode(lp["self_attn"], cfg, h, c["self"], index,
                                     positions, window=0)
             x = x + y
             h = apply_norm(lp["ln_x"], x, cfg.norm)
-            ca = lp["cross_attn"]
-            q = (h @ ca["wq"]).reshape(B, 1, H, hd)
-            k, v = c["cross_k"].to(x.dtype), c["cross_v"].to(x.dtype)
-            valid = torch.ones((B, 1, k.shape[1]), dtype=torch.bool,
-                               device=x.device)
-            y = paged_ref.masked_gqa_attention(q, k, v, valid)
-            x = x + y.reshape(B, 1, cfg.q_dim) @ ca["wo"]
+            x = x + _cross_decode(lp["cross_attn"], cfg, h,
+                                  c["cross_k"].to(x.dtype),
+                                  c["cross_v"].to(x.dtype))
             h = apply_norm(lp["ln2"], x, cfg.norm)
-            x = x + mlp_mod.mlp_apply(lp["mlp"], cfg, h)
-    return _head(params, cfg, x), cache
+            x = x + mlp_mod.mlp_apply_tp(lp["mlp"], cfg, h)
+    return transformer._head(params, cfg, x), cache

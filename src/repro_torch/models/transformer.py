@@ -376,13 +376,18 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, embeds=None,
                            whole_vocab=False)
     if embeds is not None:
         logits = logits[:, embeds.shape[1]:]
+    loss = token_loss(logits, cfg, labels, mask)
+    return loss + aux, {"ce": loss, "aux": aux}
+
+
+def token_loss(logits, cfg: ModelConfig, labels, mask=None):
+    """Mean cross entropy of ``logits`` (B, S, V), or under ``vocab_tp`` of
+    the rank's vocab columns (``_head(whole_vocab=False)``)."""
     if vocab_tp(cfg):
-        loss = vocab_parallel_cross_entropy(
+        return vocab_parallel_cross_entropy(
             logits, labels, model_group(cfg), tp_rank() * logits.shape[-1],
             mask)
-    else:
-        loss = cross_entropy(logits, labels, mask)
-    return loss + aux, {"ce": loss, "aux": aux}
+    return cross_entropy(logits, labels, mask)
 
 
 # ---------------------------------------------------------------------------

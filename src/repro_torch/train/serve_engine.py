@@ -68,8 +68,11 @@ puts a cache's batch dim, and tensor parallelism splits attention and
 MLA heads, d_ff, experts, Mamba channels, RWKV6 heads and vocab over
 'model' where they divide (``distributed.context.keeps_model_split``):
 the engine slices each rank's shards at load, the other leaves held
-whole.  A rank's caches, contiguous rows, pool pages and rings, hold the
-KV heads it computes where KV divides 'model', all of them otherwise;
+whole (``wk``/``wv`` among them where 'model' ranks share a KV head:
+the layer cuts its head's columns).  A rank's caches, contiguous rows,
+pool pages and rings, hold the KV heads it computes: KV/model of them
+where KV divides 'model', its one KV head where 'model' is a multiple
+of KV, all of them where its attention computes whole;
 its Mamba states hold its channels and its RWKV6 WKV states its heads;
 MLA's latent caches have no head axis and are whole.  That is a
 deliberate departure from ``cache_shardings``, which puts the longest
@@ -569,16 +572,18 @@ class ServeEngine:
         layers, scale leaves included: quantization changes no page count,
         so the ratio to an f32 pool is the quantized mode's capacity win.
         ``kv_dtype='engine'`` prices this engine's pool; pass a dtype (or
-        None for cache_dtype) to price another.  Shapes only: nothing is
-        allocated."""
+        None for cache_dtype) to price another.  On a mesh, the pool this
+        rank holds (its KV heads under tensor parallelism).  Shapes only:
+        nothing is allocated."""
         if not self.paged:
             raise ValueError("kv_bytes_per_token is defined for paged "
                              "engines")
         kv = self.kv_dtype if kv_dtype == "engine" \
             else resolve_kv_dtype(kv_dtype)
-        tree = self.api.init_paged_cache(
-            self.params, self.cfg, 1, 1, self.block_size, self.max_len,
-            self.cache_dtype, kv, device="meta")
+        with mesh_scope(self._ctx):
+            tree = self.api.init_paged_cache(
+                self.params, self.cfg, 1, 1, self.block_size, self.max_len,
+                self.cache_dtype, kv, device="meta")
         total = 0.0
         for path, leaf in leaves_with_path(tree):
             if steps_lib._is_paged_leaf(path):

@@ -28,8 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as coll
 from repro_torch.models import registry, transformer
 from repro_torch.distributed.context import (MeshContext, dp_axes,
-                                            leaf_sq_sum, materialize,
-                                            mesh_scope)
+                                            leaf_sq_sum, mesh_scope)
 from repro_torch.optim.base import Optimizer
 from repro_torch.tree import leaves_with_path, tree_map
 
@@ -122,9 +121,9 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
 
     ``mesh`` (a ``MeshContext`` with the leaves' specs): params, moments
     and gradients are the rank's shards and ``batch`` its rows.  The
-    forward gathers each super-block's shards
-    (``distributed.context.materialize``; an encoder-decoder gathers every
-    leaf up front), the gradients come back all-reduced over the DP axes to the shards, the
+    forward gathers each super-block's shards (an encoder-decoder's each
+    layer's; ``distributed.context.materialize``), the gradients come
+    back all-reduced over the DP axes to the shards, the
     loss and metrics are means over the DP ranks, and the global norms
     count every element once."""
     transformer.remat_policy(remat)          # raises on an unknown knob
@@ -135,8 +134,6 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, schedule: Callable,
         leaves = {k: v.detach().requires_grad_() for k, v in flat.items()}
         with torch.enable_grad():
             tree = bridge.unflatten(leaves)
-            if mesh is not None and cfg.is_encoder_decoder:
-                tree = materialize(tree, cfg)
             loss, metrics = api.loss(tree, cfg, batch, remat=remat)
             grads = torch.autograd.grad(loss, list(leaves.values()),
                                         allow_unused=True)
@@ -226,8 +223,6 @@ def make_eval_step(cfg: ModelConfig,
 
     @torch.no_grad()
     def eval_step(params, batch):
-        if mesh is not None and cfg.is_encoder_decoder:
-            params = materialize(params, cfg)
         _, metrics = api.loss(params, cfg, batch)
         return _dp_mean(mesh, metrics["ce"])
 

@@ -203,19 +203,25 @@ def _opt_cfg(name):
 def layer_grads(cfg, params_np: dict, tokens: np.ndarray,
                 labels: np.ndarray, mesh: Optional[str],
                 device: str = "cpu", layout: str = "tp",
-                moe_fsdp: str = "auto") -> dict:
+                moe_fsdp: str = "auto",
+                frames: Optional[np.ndarray] = None) -> dict:
     """One loss and its gradients on ``mesh`` (None: one device) from the
     whole ``params_np``: the loss (the mean over the DP ranks' rows), every
     leaf's gradient gathered whole, the leaves ``materialize`` gathered
     over 'model' (``model_gathers``, as keystrs), the shape each leaf has
-    as its layer uses it (under the mesh's 'model' split) and the
+    as its layer uses it (under the mesh's 'model' split), the shapes of
+    q and k each flash call of the loss took (``flash_shapes``) and the
     kernels' launches (this rank's counters); ``layout`` and
-    ``moe_fsdp`` as the trainer takes them."""
+    ``moe_fsdp`` as the trainer takes them; ``frames``: an
+    encoder-decoder's batch frames."""
     from repro_torch.distributed import context
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     api = registry.get_model(cfg)
     params = _tensors(params_np, device)
     batch = {"tokens": torch.from_numpy(np.asarray(tokens)).long(),
              "labels": torch.from_numpy(np.asarray(labels)).long()}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(np.asarray(frames))
     zero_launch_counts()
     if mesh is None:
         flat = {k: v.requires_grad_() for k, v in
@@ -248,22 +254,135 @@ def layer_grads(cfg, params_np: dict, tokens: np.ndarray,
         gathered.add(bridge.keystr(path))
         return held_parts(path, *a)
 
+    flash_shapes = []
+    flash = fa_ops.flash_attention
+
+    def recording(q, k, *a, **kw):
+        flash_shapes.append((tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, *a, **kw)
+
     with mesh_scope(ctx):
         tree = bridge.unflatten(flat)
         with torch.no_grad():
             used = {bridge.keystr(p): tuple(x.shape) for p, x in
                     leaves_with_path(context.materialize(tree, cfg))}
         context.held_parts = counting
+        fa_ops.flash_attention = recording
         try:
             loss, _ = api.loss(tree, cfg, rows)
         finally:
             context.held_parts = held_parts
+            fa_ops.flash_attention = flash
         grads = torch.autograd.grad(loss, list(flat.values()))
         loss = context.dp_mean(loss.detach())
     whole = _gather_tree(bridge.unflatten(dict(zip(flat, grads))), specs, m)
     return {"loss": float(loss), "counts": launch_counts(),
             "grads": _numpy(bridge.flatten(whole)),
-            "model_gathers": sorted(gathered), "used_shapes": used}
+            "model_gathers": sorted(gathered), "used_shapes": used,
+            "flash_shapes": flash_shapes}
+
+
+def encdec_train(cfg, params_np: Optional[dict], batches: List[dict],
+                 mesh: Optional[str], device: str = "cpu",
+                 card_seed: Optional[int] = None, count: bool = False,
+                 want_params: bool = False) -> dict:
+    """An encoder-decoder's Muon-NSGD steps under WSD (the configs'
+    defaults, lr 0.01 over 10 steps) through ``make_train_step``, one a
+    batch of ``batches`` (numpy tokens, labels and frames), on ``mesh``
+    (None: one device) from ``params_np`` or weights drawn on the card
+    (``card_seed``): each step's loss and seconds, the kernels' launches
+    (``count``: this rank's counters, zeroed just before) and the final
+    params gathered whole (``want_params``)."""
+    from repro_torch.configs.base import OptimizerConfig, ScheduleConfig
+    from repro_torch.core.schedules import make_schedule
+    m = mesh_for(mesh, device) if mesh else None
+    dev = m.device if m else device
+    params = card_params(cfg, card_seed, dev) if card_seed is not None \
+        else _tensors(params_np, dev)
+    ctx = specs = None
+    if m is not None:
+        specs = shd.params_shardings(registry.get_model(cfg).init(
+            None, cfg, device="meta"), m)
+        flat_specs = dict(leaves_with_path(specs))
+        params = tree_map_with_path(
+            lambda path, x: coll.shard_leaf(x, flat_specs[path], m,
+                                            path).clone(), params)
+        ctx = MeshContext(m, "tp", flat_specs)
+    opt = make_optimizer(OptimizerConfig())
+    state = opt.init(params)
+    step = steps_lib.make_train_step(
+        cfg, opt, make_schedule(ScheduleConfig(), 0.01, 10), mesh=ctx)
+    if count:
+        zero_launch_counts()
+    losses, seconds = [], []
+    for i, b in enumerate(batches):
+        rows = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+        rows = {k: v.long() if k != "frames" else v for k, v in rows.items()}
+        if m is not None:
+            axes = shd.batch_axes(rows["tokens"].shape[0], m)
+            n, j = m.axes_size(axes), m.axes_index(axes)
+            rows = {k: v.reshape((n, -1) + tuple(v.shape[1:]))[j]
+                    for k, v in rows.items()}
+        rows = {k: v.to(dev) for k, v in rows.items()}
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, rows, i)
+        losses.append(float(metrics["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    out = {"losses": losses, "step_s": seconds}
+    if count:
+        out["counts"] = launch_counts()
+    if want_params:
+        if m is not None:
+            params = _gather_tree(params, specs, m)
+        out["params"] = _numpy(bridge.flatten(params))
+    return out
+
+
+def encdec_decode(cfg, params_np: Optional[dict], frames: np.ndarray,
+                  num_tokens: int, mesh: Optional[str], device: str = "cpu",
+                  card_seed: Optional[int] = None,
+                  count: bool = False) -> dict:
+    """Greedy decoding of ``num_tokens`` tokens a row from token 0 through
+    ``encdec_decode_step`` over the encoder's output of ``frames``, on
+    ``mesh`` under the serving placement (``serve_engine.place_params``;
+    None: one device), from ``params_np`` or weights drawn on the card:
+    the tokens (B, 1 + num_tokens), each step's logits (B, num_tokens, V),
+    whole on every rank, the cache's leaf shapes on this rank and the
+    kernels' launches (``count``)."""
+    from repro_torch.models import encdec
+    from repro_torch.train.serve_engine import place_params
+    m = mesh_for(mesh, device) if mesh else None
+    dev = m.device if m else device
+    api = registry.get_model(cfg)
+    params = card_params(cfg, card_seed, dev) if card_seed is not None \
+        else _tensors(params_np, dev)
+    ctx = None
+    if m is not None:
+        params, ctx = place_params(cfg, params, m)
+        params = tree_map(lambda x: x.to(dev), params)
+    B = frames.shape[0]
+    if count:
+        zero_launch_counts()
+    with torch.inference_mode(), mesh_scope(ctx):
+        enc = encdec.encode(params, cfg, torch.from_numpy(
+            np.asarray(frames)).to(dev))
+        cache = api.init_cache(params, cfg, B, num_tokens + 1,
+                               torch.float32, device=dev, enc_out=enc)
+        toks = [torch.zeros((B, 1), dtype=torch.long, device=dev)]
+        logits = []
+        for t in range(num_tokens):
+            lg, cache = api.decode_step(params, cfg, toks[-1], cache,
+                                        torch.full((B,), t, device=dev))
+            logits.append(lg)
+            toks.append(lg.argmax(-1))
+    out = {"tokens": torch.cat(toks, dim=1).cpu().numpy(),
+           "logits": torch.cat(logits, dim=1).float().cpu().numpy(),
+           "cache_shapes": {bridge.keystr(p): tuple(x.shape)
+                            for p, x in leaves_with_path(cache)}}
+    if count:
+        out["counts"] = launch_counts()
+    return out
 
 
 def expand_logits(cfg, target: int, method: str, params_np: dict,
@@ -381,15 +500,18 @@ def copy_step(src: str, dst: str, step: int, mesh: str,
 
 
 def flash_local(shape, seed: int = 0, device: str = "cuda",
-                kv_heads: int | None = None) -> dict:
+                kv_heads: int | None = None, s_k: int | None = None,
+                causal: bool = True) -> dict:
     """The flash kernel forward and backward at a rank's local shape
-    (B, S, H, hd) of q, over ``kv_heads`` K/V heads (H by default),
-    against its plain version on the same inputs (float32, causal): max
-    abs errors of out, dq, dk, dv.  The launches count nowhere: the
-    caller reads its main path's counters before."""
+    (B, S, H, hd) of q, over ``kv_heads`` K/V heads (H by default) of
+    ``s_k`` keys (S by default; a cross-attention's, ``causal=False``),
+    against its plain version on the same inputs (float32): max abs
+    errors of out, dq, dk, dv.  The launches count nowhere: the caller
+    reads its main path's counters before."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     B, S, H, hd = shape
-    kv_shape = (B, S, H if kv_heads is None else kv_heads, hd)
+    kv_shape = (B, S if s_k is None else s_k,
+                H if kv_heads is None else kv_heads, hd)
     g = torch.Generator(device="cpu").manual_seed(seed)
     q, k, v, do = (torch.randn(s, generator=g).to(device)
                    for s in (shape, kv_shape, kv_shape, shape))
@@ -397,7 +519,7 @@ def flash_local(shape, seed: int = 0, device: str = "cuda",
     outs = {}
     for force in ("kernel", "ref"):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = fa_ops.flash_attention(*leaves, causal=True, force=force)
+        out = fa_ops.flash_attention(*leaves, causal=causal, force=force)
         grads = torch.autograd.grad(out, leaves, do)
         outs[force] = (out.detach(),) + tuple(grads)
     for name, a, b in zip(("out", "dq", "dk", "dv"), outs["kernel"],
@@ -540,6 +662,16 @@ def radix_pages_hash(state) -> Optional[str]:
     return h.hexdigest()
 
 
+def pool_bytes(state) -> Optional[int]:
+    """The bytes of the paged pool's leaves (pages and scale pages) this
+    rank holds in ``state``; None without a state."""
+    if state is None:
+        return None
+    return sum(leaf.numel() * leaf.element_size()
+               for path, leaf in leaves_with_path(state.cache)
+               if steps_lib._is_paged_leaf(path))
+
+
 class TickClock:
     """A virtual clock: every reading advances it by ``dt``; a sleep
     jumps."""
@@ -587,7 +719,8 @@ def cserve(cfg, params_np: Optional[dict], requests: List[dict],
     counters); the kernels' launches in the timed run (``count``: this
     rank's counters, zeroed just before it); ``summarize``'s metrics and
     the run's seconds; ``radix_hash`` (:func:`radix_pages_hash` of the
-    final state) and what the engine holds (:func:`held`).
+    final state), what the engine holds (:func:`held`) and the final
+    state's pool bytes (:func:`pool_bytes`).
     ``ckpt_dir``: serve its latest checkpoint's params instead of
     ``params_np``; ``card_seed``: weights drawn on the card.
 
@@ -665,7 +798,7 @@ def cserve(cfg, params_np: Optional[dict], requests: List[dict],
            "crashed": crashed,
            "summary": summarize(results, seconds), "seconds": seconds,
            "radix_hash": radix_pages_hash(sched.last_state), "rank": rank,
-           "held": held(eng)}
+           "held": held(eng), "pool_bytes": pool_bytes(sched.last_state)}
     if count:
         out["counts"] = launch_counts()
     return out
